@@ -1,0 +1,414 @@
+"""Configurable decoder-only transformer (counterpart of
+``fairness_llm_tpu/models/transformer.py``).
+
+One forward path for every family: ``ModelConfig`` flags choose RoPE or
+learned positions, RMSNorm or LayerNorm, gated or plain MLP, sliding window
+and the GQA ratio. Batches are **left-padded**, so the KV write index is the
+same for every row. Parameters keep the reference's names and its ``[in,
+out]`` kernel layout (``layer_{i}.attn.q_proj.kernel``, ...), so a flax tree
+maps onto them one to one (``runtime/weights.params_from_jax``). Matrix
+products run in the config dtype; norms and the softmax in float32.
+
+Unlike the reference's functional cache, the KV cache here is updated in
+place: the forward writes the new keys and values into the preallocated
+tensors and advances ``index``/``lengths``, which saves a copy of the cache
+per step.
+
+Attention routes as the reference's does, minus its TPU, VMEM and tile-shape
+conditions:
+
+- the hand-written flash kernel (``ops/flash_attention``) takes a left-padded
+  prefill (S > 1) with no shared prefix when ``use_flash_attention`` is set;
+- the hand-written decode kernel (``ops/decode_attention``) takes a cached
+  single-token step when ``use_decode_attention_kernel`` is set and there is
+  no sliding window;
+- everything else (the shared-prefix joint-softmax prefill, sliding-window
+  decode, the flags off) takes the dense branch, which the reference also
+  computes outside its kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fairness_llm_tpu_torch.models.configs import ModelConfig
+from fairness_llm_tpu_torch.ops import decode_attention as decode_ops
+from fairness_llm_tpu_torch.ops import flash_attention as flash_ops
+
+
+def dtype_of(config: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# KV cache (preallocated, written in place)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LayerCache:
+    k: torch.Tensor  # [B, max_len, n_kv, head_dim]
+    v: torch.Tensor  # [B, max_len, n_kv, head_dim]
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode state shared across layers: ``index`` is the uniform next-write
+    slot; ``key_valid`` marks real cached keys; ``key_positions`` holds their
+    positions (for the sliding window); ``lengths`` counts real tokens per
+    row (the next position)."""
+
+    layers: List[LayerCache]
+    key_valid: torch.Tensor  # [B, max_len] bool
+    key_positions: torch.Tensor  # [B, max_len] int64
+    index: int
+    lengths: torch.Tensor  # [B] int64
+
+    @property
+    def max_len(self) -> int:
+        return self.layers[0].k.shape[1]
+
+
+def init_cache(config: ModelConfig, batch_size: int, max_len: int,
+               dtype: Optional[torch.dtype] = None,
+               device: Optional[torch.device] = None) -> KVCache:
+    if config.kv_cache_quant:
+        raise NotImplementedError("the int8 KV cache is not ported")
+    dtype = dtype or dtype_of(config)
+    shape = (batch_size, max_len, config.num_kv_heads, config.head_dim)
+    layers = [
+        LayerCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+        for _ in range(config.num_layers)
+    ]
+    return KVCache(
+        layers=layers,
+        key_valid=torch.zeros((batch_size, max_len), dtype=torch.bool, device=device),
+        key_positions=torch.zeros((batch_size, max_len), dtype=torch.long, device=device),
+        index=0,
+        lengths=torch.zeros((batch_size,), dtype=torch.long, device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+class Dense(nn.Module):
+    """``x @ kernel (+ bias)`` with the kernel stored ``[in, out]``, computed
+    in ``dtype`` (flax ``DenseGeneral``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def forward(self, x):
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.empty(dim))
+
+    def forward(self, x):
+        x32 = x.float()
+        normed = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + self.eps)
+        return (normed * self.scale.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=float32)``: statistics by the fast variance
+    ``E[x^2] - E[x]^2`` (clipped at 0) and a float32 output."""
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = (x32.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0.0)
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.scale.float())
+        return y + self.bias.float()
+
+
+def _norm(config: ModelConfig) -> nn.Module:
+    if config.norm == "rmsnorm":
+        return RMSNorm(config.d_model, config.norm_eps)
+    return LayerNorm(config.d_model, config.norm_eps)
+
+
+def rope_tables(positions: torch.Tensor, d: int, theta: float):
+    """(cos, sin), each [B, S, 1, d/2] float32, for ``apply_rope``. The
+    forward computes them once and every layer reuses them."""
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=positions.device) / d))
+    angles = positions[..., None].float() * freqs  # [B, S, D/2]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotary position embedding on split halves (not interleaved)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary position embedding. x: [B, S, H, D], positions: [B, S]."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def _activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name in ("gelu", "gelu_tanh"):
+        # flax nn.gelu is the tanh approximation by default, for both names.
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name}")
+
+
+class Attention(nn.Module):
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        cfg = self.config = config
+        if cfg.weight_quant != "none":
+            raise NotImplementedError("int8 weight-only serving is not ported")
+        if cfg.attention_impl != "xla":
+            raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported")
+        dt = dtype_of(cfg)
+        qkv_bias = cfg.use_bias or cfg.qkv_bias
+        self.q_proj = Dense(cfg.d_model, cfg.q_dim, qkv_bias, dt)
+        self.k_proj = Dense(cfg.d_model, cfg.kv_dim, qkv_bias, dt)
+        self.v_proj = Dense(cfg.d_model, cfg.kv_dim, qkv_bias, dt)
+        self.o_proj = Dense(cfg.q_dim, cfg.d_model, cfg.use_bias, dt)
+
+    def forward(self, x, positions, cache_layer: Optional[LayerCache],
+                cache_index: Optional[int], key_valid, key_positions,
+                left_padded: bool = False,
+                shared_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        # shared_kv: (k, v) each [Pc, Hkv, D], a prompt prefix common to every
+        # row at positions 0..Pc-1, always visible; read once per step.
+        # rope_cs: rope_tables(positions) when the caller computed them.
+        cfg = self.config
+        dtype = dtype_of(cfg)
+        B, S, _ = x.shape
+        H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = self.q_proj(x).reshape(B, S, H, D)
+        k = self.k_proj(x).reshape(B, S, Hkv, D)
+        v = self.v_proj(x).reshape(B, S, Hkv, D)
+        if cfg.pos_emb == "rope":
+            cos, sin = rope_cs or rope_tables(positions, D, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+
+        if cache_layer is not None:
+            cache_layer.k[:, cache_index:cache_index + S] = k.to(dtype)
+            cache_layer.v[:, cache_index:cache_index + S] = v.to(dtype)
+            keys, values = cache_layer.k, cache_layer.v
+        else:
+            keys, values = k, v
+
+        if (shared_kv is None and cfg.use_flash_attention and left_padded
+                and S > 1):
+            # First prefill (or no cache): the new k/v are the whole key set.
+            lengths = key_valid[:, :S].sum(dim=1, dtype=torch.int32)
+            out = flash_ops.flash_attention(
+                q.transpose(1, 2), k.to(dtype).transpose(1, 2),
+                v.to(dtype).transpose(1, 2), lengths, causal=True,
+                window=cfg.sliding_window,
+            ).transpose(1, 2)
+        elif (cfg.use_decode_attention_kernel and S == 1 and cache_layer is not None
+              and cfg.sliding_window is None):
+            # key_valid alone is the mask: slots past the write index are
+            # invalid, so causality is already encoded.
+            sh = None if shared_kv is None else (
+                shared_kv[0].to(dtype), shared_kv[1].to(dtype))
+            out = decode_ops.decode_attention(q[:, 0], keys, values, key_valid,
+                                              shared_kv=sh)
+        else:
+            out = self._dense(q, keys, values, positions, cache_index,
+                              key_valid, key_positions, shared_kv,
+                              cached=cache_layer is not None)
+        return self.o_proj(out.reshape(B, S, cfg.q_dim))
+
+    def _dense(self, q, keys, values, positions, cache_index, key_valid,
+               key_positions, shared_kv, cached: bool):
+        cfg = self.config
+        dtype = dtype_of(cfg)
+        S = q.shape[1]
+        dev = q.device
+        if cached:
+            # new query i (global slot index+i) sees key slot j iff j <= index+i
+            j_idx = torch.arange(keys.shape[1], device=dev)[None, :]
+            q_idx = cache_index + torch.arange(S, device=dev)[:, None]
+            causal = (j_idx <= q_idx)[None]  # [1, S, K]
+        else:
+            causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()[None]
+        allowed = causal & key_valid[:, None, :]  # [B, S, K]
+        if cfg.sliding_window is not None:
+            delta = positions[:, :, None] - key_positions[:, None, :]
+            allowed = allowed & (delta < cfg.sliding_window)
+
+        rep = cfg.num_heads // cfg.num_kv_heads
+        dense_keys = keys.repeat_interleave(rep, dim=2) if rep > 1 else keys
+        dense_values = values.repeat_interleave(rep, dim=2) if rep > 1 else values
+        scale = cfg.head_dim ** -0.5
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, dense_keys).float() * scale
+        scores = scores.masked_fill(~allowed[:, None], -1e30)
+        if shared_kv is None:
+            probs = torch.softmax(scores, dim=-1).to(dtype)
+            return torch.einsum("bhqk,bkhd->bqhd", probs, dense_values)
+        sk, sv = shared_kv  # [Pc, Hkv, D]
+        if rep > 1:
+            sk = sk.repeat_interleave(rep, dim=1)
+            sv = sv.repeat_interleave(rep, dim=1)
+        s_sh = torch.einsum("bqhd,khd->bhqk", q, sk.to(q.dtype)).float() * scale
+        if cfg.sliding_window is not None:
+            sh_pos = torch.arange(sk.shape[0], device=dev)
+            sh_allowed = (positions[:, :, None] - sh_pos[None, None, :]) < cfg.sliding_window
+            s_sh = s_sh.masked_fill(~sh_allowed[:, None], -1e30)
+        probs = torch.softmax(torch.cat([s_sh, scores], dim=-1), dim=-1).to(dtype)
+        p_sh, p_own = probs[..., :sk.shape[0]], probs[..., sk.shape[0]:]
+        out = torch.einsum("bhqk,khd->bqhd", p_sh, sv.to(dtype))
+        return out + torch.einsum("bhqk,bkhd->bqhd", p_own, dense_values)
+
+
+class MLP(nn.Module):
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        cfg = self.config = config
+        dt = dtype_of(cfg)
+        self.act = _activation(cfg.activation)
+        if cfg.mlp == "glu":
+            self.gate_proj = Dense(cfg.d_model, cfg.d_ff, cfg.use_bias, dt)
+        self.up_proj = Dense(cfg.d_model, cfg.d_ff, cfg.use_bias, dt)
+        self.down_proj = Dense(cfg.d_ff, cfg.d_model, cfg.use_bias, dt)
+
+    def forward(self, x):
+        if self.config.mlp == "glu":
+            h = self.act(self.gate_proj(x)) * self.up_proj(x)
+        else:
+            h = self.act(self.up_proj(x))
+        return self.down_proj(h)
+
+
+class Block(nn.Module):
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        self.attn_norm = _norm(config)
+        self.attn = Attention(config)
+        self.mlp_norm = _norm(config)
+        self.mlp = MLP(config)
+
+    def forward(self, x, positions, cache_layer, cache_index, key_valid,
+                key_positions, left_padded=False, shared_kv=None, rope_cs=None):
+        x = x + self.attn(self.attn_norm(x), positions, cache_layer, cache_index,
+                          key_valid, key_positions, left_padded=left_padded,
+                          shared_kv=shared_kv, rope_cs=rope_cs)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+
+class Transformer(nn.Module):
+    """Decoder-only LM.
+
+    Call patterns (as the reference's ``Transformer.__call__``):
+      - no cache: ``logits, None = model(tokens, positions, token_valid)``
+      - prefill/decode: ``logits, cache = model(..., cache=cache)``, where
+        ``tokens`` fill cache slots ``[cache.index, cache.index + S)``; the
+        cache is updated in place and returned.
+    Logits are float32.
+    """
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        cfg = self.config = config
+        self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
+        if cfg.pos_emb == "learned":
+            self.pos_embedding = nn.Parameter(torch.empty(cfg.max_seq_len, cfg.d_model))
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", Block(cfg))
+        self.final_norm = _norm(cfg)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size))
+
+    def blocks(self) -> List[Block]:
+        return [getattr(self, f"layer_{i}") for i in range(self.config.num_layers)]
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
+                token_valid: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None, left_padded: bool = False,
+                last_only: bool = False,
+                shared_layers: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        cfg = self.config
+        dtype = dtype_of(cfg)
+        B, S = tokens.shape
+        if token_valid is None:
+            token_valid = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
+        positions = positions.long()
+
+        x = self.embedding[tokens].to(dtype)
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+        if cfg.pos_emb == "learned":
+            x = x + self.pos_embedding[positions].to(dtype)
+
+        if cache is not None:
+            if S > cache.max_len - cache.index:
+                raise ValueError(f"writing {S} tokens at slot {cache.index} into a "
+                                 f"cache of max_len {cache.max_len}")
+            idx = cache.index
+            cache.key_valid[:, idx:idx + S] = token_valid
+            cache.key_positions[:, idx:idx + S] = positions
+            key_valid, key_positions = cache.key_valid, cache.key_positions
+        else:
+            key_valid, key_positions = token_valid, positions
+
+        rope_cs = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+                   if cfg.pos_emb == "rope" else None)
+        for i, block in enumerate(self.blocks()):
+            x = block(
+                x, positions, cache.layers[i] if cache is not None else None,
+                cache.index if cache is not None else None, key_valid,
+                key_positions, left_padded=left_padded,
+                shared_kv=shared_layers[i] if shared_layers is not None else None,
+                rope_cs=rope_cs,
+            )
+
+        x = self.final_norm(x)
+        if last_only:
+            x = x[:, -1:, :]
+        # The reference accumulates the logits product in f32 from model-dtype
+        # operands; a bf16 matmul here rounds its output to bf16 before the
+        # cast, which keeps the [D, V] weight read at 2 bytes per element.
+        head = self.embedding.t() if cfg.tie_embeddings else self.lm_head
+        logits = (x @ head.to(x.dtype)).float()
+
+        if cache is not None:
+            cache.index += S
+            cache.lengths += token_valid.sum(dim=1)
+        return logits, cache
