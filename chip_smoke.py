@@ -22,8 +22,15 @@ Phases (any failure exits non-zero, and no result line is printed):
   4. serve the same prompts with no shared prefix (flash prefill at batch
      16 over the whole prompt);
   5. each kernel against its plain version at the shapes of phases 3-4,
-     with timings and the least time the card could take;
-  6. the model's logits with the kernels against the same model run on the
+     held elementwise to 4e-3 + 1e-2 * |plain| (bf16), with timings and the
+     least time the card could take; the same kernel with one key masked
+     out must fail that tolerance, or the gate could not see an off-by-one;
+  6. where a decode call's time goes: the shared-prefix greedy call with 16
+     new tokens, three times untraced, then once under torch.profiler (the
+     device's busy share over the traced call's span, device time by
+     kernel); the SM clock and power draw are sampled with nvidia-smi
+     around every call of phases 3, 4 and 6;
+  7. the model's logits with the kernels against the same model run on the
      plain versions, teacher-forced on 4 prompts: reported at full depth in
      bf16, held to 1e-3 (relative to the largest logit) at full width in
      float32 with the depth cut to 4 layers.
@@ -47,6 +54,11 @@ MODEL = "llama3-8b"
 MAX_TOKENS = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+# Kernel against plain version on bf16 inputs: |got - want| <= ATOL + RTOL *
+# |want| elementwise. Both round one float32 result to bf16, so they differ
+# by at most one ulp (at most 2^-7 of the value).
+ATOL, RTOL = 4e-3, 1e-2
+PROFILE_TOKENS = 16
 K1_REPLACES = "fairness_llm_tpu/ops/flash_attention.py:148"
 K2_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:413"
 WATCHED = [
@@ -82,6 +94,43 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class CardSampler:
+    """Samples the card's SM clock (MHz) and power draw (W) with nvidia-smi
+    every 100 ms while open; ``summary`` holds [min, median, max] of each."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(x) for x in line.split(",")])
+            except ValueError:  # "[N/A]" or a line cut by the terminate
+                continue
+        self.summary = {}
+        for i, key in enumerate(("sm_clock_mhz", "power_w")):
+            vals = sorted(r[i] for r in rows if len(r) == 2)
+            self.summary[key] = [vals[0], vals[len(vals) // 2], vals[-1]] if vals else None
+
+
+def gate(got, want):
+    """(max |got - want|, the largest error over its allowance ATOL + RTOL *
+    |want|); the second is <= 1 where the two agree."""
+    err = (got.float() - want.float()).abs()
+    return float(err.max()), float((err / (ATOL + RTOL * want.float().abs())).max())
 
 
 class Recorder:
@@ -139,7 +188,8 @@ def counterfactual_prompts():
 def serve(backend, prompts, settings, label, **kw):
     from fairness_llm_tpu_torch.pipeline.parsing import parse_numbered_list
 
-    texts = backend.generate(prompts, settings, **kw)
+    with CardSampler() as card:
+        texts = backend.generate(prompts, settings, **kw)
     st = backend.last_stats
     if len(texts) != len(prompts):
         fail(f"{label}: {len(texts)} texts for {len(prompts)} prompts")
@@ -156,7 +206,7 @@ def serve(backend, prompts, settings, label, **kw):
         "decode_ms_per_step": round(st["decode_s"] * 1e3 / steps, 3),
         "decoded_tokens": st["decoded_tokens"],
         "tokens_per_s": round(st["decoded_tokens"] / max(st["decode_s"], 1e-9), 2),
-        "parsed_titles": parsed,
+        "parsed_titles": parsed, "card": card.summary,
     }
     log("serve " + json.dumps(row))
     return row
@@ -172,9 +222,14 @@ def k1_numbers(call, torch, F):
     rep = H // k.shape[1]
     got = fm.flash_attention(q, k, v, lengths, causal=causal, window=window)
     want = fm.flash_attention_reference(q, k, v, lengths, causal=causal, window=window)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    tol = 1e-2 * max(1.0, float(want.float().abs().max()))
+    err, ratio = gate(got, want)
+    # The kernel with every row's first valid key masked out, on the query
+    # rows valid under both masks: the gate must see the difference.
+    short = (lengths - 1).clamp_min(0)
+    shifted = fm.flash_attention(q, k, v, short, causal=causal, window=window)
+    rows = torch.arange(S, device=q.device)[None, :] >= (S - short.long())[:, None]
+    sel = rows[:, None, :, None].expand_as(want)
+    _, shifted_ratio = gate(shifted[sel], want[sel])
     iters = 20
     ms = cuda_ms(lambda: fm.flash_attention(q, k, v, lengths, causal=causal, window=window), iters)
     plain_ms = cuda_ms(lambda: fm.flash_attention_reference(q, k, v, lengths, causal=causal,
@@ -190,8 +245,9 @@ def k1_numbers(call, torch, F):
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qc, ke, ve,
                                                                 attn_mask=mask[:, None]), iters)
     # Bound: the causal, left-padded, windowed score + PV work this input needs
-    # (4*D operations per visible (query, key) pair per head), or the bytes of
-    # q, k, v, o and lengths, whichever takes longer.
+    # (4*D operations per visible (query, key) pair per head), or the bytes
+    # it needs (q, k, v at the valid positions read once, o written whole,
+    # lengths), whichever takes longer.
     pairs = 0
     for L in lengths.tolist():
         n = torch.arange(L, dtype=torch.float64)  # query offset inside the valid run
@@ -200,11 +256,13 @@ def k1_numbers(call, torch, F):
             vis = torch.clamp(vis, max=window)
         pairs += int(vis.sum())
     flops = 4.0 * D * H * pairs
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + 4 * B
+    n_valid = int(lengths.sum())
+    nbytes = (n_valid * (H + 2 * k.shape[1]) * D + q.numel()) * q.element_size() + 4 * B
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {
         "shape": {"q": list(q.shape), "k": list(k.shape), "window": window},
-        "calls": call["n"], "max_abs_err": err, "tol": tol, "ok": err <= tol,
+        "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
+        "shifted_mask_err_over_tol": shifted_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -222,9 +280,14 @@ def k2_numbers(call, torch, F):
     P = 0 if shared is None else shared[0].shape[0]
     got = dm.decode_attention(q, k, v, valid, shared_kv=shared)
     want = dm.decode_attention_reference(q, k, v, valid, shared)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    tol = 1e-2 * max(1.0, float(want.float().abs().max()))
+    err, ratio = gate(got, want)
+    # The kernel with each row's newest valid slot (the token just written)
+    # masked out: the gate must see the difference.
+    slots = torch.arange(L, device=q.device)
+    newest = torch.where(valid.bool(), slots, -1).amax(1)
+    dropped = valid.clone()
+    dropped[torch.arange(B, device=q.device), newest] = False
+    _, shifted_ratio = gate(dm.decode_attention(q, k, v, dropped, shared_kv=shared), want)
     iters = 200
     ms = cuda_ms(lambda: dm.decode_attention(q, k, v, valid, shared_kv=shared), iters)
     plain_ms = cuda_ms(lambda: dm.decode_attention_reference(q, k, v, valid, shared), 20)
@@ -243,19 +306,78 @@ def k2_numbers(call, torch, F):
     m4 = mask[:, None, None, :]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, ke, ve, attn_mask=m4),
                          iters)
-    # Bound: the bytes of the whole cache k/v plus the prefix k/v (and q, o,
-    # valid), or 4*D operations per visible key per head, whichever is longer.
+    # Bound: the bytes this input needs (k/v of the valid cache slots and of
+    # the prefix, q, o and valid), or 4*D operations per visible key per
+    # head, whichever is longer.
     item = k.element_size()
-    nbytes = (2 * B * L * Hkv * D + 2 * P * Hkv * D + 2 * B * H * D) * item + B * L
-    flops = 4.0 * D * H * (B * P + int(valid.sum()))
+    n_valid = int(valid.sum())
+    nbytes = (2 * n_valid * Hkv * D + 2 * P * Hkv * D + 2 * B * H * D) * item + B * L
+    flops = 4.0 * D * H * (B * P + n_valid)
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {
-        "shape": {"q": list(q.shape), "k": list(k.shape), "prefix": P},
-        "calls": call["n"], "max_abs_err": err, "tol": tol, "ok": err <= tol,
+        "shape": {"q": list(q.shape), "k": list(k.shape), "prefix": P,
+                  "valid_slots": n_valid},
+        "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
+        "shifted_mask_err_over_tol": shifted_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
+    }
+
+
+def profiled_decode(backend, prompts, prefix, settings, torch):
+    """The shared-prefix greedy call three times untraced, then once under
+    torch.profiler. The busy share is the union of the device's activity
+    intervals over the traced call's span, so it counts launch gaps as idle;
+    tracing slows the host, so it is a lower bound for the untraced call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def per_step(st):
+        return st["decode_s"] * 1e3 / max(st["decode_steps"], 1)
+
+    untraced = []
+    for _ in range(3):
+        with CardSampler() as card:
+            backend.generate(prompts, settings, prefix_ids=prefix)
+        untraced.append({"decode_ms_per_step": per_step(backend.last_stats),
+                         "card": card.summary})
+    with CardSampler() as card:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("traced_generate"):
+                backend.generate(prompts, settings, prefix_ids=prefix)
+            torch.cuda.synchronize()
+    traced_step_ms = per_step(backend.last_stats)
+    events = prof.events()
+    span = next(e for e in events if e.name == "traced_generate")
+    # Device activity: kernels, copies, sets. The annotation's own device
+    # row spans the whole call, and "Command Buffer Full" is not work.
+    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and e.name not in ("traced_generate", "Command Buffer Full")
+                 and e.time_range.end > e.time_range.start)
+    if not dev:
+        fail("the traced decode call shows no device activity")
+    t0 = min(span.time_range.start, dev[0][0])
+    t1 = max(span.time_range.end, max(d[1] for d in dev))
+    busy, cur_s, cur_e, by_name = 0.0, None, None, {}
+    for start, end, name in dev:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        if cur_e is None or start > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    busy += cur_e - cur_s
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "decode_steps": backend.last_stats["decode_steps"],
+        "untraced": untraced, "traced_decode_ms_per_step": traced_step_ms,
+        "traced_span_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / (t1 - t0), "traced_card": card.summary,
+        "top_device_ms": [{"name": n[:80], "ms": us / 1e3} for n, us in top],
     }
 
 
@@ -408,7 +530,11 @@ def main() -> int:
             log(f"kernel {name} {json.dumps(r)}")
             if not r["ok"]:
                 fail(f"{name} disagrees with its plain version at {r['shape']}: "
-                     f"max_abs_err {r['max_abs_err']} > tol {r['tol']}")
+                     f"max_abs_err {r['max_abs_err']}, {r['err_over_tol']:.2f}x the "
+                     f"tolerance {ATOL} + {RTOL} * |plain|")
+            if r["shifted_mask_err_over_tol"] <= 1:
+                fail(f"{name} at {r['shape']}: one key masked out stays within the "
+                     f"tolerance ({r['shifted_mask_err_over_tol']:.2f}x); the gate is blind")
         # The headline row: the shape the main path launched most (ties: the
         # larger one); every shape is listed under "shapes".
         top = max(rows, key=lambda r: (r["calls"], r["bytes"]))
@@ -421,7 +547,12 @@ def main() -> int:
             "shapes": rows,
         })
 
-    # 6. end-to-end check against the plain versions. In bf16 the random-
+    # 6. where a decode call's time goes
+    prof_row = profiled_decode(backend, prompts, prefix,
+                               ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch)
+    log(f"profile_shared_prefix_greedy {json.dumps(prof_row)}")
+
+    # 7. end-to-end check against the plain versions. In bf16 the random-
     # weight model amplifies one-ulp rounding differences through its 32
     # layers, so that comparison is reported only; the gate is the same
     # width in float32, cut to 4 layers, where kernel and plain version

@@ -5,6 +5,10 @@ with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC``, into ``build/kernels/lib<name>.so`` at the root of the
 checkout. No PyTorch header is included, so a build takes seconds. A library
 newer than its source is reused. A failed build raises; nothing falls back.
+
+The kernels stage k/v rows into shared memory in 16-byte chunks, so a row's
+bytes must be a multiple of 16 and every row must start on a 16-byte
+boundary; ``rows_aligned16`` and ``pad_last_dim`` let a wrapper meet that.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import shutil
 import subprocess
 import threading
 from typing import Callable, Dict, Sequence
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -99,3 +105,19 @@ def check(status: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def rows_aligned16(t: torch.Tensor) -> bool:
+    """Every row (last dimension) of ``t`` starts on a 16-byte boundary and
+    its bytes are a multiple of 16."""
+    item = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] * item % 16 == 0
+            and all(s * item % 16 == 0 for s in t.stride()[:-1]))
+
+
+def pad_last_dim(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A fresh (so aligned) contiguous copy of ``t`` with the last dimension
+    zero-padded to ``n``."""
+    out = t.new_zeros(*t.shape[:-1], n)
+    out[..., :t.shape[-1]] = t
+    return out

@@ -64,71 +64,61 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage `rows` rows of D elements into dst (row stride staged_stride<T>(D)).
+// Stage `rows` rows of D elements into dst (row stride staged_stride<T>(D))
+// with 16-byte cp.async copies: D * sizeof(T) must be a multiple of 16 and
+// every row must start on a 16-byte boundary (the wrappers see to both).
 // row_ptr(j) returns row j's first element in global memory, or nullptr for
-// a row past the end, which is zero-filled. VEC: 16-byte cp.async copies
-// (needs D * sizeof(T) % 16 == 0 and 16-byte aligned rows); otherwise a
-// synchronous element copy.
-template <typename T, bool VEC, typename RowPtr>
+// a row past the end, which is zero-filled.
+template <typename T, typename RowPtr>
 __device__ __forceinline__ void stage_rows(T* dst, int rows, int D, const T* any_valid,
                                            RowPtr row_ptr) {
   const int DS = staged_stride<T>(D);
-  if constexpr (VEC) {
-    constexpr int VE = Vec<T>::kElems;
-    const int cpr = D / VE;
-    for (int i = threadIdx.x; i < rows * cpr; i += blockDim.x) {
-      const int j = i / cpr, c = i - j * cpr;
-      const T* src = row_ptr(j);
-      cp_async16(dst + j * DS + c * VE, src ? src + c * VE : any_valid, src != nullptr);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-      const int j = i / D, d = i - j * D;
-      const T* src = row_ptr(j);
-      dst[j * DS + d] = src ? src[d] : from_f<T>(0.f);
-    }
+  constexpr int VE = Vec<T>::kElems;
+  const int cpr = D / VE;
+  for (int i = threadIdx.x; i < rows * cpr; i += blockDim.x) {
+    const int j = i / cpr, c = i - j * cpr;
+    const T* src = row_ptr(j);
+    cp_async16(dst + j * DS + c * VE, src ? src + c * VE : any_valid, src != nullptr);
   }
 }
 
+// Whether a pointer starts on a 16-byte boundary.
+__host__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // acc += dot(q row (f32, shared), staged key row (T, shared)) over D, for
-// R query rows at once; q rows start 16-byte aligned (D % 4 == 0 when VEC).
-template <typename T, bool VEC, int R>
+// R query rows at once; D is a multiple of Vec<T>::kElems, so q rows start
+// 16-byte aligned.
+template <typename T, int R>
 __device__ __forceinline__ void row_dots(float (&acc)[R], const float* const* q,
                                          const T* krow, int D) {
-  if constexpr (VEC) {
-    constexpr int VE = Vec<T>::kElems;
-    for (int d0 = 0; d0 < D; d0 += VE) {
-      float kf[VE];
-      const uint4 raw = *reinterpret_cast<const uint4*>(krow + d0);
-      if constexpr (sizeof(T) == 2) {
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  constexpr int VE = Vec<T>::kElems;
+  for (int d0 = 0; d0 < D; d0 += VE) {
+    float kf[VE];
+    const uint4 raw = *reinterpret_cast<const uint4*>(krow + d0);
+    if constexpr (sizeof(T) == 2) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-        for (int e = 0; e < VE / 2; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          kf[2 * e] = f.x;
-          kf[2 * e + 1] = f.y;
-        }
-      } else {
-        const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-        for (int e = 0; e < VE; ++e) kf[e] = f[e];
+      for (int e = 0; e < VE / 2; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        kf[2 * e] = f.x;
+        kf[2 * e + 1] = f.y;
       }
+    } else {
+      const float* f = reinterpret_cast<const float*>(&raw);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4* q4 = reinterpret_cast<const float4*>(q[r] + d0);
-#pragma unroll
-        for (int e4 = 0; e4 < VE / 4; ++e4) {
-          const float4 qv = q4[e4];
-          acc[r] += qv.x * kf[4 * e4] + qv.y * kf[4 * e4 + 1] + qv.z * kf[4 * e4 + 2] +
-                    qv.w * kf[4 * e4 + 3];
-        }
-      }
+      for (int e = 0; e < VE; ++e) kf[e] = f[e];
     }
-  } else {
-    for (int d = 0; d < D; ++d) {
-      const float kd = to_f(krow[d]);
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] += q[r][d] * kd;
+    for (int r = 0; r < R; ++r) {
+      const float4* q4 = reinterpret_cast<const float4*>(q[r] + d0);
+#pragma unroll
+      for (int e4 = 0; e4 < VE / 4; ++e4) {
+        const float4 qv = q4[e4];
+        acc[r] += qv.x * kf[4 * e4] + qv.y * kf[4 * e4 + 1] + qv.z * kf[4 * e4 + 2] +
+                  qv.w * kf[4 * e4 + 3];
+      }
     }
   }
 }

@@ -23,9 +23,9 @@
 // are in flight while the block computes on the fourth; that is what hides
 // device-memory latency with only B * Hkv blocks. Each warp owns rep/4 q
 // heads and keeps their running max, normaliser and accumulator (lanes split
-// D) in registers. Any B, any L, any P, any D <= 256; rows whose bytes are
-// not a multiple of 16 take a synchronous element copy instead. Splitting L
-// across blocks (for small B * Hkv), wgmma and TMA come later.
+// D) in registers. Any B, any L, any P, any D <= 256: the wrapper pads D to
+// a multiple of 16 bytes before the launch. Splitting L across blocks (for
+// small B * Hkv), wgmma and TMA come later.
 
 #include "attention_common.cuh"
 
@@ -53,7 +53,7 @@ size_t smem_bytes(int rep, int D) {
 
 // RPW: q heads per warp (rep <= kWarps * RPW). NCH: 32-wide chunks of D per
 // lane (D <= 32 * NCH).
-template <typename T, int RPW, int NCH, bool VEC>
+template <typename T, int RPW, int NCH>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const uint8_t* __restrict__ valid, const T* __restrict__ sk,
@@ -83,11 +83,11 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   auto stage = [&](int t) {
     const int kt = t * kBlockK;
     const int st = t % kStages;
-    stage_rows<T, VEC>(ktile(st), kBlockK, D, kc, [&](int j) -> const T* {
+    stage_rows<T>(ktile(st), kBlockK, D, kc, [&](int j) -> const T* {
       const int n = kt + j;
       return n < P ? skh + n * row_stride : (n < N ? kc + (n - P) * row_stride : nullptr);
     });
-    stage_rows<T, VEC>(vtile(st), kBlockK, D, vc, [&](int j) -> const T* {
+    stage_rows<T>(vtile(st), kBlockK, D, vc, [&](int j) -> const T* {
       const int n = kt + j;
       return n < P ? svh + n * row_stride : (n < N ? vc + (n - P) * row_stride : nullptr);
     });
@@ -132,7 +132,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     float s[RPW];
 #pragma unroll
     for (int r = 0; r < RPW; ++r) s[r] = 0.f;
-    row_dots<T, VEC, RPW>(s, qrow, ks + lane * DS, D);
+    row_dots<T, RPW>(s, qrow, ks + lane * DS, D);
 
 #pragma unroll
     for (int r = 0; r < RPW; ++r) {
@@ -184,12 +184,12 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
-template <typename T, int RPW, int NCH, bool VEC>
+template <typename T, int RPW, int NCH>
 cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* valid,
                    const void* sk, const void* sv, void* o, int B, int H, int Hkv, int L,
                    int D, int P, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(H / Hkv, D);
-  auto kernel = decode_fwd<T, RPW, NCH, VEC>;
+  auto kernel = decode_fwd<T, RPW, NCH>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -207,26 +207,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* v
       const void *sv, void *o, int B, int H, int Hkv, int L, int D, int P, float scale, \
       cudaStream_t stream
 
-template <typename T, int RPW, bool VEC>
+template <typename T, int RPW>
 cudaError_t dispatch_d(DECODE_PARAMS) {
-  if (D <= 32) return launch<T, RPW, 1, VEC>(DECODE_ARGS);
-  if (D <= 64) return launch<T, RPW, 2, VEC>(DECODE_ARGS);
-  if (D <= 128) return launch<T, RPW, 4, VEC>(DECODE_ARGS);
-  if (D <= 256) return launch<T, RPW, 8, VEC>(DECODE_ARGS);
+  if (D <= 32) return launch<T, RPW, 1>(DECODE_ARGS);
+  if (D <= 64) return launch<T, RPW, 2>(DECODE_ARGS);
+  if (D <= 128) return launch<T, RPW, 4>(DECODE_ARGS);
+  if (D <= 256) return launch<T, RPW, 8>(DECODE_ARGS);
   return cudaErrorInvalidValue;
 }
-
-template <typename T, bool VEC>
-cudaError_t dispatch_rep(DECODE_PARAMS) {
-  const int rep = H / Hkv;
-  if (rep <= kWarps) return dispatch_d<T, 1, VEC>(DECODE_ARGS);
-  if (rep <= 2 * kWarps) return dispatch_d<T, 2, VEC>(DECODE_ARGS);
-  if (rep <= 4 * kWarps) return dispatch_d<T, 4, VEC>(DECODE_ARGS);
-  if (rep <= 8 * kWarps) return dispatch_d<T, 8, VEC>(DECODE_ARGS);
-  return cudaErrorInvalidValue;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T>
 cudaError_t dispatch(DECODE_PARAMS) {
@@ -234,15 +222,21 @@ cudaError_t dispatch(DECODE_PARAMS) {
   // start on a 16-byte boundary.
   const bool vec = D % Vec<T>::kElems == 0 && aligned16(k) && aligned16(v) &&
                    (P == 0 || (aligned16(sk) && aligned16(sv)));
-  if (vec) return dispatch_rep<T, true>(DECODE_ARGS);
-  return dispatch_rep<T, false>(DECODE_ARGS);
+  if (!vec) return cudaErrorInvalidValue;
+  const int rep = H / Hkv;
+  if (rep <= kWarps) return dispatch_d<T, 1>(DECODE_ARGS);
+  if (rep <= 2 * kWarps) return dispatch_d<T, 2>(DECODE_ARGS);
+  if (rep <= 4 * kWarps) return dispatch_d<T, 4>(DECODE_ARGS);
+  if (rep <= 8 * kWarps) return dispatch_d<T, 8>(DECODE_ARGS);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q [B,H,D], k/v [B,L,Hkv,D], valid [B,L]
 // (one byte per slot), sk/sv [P,Hkv,D] (ignored when P == 0), o [B,H,D], all
-// contiguous. Returns the CUDA error code of the launch.
+// contiguous, 16-byte aligned, with D a multiple of 16 bytes
+// (cudaErrorInvalidValue otherwise). Returns the CUDA error code of the launch.
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                     const void* valid, const void* sk, const void* sv,
                                     void* o, int B, int H, int Hkv, int L, int D, int P,

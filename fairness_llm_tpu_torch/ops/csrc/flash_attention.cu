@@ -25,8 +25,9 @@
 // before the first valid key (left pads, window) and after the tile's last
 // query (causal) are never loaded. GQA reads kv head h / rep directly.
 // Strides are passed in, so q/k/v/o may be head-major views of a
-// [B,S,H,D] tensor without a copy. Any S and any D <= 256; rows whose bytes
-// are not a multiple of 16 take a synchronous element copy instead.
+// [B,S,H,D] tensor without a copy. Any S and any D <= 256: the wrapper pads
+// D to a multiple of 16 bytes, and copies k/v whose rows do not start on a
+// 16-byte boundary, before the launch.
 
 #include "attention_common.cuh"
 
@@ -59,7 +60,7 @@ size_t smem_bytes(int D) {
 }
 
 // NCH: how many 32-wide chunks of D each lane accumulates (D <= 32 * NCH).
-template <typename T, int NCH, bool VEC>
+template <typename T, int NCH>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, const int* __restrict__ lengths, int H, int Hkv, int S,
@@ -96,10 +97,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   auto stage = [&](int t) {
     const int kt = kt_begin + t * kBlockK;
     const int st = t % kStages;
-    stage_rows<T, VEC>(ktile(st), kBlockK, D, kb, [&](int j) -> const T* {
+    stage_rows<T>(ktile(st), kBlockK, D, kb, [&](int j) -> const T* {
       return kt + j < S ? kb + (kt + j) * kst.s : nullptr;
     });
-    stage_rows<T, VEC>(vtile(st), kBlockK, D, vb, [&](int j) -> const T* {
+    stage_rows<T>(vtile(st), kBlockK, D, vb, [&](int j) -> const T* {
       return kt + j < S ? vb + (kt + j) * vst.s : nullptr;
     });
   };
@@ -140,7 +141,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     float s[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    row_dots<T, VEC, kRows>(s, qrow, ks + lane * DS, D);
+    row_dots<T, kRows>(s, qrow, ks + lane * DS, D);
 
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -191,13 +192,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-template <typename T, int NCH, bool VEC>
+template <typename T, int NCH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* lengths, int B, int H, int Hkv, int S, int D,
                    Strides qst, Strides kst, Strides vst, Strides ost, int causal,
                    int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(D);
-  auto kernel = flash_fwd<T, NCH, VEC>;
+  auto kernel = flash_fwd<T, NCH>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -209,24 +210,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, bool VEC>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       const int* lengths, int B, int H, int Hkv, int S, int D,
-                       Strides qst, Strides kst, Strides vst, Strides ost, int causal,
-                       int window, float scale, cudaStream_t stream) {
-#define FLASH_LAUNCH(NCH)                                                              \
-  return launch<T, NCH, VEC>(q, k, v, o, lengths, B, H, Hkv, S, D, qst, kst, vst, ost, \
-                             causal, window, scale, stream)
-  if (D <= 32) FLASH_LAUNCH(1);
-  if (D <= 64) FLASH_LAUNCH(2);
-  if (D <= 128) FLASH_LAUNCH(4);
-  if (D <= 256) FLASH_LAUNCH(8);
-#undef FLASH_LAUNCH
-  return cudaErrorInvalidValue;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      const int* lengths, int B, int H, int Hkv, int S, int D, Strides qst,
@@ -237,18 +220,25 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   const bool vec = D % ve == 0 && aligned16(k) && aligned16(v) && kst.b % ve == 0 &&
                    kst.h % ve == 0 && kst.s % ve == 0 && vst.b % ve == 0 &&
                    vst.h % ve == 0 && vst.s % ve == 0;
-  if (vec)
-    return dispatch_d<T, true>(q, k, v, o, lengths, B, H, Hkv, S, D, qst, kst, vst, ost,
-                               causal, window, scale, stream);
-  return dispatch_d<T, false>(q, k, v, o, lengths, B, H, Hkv, S, D, qst, kst, vst, ost,
-                              causal, window, scale, stream);
+  if (!vec) return cudaErrorInvalidValue;
+#define FLASH_LAUNCH(NCH)                                                                \
+  return launch<T, NCH>(q, k, v, o, lengths, B, H, Hkv, S, D, qst, kst, vst, ost, causal, \
+                        window, scale, stream)
+  if (D <= 32) FLASH_LAUNCH(1);
+  if (D <= 64) FLASH_LAUNCH(2);
+  if (D <= 128) FLASH_LAUNCH(4);
+  if (D <= 256) FLASH_LAUNCH(8);
+#undef FLASH_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the b, h and
 // s dimensions of q, k, v and o in that order; the d dimension is contiguous.
-// window <= 0 means no window. Returns the CUDA error code of the launch.
+// window <= 0 means no window. D must be a multiple of 16 bytes and k/v rows
+// must start 16-byte aligned (cudaErrorInvalidValue otherwise). Returns the
+// CUDA error code of the launch.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, const void* lengths, int B, int H, int Hkv,
                                    int S, int D, long long qsb, long long qsh,

@@ -9,7 +9,8 @@ every row, always visible) and the row's own cache k/v [B, L, Hkv, D] under
 (``csrc/decode_attention.cu``) for a CUDA tensor and takes the plain version,
 ``decode_attention_reference``, only for a CPU tensor. The int8 cache (k/v
 scales) and the 4-D speculative verify window are not ported: the wrapper
-refuses both.
+refuses both. Where k/v rows are not 16-byte aligned (a D of odd byte size,
+an odd offset), the inputs are copied with D zero-padded before the launch.
 """
 
 from __future__ import annotations
@@ -106,6 +107,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: no keys")
     if valid.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"valid must be bool or uint8, got {valid.dtype}")
+    Dk = D
+    if not all(_build.rows_aligned16(t) for t in [k, v] + list(shared_kv or ())):
+        # Zero columns add nothing to q.k and give output columns cut off below.
+        ve = 16 // q.element_size()
+        Dk = -(-D // ve) * ve
+        q, k, v = (_build.pad_last_dim(t, Dk) for t in (q, k, v))
+        if shared_kv is not None:
+            shared_kv = tuple(_build.pad_last_dim(t, Dk) for t in shared_kv)
     sk_ptr = shared_kv[0].data_ptr() if P else None
     sv_ptr = shared_kv[1].data_ptr() if P else None
     out = torch.empty_like(q)
@@ -113,10 +122,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     status = fn(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         valid.data_ptr(), sk_ptr, sv_ptr, out.data_ptr(),
-        B, H, Hkv, L, D, P, D ** -0.5,
+        B, H, Hkv, L, Dk, P, D ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "decode_attention")
     global launches
     launches += 1
-    return out
+    return out if Dk == D else out[..., :D]

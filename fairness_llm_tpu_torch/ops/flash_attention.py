@@ -9,6 +9,8 @@ window``. An all-masked query row (a left-pad row) gives 0.
 (``csrc/flash_attention.cu``) for a CUDA tensor and takes the plain version,
 ``flash_attention_reference``, only for a CPU tensor. q/k/v may be head-major
 views of [B, S, H, D] tensors: the kernel takes strides, so no copy is made.
+Only where k/v rows are not 16-byte aligned (a D of odd byte size, an odd
+view) are q/k/v copied, with D zero-padded, before the launch.
 """
 
 from __future__ import annotations
@@ -87,16 +89,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} needs a contiguous last dim")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    Dk = D
+    if not (_build.rows_aligned16(k) and _build.rows_aligned16(v)):
+        # Zero columns add nothing to q.k and give output columns cut off below.
+        ve = 16 // q.element_size()
+        Dk = -(-D // ve) * ve
+        q, k, v = (_build.pad_last_dim(t, Dk) for t in (q, k, v))
     out = torch.empty_like(q)  # keeps q's strides (head-major view or not)
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)]
     status = fn(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), B, H, k.shape[1], S, D, *strides,
+        lengths.data_ptr(), B, H, k.shape[1], S, Dk, *strides,
         int(causal), 0 if window is None else int(window), D ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attention")
     global launches
     launches += 1
-    return out
+    return out if Dk == D else out[..., :D]

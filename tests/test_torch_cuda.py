@@ -5,9 +5,11 @@ They import nothing of JAX, so the card's machine runs them with:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: float32 inputs agree to 1e-4 (sums in another order); bfloat16
-inputs to 2e-2, a few bf16 ulps of the unit-scale outputs, since both sides
-compute in float32 and round the output once.
+Tolerances: float32 inputs agree to 1e-4 (sums in another order). bfloat16
+inputs agree elementwise to 4e-3 + 1e-2 * |plain|: both sides compute in
+float32 and round the output once, so they differ by at most one bf16 ulp
+(at most 2^-7 of the value). A kernel that drops or adds one key moves
+outputs by far more than that, which the shifted-mask tests check.
 """
 
 import pytest
@@ -19,7 +21,7 @@ from fairness_llm_tpu_torch.ops import flash_attention as flash_mod  # noqa: E40
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: dict(rtol=0, atol=1e-4), torch.bfloat16: dict(rtol=1e-2, atol=4e-3)}
 
 
 @pytest.fixture
@@ -35,6 +37,7 @@ def dev():
     (3, 8, 8, 77, 80, None),   # ragged S, D not a multiple of 32
     (2, 32, 8, 200, 128, 48),  # llama head layout, sliding window
     (1, 4, 1, 64, 256, None),
+    (2, 4, 2, 70, 99, None),   # rows of odd byte size: D padded by the wrapper
 ])
 def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, D, window):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -47,7 +50,7 @@ def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, D, window):
     torch.cuda.synchronize()
     assert flash_mod.launches == before + 1
     want = flash_mod.flash_attention_reference(q, k, v, lengths, causal=True, window=window)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -56,6 +59,7 @@ def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, D, window):
     (5, 32, 8, 160, 128, 0),   # no prefix, L not a multiple of 32
     (3, 32, 8, 77, 128, 37),   # prefix tile straddles the cache
     (2, 64, 2, 40, 96, 10),    # rep 32
+    (4, 8, 2, 50, 99, 20),     # rows of odd byte size: D padded by the wrapper
 ])
 def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, L, D, P):
     g = torch.Generator(device=dev).manual_seed(1)
@@ -73,4 +77,46 @@ def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, L, D, P):
     torch.cuda.synchronize()
     assert dec_mod.launches == before + 1
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _outside_tolerance(got, want, dtype):
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tolerance_sees_one_dropped_key(dev, dtype):
+    """The kernel with every row's first valid key masked out must fail the
+    tolerance against the plain version with the true mask, on the query
+    rows valid under both masks."""
+    B, H, Hkv, S, D = 2, 32, 8, 200, 128
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(B, H, S, D, generator=g, device=dev, dtype=dtype)
+    k = torch.randn(B, Hkv, S, D, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(B, Hkv, S, D, generator=g, device=dev, dtype=dtype)
+    lengths = torch.tensor([S, S - 37], device=dev, dtype=torch.int32)
+    want = flash_mod.flash_attention_reference(q, k, v, lengths)
+    got = flash_mod.flash_attention(q, k, v, lengths - 1)
+    for b in range(B):
+        rows = slice(S - int(lengths[b]) + 1, S)
+        _outside_tolerance(got[b, :, rows], want[b, :, rows], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_tolerance_sees_one_dropped_key(dev, dtype):
+    """The kernel with each row's newest valid slot masked out must fail
+    the tolerance against the plain version with the true mask."""
+    B, H, Hkv, L, D, P = 16, 32, 8, 160, 128, 704
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(B, H, D, generator=g, device=dev, dtype=dtype)
+    k = torch.randn(B, L, Hkv, D, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(B, L, Hkv, D, generator=g, device=dev, dtype=dtype)
+    shared = (torch.randn(P, Hkv, D, generator=g, device=dev, dtype=dtype),
+              torch.randn(P, Hkv, D, generator=g, device=dev, dtype=dtype))
+    valid = torch.zeros(B, L, dtype=torch.bool, device=dev)
+    valid[:, 20:97] = True
+    dropped = valid.clone()
+    dropped[:, 96] = False
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared)
+    _outside_tolerance(dec_mod.decode_attention(q, k, v, dropped, shared), want, dtype)
