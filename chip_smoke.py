@@ -6,17 +6,19 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's hand-written CUDA kernels from ``ops/csrc/`` with
-``nvcc`` (sm_90a), drives the port's phase-1 serving path at the full width
-of llama3-8b (32 layers, random bf16 weights from seed 0) through
-``EngineBackend.generate``, shows that the path launched both kernels, holds
-each kernel against its plain PyTorch version at the shapes the path gave
-it, times kernel, plain version and a one-call PyTorch yardstick, and checks
-the model's logits against the same model run on the plain versions on a
-small input.
+``nvcc`` (sm_90a), drives the port's phase-1 serving path through
+``EngineBackend.generate`` twice, at the full width and depth of llama3-8b
+(32 layers, random bf16 weights from seed 0) and of llama3-8b-int8 (the same
+model with int8 projection and lm_head weights from seed 0), shows that each
+path launched its kernels, holds each kernel against its plain PyTorch
+version at the shapes the path gave it, times kernel, plain version and a
+one-call PyTorch yardstick, and checks the model's logits against the same
+model run on the plain versions on a small input.
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels, one nvcc per source, in parallel;
+  bf16 path (llama3-8b; K1 flash attention, K2 decode attention):
   3. serve 16 counterfactual phase-1 prompts with a sweep-wide shared
      prefix, greedy and at temperature 0.7 with per-row keys;
   4. serve the same prompts with no shared prefix (flash prefill at batch
@@ -34,6 +36,22 @@ Phases (any failure exits non-zero, and no result line is printed):
      plain versions, teacher-forced on 4 prompts: reported at full depth in
      bf16, held to 1e-3 (relative to the largest logit) at full width in
      float32 with the depth cut to 4 layers.
+  int8 path (llama3-8b-int8; K4 int8-weight matmul, GEMV and GEMM regimes,
+  with K1 and K2), after the bf16 engine is freed:
+  8. build the engine; the memory it allocates must stay within 5% of its
+     tree (int8 matrices, f32 scales, bf16 embedding and norms);
+  9. the three serve calls of phases 3-4, with the peak memory over them;
+     both K4 regimes, K1 and K2 must all launch;
+ 10. K4 against its plain version at every (shape, dtypes) the path gave it,
+     held to the same elementwise tolerance; the kernel on x with its last
+     32 columns zeroed (its last k tile dropped) must fail it; each launch is
+     timed alone after a 64 MB write evicts the L2 cache, as a decode step
+     finds a layer's weights; the host's cost of a call is timed beside
+     torch.matmul's;
+ 11. the profile of phase 6 for the int8 shared-prefix greedy call;
+ 12. the teacher-forced check of phase 7 with K4 swapped for its plain
+     version too: reported in bf16 at 32 layers, held to 1e-3 in float32
+     at 4 layers.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -44,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -51,9 +70,11 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 MODEL = "llama3-8b"
+MODEL_INT8 = "llama3-8b-int8"
 MAX_TOKENS = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # Kernel against plain version on bf16 inputs: |got - want| <= ATOL + RTOL *
 # |want| elementwise. Both round one float32 result to bf16, so they differ
 # by at most one ulp (at most 2^-7 of the value).
@@ -61,6 +82,10 @@ ATOL, RTOL = 4e-3, 1e-2
 PROFILE_TOKENS = 16
 K1_REPLACES = "fairness_llm_tpu/ops/flash_attention.py:148"
 K2_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:413"
+K4_REPLACES = "fairness_llm_tpu/ops/quant_matmul.py:159"
+K4_SOURCE = "fairness_llm_tpu_torch/ops/csrc/quant_matmul.cu"
+# The int8 engine's allocation may exceed its tree by this share at most.
+MEM_SLACK = 0.05
 WATCHED = [
     "American Beauty (1999)", "Star Wars: Episode IV - A New Hope (1977)",
     "Schindler's List (1993)", "Fargo (1996)", "Shawshank Redemption, The (1994)",
@@ -82,11 +107,56 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def preroll(torch, launches: int) -> None:
+    """Keep the device busy (~0.5 ms per launch to come, at ~2 GHz) while
+    the host queues a timed loop, so that the events time the device's work
+    and not the host's cost of issuing it."""
+    torch.cuda._sleep(1_000_000 * launches)
+
+
+def cuda_ms_cold(fn, iters: int, flush) -> float:
+    """Mean ms of ``fn``, each launch timed alone with CUDA events after a
+    write of ``flush`` (larger than the 50 MB L2) has evicted its inputs."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    preroll(torch, iters)
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host microseconds to launch ``fn``, with the device asleep so
+    that no launch waits for it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    preroll(torch, iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return dt
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    preroll(torch, iters)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -143,11 +213,14 @@ class Recorder:
         self.inner = getattr(module, attr)
         self.calls: dict = {}
 
+    def store(self, args, kwargs) -> dict:
+        return {"args": _clone(args), "kwargs": _clone(kwargs)}
+
     def __enter__(self):
         def wrapped(*args, **kwargs):
             key = self.key_fn(*args, **kwargs)
             if key not in self.calls:
-                self.calls[key] = {"n": 0, "args": _clone(args), "kwargs": _clone(kwargs)}
+                self.calls[key] = {"n": 0, **self.store(args, kwargs)}
             self.calls[key]["n"] += 1
             return self.inner(*args, **kwargs)
 
@@ -156,6 +229,16 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.attr, self.inner)
+
+
+class WeightRecorder(Recorder):
+    """A Recorder for ``quant_matmul(x, wq, scale, out_dtype=...)``: it
+    clones x only. The weight and scale are the engine's parameters, never
+    written, so they are kept by reference: one copy whatever M."""
+
+    def store(self, args, kwargs) -> dict:
+        x, *rest = args
+        return {"args": (x.detach().clone(), *rest), "kwargs": dict(kwargs)}
 
 
 def _clone(x):
@@ -262,7 +345,7 @@ def k1_numbers(call, torch, F):
     return {
         "shape": {"q": list(q.shape), "k": list(k.shape), "window": window},
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
-        "shifted_mask_err_over_tol": shifted_ratio,
+        "blind_gate_err_over_tol": shifted_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -318,12 +401,83 @@ def k2_numbers(call, torch, F):
         "shape": {"q": list(q.shape), "k": list(k.shape), "prefix": P,
                   "valid_slots": n_valid},
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
-        "shifted_mask_err_over_tol": shifted_ratio,
+        "blind_gate_err_over_tol": shifted_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+
+
+def k4_numbers(call, torch, flush):
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+
+    x, wq, scale = call["args"]
+    od = call["kwargs"].get("out_dtype") or x.dtype
+    M, K = x.shape
+    N = wq.shape[1]
+    got = qm.quant_matmul(x, wq, scale, out_dtype=od)
+    want = qm.quant_matmul_reference(x, wq, scale, od)
+    err, ratio = gate(got, want)
+    # The kernel on x with its last 32 columns zeroed: the gate must see a
+    # kernel that drops its last k tile (32 or 64 wide).
+    cut = x.clone()
+    cut[:, -32:] = 0
+    _, cut_ratio = gate(qm.quant_matmul(cut, wq, scale, out_dtype=od), want)
+    del got, want, cut
+    flops = 2.0 * M * K * N
+    iters = 5 if flops > 1e12 else 20
+    ms = cuda_ms_cold(lambda: qm.quant_matmul(x, wq, scale, out_dtype=od), iters, flush)
+    plain_ms = cuda_ms_cold(lambda: qm.quant_matmul_reference(x, wq, scale, od),
+                            max(2, iters // 2), flush)
+    # Yardsticks, never called by the port: one torch.matmul over the weight
+    # dequantized to x's dtype beforehand (library_ms), and PyTorch's own
+    # int8-weight product where this build has it on the card.
+    wd = qm.dequantize_weight(wq, scale, x.dtype)
+    library_ms = cuda_ms_cold(lambda: torch.matmul(x, wd), iters, flush)
+    # What a call costs the host: the decode step is host-bound.
+    wrapper_host_us = host_us(lambda: qm.quant_matmul(x, wq, scale, out_dtype=od))
+    library_host_us = host_us(lambda: torch.matmul(x, wd))
+    del wd
+    int8pack_ms, int8pack_error = None, None
+    if x.dtype == torch.bfloat16:
+        wt, sc = wq.t().contiguous(), scale.to(x.dtype)
+        try:
+            int8pack_ms = cuda_ms_cold(lambda: torch._weight_int8pack_mm(x, wt, sc), iters, flush)
+        except RuntimeError as e:  # a yardstick only: its absence is recorded
+            int8pack_error = str(e).splitlines()[0][:160]
+        del wt, sc
+    # Bound: the int8 weight, the scales, x and the output each moved once,
+    # or 2*M*K*N operations at the peak for x's type, whichever is longer.
+    nbytes = K * N + 4 * N + M * K * x.element_size() + M * N * torch.finfo(od).bits // 8
+    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "regime": "gemv" if M <= qm.GEMV_MAX_M else "gemm",
+        "shape": {"M": M, "K": K, "N": N, "x": str(x.dtype)[6:], "out": str(od)[6:]},
+        "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
+        "blind_gate_err_over_tol": cut_ratio,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": "torch.matmul(x, weight dequantized to x's dtype)",
+        "host_us": wrapper_host_us, "library_host_us": library_host_us,
+        "int8pack_ms": int8pack_ms, "int8pack_error": int8pack_error,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+
+
+def int8_tree_bytes(cfg) -> int:
+    """Bytes of an int8 model's parameters as they should be stored: int8
+    kernels, f32 scales, every other tensor (embedding, norms) in bf16. From
+    the parameter names and shapes, not from what the engine allocated."""
+    from fairness_llm_tpu_torch.runtime.weights import param_shapes
+
+    total = 0
+    for name, shape in param_shapes(cfg).items():
+        item = 1 if name.endswith("kernel_q") else 4 if name.endswith("kernel_scale") else 2
+        total += math.prod(shape) * item
+    return total
 
 
 def profiled_decode(backend, prompts, prefix, settings, torch):
@@ -383,12 +537,14 @@ def profiled_decode(backend, prompts, prefix, settings, torch):
 
 def teacher_forced_check(engine, prompts, torch):
     """Logits of the kernel path against the same model with each kernel
-    wrapper swapped for its plain version, on 4 prompts: the prefill (K1)
-    plus 4 decode steps (K2) fed the same tokens. The two differ only where
-    a kernel's bf16 output rounds differently from its plain version's."""
+    wrapper swapped for its plain version, on 4 prompts: the prefill (K1,
+    and K4's GEMM regime in an int8 model) plus 4 decode steps (K2, and
+    K4's GEMV regime) fed the same tokens. The two differ only where a
+    kernel's output rounds differently from its plain version's."""
     from fairness_llm_tpu_torch.models.tokenizer import _left_pad
     from fairness_llm_tpu_torch.ops import decode_attention as dm
     from fairness_llm_tpu_torch.ops import flash_attention as fm
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
     from fairness_llm_tpu_torch.runtime.stepbuilder import make_batch_entry
 
     tb = _left_pad([engine.tokenizer.encode(p) for p in prompts[:4]], engine.tokenizer.pad_id)
@@ -412,19 +568,214 @@ def teacher_forced_check(engine, prompts, torch):
         return torch.stack(out)
 
     got = run()
-    kernels = (fm.flash_attention, dm.decode_attention)
+    kernels = (fm.flash_attention, dm.decode_attention, qm.quant_matmul)
     fm.flash_attention = fm.flash_attention_reference
     dm.decode_attention = (lambda q, k, v, valid, shared_kv=None:
                            dm.decode_attention_reference(q, k, v, valid, shared_kv))
+    qm.quant_matmul = qm.quant_matmul_reference
     try:
         want = run()
     finally:
-        fm.flash_attention, dm.decode_attention = kernels
+        fm.flash_attention, dm.decode_attention, qm.quant_matmul = kernels
     diff = float((got - want).abs().max())
     scale = float(want.abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     return {"max_abs_logit_diff": diff, "max_abs_logit": scale, "argmax_agreement": agree,
             "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape)}
+
+
+def check_rows(name: str, rows, blind: str) -> None:
+    for r in rows:
+        log(f"kernel {name} {json.dumps(r)}")
+        if not r["ok"]:
+            fail(f"{name} disagrees with its plain version at {r['shape']}: "
+                 f"max_abs_err {r['max_abs_err']}, {r['err_over_tol']:.2f}x the "
+                 f"tolerance {ATOL} + {RTOL} * |plain|")
+        if r["blind_gate_err_over_tol"] <= 1:
+            fail(f"{name} at {r['shape']}: {blind} stays within the tolerance "
+                 f"({r['blind_gate_err_over_tol']:.2f}x); the gate is blind")
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, rows) -> dict:
+    """The kernels-line entry: the headline row is the shape the main path
+    launched most (ties: the larger one); every shape is under "shapes"."""
+    top = max(rows, key=lambda r: (r["calls"], r["bytes"]))
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"], "library_ms": top["library_ms"], "shapes": rows,
+    }
+
+
+def serve_three(backend, prompts, keys, prefix, greedy, sampled, label: str):
+    rows = [serve(backend, prompts, greedy, f"{label}shared_prefix_greedy", prefix_ids=prefix),
+            serve(backend, prompts, sampled, f"{label}shared_prefix_t0.7", keys=keys,
+                  prefix_ids=prefix),
+            serve(backend, prompts, greedy, f"{label}no_prefix_greedy")]
+    if rows[0]["prefix_len"] <= 0 or rows[2]["prefix_len"] != 0:
+        fail(f"{label}: the phases did not take the shared-prefix / no-prefix paths")
+    return rows
+
+
+def bf16_path(torch, F, prompts, keys, greedy, sampled):
+    """Phases 3-7 on llama3-8b; returns the K1 and K2 kernel entries."""
+    from fairness_llm_tpu_torch.config import ModelSettings
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.pipeline.backends import EngineBackend, shared_prefix_ids
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_model_config(MODEL), use_decode_attention_kernel=True)
+    engine = DecodeEngine(cfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"engine: {MODEL} layers={cfg.num_layers} d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
+        f"params_gb={torch.cuda.memory_allocated() / 1e9:.2f} init_s={time.perf_counter() - t0:.2f}")
+    backend = EngineBackend(engine)
+    prefix = shared_prefix_ids(backend, prompts)
+    if prefix is None:
+        fail("the counterfactual prompts share no 64-token prefix")
+    # Warm-up (cuBLAS handles, kernel libraries) outside the counted run.
+    backend.generate(prompts[:2], ModelSettings(temperature=0.0, max_tokens=2))
+
+    rec1 = Recorder(flash_mod, "flash_attention",
+                    lambda q, k, v, lengths, causal=True, window=None:
+                    ("k1", tuple(q.shape), tuple(k.shape), window))
+    rec2 = Recorder(dec_mod, "decode_attention",
+                    lambda q, k, v, valid, shared_kv=None:
+                    ("k2", tuple(q.shape), tuple(k.shape),
+                     0 if shared_kv is None else shared_kv[0].shape[0]))
+    flash_mod.launches = 0
+    dec_mod.launches = 0
+    with rec1, rec2:
+        serve_three(backend, prompts, keys, prefix, greedy, sampled, "")
+    launches = {"flash_attention": flash_mod.launches, "decode_attention": dec_mod.launches}
+    log(f"launches on the main path: {json.dumps(launches)}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the main path")
+
+    # 5. kernels against their plain versions at the main path's shapes
+    k1_rows = [k1_numbers(call, torch, F) for call in rec1.calls.values()]
+    k2_rows = [k2_numbers(call, torch, F) for call in rec2.calls.values()]
+    check_rows("flash_attention", k1_rows, "the first valid key masked out")
+    check_rows("decode_attention", k2_rows, "the newest slot masked out")
+    kernels = [
+        kernel_entry("flash_attention", "fairness_llm_tpu_torch/ops/csrc/flash_attention.cu",
+                     K1_REPLACES, launches["flash_attention"], k1_rows),
+        kernel_entry("decode_attention", "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu",
+                     K2_REPLACES, launches["decode_attention"], k2_rows),
+    ]
+    del rec1, rec2
+
+    # 6. where a decode call's time goes
+    prof_row = profiled_decode(backend, prompts, prefix,
+                               ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch)
+    log(f"profile_shared_prefix_greedy {json.dumps(prof_row)}")
+
+    # 7. end-to-end check against the plain versions. In bf16 the random-
+    # weight model amplifies one-ulp rounding differences through its 32
+    # layers, so that comparison is reported only; the gate is the same
+    # width in float32, cut to 4 layers, where kernel and plain version
+    # differ only in summation order.
+    teacher_forced_gate(engine, prompts, torch, "", cfg.vocab_size)
+    del engine, backend
+    torch.cuda.empty_cache()
+    small = DecodeEngine(dataclasses.replace(cfg, num_layers=4, dtype="float32"), seed=0)
+    teacher_forced_gate(small, prompts, torch, "", cfg.vocab_size, f32=True)
+    del small
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def teacher_forced_gate(engine, prompts, torch, label, vocab, f32=False):
+    tf = teacher_forced_check(engine, prompts, torch)
+    name = "f32_4_layers" if f32 else f"bf16_{engine.config.num_layers}_layers"
+    log(f"teacher_forced_{label}{name} {json.dumps(tf)}")
+    if not tf["finite"] or tf["shape"] != [5, 4, vocab]:
+        fail(f"{label}kernel-path logits malformed: {tf}")
+    if f32 and tf["max_abs_logit_diff"] > 1e-3 * max(1.0, tf["max_abs_logit"]):
+        fail(f"{label}kernel path disagrees with the plain-version path in float32: {tf}")
+
+
+def int8_path(torch, prompts, keys, greedy, sampled):
+    """Phases 8-12 on llama3-8b-int8; returns the two K4 kernel entries."""
+    from fairness_llm_tpu_torch.config import ModelSettings
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import EngineBackend, shared_prefix_ids
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+
+    # 8. the engine, and what it allocates against its tree
+    cfg = dataclasses.replace(get_model_config(MODEL_INT8), use_decode_attention_kernel=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = DecodeEngine(cfg, seed=0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    tree = int8_tree_bytes(cfg)
+    kinds = sorted({str(p.dtype)[6:] for p in engine.model.parameters()})
+    log(f"engine: {MODEL_INT8} layers={cfg.num_layers} d_model={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} params_gb={held / 1e9:.3f} tree_gb={tree / 1e9:.3f} "
+        f"dtypes={kinds} init_s={time.perf_counter() - t0:.2f}")
+    if held > (1 + MEM_SLACK) * tree:
+        fail(f"the int8 engine holds {held / 1e9:.3f} GB, more than {1 + MEM_SLACK:.2f}x "
+             f"its tree of {tree / 1e9:.3f} GB")
+    backend = EngineBackend(engine)
+    prefix = shared_prefix_ids(backend, prompts)
+    backend.generate(prompts[:2], ModelSettings(temperature=0.0, max_tokens=2))
+
+    # 9. the main path
+    rec4 = WeightRecorder(qm, "quant_matmul",
+                          lambda x, wq, scale, out_dtype=None:
+                          ("k4", tuple(x.shape), tuple(wq.shape), str(x.dtype),
+                           str(out_dtype or x.dtype)))
+    flash_mod.launches = dec_mod.launches = 0
+    qm.gemv_launches = qm.gemm_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with rec4:
+        serve_three(backend, prompts, keys, prefix, greedy, sampled, "int8_")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"quant_matmul_gemv": qm.gemv_launches, "quant_matmul_gemm": qm.gemm_launches,
+                "flash_attention": flash_mod.launches, "decode_attention": dec_mod.launches}
+    log(f"int8 launches on the main path: {json.dumps(launches)}")
+    log(f"int8 serve memory: held_gb={held / 1e9:.3f} peak_allocated_gb={peak / 1e9:.3f}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the int8 main path")
+
+    # 10. K4 against its plain version at every shape and dtype pair
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rows = [k4_numbers(call, torch, flush) for call in rec4.calls.values()]
+    del flush, rec4
+    kernels = []
+    for regime in ("gemv", "gemm"):
+        name = f"quant_matmul_{regime}"
+        mine = [r for r in rows if r["regime"] == regime]
+        check_rows(name, mine, "x with its last 32 columns zeroed")
+        kernels.append(kernel_entry(name, K4_SOURCE, K4_REPLACES, launches[name], mine))
+
+    # 11. where an int8 decode call's time goes
+    prof_row = profiled_decode(backend, prompts, prefix,
+                               ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch)
+    log(f"profile_int8_shared_prefix_greedy {json.dumps(prof_row)}")
+
+    # 12. end-to-end check with K4 swapped for its plain version too
+    teacher_forced_gate(engine, prompts, torch, "int8_", cfg.vocab_size)
+    del engine, backend
+    torch.cuda.empty_cache()
+    small = DecodeEngine(dataclasses.replace(cfg, num_layers=4, dtype="float32"), seed=0)
+    teacher_forced_gate(small, prompts, torch, "int8_", cfg.vocab_size, f32=True)
+    del small
+    torch.cuda.empty_cache()
+    return kernels
 
 
 def main() -> int:
@@ -438,12 +789,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from fairness_llm_tpu_torch.config import ModelSettings
-        from fairness_llm_tpu_torch.models.configs import get_model_config
         from fairness_llm_tpu_torch.ops import _build
-        from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
-        from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
-        from fairness_llm_tpu_torch.pipeline.backends import EngineBackend, shared_prefix_ids
-        from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
     except ImportError as e:
         fail(f"the port's package is not here ({e}); run from the root of a checkout")
 
@@ -464,110 +810,23 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention", "decode_attention"])
+    logs = _build.build(["flash_attention", "decode_attention", "quant_matmul"])
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(sorted(logs)) or 'up to date'})")
     for name, out in sorted(logs.items()):
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  nvcc[{name}] {line.strip()}")
 
-    # 3-4. the main path
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_model_config(MODEL), use_decode_attention_kernel=True)
-    engine = DecodeEngine(cfg, seed=0)
-    torch.cuda.synchronize()
-    log(f"engine: {MODEL} layers={cfg.num_layers} d_model={cfg.d_model} "
-        f"heads={cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} "
-        f"params_gb={torch.cuda.memory_allocated() / 1e9:.2f} init_s={time.perf_counter() - t0:.2f}")
-    backend = EngineBackend(engine)
     profiles, prompts = counterfactual_prompts()
     keys = [p.id for p in profiles]
     greedy = ModelSettings(temperature=0.0, max_tokens=MAX_TOKENS)
     sampled = ModelSettings(temperature=0.7, max_tokens=MAX_TOKENS)
-    prefix = shared_prefix_ids(backend, prompts)
-    if prefix is None:
-        fail("the counterfactual prompts share no 64-token prefix")
-    # Warm-up (cuBLAS handles, kernel libraries) outside the counted run.
-    backend.generate(prompts[:2], ModelSettings(temperature=0.0, max_tokens=2))
-
-    rec1 = Recorder(flash_mod, "flash_attention",
-                    lambda q, k, v, lengths, causal=True, window=None:
-                    ("k1", tuple(q.shape), tuple(k.shape), window))
-    rec2 = Recorder(dec_mod, "decode_attention",
-                    lambda q, k, v, valid, shared_kv=None:
-                    ("k2", tuple(q.shape), tuple(k.shape),
-                     0 if shared_kv is None else shared_kv[0].shape[0]))
-    flash_mod.launches = 0
-    dec_mod.launches = 0
-    serve_rows = []
-    with rec1, rec2:
-        serve_rows.append(serve(backend, prompts, greedy, "shared_prefix_greedy",
-                                prefix_ids=prefix))
-        serve_rows.append(serve(backend, prompts, sampled, "shared_prefix_t0.7",
-                                keys=keys, prefix_ids=prefix))
-        serve_rows.append(serve(backend, prompts, greedy, "no_prefix_greedy"))
-    launches = {"flash_attention": flash_mod.launches, "decode_attention": dec_mod.launches}
-    log(f"launches on the main path: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"{name} was not launched on the main path")
-    if serve_rows[0]["prefix_len"] <= 0 or serve_rows[2]["prefix_len"] != 0:
-        fail("the phases did not take the shared-prefix / no-prefix paths")
-
-    # 5. kernels against their plain versions at the main path's shapes
-    per_shape = {"flash_attention": [], "decode_attention": []}
-    for call in rec1.calls.values():
-        per_shape["flash_attention"].append(k1_numbers(call, torch, F))
-    for call in rec2.calls.values():
-        per_shape["decode_attention"].append(k2_numbers(call, torch, F))
-    kernels = []
-    meta = {
-        "flash_attention": ("fairness_llm_tpu_torch/ops/csrc/flash_attention.cu", K1_REPLACES),
-        "decode_attention": ("fairness_llm_tpu_torch/ops/csrc/decode_attention.cu", K2_REPLACES),
-    }
-    for name, rows in per_shape.items():
-        for r in rows:
-            log(f"kernel {name} {json.dumps(r)}")
-            if not r["ok"]:
-                fail(f"{name} disagrees with its plain version at {r['shape']}: "
-                     f"max_abs_err {r['max_abs_err']}, {r['err_over_tol']:.2f}x the "
-                     f"tolerance {ATOL} + {RTOL} * |plain|")
-            if r["shifted_mask_err_over_tol"] <= 1:
-                fail(f"{name} at {r['shape']}: one key masked out stays within the "
-                     f"tolerance ({r['shifted_mask_err_over_tol']:.2f}x); the gate is blind")
-        # The headline row: the shape the main path launched most (ties: the
-        # larger one); every shape is listed under "shapes".
-        top = max(rows, key=lambda r: (r["calls"], r["bytes"]))
-        kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
-            "shapes": rows,
-        })
-
-    # 6. where a decode call's time goes
-    prof_row = profiled_decode(backend, prompts, prefix,
-                               ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch)
-    log(f"profile_shared_prefix_greedy {json.dumps(prof_row)}")
-
-    # 7. end-to-end check against the plain versions. In bf16 the random-
-    # weight model amplifies one-ulp rounding differences through its 32
-    # layers, so that comparison is reported only; the gate is the same
-    # width in float32, cut to 4 layers, where kernel and plain version
-    # differ only in summation order.
-    tf_bf16 = teacher_forced_check(engine, prompts, torch)
-    log(f"teacher_forced_bf16_32_layers {json.dumps(tf_bf16)}")
-    if not tf_bf16["finite"] or tf_bf16["shape"] != [5, 4, cfg.vocab_size]:
-        fail(f"kernel-path logits malformed: {tf_bf16}")
-    del engine, backend, rec1, rec2, per_shape
-    torch.cuda.empty_cache()
-    small = DecodeEngine(dataclasses.replace(cfg, num_layers=4, dtype="float32"), seed=0)
-    tf = teacher_forced_check(small, prompts, torch)
-    log(f"teacher_forced_f32_4_layers {json.dumps(tf)}")
-    if not tf["finite"] or tf["max_abs_logit_diff"] > 1e-3 * max(1.0, tf["max_abs_logit"]):
-        fail(f"kernel path disagrees with the plain-version path in float32: {tf}")
+    t0 = time.perf_counter()
+    kernels = bf16_path(torch, F, prompts, keys, greedy, sampled)
+    log(f"bf16_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    kernels += int8_path(torch, prompts, keys, greedy, sampled)
+    log(f"int8_path_s {time.perf_counter() - t0:.1f}")
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

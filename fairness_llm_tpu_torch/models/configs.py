@@ -55,7 +55,9 @@ class ModelConfig:
     # single-token steps without a sliding window. Off by default, as in the
     # reference; the port's chip run sets it.
     use_decode_attention_kernel: bool = False
-    # Weight-only int8 serving. Not ported yet: the port's model refuses it.
+    # Weight-only int8 serving: every projection and an untied lm_head store
+    # int8 kernels with f32 per-channel scales and run through the int8-weight
+    # kernel (ops/quant_matmul.py).
     weight_quant: str = "none"  # "none" | "int8"
     # The reference's ring attention ("ring") is not ported; the port runs
     # the "xla"-equivalent dense/flash paths only.

@@ -9,6 +9,12 @@ out]`` kernel layout (``layer_{i}.attn.q_proj.kernel``, ...), so a flax tree
 maps onto them one to one (``runtime/weights.params_from_jax``). Matrix
 products run in the config dtype; norms and the softmax in float32.
 
+Under ``weight_quant == "int8"`` every projection and an untied ``lm_head``
+is a ``QuantDense``: an int8 kernel ``kernel_q`` [in, out] with f32
+per-output-channel ``kernel_scale`` [out], multiplied by the hand-written
+int8-weight kernel (``ops/quant_matmul``); no float copy of the weight is
+made. The embedding and the norms stay float.
+
 Unlike the reference's functional cache, the KV cache here is updated in
 place: the forward writes the new keys and values into the preallocated
 tensors and advances ``index``/``lengths``, which saves a copy of the cache
@@ -39,6 +45,7 @@ from torch import nn
 from fairness_llm_tpu_torch.models.configs import ModelConfig
 from fairness_llm_tpu_torch.ops import decode_attention as decode_ops
 from fairness_llm_tpu_torch.ops import flash_attention as flash_ops
+from fairness_llm_tpu_torch.ops import quant_matmul as quant_ops
 
 
 def dtype_of(config: ModelConfig) -> torch.dtype:
@@ -118,6 +125,39 @@ class Dense(nn.Module):
         return y
 
 
+class QuantDense(nn.Module):
+    """``x @ dequant(kernel_q, kernel_scale) (+ bias)``: the int8 kernel
+    stored ``[in, out]`` with f32 per-output-channel scales, x cast to
+    ``dtype`` first, the result in ``out_dtype`` (default ``dtype``), the
+    bias added after (the reference's ``QuantDense``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 dtype: torch.dtype, out_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.out_dtype = out_dtype or dtype
+        self.kernel_q = nn.Parameter(torch.empty(in_features, out_features, dtype=torch.int8),
+                                     requires_grad=False)
+        self.kernel_scale = nn.Parameter(torch.empty(out_features, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        y = quant_ops.quant_matmul(x.reshape(-1, x.shape[-1]).to(self.dtype), self.kernel_q,
+                                   self.kernel_scale, out_dtype=self.out_dtype)
+        y = y.reshape(*lead, y.shape[-1])
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+def _projection(config: ModelConfig, in_features: int, out_features: int, bias: bool) -> nn.Module:
+    """The projection ``weight_quant`` asks for: ``QuantDense`` or ``Dense``."""
+    if config.weight_quant == "int8":
+        return QuantDense(in_features, out_features, bias, dtype_of(config))
+    return Dense(in_features, out_features, bias, dtype_of(config))
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float):
         super().__init__()
@@ -188,16 +228,15 @@ class Attention(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.weight_quant != "none":
-            raise NotImplementedError("int8 weight-only serving is not ported")
+        if cfg.weight_quant not in ("none", "int8"):
+            raise NotImplementedError(f"weight_quant={cfg.weight_quant!r} is not ported")
         if cfg.attention_impl != "xla":
             raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported")
-        dt = dtype_of(cfg)
         qkv_bias = cfg.use_bias or cfg.qkv_bias
-        self.q_proj = Dense(cfg.d_model, cfg.q_dim, qkv_bias, dt)
-        self.k_proj = Dense(cfg.d_model, cfg.kv_dim, qkv_bias, dt)
-        self.v_proj = Dense(cfg.d_model, cfg.kv_dim, qkv_bias, dt)
-        self.o_proj = Dense(cfg.q_dim, cfg.d_model, cfg.use_bias, dt)
+        self.q_proj = _projection(cfg, cfg.d_model, cfg.q_dim, qkv_bias)
+        self.k_proj = _projection(cfg, cfg.d_model, cfg.kv_dim, qkv_bias)
+        self.v_proj = _projection(cfg, cfg.d_model, cfg.kv_dim, qkv_bias)
+        self.o_proj = _projection(cfg, cfg.q_dim, cfg.d_model, cfg.use_bias)
 
     def forward(self, x, positions, cache_layer: Optional[LayerCache],
                 cache_index: Optional[int], key_valid, key_positions,
@@ -295,12 +334,11 @@ class MLP(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         cfg = self.config = config
-        dt = dtype_of(cfg)
         self.act = _activation(cfg.activation)
         if cfg.mlp == "glu":
-            self.gate_proj = Dense(cfg.d_model, cfg.d_ff, cfg.use_bias, dt)
-        self.up_proj = Dense(cfg.d_model, cfg.d_ff, cfg.use_bias, dt)
-        self.down_proj = Dense(cfg.d_ff, cfg.d_model, cfg.use_bias, dt)
+            self.gate_proj = _projection(cfg, cfg.d_model, cfg.d_ff, cfg.use_bias)
+        self.up_proj = _projection(cfg, cfg.d_model, cfg.d_ff, cfg.use_bias)
+        self.down_proj = _projection(cfg, cfg.d_ff, cfg.d_model, cfg.use_bias)
 
     def forward(self, x):
         if self.config.mlp == "glu":
@@ -351,7 +389,10 @@ class Transformer(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", Block(cfg))
         self.final_norm = _norm(cfg)
-        if not cfg.tie_embeddings:
+        if not cfg.tie_embeddings and cfg.weight_quant == "int8":
+            self.lm_head = QuantDense(cfg.d_model, cfg.vocab_size, False, dtype_of(cfg),
+                                      out_dtype=torch.float32)
+        elif not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size))
 
     def blocks(self) -> List[Block]:
@@ -405,8 +446,11 @@ class Transformer(nn.Module):
         # The reference accumulates the logits product in f32 from model-dtype
         # operands; a bf16 matmul here rounds its output to bf16 before the
         # cast, which keeps the [D, V] weight read at 2 bytes per element.
-        head = self.embedding.t() if cfg.tie_embeddings else self.lm_head
-        logits = (x @ head.to(x.dtype)).float()
+        if not cfg.tie_embeddings and cfg.weight_quant == "int8":
+            logits = self.lm_head(x)  # f32 out
+        else:
+            head = self.embedding.t() if cfg.tie_embeddings else self.lm_head
+            logits = (x @ head.to(x.dtype)).float()
 
         if cache is not None:
             cache.index += S

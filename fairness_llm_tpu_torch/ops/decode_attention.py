@@ -123,7 +123,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         valid.data_ptr(), sk_ptr, sv_ptr, out.data_ptr(),
         B, H, Hkv, L, Dk, P, D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.current_stream(q.device),
     )
     _build.check(status, "decode_attention")
     global launches

@@ -102,7 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lengths.data_ptr(), B, H, k.shape[1], S, Dk, *strides,
         int(causal), 0 if window is None else int(window), D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.current_stream(q.device),
     )
     _build.check(status, "flash_attention")
     global launches

@@ -7,6 +7,11 @@ One ``generate`` call: tokenize and **left-pad** the prompts to a bucketed
 4); prefill the batch in one forward; decode up to ``max_new_tokens`` steps,
 stopping once every real row has sampled EOS; detokenize.
 
+An ``*-int8`` config serves from int8 weights: ``init_params`` makes (or the
+caller hands in) int8 kernels with f32 scales, and the model multiplies by
+them through the int8-weight kernel; no dequantized copy of a weight is
+built, so the device holds about half the bytes of the bf16 model.
+
 The reference's telemetry, breakers, watchdog, numerics guards, speculation
 and its VMEM-fallback rebuild are not ported: the port has no VMEM gate to
 miss.

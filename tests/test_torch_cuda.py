@@ -5,11 +5,17 @@ They import nothing of JAX, so the card's machine runs them with:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: float32 inputs agree to 1e-4 (sums in another order). bfloat16
-inputs agree elementwise to 4e-3 + 1e-2 * |plain|: both sides compute in
+Tolerances: float32 outputs agree to 1e-4 (sums in another order). bfloat16
+outputs agree elementwise to 4e-3 + 1e-2 * |plain|: both sides compute in
 float32 and round the output once, so they differ by at most one bf16 ulp
 (at most 2^-7 of the value). A kernel that drops or adds one key moves
-outputs by far more than that, which the shifted-mask tests check.
+outputs by far more than that, which the shifted-mask tests check; for the
+int8-weight matmul, dropping the last 32 columns of x must fail the same
+tolerance.
+Its float32 outputs are held to 1e-4 + 3e-5 * |plain|: the tensor cores'
+f32 accumulation rounds otherwise than cuBLAS's f32 FMA chain, and over
+K = 14336 products the two were seen 1.3e-5 of the value apart (outputs up
+to ~12).
 """
 
 import pytest
@@ -18,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from fairness_llm_tpu_torch.ops import decode_attention as dec_mod  # noqa: E402
 from fairness_llm_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
+from fairness_llm_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -120,3 +127,58 @@ def test_decode_tolerance_sees_one_dropped_key(dev, dtype):
     dropped[:, 96] = False
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared)
     _outside_tolerance(dec_mod.decode_attention(q, k, v, dropped, shared), want, dtype)
+
+
+# llama3-8b's (K, N) pairs: q/o, k/v, gate/up, down, lm_head; then ragged
+# pairs: K = 100 (x rows padded by the wrapper), N = 90 (the weight padded).
+QMM_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256), (100, 96),
+          (72, 90)]
+QMM_M = [1, 16, 45, 48, 129, 704]
+QMM_TOL = {torch.float32: dict(rtol=3e-5, atol=1e-4), torch.bfloat16: TOL[torch.bfloat16]}
+
+
+def _qmm_weight(dev, K, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(K, N, generator=g, device=dev) * 0.02
+    return qmm.quantize_weight(w)
+
+
+@pytest.fixture(scope="module")
+def qmm_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return {kn: _qmm_weight(torch.device("cuda"), *kn, seed=i) for i, kn in enumerate(QMM_KN)}
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", qmm.COMBOS, ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("K,N", QMM_KN)
+@pytest.mark.parametrize("M", QMM_M)
+def test_quant_matmul_kernel_matches_plain(dev, qmm_weights, M, K, N, x_dtype, out_dtype):
+    wq, scale = qmm_weights[(K, N)]
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn(M, K, generator=g, device=dev).to(x_dtype)
+    gemv, gemm = qmm.gemv_launches, qmm.gemm_launches
+    got = qmm.quant_matmul(x, wq, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    small = M <= qmm.GEMV_MAX_M
+    assert (qmm.gemv_launches - gemv, qmm.gemm_launches - gemm) == ((1, 0) if small else (0, 1))
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    want = qmm.quant_matmul_reference(x, wq, scale, out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", qmm.COMBOS, ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("M", [16, 704])
+def test_quant_matmul_tolerance_sees_a_dropped_k_tile(dev, qmm_weights, M, x_dtype, out_dtype):
+    """The kernel on x with its last 32 columns zeroed (a kernel that dropped
+    its last k tile, 32 or 64 wide, would drop at least these) must fail the
+    tolerance against the plain version on the true x."""
+    wq, scale = qmm_weights[(4096, 4096)]
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(M, 4096, generator=g, device=dev).to(x_dtype)
+    cut = x.clone()
+    cut[:, -32:] = 0
+    want = qmm.quant_matmul_reference(x, wq, scale, out_dtype)
+    got = qmm.quant_matmul(cut, wq, scale, out_dtype=out_dtype)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])

@@ -185,11 +185,15 @@ def test_init_params_families_and_seed():
 
 
 def test_unported_cache_and_weights_refuse():
+    """The int8 KV cache is a later slice; int8 weights are ported (see
+    test_torch_quant.py), any other weight format is refused."""
     cfg = tconfigs.get_model_config("tiny-test")
     with pytest.raises(NotImplementedError):
         ttr.init_cache(dataclasses.replace(cfg, kv_cache_quant=True), 1, 8)
     with pytest.raises(NotImplementedError):
-        ttr.Transformer(dataclasses.replace(cfg, weight_quant="int8"))
+        ttr.Transformer(dataclasses.replace(cfg, weight_quant="int4"))
+    assert isinstance(ttr.Transformer(dataclasses.replace(cfg, weight_quant="int8")).lm_head,
+                      ttr.QuantDense)
 
 
 def test_cache_write_past_the_end_raises():
