@@ -7,49 +7,68 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the port's hand-written CUDA kernels from ``ops/csrc/`` with
 ``nvcc`` (sm_90a), drives the port's phase-1 serving path through
-``EngineBackend.generate`` twice, at the full width and depth of llama3-8b
-(32 layers, random bf16 weights from seed 0) and of llama3-8b-int8 (the same
-model with int8 projection and lm_head weights from seed 0), shows that each
-path launched its kernels, holds each kernel against its plain PyTorch
-version at the shapes the path gave it, times kernel, plain version and a
-one-call PyTorch yardstick, and checks the model's logits against the same
-model run on the plain versions on a small input.
+``EngineBackend.generate`` at the full width and depth of llama3-8b (32
+layers, random bf16 weights from seed 0): plain, with greedy prompt-lookup
+speculation, and with the int8 KV cache on the same weights; then at the
+full width and depth of llama3-8b-int8 (the same model with int8 projection
+and lm_head weights from seed 0). It shows that each path launched its
+kernels, holds each kernel against its plain PyTorch version at the shapes
+the path gave it, times kernel, plain version and a one-call PyTorch
+yardstick, and checks the model's logits and greedy tokens against the
+plain versions on a small input.
 
-Phases (any failure exits non-zero, and no result line is printed):
+Phases (any failure exits non-zero, and no result line is printed); every
+path's launch counts are set to 0 just before it and read just after:
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels, one nvcc per source, in parallel;
-  bf16 path (llama3-8b; K1 flash attention, K2 decode attention):
+  bf16 path (llama3-8b; K1 flash attention, K2 decode attention, K3 the
+  verify window):
   3. serve 16 counterfactual phase-1 prompts with a sweep-wide shared
      prefix, greedy and at temperature 0.7 with per-row keys;
   4. serve the same prompts with no shared prefix (flash prefill at batch
      16 over the whole prompt);
-  5. each kernel against its plain version at the shapes of phases 3-4,
+  5. the shared-prefix greedy call with speculation on (draft_len 8,
+     ngram_max 3): K3 must launch; its speculation counters are logged;
+  6. each kernel against its plain version at the shapes of phases 3-5,
      held elementwise to 4e-3 + 1e-2 * |plain| (bf16), with timings and the
-     least time the card could take; the same kernel with one key masked
-     out must fail that tolerance, or the gate could not see an off-by-one;
-  6. where a decode call's time goes: the shared-prefix greedy call with 16
+     least time the card could take; the kernel on a blinded input (one
+     key masked out; for K3 every q_offset lowered by one, so each query
+     loses its own slot) must fail that tolerance;
+  7. where a decode call's time goes: the shared-prefix greedy call with 16
      new tokens, three times untraced, then once under torch.profiler (the
      device's busy share over the traced call's span, device time by
      kernel); the SM clock and power draw are sampled with nvidia-smi
-     around every call of phases 3, 4 and 6;
-  7. the model's logits with the kernels against the same model run on the
-     plain versions, teacher-forced on 4 prompts: reported at full depth in
-     bf16, held to 1e-3 (relative to the largest logit) at full width in
-     float32 with the depth cut to 4 layers.
-  int8 path (llama3-8b-int8; K4 int8-weight matmul, GEMV and GEMM regimes,
-  with K1 and K2), after the bf16 engine is freed:
-  8. build the engine; the memory it allocates must stay within 5% of its
+     around every serve call;
+  8. the share of speculative greedy tokens equal to plain greedy ones at
+     32 layers in bf16 (reported only);
+  9. the model's logits with the kernels against the same model run on the
+     plain versions, teacher-forced on 4 prompts, at 32 layers in bf16
+     (reported);
+  int8 KV cache (kv_cache_quant, over the bf16 engine's own tensors; K2q
+  and K3 over an int8 cache):
+ 10. the engine must share every parameter tensor (no second copy); the
+     cache bytes it holds against the bf16 cache's at one shape;
+ 11. phases 3-4 and then 5 on it: K1, K2q and K3 over int8 must launch;
+ 12. both modes against their plain versions as in phase 6, and phase 9's
+     report;
+ 13. the gates in float32 at full width with the depth cut to 4 layers:
+     teacher-forced logits within 1e-3 of the largest logit (float cache
+     and int8 cache), and speculative greedy tokens equal to plain greedy
+     ones (float cache; the int8 cache's are reported);
+  int8-weight path (llama3-8b-int8; K4 int8-weight matmul, GEMV and GEMM
+  regimes, with K1 and K2), after the bf16 engines are freed:
+ 14. build the engine; the memory it allocates must stay within 5% of its
      tree (int8 matrices, f32 scales, bf16 embedding and norms);
-  9. the three serve calls of phases 3-4, with the peak memory over them;
+ 15. the three serve calls of phases 3-4, with the peak memory over them;
      both K4 regimes, K1 and K2 must all launch;
- 10. K4 against its plain version at every (shape, dtypes) the path gave it,
+ 16. K4 against its plain version at every (shape, dtypes) the path gave it,
      held to the same elementwise tolerance; the kernel on x with its last
      32 columns zeroed (its last k tile dropped) must fail it; each launch is
      timed alone after a 64 MB write evicts the L2 cache, as a decode step
      finds a layer's weights; the host's cost of a call is timed beside
      torch.matmul's;
- 11. the profile of phase 6 for the int8 shared-prefix greedy call;
- 12. the teacher-forced check of phase 7 with K4 swapped for its plain
+ 17. the profile of phase 7 for the int8 shared-prefix greedy call;
+ 18. the teacher-forced check of phase 9 with K4 swapped for its plain
      version too: reported in bf16 at 32 layers, held to 1e-3 in float32
      at 4 layers.
 
@@ -82,6 +101,9 @@ ATOL, RTOL = 4e-3, 1e-2
 PROFILE_TOKENS = 16
 K1_REPLACES = "fairness_llm_tpu/ops/flash_attention.py:148"
 K2_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:413"
+K2Q_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:191"
+K3_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:404"
+K3Q_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:288"
 K4_REPLACES = "fairness_llm_tpu/ops/quant_matmul.py:159"
 K4_SOURCE = "fairness_llm_tpu_torch/ops/csrc/quant_matmul.cu"
 # The int8 engine's allocation may exceed its tree by this share at most.
@@ -353,56 +375,86 @@ def k1_numbers(call, torch, F):
     }
 
 
-def k2_numbers(call, torch, F):
+def decode_numbers(call, torch, F):
+    """One decode-attention mode at one shape: K2 (3-D q, float cache), K2q
+    (int8 cache), K3 (4-D q with q_offsets, float or int8 cache)."""
+    from fairness_llm_tpu_torch.models.transformer import _dequantize_kv
     from fairness_llm_tpu_torch.ops import decode_attention as dm
 
     q, k, v, valid = call["args"][:4]
-    shared = call["kwargs"].get("shared_kv")
-    B, H, D = q.shape
+    kw = dict(call["kwargs"])
+    shared, offs = kw.get("shared_kv"), kw.get("q_offsets")
+    ks, vs = kw.get("k_scale"), kw.get("v_scale")
+    multi, quant = q.dim() == 4, ks is not None
+    if not multi:
+        offs = kw["q_offsets"] = None
+    B, D, H = q.shape[0], q.shape[-1], q.shape[-2]
+    Q = q.shape[1] if multi else 1
     L, Hkv = k.shape[1], k.shape[2]
     P = 0 if shared is None else shared[0].shape[0]
-    got = dm.decode_attention(q, k, v, valid, shared_kv=shared)
-    want = dm.decode_attention_reference(q, k, v, valid, shared)
+    run = lambda **over: dm.decode_attention(q, k, v, valid, **{**kw, **over})  # noqa: E731
+    got = run()
+    want = dm.decode_attention_reference(q, k, v, valid, **kw)
     err, ratio = gate(got, want)
-    # The kernel with each row's newest valid slot (the token just written)
-    # masked out: the gate must see the difference.
-    slots = torch.arange(L, device=q.device)
-    newest = torch.where(valid.bool(), slots, -1).amax(1)
-    dropped = valid.clone()
-    dropped[torch.arange(B, device=q.device), newest] = False
-    _, shifted_ratio = gate(dm.decode_attention(q, k, v, dropped, shared_kv=shared), want)
+    if multi:
+        # Every q_offset lowered by one: each query loses its own slot.
+        _, blind_ratio = gate(run(q_offsets=offs - 1), want)
+    else:
+        # Each row's newest valid slot (the token just written) masked out.
+        slots = torch.arange(L, device=q.device)
+        newest = torch.where(valid.bool(), slots, -1).amax(1)
+        dropped = valid.clone()
+        dropped[torch.arange(B, device=q.device), newest] = False
+        _, blind_ratio = gate(dm.decode_attention(q, k, v, dropped, **kw), want)
+    del got, want
     iters = 200
-    ms = cuda_ms(lambda: dm.decode_attention(q, k, v, valid, shared_kv=shared), iters)
-    plain_ms = cuda_ms(lambda: dm.decode_attention_reference(q, k, v, valid, shared), 20)
+    ms = cuda_ms(run, iters)
+    plain_ms = cuda_ms(lambda: dm.decode_attention_reference(q, k, v, valid, **kw), 20)
+    # Which own-cache slots each query sees: valid, and for a verify window
+    # j <= q_offsets[b] + i.
+    slots = torch.arange(L, device=q.device)
+    sees = valid.bool()[:, None, :].expand(B, Q, L)
+    if multi:
+        sees = sees & (slots[None, None, :] <= (offs.long()[:, None, None]
+                                                 + torch.arange(Q, device=q.device)[None, :, None]))
     # Yardstick: one SDPA call over [prefix; cache] laid out [B, H, P+L, D]
-    # with the validity mask; that layout is built before timing.
+    # with an explicit boolean mask; the layout (and, for an int8 cache, the
+    # dequantization) is built before timing.
     rep = H // Hkv
-    kk, vv = k.transpose(1, 2), v.transpose(1, 2)
-    mask = valid
+    kf = _dequantize_kv(k, ks, q.dtype) if quant else k
+    vf = _dequantize_kv(v, vs, q.dtype) if quant else v
+    kk, vv, mask = kf.transpose(1, 2), vf.transpose(1, 2), sees
     if P:
         kk = torch.cat([shared[0].transpose(0, 1)[None].expand(B, -1, -1, -1), kk], 2)
         vv = torch.cat([shared[1].transpose(0, 1)[None].expand(B, -1, -1, -1), vv], 2)
-        mask = torch.cat([torch.ones(B, P, dtype=torch.bool, device=q.device), valid], 1)
+        mask = torch.cat([torch.ones(B, Q, P, dtype=torch.bool, device=q.device), sees], 2)
     ke = kk.repeat_interleave(rep, 1).contiguous()
     ve = vv.repeat_interleave(rep, 1).contiguous()
-    q4 = q[:, :, None, :]
-    m4 = mask[:, None, None, :]
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, ke, ve, attn_mask=m4),
-                         iters)
-    # Bound: the bytes this input needs (k/v of the valid cache slots and of
-    # the prefix, q, o and valid), or 4*D operations per visible key per
-    # head, whichever is longer.
-    item = k.element_size()
-    n_valid = int(valid.sum())
-    nbytes = (2 * n_valid * Hkv * D + 2 * P * Hkv * D + 2 * B * H * D) * item + B * L
-    flops = 4.0 * D * H * (B * P + n_valid)
-    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    q4 = (q.transpose(1, 2) if multi else q[:, :, None, :]).contiguous()
+    m4 = mask[:, None].contiguous()
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, ke, ve, attn_mask=m4), iters)
+    del kf, vf, kk, vv, ke, ve, q4, m4
+    # Bound: the bytes this input needs (q and o; k/v, and their scales, of
+    # every cache slot some query sees; the prefix; valid; the offsets), or
+    # 4*D operations per visible (query, key) pair per head, whichever is
+    # longer.
+    needed = int(sees.any(1).sum())
+    pairs = int(sees.sum()) + B * Q * P
+    item = q.element_size()
+    nbytes = (2 * q.numel() * item + 2 * needed * Hkv * D * k.element_size()
+              + (2 * needed * Hkv * 4 if quant else 0) + 2 * P * Hkv * D * item + B * L
+              + (4 * B if multi else 0))
+    flops = 4.0 * D * H * pairs
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    shape = {"q": list(q.shape), "k": list(k.shape), "cache": str(k.dtype)[6:], "prefix": P,
+             "visible_slots": int(sees.sum()) if multi else needed}
     return {
-        "shape": {"q": list(q.shape), "k": list(k.shape), "prefix": P,
-                  "valid_slots": n_valid},
-        "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
-        "blind_gate_err_over_tol": shifted_ratio,
+        "shape": shape, "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio,
+        "ok": ratio <= 1, "blind_gate_err_over_tol": blind_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": "F.scaled_dot_product_attention over [prefix; cache] with a boolean mask"
+                        + (", k/v dequantized beforehand" if quant else ""),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -538,8 +590,8 @@ def profiled_decode(backend, prompts, prefix, settings, torch):
 def teacher_forced_check(engine, prompts, torch):
     """Logits of the kernel path against the same model with each kernel
     wrapper swapped for its plain version, on 4 prompts: the prefill (K1,
-    and K4's GEMM regime in an int8 model) plus 4 decode steps (K2, and
-    K4's GEMV regime) fed the same tokens. The two differ only where a
+    and K4's GEMM regime in an int8 model) plus 4 decode steps (K2, or K2q
+    over an int8 cache, and K4's GEMV regime) fed the same tokens. The two differ only where a
     kernel's output rounds differently from its plain version's."""
     from fairness_llm_tpu_torch.models.tokenizer import _left_pad
     from fairness_llm_tpu_torch.ops import decode_attention as dm
@@ -570,8 +622,7 @@ def teacher_forced_check(engine, prompts, torch):
     got = run()
     kernels = (fm.flash_attention, dm.decode_attention, qm.quant_matmul)
     fm.flash_attention = fm.flash_attention_reference
-    dm.decode_attention = (lambda q, k, v, valid, shared_kv=None:
-                           dm.decode_attention_reference(q, k, v, valid, shared_kv))
+    dm.decode_attention = dm.decode_attention_reference
     qm.quant_matmul = qm.quant_matmul_reference
     try:
         want = run()
@@ -618,8 +669,90 @@ def serve_three(backend, prompts, keys, prefix, greedy, sampled, label: str):
     return rows
 
 
+def decode_recorder(dec_mod):
+    """A Recorder of decode_attention keyed by mode and shapes."""
+
+    def key(q, k, v, valid, shared_kv=None, k_scale=None, v_scale=None, q_offsets=None):
+        mode = ("k3" if q.dim() == 4 else "k2") + ("q" if k_scale is not None else "")
+        return (mode, tuple(q.shape), tuple(k.shape),
+                0 if shared_kv is None else shared_kv[0].shape[0])
+
+    return Recorder(dec_mod, "decode_attention", key)
+
+
+def decode_counts(dec_mod) -> dict:
+    return {"decode_attention": dec_mod.launches,
+            "decode_attention_int8_cache": dec_mod.quant_launches,
+            "decode_attention_verify": dec_mod.multi_launches,
+            "decode_attention_verify_int8_cache": dec_mod.multi_quant_launches}
+
+
+def zero_counts(dec_mod, flash_mod) -> None:
+    flash_mod.launches = 0
+    dec_mod.launches = dec_mod.quant_launches = 0
+    dec_mod.multi_launches = dec_mod.multi_quant_launches = 0
+
+
+def need_launches(launches: dict, names, path: str) -> None:
+    log(f"launches on the {path} path: {json.dumps(launches)}")
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"{name} was not launched on the {path} path")
+
+
+def spec_serve(engine, prompts, prefix, greedy, label: str):
+    """The shared-prefix greedy call through EngineBackend with speculation
+    on; returns the serve row with the call's speculation counters."""
+    from fairness_llm_tpu_torch.config import SpeculationConfig
+    from fairness_llm_tpu_torch.pipeline.backends import EngineBackend
+
+    backend = EngineBackend(engine, speculation=SpeculationConfig(enabled=True))
+    row = serve(backend, prompts, greedy, label, prefix_ids=prefix)
+    st = backend.last_stats.get("speculation")
+    if st is None or st["verify_steps"] != row["decode_steps"]:
+        fail(f"{label}: the call did not take the speculative path ({backend.last_stats})")
+    log(f"speculation {label} {json.dumps(st)}")
+    return row
+
+
+def decode_rows(rec, mode: str, name: str, torch, F, blind: str):
+    rows = [decode_numbers(call, torch, F) for key, call in rec.calls.items() if key[0] == mode]
+    if not rows:
+        fail(f"{name}: no launch recorded on its path")
+    check_rows(name, rows, blind)
+    return rows
+
+
+def spec_token_share(engine, prompts, prefix, greedy, torch) -> dict:
+    """Greedy tokens with speculation against without, on one engine."""
+    from fairness_llm_tpu_torch.config import SpeculationConfig
+
+    plain = engine.generate(prompts, greedy, prefix_ids=prefix)
+    spec = engine.generate(prompts, greedy, prefix_ids=prefix,
+                           speculation=SpeculationConfig(enabled=True))
+    same = plain.tokens == spec.tokens
+    first = [int(r.argmin()) if not r.all() else None for r in same]
+    return {"equal_share": float(same.mean()), "rows_equal": int(same.all(1).sum()),
+            "rows": int(same.shape[0]), "first_divergent_step": first,
+            "speculation": spec.stats["speculation"], "equal": bool(same.all())}
+
+
+def cache_bytes(cfg, torch, batch: int, slots: int) -> int:
+    """Device bytes init_cache allocates for ``cfg`` at [batch, slots]."""
+    from fairness_llm_tpu_torch.models.transformer import init_cache
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cache = init_cache(cfg, batch, slots, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    del cache
+    return held
+
+
 def bf16_path(torch, F, prompts, keys, greedy, sampled):
-    """Phases 3-7 on llama3-8b; returns the K1 and K2 kernel entries."""
+    """Phases 3-13 on llama3-8b, with a float and then an int8 KV cache;
+    returns the K1, K2, K3, K2q and K3-over-int8 kernel entries."""
     from fairness_llm_tpu_torch.config import ModelSettings
     from fairness_llm_tpu_torch.models.configs import get_model_config
     from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
@@ -641,53 +774,138 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
     # Warm-up (cuBLAS handles, kernel libraries) outside the counted run.
     backend.generate(prompts[:2], ModelSettings(temperature=0.0, max_tokens=2))
 
+    # 3-4. the plain serve calls
     rec1 = Recorder(flash_mod, "flash_attention",
                     lambda q, k, v, lengths, causal=True, window=None:
                     ("k1", tuple(q.shape), tuple(k.shape), window))
-    rec2 = Recorder(dec_mod, "decode_attention",
-                    lambda q, k, v, valid, shared_kv=None:
-                    ("k2", tuple(q.shape), tuple(k.shape),
-                     0 if shared_kv is None else shared_kv[0].shape[0]))
-    flash_mod.launches = 0
-    dec_mod.launches = 0
+    rec2 = decode_recorder(dec_mod)
+    zero_counts(dec_mod, flash_mod)
     with rec1, rec2:
         serve_three(backend, prompts, keys, prefix, greedy, sampled, "")
-    launches = {"flash_attention": flash_mod.launches, "decode_attention": dec_mod.launches}
-    log(f"launches on the main path: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"{name} was not launched on the main path")
+    launches = {"flash_attention": flash_mod.launches, **decode_counts(dec_mod)}
+    need_launches(launches, ["flash_attention", "decode_attention"], "bf16 main")
 
-    # 5. kernels against their plain versions at the main path's shapes
+    # 5. the speculative serve call
+    rec3 = decode_recorder(dec_mod)
+    zero_counts(dec_mod, flash_mod)
+    with rec3:
+        spec_serve(engine, prompts, prefix, greedy, "shared_prefix_greedy_spec")
+    spec_launches = decode_counts(dec_mod)
+    need_launches(spec_launches, ["decode_attention_verify"], "bf16 speculative")
+
+    # 6. kernels against their plain versions at the paths' shapes
     k1_rows = [k1_numbers(call, torch, F) for call in rec1.calls.values()]
-    k2_rows = [k2_numbers(call, torch, F) for call in rec2.calls.values()]
     check_rows("flash_attention", k1_rows, "the first valid key masked out")
-    check_rows("decode_attention", k2_rows, "the newest slot masked out")
+    k2_rows = decode_rows(rec2, "k2", "decode_attention", torch, F, "the newest slot masked out")
+    k3_rows = decode_rows(rec3, "k3", "decode_attention_verify", torch, F,
+                          "every q_offset lowered by one")
+    dec_src = "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu"
     kernels = [
         kernel_entry("flash_attention", "fairness_llm_tpu_torch/ops/csrc/flash_attention.cu",
                      K1_REPLACES, launches["flash_attention"], k1_rows),
-        kernel_entry("decode_attention", "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu",
-                     K2_REPLACES, launches["decode_attention"], k2_rows),
+        kernel_entry("decode_attention", dec_src, K2_REPLACES, launches["decode_attention"],
+                     k2_rows),
+        kernel_entry("decode_attention_verify", dec_src, K3_REPLACES,
+                     spec_launches["decode_attention_verify"], k3_rows),
     ]
-    del rec1, rec2
+    del rec1, rec2, rec3
 
-    # 6. where a decode call's time goes
+    # 7. where a decode call's time goes
     prof_row = profiled_decode(backend, prompts, prefix,
                                ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch)
     log(f"profile_shared_prefix_greedy {json.dumps(prof_row)}")
 
-    # 7. end-to-end check against the plain versions. In bf16 the random-
-    # weight model amplifies one-ulp rounding differences through its 32
-    # layers, so that comparison is reported only; the gate is the same
-    # width in float32, cut to 4 layers, where kernel and plain version
-    # differ only in summation order.
+    # 8. speculative tokens against plain ones at full depth in bf16: reported
+    # only, since a verify window's GEMMs (M = batch x 9) round otherwise than
+    # a step's (M = batch) and the random-weight model flips near-ties.
+    share = spec_token_share(engine, prompts, prefix, greedy, torch)
+    log(f"spec_tokens_vs_plain_bf16_{cfg.num_layers}_layers {json.dumps(share)}")
+
+    # 9. end-to-end check against the plain versions (reported in bf16)
     teacher_forced_gate(engine, prompts, torch, "", cfg.vocab_size)
+
+    # 10-12. the int8 KV cache on the same weights
+    kernels += kv_cache_path(torch, F, engine, prompts, keys, prefix, greedy, sampled)
     del engine, backend
     torch.cuda.empty_cache()
+
+    # 13. the gates in float32 at full width, depth cut to 4 layers: kernel
+    # and plain versions then differ only in summation order.
     small = DecodeEngine(dataclasses.replace(cfg, num_layers=4, dtype="float32"), seed=0)
     teacher_forced_gate(small, prompts, torch, "", cfg.vocab_size, f32=True)
-    del small
+    share = spec_token_share(small, prompts, prefix, greedy, torch)
+    log(f"spec_tokens_vs_plain_f32_4_layers {json.dumps(share)}")
+    if not share["equal"]:
+        fail(f"speculative greedy tokens differ from plain greedy in float32: {share}")
+    small_q = DecodeEngine(dataclasses.replace(small.config, kv_cache_quant=True),
+                           params=small.model.state_dict())
+    teacher_forced_gate(small_q, prompts, torch, "int8_cache_", cfg.vocab_size, f32=True)
+    share = spec_token_share(small_q, prompts, prefix, greedy, torch)
+    log(f"spec_tokens_vs_plain_int8_cache_f32_4_layers {json.dumps(share)}")
+    del small, small_q
     torch.cuda.empty_cache()
+    return kernels
+
+
+def kv_cache_path(torch, F, engine, prompts, keys, prefix, greedy, sampled):
+    """Phases 10-12: a second engine with kv_cache_quant over the first
+    engine's parameter tensors; returns the K2q and K3-over-int8 entries."""
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.pipeline.backends import EngineBackend
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+
+    # 10. the engine: it must hold no second copy of the weights
+    cfg = dataclasses.replace(engine.config, kv_cache_quant=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng_q = DecodeEngine(cfg, params=engine.model.state_dict())
+    torch.cuda.synchronize()
+    added = torch.cuda.memory_allocated() - before
+    mine = dict(eng_q.model.named_parameters())
+    shared = sum(p.data_ptr() == mine[n].data_ptr() for n, p in engine.model.named_parameters())
+    log(f"engine: {MODEL} kv_cache_quant=True over the bf16 engine's tensors: "
+        f"shared_tensors={shared}/{len(mine)} added_gb={added / 1e9:.4f}")
+    if shared != len(mine) or added > 0.01 * before:
+        fail(f"the int8-cache engine copied weights: {shared}/{len(mine)} tensors shared, "
+             f"{added / 1e9:.3f} GB added")
+    B, L = 16, 960  # the no-prefix call's cache
+    held = {name: cache_bytes(c, torch, B, L) for name, c in
+            (("int8", cfg), ("bf16", engine.config))}
+    log(f"kv cache bytes at [{B}, {L}] x {cfg.num_layers} layers: int8 {held['int8']} "
+        f"(values + f32 scales), bf16 {held['bf16']}, ratio {held['int8'] / held['bf16']:.4f}")
+
+    # 11. the three serve calls (K1, K2q), then the speculative one (K3 over int8)
+    backend = EngineBackend(eng_q)
+    rec = decode_recorder(dec_mod)
+    zero_counts(dec_mod, flash_mod)
+    with rec:
+        serve_three(backend, prompts, keys, prefix, greedy, sampled, "int8_cache_")
+    launches = {"flash_attention": flash_mod.launches, **decode_counts(dec_mod)}
+    need_launches(launches, ["flash_attention", "decode_attention_int8_cache"], "int8-cache")
+    rec_s = decode_recorder(dec_mod)
+    zero_counts(dec_mod, flash_mod)
+    with rec_s:
+        spec_serve(eng_q, prompts, prefix, greedy, "int8_cache_shared_prefix_greedy_spec")
+    spec_launches = decode_counts(dec_mod)
+    need_launches(spec_launches, ["decode_attention_verify_int8_cache"],
+                  "int8-cache speculative")
+
+    # 12. both modes against their plain versions, then the bf16 end-to-end report
+    k2q_rows = decode_rows(rec, "k2q", "decode_attention_int8_cache", torch, F,
+                           "the newest slot masked out")
+    k3q_rows = decode_rows(rec_s, "k3q", "decode_attention_verify_int8_cache", torch, F,
+                           "every q_offset lowered by one")
+    dec_src = "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu"
+    kernels = [
+        kernel_entry("decode_attention_int8_cache", dec_src, K2Q_REPLACES,
+                     launches["decode_attention_int8_cache"], k2q_rows),
+        kernel_entry("decode_attention_verify_int8_cache", dec_src, K3Q_REPLACES,
+                     spec_launches["decode_attention_verify_int8_cache"], k3q_rows),
+    ]
+    del rec, rec_s
+    teacher_forced_gate(eng_q, prompts, torch, "int8_cache_", cfg.vocab_size)
+    del eng_q, backend
     return kernels
 
 
@@ -702,7 +920,7 @@ def teacher_forced_gate(engine, prompts, torch, label, vocab, f32=False):
 
 
 def int8_path(torch, prompts, keys, greedy, sampled):
-    """Phases 8-12 on llama3-8b-int8; returns the two K4 kernel entries."""
+    """Phases 14-18 on llama3-8b-int8; returns the two K4 kernel entries."""
     from fairness_llm_tpu_torch.config import ModelSettings
     from fairness_llm_tpu_torch.models.configs import get_model_config
     from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
@@ -711,7 +929,7 @@ def int8_path(torch, prompts, keys, greedy, sampled):
     from fairness_llm_tpu_torch.pipeline.backends import EngineBackend, shared_prefix_ids
     from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
 
-    # 8. the engine, and what it allocates against its tree
+    # 14. the engine, and what it allocates against its tree
     cfg = dataclasses.replace(get_model_config(MODEL_INT8), use_decode_attention_kernel=True)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -732,12 +950,12 @@ def int8_path(torch, prompts, keys, greedy, sampled):
     prefix = shared_prefix_ids(backend, prompts)
     backend.generate(prompts[:2], ModelSettings(temperature=0.0, max_tokens=2))
 
-    # 9. the main path
+    # 15. the main path
     rec4 = WeightRecorder(qm, "quant_matmul",
                           lambda x, wq, scale, out_dtype=None:
                           ("k4", tuple(x.shape), tuple(wq.shape), str(x.dtype),
                            str(out_dtype or x.dtype)))
-    flash_mod.launches = dec_mod.launches = 0
+    zero_counts(dec_mod, flash_mod)
     qm.gemv_launches = qm.gemm_launches = 0
     torch.cuda.reset_peak_memory_stats()
     with rec4:
@@ -751,7 +969,7 @@ def int8_path(torch, prompts, keys, greedy, sampled):
         if n <= 0:
             fail(f"{name} was not launched on the int8 main path")
 
-    # 10. K4 against its plain version at every shape and dtype pair
+    # 16. K4 against its plain version at every shape and dtype pair
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rows = [k4_numbers(call, torch, flush) for call in rec4.calls.values()]
     del flush, rec4
@@ -762,12 +980,12 @@ def int8_path(torch, prompts, keys, greedy, sampled):
         check_rows(name, mine, "x with its last 32 columns zeroed")
         kernels.append(kernel_entry(name, K4_SOURCE, K4_REPLACES, launches[name], mine))
 
-    # 11. where an int8 decode call's time goes
+    # 17. where an int8 decode call's time goes
     prof_row = profiled_decode(backend, prompts, prefix,
                                ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch)
     log(f"profile_int8_shared_prefix_greedy {json.dumps(prof_row)}")
 
-    # 12. end-to-end check with K4 swapped for its plain version too
+    # 18. end-to-end check with K4 swapped for its plain version too
     teacher_forced_gate(engine, prompts, torch, "int8_", cfg.vocab_size)
     del engine, backend
     torch.cuda.empty_cache()

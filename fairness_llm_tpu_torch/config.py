@@ -1,5 +1,6 @@
-"""Per-model decode settings (counterpart of ``fairness_llm_tpu/config.py``:
-``ModelSettings`` and the ``model_settings`` table only)."""
+"""Per-model decode settings and the speculation knobs (counterpart of
+``fairness_llm_tpu/config.py``: ``ModelSettings``, the ``model_settings``
+table and ``SpeculationConfig`` only)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,19 @@ class ModelSettings:
     max_tokens: int = 500
     top_p: float = 1.0
     top_k: int = 0  # 0 = disabled
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeculationConfig:
+    """Prompt-lookup speculative decoding (``runtime/speculative.py``): each
+    step drafts ``draft_len`` tokens by matching the last ``ngram_max``
+    tokens against the row's prompt and output, then verifies all of them
+    in one forward. Greedy only: with temperature > 0 the engine takes the
+    plain sampled path."""
+
+    enabled: bool = False
+    ngram_max: int = 3  # longest suffix n-gram tried first (falls back to 1)
+    draft_len: int = 8  # drafted tokens verified per step (k; step width k+1)
 
 
 MODEL_SETTINGS: Dict[str, ModelSettings] = {

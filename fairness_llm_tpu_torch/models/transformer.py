@@ -18,16 +18,24 @@ made. The embedding and the norms stay float.
 Unlike the reference's functional cache, the KV cache here is updated in
 place: the forward writes the new keys and values into the preallocated
 tensors and advances ``index``/``lengths``, which saves a copy of the cache
-per step.
+per step. New tokens fill slots ``[index, index + S)`` of every row, or,
+with ``write_offsets`` [B] (a speculative verify step, where rows advance at
+their own rates), slots ``[off[b], off[b] + S)`` of row b; the causal rule
+follows the same slots. Under ``kv_cache_quant`` the cache holds int8 k/v
+with f32 per-(slot, head) scales (``_quantize_kv``), and attention outside
+the decode kernel reads their dequantized round trip.
 
 Attention routes as the reference's does, minus its TPU, VMEM and tile-shape
 conditions:
 
 - the hand-written flash kernel (``ops/flash_attention``) takes a left-padded
-  prefill (S > 1) with no shared prefix when ``use_flash_attention`` is set;
+  prefill (S > 1) with no shared prefix when ``use_flash_attention`` is set
+  (over an int8 cache it attends to the round trip of the new keys, which is
+  what later steps read back);
 - the hand-written decode kernel (``ops/decode_attention``) takes a cached
-  single-token step when ``use_decode_attention_kernel`` is set and there is
-  no sliding window;
+  step of one token, or of at most 16 tokens at ``write_offsets`` (the
+  verify window), when ``use_decode_attention_kernel`` is set and there is
+  no sliding window; over an int8 cache it reads the int8 values and scales;
 - everything else (the shared-prefix joint-softmax prefill, sliding-window
   decode, the flags off) takes the dense branch, which the reference also
   computes outside its kernels.
@@ -59,8 +67,41 @@ def dtype_of(config: ModelConfig) -> torch.dtype:
 
 @dataclasses.dataclass
 class LayerCache:
+    """k/v in the model dtype, or int8 with per-(slot, head) f32 scales
+    under ``kv_cache_quant``."""
+
     k: torch.Tensor  # [B, max_len, n_kv, head_dim]
     v: torch.Tensor  # [B, max_len, n_kv, head_dim]
+    k_scale: Optional[torch.Tensor] = None  # [B, max_len, n_kv] float32
+    v_scale: Optional[torch.Tensor] = None
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, S, H, D] -> (int8 values, [B, S, H] f32 scales), symmetric per
+    vector: ``amax / 127`` floored at 1e-8, round half to even, clip to
+    +-127 (the reference's arithmetic, bit for bit)."""
+    x32 = x.float()
+    scale = (x32.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(x32 / scale[..., None]).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def _cache_write(buf: torch.Tensor, upd: torch.Tensor, index: int,
+                 write_offsets: Optional[torch.Tensor]) -> None:
+    """Write ``upd`` [B, S, ...] into ``buf`` [B, L, ...] in place: slots
+    ``[index, index + S)`` of every row, or ``[off[b], off[b] + S)`` of row
+    b when ``write_offsets`` is given."""
+    S = upd.shape[1]
+    if write_offsets is None:
+        buf[:, index:index + S] = upd
+        return
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    slots = write_offsets.long()[:, None] + torch.arange(S, device=buf.device)[None, :]
+    buf[rows, slots] = upd.to(buf.dtype)
 
 
 @dataclasses.dataclass
@@ -84,15 +125,22 @@ class KVCache:
 def init_cache(config: ModelConfig, batch_size: int, max_len: int,
                dtype: Optional[torch.dtype] = None,
                device: Optional[torch.device] = None) -> KVCache:
-    if config.kv_cache_quant:
-        raise NotImplementedError("the int8 KV cache is not ported")
+    """A zeroed cache: k/v in ``dtype`` (default the config's), or int8 with
+    f32 scales under ``kv_cache_quant`` (``dtype`` is then unused)."""
     dtype = dtype or dtype_of(config)
     shape = (batch_size, max_len, config.num_kv_heads, config.head_dim)
-    layers = [
-        LayerCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
-        for _ in range(config.num_layers)
-    ]
+
+    def layer():
+        if config.kv_cache_quant:
+            return LayerCache(
+                k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                k_scale=torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                v_scale=torch.zeros(shape[:3], dtype=torch.float32, device=device))
+        return LayerCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                          v=torch.zeros(shape, dtype=dtype, device=device))
+
+    layers = [layer() for _ in range(config.num_layers)]
     return KVCache(
         layers=layers,
         key_valid=torch.zeros((batch_size, max_len), dtype=torch.bool, device=device),
@@ -242,10 +290,13 @@ class Attention(nn.Module):
                 cache_index: Optional[int], key_valid, key_positions,
                 left_padded: bool = False,
                 shared_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                write_offsets: Optional[torch.Tensor] = None):
         # shared_kv: (k, v) each [Pc, Hkv, D], a prompt prefix common to every
         # row at positions 0..Pc-1, always visible; read once per step.
         # rope_cs: rope_tables(positions) when the caller computed them.
+        # write_offsets: [B] per-row first slot of the new tokens; replaces
+        # cache_index for the writes and the causal rule.
         cfg = self.config
         dtype = dtype_of(cfg)
         B, S, _ = x.shape
@@ -258,47 +309,71 @@ class Attention(nn.Module):
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
 
-        if cache_layer is not None:
-            cache_layer.k[:, cache_index:cache_index + S] = k.to(dtype)
-            cache_layer.v[:, cache_index:cache_index + S] = v.to(dtype)
-            keys, values = cache_layer.k, cache_layer.v
-        else:
-            keys, values = k, v
+        quant = cache_layer is not None and cfg.kv_cache_quant
+        if quant:
+            qk, k_sc = _quantize_kv(k)
+            qv, v_sc = _quantize_kv(v)
+            for buf, upd in ((cache_layer.k, qk), (cache_layer.v, qv),
+                             (cache_layer.k_scale, k_sc), (cache_layer.v_scale, v_sc)):
+                _cache_write(buf, upd, cache_index, write_offsets)
+        elif cache_layer is not None:
+            _cache_write(cache_layer.k, k.to(dtype), cache_index, write_offsets)
+            _cache_write(cache_layer.v, v.to(dtype), cache_index, write_offsets)
 
         if (shared_kv is None and cfg.use_flash_attention and left_padded
                 and S > 1):
-            # First prefill (or no cache): the new k/v are the whole key set.
+            # First prefill (or no cache): the new k/v are the whole key set;
+            # over an int8 cache, their round trip, which later steps read.
+            if quant:
+                k, v = _dequantize_kv(qk, k_sc, dtype), _dequantize_kv(qv, v_sc, dtype)
             lengths = key_valid[:, :S].sum(dim=1, dtype=torch.int32)
             out = flash_ops.flash_attention(
                 q.transpose(1, 2), k.to(dtype).transpose(1, 2),
                 v.to(dtype).transpose(1, 2), lengths, causal=True,
                 window=cfg.sliding_window,
             ).transpose(1, 2)
-        elif (cfg.use_decode_attention_kernel and S == 1 and cache_layer is not None
-              and cfg.sliding_window is None):
-            # key_valid alone is the mask: slots past the write index are
-            # invalid, so causality is already encoded.
+        elif (cfg.use_decode_attention_kernel and cache_layer is not None
+              and cfg.sliding_window is None
+              and (S == 1 or (write_offsets is not None and S <= 16))):
+            # One token: key_valid alone is the mask (slots past the write
+            # index are invalid, so causality is already encoded). A verify
+            # window adds the causal rule j <= off[b] + i over its own slots.
             sh = None if shared_kv is None else (
                 shared_kv[0].to(dtype), shared_kv[1].to(dtype))
-            out = decode_ops.decode_attention(q[:, 0], keys, values, key_valid,
-                                              shared_kv=sh)
+            kq = q[:, 0] if S == 1 else q
+            scales = ((cache_layer.k_scale, cache_layer.v_scale) if quant else (None, None))
+            out = decode_ops.decode_attention(
+                kq, cache_layer.k, cache_layer.v, key_valid, shared_kv=sh,
+                k_scale=scales[0], v_scale=scales[1], q_offsets=write_offsets,
+            ).reshape(B, S, cfg.num_heads, cfg.head_dim)
         else:
+            if cache_layer is None:
+                keys, values = k, v
+            elif quant:
+                keys = _dequantize_kv(cache_layer.k, cache_layer.k_scale, dtype)
+                values = _dequantize_kv(cache_layer.v, cache_layer.v_scale, dtype)
+            else:
+                keys, values = cache_layer.k, cache_layer.v
             out = self._dense(q, keys, values, positions, cache_index,
                               key_valid, key_positions, shared_kv,
-                              cached=cache_layer is not None)
+                              cached=cache_layer is not None, write_offsets=write_offsets)
         return self.o_proj(out.reshape(B, S, cfg.q_dim))
 
     def _dense(self, q, keys, values, positions, cache_index, key_valid,
-               key_positions, shared_kv, cached: bool):
+               key_positions, shared_kv, cached: bool,
+               write_offsets: Optional[torch.Tensor] = None):
         cfg = self.config
         dtype = dtype_of(cfg)
         S = q.shape[1]
         dev = q.device
         if cached:
-            # new query i (global slot index+i) sees key slot j iff j <= index+i
-            j_idx = torch.arange(keys.shape[1], device=dev)[None, :]
-            q_idx = cache_index + torch.arange(S, device=dev)[:, None]
-            causal = (j_idx <= q_idx)[None]  # [1, S, K]
+            # new query i (global slot index+i, or off[b]+i for row b) sees
+            # key slot j iff j <= that slot
+            j_idx = torch.arange(keys.shape[1], device=dev)[None, None, :]
+            q_idx = torch.arange(S, device=dev)[None, :, None]
+            q_idx = (q_idx + cache_index if write_offsets is None
+                     else q_idx + write_offsets.long()[:, None, None])
+            causal = j_idx <= q_idx  # [1 or B, S, K]
         else:
             causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()[None]
         allowed = causal & key_valid[:, None, :]  # [B, S, K]
@@ -357,10 +432,12 @@ class Block(nn.Module):
         self.mlp = MLP(config)
 
     def forward(self, x, positions, cache_layer, cache_index, key_valid,
-                key_positions, left_padded=False, shared_kv=None, rope_cs=None):
+                key_positions, left_padded=False, shared_kv=None, rope_cs=None,
+                write_offsets=None):
         x = x + self.attn(self.attn_norm(x), positions, cache_layer, cache_index,
                           key_valid, key_positions, left_padded=left_padded,
-                          shared_kv=shared_kv, rope_cs=rope_cs)
+                          shared_kv=shared_kv, rope_cs=rope_cs,
+                          write_offsets=write_offsets)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -375,7 +452,8 @@ class Transformer(nn.Module):
     Call patterns (as the reference's ``Transformer.__call__``):
       - no cache: ``logits, None = model(tokens, positions, token_valid)``
       - prefill/decode: ``logits, cache = model(..., cache=cache)``, where
-        ``tokens`` fill cache slots ``[cache.index, cache.index + S)``; the
+        ``tokens`` fill cache slots ``[cache.index, cache.index + S)``, or
+        ``[off[b], off[b] + S)`` of row b with ``write_offsets=off``; the
         cache is updated in place and returned.
     Logits are float32.
     """
@@ -404,6 +482,7 @@ class Transformer(nn.Module):
                 cache: Optional[KVCache] = None, left_padded: bool = False,
                 last_only: bool = False,
                 shared_layers: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+                write_offsets: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         cfg = self.config
         dtype = dtype_of(cfg)
@@ -416,15 +495,21 @@ class Transformer(nn.Module):
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
         if cfg.pos_emb == "learned":
-            x = x + self.pos_embedding[positions].to(dtype)
+            # Out-of-range positions clamp, as the reference's gather does (a
+            # verify window's last slots may run past the table; their logits
+            # are never emitted).
+            x = x + self.pos_embedding[positions.clamp(0, cfg.max_seq_len - 1)].to(dtype)
 
         if cache is not None:
-            if S > cache.max_len - cache.index:
-                raise ValueError(f"writing {S} tokens at slot {cache.index} into a "
+            if write_offsets is None:
+                lo = hi = cache.index
+            else:
+                lo, hi = (int(x) for x in torch.aminmax(write_offsets))
+            if lo < 0 or S > cache.max_len - hi:
+                raise ValueError(f"writing {S} tokens at slots {lo}..{hi} into a "
                                  f"cache of max_len {cache.max_len}")
-            idx = cache.index
-            cache.key_valid[:, idx:idx + S] = token_valid
-            cache.key_positions[:, idx:idx + S] = positions
+            _cache_write(cache.key_valid, token_valid, cache.index, write_offsets)
+            _cache_write(cache.key_positions, positions, cache.index, write_offsets)
             key_valid, key_positions = cache.key_valid, cache.key_positions
         else:
             key_valid, key_positions = token_valid, positions
@@ -437,7 +522,7 @@ class Transformer(nn.Module):
                 cache.index if cache is not None else None, key_valid,
                 key_positions, left_padded=left_padded,
                 shared_kv=shared_layers[i] if shared_layers is not None else None,
-                rope_cs=rope_cs,
+                rope_cs=rope_cs, write_offsets=write_offsets,
             )
 
         x = self.final_norm(x)
@@ -453,6 +538,8 @@ class Transformer(nn.Module):
             logits = (x @ head.to(x.dtype)).float()
 
         if cache is not None:
+            # As the reference: a verify step's caller resets lengths to the
+            # tokens it accepted.
             cache.index += S
             cache.lengths += token_valid.sum(dim=1)
         return logits, cache

@@ -2,7 +2,8 @@
 // decode_attention.cu): element conversion, warp reductions, and a
 // multi-stage pipeline that stages k/v tiles into shared memory with
 // cp.async, so the loads of the next tiles are in flight while the block
-// computes on the current one.
+// computes on the current one. Staged rows may be float, bf16 or int8 (the
+// quantised KV cache).
 
 #pragma once
 
@@ -16,6 +17,7 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -57,6 +59,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
                "r"(n));
 }
 
+// A 4-byte copy (a per-slot scale); pred false zero-fills it.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
@@ -88,16 +97,26 @@ __host__ __forceinline__ bool aligned16(const void* p) {
 }
 
 // acc += dot(q row (f32, shared), staged key row (T, shared)) over D, for
-// R query rows at once; D is a multiple of Vec<T>::kElems, so q rows start
-// 16-byte aligned.
+// the first nr of R query rows (nr is warp-uniform; the default computes
+// all R); D is a multiple of Vec<T>::kElems, so q rows start 16-byte
+// aligned. An int8 row gives the dot of q with the raw int8 values.
 template <typename T, int R>
 __device__ __forceinline__ void row_dots(float (&acc)[R], const float* const* q,
-                                         const T* krow, int D) {
+                                         const T* krow, int D, int nr = R) {
   constexpr int VE = Vec<T>::kElems;
   for (int d0 = 0; d0 < D; d0 += VE) {
     float kf[VE];
     const uint4 raw = *reinterpret_cast<const uint4*>(krow + d0);
-    if constexpr (sizeof(T) == 2) {
+    if constexpr (sizeof(T) == 1) {
+      const char4* c = reinterpret_cast<const char4*>(&raw);
+#pragma unroll
+      for (int e = 0; e < VE / 4; ++e) {
+        kf[4 * e] = static_cast<float>(c[e].x);
+        kf[4 * e + 1] = static_cast<float>(c[e].y);
+        kf[4 * e + 2] = static_cast<float>(c[e].z);
+        kf[4 * e + 3] = static_cast<float>(c[e].w);
+      }
+    } else if constexpr (sizeof(T) == 2) {
       const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
       for (int e = 0; e < VE / 2; ++e) {
@@ -112,6 +131,7 @@ __device__ __forceinline__ void row_dots(float (&acc)[R], const float* const* q,
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
+      if (r >= nr) break;  // warp-uniform; never taken when nr == R
       const float4* q4 = reinterpret_cast<const float4*>(q[r] + d0);
 #pragma unroll
       for (int e4 = 0; e4 < VE / 4; ++e4) {

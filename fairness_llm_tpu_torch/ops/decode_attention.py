@@ -1,16 +1,23 @@
-"""Single-token decode attention with a shared-prefix seed.
+"""Decode attention with a shared-prefix seed: one-token steps, the int8
+cache, and the speculative verify window.
 
-Counterpart of ``fairness_llm_tpu/ops/decode_attention.py`` for 3-D q and a
-float cache: q [B, H, D] against the shared prefix k/v [P, Hkv, D] (common to
-every row, always visible) and the row's own cache k/v [B, L, Hkv, D] under
-``valid`` [B, L], in one joint softmax; head h reads kv head ``h // rep``.
+Counterpart of ``fairness_llm_tpu/ops/decode_attention.py``. q [B, H, D]
+(one query per row), or q [B, Q, H, D] with ``q_offsets`` [B] (a verify
+window: query i of row b sits in cache slot ``q_offsets[b] + i`` and sees
+own slot j only where ``j <= q_offsets[b] + i``), attends to the shared
+prefix k/v [P, Hkv, D] (common to every row, always visible) and the row's
+own cache k/v [B, L, Hkv, D] under ``valid`` [B, L], in one joint softmax;
+head h reads kv head ``h // rep``. With ``k_scale``/``v_scale`` [B, L, Hkv]
+f32 the cache is int8: the k-scale multiplies the scores, the v-scale the
+probabilities after the normaliser's sum, as the reference folds them. The
+shared prefix stays float.
 
 ``decode_attention`` launches the hand-written CUDA kernel
-(``csrc/decode_attention.cu``) for a CUDA tensor and takes the plain version,
-``decode_attention_reference``, only for a CPU tensor. The int8 cache (k/v
-scales) and the 4-D speculative verify window are not ported: the wrapper
-refuses both. Where k/v rows are not 16-byte aligned (a D of odd byte size,
-an odd offset), the inputs are copied with D zero-padded before the launch.
+(``csrc/decode_attention.cu``) for CUDA tensors and takes the plain version,
+``decode_attention_reference``, only for CPU tensors; any other mix raises.
+Each of the four modes counts its launches. Where k/v rows are not 16-byte
+aligned (a D of odd byte size, an odd offset), the inputs are copied with D
+zero-padded before the launch.
 """
 
 from __future__ import annotations
@@ -24,84 +31,135 @@ from fairness_llm_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches of each mode since the counts were last set to 0: one
+#: query per row over a float cache (K2), over an int8 cache (K2q), and the
+#: verify window over a float cache (K3) and over an int8 cache.
 launches = 0
+quant_launches = 0
+multi_launches = 0
+multi_quant_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# dtype; q, k, v, valid, sk, sv, o; B, H, Hkv, L, D, P; scale; stream
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+# dtype, kv_int8; q, k, v, valid, sk, sv, ks, vs, q_offsets, o; B, Q, H, Hkv, L, D, P;
+# scale; stream
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
 
+SharedKV = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
-def decode_attention_reference(q, k, v, valid,
-                               shared_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                               ) -> torch.Tensor:
+
+def decode_attention_reference(q, k, v, valid, shared_kv: SharedKV = None,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None,
+                               q_offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version, in f32: the joint softmax over [prefix; cache]
-    with the kernel's ``acc / max(l, 1e-30)`` normalisation."""
-    B, H, D = q.shape
-    rep = H // k.shape[2]
-    qf = q.float() * D ** -0.5
-    kk = k.float().repeat_interleave(rep, dim=2)
-    vv = v.float().repeat_interleave(rep, dim=2)
-    s = torch.einsum("bhd,blhd->bhl", qf, kk)
-    mask = valid.bool()[:, None, :].expand(B, H, -1)
-    if shared_kv is not None and shared_kv[0].shape[0]:
+    with the kernel's ``acc / max(l, 1e-30)`` normalisation and the
+    reference's scale folding for an int8 cache."""
+    multi = q.dim() == 4
+    q4 = q if multi else q[:, None]
+    B, Q, H, D = q4.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qf = q4.float() * D ** -0.5
+    s = torch.einsum("bqhd,blhd->bhql", qf, k.float().repeat_interleave(rep, dim=2))
+    vv = v.float()
+    if k_scale is not None:
+        s = s * k_scale.float().repeat_interleave(rep, dim=2).permute(0, 2, 1)[:, :, None, :]
+    mask = valid.bool()[:, None, :].expand(B, Q, L)
+    if multi:
+        j = torch.arange(L, device=q.device)
+        qi = torch.arange(Q, device=q.device)
+        mask = mask & (j[None, None, :] <= (q_offsets.long()[:, None, None] + qi[None, :, None]))
+    mask = mask[:, None].expand(B, H, Q, L)
+    P = 0 if shared_kv is None else shared_kv[0].shape[0]
+    if P:
         sk = shared_kv[0].float().repeat_interleave(rep, dim=1)
-        sv = shared_kv[1].float().repeat_interleave(rep, dim=1)
-        s = torch.cat([torch.einsum("bhd,phd->bhp", qf, sk), s], dim=-1)
-        mask = torch.cat([torch.ones(B, H, sk.shape[0], dtype=torch.bool,
-                                     device=q.device), mask], dim=-1)
-        vv = torch.cat([sv[None].expand(B, -1, -1, -1), vv], dim=1)
+        s = torch.cat([torch.einsum("bqhd,phd->bhqp", qf, sk), s], dim=-1)
+        mask = torch.cat([torch.ones(B, H, Q, P, dtype=torch.bool, device=q.device), mask],
+                         dim=-1)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhl,blhd->bhd", p / l.clamp_min(1e-30), vv)
-    return out.to(q.dtype)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    p_sh, p_own = p[..., :P], p[..., P:]
+    if v_scale is not None:
+        # The v-scale multiplies the probabilities after the normaliser's sum.
+        p_own = p_own * v_scale.float().repeat_interleave(rep, dim=2).permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bhql,blhd->bqhd", p_own / l, vv.repeat_interleave(rep, dim=2))
+    if P:
+        sv = shared_kv[1].float().repeat_interleave(rep, dim=1)
+        out = out + torch.einsum("bhqp,phd->bqhd", p_sh / l, sv)
+    out = out.to(q.dtype)
+    return out if multi else out[:, 0]
 
 
-def _check(q, k, v, valid, shared_kv):
-    if q.dim() == 4:
-        raise NotImplementedError(
-            "multi-query (speculative verify) decode attention is not ported")
-    if k.dtype == torch.int8 or v.dtype == torch.int8:
-        raise NotImplementedError("int8 KV-cache decode attention is not ported")
-    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"expected q [B,H,D], k/v [B,L,Hkv,D]; got "
+def _check(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) -> None:
+    """The reference's argument errors, then shapes and dtypes."""
+    multi = q.dim() == 4
+    if multi and q_offsets is None:
+        raise ValueError("multi-query decode attention needs q_offsets")
+    quant = k_scale is not None or v_scale is not None
+    if quant and (k_scale is None or v_scale is None):
+        raise ValueError("int8 cache mode needs both k_scale and v_scale")
+    if q.dim() not in (3, 4) or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q [B,H,D] or [B,Q,H,D], k/v [B,L,Hkv,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, H, D = q.shape
-    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    L, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or H % Hkv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if valid.shape != (B, k.shape[1]):
+    if valid.shape != (B, L):
         raise ValueError(f"valid must be [B, L], got {tuple(valid.shape)}")
-    dtypes = {q.dtype, k.dtype, v.dtype}
+    if multi and (q_offsets.shape != (B,) or q_offsets.is_floating_point()):
+        raise ValueError(f"q_offsets must be integer [B], got {tuple(q_offsets.shape)}")
+    if quant:
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise ValueError(f"k/v_scale come with an int8 cache, got {k.dtype}/{v.dtype}")
+        for sc in (k_scale, v_scale):
+            if sc.shape != (B, L, Hkv) or sc.dtype != torch.float32:
+                raise ValueError(f"k/v_scale must be float32 [B, L, Hkv], got "
+                                 f"{sc.dtype} {tuple(sc.shape)}")
+    elif k.dtype == torch.int8 or v.dtype == torch.int8:
+        raise ValueError("an int8 cache needs k_scale and v_scale")
+    dtypes = {q.dtype} | ({k.dtype, v.dtype} if not quant else set())
     if shared_kv is not None:
         sk, sv = shared_kv
         if sk.dim() != 3 or sv.shape != sk.shape or sk.shape[1:] != k.shape[2:]:
             raise ValueError(f"shared k/v must be [P, Hkv, D], got {tuple(sk.shape)}")
         dtypes |= {sk.dtype, sv.dtype}
     if len(dtypes) != 1 or q.dtype not in _DTYPES:
-        raise ValueError(f"q/k/v (and shared k/v) must share a dtype of {list(_DTYPES)}")
+        raise ValueError(f"q, float k/v and shared k/v must share a dtype of {list(_DTYPES)}")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor,
-                     shared_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                     ) -> torch.Tensor:
-    """[B, H, D] attention output; see the module docstring."""
-    _check(q, k, v, valid, shared_kv)
-    if q.device.type == "cpu":
-        return decode_attention_reference(q, k, v, valid, shared_kv)
-    tensors = [q, k, v, valid] + list(shared_kv or ())
+                     valid: torch.Tensor, shared_kv: SharedKV = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     q_offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, H, D] (3-D q) or [B, Q, H, D] (4-D q) attention output; see the
+    module docstring. ``q_offsets`` is read only for 4-D q, as the
+    reference reads it."""
+    _check(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets)
+    multi = q.dim() == 4
+    quant = k_scale is not None
+    if not multi:
+        q_offsets = None
+    tensors = [t for t in (q, k, v, valid, k_scale, v_scale, q_offsets, *(shared_kv or ()))
+               if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return decode_attention_reference(q, k, v, valid, shared_kv, k_scale, v_scale,
+                                          q_offsets)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError("decode_attention: all inputs must lie on one CUDA device")
+        raise ValueError("decode_attention: all inputs must lie on the CPU or on one CUDA device")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention: inputs must be contiguous")
-    B, H, D = q.shape
+    B, D = q.shape[0], q.shape[-1]
+    Q = q.shape[1] if multi else 1
+    H = q.shape[-2]
     L, Hkv = k.shape[1], k.shape[2]
-    if D > 256 or H // Hkv > 32:
-        raise ValueError(f"decode_attention kernel supports D <= 256 and rep <= 32, "
-                         f"got D={D}, rep={H // Hkv}")
+    if D > 256 or H // Hkv > 32 or Q > 64:
+        raise ValueError(f"decode_attention kernel supports D <= 256, rep <= 32 and Q <= 64, "
+                         f"got D={D}, rep={H // Hkv}, Q={Q}")
     P = 0 if shared_kv is None else shared_kv[0].shape[0]
     if P + L == 0:
         raise ValueError("decode_attention: no keys")
@@ -109,23 +167,34 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"valid must be bool or uint8, got {valid.dtype}")
     Dk = D
     if not all(_build.rows_aligned16(t) for t in [k, v] + list(shared_kv or ())):
-        # Zero columns add nothing to q.k and give output columns cut off below.
-        ve = 16 // q.element_size()
+        # Zero columns add nothing to q.k and give output columns cut off
+        # below. The pad is counted in bytes of the narrowest row: 16
+        # elements for an int8 cache, 16 bytes of q's type otherwise.
+        ve = 16 // min(k.element_size(), q.element_size())
         Dk = -(-D // ve) * ve
         q, k, v = (_build.pad_last_dim(t, Dk) for t in (q, k, v))
         if shared_kv is not None:
             shared_kv = tuple(_build.pad_last_dim(t, Dk) for t in shared_kv)
-    sk_ptr = shared_kv[0].data_ptr() if P else None
-    sv_ptr = shared_kv[1].data_ptr() if P else None
+    if multi:
+        q_offsets = q_offsets.to(torch.int32).contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     out = torch.empty_like(q)
     fn = _build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
     status = fn(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        valid.data_ptr(), sk_ptr, sv_ptr, out.data_ptr(),
-        B, H, Hkv, L, Dk, P, D ** -0.5,
+        _DTYPES[q.dtype], int(quant), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        valid.data_ptr(), ptr(shared_kv[0]) if P else None, ptr(shared_kv[1]) if P else None,
+        ptr(k_scale), ptr(v_scale), ptr(q_offsets), out.data_ptr(),
+        B, Q, H, Hkv, L, Dk, P, D ** -0.5,
         _build.current_stream(q.device),
     )
     _build.check(status, "decode_attention")
-    global launches
-    launches += 1
+    global launches, quant_launches, multi_launches, multi_quant_launches
+    if multi and quant:
+        multi_quant_launches += 1
+    elif multi:
+        multi_launches += 1
+    elif quant:
+        quant_launches += 1
+    else:
+        launches += 1
     return out if Dk == D else out[..., :D]

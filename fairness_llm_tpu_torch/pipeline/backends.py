@@ -9,15 +9,23 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from fairness_llm_tpu_torch.config import ModelSettings
 from fairness_llm_tpu_torch.runtime.engine import _token_lcp
+from fairness_llm_tpu_torch.utils.profiling import SpeculationStats
 
 
 class EngineBackend:
     """Real in-framework decode through a ``DecodeEngine``. ``last_stats``
-    holds the stats of the most recent ``generate`` call."""
+    holds the stats of the most recent ``generate`` call.
 
-    def __init__(self, engine, name: Optional[str] = None):
+    ``speculation`` (a ``SpeculationConfig``) turns on prompt-lookup
+    speculative decoding for greedy sweeps; sampled settings take the plain
+    path, so it is always safe to set. The speculative calls' counters add
+    up in ``spec_totals`` (a ``SpeculationStats``)."""
+
+    def __init__(self, engine, name: Optional[str] = None, speculation=None):
         self.engine = engine
         self.name = name or engine.config.name
+        self.speculation = speculation
+        self.spec_totals: Optional[SpeculationStats] = None
         self.last_stats: Optional[Dict[str, Any]] = None
 
     def generate(
@@ -39,8 +47,13 @@ class EngineBackend:
             # sweeps pass an explicit sweep-wide prefix; never auto-detect per
             # chunk (composition-dependent)
             share_prefix=None if prefix_ids is not None else False,
+            speculation=self.speculation,
         )
         self.last_stats = out.stats
+        sp = (out.stats or {}).get("speculation")
+        if sp is not None:
+            chunk = SpeculationStats.from_dict(sp)
+            self.spec_totals = chunk if self.spec_totals is None else self.spec_totals.merge(chunk)
         return out.texts
 
 

@@ -1,1 +1,1 @@
-"""Decode engine, sampling and parameters."""
+"""Decode engine, sampling, speculative drafting and parameters."""

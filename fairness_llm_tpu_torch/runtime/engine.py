@@ -7,14 +7,21 @@ One ``generate`` call: tokenize and **left-pad** the prompts to a bucketed
 4); prefill the batch in one forward; decode up to ``max_new_tokens`` steps,
 stopping once every real row has sampled EOS; detokenize.
 
+Greedy decode can take the speculative loop instead (``speculation``, a
+``SpeculationConfig``): each step drafts ``draft_len`` tokens per row by
+prompt lookup and verifies them in one forward
+(``stepbuilder.build_spec_decode``); the tokens equal plain greedy decode.
+
 An ``*-int8`` config serves from int8 weights: ``init_params`` makes (or the
 caller hands in) int8 kernels with f32 scales, and the model multiplies by
 them through the int8-weight kernel; no dequantized copy of a weight is
-built, so the device holds about half the bytes of the bf16 model.
+built, so the device holds about half the bytes of the bf16 model. A config
+with ``kv_cache_quant`` keeps the KV cache in int8 with f32 scales.
 
-The reference's telemetry, breakers, watchdog, numerics guards, speculation
-and its VMEM-fallback rebuild are not ported: the port has no VMEM gate to
-miss.
+The reference's telemetry, breakers, watchdog, numerics guards and its two
+in-call fallbacks (a failed speculative call retried on the plain path, a
+rebuild without the decode kernel on a compile error) are not ported: a
+failed call raises.
 """
 
 from __future__ import annotations
@@ -27,13 +34,18 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from fairness_llm_tpu_torch.config import ModelSettings
+from fairness_llm_tpu_torch.config import ModelSettings, SpeculationConfig
 from fairness_llm_tpu_torch.device import resolve_device
 from fairness_llm_tpu_torch.models.configs import ModelConfig
 from fairness_llm_tpu_torch.models.tokenizer import _left_pad, tokenizer_for
-from fairness_llm_tpu_torch.runtime.sampling import SamplerSettings
-from fairness_llm_tpu_torch.runtime.stepbuilder import build_engine_decode, build_prefix
+from fairness_llm_tpu_torch.runtime.sampling import SamplerSettings, speculation_applicable
+from fairness_llm_tpu_torch.runtime.stepbuilder import (
+    build_engine_decode,
+    build_prefix,
+    build_spec_decode,
+)
 from fairness_llm_tpu_torch.runtime.weights import build_model, init_params
+from fairness_llm_tpu_torch.utils.profiling import SpeculationStats
 
 _PREFIX_LRU = 4
 
@@ -85,15 +97,19 @@ class DecodeEngine:
         seed: int = 0,
         param_dtype: Optional[str] = None,
         device: Optional[Union[str, torch.device]] = None,
+        speculation: Optional[SpeculationConfig] = None,
     ):
         """``params`` is a state dict (``runtime/weights.params_from_jax`` or
-        ``init_params``); None draws random parameters from ``seed``.
-        ``param_dtype`` ("float32"/"bfloat16") overrides the size-based
-        storage policy: bf16 models of a billion parameters or more store
-        bf16, everything else f32. ``device=None`` means CUDA and raises
-        without a card."""
+        ``init_params``, or another engine's ``model.state_dict()``: tensors
+        already on the device in the storage dtype are used, not copied);
+        None draws random parameters from ``seed``. ``param_dtype``
+        ("float32"/"bfloat16") overrides the size-based storage policy: bf16
+        models of a billion parameters or more store bf16, everything else
+        f32. ``device=None`` means CUDA and raises without a card.
+        ``speculation`` is the default for ``generate``."""
         self.device = resolve_device(device)
         self.config = model_config
+        self.speculation = speculation
         self.tokenizer = tokenizer or tokenizer_for(model_config)
         big = model_config.approx_param_count >= 1_000_000_000
         if param_dtype is not None:
@@ -146,6 +162,7 @@ class DecodeEngine:
         row_seeds: Optional[Sequence[int]] = None,
         share_prefix: Optional[bool] = None,
         prefix_ids: Optional[Sequence[int]] = None,
+        speculation: Optional[SpeculationConfig] = None,
     ) -> GenerateOutput:
         """Decode a batch of prompts; returns detokenized continuations.
 
@@ -154,11 +171,19 @@ class DecodeEngine:
         strict prefix of every prompt's tokens; without it, ``share_prefix``
         None/True detects the common prefix of this batch (at least 64 tokens
         for None, 1 for True) and False turns sharing off.
+
+        ``speculation`` overrides the engine's default. It engages only when
+        enabled with ``draft_len > 0``, for greedy settings and
+        ``max_new > 1``; otherwise the plain path runs. The tokens are the
+        same either way.
         """
         settings = settings or ModelSettings()
         max_new = settings.max_tokens if max_new_tokens is None else max_new_tokens
         sampler = SamplerSettings(temperature=settings.temperature,
                                   top_k=settings.top_k, top_p=settings.top_p)
+        spec = speculation if speculation is not None else self.speculation
+        use_spec = bool(spec is not None and spec.enabled and spec.draft_len > 0
+                        and speculation_applicable(sampler) and max_new > 1)
         if max_new >= self.config.max_seq_len:
             raise ValueError(
                 f"max_new_tokens {max_new} >= model max_seq_len {self.config.max_seq_len}")
@@ -233,19 +258,36 @@ class DecodeEngine:
         if prefix_len:
             shared_layers, prefix_s = self._shared_layers(shared_ids)
 
-        entry, loop = build_engine_decode(
-            self.config, self.model, sampler, self.tokenizer.pad_id,
-            self.tokenizer.eos_id, batch=batch, prompt_len=prompt_len,
-            max_new=max_new, prefix_len=prefix_len)
         live = np.zeros(batch, dtype=bool)
         live[:n] = True
+        tokens_dev = torch.from_numpy(tokens).to(self.device)
+        valid_dev = torch.from_numpy(valid).to(self.device)
+        spec_stats = None
+        if use_spec:
+            entry, spec_loop = build_spec_decode(
+                self.config, self.model, self.tokenizer.pad_id, self.tokenizer.eos_id,
+                batch=batch, prompt_len=prompt_len, max_new=max_new, prefix_len=prefix_len,
+                ngram_max=spec.ngram_max, draft_len=spec.draft_len)
+        else:
+            entry, loop = build_engine_decode(
+                self.config, self.model, sampler, self.tokenizer.pad_id,
+                self.tokenizer.eos_id, batch=batch, prompt_len=prompt_len,
+                max_new=max_new, prefix_len=prefix_len)
         t0 = time.perf_counter()
-        last_logits, cache = entry(torch.from_numpy(tokens).to(self.device),
-                                   torch.from_numpy(valid).to(self.device),
-                                   shared_layers)
+        last_logits, cache = entry(tokens_dev, valid_dev, shared_layers)
         self._sync()
         t1 = time.perf_counter()
-        toks, steps_run, finite = loop(cache, last_logits, seeds, live, shared_layers)
+        if use_spec:
+            prefix_toks = torch.tensor(shared_ids or [], dtype=torch.long, device=self.device)
+            toks, out_len, counters, finite = spec_loop(
+                cache, last_logits, tokens_dev, valid_dev, live, shared_layers, prefix_toks)
+            steps_run = counters[2]
+            spec_stats = SpeculationStats(
+                drafted=counters[0], accepted=counters[1], verify_steps=counters[2],
+                emitted=int(out_len[:n].sum()), draft_len=spec.draft_len,
+                ngram_max=spec.ngram_max)
+        else:
+            toks, steps_run, finite = loop(cache, last_logits, seeds, live, shared_layers)
         self._sync()
         t2 = time.perf_counter()
         out = toks[:n]
@@ -262,14 +304,18 @@ class DecodeEngine:
             "batch": batch,
             "prompt_len": prompt_len,
             "prefix_len": prefix_len,
-            "cache_slots": prompt_len + max_new,
+            # the speculative loop carries draft_len spare slots for its last window
+            "cache_slots": prompt_len + max_new + (spec.draft_len if use_spec else 0),
             "decode_kernel": bool(self.config.use_decode_attention_kernel),
             # Host-clock seconds around device work that ends in a sync.
             "prefix_s": prefix_s,
             "prefill_s": t1 - t0,
             "decode_s": t2 - t1,
+            # verify steps on the speculative path
             "decode_steps": steps_run,
             "decoded_tokens": int(np.sum(out != self.tokenizer.pad_id)),
             "logits_finite": finite,
         }
+        if spec_stats is not None:
+            stats["speculation"] = spec_stats.as_dict()
         return GenerateOutput(texts=texts, tokens=out, steps=max_new, stats=stats)

@@ -30,8 +30,18 @@ class SamplerSettings:
 
 def speculation_applicable(settings: SamplerSettings) -> bool:
     """Speculative decoding verifies drafts against greedy argmax, so it is
-    exact only for temperature <= 0 (speculation itself is not ported)."""
+    exact only for temperature <= 0; sampled decode takes the plain path."""
     return settings.greedy
+
+
+def greedy_accept_length(drafts: torch.Tensor, greedy: torch.Tensor) -> torch.Tensor:
+    """[B] count of leading drafts accepted by speculative verification.
+
+    ``drafts`` [B, k] are the proposed tokens; ``greedy`` [B, k] the model's
+    argmax at each verify position (``greedy[:, i]`` is the token it would
+    emit after input position i, the check for ``drafts[:, i]``). One
+    mismatch rejects everything after it."""
+    return torch.cumprod((drafts == greedy).long(), dim=1).sum(dim=1)
 
 
 def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:

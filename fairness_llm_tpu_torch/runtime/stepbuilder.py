@@ -1,11 +1,13 @@
 """The engine's decode programs as plain functions (counterpart of
 ``fairness_llm_tpu/runtime/stepbuilder.py``: ``make_batch_entry``,
-``make_greedy_loop``, ``build_engine_decode`` and ``build_prefix``).
+``make_greedy_loop``, ``build_engine_decode``, ``build_spec_decode`` and
+``build_prefix``).
 
 PyTorch runs eagerly, so the reference's compiled ``while_loop`` becomes a
-Python loop that stops once every live row is done. Each step reads the new
-tokens back to the host (a few bytes) to decide that, and to advance each
-row's ``(row_seed, emitted)`` sampling stream.
+Python loop that stops once every live row is done. Each step reads a few
+bytes back to the host to decide that: the new tokens of the plain loop
+(which also advance each row's ``(row_seed, emitted)`` sampling stream), or
+the accepted counts of the speculative loop.
 """
 
 from __future__ import annotations
@@ -15,12 +17,14 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fairness_llm_tpu_torch.models.transformer import init_cache
+from fairness_llm_tpu_torch.models.transformer import _dequantize_kv, dtype_of, init_cache
 from fairness_llm_tpu_torch.runtime.sampling import (
     SamplerSettings,
+    greedy_accept_length,
     make_sampler,
     row_gumbel,
 )
+from fairness_llm_tpu_torch.runtime.speculative import ngram_draft
 
 SharedLayers = Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]]
 
@@ -105,15 +109,126 @@ def build_engine_decode(cfg, model, sampler: SamplerSettings, pad_id: int,
     return entry, loop
 
 
+def build_spec_decode(cfg, model, pad_id: int, eos_id: int, *, batch: int,
+                      prompt_len: int, max_new: int, prefix_len: int,
+                      ngram_max: int, draft_len: int):
+    """Greedy draft-and-verify decode. Each iteration runs ONE forward over
+    ``S = draft_len + 1`` positions per row (the greedy next token and the
+    prompt-lookup drafts) and keeps the longest prefix that matches greedy
+    argmax: 1 to S tokens a step, equal to plain greedy decode by
+    construction.
+
+    Rows advance at their own rates, so the forward writes at per-row
+    ``write_offsets`` (slot = prompt_len + tokens emitted), the rejected
+    window slots are marked invalid again afterwards (the next window
+    starts inside them and overwrites them), and ``lengths`` advances by the
+    emitted count, not by S. The cache carries ``draft_len`` spare slots, so
+    the last window of a nearly finished row still fits. A failed step
+    raises; nothing retries on the plain path.
+
+    Returns ``(entry, loop)``: ``entry`` as ``make_batch_entry`` gives it,
+    and ``loop(cache, prev_logits, tokens, valid, live0, shared_layers,
+    prefix_toks) -> (toks [batch, max_new] int32 numpy, out_len [batch]
+    numpy, counters (drafted, accepted, verify_steps), logits_finite)``.
+    """
+    k = draft_len
+    S = k + 1
+    cache_len = prompt_len + max_new + k
+    gen_len = max_new + k  # room for a whole window past max_new; cut on return
+    gen_start = prefix_len + prompt_len
+    entry = make_batch_entry(cfg, model, batch=batch, cache_len=cache_len,
+                             prefix_len=prefix_len)
+
+    def loop(cache, prev_logits, tokens, valid, live0: np.ndarray,
+             shared_layers: SharedLayers, prefix_toks: torch.Tensor):
+        dev = prev_logits.device
+        B = batch
+        # Lookup context: [shared prefix | left-padded remainder | output];
+        # ctx_valid masks the pad gaps out of the n-gram matches.
+        ctx_prompt = torch.cat([prefix_toks.long()[None].expand(B, -1), tokens], dim=1)
+        ctx_prompt_valid = torch.cat(
+            [torch.ones(B, prefix_len, dtype=torch.bool, device=dev), valid], dim=1)
+        gpos = torch.arange(gen_len, device=dev)[None, :]
+        step_iota = torch.arange(S, device=dev)
+        slot = torch.arange(cache_len, device=dev)[None, :]
+        rows = torch.arange(B, device=dev)
+        gen = torch.full((B, gen_len), pad_id, dtype=torch.long, device=dev)
+        out_len = np.zeros(B, np.int64)
+        done = ~live0
+        drafted = accepted = steps = 0
+        finite = _live_finite(prev_logits, torch.from_numpy(live0).to(dev))
+        while steps < max_new and not done.all():
+            live = ~done
+            live_dev = torch.from_numpy(live).to(dev)
+            out_len_dev = torch.from_numpy(out_len).to(dev)
+            # The step's sure token: greedy argmax of the carried logits.
+            t0 = torch.where(live_dev, prev_logits.argmax(dim=-1),
+                             torch.full((B,), pad_id, dtype=torch.long, device=dev))
+            # Drafts from the history including t0.
+            gen_t0 = torch.where((gpos == out_len_dev[:, None]) & live_dev[:, None],
+                                 t0[:, None], gen)
+            ctx = torch.cat([ctx_prompt, gen_t0], dim=1)
+            ctx_valid = torch.cat([ctx_prompt_valid, gpos <= out_len_dev[:, None]], dim=1)
+            drafts = ngram_draft(ctx, ctx_valid, gen_start + out_len_dev + 1, k, ngram_max,
+                                 pad_id)
+            inp = torch.cat([t0[:, None], drafts], dim=1)  # [B, S]
+
+            # Verify all S positions in one forward at per-row slots.
+            off = torch.from_numpy(np.minimum(prompt_len + out_len, cache_len - S)).to(dev)
+            lengths0 = cache.lengths.clone()
+            pos = prefix_len + lengths0[:, None] + step_iota[None, :]
+            logits, cache = model(inp, pos, live_dev[:, None].expand(B, S), cache,
+                                  shared_layers=shared_layers, write_offsets=off)
+            finite = finite & (torch.isfinite(logits) | ~live_dev[:, None, None]).all()
+            g = logits.argmax(dim=-1)  # g[:, i]: the token after input position i
+            a = greedy_accept_length(drafts, g[:, :k])
+            eos_first = torch.where(inp == eos_id, step_iota[None, :],
+                                    torch.full_like(inp, S)).amin(dim=1)
+            a_host, eos_host = torch.stack([a, eos_first]).cpu().numpy()
+            # Emitted: the accepted prefix, cut after the first EOS and at
+            # the max_new cap; 0 for done rows.
+            e = np.minimum(np.minimum(a_host + 1, eos_host + 1), max_new - out_len)
+            e = np.where(live, e, 0)
+            e_dev = torch.from_numpy(e).to(dev)
+
+            widx = gpos - out_len_dev[:, None]
+            wtok = inp.gather(1, widx.clamp(0, S - 1))
+            gen = torch.where((widx >= 0) & (widx < e_dev[:, None]), wtok, gen)
+            # Carry the logits after the last emitted token.
+            nl = logits[rows, (e_dev - 1).clamp(0, S - 1)]
+            prev_logits = torch.where(live_dev[:, None], nl, prev_logits)
+            # Rejected window slots become invalid; lengths advance by e.
+            wpos = slot - off[:, None]
+            cache.key_valid &= ~((wpos >= 0) & (wpos < S) & (wpos >= e_dev[:, None]))
+            cache.lengths = lengths0 + e_dev
+
+            out_len += e
+            done = done | (live & (eos_host < e)) | (out_len >= max_new)
+            drafted += k * int(live.sum())
+            accepted += int(np.maximum(e - 1, 0).sum())
+            steps += 1
+        toks = gen[:, :max_new].to(torch.int32).cpu().numpy()
+        return toks, out_len, (drafted, accepted, steps), bool(finite)
+
+    return entry, loop
+
+
 def build_prefix(cfg, model, *, prefix_len: int):
     """Forward over the shared prompt prefix [1, Pc] -> per-layer (k, v)
-    tensors [Pc, Hkv, D] that every batch row reads (but never copies)."""
+    tensors [Pc, Hkv, D] that every batch row reads (but never copies).
+    Under ``kv_cache_quant`` they are the dequantized round trip of the int8
+    prefix cache, in the model dtype: the prefix stays float."""
 
     def run(tokens):
         positions = torch.arange(prefix_len, device=tokens.device)[None, :]
         cache = init_cache(cfg, 1, prefix_len, device=tokens.device)
         valid = torch.ones((1, prefix_len), dtype=torch.bool, device=tokens.device)
         model(tokens, positions, valid, cache, left_padded=True, last_only=True)
+        if cfg.kv_cache_quant:
+            dtype = dtype_of(cfg)
+            return [(_dequantize_kv(layer.k, layer.k_scale, dtype)[0],
+                     _dequantize_kv(layer.v, layer.v_scale, dtype)[0])
+                    for layer in cache.layers]
         return [(layer.k[0], layer.v[0]) for layer in cache.layers]
 
     return run

@@ -16,12 +16,17 @@ Its float32 outputs are held to 1e-4 + 3e-5 * |plain|: the tensor cores'
 f32 accumulation rounds otherwise than cuBLAS's f32 FMA chain, and over
 K = 14336 products the two were seen 1.3e-5 of the value apart (outputs up
 to ~12).
+The decode kernel's int8-cache mode (K2q) and verify window (K3, over a
+float or an int8 cache) take the attention tolerances above; their blind
+checks mask the newest slot (K2q) or lower every q_offset by one (K3, so
+each query loses its own slot).
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from fairness_llm_tpu_torch.models.transformer import _quantize_kv  # noqa: E402
 from fairness_llm_tpu_torch.ops import decode_attention as dec_mod  # noqa: E402
 from fairness_llm_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
 from fairness_llm_tpu_torch.ops import quant_matmul as qmm  # noqa: E402
@@ -127,6 +132,109 @@ def test_decode_tolerance_sees_one_dropped_key(dev, dtype):
     dropped[:, 96] = False
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared)
     _outside_tolerance(dec_mod.decode_attention(q, k, v, dropped, shared), want, dtype)
+
+
+def _cache(g, dev, dtype, B, L, Hkv, D, P, int8):
+    """(k, v, scales kwargs, shared) on the card: a float cache in dtype, or
+    an int8 one quantized from it; a float prefix of P slots."""
+    k = torch.randn(B, L, Hkv, D, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(B, L, Hkv, D, generator=g, device=dev, dtype=dtype)
+    shared = None
+    if P:
+        shared = (torch.randn(P, Hkv, D, generator=g, device=dev, dtype=dtype),
+                  torch.randn(P, Hkv, D, generator=g, device=dev, dtype=dtype))
+    if not int8:
+        return k, v, {}, shared
+    (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+    return k, v, dict(k_scale=ks, v_scale=vs), shared
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,L,D,P", [
+    (8, 8, 2, 128, 64, 96),
+    (16, 32, 8, 160, 128, 704),  # llama3-8b's sweep shape with the prefix
+    (5, 32, 8, 960, 128, 0),     # and without it
+    (3, 32, 8, 77, 128, 37),     # the prefix ends mid-tile
+    (2, 4, 2, 40, 16, 10),       # tiny-test's D: 16-byte int8 rows
+    (4, 8, 2, 50, 99, 20),       # rows of odd byte size: D padded by the wrapper
+])
+def test_int8_cache_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, L, D, P):
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(B, H, D, generator=g, device=dev, dtype=dtype)
+    k, v, scales, shared = _cache(g, dev, dtype, B, L, Hkv, D, P, int8=True)
+    valid = torch.rand(B, L, generator=g, device=dev) < 0.6
+    valid[:, -1] = True
+    before = dec_mod.quant_launches
+    got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+    torch.cuda.synchronize()
+    assert dec_mod.quant_launches == before + 1
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _window(g, dev, B, L, Q):
+    """Per-row window offsets and a valid mask holding every slot up to the
+    window's end, with holes below it."""
+    offs = torch.randint(0, L - Q + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    slots = torch.arange(L, device=dev)[None, :]
+    valid = (slots <= offs[:, None] + Q - 1) & (torch.rand(B, L, generator=g, device=dev) < 0.9)
+    valid[:, 0] = True
+    return offs, valid
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Q,H,Hkv,L,D,P", [
+    (8, 4, 8, 2, 128, 64, 96),
+    (16, 9, 32, 8, 168, 128, 704),  # llama3-8b's verify window: 36 rows per kv head
+    (3, 3, 4, 2, 77, 16, 37),       # tiny-test's D; the prefix ends mid-tile
+    (2, 16, 64, 2, 60, 96, 10),     # 512 rows per kv head: 16 chunks of 32
+    (4, 5, 8, 2, 50, 99, 0),        # D padded by the wrapper, no prefix
+])
+def test_multi_query_kernel_matches_plain(dev, dtype, int8, B, Q, H, Hkv, L, D, P):
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(B, Q, H, D, generator=g, device=dev, dtype=dtype)
+    k, v, scales, shared = _cache(g, dev, dtype, B, L, Hkv, D, P, int8=int8)
+    offs, valid = _window(g, dev, B, L, Q)
+    counter = "multi_quant_launches" if int8 else "multi_launches"
+    before = getattr(dec_mod, counter)
+    got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.cuda.synchronize()
+    assert getattr(dec_mod, counter) == before + 1
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multi_query_tolerance_sees_each_query_lose_its_slot(dev, dtype, int8):
+    """The kernel with every q_offset lowered by one (each query loses its
+    own slot) must fail the tolerance against the plain version."""
+    B, Q, H, Hkv, L, D, P = 16, 9, 32, 8, 168, 128, 704
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(B, Q, H, D, generator=g, device=dev, dtype=dtype)
+    k, v, scales, shared = _cache(g, dev, dtype, B, L, Hkv, D, P, int8=int8)
+    offs, valid = _window(g, dev, B, L, Q)
+    offs = offs.clamp_min(1)
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
+    got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs - 1, **scales)
+    _outside_tolerance(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_cache_tolerance_sees_one_dropped_key(dev, dtype):
+    """K2q with each row's newest valid slot masked out must fail the
+    tolerance against the plain version with the true mask."""
+    B, H, Hkv, L, D, P = 16, 32, 8, 160, 128, 704
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(B, H, D, generator=g, device=dev, dtype=dtype)
+    k, v, scales, shared = _cache(g, dev, dtype, B, L, Hkv, D, P, int8=True)
+    valid = torch.zeros(B, L, dtype=torch.bool, device=dev)
+    valid[:, 20:97] = True
+    dropped = valid.clone()
+    dropped[:, 96] = False
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
+    _outside_tolerance(dec_mod.decode_attention(q, k, v, dropped, shared, **scales), want, dtype)
 
 
 # llama3-8b's (K, N) pairs: q/o, k/v, gate/up, down, lm_head; then ragged

@@ -185,11 +185,21 @@ def test_init_params_families_and_seed():
 
 
 def test_unported_cache_and_weights_refuse():
-    """The int8 KV cache is a later slice; int8 weights are ported (see
-    test_torch_quant.py), any other weight format is refused."""
+    """int8 weights (test_torch_quant.py) and the int8 KV cache
+    (test_torch_kvquant.py) are ported; any other weight format is refused.
+    The int8 cache holds int8 k/v and float32 per-(slot, head) scales."""
     cfg = tconfigs.get_model_config("tiny-test")
-    with pytest.raises(NotImplementedError):
-        ttr.init_cache(dataclasses.replace(cfg, kv_cache_quant=True), 1, 8)
+    cache = ttr.init_cache(dataclasses.replace(cfg, kv_cache_quant=True), 3, 8,
+                           dtype=torch.bfloat16)
+    kv = (3, 8, cfg.num_kv_heads, cfg.head_dim)
+    assert len(cache.layers) == cfg.num_layers and cache.max_len == 8
+    for layer in cache.layers:
+        assert layer.k.dtype == layer.v.dtype == torch.int8
+        assert layer.k.shape == layer.v.shape == kv
+        assert layer.k_scale.dtype == layer.v_scale.dtype == torch.float32
+        assert layer.k_scale.shape == layer.v_scale.shape == kv[:3]
+    plain = ttr.init_cache(cfg, 3, 8)
+    assert plain.layers[0].k.dtype == torch.float32 and plain.layers[0].k_scale is None
     with pytest.raises(NotImplementedError):
         ttr.Transformer(dataclasses.replace(cfg, weight_quant="int4"))
     assert isinstance(ttr.Transformer(dataclasses.replace(cfg, weight_quant="int8")).lm_head,

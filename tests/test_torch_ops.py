@@ -107,16 +107,23 @@ def test_flash_reference_accepts_head_major_views():
 
 
 def test_decode_wrapper_refuses_unported_modes():
-    """int8 k/v (the quantised-cache kernel) and 4-D q (the speculative
-    verify window) are later slices: the wrapper refuses them on any device."""
+    """Both modes are ported now; the wrapper keeps the reference's argument
+    errors for them: the int8 cache needs both scales, 4-D q (the verify
+    window) needs q_offsets, and int8 k/v come only with scales."""
     q = torch.zeros(2, 4, 16)
     k8 = torch.zeros(2, 8, 2, 16, dtype=torch.int8)
+    scale = torch.ones(2, 8, 2)
     valid = torch.ones(2, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        dec_mod.decode_attention(q, k8, k8, valid, k_scale=scale)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        dec_mod.decode_attention(q, k8, k8, valid, v_scale=scale)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
         dec_mod.decode_attention(q, k8, k8, valid)
     kf = torch.zeros(2, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="multi-query"):
+    with pytest.raises(ValueError, match="q_offsets"):
         dec_mod.decode_attention(torch.zeros(2, 3, 4, 16), kf, kf, valid)
+    assert dec_mod.decode_attention(q, k8, k8, valid, k_scale=scale, v_scale=scale).shape == q.shape
 
 
 def test_wrappers_validate_shapes():

@@ -1,0 +1,363 @@
+"""The port's greedy prompt-lookup speculation against the JAX package's.
+
+Inputs are made with numpy from a seed and fed to both packages. The Pallas
+verify-window kernel runs in interpret mode on the CPU, as its own tests run
+it; the port's wrapper takes its plain version for CPU tensors. Tolerances:
+
+- drafting and acceptance: equal integers;
+- the plain verify-window attention against the Pallas kernel: 1e-5
+  (float32; sums of a few hundred unit-scale products in another order);
+- model logits through a verify window: 1e-4 (float32, as the other model
+  parity tests);
+- tokens: equal. Speculative greedy equals plain greedy by construction, in
+  the port and in the reference, and the port's equals the reference's.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from fairness_llm_tpu.config import ModelSettings as JSettings  # noqa: E402
+from fairness_llm_tpu.config import SpeculationConfig as JSpec  # noqa: E402
+from fairness_llm_tpu.models import transformer as jtr  # noqa: E402
+from fairness_llm_tpu.models.configs import get_model_config  # noqa: E402
+from fairness_llm_tpu.models.tokenizer import ByteTokenizer as JByteTokenizer  # noqa: E402
+from fairness_llm_tpu.ops.decode_attention import decode_attention as jax_decode  # noqa: E402
+from fairness_llm_tpu.runtime import sampling as jsampling  # noqa: E402
+from fairness_llm_tpu.runtime.engine import DecodeEngine as JEngine  # noqa: E402
+from fairness_llm_tpu.runtime.speculative import ngram_draft as jax_draft  # noqa: E402
+from fairness_llm_tpu.utils.profiling import SpeculationStats as JStats  # noqa: E402
+from fairness_llm_tpu_torch.config import ModelSettings, SpeculationConfig  # noqa: E402
+from fairness_llm_tpu_torch.models import configs as tconfigs  # noqa: E402
+from fairness_llm_tpu_torch.models import transformer as ttr  # noqa: E402
+from fairness_llm_tpu_torch.models.tokenizer import ByteTokenizer  # noqa: E402
+from fairness_llm_tpu_torch.ops import decode_attention as dec_mod  # noqa: E402
+from fairness_llm_tpu_torch.pipeline.backends import EngineBackend  # noqa: E402
+from fairness_llm_tpu_torch.runtime import sampling as tsampling  # noqa: E402
+from fairness_llm_tpu_torch.runtime.engine import DecodeEngine  # noqa: E402
+from fairness_llm_tpu_torch.runtime.speculative import ngram_draft  # noqa: E402
+from fairness_llm_tpu_torch.runtime.weights import build_model, params_from_jax  # noqa: E402
+from fairness_llm_tpu_torch.utils.profiling import SpeculationStats  # noqa: E402
+
+NAME = "tiny-test"
+SPEC = SpeculationConfig(enabled=True, ngram_max=3, draft_len=4)
+JSPEC = JSpec(enabled=True, ngram_max=3, draft_len=4)
+COMMON = "The shared instructions every counterfactual prompt starts with, " * 2
+PROMPTS = [COMMON + "Gender: F", COMMON + "Gender: M, Age: 25-34",
+           COMMON + "Age: 56+ list list list list"]
+GREEDY = dict(temperature=0.0, max_tokens=16)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ---------------------------------------------------------------------------
+# Drafting and acceptance
+# ---------------------------------------------------------------------------
+
+
+def _both_drafts(ctx, valid, hist_end, k, n, pad):
+    want = np.asarray(jax_draft(jnp.asarray(ctx, jnp.int32), jnp.asarray(valid, bool),
+                                jnp.asarray(hist_end, jnp.int32), k, n, pad))
+    got = ngram_draft(_t(ctx).long(), _t(valid), _t(hist_end), k, n, pad).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("ngram_max", [1, 3])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ngram_draft_matches_jax_on_random_contexts(seed, ngram_max):
+    """A small vocabulary makes matches common; pad gaps sit anywhere, and
+    history ends at a random point of each row."""
+    rng = np.random.default_rng(seed)
+    B, C, k = 8, 48, 5
+    ctx = rng.integers(3, 8, size=(B, C))
+    valid = rng.random((B, C)) < 0.85
+    ctx[~valid] = 0
+    hist_end = rng.integers(0, C + 1, size=B)
+    got, want = _both_drafts(ctx, valid, hist_end, k, ngram_max, 0)
+    np.testing.assert_array_equal(got, want)
+    assert np.any(got != 0)  # some rows found a match
+
+
+# The n-gram cases of tests/test_speculative.py: (ctx, valid, hist_end, expected).
+_CASES = {
+    "repetitive_history": ([[5, 6, 7, 5, 6, 7, 5, 6, 0, 0, 0, 0]], None, [8], [[7, 5, 6, 0]]),
+    "prefers_longest_ngram": ([[9, 2, 3, 4, 3, 8, 9, 2, 3, 0, 0, 0]], None, [9], [[4, 3, 8, 9]]),
+    "no_match_gives_pads": ([[1, 2, 3, 4, 5, 6, 7, 8]], "all", [8], [[0, 0, 0, 0]]),
+    "window_valid_and_pads_at_gaps": ([[5, 6, 7, 9, 9, 5, 6, 7, 8, 5, 6, 7]], "gap0", [12],
+                                      [[8, 5, 6, 7]]),
+    "truncates_at_history_end": ([[1, 2, 3, 1, 2, 3, 0, 0, 0, 0]], None, [6], [[1, 2, 3, 0]]),
+    "per_row_independent": ([[5, 6, 7, 5, 6, 7, 5, 6, 0, 0, 0, 0],
+                             [1, 2, 3, 4, 5, 6, 7, 8, 0, 0, 0, 0]], None, [8, 8],
+                            [[7, 5, 6, 0], [0, 0, 0, 0]]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_ngram_draft_reference_cases(case):
+    ctx, vmode, hist_end, expected = _CASES[case]
+    ctx = np.array(ctx)
+    if vmode is None:
+        valid = ctx != 0
+    else:
+        valid = np.ones_like(ctx, bool)
+        if vmode == "gap0":
+            valid[0, 0] = False
+    got, want = _both_drafts(ctx, valid, hist_end, 4, 3, 0)
+    np.testing.assert_array_equal(want, expected)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ngram_draft_refuses_empty_windows():
+    ctx, valid, end = torch.ones(1, 4, dtype=torch.long), torch.ones(1, 4, dtype=torch.bool), \
+        torch.tensor([4])
+    with pytest.raises(ValueError, match="draft_len"):
+        ngram_draft(ctx, valid, end, 0, 3, 0)
+    with pytest.raises(ValueError, match="ngram_max"):
+        ngram_draft(ctx, valid, end, 4, 0, 0)
+
+
+def test_greedy_accept_length_matches_jax():
+    rng = np.random.default_rng(3)
+    drafts = rng.integers(0, 3, size=(64, 6))
+    greedy = np.where(rng.random((64, 6)) < 0.7, drafts, rng.integers(0, 3, size=(64, 6)))
+    fixed_d = np.array([[4, 5, 6], [4, 9, 6], [9, 5, 6], [4, 5, 6]])
+    fixed_g = np.array([[4, 5, 6], [4, 5, 6], [4, 5, 6], [4, 5, 9]])
+    for d, g in ((drafts, greedy), (fixed_d, fixed_g)):
+        want = np.asarray(jsampling.greedy_accept_length(jnp.asarray(d), jnp.asarray(g)))
+        got = tsampling.greedy_accept_length(_t(d), _t(g)).numpy()
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tsampling.greedy_accept_length(_t(fixed_d), _t(fixed_g)).numpy(), [3, 1, 0, 2])
+
+
+def test_speculation_stats_equal_reference():
+    a = dict(drafted=40, accepted=13, verify_steps=9, emitted=30, draft_len=4, ngram_max=3)
+    b = dict(drafted=12, accepted=2, verify_steps=3, emitted=9, draft_len=4, ngram_max=3)
+    got = SpeculationStats(**a).merge(SpeculationStats(**b))
+    want = JStats(**a).merge(JStats(**b))
+    assert got.as_dict() == want.as_dict()
+    assert SpeculationStats.from_dict(got.as_dict()) == got
+    assert SpeculationStats().as_dict() == JStats().as_dict()
+
+
+# ---------------------------------------------------------------------------
+# The verify-window attention (K3) and the model's verify forward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shared_p", [None, 96])
+@pytest.mark.parametrize("hkv", [1, 2])
+def test_multi_query_reference_matches_pallas(hkv, shared_p):
+    """As tests/test_decode_attention.py builds its inputs: slots up to each
+    row's window valid, with holes below it."""
+    rng = np.random.default_rng(3)
+    B, Q, H, D, L = 8, 4, 4, 64, 256
+    q = rng.normal(size=(B, Q, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
+    offs = rng.integers(1, L - Q, size=B).astype(np.int32)
+    valid = np.arange(L)[None, :] <= (offs[:, None] + Q - 1)
+    valid &= rng.random((B, L)) < 0.9
+    valid[:, 0] = True
+    shared = None
+    if shared_p:
+        shared = (rng.normal(size=(shared_p, hkv, D)).astype(np.float32),
+                  rng.normal(size=(shared_p, hkv, D)).astype(np.float32))
+    want = np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+        None if shared is None else tuple(jnp.asarray(a) for a in shared),
+        q_offsets=jnp.asarray(offs), interpret=True))
+    got = dec_mod.decode_attention_reference(
+        _t(q), _t(k), _t(v), _t(valid), None if shared is None else tuple(map(_t, shared)),
+        q_offsets=_t(offs)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _flax_params():
+    return jax.device_get(jtr.init_params(get_model_config(NAME), jax.random.key(0)))
+
+
+@pytest.mark.parametrize("decode_kernel", [False, True])
+def test_verify_window_logits_match_flax(decode_kernel):
+    """A left-padded prefill, then two verify windows at per-row
+    ``write_offsets`` (rows advanced by different counts), with the rejected
+    slots of the first window marked invalid between them, as the
+    speculative loop does."""
+    jcfg = get_model_config(NAME)
+    tcfg = dataclasses.replace(tconfigs.get_model_config(NAME),
+                               use_decode_attention_kernel=decode_kernel)
+    params = _flax_params()
+    tmodel = build_model(tcfg, params_from_jax(params, tcfg), torch.device("cpu"),
+                         torch.float32)
+    japply = jax.jit(jtr.Transformer(jcfg).apply, static_argnames=("left_padded",))
+    rng = np.random.default_rng(5)
+    B, S, W, cache_len = 3, 12, 4, 24
+    tokens = rng.integers(3, tcfg.vocab_size, size=(B, S)).astype(np.int32)
+    valid = np.ones((B, S), bool)
+    valid[1, :3] = valid[2, :7] = False
+    positions = np.maximum(np.cumsum(valid, axis=1) - 1, 0).astype(np.int32)
+    jcache = jtr.init_cache(jcfg, B, cache_len)
+    _, jcache = japply({"params": params}, jnp.asarray(tokens), jnp.asarray(positions),
+                       jnp.asarray(valid), jcache, left_padded=True)
+    tcache = ttr.init_cache(tcfg, B, cache_len)
+    tmodel(_t(tokens).long(), _t(positions), _t(valid), tcache, left_padded=True)
+
+    out_len = np.zeros(B, np.int64)
+    for emitted in ([1, 3, 2], [2, 1, 4]):
+        win = rng.integers(3, tcfg.vocab_size, size=(B, W)).astype(np.int32)
+        off = (S + out_len).astype(np.int32)
+        pos = (np.asarray(jcache.lengths)[:, None] + np.arange(W)[None, :]).astype(np.int32)
+        live = np.ones((B, W), bool)
+        jl, jcache = japply({"params": params}, jnp.asarray(win), jnp.asarray(pos),
+                            jnp.asarray(live), jcache, write_offsets=jnp.asarray(off))
+        tl, tcache = tmodel(_t(win).long(), _t(pos).long(), _t(live), tcache,
+                            write_offsets=_t(off))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+        e = np.asarray(emitted)
+        slot = np.arange(cache_len)[None, :] - off[:, None]
+        reject = (slot >= 0) & (slot < W) & (slot >= e[:, None])
+        jcache = jcache.replace(key_valid=jcache.key_valid & ~jnp.asarray(reject),
+                                lengths=jcache.lengths - W + jnp.asarray(e, jnp.int32))
+        tcache.key_valid &= ~_t(reject)
+        tcache.lengths = tcache.lengths - W + _t(e)
+        out_len += e
+    np.testing.assert_array_equal(tcache.key_valid.numpy(), np.asarray(jcache.key_valid))
+
+
+def test_write_offsets_past_the_cache_raise():
+    tcfg = tconfigs.get_model_config(NAME)
+    model = build_model(tcfg, params_from_jax(_flax_params(), tcfg), torch.device("cpu"),
+                        torch.float32)
+    cache = ttr.init_cache(tcfg, 2, 10)
+    tok = torch.ones(2, 4, dtype=torch.long)
+    pos = torch.arange(4)[None].expand(2, -1)
+    with pytest.raises(ValueError, match="max_len"):
+        model(tok, pos, cache=cache, write_offsets=torch.tensor([2, 7]))
+    model(tok, pos, cache=cache, write_offsets=torch.tensor([2, 6]))  # fits
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _engines():
+    jeng = JEngine(get_model_config(NAME), params=_flax_params(), seed=0)
+    cfg = dataclasses.replace(tconfigs.get_model_config(NAME), use_decode_attention_kernel=True)
+    teng = DecodeEngine(cfg, params=params_from_jax(_flax_params(), cfg), device="cpu")
+    return jeng, teng
+
+
+@pytest.mark.parametrize("mode", ["off", "detected", "explicit"])
+def test_spec_greedy_equals_plain_and_jax(mode):
+    jeng, teng = _engines()
+    kw = {"off": dict(share_prefix=False), "detected": dict(share_prefix=True),
+          "explicit": dict(prefix_ids=teng.tokenizer.encode(COMMON)[:64])}[mode]
+    want = jeng.generate(PROMPTS, JSettings(**GREEDY), speculation=JSPEC, **kw)
+    plain = teng.generate(PROMPTS, ModelSettings(**GREEDY), **kw)
+    got = teng.generate(PROMPTS, ModelSettings(**GREEDY), speculation=SPEC, **kw)
+    assert (got.stats["prefix_len"] > 0) == (mode != "off")
+    assert got.stats["prefix_len"] == want.stats["prefix_len"]
+    np.testing.assert_array_equal(plain.tokens, got.tokens)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert got.texts == want.texts and got.stats["logits_finite"]
+    assert got.stats["speculation"] == want.stats["speculation"]
+    assert got.stats["cache_slots"] == want.stats["cache_slots"] == plain.stats[
+        "cache_slots"] + SPEC.draft_len
+    assert got.stats["decode_steps"] == got.stats["speculation"]["verify_steps"]
+    assert "speculation" not in plain.stats
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_spec_greedy_equals_plain_across_batch_sizes(n):
+    _, teng = _engines()
+    prompts = ["the quick brown fox", "hi", "abc abc abc abc abc abc",
+               "a much longer prompt that shifts padding around quite a bit",
+               "movies", "fairness", "one two three one two three", "zz"][:n]
+    plain = teng.generate(prompts, ModelSettings(**GREEDY))
+    spec = teng.generate(prompts, ModelSettings(**GREEDY), speculation=SPEC)
+    np.testing.assert_array_equal(plain.tokens, spec.tokens)
+    st = spec.stats["speculation"]
+    assert st["emitted"] == int(np.sum(spec.tokens != teng.tokenizer.pad_id))
+    assert st["verify_steps"] <= GREEDY["max_tokens"]
+
+
+def test_spec_stops_at_early_eos_as_plain_and_jax():
+    """A random model rarely samples EOS, so the EOS id is taken from the
+    plain greedy stream: one row then stops mid-window."""
+    jeng, teng = _engines()
+    prompts = ["the quick brown fox", "hi there", "abc"]
+    eos = int(teng.generate(prompts, ModelSettings(**GREEDY)).tokens[0][5])
+    jtok, ttok = JByteTokenizer(512), ByteTokenizer(512)
+    jtok.eos_id = ttok.eos_id = eos
+    jeng2 = JEngine(get_model_config(NAME), params=jeng.params, tokenizer=jtok)
+    teng2 = DecodeEngine(teng.config, params=teng.model.state_dict(), tokenizer=ttok,
+                         device="cpu")
+    plain = teng2.generate(prompts, ModelSettings(**GREEDY))
+    spec = teng2.generate(prompts, ModelSettings(**GREEDY), speculation=SPEC)
+    want = jeng2.generate(prompts, JSettings(**GREEDY), speculation=JSPEC)
+    np.testing.assert_array_equal(plain.tokens, spec.tokens)
+    np.testing.assert_array_equal(spec.tokens, want.tokens)
+    row = list(spec.tokens[0])
+    assert eos in row and row.index(eos) < len(row) - 1
+    assert all(t == ttok.pad_id for t in row[row.index(eos) + 1:])
+
+
+def test_spec_temperature_takes_the_plain_path():
+    _, teng = _engines()
+    s = ModelSettings(temperature=0.7, max_tokens=8)
+    a = teng.generate(["hello there"], s, row_seeds=[123])
+    b = teng.generate(["hello there"], s, row_seeds=[123], speculation=SPEC)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert "speculation" not in b.stats
+    assert b.stats["cache_slots"] == a.stats["cache_slots"]
+    one = teng.generate(["hello there"], ModelSettings(temperature=0.0, max_tokens=1),
+                        speculation=SPEC)
+    assert "speculation" not in one.stats  # max_new == 1: nothing to draft
+    off = teng.generate(["hello"], ModelSettings(**GREEDY),
+                        speculation=dataclasses.replace(SPEC, enabled=False))
+    assert "speculation" not in off.stats
+
+
+def test_spec_long_generate_on_a_small_cache():
+    """Each verify step advances the cache's uniform index by the window's
+    width while rows advance by what they accept, so after a few steps the
+    index passes the cache's end; the per-row write offsets still fit and
+    must be what the forward checks. 40 tokens over a cache of 64 + 40 + 8
+    slots take more steps of 9 than that index leaves room for."""
+    _, teng = _engines()
+    s = ModelSettings(temperature=0.0, max_tokens=40)
+    spec_cfg = SpeculationConfig(enabled=True, draft_len=8)
+    plain = teng.generate(["the quick brown fox"], s)
+    spec = teng.generate(["the quick brown fox"], s, speculation=spec_cfg)
+    np.testing.assert_array_equal(plain.tokens, spec.tokens)
+    steps = spec.stats["speculation"]["verify_steps"]
+    assert spec.stats["cache_slots"] == 64 + 40 + 8
+    assert spec.stats["prompt_len"] + steps * (spec_cfg.draft_len + 1) > spec.stats["cache_slots"]
+
+
+def test_engine_default_speculation_and_backend_totals():
+    jeng, teng = _engines()
+    eng = DecodeEngine(teng.config, params=teng.model.state_dict(), device="cpu",
+                       speculation=SPEC)
+    assert "speculation" in eng.generate(["abc abc abc"], ModelSettings(**GREEDY)).stats
+    be = EngineBackend(teng, speculation=SPEC)
+    be.generate(["abc abc abc abc"], ModelSettings(**GREEDY), keys=["a"])
+    first = be.spec_totals.as_dict()
+    be.generate(["def def def def"], ModelSettings(**GREEDY), keys=["b"])
+    assert be.spec_totals.verify_steps > first["verify_steps"]
+    assert be.spec_totals.drafted == first["drafted"] + be.last_stats["speculation"]["drafted"]
+    before = be.spec_totals.as_dict()
+    be.generate(["xyz"], ModelSettings(temperature=0.8, max_tokens=6), keys=["c"])
+    assert be.spec_totals.as_dict() == before  # the sampled call added nothing
+    assert EngineBackend(teng).spec_totals is None
