@@ -26,14 +26,15 @@ path's launch counts are set to 0 just before it and read just after:
   3. serve 16 counterfactual phase-1 prompts with a sweep-wide shared
      prefix, greedy and at temperature 0.7 with per-row keys;
   4. serve the same prompts with no shared prefix (flash prefill at batch
-     16 over the whole prompt);
+     16 over the whole prompt); every K1 launch of a bf16 path must be one
+     of the tensor-core kernel (``tc_launches`` equal to ``launches``);
   5. the shared-prefix greedy call with speculation on (draft_len 8,
      ngram_max 3): K3 must launch; its speculation counters are logged;
   6. each kernel against its plain version at the shapes of phases 3-5,
-     held elementwise to 4e-3 + 1e-2 * |plain| (bf16), with timings and the
-     least time the card could take; the kernel on a blinded input (one
-     key masked out; for K3 every q_offset lowered by one, so each query
-     loses its own slot) must fail that tolerance;
+     held elementwise to 4e-3 + 1e-2 * |plain| (bf16), with timings, the
+     least time the card could take and the achieved TFLOP/s; the kernel
+     on a blinded input (one key masked out; for K3 every q_offset lowered
+     by one, so each query loses its own slot) must fail that tolerance;
   7. where a decode call's time goes: the shared-prefix greedy call with 16
      new tokens, three times untraced, then once under torch.profiler (the
      device's busy share over the traced call's span, device time by
@@ -95,8 +96,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # Kernel against plain version on bf16 inputs: |got - want| <= ATOL + RTOL *
-# |want| elementwise. Both round one float32 result to bf16, so they differ
-# by at most one ulp (at most 2^-7 of the value).
+# |want| elementwise. Both sum in float32 and round the output to bf16 once,
+# so they differ by summation order and at most one ulp (2^-7 of the value);
+# K1 also rounds its softmax weights P to bf16 before P.V (each moves by at
+# most 2^-9 of the row's largest weight, which is 1).
 ATOL, RTOL = 4e-3, 1e-2
 PROFILE_TOKENS = 16
 K1_REPLACES = "fairness_llm_tpu/ops/flash_attention.py:148"
@@ -106,6 +109,17 @@ K3_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:404"
 K3Q_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:288"
 K4_REPLACES = "fairness_llm_tpu/ops/quant_matmul.py:159"
 K4_SOURCE = "fairness_llm_tpu_torch/ops/csrc/quant_matmul.cu"
+# The CUDA kernel each entry's wrapper launches on this path's inputs; the
+# note at the top of its source describes the design.
+KERNEL_FUNCTIONS = {
+    "flash_attention": "flash_fwd_tc",
+    "decode_attention": "decode_fwd",
+    "decode_attention_verify": "decode_fwd",
+    "decode_attention_int8_cache": "decode_fwd",
+    "decode_attention_verify_int8_cache": "decode_fwd",
+    "quant_matmul_gemv": "tc_kernel",
+    "quant_matmul_gemm": "wg_gemm_kernel",
+}
 # The int8 engine's allocation may exceed its tree by this share at most.
 MEM_SLACK = 0.05
 WATCHED = [
@@ -216,6 +230,13 @@ class CardSampler:
         for i, key in enumerate(("sm_clock_mhz", "power_w")):
             vals = sorted(r[i] for r in rows if len(r) == 2)
             self.summary[key] = [vals[0], vals[len(vals) // 2], vals[-1]] if vals else None
+
+
+def rates(flops: float, ms: float, peak: float) -> dict:
+    """Achieved TFLOP/s from a row's own operation count and time, and its
+    share of the card's peak for the input type."""
+    tflops = flops / (ms * 1e-3) / 1e12
+    return {"tflops": tflops, "peak_share": tflops * 1e12 / peak}
 
 
 def gate(got, want):
@@ -366,6 +387,7 @@ def k1_numbers(call, torch, F):
     t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {
         "shape": {"q": list(q.shape), "k": list(k.shape), "window": window},
+        **rates(flops, ms, BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS),
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
         "blind_gate_err_over_tol": shifted_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -506,6 +528,7 @@ def k4_numbers(call, torch, flush):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {
         "regime": "gemv" if M <= qm.GEMV_MAX_M else "gemm",
+        **rates(flops, ms, peak),
         "shape": {"M": M, "K": K, "N": N, "x": str(x.dtype)[6:], "out": str(od)[6:]},
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
         "blind_gate_err_over_tol": cut_ratio,
@@ -653,7 +676,8 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, rows) -> 
     top = max(rows, key=lambda r: (r["calls"], r["bytes"]))
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "kernel_function": KERNEL_FUNCTIONS[name], "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"], "shapes": rows,
     }
@@ -688,7 +712,7 @@ def decode_counts(dec_mod) -> dict:
 
 
 def zero_counts(dec_mod, flash_mod) -> None:
-    flash_mod.launches = 0
+    flash_mod.launches = flash_mod.tc_launches = 0
     dec_mod.launches = dec_mod.quant_launches = 0
     dec_mod.multi_launches = dec_mod.multi_quant_launches = 0
 
@@ -698,6 +722,14 @@ def need_launches(launches: dict, names, path: str) -> None:
     for name in names:
         if launches[name] <= 0:
             fail(f"{name} was not launched on the {path} path")
+
+
+def need_all_tc(launches: dict, path: str) -> None:
+    """Every K1 launch of a bf16 path must be one the C entry reports as
+    flash_fwd_tc, the tensor-core kernel."""
+    if launches["flash_attention_tc"] != launches["flash_attention"]:
+        fail(f"on the {path} path {launches['flash_attention']} flash_attention launches, of "
+             f"which {launches['flash_attention_tc']} on the tensor-core kernel")
 
 
 def spec_serve(engine, prompts, prefix, greedy, label: str):
@@ -782,8 +814,10 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
     zero_counts(dec_mod, flash_mod)
     with rec1, rec2:
         serve_three(backend, prompts, keys, prefix, greedy, sampled, "")
-    launches = {"flash_attention": flash_mod.launches, **decode_counts(dec_mod)}
+    launches = {"flash_attention": flash_mod.launches,
+                "flash_attention_tc": flash_mod.tc_launches, **decode_counts(dec_mod)}
     need_launches(launches, ["flash_attention", "decode_attention"], "bf16 main")
+    need_all_tc(launches, "bf16 main")
 
     # 5. the speculative serve call
     rec3 = decode_recorder(dec_mod)
@@ -801,8 +835,9 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
                           "every q_offset lowered by one")
     dec_src = "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu"
     kernels = [
-        kernel_entry("flash_attention", "fairness_llm_tpu_torch/ops/csrc/flash_attention.cu",
-                     K1_REPLACES, launches["flash_attention"], k1_rows),
+        {**kernel_entry("flash_attention", "fairness_llm_tpu_torch/ops/csrc/flash_attention.cu",
+                        K1_REPLACES, launches["flash_attention"], k1_rows),
+         "tc_launches": launches["flash_attention_tc"]},
         kernel_entry("decode_attention", dec_src, K2_REPLACES, launches["decode_attention"],
                      k2_rows),
         kernel_entry("decode_attention_verify", dec_src, K3_REPLACES,
@@ -881,8 +916,10 @@ def kv_cache_path(torch, F, engine, prompts, keys, prefix, greedy, sampled):
     zero_counts(dec_mod, flash_mod)
     with rec:
         serve_three(backend, prompts, keys, prefix, greedy, sampled, "int8_cache_")
-    launches = {"flash_attention": flash_mod.launches, **decode_counts(dec_mod)}
+    launches = {"flash_attention": flash_mod.launches,
+                "flash_attention_tc": flash_mod.tc_launches, **decode_counts(dec_mod)}
     need_launches(launches, ["flash_attention", "decode_attention_int8_cache"], "int8-cache")
+    need_all_tc(launches, "int8-cache")
     rec_s = decode_recorder(dec_mod)
     zero_counts(dec_mod, flash_mod)
     with rec_s:
@@ -962,12 +999,14 @@ def int8_path(torch, prompts, keys, greedy, sampled):
         serve_three(backend, prompts, keys, prefix, greedy, sampled, "int8_")
     peak = torch.cuda.max_memory_allocated()
     launches = {"quant_matmul_gemv": qm.gemv_launches, "quant_matmul_gemm": qm.gemm_launches,
-                "flash_attention": flash_mod.launches, "decode_attention": dec_mod.launches}
+                "flash_attention": flash_mod.launches,
+                "flash_attention_tc": flash_mod.tc_launches, "decode_attention": dec_mod.launches}
     log(f"int8 launches on the main path: {json.dumps(launches)}")
     log(f"int8 serve memory: held_gb={held / 1e9:.3f} peak_allocated_gb={peak / 1e9:.3f}")
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was not launched on the int8 main path")
+    need_all_tc(launches, "int8 main")
 
     # 16. K4 against its plain version at every shape and dtype pair
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")

@@ -21,25 +21,36 @@
 // a 132-SM card), K is split across blocks, each split writes an f32
 // partial [M,N], and a second kernel sums the splits in order, applies the
 // scale and casts, so the result does not depend on the order blocks run
-// in. The products run on the tensor cores as in the GEMM regime below,
-// with tiles of 16, 32 or 64 rows and k tiles of 64, on 8 warps side by
-// side, each 16 columns wide. A first
-// version did the products as f32 FMAs on the CUDA cores, ~23 instructions
-// per weight byte, and was bound by instruction throughput at 5.7x the byte
-// bound (gate/up 101 us on an H100 80GB HBM3 at 700 W); converting the tile
-// once and handing it to mma leaves ~3.
+// in. The products run on mma.sync m16n8k16 bf16 tiles with f32
+// accumulation, with tiles of 16, 32 or 64 rows and k tiles of 64, on 8
+// warps side by side, each 16 columns wide: x tiles and int8 weight tiles
+// stream through a four-stage cp.async pipeline with 16-byte loads; each
+// weight tile is converted once to bf16 in shared memory and read as the B
+// operand with ldmatrix.trans (the N-contiguous layout is the transpose of
+// what mma wants); rows are padded by 16 bytes so ldmatrix reads are free of
+// bank conflicts. A first version did the products as f32 FMAs on the CUDA
+// cores, ~23 instructions per weight byte, and was bound by instruction
+// throughput at 5.7x the byte bound (gate/up 101 us on an H100 80GB HBM3 at
+// 700 W); converting the tile once and handing it to mma leaves ~3.
 //
 // quant_matmul_gemm (M > 64: prefill). Bound by operations (2*M*K*N; a
-// no-prefix prefill of llama3-8b is ~200 TFLOP): mma.sync m16n8k16 bf16
-// with f32 accumulation on 128x128 output tiles, 8 warps of 64x32, k tiles
-// of 32.
-//
-// Both bf16 paths: x tiles (bf16) and int8 weight tiles stream through a
-// four-stage cp.async pipeline with 16-byte loads; each weight tile is
-// converted once to bf16 in shared memory and read as the B operand with
-// ldmatrix.trans (the N-contiguous layout is the transpose of what mma
-// wants). Rows are padded by 16 bytes so ldmatrix reads are free of bank
-// conflicts.
+// no-prefix prefill of llama3-8b is ~200 TFLOP against 989 TFLOP/s bf16).
+// bf16 x: wgmma m64n256k16 with f32 accumulation in registers, fed by TMA,
+// on 128 x 256 output tiles, k tiles of 64 (wg_gemm_kernel). One producer
+// thread keeps four stages of TMA copies (x tile 128B-swizzled, int8 weight
+// tile as stored) in flight against full/empty mbarriers. Two consumer
+// warpgroups each run 64 rows with one wgmma group in flight; while tile
+// t's products run they convert tile t+1's weights to bf16 into a ring of
+// three buffers, laid out as the MN-major B operand wgmma reads with the
+// transpose bit set. Three, not two: tile t-1's products may still be in
+// flight in either warpgroup, so tile t+1 takes the buffer of tile t-2,
+// which both finished before they last met. The conversion and the products
+// of the same tile are never ordered against each other by a barrier; only
+// the two consumer warpgroups meet, once a tile. What bounds it: the TMA copies (32 KB a
+// stage from L2), then the conversion, which adds shared-memory traffic
+// (the bf16 tile is written once and read by both warpgroups) and whose
+// latency is only partly hidden behind one tile's products. At small N
+// (k/v: N = 1024) too few 256-wide column tiles fill 132 SMs.
 //
 // float32 x (float32 models) in either regime: the weight goes to f32, never
 // TF32 or bf16, and the products are f32 FMAs on the CUDA cores. A block
@@ -49,13 +60,14 @@
 // their sums meet in shared memory in a fixed order.
 //
 // Ragged edges: rows of x past M, k past K and columns past N are
-// zero-filled when staged and never stored. The wrapper hands in N a
-// multiple of 16 and 16-byte aligned rows (it pads where they are not).
-// wgmma, TMA and a persistent schedule come later.
+// zero-filled when staged (by cp.async, or by TMA's out-of-bounds fill) and
+// never stored. The wrapper hands in N a multiple of 16 and 16-byte aligned
+// rows (it pads where they are not). A persistent schedule comes later.
 
-#include <string.h>
+#include <cuda.h>
 
 #include "attention_common.cuh"
+#include "mma_fragments.cuh"
 
 namespace {
 
@@ -266,41 +278,16 @@ cudaError_t f32_dispatch(const void* x, const void* w, const float* scale, void*
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16 x): the GEMM regime, and the GEMV regime's bf16 path
+// mma.sync kernel (bf16 x): the GEMV regime's bf16 path
 // ---------------------------------------------------------------------------
 
 constexpr int TC_BN = 128;  // columns per block
 constexpr int TC_STAGES = 4;
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &h, 4);
-  return u;
-}
+using frag::ldsm_x4;
+using frag::ldsm_x4_trans;
+using frag::mma_bf16;
+using frag::pack_bf16x2;
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -492,13 +479,368 @@ cudaError_t tc_gemv_dispatch(const void* x, const void* w, const float* scale, v
                                      k_per_split, stream);
 }
 
-// GEMM regime, bf16 x: 128 x 128 output tiles on 2 x 4 warps of 64 x 32, k tiles of 32.
+// ---------------------------------------------------------------------------
+// GEMM regime, bf16 x: wgmma fed by TMA, the int8 -> bf16 conversion of the
+// next tile overlapping the products of this one
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BM = 128;          // rows per block: two consumer warpgroups of 64
+constexpr int WG_BN = 256;          // columns per block: one wgmma m64n256k16 a warpgroup
+constexpr int WG_BK = 64;           // k per stage: one 128-byte bf16 row of x
+constexpr int WG_RAW = 4;           // TMA stages of (x tile, int8 weight tile)
+constexpr int WG_CONV = 3;          // converted bf16 weight tiles (see wg_gemm_kernel)
+constexpr int WG_PRODUCER = 256;    // warp 8: the producer
+constexpr int WG_THREADS = WG_PRODUCER + 32;
+constexpr int WG_GROUP_M = 16;      // row tiles a column sweep covers (L2 reuse)
+constexpr int X_TILE = WG_BM * WG_BK * 2;   // 16 KB, 128B-swizzled by TMA
+constexpr int W_TILE = WG_BK * WG_BN;       // 16 KB int8, row-major [k][n]
+constexpr int B_TILE = WG_BK * WG_BN * 2;   // 32 KB bf16, MN-major 128B-swizzled
+constexpr int RAW_STAGE = X_TILE + W_TILE;  // a multiple of 1024
+constexpr int WG_SMEM = 1024 /* alignment slack */ + WG_RAW * RAW_STAGE + WG_CONV * B_TILE +
+                        2 * WG_RAW * 8;
+static_assert(WG_SMEM <= 232448, "over the H100's opt-in shared memory a block");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed. A wait
+// past ~2^34 cycles (several seconds) traps, so a broken pipeline ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    if (clock64() - t0 > (1LL << 34)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A 2-D TMA copy of the box at (c0 innermost, c1) into shared memory; its
+// bytes count against `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128B-swizzled operand: start address,
+// leading and stride byte offsets (all in 16-byte units), layout B128.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((smem_u32(p) >> 4) & 0x3FFF) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// acc += A (64 x 16, K-major, descriptor da) * B (16 x 256, MN-major, db), f32;
+// scale_d 0 overwrites acc instead.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Pins each accumulator register in place around a wgmma batch, so the
+// compiler inserts no move that would make ptxas serialize the batch.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Converts 16-byte chunk i of an int8 weight tile [WG_BK][WG_BN] (row-major)
+// to bf16 in dst, laid out as wgmma reads an MN-major B operand with the 128B
+// swizzle: atoms of 8 k rows x 64 columns (1 KB), 16-byte chunk c of row r
+// stored at chunk c ^ r; the 8 atoms down k are 1 KB apart, the 4 across N
+// WG_BK * 128 bytes apart.
+__device__ __forceinline__ void convert_chunk(const int8_t* wt, unsigned char* dst, int i) {
+  const int k = i / (WG_BN / 16), c = i % (WG_BN / 16);
+  const uint4 rw = *reinterpret_cast<const uint4*>(wt + k * WG_BN + c * 16);
+  const uint32_t words[4] = {rw.x, rw.y, rw.z, rw.w};
+  uint32_t packed[8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float f[4];
+    i8x4_to_f32(words[e], f);
+    packed[2 * e] = pack_bf16x2(f[0], f[1]);
+    packed[2 * e + 1] = pack_bf16x2(f[2], f[3]);
+  }
+  // Columns 16c .. 16c+15: atom c / 4, chunks 2 (c % 4) and +1 of row k % 8.
+  const int r = k % 8, cc = (c % 4) * 2;
+  unsigned char* row = dst + (c / 4) * (WG_BK * 128) + (k / 8) * 1024 + r * 128;
+  *reinterpret_cast<uint4*>(row + ((cc ^ r) * 16)) =
+      make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  *reinterpret_cast<uint4*>(row + (((cc + 1) ^ r) * 16)) =
+      make_uint4(packed[4], packed[5], packed[6], packed[7]);
+}
+
+// Warps 0-7 (the consumers) only.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// Block = one 128 x 256 output tile, on 9 warps in two roles that meet at no
+// block-wide barrier after setup:
+// - warp 8, one thread: the producer. It keeps WG_RAW stages of TMA copies
+//   in flight, each the x tile [128 rows][64 k] bf16 (128B-swizzled, the
+//   K-major layout wgmma reads) and the weight tile [64 k][256 n] int8 as
+//   stored, against full/empty mbarriers.
+// - warps 0-7, two warpgroups: the consumers. Each runs wgmma m64n256k16
+//   over its 64 rows, four per stage, with one group kept in flight. While
+//   tile t's products run, the two warpgroups convert tile t+1's int8
+//   weights to bf16 (exact), half each, into buffer (t+1) % 3 laid out as
+//   wgmma reads an MN-major B operand (the transpose bit set), and meet at a
+//   barrier of their own before tile t+1's products. A warpgroup's
+//   wgmma_wait<1> in step t only retires its own tile t-1, and the other
+//   warpgroup's tile t-1 may still read buffer (t-1) % 3; tile t-2's
+//   products were retired by both before the barrier that ended step t-1,
+//   so buffer (t-2) % 3 = (t+1) % 3 is free. A tile's stage goes back to
+//   the producer once this warpgroup's products of it are done (two
+//   arrivals free it).
+// TMA zero-fills rows, k and columns past M, K and N. The epilogue scales
+// each column once, casts and stores, masking rows past M and columns past
+// N. Registers: ~165 a consumer thread (128 accumulators; ptxas -v gives
+// the count), under the 224 that 288 threads leave, so no setmaxnreg is
+// needed. Shared memory: 230,464 bytes of the 232,448 a block may opt in to.
 template <typename TO>
-cudaError_t tc_gemm(const void* x, const void* w, const float* scale, void* out, int M,
-                    int K, int N, int ldx, cudaStream_t stream) {
-  const int kps = (K + 31) / 32 * 32;
-  return tc_launch<TO, 128, 32, 2, 4>(x, w, scale, out, nullptr, M, K, N, ldx, 1, kps,
-                                      stream);
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+               const float* __restrict__ scale, TO* __restrict__ out, int M, int K, int N) {
+  extern __shared__ unsigned char smem_dyn[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
+  auto raw = [&](int s) { return smem + s * RAW_STAGE; };
+  auto bbuf = [&](int j) { return smem + WG_RAW * RAW_STAGE + j * B_TILE; };
+  uint64_t* full_raw = reinterpret_cast<uint64_t*>(smem + WG_RAW * RAW_STAGE + WG_CONV * B_TILE);
+  uint64_t* empty_raw = full_raw + WG_RAW;
+
+  // Grouped order: WG_GROUP_M row tiles walk the column tiles together, so
+  // their x rows stay in L2 and each weight tile is fetched once a group.
+  const int num_m = (M + WG_BM - 1) / WG_BM, num_n = (N + WG_BN - 1) / WG_BN;
+  const int per_group = WG_GROUP_M * num_n;
+  const int first_m = (blockIdx.x / per_group) * WG_GROUP_M;
+  const int gm = min(num_m - first_m, WG_GROUP_M);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first_m + in_group % gm) * WG_BM;
+  const int n0 = (in_group / gm) * WG_BN;
+  const int ktiles = (K + WG_BK - 1) / WG_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_RAW; ++s) {
+      mbar_init(&full_raw[s], 1);
+      mbar_init(&empty_raw[s], 2);  // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG_PRODUCER) {
+    if (threadIdx.x == WG_PRODUCER) {
+      for (int u = 0; u < ktiles; ++u) {
+        const int s = u % WG_RAW;
+        if (u >= WG_RAW) mbar_wait(&empty_raw[s], (u / WG_RAW - 1) & 1);
+        mbar_expect_tx(&full_raw[s], RAW_STAGE);
+        tma_load_2d(raw(s), &xmap, &full_raw[s], u * WG_BK, m0);
+        tma_load_2d(raw(s) + X_TILE, &wmap, &full_raw[s], n0, u * WG_BK);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  constexpr int HALF = WG_BK * (WG_BN / 16) / 2;  // 16-byte chunks a warpgroup converts
+  auto convert_half = [&](int t) {
+    const int8_t* wt = reinterpret_cast<const int8_t*>(raw(t % WG_RAW) + X_TILE);
+#pragma unroll
+    for (int u = 0; u < HALF / 128; ++u)
+      convert_chunk(wt, bbuf(t % WG_CONV), wg * HALF + tid + u * 128);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+  };
+
+  float acc[WG_BN / 2];  // written first by tile 0's wgmma with scale-d 0
+  mbar_wait(&full_raw[0], 0);
+  convert_half(0);
+  consumers_sync();
+  for (int t = 0; t < ktiles; ++t) {
+    const unsigned char* xa = raw(t % WG_RAW) + wg * 64 * 128;
+    const unsigned char* bb = bbuf(t % WG_CONV);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < WG_BK / 16; ++ks)
+      wgmma_m64n256k16(acc, gmma_desc(xa + ks * 32, 16, 1024),
+                       gmma_desc(bb + ks * 2048, WG_BK * 128, 1024), t > 0 || ks > 0);
+    wgmma_commit();
+    fence_acc(acc);
+    if (t + 1 < ktiles) mbar_wait(&full_raw[(t + 1) % WG_RAW], ((t + 1) / WG_RAW) & 1);
+    wgmma_wait<1>();  // this warpgroup's tile t-1 products are done: its stage is free
+    if (t > 0 && tid == 0) mbar_arrive(&empty_raw[(t - 1) % WG_RAW]);
+    if (t + 1 < ktiles) convert_half(t + 1);  // into tile t-2's buffer, free in both
+    consumers_sync();  // both halves of tile t+1 are in place
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // Accumulator d[4j + e]: row (warp % 4) * 16 + lane / 4 (+8 for e >= 2),
+  // columns 8j + 2 (lane % 4) + (e % 2).
+  const int row = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int jn = 0; jn < WG_BN / 8; ++jn) {
+    const int col = n0 + jn * 8 + (lane % 4) * 2;
+    if (col >= N) continue;  // N is even, so col + 1 < N too
+    const float s0 = scale[col], s1 = scale[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = row + 8 * h;
+      if (rr < M)
+        store2(out + (long long)rr * N + col, acc[4 * jn + 2 * h] * s0,
+               acc[4 * jn + 2 * h + 1] * s1);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime, so
+// the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &res);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 2-D row-major map: `cols` contiguous elements a row, `rows` rows
+// `ld_bytes` apart, copied in boxes of box_cols x box_rows; out-of-bounds
+// elements read as zero.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t cols,
+              uint64_t rows, uint64_t ld_bytes, uint32_t box_cols, uint32_t box_rows,
+              CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TO>
+cudaError_t wg_gemm(const void* x, const void* w, const float* scale, void* out, int M, int K,
+                    int N, int ldx, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)ldx * 2, WG_BK,
+                WG_BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, WG_BN, WG_BK,
+                CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  auto kernel = wg_gemm_kernel<TO>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      (long long)((M + WG_BM - 1) / WG_BM) * ((N + WG_BN - 1) / WG_BN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, WG_THREADS, WG_SMEM, stream>>>(xmap, wmap, scale,
+                                                             static_cast<TO*>(out), M, K, N);
+  return cudaGetLastError();
 }
 
 bool shapes_ok(int xdtype, const void* x, const void* w, int M, int K, int N, int ldx) {
@@ -542,7 +884,8 @@ extern "C" int quant_matmul_gemv(int xdtype, int odtype, const void* x, const vo
   return (int)err;
 }
 
-// Any M. bf16 x: tensor cores; f32 x: CUDA-core FMAs over chunks of 64 rows.
+// Any M. bf16 x: wgmma fed by TMA (wg_gemm_kernel); f32 x: CUDA-core FMAs over
+// chunks of 64 rows.
 extern "C" int quant_matmul_gemm(int xdtype, int odtype, const void* x, const void* wq,
                                  const void* scale, void* out, int M, int K, int N, int ldx,
                                  void* stream) {
@@ -553,9 +896,9 @@ extern "C" int quant_matmul_gemm(int xdtype, int odtype, const void* x, const vo
   const int mchunks = (M + 63) / 64;
   cudaError_t err;
   if (xdtype == 1 && odtype == 1)
-    err = tc_gemm<__nv_bfloat16>(x, wq, s, out, M, K, N, ldx, st);
+    err = wg_gemm<__nv_bfloat16>(x, wq, s, out, M, K, N, ldx, st);
   else if (xdtype == 1 && odtype == 0)
-    err = tc_gemm<float>(x, wq, s, out, M, K, N, ldx, st);
+    err = wg_gemm<float>(x, wq, s, out, M, K, N, ldx, st);
   else if (xdtype == 0 && odtype == 0)
     err = mchunks > 65535 ? cudaErrorInvalidValue
                           : f32_dispatch(x, wq, s, out, nullptr, M, K, N, ldx, 1, kps, mchunks,

@@ -5,12 +5,16 @@ as there: q [B, H, S, D], k/v [B, Hkv, S, D], lengths [B] int32; row b's valid
 keys are ``S - lengths[b] ..< S``; optional sliding window ``q_idx - k_idx <
 window``. An all-masked query row (a left-pad row) gives 0.
 
-``flash_attention`` launches the hand-written CUDA kernel
+``flash_attention`` launches a hand-written CUDA kernel
 (``csrc/flash_attention.cu``) for a CUDA tensor and takes the plain version,
-``flash_attention_reference``, only for a CPU tensor. q/k/v may be head-major
-views of [B, S, H, D] tensors: the kernel takes strides, so no copy is made.
-Only where k/v rows are not 16-byte aligned (a D of odd byte size, an odd
-view) are q/k/v copied, with D zero-padded, before the launch.
+``flash_attention_reference``, only for a CPU tensor. bfloat16 goes to the
+tensor-core kernel (``mma.sync``; P is rounded to bf16 before P.V), built
+for head widths ``TC_WIDTHS``: q/k/v with another D are copied with D
+zero-padded to the next width (zero columns add nothing to q.k, and the
+output columns they give are cut off). float32 goes to the scalar f32
+kernel (no TF32). q/k/v may be head-major views of [B, S, H, D] tensors: the
+kernels take strides, so no copy is made where rows are 16-byte aligned and
+D is a width the kernel takes; otherwise q/k/v are copied, zero-padded.
 """
 
 from __future__ import annotations
@@ -24,15 +28,22 @@ from fairness_llm_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the counts were last set to 0: all of them, and
+#: those the C entry reports as flash_fwd_tc (the bf16 tensor-core kernel).
 launches = 0
+tc_launches = 0
+_TC_KERNEL = 1  # flash_attention_fwd's *kernel for flash_fwd_tc
+
+#: Head widths the bf16 tensor-core kernel is instantiated for.
+TC_WIDTHS = (64, 128, 256)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # dtype; q, k, v, o, lengths; B, H, Hkv, S, D; 12 strides; causal, window,
-# scale, stream
+# scale, stream; out: the kernel launched
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_int)])
 
 
 def flash_attention_reference(q, k, v, lengths, causal: bool = True,
@@ -89,22 +100,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} needs a contiguous last dim")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    Dk = D
-    if not (_build.rows_aligned16(k) and _build.rows_aligned16(v)):
-        # Zero columns add nothing to q.k and give output columns cut off below.
+    if q.dtype == torch.bfloat16:
+        Dk = next(w for w in TC_WIDTHS if w >= D)
+        aligned = all(_build.rows_aligned16(t) for t in (q, k, v))
+    else:
         ve = 16 // q.element_size()
         Dk = -(-D // ve) * ve
+        aligned = _build.rows_aligned16(k) and _build.rows_aligned16(v)
+    if Dk != D or not aligned:
+        # Zero columns add nothing to q.k and give output columns cut off below.
         q, k, v = (_build.pad_last_dim(t, Dk) for t in (q, k, v))
     out = torch.empty_like(q)  # keeps q's strides (head-major view or not)
     fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)]
+    kernel = ctypes.c_int(-1)
     status = fn(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lengths.data_ptr(), B, H, k.shape[1], S, Dk, *strides,
         int(causal), 0 if window is None else int(window), D ** -0.5,
-        _build.current_stream(q.device),
+        _build.current_stream(q.device), ctypes.byref(kernel),
     )
     _build.check(status, "flash_attention")
-    global launches
+    global launches, tc_launches
     launches += 1
+    tc_launches += kernel.value == _TC_KERNEL
     return out if Dk == D else out[..., :D]

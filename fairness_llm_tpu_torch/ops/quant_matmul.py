@@ -18,11 +18,13 @@ never holds a float copy of an int8 weight. Two regimes, picked by M:
 - ``gemv`` (M <= 64, the decode step). Bound by the weight's bytes (it does
   2*M operations per byte); K is split across blocks where N alone gives
   too few of them. Launches are counted in ``gemv_launches``.
-- ``gemm`` (M > 64, prefill). Bound by operations. Launches are counted in
+- ``gemm`` (M > 64, prefill). Bound by operations. bf16 x runs on
+  ``wgmma`` fed by TMA, each int8 tile converted to bf16 by warps of its own
+  while earlier tiles are multiplied. Launches are counted in
   ``gemm_launches``.
 
-In both, bf16 x runs on the tensor cores and f32 x on f32 FMAs (the weight
-never goes to TF32 or bf16).
+In both, bf16 x runs on the tensor cores (``mma.sync`` in the GEMV regime)
+and f32 x on f32 FMAs (the weight never goes to TF32 or bf16).
 
 The kernel takes any M, K and N. Where x's rows or the weight's rows are not
 16-byte aligned (an odd K or N), the wrapper copies them zero-padded first,

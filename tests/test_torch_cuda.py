@@ -6,10 +6,17 @@ They import nothing of JAX, so the card's machine runs them with:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 outputs agree to 1e-4 (sums in another order). bfloat16
-outputs agree elementwise to 4e-3 + 1e-2 * |plain|: both sides compute in
-float32 and round the output once, so they differ by at most one bf16 ulp
-(at most 2^-7 of the value). A kernel that drops or adds one key moves
-outputs by far more than that, which the shifted-mask tests check; for the
+outputs agree elementwise to 4e-3 + 1e-2 * |plain|. The plain versions
+compute in float32 and round the output once. The kernels sum in float32
+too and round the output once; the decode kernels and the int8-weight
+matmul differ from the plain version by summation order and that one
+rounding (at most one bf16 ulp, 2^-7 of the value). The bf16 flash kernel
+also rounds the softmax weights P to bf16 before P.V, on the tensor cores:
+each weight moves by at most 2^-9 of the row's largest (which is exactly 1),
+and test_flash_tc_kernel_matches_plain holds the kernel, that rounding
+included, to the same allowance (chip_smoke.py reports the share of it
+used at llama3-8b's prefill shapes). A kernel that drops or adds one key
+moves outputs by far more than that, which the shifted-mask tests check; for the
 int8-weight matmul, dropping the last 32 columns of x must fail the same
 tolerance.
 Its float32 outputs are held to 1e-4 + 3e-5 * |plain|: the tensor cores'
@@ -57,12 +64,49 @@ def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, D, window):
     k = torch.randn(B, Hkv, S, D, generator=g, device=dev, dtype=dtype)
     v = torch.randn(B, Hkv, S, D, generator=g, device=dev, dtype=dtype)
     lengths = torch.randint(1, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
-    before = flash_mod.launches
+    before, tc = flash_mod.launches, flash_mod.tc_launches
     got = flash_mod.flash_attention(q, k, v, lengths, causal=True, window=window)
     torch.cuda.synchronize()
     assert flash_mod.launches == before + 1
+    assert flash_mod.tc_launches == tc + (dtype == torch.bfloat16)
     want = flash_mod.flash_attention_reference(q, k, v, lengths, causal=True, window=window)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,window,lens", [
+    (2, 4, 4, 77, 16, None, "rand"),     # tiny-test's D, padded to 64; rep 1
+    (2, 8, 2, 200, 32, None, "rand"),    # the study checkpoints' D; rep 4
+    (3, 12, 12, 128, 64, None, "rand"),  # gpt2's D
+    (2, 4, 2, 77, 80, None, "rand"),     # padded to 128
+    (2, 32, 4, 897, 128, None, "one"),   # rep 8; S one past a tile; a row of length 1
+    (2, 4, 2, 200, 256, None, "rand"),   # 32-key tiles
+    (2, 4, 2, 70, 99, None, "rand"),     # odd byte rows: copied, padded to 128
+    (2, 32, 8, 200, 128, 48, "rand"),    # window inside the causal band
+    (2, 8, 2, 300, 128, None, "pad"),    # q tiles wholly in the left padding
+    (3, 8, 2, 150, 64, 70, "one"),       # window and a row of length 1
+])
+def test_flash_tc_kernel_matches_plain(dev, B, H, Hkv, S, D, window, lens):
+    """The bf16 tensor-core kernel, q a head-major view of [B, S, H, D], on
+    every width it pads to and the masks' edge cases."""
+    dtype = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    q = torch.randn(B, S, H, D, generator=g, device=dev, dtype=dtype).transpose(1, 2)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=dtype).transpose(1, 2)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=dtype).transpose(1, 2)
+    lengths = torch.randint(1, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    if lens == "one":
+        lengths[0] = 1
+    elif lens == "pad":
+        lengths[:] = torch.tensor([S // 4, 5] + [S] * (B - 2), dtype=torch.int32)
+    before, tc = flash_mod.launches, flash_mod.tc_launches
+    got = flash_mod.flash_attention(q, k, v, lengths, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert (flash_mod.launches, flash_mod.tc_launches) == (before + 1, tc + 1)
+    assert got.shape == q.shape
+    want = flash_mod.flash_attention_reference(q, k, v, lengths, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    pad_rows = torch.arange(S, device=dev)[None, :] < (S - lengths.long())[:, None]
+    assert not got.transpose(1, 2)[pad_rows].any()  # left-pad rows are exactly 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -238,10 +282,11 @@ def test_int8_cache_tolerance_sees_one_dropped_key(dev, dtype):
 
 
 # llama3-8b's (K, N) pairs: q/o, k/v, gate/up, down, lm_head; then ragged
-# pairs: K = 100 (x rows padded by the wrapper), N = 90 (the weight padded).
+# pairs: K = 100 (x rows padded by the wrapper), N = 90 (the weight padded),
+# K = 4096 + 48 (a last k tile of 48 in the GEMM regime's 64).
 QMM_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256), (100, 96),
-          (72, 90)]
-QMM_M = [1, 16, 45, 48, 129, 704]
+          (72, 90), (4144, 4096)]
+QMM_M = [1, 16, 45, 48, 65, 129, 704, 1536]
 QMM_TOL = {torch.float32: dict(rtol=3e-5, atol=1e-4), torch.bfloat16: TOL[torch.bfloat16]}
 
 
@@ -276,7 +321,7 @@ def test_quant_matmul_kernel_matches_plain(dev, qmm_weights, M, K, N, x_dtype, o
 
 
 @pytest.mark.parametrize("x_dtype,out_dtype", qmm.COMBOS, ids=lambda d: str(d)[6:])
-@pytest.mark.parametrize("M", [16, 704])
+@pytest.mark.parametrize("M", [16, 129, 704])
 def test_quant_matmul_tolerance_sees_a_dropped_k_tile(dev, qmm_weights, M, x_dtype, out_dtype):
     """The kernel on x with its last 32 columns zeroed (a kernel that dropped
     its last k tile, 32 or 64 wide, would drop at least these) must fail the
@@ -290,3 +335,24 @@ def test_quant_matmul_tolerance_sees_a_dropped_k_tile(dev, qmm_weights, M, x_dty
     got = qmm.quant_matmul(cut, wq, scale, out_dtype=out_dtype)
     with pytest.raises(AssertionError):
         torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
+
+
+def test_quant_matmul_gemm_repeats_bit_for_bit(dev, qmm_weights):
+    """The GEMM regime's two consumer warpgroups share a ring of converted
+    weight tiles; a buffer rewritten while the other warpgroup still reads
+    it would make repeated calls differ. 50 calls on one input, each beside
+    memory traffic on a second stream that shifts the warpgroups' timing,
+    must agree bit for bit."""
+    wq, scale = qmm_weights[(4096, 14336)]
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(1536, 4096, generator=g, device=dev).bfloat16()
+    first = qmm.quant_matmul(x, wq, scale, out_dtype=torch.bfloat16)
+    noise = torch.zeros(64 << 20, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    for i in range(50):
+        with torch.cuda.stream(side):
+            noise.add_(1.0)
+        got = qmm.quant_matmul(x, wq, scale, out_dtype=torch.bfloat16)
+        assert torch.equal(got, first), f"call {i} differs from the first"
+    torch.cuda.synchronize()
