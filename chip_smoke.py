@@ -29,7 +29,10 @@ path's launch counts are set to 0 just before it and read just after:
      16 over the whole prompt); every K1 launch of a bf16 path must be one
      of the tensor-core kernel (``tc_launches`` equal to ``launches``);
   5. the shared-prefix greedy call with speculation on (draft_len 8,
-     ngram_max 3): K3 must launch; its speculation counters are logged;
+     ngram_max 3): K3 must launch, every launch on the tensor-core kernel
+     (``multi_tc_launches`` equal to the K3 launches); its speculation
+     counters are logged, and the call is profiled as in phase 7 (verify
+     ms per step, device time of the K3 kernels);
   6. each kernel against its plain version at the shapes of phases 3-5,
      held elementwise to 4e-3 + 1e-2 * |plain| (bf16), with timings, the
      least time the card could take and the achieved TFLOP/s; the kernel
@@ -49,9 +52,10 @@ path's launch counts are set to 0 just before it and read just after:
   and K3 over an int8 cache):
  10. the engine must share every parameter tensor (no second copy); the
      cache bytes it holds against the bf16 cache's at one shape;
- 11. phases 3-4 and then 5 on it: K1, K2q and K3 over int8 must launch;
- 12. both modes against their plain versions as in phase 6, and phase 9's
-     report;
+ 11. phases 3-4 and then 5 on it: K1, K2q and K3 over int8 must launch,
+     every K3 launch on the tensor-core kernel;
+ 12. both modes against their plain versions as in phase 6, the
+     speculative call's profile as in phase 5, and phase 9's report;
  13. the gates in float32 at full width with the depth cut to 4 layers:
      teacher-forced logits within 1e-3 of the largest logit (float cache
      and int8 cache), and speculative greedy tokens equal to plain greedy
@@ -114,9 +118,9 @@ K4_SOURCE = "fairness_llm_tpu_torch/ops/csrc/quant_matmul.cu"
 KERNEL_FUNCTIONS = {
     "flash_attention": "flash_fwd_tc",
     "decode_attention": "decode_fwd",
-    "decode_attention_verify": "decode_fwd",
+    "decode_attention_verify": "decode_verify_tc",
     "decode_attention_int8_cache": "decode_fwd",
-    "decode_attention_verify_int8_cache": "decode_fwd",
+    "decode_attention_verify_int8_cache": "decode_verify_tc",
     "quant_matmul_gemv": "tc_kernel",
     "quant_matmul_gemm": "wg_gemm_kernel",
 }
@@ -472,7 +476,8 @@ def decode_numbers(call, torch, F):
     shape = {"q": list(q.shape), "k": list(k.shape), "cache": str(k.dtype)[6:], "prefix": P,
              "visible_slots": int(sees.sum()) if multi else needed}
     return {
-        "shape": shape, "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio,
+        "shape": shape, **rates(flops, ms, peak), "bound_share": max(t_ops, t_bytes) / ms,
+        "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio,
         "ok": ratio <= 1, "blind_gate_err_over_tol": blind_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": "F.scaled_dot_product_attention over [prefix; cache] with a boolean mask"
@@ -555,11 +560,13 @@ def int8_tree_bytes(cfg) -> int:
     return total
 
 
-def profiled_decode(backend, prompts, prefix, settings, torch):
+def profiled_decode(backend, prompts, prefix, settings, torch, focus=()):
     """The shared-prefix greedy call three times untraced, then once under
     torch.profiler. The busy share is the union of the device's activity
     intervals over the traced call's span, so it counts launch gaps as idle;
-    tracing slows the host, so it is a lower bound for the untraced call."""
+    tracing slows the host, so it is a lower bound for the untraced call.
+    ``focus_ms`` sums the device time of the kernels whose names hold each
+    string of ``focus``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -607,6 +614,9 @@ def profiled_decode(backend, prompts, prefix, settings, torch):
         "traced_span_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
         "device_busy_share": busy / (t1 - t0), "traced_card": card.summary,
         "top_device_ms": [{"name": n[:80], "ms": us / 1e3} for n, us in top],
+        "focus_ms": {f: sum(us for n, us in by_name.items() if f in n) / 1e3 for f in focus},
+        "focus_ms_per_step": {f: sum(us for n, us in by_name.items() if f in n) / 1e3
+                              / max(backend.last_stats["decode_steps"], 1) for f in focus},
     }
 
 
@@ -708,13 +718,14 @@ def decode_counts(dec_mod) -> dict:
     return {"decode_attention": dec_mod.launches,
             "decode_attention_int8_cache": dec_mod.quant_launches,
             "decode_attention_verify": dec_mod.multi_launches,
-            "decode_attention_verify_int8_cache": dec_mod.multi_quant_launches}
+            "decode_attention_verify_int8_cache": dec_mod.multi_quant_launches,
+            "decode_attention_verify_tc": dec_mod.multi_tc_launches}
 
 
 def zero_counts(dec_mod, flash_mod) -> None:
     flash_mod.launches = flash_mod.tc_launches = 0
     dec_mod.launches = dec_mod.quant_launches = 0
-    dec_mod.multi_launches = dec_mod.multi_quant_launches = 0
+    dec_mod.multi_launches = dec_mod.multi_quant_launches = dec_mod.multi_tc_launches = 0
 
 
 def need_launches(launches: dict, names, path: str) -> None:
@@ -724,12 +735,14 @@ def need_launches(launches: dict, names, path: str) -> None:
             fail(f"{name} was not launched on the {path} path")
 
 
-def need_all_tc(launches: dict, path: str) -> None:
-    """Every K1 launch of a bf16 path must be one the C entry reports as
-    flash_fwd_tc, the tensor-core kernel."""
-    if launches["flash_attention_tc"] != launches["flash_attention"]:
-        fail(f"on the {path} path {launches['flash_attention']} flash_attention launches, of "
-             f"which {launches['flash_attention_tc']} on the tensor-core kernel")
+def need_all_tc(launches: dict, path: str, name: str = "flash_attention",
+                tc: str = "flash_attention_tc") -> None:
+    """Every launch of kernel ``name`` on a path with bf16 activations (K1;
+    K3 on a speculative path) must be one the C entry reports as its
+    tensor-core kernel (flash_fwd_tc; decode_verify_tc), counted in ``tc``."""
+    if launches[tc] != launches[name]:
+        fail(f"on the {path} path {launches[name]} {name} launches, of which "
+             f"{launches[tc]} on the tensor-core kernel")
 
 
 def spec_serve(engine, prompts, prefix, greedy, label: str):
@@ -826,6 +839,8 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
         spec_serve(engine, prompts, prefix, greedy, "shared_prefix_greedy_spec")
     spec_launches = decode_counts(dec_mod)
     need_launches(spec_launches, ["decode_attention_verify"], "bf16 speculative")
+    need_all_tc(spec_launches, "bf16 speculative", "decode_attention_verify",
+                "decode_attention_verify_tc")
 
     # 6. kernels against their plain versions at the paths' shapes
     k1_rows = [k1_numbers(call, torch, F) for call in rec1.calls.values()]
@@ -840,8 +855,9 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
          "tc_launches": launches["flash_attention_tc"]},
         kernel_entry("decode_attention", dec_src, K2_REPLACES, launches["decode_attention"],
                      k2_rows),
-        kernel_entry("decode_attention_verify", dec_src, K3_REPLACES,
-                     spec_launches["decode_attention_verify"], k3_rows),
+        {**kernel_entry("decode_attention_verify", dec_src, K3_REPLACES,
+                        spec_launches["decode_attention_verify"], k3_rows),
+         "tc_launches": spec_launches["decode_attention_verify_tc"]},
     ]
     del rec1, rec2, rec3
 
@@ -849,6 +865,7 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
     prof_row = profiled_decode(backend, prompts, prefix,
                                ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch)
     log(f"profile_shared_prefix_greedy {json.dumps(prof_row)}")
+    spec_profile(engine, prompts, prefix, torch, "")
 
     # 8. speculative tokens against plain ones at full depth in bf16: reported
     # only, since a verify window's GEMMs (M = batch x 9) round otherwise than
@@ -927,6 +944,8 @@ def kv_cache_path(torch, F, engine, prompts, keys, prefix, greedy, sampled):
     spec_launches = decode_counts(dec_mod)
     need_launches(spec_launches, ["decode_attention_verify_int8_cache"],
                   "int8-cache speculative")
+    need_all_tc(spec_launches, "int8-cache speculative", "decode_attention_verify_int8_cache",
+                "decode_attention_verify_tc")
 
     # 12. both modes against their plain versions, then the bf16 end-to-end report
     k2q_rows = decode_rows(rec, "k2q", "decode_attention_int8_cache", torch, F,
@@ -937,13 +956,29 @@ def kv_cache_path(torch, F, engine, prompts, keys, prefix, greedy, sampled):
     kernels = [
         kernel_entry("decode_attention_int8_cache", dec_src, K2Q_REPLACES,
                      launches["decode_attention_int8_cache"], k2q_rows),
-        kernel_entry("decode_attention_verify_int8_cache", dec_src, K3Q_REPLACES,
-                     spec_launches["decode_attention_verify_int8_cache"], k3q_rows),
+        {**kernel_entry("decode_attention_verify_int8_cache", dec_src, K3Q_REPLACES,
+                        spec_launches["decode_attention_verify_int8_cache"], k3q_rows),
+         "tc_launches": spec_launches["decode_attention_verify_tc"]},
     ]
     del rec, rec_s
+    spec_profile(eng_q, prompts, prefix, torch, "int8_cache_")
     teacher_forced_gate(eng_q, prompts, torch, "int8_cache_", cfg.vocab_size)
     del eng_q, backend
     return kernels
+
+
+def spec_profile(engine, prompts, prefix, torch, label: str) -> None:
+    """Phase 7's profile of the speculative shared-prefix greedy call:
+    verify ms per step, and the device time of K3 (decode_verify_tc and its
+    combine_splits) in the traced call."""
+    from fairness_llm_tpu_torch.config import ModelSettings, SpeculationConfig
+    from fairness_llm_tpu_torch.pipeline.backends import EngineBackend
+
+    backend = EngineBackend(engine, speculation=SpeculationConfig(enabled=True))
+    row = profiled_decode(backend, prompts, prefix,
+                          ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch,
+                          focus=("decode_verify_tc", "combine_splits"))
+    log(f"profile_{label}spec_shared_prefix_greedy {json.dumps(row)}")
 
 
 def teacher_forced_gate(engine, prompts, torch, label, vocab, f32=False):

@@ -19,31 +19,63 @@
 // every 2*2*D bytes of k/v it reads, about one operation per byte, so K2 is
 // bound by the bytes of the cache and the prefix over 3.35 TB/s. A verify
 // window of Q queries does Q times the operations on the same bytes (~18
-// operations per byte for llama3-8b's 36 query rows per kv head); on
-// scalar f32 FMAs that is closer to the FMA rate than to the byte rate.
+// operations per byte for llama3-8b's 36 query rows per kv head): still on
+// the bytes' side of the card's line, but only if the products run on the
+// tensor cores; on scalar f32 FMAs they take longer than the bytes.
 //
-// Design: one block per (kv head, batch row, chunk of query rows). The
-// block handles the rep * Q query rows of that kv head (one query per row:
-// all rep rows, at most 32; a verify window: chunks of at most 12 over
-// grid.z), so each k/v tile is read from device memory once per chunk, not
-// once per query head. It reads the cache in its native [B,L,Hkv,D] layout.
-// Tiles of 32 keys (one key per lane) stream through a cp.async pipeline of
-// four stages (two for a verify window), so the next tiles' loads are in
-// flight while the block computes on the current one. Each warp owns up to
-// RPW query rows and keeps their running max, normaliser and accumulator
-// (lanes split D) in registers. A float cache walks P + L "virtual" keys,
-// where a tile may straddle the end of the prefix; an int8 cache walks the
-// prefix tiles (float) and then the cache tiles (int8, with their 32 k and
-// v scales staged beside them), so a stage holds one row type. Any B, L,
-// P, Q <= 64, D <= 256: the wrapper pads D to a multiple of 16 bytes (16
-// elements for an int8 cache) before the launch. The products run on scalar
-// f32 FMAs, every warp re-reading its q rows from shared memory for each
-// key chunk; tensor-core tiles for the verify window (mma.sync, with q in
-// registers), splitting L across blocks, wgmma and TMA come later.
+// Two routes, reported by the C entry:
+//
+// decode_fwd (float32 q; bf16 with one query per row): one block per (kv
+// head, batch row, chunk of query rows). The block handles the rep * Q
+// query rows of that kv head (one query per row: all rep rows, at most 32;
+// a float32 verify window: chunks of at most 12 over grid.z), so each k/v
+// tile is read from device memory once per chunk, not once per query head.
+// It reads the cache in its native [B,L,Hkv,D] layout. Tiles of 32 keys
+// (one key per lane) stream through a cp.async pipeline of four stages (two
+// for a verify window). Each warp owns up to RPW query rows and keeps their
+// running max, normaliser and accumulator (lanes split D) in registers, on
+// scalar f32 FMAs. A float cache walks P + L "virtual" keys, where a tile
+// may straddle the end of the prefix; an int8 cache walks the prefix tiles
+// (float) and then the cache tiles (int8, with their 32 k and v scales
+// staged beside them). The wrapper pads D to a multiple of 16 bytes (16
+// elements for an int8 cache).
+//
+// decode_verify_tc (bf16 verify window, Q > 1, over a bf16 or an int8
+// cache), on mma.sync m16n8k16 as flash_attention.cu's flash_fwd_tc: the
+// rep * Q rows of one kv head, row g being query g / rep of head
+// hk * rep + g % rep, are the M side, 16 rows a warp and at most 4 warps a
+// block (36 rows: 3 warps); more rows take more blocks over grid.y. Each
+// lane loads its q fragments once, straight from device memory into
+// registers, and knows its two rows' causal limits q_offsets[b] + g / rep.
+// S = Q.K^T with K through ldmatrix, the online softmax on the C fragments
+// in log2 units, and P packed from them into the A fragments of P.V, V
+// through ldmatrix.trans. 32-key tiles stream through a two-slot cp.async
+// ring, rows padded by 16 bytes so ldmatrix reads are free of bank
+// conflicts; the wrapper zero-pads D to 64, 128 or 256. At D = 128 a block
+// of 3 warps holds 168 registers a thread and 35-36 KB of shared memory,
+// so four blocks share an SM (registers bound it); 64-key tiles, a third
+// ring slot, or 208 registers without spills ran no faster on the card.
+// The keys are split across blocks over grid.x, so that B * Hkv blocks
+// (128 for llama3-8b at batch 16) become a full wave (the wrapper's plan:
+// as many splits as four blocks an SM hold, 3 + 1 there): a split walks
+// either prefix tiles or own-cache tiles, never both, so a tile never
+// straddles the two and each ring slot holds one row type. Own-cache tiles
+// past q_offsets[b] + Q - 1 are skipped (every row's limit excludes them).
+// Over an int8 cache a cache split stages int8 k/v tiles with their 32 k
+// and v scales and converts each tile once to bf16 in a third slot (exact);
+// the k-scale multiplies S's C fragments before the mask and the max, l sums
+// the unscaled p, and p times the v-scale is what P.V takes. Each split
+// writes f32 partials (m in log2 units, l, acc) to a workspace the wrapper
+// allocates, and combine_splits folds them in split order (deterministic;
+// a split in which a row saw no key has l = 0 and is skipped). Both launches
+// come from one C call; with one split the kernel writes the output itself.
+// Rounding P (times the v-scale) to bf16 before P.V is the one numerical
+// change against the f32 plain version.
 
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "mma_fragments.cuh"
 
 namespace {
 
@@ -53,10 +85,10 @@ constexpr int kBlockK = 32;  // keys per tile: one per lane
 constexpr int kWarps = 4;
 constexpr int kStages = 4;
 constexpr int kMaxRows = 32;  // query rows per block at most (kWarps * the largest RPW)
-// The verify window is bound by its shared-memory loads and instruction
-// latency, not by device memory: two pipeline stages and at most 12 rows a
-// block put more warps on each SM (the fastest of the settings tried on an
-// H100 80GB HBM3 at 700 W; see PERF.md).
+// The scalar verify window (float32) is bound by its shared-memory loads
+// and instruction latency, not by device memory: two pipeline stages and at
+// most 12 rows a block put more warps on each SM (the fastest of the
+// settings tried on an H100 80GB HBM3 at 700 W in bf16; see PERF.md).
 constexpr int kStagesMulti = 2;
 constexpr int kMultiRows = 12;
 
@@ -308,6 +340,390 @@ decode_fwd(const T* __restrict__ q, const KT* __restrict__ k, const KT* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 verify window on the tensor cores, and the combine of its key splits
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 4;             // m-tiles of 16 query rows a block, at most
+constexpr int kTcRows = 16 * kTcWarps;  // query rows of one kv head a block, at most
+constexpr int kTcStages = 2;            // ring slots: tiles in flight while one is computed
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tile shapes of one instantiated width DP: BK keys a tile (the wrapper's
+// TILE_KEYS, from which it plans the splits), bf16 rows staged STR elements
+// apart and int8 rows STR8 bytes apart (16 spare bytes a row, so ldmatrix
+// and the conversion read free of bank conflicts). A ring slot holds a k
+// and a v tile: SLOT bytes in bf16; SLOT8 in int8 with the tile's k and v
+// scales. A float cache uses two bf16 slots; an int8 cache two bf16 slots
+// (prefix splits) or two int8 slots and one bf16 slot for the converted
+// tile (cache splits), whichever is larger.
+template <int DP>
+struct VerifyShape {
+  static constexpr int BK = 32;
+  static constexpr int STR = DP + 8;
+  static constexpr int STR8 = DP + 16;
+  static constexpr int SLOT = 2 * BK * STR * 2;
+  static constexpr int SLOT8 = 2 * BK * STR8 + 2 * BK * 4;
+  static constexpr int SMEM_F = kTcStages * SLOT;
+  static constexpr int SMEM_Q =
+      kTcStages * SLOT8 + SLOT > SMEM_F ? kTcStages * SLOT8 + SLOT : SMEM_F;
+  static_assert(SLOT % 16 == 0 && SLOT8 % 16 == 0, "slots keep 16-byte alignment");
+};
+
+__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// int8 k and v tiles (2 * BK rows, STR8 bytes apart) -> bf16 (STR elements
+// apart), 8 values a step: exact.
+template <int DP>
+__device__ __forceinline__ void convert_tiles(const int8_t* raw, bf16* dst) {
+  using Sh = VerifyShape<DP>;
+  constexpr int CPR = DP / 8;  // 8-byte chunks a row
+  for (int i = threadIdx.x; i < 2 * Sh::BK * CPR; i += blockDim.x) {
+    const int r = i / CPR, c = i % CPR;
+    const uint2 w = *reinterpret_cast<const uint2*>(raw + r * Sh::STR8 + c * 8);
+    float lo[4], hi[4];
+    frag::i8x4_to_f32(w.x, lo);
+    frag::i8x4_to_f32(w.y, hi);
+    *reinterpret_cast<uint4*>(dst + r * Sh::STR + c * 8) =
+        make_uint4(frag::pack_bf16x2(lo[0], lo[1]), frag::pack_bf16x2(lo[2], lo[3]),
+                   frag::pack_bf16x2(hi[0], hi[1]), frag::pack_bf16x2(hi[2], hi[3]));
+  }
+}
+
+// One block per (key split, kv head and chunk of <= 64 query rows, batch
+// row); see the note at the top of the file. QUANT: an int8 cache. Splits
+// 0 ..< sp walk the prefix tiles, sp ..< sp + sc the own-cache tiles, each
+// a run of whole tiles. With sp + sc == 1 the block writes o; otherwise its
+// partials go to ws: acc [sp + sc][B*Q*H][DP], then (m, l) [sp + sc][B*Q*H].
+template <int DP, bool QUANT>
+__global__ void __launch_bounds__(kTcWarps * 32, DP >= 256 ? 1 : 3)
+decode_verify_tc(const bf16* __restrict__ q, const void* __restrict__ kp,
+                 const void* __restrict__ vp, const uint8_t* __restrict__ valid,
+                 const bf16* __restrict__ sk, const bf16* __restrict__ sv,
+                 const float* __restrict__ ksc, const float* __restrict__ vsc,
+                 const int* __restrict__ qoff, bf16* __restrict__ o, float* __restrict__ ws,
+                 int Q, int H, int Hkv, int L, int P, int sp, int sc, float scale) {
+  using Sh = VerifyShape<DP>;
+  constexpr int BK = Sh::BK, STR = Sh::STR, STR8 = Sh::STR8;
+  constexpr int NS = BK / 8;   // n8 score tiles a warp holds
+  constexpr int ND = DP / 8;   // n8 output tiles a warp holds
+  constexpr int KD = DP / 16;  // k16 steps over D
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int rep = H / Hkv, rows = rep * Q;
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y % Hkv;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q2 = (lane % 4) * 2;
+  const int row0 = (blockIdx.y / Hkv) * kTcRows + warp * 16;  // this warp's first row
+  const bool live = row0 < rows;  // a warp wholly past the last row only helps load
+  const int off = qoff[b];
+
+  // The block's run of tiles [t0, t1): of the prefix, or of the own cache
+  // cut at the tile of the last slot any query of the row may see.
+  const bool pre = split < sp;
+  int t0, t1;
+  if (pre) {
+    const int ntp = (P + BK - 1) / BK, per = (ntp + sp - 1) / sp;
+    t0 = split * per;
+    t1 = min(t0 + per, ntp);
+  } else {
+    const int ntc = (L + BK - 1) / BK, per = (ntc + sc - 1) / sc;
+    const int last = off + Q - 1;
+    t0 = (split - sp) * per;
+    t1 = min(min(t0 + per, ntc), last < 0 ? 0 : last / BK + 1);
+  }
+  const int ntiles = max(t1 - t0, 0);
+
+  const long long rs = (long long)Hkv * DP;  // elements from one key row to the next
+  const long long cbase = (long long)b * L * rs + (long long)hk * DP;
+  auto stage = [&](int t) {  // run tile t into ring slot t % kTcStages
+    const int n0 = (t0 + t) * BK;
+    if (QUANT && !pre) {
+      const int8_t* kc = static_cast<const int8_t*>(kp) + cbase;
+      const int8_t* vc = static_cast<const int8_t*>(vp) + cbase;
+      int8_t* dst = reinterpret_cast<int8_t*>(smem + (t % kTcStages) * Sh::SLOT8);
+      stage_rows<int8_t>(dst, BK, DP, kc, [&](int j) -> const int8_t* {
+        return n0 + j < L ? kc + (n0 + j) * rs : nullptr;
+      });
+      stage_rows<int8_t>(dst + BK * STR8, BK, DP, vc, [&](int j) -> const int8_t* {
+        return n0 + j < L ? vc + (n0 + j) * rs : nullptr;
+      });
+      float* scales = reinterpret_cast<float*>(dst + 2 * BK * STR8);  // k: BK, then v: BK
+      for (int i = threadIdx.x; i < 2 * BK; i += blockDim.x) {
+        const int j = i % BK;
+        const bool in = n0 + j < L;
+        const float* src = (i < BK ? ksc : vsc) + (in ? ((long long)b * L + n0 + j) * Hkv + hk : 0);
+        cp_async4(scales + i, src, in);
+      }
+    } else {
+      const bf16* kr = pre ? sk + hk * DP : static_cast<const bf16*>(kp) + cbase;
+      const bf16* vr = pre ? sv + hk * DP : static_cast<const bf16*>(vp) + cbase;
+      const int nkeys = pre ? P : L;
+      bf16* dst = reinterpret_cast<bf16*>(smem + (t % kTcStages) * Sh::SLOT);
+      stage_rows<bf16>(dst, BK, DP, kr, [&](int j) -> const bf16* {
+        return n0 + j < nkeys ? kr + (n0 + j) * rs : nullptr;
+      });
+      stage_rows<bf16>(dst + BK * STR, BK, DP, vr, [&](int j) -> const bf16* {
+        return n0 + j < nkeys ? vr + (n0 + j) * rs : nullptr;
+      });
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < kTcStages - 1; ++t) {
+    if (t < ntiles) stage(t);
+    cp_async_commit();
+  }
+
+  // q fragments, once, straight into registers (padding rows are zero).
+  uint32_t qf[KD][4];
+  {
+    auto qrow = [&](int r) -> const bf16* {
+      if (r >= rows) return nullptr;
+      const int i = r / rep;
+      return q + (((long long)b * Q + i) * H + (long long)hk * rep + (r - i * rep)) * DP;
+    };
+    const bf16* qa = qrow(row0 + g);
+    const bf16* qb = qrow(row0 + g + 8);
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      qf[ks][0] = qa ? ldg32(qa + ks * 16 + q2) : 0u;
+      qf[ks][1] = qb ? ldg32(qb + ks * 16 + q2) : 0u;
+      qf[ks][2] = qa ? ldg32(qa + ks * 16 + 8 + q2) : 0u;
+      qf[ks][3] = qb ? ldg32(qb + ks * 16 + 8 + q2) : 0u;
+    }
+  }
+  // The last own-cache slot each of this lane's rows (g, g + 8) may see.
+  const int lim[2] = {off + (row0 + g) / rep, off + (row0 + g + 8) / rep};
+
+  const float sl = scale * kLog2e;
+  float acc[ND][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // Own-cache tiles: each lane reads the valid bytes of slots n0 + 32h +
+  // lane one tile ahead; a ballot at the tile makes them the tile's mask.
+  constexpr int NV = BK / 32;
+  const uint8_t* vrow = valid + (long long)b * L;
+  int vnext[NV];
+  auto read_valid = [&](int t) {
+#pragma unroll
+    for (int h = 0; h < NV; ++h) vnext[h] = vrow[min((t0 + t) * BK + h * 32 + lane, L - 1)];
+  };
+  if (!pre && ntiles > 0) read_valid(0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t + kTcStages - 1 < ntiles) stage(t + kTcStages - 1);
+    cp_async_commit();
+    const int n0 = (t0 + t) * BK;
+    const bf16* kt;
+    const float* kss = nullptr;  // int8 cache: the tile's k scales, then its v scales
+    if (QUANT && !pre) {
+      const int8_t* raw = reinterpret_cast<const int8_t*>(smem + (t % kTcStages) * Sh::SLOT8);
+      bf16* conv = reinterpret_cast<bf16*>(smem + kTcStages * Sh::SLOT8);
+      convert_tiles<DP>(raw, conv);
+      kss = reinterpret_cast<const float*>(raw + 2 * BK * STR8);
+      kt = conv;
+      __syncthreads();  // the converted tile is whole
+    } else {
+      kt = reinterpret_cast<const bf16*>(smem + (t % kTcStages) * Sh::SLOT);
+    }
+    if (!live) continue;
+    const bf16* vt = kt + BK * STR;
+
+    uint32_t vmask[NV] = {};  // cache: bit i of word h, slot n0 + 32h + i is valid
+    if (!pre) {
+#pragma unroll
+      for (int h = 0; h < NV; ++h)
+        vmask[h] = __ballot_sync(0xffffffffu, n0 + h * 32 + lane < L && vnext[h] != 0);
+      if (t + 1 < ntiles) read_valid(t + 1);
+    }
+
+    // S = Q K^T: 16 rows x BK keys a warp.
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+#pragma unroll
+      for (int jj = 0; jj < NS / 2; ++jj) {
+        uint32_t r[4];
+        frag::ldsm_x4(r, kt + (jj * 16 + lane % 8 + (lane / 16) * 8) * STR + ks * 16 +
+                             ((lane / 8) % 2) * 8);
+        frag::mma_bf16(s[2 * jj], qf[ks], r[0], r[1]);
+        frag::mma_bf16(s[2 * jj + 1], qf[ks], r[2], r[3]);
+      }
+    }
+
+    // Scores in log2 units, the k-scale folded in, then the mask where the
+    // tile needs one: a prefix key must exist; a cache slot must be valid
+    // and at most the row's limit.
+    const bool edge = !pre || n0 + BK > P;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + q2 + (e & 1);
+        float x = s[j][e] * sl;
+        if (QUANT && !pre) x *= kss[c];
+        if (edge) {
+          const bool ok = pre ? n0 + c < P
+                              : ((vmask[j / 4] >> (c & 31)) & 1u) && n0 + c <= lim[e >> 1];
+          x = ok ? x : kNegInf;
+        }
+        s[j][e] = x;
+      }
+
+    // Online softmax on the C fragments: row g holds e = 0, 1, row g + 8
+    // e = 2, 3; a row's four lanes are a quad.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = m[hr];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // A row with no key yet keeps kNegInf; subtracting 0 then sends its
+      // masked scores to exp2f(-1e30) = 0.
+      const float mu = mx == kNegInf ? 0.f : mx;
+      const float alpha = exp2f(m[hr] - mu);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j][2 * hr] = exp2f(s[j][2 * hr] - mu);
+        s[j][2 * hr + 1] = exp2f(s[j][2 * hr + 1] - mu);
+        sum += s[j][2 * hr] + s[j][2 * hr + 1];
+      }
+      l[hr] = l[hr] * alpha + sum;  // unscaled p; the quad sums at the end
+      m[hr] = mx;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        acc[j][2 * hr] *= alpha;
+        acc[j][2 * hr + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P (times the v-scale over an int8 cache) straight from the
+    // score fragments.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      float w[4] = {1.f, 1.f, 1.f, 1.f};  // keys 16kk + q2 + {0, 1}, then + 8
+      if (QUANT && !pre) {
+        const float2 lo = *reinterpret_cast<const float2*>(kss + BK + kk * 16 + q2);
+        const float2 hi = *reinterpret_cast<const float2*>(kss + BK + kk * 16 + 8 + q2);
+        w[0] = lo.x, w[1] = lo.y, w[2] = hi.x, w[3] = hi.y;
+      }
+      const uint32_t pa[4] = {
+          frag::pack_bf16x2(s[2 * kk][0] * w[0], s[2 * kk][1] * w[1]),
+          frag::pack_bf16x2(s[2 * kk][2] * w[0], s[2 * kk][3] * w[1]),
+          frag::pack_bf16x2(s[2 * kk + 1][0] * w[2], s[2 * kk + 1][1] * w[3]),
+          frag::pack_bf16x2(s[2 * kk + 1][2] * w[2], s[2 * kk + 1][3] * w[3])};
+#pragma unroll
+      for (int dd = 0; dd < DP / 16; ++dd) {
+        uint32_t r[4];
+        frag::ldsm_x4_trans(r, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * STR +
+                                   dd * 16 + (lane / 16) * 8);
+        frag::mma_bf16(acc[2 * dd], pa, r[0], r[1]);
+        frag::mma_bf16(acc[2 * dd + 1], pa, r[2], r[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+
+  const int nsplit = sp + sc;
+  const long long nout = (long long)gridDim.z * Q * H;  // output rows
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float lt = l[hr];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = row0 + g + hr * 8;
+    if (r >= rows) continue;  // padding rows are computed, never written
+    const int i = r / rep;
+    const long long orow = ((long long)b * Q + i) * H + (long long)hk * rep + (r - i * rep);
+    if (nsplit == 1) {
+      const float inv = 1.f / fmaxf(lt, 1e-30f);
+      bf16* out = o + orow * DP + q2;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
+            __floats2bfloat162_rn(acc[j][2 * hr] * inv, acc[j][2 * hr + 1] * inv);
+    } else {
+      const long long pr = split * nout + orow;
+      float* pacc = ws + pr * DP + q2;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<float2*>(pacc + j * 8) = make_float2(acc[j][2 * hr], acc[j][2 * hr + 1]);
+      if (lane % 4 == 0)
+        reinterpret_cast<float2*>(ws + nsplit * nout * DP)[pr] = make_float2(m[hr], lt);
+    }
+  }
+}
+
+// Folds the partials of nsplit key splits into nrows output rows of width D
+// (a multiple of 4): acc [nsplit][nrows][D] f32 at ws, then (m, l)
+// [nsplit][nrows] with m in log2 units. In split order, out = sum_s w_s
+// acc_s / max(sum_s w_s l_s, 1e-30) with w_s = 2^(m_s - max m); a split in
+// which the row saw no key (l_s = 0) is skipped. One thread per 4 columns.
+// Any kernel that writes this layout can use it (a one-query decode split
+// over L writes it with Q = 1).
+template <typename T>
+__global__ void __launch_bounds__(256)
+combine_splits(const float* __restrict__ ws, T* __restrict__ o, int nsplit, long long nrows,
+               int D) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int cpr = D / 4;
+  if (i >= nrows * cpr) return;
+  const long long r = i / cpr;
+  const int c = static_cast<int>(i - r * cpr) * 4;
+  const float2* ml = reinterpret_cast<const float2*>(ws + nsplit * nrows * D);
+  float mx = kNegInf;
+  for (int s = 0; s < nsplit; ++s) {
+    const float2 p = ml[s * nrows + r];
+    if (p.y > 0.f) mx = fmaxf(mx, p.x);
+  }
+  float lsum = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < nsplit; ++s) {
+    const float2 p = ml[s * nrows + r];
+    if (p.y <= 0.f) continue;
+    const float w = exp2f(p.x - mx);
+    const float4 v = *reinterpret_cast<const float4*>(ws + (s * nrows + r) * D + c);
+    lsum += w * p.y;
+    a[0] += w * v.x;
+    a[1] += w * v.y;
+    a[2] += w * v.z;
+    a[3] += w * v.w;
+  }
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  T* out = o + r * D + c;
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(out) = make_float4(a[0] * inv, a[1] * inv, a[2] * inv, a[3] * inv);
+  } else {
+    *reinterpret_cast<uint2*>(out) = make_uint2(frag::pack_bf16x2(a[0] * inv, a[1] * inv),
+                                                frag::pack_bf16x2(a[2] * inv, a[3] * inv));
+  }
+}
+
+template <typename T>
+cudaError_t launch_combine(const float* ws, T* o, int nsplit, long long nrows, int D,
+                           cudaStream_t stream) {
+  const long long threads = nrows * (D / 4);
+  combine_splits<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(ws, o, nsplit, nrows, D);
+  return cudaGetLastError();
+}
+
 struct Args {
   const void *q, *k, *v;
   const uint8_t* valid;
@@ -315,11 +731,58 @@ struct Args {
   const float *ks, *vs;
   const int* qoff;
   void* o;
-  int B, Q, H, Hkv, L, D, P;
+  float* ws;
+  int B, Q, H, Hkv, L, D, P, sp, sc;
   float scale;
   cudaStream_t stream;
 };
 
+template <int DP, bool QUANT>
+cudaError_t launch_verify(const Args& a) {
+  using Sh = VerifyShape<DP>;
+  const int ntp = (a.P + Sh::BK - 1) / Sh::BK, ntc = (a.L + Sh::BK - 1) / Sh::BK;
+  const int nsplit = a.sp + a.sc;
+  if (a.sp < (ntp > 0) || a.sp > ntp || a.sc < (ntc > 0) || a.sc > ntc ||
+      (nsplit > 1 && a.ws == nullptr))
+    return cudaErrorInvalidValue;
+  const int rows = (a.H / a.Hkv) * a.Q;
+  const int nrc = (rows + kTcRows - 1) / kTcRows;
+  if ((long long)a.Hkv * nrc > 65535 || a.B > 65535) return cudaErrorInvalidValue;
+  constexpr int smem = QUANT ? Sh::SMEM_Q : Sh::SMEM_F;
+  auto kernel = decode_verify_tc<DP, QUANT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(nsplit, a.Hkv * nrc, a.B);
+  const int warps = rows < kTcRows ? (rows + 15) / 16 : kTcWarps;
+  kernel<<<grid, warps * 32, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), a.k, a.v, a.valid, static_cast<const bf16*>(a.sk),
+      static_cast<const bf16*>(a.sv), a.ks, a.vs, a.qoff, static_cast<bf16*>(a.o), a.ws, a.Q,
+      a.H, a.Hkv, a.L, a.P, a.sp, a.sc, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  return launch_combine<bf16>(a.ws, static_cast<bf16*>(a.o), nsplit,
+                              (long long)a.B * a.Q * a.H, DP, a.stream);
+}
+
+// bf16 verify window: D must be an instantiated width and every row
+// 16-byte aligned; anything else is refused (the wrapper pads), never sent
+// elsewhere.
+cudaError_t dispatch_verify_tc(const Args& a, bool kv_int8) {
+  if (!(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.o) &&
+        (a.P == 0 || (aligned16(a.sk) && aligned16(a.sv))) &&
+        (a.ws == nullptr || aligned16(a.ws))))
+    return cudaErrorInvalidValue;
+#define VERIFY_TC(DP) return kv_int8 ? launch_verify<DP, true>(a) : launch_verify<DP, false>(a)
+  if (a.D == 64) VERIFY_TC(64);
+  if (a.D == 128) VERIFY_TC(128);
+  if (a.D == 256) VERIFY_TC(256);
+#undef VERIFY_TC
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// scalar dispatch
+// ---------------------------------------------------------------------------
 template <typename T, typename KT, bool MULTI, int RPW, int NCH>
 cudaError_t launch(const Args& a) {
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
@@ -376,7 +839,11 @@ cudaError_t dispatch(const Args& a) {
                    aligned16(a.k) && aligned16(a.v) &&
                    (a.P == 0 || (aligned16(a.sk) && aligned16(a.sv)));
   if (!vec) return cudaErrorInvalidValue;
-  if (a.qoff != nullptr) return dispatch_rows<T, KT, true>(a);
+  if (a.qoff != nullptr) {
+    // Only a float32 verify window comes here; bf16 takes decode_verify_tc.
+    if constexpr (std::is_same<T, float>::value) return dispatch_rows<T, KT, true>(a);
+    return cudaErrorInvalidValue;
+  }
   if (a.H / a.Hkv > kMaxRows) return cudaErrorInvalidValue;
   return dispatch_rows<T, KT, false>(a);
 }
@@ -393,14 +860,23 @@ cudaError_t dispatch_cache(const Args& a, bool kv_int8) {
 // q [B,Q,H,D] (Q = 1: one query per row; q_offsets is then ignored and may
 // be null), k/v [B,L,Hkv,D], valid [B,L] (one byte per slot), sk/sv
 // [P,Hkv,D] (ignored when P == 0), q_offsets [B] int32 (required for Q > 1),
-// o like q; all contiguous, 16-byte aligned, D a multiple of 16 bytes of
-// each row type (cudaErrorInvalidValue otherwise). Returns the CUDA error
-// code of the launch.
+// o like q; all contiguous and 16-byte aligned. decode_fwd (float32, and
+// bf16 with Q = 1) takes D a multiple of 16 bytes of each row type;
+// decode_verify_tc (bf16 with Q > 1) takes D of 64, 128 or 256 and walks the
+// keys in splits_prefix + splits_cache splits (1 <= splits_prefix <=
+// ceil(P / BK) where P > 0, else 0; the same for splits_cache and L; BK =
+// 32 keys), with ws, 16-byte aligned, holding (splits_prefix
+// + splits_cache) * B * Q * H * (D + 2) floats where there is more than one
+// split. Anything else returns cudaErrorInvalidValue; otherwise the CUDA
+// error code of the launch. *kernel is set to the route launched: 0 =
+// decode_fwd, 1 = decode_verify_tc (and combine_splits), -1 = none.
 extern "C" int decode_attention_fwd(int dtype, int kv_int8, const void* q, const void* k,
                                     const void* v, const void* valid, const void* sk,
                                     const void* sv, const void* ks, const void* vs,
-                                    const void* q_offsets, void* o, int B, int Q, int H,
-                                    int Hkv, int L, int D, int P, float scale, void* stream) {
+                                    const void* q_offsets, void* o, void* ws, int B, int Q,
+                                    int H, int Hkv, int L, int D, int P, int splits_prefix,
+                                    int splits_cache, float scale, void* stream, int* kernel) {
+  *kernel = -1;
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || L < 0 || P < 0 || P + L <= 0 || Q < 1 || Q > 64)
     return (int)cudaErrorInvalidValue;
   if ((Q > 1 && q_offsets == nullptr) || (kv_int8 && (ks == nullptr || vs == nullptr)))
@@ -409,13 +885,21 @@ extern "C" int decode_attention_fwd(int dtype, int kv_int8, const void* q, const
          P ? sk : nullptr, P ? sv : nullptr,
          static_cast<const float*>(ks), static_cast<const float*>(vs),
          Q > 1 ? static_cast<const int*>(q_offsets) : nullptr,
-         o,    B,    Q,    H,    Hkv, L, D, P, scale, static_cast<cudaStream_t>(stream)};
+         o,    static_cast<float*>(ws),
+         B,    Q,    H,    Hkv, L, D, P, splits_prefix, splits_cache, scale,
+         static_cast<cudaStream_t>(stream)};
   cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_cache<float>(a, kv_int8 != 0);
-  else if (dtype == 1)
-    err = dispatch_cache<__nv_bfloat16>(a, kv_int8 != 0);
-  else
-    err = cudaErrorInvalidValue;
+  int launched;
+  if (dtype == 1 && Q > 1) {
+    err = dispatch_verify_tc(a, kv_int8 != 0);
+    launched = 1;  // decode_verify_tc
+  } else if (dtype == 0 || dtype == 1) {
+    err = dtype == 0 ? dispatch_cache<float>(a, kv_int8 != 0)
+                     : dispatch_cache<__nv_bfloat16>(a, kv_int8 != 0);
+    launched = 0;  // decode_fwd
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err == cudaSuccess) *kernel = launched;
   return (int)err;
 }

@@ -1,7 +1,8 @@
 // mma.sync / ldmatrix fragment helpers shared by the port's tensor-core
-// kernels (flash_attention.cu, quant_matmul.cu): bf16 m16n8k16 products
-// with f32 accumulation, and the ldmatrix loads that fill their operands
-// from shared memory.
+// kernels (flash_attention.cu, decode_attention.cu, quant_matmul.cu): bf16
+// m16n8k16 products with f32 accumulation, the ldmatrix loads that fill
+// their operands from shared memory, and the exact int8 -> float conversion
+// of the int8 tiles (weights, KV cache) they convert before the products.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, q = lane % 4):
 //   A 16x16: a0 (row g, cols 2q, 2q+1), a1 (row g+8, same cols),
@@ -53,6 +54,16 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   uint32_t u;
   memcpy(&u, &h, 4);
   return u;
+}
+
+// Four signed bytes -> four exact floats: the byte b + 128 goes into the
+// mantissa of 2^23, and 2^23 + 128 is subtracted again.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t packed, float (&f)[4]) {
+  const uint32_t u = packed ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
 }
 
 }  // namespace frag

@@ -79,15 +79,7 @@ using attn::from_f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// Four signed bytes -> four exact floats: the byte b + 128 goes into the
-// mantissa of 2^23, and 2^23 + 128 is subtracted again.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t packed, float (&f)[4]) {
-  const uint32_t u = packed ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
-}
+using frag::i8x4_to_f32;  // exact int8 -> float (mma_fragments.cuh)
 
 // ---------------------------------------------------------------------------
 // float32 x: CUDA-core FMAs (both regimes)

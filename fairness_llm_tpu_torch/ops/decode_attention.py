@@ -12,17 +12,26 @@ f32 the cache is int8: the k-scale multiplies the scores, the v-scale the
 probabilities after the normaliser's sum, as the reference folds them. The
 shared prefix stays float.
 
-``decode_attention`` launches the hand-written CUDA kernel
+``decode_attention`` launches the hand-written CUDA kernels
 (``csrc/decode_attention.cu``) for CUDA tensors and takes the plain version,
 ``decode_attention_reference``, only for CPU tensors; any other mix raises.
-Each of the four modes counts its launches. Where k/v rows are not 16-byte
-aligned (a D of odd byte size, an odd offset), the inputs are copied with D
-zero-padded before the launch.
+A bfloat16 verify window (4-D q) goes to the tensor-core kernel
+(``decode_verify_tc``, mma.sync; P is rounded to bf16 before P.V), which
+splits each row's keys across blocks (``verify_splits``) and folds the
+splits' partials in a second launch of the same call; the workspace for
+them is allocated here. Its head widths are ``TC_WIDTHS``: q/k/v with
+another D are copied with D zero-padded to the next. float32, and one query
+per row, go to the scalar kernel (``decode_fwd``); where k/v rows are not
+16-byte aligned (a D of odd byte size, an odd offset), the inputs are copied
+with D zero-padded before the launch. Each of the four modes counts its
+launches, and ``multi_tc_launches`` counts the verify windows the C entry
+reports it ran on the tensor-core kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -33,17 +42,29 @@ NEG_INF = -1e30
 
 #: Kernel launches of each mode since the counts were last set to 0: one
 #: query per row over a float cache (K2), over an int8 cache (K2q), and the
-#: verify window over a float cache (K3) and over an int8 cache.
+#: verify window over a float cache (K3) and over an int8 cache; then the
+#: verify windows (either cache) that ran on decode_verify_tc, the
+#: tensor-core kernel, as the C entry reports.
 launches = 0
 quant_launches = 0
 multi_launches = 0
 multi_quant_launches = 0
+multi_tc_launches = 0
+_TC_KERNEL = 1  # decode_attention_fwd's *kernel for decode_verify_tc
+
+#: Head widths the bf16 verify-window kernel is instantiated for.
+TC_WIDTHS = (64, 128, 256)
+#: Keys per tile of decode_verify_tc (its BK).
+TILE_KEYS = 32
+#: Resident blocks per SM the split plan fills: four of 3 warps (36 query
+#: rows per kv head) at D = 128, as registers allow.
+SPLIT_BLOCKS_PER_SM = 4
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# dtype, kv_int8; q, k, v, valid, sk, sv, ks, vs, q_offsets, o; B, Q, H, Hkv, L, D, P;
-# scale; stream
-_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_void_p])
+# dtype, kv_int8; q, k, v, valid, sk, sv, ks, vs, q_offsets, o, ws;
+# B, Q, H, Hkv, L, D, P, splits_prefix, splits_cache; scale, stream; out: the route
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+             + [ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 SharedKV = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -131,6 +152,27 @@ def _check(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) -> None:
         raise ValueError(f"q, float k/v and shared k/v must share a dtype of {list(_DTYPES)}")
 
 
+def verify_splits(B: int, Hkv: int, rows: int, P: int, L: int, sms: int) -> Tuple[int, int]:
+    """How many key splits decode_verify_tc walks the prefix and the own
+    cache in: (splits_prefix, splits_cache). Every split is a run of whole
+    tiles of one kind. The plan takes the shortest run (the most splits)
+    whose grid, B * Hkv * ceil(rows / 64) blocks a split, still fits one
+    wave of ``SPLIT_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs, and one
+    split of each kind where nothing fits."""
+    ntp, ntc = -(-P // TILE_KEYS), -(-L // TILE_KEYS)
+    per_split = B * Hkv * -(-rows // 64)
+    for run in range(1, max(ntp, ntc) + 1):
+        sp, sc = -(-ntp // run), -(-ntc // run)
+        if (sp + sc) * per_split <= SPLIT_BLOCKS_PER_SM * sms:
+            break
+    return sp, sc
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor, shared_kv: SharedKV = None,
                      k_scale: Optional[torch.Tensor] = None,
@@ -165,13 +207,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: no keys")
     if valid.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"valid must be bool or uint8, got {valid.dtype}")
-    Dk = D
-    if not all(_build.rows_aligned16(t) for t in [k, v] + list(shared_kv or ())):
-        # Zero columns add nothing to q.k and give output columns cut off
-        # below. The pad is counted in bytes of the narrowest row: 16
-        # elements for an int8 cache, 16 bytes of q's type otherwise.
+    tc = multi and q.dtype == torch.bfloat16
+    if tc:
+        Dk = next(w for w in TC_WIDTHS if w >= D)
+        aligned = all(_build.rows_aligned16(t) for t in [q, k, v] + list(shared_kv or ()))
+    else:
+        # The pad is counted in bytes of the narrowest row: 16 elements for
+        # an int8 cache, 16 bytes of q's type otherwise.
         ve = 16 // min(k.element_size(), q.element_size())
         Dk = -(-D // ve) * ve
+        aligned = all(_build.rows_aligned16(t) for t in [k, v] + list(shared_kv or ()))
+    if Dk != D or not aligned:
+        # Zero columns add nothing to q.k and give output columns cut off below.
         q, k, v = (_build.pad_last_dim(t, Dk) for t in (q, k, v))
         if shared_kv is not None:
             shared_kv = tuple(_build.pad_last_dim(t, Dk) for t in shared_kv)
@@ -179,16 +226,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offsets = q_offsets.to(torch.int32).contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     out = torch.empty_like(q)
+    sp = sc = 0
+    ws = None
+    if tc:
+        index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+        sp, sc = verify_splits(B, Hkv, (H // Hkv) * Q, P, L, _sm_count(index))
+        if sp + sc > 1:
+            ws = torch.empty((sp + sc) * B * Q * H * (Dk + 2), dtype=torch.float32,
+                             device=q.device)
     fn = _build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
+    kernel = ctypes.c_int(-1)
     status = fn(
         _DTYPES[q.dtype], int(quant), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         valid.data_ptr(), ptr(shared_kv[0]) if P else None, ptr(shared_kv[1]) if P else None,
-        ptr(k_scale), ptr(v_scale), ptr(q_offsets), out.data_ptr(),
-        B, Q, H, Hkv, L, Dk, P, D ** -0.5,
-        _build.current_stream(q.device),
+        ptr(k_scale), ptr(v_scale), ptr(q_offsets), out.data_ptr(), ptr(ws),
+        B, Q, H, Hkv, L, Dk, P, sp, sc, D ** -0.5,
+        _build.current_stream(q.device), ctypes.byref(kernel),
     )
     _build.check(status, "decode_attention")
-    global launches, quant_launches, multi_launches, multi_quant_launches
+    global launches, quant_launches, multi_launches, multi_quant_launches, multi_tc_launches
     if multi and quant:
         multi_quant_launches += 1
     elif multi:
@@ -197,4 +253,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         quant_launches += 1
     else:
         launches += 1
+    multi_tc_launches += kernel.value == _TC_KERNEL
     return out if Dk == D else out[..., :D]

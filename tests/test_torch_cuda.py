@@ -26,7 +26,11 @@ to ~12).
 The decode kernel's int8-cache mode (K2q) and verify window (K3, over a
 float or an int8 cache) take the attention tolerances above; their blind
 checks mask the newest slot (K2q) or lower every q_offset by one (K3, so
-each query loses its own slot).
+each query loses its own slot). A bf16 verify window runs on the
+tensor-core kernel (decode_verify_tc), which, as the bf16 flash kernel,
+rounds P (times the v-scale over an int8 cache) to bf16 before P.V, and
+splits the keys across blocks; its partials are combined in a fixed order,
+so repeated calls agree bit for bit.
 """
 
 import pytest
@@ -241,10 +245,11 @@ def test_multi_query_kernel_matches_plain(dev, dtype, int8, B, Q, H, Hkv, L, D, 
     k, v, scales, shared = _cache(g, dev, dtype, B, L, Hkv, D, P, int8=int8)
     offs, valid = _window(g, dev, B, L, Q)
     counter = "multi_quant_launches" if int8 else "multi_launches"
-    before = getattr(dec_mod, counter)
+    before, tc = getattr(dec_mod, counter), dec_mod.multi_tc_launches
     got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
     torch.cuda.synchronize()
     assert getattr(dec_mod, counter) == before + 1
+    assert dec_mod.multi_tc_launches == tc + (dtype == torch.bfloat16)
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -263,6 +268,93 @@ def test_multi_query_tolerance_sees_each_query_lose_its_slot(dev, dtype, int8):
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
     got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs - 1, **scales)
     _outside_tolerance(got, want, dtype)
+
+
+def _verify_inputs(dev, seed, B, Q, rep, Hkv, L, D, P, int8):
+    """bf16 verify-window inputs with the offset edges: row 0's window at
+    slot 0, row 1's at L - Q, row 2 with no valid own slot (with P = 0 its
+    output is 0), the rest drawn as _window draws them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Q, rep * Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
+    k, v, scales, shared = _cache(g, dev, torch.bfloat16, B, L, Hkv, D, P, int8=int8)
+    offs, valid = _window(g, dev, B, L, Q)
+    offs[0], offs[1] = 0, L - Q
+    valid[0] = torch.arange(L, device=dev) < Q
+    valid[1] = True
+    valid[2] = False
+    return q, k, v, valid, shared, offs, scales
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
+@pytest.mark.parametrize("P", [0, 96, 704])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("rep,Q", [(1, 9), (8, 2), (4, 9), (7, 9), (4, 16)],
+                         ids=["rows9", "rows16", "rows36", "rows63", "rows64"])
+def test_verify_tc_kernel_matches_plain(dev, rep, Q, D, P, int8):
+    """decode_verify_tc over a bf16 and an int8 cache, at rep * Q of 9 to 64
+    query rows per kv head (one to four m-tiles), head widths 64-256 (80 is
+    padded to 128), no prefix, a prefix ending mid-tile and the sweep's,
+    and L = 150, not a multiple of the 32-key tile."""
+    B, Hkv, L = 4, 2, 150
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 10, B, Q, rep, Hkv, L, D, P, int8)
+    before, tc = dec_mod.launches + dec_mod.quant_launches, dec_mod.multi_tc_launches
+    got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.cuda.synchronize()
+    assert dec_mod.multi_tc_launches == tc + 1
+    assert dec_mod.launches + dec_mod.quant_launches == before
+    assert got.shape == q.shape
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    if P == 0:
+        assert not got[2].any()  # no key at all: exactly 0
+
+
+def _plans(P, L):
+    """Key-split plans from one split of each kind to one tile a split."""
+    ntp, ntc = -(-P // dec_mod.TILE_KEYS), -(-L // dec_mod.TILE_KEYS)
+    return sorted({(-(-ntp // run), -(-ntc // run)) for run in range(1, max(ntp, ntc) + 1)})
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
+@pytest.mark.parametrize("P,L,D", [(100, 150, 128), (0, 300, 128), (704, 168, 128),
+                                   (40, 100, 256)])
+def test_verify_tc_every_split_plan_matches_plain(dev, monkeypatch, P, L, D, int8):
+    """Every split plan, the one-split case (no combine) included: a prefix
+    that ends mid-tile followed by the cache, which splits of their own
+    walk, and splits left with no tile or no visible key for some rows."""
+    B, Q, rep, Hkv = 4, 9, 4, 2
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 11, B, Q, rep, Hkv, L, D, P, int8)
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
+    for plan in _plans(P, L):
+        monkeypatch.setattr(dec_mod, "verify_splits", lambda *a, _p=plan: _p)
+        got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16],
+                                   msg=lambda m, _p=plan: f"plan {_p}: {m}")
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
+def test_verify_tc_refuses_a_bad_plan(dev, monkeypatch, int8):
+    """No fallback: a plan the kernel cannot take raises; nothing else runs."""
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 12, 4, 9, 4, 2, 150, 128, 96,
+                                                          int8)
+    monkeypatch.setattr(dec_mod, "verify_splits", lambda *a: (4, 1))  # 96 keys: 3 tiles
+    before = (dec_mod.multi_launches, dec_mod.multi_quant_launches, dec_mod.multi_tc_launches)
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    assert (dec_mod.multi_launches, dec_mod.multi_quant_launches,
+            dec_mod.multi_tc_launches) == before
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
+def test_verify_tc_repeats_bit_for_bit(dev, int8):
+    """50 calls at llama3-8b's verify shape (split keys, combined in a fixed
+    order) agree bit for bit."""
+    B, Q, rep, Hkv, L, D, P = 16, 9, 4, 8, 168, 128, 704
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 13, B, Q, rep, Hkv, L, D, P, int8)
+    first = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    for i in range(50):
+        got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+        assert torch.equal(got, first), f"call {i} differs from the first"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

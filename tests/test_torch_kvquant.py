@@ -140,6 +140,31 @@ def test_int8_multi_query_reference_matches_pallas(hkv, shared_p):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("at", ["offset0", "offset_end"])
+@pytest.mark.parametrize("rep,Q", [(1, 9), (8, 2), (4, 9), (7, 9), (4, 16)],
+                         ids=["rows9", "rows16", "rows36", "rows63", "rows64"])
+def test_int8_multi_query_reference_matches_pallas_at_row_and_offset_edges(rep, Q, at):
+    """The int8-cache verify window at the card kernel's row counts per kv
+    head (9 to 64: one to four 16-row warps), every window at slot 0 or at
+    the cache's end."""
+    rng = np.random.default_rng(14)
+    B, hkv, D, L = 8, 1, 64, 128
+    q = rng.normal(size=(B, Q, rep * hkv, D)).astype(np.float32)
+    qk, qv, ks, vs = _int8_inputs(rng, B, L, hkv, D)
+    offs = np.full(B, 0 if at == "offset0" else L - Q, np.int32)
+    valid = rng.random((B, L)) < 0.8
+    valid[:, offs[0]] = True
+    shared = _shared(rng, 96, hkv, D)
+    want = np.asarray(jax_decode(jnp.asarray(q), jnp.asarray(qk), jnp.asarray(qv),
+                                 jnp.asarray(valid), _jx(shared), k_scale=jnp.asarray(ks),
+                                 v_scale=jnp.asarray(vs), q_offsets=jnp.asarray(offs),
+                                 interpret=True))
+    got = dec_mod.decode_attention_reference(_t(q), _t(qk), _t(qv), _t(valid), _tx(shared),
+                                             k_scale=_t(ks), v_scale=_t(vs),
+                                             q_offsets=_t(offs)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
 def test_cpu_wrapper_takes_the_plain_versions_of_the_new_modes():
     rng = np.random.default_rng(6)
     B, Q, H, hkv, D, L = 3, 4, 4, 2, 16, 24
@@ -150,7 +175,8 @@ def test_cpu_wrapper_takes_the_plain_versions_of_the_new_modes():
     valid = _t(rng.random((B, L)) < 0.7)
     offs = torch.tensor([3, 10, 19], dtype=torch.int32)
     counts = lambda: (dec_mod.launches, dec_mod.quant_launches,  # noqa: E731
-                      dec_mod.multi_launches, dec_mod.multi_quant_launches)
+                      dec_mod.multi_launches, dec_mod.multi_quant_launches,
+                      dec_mod.multi_tc_launches)
     before = counts()
     for args, kw in [((q3, qk, qv, valid), dict(k_scale=ks, v_scale=vs)),
                      ((q4, kf, kf, valid), dict(q_offsets=offs)),

@@ -181,6 +181,59 @@ def test_multi_query_reference_matches_pallas(hkv, shared_p):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+# The card's verify-window kernel takes rep * Q query rows per kv head as its
+# M side, 16 to a warp: 9, 16, 36 (llama3-8b), 63 and 64 rows, one to four
+# warps. The plain version it is held to must match the Pallas kernel there,
+# with every window at slot 0 and every window at the cache's end.
+EDGE_ROWS = [(1, 9), (8, 2), (4, 9), (7, 9), (4, 16)]
+EDGE_IDS = ["rows9", "rows16", "rows36", "rows63", "rows64"]
+
+
+@pytest.mark.parametrize("at", ["offset0", "offset_end"])
+@pytest.mark.parametrize("rep,Q", EDGE_ROWS, ids=EDGE_IDS)
+def test_multi_query_reference_matches_pallas_at_row_and_offset_edges(rep, Q, at):
+    rng = np.random.default_rng(13)
+    B, hkv, D, L, P = 8, 1, 64, 128, 96
+    q = rng.normal(size=(B, Q, rep * hkv, D)).astype(np.float32)
+    k = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
+    offs = np.full(B, 0 if at == "offset0" else L - Q, np.int32)
+    valid = (np.arange(L)[None, :] <= (offs[:, None] + Q - 1)) & (rng.random((B, L)) < 0.9)
+    valid[:, offs[0]] = True
+    shared = (rng.normal(size=(P, hkv, D)).astype(np.float32),
+              rng.normal(size=(P, hkv, D)).astype(np.float32))
+    want = np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+        tuple(jnp.asarray(a) for a in shared), q_offsets=jnp.asarray(offs), interpret=True))
+    got = dec_mod.decode_attention_reference(
+        _t(q), _t(k), _t(v), _t(valid), tuple(map(_t, shared)), q_offsets=_t(offs)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_verify_split_plan():
+    """The card kernel's key-split plan: runs of whole tiles of one kind,
+    within the kernel's bounds, as many splits as one wave of resident
+    blocks holds, and one split of each kind where none fits."""
+    sms = 132
+    wave = dec_mod.SPLIT_BLOCKS_PER_SM * sms
+    for B, Hkv, rows, P, L in [(16, 8, 36, 704, 168), (16, 8, 36, 0, 960), (1, 8, 36, 704, 0),
+                               (64, 8, 36, 704, 168), (2, 2, 512, 96, 60), (3, 1, 9, 40, 100),
+                               (1, 1, 9, 0, 10)]:
+        ntp, ntc = -(-P // dec_mod.TILE_KEYS), -(-L // dec_mod.TILE_KEYS)
+        sp, sc = dec_mod.verify_splits(B, Hkv, rows, P, L, sms)
+        assert (ntp > 0) <= sp <= ntp and (ntc > 0) <= sc <= ntc
+        per_split = B * Hkv * -(-rows // 64)
+        assert (sp + sc) * per_split <= wave or (sp, sc) == (int(ntp > 0), int(ntc > 0))
+        # No plan of whole runs with more splits fits the wave.
+        for run in range(1, max(ntp, ntc) + 1):
+            more = -(-ntp // run) + -(-ntc // run)
+            assert more <= sp + sc or more * per_split > wave
+    # llama3-8b's verify window at batch 16: 128 blocks a split, 528 a wave.
+    assert dec_mod.verify_splits(16, 8, 36, 704, 168, sms) == (3, 1)
+    # A grid that overflows the card alone takes one split of each kind.
+    assert dec_mod.verify_splits(64, 8, 36, 704, 168, sms) == (1, 1)
+
+
 @functools.lru_cache(maxsize=None)
 def _flax_params():
     return jax.device_get(jtr.init_params(get_model_config(NAME), jax.random.key(0)))
