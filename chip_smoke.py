@@ -23,11 +23,15 @@ path's launch counts are set to 0 just before it and read just after:
   2. build the kernels, one nvcc per source, in parallel;
   bf16 path (llama3-8b; K1 flash attention, K2 decode attention, K3 the
   verify window):
-  3. serve 16 counterfactual phase-1 prompts with a sweep-wide shared
+  3. the bf16 logits product on the model's head: an f32 sum of the bf16
+     operands with no f32 copy of the head (``head_product_check``); then
+     serve 16 counterfactual phase-1 prompts with a sweep-wide shared
      prefix, greedy and at temperature 0.7 with per-row keys;
   4. serve the same prompts with no shared prefix (flash prefill at batch
      16 over the whole prompt); every K1 launch of a bf16 path must be one
-     of the tensor-core kernel (``tc_launches`` equal to ``launches``);
+     of the tensor-core kernel (``tc_launches`` equal to ``launches``), and
+     so must every K2 and K2q launch of every path (``decode_tc_launches``:
+     decode_split_tc);
   5. the shared-prefix greedy call with speculation on (draft_len 8,
      ngram_max 3): K3 must launch, every launch on the tensor-core kernel
      (``multi_tc_launches`` equal to the K3 launches); its speculation
@@ -38,11 +42,14 @@ path's launch counts are set to 0 just before it and read just after:
      least time the card could take and the achieved TFLOP/s; the kernel
      on a blinded input (one key masked out; for K3 every q_offset lowered
      by one, so each query loses its own slot) must fail that tolerance;
+     the wrapper's host microseconds a call; K2 and K2q also at the study's
+     batch of 48 (held to the same tolerance and blind check; times
+     reported, not gated);
   7. where a decode call's time goes: the shared-prefix greedy call with 16
      new tokens, three times untraced, then once under torch.profiler (the
      device's busy share over the traced call's span, device time by
-     kernel); the SM clock and power draw are sampled with nvidia-smi
-     around every serve call;
+     kernel, K2's kernels per step); the SM clock and power draw are sampled
+     with nvidia-smi around every serve call;
   8. the share of speculative greedy tokens equal to plain greedy ones at
      32 layers in bf16 (reported only);
   9. the model's logits with the kernels against the same model run on the
@@ -106,6 +113,11 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # most 2^-9 of the row's largest weight, which is 1).
 ATOL, RTOL = 4e-3, 1e-2
 PROFILE_TOKENS = 16
+# K2/K2q are also timed at the phase-1 sweep's own batch (45 profiles
+# bucketed to 48): reported, not gated.
+STUDY_BATCH = 48
+# Device kernels whose traced time the plain decode profiles report.
+K2_FOCUS = ("decode_split_tc", "combine_splits")
 K1_REPLACES = "fairness_llm_tpu/ops/flash_attention.py:148"
 K2_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:413"
 K2Q_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:191"
@@ -117,9 +129,9 @@ K4_SOURCE = "fairness_llm_tpu_torch/ops/csrc/quant_matmul.cu"
 # note at the top of its source describes the design.
 KERNEL_FUNCTIONS = {
     "flash_attention": "flash_fwd_tc",
-    "decode_attention": "decode_fwd",
+    "decode_attention": "decode_split_tc",
     "decode_attention_verify": "decode_verify_tc",
-    "decode_attention_int8_cache": "decode_fwd",
+    "decode_attention_int8_cache": "decode_split_tc",
     "decode_attention_verify_int8_cache": "decode_verify_tc",
     "quant_matmul_gemv": "tc_kernel",
     "quant_matmul_gemm": "wg_gemm_kernel",
@@ -435,6 +447,7 @@ def decode_numbers(call, torch, F):
     del got, want
     iters = 200
     ms = cuda_ms(run, iters)
+    wrapper_host_us = host_us(run)
     plain_ms = cuda_ms(lambda: dm.decode_attention_reference(q, k, v, valid, **kw), 20)
     # Which own-cache slots each query sees: valid, and for a verify window
     # j <= q_offsets[b] + i.
@@ -479,7 +492,7 @@ def decode_numbers(call, torch, F):
         "shape": shape, **rates(flops, ms, peak), "bound_share": max(t_ops, t_bytes) / ms,
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio,
         "ok": ratio <= 1, "blind_gate_err_over_tol": blind_ratio,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "host_us": wrapper_host_us,
         "library_call": "F.scaled_dot_product_attention over [prefix; cache] with a boolean mask"
                         + (", k/v dequantized beforehand" if quant else ""),
         "bound_ms": max(t_ops, t_bytes),
@@ -703,6 +716,70 @@ def serve_three(backend, prompts, keys, prefix, greedy, sampled, label: str):
     return rows
 
 
+def study_batch_rows(rec, mode: str, name: str, torch, F, batch: int = STUDY_BATCH):
+    """K2 (``mode`` "k2") or K2q ("k2q") at the study's batch: each of the
+    path's shared-prefix calls with its batch rows repeated up to ``batch``
+    (q, cache, valid, scales; the prefix as it was), numbered as
+    decode_numbers numbers a path's call. The times are reported, not gated;
+    the rows are held to the tolerance and the blind check as the path's
+    own (``check_rows``): at 192 query rows a kv head the prefix blocks take
+    three chunks of 64, which the path's batch of 16 never reaches."""
+    rows = []
+    for key, call in rec.calls.items():
+        if key[0] != mode or key[3] == 0:
+            continue
+        q = call["args"][0]
+        reps = -(-batch // q.shape[0])
+
+        def grow(t):
+            return torch.cat([t] * reps)[:batch].contiguous()
+
+        kw = {n: grow(t) if n in ("k_scale", "v_scale") and t is not None else t
+              for n, t in call["kwargs"].items()}
+        big = {"n": 0, "args": tuple(grow(t) for t in call["args"][:4]), "kwargs": kw}
+        rows.append(decode_numbers(big, torch, F))
+        del big, kw
+    check_rows(name, rows, "the newest slot masked out")
+    return rows
+
+
+def head_product_check(engine, torch) -> None:
+    """The bf16 logits product (``transformer._logits``) on the model's
+    lm_head [4096, 128256] and x [16, 4096] from seed 0: it must write f32
+    within 1e-4 of the largest logit of the f32 product of the same bf16
+    operands, allocate no f32 copy of the head (peak allocation during the
+    call under 64 MB), and the bf16-rounded product it replaced must miss
+    that tolerance (the gate sees the rounding). Both products timed."""
+    from fairness_llm_tpu_torch.models.transformer import _logits
+
+    head = engine.model.lm_head
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(16, head.shape[0], generator=g, device="cuda").to(head.dtype)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = _logits(x, head)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    want = x.float() @ head.float()
+    rounded = (x @ head).float()
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    row = {"x": list(x.shape), "head": list(head.shape), "dtype": str(got.dtype)[6:],
+           "max_abs_err": float((got - want).abs().max()), "tol": tol,
+           "rounded_max_abs_err": float((rounded - want).abs().max()),
+           "peak_extra_bytes": extra, "out_bytes": got.numel() * got.element_size(),
+           "ms": cuda_ms(lambda: _logits(x, head), 50),
+           "rounded_ms": cuda_ms(lambda: (x @ head).float(), 50)}
+    del want, rounded
+    log(f"head_product {json.dumps(row)}")
+    if row["dtype"] != "float32" or row["max_abs_err"] > tol:
+        fail(f"the bf16 logits product is not an f32 sum of the bf16 operands: {row}")
+    if row["rounded_max_abs_err"] <= tol:
+        fail(f"the head-product gate does not see bf16 rounding: {row}")
+    if extra > 64 << 20:
+        fail(f"the bf16 logits product allocated {extra} bytes (an f32 copy of the head?)")
+
+
 def decode_recorder(dec_mod):
     """A Recorder of decode_attention keyed by mode and shapes."""
 
@@ -719,13 +796,15 @@ def decode_counts(dec_mod) -> dict:
             "decode_attention_int8_cache": dec_mod.quant_launches,
             "decode_attention_verify": dec_mod.multi_launches,
             "decode_attention_verify_int8_cache": dec_mod.multi_quant_launches,
-            "decode_attention_verify_tc": dec_mod.multi_tc_launches}
+            "decode_attention_verify_tc": dec_mod.multi_tc_launches,
+            "decode_attention_tc": dec_mod.decode_tc_launches}
 
 
 def zero_counts(dec_mod, flash_mod) -> None:
     flash_mod.launches = flash_mod.tc_launches = 0
     dec_mod.launches = dec_mod.quant_launches = 0
     dec_mod.multi_launches = dec_mod.multi_quant_launches = dec_mod.multi_tc_launches = 0
+    dec_mod.decode_tc_launches = 0
 
 
 def need_launches(launches: dict, names, path: str) -> None:
@@ -738,8 +817,9 @@ def need_launches(launches: dict, names, path: str) -> None:
 def need_all_tc(launches: dict, path: str, name: str = "flash_attention",
                 tc: str = "flash_attention_tc") -> None:
     """Every launch of kernel ``name`` on a path with bf16 activations (K1;
-    K3 on a speculative path) must be one the C entry reports as its
-    tensor-core kernel (flash_fwd_tc; decode_verify_tc), counted in ``tc``."""
+    K2 and K2q; K3 on a speculative path) must be one the C entry reports
+    as its tensor-core kernel (flash_fwd_tc; decode_split_tc;
+    decode_verify_tc), counted in ``tc``."""
     if launches[tc] != launches[name]:
         fail(f"on the {path} path {launches[name]} {name} launches, of which "
              f"{launches[tc]} on the tensor-core kernel")
@@ -818,6 +898,7 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
         fail("the counterfactual prompts share no 64-token prefix")
     # Warm-up (cuBLAS handles, kernel libraries) outside the counted run.
     backend.generate(prompts[:2], ModelSettings(temperature=0.0, max_tokens=2))
+    head_product_check(engine, torch)
 
     # 3-4. the plain serve calls
     rec1 = Recorder(flash_mod, "flash_attention",
@@ -831,6 +912,7 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
                 "flash_attention_tc": flash_mod.tc_launches, **decode_counts(dec_mod)}
     need_launches(launches, ["flash_attention", "decode_attention"], "bf16 main")
     need_all_tc(launches, "bf16 main")
+    need_all_tc(launches, "bf16 main", "decode_attention", "decode_attention_tc")
 
     # 5. the speculative serve call
     rec3 = decode_recorder(dec_mod)
@@ -853,8 +935,10 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
         {**kernel_entry("flash_attention", "fairness_llm_tpu_torch/ops/csrc/flash_attention.cu",
                         K1_REPLACES, launches["flash_attention"], k1_rows),
          "tc_launches": launches["flash_attention_tc"]},
-        kernel_entry("decode_attention", dec_src, K2_REPLACES, launches["decode_attention"],
-                     k2_rows),
+        {**kernel_entry("decode_attention", dec_src, K2_REPLACES, launches["decode_attention"],
+                        k2_rows),
+         "tc_launches": launches["decode_attention_tc"],
+         "study_batch_shapes": study_batch_rows(rec2, "k2", "decode_attention", torch, F)},
         {**kernel_entry("decode_attention_verify", dec_src, K3_REPLACES,
                         spec_launches["decode_attention_verify"], k3_rows),
          "tc_launches": spec_launches["decode_attention_verify_tc"]},
@@ -863,7 +947,8 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
 
     # 7. where a decode call's time goes
     prof_row = profiled_decode(backend, prompts, prefix,
-                               ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch)
+                               ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch,
+                               focus=K2_FOCUS)
     log(f"profile_shared_prefix_greedy {json.dumps(prof_row)}")
     spec_profile(engine, prompts, prefix, torch, "")
 
@@ -937,6 +1022,7 @@ def kv_cache_path(torch, F, engine, prompts, keys, prefix, greedy, sampled):
                 "flash_attention_tc": flash_mod.tc_launches, **decode_counts(dec_mod)}
     need_launches(launches, ["flash_attention", "decode_attention_int8_cache"], "int8-cache")
     need_all_tc(launches, "int8-cache")
+    need_all_tc(launches, "int8-cache", "decode_attention_int8_cache", "decode_attention_tc")
     rec_s = decode_recorder(dec_mod)
     zero_counts(dec_mod, flash_mod)
     with rec_s:
@@ -954,8 +1040,11 @@ def kv_cache_path(torch, F, engine, prompts, keys, prefix, greedy, sampled):
                            "every q_offset lowered by one")
     dec_src = "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu"
     kernels = [
-        kernel_entry("decode_attention_int8_cache", dec_src, K2Q_REPLACES,
-                     launches["decode_attention_int8_cache"], k2q_rows),
+        {**kernel_entry("decode_attention_int8_cache", dec_src, K2Q_REPLACES,
+                        launches["decode_attention_int8_cache"], k2q_rows),
+         "tc_launches": launches["decode_attention_tc"],
+         "study_batch_shapes": study_batch_rows(rec, "k2q", "decode_attention_int8_cache",
+                                                torch, F)},
         {**kernel_entry("decode_attention_verify_int8_cache", dec_src, K3Q_REPLACES,
                         spec_launches["decode_attention_verify_int8_cache"], k3q_rows),
          "tc_launches": spec_launches["decode_attention_verify_tc"]},
@@ -1035,13 +1124,15 @@ def int8_path(torch, prompts, keys, greedy, sampled):
     peak = torch.cuda.max_memory_allocated()
     launches = {"quant_matmul_gemv": qm.gemv_launches, "quant_matmul_gemm": qm.gemm_launches,
                 "flash_attention": flash_mod.launches,
-                "flash_attention_tc": flash_mod.tc_launches, "decode_attention": dec_mod.launches}
+                "flash_attention_tc": flash_mod.tc_launches, "decode_attention": dec_mod.launches,
+                "decode_attention_tc": dec_mod.decode_tc_launches}
     log(f"int8 launches on the main path: {json.dumps(launches)}")
     log(f"int8 serve memory: held_gb={held / 1e9:.3f} peak_allocated_gb={peak / 1e9:.3f}")
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was not launched on the int8 main path")
     need_all_tc(launches, "int8 main")
+    need_all_tc(launches, "int8 main", "decode_attention", "decode_attention_tc")
 
     # 16. K4 against its plain version at every shape and dtype pair
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -1056,7 +1147,8 @@ def int8_path(torch, prompts, keys, greedy, sampled):
 
     # 17. where an int8 decode call's time goes
     prof_row = profiled_decode(backend, prompts, prefix,
-                               ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch)
+                               ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch,
+                               focus=K2_FOCUS)
     log(f"profile_int8_shared_prefix_greedy {json.dumps(prof_row)}")
 
     # 18. end-to-end check with K4 swapped for its plain version too

@@ -7,7 +7,8 @@ and the GQA ratio. Batches are **left-padded**, so the KV write index is the
 same for every row. Parameters keep the reference's names and its ``[in,
 out]`` kernel layout (``layer_{i}.attn.q_proj.kernel``, ...), so a flax tree
 maps onto them one to one (``runtime/weights.params_from_jax``). Matrix
-products run in the config dtype; norms and the softmax in float32.
+products run in the config dtype; norms and the softmax in float32, and the
+logits product sums its config-dtype operands into float32 (``_logits``).
 
 Under ``weight_quant == "int8"`` every projection and an untied ``lm_head``
 is a ``QuantDense``: an int8 kernel ``kernel_q`` [in, out] with f32
@@ -446,6 +447,26 @@ class Block(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x [..., D] @ head [D, V] as float32 logits, the products of operands
+    in x's dtype summed in float32, as the reference's
+    ``preferred_element_type=jnp.float32`` head product. A bf16 product on
+    the card is one ``torch.mm`` with a float32 output (``aten::mm.dtype``,
+    cuBLAS), so the [D, V] head is read at 2 bytes per element and no f32
+    copy of it is made; on the CPU, which has no kernel for that op, the
+    bf16 operands are widened to f32 first (the same function: widening is
+    exact)."""
+    head = head.to(x.dtype)
+    if x.dtype == torch.float32:
+        return x @ head
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cuda":
+        out = torch.mm(x2, head, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ head.float()
+    return out.reshape(*x.shape[:-1], head.shape[-1])
+
+
 class Transformer(nn.Module):
     """Decoder-only LM.
 
@@ -528,14 +549,10 @@ class Transformer(nn.Module):
         x = self.final_norm(x)
         if last_only:
             x = x[:, -1:, :]
-        # The reference accumulates the logits product in f32 from model-dtype
-        # operands; a bf16 matmul here rounds its output to bf16 before the
-        # cast, which keeps the [D, V] weight read at 2 bytes per element.
         if not cfg.tie_embeddings and cfg.weight_quant == "int8":
             logits = self.lm_head(x)  # f32 out
         else:
-            head = self.embedding.t() if cfg.tie_embeddings else self.lm_head
-            logits = (x @ head.to(x.dtype)).float()
+            logits = _logits(x, self.embedding.t() if cfg.tie_embeddings else self.lm_head)
 
         if cache is not None:
             # As the reference: a verify step's caller resets lengths to the

@@ -15,17 +15,21 @@ shared prefix stays float.
 ``decode_attention`` launches the hand-written CUDA kernels
 (``csrc/decode_attention.cu``) for CUDA tensors and takes the plain version,
 ``decode_attention_reference``, only for CPU tensors; any other mix raises.
-A bfloat16 verify window (4-D q) goes to the tensor-core kernel
-(``decode_verify_tc``, mma.sync; P is rounded to bf16 before P.V), which
-splits each row's keys across blocks (``verify_splits``) and folds the
-splits' partials in a second launch of the same call; the workspace for
-them is allocated here. Its head widths are ``TC_WIDTHS``: q/k/v with
-another D are copied with D zero-padded to the next. float32, and one query
-per row, go to the scalar kernel (``decode_fwd``); where k/v rows are not
-16-byte aligned (a D of odd byte size, an odd offset), the inputs are copied
-with D zero-padded before the launch. Each of the four modes counts its
-launches, and ``multi_tc_launches`` counts the verify windows the C entry
-reports it ran on the tensor-core kernel.
+bfloat16 goes to the tensor-core kernels (mma.sync; P is rounded to bf16
+before P.V), which split the keys across blocks and fold the splits'
+partials in a second launch of the same call; the workspace for them is
+allocated here, once per device and stream, and kept for the calls that
+follow (``_workspace``). A verify window (4-D q) runs on ``decode_verify_tc``,
+planned by ``verify_splits``; one query per row (K2, K2q) on
+``decode_split_tc``, planned by ``decode_splits``, whose prefix splits take
+every batch row's queries of a kv head together, so each prefix tile is
+read once per kv head and not once per row. Their head widths are
+``TC_WIDTHS``: q/k/v with another D are copied with D zero-padded to the
+next. float32 goes to the scalar kernel (``decode_fwd``); where k/v rows are
+not 16-byte aligned (a D of odd byte size, an odd offset), the inputs are
+copied with D zero-padded before the launch. Each of the four modes counts
+its launches; ``multi_tc_launches`` and ``decode_tc_launches`` count the
+calls the C entry reports it ran on the tensor-core kernels.
 """
 
 from __future__ import annotations
@@ -43,22 +47,29 @@ NEG_INF = -1e30
 #: Kernel launches of each mode since the counts were last set to 0: one
 #: query per row over a float cache (K2), over an int8 cache (K2q), and the
 #: verify window over a float cache (K3) and over an int8 cache; then the
-#: verify windows (either cache) that ran on decode_verify_tc, the
-#: tensor-core kernel, as the C entry reports.
+#: verify windows (either cache) that ran on decode_verify_tc, and the
+#: one-query calls (either cache) that ran on decode_split_tc, the
+#: tensor-core kernels, as the C entry reports.
 launches = 0
 quant_launches = 0
 multi_launches = 0
 multi_quant_launches = 0
 multi_tc_launches = 0
-_TC_KERNEL = 1  # decode_attention_fwd's *kernel for decode_verify_tc
+decode_tc_launches = 0
+# decode_attention_fwd's *kernel for decode_verify_tc and decode_split_tc
+_VERIFY_TC, _DECODE_TC = 1, 2
 
-#: Head widths the bf16 verify-window kernel is instantiated for.
-TC_WIDTHS = (64, 128, 256)
-#: Keys per tile of decode_verify_tc (its BK).
+#: Head widths the bf16 tensor-core kernels are instantiated for.
+TC_WIDTHS = (32, 64, 128, 256)
+#: Keys per tile of the tensor-core kernels (their BK).
 TILE_KEYS = 32
-#: Resident blocks per SM the split plan fills: four of 3 warps (36 query
-#: rows per kv head) at D = 128, as registers allow.
+#: Resident blocks per SM the verify split plan fills: four of 3 warps (36
+#: query rows per kv head) at D = 128, as registers allow.
 SPLIT_BLOCKS_PER_SM = 4
+#: Resident blocks per SM of decode_split_tc by head width: four of 4 warps
+#: at D <= 128 (128 registers a thread, 52-54 KB of shared memory at D =
+#: 128), two at D = 256 (shared memory).
+DECODE_BLOCKS_PER_SM = {32: 4, 64: 4, 128: 4, 256: 2}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # dtype, kv_int8; q, k, v, valid, sk, sv, ks, vs, q_offsets, o, ws;
@@ -152,25 +163,58 @@ def _check(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) -> None:
         raise ValueError(f"q, float k/v and shared k/v must share a dtype of {list(_DTYPES)}")
 
 
+def _plan(prefix_blocks: int, cache_blocks: int, P: int, L: int, wave: int) -> Tuple[int, int]:
+    """(splits_prefix, splits_cache) for a grid of ``prefix_blocks`` blocks
+    a prefix split and ``cache_blocks`` a cache split: the shortest run of
+    whole tiles (the most splits), the same for both kinds, whose grid still
+    fits ``wave`` blocks, and one split of each kind where nothing fits."""
+    ntp, ntc = -(-P // TILE_KEYS), -(-L // TILE_KEYS)
+    for run in range(1, max(ntp, ntc) + 1):
+        sp, sc = -(-ntp // run), -(-ntc // run)
+        if sp * prefix_blocks + sc * cache_blocks <= wave:
+            break
+    return sp, sc
+
+
 def verify_splits(B: int, Hkv: int, rows: int, P: int, L: int, sms: int) -> Tuple[int, int]:
     """How many key splits decode_verify_tc walks the prefix and the own
     cache in: (splits_prefix, splits_cache). Every split is a run of whole
-    tiles of one kind. The plan takes the shortest run (the most splits)
-    whose grid, B * Hkv * ceil(rows / 64) blocks a split, still fits one
-    wave of ``SPLIT_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs, and one
-    split of each kind where nothing fits."""
-    ntp, ntc = -(-P // TILE_KEYS), -(-L // TILE_KEYS)
+    tiles of one kind, of every batch row: B * Hkv * ceil(rows / 64) blocks
+    a split of either kind, in one wave of ``SPLIT_BLOCKS_PER_SM`` blocks on
+    each of ``sms`` SMs (``_plan``)."""
     per_split = B * Hkv * -(-rows // 64)
-    for run in range(1, max(ntp, ntc) + 1):
-        sp, sc = -(-ntp // run), -(-ntc // run)
-        if (sp + sc) * per_split <= SPLIT_BLOCKS_PER_SM * sms:
-            break
-    return sp, sc
+    return _plan(per_split, per_split, P, L, SPLIT_BLOCKS_PER_SM * sms)
+
+
+@functools.lru_cache(maxsize=256)  # planned on every call's host path: once per shape
+def decode_splits(B: int, Hkv: int, rep: int, P: int, L: int, D: int,
+                  sms: int) -> Tuple[int, int]:
+    """The same for decode_split_tc (one query per row, head width D of
+    ``TC_WIDTHS``). A prefix split is shared by the batch: Hkv *
+    ceil(B * rep / 64) blocks, each over up to 64 of the B * rep query rows
+    of one kv head. A cache split is B * Hkv blocks, one per (batch row, kv
+    head). The wave is ``DECODE_BLOCKS_PER_SM[D]`` blocks on each of
+    ``sms`` SMs."""
+    return _plan(Hkv * -(-B * rep // 64), B * Hkv, P, L, DECODE_BLOCKS_PER_SM[D] * sms)
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The split kernels' f32 workspace by (device, stream), grown to the largest
+# call so far. Calls on one stream run in order, so a call's kernels write
+# it only after the previous call's combine has read it.
+_workspaces: dict = {}
+
+
+def _workspace(numel: int, device: torch.device, stream: int) -> torch.Tensor:
+    key = (device, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < numel:
+        ws = _workspaces[key] = torch.empty(numel, dtype=torch.float32, device=device)
+    return ws
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -207,10 +251,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: no keys")
     if valid.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"valid must be bool or uint8, got {valid.dtype}")
-    tc = multi and q.dtype == torch.bfloat16
+    tc = q.dtype == torch.bfloat16
     if tc:
         Dk = next(w for w in TC_WIDTHS if w >= D)
-        aligned = all(_build.rows_aligned16(t) for t in [q, k, v] + list(shared_kv or ()))
+        # Contiguous rows of a tensor-core width are whole 16-byte chunks;
+        # only where a tensor starts can be off.
+        aligned = all(t.data_ptr() % 16 == 0 for t in [q, k, v] + list(shared_kv or ()))
     else:
         # The pad is counted in bytes of the narrowest row: 16 elements for
         # an int8 cache, 16 bytes of q's type otherwise.
@@ -226,25 +272,28 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_offsets = q_offsets.to(torch.int32).contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     out = torch.empty_like(q)
+    stream = _build.current_stream(q.device)
     sp = sc = 0
     ws = None
     if tc:
         index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-        sp, sc = verify_splits(B, Hkv, (H // Hkv) * Q, P, L, _sm_count(index))
+        if multi:
+            sp, sc = verify_splits(B, Hkv, (H // Hkv) * Q, P, L, _sm_count(index))
+        else:
+            sp, sc = decode_splits(B, Hkv, H // Hkv, P, L, Dk, _sm_count(index))
         if sp + sc > 1:
-            ws = torch.empty((sp + sc) * B * Q * H * (Dk + 2), dtype=torch.float32,
-                             device=q.device)
+            ws = _workspace((sp + sc) * B * Q * H * (Dk + 2), q.device, stream)
     fn = _build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
     kernel = ctypes.c_int(-1)
     status = fn(
         _DTYPES[q.dtype], int(quant), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         valid.data_ptr(), ptr(shared_kv[0]) if P else None, ptr(shared_kv[1]) if P else None,
         ptr(k_scale), ptr(v_scale), ptr(q_offsets), out.data_ptr(), ptr(ws),
-        B, Q, H, Hkv, L, Dk, P, sp, sc, D ** -0.5,
-        _build.current_stream(q.device), ctypes.byref(kernel),
+        B, Q, H, Hkv, L, Dk, P, sp, sc, D ** -0.5, stream, ctypes.byref(kernel),
     )
     _build.check(status, "decode_attention")
-    global launches, quant_launches, multi_launches, multi_quant_launches, multi_tc_launches
+    global launches, quant_launches, multi_launches, multi_quant_launches
+    global multi_tc_launches, decode_tc_launches
     if multi and quant:
         multi_quant_launches += 1
     elif multi:
@@ -253,5 +302,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         quant_launches += 1
     else:
         launches += 1
-    multi_tc_launches += kernel.value == _TC_KERNEL
+    multi_tc_launches += kernel.value == _VERIFY_TC
+    decode_tc_launches += kernel.value == _DECODE_TC
     return out if Dk == D else out[..., :D]

@@ -30,7 +30,9 @@ each query loses its own slot). A bf16 verify window runs on the
 tensor-core kernel (decode_verify_tc), which, as the bf16 flash kernel,
 rounds P (times the v-scale over an int8 cache) to bf16 before P.V, and
 splits the keys across blocks; its partials are combined in a fixed order,
-so repeated calls agree bit for bit.
+so repeated calls agree bit for bit. A bf16 one-query call (K2, K2q) runs
+on decode_split_tc the same way, with prefix splits shared by the batch;
+float32 keeps the scalar decode_fwd.
 """
 
 import pytest
@@ -132,10 +134,11 @@ def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, L, D, P):
     if P:
         shared = (torch.randn(P, Hkv, D, generator=g, device=dev, dtype=dtype),
                   torch.randn(P, Hkv, D, generator=g, device=dev, dtype=dtype))
-    before = dec_mod.launches
+    before, tc = dec_mod.launches, dec_mod.decode_tc_launches
     got = dec_mod.decode_attention(q, k, v, valid, shared)
     torch.cuda.synchronize()
     assert dec_mod.launches == before + 1
+    assert dec_mod.decode_tc_launches == tc + (dtype == torch.bfloat16)
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -212,10 +215,11 @@ def test_int8_cache_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, L, D, P):
     k, v, scales, shared = _cache(g, dev, dtype, B, L, Hkv, D, P, int8=True)
     valid = torch.rand(B, L, generator=g, device=dev) < 0.6
     valid[:, -1] = True
-    before = dec_mod.quant_launches
+    before, tc = dec_mod.quant_launches, dec_mod.decode_tc_launches
     got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
     torch.cuda.synchronize()
     assert dec_mod.quant_launches == before + 1
+    assert dec_mod.decode_tc_launches == tc + (dtype == torch.bfloat16)
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -287,12 +291,12 @@ def _verify_inputs(dev, seed, B, Q, rep, Hkv, L, D, P, int8):
 
 @pytest.mark.parametrize("int8", [False, True], ids=["float_cache", "int8_cache"])
 @pytest.mark.parametrize("P", [0, 96, 704])
-@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("rep,Q", [(1, 9), (8, 2), (4, 9), (7, 9), (4, 16)],
                          ids=["rows9", "rows16", "rows36", "rows63", "rows64"])
 def test_verify_tc_kernel_matches_plain(dev, rep, Q, D, P, int8):
     """decode_verify_tc over a bf16 and an int8 cache, at rep * Q of 9 to 64
-    query rows per kv head (one to four m-tiles), head widths 64-256 (80 is
+    query rows per kv head (one to four m-tiles), head widths 32-256 (80 is
     padded to 128), no prefix, a prefix ending mid-tile and the sweep's,
     and L = 150, not a multiple of the 32-key tile."""
     B, Hkv, L = 4, 2, 150
@@ -371,6 +375,119 @@ def test_int8_cache_tolerance_sees_one_dropped_key(dev, dtype):
     dropped[:, 96] = False
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
     _outside_tolerance(dec_mod.decode_attention(q, k, v, dropped, shared, **scales), want, dtype)
+
+
+def _decode_inputs(dev, seed, B, rep, Hkv, L, D, P, int8):
+    """bf16 one-query inputs: row 0 sees every slot, row 1 (where B > 1) no
+    slot (with P = 0 its output is 0), the rest about 60% of theirs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, rep * Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
+    k, v, scales, shared = _cache(g, dev, torch.bfloat16, B, L, Hkv, D, P, int8=int8)
+    valid = torch.rand(B, L, generator=g, device=dev) < 0.6
+    valid[0] = True
+    if B > 1:
+        valid[1] = False
+    return q, k, v, valid, shared, scales
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache", "int8_cache"])
+@pytest.mark.parametrize("P", [0, 96, 704])
+@pytest.mark.parametrize("B", [1, 16, 48])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("rep", [1, 4, 8, 32])
+def test_decode_tc_kernel_matches_plain(dev, rep, D, B, P, int8):
+    """decode_split_tc (K2 over a bf16 cache, K2q over an int8 cache) at rep
+    1-32 (B * rep query rows a kv head: prefix chunks of 64, cache blocks of
+    one or two live warps), head widths 32-256 (96 padded to 128), batch
+    1, 16 and the study's 48, no prefix, a prefix ending mid-tile and the
+    sweep's, and L = 150, not a multiple of the 32-key tile."""
+    Hkv, L = 2, 150
+    q, k, v, valid, shared, scales = _decode_inputs(dev, rep + D + B + P, B, rep, Hkv, L, D, P,
+                                                    int8)
+    counter = "quant_launches" if int8 else "launches"
+    before, tc = getattr(dec_mod, counter), dec_mod.decode_tc_launches
+    got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+    torch.cuda.synchronize()
+    assert (getattr(dec_mod, counter), dec_mod.decode_tc_launches) == (before + 1, tc + 1)
+    assert got.shape == q.shape
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    if P == 0 and B > 1:
+        assert not got[1].any()  # no key at all: exactly 0
+
+
+def _decode_plans(P, L):
+    """_plans and the two lopsided plans (every prefix tile its own split,
+    one cache split; and the other way round)."""
+    ntp, ntc = -(-P // dec_mod.TILE_KEYS), -(-L // dec_mod.TILE_KEYS)
+    return sorted(set(_plans(P, L)) | {(ntp, int(ntc > 0)), (int(ntp > 0), ntc)})
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache", "int8_cache"])
+@pytest.mark.parametrize("B,rep,P,L,D", [(4, 4, 100, 150, 128), (16, 4, 0, 300, 128),
+                                         (16, 4, 704, 160, 128), (48, 4, 704, 160, 128),
+                                         (3, 32, 40, 100, 256), (5, 8, 96, 0, 64),
+                                         (48, 2, 704, 160, 32)])
+def test_decode_tc_every_split_plan_matches_plain(dev, monkeypatch, B, rep, P, L, D, int8):
+    """Every split plan, the one-split case (no combine) included: prefix
+    splits shared by the batch, cache splits per row, runs left with no
+    tile, tiles with no valid slot (skipped), and a row with no valid slot."""
+    Hkv = 2
+    q, k, v, valid, shared, scales = _decode_inputs(dev, 14, B, rep, Hkv, L, D, P, int8)
+    if L:
+        valid[-1, : L // 2] = False  # whole tiles with no valid slot
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
+    for plan in _decode_plans(P, L):
+        monkeypatch.setattr(dec_mod, "decode_splits", lambda *a, _p=plan: _p)
+        got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16],
+                                   msg=lambda m, _p=plan: f"plan {_p}: {m}")
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_decode_tc_refuses_a_bad_plan(dev, monkeypatch, int8):
+    """No fallback: a plan the kernel cannot take raises; nothing else runs."""
+    q, k, v, valid, shared, scales = _decode_inputs(dev, 15, 4, 4, 2, 150, 128, 96, int8)
+    monkeypatch.setattr(dec_mod, "decode_splits", lambda *a: (4, 1))  # 96 keys: 3 tiles
+    counts = lambda: (dec_mod.launches, dec_mod.quant_launches,  # noqa: E731
+                      dec_mod.decode_tc_launches)
+    before = counts()
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+    assert counts() == before
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_decode_tc_workspace_outlives_shapes(dev, int8):
+    """The split workspace kept between calls: a small call, one that grows
+    it, the small one again and a verify window over the same cache, each
+    against its plain version, all queued before one synchronize."""
+    calls = []
+    for seed, B in ((17, 4), (18, 48), (17, 4)):
+        q, k, v, valid, shared, scales = _decode_inputs(dev, seed, B, 4, 8, 160, 128, 704, int8)
+        calls.append((dec_mod.decode_attention(q, k, v, valid, shared, **scales),
+                      dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)))
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 19, 16, 9, 4, 8, 168, 128, 704,
+                                                          int8)
+    calls.append((dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales),
+                  dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs,
+                                                     **scales)))
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(calls):
+        torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16],
+                                   msg=lambda m, _i=i: f"call {_i}: {m}")
+
+
+@pytest.mark.parametrize("B", [16, 48])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_decode_tc_repeats_bit_for_bit(dev, int8, B):
+    """50 calls at llama3-8b's sweep shape (split keys, combined in a fixed
+    order) agree bit for bit."""
+    q, k, v, valid, shared, scales = _decode_inputs(dev, 16, B, 4, 8, 160, 128, 704, int8)
+    first = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+    for i in range(50):
+        got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+        assert torch.equal(got, first), f"call {i} differs from the first"
 
 
 # llama3-8b's (K, N) pairs: q/o, k/v, gate/up, down, lm_head; then ragged

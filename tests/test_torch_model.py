@@ -7,6 +7,11 @@ position in three cases: a left-padded prefill, cached single-token steps,
 and steps over a shared prompt prefix. The flax side never takes a Pallas
 kernel off the TPU; the port takes its kernels' plain versions on the CPU
 (flash on the prefill, decode attention on the steps when the flag is on).
+
+In bfloat16 the logits product sums bf16 operands into float32 on both
+sides: the head function alone agrees with the reference's einsum to a few
+float32 ulps, and a bf16 ``tiny-test`` forward agrees within the bf16
+tolerance stated at ``BF16_ATOL``.
 """
 
 import dataclasses
@@ -30,6 +35,10 @@ from fairness_llm_tpu_torch.runtime.weights import (  # noqa: E402
 )
 
 ATOL = 1e-4
+# bf16 tiny-test logits (scale < 1): the two frameworks round the bf16
+# residual stream at different places, one bf16 ulp (2^-8 below 1) at a
+# time; 8e-3 is two such ulps. Measured: 4.1e-3 at logits of scale 0.77.
+BF16_ATOL = 8e-3
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,3 +223,80 @@ def test_cache_write_past_the_end_raises():
     tok = torch.ones(1, 5, dtype=torch.long)
     with pytest.raises(ValueError, match="max_len"):
         model(tok, torch.arange(5)[None], cache=cache)
+
+
+def test_logits_product_sums_bf16_operands_in_f32():
+    """The head product of bf16 x and a bf16 head, against the reference's
+    ``einsum(..., preferred_element_type=float32)`` on the same operands:
+    within 1e-4 absolute, float32 summation order over 512 products of
+    outputs up to ~80 (a few ulps). A product rounded to bf16 before the
+    cast misses by up to 2^-9 of each value (0.25 at 80)."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(2, 3, 512)).astype(np.float32)
+    head = rng.normal(size=(512, 300)).astype(np.float32)
+    xb, hb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(head, jnp.bfloat16)
+    want = np.asarray(jnp.einsum("bsd,dv->bsv", xb, hb, preferred_element_type=jnp.float32))
+    got = ttr._logits(_t(x).bfloat16(), _t(head).bfloat16())
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 300)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    # The tied head is the embedding's transpose, a strided view.
+    tied = ttr._logits(_t(x).bfloat16(), _t(head.T.copy()).bfloat16().t())
+    np.testing.assert_allclose(tied.numpy(), want, atol=1e-4, rtol=0)
+
+
+def _greedy_run(jcfg, params, tmodel, tokens, valid, positions, steps):
+    """Prefill then ``steps`` greedy steps on each side, each side feeding
+    its own argmax; the prefill's logits must agree within BF16_ATOL at
+    every valid position. Returns per side the [steps + 1, B, V] logits that
+    chose each token (the prefill's last position, then each step's)."""
+    B, S = tokens.shape
+    jcache = jtr.init_cache(jcfg, B, S + steps)
+    jl, jcache = _japply(jcfg, params, jnp.asarray(tokens), jnp.asarray(positions),
+                         jnp.asarray(valid), jcache, left_padded=True)
+    tcache = ttr.init_cache(tmodel.config, B, S + steps)
+    tl, tcache = tmodel(_t(tokens).long(), _t(positions), _t(valid), tcache, left_padded=True)
+    np.testing.assert_allclose(tl.numpy()[valid], np.asarray(jl, np.float32)[valid],
+                               atol=BF16_ATOL, rtol=0)
+    jout, tout = [np.asarray(jl[:, -1], np.float32)], [tl[:, -1].numpy()]
+    live = np.ones((B, 1), bool)
+    pos = positions[:, -1:] + 1
+    for _ in range(steps):
+        jtok = jout[-1].argmax(-1)[:, None].astype(np.int32)
+        ttok = tout[-1].argmax(-1)[:, None]
+        jl, jcache = _japply(jcfg, params, jnp.asarray(jtok), jnp.asarray(pos),
+                             jnp.asarray(live), jcache)
+        tl, tcache = tmodel(torch.from_numpy(ttok).long(), _t(pos), _t(live), tcache)
+        jout.append(np.asarray(jl[:, -1], np.float32))
+        tout.append(tl[:, -1].numpy())
+        pos = pos + 1
+    return np.stack(jout), np.stack(tout)
+
+
+def test_bf16_forward_and_greedy_tokens_match_flax():
+    """A bf16 tiny-test model, flax and port on the same params_from_jax
+    weights: logits within BF16_ATOL at every valid prefill position and at
+    every step while a row's tokens agree; greedy tokens equal up to each
+    row's first divergence, which must be a near-tie: the reference's
+    logits of the two chosen tokens within BF16_ATOL of each other (the
+    rule of __graft_entry__.py's near-tie check)."""
+    name = "tiny-test"
+    jcfg = dataclasses.replace(get_model_config(name), dtype="bfloat16")
+    tcfg = dataclasses.replace(tconfigs.get_model_config(name), dtype="bfloat16")
+    tmodel = build_model(tcfg, params_from_jax(_flax_params(name), tcfg), torch.device("cpu"),
+                         torch.bfloat16)
+    rng = np.random.default_rng(22)
+    tokens, valid, positions = _batch(rng, 16, 24, tcfg.vocab_size,
+                                      pads=[0, 3, 7, 11] * 4)
+    jl, tl = _greedy_run(jcfg, _flax_params(name), tmodel, tokens, valid, positions, steps=16)
+    jtok, ttok = jl.argmax(-1), tl.argmax(-1)  # [steps + 1, B]
+    rows_diverged = 0
+    for b in range(tokens.shape[0]):
+        differ = np.nonzero(jtok[:, b] != ttok[:, b])[0]
+        t = int(differ[0]) if differ.size else jtok.shape[0]
+        # Inputs agree up to and including step t: so must the logits.
+        np.testing.assert_allclose(tl[:t + 1, b], jl[:t + 1, b], atol=BF16_ATOL, rtol=0)
+        if differ.size:
+            rows_diverged += 1
+            gap = abs(jl[t, b, jtok[t, b]] - jl[t, b, ttok[t, b]])
+            assert gap <= BF16_ATOL, (b, t, gap)
+    assert rows_diverged < tokens.shape[0]

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from fairness_llm_tpu.ops.decode_attention import decode_attention as jax_decode  # noqa: E402
 from fairness_llm_tpu.ops.flash_attention import flash_attention as jax_flash  # noqa: E402
+from fairness_llm_tpu_torch.models.transformer import _quantize_kv  # noqa: E402
 from fairness_llm_tpu_torch.ops import decode_attention as dec_mod  # noqa: E402
 from fairness_llm_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
 
@@ -135,3 +136,116 @@ def test_wrappers_validate_shapes():
     with pytest.raises(ValueError):
         dec_mod.decode_attention(torch.zeros(2, 4, 16), torch.zeros(2, 8, 3, 16),
                                  torch.zeros(2, 8, 3, 16), torch.ones(2, 8, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# The split algebra of the card's one-query kernel (decode_split_tc)
+# ---------------------------------------------------------------------------
+
+
+def _split_partial(q, k, v, sees, ks=None, vs=None):
+    """One split's partials as decode_split_tc keeps them, in f32: scores in
+    log2 units (times the k-scale), m their max over the keys the row sees
+    (-1e30 where it sees none), l the sum of the unscaled p, acc the sum of
+    p times the v-scale times v. q [B, H, D] (scaled), k/v [B, n, H, D],
+    sees [B, n] (ks/vs [B, n, H])."""
+    s = torch.einsum("bhd,bnhd->bhn", q, k) * 1.4426950408889634
+    if ks is not None:
+        s = s * ks.permute(0, 2, 1)
+    mask = sees[:, None, :].expand_as(s)
+    s = torch.where(mask, s, torch.full_like(s, dec_mod.NEG_INF))
+    m = s.amax(-1)
+    m = torch.where(mask.any(-1), m, torch.full_like(m, dec_mod.NEG_INF))
+    p = torch.where(mask, torch.exp2(s - m[..., None]), torch.zeros_like(s))
+    pv = p if vs is None else p * vs.permute(0, 2, 1)
+    return m, p.sum(-1), torch.einsum("bhn,bnhd->bhd", pv, v)
+
+
+def _split_route(q, k, v, valid, shared, ks, vs, sp, sc):
+    """decode_split_tc's function in plain PyTorch: prefix splits over every
+    batch row, cache splits per row, each a run of whole 32-key tiles, then
+    combine_splits's fold in split order, which skips a split where the row
+    saw no key (l = 0). All f32; int8 k/v with their scales."""
+    B, H, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    T = dec_mod.TILE_KEYS
+    P = 0 if shared is None else shared[0].shape[0]
+    qs = q * D ** -0.5
+    parts = []
+    for n_keys, n_splits, kind in ((P, sp, "prefix"), (L, sc, "cache")):
+        ntiles = -(-n_keys // T)
+        per = -(-ntiles // n_splits) if n_splits else 0
+        for s in range(n_splits):
+            lo, hi = min(s * per * T, n_keys), min((s + 1) * per * T, n_keys)
+            if kind == "prefix":
+                kk = shared[0][lo:hi].repeat_interleave(rep, 1)[None].expand(B, -1, -1, -1)
+                vv = shared[1][lo:hi].repeat_interleave(rep, 1)[None].expand(B, -1, -1, -1)
+                parts.append(_split_partial(qs, kk, vv, torch.ones(B, hi - lo, dtype=torch.bool)))
+            else:
+                sc_ = [None if x is None else x[:, lo:hi].repeat_interleave(rep, 2)
+                       for x in (ks, vs)]
+                parts.append(_split_partial(qs, k[:, lo:hi].repeat_interleave(rep, 2),
+                                            v[:, lo:hi].repeat_interleave(rep, 2),
+                                            valid[:, lo:hi], *sc_))
+    mx = torch.full((B, H), dec_mod.NEG_INF)
+    for m, l_, _ in parts:
+        mx = torch.where(l_ > 0, torch.maximum(mx, m), mx)
+    lsum, acc = torch.zeros(B, H), torch.zeros(B, H, D)
+    for m, l_, a in parts:
+        w = torch.where(l_ > 0, torch.exp2(m - mx), torch.zeros_like(m))
+        lsum, acc = lsum + w * l_, acc + w[..., None] * a
+    return acc / lsum.clamp_min(1e-30)[..., None]
+
+
+def _split_plans(P, L):
+    """Every plan of one run for both kinds, and the two lopsided ones."""
+    ntp, ntc = -(-P // dec_mod.TILE_KEYS), -(-L // dec_mod.TILE_KEYS)
+    plans = {(-(-ntp // run), -(-ntc // run)) for run in range(1, max(ntp, ntc) + 1)}
+    return sorted(plans | {(ntp, int(ntc > 0)), (int(ntp > 0), ntc)})
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("P", [0, 96, 704])
+def test_split_route_algebra_matches_reference(P, cache):
+    """Partials over prefix splits shared by the batch and per-row cache
+    splits, folded in split order, equal the joint softmax to f32 summation
+    order (1e-5) under every plan: L = 150 is not a tile multiple, row 1
+    has no valid slot (with P = 0 its output is 0), row 0 every slot."""
+    rng = np.random.default_rng(31)
+    B, H, Hkv, L, D = 3, 8, 2, 150, 16
+    bf = lambda a: torch.from_numpy(a).bfloat16().float()  # noqa: E731  values of bf16
+    q = bf(rng.normal(size=(B, H, D)).astype(np.float32))
+    k = bf(rng.normal(size=(B, L, Hkv, D)).astype(np.float32))
+    v = bf(rng.normal(size=(B, L, Hkv, D)).astype(np.float32))
+    ks = vs = None
+    if cache == "int8":
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+    shared = None
+    if P:
+        shared = (bf(rng.normal(size=(P, Hkv, D)).astype(np.float32)),
+                  bf(rng.normal(size=(P, Hkv, D)).astype(np.float32)))
+    valid = torch.from_numpy(rng.random((B, L)) < 0.6)
+    valid[0], valid[1] = True, False
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, ks, vs)
+    for sp, sc in _split_plans(P, L):
+        got = _split_route(q, k.float(), v.float(), valid, shared, ks, vs, sp, sc)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0,
+                                   err_msg=f"plan ({sp}, {sc})")
+    if P == 0:
+        assert not want[1].any()
+
+
+def test_split_workspace_is_kept_per_device_and_stream(monkeypatch):
+    """The split kernels' workspace is allocated once per (device, stream)
+    and grown only when a call needs more: a smaller call reuses it, another
+    stream gets its own."""
+    monkeypatch.setattr(dec_mod, "_workspaces", {})
+    cpu = torch.device("cpu")
+    first = dec_mod._workspace(1000, cpu, 0)
+    assert first.dtype == torch.float32 and first.numel() == 1000
+    assert dec_mod._workspace(10, cpu, 0) is first
+    grown = dec_mod._workspace(5000, cpu, 0)
+    assert grown.numel() == 5000 and dec_mod._workspace(1000, cpu, 0) is grown
+    other = dec_mod._workspace(10, cpu, 7)
+    assert other is not grown and dec_mod._workspace(10, cpu, 0) is grown

@@ -234,6 +234,36 @@ def test_verify_split_plan():
     assert dec_mod.verify_splits(64, 8, 36, 704, 168, sms) == (1, 1)
 
 
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_decode_split_plan(D):
+    """The one-query kernel's plan: a prefix split costs Hkv * ceil(B * rep
+    / 64) blocks, shared by the batch; a cache split B * Hkv. Runs of whole
+    tiles, within the kernel's bounds, as many splits as one wave holds."""
+    sms = 132
+    wave = dec_mod.DECODE_BLOCKS_PER_SM[D] * sms
+    for B, Hkv, rep, P, L in [(16, 8, 4, 704, 160), (16, 8, 4, 0, 960), (48, 8, 4, 704, 160),
+                              (48, 8, 4, 0, 960), (1, 8, 4, 704, 0), (3, 2, 32, 96, 150),
+                              (64, 8, 4, 704, 960), (1, 1, 1, 0, 10)]:
+        ntp, ntc = -(-P // dec_mod.TILE_KEYS), -(-L // dec_mod.TILE_KEYS)
+        sp, sc = dec_mod.decode_splits(B, Hkv, rep, P, L, D, sms)
+        assert (ntp > 0) <= sp <= ntp and (ntc > 0) <= sc <= ntc
+        pre, cache = Hkv * -(-B * rep // 64), B * Hkv
+        fits = sp * pre + sc * cache <= wave
+        assert fits or (sp, sc) == (int(ntp > 0), int(ntc > 0))
+        for run in range(1, max(ntp, ntc) + 1):
+            more = (-(-ntp // run), -(-ntc // run))
+            assert sum(more) <= sp + sc or more[0] * pre + more[1] * cache > wave
+    if D == 128:
+        # llama3-8b at batch 16: 8 blocks a prefix split (64 query rows a kv
+        # head), 128 a cache split, 528 a wave; each prefix tile is read by 8
+        # blocks, not 128.
+        assert dec_mod.decode_splits(16, 8, 4, 704, 160, D, sms) == (11, 3)  # 472 blocks
+        assert dec_mod.decode_splits(16, 8, 4, 0, 960, D, sms) == (0, 4)  # 512
+        # The study's batch of 48: 24 blocks a prefix split, 384 a cache split.
+        assert dec_mod.decode_splits(48, 8, 4, 704, 160, D, sms) == (5, 1)  # 504
+        assert dec_mod.decode_splits(48, 8, 4, 0, 960, D, sms) == (0, 1)  # 384
+
+
 @functools.lru_cache(maxsize=None)
 def _flax_params():
     return jax.device_get(jtr.init_params(get_model_config(NAME), jax.random.key(0)))

@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""Hold checkouts of the port against each other on one card, in alternating
+processes: the decode step of a serve call, and single decode-attention
+calls (K2, K2q), each measured in the same run for every checkout.
+
+Run on a machine with one NVIDIA H100, naming the checkouts' roots (this
+one's by default):
+
+    python3 tools/torch_serve_ab.py PARENT CHANGE [--rounds 10] [--out FILE]
+
+Each round starts one process per checkout, one after the other, in the
+order given and then reversed in the next round (A B, B A, A B, ...), so a
+drift of the machine's state falls on every checkout alike. A process puts
+its checkout first on ``sys.path``, so it imports only that checkout's
+``fairness_llm_tpu_torch`` and builds its kernels into that checkout's
+``build/kernels``, then:
+
+- builds llama3-8b at full width and depth (random bf16 weights from seed
+  0, the decode-attention kernel on), serves ``chip_smoke.py``'s 16
+  counterfactual prompts with the sweep-wide shared prefix at temperature
+  0.7 with per-row keys (64 new tokens) ``--calls`` times after a warm-up,
+  and reports each call's decode ms per step and prefill ms;
+- calls ``decode_attention`` at each of ``SHAPES`` over a bf16 cache and an
+  int8 one (values and scales from the port's ``_quantize_kv``; valid slots
+  a run per row drawn from seed 0): its host microseconds a call (the mean
+  of 200 calls queued while the device sleeps, so no call waits for it) and
+  its device ms a call (200 calls between CUDA events). A call of more
+  than ~5 launches fills the launch queue (~1,000 entries) within the 200,
+  and the host then waits for the sleeping device: both of its numbers are
+  then upper bounds.
+
+One JSON line per process, then a summary: each checkout's median, min
+and max of every number over its processes, and the card's name and power
+limit. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ITERS = 200
+# (label, batch, heads, kv heads, head_dim, prefix, cache slots): llama3-8b
+# at the smoke run's shared-prefix decode shape and at the sweep's batch of
+# 48, and tiny-llama-study's heads and head_dim 32 at the sweep's batch
+# with and without the prefix.
+SHAPES = [("llama3-8b", 16, 32, 8, 128, 704, 160),
+          ("llama3-8b", 48, 32, 8, 128, 704, 160),
+          ("tiny-llama-study", 48, 4, 2, 32, 704, 160),
+          ("tiny-llama-study", 48, 4, 2, 32, 0, 960)]
+
+
+def decode_numbers(torch) -> list:
+    from fairness_llm_tpu_torch.models.transformer import _quantize_kv
+    from fairness_llm_tpu_torch.ops import decode_attention as dm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for label, B, H, Hkv, D, P, L in SHAPES:
+        bf = dict(device=dev, dtype=torch.bfloat16, generator=g)
+        q = torch.randn(B, H, D, **bf)
+        k, v = torch.randn(B, L, Hkv, D, **bf), torch.randn(B, L, Hkv, D, **bf)
+        shared = (torch.randn(P, Hkv, D, **bf), torch.randn(P, Hkv, D, **bf)) if P else None
+        start = torch.randint(0, L // 4, (B, 1), generator=g, device=dev)
+        valid = torch.arange(L, device=dev)[None, :] >= start
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        for cache, (kk, vv, sc) in {"bf16": (k, v, {}),
+                                    "int8": (kq, vq, dict(k_scale=ks, v_scale=vs))}.items():
+            def call():
+                return dm.decode_attention(q, kk, vv, valid, shared, **sc)
+
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1_000_000 * ITERS)  # ~0.5 ms a call to come
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                call()
+            host_us = (time.perf_counter() - t0) / ITERS * 1e6
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1_000_000 * ITERS)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(ITERS):
+                call()
+            e1.record()
+            torch.cuda.synchronize()
+            rows.append({"key": f"{label} B={B} D={D} P={P} L={L} {cache}",
+                         "host_us": host_us, "ms": e0.elapsed_time(e1) / ITERS})
+    return rows
+
+
+def child(tree: pathlib.Path, calls: int) -> dict:
+    """One process's measurements of the checkout at ``tree``."""
+    sys.path.insert(0, str(tree))
+    import dataclasses
+
+    import torch
+
+    from fairness_llm_tpu_torch.config import ModelSettings
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.pipeline.backends import EngineBackend, shared_prefix_ids
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+
+    # The prompts as chip_smoke.py of this tool's own checkout writes them,
+    # from the checkout under test's modules.
+    spec = importlib.util.spec_from_file_location("smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    profiles, prompts = smoke.counterfactual_prompts()
+    keys = [p.id for p in profiles]
+
+    out = {"tree": str(tree), "kernels": decode_numbers(torch)}
+    cfg = dataclasses.replace(get_model_config("llama3-8b"), use_decode_attention_kernel=True)
+    backend = EngineBackend(DecodeEngine(cfg, seed=0))
+    prefix = shared_prefix_ids(backend, prompts)
+    backend.generate(prompts[:2], ModelSettings(temperature=0.0, max_tokens=2))
+    sampled = ModelSettings(temperature=0.7, max_tokens=64)
+    out["serve"] = []
+    for _ in range(calls):
+        backend.generate(prompts, sampled, keys=keys, prefix_ids=prefix)
+        st = backend.last_stats
+        out["serve"].append({"decode_ms_per_step": st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
+                             "prefill_ms": st["prefill_s"] * 1e3, "prefix_len": st["prefix_len"]})
+    return out
+
+
+def summary(results: list) -> dict:
+    """Per checkout and number: [median, min, max] over its processes."""
+    per: dict = {}
+    for r in results:
+        d = per.setdefault(r["tree"], {})
+        for i, s in enumerate(r["serve"]):
+            for name in ("decode_ms_per_step", "prefill_ms"):
+                d.setdefault(f"serve call {i} {name}", []).append(s[name])
+        for k in r["kernels"]:
+            for name in ("host_us", "ms"):
+                d.setdefault(f"{k['key']} {name}", []).append(k[name])
+    return {tree: {k: [statistics.median(v), min(v), max(v)] for k, v in d.items()}
+            for tree, d in per.items()}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="*", default=[str(ROOT)], help="roots of the checkouts")
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--calls", type=int, default=2, help="serve calls a process")
+    ap.add_argument("--out", default=None, help="also write every line to this JSON file")
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(child(pathlib.Path(args.child), args.calls)), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_serve_ab: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    trees = [pathlib.Path(t).resolve() for t in args.trees]
+    results = []
+    for rnd in range(args.rounds):
+        for tree in (trees if rnd % 2 == 0 else trees[::-1]):
+            proc = subprocess.run([sys.executable, __file__, "--child", str(tree),
+                                   "--calls", str(args.calls)],
+                                  capture_output=True, text=True, timeout=1800)
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:], file=sys.stderr)
+                return 1
+            row = {"round": rnd, **json.loads(proc.stdout.strip().splitlines()[-1])}
+            results.append(row)
+            print(json.dumps(row), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    device = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    done = {"device": device, "median_min_max": summary(results)}
+    print(json.dumps(done), flush=True)
+    if args.out:
+        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(args.out).write_text(json.dumps({"runs": results, **done}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
