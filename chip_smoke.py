@@ -72,14 +72,18 @@ path's launch counts are set to 0 just before it and read just after:
  14. build the engine; the memory it allocates must stay within 5% of its
      tree (int8 matrices, f32 scales, bf16 embedding and norms);
  15. the three serve calls of phases 3-4, with the peak memory over them;
-     both K4 regimes, K1 and K2 must all launch;
+     both K4 regimes, the grouped call (q/k/v, gate/up), K1 and K2 must all
+     launch, and the GEMV regime must make one kernel launch a call;
  16. K4 against its plain version at every (shape, dtypes) the path gave it,
-     held to the same elementwise tolerance; the kernel on x with its last
-     32 columns zeroed (its last k tile dropped) must fail it; each launch is
-     timed alone after a 64 MB write evicts the L2 cache, as a decode step
-     finds a layer's weights; the host's cost of a call is timed beside
-     torch.matmul's;
- 17. the profile of phase 7 for the int8 shared-prefix greedy call;
+     single and grouped (each output against its own weight's plain
+     product), and the GEMV calls of a decode step again at the study's
+     batch of 48, held to the same elementwise tolerance; the kernel on x
+     with its last 32 columns zeroed (its last k tile dropped) must fail it;
+     each launch is timed alone after a 64 MB write evicts the L2 cache, as
+     a decode step finds a layer's weights; the host's cost of a call is
+     timed beside torch.matmul's (over the group's weights side by side);
+ 17. the profile of phase 7 for the int8 shared-prefix greedy call, with
+     the K4 GEMV kernel's device ms and launches a step beside K2's;
  18. the teacher-forced check of phase 9 with K4 swapped for its plain
      version too: reported in bf16 at 32 layers, held to 1e-3 in float32
      at 4 layers.
@@ -118,6 +122,9 @@ PROFILE_TOKENS = 16
 STUDY_BATCH = 48
 # Device kernels whose traced time the plain decode profiles report.
 K2_FOCUS = ("decode_split_tc", "combine_splits")
+# The K4 GEMV kernel, whose traced time and launches the int8 profile
+# reports beside K2's.
+K4_FOCUS = ("gemv_stream_tc",)
 K1_REPLACES = "fairness_llm_tpu/ops/flash_attention.py:148"
 K2_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:413"
 K2Q_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:191"
@@ -133,7 +140,7 @@ KERNEL_FUNCTIONS = {
     "decode_attention_verify": "decode_verify_tc",
     "decode_attention_int8_cache": "decode_split_tc",
     "decode_attention_verify_int8_cache": "decode_verify_tc",
-    "quant_matmul_gemv": "tc_kernel",
+    "quant_matmul_gemv": "gemv_stream_tc",
     "quant_matmul_gemm": "wg_gemm_kernel",
 }
 # The int8 engine's allocation may exceed its tree by this share at most.
@@ -291,8 +298,9 @@ class Recorder:
 
 
 class WeightRecorder(Recorder):
-    """A Recorder for ``quant_matmul(x, wq, scale, out_dtype=...)``: it
-    clones x only. The weight and scale are the engine's parameters, never
+    """A Recorder for ``quant_matmul(x, wq, scale, out_dtype=...)`` and
+    ``quant_matmul_group(x, [(wq, scale), ...], out_dtype=...)``: it clones
+    x only. The weights and scales are the engine's parameters, never
     written, so they are kept by reference: one copy whatever M."""
 
     def store(self, args, kwargs) -> dict:
@@ -502,62 +510,97 @@ def decode_numbers(call, torch, F):
 
 
 def k4_numbers(call, torch, flush):
+    """K4 at one recorded call: ``quant_matmul`` (key "k4") or a grouped
+    call of the weights that share x (key "group"), each output against the
+    plain product of its own weight."""
     from fairness_llm_tpu_torch.ops import quant_matmul as qm
 
-    x, wq, scale = call["args"]
+    x, rest = call["args"][0], call["args"][1:]
     od = call["kwargs"].get("out_dtype") or x.dtype
+    grouped = call["group"]
+    mats = list(rest[0]) if grouped else [tuple(rest[:2])]
     M, K = x.shape
-    N = wq.shape[1]
-    got = qm.quant_matmul(x, wq, scale, out_dtype=od)
-    want = qm.quant_matmul_reference(x, wq, scale, od)
-    err, ratio = gate(got, want)
+    Ns = [wq.shape[1] for wq, _ in mats]
+
+    def run(xx):
+        if grouped:
+            return qm.quant_matmul_group(xx, mats, out_dtype=od)
+        return [qm.quant_matmul(xx, *mats[0], out_dtype=od)]
+
+    def plain():
+        return [qm.quant_matmul_reference(x, wq, scale, od) for wq, scale in mats]
+
+    want = plain()
+    errs = [gate(g, w) for g, w in zip(run(x), want)]
     # The kernel on x with its last 32 columns zeroed: the gate must see a
-    # kernel that drops its last k tile (32 or 64 wide).
+    # kernel that drops its last k tile (32 or 64 wide), in every output.
     cut = x.clone()
     cut[:, -32:] = 0
-    _, cut_ratio = gate(qm.quant_matmul(cut, wq, scale, out_dtype=od), want)
-    del got, want, cut
-    flops = 2.0 * M * K * N
+    cut_ratio = min(gate(g, w)[1] for g, w in zip(run(cut), want))
+    del want, cut
+    flops = 2.0 * M * K * sum(Ns)
     iters = 5 if flops > 1e12 else 20
-    ms = cuda_ms_cold(lambda: qm.quant_matmul(x, wq, scale, out_dtype=od), iters, flush)
-    plain_ms = cuda_ms_cold(lambda: qm.quant_matmul_reference(x, wq, scale, od),
-                            max(2, iters // 2), flush)
-    # Yardsticks, never called by the port: one torch.matmul over the weight
-    # dequantized to x's dtype beforehand (library_ms), and PyTorch's own
-    # int8-weight product where this build has it on the card.
-    wd = qm.dequantize_weight(wq, scale, x.dtype)
+    ms = cuda_ms_cold(lambda: run(x), iters, flush)
+    plain_ms = cuda_ms_cold(plain, max(2, iters // 2), flush)
+    # Yardsticks, never called by the port: one torch.matmul over the
+    # weights dequantized to x's dtype beforehand and, for a group, laid
+    # side by side (library_ms), and PyTorch's own int8-weight product where
+    # this build has it on the card (one weight only).
+    wd = torch.cat([qm.dequantize_weight(wq, scale, x.dtype) for wq, scale in mats], 1)
     library_ms = cuda_ms_cold(lambda: torch.matmul(x, wd), iters, flush)
     # What a call costs the host: the decode step is host-bound.
-    wrapper_host_us = host_us(lambda: qm.quant_matmul(x, wq, scale, out_dtype=od))
+    wrapper_host_us = host_us(lambda: run(x))
     library_host_us = host_us(lambda: torch.matmul(x, wd))
     del wd
     int8pack_ms, int8pack_error = None, None
-    if x.dtype == torch.bfloat16:
-        wt, sc = wq.t().contiguous(), scale.to(x.dtype)
+    if x.dtype == torch.bfloat16 and not grouped:
+        wt, sc = mats[0][0].t().contiguous(), mats[0][1].to(x.dtype)
         try:
             int8pack_ms = cuda_ms_cold(lambda: torch._weight_int8pack_mm(x, wt, sc), iters, flush)
         except RuntimeError as e:  # a yardstick only: its absence is recorded
             int8pack_error = str(e).splitlines()[0][:160]
         del wt, sc
-    # Bound: the int8 weight, the scales, x and the output each moved once,
+    # Bound: the int8 weights, the scales, x and the outputs each moved once,
     # or 2*M*K*N operations at the peak for x's type, whichever is longer.
-    nbytes = K * N + 4 * N + M * K * x.element_size() + M * N * torch.finfo(od).bits // 8
+    nbytes = (K * sum(Ns) + 4 * sum(Ns) + M * K * x.element_size()
+              + M * sum(Ns) * torch.finfo(od).bits // 8)
     peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    err = max(e for e, _ in errs)
+    ratio = max(r for _, r in errs)
     return {
-        "regime": "gemv" if M <= qm.GEMV_MAX_M else "gemm",
-        **rates(flops, ms, peak),
-        "shape": {"M": M, "K": K, "N": N, "x": str(x.dtype)[6:], "out": str(od)[6:]},
+        "regime": "gemv" if M <= qm.GEMV_MAX_M else "gemm", **rates(flops, ms, peak),
+        "shape": {"M": M, "K": K, "N": Ns if grouped else Ns[0], "x": str(x.dtype)[6:],
+                  "out": str(od)[6:], **({"group": len(mats)} if grouped else {})},
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
         "blind_gate_err_over_tol": cut_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_call": "torch.matmul(x, weight dequantized to x's dtype)",
+        "library_call": "torch.matmul(x, weight dequantized to x's dtype"
+                        + (", the group's side by side)" if grouped else ")"),
         "host_us": wrapper_host_us, "library_host_us": library_host_us,
         "int8pack_ms": int8pack_ms, "int8pack_error": int8pack_error,
-        "bound_ms": max(t_ops, t_bytes),
+        "bound_ms": max(t_ops, t_bytes), "bound_share": max(t_ops, t_bytes) / ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+
+
+def k4_study_rows(calls, torch, flush, batch: int = STUDY_BATCH):
+    """The K4 GEMV at the study's decode batch: each of the path's decode
+    step calls (M = 16) with x's rows repeated up to ``batch``, numbered and
+    held as the path's own (times reported, the tolerance and blind check
+    gated by ``check_rows``)."""
+    rows = []
+    for call in calls:
+        x = call["args"][0]
+        if x.shape[0] != 16:
+            continue
+        big = {**call, "n": 0, "args": (torch.cat([x] * -(-batch // 16))[:batch].contiguous(),
+                                        *call["args"][1:])}
+        row = k4_numbers(big, torch, flush)
+        row["study_batch"] = True
+        rows.append(row)
+    return rows
 
 
 def int8_tree_bytes(cfg) -> int:
@@ -579,7 +622,7 @@ def profiled_decode(backend, prompts, prefix, settings, torch, focus=()):
     intervals over the traced call's span, so it counts launch gaps as idle;
     tracing slows the host, so it is a lower bound for the untraced call.
     ``focus_ms`` sums the device time of the kernels whose names hold each
-    string of ``focus``."""
+    string of ``focus``, ``focus_launches_per_step`` counts their launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -610,9 +653,10 @@ def profiled_decode(backend, prompts, prefix, settings, torch, focus=()):
         fail("the traced decode call shows no device activity")
     t0 = min(span.time_range.start, dev[0][0])
     t1 = max(span.time_range.end, max(d[1] for d in dev))
-    busy, cur_s, cur_e, by_name = 0.0, None, None, {}
+    busy, cur_s, cur_e, by_name, count = 0.0, None, None, {}, {}
     for start, end, name in dev:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
+        count[name] = count.get(name, 0) + 1
         if cur_e is None or start > cur_e:
             if cur_e is not None:
                 busy += cur_e - cur_s
@@ -630,6 +674,9 @@ def profiled_decode(backend, prompts, prefix, settings, torch, focus=()):
         "focus_ms": {f: sum(us for n, us in by_name.items() if f in n) / 1e3 for f in focus},
         "focus_ms_per_step": {f: sum(us for n, us in by_name.items() if f in n) / 1e3
                               / max(backend.last_stats["decode_steps"], 1) for f in focus},
+        "focus_launches_per_step": {f: sum(c for n, c in count.items() if f in n)
+                                    / max(backend.last_stats["decode_steps"], 1)
+                                    for f in focus},
     }
 
 
@@ -666,14 +713,16 @@ def teacher_forced_check(engine, prompts, torch):
         return torch.stack(out)
 
     got = run()
-    kernels = (fm.flash_attention, dm.decode_attention, qm.quant_matmul)
+    kernels = (fm.flash_attention, dm.decode_attention, qm.quant_matmul, qm.quant_matmul_group)
     fm.flash_attention = fm.flash_attention_reference
     dm.decode_attention = dm.decode_attention_reference
     qm.quant_matmul = qm.quant_matmul_reference
+    qm.quant_matmul_group = qm.quant_matmul_group_reference
     try:
         want = run()
     finally:
-        fm.flash_attention, dm.decode_attention, qm.quant_matmul = kernels
+        (fm.flash_attention, dm.decode_attention, qm.quant_matmul,
+         qm.quant_matmul_group) = kernels
     diff = float((got - want).abs().max())
     scale = float(want.abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
@@ -1116,13 +1165,18 @@ def int8_path(torch, prompts, keys, greedy, sampled):
                           lambda x, wq, scale, out_dtype=None:
                           ("k4", tuple(x.shape), tuple(wq.shape), str(x.dtype),
                            str(out_dtype or x.dtype)))
+    recg = WeightRecorder(qm, "quant_matmul_group",
+                          lambda x, mats, out_dtype=None:
+                          ("group", tuple(x.shape), tuple(tuple(w.shape) for w, _ in mats),
+                           str(x.dtype), str(out_dtype or x.dtype)))
     zero_counts(dec_mod, flash_mod)
-    qm.gemv_launches = qm.gemm_launches = 0
+    qm.gemv_launches = qm.gemm_launches = qm.group_launches = 0
     torch.cuda.reset_peak_memory_stats()
-    with rec4:
+    with rec4, recg:
         serve_three(backend, prompts, keys, prefix, greedy, sampled, "int8_")
     peak = torch.cuda.max_memory_allocated()
     launches = {"quant_matmul_gemv": qm.gemv_launches, "quant_matmul_gemm": qm.gemm_launches,
+                "quant_matmul_group": qm.group_launches,
                 "flash_attention": flash_mod.launches,
                 "flash_attention_tc": flash_mod.tc_launches, "decode_attention": dec_mod.launches,
                 "decode_attention_tc": dec_mod.decode_tc_launches}
@@ -1133,11 +1187,31 @@ def int8_path(torch, prompts, keys, greedy, sampled):
             fail(f"{name} was not launched on the int8 main path")
     need_all_tc(launches, "int8 main")
     need_all_tc(launches, "int8 main", "decode_attention", "decode_attention_tc")
+    # One kernel launch for each GEMV call: a grouped call in the GEMV
+    # regime makes no quant_matmul call of its own.
+    for key, call in rec4.calls.items():
+        call["group"] = False
+    for key, call in recg.calls.items():
+        call["group"] = True
+    # A grouped call past the GEMV regime is one quant_matmul call a weight,
+    # each recorded (and given its row) on its own.
+    calls = list(rec4.calls.values()) + [c for c in recg.calls.values()
+                                         if c["args"][0].shape[0] <= qm.GEMV_MAX_M]
+    gemv_calls = sum(c["n"] for c in calls if c["args"][0].shape[0] <= qm.GEMV_MAX_M)
+    group_calls = sum(c["n"] for c in calls if c["group"])
+    log(f"int8 K4 GEMV calls {gemv_calls} (grouped {group_calls}), kernel launches "
+        f"{launches['quant_matmul_gemv']}")
+    if launches["quant_matmul_gemv"] != gemv_calls or launches["quant_matmul_group"] != group_calls:
+        fail(f"{gemv_calls} K4 GEMV calls ({group_calls} grouped) made "
+             f"{launches['quant_matmul_gemv']} launches ({launches['quant_matmul_group']})")
 
-    # 16. K4 against its plain version at every shape and dtype pair
+    # 16. K4 against its plain version at every shape and dtype pair, and
+    # the GEMV at the study's batch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    rows = [k4_numbers(call, torch, flush) for call in rec4.calls.values()]
-    del flush, rec4
+    rows = [k4_numbers(call, torch, flush) for call in calls]
+    rows += k4_study_rows([c for c in calls if c["args"][0].shape[0] <= qm.GEMV_MAX_M], torch,
+                          flush)
+    del flush, rec4, recg, calls
     kernels = []
     for regime in ("gemv", "gemm"):
         name = f"quant_matmul_{regime}"
@@ -1148,7 +1222,7 @@ def int8_path(torch, prompts, keys, greedy, sampled):
     # 17. where an int8 decode call's time goes
     prof_row = profiled_decode(backend, prompts, prefix,
                                ModelSettings(temperature=0.0, max_tokens=PROFILE_TOKENS), torch,
-                               focus=K2_FOCUS)
+                               focus=K2_FOCUS + K4_FOCUS)
     log(f"profile_int8_shared_prefix_greedy {json.dumps(prof_row)}")
 
     # 18. end-to-end check with K4 swapped for its plain version too

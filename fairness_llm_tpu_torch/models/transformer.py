@@ -14,7 +14,8 @@ Under ``weight_quant == "int8"`` every projection and an untied ``lm_head``
 is a ``QuantDense``: an int8 kernel ``kernel_q`` [in, out] with f32
 per-output-channel ``kernel_scale`` [out], multiplied by the hand-written
 int8-weight kernel (``ops/quant_matmul``); no float copy of the weight is
-made. The embedding and the norms stay float.
+made. The projections that read the same x (q/k/v, gate/up) go through one
+grouped call (``_project``). The embedding and the norms stay float.
 
 Unlike the reference's functional cache, the KV cache here is updated in
 place: the forward writes the new keys and values into the preallocated
@@ -200,6 +201,25 @@ class QuantDense(nn.Module):
         return y
 
 
+def _project(projs, x):
+    """Each projection of ``projs`` applied to the same x (q/k/v, gate/up).
+    int8 ones go through one ``quant_matmul_group`` call: the products the
+    reference's separate ``QuantDense`` calls compute, each bias added after
+    its own."""
+    p0 = projs[0]
+    if not isinstance(p0, QuantDense):
+        return [p(x) for p in projs]
+    lead = x.shape[:-1]
+    ys = quant_ops.quant_matmul_group(x.reshape(-1, x.shape[-1]).to(p0.dtype),
+                                      [(p.kernel_q, p.kernel_scale) for p in projs],
+                                      out_dtype=p0.out_dtype)
+    out = []
+    for p, y in zip(projs, ys):
+        y = y.reshape(*lead, y.shape[-1])
+        out.append(y if p.bias is None else y + p.bias.to(y.dtype))
+    return out
+
+
 def _projection(config: ModelConfig, in_features: int, out_features: int, bias: bool) -> nn.Module:
     """The projection ``weight_quant`` asks for: ``QuantDense`` or ``Dense``."""
     if config.weight_quant == "int8":
@@ -302,9 +322,10 @@ class Attention(nn.Module):
         dtype = dtype_of(cfg)
         B, S, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = self.q_proj(x).reshape(B, S, H, D)
-        k = self.k_proj(x).reshape(B, S, Hkv, D)
-        v = self.v_proj(x).reshape(B, S, Hkv, D)
+        q, k, v = _project((self.q_proj, self.k_proj, self.v_proj), x)
+        q = q.reshape(B, S, H, D)
+        k = k.reshape(B, S, Hkv, D)
+        v = v.reshape(B, S, Hkv, D)
         if cfg.pos_emb == "rope":
             cos, sin = rope_cs or rope_tables(positions, D, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
@@ -418,7 +439,8 @@ class MLP(nn.Module):
 
     def forward(self, x):
         if self.config.mlp == "glu":
-            h = self.act(self.gate_proj(x)) * self.up_proj(x)
+            gate, up = _project((self.gate_proj, self.up_proj), x)
+            h = self.act(gate) * up
         else:
             h = self.act(self.up_proj(x))
         return self.down_proj(h)

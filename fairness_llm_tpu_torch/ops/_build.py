@@ -14,6 +14,7 @@ boundary; ``rows_aligned16`` and ``pad_last_dim`` let a wrapper meet that.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import pathlib
 import shutil
@@ -114,6 +115,30 @@ def current_stream(device: torch.device) -> int:
     time)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def grown(cache: dict, key, numel: int, dtype: torch.dtype, device: torch.device,
+          zero: bool = False) -> torch.Tensor:
+    """``cache[key]``, a 1-D scratch tensor kept between calls and replaced
+    by a larger one (zero-filled if ``zero``) only when a call needs more.
+    A kernel's workspace is keyed by (device, stream): calls on one stream
+    run in order, so a call's kernels write it only after the previous
+    call's have read it."""
+    buf = cache.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = cache[key] = (torch.zeros if zero else torch.empty)(numel, dtype=dtype,
+                                                                 device=device)
+    return buf
 
 
 def check(status: int, what: str) -> None:

@@ -13,25 +13,51 @@
 //
 // Two regimes; the wrapper picks one from M.
 //
-// quant_matmul_gemv (M <= 64: the decode step, M = the batch). Bound by
-// bytes: 2*M operations per weight byte, and the weight is read once, so the
-// bound is K*N bytes over the H100 SXM's 3.35 TB/s at 700 W (gate/up of
-// llama3-8b: 58.7 MB, ~17.5 us). A block owns 128 columns and a slice of K:
-// where N alone gives too few blocks (k/v_proj: N = 1024, 8 column tiles on
-// a 132-SM card), K is split across blocks, each split writes an f32
-// partial [M,N], and a second kernel sums the splits in order, applies the
-// scale and casts, so the result does not depend on the order blocks run
-// in. The products run on mma.sync m16n8k16 bf16 tiles with f32
-// accumulation, with tiles of 16, 32 or 64 rows and k tiles of 64, on 8
-// warps side by side, each 16 columns wide: x tiles and int8 weight tiles
-// stream through a four-stage cp.async pipeline with 16-byte loads; each
-// weight tile is converted once to bf16 in shared memory and read as the B
-// operand with ldmatrix.trans (the N-contiguous layout is the transpose of
-// what mma wants); rows are padded by 16 bytes so ldmatrix reads are free of
-// bank conflicts. A first version did the products as f32 FMAs on the CUDA
-// cores, ~23 instructions per weight byte, and was bound by instruction
-// throughput at 5.7x the byte bound (gate/up 101 us on an H100 80GB HBM3 at
-// 700 W); converting the tile once and handing it to mma leaves ~3.
+// GEMV (M <= 64: the decode step, M = the batch), bf16 x: gemv_stream_tc,
+// entry quant_matmul_stream. Bound by bytes: 2*M operations per weight byte,
+// and the weight is read once, so the bound is K*N bytes over the H100 SXM's
+// 3.35 TB/s at 700 W (gate/up of llama3-8b: 58.7 MB, ~17.5 us). One launch
+// takes up to three weights that share x (q/k/v, gate/up) and computes all
+// their outputs. The design:
+// - A persistent grid of at most one block an SM. The weights' column tiles
+//   (256 wide, or 128 where runs would be short: o_proj) times their 64-row
+//   k tiles are one list of tile steps, cut into equal contiguous runs, one
+//   a block (gemv_plan in ops/quant_matmul.py), so every SM streams the same
+//   share of the bytes and no tail wave is left. A run crosses column tiles;
+//   its piece of one column tile is a unit, and a column tile is split
+//   across the blocks whose runs cover it.
+// - A producer warp keeps a ring of 64 KB of weight (4 stages of 256
+//   columns or 8 of 128; the weight tile by TMA, 128B-swizzled, x's tile by
+//   cp.async) in flight across unit boundaries against full/empty
+//   mbarriers, so short units do not drain it. Deeper rings, and L2
+//   prefetches ahead of the ring, measured slower.
+//   x rides in each stage (2-8 KB from L2): a unit's x range at M = 64 can
+//   exceed shared memory, and the bytes that bound the kernel are the
+//   weight's.
+// - Eight consumer warps meet at no block-wide barrier per tile. Each owns 32
+//   columns (at 128 columns, and half the tile's k rows: the two halves add
+//   up in shared memory at a unit's end) and converts only the weight it
+//   multiplies, straight from the swizzled int8 tile into mma.sync B
+//   fragments in registers (the register route): no bf16 copy is written to
+//   and read back from shared memory, and no barrier orders a conversion
+//   against the products of another warp.
+//   The conversion is what bounds the consumers: the integer pipe issues
+//   at half the FP32 rate, and a first version spent ~70 integer ops on 16
+//   weight bytes (PRMT, or LOP3 pairs that ptxas split). Now a byte takes
+//   one LOP3 and one FADD, a bf16 pair one shift-add, 16 bytes 28 integer
+//   ops.
+//   The words a thread reads are the k rows its B fragment needs, so x's A
+//   fragments come by ldmatrix in the natural order; each byte of a word is
+//   a different n8 tile, and the epilogue maps columns back (gs_row).
+// - The split-K reduce inside: a unit that covers part of a column tile
+//   writes its f32 partial into a workspace slot and raises the tile's
+//   arrival counter; the block that arrives last sums the partials in split
+//   order (so repeated calls agree bit for bit), scales, casts, stores and
+//   sets the counter back to 0. A tile one unit covers is stored directly.
+// The plan caps a column tile's splits at about 8 (a weight as narrow as
+// k/v alone then uses fewer blocks), since the last block reads them all.
+// float32 x in this regime: f32_kernel, K split across blocks by
+// quant_matmul_gemv, and splitk_reduce.
 //
 // quant_matmul_gemm (M > 64: prefill). Bound by operations (2*M*K*N; a
 // no-prefix prefill of llama3-8b is ~200 TFLOP against 989 TFLOP/s bf16).
@@ -62,7 +88,7 @@
 // Ragged edges: rows of x past M, k past K and columns past N are
 // zero-filled when staged (by cp.async, or by TMA's out-of-bounds fill) and
 // never stored. The wrapper hands in N a multiple of 16 and 16-byte aligned
-// rows (it pads where they are not). A persistent schedule comes later.
+// rows (it pads where they are not).
 
 #include <cuda.h>
 
@@ -74,7 +100,6 @@ namespace {
 using attn::cp_async16;
 using attn::cp_async_commit;
 using attn::cp_async_wait;
-using attn::from_f;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -213,26 +238,24 @@ f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// out = cast(scale * sum over splits of partial), in split order.
-template <typename TO>
+// out = scale * sum over splits of partial, in split order (float32 x).
 __global__ void __launch_bounds__(kThreads)
 splitk_reduce(const float* __restrict__ partial, const float* __restrict__ scale,
-              TO* __restrict__ out, int M, int N, int splits) {
+              float* __restrict__ out, int M, int N, int splits) {
   const long long total = (long long)M * N;
   for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < total;
        i += (long long)gridDim.x * kThreads) {
     float s = 0.f;
     for (int p = 0; p < splits; ++p) s += partial[p * total + i];
-    out[i] = from_f<TO>(s * scale[i % N]);
+    out[i] = s * scale[i % N];
   }
 }
 
-template <typename TO>
 cudaError_t reduce_launch(const float* partial, const float* scale, void* out, int M, int N,
                           int splits, cudaStream_t stream) {
   const long long blocks = ((long long)M * N + kThreads - 1) / kThreads;
-  splitk_reduce<TO><<<(int)(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
-      partial, scale, static_cast<TO*>(out), M, N, splits);
+  splitk_reduce<<<(int)(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
+      partial, scale, static_cast<float*>(out), M, N, splits);
   return cudaGetLastError();
 }
 
@@ -251,7 +274,7 @@ cudaError_t f32_launch(const void* x, const void* w, const float* scale, void* o
       static_cast<float*>(out), splits > 1 ? partial : nullptr, M, K, N, ldx, k_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  return reduce_launch<float>(partial, scale, out, M, N, splits, stream);
+  return reduce_launch(partial, scale, out, M, N, splits, stream);
 }
 
 #define F32_ARGS x, w, scale, out, partial, M, K, N, ldx, splits, k_per_split, mchunks, stream
@@ -270,14 +293,10 @@ cudaError_t f32_dispatch(const void* x, const void* w, const float* scale, void*
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync kernel (bf16 x): the GEMV regime's bf16 path
+// Pieces shared by the GEMM and the GEMV stream kernel
 // ---------------------------------------------------------------------------
 
-constexpr int TC_BN = 128;  // columns per block
-constexpr int TC_STAGES = 4;
-
 using frag::ldsm_x4;
-using frag::ldsm_x4_trans;
 using frag::mma_bf16;
 using frag::pack_bf16x2;
 
@@ -287,188 +306,6 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Shared memory of one tile shape: TC_STAGES x (x tile [BM][BK + 8] bf16,
-// weight tile [BK][TC_BN] int8), then the converted tile [BK][TC_BN + 8]
-// bf16. The 8 spare elements a row (16 bytes) put the 8 rows one ldmatrix
-// reads in distinct banks.
-template <int BM, int BK>
-struct TcTile {
-  static constexpr int XS = BK + 8;
-  static constexpr int BS = TC_BN + 8;
-  static constexpr int X_BYTES = BM * XS * 2;
-  static constexpr int W_BYTES = BK * TC_BN;
-  static constexpr int STAGE = X_BYTES + W_BYTES;
-  static constexpr int SMEM = TC_STAGES * STAGE + BK * BS * 2;
-};
-
-// Block (column tile, row tile, K split): output [BM, TC_BN] on WM x WN
-// warps, each warp a (BM / WM) x (TC_BN / WN) tile of m16n8 products.
-// Split s sums k in [s * k_per_split, ...); `partial` is null when the block
-// applies the scale and writes `out` itself (one split), else [splits, M, N].
-template <typename TO, int BM, int BK, int WM, int WN>
-__global__ void __launch_bounds__(kThreads)
-tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-          const float* __restrict__ scale, TO* __restrict__ out, float* __restrict__ partial,
-          int M, int K, int N, int ldx, int k_per_split) {
-  using T = TcTile<BM, BK>;
-  constexpr int MT = BM / WM / 16;    // m16 tiles a warp
-  constexpr int NT = TC_BN / WN / 8;  // n8 tiles a warp
-  static_assert(WM * WN == kWarps && MT >= 1 && NT % 2 == 0, "warp layout");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % WM, wn = warp / WM;
-  const int n0 = blockIdx.x * TC_BN, m0 = blockIdx.y * BM;
-  const int kb = blockIdx.z * k_per_split;
-  const int ke = min(K, kb + k_per_split);
-  const int ntiles = ke > kb ? (ke - kb + BK - 1) / BK : 0;
-
-  auto xtile = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(smem + st * T::STAGE); };
-  auto wtile = [&](int st) { return reinterpret_cast<int8_t*>(smem + st * T::STAGE + T::X_BYTES); };
-  __nv_bfloat16* bconv = reinterpret_cast<__nv_bfloat16*>(smem + TC_STAGES * T::STAGE);
-
-  auto stage = [&](int t) {
-    const int k0 = kb + t * BK, st = t % TC_STAGES;
-    __nv_bfloat16* xd = xtile(st);
-    for (int i = threadIdx.x; i < BM * (BK / 8); i += kThreads) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      // A chunk that starts before ke ends before it, or runs into the zero
-      // padding of a row past K.
-      const bool ok = m0 + r < M && k0 + c < ke;
-      cp_async16(xd + r * T::XS + c, ok ? x + (long long)(m0 + r) * ldx + k0 + c : x, ok);
-    }
-    int8_t* wd = wtile(st);
-    for (int i = threadIdx.x; i < BK * (TC_BN / 16); i += kThreads) {
-      const int r = i / (TC_BN / 16), c = (i % (TC_BN / 16)) * 16;
-      const bool ok = k0 + r < ke && n0 + c < N;
-      cp_async16(wd + r * TC_BN + c, ok ? w + (long long)(k0 + r) * N + n0 + c : w, ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < TC_STAGES - 1; ++s) {
-    if (s < ntiles) stage(s);
-    cp_async_commit();
-  }
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<TC_STAGES - 2>();
-    __syncthreads();  // tile t landed; every warp is done with tile t - 1 and bconv
-    if (t + TC_STAGES - 1 < ntiles) stage(t + TC_STAGES - 1);
-    cp_async_commit();
-
-    // The weight tile to bf16, 16 values per thread and pass.
-    const int8_t* wt = wtile(t % TC_STAGES);
-#pragma unroll
-    for (int i = threadIdx.x; i < BK * (TC_BN / 16); i += kThreads) {
-      const int r = i / (TC_BN / 16), c = (i % (TC_BN / 16)) * 16;
-      const uint4 raw = *reinterpret_cast<const uint4*>(wt + r * TC_BN + c);
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      uint32_t packed[8];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float f[4];
-        i8x4_to_f32(words[q], f);
-        packed[2 * q] = pack_bf16x2(f[0], f[1]);
-        packed[2 * q + 1] = pack_bf16x2(f[2], f[3]);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(bconv + r * T::BS + c);
-      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-    }
-    __syncthreads();
-
-    const __nv_bfloat16* xs = xtile(t % TC_STAGES);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t a[MT][4], b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldsm_x4(a[i], xs + ((wm * MT + i) * 16 + lane % 16) * T::XS + ks + (lane / 16) * 8);
-      // One x4.trans load: rows k (8 + 8), columns n (8 + 8) = two n8 B fragments.
-#pragma unroll
-      for (int jj = 0; jj < NT / 2; ++jj) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, bconv + (ks + lane % 8 + ((lane / 8) % 2) * 8) * T::BS +
-                             (wn * NT + 2 * jj) * 8 + (lane / 16) * 8);
-        b[2 * jj][0] = r[0];
-        b[2 * jj][1] = r[1];
-        b[2 * jj + 1][0] = r[2];
-        b[2 * jj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Accumulator fragment: c0, c1 at (row g, cols 2q, 2q+1); c2, c3 at row g + 8.
-  const int g = lane / 4, q2 = (lane % 4) * 2;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = n0 + (wn * NT + j) * 8 + q2;
-    if (col >= N) continue;  // N is even, so col + 1 < N too
-    const float s0 = scale[col], s1 = scale[col + 1];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + (wm * MT + i) * 16 + g + 8 * h;
-        if (row >= M) continue;
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (partial != nullptr)
-          store2(partial + ((long long)blockIdx.z * M + row) * N + col, v0, v1);
-        else
-          store2(out + (long long)row * N + col, v0 * s0, v1 * s1);
-      }
-    }
-  }
-}
-
-template <typename TO, int BM, int BK, int WM, int WN>
-cudaError_t tc_launch(const void* x, const void* w, const float* scale, void* out,
-                      float* partial, int M, int K, int N, int ldx, int splits,
-                      int k_per_split, cudaStream_t stream) {
-  using T = TcTile<BM, BK>;
-  auto kernel = tc_kernel<TO, BM, BK, WM, WN>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + TC_BN - 1) / TC_BN, (M + BM - 1) / BM, splits);
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  kernel<<<grid, kThreads, T::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
-      static_cast<TO*>(out), splits > 1 ? partial : nullptr, M, K, N, ldx, k_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  return reduce_launch<TO>(partial, scale, out, M, N, splits, stream);
-}
-
-// GEMV regime, bf16 x: BM = 16, 32 or 64 rows on 8 warps side by side, each
-// 16 columns wide and all rows deep, over k tiles of 64.
-template <typename TO>
-cudaError_t tc_gemv_dispatch(const void* x, const void* w, const float* scale, void* out,
-                             float* partial, int M, int K, int N, int ldx, int splits,
-                             int k_per_split, cudaStream_t stream) {
-  if (M > 32)
-    return tc_launch<TO, 64, 64, 1, 8>(x, w, scale, out, partial, M, K, N, ldx, splits,
-                                       k_per_split, stream);
-  if (M > 16)
-    return tc_launch<TO, 32, 64, 1, 8>(x, w, scale, out, partial, M, K, N, ldx, splits,
-                                       k_per_split, stream);
-  return tc_launch<TO, 16, 64, 1, 8>(x, w, scale, out, partial, M, K, N, ldx, splits,
-                                     k_per_split, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -841,6 +678,486 @@ bool shapes_ok(int xdtype, const void* x, const void* w, int M, int K, int N, in
          attn::aligned16(x) && attn::aligned16(w);
 }
 
+// ---------------------------------------------------------------------------
+// GEMV regime, bf16 x: gemv_stream_tc, a persistent weight-streaming kernel
+// with its split-K reduce inside
+// ---------------------------------------------------------------------------
+
+constexpr int GS_BK = 64;         // k rows a ring stage
+constexpr int GS_BOX = 128;       // columns a TMA box: 128 bytes, the swizzle's width
+constexpr int GS_BOX_BYTES = GS_BK * GS_BOX;  // 8 KB
+constexpr int GS_CONSUMERS = 8;   // consumer warps; warp 8 is the producer
+constexpr int GS_THREADS = GS_CONSUMERS * 32 + 32;
+constexpr int GS_MAX_GROUP = 3;   // weights one launch takes
+// Ring stages of 256-column tiles: 4 (64 KB of weight in flight an SM)
+// measured faster than 6, 8 or the 12 that fit on the main path's weights
+// (tools/torch_k4_variants.py). 128-column tiles take twice as many.
+constexpr int GS_STAGES = 4;
+
+// The ring of one row-tile height BM and column-tile width BN: its stages,
+// each the weight tile (BN / 128 TMA boxes [64][128], 128B-swizzled) and the
+// x tile [BM][64] bf16 (128 bytes a row, its 16-byte chunks swizzled the
+// same way); at BN = 128 the scratch where the two k halves of a tile meet;
+// then the barriers.
+template <int BM, int BN>
+struct GsRing {
+  static constexpr int W_STAGE = GS_BK * BN;
+  static constexpr int X_STAGE = BM * GS_BK * 2;
+  static constexpr int STAGE = W_STAGE + X_STAGE;  // a multiple of 1024
+  static constexpr int STAGES = GS_STAGES * 256 / BN;
+  static constexpr int SCRATCH = BN == 256 ? 0 : 128 * (BM / 16) * 16 * 4;
+  static constexpr int TAIL = 256;  // full and empty barriers, the last-arrival flag
+  static constexpr int SMEM = 1024 /* alignment slack */ + STAGES * STAGE + SCRATCH + TAIL;
+  static_assert(BN == 128 || BN == 256, "column tiles of 128 or 256");
+  static_assert(2 * STAGES * 8 + 4 <= TAIL, "the barriers fit the tail");
+  static_assert(SMEM <= 232448, "over the H100's opt-in shared memory a block");
+};
+
+// A group of weights that share K and x, set up once per group
+// (quant_matmul_stream_prepare) and copied into every launch's parameters.
+// Column tiles are numbered across the group: weight i owns tiles
+// [tile_base[i], tile_base[i + 1]).
+struct GsGroup {
+  CUtensorMap wmap[GS_MAX_GROUP];  // wq [K][N] int8, boxes of 128 columns x 64 k
+  const float* scale[GS_MAX_GROUP];
+  int N[GS_MAX_GROUP];
+  int tile_base[GS_MAX_GROUP + 1];
+  int col[GS_MAX_GROUP];  // first column of weight i's output in the [M, total] buffer
+  int ngroups, K, KT, total, blocks, bn;  // bn: the column tiles' width, 128 or 256
+};
+
+struct GsArgs {
+  GsGroup grp;
+  const __nv_bfloat16* x;
+  void* out[GS_MAX_GROUP];
+  float* ws;      // [2 * blocks][M][bn] f32 partials: a block's first and last unit
+  int* counters;  // [tiles] arrivals a column tile, 0 between launches
+  int M, ldx, ldo, blocks, work;  // ldo: the outputs' row stride, in elements
+};
+
+// Block b streams tile steps [gs_start(b), gs_start(b + 1)) of the `work`
+// steps (column tile t, k tile kt) = (i / KT, i % KT); gs_block(i) is the
+// block that holds step i. ops/quant_matmul.py's gemv_units mirrors both.
+__device__ __forceinline__ int gs_start(int b, int work, int blocks) {
+  return (int)((long long)b * work / blocks);
+}
+__device__ __forceinline__ int gs_block(int i, int work, int blocks) {
+  return (int)(((long long)(i + 1) * blocks + work - 1) / work) - 1;
+}
+
+__device__ __forceinline__ int gs_weight(const GsGroup& grp, int t) {
+  int g = 0;
+  while (g + 1 < grp.ngroups && t >= grp.tile_base[g + 1]) ++g;
+  return g;
+}
+
+// The barrier's phase waits for all of this thread's earlier cp.async
+// copies; the arrival counts against the barrier's expected count.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// (a & b) ^ c in one LOP3 (ptxas splits the C expression in two when both
+// constants are immediates).
+__device__ __forceinline__ uint32_t and_xor(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Exact int8 -> float in one LOP3 and one FADD: byte 0 of a weight word,
+// its sign bit flipped (q + 128), goes into the low mantissa of 2^23 and
+// 2^23 + 128 is subtracted. Byte 1 (bits 8-15) lands the same way as 256 q,
+// exact too: the tiles it feeds are scaled by 2^-8 after the sum (gs_row).
+// Bytes 2 and 3 are bytes 0 and 1 of the word shifted down by 16.
+__device__ __forceinline__ float i8_byte0(uint32_t w) {
+  return __uint_as_float(and_xor(w, 0xFFu, 0x4B000080u)) - 8388736.f;
+}
+__device__ __forceinline__ float i8_byte1_x256(uint32_t w) {
+  return __uint_as_float(and_xor(w, 0xFF00u, 0x4B008000u)) - 8421376.f;
+}
+
+// The bf16 pair (lo, hi) of two floats that hold integers of at most 7
+// significant bits (times a power of two): such a float's top half is its
+// bf16, exactly, and its low 16 bits are zero, so one shift-add packs them.
+__device__ __forceinline__ uint32_t pack_top(float lo, float hi) {
+  return __float_as_uint(hi) + (__float_as_uint(lo) >> 16);
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                                            pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+
+// Row m * 16 + g + 8h of a consumer thread's accumulators, its 8 columns in
+// order (see gemv_stream_tc: n8 tile c holds columns 4j + c; tiles 1 and 3
+// summed 256 q).
+template <int MT>
+__device__ __forceinline__ void gs_row(const float (&acc)[MT][4][4], int m, int h,
+                                       float (&v)[8]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float s = c % 2 ? 0.00390625f : 1.f;
+    v[c] = acc[m][c][2 * h] * s;
+    v[4 + c] = acc[m][c][2 * h + 1] * s;
+  }
+}
+
+// The end of a unit: the consumers' sums over k steps [unit start, i] of
+// column tile t. A tile one unit covers whole is scaled, cast and stored.
+// Otherwise the unit's f32 partial goes to its workspace slot (2b for block
+// b's first unit, 2b + 1 for its last), then the tile's arrival counter is
+// raised; the block that arrives last sums the tile's partials in split
+// order (the blocks that hold it, first to last), so the result does not
+// depend on the order blocks run in, scales, casts, stores, and sets the
+// counter back to 0 for the next launch.
+// At BN = 128 only the warps of the first k half (warps 0-3, which hold the
+// tile's sums) store and load; the others take part in the barriers.
+template <typename TO, int MT, int BN>
+__device__ __forceinline__ void gs_epilogue(const GsArgs& p, const float (&acc)[MT][4][4], int t,
+                                            bool block_first_unit, int* last_flag) {
+  const GsGroup& grp = p.grp;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool owner = warp < BN / 32;
+  const int g8 = lane / 4, col = 32 * (warp % (BN / 32)) + 8 * (lane % 4);  // 8 columns
+  const int w = gs_weight(grp, t);
+  const int N = grp.N[w], M = p.M;
+  const int n0 = (t - grp.tile_base[w]) * BN;
+  const int KT = grp.KT;
+  const int first = gs_block(t * KT, p.work, p.blocks);
+  const int last = gs_block(t * KT + KT - 1, p.work, p.blocks);
+  TO* out = static_cast<TO*>(p.out[w]) + n0 + col;
+  const bool live = owner && n0 + col < N;  // N is a multiple of 16: all 8 columns or none
+  float sc[8];
+  if (live) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sc[e] = grp.scale[w][n0 + col + e];
+  }
+  if (first == last) {
+    if (!live) return;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m * 16 + g8 + 8 * h;
+        if (row >= M) continue;
+        float v[8];
+        gs_row(acc, m, h, v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] *= sc[e];
+        store8(out + (long long)row * p.ldo, v);
+      }
+    return;
+  }
+  const long long slot_floats = (long long)M * BN;
+  float* mine = p.ws + (2LL * blockIdx.x + (block_first_unit ? 0 : 1)) * slot_floats + col;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m * 16 + g8 + 8 * h;
+      if (row >= M || !owner) continue;
+      float v[8];
+      gs_row(acc, m, h, v);
+      store8(mine + row * BN, v);
+    }
+  __threadfence();
+  consumers_sync();
+  if (threadIdx.x == 0) *last_flag = atomicAdd(&p.counters[t], 1) == last - first;
+  consumers_sync();
+  if (!*last_flag) return;
+  __threadfence();
+  if (live) {
+    float sum[MT][2][8];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum[m][h][e] = 0.f;
+    // G splits' partials are loaded before any is added, so their loads are
+    // in flight together; then they are added in split order. (More than 16
+    // float4 a thread at 48 or 64 rows cost the main loop registers.)
+    constexpr int G = MT == 1 ? 6 : MT == 2 ? 2 : 1;
+    for (int b0 = first; b0 <= last; b0 += G) {
+      float4 part[G][MT][2][2];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int b = b0 + j;
+        if (b > last) break;
+        // The tile's piece in block b is b's first unit, except in the block
+        // it starts in when that block started on an earlier tile.
+        const bool later = b == first && gs_start(b, p.work, p.blocks) != t * KT;
+        const float* src = p.ws + (2LL * b + (later ? 1 : 0)) * slot_floats + col;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m * 16 + g8 + 8 * h;
+            if (row >= M) continue;
+            part[j][m][h][0] = __ldcg(reinterpret_cast<const float4*>(src + row * BN));
+            part[j][m][h][1] = __ldcg(reinterpret_cast<const float4*>(src + row * BN + 4));
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (b0 + j > last) break;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (m * 16 + g8 + 8 * h >= M) continue;
+            const float4 lo = part[j][m][h][0], hi = part[j][m][h][1];
+            sum[m][h][0] += lo.x;
+            sum[m][h][1] += lo.y;
+            sum[m][h][2] += lo.z;
+            sum[m][h][3] += lo.w;
+            sum[m][h][4] += hi.x;
+            sum[m][h][5] += hi.y;
+            sum[m][h][6] += hi.z;
+            sum[m][h][7] += hi.w;
+          }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m * 16 + g8 + 8 * h;
+        if (row >= M) continue;
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = sum[m][h][e] * sc[e];
+        store8(out + (long long)row * p.ldo, v);
+      }
+  }
+  if (threadIdx.x == 0) p.counters[t] = 0;
+}
+
+// One block an SM walks its run of tile steps, on 9 warps in two roles that
+// meet at no block-wide barrier after setup:
+// - warp 8, the producer, keeps the ring full across unit boundaries: lane 0
+//   arms the stage's full barrier with the weight's bytes and issues the
+//   two TMA boxes; all 32 lanes copy the x tile with cp.async (zero-filled
+//   past M and K) and arrive on the same barrier when their copies land.
+// - warps 0-7, the consumers, each own 32 columns of the tile and all its k
+//   rows, so a warp converts only the weight it multiplies, straight into
+//   mma B fragments in registers. Thread (g, q) reads one 32-bit word (4
+//   columns) of each of the k rows 2q, 2q+1, 2q+8, 2q+9 of a k16 step, the
+//   rows mma.sync's B fragment gives it, and byte c of those words is its
+//   b0/b1 of n8 tile c, whose columns are 4j + c (j = 0..7). x's A fragments
+//   come from the x tile by ldmatrix in the natural k order. Tile c's C
+//   fragment then holds columns 8q + c and 8q + 4 + c, so a thread's four
+//   tiles hold 8 neighbouring columns of rows g and g + 8, stored as one
+//   vector. A warp releases a stage to the producer when its reads are done
+//   (eight arrivals free it); the tile before the next stays in flight.
+// TMA zero-fills weight rows past K and columns past N; those columns are
+// never stored.
+template <typename TO, int BM, int BN>
+__global__ void __launch_bounds__(GS_THREADS, 1) gemv_stream_tc(const __grid_constant__ GsArgs p) {
+  using R = GsRing<BM, BN>;
+  constexpr int S = R::STAGES;
+  constexpr int MT = BM / 16;
+  constexpr int CG = BN / 32;                             // warps across the tile's columns
+  constexpr int KSTEPS = GS_BK / 16 * CG / GS_CONSUMERS;  // k16 steps a warp a stage
+  extern __shared__ unsigned char smem_dyn[];
+  // Offsetting the shared array (not rounding a generic address) keeps the
+  // ring in the shared space, so its reads compile to LDS, not generic LD.
+  unsigned char* ring = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  float* scratch = reinterpret_cast<float*>(ring + S * R::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * R::STAGE + R::SCRATCH);
+  uint64_t* empty = full + S;
+  int* last_flag = reinterpret_cast<int*>(empty + S);
+  const GsGroup& grp = p.grp;
+  const int KT = grp.KT;
+  const int start = gs_start(blockIdx.x, p.work, p.blocks);
+  const int end = gs_start(blockIdx.x + 1, p.work, p.blocks);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 33);  // lane 0's expect_tx and the 32 lanes' x copies
+      mbar_init(&empty[s], GS_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == GS_CONSUMERS) {
+    const int M = p.M, K = grp.K;
+    if (lane == 0)
+      for (int g = 0; g < grp.ngroups; ++g)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&grp.wmap[g]))
+                     : "memory");
+    int st = 0, li = 0;
+    uint32_t phase = 0;
+    for (int i = start; i < end;) {
+      const int t = i / KT;
+      const int w = gs_weight(grp, t);
+      const int n0 = (t - grp.tile_base[w]) * BN;
+      // A second box when the tile has one and it is not all past N.
+      const bool two = BN > GS_BOX && n0 + GS_BOX < grp.N[w];
+      const int bytes = two ? 2 * GS_BOX_BYTES : GS_BOX_BYTES;
+      const int unit_end = min(end, (t + 1) * KT);
+      for (int k0 = (i - t * KT) * GS_BK; i < unit_end; ++i, ++li, k0 += GS_BK) {
+        if (li >= S) mbar_wait(&empty[st], phase ^ 1);
+        unsigned char* wd = ring + st * R::STAGE;
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], bytes);
+          tma_load_2d(wd, &grp.wmap[w], &full[st], n0, k0);
+          if (two) tma_load_2d(wd + GS_BOX_BYTES, &grp.wmap[w], &full[st], n0 + GS_BOX, k0);
+        }
+        unsigned char* xd = wd + R::W_STAGE;
+#pragma unroll
+        for (int c = lane; c < BM * 8; c += 32) {
+          const int r = c / 8, ch = c % 8;
+          // A chunk that starts before K ends before it or runs into x's
+          // zero padding (K is a multiple of 8).
+          const bool ok = r < M && k0 + ch * 8 < K;
+          cp_async16(xd + r * 128 + ((ch ^ (r & 7)) << 4),
+                     ok ? p.x + (long long)r * p.ldx + k0 + ch * 8 : p.x, ok);
+        }
+        cp_async_mbar_arrive(&full[st]);
+        if (++st == S) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  const int g8 = lane / 4, q = lane % 4;
+  const int cw = warp % CG, kg = warp / CG;  // column group; k half at BN = 128
+  const int wbox = (cw / 4) * GS_BOX_BYTES;
+  const int chunk = (cw % 4) * 2 + g8 / 4;  // 16-byte chunk of a box row holding the word
+  const int sw0 = ((chunk ^ (2 * q)) << 4) + (g8 % 4) * 4;      // rows 2q (mod 8)
+  const int sw1 = ((chunk ^ (2 * q + 1)) << 4) + (g8 % 4) * 4;  // rows 2q + 1 (mod 8)
+  const int xr = lane % 16, xc = lane / 16;  // this lane's ldmatrix row and k half
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][c][e] = 0.f;
+
+  int st = 0;
+  uint32_t phase = 0;
+  for (int i = start; i < end;) {
+    const int t = i / KT;
+    for (const int unit_end = min(end, (t + 1) * KT); i < unit_end; ++i) {
+      mbar_wait(&full[st], phase);
+      const unsigned char* wt = ring + st * R::STAGE + wbox;
+      const unsigned char* xs = ring + st * R::STAGE + R::W_STAGE;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const int ks = kg * KSTEPS + kk;
+        const unsigned char* wr = wt + (ks * 16 + 2 * q) * 128;
+        uint32_t wl[4];  // k rows 2q, 2q + 1, 2q + 8, 2q + 9
+        wl[0] = *reinterpret_cast<const uint32_t*>(wr + sw0);
+        wl[1] = *reinterpret_cast<const uint32_t*>(wr + 128 + sw1);
+        wl[2] = *reinterpret_cast<const uint32_t*>(wr + 8 * 128 + sw0);
+        wl[3] = *reinterpret_cast<const uint32_t*>(wr + 9 * 128 + sw1);
+        float f[4][4];  // [k row][byte]
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t hi = wl[r] >> 16;
+          f[r][0] = i8_byte0(wl[r]);
+          f[r][1] = i8_byte1_x256(wl[r]);
+          f[r][2] = i8_byte0(hi);
+          f[r][3] = i8_byte1_x256(hi);
+        }
+        uint32_t b[4][2];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          b[c][0] = pack_top(f[0][c], f[1][c]);
+          b[c][1] = pack_top(f[2][c], f[3][c]);
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          uint32_t a[4];
+          ldsm_x4(a, xs + (m * 16 + xr) * 128 + (((ks * 2 + xc) ^ (xr & 7)) << 4));
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mma_bf16(acc[m][c], a, b[c][0], b[c][1]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++st == S) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    if (CG < GS_CONSUMERS) {
+      // The second k half adds its sums to the first's, in that order.
+      float4* mine = reinterpret_cast<float4*>(scratch) + (cw * 32 + lane) * MT * 4;
+      if (kg == 1) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            mine[m * 4 + c] = make_float4(acc[m][c][0], acc[m][c][1], acc[m][c][2], acc[m][c][3]);
+      }
+      consumers_sync();
+      if (kg == 0) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float4 o = mine[m * 4 + c];
+            acc[m][c][0] += o.x;
+            acc[m][c][1] += o.y;
+            acc[m][c][2] += o.z;
+            acc[m][c][3] += o.w;
+          }
+      }
+      consumers_sync();  // the scratch is free for the next unit
+    }
+    gs_epilogue<TO, MT, BN>(p, acc, t, t * KT <= start, last_flag);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][c][e] = 0.f;
+  }
+}
+
+template <typename TO, int BM, int BN>
+cudaError_t gs_launch(const GsArgs& a, cudaStream_t stream) {
+  using R = GsRing<BM, BN>;
+  // Once per kernel and process (one card).
+  auto kernel = gemv_stream_tc<TO, BM, BN>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<a.blocks, GS_THREADS, R::SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Rows a block's tile from M: the fewest m16 tiles that cover it.
+template <typename TO, int BN>
+cudaError_t gs_rows(const GsArgs& a, cudaStream_t stream) {
+  if (a.M > 48) return gs_launch<TO, 64, BN>(a, stream);
+  if (a.M > 32) return gs_launch<TO, 48, BN>(a, stream);
+  if (a.M > 16) return gs_launch<TO, 32, BN>(a, stream);
+  return gs_launch<TO, 16, BN>(a, stream);
+}
+
+template <typename TO>
+cudaError_t gs_dispatch(const GsArgs& a, cudaStream_t stream) {
+  return a.grp.bn == 128 ? gs_rows<TO, 128>(a, stream) : gs_rows<TO, 256>(a, stream);
+}
+
 }  // namespace
 
 // Shared contract of both entry points. xdtype / odtype: 0 = float32,
@@ -850,30 +1167,95 @@ bool shapes_ok(int xdtype, const void* x, const void* w, int M, int K, int N, in
 // N a multiple of 16 (cudaErrorInvalidValue otherwise). Each returns the CUDA
 // error code of its launches.
 
-// M <= 64. `partial` is [splits, M, N] f32 scratch when splits > 1 (else
-// unused); split s sums k in [s * k_per_split, (s + 1) * k_per_split), and
-// k_per_split is a multiple of 64. bf16 x: tensor cores; f32 x: CUDA-core FMAs.
+// M <= 64, float32 x only (bf16 x takes quant_matmul_stream). `partial` is
+// [splits, M, N] f32 scratch when splits > 1 (else unused); split s sums k in
+// [s * k_per_split, (s + 1) * k_per_split), and k_per_split is a multiple of
+// 64; splitk_reduce sums the splits in order.
 extern "C" int quant_matmul_gemv(int xdtype, int odtype, const void* x, const void* wq,
                                  const void* scale, void* out, void* partial, int M, int K,
                                  int N, int ldx, int splits, int k_per_split, void* stream) {
   if (!shapes_ok(xdtype, x, wq, M, K, N, ldx) || M > 64 || splits < 1 ||
       k_per_split % 64 != 0 || (long long)splits * k_per_split < K ||
-      (splits > 1 && partial == nullptr))
+      (splits > 1 && partial == nullptr) || xdtype != 0 || odtype != 0)
     return (int)cudaErrorInvalidValue;
-  const float* s = static_cast<const float*>(scale);
-  float* p = static_cast<float*>(partial);
+  return (int)f32_dispatch(x, wq, static_cast<const float*>(scale), out,
+                           static_cast<float*>(partial), M, K, N, ldx, splits, k_per_split, 1,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of the group record quant_matmul_stream_prepare fills.
+extern "C" int quant_matmul_stream_group_bytes() { return (int)sizeof(GsGroup); }
+
+// Fills `group` (quant_matmul_stream_group_bytes() bytes, any alignment) for
+// ngroups (1-3) int8 weights wq_i [K, N_i] with f32 scales [N_i], computed
+// in column tiles of bn (128 or 256) by `blocks` persistent blocks
+// (gemv_plan in ops/quant_matmul.py): each
+// weight's TMA map is encoded here, once. Unused pointers may be null. Each
+// wq_i 16-byte aligned and each N_i a multiple of 16. The outputs are the
+// column ranges of one [M, N_0 + N_1 + N_2] buffer, in order.
+extern "C" int quant_matmul_stream_prepare(int ngroups, int K, const void* w0, const void* w1,
+                                           const void* w2, const void* s0, const void* s1,
+                                           const void* s2, int N0, int N1, int N2, int bn,
+                                           int blocks, void* group) {
+  const void* w[GS_MAX_GROUP] = {w0, w1, w2};
+  const void* sc[GS_MAX_GROUP] = {s0, s1, s2};
+  const int N[GS_MAX_GROUP] = {N0, N1, N2};
+  if (ngroups < 1 || ngroups > GS_MAX_GROUP || K <= 0 || group == nullptr ||
+      (bn != 128 && bn != 256))
+    return (int)cudaErrorInvalidValue;
+  GsGroup g;
+  memset(&g, 0, sizeof(g));
+  g.ngroups = ngroups;
+  g.K = K;
+  g.KT = (K + GS_BK - 1) / GS_BK;
+  g.blocks = blocks;
+  g.bn = bn;
+  int tiles = 0;
+  for (int i = 0; i < ngroups; ++i) {
+    if (N[i] <= 0 || N[i] % 16 != 0 || !attn::aligned16(w[i]) || sc[i] == nullptr ||
+        !make_map(&g.wmap[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, w[i], N[i], K, N[i], GS_BOX,
+                  GS_BK, CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+    g.scale[i] = static_cast<const float*>(sc[i]);
+    g.N[i] = N[i];
+    g.tile_base[i] = tiles;
+    g.col[i] = g.total;
+    tiles += (N[i] + bn - 1) / bn;
+    g.total += N[i];
+  }
+  g.tile_base[ngroups] = tiles;
+  memcpy(group, &g, sizeof(g));
+  return 0;
+}
+
+// bf16 x [M, ldx] (M <= 64, the first K columns used, 16-byte aligned, ldx a
+// multiple of 8) times each weight of `group`, into out [M, total] (odtype 1
+// = bf16, 0 = f32; 16-byte aligned, contiguous): one launch of the group's
+// persistent blocks (at most its column tiles x k tiles). ws holds 2 *
+// blocks * M * bn floats; counters one int a column tile, all 0, and left
+// 0.
+extern "C" int quant_matmul_stream(int odtype, const void* group, const void* x, int M, int ldx,
+                                   void* out, void* ws, void* counters, void* stream) {
+  GsArgs a;
+  memcpy(&a.grp, group, sizeof(GsGroup));
+  const int work = a.grp.tile_base[a.grp.ngroups] * a.grp.KT;
+  if (M < 1 || M > 64 || ldx < a.grp.K || ldx % 8 != 0 || !attn::aligned16(x) ||
+      !attn::aligned16(out) || ws == nullptr || counters == nullptr || a.grp.blocks < 1 ||
+      a.grp.blocks > work || (odtype != 0 && odtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const int item = odtype == 1 ? 2 : 4;
+  for (int i = 0; i < GS_MAX_GROUP; ++i)
+    a.out[i] = static_cast<char*>(out) + (long long)a.grp.col[i] * item;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.ws = static_cast<float*>(ws);
+  a.counters = static_cast<int*>(counters);
+  a.M = M;
+  a.ldx = ldx;
+  a.ldo = a.grp.total;
+  a.blocks = a.grp.blocks;
+  a.work = work;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (xdtype == 1 && odtype == 1)
-    err = tc_gemv_dispatch<__nv_bfloat16>(x, wq, s, out, p, M, K, N, ldx, splits, k_per_split,
-                                          st);
-  else if (xdtype == 1 && odtype == 0)
-    err = tc_gemv_dispatch<float>(x, wq, s, out, p, M, K, N, ldx, splits, k_per_split, st);
-  else if (xdtype == 0 && odtype == 0)
-    err = f32_dispatch(x, wq, s, out, p, M, K, N, ldx, splits, k_per_split, 1, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)(odtype == 1 ? gs_dispatch<__nv_bfloat16>(a, st) : gs_dispatch<float>(a, st));
 }
 
 // Any M. bf16 x: wgmma fed by TMA (wg_gemm_kernel); f32 x: CUDA-core FMAs over

@@ -198,23 +198,13 @@ def decode_splits(B: int, Hkv: int, rep: int, P: int, L: int, D: int,
     return _plan(Hkv * -(-B * rep // 64), B * Hkv, P, L, DECODE_BLOCKS_PER_SM[D] * sms)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # The split kernels' f32 workspace by (device, stream), grown to the largest
-# call so far. Calls on one stream run in order, so a call's kernels write
-# it only after the previous call's combine has read it.
+# call so far (``_build.grown``).
 _workspaces: dict = {}
 
 
 def _workspace(numel: int, device: torch.device, stream: int) -> torch.Tensor:
-    key = (device, stream)
-    ws = _workspaces.get(key)
-    if ws is None or ws.numel() < numel:
-        ws = _workspaces[key] = torch.empty(numel, dtype=torch.float32, device=device)
-    return ws
+    return _build.grown(_workspaces, (device, stream), numel, torch.float32, device)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -276,11 +266,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sp = sc = 0
     ws = None
     if tc:
-        index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+        sms = _build.sm_count(q.device)
         if multi:
-            sp, sc = verify_splits(B, Hkv, (H // Hkv) * Q, P, L, _sm_count(index))
+            sp, sc = verify_splits(B, Hkv, (H // Hkv) * Q, P, L, sms)
         else:
-            sp, sc = decode_splits(B, Hkv, H // Hkv, P, L, Dk, _sm_count(index))
+            sp, sc = decode_splits(B, Hkv, H // Hkv, P, L, Dk, sms)
         if sp + sc > 1:
             ws = _workspace((sp + sc) * B * Q * H * (Dk + 2), q.device, stream)
     fn = _build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)

@@ -8,25 +8,33 @@ The scale is constant along the contraction axis, so it commutes with the
 product: ``x @ (wq * scale) == (x @ wq) * scale``, and it is applied once to
 the f32 sum.
 
-``quant_matmul`` launches the hand-written CUDA kernel
+``quant_matmul`` launches the hand-written CUDA kernels
 (``csrc/quant_matmul.cu``, replacing the Pallas kernel
 ``_quant_matmul_pallas`` -> ``_matmul_kernel``) for a CUDA tensor and takes
-the plain version, ``quant_matmul_reference``, only for a CPU tensor. The
-kernel converts the weight a tile at a time inside the kernel, so the device
-never holds a float copy of an int8 weight. Two regimes, picked by M:
+the plain version, ``quant_matmul_reference``, only for a CPU tensor.
+``quant_matmul_group`` computes up to three products that share x (q/k/v,
+gate/up) in one launch; its plain version is ``quant_matmul_group_reference``.
+The kernels convert the weight a tile at a time, so the device never holds
+a float copy of an int8 weight. Two regimes, picked by M:
 
 - ``gemv`` (M <= 64, the decode step). Bound by the weight's bytes (it does
-  2*M operations per byte); K is split across blocks where N alone gives
-  too few of them. Launches are counted in ``gemv_launches``.
+  2*M operations per byte). bf16 x runs on ``gemv_stream_tc``: one
+  persistent launch a call, the weights' tiles cut into equal runs, one a
+  block (``gemv_plan``), the split-K reduce inside the kernel, its partials
+  and arrival counters kept per device and stream; what a call needs of its
+  weights (their TMA maps, the plan) is made once per set of weights. f32 x
+  splits K across blocks (``gemv_splits``) and sums the splits in a second
+  kernel. Launches are counted in ``gemv_launches``, grouped ones also in
+  ``group_launches``.
 - ``gemm`` (M > 64, prefill). Bound by operations. bf16 x runs on
   ``wgmma`` fed by TMA, each int8 tile converted to bf16 by warps of its own
-  while earlier tiles are multiplied. Launches are counted in
-  ``gemm_launches``.
+  while earlier tiles are multiplied. A group makes one call a weight.
+  Launches are counted in ``gemm_launches``.
 
 In both, bf16 x runs on the tensor cores (``mma.sync`` in the GEMV regime)
 and f32 x on f32 FMAs (the weight never goes to TF32 or bf16).
 
-The kernel takes any M, K and N. Where x's rows or the weight's rows are not
+The kernels take any M, K and N. Where x's rows or the weight's rows are not
 16-byte aligned (an odd K or N), the wrapper copies them zero-padded first,
 as the attention wrappers do; no main-path shape needs that.
 """
@@ -34,7 +42,8 @@ as the attention wrappers do; no main-path shape needs that.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,12 +51,27 @@ from fairness_llm_tpu_torch.ops import _build
 
 #: Largest M that takes the GEMV regime.
 GEMV_MAX_M = 64
-#: Blocks the GEMV regime aims for (two per SM of a 132-SM H100).
-_GEMV_TARGET_BLOCKS = 264
-_GEMV_BN, _GEMV_BK = 128, 64
+#: Most weights one grouped launch takes.
+GROUP_MAX = 3
+#: gemv_stream_tc's k tiles, and about the most blocks a column tile is
+#: split across (the block that arrives last reads all their partials).
+STREAM_BK = 64
+STREAM_MAX_SPLITS = 8
+#: A group whose runs over 256-column tiles would be at most this many tile
+#: steps (128 KB of weight a block, o_proj of llama3-8b) takes 128-column
+#: tiles: there the split-K reduce, not the stream, sets the time, and
+#: narrower tiles halve the splits and quarter a tile's partials. Longer runs
+#: stream faster in tiles of 256.
+STREAM_SHORT_RUN = 8
+# float32 x in the GEMV regime: blocks to aim for (two per SM of a 132-SM
+# H100), each 128 columns and a multiple of 64 k rows.
+_F32_TARGET_BLOCKS = 264
+_F32_BN, _F32_BK = 128, 64
 
-#: Kernel launches of each regime since the counts were last set to 0.
+#: Kernel launches of each regime since the counts were last set to 0;
+#: ``group_launches`` counts the GEMV launches of ``quant_matmul_group``.
 gemv_launches = 0
+group_launches = 0
 gemm_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,6 +84,12 @@ _GEMV_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 
 # xdtype, odtype; x, wq, scale, out; M, K, N, ldx; stream
 _GEMM_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
+# ngroups, K; wq x3, scale x3; N x3, bn, blocks; group record
+_PREPARE_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
+# odtype; group record, x; M, ldx; out, ws, counters, stream
+_STREAM_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p] * 4)
 
 
 def quantize_weight(w: torch.Tensor, axis: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,6 +117,12 @@ def quant_matmul_reference(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tenso
     return (y * scale[None, :].float()).to(out_dtype)
 
 
+def quant_matmul_group_reference(x: torch.Tensor, mats: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                                 out_dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+    """Plain version of ``quant_matmul_group``: the plain product a weight."""
+    return [quant_matmul_reference(x, wq, scale, out_dtype) for wq, scale in mats]
+
+
 def _check(x, wq, scale, out_dtype):
     if x.dim() != 2 or wq.dim() != 2 or scale.dim() != 1:
         raise ValueError(f"expected x [M,K], wq [K,N], scale [N]; got {tuple(x.shape)}, "
@@ -101,13 +137,176 @@ def _check(x, wq, scale, out_dtype):
 
 
 def gemv_splits(M: int, K: int, N: int) -> Tuple[int, int]:
-    """(splits, k_per_split) of the GEMV regime: split K across blocks until
-    the column tiles times the splits reach the target block count."""
-    n_tiles = -(-N // _GEMV_BN)
-    k_tiles = -(-K // _GEMV_BK)
-    want = min(k_tiles, max(1, -(-_GEMV_TARGET_BLOCKS // n_tiles)))
+    """(splits, k_per_split) of the GEMV regime over float32 x: split K
+    across blocks until the column tiles times the splits reach the target
+    block count."""
+    n_tiles = -(-N // _F32_BN)
+    k_tiles = -(-K // _F32_BK)
+    want = min(k_tiles, max(1, -(-_F32_TARGET_BLOCKS // n_tiles)))
     per = -(-k_tiles // want)
-    return -(-k_tiles // per), per * _GEMV_BK
+    return -(-k_tiles // per), per * _F32_BK
+
+
+@functools.lru_cache(maxsize=1024)
+def gemv_plan(K: int, Ns: Tuple[int, ...], sms: int) -> Tuple[int, int, int, int]:
+    """(blocks, column tiles, tile steps, column-tile width) of
+    gemv_stream_tc over weights [K, N] for N in ``Ns``. The width is 256, or
+    128 where runs of 256 would be short (``STREAM_SHORT_RUN``). The tile
+    steps (column tile, k tile of STREAM_BK), column tiles numbered across
+    the weights, are cut into ``blocks`` equal contiguous runs, one a block
+    (``gemv_units``). A run is as short as one wave of ``sms`` blocks
+    allows, but at least 1/STREAM_MAX_SPLITS of a column tile's k tiles, and
+    ``blocks`` is the fewest that take runs of that length."""
+    kt = -(-K // STREAM_BK)
+    for bn in (256, 128):
+        tiles = sum(-(-n // bn) for n in Ns)
+        work = tiles * kt
+        run = max(-(-work // sms), -(-kt // STREAM_MAX_SPLITS))
+        if run > STREAM_SHORT_RUN:
+            break
+    return -(-work // run), tiles, work, bn
+
+
+def gemv_units(blocks: int, k_tiles: int, work: int) -> List[List[Tuple[int, ...]]]:
+    """What each block of gemv_stream_tc computes, as the kernel derives it
+    (``gs_start``, ``gs_block``): per block, its units in order, each
+    (column tile, first k tile, end k tile, split, splits, workspace slot).
+    A column tile's splits are the blocks whose runs cover it, numbered
+    first to last; the slot (2b for block b's first unit, 2b + 1 for its
+    last) is None for a tile one unit covers whole."""
+    def start(b):
+        return b * work // blocks
+
+    def block_of(i):
+        return -(-(i + 1) * blocks // work) - 1
+
+    out = []
+    for b in range(blocks):
+        units, i, end = [], start(b), start(b + 1)
+        while i < end:
+            t = i // k_tiles
+            j = min(end, (t + 1) * k_tiles)
+            first, last = block_of(t * k_tiles), block_of((t + 1) * k_tiles - 1)
+            slot = None if first == last else 2 * b + (0 if i == start(b) else 1)
+            units.append((t, i - t * k_tiles, j - t * k_tiles, b - first, last - first + 1,
+                          slot))
+            i = j
+        out.append(units)
+    return out
+
+
+# gemv_stream_tc's f32 partials and int32 arrival counters by (device,
+# stream), grown to the largest call so far (``_build.grown``). The counters
+# start at 0 and every launch leaves them at 0.
+_partials: dict = {}
+_counters: dict = {}
+
+
+class _Group:
+    """What a call over one set of weights needs, made once: the C group
+    record (the weights' TMA maps, scales and widths, the plan's block count,
+    each weight's first column in the one output buffer), the plan's
+    workspace needs and the widths."""
+
+    __slots__ = ("buf", "addr", "blocks", "tiles", "bn", "Ns", "total")
+
+    def __init__(self, mats, K: int, device: torch.device):
+        self.Ns = [wq.shape[1] for wq, _ in mats]
+        self.total = sum(self.Ns)
+        self.blocks, self.tiles, _, self.bn = gemv_plan(K, tuple(self.Ns),
+                                                        _build.sm_count(device))
+        self.buf = ctypes.create_string_buffer(
+            _build.function("quant_matmul", "quant_matmul_stream_group_bytes", [])())
+        self.addr = ctypes.addressof(self.buf)
+        pad = GROUP_MAX - len(mats)
+        prepare = _build.function("quant_matmul", "quant_matmul_stream_prepare",
+                                  _PREPARE_ARGTYPES)
+        status = prepare(len(mats), K, *(wq.data_ptr() for wq, _ in mats), *[None] * pad,
+                         *(scale.data_ptr() for _, scale in mats), *[None] * pad,
+                         *self.Ns, *[0] * pad, self.bn, self.blocks, self.addr)
+        _build.check(status, "quant_matmul_stream_prepare")
+
+
+# Group records by the weights' and scales' addresses and the weights'
+# shapes: a record depends on nothing else, so one made for an address stays
+# right for it.
+_groups: dict = {}
+
+
+def _group(mats, K: int, device: torch.device) -> Optional[_Group]:
+    """The record of ``mats`` (1-3 weights [K, N]); None where a weight
+    would need a padded copy (N not a multiple of 16 or an unaligned
+    start), which the caller then makes."""
+    key = (K, *[(wq.data_ptr(), scale.data_ptr(), wq.shape) for wq, scale in mats])
+    rec = _groups.get(key)
+    if rec is not None:
+        return rec
+    for wq, scale in mats:
+        if wq.dim() != 2 or scale.dim() != 1 or wq.shape[0] != K or scale.shape[0] != wq.shape[1]:
+            raise ValueError(f"x [M, {K}], wq {tuple(wq.shape)} and scale "
+                             f"{tuple(scale.shape)} disagree")
+        if wq.dtype != torch.int8 or scale.dtype != torch.float32:
+            raise ValueError(f"wq must be int8 and scale float32, got {wq.dtype}, {scale.dtype}")
+        if wq.device != device or scale.device != device:
+            raise ValueError("quant_matmul: all inputs must lie on one CUDA device")
+    if not all(wq.is_contiguous() and scale.is_contiguous() and wq.shape[1] % 16 == 0
+               and wq.data_ptr() % 16 == 0 for wq, scale in mats):
+        return None
+    if len(_groups) >= 4096:
+        _groups.clear()
+    rec = _groups[key] = _Group(mats, K, device)
+    return rec
+
+
+def _aligned_x(x: torch.Tensor) -> torch.Tensor:
+    """x with 16-byte aligned rows: contiguous rows start 16-byte aligned iff
+    the base does and a row's bytes are a multiple of 16."""
+    x = x.contiguous()
+    K = x.shape[1]
+    if x.data_ptr() % 16 or K * x.element_size() % 16:
+        ve = 16 // x.element_size()
+        x = _build.pad_last_dim(x, -(-K // ve) * ve)
+    return x
+
+
+def _aligned_weight(wq: torch.Tensor, scale: torch.Tensor):
+    wq, scale = wq.contiguous(), scale.contiguous()
+    N = wq.shape[1]
+    if N % 16 or wq.data_ptr() % 16:
+        # A copy of the weight: only for shapes no model here has.
+        Np = -(-N // 16) * 16
+        return _build.pad_last_dim(wq, Np), _build.pad_last_dim(scale, Np)
+    return wq, scale
+
+
+def _gemv(x: torch.Tensor, mats, out_dtype: torch.dtype) -> Sequence[torch.Tensor]:
+    """One gemv_stream_tc launch: bf16 x [M, K] (0 < M <= 64) on a CUDA
+    device times 1-3 weights, each output [M, N_i] a column view of one
+    [M, sum N_i] buffer (the whole buffer for one weight)."""
+    global gemv_launches
+    if x.dim() != 2:
+        raise ValueError(f"expected x [M,K], got {tuple(x.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"(x, out) dtypes {(x.dtype, out_dtype)} not in {COMBOS}")
+    K = x.shape[1]
+    rec = _group(mats, K, x.device)
+    if rec is None:  # a padded copy of some weight, then its columns cut back
+        mats_p = [_aligned_weight(wq, scale) for wq, scale in mats]
+        outs = _gemv(x, mats_p, out_dtype)
+        return [o[:, :wq.shape[1]] for o, (wq, _) in zip(outs, mats)]
+    x = _aligned_x(x)
+    M = x.shape[0]
+    stream = _build.current_stream(x.device)
+    key = (x.device, stream)
+    ws = _build.grown(_partials, key, 2 * rec.blocks * M * rec.bn, torch.float32, x.device)
+    counters = _build.grown(_counters, key, rec.tiles, torch.int32, x.device, zero=True)
+    out = torch.empty(M, rec.total, dtype=out_dtype, device=x.device)
+    fn = _build.function("quant_matmul", "quant_matmul_stream", _STREAM_ARGTYPES)
+    status = fn(_DTYPES[out_dtype], rec.addr, x.data_ptr(), M, x.shape[1], out.data_ptr(),
+                ws.data_ptr(), counters.data_ptr(), stream)
+    _build.check(status, "quant_matmul_stream")
+    gemv_launches += 1
+    return [out] if len(mats) == 1 else out.split(rec.Ns, 1)
 
 
 def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -115,6 +314,9 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     """``x [M, K] @ dequant(wq [K, N], scale [N]) -> [M, N]`` in
     ``out_dtype`` (default x's); see the module docstring."""
     out_dtype = out_dtype or x.dtype
+    if (x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.dim() == 2
+            and 0 < x.shape[0] <= GEMV_MAX_M):
+        return _gemv(x, ((wq, scale),), out_dtype)[0]
     _check(x, wq, scale, out_dtype)
     if x.device.type == "cpu":
         return quant_matmul_reference(x, wq, scale, out_dtype)
@@ -124,24 +326,13 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     N = wq.shape[1]
     if M == 0:
         return x.new_empty(0, N, dtype=out_dtype)
-    # Contiguous rows start 16-byte aligned iff the base does and a row's
-    # bytes are a multiple of 16.
-    x = x.contiguous()
-    if x.data_ptr() % 16 or K * x.element_size() % 16:
-        ve = 16 // x.element_size()
-        x = _build.pad_last_dim(x, -(-K // ve) * ve)
-    wq = wq.contiguous()
-    scale = scale.contiguous()
-    Np = N
-    if N % 16 or wq.data_ptr() % 16:
-        # A copy of the weight: only for shapes no model here has.
-        Np = -(-N // 16) * 16
-        wq = _build.pad_last_dim(wq, Np)
-        scale = _build.pad_last_dim(scale, Np)
+    x = _aligned_x(x)
+    wq, scale = _aligned_weight(wq, scale)
+    Np = wq.shape[1]
     out = torch.empty(M, Np, dtype=out_dtype, device=x.device)
     stream = _build.current_stream(x.device)
     global gemv_launches, gemm_launches
-    if M <= GEMV_MAX_M:
+    if M <= GEMV_MAX_M:  # float32 x
         splits, k_per_split = gemv_splits(M, K, Np)
         partial = (torch.empty(splits, M, Np, dtype=torch.float32, device=x.device)
                    if splits > 1 else None)
@@ -159,3 +350,26 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
         _build.check(status, "quant_matmul_gemm")
         gemm_launches += 1
     return out if Np == N else out[:, :N]
+
+
+def quant_matmul_group(x: torch.Tensor, mats: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                       out_dtype: Optional[torch.dtype] = None) -> Sequence[torch.Tensor]:
+    """``[quant_matmul(x, wq, scale, out_dtype) for wq, scale in mats]`` for
+    1-3 weights with one K (q/k/v, gate/up). In the GEMV regime with bf16 x
+    it is one gemv_stream_tc launch whose tile steps span every weight, the
+    outputs column views of one buffer; else one ``quant_matmul`` call a
+    weight. The weights stay separate tensors."""
+    out_dtype = out_dtype or x.dtype
+    if not 1 <= len(mats) <= GROUP_MAX:
+        raise ValueError(f"quant_matmul_group takes 1 to {GROUP_MAX} weights, got {len(mats)}")
+    if (x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.dim() == 2
+            and 0 < x.shape[0] <= GEMV_MAX_M):
+        global group_launches
+        outs = _gemv(x, mats, out_dtype)
+        group_launches += 1
+        return outs
+    for wq, scale in mats:
+        _check(x, wq, scale, out_dtype)
+    if x.device.type == "cpu":
+        return quant_matmul_group_reference(x, mats, out_dtype)
+    return [quant_matmul(x, wq, scale, out_dtype=out_dtype) for wq, scale in mats]

@@ -18,7 +18,10 @@ included, to the same allowance (chip_smoke.py reports the share of it
 used at llama3-8b's prefill shapes). A kernel that drops or adds one key
 moves outputs by far more than that, which the shifted-mask tests check; for the
 int8-weight matmul, dropping the last 32 columns of x must fail the same
-tolerance.
+tolerance. Its bf16 GEMV regime (gemv_stream_tc) sums a column tile's k
+splits in a fixed order inside the kernel, so repeated calls agree bit for
+bit, and a grouped call (q/k/v, gate/up in one launch) gives each weight's
+product.
 Its float32 outputs are held to 1e-4 + 3e-5 * |plain|: the tensor cores'
 f32 accumulation rounds otherwise than cuBLAS's f32 FMA chain, and over
 K = 14336 products the two were seen 1.3e-5 of the value apart (outputs up
@@ -544,6 +547,103 @@ def test_quant_matmul_tolerance_sees_a_dropped_k_tile(dev, qmm_weights, M, x_dty
     got = qmm.quant_matmul(cut, wq, scale, out_dtype=out_dtype)
     with pytest.raises(AssertionError):
         torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
+
+
+@pytest.fixture(scope="module")
+def qmm_groups(qmm_weights):
+    """llama3-8b's q/k/v and gate/up as the decode step groups them, each
+    weight its own tensor (k and v, gate and up from distinct seeds)."""
+    dev = torch.device("cuda")
+    return {"qkv": [qmm_weights[(4096, 4096)], qmm_weights[(4096, 1024)],
+                    _qmm_weight(dev, 4096, 1024, seed=101)],
+            "gate_up": [qmm_weights[(4096, 14336)], _qmm_weight(dev, 4096, 14336, seed=102)]}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("group", ["qkv", "gate_up"])
+@pytest.mark.parametrize("M", [1, 16, 45, 48, 64])
+def test_quant_matmul_group_matches_plain(dev, qmm_groups, M, group, out_dtype):
+    """One launch for the weights that share x, each output against the
+    plain product of its own weight."""
+    mats = qmm_groups[group]
+    g = torch.Generator(device=dev).manual_seed(M + 7)
+    x = torch.randn(M, 4096, generator=g, device=dev).bfloat16()
+    before = (qmm.gemv_launches, qmm.group_launches, qmm.gemm_launches)
+    got = qmm.quant_matmul_group(x, mats, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (qmm.gemv_launches - before[0], qmm.group_launches - before[1],
+            qmm.gemm_launches - before[2]) == (1, 1, 0)
+    assert len(got) == len(mats)
+    for i, (out, (wq, scale)) in enumerate(zip(got, mats)):
+        assert out.dtype == out_dtype and out.shape == (M, wq.shape[1])
+        want = qmm.quant_matmul_reference(x, wq, scale, out_dtype)
+        torch.testing.assert_close(out.float(), want.float(), **QMM_TOL[out_dtype],
+                                   msg=lambda m, _i=i: f"weight {_i}: {m}")
+
+
+@pytest.mark.parametrize("K,N", [(4096, 1024), (14336, 4096)], ids=["k_v", "down"])
+def test_quant_matmul_gemv_repeats_bit_for_bit(dev, qmm_weights, K, N):
+    """gemv_stream_tc splits these weights' column tiles across 4-8 blocks
+    and the block that arrives last sums the partials in split order. 50
+    calls at M=16, each beside memory traffic on a second stream that shifts
+    the blocks' timing, must agree bit for bit."""
+    wq, scale = qmm_weights[(K, N)]
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(16, K, generator=g, device=dev).bfloat16()
+    first = qmm.quant_matmul(x, wq, scale, out_dtype=torch.bfloat16)
+    noise = torch.zeros(64 << 20, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    for i in range(50):
+        with torch.cuda.stream(side):
+            noise.add_(1.0)
+        got = qmm.quant_matmul(x, wq, scale, out_dtype=torch.bfloat16)
+        assert torch.equal(got, first), f"call {i} differs from the first"
+    torch.cuda.synchronize()
+
+
+def test_quant_matmul_gemv_counters_return_to_zero(dev, qmm_weights, qmm_groups):
+    """Every launch leaves its arrival counters at 0: calls of several plans
+    queued on the default stream and on a second one, each against its plain
+    version, then every workspace's counters read back."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(16, 4096, generator=g, device=dev).bfloat16()
+    calls = []
+    for stream in (torch.cuda.current_stream(dev), side):
+        with torch.cuda.stream(stream):
+            for mats in (qmm_groups["qkv"], [qmm_weights[(4096, 1024)]], qmm_groups["gate_up"],
+                         [qmm_weights[(4096, 128256)]]):
+                calls.append((qmm.quant_matmul_group(x, mats), mats))
+    torch.cuda.synchronize()
+    for outs, mats in calls:
+        for out, (wq, scale) in zip(outs, mats):
+            want = qmm.quant_matmul_reference(x, wq, scale)
+            torch.testing.assert_close(out.float(), want.float(), **QMM_TOL[torch.bfloat16])
+    keys = [k for k in qmm._counters if k[0] == x.device]
+    assert len(keys) >= 2
+    for key in keys:
+        assert int(qmm._counters[key].abs().sum()) == 0, key
+
+
+def test_quant_matmul_gemv_refuses_a_bad_plan(dev, qmm_weights, monkeypatch):
+    """A plan the kernel cannot take (more blocks than tile steps) raises;
+    nothing falls back and nothing is counted."""
+    wq, scale = qmm_weights[(4096, 1024)]
+    x = torch.ones(16, 4096, device=dev, dtype=torch.bfloat16)
+    plan = qmm.gemv_plan
+
+    def bad(K, Ns, sms):
+        blocks, tiles, work, bn = plan(K, Ns, sms)
+        return work + 1, tiles, work, bn
+
+    monkeypatch.setattr(qmm, "gemv_plan", bad)
+    monkeypatch.setattr(qmm, "_groups", {})  # records hold their plan
+    before = qmm.gemv_launches
+    with pytest.raises(RuntimeError, match="quant_matmul_stream"):
+        qmm.quant_matmul(x, wq, scale)
+    assert qmm.gemv_launches == before
 
 
 def test_quant_matmul_gemm_repeats_bit_for_bit(dev, qmm_weights):

@@ -136,6 +136,155 @@ def test_gemv_splits_cover_k_and_fill_the_card():
         assert splits == -(-K // 64) or n_tiles * (splits + 1) >= 264
 
 
+# llama3-8b's projections as the decode step multiplies them: (K, widths of
+# the weights one launch takes). The main path groups q/k/v and gate/up and
+# calls o, down and lm_head alone; the other rows are the weights alone.
+LLAMA3_8B_GEMV = {
+    "qkv": (4096, (4096, 1024, 1024)), "o": (4096, (4096,)),
+    "gate_up": (4096, (14336, 14336)), "down": (14336, (4096,)),
+    "lm_head": (4096, (128256,)), "q": (4096, (4096,)), "k": (4096, (1024,)),
+    "gate": (4096, (14336,)),
+}
+MAIN_PATH_GEMV = ("qkv", "o", "gate_up", "down", "lm_head")
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("M", [1, 16, 48])
+@pytest.mark.parametrize("name", sorted(LLAMA3_8B_GEMV))
+def test_gemv_plan_covers_every_k_tile_once_and_fills_one_wave(name, M):
+    """gemv_stream_tc's plan: every (column tile, k tile) of every weight is
+    one block's exactly once; a column tile's units are its splits in order
+    (their k ranges ascending and adjacent); the runs differ by at most one
+    tile step, in at most one wave; the main path's calls take the shortest
+    run one wave allows; weights whose runs of 256-column tiles would be short
+    (o_proj) take tiles of 128;
+    the workspace slots the split units write are distinct, within the 2 *
+    blocks * M * width floats the wrapper holds, and the ones the last block
+    reads (gs_epilogue's rule)."""
+    K, Ns = LLAMA3_8B_GEMV[name]
+    blocks, tiles, work, bn = qmm.gemv_plan(K, Ns, H100_SMS)
+    kt = -(-K // qmm.STREAM_BK)
+    wide_run = max(-(-sum(-(-n // 256) for n in Ns) * kt // H100_SMS),
+                   -(-kt // qmm.STREAM_MAX_SPLITS))
+    assert bn == (128 if wide_run <= qmm.STREAM_SHORT_RUN else 256)
+    assert bn == (128 if name in ("o", "q", "k") else 256)
+    assert tiles == sum(-(-n // bn) for n in Ns) and work == tiles * kt
+    assert 1 <= blocks <= H100_SMS
+    units = qmm.gemv_units(blocks, kt, work)
+    runs = [sum(u[2] - u[1] for u in us) for us in units]
+    assert sum(runs) == work and max(runs) - min(runs) <= 1
+    best = -(-work // H100_SMS)
+    assert max(runs) == max(best, -(-kt // qmm.STREAM_MAX_SPLITS))
+    if name in MAIN_PATH_GEMV:
+        assert max(runs) == best
+    by_tile = {}
+    for b, us in enumerate(units):
+        for t, k0, k1, split, splits, slot in us:
+            by_tile.setdefault(t, []).append((split, k0, k1, splits, slot, b))
+    assert sorted(by_tile) == list(range(tiles))
+    slots = set()
+    for t, pieces in by_tile.items():
+        pieces.sort()
+        n = len(pieces)
+        assert [p[0] for p in pieces] == list(range(n))
+        assert all(p[3] == n for p in pieces)
+        assert pieces[0][1] == 0 and pieces[-1][2] == kt
+        assert all(a[2] == b[1] for a, b in zip(pieces, pieces[1:]))
+        assert n <= qmm.STREAM_MAX_SPLITS + 2
+        first = pieces[0][5]
+        for split, k0, k1, _, slot, b in pieces:
+            assert b == first + split
+            if n == 1:
+                assert slot is None
+                continue
+            later = split == 0 and b * work // blocks != t * kt
+            assert slot == 2 * b + later and slot not in slots
+            slots.add(slot)
+    assert all(s < 2 * blocks for s in slots)
+    floats = 2 * blocks * M * bn
+    assert (max(slots, default=-1) + 1) * M * bn <= floats
+
+
+def _group_operands(k, ns, seed):
+    rng = np.random.default_rng(seed)
+    mats = []
+    for n in ns:
+        w = (rng.normal(size=(k, n)) * 0.02).astype(np.float32)
+        wq, scale = jqm.quantize_weight(jnp.asarray(w))
+        mats.append((np.asarray(wq), np.asarray(scale)))
+    return mats
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,ns", [(16, 256, (256, 128, 128)), (1, 128, (384, 384)),
+                                    (45, 384, (128,))])
+def test_quant_matmul_group_plain_matches_reference_and_pallas(m, k, ns, dtype):
+    """The group's plain path (a CPU tensor) is the plain product a weight,
+    exactly, and matches the JAX package's quant_matmul (Pallas kernel in
+    interpret mode) a weight: 2e-5 in float32, one bf16 ulp in bfloat16."""
+    mats = _group_operands(k, ns, seed=m + k)
+    x = np.random.default_rng(k).normal(size=(m, k)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    xj = jnp.asarray(x, jdt)
+    xt = _t(np.asarray(xj, np.float32)).to(getattr(torch, dtype))
+    tm = [(_t(wq), _t(scale)) for wq, scale in mats]
+    before = (qmm.gemv_launches, qmm.group_launches, qmm.gemm_launches)
+    got = qmm.quant_matmul_group(xt, tm)
+    assert (qmm.gemv_launches, qmm.group_launches, qmm.gemm_launches) == before
+    assert len(got) == len(ns)
+    for out, (wq, scale), (jwq, jscale) in zip(got, tm, mats):
+        assert out.dtype == xt.dtype and out.shape == (m, wq.shape[1])
+        assert torch.equal(out, qmm.quant_matmul_reference(xt, wq, scale))
+        want = np.asarray(qmm_jax(xj, jwq, jscale), np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(out.numpy(), want, rtol=2e-5, atol=2e-5)
+        else:
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+            assert np.all(np.abs(out.float().numpy() - want) <= ulp)
+
+
+def qmm_jax(x, wq, scale):
+    return jqm.quant_matmul(x, jnp.asarray(wq), jnp.asarray(scale), interpret=True)
+
+
+def test_quant_matmul_group_checks_inputs():
+    mats = [(_t(wq), _t(s)) for wq, s in _group_operands(64, (32, 32, 32, 32), seed=4)]
+    x = torch.zeros(2, 64)
+    with pytest.raises(ValueError, match="1 to 3"):
+        qmm.quant_matmul_group(x, mats)
+    with pytest.raises(ValueError, match="1 to 3"):
+        qmm.quant_matmul_group(x, [])
+    with pytest.raises(ValueError, match="disagree"):
+        qmm.quant_matmul_group(x, [mats[0], (mats[1][0][:-1], mats[1][1])])
+    with pytest.raises(ValueError, match="dtypes"):
+        qmm.quant_matmul_group(x, mats[:2], out_dtype=torch.bfloat16)
+
+
+def test_int8_model_groups_qkv_and_gate_up(monkeypatch):
+    """A forward of the int8 model makes one grouped call for q/k/v and one
+    for gate/up a layer, and a single call for o, down and lm_head."""
+    tcfg = _int8(tconfigs.get_model_config("tiny-test"))
+    model = build_model(tcfg, init_params(tcfg, seed=0, device=torch.device("cpu")),
+                        torch.device("cpu"), torch.float32)
+    groups, singles = [], []
+    inner_group, inner_single = qmm.quant_matmul_group, qmm.quant_matmul
+
+    def group(x, mats, out_dtype=None):
+        groups.append(tuple(tuple(wq.shape) for wq, _ in mats))
+        return inner_group(x, mats, out_dtype)
+
+    def single(x, wq, scale, out_dtype=None):
+        singles.append(tuple(wq.shape))
+        return inner_single(x, wq, scale, out_dtype)
+
+    monkeypatch.setattr(qmm, "quant_matmul_group", group)
+    monkeypatch.setattr(qmm, "quant_matmul", single)
+    model(torch.arange(3, 11)[None], torch.arange(8)[None])
+    d, q, kv, ff = tcfg.d_model, tcfg.q_dim, tcfg.kv_dim, tcfg.d_ff
+    assert groups == [((d, q), (d, kv), (d, kv)), ((d, ff), (d, ff))] * tcfg.num_layers
+    assert singles == [(q, d), (ff, d)] * tcfg.num_layers + [(d, tcfg.vocab_size)]
+
+
 # ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
