@@ -15,7 +15,11 @@ and lm_head weights from seed 0). It shows that each path launched its
 kernels, holds each kernel against its plain PyTorch version at the shapes
 the path gave it, times kernel, plain version and a one-call PyTorch
 yardstick, and checks the model's logits and greedy tokens against the
-plain versions on a small input.
+plain versions on a small input. Last it runs the phase-1 sweep itself
+(``pipeline/phase1.run_phase1``, from MovieLens to the saved record): on the
+two study checkpoints in ``checkpoints/``, read with the port's own
+safetensors reader and BPE tokenizer, and at the full width of llama3-8b
+with int8 weights.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -87,6 +91,36 @@ path's launch counts are set to 0 just before it and read just after:
  18. the teacher-forced check of phase 9 with K4 swapped for its plain
      version too: reported in bf16 at 32 layers, held to 1e-3 in float32
      at 4 layers.
+  the phase-1 sweep (``backend_for`` and ``run_phase1``, the user's entry
+  points), after the int8 engine is freed:
+ 19. on tiny-llama-study and tiny-gpt2-study at the study's settings (45
+     profiles and 3 neutral prompts, t=0.7, 64 tokens, chunks of 16): the
+     manifest must verify, the checkpoint's BPE tokenizer must be in use,
+     K1's and K2's f32 kernels (flash_fwd, decode_fwd) must launch and
+     their tensor-core kernels must not; 48 responses with no error entry,
+     a non-empty list for some profile, finite metrics, a saved record that
+     reads back and matches its manifest entry, and the same responses from
+     a second run; then each of the two kernels against its plain version
+     at every shape the sweep gave it, held elementwise to 1e-4 (float32),
+     each blind check as in phase 6;
+ 20. the same sweep greedy on the card and on the CPU (the plain
+     versions): every key's tokens equal, or, where they differ, the CPU's
+     top two logits at the first divergent token within 1e-4
+     (teacher-forced; such rows are logged); with equal tokens, equal
+     records and metrics within 1e-6;
+ 21. the default sweep on llama3-8b with int8 weights (``--weight-quant
+     int8``) at full width and depth, random weights from the seed and the
+     byte tokenizer: K1 and K2 on their tensor-core kernels and both K4
+     regimes must launch, no error entry, the record written and read back;
+     the wall seconds, each chunk's prefix, prefill and decode times and the
+     peak memory are logged (parses and metrics are vacuous under random
+     weights); then K1, K2 and K4 against their plain versions at every
+     (shape, dtypes) the sweep gave them, as in phases 6 and 16.
+  The kernels line gains K1's and K2's f32 kernels as entries of their own
+  (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
+  phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
+  launches of its own kernel function on phase 19's sweeps and on phase
+  21's; the entries phase 21 launched get its rows as ``phase1_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -95,6 +129,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -116,6 +151,10 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # K1 also rounds its softmax weights P to bf16 before P.V (each moves by at
 # most 2^-9 of the row's largest weight, which is 1).
 ATOL, RTOL = 4e-3, 1e-2
+# Kernel against plain version on float32 inputs (K1's flash_fwd, K2's
+# decode_fwd; no TF32 on either side): they differ in summation order only,
+# and are held to the float32 allowance of tests/test_torch_cuda.py.
+ATOL_F32, RTOL_F32 = 1e-4, 0.0
 PROFILE_TOKENS = 16
 # K2/K2q are also timed at the phase-1 sweep's own batch (45 profiles
 # bucketed to 48): reported, not gated.
@@ -131,6 +170,8 @@ K2Q_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:191"
 K3_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:404"
 K3Q_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:288"
 K4_REPLACES = "fairness_llm_tpu/ops/quant_matmul.py:159"
+K1_SOURCE = "fairness_llm_tpu_torch/ops/csrc/flash_attention.cu"
+K2_SOURCE = "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu"
 K4_SOURCE = "fairness_llm_tpu_torch/ops/csrc/quant_matmul.cu"
 # The CUDA kernel each entry's wrapper launches on this path's inputs; the
 # note at the top of its source describes the design.
@@ -142,6 +183,8 @@ KERNEL_FUNCTIONS = {
     "decode_attention_verify_int8_cache": "decode_verify_tc",
     "quant_matmul_gemv": "gemv_stream_tc",
     "quant_matmul_gemm": "wg_gemm_kernel",
+    "flash_attention_f32": "flash_fwd",
+    "decode_attention_f32": "decode_fwd",
 }
 # The int8 engine's allocation may exceed its tree by this share at most.
 MEM_SLACK = 0.05
@@ -262,11 +305,17 @@ def rates(flops: float, ms: float, peak: float) -> dict:
     return {"tflops": tflops, "peak_share": tflops * 1e12 / peak}
 
 
-def gate(got, want):
-    """(max |got - want|, the largest error over its allowance ATOL + RTOL *
-    |want|); the second is <= 1 where the two agree."""
+def tolerance(f32: bool) -> tuple:
+    """(atol, rtol) for a kernel on float32 inputs, or on bfloat16 ones."""
+    return (ATOL_F32, RTOL_F32) if f32 else (ATOL, RTOL)
+
+
+def gate(got, want, f32: bool = False):
+    """(max |got - want|, the largest error over its allowance atol + rtol *
+    |want| from ``tolerance(f32)``); the second is <= 1 where the two agree."""
+    atol, rtol = tolerance(f32)
     err = (got.float() - want.float()).abs()
-    return float(err.max()), float((err / (ATOL + RTOL * want.float().abs())).max())
+    return float(err.max()), float((err / (atol + rtol * want.float().abs())).max())
 
 
 class Recorder:
@@ -370,16 +419,17 @@ def k1_numbers(call, torch, F):
     causal, window = kw.get("causal", True), kw.get("window")
     B, H, S, D = q.shape
     rep = H // k.shape[1]
+    f32 = q.dtype == torch.float32
     got = fm.flash_attention(q, k, v, lengths, causal=causal, window=window)
     want = fm.flash_attention_reference(q, k, v, lengths, causal=causal, window=window)
-    err, ratio = gate(got, want)
+    err, ratio = gate(got, want, f32)
     # The kernel with every row's first valid key masked out, on the query
     # rows valid under both masks: the gate must see the difference.
     short = (lengths - 1).clamp_min(0)
     shifted = fm.flash_attention(q, k, v, short, causal=causal, window=window)
     rows = torch.arange(S, device=q.device)[None, :] >= (S - short.long())[:, None]
     sel = rows[:, None, :, None].expand_as(want)
-    _, shifted_ratio = gate(shifted[sel], want[sel])
+    _, shifted_ratio = gate(shifted[sel], want[sel], f32)
     iters = 20
     ms = cuda_ms(lambda: fm.flash_attention(q, k, v, lengths, causal=causal, window=window), iters)
     plain_ms = cuda_ms(lambda: fm.flash_attention_reference(q, k, v, lengths, causal=causal,
@@ -395,9 +445,9 @@ def k1_numbers(call, torch, F):
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qc, ke, ve,
                                                                 attn_mask=mask[:, None]), iters)
     # Bound: the causal, left-padded, windowed score + PV work this input needs
-    # (4*D operations per visible (query, key) pair per head), or the bytes
-    # it needs (q, k, v at the valid positions read once, o written whole,
-    # lengths), whichever takes longer.
+    # (4*D operations per visible (query, key) pair per head, at the peak for
+    # q's type), or the bytes it needs (q, k, v at the valid positions read
+    # once, o written whole, lengths), whichever takes longer.
     pairs = 0
     for L in lengths.tolist():
         n = torch.arange(L, dtype=torch.float64)  # query offset inside the valid run
@@ -408,10 +458,12 @@ def k1_numbers(call, torch, F):
     flops = 4.0 * D * H * pairs
     n_valid = int(lengths.sum())
     nbytes = (n_valid * (H + 2 * k.shape[1]) * D + q.numel()) * q.element_size() + 4 * B
-    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    peak = F32_FLOPS if f32 else BF16_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {
-        "shape": {"q": list(q.shape), "k": list(k.shape), "window": window},
-        **rates(flops, ms, BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS),
+        "shape": {"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)[6:],
+                  "window": window},
+        **rates(flops, ms, peak), "tol": tolerance(f32),
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
         "blind_gate_err_over_tol": shifted_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -438,20 +490,21 @@ def decode_numbers(call, torch, F):
     Q = q.shape[1] if multi else 1
     L, Hkv = k.shape[1], k.shape[2]
     P = 0 if shared is None else shared[0].shape[0]
+    f32 = q.dtype == torch.float32
     run = lambda **over: dm.decode_attention(q, k, v, valid, **{**kw, **over})  # noqa: E731
     got = run()
     want = dm.decode_attention_reference(q, k, v, valid, **kw)
-    err, ratio = gate(got, want)
+    err, ratio = gate(got, want, f32)
     if multi:
         # Every q_offset lowered by one: each query loses its own slot.
-        _, blind_ratio = gate(run(q_offsets=offs - 1), want)
+        _, blind_ratio = gate(run(q_offsets=offs - 1), want, f32)
     else:
         # Each row's newest valid slot (the token just written) masked out.
         slots = torch.arange(L, device=q.device)
         newest = torch.where(valid.bool(), slots, -1).amax(1)
         dropped = valid.clone()
         dropped[torch.arange(B, device=q.device), newest] = False
-        _, blind_ratio = gate(dm.decode_attention(q, k, v, dropped, **kw), want)
+        _, blind_ratio = gate(dm.decode_attention(q, k, v, dropped, **kw), want, f32)
     del got, want
     iters = 200
     ms = cuda_ms(run, iters)
@@ -492,12 +545,14 @@ def decode_numbers(call, torch, F):
               + (2 * needed * Hkv * 4 if quant else 0) + 2 * P * Hkv * D * item + B * L
               + (4 * B if multi else 0))
     flops = 4.0 * D * H * pairs
-    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    peak = F32_FLOPS if f32 else BF16_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    shape = {"q": list(q.shape), "k": list(k.shape), "cache": str(k.dtype)[6:], "prefix": P,
+    shape = {"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)[6:],
+             "cache": str(k.dtype)[6:], "prefix": P,
              "visible_slots": int(sees.sum()) if multi else needed}
     return {
         "shape": shape, **rates(flops, ms, peak), "bound_share": max(t_ops, t_bytes) / ms,
+        "tol": tolerance(f32),
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio,
         "ok": ratio <= 1, "blind_gate_err_over_tol": blind_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "host_us": wrapper_host_us,
@@ -573,7 +628,7 @@ def k4_numbers(call, torch, flush):
         "shape": {"M": M, "K": K, "N": Ns if grouped else Ns[0], "x": str(x.dtype)[6:],
                   "out": str(od)[6:], **({"group": len(mats)} if grouped else {})},
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
-        "blind_gate_err_over_tol": cut_ratio,
+        "blind_gate_err_over_tol": cut_ratio, "tol": tolerance(False),
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": "torch.matmul(x, weight dequantized to x's dtype"
                         + (", the group's side by side)" if grouped else ")"),
@@ -734,9 +789,10 @@ def check_rows(name: str, rows, blind: str) -> None:
     for r in rows:
         log(f"kernel {name} {json.dumps(r)}")
         if not r["ok"]:
+            atol, rtol = r["tol"]
             fail(f"{name} disagrees with its plain version at {r['shape']}: "
                  f"max_abs_err {r['max_abs_err']}, {r['err_over_tol']:.2f}x the "
-                 f"tolerance {ATOL} + {RTOL} * |plain|")
+                 f"tolerance {atol} + {rtol} * |plain|")
         if r["blind_gate_err_over_tol"] <= 1:
             fail(f"{name} at {r['shape']}: {blind} stays within the tolerance "
                  f"({r['blind_gate_err_over_tol']:.2f}x); the gate is blind")
@@ -827,6 +883,39 @@ def head_product_check(engine, torch) -> None:
         fail(f"the head-product gate does not see bf16 rounding: {row}")
     if extra > 64 << 20:
         fail(f"the bf16 logits product allocated {extra} bytes (an f32 copy of the head?)")
+
+
+def flash_recorder(flash_mod):
+    """A Recorder of flash_attention keyed by shapes, dtype and window."""
+    return Recorder(flash_mod, "flash_attention",
+                    lambda q, k, v, lengths, causal=True, window=None:
+                    ("k1", tuple(q.shape), tuple(k.shape), str(q.dtype), window))
+
+
+def k4_recorders(qm):
+    """WeightRecorders of quant_matmul and quant_matmul_group keyed by
+    shapes and dtypes."""
+    return (WeightRecorder(qm, "quant_matmul",
+                           lambda x, wq, scale, out_dtype=None:
+                           ("k4", tuple(x.shape), tuple(wq.shape), str(x.dtype),
+                            str(out_dtype or x.dtype))),
+            WeightRecorder(qm, "quant_matmul_group",
+                           lambda x, mats, out_dtype=None:
+                           ("group", tuple(x.shape), tuple(tuple(w.shape) for w, _ in mats),
+                            str(x.dtype), str(out_dtype or x.dtype))))
+
+
+def k4_calls(rec4, recg, qm) -> list:
+    """The recorded K4 calls, one a kernel launch (or a launch a weight): a
+    grouped call in the GEMV regime is one launch and makes no quant_matmul
+    call of its own; past it, it is one quant_matmul call a weight, each
+    recorded (and given its row) on its own."""
+    for call in rec4.calls.values():
+        call["group"] = False
+    for call in recg.calls.values():
+        call["group"] = True
+    return list(rec4.calls.values()) + [c for c in recg.calls.values()
+                                        if c["args"][0].shape[0] <= qm.GEMV_MAX_M]
 
 
 def decode_recorder(dec_mod):
@@ -950,9 +1039,7 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
     head_product_check(engine, torch)
 
     # 3-4. the plain serve calls
-    rec1 = Recorder(flash_mod, "flash_attention",
-                    lambda q, k, v, lengths, causal=True, window=None:
-                    ("k1", tuple(q.shape), tuple(k.shape), window))
+    rec1 = flash_recorder(flash_mod)
     rec2 = decode_recorder(dec_mod)
     zero_counts(dec_mod, flash_mod)
     with rec1, rec2:
@@ -979,10 +1066,10 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
     k2_rows = decode_rows(rec2, "k2", "decode_attention", torch, F, "the newest slot masked out")
     k3_rows = decode_rows(rec3, "k3", "decode_attention_verify", torch, F,
                           "every q_offset lowered by one")
-    dec_src = "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu"
+    dec_src = K2_SOURCE
     kernels = [
-        {**kernel_entry("flash_attention", "fairness_llm_tpu_torch/ops/csrc/flash_attention.cu",
-                        K1_REPLACES, launches["flash_attention"], k1_rows),
+        {**kernel_entry("flash_attention", K1_SOURCE, K1_REPLACES, launches["flash_attention"],
+                        k1_rows),
          "tc_launches": launches["flash_attention_tc"]},
         {**kernel_entry("decode_attention", dec_src, K2_REPLACES, launches["decode_attention"],
                         k2_rows),
@@ -1087,7 +1174,7 @@ def kv_cache_path(torch, F, engine, prompts, keys, prefix, greedy, sampled):
                            "the newest slot masked out")
     k3q_rows = decode_rows(rec_s, "k3q", "decode_attention_verify_int8_cache", torch, F,
                            "every q_offset lowered by one")
-    dec_src = "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu"
+    dec_src = K2_SOURCE
     kernels = [
         {**kernel_entry("decode_attention_int8_cache", dec_src, K2Q_REPLACES,
                         launches["decode_attention_int8_cache"], k2q_rows),
@@ -1161,14 +1248,7 @@ def int8_path(torch, prompts, keys, greedy, sampled):
     backend.generate(prompts[:2], ModelSettings(temperature=0.0, max_tokens=2))
 
     # 15. the main path
-    rec4 = WeightRecorder(qm, "quant_matmul",
-                          lambda x, wq, scale, out_dtype=None:
-                          ("k4", tuple(x.shape), tuple(wq.shape), str(x.dtype),
-                           str(out_dtype or x.dtype)))
-    recg = WeightRecorder(qm, "quant_matmul_group",
-                          lambda x, mats, out_dtype=None:
-                          ("group", tuple(x.shape), tuple(tuple(w.shape) for w, _ in mats),
-                           str(x.dtype), str(out_dtype or x.dtype)))
+    rec4, recg = k4_recorders(qm)
     zero_counts(dec_mod, flash_mod)
     qm.gemv_launches = qm.gemm_launches = qm.group_launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1187,16 +1267,8 @@ def int8_path(torch, prompts, keys, greedy, sampled):
             fail(f"{name} was not launched on the int8 main path")
     need_all_tc(launches, "int8 main")
     need_all_tc(launches, "int8 main", "decode_attention", "decode_attention_tc")
-    # One kernel launch for each GEMV call: a grouped call in the GEMV
-    # regime makes no quant_matmul call of its own.
-    for key, call in rec4.calls.items():
-        call["group"] = False
-    for key, call in recg.calls.items():
-        call["group"] = True
-    # A grouped call past the GEMV regime is one quant_matmul call a weight,
-    # each recorded (and given its row) on its own.
-    calls = list(rec4.calls.values()) + [c for c in recg.calls.values()
-                                         if c["args"][0].shape[0] <= qm.GEMV_MAX_M]
+    # One kernel launch for each GEMV call.
+    calls = k4_calls(rec4, recg, qm)
     gemv_calls = sum(c["n"] for c in calls if c["args"][0].shape[0] <= qm.GEMV_MAX_M)
     group_calls = sum(c["n"] for c in calls if c["group"])
     log(f"int8 K4 GEMV calls {gemv_calls} (grouped {group_calls}), kernel launches "
@@ -1234,6 +1306,369 @@ def int8_path(torch, prompts, keys, greedy, sampled):
     del small
     torch.cuda.empty_cache()
     return kernels
+
+
+# The phase-1 sweep (pipeline/phase1.run_phase1) on the study checkpoints:
+# f32 weights at head width 32, so K1 and K2 run their f32 kernels.
+STUDY_MODELS = ("tiny-llama-study", "tiny-gpt2-study")
+STUDY_PROMPTS = 48  # 45 profiles and 3 neutral prompts
+# A greedy row may differ between the card and the CPU only where the CPU's
+# top two logits at the first divergent token are within this gap.
+NEAR_TIE = 1e-4
+METRIC_TOL = 1e-6
+# The key of the full-width sweep's launches and kernel rows.
+FULL_WIDTH = "llama3-8b-int8"
+
+
+def phase1_counts(dec_mod, flash_mod, qm) -> dict:
+    """Each kernels-line entry's launches since the counts were zeroed,
+    counted by the CUDA kernel the entry names (KERNEL_FUNCTIONS): K1's and
+    K2's tensor-core and float32 kernels apart. A phase-1 sweep runs no
+    int8 cache and no verify window (it fails here if it did), so every
+    decode_split_tc launch is K2's; its K4 calls take bf16 x (checked on the
+    recorded calls by ``sweep_kernel_rows``), so every GEMV launch is
+    gemv_stream_tc's."""
+    if dec_mod.quant_launches or dec_mod.multi_launches or dec_mod.multi_quant_launches:
+        fail("a phase-1 sweep launched decode attention over an int8 cache or a verify window")
+    return {"flash_attention": flash_mod.tc_launches,
+            "flash_attention_f32": flash_mod.launches - flash_mod.tc_launches,
+            "decode_attention": dec_mod.decode_tc_launches,
+            "decode_attention_f32": dec_mod.launches - dec_mod.decode_tc_launches,
+            "decode_attention_verify": 0, "decode_attention_int8_cache": 0,
+            "decode_attention_verify_int8_cache": 0,
+            "quant_matmul_gemv": qm.gemv_launches, "quant_matmul_gemm": qm.gemm_launches}
+
+
+def zero_all(dec_mod, flash_mod, qm) -> None:
+    zero_counts(dec_mod, flash_mod)
+    qm.gemv_launches = qm.gemm_launches = qm.group_launches = 0
+
+
+@contextlib.contextmanager
+def sweep_recorders(dec_mod, flash_mod, qm):
+    """Records every kernel wrapper call of a sweep (K1, K2, K4 single and
+    grouped) as phases 3-5 and 15 record theirs."""
+    recs = {"k1": flash_recorder(flash_mod), "dec": decode_recorder(dec_mod)}
+    recs["k4"], recs["group"] = k4_recorders(qm)
+    with contextlib.ExitStack() as stack:
+        for r in recs.values():
+            stack.enter_context(r)
+        yield recs
+
+
+def sweep_kernel_rows(recs, torch, F, qm, path: str, f32: bool) -> dict:
+    """Each kernel a sweep launched against its plain version at every
+    (shape, dtype) the sweep gave its wrapper, with the blind checks of
+    phases 6 and 16 (``check_rows``); keyed by kernels-line entry name.
+    ``f32``: a float32 model, whose K1 and K2 rows are the f32 entries'."""
+    suffix = "_f32" if f32 else ""
+
+    def held(name, rows, blind):
+        if not rows:
+            fail(f"{name}: no launch recorded on the {path} sweep")
+        for r in rows:
+            r["path"] = path
+        check_rows(name, rows, blind)
+        return rows
+
+    rows = {
+        f"flash_attention{suffix}": held(
+            f"flash_attention{suffix}",
+            [k1_numbers(call, torch, F) for call in recs["k1"].calls.values()],
+            "the first valid key masked out"),
+        f"decode_attention{suffix}": held(
+            f"decode_attention{suffix}",
+            [decode_numbers(call, torch, F) for key, call in recs["dec"].calls.items()
+             if key[0] == "k2"],
+            "the newest slot masked out"),
+    }
+    calls = k4_calls(recs["k4"], recs["group"], qm)
+    if any(c["args"][0].dtype != torch.bfloat16 for c in calls):
+        fail(f"the {path} sweep called K4 with x not in bfloat16")
+    if calls:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        k4 = [k4_numbers(call, torch, flush) for call in calls]
+        del flush
+        for regime in ("gemv", "gemm"):
+            name = f"quant_matmul_{regime}"
+            rows[name] = held(name, [r for r in k4 if r["regime"] == regime],
+                              "x with its last 32 columns zeroed")
+    return rows
+
+
+class SweepRecorder:
+    """Wraps a backend's ``generate`` (and its engine's) for one sweep: each
+    key's prompt and output tokens, and each chunk's stats."""
+
+    def __init__(self, backend):
+        self.prompt_of, self.tokens, self.chunks = {}, {}, []
+        outer, inner = backend.generate, backend.engine.generate
+        outs = []
+
+        def engine_generate(*args, **kwargs):
+            out = inner(*args, **kwargs)
+            outs.append(out.tokens)
+            return out
+
+        def backend_generate(prompts, settings=None, seed=0, keys=None, prefix_ids=None):
+            outs.clear()
+            texts = outer(prompts, settings, seed=seed, keys=keys, prefix_ids=prefix_ids)
+            if keys is None or len(outs) != 1 or len(outs[0]) != len(keys):
+                fail("a sweep chunk was not one keyed engine call")
+            for k, p, row in zip(keys, prompts, outs[0]):
+                self.prompt_of[k] = p
+                self.tokens[k] = [int(t) for t in row]
+            st = backend.last_stats
+            self.chunks.append({
+                "batch": st["batch"], "prompt_len": st["prompt_len"],
+                "prefix_len": st["prefix_len"], "prefix_s": st["prefix_s"],
+                "prefill_s": st["prefill_s"], "decode_steps": st["decode_steps"],
+                "decode_ms_per_step": st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
+                "decoded_tokens": st["decoded_tokens"]})
+            return texts
+
+        backend.engine.generate = engine_generate
+        backend.generate = backend_generate
+
+
+def metric_leaves(node, path="metrics"):
+    """(path, number) for every number under a record's metrics."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from metric_leaves(v, f"{path}.{k}")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from metric_leaves(v, f"{path}[{i}]")
+    elif isinstance(node, (int, float)) and not isinstance(node, bool):
+        yield path, float(node)
+
+
+def check_record(rec, label: str, want_non_empty: bool = True) -> dict:
+    """The gates every phase-1 record passes: one response a prompt, no
+    error entry, finite metrics; returns its parse counts."""
+    entries = rec["recommendations"]
+    n = len(entries) + len(rec["neutral_recommendations"])
+    if n != STUDY_PROMPTS:
+        fail(f"{label}: {n} responses for {STUDY_PROMPTS} prompts")
+    bad = [k for k, e in entries.items() if "error" in e]
+    if bad:
+        fail(f"{label}: error entries for {bad}")
+    for path, value in metric_leaves(rec["metrics"]):
+        if not math.isfinite(value):
+            fail(f"{label}: {path} is {value}")
+    parsed = [len(e["recommendations"]) for e in entries.values()]
+    if want_non_empty and not any(parsed):
+        fail(f"{label}: every profile's recommendation list is empty")
+    return {"profiles_with_titles": sum(1 for x in parsed if x), "titles": sum(parsed),
+            "neutral_titles": sum(len(r) for r in rec["neutral_recommendations"])}
+
+
+def saved_record_check(config, rec, label: str) -> None:
+    """The record on disk reads back and its manifest entry verifies."""
+    from fairness_llm_tpu_torch.integrity.manifest import verify_manifest_entry
+    from fairness_llm_tpu_torch.pipeline.results import load_results
+
+    d = pathlib.Path(config.results_dir) / "phase1"
+    saved = load_results(str(d / "phase1_results.json"))
+    if saved is None or saved["recommendations"] != json.loads(json.dumps(rec["recommendations"])):
+        fail(f"{label}: the saved record does not read back")
+    if not verify_manifest_entry(str(d), "phase1_results.json"):
+        fail(f"{label}: the saved record does not match its manifest entry")
+
+
+def greedy_config(base, name: str, tokens: int):
+    from fairness_llm_tpu_torch.config import ModelSettings
+
+    settings = tuple((n, ModelSettings(temperature=0.0, max_tokens=tokens) if n == name else s)
+                     for n, s in base.model_settings)
+    return dataclasses.replace(base, model_settings=settings)
+
+
+def top2_gap(engine, prompt: str, tokens, torch) -> float:
+    """The gap between the two largest logits after ``prompt`` and
+    ``tokens``, teacher-forced through a plain forward of ``engine``."""
+    ids = engine.tokenizer.encode(prompt) + list(tokens)
+    logits, _ = engine.model(torch.tensor([ids], device=engine.device),
+                             torch.arange(len(ids), device=engine.device)[None])
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def greedy_divergences(name: str, cpu_calls, card_calls, cpu_engine, torch) -> list:
+    """Every key's greedy tokens on the card against the CPU's. A row may
+    differ only where the CPU's top two logits at the first divergent token
+    (or, where one row is a prefix of the other, at the shorter's end) are
+    within NEAR_TIE; returns such rows."""
+    if set(cpu_calls.tokens) != set(card_calls.tokens):
+        fail(f"{name} greedy: the card and the CPU decoded other keys")
+    differ = []
+    for key, want in cpu_calls.tokens.items():
+        got = card_calls.tokens[key]
+        if want == got:
+            continue
+        t = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+                 min(len(want), len(got)))
+        gap = top2_gap(cpu_engine, cpu_calls.prompt_of[key], want[:t], torch)
+        differ.append({"key": key, "token": t, "cpu_top2_gap": gap})
+        if gap >= NEAR_TIE:
+            fail(f"{name} greedy: {key} differs from the CPU at token {t}, where the CPU's "
+                 f"top two logits are {gap:.3e} apart (more than {NEAR_TIE})")
+    return differ
+
+
+def study_sweep(torch, F, name: str, tmp: pathlib.Path):
+    """Phases 19-20 for one study checkpoint; returns its log row and the
+    f32 K1 and K2 rows at the t=0.7 sweep's shapes."""
+    from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.integrity.manifest import maybe_verify_manifest
+    from fairness_llm_tpu_torch.models.tokenizer import HFTokenizer
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+
+    if not maybe_verify_manifest(str(ROOT / "checkpoints" / name), kind="weights"):
+        fail(f"{name}: the checkpoint has no manifest to verify")
+    row = {"model": name}
+    # 19. the study's own settings (t=0.7, 64 tokens, chunks of 16)
+    cfg = Config(weights_dir=str(ROOT / "checkpoints"), data_dir=str(ROOT / "data" / "ml-1m"),
+                 results_dir=str(tmp / name / "run"))
+    zero_all(dec_mod, flash_mod, qm)
+    t0 = time.perf_counter()
+    backend = backend_for(name, cfg)
+    if not isinstance(backend.engine.tokenizer, HFTokenizer):
+        fail(f"{name}: the backend decodes with {type(backend.engine.tokenizer).__name__}")
+    sweep = SweepRecorder(backend)
+    with sweep_recorders(dec_mod, flash_mod, qm) as recs:
+        rec = run_phase1(cfg, name, backend=backend)
+    torch.cuda.synchronize()
+    row["wall_s"] = time.perf_counter() - t0
+    launches = phase1_counts(dec_mod, flash_mod, qm)
+    row["launches"] = launches
+    for kernel in ("flash_attention", "decode_attention"):
+        f32 = f"{kernel}_f32"
+        if launches[f32] <= 0:
+            fail(f"{name}: {kernel}'s f32 kernel ({KERNEL_FUNCTIONS[f32]}) was not launched "
+                 f"by the sweep")
+        if launches[kernel]:
+            fail(f"{name}: {launches[kernel]} {kernel} launches of the f32 model ran on "
+                 f"{KERNEL_FUNCTIONS[kernel]}")
+    row["parsed"] = check_record(rec, f"{name} t=0.7")
+    row["chunks"] = sweep.chunks
+    saved_record_check(cfg, rec, name)
+    kernel_rows = sweep_kernel_rows(recs, torch, F, qm, "phase1_study", f32=True)
+    del recs
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, results_dir=str(tmp / name / "again"))
+    again = run_phase1(cfg2, name, backend=backend_for(name, cfg2), save=False)
+    row["repeat_wall_s"] = time.perf_counter() - t0
+    raw = {k: e["raw_response"] for k, e in rec["recommendations"].items()}
+    if raw != {k: e["raw_response"] for k, e in again["recommendations"].items()} or \
+            rec["neutral_recommendations"] != again["neutral_recommendations"]:
+        fail(f"{name}: a second run with the same seed gave other responses")
+
+    # 20. greedy, on the card and on the CPU (the kernels' plain versions)
+    gcfg = greedy_config(dataclasses.replace(cfg, results_dir=str(tmp / name / "greedy")),
+                         name, MAX_TOKENS)
+    sweeps = {}
+    for device in ("cuda", "cpu"):
+        b = backend_for(name, gcfg, device=device)
+        calls = SweepRecorder(b)
+        t0 = time.perf_counter()
+        r = run_phase1(gcfg, name, backend=b, save=False)
+        row[f"greedy_{device}_wall_s"] = time.perf_counter() - t0
+        check_record(r, f"{name} greedy {device}", want_non_empty=False)
+        sweeps[device] = (b, calls, r)
+    (_, card_calls, card), (cpu_b, cpu_calls, cpu) = sweeps["cuda"], sweeps["cpu"]
+    differ = greedy_divergences(name, cpu_calls, card_calls, cpu_b.engine, torch)
+    if not differ and (card["recommendations"] != cpu["recommendations"]
+                       or card["neutral_recommendations"] != cpu["neutral_recommendations"]):
+        fail(f"{name} greedy: equal tokens but other responses on the card and the CPU")
+    row["greedy_rows_differing"] = differ
+    row["greedy_parsed"] = check_record(card, f"{name} greedy", want_non_empty=False)
+    if not differ:
+        for (path, a), (_, b) in zip(metric_leaves(card["metrics"]),
+                                     metric_leaves(cpu["metrics"])):
+            if abs(a - b) > METRIC_TOL:
+                fail(f"{name} greedy: {path} is {a} on the card, {b} on the CPU")
+    row["metrics"] = {k: v.get("score", v.get("snsr")) for k, v in rec["metrics"].items()}
+    return row, kernel_rows
+
+
+def phase1_path(torch, F, device_line: str) -> dict:
+    """Phases 19-21: the phase-1 sweep on both study checkpoints, then at the
+    full width of llama3-8b with int8 weights. Returns, for the two study
+    sweeps together ("study") and the full-width one (FULL_WIDTH), each
+    kernels-line entry's launches ("launches") and its rows at the sweep's
+    shapes ("rows")."""
+    import tempfile
+
+    from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+
+    study_launches, study_rows = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in STUDY_MODELS:
+            row, rows = study_sweep(torch, F, name, pathlib.Path(tmp))
+            for k, v in row["launches"].items():
+                study_launches[k] = study_launches.get(k, 0) + v
+            for k, v in rows.items():
+                study_rows.setdefault(k, []).extend(v)
+            log(f"phase1_study {json.dumps({'device': device_line, **row})}")
+
+        # 21. the default sweep (45 profiles and 3 neutral prompts in three
+        # chunks of 16, t=0.7, the sweep-wide shared prefix) at full width
+        # and depth, random int8 weights from the seed and the byte tokenizer
+        cfg = Config(weight_quant="int8", max_new_tokens=MAX_TOKENS,
+                     data_dir=str(ROOT / "data" / "ml-1m"),
+                     results_dir=str(pathlib.Path(tmp) / "llama3-8b"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_all(dec_mod, flash_mod, qm)
+        t0 = time.perf_counter()
+        backend = backend_for(MODEL, cfg, allow_random=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        sweep = SweepRecorder(backend)
+        with sweep_recorders(dec_mod, flash_mod, qm) as recs, CardSampler() as card:
+            rec = run_phase1(cfg, MODEL, backend=backend)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = phase1_counts(dec_mod, flash_mod, qm)
+        if backend.engine.config.weight_quant != "int8" or \
+                rec["metadata"]["weight_quant"] != "int8":
+            fail("the full-width sweep did not serve int8 weights")
+        for name in ("flash_attention", "decode_attention", "quant_matmul_gemv",
+                     "quant_matmul_gemm"):
+            if launches[name] <= 0:
+                fail(f"{name} ({KERNEL_FUNCTIONS[name]}) was not launched by the full-width "
+                     f"sweep")
+        for name in ("flash_attention_f32", "decode_attention_f32"):
+            if launches[name]:
+                fail(f"the full-width bf16 sweep launched {KERNEL_FUNCTIONS[name]} "
+                     f"{launches[name]} times")
+        # random weights: parses may be empty, so they are reported, not gated
+        parsed = check_record(rec, "llama3-8b int8 sweep", want_non_empty=False)
+        saved_record_check(cfg, rec, "llama3-8b int8 sweep")
+        row = {"model": MODEL, "weight_quant": "int8", "device": device_line,
+               "wall_s": wall, "engine_init_s": init_s, "chunks": sweep.chunks,
+               "peak_allocated_gb": peak / 1e9,
+               "launches": launches, "parsed_vacuous_random_weights": parsed,
+               "metrics_vacuous_random_weights": {
+                   k: v.get("score", v.get("snsr")) for k, v in rec["metrics"].items()},
+               "card": card.summary}
+        log(f"phase1_full_width {json.dumps(row)}")
+        full_rows = sweep_kernel_rows(recs, torch, F, qm, "phase1_full_width", f32=False)
+        del backend, rec, recs
+        torch.cuda.empty_cache()
+    return {"launches": {"study": study_launches, FULL_WIDTH: launches},
+            "rows": {"study": study_rows, FULL_WIDTH: full_rows}}
 
 
 def main() -> int:
@@ -1285,6 +1720,20 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += int8_path(torch, prompts, keys, greedy, sampled)
     log(f"int8_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    sweep = phase1_path(torch, F, device_line)
+    log(f"phase1_path_s {time.perf_counter() - t0:.1f}")
+    # K1's and K2's f32 kernels, whose main path is the study sweeps
+    study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
+    kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
+                             study["flash_attention_f32"], study_rows["flash_attention_f32"]),
+                kernel_entry("decode_attention_f32", K2_SOURCE, K2_REPLACES,
+                             study["decode_attention_f32"], study_rows["decode_attention_f32"])]
+    for entry in kernels:
+        entry["phase1_launches"] = {path: counts[entry["name"]]
+                                    for path, counts in sweep["launches"].items()}
+        if entry["name"] in sweep["rows"][FULL_WIDTH]:
+            entry["phase1_shapes"] = sweep["rows"][FULL_WIDTH][entry["name"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

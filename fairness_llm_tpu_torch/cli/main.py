@@ -1,0 +1,144 @@
+"""Command line for the port: ``python -m fairness_llm_tpu_torch.cli.main``
+(counterpart of ``fairness_llm_tpu/cli/main.py``, phase 1 only).
+
+    python -m fairness_llm_tpu_torch.cli.main --phase 1 --quick \\
+        --model tiny-llama-study --weights-dir checkpoints [--device cpu]
+
+The flags keep the reference's meaning and checks. ``--device`` (default
+``cuda``) is the port's counterpart of the reference's ``JAX_PLATFORMS``.
+Phases 2 and 3 and the phase figures are not ported yet (ROADMAP A6); the
+continuous-batching server, device meshes and resilience flags raise
+``NotImplementedError`` (ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import sys
+import time
+from typing import Dict
+
+from fairness_llm_tpu_torch.config import Config, SpeculationConfig, default_config
+
+logger = logging.getLogger(__name__)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="fairness_llm_tpu_torch",
+        description="LLM recommendation-fairness study on the PyTorch/CUDA port (phase 1)",
+    )
+    p.add_argument("--phase", type=int, choices=(1,), required=True,
+                   help="run one phase (the port has phase 1)")
+    p.add_argument("--quick", action="store_true", help="demo mode: 1 profile/combo")
+    p.add_argument("--model", default=None, help="model for phase 1 (or 'simulated')")
+    p.add_argument("--profiles", type=int, default=None, help="profiles per demographic combo")
+    p.add_argument("--max-new-tokens", type=int, default=None,
+                   help="global decode-length cap: clamps every model's max_tokens")
+    p.add_argument("--speculate", action="store_true",
+                   help="prompt-lookup speculative decoding for engine backends "
+                        "(greedy decode only; sampled settings use the plain path)")
+    p.add_argument("--draft-len", type=int, default=None,
+                   help="with --speculate: drafted tokens verified per step")
+    p.add_argument("--ngram-max", type=int, default=None,
+                   help="with --speculate: longest lookup n-gram tried first")
+    p.add_argument("--weights-dir", default=None, help="directory of HF safetensors checkpoints")
+    p.add_argument("--weight-quant", default=None, choices=("none", "int8"),
+                   help="weight-only quantization for served models: int8 stores the "
+                        "projection kernels as int8 with f32 per-channel scales")
+    p.add_argument("--data-dir", default=None, help="MovieLens-1M directory")
+    p.add_argument("--results-dir", default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--resume", action="store_true", help="resume the sweep from checkpoints")
+    p.add_argument("--no-save", action="store_true")
+    p.add_argument("--no-verify-manifests", action="store_true",
+                   help="skip sha256 manifest verification of weight checkpoints at load")
+    p.add_argument("--device", default="cuda",
+                   help="torch device for engine backends (default cuda; cpu runs the "
+                        "kernels' plain PyTorch versions)")
+    # Not ported yet: refused, never ignored.
+    p.add_argument("--continuous", action="store_true", help="not ported yet (ROADMAP A5)")
+    p.add_argument("--mesh", default=None, help="not ported yet (ROADMAP A5)")
+    p.add_argument("--max-step-seconds", type=float, default=None,
+                   help="not ported yet (ROADMAP A5)")
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    for flag, value in (("--continuous", args.continuous), ("--mesh", args.mesh),
+                        ("--max-step-seconds", args.max_step_seconds)):
+        if value:
+            raise NotImplementedError(
+                f"{flag}: the continuous-batching server, device meshes and resilience "
+                "are not ported yet (ROADMAP A5)")
+    config = default_config()
+    updates: Dict = {}
+    if args.weights_dir:
+        updates["weights_dir"] = args.weights_dir
+    if args.weight_quant is not None:
+        updates["weight_quant"] = args.weight_quant
+    if args.data_dir:
+        updates["data_dir"] = args.data_dir
+    if args.results_dir:
+        updates["results_dir"] = args.results_dir
+    if args.seed is not None:
+        updates["random_seed"] = args.seed
+    if args.max_new_tokens is not None:
+        if args.max_new_tokens < 1:
+            raise SystemExit("--max-new-tokens must be >= 1")
+        updates["max_new_tokens"] = args.max_new_tokens
+    if args.quick:
+        updates["profiles_per_combo"] = 1
+    if args.speculate or args.draft_len is not None or args.ngram_max is not None:
+        if not args.speculate:
+            raise SystemExit("--draft-len/--ngram-max require --speculate")
+        spec_kwargs = {"enabled": True}
+        if args.draft_len is not None:
+            if args.draft_len < 1:
+                raise SystemExit("--draft-len must be >= 1")
+            spec_kwargs["draft_len"] = args.draft_len
+        if args.ngram_max is not None:
+            if args.ngram_max < 1:
+                raise SystemExit("--ngram-max must be >= 1")
+            spec_kwargs["ngram_max"] = args.ngram_max
+        updates["speculation"] = SpeculationConfig(**spec_kwargs)
+    if args.no_verify_manifests:
+        updates["integrity"] = dataclasses.replace(config.integrity, verify_manifests=False)
+    if updates:
+        config = dataclasses.replace(config, **updates)
+    return config
+
+
+def main(argv=None) -> int:
+    from fairness_llm_tpu_torch.pipeline.phase1 import print_phase1_summary, run_phase1
+
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+    )
+    config = config_from_args(args)
+    for sub in ("", "phase1"):
+        os.makedirs(os.path.join(config.results_dir, sub), exist_ok=True)
+    if not os.path.exists(os.path.join(config.data_dir, "movies.dat")):
+        print(f"WARNING: MovieLens not found at {config.data_dir}; "
+              "synthetic fallback will be used")
+    t0 = time.perf_counter()
+    results = run_phase1(config, args.model, args.profiles, save=not args.no_save,
+                         resume=args.resume, device=args.device)
+    print_phase1_summary(results)
+    if not args.no_save:
+        logger.info("phase 1 figures and the summary report are not ported yet (ROADMAP A6)")
+    print("\n" + "=" * 60)
+    print("RUN COMPLETE")
+    print(f"  phase 1: {time.perf_counter() - t0:.1f}s")
+    print(f"results under: {config.results_dir}/")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

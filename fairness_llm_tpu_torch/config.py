@@ -1,11 +1,14 @@
-"""Per-model decode settings and the speculation knobs (counterpart of
-``fairness_llm_tpu/config.py``: ``ModelSettings``, the ``model_settings``
-table and ``SpeculationConfig`` only)."""
+"""Configuration (counterpart of ``fairness_llm_tpu/config.py``):
+``ModelSettings``, ``SpeculationConfig``, ``IntegrityConfig`` (manifest
+verification only) and ``Config`` with the fields the phase-1 sweep reads,
+and ``default_config`` with the reference's ``FAIRNESS_TPU_*`` overrides.
+The serving, fleet, mesh and telemetry sections wait for their slices."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import os
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,19 +34,81 @@ class SpeculationConfig:
     draft_len: int = 8  # drafted tokens verified per step (k; step width k+1)
 
 
-MODEL_SETTINGS: Dict[str, ModelSettings] = {
-    "tiny-test": ModelSettings(temperature=0.7, max_tokens=128),
-    "tiny-gpt2": ModelSettings(temperature=0.7, max_tokens=128),
-    "tiny-llama-study": ModelSettings(temperature=0.7, max_tokens=64),
-    "tiny-gpt2-study": ModelSettings(temperature=0.7, max_tokens=64),
-    "gpt2-small": ModelSettings(temperature=0.7, max_tokens=256),
-    "llama32-1b": ModelSettings(temperature=0.7, max_tokens=500),
-    "llama32-3b": ModelSettings(temperature=0.7, max_tokens=500),
-    "llama3-8b": ModelSettings(temperature=0.7, max_tokens=500),
-    "llama3-70b": ModelSettings(temperature=0.7, max_tokens=500),
-    "mistral-7b": ModelSettings(temperature=0.7, max_tokens=500),
-    "gemma-7b": ModelSettings(temperature=0.7, max_tokens=500),
-    "qwen2-0.5b": ModelSettings(temperature=0.7, max_tokens=500),
-    "qwen2-7b": ModelSettings(temperature=0.7, max_tokens=500),
-}
+@dataclasses.dataclass(frozen=True)
+class IntegrityConfig:
+    """``verify_manifests`` (default on) checks the sha256 ``manifest.json``
+    beside a weight checkpoint at load, where there is one; a corrupt file is
+    refused with an error naming it."""
 
+    verify_manifests: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The study's configuration: the reference's fields that phase 1 reads."""
+
+    random_seed: int = 42
+    results_dir: str = "results"
+    data_dir: str = "data/ml-1m"
+    # The counterfactual attribute grid; occupation is held constant.
+    genders: Tuple[str, ...] = ("male", "female", "non-binary")
+    age_groups: Tuple[str, ...] = ("18-24", "25-34", "35-44", "45-54", "55+")
+    occupation: str = "professional"
+    profiles_per_combo: int = 3
+    # 'simulated' is the deterministic fake backend; a real model name needs
+    # weights_dir (or allow_random in backend_for).
+    default_model_phase1: str = "simulated"
+    model_settings: Tuple[Tuple[str, ModelSettings], ...] = (
+        ("tiny-test", ModelSettings(temperature=0.7, max_tokens=128)),
+        ("tiny-gpt2", ModelSettings(temperature=0.7, max_tokens=128)),
+        ("tiny-llama-study", ModelSettings(temperature=0.7, max_tokens=64)),
+        ("tiny-gpt2-study", ModelSettings(temperature=0.7, max_tokens=64)),
+        ("gpt2-small", ModelSettings(temperature=0.7, max_tokens=256)),
+        ("llama32-1b", ModelSettings(temperature=0.7, max_tokens=500)),
+        ("llama32-3b", ModelSettings(temperature=0.7, max_tokens=500)),
+        ("llama3-8b", ModelSettings(temperature=0.7, max_tokens=500)),
+        ("llama3-70b", ModelSettings(temperature=0.7, max_tokens=500)),
+        ("mistral-7b", ModelSettings(temperature=0.7, max_tokens=500)),
+        ("gemma-7b", ModelSettings(temperature=0.7, max_tokens=500)),
+        ("qwen2-0.5b", ModelSettings(temperature=0.7, max_tokens=500)),
+        ("qwen2-7b", ModelSettings(temperature=0.7, max_tokens=500)),
+    )
+    decode_batch_size: int = 16
+    max_prompt_len: int = 512
+    # Global cap on decode length: settings_for() clamps each model's
+    # max_tokens to it.
+    max_new_tokens: int = 512
+    weights_dir: Optional[str] = None  # directory of HF safetensors checkpoints
+    # None keeps each model config's own weight_quant; "none"/"int8"
+    # override it either way.
+    weight_quant: Optional[str] = None
+    checkpoint_every: int = 20  # profiles between sweep checkpoints
+    # Prompt-lookup speculation for greedy sweeps (sampled settings take the
+    # plain path).
+    speculation: SpeculationConfig = dataclasses.field(default_factory=SpeculationConfig)
+    integrity: IntegrityConfig = dataclasses.field(default_factory=IntegrityConfig)
+
+    def settings_for(self, model_name: str) -> ModelSettings:
+        for name, settings in self.model_settings:
+            if name == model_name:
+                if settings.max_tokens > self.max_new_tokens:
+                    settings = dataclasses.replace(settings, max_tokens=self.max_new_tokens)
+                return settings
+        raise KeyError(
+            f"no decode settings for model '{model_name}'; "
+            f"known: {sorted(n for n, _ in self.model_settings)}"
+        )
+
+
+def default_config() -> Config:
+    """A ``Config`` with the environment's overrides:
+    ``FAIRNESS_TPU_RESULTS_DIR``, ``FAIRNESS_TPU_DATA_DIR`` and
+    ``FAIRNESS_TPU_SEED``."""
+    kwargs = {}
+    if os.environ.get("FAIRNESS_TPU_RESULTS_DIR"):
+        kwargs["results_dir"] = os.environ["FAIRNESS_TPU_RESULTS_DIR"]
+    if os.environ.get("FAIRNESS_TPU_DATA_DIR"):
+        kwargs["data_dir"] = os.environ["FAIRNESS_TPU_DATA_DIR"]
+    if os.environ.get("FAIRNESS_TPU_SEED"):
+        kwargs["random_seed"] = int(os.environ["FAIRNESS_TPU_SEED"])
+    return Config(**kwargs)

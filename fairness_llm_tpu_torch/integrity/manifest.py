@@ -1,0 +1,174 @@
+"""Verified artifacts: sha256 manifests beside weights and results (the
+port's copy of ``fairness_llm_tpu/integrity/manifest.py``, without its
+telemetry counters, events and incident hooks, which wait for the port's
+telemetry slice).
+
+A producer writes ``manifest.json`` beside its files: per-file sha256 and
+byte size, plus a tensor shape/dtype summary for safetensors files. Two
+disciplines:
+
+- **Refuse** (weights): ``verify_manifest`` raises :class:`IntegrityError`
+  naming the file on the first mismatch, before a tensor is read.
+- **Fall back** (results checkpoints): ``verify_manifest_entry`` returns
+  False on a mismatch, and the resume loader skips to an older checkpoint.
+
+A directory without a manifest verifies trivially, and so does a file the
+manifest does not list.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+from typing import Dict, Optional
+
+from fairness_llm_tpu_torch.runtime.safetensors_io import read_header
+
+logger = logging.getLogger(__name__)
+
+MANIFEST_FILENAME = "manifest.json"
+MANIFEST_VERSION = 1
+_HASH_CHUNK = 1 << 20
+
+
+class IntegrityError(RuntimeError):
+    """An artifact failed its manifest check (digest or size mismatch, or a
+    listed file missing). The message names the file."""
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(_HASH_CHUNK)
+            if not chunk:
+                break
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _safetensors_summary(path: str) -> Optional[Dict]:
+    """Shape/dtype summary from a safetensors header (no tensor bytes read).
+    None when the header does not parse; the digest still covers the file."""
+    try:
+        header, _ = read_header(path)
+    except (OSError, ValueError):
+        return None
+    tensors = {
+        name: {"dtype": meta.get("dtype"), "shape": meta.get("shape")}
+        for name, meta in header.items()
+        if name != "__metadata__" and isinstance(meta, dict)
+    }
+    return {"num_tensors": len(tensors), "tensors": tensors}
+
+
+def _file_entry(root: str, rel: str) -> Dict:
+    path = os.path.join(root, rel)
+    entry: Dict = {"sha256": _sha256_file(path), "bytes": os.path.getsize(path)}
+    if rel.endswith(".safetensors"):
+        summary = _safetensors_summary(path)
+        if summary is not None:
+            entry.update(summary)
+    return entry
+
+
+def _write_json_atomic(payload: Dict, path: str) -> None:
+    # tmp + fsync + replace: a torn manifest would refuse good artifacts.
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(payload, f, indent=2, sort_keys=True, allow_nan=False)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def _load_manifest(path: str) -> Optional[Dict]:
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, ValueError) as e:
+        logger.warning("unreadable manifest %s: %s", path, e)
+        return None
+    return data if isinstance(data, dict) and isinstance(data.get("files"), dict) else None
+
+
+def _check_entry(root: str, rel: str, entry: Dict) -> Optional[str]:
+    """None when the file matches its manifest entry, else the reason (which
+    names the file)."""
+    path = os.path.join(root, rel)
+    if not os.path.exists(path):
+        return f"{rel}: listed in manifest but missing on disk"
+    size = os.path.getsize(path)
+    want_bytes = entry.get("bytes")
+    if want_bytes is not None and size != want_bytes:
+        return f"{rel}: size {size} != manifest {want_bytes} (truncated?)"
+    digest = _sha256_file(path)
+    want = entry.get("sha256")
+    if want is not None and digest != want:
+        return f"{rel}: sha256 {digest[:16]}… != manifest {want[:16]}… (corrupt)"
+    return None
+
+
+def verify_manifest(root: str, manifest_path: Optional[str] = None,
+                    kind: str = "artifact") -> None:
+    """Verify every file the manifest lists; raise :class:`IntegrityError` on
+    the first mismatch."""
+    manifest_path = manifest_path or os.path.join(root, MANIFEST_FILENAME)
+    manifest = _load_manifest(manifest_path)
+    if manifest is None:
+        raise IntegrityError(f"integrity check failed for {manifest_path}: "
+                             "manifest unreadable or malformed")
+    for rel in sorted(manifest["files"]):
+        problem = _check_entry(root, rel, manifest["files"][rel])
+        if problem is not None:
+            raise IntegrityError(
+                f"integrity check failed for {os.path.join(root, rel)}: {problem}")
+    logger.info("manifest OK (%s): %s (%d file(s) verified)", kind, root,
+                len(manifest["files"]))
+
+
+def maybe_verify_manifest(root: str, kind: str = "artifact") -> bool:
+    """``verify_manifest`` when ``root`` has a manifest (True); False when it
+    has none."""
+    if not os.path.exists(os.path.join(root, MANIFEST_FILENAME)):
+        logger.debug("no manifest under %s; skipping verification", root)
+        return False
+    verify_manifest(root, kind=kind)
+    return True
+
+
+def update_manifest_entry(directory: str, filename: str) -> None:
+    """Insert or refresh one file's entry in ``directory/manifest.json``
+    (read-modify-write, atomic replace). An unreadable manifest is replaced."""
+    path = os.path.join(directory, MANIFEST_FILENAME)
+    manifest = (_load_manifest(path) if os.path.exists(path) else None) or {
+        "version": MANIFEST_VERSION, "files": {}}
+    manifest["files"][filename] = _file_entry(directory, filename)
+    _write_json_atomic(manifest, path)
+
+
+def verify_manifest_entry(directory: str, filename: str, kind: str = "results") -> bool:
+    """True when ``filename`` matches its manifest entry or has none; False
+    (logged) on a mismatch, so that the caller falls back to an older
+    artifact."""
+    manifest = _load_manifest(os.path.join(directory, MANIFEST_FILENAME))
+    if manifest is None:
+        return True
+    entry = manifest["files"].get(filename)
+    if entry is None:
+        return True
+    problem = _check_entry(directory, filename, entry)
+    if problem is None:
+        return True
+    logger.warning("manifest mismatch (%s): %s", kind, problem)
+    return False

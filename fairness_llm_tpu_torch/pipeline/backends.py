@@ -1,15 +1,53 @@
-"""The decode backend the phase code calls (counterpart of
-``EngineBackend``, ``shared_prefix_ids`` and ``_stable_hash`` in
-``fairness_llm_tpu/pipeline/backends.py``)."""
+"""Decode backends: the seam where the phase code meets inference
+(counterpart of ``fairness_llm_tpu/pipeline/backends.py``).
+
+- ``EngineBackend``: batched decode through a ``DecodeEngine`` on the card
+  (or on the CPU when asked).
+- ``SimulatedRecommender``: a seeded, instant fake model with a
+  demographic-bias knob, for tests and ``--model simulated`` runs.
+- ``backend_for``: a model name to its backend, loading a checkpoint from
+  ``Config.weights_dir`` when there is one.
+
+The reference's continuous-batching server, device meshes and resilience
+(watchdog, breakers) are not ported yet (ROADMAP A5); the CLI refuses their
+flags.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
-from typing import Any, Dict, List, Optional, Sequence
+import logging
+import os
+import re
+from typing import Any, Dict, List, Optional, Protocol, Sequence, Union
 
-from fairness_llm_tpu_torch.config import ModelSettings
+import numpy as np
+import torch
+
+from fairness_llm_tpu_torch.config import Config, ModelSettings
 from fairness_llm_tpu_torch.runtime.engine import _token_lcp
 from fairness_llm_tpu_torch.utils.profiling import SpeculationStats
+
+logger = logging.getLogger(__name__)
+
+
+class DecodeBackend(Protocol):
+    """``keys`` are optional stable per-prompt identities (profile ids): a
+    deterministic backend keys its per-prompt randomness on them, not on
+    batch position, so resumed sweeps reproduce uninterrupted ones."""
+
+    name: str
+
+    def generate(
+        self,
+        prompts: Sequence[str],
+        settings: Optional[ModelSettings] = None,
+        seed: int = 0,
+        keys: Optional[Sequence[str]] = None,
+        prefix_ids: Optional[Sequence[int]] = None,
+    ) -> List[str]:
+        ...
 
 
 class EngineBackend:
@@ -72,3 +110,146 @@ def shared_prefix_ids(backend, prompts: Sequence[str]) -> Optional[List[int]]:
 def _stable_hash(*parts: object) -> int:
     h = hashlib.sha256("||".join(str(p) for p in parts).encode()).digest()
     return int.from_bytes(h[:8], "little")
+
+
+_GENDER_RE = re.compile(r"Gender:\s*([\w\-]+)", re.IGNORECASE)
+_AGE_RE = re.compile(r"Age Group:\s*([\w\-\+]+)", re.IGNORECASE)
+
+
+class SimulatedRecommender:
+    """Deterministic fake model for recommendation prompts.
+
+    Picks 10 titles from a seeded global shuffle of the catalog, sliding the
+    selection window by a demographic-dependent offset scaled by ``bias``, so
+    counterfactual profiles get measurably different recommendations; a
+    prompt with a fairness instruction block shrinks the offset by
+    ``mitigation``. The reference's listwise and pairwise handlers (phase 2)
+    are not ported yet: such prompts raise."""
+
+    def __init__(
+        self,
+        catalog: Sequence[str],
+        seed: int = 42,
+        bias: float = 0.6,
+        mitigation: float = 0.85,
+        name: str = "simulated",
+    ):
+        if not catalog:
+            raise ValueError("SimulatedRecommender needs a non-empty catalog")
+        self.catalog = list(catalog)
+        self.seed = seed
+        self.bias = bias
+        self.mitigation = mitigation
+        self.name = name
+        order = sorted(
+            range(len(self.catalog)), key=lambda i: _stable_hash(self.catalog[i], seed)
+        )
+        self._shuffled = [self.catalog[i] for i in order]
+
+    def _recommend(self, prompt: str, idx: int, seed: int, n: int = 10) -> str:
+        gender = (_GENDER_RE.search(prompt) or [None, "neutral"])[1].lower()
+        age = (_AGE_RE.search(prompt) or [None, "neutral"])[1].lower()
+        fair = "FAIRNESS REQUIREMENT" in prompt or "FAIRNESS PROTOCOL" in prompt
+        bias = self.bias * (1.0 - self.mitigation) if fair else self.bias
+        group_key = _stable_hash(gender, age) % 7
+        offset = int(round(bias * 4 * group_key)) % max(len(self._shuffled) - 2 * n, 1)
+        rng = np.random.default_rng([self.seed & 0x7FFFFFFF, seed & 0x7FFFFFFF, idx])
+        window = self._shuffled[offset : offset + int(n * 1.5)]
+        take = min(n, len(window))
+        chosen = list(rng.choice(len(window), size=take, replace=False))
+        titles = [window[c] for c in chosen]
+        return "\n".join(f"{i + 1}. {t}" for i, t in enumerate(titles))
+
+    def generate(
+        self,
+        prompts: Sequence[str],
+        settings: Optional[ModelSettings] = None,
+        seed: int = 0,
+        keys: Optional[Sequence[str]] = None,
+        prefix_ids: Optional[Sequence[int]] = None,  # unused: text-level fake
+    ) -> List[str]:
+        # Entropy per prompt = (seed, prompt hash, stable key), not batch
+        # position, so outputs do not depend on chunking or on which prompts
+        # a resume skipped. Without keys, occurrence order stands in.
+        out = []
+        seen: dict = {}
+        for i, p in enumerate(prompts):
+            if "Your ranking:" in p or "Your answer:" in p:
+                raise NotImplementedError(
+                    "SimulatedRecommender answers recommendation prompts only; the "
+                    "listwise and pairwise handlers come with phase 2 (ROADMAP A6)")
+            if keys is not None:
+                salt = _stable_hash(keys[i])
+            else:
+                occ = seen.get(p, 0)
+                seen[p] = occ + 1
+                salt = occ
+            idx = (_stable_hash(p) + salt) & 0x7FFFFFFF
+            out.append(self._recommend(p, idx, seed))
+        return out
+
+
+# Named simulated variants: distinct bias levels.
+SIMULATED_VARIANTS = {"simulated": 0.6, "simulated-fair": 0.15, "simulated-biased": 0.9}
+
+
+def backend_for(
+    model_name: str,
+    config: Config,
+    catalog: Optional[Sequence[str]] = None,
+    params: Optional[Dict[str, torch.Tensor]] = None,
+    allow_random: bool = False,
+    device: Optional[Union[str, torch.device]] = None,
+) -> DecodeBackend:
+    """Resolve a model name to a backend.
+
+    A ``SIMULATED_VARIANTS`` name gives a ``SimulatedRecommender`` over
+    ``catalog``. A model name gives an ``EngineBackend`` on ``device``
+    (None means CUDA) with the weights of ``config.weights_dir/<model_name>``,
+    verified against its manifest (``config.integrity``), and the
+    checkpoint's own tokenizer when it has a ``tokenizer_config.json``.
+    Without weights the call fails, unless ``allow_random`` asks for random
+    weights from ``config.random_seed`` (smoke runs), which decode with the
+    byte tokenizer. ``config.weight_quant`` overrides the model's weight
+    mode either way.
+
+    The engine runs the port's attention kernels (``use_flash_attention``
+    and ``use_decode_attention_kernel`` on): on the card they are the hand
+    written kernels, on the CPU their plain versions. The reference turns
+    them off where its Pallas tiles do not fit the TPU (head width 32) or
+    measured slower there."""
+    if model_name in SIMULATED_VARIANTS:
+        return SimulatedRecommender(
+            catalog or [], seed=config.random_seed,
+            bias=SIMULATED_VARIANTS[model_name], name=model_name,
+        )
+
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+    from fairness_llm_tpu_torch.runtime.weights import load_checkpoint
+
+    model_config = dataclasses.replace(
+        get_model_config(model_name), use_flash_attention=True,
+        use_decode_attention_kernel=True)
+    if config.weight_quant is not None:
+        # "int8" quantizes a float config, "none" serves an -int8 one in float
+        model_config = dataclasses.replace(model_config, weight_quant=config.weight_quant)
+    ckpt = os.path.join(config.weights_dir or "", model_name)
+    tokenizer_path = None
+    if params is None and config.weights_dir and os.path.isdir(ckpt):
+        logger.info("loading %s weights from %s", model_name, ckpt)
+        params = load_checkpoint(model_config, ckpt,
+                                 verify=config.integrity.verify_manifests, device=device)
+        if os.path.exists(os.path.join(ckpt, "tokenizer_config.json")):
+            tokenizer_path = ckpt
+    if params is None and not allow_random:
+        raise FileNotFoundError(
+            f"no weights for '{model_name}' under weights_dir="
+            f"{config.weights_dir!r}; use --model simulated, provide a "
+            f"checkpoint, or pass allow_random=True for a smoke run"
+        )
+    engine = DecodeEngine(model_config, params=params, tokenizer_path=tokenizer_path,
+                          seed=config.random_seed, device=device)
+    spec = config.speculation
+    return EngineBackend(engine, name=model_name,
+                         speculation=spec if spec.enabled else None)

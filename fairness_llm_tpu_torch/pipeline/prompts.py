@@ -1,5 +1,7 @@
-"""The phase-1 recommendation prompt (counterpart of ``recommendation_prompt``
-and ``RECOMMENDER_SYSTEM`` in ``fairness_llm_tpu/pipeline/prompts.py``).
+"""The phase-1 recommendation prompt and the late-divergence check
+(counterparts of ``recommendation_prompt``, ``RECOMMENDER_SYSTEM``,
+``lcp_len``, ``divergence_stats`` and ``check_late_divergence`` in
+``fairness_llm_tpu/pipeline/prompts.py``).
 
 The parts shared by every profile of a counterfactual sweep come first and
 the demographics block last, so the sweep's prompts share a long token
@@ -8,7 +10,12 @@ prefix whose KV the decode engine computes once.
 
 from __future__ import annotations
 
+import logging
+from typing import Dict, List, Sequence, Tuple
+
 from fairness_llm_tpu_torch.data.profiles import Profile
+
+logger = logging.getLogger(__name__)
 
 RECOMMENDER_SYSTEM = (
     "You are a helpful movie recommendation system. "
@@ -44,3 +51,61 @@ def recommendation_prompt(
         f"{demo}\n"
         f"Recommendations:"
     )
+
+
+def lcp_len(a: str, b: str) -> int:
+    """Length of the longest common prefix of two strings."""
+    n = min(len(a), len(b))
+    for i in range(n):
+        if a[i] != b[i]:
+            return i
+    return n
+
+
+def divergence_stats(
+    pair_prompts: Sequence[Tuple[str, str]]
+) -> Dict[str, float]:
+    """How late counterfactual pairs diverge: the property prefix reuse
+    rides on (the shared-everything-but-demographics layout
+    ``recommendation_prompt`` documents).
+
+    For each (prompt_a, prompt_b) pair: ``lcp / max(len)`` — the fraction
+    of the longer prompt that is byte-shared. Returns min/mean/max over
+    the pairs (empty input -> all zeros)."""
+    fracs: List[float] = []
+    for a, b in pair_prompts:
+        denom = max(len(a), len(b), 1)
+        fracs.append(lcp_len(a, b) / denom)
+    if not fracs:
+        return {"pairs": 0, "min_frac": 0.0, "mean_frac": 0.0,
+                "max_frac": 0.0}
+    return {
+        "pairs": len(fracs),
+        "min_frac": min(fracs),
+        "mean_frac": sum(fracs) / len(fracs),
+        "max_frac": max(fracs),
+    }
+
+
+# The layout contract prefix reuse depends on: a counterfactual pair must
+# share at least this fraction of its bytes as a prefix. The stock template
+# puts the demographics block last and clears ~0.9; a template that leads
+# with demographics would leave little to share, so it is warned about.
+LATE_DIVERGENCE_MIN_FRAC = 0.5
+
+
+def check_late_divergence(
+    pair_prompts: Sequence[Tuple[str, str]], phase: str = "phase1"
+) -> Dict[str, float]:
+    """Measure pair divergence and warn when the swap lands early. The
+    stats land in the phase's result metadata either way."""
+    stats = divergence_stats(pair_prompts)
+    if stats["pairs"] and stats["min_frac"] < LATE_DIVERGENCE_MIN_FRAC:
+        logger.warning(
+            "%s: counterfactual pairs diverge EARLY (min shared-prefix "
+            "fraction %.2f < %.2f) — the demographic swap should land as "
+            "late as possible in the prompt or prefix-KV reuse "
+            "has little to share",
+            phase, stats["min_frac"], LATE_DIVERGENCE_MIN_FRAC,
+        )
+    return stats

@@ -98,6 +98,7 @@ class DecodeEngine:
         param_dtype: Optional[str] = None,
         device: Optional[Union[str, torch.device]] = None,
         speculation: Optional[SpeculationConfig] = None,
+        tokenizer_path: Optional[str] = None,
     ):
         """``params`` is a state dict (``runtime/weights.params_from_jax`` or
         ``init_params``, or another engine's ``model.state_dict()``: tensors
@@ -106,11 +107,14 @@ class DecodeEngine:
         ("float32"/"bfloat16") overrides the size-based storage policy: bf16
         models of a billion parameters or more store bf16, everything else
         f32. ``device=None`` means CUDA and raises without a card.
-        ``speculation`` is the default for ``generate``."""
+        ``speculation`` is the default for ``generate``. ``tokenizer`` or
+        else ``tokenizer_path`` (a checkpoint directory holding
+        ``tokenizer.json``) picks the tokenizer; with neither, the byte
+        tokenizer."""
         self.device = resolve_device(device)
         self.config = model_config
         self.speculation = speculation
-        self.tokenizer = tokenizer or tokenizer_for(model_config)
+        self.tokenizer = tokenizer or tokenizer_for(model_config, tokenizer_path)
         big = model_config.approx_param_count >= 1_000_000_000
         if param_dtype is not None:
             if param_dtype not in ("float32", "bfloat16"):

@@ -1,7 +1,19 @@
-"""Parameters for the port's ``Transformer``: conversion from a flax tree,
-random initialisation and int8 (de)quantization of a state dict
-(counterparts of the reference's param handling in ``runtime/weights.py``
-and ``models/transformer.init_params_lowmem``).
+"""Parameters for the port's ``Transformer``: HF safetensors checkpoints,
+conversion from a flax tree, random initialisation and int8
+(de)quantization of a state dict (counterparts of the reference's
+``runtime/weights.py`` and ``models/transformer.init_params_lowmem``).
+
+``load_checkpoint`` maps an HF checkpoint's layout onto the state dict,
+reading it with the port's own safetensors reader (``safetensors_io``):
+
+- llama/mistral: ``model.layers.{i}.self_attn.q_proj.weight`` etc., stored
+  [out, in] and transposed into the [in, out] kernels;
+- gemma: llama's names, tied embeddings, RMSNorm ``weight`` stored so that
+  the scale is ``1 + weight``;
+- qwen2: llama's names plus biases on q/k/v;
+- gpt2: Conv1D kernels already [in, out] (no transpose), ``c_attn`` holding
+  q, k and v side by side along the out axis (split three ways), learned
+  ``wpe`` positions.
 
 The state dict keeps the flax names joined by dots
 (``layer_0.attn.q_proj.kernel``) and the flax ``[in, out]`` kernel layout,
@@ -13,14 +25,21 @@ storage dtype of the float parameters.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import json
+import logging
+import os
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from fairness_llm_tpu_torch.device import resolve_device
 from fairness_llm_tpu_torch.models.configs import ModelConfig
 from fairness_llm_tpu_torch.models.transformer import Transformer
 from fairness_llm_tpu_torch.ops.quant_matmul import dequantize_weight, quantize_weight
+from fairness_llm_tpu_torch.runtime.safetensors_io import INDEX_FILENAME, SafetensorsFile, read_header
+
+logger = logging.getLogger(__name__)
 
 # The reference's random int8 init: round(N(0, 1) * 42) clipped to +-127,
 # under a nominal scale of 0.02 / 42, so the dequantized values are ~N(0, 0.02).
@@ -172,3 +191,189 @@ def dequantize_params(params: Mapping[str, torch.Tensor],
                 and not n.endswith((".kernel_q", ".kernel_scale"))]
         out[base if base == "lm_head" and not rest else f"{base}.kernel"] = w
     return out
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoints: state-dict name -> (HF tensor name, transform)
+# ---------------------------------------------------------------------------
+
+Transform = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _t(x: torch.Tensor) -> torch.Tensor:
+    return x.t()
+
+
+def _ident(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _llama_map(cfg: ModelConfig) -> Dict[str, Tuple[str, Transform]]:
+    """Also mistral (the same names) and, with the changes below, gemma and
+    qwen2."""
+    m: Dict[str, Tuple[str, Transform]] = {
+        "embedding": ("model.embed_tokens.weight", _ident),
+        "final_norm.scale": ("model.norm.weight", _ident),
+    }
+    if not cfg.tie_embeddings:
+        m["lm_head"] = ("lm_head.weight", _t)
+    for i in range(cfg.num_layers):
+        p, h = f"layer_{i}", f"model.layers.{i}"
+        m[f"{p}.attn_norm.scale"] = (f"{h}.input_layernorm.weight", _ident)
+        m[f"{p}.mlp_norm.scale"] = (f"{h}.post_attention_layernorm.weight", _ident)
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            m[f"{p}.attn.{proj}.kernel"] = (f"{h}.self_attn.{proj}.weight", _t)
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            m[f"{p}.mlp.{proj}.kernel"] = (f"{h}.mlp.{proj}.weight", _t)
+    return m
+
+
+def _gemma_map(cfg: ModelConfig) -> Dict[str, Tuple[str, Transform]]:
+    plus_one: Transform = lambda x: x + 1.0  # noqa: E731 - gemma's RMSNorm convention
+    m = _llama_map(cfg)
+    for key, (name, _tf) in list(m.items()):
+        if key.endswith("norm.scale"):
+            m[key] = (name, plus_one)
+    return m
+
+
+def _qwen2_map(cfg: ModelConfig) -> Dict[str, Tuple[str, Transform]]:
+    """Qwen2: llama's names plus biases on the q/k/v projections only."""
+    m = _llama_map(cfg)
+    for i in range(cfg.num_layers):
+        p, h = f"layer_{i}", f"model.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            m[f"{p}.attn.{proj}.bias"] = (f"{h}.self_attn.{proj}.bias", _ident)
+    return m
+
+
+def _gpt2_map(cfg: ModelConfig) -> Dict[str, Tuple[str, Transform]]:
+    """GPT-2's Conv1D stores [in, out]; ``c_attn`` holds q, k, v along out."""
+    d = cfg.d_model
+
+    def _qkv(part: int) -> Transform:
+        return lambda x: x[..., part * d:(part + 1) * d]
+
+    m: Dict[str, Tuple[str, Transform]] = {
+        "embedding": ("wte.weight", _ident),
+        "pos_embedding": ("wpe.weight", _ident),
+        "final_norm.scale": ("ln_f.weight", _ident),
+        "final_norm.bias": ("ln_f.bias", _ident),
+    }
+    for i in range(cfg.num_layers):
+        p, h = f"layer_{i}", f"h.{i}"
+        m[f"{p}.attn_norm.scale"] = (f"{h}.ln_1.weight", _ident)
+        m[f"{p}.attn_norm.bias"] = (f"{h}.ln_1.bias", _ident)
+        m[f"{p}.mlp_norm.scale"] = (f"{h}.ln_2.weight", _ident)
+        m[f"{p}.mlp_norm.bias"] = (f"{h}.ln_2.bias", _ident)
+        for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+            m[f"{p}.attn.{proj}.kernel"] = (f"{h}.attn.c_attn.weight", _qkv(j))
+            m[f"{p}.attn.{proj}.bias"] = (f"{h}.attn.c_attn.bias", _qkv(j))
+        m[f"{p}.attn.o_proj.kernel"] = (f"{h}.attn.c_proj.weight", _ident)
+        m[f"{p}.attn.o_proj.bias"] = (f"{h}.attn.c_proj.bias", _ident)
+        m[f"{p}.mlp.up_proj.kernel"] = (f"{h}.mlp.c_fc.weight", _ident)
+        m[f"{p}.mlp.up_proj.bias"] = (f"{h}.mlp.c_fc.bias", _ident)
+        m[f"{p}.mlp.down_proj.kernel"] = (f"{h}.mlp.c_proj.weight", _ident)
+        m[f"{p}.mlp.down_proj.bias"] = (f"{h}.mlp.c_proj.bias", _ident)
+    return m
+
+
+_FAMILY_MAPS = {
+    "llama": _llama_map,
+    "mistral": _llama_map,
+    "gemma": _gemma_map,
+    "gpt2": _gpt2_map,
+    "qwen": _qwen2_map,
+}
+
+
+def family_of(cfg: ModelConfig) -> str:
+    name = cfg.name.lower()
+    for fam in ("llama", "mistral", "gemma", "gpt2", "qwen"):
+        if fam in name.replace("-", ""):
+            return fam
+    # tiny test configs: pick by flags
+    if cfg.qkv_bias:
+        return "qwen"
+    return "gpt2" if cfg.pos_emb == "learned" else "llama"
+
+
+def hf_name_map(cfg: ModelConfig, family: Optional[str] = None) -> Dict[str, Tuple[str, Transform]]:
+    return _FAMILY_MAPS[family or family_of(cfg)](cfg)
+
+
+def _strip_prefix(name: str, tensors: Mapping[str, str]) -> str:
+    """Resolve ``name`` against the checkpoint's names, which some
+    checkpoints prefix with ``transformer.`` (gpt2) or ``model.``."""
+    if name in tensors:
+        return name
+    for prefix in ("transformer.", "model."):
+        if prefix + name in tensors:
+            return prefix + name
+    raise KeyError(f"tensor '{name}' not found in checkpoint (have {len(tensors)} tensors)")
+
+
+def _checkpoint_index(path: str) -> Dict[str, str]:
+    """Tensor name -> file name for a safetensors checkpoint directory, from
+    ``model.safetensors.index.json`` when the checkpoint is sharded."""
+    index_file = os.path.join(path, INDEX_FILENAME)
+    if os.path.exists(index_file):
+        with open(index_file) as f:
+            return json.load(f)["weight_map"]
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files under {path}")
+    out: Dict[str, str] = {}
+    for fname in files:
+        header, _ = read_header(os.path.join(path, fname))
+        out.update((name, fname) for name in header if name != "__metadata__")
+    return out
+
+
+def load_checkpoint(
+    cfg: ModelConfig,
+    path: str,
+    family: Optional[str] = None,
+    dtype: Optional[torch.dtype] = None,
+    verify: bool = True,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Dict[str, torch.Tensor]:
+    """An HF safetensors checkpoint directory -> the port's state dict on
+    ``device`` (None means CUDA).
+
+    ``verify`` checks the directory's sha256 ``manifest.json`` first, when
+    there is one: a corrupt or truncated file raises ``IntegrityError``
+    naming it before any tensor is read. Tensors stream one at a time: each
+    is copied out of the mapped file, moved to the device, transformed, and
+    stored as ``dtype`` (default: bf16 for a bf16 config, else f32). Under
+    ``weight_quant == "int8"`` each projection kernel and an untied
+    ``lm_head`` is quantized as it arrives, so no float copy of the tree
+    exists."""
+    from fairness_llm_tpu_torch.integrity.manifest import maybe_verify_manifest
+
+    dev = resolve_device(device)
+    if verify:
+        maybe_verify_manifest(path, kind="weights")
+    dtype = dtype or (torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    weight_map = _checkpoint_index(path)
+    quant = cfg.weight_quant == "int8"
+    files: Dict[str, SafetensorsFile] = {}
+    params: Dict[str, torch.Tensor] = {}
+    try:
+        for ours, (hf_name, transform) in hf_name_map(cfg, family).items():
+            hf_name = _strip_prefix(hf_name, weight_map)
+            fname = weight_map[hf_name]
+            if fname not in files:
+                files[fname] = SafetensorsFile(os.path.join(path, fname))
+            x = transform(files[fname].get_tensor(hf_name).to(dev)).contiguous()
+            base = _quant_base(ours) if quant else None
+            if base is not None:
+                params[f"{base}.kernel_q"], params[f"{base}.kernel_scale"] = quantize_weight(x)
+                logger.debug("loaded %s <- %s %s (int8)", base, hf_name, tuple(x.shape))
+                continue
+            params[ours] = x.to(dtype)
+            logger.debug("loaded %s <- %s %s", ours, hf_name, tuple(x.shape))
+    finally:
+        for f in files.values():
+            f.close()
+    return params
