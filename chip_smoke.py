@@ -15,11 +15,13 @@ and lm_head weights from seed 0). It shows that each path launched its
 kernels, holds each kernel against its plain PyTorch version at the shapes
 the path gave it, times kernel, plain version and a one-call PyTorch
 yardstick, and checks the model's logits and greedy tokens against the
-plain versions on a small input. Last it runs the phase-1 sweep itself
+plain versions on a small input. Then it runs the phase-1 sweep itself
 (``pipeline/phase1.run_phase1``, from MovieLens to the saved record): on the
 two study checkpoints in ``checkpoints/``, read with the port's own
 safetensors reader and BPE tokenizer, and at the full width of llama3-8b
-with int8 weights.
+with int8 weights. Last it runs phases 2 and 3 of the study
+(``pipeline/phase2.run_phase2``, ``pipeline/phase3.run_phase3``) on the
+same models, with their teacher-forced scoring forward.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -104,10 +106,10 @@ path's launch counts are set to 0 just before it and read just after:
      at every shape the sweep gave it, held elementwise to 1e-4 (float32),
      each blind check as in phase 6;
  20. the same sweep greedy on the card and on the CPU (the plain
-     versions): every key's tokens equal, or, where they differ, the CPU's
-     top two logits at the first divergent token within 1e-4
-     (teacher-forced; such rows are logged); with equal tokens, equal
-     records and metrics within 1e-6;
+     versions): every engine call's tokens equal row by row, or, where
+     they differ, the CPU's top two logits at the first divergent token
+     within 1e-4 (teacher-forced; such rows are logged); with equal tokens,
+     equal records and metrics within 1e-6;
  21. the default sweep on llama3-8b with int8 weights (``--weight-quant
      int8``) at full width and depth, random weights from the seed and the
      byte tokenizer: K1 and K2 on their tensor-core kernels and both K4
@@ -116,11 +118,57 @@ path's launch counts are set to 0 just before it and read just after:
      peak memory are logged (parses and metrics are vacuous under random
      weights); then K1, K2 and K4 against their plain versions at every
      (shape, dtypes) the sweep gave them, as in phases 6 and 16.
+  phases 2 and 3 of the study (``run_phase2``, ``run_phase3``), after the
+  phase-1 sweeps:
+ 22. on tiny-llama-study and tiny-gpt2-study at the study's settings
+     (``backend_for``; t=0.7, 64 tokens; phase 2 on the synthetic corpus of
+     20 items, one listwise query and 30 comparisons; phase 3 conformal with
+     model-conditional calibration over phase 19's record): K1's and K2's
+     f32 kernels must launch in each phase and their tensor-core kernels
+     must not, a scoring forward must run in each, no error entry, finite
+     measures, the records saved, read back and matching their manifest
+     entries; then K1 and K2 against their plain versions at every (shape,
+     dtype) the two phases gave them that phases 19-21 did not hold (the
+     scoring forwards' and the decodes' prefills and steps), held to 1e-4
+     with phase 19's blind checks; then both phases greedy on the card and
+     on the CPU: every engine call's tokens equal row by row, or differing
+     where the CPU's top two logits are within 1e-4 (as phase 20); with
+     equal tokens, the phase-2 results equal (floats to 1e-6, perplexity to
+     1e-5 relative, the scored ranking up to near ties of 1e-5 in the
+     scores), the calibration rows scored alike (log-likelihoods within
+     1e-5 + 1e-5 * |value|, mean log-probabilities within 1e-5) and the kept
+     lists equal, or differing only as a reordering of near-tied scores
+     explains (the card ranks no two rows otherwise than the CPU unless
+     their CPU scores lie within 1e-5, and the CPU's phase 3 given the
+     card's scores keeps the card's lists); with equal lists the measures
+     within 1e-6 (the bias-reduction percentage within 1e-3); and the t=0.7
+     run's calibration rows scored on the card and on the CPU within the
+     same tolerances;
+ 23. on llama3-8b with int8 weights (``--weight-quant int8``) at full width
+     and depth, random weights from the seed and the byte tokenizer: both
+     phases as in phase 22 over phase 21's record, then, since random
+     weights name no title and so give phase 3's calibration no row, the
+     scoring of phase 22's tiny-llama-study calibration rows through the
+     same engine (``score_prompted_continuations``); K1 and K2 only on
+     their tensor-core kernels, both K4 regimes launched, the records
+     saved and read back; the wall seconds, scoring forwards, rows per
+     second, shapes and peak memory of each are logged; then every kernel
+     call whose (shape, dtypes) phases 19-21 did not hold against its plain
+     version as in phases 6 and 16, among them the K4 GEMM lm_head with an
+     f32 output at the scoring forward's M, which must be there. Phases 19,
+     21, 22 and 23 number and hold their calls with one function
+     (``sweep_kernel_rows``); every K4 row carries the host microseconds
+     and ``torch._weight_int8pack_mm`` in the GEMV regime only.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
   launches of its own kernel function on phase 19's sweeps and on phase
   21's; the entries phase 21 launched get its rows as ``phase1_shapes``.
+  Each entry also gets ``phase2_launches`` and ``phase3_launches`` (phase
+  22's two models together, "study"; phase 23's run, FULL_WIDTH; and its
+  scoring of the calibration rows, FULL_WIDTH + "_scoring"), and phases
+  22-23's new rows: those of a scoring forward's calls as
+  ``scoring_shapes``, the others as ``phase23_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -567,7 +615,9 @@ def decode_numbers(call, torch, F):
 def k4_numbers(call, torch, flush):
     """K4 at one recorded call: ``quant_matmul`` (key "k4") or a grouped
     call of the weights that share x (key "group"), each output against the
-    plain product of its own weight."""
+    plain product of its own weight. The host microseconds and
+    ``torch._weight_int8pack_mm`` only in the GEMV regime, which the decode
+    step runs (None in a GEMM row)."""
     from fairness_llm_tpu_torch.ops import quant_matmul as qm
 
     x, rest = call["args"][0], call["args"][1:]
@@ -575,6 +625,7 @@ def k4_numbers(call, torch, flush):
     grouped = call["group"]
     mats = list(rest[0]) if grouped else [tuple(rest[:2])]
     M, K = x.shape
+    extras = M <= qm.GEMV_MAX_M
     Ns = [wq.shape[1] for wq, _ in mats]
 
     def run(xx):
@@ -603,12 +654,12 @@ def k4_numbers(call, torch, flush):
     # this build has it on the card (one weight only).
     wd = torch.cat([qm.dequantize_weight(wq, scale, x.dtype) for wq, scale in mats], 1)
     library_ms = cuda_ms_cold(lambda: torch.matmul(x, wd), iters, flush)
-    # What a call costs the host: the decode step is host-bound.
-    wrapper_host_us = host_us(lambda: run(x))
-    library_host_us = host_us(lambda: torch.matmul(x, wd))
+    # What a GEMV call costs the host: the decode step is host-bound.
+    wrapper_host_us = host_us(lambda: run(x)) if extras else None
+    library_host_us = host_us(lambda: torch.matmul(x, wd)) if extras else None
     del wd
     int8pack_ms, int8pack_error = None, None
-    if x.dtype == torch.bfloat16 and not grouped:
+    if extras and x.dtype == torch.bfloat16 and not grouped:
         wt, sc = mats[0][0].t().contiguous(), mats[0][1].to(x.dtype)
         try:
             int8pack_ms = cuda_ms_cold(lambda: torch._weight_int8pack_mm(x, wt, sc), iters, flush)
@@ -1356,68 +1407,79 @@ def sweep_recorders(dec_mod, flash_mod, qm):
         yield recs
 
 
-def sweep_kernel_rows(recs, torch, F, qm, path: str, f32: bool) -> dict:
+def sweep_kernel_rows(recs, torch, F, qm, path: str, f32: bool, held=None) -> dict:
     """Each kernel a sweep launched against its plain version at every
     (shape, dtype) the sweep gave its wrapper, with the blind checks of
     phases 6 and 16 (``check_rows``); keyed by kernels-line entry name.
-    ``f32``: a float32 model, whose K1 and K2 rows are the f32 entries'."""
+    ``f32``: a float32 model, whose K1 and K2 rows are the f32 entries'.
+    With ``held`` (a set of recorder keys), the keys end with the scoring
+    flag (``flagged_recorders``): a call whose key, with or without that
+    flag, is in ``held`` was held before and is skipped, the others join
+    it, and each row says whether a scoring forward made its call; a kernel
+    may then be left with no row. Without it, every kernel the sweep
+    recorded must have one."""
     suffix = "_f32" if f32 else ""
+    if held is not None:
+        for r in recs.values():
+            fresh = {}
+            for key, call in r.calls.items():
+                if key not in held and key[:-1] not in held:
+                    held.add(key)
+                    fresh[key] = {**call, "scoring": key[-1]}
+            r.calls = fresh
 
-    def held(name, rows, blind):
-        if not rows:
+    def number(name, calls, numbers, blind):
+        rows = [numbers(call) for call in calls]
+        if not rows and held is None:
             fail(f"{name}: no launch recorded on the {path} sweep")
-        for r in rows:
-            r["path"] = path
+        for r, call in zip(rows, calls):
+            r["path"], r["scoring"] = path, call.get("scoring", False)
         check_rows(name, rows, blind)
         return rows
 
     rows = {
-        f"flash_attention{suffix}": held(
-            f"flash_attention{suffix}",
-            [k1_numbers(call, torch, F) for call in recs["k1"].calls.values()],
-            "the first valid key masked out"),
-        f"decode_attention{suffix}": held(
+        f"flash_attention{suffix}": number(
+            f"flash_attention{suffix}", list(recs["k1"].calls.values()),
+            lambda call: k1_numbers(call, torch, F), "the first valid key masked out"),
+        f"decode_attention{suffix}": number(
             f"decode_attention{suffix}",
-            [decode_numbers(call, torch, F) for key, call in recs["dec"].calls.items()
-             if key[0] == "k2"],
-            "the newest slot masked out"),
+            [call for key, call in recs["dec"].calls.items() if key[0] == "k2"],
+            lambda call: decode_numbers(call, torch, F), "the newest slot masked out"),
     }
     calls = k4_calls(recs["k4"], recs["group"], qm)
     if any(c["args"][0].dtype != torch.bfloat16 for c in calls):
         fail(f"the {path} sweep called K4 with x not in bfloat16")
     if calls:
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        k4 = [k4_numbers(call, torch, flush) for call in calls]
-        del flush
         for regime in ("gemv", "gemm"):
             name = f"quant_matmul_{regime}"
-            rows[name] = held(name, [r for r in k4 if r["regime"] == regime],
-                              "x with its last 32 columns zeroed")
+            mine = [c for c in calls
+                    if (c["args"][0].shape[0] <= qm.GEMV_MAX_M) == (regime == "gemv")]
+            rows[name] = number(name, mine, lambda call: k4_numbers(call, torch, flush),
+                                "x with its last 32 columns zeroed")
+        del flush
     return rows
 
 
 class SweepRecorder:
-    """Wraps a backend's ``generate`` (and its engine's) for one sweep: each
-    key's prompt and output tokens, and each chunk's stats."""
+    """Wraps a backend's ``generate`` (and its engine's) for one run: each
+    engine call's prompts and output tokens (``calls``, in order), and each
+    chunk's stats."""
 
     def __init__(self, backend):
-        self.prompt_of, self.tokens, self.chunks = {}, {}, []
+        self.calls, self.chunks = [], []
         outer, inner = backend.generate, backend.engine.generate
-        outs = []
 
-        def engine_generate(*args, **kwargs):
-            out = inner(*args, **kwargs)
-            outs.append(out.tokens)
+        def engine_generate(prompts, *args, **kwargs):
+            out = inner(prompts, *args, **kwargs)
+            self.calls.append((list(prompts), [[int(t) for t in row] for row in out.tokens]))
             return out
 
         def backend_generate(prompts, settings=None, seed=0, keys=None, prefix_ids=None):
-            outs.clear()
+            n = len(self.calls)
             texts = outer(prompts, settings, seed=seed, keys=keys, prefix_ids=prefix_ids)
-            if keys is None or len(outs) != 1 or len(outs[0]) != len(keys):
-                fail("a sweep chunk was not one keyed engine call")
-            for k, p, row in zip(keys, prompts, outs[0]):
-                self.prompt_of[k] = p
-                self.tokens[k] = [int(t) for t in row]
+            if len(self.calls) != n + 1 or self.calls[-1][0] != list(prompts):
+                fail("a chunk was not one engine call over its prompts")
             st = backend.last_stats
             self.chunks.append({
                 "batch": st["batch"], "prompt_len": st["prompt_len"],
@@ -1463,16 +1525,19 @@ def check_record(rec, label: str, want_non_empty: bool = True) -> dict:
             "neutral_titles": sum(len(r) for r in rec["neutral_recommendations"])}
 
 
-def saved_record_check(config, rec, label: str) -> None:
-    """The record on disk reads back and its manifest entry verifies."""
+def saved_record_check(config, rec, label: str, phase: int = 1,
+                       key: str = "recommendations") -> None:
+    """The phase's record on disk reads back (``key`` of it equal to the
+    run's) and its manifest entry verifies."""
     from fairness_llm_tpu_torch.integrity.manifest import verify_manifest_entry
     from fairness_llm_tpu_torch.pipeline.results import load_results
 
-    d = pathlib.Path(config.results_dir) / "phase1"
-    saved = load_results(str(d / "phase1_results.json"))
-    if saved is None or saved["recommendations"] != json.loads(json.dumps(rec["recommendations"])):
+    d = pathlib.Path(config.results_dir) / f"phase{phase}"
+    fname = f"phase{phase}_results.json"
+    saved = load_results(str(d / fname))
+    if saved is None or saved[key] != json.loads(json.dumps(rec[key])):
         fail(f"{label}: the saved record does not read back")
-    if not verify_manifest_entry(str(d), "phase1_results.json"):
+    if not verify_manifest_entry(str(d), fname):
         fail(f"{label}: the saved record does not match its manifest entry")
 
 
@@ -1494,31 +1559,34 @@ def top2_gap(engine, prompt: str, tokens, torch) -> float:
     return float(top[0] - top[1])
 
 
-def greedy_divergences(name: str, cpu_calls, card_calls, cpu_engine, torch) -> list:
-    """Every key's greedy tokens on the card against the CPU's. A row may
-    differ only where the CPU's top two logits at the first divergent token
-    (or, where one row is a prefix of the other, at the shorter's end) are
-    within NEAR_TIE; returns such rows."""
-    if set(cpu_calls.tokens) != set(card_calls.tokens):
-        fail(f"{name} greedy: the card and the CPU decoded other keys")
+def greedy_divergences(label: str, cpu, card, cpu_engine, torch) -> list:
+    """Every greedy engine call's tokens on the card against the CPU's
+    (``SweepRecorder``s), row by row. A row may differ only where the CPU's
+    top two logits at the first divergent token (or, where one row is a
+    prefix of the other, at the shorter's end) are within NEAR_TIE; returns
+    such rows by (call, row)."""
+    if [c[0] for c in cpu.calls] != [c[0] for c in card.calls]:
+        fail(f"{label} greedy: the card and the CPU decoded other prompts")
     differ = []
-    for key, want in cpu_calls.tokens.items():
-        got = card_calls.tokens[key]
-        if want == got:
-            continue
-        t = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
-                 min(len(want), len(got)))
-        gap = top2_gap(cpu_engine, cpu_calls.prompt_of[key], want[:t], torch)
-        differ.append({"key": key, "token": t, "cpu_top2_gap": gap})
-        if gap >= NEAR_TIE:
-            fail(f"{name} greedy: {key} differs from the CPU at token {t}, where the CPU's "
-                 f"top two logits are {gap:.3e} apart (more than {NEAR_TIE})")
+    for ci, ((prompts, want_rows), (_, got_rows)) in enumerate(zip(cpu.calls, card.calls)):
+        for ri, (prompt, want, got) in enumerate(zip(prompts, want_rows, got_rows)):
+            if want == got:
+                continue
+            t = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+                     min(len(want), len(got)))
+            gap = top2_gap(cpu_engine, prompt, want[:t], torch)
+            differ.append({"call": ci, "row": ri, "token": t, "cpu_top2_gap": gap})
+            if gap >= NEAR_TIE:
+                fail(f"{label} greedy: call {ci} row {ri} differs from the CPU at token {t}, "
+                     f"where the CPU's top two logits are {gap:.3e} apart (more than "
+                     f"{NEAR_TIE})")
     return differ
 
 
 def study_sweep(torch, F, name: str, tmp: pathlib.Path):
-    """Phases 19-20 for one study checkpoint; returns its log row and the
-    f32 K1 and K2 rows at the t=0.7 sweep's shapes."""
+    """Phases 19-20 for one study checkpoint; returns its log row, the f32
+    K1 and K2 rows at the t=0.7 sweep's shapes, the t=0.7 record, and the
+    keys of the kernel calls it held."""
     from fairness_llm_tpu_torch.config import Config
     from fairness_llm_tpu_torch.integrity.manifest import maybe_verify_manifest
     from fairness_llm_tpu_torch.models.tokenizer import HFTokenizer
@@ -1558,6 +1626,7 @@ def study_sweep(torch, F, name: str, tmp: pathlib.Path):
     row["chunks"] = sweep.chunks
     saved_record_check(cfg, rec, name)
     kernel_rows = sweep_kernel_rows(recs, torch, F, qm, "phase1_study", f32=True)
+    held = {key for r in recs.values() for key in r.calls}
     del recs
     t0 = time.perf_counter()
     cfg2 = dataclasses.replace(cfg, results_dir=str(tmp / name / "again"))
@@ -1593,7 +1662,7 @@ def study_sweep(torch, F, name: str, tmp: pathlib.Path):
             if abs(a - b) > METRIC_TOL:
                 fail(f"{name} greedy: {path} is {a} on the card, {b} on the CPU")
     row["metrics"] = {k: v.get("score", v.get("snsr")) for k, v in rec["metrics"].items()}
-    return row, kernel_rows
+    return row, kernel_rows, rec, held
 
 
 def phase1_path(torch, F, device_line: str) -> dict:
@@ -1601,7 +1670,9 @@ def phase1_path(torch, F, device_line: str) -> dict:
     full width of llama3-8b with int8 weights. Returns, for the two study
     sweeps together ("study") and the full-width one (FULL_WIDTH), each
     kernels-line entry's launches ("launches") and its rows at the sweep's
-    shapes ("rows")."""
+    shapes ("rows"); each sweep's t=0.7 record ("records", by model), and
+    the keys of the kernel calls the three sweeps recorded and held
+    ("held")."""
     import tempfile
 
     from fairness_llm_tpu_torch.config import Config
@@ -1611,10 +1682,11 @@ def phase1_path(torch, F, device_line: str) -> dict:
     from fairness_llm_tpu_torch.pipeline.backends import backend_for
     from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
 
-    study_launches, study_rows = {}, {}
+    study_launches, study_rows, records, held = {}, {}, {}, set()
     with tempfile.TemporaryDirectory() as tmp:
         for name in STUDY_MODELS:
-            row, rows = study_sweep(torch, F, name, pathlib.Path(tmp))
+            row, rows, records[name], keys = study_sweep(torch, F, name, pathlib.Path(tmp))
+            held |= keys
             for k, v in row["launches"].items():
                 study_launches[k] = study_launches.get(k, 0) + v
             for k, v in rows.items():
@@ -1665,10 +1737,478 @@ def phase1_path(torch, F, device_line: str) -> dict:
                "card": card.summary}
         log(f"phase1_full_width {json.dumps(row)}")
         full_rows = sweep_kernel_rows(recs, torch, F, qm, "phase1_full_width", f32=False)
-        del backend, rec, recs
+        held |= {key for r in recs.values() for key in r.calls}
+        records[FULL_WIDTH] = rec
+        del backend, recs
         torch.cuda.empty_cache()
     return {"launches": {"study": study_launches, FULL_WIDTH: launches},
-            "rows": {"study": study_rows, FULL_WIDTH: full_rows}}
+            "rows": {"study": study_rows, FULL_WIDTH: full_rows},
+            "records": records, "held": held}
+
+
+# Phases 2 and 3 of the study (pipeline/phase2.run_phase2 and
+# phase3.run_phase3, the user's entry points) at the study's settings: the
+# synthetic corpus of 20 items, one listwise query and 30 comparisons; phase
+# 3 conformal with model-conditional calibration, over phase 19's (and 21's)
+# t=0.7 records. They run the decode path of phase 1 and the scoring forward
+# (runtime/scoring._forward: whole left-padded rows, full logits).
+P2_ITEMS, P2_COMPARISONS = 20, 30
+CALIBRATION = "model-conditional"
+# Card against CPU, as the CPU tests hold the port to the reference: scored
+# rankings and kept lists may differ only inside near ties of the scores;
+# log-likelihoods to 1e-5 + 1e-5 * |value|, mean log-probabilities to 1e-5;
+# perplexity to 1e-5 relative; the
+# bias-reduction percentage divides a 1e-6 parity difference by a bias of
+# about 0.25 and is held to 1e-3.
+SCORE_NEAR_TIE = 1e-5
+SCORE_LL_RTOL, SCORE_ATOL = 1e-5, 1e-5
+RATE_TOL = 1e-3
+class ScoringRecorder:
+    """Wraps ``runtime.scoring._forward``: counts the forwards, their real
+    and bucketed rows and shapes, and their seconds (host clock, synced);
+    ``on`` is True while one runs."""
+
+    def __init__(self):
+        self.on = False
+
+    def __enter__(self):
+        import torch
+        from fairness_llm_tpu_torch.runtime import scoring as sc
+
+        self.mod, self.inner = sc, sc._forward
+        self.forwards, self.rows, self.batch_rows, self.seconds, self.shapes = 0, 0, 0, 0.0, {}
+
+        def wrapped(engine, tokens, valid, prefixes):
+            self.on = True
+            t0 = time.perf_counter()
+            try:
+                out = self.inner(engine, tokens, valid, prefixes)
+                if tokens.is_cuda:
+                    torch.cuda.synchronize()
+            finally:
+                self.on = False
+            self.seconds += time.perf_counter() - t0
+            self.forwards += 1
+            self.rows += int(valid.any(1).sum())
+            self.batch_rows += tokens.shape[0]
+            key = "x".join(str(d) for d in tokens.shape)
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            return out
+
+        sc._forward = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._forward = self.inner
+
+    def summary(self) -> dict:
+        return {"forwards": self.forwards, "rows": self.rows, "batch_rows": self.batch_rows,
+                "seconds": self.seconds, "rows_per_s": self.rows / max(self.seconds, 1e-9),
+                "shapes": self.shapes}
+
+
+@contextlib.contextmanager
+def flagged_recorders(dec_mod, flash_mod, qm, scoring: ScoringRecorder):
+    """``sweep_recorders`` whose keys end with whether a scoring forward made
+    the call."""
+    with sweep_recorders(dec_mod, flash_mod, qm) as recs:
+        for r in recs.values():
+            r.key_fn = (lambda f: lambda *a, **k: f(*a, **k) + (scoring.on,))(r.key_fn)
+        yield recs
+
+
+class CalibrationRows:
+    """Wraps ``runtime.scoring.score_prompted_continuations``: the rows of
+    each call (prompts, continuations) and their scores. With ``replay``
+    (ScoreOutputs, one a call), each call returns the next of them, of as
+    many rows, instead of scoring."""
+
+    def __init__(self, replay=None):
+        self.replay = None if replay is None else list(replay)
+
+    def __enter__(self):
+        from fairness_llm_tpu_torch.runtime import scoring as sc
+
+        self.mod, self.inner, self.calls = sc, sc.score_prompted_continuations, []
+
+        def wrapped(engine, prompts, continuations):
+            if self.replay is None:
+                out = self.inner(engine, prompts, continuations)
+            else:
+                out = self.replay.pop(0)
+                if len(out.token_counts) != len(prompts):
+                    fail("a replayed calibration call has other rows")
+            self.calls.append((list(prompts), list(continuations), out))
+            return out
+
+        sc.score_prompted_continuations = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.score_prompted_continuations = self.inner
+
+
+def same_tree(a, b, label: str, path: str = "", tol: float = METRIC_TOL) -> None:
+    """Equal structure and values, floats within ``tol``; fails otherwise."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or sorted(a) != sorted(b):
+            fail(f"{label}: {path} has other keys on the card and the CPU")
+        for k in b:
+            same_tree(a[k], b[k], label, f"{path}.{k}", tol)
+    elif isinstance(b, (list, tuple)):
+        if not isinstance(a, (list, tuple)) or len(a) != len(b):
+            fail(f"{label}: {path} differs in length on the card and the CPU")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(x, y, label, f"{path}[{i}]", tol)
+    elif isinstance(b, float):
+        if not (math.isnan(a) and math.isnan(b)) and abs(a - b) > tol:
+            fail(f"{label}: {path} is {a} on the card, {b} on the CPU")
+    elif a != b:
+        fail(f"{label}: {path} is {a!r} on the card, {b!r} on the CPU")
+
+
+def scores_agree(got, want, label: str) -> dict:
+    """Two ScoreOutputs of the same rows within the CPU tests' tolerances:
+    equal token counts, log-likelihoods within 1e-5 + 1e-5 * |CPU's|, mean
+    log-probabilities within 1e-5."""
+    import numpy as np
+
+    if list(got.token_counts) != list(want.token_counts):
+        fail(f"{label}: scored token counts differ on the card and the CPU")
+    ll_err = np.abs(got.log_likelihoods - want.log_likelihoods)
+    ratio = float(np.max(ll_err / (SCORE_ATOL + SCORE_LL_RTOL * np.abs(want.log_likelihoods)),
+                         initial=0.0))
+    mean = float(np.max(np.abs(got.mean_logprobs - want.mean_logprobs), initial=0.0))
+    if ratio > 1 or mean > SCORE_ATOL:
+        fail(f"{label}: log-likelihoods {ratio:.2f}x their tolerance, mean log-probabilities "
+             f"{mean:.2e} apart (tolerance {SCORE_ATOL})")
+    return {"rows": len(want.token_counts), "ll_max_abs_err": float(np.max(ll_err, initial=0.0)),
+            "ll_err_over_tol": ratio, "mean_max_abs_err": mean}
+
+
+def far_inversions(got, want) -> int:
+    """The pairs of rows that ``got``'s scores rank otherwise than
+    ``want``'s (stable ranks, as the percentile confidence takes them)
+    though ``want``'s two scores lie more than SCORE_NEAR_TIE apart."""
+    import numpy as np
+
+    def ranks(v):
+        return np.argsort(np.argsort(np.asarray(v, np.float64), kind="stable"), kind="stable")
+
+    rg, rw, w = ranks(got), ranks(want), np.asarray(want, np.float64)
+    flipped = (rg[:, None] < rg[None, :]) != (rw[:, None] < rw[None, :])
+    return int(np.sum(flipped & (np.abs(w[:, None] - w[None, :]) > SCORE_NEAR_TIE))) // 2
+
+
+def phase2_agree(name: str, card, cpu, cpu_engine) -> None:
+    """Greedy phase-2 records of the card and the CPU (equal decodes): the
+    listwise and pairwise results and parse counts equal (floats to 1e-6),
+    perplexity to 1e-5 relative, the scored ranking equal up to near ties
+    (one listwise query: the default one)."""
+    from fairness_llm_tpu_torch.pipeline.phase2 import scored_ranking_prompt
+    from fairness_llm_tpu_torch.runtime.scoring import score_continuations
+
+    g, w = card["model_results"][name], cpu["model_results"][name]
+    for key in ("listwise", "pairwise", "parse_failures"):
+        same_tree(g[key], w[key], f"{name} phase 2 {key}", key)
+    if abs(g["corpus_perplexity"] - w["corpus_perplexity"]) > \
+            SCORE_LL_RTOL * abs(w["corpus_perplexity"]):
+        fail(f"{name} phase 2: perplexity {g['corpus_perplexity']} on the card, "
+             f"{w['corpus_perplexity']} on the CPU")
+    if g["scored"]["ranking"] != w["scored"]["ranking"]:
+        items = cpu["items"]
+        sc = score_continuations(cpu_engine, scored_ranking_prompt(None),
+                                 [it["text"] for it in items])
+        score_of = dict(zip((it["id"] for it in items), sc.mean_logprobs))
+        for a, b in zip(g["scored"]["ranking"], w["scored"]["ranking"]):
+            if abs(score_of[a] - score_of[b]) > SCORE_NEAR_TIE:
+                fail(f"{name} phase 2: the scored rankings differ outside a near tie "
+                     f"({a} against {b})")
+
+
+def phase3_agree(name: str, card, cpu, card_rows, cpu_rows, rerun) -> dict:
+    """Greedy phase-3 records of the card and the CPU (equal decodes): the
+    same calibration rows, scored within tolerance; the same kept lists, or
+    lists that a reordering of near-tied scores explains: the card ranks no
+    two rows otherwise than the CPU unless the CPU's scores of the two lie
+    within SCORE_NEAR_TIE, and ``rerun`` (the CPU's phase 3 given the
+    card's scores) keeps the card's lists. With equal lists, the measures
+    within 1e-6 (the rate within 1e-3)."""
+    if [c[:2] for c in card_rows.calls] != [c[:2] for c in cpu_rows.calls]:
+        fail(f"{name} phase 3: the card and the CPU scored other calibration rows")
+    errs = [scores_agree(a[2], b[2], f"{name} phase 3 calibration")
+            for a, b in zip(card_rows.calls, cpu_rows.calls)]
+    if card["mitigated_recommendations"] != cpu["mitigated_recommendations"]:
+        far = sum(far_inversions(a[2].mean_logprobs, b[2].mean_logprobs)
+                  for a, b in zip(card_rows.calls, cpu_rows.calls))
+        if far:
+            fail(f"{name} phase 3: the kept lists differ, and the card ranks {far} pairs of "
+                 f"calibration rows otherwise than the CPU outside a near tie")
+        again = rerun([c[2] for c in card_rows.calls])
+        if again["mitigated_recommendations"] != card["mitigated_recommendations"]:
+            fail(f"{name} phase 3: the CPU's phase 3 on the card's scores keeps other lists "
+                 f"than the card's")
+        return {"lists_equal": False, "scores": errs}
+    for part in ("bias_reduction", "quality_preservation"):
+        a, b = dict(card[part]), dict(cpu[part])
+        ra, rb = a.pop("bias_reduction_rate", 0.0), b.pop("bias_reduction_rate", 0.0)
+        if abs(ra - rb) > RATE_TOL:
+            fail(f"{name} phase 3: bias reduction {ra} on the card, {rb} on the CPU")
+        same_tree(a, b, f"{name} phase 3 {part}", part)
+    same_tree(card["blended_fairness"], cpu["blended_fairness"], f"{name} phase 3", "blended")
+    return {"lists_equal": True, "scores": errs}
+
+
+def p23_record_check(config, rec, label: str, phase: int) -> None:
+    """No error entry, finite measures, the saved record read back and its
+    manifest entry verified."""
+    if phase == 2:
+        body, key = rec["model_results"], "comparison"
+        measures = [rec["comparison"], rec["model_results"]]
+    else:
+        body, key = rec["mitigated_recommendations"], "mitigated_recommendations"
+        measures = [rec["bias_reduction"], rec["quality_preservation"], rec["blended_fairness"]]
+    if any(isinstance(v, dict) and "error" in v for v in body.values()):
+        fail(f"{label}: an error entry in the record")
+    for path, value in metric_leaves(measures, f"phase{phase}"):
+        if not math.isfinite(value):
+            fail(f"{label}: {path} is {value}")
+    saved_record_check(config, rec, label, phase, key)
+
+
+def need_kernels(launches: dict, label: str, f32: bool) -> None:
+    """K1's and K2's kernels of the model's type launched, and the other
+    type's not (a float32 model on flash_fwd and decode_fwd, a bf16 one on
+    flash_fwd_tc and decode_split_tc)."""
+    for kernel in ("flash_attention", "decode_attention"):
+        want, other = (f"{kernel}_f32", kernel) if f32 else (kernel, f"{kernel}_f32")
+        if launches[want] <= 0:
+            fail(f"{label}: {KERNEL_FUNCTIONS[want]} was not launched")
+        if launches[other]:
+            fail(f"{label}: {launches[other]} launches of {KERNEL_FUNCTIONS[other]}")
+
+
+def timed_phase(torch, dec_mod, flash_mod, qm, fn):
+    """Runs ``fn`` with the counts zeroed, every kernel wrapper call and
+    every scoring forward recorded, and the peak memory reset; returns (its
+    result, the log row, the recorders). The row's peak is the allocator's,
+    beside what was allocated when it started (``held_before_gb``: engines
+    of earlier phases that only a garbage collection frees are collected
+    first)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_all(dec_mod, flash_mod, qm)
+    t0 = time.perf_counter()
+    with ScoringRecorder() as scoring, flagged_recorders(dec_mod, flash_mod, qm, scoring) as recs:
+        out = fn()
+    torch.cuda.synchronize()
+    row = {"wall_s": time.perf_counter() - t0, "launches": phase1_counts(dec_mod, flash_mod, qm),
+           "scoring": scoring.summary(),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "held_before_gb": held / 1e9}
+    return out, row, recs
+
+
+def study_phases23(torch, F, name: str, tmp: pathlib.Path, p1_record, held):
+    """Phase 22 for one study checkpoint; returns its log row (with each
+    phase's launches), the rows of every kernel call whose key is not in
+    ``held`` (which they join), by kernels-line entry, and the t=0.7 phase
+    3's calibration rows."""
+    from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase2 import run_phase2
+    from fairness_llm_tpu_torch.pipeline.phase3 import run_phase3
+    from fairness_llm_tpu_torch.runtime.scoring import score_prompted_continuations
+
+    cfg = Config(weights_dir=str(ROOT / "checkpoints"), data_dir=str(ROOT / "data" / "ml-1m"),
+                 results_dir=str(tmp / name / "run"))
+    row = {"model": name}
+    # at the study's own settings (t=0.7, 64 tokens), through backend_for
+    p2, row["phase2"], recs2 = timed_phase(
+        torch, dec_mod, flash_mod, qm,
+        lambda: run_phase2(cfg, models=[name], num_items=P2_ITEMS,
+                           num_comparisons=P2_COMPARISONS))
+    with CalibrationRows() as rows3:
+        p3, row["phase3"], recs3 = timed_phase(
+            torch, dec_mod, flash_mod, qm,
+            lambda: run_phase3(cfg, phase1_results=p1_record, model_name=name,
+                               calibration=CALIBRATION))
+    for phase in ("phase2", "phase3"):
+        need_kernels(row[phase]["launches"], f"{name} {phase}", f32=True)
+        if row[phase]["scoring"]["forwards"] <= 0:
+            fail(f"{name} {phase}: no scoring forward ran")
+    p23_record_check(cfg, p2, f"{name} phase 2", 2)
+    p23_record_check(cfg, p3, f"{name} phase 3", 3)
+    res = p2["model_results"][name]
+    row["phase2_results"] = {"exposure": {m: res[m]["exposure_ratio"]
+                                          for m in ("listwise", "pairwise", "scored")},
+                             "corpus_perplexity": res["corpus_perplexity"],
+                             "parse_failures": res["parse_failures"]}
+    row["phase3_results"] = {"bias_reduction": p3["bias_reduction"],
+                             "quality_preservation": p3["quality_preservation"],
+                             "blended_fairness": p3["blended_fairness"],
+                             "kept_titles": sum(len(v) for v in
+                                                p3["mitigated_recommendations"].values())}
+    if not rows3.calls or not rows3.calls[0][0]:
+        fail(f"{name} phase 3: the calibration scored no row")
+    calibration = rows3.calls[0][:2]
+    row["phase3_calibration_rows"] = len(calibration[0])
+    # every (shape, dtype) the earlier phases did not hold, the scoring
+    # forward's and the decodes' alike
+    kernel_rows = {}
+    for recs, path in ((recs2, "phase2_study"), (recs3, "phase3_study")):
+        for k, v in sweep_kernel_rows(recs, torch, F, qm, path, f32=True, held=held).items():
+            kernel_rows.setdefault(k, []).extend(v)
+    del recs2, recs3
+
+    # greedy, on the card and on the CPU (the kernels' plain versions)
+    gcfg = greedy_config(dataclasses.replace(cfg, results_dir=str(tmp / name / "greedy")),
+                         name, MAX_TOKENS)
+
+    def phase3(b, replay=None):
+        with CalibrationRows(replay) as crows:
+            r3 = run_phase3(gcfg, phase1_results=p1_record, model_name=name,
+                            calibration=CALIBRATION, backend=b, save=False)
+        return r3, crows
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        b = backend_for(name, gcfg, device=device)
+        calls = SweepRecorder(b)
+        t0 = time.perf_counter()
+        r2 = run_phase2(gcfg, models=[name], num_items=P2_ITEMS,
+                        num_comparisons=P2_COMPARISONS, backends={name: b}, save=False)
+        r3, crows = phase3(b)
+        row[f"greedy_{device}_wall_s"] = time.perf_counter() - t0
+        runs[device] = (b, calls, r2, r3, crows)
+    (cb, ccalls, c2, c3, crows), (pb, pcalls, g2, g3, grows) = runs["cuda"], runs["cpu"]
+    differ = greedy_divergences(name, pcalls, ccalls, pb.engine, torch)
+    row["greedy_rows_differing"] = differ
+    if not differ:
+        phase2_agree(name, c2, g2, pb.engine)
+        row["greedy_phase3"] = phase3_agree(name, c3, g3, crows, grows,
+                                            lambda scores: phase3(pb, scores)[0])
+    # the t=0.7 run's calibration rows, scored on the card and on the CPU
+    row["calibration_scores"] = scores_agree(
+        score_prompted_continuations(cb.engine, *calibration),
+        score_prompted_continuations(pb.engine, *calibration), f"{name} calibration rows")
+    return row, kernel_rows, calibration
+
+
+def full_width_phases23(torch, F, tmp: pathlib.Path, p1_record, calibration, held) -> dict:
+    """Phase 23: phases 2 and 3 on llama3-8b with int8 weights (random, from
+    the seed; byte tokenizer), then the scoring forward over the study's
+    phase-3 calibration rows. Returns each phase's launches and the rows of
+    every kernel call whose key is not in ``held`` (which they join), by
+    kernels-line entry."""
+    from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase2 import run_phase2
+    from fairness_llm_tpu_torch.pipeline.phase3 import run_phase3
+    from fairness_llm_tpu_torch.runtime.scoring import score_prompted_continuations
+
+    cfg = Config(weight_quant="int8", max_new_tokens=MAX_TOKENS,
+                 data_dir=str(ROOT / "data" / "ml-1m"), results_dir=str(tmp / "llama3-8b"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    backend = backend_for(MODEL, cfg, allow_random=True)
+    torch.cuda.synchronize()
+    row = {"model": MODEL, "weight_quant": "int8", "engine_init_s": time.perf_counter() - t0}
+    phases = {}
+    p2, row["phase2"], phases["phase2"] = timed_phase(
+        torch, dec_mod, flash_mod, qm,
+        lambda: run_phase2(cfg, models=[MODEL], num_items=P2_ITEMS,
+                           num_comparisons=P2_COMPARISONS, backends={MODEL: backend}))
+    p3, row["phase3"], phases["phase3"] = timed_phase(
+        torch, dec_mod, flash_mod, qm,
+        lambda: run_phase3(cfg, phase1_results=p1_record, model_name=MODEL,
+                           calibration=CALIBRATION, backend=backend))
+    # Random weights name no title, so run_phase3's calibration scores no
+    # row: score the rows the study checkpoint's phase-3 run scored, through
+    # the same engine and the same entry point.
+    sc, row["phase3_scoring"], phases["phase3_scoring"] = timed_phase(
+        torch, dec_mod, flash_mod, qm,
+        lambda: score_prompted_continuations(backend.engine, *calibration))
+    if backend.engine.config.weight_quant != "int8":
+        fail("the full-width phases did not serve int8 weights")
+    p23_record_check(cfg, p2, "llama3-8b int8 phase 2", 2)
+    p23_record_check(cfg, p3, "llama3-8b int8 phase 3", 3)
+    import numpy as np
+
+    if not np.isfinite(sc.log_likelihoods).all() or \
+            list(sc.token_counts) == [0] * len(sc.token_counts):
+        fail(f"the full-width scoring of the calibration rows is malformed: {sc}")
+    for phase in ("phase2", "phase3"):
+        need_kernels(row[phase]["launches"], f"llama3-8b int8 {phase}", f32=False)
+    for phase in ("phase2", "phase3_scoring"):
+        if row[phase]["scoring"]["forwards"] <= 0:
+            fail(f"llama3-8b int8 {phase}: no scoring forward ran")
+    for kernel in ("quant_matmul_gemv", "quant_matmul_gemm"):
+        if row["phase2"]["launches"][kernel] + row["phase3"]["launches"][kernel] <= 0:
+            fail(f"{kernel} was not launched by the full-width phases 2 and 3")
+    res = p2["model_results"][MODEL]
+    row["phase2_results_vacuous_random_weights"] = {
+        "exposure": {m: res[m]["exposure_ratio"] for m in ("listwise", "pairwise", "scored")},
+        "corpus_perplexity": res["corpus_perplexity"]}
+    row["phase3_scoring_rows"] = len(calibration[0])
+    log(f"phase23_full_width {json.dumps(row)}")
+
+    # Every new (shape, dtype): the lm_head's K4 GEMM with an f32 output at
+    # the scoring forward's M must be among them.
+    head = tuple(backend.engine.model.lm_head.kernel_q.shape)
+    rows = {}
+    for path, recs in phases.items():
+        for k, v in sweep_kernel_rows(recs, torch, F, qm, f"{path}_full_width", f32=False,
+                                      held=held).items():
+            rows.setdefault(k, []).extend(v)
+    if not any(r["scoring"] and (r["shape"]["K"], r["shape"]["N"]) == head
+               and r["shape"]["out"] == "float32" for r in rows.get("quant_matmul_gemm", [])):
+        fail("the lm_head's K4 GEMM with an f32 output was not called by a scoring forward")
+    del backend, phases
+    torch.cuda.empty_cache()
+    return {"launches": {k: row[k]["launches"] for k in ("phase2", "phase3", "phase3_scoring")},
+            "rows": rows}
+
+
+def phase23_path(torch, F, device_line: str, records: dict, held) -> dict:
+    """Phases 22-23. Returns each kernels-line entry's launches on phase 2
+    and on phase 3 (study sweeps together, "study"; the full-width ones,
+    FULL_WIDTH), and the rows of every kernel call whose key is not in
+    ``held`` (phases 19-21's), by entry."""
+    import tempfile
+
+    launches = {"phase2": {"study": {}}, "phase3": {"study": {}}}
+    kernel_rows = {}
+    calibration = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in STUDY_MODELS:
+            row, rows, cal = study_phases23(torch, F, name, pathlib.Path(tmp), records[name],
+                                            held)
+            calibration = calibration or cal
+            for k, v in rows.items():
+                kernel_rows.setdefault(k, []).extend(v)
+            for phase in ("phase2", "phase3"):
+                for k, v in row[phase]["launches"].items():
+                    launches[phase]["study"][k] = launches[phase]["study"].get(k, 0) + v
+            log(f"phase23_study {json.dumps({'device': device_line, **row})}")
+        full = full_width_phases23(torch, F, pathlib.Path(tmp), records[FULL_WIDTH],
+                                   calibration, held)
+    launches["phase2"][FULL_WIDTH] = full["launches"]["phase2"]
+    launches["phase3"][FULL_WIDTH] = full["launches"]["phase3"]
+    launches["phase3"][FULL_WIDTH + "_scoring"] = full["launches"]["phase3_scoring"]
+    for k, v in full["rows"].items():
+        kernel_rows.setdefault(k, []).extend(v)
+    return {"launches": launches, "rows": kernel_rows}
 
 
 def main() -> int:
@@ -1723,6 +2263,9 @@ def main() -> int:
     t0 = time.perf_counter()
     sweep = phase1_path(torch, F, device_line)
     log(f"phase1_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    p23 = phase23_path(torch, F, device_line, sweep["records"], sweep["held"])
+    log(f"phase23_path_s {time.perf_counter() - t0:.1f}")
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -1734,6 +2277,14 @@ def main() -> int:
                                     for path, counts in sweep["launches"].items()}
         if entry["name"] in sweep["rows"][FULL_WIDTH]:
             entry["phase1_shapes"] = sweep["rows"][FULL_WIDTH][entry["name"]]
+        for phase in ("phase2", "phase3"):
+            entry[f"{phase}_launches"] = {path: counts[entry["name"]]
+                                          for path, counts in p23["launches"][phase].items()}
+        rows = p23["rows"].get(entry["name"], [])
+        if any(r["scoring"] for r in rows):
+            entry["scoring_shapes"] = [r for r in rows if r["scoring"]]
+        if not all(r["scoring"] for r in rows):
+            entry["phase23_shapes"] = [r for r in rows if not r["scoring"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

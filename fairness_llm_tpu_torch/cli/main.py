@@ -1,14 +1,15 @@
 """Command line for the port: ``python -m fairness_llm_tpu_torch.cli.main``
-(counterpart of ``fairness_llm_tpu/cli/main.py``, phase 1 only).
+(counterpart of ``fairness_llm_tpu/cli/main.py``): the three-phase study,
+``--all`` or one ``--phase``.
 
-    python -m fairness_llm_tpu_torch.cli.main --phase 1 --quick \\
+    python -m fairness_llm_tpu_torch.cli.main --all --quick \\
         --model tiny-llama-study --weights-dir checkpoints [--device cpu]
 
 The flags keep the reference's meaning and checks. ``--device`` (default
 ``cuda``) is the port's counterpart of the reference's ``JAX_PLATFORMS``.
-Phases 2 and 3 and the phase figures are not ported yet (ROADMAP A6); the
-continuous-batching server, device meshes and resilience flags raise
-``NotImplementedError`` (ROADMAP A5).
+Phase 1 also writes its text report; the reference's matplotlib figures
+are not ported (the CLI logs so). The continuous-batching server, device
+meshes and resilience flags raise ``NotImplementedError`` (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -21,7 +22,12 @@ import sys
 import time
 from typing import Dict
 
-from fairness_llm_tpu_torch.config import Config, SpeculationConfig, default_config
+from fairness_llm_tpu_torch.config import (
+    Config,
+    SpeculationConfig,
+    create_directories,
+    default_config,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -29,13 +35,38 @@ logger = logging.getLogger(__name__)
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fairness_llm_tpu_torch",
-        description="LLM recommendation-fairness study on the PyTorch/CUDA port (phase 1)",
+        description="Three-phase LLM recommendation-fairness study on the PyTorch/CUDA port",
     )
-    p.add_argument("--phase", type=int, choices=(1,), required=True,
-                   help="run one phase (the port has phase 1)")
-    p.add_argument("--quick", action="store_true", help="demo mode: 1 profile/combo")
-    p.add_argument("--model", default=None, help="model for phase 1 (or 'simulated')")
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("--all", action="store_true", help="run phases 1 -> 2 -> 3")
+    g.add_argument("--phase", type=int, choices=(1, 2, 3), help="run one phase")
+    p.add_argument("--quick", action="store_true",
+                   help="demo mode: 1 profile/combo, fewer items/comparisons")
+    p.add_argument("--model", default=None, help="model for phases 1/3 (or 'simulated')")
+    p.add_argument("--models", nargs="+", default=None, help="models for phase 2")
     p.add_argument("--profiles", type=int, default=None, help="profiles per demographic combo")
+    p.add_argument("--num-items", type=int, default=20, help="phase-2 ranking corpus size")
+    p.add_argument("--corpus", default="synthetic", choices=("synthetic", "movielens"),
+                   help="phase-2 corpus: the reference study's synthetic documents, or "
+                        "MovieLens titles with genre-derived groups")
+    p.add_argument("--num-queries", type=int, default=1,
+                   help="phase-2 listwise queries, decoded as one batch")
+    p.add_argument("--num-comparisons", type=int, default=30, help="phase-2 pairwise budget")
+    p.add_argument("--variant", default="conformal", choices=("conformal", "smart", "aggressive"),
+                   help="phase-3 mitigation variant")
+    p.add_argument("--strategy", default="demographic_parity",
+                   choices=("demographic_parity", "equal_opportunity", "individual_fairness"))
+    p.add_argument("--calibration", default="simulated",
+                   choices=("simulated", "model", "model-conditional"),
+                   help="phase-3 conformal confidences: the reference study's simulated "
+                        "curve, the model's own unconditional title likelihoods, or "
+                        "likelihoods given the profile's watch history")
+    p.add_argument("--confidence-mapping", default="percentile",
+                   choices=("percentile", "probability"),
+                   help="with --calibration model or model-conditional: how likelihoods "
+                        "map onto the conformal scale (pipeline.facter.model_confidences)")
+    p.add_argument("--confidence-temperature", type=float, default=1.0,
+                   help="temperature for --confidence-mapping probability")
     p.add_argument("--max-new-tokens", type=int, default=None,
                    help="global decode-length cap: clamps every model's max_tokens")
     p.add_argument("--speculate", action="store_true",
@@ -115,6 +146,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 def main(argv=None) -> int:
     from fairness_llm_tpu_torch.pipeline.phase1 import print_phase1_summary, run_phase1
+    from fairness_llm_tpu_torch.pipeline.phase2 import print_phase2_summary, run_phase2
+    from fairness_llm_tpu_torch.pipeline.phase3 import print_phase3_summary, run_phase3
+    from fairness_llm_tpu_torch.reports.report import generate_summary_report
 
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     logging.basicConfig(
@@ -122,20 +156,51 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
     config = config_from_args(args)
-    for sub in ("", "phase1"):
-        os.makedirs(os.path.join(config.results_dir, sub), exist_ok=True)
+    create_directories(config)
     if not os.path.exists(os.path.join(config.data_dir, "movies.dat")):
         print(f"WARNING: MovieLens not found at {config.data_dir}; "
               "synthetic fallback will be used")
-    t0 = time.perf_counter()
-    results = run_phase1(config, args.model, args.profiles, save=not args.no_save,
-                         resume=args.resume, device=args.device)
-    print_phase1_summary(results)
-    if not args.no_save:
-        logger.info("phase 1 figures and the summary report are not ported yet (ROADMAP A6)")
+    if args.quick:
+        args.num_items = min(args.num_items, 10)
+        args.num_comparisons = min(args.num_comparisons, 6)
+    save = not args.no_save
+
+    phases = [1, 2, 3] if args.all else [args.phase]
+    timings: Dict[str, float] = {}
+    p1 = None
+    for phase in phases:
+        t0 = time.perf_counter()
+        if phase == 1:
+            p1 = run_phase1(config, args.model, args.profiles, save=save,
+                            resume=args.resume, device=args.device)
+            print_phase1_summary(p1)
+            if save:
+                generate_summary_report(
+                    p1, f"{config.results_dir}/phase1/phase1_summary_report.txt")
+        elif phase == 2:
+            p2 = run_phase2(config, args.models or ([args.model] if args.model else None),
+                            args.num_items, args.num_comparisons, save=save,
+                            corpus=args.corpus, num_queries=args.num_queries,
+                            device=args.device)
+            print_phase2_summary(p2)
+        else:
+            p3 = run_phase3(config, phase1_results=p1, model_name=args.model,
+                            num_profiles=args.profiles, variant=args.variant,
+                            strategy=args.strategy, save=save,
+                            calibration=args.calibration,
+                            confidence_mapping=args.confidence_mapping,
+                            confidence_temperature=args.confidence_temperature,
+                            device=args.device)
+            print_phase3_summary(p3)
+        if save:
+            logger.info("phase %d figures are not ported (the card's machine has no "
+                        "matplotlib; ROADMAP A6)", phase)
+        timings[f"phase {phase}"] = time.perf_counter() - t0
+
     print("\n" + "=" * 60)
     print("RUN COMPLETE")
-    print(f"  phase 1: {time.perf_counter() - t0:.1f}s")
+    for name, dt in timings.items():
+        print(f"  {name}: {dt:.1f}s")
     print(f"results under: {config.results_dir}/")
     return 0
 

@@ -1,8 +1,9 @@
 """Configuration (counterpart of ``fairness_llm_tpu/config.py``):
 ``ModelSettings``, ``SpeculationConfig``, ``IntegrityConfig`` (manifest
-verification only) and ``Config`` with the fields the phase-1 sweep reads,
-and ``default_config`` with the reference's ``FAIRNESS_TPU_*`` overrides.
-The serving, fleet, mesh and telemetry sections wait for their slices."""
+verification only) and ``Config`` with the fields the three phases read,
+``default_config`` with the reference's ``FAIRNESS_TPU_*`` overrides, and
+``create_directories``. The serving, fleet, mesh and telemetry sections wait
+for their slices."""
 
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ class IntegrityConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The study's configuration: the reference's fields that phase 1 reads."""
+    """The study's configuration: the reference's fields that the three
+    phases read."""
 
     random_seed: int = 42
     results_dir: str = "results"
@@ -55,9 +57,14 @@ class Config:
     age_groups: Tuple[str, ...] = ("18-24", "25-34", "35-44", "45-54", "55+")
     occupation: str = "professional"
     profiles_per_combo: int = 3
+    conformal_alpha: float = 0.1  # phase 3's conformal miscoverage
+    bias_reduction_target: float = 50.0  # percent
+    accuracy_preservation_min: float = 70.0  # percent
     # 'simulated' is the deterministic fake backend; a real model name needs
-    # weights_dir (or allow_random in backend_for).
+    # weights_dir (or allow_random in backend_for). Phase 2 compares a list.
     default_model_phase1: str = "simulated"
+    default_models_phase2: Tuple[str, ...] = ("simulated",)
+    default_model_phase3: str = "simulated"
     model_settings: Tuple[Tuple[str, ModelSettings], ...] = (
         ("tiny-test", ModelSettings(temperature=0.7, max_tokens=128)),
         ("tiny-gpt2", ModelSettings(temperature=0.7, max_tokens=128)),
@@ -112,3 +119,9 @@ def default_config() -> Config:
     if os.environ.get("FAIRNESS_TPU_SEED"):
         kwargs["random_seed"] = int(os.environ["FAIRNESS_TPU_SEED"])
     return Config(**kwargs)
+
+
+def create_directories(config: Config) -> None:
+    """Make the results directory and its per-phase subdirectories."""
+    for sub in ("", "phase1", "phase2", "phase3"):
+        os.makedirs(os.path.join(config.results_dir, sub), exist_ok=True)

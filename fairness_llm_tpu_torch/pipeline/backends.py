@@ -117,14 +117,19 @@ _AGE_RE = re.compile(r"Age Group:\s*([\w\-\+]+)", re.IGNORECASE)
 
 
 class SimulatedRecommender:
-    """Deterministic fake model for recommendation prompts.
+    """Deterministic fake model that answers by the shape of the prompt.
 
-    Picks 10 titles from a seeded global shuffle of the catalog, sliding the
-    selection window by a demographic-dependent offset scaled by ``bias``, so
-    counterfactual profiles get measurably different recommendations; a
-    prompt with a fairness instruction block shrinks the offset by
-    ``mitigation``. The reference's listwise and pairwise handlers (phase 2)
-    are not ported yet: such prompts raise."""
+    Recommendation prompts: 10 titles from a seeded global shuffle of the
+    catalog, the selection window slid by a demographic-dependent offset
+    scaled by ``bias``, so counterfactual profiles get measurably different
+    recommendations; a prompt with a fairness instruction block shrinks the
+    offset by ``mitigation``.
+
+    Listwise prompts ("Your ranking:"): a seeded permutation, in which the
+    items of the preferred group (the first in sorted order) gain up to
+    ``bias`` when ``catalog_groups`` is given. Pairwise prompts ("Your
+    answer:"): a seeded A/B choice, biased by the same rule. At ``bias`` >= 1
+    both saturate."""
 
     def __init__(
         self,
@@ -133,14 +138,32 @@ class SimulatedRecommender:
         bias: float = 0.6,
         mitigation: float = 0.85,
         name: str = "simulated",
+        catalog_groups: Optional[Sequence[str]] = None,
     ):
         if not catalog:
             raise ValueError("SimulatedRecommender needs a non-empty catalog")
+        if catalog_groups is not None and len(catalog_groups) != len(catalog):
+            raise ValueError("catalog_groups must align with catalog")
         self.catalog = list(catalog)
         self.seed = seed
         self.bias = bias
         self.mitigation = mitigation
         self.name = name
+        # Keyed on the stripped title (the ranking regexes strip whitespace);
+        # listwise prompts map groups by position, which duplicates survive.
+        self._groups = list(catalog_groups) if catalog_groups else []
+        self._group_of: Dict[str, str] = {}
+        for text, group in zip(self.catalog, self._groups):
+            key = text.strip()
+            if key in self._group_of and self._group_of[key] != group:
+                logger.warning(
+                    "SimulatedRecommender: duplicate catalog title %r with "
+                    "conflicting groups; listwise prompts use exact positional "
+                    "mapping, pairwise text lookup keeps the last assignment",
+                    key,
+                )
+            self._group_of[key] = group
+        self._preferred = sorted(set(catalog_groups))[0] if catalog_groups else None
         order = sorted(
             range(len(self.catalog)), key=lambda i: _stable_hash(self.catalog[i], seed)
         )
@@ -160,6 +183,42 @@ class SimulatedRecommender:
         titles = [window[c] for c in chosen]
         return "\n".join(f"{i + 1}. {t}" for i, t in enumerate(titles))
 
+    def _rank(self, prompt: str, idx: int, seed: int) -> str:
+        lines = re.findall(r"^\d+\.\s*(.+?)\s*$", prompt, flags=re.MULTILINE)
+        num_items = max(len(lines), 1)
+        rng = np.random.default_rng([self.seed & 0x7FFFFFFF, seed & 0x7FFFFFFF, idx, 1])
+        if not self._group_of:  # group-blind: a plain seeded permutation
+            perm = rng.permutation(num_items) + 1
+            return ",".join(str(int(p)) for p in perm)
+        # A prompt that lists the whole catalog in order maps groups by
+        # position; any other falls back to the title.
+        positional_ok = len(lines) == len(self._groups)
+        scores = rng.random(num_items)
+        for i, text in enumerate(lines):
+            group = self._groups[i] if positional_ok else self._group_of.get(text)
+            if group == self._preferred:
+                scores[i] += self.bias
+        order = np.argsort(-scores, kind="stable") + 1
+        return ",".join(str(int(p)) for p in order)
+
+    def _compare(self, prompt: str, idx: int, seed: int) -> str:
+        rng = np.random.default_rng(
+            [_stable_hash(prompt) & 0x7FFFFFFF, self.seed & 0x7FFFFFFF, seed & 0x7FFFFFFF]
+        )
+        if self._group_of:
+            m = re.search(r"Document A:\s*(.+?)\s*\n+Document B:\s*(.+?)\s*\n", prompt)
+            if m:
+                ga = self._group_of.get(m.group(1))
+                gb = self._group_of.get(m.group(2))
+                if ga != gb and self._preferred in (ga, gb):
+                    # the preferred item wins with probability 0.5 + bias/2,
+                    # at most 1
+                    p_pref = min(1.0, 0.5 + self.bias / 2)
+                    pick_pref = rng.random() < p_pref
+                    pref_is_a = ga == self._preferred
+                    return "A" if pick_pref == pref_is_a else "B"
+        return "A" if rng.random() < 0.5 else "B"
+
     def generate(
         self,
         prompts: Sequence[str],
@@ -174,10 +233,6 @@ class SimulatedRecommender:
         out = []
         seen: dict = {}
         for i, p in enumerate(prompts):
-            if "Your ranking:" in p or "Your answer:" in p:
-                raise NotImplementedError(
-                    "SimulatedRecommender answers recommendation prompts only; the "
-                    "listwise and pairwise handlers come with phase 2 (ROADMAP A6)")
             if keys is not None:
                 salt = _stable_hash(keys[i])
             else:
@@ -185,11 +240,17 @@ class SimulatedRecommender:
                 seen[p] = occ + 1
                 salt = occ
             idx = (_stable_hash(p) + salt) & 0x7FFFFFFF
-            out.append(self._recommend(p, idx, seed))
+            if "Your ranking:" in p:
+                out.append(self._rank(p, idx, seed))
+            elif "Your answer:" in p:
+                out.append(self._compare(p, idx, seed))
+            else:
+                out.append(self._recommend(p, idx, seed))
         return out
 
 
-# Named simulated variants: distinct bias levels.
+# Named simulated variants: distinct bias levels give phase 2 a cross-model
+# comparison without weights.
 SIMULATED_VARIANTS = {"simulated": 0.6, "simulated-fair": 0.15, "simulated-biased": 0.9}
 
 
@@ -200,11 +261,13 @@ def backend_for(
     params: Optional[Dict[str, torch.Tensor]] = None,
     allow_random: bool = False,
     device: Optional[Union[str, torch.device]] = None,
+    catalog_groups: Optional[Sequence[str]] = None,
 ) -> DecodeBackend:
     """Resolve a model name to a backend.
 
     A ``SIMULATED_VARIANTS`` name gives a ``SimulatedRecommender`` over
-    ``catalog``. A model name gives an ``EngineBackend`` on ``device``
+    ``catalog`` (with ``catalog_groups``, the group of each entry, for its
+    biased rankings). A model name gives an ``EngineBackend`` on ``device``
     (None means CUDA) with the weights of ``config.weights_dir/<model_name>``,
     verified against its manifest (``config.integrity``), and the
     checkpoint's own tokenizer when it has a ``tokenizer_config.json``.
@@ -222,6 +285,7 @@ def backend_for(
         return SimulatedRecommender(
             catalog or [], seed=config.random_seed,
             bias=SIMULATED_VARIANTS[model_name], name=model_name,
+            catalog_groups=catalog_groups,
         )
 
     from fairness_llm_tpu_torch.models.configs import get_model_config

@@ -1,7 +1,7 @@
 """The port stands alone: it imports torch and numpy, never JAX, flax or the
-JAX package, nor ``safetensors``, ``tokenizers``, ``transformers`` or
-``regex``, which a CUDA host running it need not have; and it runs on the
-CPU only when asked to."""
+JAX package, nor ``safetensors``, ``tokenizers``, ``transformers``,
+``regex`` or ``matplotlib``, which a CUDA host running it need not have; and
+it runs on the CPU only when asked to."""
 
 import pathlib
 import re
@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "fairness_llm_tpu_torch"
 OUTSIDE = ("jax", "jaxlib", "flax", "fairness_llm_tpu", "safetensors", "tokenizers",
-           "transformers", "regex")
+           "transformers", "regex", "matplotlib")
 _NAMES = "|".join(OUTSIDE)
 FORBIDDEN = re.compile(
     rf"^\s*(?:import|from)\s+(?:{_NAMES})\b"
@@ -41,7 +41,7 @@ def test_importing_every_module_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 30
+    assert int(res.stdout.strip()) >= 40
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
