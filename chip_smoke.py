@@ -21,7 +21,9 @@ two study checkpoints in ``checkpoints/``, read with the port's own
 safetensors reader and BPE tokenizer, and at the full width of llama3-8b
 with int8 weights. Last it runs phases 2 and 3 of the study
 (``pipeline/phase2.run_phase2``, ``pipeline/phase3.run_phase3``) on the
-same models, with their teacher-forced scoring forward.
+same models, with their teacher-forced scoring forward, and the phase-1
+sweep once more through the continuous-batching server
+(``serving/ContinuousScheduler`` behind ``backend_for``).
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -159,6 +161,36 @@ path's launch counts are set to 0 just before it and read just after:
      21, 22 and 23 number and hold their calls with one function
      (``sweep_kernel_rows``); every K4 row carries the host microseconds
      and ``torch._weight_int8pack_mm`` in the GEMV regime only.
+  the continuous-batching server (``serving/``, ``--continuous``), after
+  phases 22-23:
+ 24. the phase-1 sweep through ``backend_for`` with ``Config.serving`` on
+     (``ServingBackend``: one persistent KV pool, prompts prefilled in
+     groups into their slots, rows evicted and slots backfilled at chunk
+     boundaries). On tiny-llama-study and tiny-gpt2-study with 8 slots and
+     chunks of 8 at the study's settings (t=0.7, the main path): K1's and
+     K2's f32 kernels must launch and their tensor-core kernels must not,
+     the record's ``serving`` counters must show all 48 prompts admitted
+     and completed, the record saved and read back, and K1 and K2 held
+     against their plain versions at every shape the pool gave them (the
+     f32 ``decode_fwd`` at the pool's [8, 768] rows); then greedy, served on
+     the card and on the CPU, each row equal to the other's and to phase
+     20's engine path on the card, or differing only where the CPU's top
+     two logits are within 1e-4 (as phase 20). On llama3-8b with int8
+     weights at full width and depth (random weights, byte tokenizer) with
+     16 slots and a prompt budget of 1,024: the t=0.7 sweep (the main path)
+     with K1 and K2 on their tensor-core kernels only and both K4 regimes
+     launched; its wall seconds beside phase 21's, decode ms per step,
+     prefill batches, mean occupancy, tokens/s, peak memory and launches
+     logged; every kernel call held against its plain version at the
+     pool's shapes; then the greedy gate, in a pool of the engine path's
+     own shape (``CONTROL_SERVING``: 16 rows of 960 slots, so that K2 plans
+     the same key splits): the greedy sweep against ``EngineBackend``
+     (``share_prefix=False``) on the same prompts, and a direct ``serve`` of
+     32 of them at budgets 8 + 8 * (i mod 5), so that slots are backfilled
+     in flight, each against its prompt's engine row cut to its budget. A
+     row may differ only where the engine's top two logits at the first
+     divergent token are within the kernels' bf16 allowance (``gate``) at
+     the top logit; each such row and gap is printed.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
@@ -168,7 +200,9 @@ path's launch counts are set to 0 just before it and read just after:
   22's two models together, "study"; phase 23's run, FULL_WIDTH; and its
   scoring of the calibration rows, FULL_WIDTH + "_scoring"), and phases
   22-23's new rows: those of a scoring forward's calls as
-  ``scoring_shapes``, the others as ``phase23_shapes``.
+  ``scoring_shapes``, the others as ``phase23_shapes``; and phase 24's
+  launches on the served t=0.7 sweeps as ``serving_launches`` ("study",
+  FULL_WIDTH) and its rows as ``serving_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -1462,35 +1496,75 @@ def sweep_kernel_rows(recs, torch, F, qm, path: str, f32: bool, held=None) -> di
 
 
 class SweepRecorder:
-    """Wraps a backend's ``generate`` (and its engine's) for one run: each
-    engine call's prompts and output tokens (``calls``, in order), and each
-    chunk's stats."""
+    """Wraps a backend's ``generate`` for one run: each call's prompts and
+    token rows, trailing pad cut (``calls``, in order), and each call's
+    stats (``chunks``). An engine backend's call must be one engine call
+    over its prompts; a ``ServingBackend``'s rows and stats are its
+    ``last_output``'s (the server's counters; prefill and decode seconds,
+    host clock, synced)."""
 
     def __init__(self, backend):
-        self.calls, self.chunks = [], []
-        outer, inner = backend.generate, backend.engine.generate
+        self.calls, self.chunks, engine_out = [], [], []
+        outer, pad = backend.generate, backend.engine.tokenizer.pad_id
+        served = hasattr(backend, "serve_totals")
+        if not served:
+            inner = backend.engine.generate
 
-        def engine_generate(prompts, *args, **kwargs):
-            out = inner(prompts, *args, **kwargs)
-            self.calls.append((list(prompts), [[int(t) for t in row] for row in out.tokens]))
-            return out
+            def engine_generate(prompts, *args, **kwargs):
+                out = inner(prompts, *args, **kwargs)
+                engine_out.append((list(prompts), out))
+                return out
+
+            backend.engine.generate = engine_generate
 
         def backend_generate(prompts, settings=None, seed=0, keys=None, prefix_ids=None):
-            n = len(self.calls)
+            engine_out.clear()
             texts = outer(prompts, settings, seed=seed, keys=keys, prefix_ids=prefix_ids)
-            if len(self.calls) != n + 1 or self.calls[-1][0] != list(prompts):
-                fail("a chunk was not one engine call over its prompts")
-            st = backend.last_stats
-            self.chunks.append({
-                "batch": st["batch"], "prompt_len": st["prompt_len"],
-                "prefix_len": st["prefix_len"], "prefix_s": st["prefix_s"],
-                "prefill_s": st["prefill_s"], "decode_steps": st["decode_steps"],
-                "decode_ms_per_step": st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
-                "decoded_tokens": st["decoded_tokens"]})
+            if served:
+                out = backend.last_output
+                st, sv = out.stats, out.stats["serving"]
+                self.chunks.append({
+                    "cache_slots": st["cache_slots"], "prefill_s": st["prefill_s"],
+                    "decode_s": st["decode_s"], "prefill_batches": sv["prefill_batches"],
+                    "decode_steps": sv["decode_steps"], "decoded_tokens": sv["decoded_tokens"],
+                    "avg_occupancy": sv["avg_occupancy"],
+                    "loop_iterations": sv["loop_iterations"],
+                    "decode_ms_per_step": st["decode_s"] * 1e3 / max(sv["decode_steps"], 1)})
+            else:
+                if len(engine_out) != 1 or engine_out[0][0] != list(prompts):
+                    fail("a chunk was not one engine call over its prompts")
+                out = engine_out.pop()[1]
+                st = backend.last_stats
+                self.chunks.append({
+                    "batch": st["batch"], "prompt_len": st["prompt_len"],
+                    "prefix_len": st["prefix_len"], "prefix_s": st["prefix_s"],
+                    "prefill_s": st["prefill_s"], "decode_steps": st["decode_steps"],
+                    "decode_ms_per_step": st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
+                    "decoded_tokens": st["decoded_tokens"]})
+            self.calls.append((list(prompts), [_strip(row, pad) for row in out.tokens]))
             return texts
 
-        backend.engine.generate = engine_generate
         backend.generate = backend_generate
+
+    def served_totals(self) -> dict:
+        """A ``ServingBackend`` run's seconds, steps and tokens, summed."""
+        decode_s = sum(c["decode_s"] for c in self.chunks)
+        steps = sum(c["decode_steps"] for c in self.chunks)
+        tokens = sum(c["decoded_tokens"] for c in self.chunks)
+        return {"prefill_s": sum(c["prefill_s"] for c in self.chunks), "decode_s": decode_s,
+                "decode_ms_per_step": decode_s * 1e3 / max(steps, 1),
+                "tokens_per_s": tokens / max(decode_s, 1e-9),
+                "prefill_batches": sum(c["prefill_batches"] for c in self.chunks),
+                "decode_steps": steps, "decoded_tokens": tokens}
+
+
+def _strip(row, pad: int) -> list:
+    """A token row without its trailing pad (a server's rows end at their
+    EOS or budget, an engine's run on in pad)."""
+    row = [int(t) for t in row]
+    while row and row[-1] == pad:
+        row.pop()
+    return row
 
 
 def metric_leaves(node, path="metrics"):
@@ -1549,44 +1623,49 @@ def greedy_config(base, name: str, tokens: int):
     return dataclasses.replace(base, model_settings=settings)
 
 
-def top2_gap(engine, prompt: str, tokens, torch) -> float:
+def top2_gap(engine, prompt: str, tokens, torch) -> tuple:
     """The gap between the two largest logits after ``prompt`` and
-    ``tokens``, teacher-forced through a plain forward of ``engine``."""
+    ``tokens``, teacher-forced through a plain forward of ``engine``, and
+    the largest logit."""
     ids = engine.tokenizer.encode(prompt) + list(tokens)
     logits, _ = engine.model(torch.tensor([ids], device=engine.device),
                              torch.arange(len(ids), device=engine.device)[None])
     top = torch.topk(logits[0, -1].float(), 2).values
-    return float(top[0] - top[1])
+    return float(top[0] - top[1]), float(top[0])
 
 
-def greedy_divergences(label: str, cpu, card, cpu_engine, torch) -> list:
-    """Every greedy engine call's tokens on the card against the CPU's
-    (``SweepRecorder``s), row by row. A row may differ only where the CPU's
-    top two logits at the first divergent token (or, where one row is a
-    prefix of the other, at the shorter's end) are within NEAR_TIE; returns
-    such rows by (call, row)."""
-    if [c[0] for c in cpu.calls] != [c[0] for c in card.calls]:
-        fail(f"{label} greedy: the card and the CPU decoded other prompts")
+def greedy_divergences(label: str, want, got, engine, torch, against: str = "the CPU",
+                       tie=lambda top: NEAR_TIE) -> list:
+    """Every greedy call's token rows in ``got`` against ``want``'s
+    (``SweepRecorder``s, or anything with their ``calls``), row by row. A
+    row may differ only where ``engine``'s top two logits at the first
+    divergent token (or, where one row is a prefix of the other, at the
+    shorter's end) are within ``tie`` of the larger (NEAR_TIE by default);
+    returns such rows by (call, row)."""
+    if [c[0] for c in want.calls] != [c[0] for c in got.calls]:
+        fail(f"{label} greedy: {against} and the run held against it decoded other prompts")
     differ = []
-    for ci, ((prompts, want_rows), (_, got_rows)) in enumerate(zip(cpu.calls, card.calls)):
-        for ri, (prompt, want, got) in enumerate(zip(prompts, want_rows, got_rows)):
-            if want == got:
+    for ci, ((prompts, want_rows), (_, got_rows)) in enumerate(zip(want.calls, got.calls)):
+        for ri, (prompt, w, g) in enumerate(zip(prompts, want_rows, got_rows)):
+            if w == g:
                 continue
-            t = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
-                     min(len(want), len(got)))
-            gap = top2_gap(cpu_engine, prompt, want[:t], torch)
-            differ.append({"call": ci, "row": ri, "token": t, "cpu_top2_gap": gap})
-            if gap >= NEAR_TIE:
-                fail(f"{label} greedy: call {ci} row {ri} differs from the CPU at token {t}, "
-                     f"where the CPU's top two logits are {gap:.3e} apart (more than "
-                     f"{NEAR_TIE})")
+            t = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b), min(len(w), len(g)))
+            gap, top = top2_gap(engine, prompt, w[:t], torch)
+            differ.append({"call": ci, "row": ri, "token": t, "top2_gap": gap, "top": top,
+                           "allowed": tie(top)})
+            if gap >= tie(top):
+                fail(f"{label} greedy: call {ci} row {ri} differs from {against} at token {t}, "
+                     f"where the top two logits are {gap:.3e} apart (more than "
+                     f"{tie(top):.3e})")
     return differ
 
 
 def study_sweep(torch, F, name: str, tmp: pathlib.Path):
-    """Phases 19-20 for one study checkpoint; returns its log row, the f32
-    K1 and K2 rows at the t=0.7 sweep's shapes, the t=0.7 record, and the
-    keys of the kernel calls it held."""
+    """Phases 19-20 for one study checkpoint; returns its log row (with,
+    under "greedy_card", the card's greedy record and engine calls, which
+    phase 24 reads and the log leaves out), the f32 K1 and K2 rows at the
+    t=0.7 sweep's shapes, the t=0.7 record, and the keys of the kernel
+    calls it held."""
     from fairness_llm_tpu_torch.config import Config
     from fairness_llm_tpu_torch.integrity.manifest import maybe_verify_manifest
     from fairness_llm_tpu_torch.models.tokenizer import HFTokenizer
@@ -1651,6 +1730,7 @@ def study_sweep(torch, F, name: str, tmp: pathlib.Path):
         sweeps[device] = (b, calls, r)
     (_, card_calls, card), (cpu_b, cpu_calls, cpu) = sweeps["cuda"], sweeps["cpu"]
     differ = greedy_divergences(name, cpu_calls, card_calls, cpu_b.engine, torch)
+    row["greedy_card"] = (card, card_calls)
     if not differ and (card["recommendations"] != cpu["recommendations"]
                        or card["neutral_recommendations"] != cpu["neutral_recommendations"]):
         fail(f"{name} greedy: equal tokens but other responses on the card and the CPU")
@@ -1670,9 +1750,10 @@ def phase1_path(torch, F, device_line: str) -> dict:
     full width of llama3-8b with int8 weights. Returns, for the two study
     sweeps together ("study") and the full-width one (FULL_WIDTH), each
     kernels-line entry's launches ("launches") and its rows at the sweep's
-    shapes ("rows"); each sweep's t=0.7 record ("records", by model), and
-    the keys of the kernel calls the three sweeps recorded and held
-    ("held")."""
+    shapes ("rows"); each sweep's t=0.7 record ("records", by model), the
+    keys of the kernel calls the three sweeps recorded and held ("held"),
+    each study model's greedy record and engine calls on the card
+    ("greedy_card") and the full-width sweep's wall seconds."""
     import tempfile
 
     from fairness_llm_tpu_torch.config import Config
@@ -1682,11 +1763,12 @@ def phase1_path(torch, F, device_line: str) -> dict:
     from fairness_llm_tpu_torch.pipeline.backends import backend_for
     from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
 
-    study_launches, study_rows, records, held = {}, {}, {}, set()
+    study_launches, study_rows, records, held, greedy_card = {}, {}, {}, set(), {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in STUDY_MODELS:
             row, rows, records[name], keys = study_sweep(torch, F, name, pathlib.Path(tmp))
             held |= keys
+            greedy_card[name] = row.pop("greedy_card")
             for k, v in row["launches"].items():
                 study_launches[k] = study_launches.get(k, 0) + v
             for k, v in rows.items():
@@ -1743,7 +1825,8 @@ def phase1_path(torch, F, device_line: str) -> dict:
         torch.cuda.empty_cache()
     return {"launches": {"study": study_launches, FULL_WIDTH: launches},
             "rows": {"study": study_rows, FULL_WIDTH: full_rows},
-            "records": records, "held": held}
+            "records": records, "held": held, "greedy_card": greedy_card,
+            "full_width_wall_s": wall}
 
 
 # Phases 2 and 3 of the study (pipeline/phase2.run_phase2 and
@@ -2211,6 +2294,251 @@ def phase23_path(torch, F, device_line: str, records: dict, held) -> dict:
     return {"launches": launches, "rows": kernel_rows}
 
 
+# Phase 24: the continuous-batching server (serving/, ``--continuous``): the
+# phase-1 sweep through backend_for with Config.serving on, so every request
+# runs in a slot of one persistent KV pool, prefilled in groups and evicted
+# and backfilled at chunk boundaries. The study checkpoints run the
+# reference's default pool (8 slots, chunks of 8, the default budgets); the
+# full-width main path 16 slots with a 1,024-token prompt budget, above the
+# longest phase-1 prompt, so that no row is truncated.
+STUDY_SERVING = dict(enabled=True, num_slots=8, decode_chunk=8)
+FULL_WIDTH_SERVING = dict(enabled=True, num_slots=16, max_prompt_len=1024)
+# The full-width greedy gate serves from a pool of the engine path's own
+# shape: 16 rows (its batch) of 960 slots (its cache: the prompts' bucket of
+# 896 and 64 tokens). K2's key splits follow the batch and the cache length
+# (``decode_splits``), so at this shape both paths sum in one order and a
+# served row must equal the engine's token for token, but at the engine's
+# own near ties (the kernels' bf16 allowance, ``gate``, at its top logit).
+CONTROL_SERVING = dict(enabled=True, num_slots=16, max_prompt_len=896,
+                       max_new_tokens=MAX_TOKENS)
+# The direct serve in that pool: this many of the sweep's prompts, request i
+# with a budget of 8 + 8 * (i mod 5) tokens, so that rows leave at different
+# steps and the queue backfills their slots in flight.
+DIRECT_REQUESTS = 32
+
+
+def serving_record_check(rec, label: str, num_slots: int) -> dict:
+    """The sweep's record holds the server's counters: every prompt admitted
+    and completed in the pool."""
+    sv = rec["metadata"]["serving"]
+    if not sv or sv["num_slots"] != num_slots or sv["admitted"] != STUDY_PROMPTS \
+            or sv["completed"] != STUDY_PROMPTS or sv["failed"] or sv["expired"]:
+        fail(f"{label}: the record's serving counters are {sv}")
+    return sv
+
+
+def study_served(torch, F, name: str, tmp: pathlib.Path, engine_card) -> tuple:
+    """Phase 24 for one study checkpoint: the t=0.7 served sweep (the main
+    path, its kernel calls recorded and held), then greedy on the card and
+    on the CPU. Returns its log row and kernel rows."""
+    from fairness_llm_tpu_torch.config import Config, ServingConfig
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+    from fairness_llm_tpu_torch.serving import ServingBackend
+
+    cfg = Config(weights_dir=str(ROOT / "checkpoints"), data_dir=str(ROOT / "data" / "ml-1m"),
+                 results_dir=str(tmp / name / "served"),
+                 serving=ServingConfig(**STUDY_SERVING))
+    row = {"model": name, "serving": STUDY_SERVING}
+    zero_all(dec_mod, flash_mod, qm)
+    t0 = time.perf_counter()
+    backend = backend_for(name, cfg)
+    if not isinstance(backend, ServingBackend):
+        fail(f"{name}: backend_for gave {type(backend).__name__} with serving on")
+    served = SweepRecorder(backend)
+    with sweep_recorders(dec_mod, flash_mod, qm) as recs:
+        rec = run_phase1(cfg, name, backend=backend)
+    torch.cuda.synchronize()
+    row["wall_s"] = time.perf_counter() - t0
+    row["launches"] = phase1_counts(dec_mod, flash_mod, qm)
+    need_kernels(row["launches"], f"{name} served", f32=True)
+    row["parsed"] = check_record(rec, f"{name} served t=0.7")
+    row["record_serving"] = serving_record_check(rec, f"{name} served", STUDY_SERVING["num_slots"])
+    row["chunks"], row["totals"] = served.chunks, served.served_totals()
+    saved_record_check(cfg, rec, f"{name} served")
+    kernel_rows = sweep_kernel_rows(recs, torch, F, qm, "serving_study", f32=True)
+    del recs
+
+    # greedy, served on the card and on the CPU, against each other and
+    # against phase 20's engine path on the card
+    gcfg = greedy_config(dataclasses.replace(cfg, results_dir=str(tmp / name / "sgreedy")),
+                         name, MAX_TOKENS)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        b = backend_for(name, gcfg, device=device)
+        calls = SweepRecorder(b)
+        t0 = time.perf_counter()
+        r = run_phase1(gcfg, name, backend=b, save=False)
+        row[f"greedy_{device}_wall_s"] = time.perf_counter() - t0
+        serving_record_check(r, f"{name} served greedy {device}", STUDY_SERVING["num_slots"])
+        runs[device] = (b, calls, r)
+    (_, card_calls, card), (cpu_b, cpu_calls, cpu) = runs["cuda"], runs["cpu"]
+    engine_rec, engine_calls = engine_card
+    for key, label, calls, other in (
+            ("from_cpu", "the CPU served", cpu_calls, cpu),
+            ("from_engine", "the engine path on the card", engine_calls, engine_rec)):
+        differ = greedy_divergences(f"{name} served", calls, card_calls, cpu_b.engine, torch,
+                                    against=label)
+        row[f"greedy_rows_differing_{key}"] = differ
+        if not differ and (raw_responses(card) != raw_responses(other)
+                           or card["neutral_recommendations"] != other["neutral_recommendations"]):
+            fail(f"{name} served greedy: equal tokens but other responses than {label}")
+    return row, kernel_rows
+
+
+def raw_responses(rec) -> dict:
+    return {k: e["raw_response"] for k, e in rec["recommendations"].items()}
+
+
+def full_width_served(torch, F, tmp: pathlib.Path, engine_wall_s: float, device_line: str):
+    """Phase 24 at full width: llama3-8b with int8 weights, random from the
+    seed, byte tokenizer. The t=0.7 served sweep (the main path, its kernel
+    calls recorded and held), then the greedy gate in a pool of the engine
+    path's shape (CONTROL_SERVING): the served greedy sweep and a direct
+    serve of mixed budgets against the engine path; returns the main path's
+    launches and kernel rows."""
+    import types
+
+    from fairness_llm_tpu_torch.config import Config, ModelSettings, ServingConfig
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import EngineBackend, backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+    from fairness_llm_tpu_torch.serving import Request, ServingBackend
+
+    cfg = Config(weight_quant="int8", max_new_tokens=MAX_TOKENS,
+                 data_dir=str(ROOT / "data" / "ml-1m"), results_dir=str(tmp / "llama3-8b"),
+                 serving=ServingConfig(**FULL_WIDTH_SERVING))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend = backend_for(MODEL, cfg, allow_random=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    served = SweepRecorder(backend)
+    zero_all(dec_mod, flash_mod, qm)
+    t0 = time.perf_counter()
+    with sweep_recorders(dec_mod, flash_mod, qm) as recs, CardSampler() as card:
+        rec = run_phase1(cfg, MODEL, backend=backend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = phase1_counts(dec_mod, flash_mod, qm)
+    if backend.engine.config.weight_quant != "int8":
+        fail("the served full-width sweep did not serve int8 weights")
+    need_kernels(launches, "llama3-8b int8 served", f32=False)
+    for name in ("quant_matmul_gemv", "quant_matmul_gemm"):
+        if launches[name] <= 0:
+            fail(f"{name} ({KERNEL_FUNCTIONS[name]}) was not launched by the served sweep")
+    parsed = check_record(rec, "llama3-8b int8 served", want_non_empty=False)
+    sv = serving_record_check(rec, "llama3-8b int8 served", FULL_WIDTH_SERVING["num_slots"])
+    saved_record_check(cfg, rec, "llama3-8b int8 served")
+    sched = backend.scheduler_for(cfg.settings_for(MODEL))
+    row = {"model": MODEL, "weight_quant": "int8", "device": device_line,
+           "serving": FULL_WIDTH_SERVING, "cache_len": sched.cache_len,
+           "prompt_budget": sched.prompt_budget, "wall_s": wall,
+           "engine_path_wall_s_phase21": engine_wall_s, "engine_init_s": init_s,
+           **served.served_totals(), "avg_occupancy": sv["avg_occupancy"],
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "record_serving": sv, "chunks": served.chunks,
+           "parsed_vacuous_random_weights": parsed, "card": card.summary}
+    log(f"serving_full_width {json.dumps(row)}")
+    kernel_rows = sweep_kernel_rows(recs, torch, F, qm, "serving_full_width", f32=False)
+    engine = backend.engine
+    del recs, backend, sched
+    torch.cuda.empty_cache()
+
+    # the greedy gate: the served sweep in the engine path's shape against
+    # EngineBackend (no prefix, so share_prefix=False) on the same prompts
+    gcfg = greedy_config(dataclasses.replace(cfg, results_dir=str(tmp / "greedy")), MODEL,
+                         MAX_TOKENS)
+    greedy = gcfg.settings_for(MODEL)
+    control = ServingBackend(engine, ServingConfig(**CONTROL_SERVING), name=MODEL)
+    sched = control.scheduler_for(greedy)
+    gserved = SweepRecorder(control)
+    t0 = time.perf_counter()
+    run_phase1(gcfg, MODEL, backend=control, save=False)
+    gate_row = {"cache_len": sched.cache_len, "served_greedy_wall_s": time.perf_counter() - t0,
+                **gserved.served_totals()}
+    eb = EngineBackend(engine, name=MODEL)
+    ecalls = SweepRecorder(eb)
+    t0 = time.perf_counter()
+    for prompts, _ in gserved.calls:
+        eb.generate(prompts, greedy)
+        st = eb.last_stats
+        if (st["batch"], st["cache_slots"], st["prefix_len"]) != \
+                (sched.num_slots, sched.cache_len, 0):
+            fail(f"the engine path decoded {st['batch']} rows of {st['cache_slots']} slots "
+                 f"(prefix {st['prefix_len']}), not the control pool's {sched.num_slots} of "
+                 f"{sched.cache_len}")
+    gate_row["engine_greedy_wall_s"] = time.perf_counter() - t0
+
+    def tie(top):
+        return ATOL + RTOL * abs(top)
+
+    gate_row["sweep_rows"] = sum(len(c[0]) for c in gserved.calls)
+    gate_row["sweep_rows_differing"] = greedy_divergences(
+        "llama3-8b int8 served sweep", ecalls, gserved, engine, torch,
+        against="the engine path", tie=tie)
+
+    # the direct serve: mixed budgets through the same pool, backfilled in
+    # flight; request i's row must be its prompt's engine row cut to its
+    # budget (the engine's rows are causal, and decoded at the pool's shape)
+    prompts = [p for call in gserved.calls for p in call[0]][:DIRECT_REQUESTS]
+    engine_rows = [r for call in ecalls.calls for r in call[1]][:DIRECT_REQUESTS]
+    budgets = [8 + 8 * (i % 5) for i in range(len(prompts))]
+    reqs = [Request(prompt=p, settings=ModelSettings(temperature=0.0, max_tokens=b),
+                    id=f"d{i}") for i, (p, b) in enumerate(zip(prompts, budgets))]
+    t0 = time.perf_counter()
+    results = sched.serve(reqs)
+    direct = sched.last_stats
+    gate_row["direct_wall_s"] = time.perf_counter() - t0
+    gate_row["direct_stats"] = direct.as_dict()
+    if direct.completed != len(reqs) or direct.admitted != len(reqs) \
+            or direct.prefill_batches < 3 or not all(r.ok for r in results):
+        fail(f"the direct serve did not backfill the pool as planned: {direct.as_dict()}")
+    pad = engine.tokenizer.pad_id
+    want = types.SimpleNamespace(calls=[(prompts, [r[:b] for r, b in zip(engine_rows, budgets)])])
+    got = types.SimpleNamespace(calls=[(prompts, [_strip(r.tokens, pad) for r in results])])
+    gate_row["direct_rows"] = len(reqs)
+    gate_row["direct_rows_differing"] = greedy_divergences(
+        "llama3-8b int8 direct serve", want, got, engine, torch,
+        against="the engine path", tie=tie)
+    log(f"serving_full_width_gate {json.dumps(gate_row)}")
+    del control, sched, engine, eb
+    torch.cuda.empty_cache()
+    return launches, kernel_rows
+
+
+def serving_path(torch, F, device_line: str, sweep: dict) -> dict:
+    """Phase 24. Returns each kernels-line entry's launches on the served
+    t=0.7 sweeps (the study models together, "study"; FULL_WIDTH) and their
+    kernel rows, by entry."""
+    import gc
+    import tempfile
+
+    launches, rows = {"study": {}}, {}
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in STUDY_MODELS:
+            row, krows = study_served(torch, F, name, pathlib.Path(tmp),
+                                      sweep["greedy_card"][name])
+            for k, v in row["launches"].items():
+                launches["study"][k] = launches["study"].get(k, 0) + v
+            for k, v in krows.items():
+                rows.setdefault(k, []).extend(v)
+            log(f"serving_study {json.dumps({'device': device_line, **row})}")
+        gc.collect()
+        launches[FULL_WIDTH], full_rows = full_width_served(
+            torch, F, pathlib.Path(tmp), sweep["full_width_wall_s"], device_line)
+    for k, v in full_rows.items():
+        rows.setdefault(k, []).extend(v)
+    return {"launches": launches, "rows": rows}
+
+
 def main() -> int:
     try:
         import torch
@@ -2266,6 +2594,9 @@ def main() -> int:
     t0 = time.perf_counter()
     p23 = phase23_path(torch, F, device_line, sweep["records"], sweep["held"])
     log(f"phase23_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    served = serving_path(torch, F, device_line, sweep)
+    log(f"serving_path_s {time.perf_counter() - t0:.1f}")
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -2285,6 +2616,10 @@ def main() -> int:
             entry["scoring_shapes"] = [r for r in rows if r["scoring"]]
         if not all(r["scoring"] for r in rows):
             entry["phase23_shapes"] = [r for r in rows if not r["scoring"]]
+        entry["serving_launches"] = {path: counts[entry["name"]]
+                                     for path, counts in served["launches"].items()}
+        if entry["name"] in served["rows"]:
+            entry["serving_shapes"] = served["rows"][entry["name"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

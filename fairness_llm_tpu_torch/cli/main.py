@@ -8,8 +8,11 @@
 The flags keep the reference's meaning and checks. ``--device`` (default
 ``cuda``) is the port's counterpart of the reference's ``JAX_PLATFORMS``.
 Phase 1 also writes its text report; the reference's matplotlib figures
-are not ported (the CLI logs so). The continuous-batching server, device
-meshes and resilience flags raise ``NotImplementedError`` (ROADMAP A5).
+are not ported (the CLI logs so). ``--continuous`` serves engine backends
+through the continuous-batching scheduler (``--slots``, ``--fuse-steps``).
+The flags of the serving slices still to come (``--paged-kv``, ``--tp``,
+``--overload``, ``--replicas``, ``--autoscale``, ``--serving-journal``),
+device meshes and resilience raise ``NotImplementedError`` (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Dict
 
 from fairness_llm_tpu_torch.config import (
     Config,
+    ServingConfig,
     SpeculationConfig,
     create_directories,
     default_config,
@@ -90,21 +94,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device for engine backends (default cuda; cpu runs the "
                         "kernels' plain PyTorch versions)")
+    p.add_argument("--continuous", action="store_true",
+                   help="serve engine backends through the continuous-batching scheduler: "
+                        "a fixed KV slot pool, eviction and backfill from a bounded "
+                        "admission queue; greedy output equals the engine's for prompts "
+                        "within the serving budget")
+    p.add_argument("--slots", type=int, default=None,
+                   help="with --continuous: concurrent KV slots (decode-step batch rows)")
+    p.add_argument("--fuse-steps", type=int, default=None, metavar="K",
+                   help="with --continuous: decode chunks run per scheduler call before "
+                        "eviction and backfill (the tokens do not change); not with "
+                        "--speculate")
     # Not ported yet: refused, never ignored.
-    p.add_argument("--continuous", action="store_true", help="not ported yet (ROADMAP A5)")
-    p.add_argument("--mesh", default=None, help="not ported yet (ROADMAP A5)")
-    p.add_argument("--max-step-seconds", type=float, default=None,
-                   help="not ported yet (ROADMAP A5)")
+    for flag, kw in (("--paged-kv", dict(action="store_true")), ("--tp", dict(type=int)),
+                     ("--overload", dict(action="store_true")),
+                     ("--replicas", dict(type=int)), ("--autoscale", dict(action="store_true")),
+                     ("--serving-journal", dict(default=None)), ("--mesh", dict(default=None)),
+                     ("--max-step-seconds", dict(type=float))):
+        p.add_argument(flag, help="not ported yet (ROADMAP A5)", **kw)
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
+NOT_PORTED = ("--paged-kv", "--tp", "--overload", "--replicas", "--autoscale",
+              "--serving-journal", "--mesh", "--max-step-seconds")
+
+
 def config_from_args(args: argparse.Namespace) -> Config:
-    for flag, value in (("--continuous", args.continuous), ("--mesh", args.mesh),
-                        ("--max-step-seconds", args.max_step_seconds)):
-        if value:
+    for flag in NOT_PORTED:
+        value = getattr(args, flag[2:].replace("-", "_"))
+        if value is not None and value is not False:
             raise NotImplementedError(
-                f"{flag}: the continuous-batching server, device meshes and resilience "
+                f"{flag}: the paged KV cache, tensor-parallel serving, overload control, "
+                "the replica fleet, the serving journal, device meshes and resilience "
                 "are not ported yet (ROADMAP A5)")
     config = default_config()
     updates: Dict = {}
@@ -137,6 +159,23 @@ def config_from_args(args: argparse.Namespace) -> Config:
                 raise SystemExit("--ngram-max must be >= 1")
             spec_kwargs["ngram_max"] = args.ngram_max
         updates["speculation"] = SpeculationConfig(**spec_kwargs)
+    if args.continuous or args.slots is not None or args.fuse_steps is not None:
+        if not args.continuous:
+            raise SystemExit("--slots/--fuse-steps require --continuous")
+        serve_kwargs = {"enabled": True}
+        if args.slots is not None:
+            if args.slots < 1:
+                raise SystemExit("--slots must be >= 1")
+            serve_kwargs["num_slots"] = args.slots
+        if args.fuse_steps is not None:
+            if args.fuse_steps < 1:
+                raise SystemExit("--fuse-steps must be >= 1")
+            if args.fuse_steps > 1 and args.speculate:
+                raise SystemExit(
+                    "--fuse-steps cannot combine with --speculate: the speculative verify "
+                    "window is already multi-token")
+            serve_kwargs["fuse_steps"] = args.fuse_steps
+        updates["serving"] = ServingConfig(**serve_kwargs)
     if args.no_verify_manifests:
         updates["integrity"] = dataclasses.replace(config.integrity, verify_manifests=False)
     if updates:

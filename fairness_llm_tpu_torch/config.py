@@ -1,9 +1,10 @@
 """Configuration (counterpart of ``fairness_llm_tpu/config.py``):
 ``ModelSettings``, ``SpeculationConfig``, ``IntegrityConfig`` (manifest
 verification only) and ``Config`` with the fields the three phases read,
-``default_config`` with the reference's ``FAIRNESS_TPU_*`` overrides, and
-``create_directories``. The serving, fleet, mesh and telemetry sections wait
-for their slices."""
+``ServingConfig`` (the continuous-batching core's knobs), ``default_config``
+with the reference's ``FAIRNESS_TPU_*`` overrides, and
+``create_directories``. The fleet, mesh and telemetry sections wait for
+their slices."""
 
 from __future__ import annotations
 
@@ -33,6 +34,46 @@ class SpeculationConfig:
     enabled: bool = False
     ngram_max: int = 3  # longest suffix n-gram tried first (falls back to 1)
     draft_len: int = 8  # drafted tokens verified per step (k; step width k+1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Continuous-batching server knobs (``serving/``): a fixed pool of
+    ``num_slots`` KV slots, a row evicted the step it finishes, the freed
+    slot backfilled from a bounded admission queue. Greedy decode through
+    the server gives ``DecodeEngine.generate``'s tokens for prompts within
+    ``max_prompt_len``; longer prompts are left-truncated to it, with a
+    warning.
+
+    The paged KV cache (``paged_kv``, ``kv_block_size``, ``kv_blocks``) and
+    tensor-parallel serving (``tp``) are later slices: setting them raises
+    ``NotImplementedError``."""
+
+    enabled: bool = False
+    num_slots: int = 8  # concurrent KV slots = decode-step batch rows
+    queue_capacity: int = 128  # bounded admission queue (backpressure past this)
+    max_prompt_len: int = 512  # per-request prompt budget (left-truncated over)
+    max_new_tokens: int = 256  # hard per-request decode cap (requests clamp to it)
+    prefill_group: int = 8  # max admissions prefilled in one forward
+    # Decode steps per scheduler call: eviction and backfill happen at the
+    # end of decode_chunk x fuse_steps steps (or sooner, once every live row
+    # is done). The tokens are the same at any setting.
+    decode_chunk: int = 8
+    fuse_steps: int = 1
+    # Admission rate limit (RateLimiter.try_acquire at submit); None = none.
+    admission_per_minute: Optional[int] = None
+    paged_kv: bool = False
+    kv_block_size: int = 16
+    kv_blocks: Optional[int] = None
+    tp: int = 1
+
+    def __post_init__(self) -> None:
+        for name, default in (("paged_kv", False), ("kv_block_size", 16),
+                              ("kv_blocks", None), ("tp", 1)):
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"ServingConfig.{name}={getattr(self, name)!r}: the paged KV cache and "
+                    "tensor-parallel serving are not ported yet (ROADMAP A5)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +135,9 @@ class Config:
     # plain path).
     speculation: SpeculationConfig = dataclasses.field(default_factory=SpeculationConfig)
     integrity: IntegrityConfig = dataclasses.field(default_factory=IntegrityConfig)
+    # Continuous-batching serving (--continuous): backend_for returns a
+    # ServingBackend when enabled.
+    serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
 
     def settings_for(self, model_name: str) -> ModelSettings:
         for name, settings in self.model_settings:

@@ -106,6 +106,17 @@ def _cache_write(buf: torch.Tensor, upd: torch.Tensor, index: int,
     buf[rows, slots] = upd.to(buf.dtype)
 
 
+def check_write_offsets(offsets, S: int, max_len: int) -> None:
+    """Raise unless writing ``S`` tokens at each of ``offsets`` (host
+    integers: a list or a numpy array) stays inside a cache of ``max_len``
+    slots. The forward checks its own uniform ``cache.index``; the loops
+    that pass ``write_offsets`` call this on their host copy first."""
+    lo, hi = int(min(offsets)), int(max(offsets))
+    if lo < 0 or S > max_len - hi:
+        raise ValueError(f"writing {S} tokens at slots {lo}..{hi} into a "
+                         f"cache of max_len {max_len}")
+
+
 @dataclasses.dataclass
 class KVCache:
     """Decode state shared across layers: ``index`` is the uniform next-write
@@ -496,8 +507,9 @@ class Transformer(nn.Module):
       - no cache: ``logits, None = model(tokens, positions, token_valid)``
       - prefill/decode: ``logits, cache = model(..., cache=cache)``, where
         ``tokens`` fill cache slots ``[cache.index, cache.index + S)``, or
-        ``[off[b], off[b] + S)`` of row b with ``write_offsets=off``; the
-        cache is updated in place and returned.
+        ``[off[b], off[b] + S)`` of row b with ``write_offsets=off`` (whose
+        bounds the caller checks: ``check_write_offsets``); the cache is
+        updated in place and returned.
     Logits are float32.
     """
 
@@ -544,13 +556,11 @@ class Transformer(nn.Module):
             x = x + self.pos_embedding[positions.clamp(0, cfg.max_seq_len - 1)].to(dtype)
 
         if cache is not None:
+            # Per-row offsets are checked by the caller, which holds them on
+            # the host (check_write_offsets): reading them back here would
+            # sync the host with the device on every step.
             if write_offsets is None:
-                lo = hi = cache.index
-            else:
-                lo, hi = (int(x) for x in torch.aminmax(write_offsets))
-            if lo < 0 or S > cache.max_len - hi:
-                raise ValueError(f"writing {S} tokens at slots {lo}..{hi} into a "
-                                 f"cache of max_len {cache.max_len}")
+                check_write_offsets([cache.index], S, cache.max_len)
             _cache_write(cache.key_valid, token_valid, cache.index, write_offsets)
             _cache_write(cache.key_positions, positions, cache.index, write_offsets)
             key_valid, key_positions = cache.key_valid, cache.key_positions

@@ -6,11 +6,12 @@
 - ``SimulatedRecommender``: a seeded, instant fake model with a
   demographic-bias knob, for tests and ``--model simulated`` runs.
 - ``backend_for``: a model name to its backend, loading a checkpoint from
-  ``Config.weights_dir`` when there is one.
+  ``Config.weights_dir`` when there is one; with ``Config.serving.enabled``
+  an engine is served through the continuous-batching ``ServingBackend``
+  (``serving/backend.py``).
 
-The reference's continuous-batching server, device meshes and resilience
-(watchdog, breakers) are not ported yet (ROADMAP A5); the CLI refuses their
-flags.
+The reference's device meshes and resilience (watchdog, breakers) are not
+ported yet (ROADMAP A5); the CLI refuses their flags.
 """
 
 from __future__ import annotations
@@ -98,9 +99,13 @@ class EngineBackend:
 def shared_prefix_ids(backend, prompts: Sequence[str]) -> Optional[List[int]]:
     """Sweep-wide shared prefix for reproducible prefix-cached decode: the
     longest common token prefix over ALL the sweep's prompts, floored to a
-    multiple of 64. None for non-engine backends or short prefixes."""
+    multiple of 64. None for non-engine backends, a backend that does not
+    share prefixes (``use_shared_prefix`` False), or short prefixes."""
     engine = getattr(backend, "engine", None)
     if engine is None or len(prompts) < 2:
+        return None
+    if not getattr(backend, "use_shared_prefix", True):
+        # ServingBackend decodes rows on their own and ignores prefix_ids
         return None
     rows = [engine.tokenizer.encode(p) for p in prompts]
     common = (_token_lcp(rows) // 64) * 64
@@ -274,7 +279,9 @@ def backend_for(
     Without weights the call fails, unless ``allow_random`` asks for random
     weights from ``config.random_seed`` (smoke runs), which decode with the
     byte tokenizer. ``config.weight_quant`` overrides the model's weight
-    mode either way.
+    mode either way. With ``config.serving.enabled`` the engine is served
+    through a ``ServingBackend`` (speculation, which the serving loop does
+    not compose with, is then ignored, as the reference ignores it).
 
     The engine runs the port's attention kernels (``use_flash_attention``
     and ``use_decode_attention_kernel`` on): on the card they are the hand
@@ -314,6 +321,10 @@ def backend_for(
         )
     engine = DecodeEngine(model_config, params=params, tokenizer_path=tokenizer_path,
                           seed=config.random_seed, device=device)
+    if config.serving.enabled:
+        from fairness_llm_tpu_torch.serving.backend import ServingBackend
+
+        return ServingBackend(engine, config.serving, name=model_name)
     spec = config.speculation
     return EngineBackend(engine, name=model_name,
                          speculation=spec if spec.enabled else None)

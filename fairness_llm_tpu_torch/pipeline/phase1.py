@@ -14,8 +14,9 @@ decode.
 Not ported: the reference's failure containment around ``generate`` (a
 failed decode raises out of ``run_phase1`` here; containment comes with the
 resilience work, ROADMAP A5), and its telemetry (heartbeat, fairness
-monitor, registry; ROADMAP A7), so the record's ``fairness`` and
-``serving`` are None.
+monitor, registry; ROADMAP A7), so the record's ``fairness`` is None. Its
+``serving`` holds a ``ServingBackend``'s counters for the sweep
+(``--continuous``), None for other backends.
 """
 
 from __future__ import annotations
@@ -192,6 +193,8 @@ def run_phase1(
     if hasattr(backend, "spec_totals"):
         # a reused backend may carry counters of earlier runs
         backend.spec_totals = None
+    if hasattr(backend, "serve_totals"):
+        backend.serve_totals = None  # the same for the serving counters
     done = R.load_latest_checkpoint(config.results_dir, "phase1") if resume else {}
     recs = decode_sweep(
         backend,
@@ -246,7 +249,11 @@ def run_phase1(
                 backend.spec_totals.as_dict()
                 if getattr(backend, "spec_totals", None) is not None else None
             ),
-            "serving": None,
+            # the continuous-batching counters of the whole sweep
+            "serving": (
+                backend.serve_totals.as_dict()
+                if getattr(backend, "serve_totals", None) is not None else None
+            ),
             "fairness": None,
             "prompt_divergence": divergence,
         },

@@ -389,6 +389,8 @@ def run_phase2(
         if hasattr(backend, "spec_totals"):
             # a reused backend may carry counters of earlier phases
             backend.spec_totals = None
+        if hasattr(backend, "serve_totals"):
+            backend.serve_totals = None  # the same for the serving counters
         model_results[name] = evaluate_model(
             backend, items, num_comparisons, settings,
             seed=config.random_seed, num_queries=num_queries,
@@ -396,6 +398,9 @@ def run_phase2(
         spec_totals = getattr(backend, "spec_totals", None)
         if spec_totals is not None:
             model_results[name]["speculation"] = spec_totals.as_dict()
+        serve_totals = getattr(backend, "serve_totals", None)
+        if serve_totals is not None:
+            model_results[name]["serving"] = serve_totals.as_dict()
 
     comparison = compare_models_and_methods(model_results)
     results = {

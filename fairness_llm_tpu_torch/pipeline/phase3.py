@@ -316,6 +316,10 @@ def run_phase3(
         catalog = sorted({t for lst in original.values() for t in lst}) or ["placeholder"]
         backend = backend_for(model_name, config, catalog=catalog, device=device)
     settings = config.settings_for(model_name) if model_name != "simulated" else None
+    if hasattr(backend, "serve_totals"):
+        # A reused ServingBackend then holds this phase's serving counters;
+        # the record leaves them out, as the reference's does.
+        backend.serve_totals = None
 
     mitigated = apply_facter(
         profiles, backend, config, strategy, variant, settings,

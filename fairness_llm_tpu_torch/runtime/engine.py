@@ -291,7 +291,8 @@ class DecodeEngine:
                 emitted=int(out_len[:n].sum()), draft_len=spec.draft_len,
                 ngram_max=spec.ngram_max)
         else:
-            toks, steps_run, finite = loop(cache, last_logits, seeds, live, shared_layers)
+            out = loop(cache, last_logits, seeds, live, shared_layers)
+            toks, steps_run, finite = out.toks, out.steps, out.finite
         self._sync()
         t2 = time.perf_counter()
         out = toks[:n]

@@ -1,23 +1,30 @@
-"""The engine's decode programs as plain functions (counterpart of
-``fairness_llm_tpu/runtime/stepbuilder.py``: ``make_batch_entry``,
-``make_greedy_loop``, ``build_engine_decode``, ``build_spec_decode`` and
-``build_prefix``).
+"""The engine's and the server's decode programs as plain functions
+(counterpart of ``fairness_llm_tpu/runtime/stepbuilder.py``:
+``make_batch_entry``, ``make_greedy_loop``, ``build_engine_decode``,
+``build_spec_decode``, ``build_prefix``, and the serving programs
+``build_serve_step`` and ``build_serve_prefill``, non-paged).
 
 PyTorch runs eagerly, so the reference's compiled ``while_loop`` becomes a
 Python loop that stops once every live row is done. Each step reads a few
 bytes back to the host to decide that: the new tokens of the plain loop
 (which also advance each row's ``(row_seed, emitted)`` sampling stream), or
-the accepted counts of the speculative loop.
+the accepted counts of the speculative loop. Both hold their per-row write
+offsets on the host and check them there (``check_write_offsets``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from fairness_llm_tpu_torch.models.transformer import _dequantize_kv, dtype_of, init_cache
+from fairness_llm_tpu_torch.models.transformer import (
+    _dequantize_kv,
+    check_write_offsets,
+    dtype_of,
+    init_cache,
+)
 from fairness_llm_tpu_torch.runtime.sampling import (
     SamplerSettings,
     greedy_accept_length,
@@ -50,30 +57,48 @@ def make_batch_entry(cfg, model, *, batch: int, cache_len: int, prefix_len: int 
     return entry
 
 
+class LoopOut(NamedTuple):
+    """What a decode loop returns."""
+
+    toks: np.ndarray  # [batch, steps] int32, pad where a row emitted nothing
+    steps: int  # steps run
+    finite: bool  # every logit a live row sampled from was finite
+    emitted: np.ndarray  # [batch] tokens emitted per row, emitted0 included
+    row_steps: int  # live rows summed over the steps run
+    logits: torch.Tensor  # [batch, V] the carried logits after the last step
+
+
 def make_greedy_loop(model, sample, pad_id: int, eos_id: int, *, batch: int,
                      steps: int, prefix_len: int = 0, greedy: bool = True):
-    """The decode loop. Per iteration: sample from the carried logits with
-    the row's own ``(row_seed, emitted)`` stream, record the token, forward
-    one token under the row's live mask, carry the new logits, advance
-    ``emitted``/``done`` (EOS or the cap of ``steps``). Stops when every live
-    row is done.
+    """The decode loop of the engine and of the serve step. Per iteration:
+    sample from the carried logits with the row's own ``(row_seed,
+    emitted)`` stream, record the token, forward one token under the row's
+    live mask, carry the new logits, advance ``emitted``/``done`` (EOS or
+    the row's cap). Stops when every live row is done or after ``steps``.
 
-    Returns ``loop(cache, prev_logits, row_seeds, live0, shared_layers) ->
-    (toks [batch, steps] int32 numpy, steps_run, logits_finite)``.
-    ``logits_finite`` says whether every logit a live row sampled from was
-    finite."""
+    Returns ``loop(cache, prev_logits, row_seeds, live0, shared_layers,
+    emitted0=None, base=None, caps=None) -> LoopOut``; ``emitted0``
+    (default 0), ``base`` and ``caps`` (default ``steps``) are per-row numpy
+    arrays. With ``base`` row b writes its token at cache slot ``base[b] +
+    emitted[b]`` (the serving slot layout), the offsets checked on the host
+    before each forward, and a row that is done writes an invalid key at
+    its next offset, held inside the cache; without it the cache writes at
+    its own index (the engine layout)."""
     B, T = batch, steps
 
     def loop(cache, prev_logits, row_seeds: Sequence[int], live0: np.ndarray,
-             shared_layers: SharedLayers):
+             shared_layers: SharedLayers, emitted0: Optional[np.ndarray] = None,
+             base: Optional[np.ndarray] = None, caps: Optional[np.ndarray] = None) -> LoopOut:
         dev = prev_logits.device
         toks = np.full((B, T), pad_id, np.int32)
         done = ~live0
-        emitted = np.zeros(B, np.int64)
+        emitted = (np.zeros(B, np.int64) if emitted0 is None
+                   else np.asarray(emitted0, np.int64).copy())
+        caps = np.full(B, T, np.int64) if caps is None else np.asarray(caps, np.int64)
         gens: List[torch.Generator] = [] if greedy else [
             torch.Generator(device=dev) for _ in range(B)]
         finite = _live_finite(prev_logits, torch.from_numpy(live0).to(dev))
-        t = 0
+        t = row_steps = 0
         while t < T and not done.all():
             live = ~done
             live_dev = torch.from_numpy(live).to(dev)
@@ -82,16 +107,23 @@ def make_greedy_loop(model, sample, pad_id: int, eos_id: int, *, batch: int,
             tok = sample(prev_logits, gumbel)
             tok = torch.where(live_dev, tok, torch.full_like(tok, pad_id))
             pos = prefix_len + cache.lengths[:, None]
+            kw = {}
+            if base is not None:
+                off = base + emitted
+                off = np.where(live, off, np.minimum(off, cache.max_len - 1))
+                check_write_offsets(off, 1, cache.max_len)
+                kw["write_offsets"] = torch.from_numpy(off).to(dev)
             logits, cache = model(tok[:, None], pos, live_dev[:, None], cache,
-                                  shared_layers=shared_layers)
+                                  shared_layers=shared_layers, **kw)
             prev_logits = torch.where(live_dev[:, None], logits[:, -1, :], prev_logits)
             finite = finite & _live_finite(logits[:, -1], live_dev)
             tok_host = tok.cpu().numpy()
             toks[:, t] = tok_host
+            row_steps += int(live.sum())
             emitted += live
-            done = done | (tok_host == eos_id) | (emitted >= T)
+            done = done | (tok_host == eos_id) | (emitted >= caps)
             t += 1
-        return toks, t, bool(finite)
+        return LoopOut(toks, t, bool(finite), emitted, row_steps, prev_logits)
 
     return loop
 
@@ -174,7 +206,9 @@ def build_spec_decode(cfg, model, pad_id: int, eos_id: int, *, batch: int,
             inp = torch.cat([t0[:, None], drafts], dim=1)  # [B, S]
 
             # Verify all S positions in one forward at per-row slots.
-            off = torch.from_numpy(np.minimum(prompt_len + out_len, cache_len - S)).to(dev)
+            off_host = np.minimum(prompt_len + out_len, cache_len - S)
+            check_write_offsets(off_host, S, cache.max_len)
+            off = torch.from_numpy(off_host).to(dev)
             lengths0 = cache.lengths.clone()
             pos = prefix_len + lengths0[:, None] + step_iota[None, :]
             logits, cache = model(inp, pos, live_dev[:, None].expand(B, S), cache,
@@ -230,5 +264,71 @@ def build_prefix(cfg, model, *, prefix_len: int):
                      _dequantize_kv(layer.v, layer.v_scale, dtype)[0])
                     for layer in cache.layers]
         return [(layer.k[0], layer.v[0]) for layer in cache.layers]
+
+    return run
+
+
+def build_serve_step(model, sampler: SamplerSettings, pad_id: int, eos_id: int, *,
+                     num_slots: int, chunk: int, fuse: int = 1):
+    """The serving decode step over the slot pool: the decode loop with
+    per-row write offsets (``base + emitted``), per-row caps and the slots'
+    own sampling streams, for up to ``chunk * fuse`` steps (it stops sooner
+    once every live row is done, so the tokens do not depend on ``fuse``).
+
+    Released slots are invalidated at entry: rows in the ``reset`` mask lose
+    their ``key_valid`` and ``lengths`` before any attention reads them.
+
+    Returns ``run(cache, prev_logits, row_seeds, emitted0, base, caps,
+    live0, reset) -> LoopOut``; the cache is updated in place, the carried
+    logits come back in ``LoopOut.logits``."""
+    loop = make_greedy_loop(model, make_sampler(sampler), pad_id, eos_id, batch=num_slots,
+                            steps=chunk * fuse, greedy=sampler.greedy)
+
+    def run(cache, prev_logits, row_seeds, emitted0: np.ndarray, base: np.ndarray,
+            caps: np.ndarray, live0: np.ndarray, reset: np.ndarray) -> LoopOut:
+        if reset.any():
+            idx = torch.from_numpy(np.flatnonzero(reset)).to(cache.lengths.device)
+            cache.key_valid[idx] = False
+            cache.lengths[idx] = 0
+        return loop(cache, prev_logits, row_seeds, live0, None, emitted0=emitted0,
+                    base=base, caps=caps)
+
+    return run
+
+
+def build_serve_prefill(cfg, model, *, nb: int, P: int):
+    """``[nb, P]`` prompt prefill with its rows scattered into the pool.
+
+    Numerically the engine's batch entry: left-padded tokens, positions from
+    the valid cumsum, ``last_only`` logits, into a fresh ``[nb, P]`` cache.
+    The first ``len(slots)`` rows are the real admissions: their k/v (and
+    int8 scales), ``key_valid``, ``key_positions``, ``lengths`` and last
+    logits are written into the pool's cache and carried logits at
+    ``slots``, and their slots ``[P, cache_len)`` are invalidated, so a
+    recycled slot never shows its previous tenant's keys. The batch-bucket
+    pad rows after them are never written anywhere.
+
+    Returns ``run(cache, prev_logits, tokens, valid, slots)``, which updates
+    ``cache`` and ``prev_logits`` in place."""
+
+    def run(cache, prev_logits, tokens, valid, slots: Sequence[int]) -> None:
+        dev = tokens.device
+        positions = (torch.cumsum(valid.long(), dim=1) - 1).clamp_min(0)
+        small = init_cache(cfg, nb, P, device=dev)
+        logits, small = model(tokens, positions, valid, small, left_padded=True,
+                              last_only=True)
+        n = len(slots)
+        idx = torch.tensor(list(slots), dtype=torch.long, device=dev)
+        for big, sm in zip(cache.layers, small.layers):
+            big.k[idx, :P] = sm.k[:n]
+            big.v[idx, :P] = sm.v[:n]
+            if big.k_scale is not None:
+                big.k_scale[idx, :P] = sm.k_scale[:n]
+                big.v_scale[idx, :P] = sm.v_scale[:n]
+        cache.key_valid[idx, :P] = small.key_valid[:n]
+        cache.key_valid[idx, P:] = False
+        cache.key_positions[idx, :P] = small.key_positions[:n]
+        cache.lengths[idx] = small.lengths[:n]
+        prev_logits[idx] = logits[:n, -1]
 
     return run

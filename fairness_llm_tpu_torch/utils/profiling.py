@@ -1,6 +1,7 @@
-"""Decode counters (counterpart of ``SpeculationStats`` in
-``fairness_llm_tpu/utils/profiling.py``; the reference's ``publish`` to the
-telemetry registry waits for the port's telemetry slice)."""
+"""Decode and serving counters (counterpart of ``SpeculationStats`` and
+``ServingStats`` in ``fairness_llm_tpu/utils/profiling.py``; the
+reference's ``publish`` to the telemetry registry waits for the port's
+telemetry slice)."""
 
 from __future__ import annotations
 
@@ -63,3 +64,76 @@ class SpeculationStats:
             "draft_len": self.draft_len,
             "ngram_max": self.ngram_max,
         }
+
+
+@dataclasses.dataclass
+class ServingStats:
+    """Continuous-batching counters for one ``ContinuousScheduler`` drain,
+    or a sweep (``merge``). ``ServingBackend.serve_totals`` merges them; the
+    phase records hold ``as_dict()`` under ``serving``.
+
+    - ``admitted``: requests admitted into KV slots;
+    - ``completed`` / ``failed`` / ``expired``: terminal outcomes
+      (``expired``: the deadline passed first);
+    - ``preempted``, ``shed``, ``requeued``: kept for the record's shape;
+      the drain, overload and fault containment that count them are later
+      slices, so they stay 0 here;
+    - ``rejected``: submissions refused at the queue (capacity or rate);
+    - ``prefill_batches`` / ``prefill_tokens``: prefill forwards and the
+      real prompt tokens they processed;
+    - ``decode_steps`` / ``decoded_tokens``: decode-step forwards and the
+      real tokens emitted (tokens per step at most ``num_slots``);
+    - ``occupancy_sum``: live rows summed over decode steps (mean occupancy
+      = occupancy_sum / decode_steps);
+    - ``queue_depth_sum`` / ``queue_depth_max`` / ``loop_iterations``: the
+      admission queue's depth over the scheduler loop.
+    """
+
+    num_slots: int = 0
+    admitted: int = 0
+    completed: int = 0
+    failed: int = 0
+    expired: int = 0
+    preempted: int = 0
+    shed: int = 0
+    rejected: int = 0
+    requeued: int = 0
+    prefill_batches: int = 0
+    prefill_tokens: int = 0
+    decode_steps: int = 0
+    decoded_tokens: int = 0
+    occupancy_sum: int = 0
+    queue_depth_sum: int = 0
+    queue_depth_max: int = 0
+    loop_iterations: int = 0
+
+    @property
+    def tokens_per_step(self) -> float:
+        return self.decoded_tokens / self.decode_steps if self.decode_steps else 0.0
+
+    @property
+    def avg_occupancy(self) -> float:
+        return self.occupancy_sum / self.decode_steps if self.decode_steps else 0.0
+
+    @property
+    def avg_queue_depth(self) -> float:
+        return self.queue_depth_sum / self.loop_iterations if self.loop_iterations else 0.0
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServingStats":
+        """Inverse of ``as_dict``; the derived keys are dropped."""
+        return cls(**{k: v for k, v in d.items() if k in cls.__dataclass_fields__})
+
+    def merge(self, other: "ServingStats") -> "ServingStats":
+        summed = {f.name: getattr(self, f.name) + getattr(other, f.name)
+                  for f in dataclasses.fields(self)}
+        summed["num_slots"] = other.num_slots or self.num_slots
+        summed["queue_depth_max"] = max(self.queue_depth_max, other.queue_depth_max)
+        return ServingStats(**summed)
+
+    def as_dict(self) -> dict:
+        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        out["tokens_per_step"] = round(self.tokens_per_step, 3)
+        out["avg_occupancy"] = round(self.avg_occupancy, 3)
+        out["avg_queue_depth"] = round(self.avg_queue_depth, 3)
+        return out

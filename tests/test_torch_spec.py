@@ -317,15 +317,32 @@ def test_verify_window_logits_match_flax(decode_kernel):
 
 
 def test_write_offsets_past_the_cache_raise():
+    """Per-row offsets are checked on the host by the loops that hold them
+    (``check_write_offsets``), not read back by the forward: the check
+    refuses a window past the cache, and the speculative loop, handed a
+    cache too short for its first verify window, raises before any write."""
+    from fairness_llm_tpu_torch.runtime.stepbuilder import build_spec_decode
+
     tcfg = tconfigs.get_model_config(NAME)
     model = build_model(tcfg, params_from_jax(_flax_params(), tcfg), torch.device("cpu"),
                         torch.float32)
+    with pytest.raises(ValueError, match="max_len"):
+        ttr.check_write_offsets(np.array([2, 7]), 4, 10)
+    with pytest.raises(ValueError, match="max_len"):
+        ttr.check_write_offsets(np.array([-1, 2]), 4, 10)
+    ttr.check_write_offsets(np.array([2, 6]), 4, 10)  # fits
     cache = ttr.init_cache(tcfg, 2, 10)
     tok = torch.ones(2, 4, dtype=torch.long)
     pos = torch.arange(4)[None].expand(2, -1)
-    with pytest.raises(ValueError, match="max_len"):
-        model(tok, pos, cache=cache, write_offsets=torch.tensor([2, 7]))
     model(tok, pos, cache=cache, write_offsets=torch.tensor([2, 6]))  # fits
+
+    entry, loop = build_spec_decode(tcfg, model, 0, 1, batch=2, prompt_len=4, max_new=4,
+                                    prefix_len=0, ngram_max=2, draft_len=2)
+    valid = torch.ones(2, 4, dtype=torch.bool)
+    last, _ = entry(tok, valid, None)
+    short = ttr.init_cache(tcfg, 2, 6)  # the first window needs slots 4..6
+    with pytest.raises(ValueError, match="max_len 6"):
+        loop(short, last, tok, valid, np.ones(2, bool), None, torch.zeros(0, dtype=torch.long))
 
 
 # ---------------------------------------------------------------------------
