@@ -23,7 +23,8 @@ with int8 weights. Last it runs phases 2 and 3 of the study
 (``pipeline/phase2.run_phase2``, ``pipeline/phase3.run_phase3``) on the
 same models, with their teacher-forced scoring forward, and the phase-1
 sweep once more through the continuous-batching server
-(``serving/ContinuousScheduler`` behind ``backend_for``).
+(``serving/ContinuousScheduler`` behind ``backend_for``), then through its
+paged KV cache with prefix reuse, and the CLI's telemetry export.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -191,6 +192,39 @@ path's launch counts are set to 0 just before it and read just after:
      row may differ only where the engine's top two logits at the first
      divergent token are within the kernels' bf16 allowance (``gate``) at
      the top logit; each such row and gap is printed.
+  the paged KV cache (``serving/paged.py``, ``ServingConfig.paged_kv``,
+  ``--paged-kv``), after phase 24:
+ 25. the phase-1 sweep through ``backend_for`` with the paged KV cache on
+     (blocks of 16 tokens; the slots' block tables into one arena, each
+     prompt's cached prefix matched and only its suffix prefilled; the
+     suffix prefill attends densely, so K1 and K3 must not launch). On
+     tiny-llama-study and tiny-gpt2-study in phase 24's pool at t=0.7 (the
+     main path): K2's f32 kernel must launch and its tensor-core kernel
+     must not, all 48 prompts admitted and completed, the registry's
+     ``prefix_cache_hit_ratio`` above 0.5; then greedy on the card and on
+     the CPU, each row equal to the other's, to phase 24's served rows and
+     to phase 20's engine path, or differing only where the CPU's top two
+     logits are within 1e-4. On llama3-8b with int8 weights (phase 24's
+     engine; 16 slots, a prompt budget of 1,024 and a cap of 128, so 72
+     blocks a slot and 2,304 in the arena): the t=0.7 sweep, K2 only on
+     decode_split_tc and both K4 regimes launched, logged beside phase
+     24's run and phase 21's engine path (prefill seconds a chunk and each
+     prefill group, wall, decode ms per step, hit ratio, matched tokens,
+     evictions, arena and peak memory, and the gather and scatter timed at
+     the pool's shape against a decode chunk); every kernel call no earlier
+     phase held, held against its plain version; then greedy against phase
+     24's greedy served rows: in bfloat16 reported (each parting row with
+     the non-paged path's own top-two gap, replayed in a pool of its shape,
+     and the float32 function's pick between the two tokens), and the same
+     sweeps over the same weights in float32 gated: a row may part only
+     where the non-paged path's own top two logits, and the paged token,
+     are within the float32 allowance. Then a direct serve of 16 of the
+     prompts at 32 tokens over an int8 KV cache, paged and not: in
+     bfloat16 (K2q on decode_split_tc over the gathered view; its calls
+     held; the parting rows reported) and in float32 (gated as above).
+     Last the CLI's ``--continuous --paged-kv --telemetry-dir`` run on
+     tiny-llama-study: its snapshot must pass ``validate_snapshot`` and
+     hold the paged gauges, its ``trace.json`` ``validate_chrome_trace``.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
@@ -202,7 +236,10 @@ path's launch counts are set to 0 just before it and read just after:
   22-23's new rows: those of a scoring forward's calls as
   ``scoring_shapes``, the others as ``phase23_shapes``; and phase 24's
   launches on the served t=0.7 sweeps as ``serving_launches`` ("study",
-  FULL_WIDTH) and its rows as ``serving_shapes``.
+  FULL_WIDTH) and its rows as ``serving_shapes``; and phase 25's launches
+  on the paged t=0.7 sweeps and the int8-KV serve as ``paged_launches``
+  ("study", FULL_WIDTH, FULL_WIDTH + "_kv_int8") and its rows as
+  ``paged_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -2330,7 +2367,9 @@ def serving_record_check(rec, label: str, num_slots: int) -> dict:
 def study_served(torch, F, name: str, tmp: pathlib.Path, engine_card) -> tuple:
     """Phase 24 for one study checkpoint: the t=0.7 served sweep (the main
     path, its kernel calls recorded and held), then greedy on the card and
-    on the CPU. Returns its log row and kernel rows."""
+    on the CPU. Returns its log row, kernel rows, the keys of the kernel
+    calls it held, and the card's greedy served calls (phase 25 reads
+    them)."""
     from fairness_llm_tpu_torch.config import Config, ServingConfig
     from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
     from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
@@ -2360,6 +2399,7 @@ def study_served(torch, F, name: str, tmp: pathlib.Path, engine_card) -> tuple:
     row["chunks"], row["totals"] = served.chunks, served.served_totals()
     saved_record_check(cfg, rec, f"{name} served")
     kernel_rows = sweep_kernel_rows(recs, torch, F, qm, "serving_study", f32=True)
+    held = {key for r in recs.values() for key in r.calls}
     del recs
 
     # greedy, served on the card and on the CPU, against each other and
@@ -2386,7 +2426,7 @@ def study_served(torch, F, name: str, tmp: pathlib.Path, engine_card) -> tuple:
         if not differ and (raw_responses(card) != raw_responses(other)
                            or card["neutral_recommendations"] != other["neutral_recommendations"]):
             fail(f"{name} served greedy: equal tokens but other responses than {label}")
-    return row, kernel_rows
+    return row, kernel_rows, held, card_calls
 
 
 def raw_responses(rec) -> dict:
@@ -2398,8 +2438,10 @@ def full_width_served(torch, F, tmp: pathlib.Path, engine_wall_s: float, device_
     seed, byte tokenizer. The t=0.7 served sweep (the main path, its kernel
     calls recorded and held), then the greedy gate in a pool of the engine
     path's shape (CONTROL_SERVING): the served greedy sweep and a direct
-    serve of mixed budgets against the engine path; returns the main path's
-    launches and kernel rows."""
+    serve of mixed budgets against the engine path. Returns the main path's
+    launches and kernel rows, and for phase 25 its log row, the keys of the
+    kernel calls it held, the greedy sweep's served calls and the engine,
+    which the caller frees."""
     import types
 
     from fairness_llm_tpu_torch.config import Config, ModelSettings, ServingConfig
@@ -2447,6 +2489,7 @@ def full_width_served(torch, F, tmp: pathlib.Path, engine_wall_s: float, device_
            "parsed_vacuous_random_weights": parsed, "card": card.summary}
     log(f"serving_full_width {json.dumps(row)}")
     kernel_rows = sweep_kernel_rows(recs, torch, F, qm, "serving_full_width", f32=False)
+    held = {key for r in recs.values() for key in r.calls}
     engine = backend.engine
     del recs, backend, sched
     torch.cuda.empty_cache()
@@ -2508,32 +2551,637 @@ def full_width_served(torch, F, tmp: pathlib.Path, engine_wall_s: float, device_
         "llama3-8b int8 direct serve", want, got, engine, torch,
         against="the engine path", tie=tie)
     log(f"serving_full_width_gate {json.dumps(gate_row)}")
-    del control, sched, engine, eb
+    del control, sched, eb
     torch.cuda.empty_cache()
-    return launches, kernel_rows
+    return launches, kernel_rows, {"row": row, "held": held, "greedy": gserved,
+                                   "engine": engine}
 
 
 def serving_path(torch, F, device_line: str, sweep: dict) -> dict:
     """Phase 24. Returns each kernels-line entry's launches on the served
     t=0.7 sweeps (the study models together, "study"; FULL_WIDTH) and their
-    kernel rows, by entry."""
+    kernel rows, by entry; and under "paged" what phase 25 holds its runs
+    against (the keys of the kernel calls phase 24 held, the card's greedy
+    served calls by study model, and the full-width run's row, greedy calls
+    and engine)."""
     import gc
     import tempfile
 
     launches, rows = {"study": {}}, {}
+    paged = {"held": set(), "greedy_card": {}}
     gc.collect()
     with tempfile.TemporaryDirectory() as tmp:
         for name in STUDY_MODELS:
-            row, krows = study_served(torch, F, name, pathlib.Path(tmp),
-                                      sweep["greedy_card"][name])
+            row, krows, held, paged["greedy_card"][name] = study_served(
+                torch, F, name, pathlib.Path(tmp), sweep["greedy_card"][name])
+            paged["held"] |= held
             for k, v in row["launches"].items():
                 launches["study"][k] = launches["study"].get(k, 0) + v
             for k, v in krows.items():
                 rows.setdefault(k, []).extend(v)
             log(f"serving_study {json.dumps({'device': device_line, **row})}")
         gc.collect()
-        launches[FULL_WIDTH], full_rows = full_width_served(
+        launches[FULL_WIDTH], full_rows, full = full_width_served(
             torch, F, pathlib.Path(tmp), sweep["full_width_wall_s"], device_line)
+    paged["held"] |= full.pop("held")
+    paged["full_width"] = full
+    for k, v in full_rows.items():
+        rows.setdefault(k, []).extend(v)
+    return {"launches": launches, "rows": rows, "paged": paged}
+
+
+# Phase 25: the paged KV cache with its radix prefix index
+# (``ServingConfig.paged_kv``, ``--paged-kv``): the served phase-1 sweep with
+# the slots' KV in blocks of one shared arena, prompt prefixes matched
+# against the blocks cached so far and only the unmatched suffix prefilled.
+# The study checkpoints run phase 24's pool with blocks of 16 tokens; the
+# full-width main path phase 24's 16 slots and 1,024-token prompt budget
+# with a decode cap of 128 (above the sweep's 64 tokens), so that each slot
+# spans 1,024 + 128 = 1,152 tokens (72 blocks) and the default arena holds
+# 2,304 blocks.
+PAGED_BLOCK = 16
+STUDY_PAGED = dict(STUDY_SERVING, paged_kv=True, kv_block_size=PAGED_BLOCK)
+FULL_WIDTH_PAGED = dict(FULL_WIDTH_SERVING, max_new_tokens=128, paged_kv=True,
+                        kv_block_size=PAGED_BLOCK)
+# The study sweeps' prefix reuse must exceed the reference's own gate
+# (tests/test_paged_kv.py): half of the prompt tokens served from cache.
+MIN_HIT_RATIO = 0.5
+# The int8-KV direct serve at full width: this many of the sweep's prompts,
+# this many greedy tokens each, paged and not, over the same weight tensors.
+KV_INT8_REQUESTS, KV_INT8_TOKENS = 16, 32
+PAGED_GAUGES = ("kv_blocks_free", "kv_block_occupancy", "kv_blocks_cached",
+                "prefix_cache_hit_ratio")
+
+
+def paged_counts(dec_mod, flash_mod, qm) -> dict:
+    """Each kernels-line entry's launches on a paged run. Its suffix prefill
+    attends densely (suffix buckets are at least 128 tokens on the card, and
+    only a window of at most 16 reaches K3), so neither K1 nor K3 may
+    launch; over an int8 cache every K2q launch, and every other decode
+    launch of a bf16 model, must be decode_split_tc's."""
+    if flash_mod.launches or dec_mod.multi_launches or dec_mod.multi_quant_launches:
+        fail(f"a paged run launched K1 {flash_mod.launches} or K3 "
+             f"{dec_mod.multi_launches + dec_mod.multi_quant_launches} times")
+    quant = dec_mod.quant_launches
+    if quant and dec_mod.decode_tc_launches != dec_mod.launches + quant:
+        fail("a decode launch of the int8-cache paged run was not decode_split_tc's")
+    plain_tc = dec_mod.decode_tc_launches - quant
+    return {"flash_attention": 0, "flash_attention_f32": 0,
+            "decode_attention": plain_tc, "decode_attention_f32": dec_mod.launches - plain_tc,
+            "decode_attention_verify": 0, "decode_attention_int8_cache": quant,
+            "decode_attention_verify_int8_cache": 0,
+            "quant_matmul_gemv": qm.gemv_launches, "quant_matmul_gemm": qm.gemm_launches}
+
+
+class NotScoring:
+    """``flagged_recorders``' flag for runs with no scoring forward."""
+
+    on = False
+
+
+def paged_gauges(reg, label: str) -> dict:
+    """The paged manager's counters and gauges from the port's registry; the
+    gauges must be there."""
+    out = {}
+    for name in PAGED_GAUGES + ("prefix_cache_hit_tokens_total",
+                                "prefix_cache_miss_tokens_total", "prefix_cache_cow_total",
+                                "kv_blocks_evicted_total"):
+        m = reg.peek(name, component="paged_kv")
+        if m is None and name in PAGED_GAUGES:
+            fail(f"{label}: the registry holds no {name} gauge")
+        out[name] = None if m is None else m.value
+    h = reg.peek("matched_prefix_len", component="paged_kv")
+    out["matched_prefix_len"] = None if h is None else {
+        "count": h.count, "sum": h.sum, "p50": h.percentile(50), "max": h.max}
+    return out
+
+
+def paged_rows(recs, torch, F, qm, path: str, f32: bool, held: set) -> dict:
+    """The kernel calls of a paged run that no earlier phase held, each
+    against its plain version (``sweep_kernel_rows``), K2q's among them."""
+    q = [(key, call) for key, call in recs["dec"].calls.items()
+         if key[0] == "k2q" and key[:-1] not in held]
+    rows = sweep_kernel_rows(recs, torch, F, qm, path, f32=f32, held=held)
+    if q:
+        qrows = [decode_numbers(call, torch, F) for _, call in q]
+        for r, (key, call) in zip(qrows, q):
+            r["path"], r["scoring"] = path, False
+            held.add(key)
+        check_rows("decode_attention_int8_cache", qrows, "the newest slot masked out")
+        rows["decode_attention_int8_cache"] = qrows
+    return {k: v for k, v in rows.items() if v}
+
+
+def replayed_logits(engine, serving: dict, rows, torch) -> list:
+    """The carried logits a served path samples token ``t`` from, for each
+    (prompt, tokens, t) in ``rows``: the prompts served again, greedy, in a
+    pool of ``serving``'s shape, one token a chunk (the tokens do not depend
+    on the chunk), each row's logits read as it reaches token ``t``. A row
+    decodes in its slot independently of the others (K2 plans its key
+    splits from the pool's shape only), so the replay must give each row's
+    tokens again; it fails otherwise."""
+    from fairness_llm_tpu_torch.config import ModelSettings, ServingConfig
+    from fairness_llm_tpu_torch.serving import ContinuousScheduler, Request
+
+    at = {f"r{i}": t for i, (_, _, t) in enumerate(rows)}
+    logits = {}
+
+    class LogitsAt(ContinuousScheduler):
+        def _decode(self, stats):
+            for slot in self.pool.live_slots():
+                st = self.pool.get(slot)
+                if at.get(st.request.id) == st.emitted:
+                    logits[st.request.id] = self._prev_logits[slot].float().clone()
+            return super()._decode(stats)
+
+    settings = ModelSettings(temperature=0.0, max_tokens=max(at.values()) + 1)
+    sched = LogitsAt(engine, ServingConfig(**{**serving, "decode_chunk": 1}), settings=settings)
+    results = sched.serve([Request(prompt=p, id=f"r{i}", settings=dataclasses.replace(
+        settings, max_tokens=t + 1)) for i, (p, _, t) in enumerate(rows)])
+    pad = engine.tokenizer.pad_id
+    for i, ((_, tokens, t), res) in enumerate(zip(rows, results)):
+        if _strip(res.tokens, pad) != tokens[:t + 1] or f"r{i}" not in logits:
+            fail(f"the replay of row {i} did not give the served path's tokens again")
+    del sched
+    return [logits[f"r{i}"] for i in range(len(rows))]
+
+
+def paged_gate(label: str, want, got, engine, serving: dict, torch, f32: bool,
+               hard: bool = True) -> list:
+    """The paged path's greedy rows (``got``) against a non-paged served
+    path's (``want``; ``SweepRecorder``s or anything with their ``calls``),
+    served in a pool of ``serving``. A row may part only where the
+    non-paged path's own top two logits at the first divergent token
+    (``replayed_logits``), and the paged path's token among them, are
+    within the kernels' allowance (``tolerance``: float32 with ``f32``, else
+    bfloat16) at its top logit. Returns each parting row with its gap;
+    with ``hard=False`` it fails on none (a report)."""
+    if [c[0] for c in want.calls] != [c[0] for c in got.calls]:
+        fail(f"{label}: the two paths decoded other prompts")
+    parting = []
+    for ci, ((prompts, want_rows), (_, got_rows)) in enumerate(zip(want.calls, got.calls)):
+        for ri, (prompt, w, g) in enumerate(zip(prompts, want_rows, got_rows)):
+            if w != g:
+                t = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b), None)
+                if t is None:
+                    fail(f"{label}: call {ci} row {ri} stops at another length, no token apart")
+                parting.append((ci, ri, prompt, w, g, t))
+    if not parting:
+        return []
+    # rows with one prompt and one history up to the parting token (the
+    # sweep's prompts repeat) are replayed once
+    unique = list(dict.fromkeys((p, tuple(w[:t + 1]), t) for _, _, p, w, _, t in parting))
+    replayed = dict(zip(unique, replayed_logits(engine, serving,
+                                                [(p, list(w), t) for p, w, t in unique], torch)))
+    logits = [replayed[(p, tuple(w[:t + 1]), t)] for _, _, p, w, _, t in parting]
+    atol, rtol = tolerance(f32)
+    differ = []
+    for (ci, ri, _, w, g, t), lg in zip(parting, logits):
+        top = torch.topk(lg, 2)
+        gap, top0 = float(top.values[0] - top.values[1]), float(top.values[0])
+        allowed = atol + rtol * abs(top0)
+        below = float(top.values[0] - lg[g[t]])
+        row = {"call": ci, "row": ri, "token": t, "top2_gap": gap, "top": top0,
+               "allowed": allowed, "want": w[t], "got": g[t], "got_logit_below_top": below,
+               "within": int(top.indices[0]) == w[t] and gap < allowed and below < allowed}
+        differ.append(row)
+        log(f"{label}: call {ci} row {ri} parts at token {t}: {json.dumps(row)}")
+        if hard and not row["within"]:
+            fail(f"{label}: call {ci} row {ri} parts from the non-paged path at token {t}, "
+                 f"where that path's top two logits are {gap:.3e} apart and the paged token "
+                 f"{below:.3e} below its top (allowed {allowed:.3e})")
+    return differ
+
+
+def f32_verdicts(eng32, rows, want, torch) -> list:
+    """Each parting row (``paged_gate``'s) with the float32 function's own
+    logits at its first divergent token, teacher-forced through the
+    float32 twin: which of the two paths' tokens it ranks first, and by how
+    much the non-paged path's token leads the paged path's."""
+    seen = {}
+    for r in rows:
+        prompt, w = want.calls[r["call"]][0][r["row"]], want.calls[r["call"]][1][r["row"]]
+        ids = eng32.tokenizer.encode(prompt) + w[:r["token"]]
+        if tuple(ids) not in seen:
+            lg, _ = eng32.model(torch.tensor([ids], device=eng32.device),
+                                torch.arange(len(ids), device=eng32.device)[None])
+            seen[tuple(ids)] = lg[0, -1].float()
+        lg = seen[tuple(ids)]
+        first = int(lg.argmax())
+        r["f32_want_minus_got"] = float(lg[r["want"]] - lg[r["got"]])
+        r["f32_picks"] = ("non_paged" if first == r["want"] else
+                          "paged" if first == r["got"] else "other")
+    return rows
+
+
+def kv_int8_agreement(eng_q, prompts, kv_serving: dict, torch) -> dict:
+    """The int8 KV cache the paged prefill writes against the non-paged
+    prefill's, for the same prompts (both prefilled, nothing decoded). At
+    the first layer, whose inputs are the same embeddings, every int8 value
+    at most one quantization step apart (the same number rounded from
+    products summed in another order) and the scales within the float32
+    allowance: a row's blocks, positions or rotary phases out of place
+    would put values many steps apart. Deeper layers read caches already a
+    step apart here and there, so their differences compound: reported
+    (the largest step and scale differences, the share of values apart)."""
+    from fairness_llm_tpu_torch.config import ModelSettings, ServingConfig
+    from fairness_llm_tpu_torch.serving import ContinuousScheduler, Request
+    from fairness_llm_tpu_torch.serving.paged import gather_view
+    from fairness_llm_tpu_torch.utils.profiling import ServingStats
+
+    settings = ModelSettings(temperature=0.0, max_tokens=1)
+    caches = {}
+    for is_paged in (False, True):
+        sched = ContinuousScheduler(eng_q, ServingConfig(**{**kv_serving, "paged_kv": is_paged}),
+                                    settings=settings)
+        for i, prompt in enumerate(prompts):
+            sched.submit(Request(prompt=prompt, id=f"c{i}", settings=settings))
+        sched._admit(ServingStats(num_slots=sched.num_slots))
+        rows = {}
+        for slot in sched.pool.live_slots():
+            st = sched.pool.get(slot)
+            n = st.real_len
+            if is_paged:
+                table = torch.tensor([sched.pool.paged.table_for(slot)], device=eng_q.device)
+                cache = gather_view(sched._arena, table, sched._arena.lengths, sched._view)
+                take = (lambda n: lambda t: t[0, :n].clone())(n)
+            else:
+                cache = sched._cache
+                take = (lambda a, b, r: lambda t: t[r, a:b].clone())(st.base - n, st.base, slot)
+            rows[st.request.id] = [[take(t) for t in (lc.k, lc.v, lc.k_scale, lc.v_scale)]
+                                   for lc in cache.layers]
+        if len(rows) != len(prompts):
+            fail(f"the int8-KV prefill admitted {len(rows)} of {len(prompts)} prompts")
+        caches[is_paged] = rows
+        del sched
+    num_layers = eng_q.config.num_layers
+    steps, scales, apart, total = [0] * num_layers, [0.0] * num_layers, 0, 0
+    for rid, layers in caches[False].items():
+        for i, ((k0, v0, ks0, vs0), (k1, v1, ks1, vs1)) in enumerate(zip(layers,
+                                                                          caches[True][rid])):
+            for q0, q1 in ((k0, k1), (v0, v1)):
+                d = (q0.int() - q1.int()).abs()
+                steps[i] = max(steps[i], int(d.max()))
+                apart += int((d > 0).sum())
+                total += d.numel()
+            scales[i] = max(scales[i], float((ks0 - ks1).abs().max()),
+                            float((vs0 - vs1).abs().max()))
+    if steps[0] > 1 or scales[0] > ATOL_F32:
+        fail(f"the paged int8 KV at the first layer is {steps[0]} steps and {scales[0]:.3e} "
+             "in scale from the non-paged one")
+    return {"values": total, "share_apart": apart / total, "first_layer_steps": steps[0],
+            "first_layer_scale_diff": scales[0], "deeper_max_steps": max(steps[1:], default=0),
+            "deeper_max_scale_diff": max(scales[1:], default=0.0)}
+
+
+def float32_twin(engine, **changes):
+    """An engine over ``engine``'s int8 weight tensors (shared, not copied)
+    with float32 activations and cache: the same function summed in
+    float32, where two computation orders part only at near ties of about
+    1e-4 (the kernels' float32 allowance)."""
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+
+    return DecodeEngine(dataclasses.replace(engine.config, dtype="float32", **changes),
+                        params=engine.model.state_dict())
+
+
+def study_paged(torch, F, name: str, tmp: pathlib.Path, engine_card, served_card,
+                held: set) -> tuple:
+    """Phase 25 for one study checkpoint: the t=0.7 paged sweep (the main
+    path), then greedy on the card and on the CPU against each other, the
+    non-paged served rows (phase 24) and the engine path (phase 20)."""
+    from fairness_llm_tpu_torch.config import Config, ServingConfig
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+    from fairness_llm_tpu_torch.serving import ServingBackend
+    from fairness_llm_tpu_torch.telemetry import use_registry
+
+    cfg = Config(weights_dir=str(ROOT / "checkpoints"), data_dir=str(ROOT / "data" / "ml-1m"),
+                 results_dir=str(tmp / name / "paged"), serving=ServingConfig(**STUDY_PAGED))
+    row = {"model": name, "serving": STUDY_PAGED}
+    zero_all(dec_mod, flash_mod, qm)
+    t0 = time.perf_counter()
+    backend = backend_for(name, cfg)
+    if not isinstance(backend, ServingBackend) or not backend.serving.paged_kv:
+        fail(f"{name}: backend_for gave no paged ServingBackend")
+    served = SweepRecorder(backend)
+    with use_registry() as reg, flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+        rec = run_phase1(cfg, name, backend=backend)
+    torch.cuda.synchronize()
+    row["wall_s"] = time.perf_counter() - t0
+    row["launches"] = paged_counts(dec_mod, flash_mod, qm)
+    if row["launches"]["decode_attention_f32"] <= 0 or row["launches"]["decode_attention"]:
+        fail(f"{name} paged: decode_fwd must launch and decode_split_tc must not: "
+             f"{row['launches']}")
+    row["parsed"] = check_record(rec, f"{name} paged t=0.7")
+    row["record_serving"] = serving_record_check(rec, f"{name} paged",
+                                                 STUDY_PAGED["num_slots"])
+    row["paged"] = paged_gauges(reg, f"{name} paged")
+    if not row["paged"]["prefix_cache_hit_ratio"] > MIN_HIT_RATIO:
+        fail(f"{name} paged: prefix_cache_hit_ratio {row['paged']['prefix_cache_hit_ratio']} "
+             f"<= {MIN_HIT_RATIO}")
+    row["chunks"], row["totals"] = served.chunks, served.served_totals()
+    saved_record_check(cfg, rec, f"{name} paged")
+    kernel_rows = paged_rows(recs, torch, F, qm, "paged_study", True, held)
+    del recs
+
+    gcfg = greedy_config(dataclasses.replace(cfg, results_dir=str(tmp / name / "pgreedy")),
+                         name, MAX_TOKENS)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        b = backend_for(name, gcfg, device=device)
+        calls = SweepRecorder(b)
+        t0 = time.perf_counter()
+        r = run_phase1(gcfg, name, backend=b, save=False)
+        row[f"greedy_{device}_wall_s"] = time.perf_counter() - t0
+        serving_record_check(r, f"{name} paged greedy {device}", STUDY_PAGED["num_slots"])
+        runs[device] = (b, calls, r)
+    (_, card_calls, card), (cpu_b, cpu_calls, _) = runs["cuda"], runs["cpu"]
+    for key, label, want in (("from_cpu", "the CPU paged", cpu_calls),
+                             ("from_served", "the non-paged served path on the card",
+                              served_card),
+                             ("from_engine", "the engine path on the card", engine_card[1])):
+        row[f"greedy_rows_differing_{key}"] = greedy_divergences(
+            f"{name} paged", want, card_calls, cpu_b.engine, torch, against=label)
+    if not any(row[f"greedy_rows_differing_{k}"] for k in ("from_served", "from_engine")) \
+            and raw_responses(card) != raw_responses(engine_card[0]):
+        fail(f"{name} paged greedy: equal tokens but other responses than the engine path")
+    return row, kernel_rows
+
+
+def time_gather_scatter(sched, torch) -> dict:
+    """The paged decode step's gather (arena to view) and scatter (view to
+    arena) at the pool's shape, on the last chunk's tables, timed with CUDA
+    events, and the bytes each moves."""
+    from fairness_llm_tpu_torch.serving.paged import gather_view, scatter_view
+
+    B = sched.num_slots
+    arena, view = sched._arena, sched._view
+    tables, wtables = sched._tables[:B], sched._wtables[:B]
+    gather_ms = cuda_ms(lambda: gather_view(arena, tables, arena.lengths, view), 20)
+    v = gather_view(arena, tables, arena.lengths, view)
+    scatter_ms = cuda_ms(lambda: scatter_view(arena, v, wtables), 20)
+    per_slot = sum(t[:B].element_size() * t[:B].numel() for lc in v.layers
+                   for t in (lc.k, lc.v, lc.k_scale, lc.v_scale) if t is not None)
+    per_slot += v.key_valid.numel() + v.key_positions.numel() * 8
+    return {"gather_ms": gather_ms, "scatter_ms": scatter_ms, "view_bytes": per_slot,
+            "gather_tb_per_s": 2 * per_slot / gather_ms / 1e9,
+            "scatter_tb_per_s": 2 * per_slot / scatter_ms / 1e9}
+
+
+def full_width_paged(torch, F, tmp: pathlib.Path, p24: dict, engine_wall_s: float,
+                     device_line: str, held: set) -> tuple:
+    """Phase 25 at full width: llama3-8b int8 (phase 24's engine) served
+    paged. The t=0.7 sweep (the main path), logged beside phase 24's
+    non-paged run and phase 21's engine path; the greedy sweep against
+    phase 24's greedy served rows; then the int8-KV direct serve, paged
+    against not. Returns each run's launches and the kernel rows."""
+    from fairness_llm_tpu_torch.config import Config, ModelSettings, ServingConfig
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+    from fairness_llm_tpu_torch.serving import ContinuousScheduler, Request, ServingBackend
+    from fairness_llm_tpu_torch.telemetry import use_registry, use_timeline
+
+    engine = p24["engine"]
+    cfg = Config(weight_quant="int8", max_new_tokens=MAX_TOKENS,
+                 data_dir=str(ROOT / "data" / "ml-1m"), results_dir=str(tmp / "paged"),
+                 serving=ServingConfig(**FULL_WIDTH_PAGED))
+    backend = ServingBackend(engine, cfg.serving, name=MODEL)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    served = SweepRecorder(backend)
+    zero_all(dec_mod, flash_mod, qm)
+    t0 = time.perf_counter()
+    with use_registry() as reg, use_timeline() as tl, CardSampler() as card, \
+            flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+        rec = run_phase1(cfg, MODEL, backend=backend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_counts(dec_mod, flash_mod, qm)
+    for name in ("decode_attention", "quant_matmul_gemv", "quant_matmul_gemm"):
+        if launches[name] <= 0:
+            fail(f"{name} ({KERNEL_FUNCTIONS[name]}) was not launched by the paged sweep")
+    if launches["decode_attention_f32"]:
+        fail(f"the paged bf16 sweep launched decode_fwd {launches['decode_attention_f32']} "
+             "times")
+    parsed = check_record(rec, "llama3-8b int8 paged", want_non_empty=False)
+    sv = serving_record_check(rec, "llama3-8b int8 paged", FULL_WIDTH_PAGED["num_slots"])
+    saved_record_check(cfg, rec, "llama3-8b int8 paged")
+    sched = backend.scheduler_for(cfg.settings_for(MODEL))
+    paged = sched.pool.paged
+    spans = [e for e in tl.events() if e["type"] == "span"]
+    groups = [[e["name"], e["dur_s"], e["args"]["rows"], e["args"]["matched_prefix_tokens"]]
+              for e in spans if e["cat"] == "prefill"]
+    chunk_s = [e["dur_s"] for e in spans if e["cat"] == "decode"]
+    gs = time_gather_scatter(sched, torch)
+    chunk_ms = sum(chunk_s) * 1e3 / max(len(chunk_s), 1)
+    non_paged = p24["row"]
+    row = {"model": MODEL, "weight_quant": "int8", "device": device_line,
+           "serving": FULL_WIDTH_PAGED, "cache_len": sched.cache_len,
+           "blocks_per_slot": paged.blocks_per_slot, "num_blocks": paged.num_blocks,
+           "arena_gb": sum(t.numel() * t.element_size() for t in sched._arena.tensors()) / 1e9,
+           "view_gb": gs["view_bytes"] * sched._view.key_valid.shape[0] / sched.num_slots / 1e9,
+           "wall_s": wall, **served.served_totals(), "avg_occupancy": sv["avg_occupancy"],
+           "prefill_s_by_chunk": [c["prefill_s"] for c in served.chunks],
+           "prefill_groups": groups, "decode_chunks": len(chunk_s), "chunk_ms": chunk_ms,
+           **gs, "gather_scatter_share_of_chunk": (gs["gather_ms"] + gs["scatter_ms"])
+           / max(chunk_ms, 1e-9),
+           "paged": paged_gauges(reg, "llama3-8b int8 paged"),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "non_paged_served_phase24": {
+               k: non_paged[k] for k in ("wall_s", "prefill_s", "decode_s",
+                                         "decode_ms_per_step", "tokens_per_s",
+                                         "prefill_batches", "peak_allocated_gb")},
+           "non_paged_prefill_s_by_chunk": [c["prefill_s"] for c in non_paged["chunks"]],
+           "engine_path_wall_s_phase21": engine_wall_s,
+           "launches": launches, "record_serving": sv, "chunks": served.chunks,
+           "parsed_vacuous_random_weights": parsed, "card": card.summary}
+    log(f"paged_full_width {json.dumps(row)}")
+    kernel_rows = paged_rows(recs, torch, F, qm, "paged_full_width", False, held)
+    del recs, sched, paged
+
+    # greedy: the paged sweep against phase 24's greedy served rows (which
+    # equal the engine path's). In bfloat16 the two paths sum in other
+    # orders (the paged prefill attends densely, its prefix computed in
+    # another row's forward), and their logits at 32 layers part by more
+    # than one kernel's allowance (PERF.md, PR 11): reported, each parting
+    # row with the non-paged path's own gap. In float32 over the same
+    # weights the same comparison is the gate.
+    gcfg = greedy_config(dataclasses.replace(cfg, results_dir=str(tmp / "pgreedy")), MODEL,
+                         MAX_TOKENS)
+    gpaged = SweepRecorder(backend)
+    t0 = time.perf_counter()
+    run_phase1(gcfg, MODEL, backend=backend, save=False)
+    gate_row = {"paged_greedy_wall_s": time.perf_counter() - t0, **gpaged.served_totals()}
+    gate_row["sweep_rows"] = sum(len(c[0]) for c in gpaged.calls)
+    parting = paged_gate("llama3-8b int8 paged sweep, bf16 (reported)", p24["greedy"], gpaged,
+                         engine, CONTROL_SERVING, torch, f32=False, hard=False)
+    del backend, gpaged
+    torch.cuda.empty_cache()
+    eng32 = float32_twin(engine)
+    gate_row["bf16_sweep_rows_parting"] = f32_verdicts(eng32, parting, p24["greedy"], torch)
+    gate_row["bf16_parting_f32_picks"] = {
+        k: sum(r["f32_picks"] == k for r in parting) for k in ("non_paged", "paged", "other")}
+    sweeps32 = {}
+    for key, serving in (("non_paged", CONTROL_SERVING), ("paged", FULL_WIDTH_PAGED)):
+        b = ServingBackend(eng32, ServingConfig(**serving), name=MODEL)
+        sweeps32[key] = SweepRecorder(b)
+        t0 = time.perf_counter()
+        run_phase1(gcfg, MODEL, backend=b, save=False)
+        gate_row[f"f32_{key}_greedy_wall_s"] = time.perf_counter() - t0
+        del b
+        torch.cuda.empty_cache()
+    gate_row["f32_sweep_rows_differing"] = paged_gate(
+        "llama3-8b int8 paged sweep, f32", sweeps32["non_paged"], sweeps32["paged"], eng32,
+        CONTROL_SERVING, torch, f32=True)
+    del sweeps32
+
+    # the int8 KV cache: a direct serve of the sweep's first prompts, paged
+    # and not, by an engine over the same weight tensors (K2q over the view
+    # in bfloat16, reported as above), then the same in float32 (the gate)
+    import types
+
+    prompts = [p for call in p24["greedy"].calls for p in call[0]][:KV_INT8_REQUESTS]
+    settings = ModelSettings(temperature=0.0, max_tokens=KV_INT8_TOKENS)
+    kv_serving = {**FULL_WIDTH_SERVING, "kv_block_size": PAGED_BLOCK,
+                  "max_new_tokens": KV_INT8_TOKENS}
+    kv_launches = None
+    for dtype, eng_q in (("bf16", DecodeEngine(dataclasses.replace(engine.config,
+                                                                   kv_cache_quant=True),
+                                               params=engine.model.state_dict())),
+                         ("f32", float32_twin(eng32, kv_cache_quant=True))):
+        rows_by = {}
+        for is_paged in (True, False):
+            sched = ContinuousScheduler(eng_q, ServingConfig(**{**kv_serving,
+                                                                "paged_kv": is_paged}),
+                                        settings=settings)
+            reqs = [Request(prompt=p, settings=settings, id=f"kv{i}")
+                    for i, p in enumerate(prompts)]
+            main = dtype == "bf16" and is_paged
+            zero_all(dec_mod, flash_mod, qm)
+            with contextlib.ExitStack() as stack:
+                if main:
+                    recs = stack.enter_context(flagged_recorders(dec_mod, flash_mod, qm,
+                                                                 NotScoring))
+                t0 = time.perf_counter()
+                results = sched.serve(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if not all(r.ok for r in results):
+                fail(f"the {dtype} int8-KV direct serve failed a request")
+            key = f"kv_int8_{dtype}_{'paged' if is_paged else 'non_paged'}"
+            gate_row[f"{key}_wall_s"] = wall
+            gate_row[f"{key}_stats"] = sched.last_stats.as_dict()
+            rows_by[is_paged] = [_strip(r.tokens, eng_q.tokenizer.pad_id) for r in results]
+            if main:
+                kv_launches = paged_counts(dec_mod, flash_mod, qm)
+                if kv_launches["decode_attention_int8_cache"] <= 0:
+                    fail("K2q (decode_split_tc over int8) was not launched by the paged serve")
+                for k, v in paged_rows(recs, torch, F, qm, "paged_full_width_kv_int8", False,
+                                       held).items():
+                    kernel_rows.setdefault(k, []).extend(v)
+                del recs
+            del sched
+            torch.cuda.empty_cache()
+        # int8 rounding makes the cached function step-wise: inputs summed in
+        # another order may round one step apart, and the step compounds
+        # through the layers, so in float32 too a row may part beyond the
+        # float32 allowance. The gate is the first layer's cache
+        # (kv_int8_agreement); the rows are reported.
+        gate_row[f"kv_int8_{dtype}_rows"] = len(prompts)
+        gate_row[f"kv_int8_{dtype}_rows_parting"] = paged_gate(
+            f"llama3-8b int8 paged int8-KV serve, {dtype} (reported)",
+            types.SimpleNamespace(calls=[(prompts, rows_by[False])]),
+            types.SimpleNamespace(calls=[(prompts, rows_by[True])]), eng_q, kv_serving, torch,
+            f32=dtype == "f32", hard=False)
+        if dtype == "f32":
+            gate_row["kv_int8_f32_cache_agreement"] = kv_int8_agreement(eng_q, prompts,
+                                                                        kv_serving, torch)
+        del eng_q
+    gate_row["kv_int8_launches"] = kv_launches
+    log(f"paged_full_width_gate {json.dumps(gate_row)}")
+    del eng32
+    return launches, kv_launches, kernel_rows
+
+
+def telemetry_cli_run(torch, tmp: pathlib.Path) -> dict:
+    """The CLI's paged served sweep with ``--telemetry-dir`` on the first
+    study checkpoint: the snapshot must pass the port's ``validate_snapshot``
+    and hold the paged gauges, ``trace.json`` must pass
+    ``validate_chrome_trace``."""
+    import io
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.cli import main as cli
+
+    tel = tmp / "telemetry"
+    args = ["--phase", "1", "--model", STUDY_MODELS[0], "--weights-dir",
+            str(ROOT / "checkpoints"), "--data-dir", str(ROOT / "data" / "ml-1m"),
+            "--results-dir", str(tmp / "cli"), "--continuous", "--paged-kv",
+            "--telemetry-dir", str(tel)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with T.use_registry(), T.use_timeline(), contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"the CLI's paged telemetry run exited {rc}")
+    snap = T.load_snapshot(str(tel))
+    problems = T.validate_snapshot(snap)
+    trace = json.loads((tel / T.TRACE_FILENAME).read_text())
+    problems += T.validate_chrome_trace(trace)
+    if problems:
+        fail(f"the CLI's telemetry dir does not validate: {problems[:5]}")
+    gauges = {g["name"]: g["value"] for g in snap["gauges"]
+              if g["labels"].get("component") == "paged_kv"}
+    missing = [g for g in PAGED_GAUGES if g not in gauges]
+    if missing:
+        fail(f"the CLI's snapshot holds no {missing}")
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    return {"wall_s": wall, "argv": args, "paged_gauges": gauges,
+            "counters": len(snap["counters"]), "gauges": len(snap["gauges"]),
+            "histograms": len(snap["histograms"]), "trace_events": len(trace["traceEvents"]),
+            "prefill_spans": sum(e["cat"] == "prefill" for e in spans),
+            "decode_spans": sum(e["cat"] == "decode" for e in spans),
+            "events_jsonl_lines": len(T.read_events(str(tel / "events.jsonl")))}
+
+
+def paged_path(torch, F, device_line: str, sweep: dict, p24: dict) -> dict:
+    """Phase 25. Returns each kernels-line entry's launches on the paged
+    t=0.7 sweeps (the study models together, "study"; FULL_WIDTH) and on
+    the int8-KV serve (FULL_WIDTH + "_kv_int8"), and the kernel rows of the
+    calls no earlier phase held, by entry."""
+    import gc
+    import tempfile
+
+    held = set(sweep["held"]) | p24["held"]
+    launches, rows = {"study": {}}, {}
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in STUDY_MODELS:
+            row, krows = study_paged(torch, F, name, pathlib.Path(tmp),
+                                     sweep["greedy_card"][name], p24["greedy_card"][name],
+                                     held)
+            for k, v in row["launches"].items():
+                launches["study"][k] = launches["study"].get(k, 0) + v
+            for k, v in krows.items():
+                rows.setdefault(k, []).extend(v)
+            log(f"paged_study {json.dumps({'device': device_line, **row})}")
+        gc.collect()
+        full = p24["full_width"]
+        launches[FULL_WIDTH], launches[FULL_WIDTH + "_kv_int8"], full_rows = \
+            full_width_paged(torch, F, pathlib.Path(tmp), full, sweep["full_width_wall_s"],
+                             device_line, held)
+        del full["engine"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"paged_telemetry_cli {json.dumps(telemetry_cli_run(torch, pathlib.Path(tmp)))}")
     for k, v in full_rows.items():
         rows.setdefault(k, []).extend(v)
     return {"launches": launches, "rows": rows}
@@ -2597,6 +3245,9 @@ def main() -> int:
     t0 = time.perf_counter()
     served = serving_path(torch, F, device_line, sweep)
     log(f"serving_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    paged = paged_path(torch, F, device_line, sweep, served.pop("paged"))
+    log(f"paged_path_s {time.perf_counter() - t0:.1f}")
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -2620,6 +3271,10 @@ def main() -> int:
                                      for path, counts in served["launches"].items()}
         if entry["name"] in served["rows"]:
             entry["serving_shapes"] = served["rows"][entry["name"]]
+        entry["paged_launches"] = {path: counts[entry["name"]]
+                                   for path, counts in paged["launches"].items()}
+        if entry["name"] in paged["rows"]:
+            entry["paged_shapes"] = paged["rows"][entry["name"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

@@ -9,10 +9,14 @@ The flags keep the reference's meaning and checks. ``--device`` (default
 ``cuda``) is the port's counterpart of the reference's ``JAX_PLATFORMS``.
 Phase 1 also writes its text report; the reference's matplotlib figures
 are not ported (the CLI logs so). ``--continuous`` serves engine backends
-through the continuous-batching scheduler (``--slots``, ``--fuse-steps``).
-The flags of the serving slices still to come (``--paged-kv``, ``--tp``,
-``--overload``, ``--replicas``, ``--autoscale``, ``--serving-journal``),
-device meshes and resilience raise ``NotImplementedError`` (ROADMAP A5).
+through the continuous-batching scheduler (``--slots``, ``--fuse-steps``,
+and ``--paged-kv`` with ``--kv-block-size``/``--kv-blocks`` for the paged
+KV cache with prefix reuse). ``--telemetry-dir`` streams ``events.jsonl``
+there and writes the registry snapshot (``telemetry_snapshot.json``,
+``metrics.prom``) and the timeline (``trace.json``) at the end. The flags
+of the serving slices still to come (``--tp``, ``--overload``,
+``--replicas``, ``--autoscale``, ``--serving-journal``), device meshes and
+resilience raise ``NotImplementedError`` (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -22,7 +26,6 @@ import dataclasses
 import logging
 import os
 import sys
-import time
 from typing import Dict
 
 from fairness_llm_tpu_torch.config import (
@@ -105,8 +108,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --continuous: decode chunks run per scheduler call before "
                         "eviction and backfill (the tokens do not change); not with "
                         "--speculate")
+    p.add_argument("--paged-kv", action="store_true",
+                   help="with --continuous: paged KV cache with radix-tree prefix reuse: "
+                        "slots hold block tables into one shared arena, admission matches "
+                        "the longest cached prompt prefix (refcounted, copy-on-write at the "
+                        "divergence) and prefills only the unmatched suffix; greedy output "
+                        "equals the non-paged path's")
+    p.add_argument("--kv-block-size", type=int, default=None, metavar="B",
+                   help="with --paged-kv: tokens per KV block, the prefix-sharing "
+                        "granularity (default 16)")
+    p.add_argument("--kv-blocks", type=int, default=None, metavar="N",
+                   help="with --paged-kv: total arena blocks (default 2x the all-slots-"
+                        "private worst case, so a full pool still leaves an equal "
+                        "prefix-cache reserve)")
+    p.add_argument("--telemetry-dir", default=None,
+                   help="export telemetry here: streamed events.jsonl, and at the end of "
+                        "the run the registry snapshot (telemetry_snapshot.json, "
+                        "metrics.prom) and the host-clock timeline (trace.json, open at "
+                        "https://ui.perfetto.dev)")
     # Not ported yet: refused, never ignored.
-    for flag, kw in (("--paged-kv", dict(action="store_true")), ("--tp", dict(type=int)),
+    for flag, kw in (("--tp", dict(type=int)),
                      ("--overload", dict(action="store_true")),
                      ("--replicas", dict(type=int)), ("--autoscale", dict(action="store_true")),
                      ("--serving-journal", dict(default=None)), ("--mesh", dict(default=None)),
@@ -116,8 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-NOT_PORTED = ("--paged-kv", "--tp", "--overload", "--replicas", "--autoscale",
-              "--serving-journal", "--mesh", "--max-step-seconds")
+NOT_PORTED = ("--tp", "--overload", "--replicas", "--autoscale", "--serving-journal",
+              "--mesh", "--max-step-seconds")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -125,9 +146,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
         value = getattr(args, flag[2:].replace("-", "_"))
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"{flag}: the paged KV cache, tensor-parallel serving, overload control, "
-                "the replica fleet, the serving journal, device meshes and resilience "
-                "are not ported yet (ROADMAP A5)")
+                f"{flag}: tensor-parallel serving, overload control, the replica fleet, "
+                "the serving journal, device meshes and resilience are not ported yet "
+                "(ROADMAP A5)")
     config = default_config()
     updates: Dict = {}
     if args.weights_dir:
@@ -159,9 +180,14 @@ def config_from_args(args: argparse.Namespace) -> Config:
                 raise SystemExit("--ngram-max must be >= 1")
             spec_kwargs["ngram_max"] = args.ngram_max
         updates["speculation"] = SpeculationConfig(**spec_kwargs)
-    if args.continuous or args.slots is not None or args.fuse_steps is not None:
+    if args.continuous or args.slots is not None or args.paged_kv \
+            or args.kv_block_size is not None or args.kv_blocks is not None \
+            or args.fuse_steps is not None:
+        if not args.paged_kv and (args.kv_block_size is not None
+                                  or args.kv_blocks is not None):
+            raise SystemExit("--kv-block-size/--kv-blocks require --paged-kv")
         if not args.continuous:
-            raise SystemExit("--slots/--fuse-steps require --continuous")
+            raise SystemExit("--slots/--paged-kv/--fuse-steps require --continuous")
         serve_kwargs = {"enabled": True}
         if args.slots is not None:
             if args.slots < 1:
@@ -175,6 +201,16 @@ def config_from_args(args: argparse.Namespace) -> Config:
                     "--fuse-steps cannot combine with --speculate: the speculative verify "
                     "window is already multi-token")
             serve_kwargs["fuse_steps"] = args.fuse_steps
+        if args.paged_kv:
+            serve_kwargs["paged_kv"] = True
+            if args.kv_block_size is not None:
+                if args.kv_block_size < 1:
+                    raise SystemExit("--kv-block-size must be >= 1")
+                serve_kwargs["kv_block_size"] = args.kv_block_size
+            if args.kv_blocks is not None:
+                if args.kv_blocks < 1:
+                    raise SystemExit("--kv-blocks must be >= 1")
+                serve_kwargs["kv_blocks"] = args.kv_blocks
         updates["serving"] = ServingConfig(**serve_kwargs)
     if args.no_verify_manifests:
         updates["integrity"] = dataclasses.replace(config.integrity, verify_manifests=False)
@@ -187,7 +223,9 @@ def main(argv=None) -> int:
     from fairness_llm_tpu_torch.pipeline.phase1 import print_phase1_summary, run_phase1
     from fairness_llm_tpu_torch.pipeline.phase2 import print_phase2_summary, run_phase2
     from fairness_llm_tpu_torch.pipeline.phase3 import print_phase3_summary, run_phase3
+    from fairness_llm_tpu_torch import telemetry as T
     from fairness_llm_tpu_torch.reports.report import generate_summary_report
+    from fairness_llm_tpu_torch.utils.profiling import phase_timer
 
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     logging.basicConfig(
@@ -203,38 +241,53 @@ def main(argv=None) -> int:
         args.num_items = min(args.num_items, 10)
         args.num_comparisons = min(args.num_comparisons, 6)
     save = not args.no_save
+    telemetry_sink = T.configure(args.telemetry_dir) if args.telemetry_dir else None
 
     phases = [1, 2, 3] if args.all else [args.phase]
     timings: Dict[str, float] = {}
     p1 = None
-    for phase in phases:
-        t0 = time.perf_counter()
-        if phase == 1:
-            p1 = run_phase1(config, args.model, args.profiles, save=save,
-                            resume=args.resume, device=args.device)
-            print_phase1_summary(p1)
-            if save:
-                generate_summary_report(
-                    p1, f"{config.results_dir}/phase1/phase1_summary_report.txt")
-        elif phase == 2:
-            p2 = run_phase2(config, args.models or ([args.model] if args.model else None),
-                            args.num_items, args.num_comparisons, save=save,
-                            corpus=args.corpus, num_queries=args.num_queries,
-                            device=args.device)
-            print_phase2_summary(p2)
-        else:
-            p3 = run_phase3(config, phase1_results=p1, model_name=args.model,
-                            num_profiles=args.profiles, variant=args.variant,
-                            strategy=args.strategy, save=save,
-                            calibration=args.calibration,
-                            confidence_mapping=args.confidence_mapping,
-                            confidence_temperature=args.confidence_temperature,
-                            device=args.device)
-            print_phase3_summary(p3)
-        if save:
-            logger.info("phase %d figures are not ported (the card's machine has no "
-                        "matplotlib; ROADMAP A6)", phase)
-        timings[f"phase {phase}"] = time.perf_counter() - t0
+    try:
+        for phase in phases:
+            with phase_timer(f"phase {phase}", timings):
+                if phase == 1:
+                    p1 = run_phase1(config, args.model, args.profiles, save=save,
+                                    resume=args.resume, device=args.device)
+                    print_phase1_summary(p1)
+                    if save:
+                        generate_summary_report(
+                            p1, f"{config.results_dir}/phase1/phase1_summary_report.txt")
+                elif phase == 2:
+                    p2 = run_phase2(config,
+                                    args.models or ([args.model] if args.model else None),
+                                    args.num_items, args.num_comparisons, save=save,
+                                    corpus=args.corpus, num_queries=args.num_queries,
+                                    device=args.device)
+                    print_phase2_summary(p2)
+                else:
+                    p3 = run_phase3(config, phase1_results=p1, model_name=args.model,
+                                    num_profiles=args.profiles, variant=args.variant,
+                                    strategy=args.strategy, save=save,
+                                    calibration=args.calibration,
+                                    confidence_mapping=args.confidence_mapping,
+                                    confidence_temperature=args.confidence_temperature,
+                                    device=args.device)
+                    print_phase3_summary(p3)
+                if save:
+                    logger.info("phase %d figures are not ported (the card's machine has "
+                                "no matplotlib; ROADMAP A6)", phase)
+    finally:
+        if telemetry_sink is not None:
+            T.install_event_sink(None)
+            telemetry_sink.close()
+
+    if args.telemetry_dir:
+        # The end-of-run registry snapshot (JSON and Prometheus text), its
+        # report, and the host-clock timeline beside it.
+        path = T.write_snapshot(T.get_registry(), args.telemetry_dir)
+        print("\n" + T.render_report(T.snapshot(T.get_registry())))
+        print(f"\ntelemetry snapshot: {path}")
+        trace = T.get_timeline().export(os.path.join(args.telemetry_dir, T.TRACE_FILENAME))
+        print(f"device-step timeline: {trace} (open at https://ui.perfetto.dev)")
 
     print("\n" + "=" * 60)
     print("RUN COMPLETE")

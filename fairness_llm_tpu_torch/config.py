@@ -4,7 +4,7 @@ verification only) and ``Config`` with the fields the three phases read,
 ``ServingConfig`` (the continuous-batching core's knobs), ``default_config``
 with the reference's ``FAIRNESS_TPU_*`` overrides, and
 ``create_directories``. The fleet, mesh and telemetry sections wait for
-their slices."""
+their slices (the CLI's ``--telemetry-dir`` needs no config field)."""
 
 from __future__ import annotations
 
@@ -45,9 +45,12 @@ class ServingConfig:
     ``max_prompt_len``; longer prompts are left-truncated to it, with a
     warning.
 
-    The paged KV cache (``paged_kv``, ``kv_block_size``, ``kv_blocks``) and
-    tensor-parallel serving (``tp``) are later slices: setting them raises
-    ``NotImplementedError``."""
+    ``paged_kv`` (CLI ``--paged-kv``) gives the slots block tables into one
+    shared arena of ``kv_blocks`` blocks of ``kv_block_size`` tokens
+    (``serving/paged.py``): admission reuses cached prompt prefixes and
+    prefills only the unmatched suffix; greedy tokens stay those of the
+    non-paged path. Tensor-parallel serving (``tp``) is a later slice:
+    setting it raises ``NotImplementedError``."""
 
     enabled: bool = False
     num_slots: int = 8  # concurrent KV slots = decode-step batch rows
@@ -63,17 +66,17 @@ class ServingConfig:
     # Admission rate limit (RateLimiter.try_acquire at submit); None = none.
     admission_per_minute: Optional[int] = None
     paged_kv: bool = False
-    kv_block_size: int = 16
+    kv_block_size: int = 16  # tokens per KV block (the sharing granularity)
+    # Total arena blocks; None = 2x the all-slots-private worst case, so a
+    # full pool still leaves an equal reserve working as prefix cache.
     kv_blocks: Optional[int] = None
     tp: int = 1
 
     def __post_init__(self) -> None:
-        for name, default in (("paged_kv", False), ("kv_block_size", 16),
-                              ("kv_blocks", None), ("tp", 1)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"ServingConfig.{name}={getattr(self, name)!r}: the paged KV cache and "
-                    "tensor-parallel serving are not ported yet (ROADMAP A5)")
+        if self.tp != 1:
+            raise NotImplementedError(
+                f"ServingConfig.tp={self.tp!r}: tensor-parallel serving is not ported yet "
+                "(ROADMAP A5)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -48,8 +48,8 @@ class ModelConfig:
     # Flash-attention kernel (ops/flash_attention.py) for the left-padded
     # prefill with no shared prefix.
     use_flash_attention: bool = True
-    # int8 KV cache with per-vector scales. Not ported yet: the port's
-    # init_cache refuses it.
+    # int8 KV cache with f32 per-(slot, head) scales (init_cache builds it;
+    # the decode kernel reads it as K2q, the paged arena's blocks hold it).
     kv_cache_quant: bool = False
     # Decode-attention kernel (ops/decode_attention.py) for cached
     # single-token steps without a sliding window. Off by default, as in the

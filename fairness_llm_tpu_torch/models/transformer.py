@@ -510,7 +510,11 @@ class Transformer(nn.Module):
         ``[off[b], off[b] + S)`` of row b with ``write_offsets=off`` (whose
         bounds the caller checks: ``check_write_offsets``); the cache is
         updated in place and returned.
-    Logits are float32.
+    Logits are float32, ``[B, S, V]``; ``[B, 1, V]`` with ``last_only`` (the
+    last position) or ``last_idx`` (``[B]``, row b's position
+    ``last_idx[b]``, as a right-padded batch needs: the hidden state there is
+    taken before the final norm and the head, which are per position, so the
+    function is the same and the head reads B rows, not B * S).
     """
 
     def __init__(self, config: ModelConfig):
@@ -536,6 +540,7 @@ class Transformer(nn.Module):
                 token_valid: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None, left_padded: bool = False,
                 last_only: bool = False,
+                last_idx: Optional[torch.Tensor] = None,
                 shared_layers: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
                 write_offsets: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
@@ -578,6 +583,8 @@ class Transformer(nn.Module):
                 rope_cs=rope_cs, write_offsets=write_offsets,
             )
 
+        if last_idx is not None:
+            x = x[torch.arange(B, device=x.device), last_idx][:, None, :]
         x = self.final_norm(x)
         if last_only:
             x = x[:, -1:, :]

@@ -2,7 +2,7 @@
 (counterpart of ``fairness_llm_tpu/runtime/stepbuilder.py``:
 ``make_batch_entry``, ``make_greedy_loop``, ``build_engine_decode``,
 ``build_spec_decode``, ``build_prefix``, and the serving programs
-``build_serve_step`` and ``build_serve_prefill``, non-paged).
+``build_serve_step``, ``build_serve_prefill`` and ``build_paged_prefill``).
 
 PyTorch runs eagerly, so the reference's compiled ``while_loop`` becomes a
 Python loop that stops once every live row is done. Each step reads a few
@@ -269,20 +269,43 @@ def build_prefix(cfg, model, *, prefix_len: int):
 
 
 def build_serve_step(model, sampler: SamplerSettings, pad_id: int, eos_id: int, *,
-                     num_slots: int, chunk: int, fuse: int = 1):
+                     num_slots: int, chunk: int, fuse: int = 1, paged: bool = False):
     """The serving decode step over the slot pool: the decode loop with
     per-row write offsets (``base + emitted``), per-row caps and the slots'
     own sampling streams, for up to ``chunk * fuse`` steps (it stops sooner
     once every live row is done, so the tokens do not depend on ``fuse``).
 
-    Released slots are invalidated at entry: rows in the ``reset`` mask lose
-    their ``key_valid`` and ``lengths`` before any attention reads them.
+    Contiguous (``paged=False``): released slots are invalidated at entry:
+    rows in the ``reset`` mask lose their ``key_valid`` and ``lengths``
+    before any attention reads them. Returns ``run(cache, prev_logits,
+    row_seeds, emitted0, base, caps, live0, reset) -> LoopOut``; the cache
+    is updated in place, the carried logits come back in ``LoopOut.logits``.
 
-    Returns ``run(cache, prev_logits, row_seeds, emitted0, base, caps,
-    live0, reset) -> LoopOut``; the cache is updated in place, the carried
-    logits come back in ``LoopOut.logits``."""
+    Paged (``paged=True``, ``serving/paged.py``): the block tables gather
+    the arena into the view buffer once at entry, the same loop runs over
+    the view, and the rows' private blocks scatter back once at exit (the
+    write tables send shared blocks and dead rows to the sink). The view's
+    ``lengths`` is the arena's own tensor, so the loop advances it in place.
+    No reset mask: a released block re-enters a table only through a
+    prefill that cleared its ``key_valid`` first. Returns ``run(arena,
+    view, prev_logits, tables, wtables, row_seeds, emitted0, base, caps,
+    live0) -> LoopOut``."""
     loop = make_greedy_loop(model, make_sampler(sampler), pad_id, eos_id, batch=num_slots,
                             steps=chunk * fuse, greedy=sampler.greedy)
+
+    if paged:
+        from fairness_llm_tpu_torch.serving.paged import gather_view, scatter_view
+
+        def run_paged(arena, view, prev_logits, tables, wtables, row_seeds,
+                      emitted0: np.ndarray, base: np.ndarray, caps: np.ndarray,
+                      live0: np.ndarray) -> LoopOut:
+            cache = gather_view(arena, tables, arena.lengths, view)
+            out = loop(cache, prev_logits, row_seeds, live0, None, emitted0=emitted0,
+                       base=base, caps=caps)
+            scatter_view(arena, cache, wtables)
+            return out
+
+        return run_paged
 
     def run(cache, prev_logits, row_seeds, emitted0: np.ndarray, base: np.ndarray,
             caps: np.ndarray, live0: np.ndarray, reset: np.ndarray) -> LoopOut:
@@ -330,5 +353,55 @@ def build_serve_prefill(cfg, model, *, nb: int, P: int):
         cache.key_positions[idx, :P] = small.key_positions[:n]
         cache.lengths[idx] = small.lengths[:n]
         prev_logits[idx] = logits[:n, -1]
+
+    return run
+
+
+def build_paged_prefill(model):
+    """``[nb, S]`` suffix prefill through block tables (paged KV); one
+    function serves every group shape.
+
+    Each row's cached prefix (``matched`` tokens: the shared full blocks and
+    the copy-on-write lead of one partly shared block) is already in the
+    arena. The function:
+
+    1. copies each copy-on-write source block into the row's private block
+       at the divergence (the shared source is never written; rows with no
+       copy name the sink on both sides);
+    2. clears ``key_valid`` of every block the batch's write tables name,
+       so a recycled block is unreadable before its new tenant writes it;
+    3. gathers each row's table into the view buffer, its validity set to
+       ``position < matched`` (the prefix visible, the rest dark);
+    4. forwards the right-padded suffix at ``write_offsets = matched``:
+       suffix query i sees slot j iff j <= matched + i, the whole prefix and
+       its own earlier suffix; the logits only at each row's last real
+       token (``last_idx``);
+    5. scatters the view back through the write tables, and writes the real
+       rows' ``lengths`` and logits at their ``slots``.
+
+    Numerically the engine's forward over the same tokens at the same
+    positions. Returns ``run(arena, view, prev_logits, tokens, valid,
+    positions, tables, wtables, cow_src, cow_dst, matched, last_idx,
+    slots)``: device tensors but for ``slots``, the ``n <= nb`` real rows'
+    slot ids (the rows after them are batch-bucket pads, whose write
+    tables are all sink)."""
+    from fairness_llm_tpu_torch.serving.paged import gather_view, scatter_view
+
+    def run(arena, view, prev_logits, tokens, valid, positions, tables, wtables, cow_src,
+            cow_dst, matched, last_idx, slots: Sequence[int]) -> None:
+        for big in arena.tensors():
+            big.index_copy_(0, cow_dst, big.index_select(0, cow_src))
+        arena.key_valid.index_fill_(0, wtables.reshape(-1), False)
+        v = gather_view(arena, tables, matched.clone(), view)
+        L = v.key_valid.shape[1]
+        torch.lt(torch.arange(L, device=matched.device)[None, :], matched[:, None],
+                 out=v.key_valid)
+        logits, v = model(tokens, positions, valid, v, write_offsets=matched,
+                          last_idx=last_idx)
+        scatter_view(arena, v, wtables)
+        n = len(slots)
+        idx = torch.tensor(list(slots), dtype=torch.long, device=tokens.device)
+        arena.lengths[idx] = v.lengths[:n]
+        prev_logits[idx] = logits[:n, 0]
 
     return run

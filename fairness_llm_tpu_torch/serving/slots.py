@@ -1,6 +1,5 @@
 """Fixed-size KV slot pool: the host-side allocator behind continuous
-batching (counterpart of ``fairness_llm_tpu/serving/slots.py``, its
-private-row layout; the paged block arena is a later slice).
+batching (counterpart of ``fairness_llm_tpu/serving/slots.py``).
 
 The device holds one persistent cache of ``num_slots`` rows, each
 ``cache_len`` slots long (``scheduler.py``). This module tracks which rows
@@ -20,6 +19,12 @@ and marks it for invalidation: the scheduler clears the row's
 slot never attends to its previous tenant's keys. A slot allocated again
 before that step drops its pending invalidation: its prefill re-initializes
 the row.
+
+With ``paged`` (a ``serving/paged.PagedKV``, the paged KV cache) the pool
+carries the block manager instead: ``release`` derefs the slot's shared
+prefix blocks and frees its private ones, and queues no row invalidation
+(a freed block re-enters a table only through a prefill that clears its
+``key_valid`` first).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import dataclasses
 import heapq
 from typing import Dict, List, Optional
 
+from fairness_llm_tpu_torch.serving.paged import PagedKV
 from fairness_llm_tpu_torch.serving.request import Request
 
 
@@ -41,10 +47,11 @@ class SlotState:
 
 
 class SlotPool:
-    def __init__(self, num_slots: int):
+    def __init__(self, num_slots: int, paged: Optional[PagedKV] = None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.num_slots = num_slots
+        self.paged = paged
         self._free: List[int] = list(range(num_slots))
         heapq.heapify(self._free)
         self._live: Dict[int, SlotState] = {}
@@ -87,11 +94,15 @@ class SlotPool:
         return slot
 
     def release(self, slot: int) -> SlotState:
-        """Free ``slot`` and queue it for invalidation. A slot that is not
-        live raises KeyError: a double release is a bug."""
+        """Free ``slot`` and queue it for invalidation, or, paged, release
+        its blocks. A slot that is not live raises KeyError: a double
+        release is a bug."""
         state = self._live.pop(slot)
         heapq.heappush(self._free, slot)
-        self._pending_invalidation[slot] = None
+        if self.paged is not None:
+            self.paged.release(slot)
+        else:
+            self._pending_invalidation[slot] = None
         return state
 
     def take_invalidations(self) -> List[int]:

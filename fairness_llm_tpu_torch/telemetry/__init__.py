@@ -1,0 +1,178 @@
+"""Telemetry core of the port (counterpart of ``fairness_llm_tpu/telemetry/``,
+its framework-free modules):
+
+- ``registry``  — process-wide counters/gauges/log-bucket histograms,
+  labeled by component (``engine``, ``serving``, ``paged_kv``);
+  percentiles derive from bucket counts (no sample retention).
+- ``tracing``   — per-request lifecycle spans in the serving scheduler
+  (submitted -> admitted -> prefill_start -> first_token -> terminal),
+  yielding queue-wait / TTFT / per-output-token / e2e histograms.
+- ``export``    — JSONL event sink, snapshot dump (JSON + Prometheus text),
+  schema validation and the terminal report.
+- ``heartbeat`` — low-frequency liveness pulse, with missed-beat gap
+  detection (``heartbeat_gap_s``).
+- ``timeline``  — host-clock spans for every prefill batch and decode
+  chunk, request lanes, Chrome-trace/Perfetto export and the
+  ``step_gap_s`` host-sync histogram.
+- ``slo``       — SLO targets and multi-window burn rates
+  (``slo_burn_rate{slo,window}``) with alert events.
+- ``flightrecorder`` — bounded rings of recent decode chunks and request
+  edges.
+
+Instrumentation is always on (host-side arithmetic, no device cost); the
+exporters are opt-in through ``configure`` (the CLI's ``--telemetry-dir``).
+``SpeculationStats``/``ServingStats`` publish into the registry
+(``utils/profiling.py``). Not ported yet (ROADMAP A7): the incident engine,
+the fairness monitor, and the device-facing modules (cost model, compile
+stats, memory ledger, roofline).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from fairness_llm_tpu_torch.telemetry.export import (
+    EVENTS_FILENAME,
+    EVENTS_MAX_BYTES,
+    JsonlSink,
+    load_snapshot,
+    read_events,
+    render_report,
+    snapshot,
+    to_prometheus,
+    validate_snapshot,
+    write_snapshot,
+)
+from fairness_llm_tpu_torch.telemetry.flightrecorder import (
+    FlightRecorder,
+    get_flight_recorder,
+    recording_on,
+    set_flight_recorder,
+    set_recording,
+    use_flight_recorder,
+)
+from fairness_llm_tpu_torch.telemetry.heartbeat import Heartbeat
+from fairness_llm_tpu_torch.telemetry.registry import (
+    DEFAULT_COUNT_BOUNDS,
+    DEFAULT_LATENCY_BOUNDS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    get_registry,
+    set_registry,
+    use_registry,
+)
+from fairness_llm_tpu_torch.telemetry.slo import (
+    SLOEvaluator,
+    SLOTargets,
+    get_slo_targets,
+    render_slo_report,
+    set_slo_targets,
+)
+from fairness_llm_tpu_torch.telemetry.timeline import (
+    TRACE_FILENAME,
+    Timeline,
+    attribution_on,
+    get_timeline,
+    set_attribution,
+    set_timeline,
+    summarize_chrome_trace,
+    use_timeline,
+    validate_chrome_trace,
+)
+from fairness_llm_tpu_torch.telemetry.tracing import (
+    RequestTracer,
+    SpanEvent,
+    TraceSummaryRow,
+    assert_span_order,
+)
+
+# -- process-wide event sink --------------------------------------------------
+# One sink per process, installed by ``configure`` (the CLI's
+# --telemetry-dir) or by tests directly. emit_event is a no-op without one,
+# so span recording costs nothing in runs that export nothing.
+
+_event_sink: Optional[JsonlSink] = None
+
+
+def install_event_sink(sink: Optional[JsonlSink]) -> Optional[JsonlSink]:
+    """Install (or, with None, remove) the process event sink; returns the
+    previous one so callers can restore it."""
+    global _event_sink
+    prev, _event_sink = _event_sink, sink
+    return prev
+
+
+def event_sink() -> Optional[JsonlSink]:
+    return _event_sink
+
+
+def emit_event(kind: str, **fields) -> None:
+    if _event_sink is not None:
+        _event_sink.emit(kind, **fields)
+
+
+def configure(telemetry_dir: str, events_max_bytes: Optional[int] = None) -> JsonlSink:
+    """Stand up the exporters for a run: make the telemetry dir and install
+    the JSONL event sink there, size-rotated (``events.jsonl.1..N`` kept).
+    Snapshot writing stays explicit (``write_snapshot`` at the end of a
+    run)."""
+    import os
+
+    os.makedirs(telemetry_dir, exist_ok=True)
+    sink = JsonlSink(os.path.join(telemetry_dir, EVENTS_FILENAME),
+                     max_bytes=(events_max_bytes if events_max_bytes is not None
+                                else EVENTS_MAX_BYTES))
+    install_event_sink(sink)
+    return sink
+
+
+__all__ = [
+    "Counter",
+    "DEFAULT_COUNT_BOUNDS",
+    "DEFAULT_LATENCY_BOUNDS",
+    "FlightRecorder",
+    "Gauge",
+    "Heartbeat",
+    "Histogram",
+    "JsonlSink",
+    "MetricsRegistry",
+    "RequestTracer",
+    "SLOEvaluator",
+    "SLOTargets",
+    "SpanEvent",
+    "TRACE_FILENAME",
+    "Timeline",
+    "TraceSummaryRow",
+    "assert_span_order",
+    "attribution_on",
+    "configure",
+    "emit_event",
+    "event_sink",
+    "get_flight_recorder",
+    "get_registry",
+    "get_slo_targets",
+    "get_timeline",
+    "install_event_sink",
+    "load_snapshot",
+    "read_events",
+    "recording_on",
+    "render_report",
+    "render_slo_report",
+    "set_attribution",
+    "set_flight_recorder",
+    "set_recording",
+    "set_registry",
+    "set_slo_targets",
+    "set_timeline",
+    "snapshot",
+    "summarize_chrome_trace",
+    "to_prometheus",
+    "use_flight_recorder",
+    "use_registry",
+    "use_timeline",
+    "validate_chrome_trace",
+    "validate_snapshot",
+    "write_snapshot",
+]

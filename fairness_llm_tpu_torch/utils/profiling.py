@@ -1,11 +1,19 @@
-"""Decode and serving counters (counterpart of ``SpeculationStats`` and
-``ServingStats`` in ``fairness_llm_tpu/utils/profiling.py``; the
-reference's ``publish`` to the telemetry registry waits for the port's
-telemetry slice)."""
+"""Decode and serving counters and the phase timer (counterpart of
+``SpeculationStats``, ``ServingStats`` and ``phase_timer`` in
+``fairness_llm_tpu/utils/profiling.py``). Each stats object ``publish``es
+its counters into the telemetry registry (``telemetry/registry.py``), so
+the registry's totals equal the merged records. The reference's
+``maybe_trace``/``summarize_trace`` read XProf traces and are not ported."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
+import time
+from typing import Iterator, Optional
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -64,6 +72,18 @@ class SpeculationStats:
             "draft_len": self.draft_len,
             "ngram_max": self.ngram_max,
         }
+
+    def publish(self, registry=None, component: str = "engine") -> None:
+        """Mirror this object's counters into the telemetry registry; the
+        engine publishes each call's stats once, so the registry's totals
+        equal the merged sweep totals."""
+        from fairness_llm_tpu_torch.telemetry import get_registry
+
+        reg = registry if registry is not None else get_registry()
+        reg.counter("spec_drafted_total", component=component).inc(self.drafted)
+        reg.counter("spec_accepted_total", component=component).inc(self.accepted)
+        reg.counter("spec_verify_steps_total", component=component).inc(self.verify_steps)
+        reg.counter("spec_emitted_total", component=component).inc(self.emitted)
 
 
 @dataclasses.dataclass
@@ -137,3 +157,35 @@ class ServingStats:
         out["avg_occupancy"] = round(self.avg_occupancy, 3)
         out["avg_queue_depth"] = round(self.avg_queue_depth, 3)
         return out
+
+    def publish(self, registry=None, component: str = "serving", labels=None) -> None:
+        """Mirror one drain's counters into the telemetry registry (call once
+        per drain, so the registry carries process totals). ``num_slots``
+        and ``queue_depth_max`` are levels, not event counts, so they
+        publish as gauges; ``labels`` adds instrument labels."""
+        from fairness_llm_tpu_torch.telemetry import get_registry
+
+        reg = registry if registry is not None else get_registry()
+        lbl = dict(labels or {})
+        for name in ("admitted", "completed", "failed", "expired", "preempted", "shed",
+                     "rejected", "requeued", "prefill_batches", "prefill_tokens",
+                     "decode_steps", "decoded_tokens", "loop_iterations"):
+            reg.counter(f"serving_{name}_total", component=component,
+                        **lbl).inc(getattr(self, name))
+        reg.gauge("serving_num_slots", component=component, **lbl).set(self.num_slots)
+        reg.gauge("serving_queue_depth_max", component=component,
+                  **lbl).set_max(self.queue_depth_max)
+
+
+@contextlib.contextmanager
+def phase_timer(name: str, sink: Optional[dict] = None) -> Iterator[None]:
+    """Wall-clock phase timing, logged, with an optional dict sink for
+    machine-readable timings."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        logger.info("%s took %.2fs", name, dt)
+        if sink is not None:
+            sink[name] = dt

@@ -665,3 +665,59 @@ def test_quant_matmul_gemm_repeats_bit_for_bit(dev, qmm_weights):
         got = qmm.quant_matmul(x, wq, scale, out_dtype=torch.bfloat16)
         assert torch.equal(got, first), f"call {i} differs from the first"
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8_cache"])
+def test_paged_gather_scatter_round_trip_on_the_card(dev, quant):
+    """The paged arena's gather into the view buffer and scatter back
+    through write tables, on the card at llama3-8b's head shape: a view
+    written and scattered reads back exactly; sink entries leave shared
+    blocks alone; K2 over the gathered view equals K2 over the same keys
+    laid out contiguously."""
+    import dataclasses
+
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.models.transformer import init_cache
+    from fairness_llm_tpu_torch.serving import paged
+
+    cfg = dataclasses.replace(get_model_config("llama3-8b"), num_layers=2,
+                              kv_cache_quant=quant)
+    N, bs, nb, B = 40, 16, 6, 4
+    arena = paged.init_arena(cfg, N, bs, B, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for t in arena.tensors():
+        src = torch.randn(t.shape, generator=g, device=dev) * 40
+        t.copy_(src.to(t.dtype) if t.is_floating_point() else src.round().to(t.dtype))
+    if quant:
+        for lc in arena.layers:
+            lc.k_scale.abs_().add_(1e-3)
+            lc.v_scale.abs_().add_(1e-3)
+    arena.key_valid.fill_(True)
+    before = [t.clone() for t in arena.tensors()]
+    tables = torch.arange(B * nb, device=dev).view(B, nb) + 1
+    tables[:, 0] = 0  # block 0 shared by every row
+    wtables = tables.clone()
+    wtables[:, 0] = N  # the shared block is read-only: its entries go to the sink
+    view = init_cache(cfg, B, nb * bs, device=dev)
+    v = paged.gather_view(arena, tables, arena.lengths, view)
+    torch.cuda.synchronize()
+    for lc, big in zip(v.layers, arena.layers):
+        assert torch.equal(lc.k.view(B * nb, bs, *lc.k.shape[2:]), big.k[tables.reshape(-1)])
+    q = torch.randn(B, cfg.num_heads, cfg.head_dim, generator=g, device=dev)
+    q = q.to(torch.bfloat16)
+    layer = v.layers[0]
+    kw = dict(k_scale=layer.k_scale, v_scale=layer.v_scale) if quant else {}
+    out = dec_mod.decode_attention(q, layer.k, layer.v, v.key_valid, **kw)
+    contig = [x.clone() for x in (layer.k, layer.v)]
+    want = dec_mod.decode_attention(q, contig[0], contig[1], v.key_valid.clone(), **kw)
+    assert torch.equal(out, want)
+    for lc in v.layers:
+        lc.k.add_(1)
+    paged.scatter_view(arena, v, wtables)
+    torch.cuda.synchronize()
+    k0 = arena.layers[0].k
+    assert torch.equal(k0[0], before[0][0])  # shared block untouched
+    assert torch.equal(k0[1:B * nb + 1], (before[0][1:B * nb + 1] + 1))
+    assert torch.equal(k0[B * nb + 1:N], before[0][B * nb + 1:N])
+    v2 = paged.gather_view(arena, tables, arena.lengths, view)
+    assert torch.equal(v2.layers[0].k[:, bs:], v.layers[0].k[:, bs:])

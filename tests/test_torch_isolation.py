@@ -44,6 +44,51 @@ def test_importing_every_module_leaves_jax_out():
     assert int(res.stdout.strip()) >= 40
 
 
+# Modules whose lazy imports (inside functions) run only when they are
+# used: the paged KV cache and the telemetry core.
+LAZY = ["serving/paged.py"] + [f"telemetry/{m}.py" for m in (
+    "__init__", "registry", "timeline", "slo", "tracing", "flightrecorder", "export",
+    "heartbeat")]
+
+
+def test_paged_and_telemetry_at_work_leave_jax_out(tmp_path):
+    """Import is not enough for the modules that import inside their
+    functions: drive the paged manager and every telemetry module (tracer
+    to its SLO alert, heartbeat gap, flight recorder, snapshot and trace
+    export) in a fresh interpreter and check what it loaded."""
+    assert {str(p.relative_to(PKG)) for p in _port_sources() if PKG in p.parents} >= set(LAZY)
+    code = (
+        "import sys\n"
+        "from fairness_llm_tpu_torch import telemetry as T\n"
+        "from fairness_llm_tpu_torch.serving.paged import PagedKV\n"
+        "from fairness_llm_tpu_torch.utils.profiling import ServingStats, phase_timer\n"
+        f"sink = T.configure({str(tmp_path)!r})\n"
+        "p = PagedKV(2, 4, 4)\n"
+        "p.admit(0, list(range(9))); p.commit(0, list(range(9))); p.release(0)\n"
+        "tr = T.RequestTracer()\n"
+        "for i in range(4):\n"
+        "    tr.record(f'r{i}', 'submitted'); tr.finalize(f'r{i}', 'failed', tokens=0)\n"
+        "tr.slo.evaluate()\n"
+        "clock = [0.0]\n"
+        "hb = T.Heartbeat(interval_s=1.0, clock=lambda: clock[0])\n"
+        "hb.poke(); clock[0] = 10.0; hb.poke()\n"
+        "T.get_flight_recorder().record('chunks', steps=1)\n"
+        "ServingStats(admitted=1).publish()\n"
+        "with phase_timer('x'):\n"
+        "    pass\n"
+        f"T.write_snapshot(T.get_registry(), {str(tmp_path)!r})\n"
+        f"T.get_timeline().export({str(tmp_path / 'trace.json')!r})\n"
+        "T.render_report(T.snapshot(T.get_registry()))\n"
+        "sink.close()\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {OUTSIDE!r})\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert (tmp_path / "telemetry_snapshot.json").exists()
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax(path):
     hits = FORBIDDEN.findall(path.read_text())

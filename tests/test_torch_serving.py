@@ -229,9 +229,11 @@ def test_serving_config_matches_the_reference_and_refuses_later_slices():
     got, want = ServingConfig(), JServingConfig()
     for f in dataclasses.fields(ServingConfig):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
-    for kw in (dict(paged_kv=True), dict(kv_block_size=32), dict(kv_blocks=64), dict(tp=2)):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            ServingConfig(**kw)
+    # the paged KV cache is ported; tensor-parallel serving is not
+    for kw in (dict(paged_kv=True), dict(kv_block_size=32), dict(kv_blocks=64)):
+        assert dataclasses.asdict(ServingConfig(**kw)) == dataclasses.asdict(JServingConfig(**kw))
+    with pytest.raises(NotImplementedError, match="tp"):
+        ServingConfig(tp=2)
 
 
 # ---------------------------------------------------------------------------
@@ -540,12 +542,12 @@ def test_cli_continuous_runs(tmp_path, capsys):
     assert "PHASE 1 SUMMARY" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["--paged-kv", "--tp", "--overload", "--replicas",
-                                  "--autoscale", "--serving-journal"])
+@pytest.mark.parametrize("flag", ["--tp", "--overload", "--replicas", "--autoscale",
+                                  "--serving-journal", "--mesh", "--max-step-seconds"])
 def test_cli_refuses_the_later_serving_flags(flag):
     from fairness_llm_tpu_torch.cli import main as tcli
 
-    value = [] if flag in ("--paged-kv", "--overload", "--autoscale") else ["2"]
+    value = [] if flag in ("--overload", "--autoscale") else ["2"]
     with pytest.raises(NotImplementedError, match=flag):
         tcli.main(["--phase", "1", "--no-save", "--device", "cpu", "--continuous", flag]
                   + value)
