@@ -24,7 +24,8 @@ with int8 weights. Last it runs phases 2 and 3 of the study
 same models, with their teacher-forced scoring forward, and the phase-1
 sweep once more through the continuous-batching server
 (``serving/ContinuousScheduler`` behind ``backend_for``), then through its
-paged KV cache with prefix reuse, and the CLI's telemetry export.
+paged KV cache with prefix reuse, and the CLI's telemetry export; and last
+it drives the fault containment on the card.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -225,6 +226,39 @@ path's launch counts are set to 0 just before it and read just after:
      Last the CLI's ``--continuous --paged-kv --telemetry-dir`` run on
      tiny-llama-study: its snapshot must pass ``validate_snapshot`` and
      hold the paged gauges, its ``trace.json`` ``validate_chrome_trace``.
+  fault containment (``utils/failures.py``, ``resilience/``, ``integrity/``,
+  ``telemetry/incidents.py``), after phase 25:
+ 26. (a) the greedy phase-1 sweep on both study checkpoints through
+     ``backend_for`` with the numerics guard, the watchdog (600 s), the
+     breakers and an armed incident engine, in phase 24's pool and in its
+     paged twin, under a fault script (``STUDY_SCRIPT``: a prefill fault
+     and a decode fault that requeue once, a request that faults twice, a
+     NaN in the carried logits, a simulated hang): the fault, numerics,
+     hang and requeue counters must be the script's, requeued and failed
+     too, the twice-faulted request an error row, every other row phase
+     24's fault-free served row (or differing only where the top two
+     logits are within 1e-4, as phase 20), the bundles valid, and, paged,
+     the arena never dropped and the hit ratio above 0.5. (b) On llama3-8b
+     int8 (phase 24's engine) in the control pool (16 × 960): the greedy
+     sweep with guards, breakers, the watchdog (60 s) and a canary every
+     call (recorded in a pool of the live pool's shape): no fault, no hang,
+     no canary mismatch, every row phase 24's, its wall logged beside
+     phase 24's; then a direct serve of 16 prompts with one decode fault
+     and one NaN: the counters the script implies, every request complete
+     after one requeue, its kernel calls held, its rows against the
+     fault-free ones reported in bf16 and gated in float32 over the same
+     weights (as phase 25). (c) One speculative greedy engine call and an
+     int8-KV serve with breakers and guards: K3 and K2q launch, every bf16
+     launch on a tensor-core kernel, no engine fault. (d) A child process
+     serving the tiny-llama-study sweep triggers a device-side assert at a
+     decode step: it must exit non-zero, name the CUDA error on stderr and
+     leave no record or checkpoint with an error row. (e)
+     ``request_drain(grace_s=0)`` after two scheduler steps preempts
+     requests into a journal and ``resume_serving`` completes them with the
+     uninterrupted tokens; then the CLI's ``--continuous --serving-journal
+     --numerics-guards --incidents --telemetry-dir`` run gets a SIGTERM
+     mid-run (exit 0), ``resume-serving`` finishes its journal (exit 0) and
+     ``incident-report`` renders.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
@@ -239,7 +273,9 @@ path's launch counts are set to 0 just before it and read just after:
   FULL_WIDTH) and its rows as ``serving_shapes``; and phase 25's launches
   on the paged t=0.7 sweeps and the int8-KV serve as ``paged_launches``
   ("study", FULL_WIDTH, FULL_WIDTH + "_kv_int8") and its rows as
-  ``paged_shapes``.
+  ``paged_shapes``; and phase 26's launches on the contained study sweeps
+  and the full-width runs (b)-(c) as ``containment_launches`` ("study",
+  FULL_WIDTH) and its rows as ``containment_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -2554,6 +2590,7 @@ def full_width_served(torch, F, tmp: pathlib.Path, engine_wall_s: float, device_
     del control, sched, eb
     torch.cuda.empty_cache()
     return launches, kernel_rows, {"row": row, "held": held, "greedy": gserved,
+                                   "greedy_wall_s": gate_row["served_greedy_wall_s"],
                                    "engine": engine}
 
 
@@ -3156,7 +3193,8 @@ def paged_path(torch, F, device_line: str, sweep: dict, p24: dict) -> dict:
     """Phase 25. Returns each kernels-line entry's launches on the paged
     t=0.7 sweeps (the study models together, "study"; FULL_WIDTH) and on
     the int8-KV serve (FULL_WIDTH + "_kv_int8"), and the kernel rows of the
-    calls no earlier phase held, by entry."""
+    calls no earlier phase held, by entry. Phase 24's full-width engine
+    stays in ``p24`` for phase 26, which frees it."""
     import gc
     import tempfile
 
@@ -3178,12 +3216,585 @@ def paged_path(torch, F, device_line: str, sweep: dict, p24: dict) -> dict:
         launches[FULL_WIDTH], launches[FULL_WIDTH + "_kv_int8"], full_rows = \
             full_width_paged(torch, F, pathlib.Path(tmp), full, sweep["full_width_wall_s"],
                              device_line, held)
-        del full["engine"]
         gc.collect()
         torch.cuda.empty_cache()
         log(f"paged_telemetry_cli {json.dumps(telemetry_cli_run(torch, pathlib.Path(tmp)))}")
     for k, v in full_rows.items():
         rows.setdefault(k, []).extend(v)
+    return {"launches": launches, "rows": rows, "held": held}
+
+
+# Phase 26: fault containment on the card (utils/failures.py, resilience/,
+# integrity/): the served sweep with scripted faults, the breakers, the
+# watchdog, the numerics guard and the canary armed, a fatal CUDA error in a
+# child process, and drain, the serving journal and resume.
+#
+# The study script, one ScriptedFaultInjector a generate call of the sweep
+# (its first three keys): call 0 a prefill fault and a decode fault that
+# requeue once and a request that faults twice at prefill ("failed", an
+# error row); call 1 a NaN in the carried logits of its first key (the
+# guard discards that decode chunk: every rider requeues, cause numerics);
+# call 2 a simulated hang of an hour (the watchdog classifies that chunk).
+STUDY_SCRIPT = (
+    lambda k: dict(faults={(k[0], "prefill"): 1, (k[1], "decode"): 1, k[2]: 2}),
+    lambda k: dict(corruptions={(k[0], "decode"): 1}),
+    lambda k: dict(hangs={(k[0], "decode"): 1}),
+)
+# The study runs: the watchdog far above any real step, breakers that
+# never trip on the script (so that the counters are the script's).
+STUDY_RESILIENCE = dict(enabled=True, max_step_seconds=600.0, breaker_threshold=100)
+# The full-width runs: the reference's breakers and a watchdog of 60 s (a
+# decode chunk takes ~0.4 s, a prefill group ~0.7 s; first uses exempt).
+FULL_WIDTH_RESILIENCE = dict(enabled=True, max_step_seconds=60.0)
+# The full-width faulted serve: this many of the sweep's prompts, greedy, in
+# the control pool; one decode fault and one NaN, in its first decode chunk.
+FAULT_REQUESTS, FAULT_TOKENS = 16, 32
+# The drill of a fatal CUDA error: the decode step at which the child
+# indexes a tensor out of range on the card (a device-side assert).
+FATAL_STEP = 20
+
+
+def containment_counts(dec_mod, flash_mod, qm) -> dict:
+    """Each kernels-line entry's launches since the counts were zeroed, by
+    the CUDA kernel it names: K1's and K2's tensor-core and float32 kernels
+    apart, K2q and the verify windows by their own counters."""
+    quant = dec_mod.quant_launches
+    plain_tc = dec_mod.decode_tc_launches - quant
+    return {"flash_attention": flash_mod.tc_launches,
+            "flash_attention_f32": flash_mod.launches - flash_mod.tc_launches,
+            "decode_attention": plain_tc, "decode_attention_f32": dec_mod.launches - plain_tc,
+            "decode_attention_verify": dec_mod.multi_launches,
+            "decode_attention_int8_cache": quant,
+            "decode_attention_verify_int8_cache": dec_mod.multi_quant_launches,
+            "quant_matmul_gemv": qm.gemv_launches, "quant_matmul_gemm": qm.gemm_launches}
+
+
+class ScriptedCalls:
+    """Wraps a ``ServingBackend``'s ``generate`` for one sweep: before call
+    i it hands the scheduler a ``ScriptedFaultInjector`` built from
+    ``script[i]`` over that call's keys (no fault past the script), and it
+    keeps every call's keys."""
+
+    def __init__(self, backend, script):
+        from fairness_llm_tpu_torch.utils.failures import ScriptedFaultInjector
+
+        self.keys, outer = [], backend.generate
+
+        def generate(prompts, settings=None, seed=0, keys=None, prefix_ids=None):
+            i = len(self.keys)
+            self.keys.append(list(keys))
+            spec = script[i](keys) if i < len(script) else {}
+            backend.fault_injector = ScriptedFaultInjector(**spec)
+            backend.scheduler_for(settings).fault_injector = backend.fault_injector
+            return outer(prompts, settings, seed=seed, keys=keys, prefix_ids=prefix_ids)
+
+        backend.generate = generate
+
+
+def counters_of(reg, names) -> dict:
+    """The registry's counters named ``names``: {"name{k=v,...}": value}."""
+    from fairness_llm_tpu_torch import telemetry as T
+
+    return {c["name"] + "{" + ",".join(f"{k}={v}" for k, v in sorted(c["labels"].items()))
+            + "}": c["value"] for c in T.snapshot(reg)["counters"] if c["name"] in names}
+
+
+FAULT_COUNTERS = ("faults_total", "numerics_faults_total", "watchdog_hangs_total",
+                  "serving_requeues_by_cause_total", "canary_runs_total",
+                  "canary_mismatch_total", "static_fallback_calls_total")
+
+
+def study_script_counters(riders: int) -> dict:
+    """What ``STUDY_SCRIPT`` implies in a pool of ``riders`` slots (the NaN
+    and the hang each discard a full first chunk)."""
+    s = "component=serving,"
+    return {f"faults_total{{{s}kind=injected,stage=prefill}}": 3,
+            f"faults_total{{{s}kind=injected,stage=decode}}": 1,
+            f"faults_total{{{s}kind=injected_corruption,stage=decode}}": 1,
+            f"faults_total{{{s}kind=numerics,stage=decode}}": 1,
+            f"faults_total{{{s}kind=injected_hang,stage=decode}}": 1,
+            f"faults_total{{{s}kind=hang,stage=decode}}": 1,
+            f"numerics_faults_total{{{s}stage=decode}}": 1,
+            f"watchdog_hangs_total{{{s}stage=decode}}": 1,
+            "serving_requeues_by_cause_total{cause=injected,component=serving}": 3,
+            "serving_requeues_by_cause_total{cause=numerics,component=serving}": riders,
+            "serving_requeues_by_cause_total{cause=hang,component=serving}": riders}
+
+
+def without_rows(rec, drop) -> "types.SimpleNamespace":
+    """A ``SweepRecorder``'s calls without the rows at (call, row) in
+    ``drop``."""
+    import types
+
+    return types.SimpleNamespace(calls=[
+        ([p for ri, p in enumerate(prompts) if (ci, ri) not in drop],
+         [r for ri, r in enumerate(rows) if (ci, ri) not in drop])
+        for ci, (prompts, rows) in enumerate(rec.calls)])
+
+
+def study_contained(torch, name: str, tmp: pathlib.Path, served_card, paged: bool) -> dict:
+    """Phase 26(a) for one study checkpoint: the greedy sweep through
+    ``backend_for`` with guards, the watchdog, breakers and an armed
+    incident engine, under ``STUDY_SCRIPT``, in phase 24's pool (or its
+    paged twin). The counters must be the script's, the failed request an
+    error row, every other row phase 24's greedy served row (or differing
+    only at the CPU's near ties, as phase 20), the bundles valid; paged, the
+    arena is never dropped and the hit ratio stays above 0.5."""
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.config import (
+        Config,
+        IntegrityConfig,
+        ResilienceConfig,
+        ServingConfig,
+    )
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+    from fairness_llm_tpu_torch.serving import paged as paged_mod
+
+    serving = STUDY_PAGED if paged else STUDY_SERVING
+    label = f"{name} contained{' paged' if paged else ''}"
+    cfg = greedy_config(Config(weights_dir=str(ROOT / "checkpoints"),
+                               data_dir=str(ROOT / "data" / "ml-1m"),
+                               results_dir=str(tmp / name / ("cpaged" if paged else "cserved")),
+                               serving=ServingConfig(**serving),
+                               resilience=ResilienceConfig(**STUDY_RESILIENCE),
+                               integrity=IntegrityConfig(numerics_guards=True)),
+                        name, MAX_TOKENS)
+    backend = backend_for(name, cfg)
+    if not backend.engine.numerics_guards or backend.board is None:
+        fail(f"{label}: backend_for armed no numerics guard or breakers")
+    script = ScriptedCalls(backend, STUDY_SCRIPT)
+    calls = SweepRecorder(backend)
+    tel = tmp / name / ("ptel" if paged else "tel")
+    resets = []
+    real_reset = paged_mod.PagedKV.reset
+    paged_mod.PagedKV.reset = lambda self: (resets.append(1), real_reset(self))[1]
+    t0 = time.perf_counter()
+    try:
+        with T.use_registry() as reg, T.use_incident_manager(
+                T.IncidentManager(str(tel / "incidents"))):
+            rec = run_phase1(cfg, name, backend=backend, save=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counters_of(reg, FAULT_COUNTERS)
+            gauges = paged_gauges(reg, label) if paged else None
+    finally:
+        paged_mod.PagedKV.reset = real_reset
+    riders = serving["num_slots"]
+    want = study_script_counters(riders)
+    if got != want:
+        fail(f"{label}: fault counters {got}, the script implies {want}")
+    totals = backend.serve_totals
+    if (totals.requeued, totals.failed) != (3 + 2 * riders, 1):
+        fail(f"{label}: requeued {totals.requeued}, failed {totals.failed}; the script "
+             f"implies {3 + 2 * riders} and 1")
+    failed_key = script.keys[0][2]
+    errors = sorted(k for k, e in rec["recommendations"].items() if "error" in e)
+    if errors != [failed_key] or rec["recommendations"][failed_key]["error"] != "decode_failed":
+        fail(f"{label}: error rows {errors}, the script fails {failed_key} only")
+    differ = greedy_divergences(label, without_rows(served_card, {(0, 2)}),
+                                without_rows(calls, {(0, 2)}), backend.engine, torch,
+                                against="the fault-free served rows")
+    problems = T.validate_incidents(str(tel), require=True)
+    bundles = sorted(b["class"] for b in T.list_bundles(str(tel / "incidents")))
+    if problems or not {"numerics_fault", "watchdog_hang"} <= set(bundles):
+        fail(f"{label}: incident bundles {bundles}, problems {problems}")
+    row = {"model": name, "serving": serving, "wall_s": wall, "counters": got,
+           "requeued": totals.requeued, "failed": totals.failed, "error_rows": errors,
+           "rows_differing_from_fault_free": differ, "bundles": bundles,
+           "calls": len(script.keys)}
+    if paged:
+        if resets or not gauges["prefix_cache_hit_ratio"] > MIN_HIT_RATIO:
+            fail(f"{label}: the arena was dropped {len(resets)} times, hit ratio "
+                 f"{gauges['prefix_cache_hit_ratio']}")
+        row["paged"], row["arena_resets"] = gauges, len(resets)
+    return row
+
+
+def full_width_contained(torch, F, tmp: pathlib.Path, p24: dict, device_line: str,
+                         held: set) -> tuple:
+    """Phase 26(b) and (c) on phase 24's llama3-8b int8 engine. (b) the
+    greedy sweep in the control pool with guards, breakers, the watchdog and
+    a canary every call: no fault, no hang, no canary mismatch, every row
+    phase 24's; then a direct serve of 16 prompts with one decode fault and
+    one NaN (both requeue once and complete), its kernel calls held, its rows
+    against the fault-free ones in bfloat16 (reported) and in float32 over
+    the same weights (gated). (c) one speculative greedy engine call and an
+    int8-KV serve with breakers and guards: K3 and K2q launch, no fault.
+    Returns the main path's launches, the rows of the calls no earlier
+    phase held, and the log row."""
+    import types
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.config import (
+        Config,
+        IntegrityConfig,
+        ModelSettings,
+        ResilienceConfig,
+        ServingConfig,
+        SpeculationConfig,
+    )
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+    from fairness_llm_tpu_torch.resilience import BreakerBoard
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+    from fairness_llm_tpu_torch.serving import ContinuousScheduler, Request, ServingBackend
+    from fairness_llm_tpu_torch.utils.failures import ScriptedFaultInjector
+
+    engine, want = p24["engine"], p24["greedy"]
+    cfg = greedy_config(Config(weight_quant="int8", max_new_tokens=MAX_TOKENS,
+                               data_dir=str(ROOT / "data" / "ml-1m"),
+                               results_dir=str(tmp / "contained")), MODEL, MAX_TOKENS)
+    row = {"model": MODEL, "weight_quant": "int8", "device": device_line,
+           "serving": CONTROL_SERVING, "resilience": FULL_WIDTH_RESILIENCE}
+    resilience = ResilienceConfig(**FULL_WIDTH_RESILIENCE)
+    engine.numerics_guards = True
+    zero_all(dec_mod, flash_mod, qm)
+    with T.use_registry() as reg, T.use_incident_manager(
+            T.IncidentManager(str(tmp / "ctel" / "incidents"))), \
+            flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+        # (b) the guarded sweep, a canary probe before every call
+        backend = ServingBackend(engine, ServingConfig(**CONTROL_SERVING), name=MODEL,
+                                 resilience=resilience,
+                                 integrity=IntegrityConfig(numerics_guards=True,
+                                                           canary_every_n=1))
+        served = SweepRecorder(backend)
+        t0 = time.perf_counter()
+        run_phase1(cfg, MODEL, backend=backend, save=False)
+        torch.cuda.synchronize()
+        row["guarded_sweep_wall_s"] = time.perf_counter() - t0
+        row["phase24_served_greedy_wall_s"] = p24["greedy_wall_s"]
+        row["guarded_sweep"] = {**served.served_totals(), "counters": counters_of(
+            reg, FAULT_COUNTERS), "watchdog_step_s_max": reg.peek(
+            "watchdog_last_step_s", component="serving").value}
+        runs = row["guarded_sweep"]["counters"].get("canary_runs_total{component=serving}", 0)
+        if set(row["guarded_sweep"]["counters"]) != {"canary_runs_total{component=serving}"} \
+                or runs != len(served.calls):
+            fail(f"llama3-8b contained: the guarded sweep counted "
+                 f"{row['guarded_sweep']['counters']}; only {len(served.calls)} canary runs "
+                 "may be there")
+        parting = [(ci, ri) for ci, (a, b) in enumerate(zip(want.calls, served.calls))
+                   for ri, (x, y) in enumerate(zip(a[1], b[1])) if x != y]
+        if [c[0] for c in want.calls] != [c[0] for c in served.calls] or parting:
+            fail(f"llama3-8b contained: the guarded sweep's rows part from phase 24's at "
+                 f"{parting}")
+        row["guarded_sweep_rows"] = sum(len(c[0]) for c in served.calls)
+        del backend, served
+        engine.breakers = engine.watchdog = None
+
+        # (b) one decode fault and one NaN in the first decode chunk
+        prompts = want.calls[0][0][:FAULT_REQUESTS]
+        settings = ModelSettings(temperature=0.0, max_tokens=FAULT_TOKENS)
+
+        def direct(eng, faults: bool):
+            inj = (ScriptedFaultInjector(faults={("r1", "decode"): 1},
+                                         corruptions={("r4", "decode"): 1}) if faults else None)
+            sched = ContinuousScheduler(eng, ServingConfig(**CONTROL_SERVING), settings=settings,
+                                        fault_injector=inj, resilience=resilience)
+            results = sched.serve([Request(prompt=p, id=f"r{i}", settings=settings)
+                                   for i, p in enumerate(prompts)])
+            stats = sched.last_stats.as_dict()
+            del sched
+            return results, stats
+
+        before = counters_of(reg, FAULT_COUNTERS)
+        t0 = time.perf_counter()
+        results, stats = direct(engine, True)
+        row["faulted_serve_wall_s"] = time.perf_counter() - t0
+        moved = {k: v - before.get(k, 0) for k, v in counters_of(reg, FAULT_COUNTERS).items()
+                 if v != before.get(k, 0)}
+        want_moved = {
+            "faults_total{component=serving,kind=injected,stage=decode}": 1,
+            "faults_total{component=serving,kind=injected_corruption,stage=decode}": 1,
+            "faults_total{component=serving,kind=numerics,stage=decode}": 1,
+            "numerics_faults_total{component=serving,stage=decode}": 1,
+            "serving_requeues_by_cause_total{cause=injected,component=serving}": 1,
+            "serving_requeues_by_cause_total{cause=numerics,component=serving}":
+                FAULT_REQUESTS - 1}
+        by_id = {r.id: r for r in results}
+        if moved != want_moved or not all(r.ok for r in results) \
+                or (by_id["r1"].retries, by_id["r4"].retries) != (1, 1):
+            fail(f"llama3-8b contained: the faulted serve moved {moved} (the script implies "
+                 f"{want_moved}); outcomes {[(r.id, r.finish_reason, r.retries) for r in results]}")
+        row["faulted_serve"] = {"stats": stats, "counters": moved}
+        pad = engine.tokenizer.pad_id
+        faulted = types.SimpleNamespace(calls=[(prompts, [_strip(r.tokens, pad)
+                                                          for r in results])])
+        fault_free = types.SimpleNamespace(calls=[(prompts, [
+            r[:FAULT_TOKENS] for r in want.calls[0][1][:FAULT_REQUESTS]])])
+        row["faulted_bf16_rows_parting"] = paged_gate(
+            "llama3-8b int8 faulted serve, bf16 (reported)", fault_free, faulted, engine,
+            CONTROL_SERVING, torch, f32=False, hard=False)
+
+        # (c) speculation and the int8 KV cache, guards and breakers armed
+        engine.breakers = BreakerBoard(component="engine")
+        spec_out = engine.generate(prompts, settings, speculation=SpeculationConfig(enabled=True))
+        row["speculative"] = spec_out.stats["speculation"]
+        engine.breakers = None
+        eng_q = DecodeEngine(dataclasses.replace(engine.config, kv_cache_quant=True),
+                             params=engine.model.state_dict(), numerics_guards=True)
+        kv_results, row["kv_int8_serve"] = direct(eng_q, False)
+        if not all(r.ok for r in kv_results):
+            fail("llama3-8b contained: the int8-KV serve failed a request")
+        del eng_q
+        torch.cuda.synchronize()
+        launches = containment_counts(dec_mod, flash_mod, qm)
+        if launches["flash_attention_f32"] or launches["decode_attention_f32"] \
+                or dec_mod.multi_tc_launches != (dec_mod.multi_launches
+                                                 + dec_mod.multi_quant_launches):
+            fail(f"a bf16 launch of the full-width containment path ran no tensor-core "
+                 f"kernel: {launches}, K3 on decode_verify_tc {dec_mod.multi_tc_launches}")
+        final = counters_of(reg, FAULT_COUNTERS)
+        if any(k.startswith("faults_total{component=engine") for k in final):
+            fail(f"llama3-8b contained: the engine counted faults {final}")
+        bundles = sorted(b["class"] for b in T.list_bundles(str(tmp / "ctel" / "incidents")))
+    need_launches(launches, ("flash_attention", "decode_attention", "decode_attention_verify",
+                             "decode_attention_int8_cache", "quant_matmul_gemv",
+                             "quant_matmul_gemm"), "full-width containment")
+    row["launches"], row["bundles"] = launches, bundles
+    # the verify windows first: paged_rows marks every recorded key held
+    verify = [(key, call) for key, call in recs["dec"].calls.items()
+              if key[0] == "k3" and key[:-1] not in held and key not in held]
+    kernel_rows = paged_rows(recs, torch, F, qm, "containment_full_width", False, held)
+    if verify:
+        vrows = [decode_numbers(call, torch, F) for _, call in verify]
+        for r, (key, _) in zip(vrows, verify):
+            r["path"], r["scoring"] = "containment_full_width", False
+            held.add(key)
+        check_rows("decode_attention_verify", vrows, "every q_offset lowered by one")
+        kernel_rows["decode_attention_verify"] = vrows
+    del recs
+
+    # the float32 gate: the same two direct serves over the same weights
+    eng32 = float32_twin(engine)
+    eng32.numerics_guards = True
+    with T.use_registry(), T.use_incident_manager():
+        f32 = [types.SimpleNamespace(calls=[(prompts, [_strip(r.tokens, pad)
+                                                       for r in direct(eng32, faults)[0]])])
+               for faults in (False, True)]
+    row["faulted_f32_rows_differing"] = paged_gate(
+        "llama3-8b int8 faulted serve, f32", f32[0], f32[1], eng32, CONTROL_SERVING, torch,
+        f32=True)
+    engine.numerics_guards = False
+    del eng32
+    return launches, kernel_rows, row
+
+
+# The child of phase 26(d): the tiny-llama-study sweep through the server,
+# its containment armed, indexing a tensor out of range on the card at a
+# decode step (a device-side assert, sticky for the process).
+FATAL_CHILD = """
+import logging, pathlib, sys
+import torch
+root = pathlib.Path(sys.argv[1])
+sys.path.insert(0, str(root))
+logging.basicConfig(level=logging.WARNING)
+from fairness_llm_tpu_torch.config import Config, ResilienceConfig, ServingConfig
+from fairness_llm_tpu_torch.pipeline.backends import backend_for
+from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+cfg = Config(weights_dir=str(root / "checkpoints"), data_dir=str(root / "data" / "ml-1m"),
+             results_dir=sys.argv[2], serving=ServingConfig(**%(serving)r),
+             resilience=ResilienceConfig(enabled=True))
+backend = backend_for(%(model)r, cfg)
+model, real, steps = backend.engine.model, backend.engine.model.forward, [0]
+def forward(tokens, *args, **kwargs):
+    if tokens.shape[1] == 1:
+        steps[0] += 1
+        if steps[0] == %(step)d:
+            torch.zeros(4, device=tokens.device)[torch.full((1,), 1 << 20, device=tokens.device)]
+    return real(tokens, *args, **kwargs)
+model.forward = forward
+run_phase1(cfg, %(model)r, backend=backend)
+print("the sweep finished", flush=True)
+"""
+
+
+def fatal_child(tmp: pathlib.Path) -> dict:
+    """Phase 26(d): the child must exit non-zero, its stderr name the CUDA
+    error, and it must leave no record and no checkpoint with an error row:
+    containment never hides a fatal device fault."""
+    results = tmp / "fatal"
+    code = FATAL_CHILD % {"serving": STUDY_SERVING, "model": STUDY_MODELS[0],
+                          "step": FATAL_STEP}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT), str(results)],
+                          capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    err_lines = [line for line in proc.stderr.splitlines()
+                 if "CUDA error" in line or "device-side assert" in line
+                 or "fatal device error" in line]
+    records = sorted(str(p.relative_to(results)) for p in results.rglob("*.json"))
+    finished = [p for p in records if p.endswith("phase1_results.json")]
+    error_rows = [p for p in records if "decode_failed" in (results / p).read_text()]
+    row = {"returncode": proc.returncode, "wall_s": wall, "stderr_cuda_lines": err_lines[:6],
+           "files": records, "stdout_tail": proc.stdout[-200:]}
+    if proc.returncode == 0 or not err_lines or finished or error_rows \
+            or "the sweep finished" in proc.stdout:
+        fail(f"the fatal-error child was contained or hid the fault: {row}; stderr tail "
+             f"{proc.stderr[-2000:]}")
+    return row
+
+
+def drain_and_resume(torch, tmp: pathlib.Path, served_card) -> dict:
+    """Phase 26(e): ``request_drain(grace_s=0)`` after two scheduler steps
+    preempts requests into a journal, ``resume_serving`` completes them with
+    an uninterrupted run's tokens; then the CLI run with ``--serving-journal
+    --numerics-guards --incidents --telemetry-dir`` gets a SIGTERM mid-run,
+    ``resume-serving`` finishes its journal (both exit 0), and
+    ``incident-report`` renders its telemetry dir."""
+    import io
+    import signal
+    import types
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.cli import main as cli
+    from fairness_llm_tpu_torch.config import (
+        Config,
+        ModelSettings,
+        ResilienceConfig,
+        ServingConfig,
+    )
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.resilience import ServingJournal, resume_serving
+    from fairness_llm_tpu_torch.serving import ContinuousScheduler, Request
+    from fairness_llm_tpu_torch.utils.profiling import ServingStats
+
+    name = STUDY_MODELS[0]
+    engine = backend_for(name, Config(weights_dir=str(ROOT / "checkpoints"))).engine
+    prompts = served_card.calls[0][0]
+    settings = ModelSettings(temperature=0.0, max_tokens=MAX_TOKENS)
+    serving = ServingConfig(**STUDY_SERVING)
+    resilience = ResilienceConfig(enabled=True)
+    row = {"model": name}
+    with T.use_registry(), T.use_incident_manager():
+        base = ContinuousScheduler(engine, serving, settings=settings).serve(
+            [Request(prompt=p, id=f"q{i}", settings=settings) for i, p in enumerate(prompts)])
+        journal = ServingJournal(str(tmp / "journal"))
+        sched = ContinuousScheduler(engine, serving, settings=settings, resilience=resilience,
+                                    journal=journal)
+        for i, p in enumerate(prompts):
+            sched.submit(Request(prompt=p, id=f"q{i}", settings=settings))
+        stats = ServingStats(num_slots=sched.num_slots)
+        for _ in range(2):
+            sched.step(stats)
+        sched.request_drain(grace_s=0.0)
+        sched.drain()
+        outcomes = {f"q{i}": sched.take_result(f"q{i}") for i in range(len(prompts))}
+        preempted = sorted(k for k, r in outcomes.items() if r.finish_reason == "preempted")
+        open_ids = sorted(r["id"] for r in journal.unfinished())
+        if not preempted or open_ids != preempted:
+            fail(f"the drain preempted {preempted}, the journal holds {open_ids} open")
+        resumed = resume_serving(engine, journal, serving=serving, resilience=resilience)
+        if sorted(resumed) != preempted or not all(r.ok for r in resumed.values()) \
+                or journal.unfinished():
+            fail(f"resume_serving left {journal.unfinished()} open")
+        journal.close()
+    pad = engine.tokenizer.pad_id
+    idx = [int(k[1:]) for k in preempted]
+    mine = [prompts[i] for i in idx]
+    row["drain"] = {"preempted": len(preempted),
+                    "completed_before_drain": len(prompts) - len(preempted),
+                    "rows_differing_from_uninterrupted": greedy_divergences(
+                        "drain and resume",
+                        types.SimpleNamespace(calls=[(mine, [_strip(base[i].tokens, pad)
+                                                             for i in idx])]),
+                        types.SimpleNamespace(calls=[(mine, [_strip(resumed[k].tokens, pad)
+                                                             for k in preempted])]),
+                        engine, torch, against="the uninterrupted serve")}
+    del engine
+
+    # the CLI: SIGTERM mid-run, then resume-serving and incident-report
+    jdir, tel = tmp / "cli_journal", tmp / "cli_tel"
+    args = [sys.executable, "-m", "fairness_llm_tpu_torch.cli.main", "--phase", "1",
+            "--model", name, "--weights-dir", str(ROOT / "checkpoints"), "--data-dir",
+            str(ROOT / "data" / "ml-1m"), "--results-dir", str(tmp / "cli"), "--continuous",
+            "--serving-journal", str(jdir), "--numerics-guards", "--incidents",
+            "--telemetry-dir", str(tel)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, cwd=str(ROOT), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    journal_file = jdir / "journal.jsonl"
+    while time.perf_counter() - t0 < 300 and proc.poll() is None and not (
+            journal_file.exists() and journal_file.stat().st_size):
+        time.sleep(0.02)
+    signalled = proc.poll() is None
+    if signalled:
+        proc.send_signal(signal.SIGTERM)
+    out, err = proc.communicate(timeout=600)
+    cli_row = {"returncode": proc.returncode, "signalled": signalled,
+               "wall_s": time.perf_counter() - t0,
+               "drained": "drained by a signal" in out,
+               "open_after_run": len(ServingJournal(str(jdir)).unfinished())}
+    if proc.returncode != 0 or not signalled:
+        fail(f"the journaled CLI run: {cli_row}; stderr tail {err[-2000:]}")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "fairness_llm_tpu_torch.cli.main",
+                          "resume-serving", str(jdir), "--model", name, "--weights-dir",
+                          str(ROOT / "checkpoints")], cwd=str(ROOT), capture_output=True,
+                         text=True, timeout=600)
+    cli_row.update(resume_returncode=res.returncode, resume_wall_s=time.perf_counter() - t0,
+                   resume_said=[line for line in res.stdout.splitlines()
+                                if line.startswith("resumed")],
+                   open_after_resume=len(ServingJournal(str(jdir)).unfinished()))
+    if res.returncode != 0 or cli_row["open_after_resume"]:
+        fail(f"resume-serving: {cli_row}; stderr tail {res.stderr[-2000:]}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["incident-report", str(tel)])
+    report = buf.getvalue()
+    if rc != 0 or not report.strip():
+        fail(f"incident-report exited {rc}: {report[-500:]}")
+    cli_row["incident_report_lines"] = len(report.splitlines())
+    cli_row["bundles"] = sorted(b["class"] for b in T.list_bundles(str(tel / "incidents")))
+    row["cli"] = cli_row
+    return row
+
+
+def containment_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
+    """Phase 26. Returns each kernels-line entry's launches on the main
+    path's runs (the study models' contained sweeps together, "study";
+    FULL_WIDTH) and the rows of the kernel calls no earlier phase held;
+    frees phase 24's full-width engine."""
+    import gc
+    import tempfile
+
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+
+    launches, rows = {}, {}
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        zero_all(dec_mod, flash_mod, qm)
+        with flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+            for name in STUDY_MODELS:
+                for paged in (False, True):
+                    row = study_contained(torch, name, tmp, p24["greedy_card"][name], paged)
+                    log(f"containment_study {json.dumps({'device': device_line, **row})}")
+        launches["study"] = containment_counts(dec_mod, flash_mod, qm)
+        need_launches(launches["study"], ("flash_attention_f32", "decode_attention_f32"),
+                      "study containment")
+        for k, v in sweep_kernel_rows(recs, torch, F, qm, "containment_study", True,
+                                      held).items():
+            if v:
+                rows.setdefault(k, []).extend(v)
+        del recs
+        gc.collect()
+        full = p24["full_width"]
+        launches[FULL_WIDTH], full_rows, row = full_width_contained(
+            torch, F, tmp, full, device_line, held)
+        log(f"containment_full_width {json.dumps(row)}")
+        for k, v in full_rows.items():
+            rows.setdefault(k, []).extend(v)
+        del full["engine"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"containment_fatal {json.dumps(fatal_child(tmp))}")
+        drained = drain_and_resume(torch, tmp, p24["greedy_card"][STUDY_MODELS[0]])
+        log(f"containment_drain {json.dumps(drained)}")
     return {"launches": launches, "rows": rows}
 
 
@@ -3246,8 +3857,12 @@ def main() -> int:
     served = serving_path(torch, F, device_line, sweep)
     log(f"serving_path_s {time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
-    paged = paged_path(torch, F, device_line, sweep, served.pop("paged"))
+    p24 = served.pop("paged")
+    paged = paged_path(torch, F, device_line, sweep, p24)
     log(f"paged_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    contained = containment_path(torch, F, device_line, p24, paged["held"])
+    log(f"containment_path_s {time.perf_counter() - t0:.1f}")
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -3275,6 +3890,10 @@ def main() -> int:
                                    for path, counts in paged["launches"].items()}
         if entry["name"] in paged["rows"]:
             entry["paged_shapes"] = paged["rows"][entry["name"]]
+        entry["containment_launches"] = {path: counts[entry["name"]]
+                                         for path, counts in contained["launches"].items()}
+        if entry["name"] in contained["rows"]:
+            entry["containment_shapes"] = contained["rows"][entry["name"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

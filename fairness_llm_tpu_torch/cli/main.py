@@ -13,10 +13,21 @@ through the continuous-batching scheduler (``--slots``, ``--fuse-steps``,
 and ``--paged-kv`` with ``--kv-block-size``/``--kv-blocks`` for the paged
 KV cache with prefix reuse). ``--telemetry-dir`` streams ``events.jsonl``
 there and writes the registry snapshot (``telemetry_snapshot.json``,
-``metrics.prom``) and the timeline (``trace.json``) at the end. The flags
-of the serving slices still to come (``--tp``, ``--overload``,
-``--replicas``, ``--autoscale``, ``--serving-journal``), device meshes and
-resilience raise ``NotImplementedError`` (ROADMAP A5).
+``metrics.prom``) and the timeline (``trace.json``) at the end.
+
+Fault containment (``resilience/``, ``integrity/``), with the reference's
+flags and checks: ``--max-step-seconds`` (the step watchdog),
+``--breaker-threshold``/``--breaker-cooldown`` (the per-stage breakers),
+``--serving-journal DIR``/``--drain-grace`` (the crash-safe journal and the
+SIGTERM/SIGINT drain, with ``--continuous``), ``--numerics-guards``,
+``--canary-every N`` (with ``--continuous``) and ``--incidents`` (postmortem
+bundles under ``<telemetry-dir>/incidents``, with ``--telemetry-dir``). Two
+subcommands: ``incident-report <dir>`` renders bundles, ``resume-serving
+<journal-dir> --model NAME`` re-serves a drained run's unfinished requests.
+
+The flags of the serving slices still to come (``--tp``, ``--overload``,
+``--replicas``, ``--autoscale``) and device meshes (``--mesh``) raise
+``NotImplementedError`` (ROADMAP A5, A8).
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ from typing import Dict
 
 from fairness_llm_tpu_torch.config import (
     Config,
+    IntegrityConfig,
+    ResilienceConfig,
     ServingConfig,
     SpeculationConfig,
     create_directories,
@@ -126,19 +139,51 @@ def build_parser() -> argparse.ArgumentParser:
                         "the run the registry snapshot (telemetry_snapshot.json, "
                         "metrics.prom) and the host-clock timeline (trace.json, open at "
                         "https://ui.perfetto.dev)")
+    p.add_argument("--max-step-seconds", type=float, default=None,
+                   help="resilience watchdog: a prefill/decode step slower than this is "
+                        "classified hung and contained as a fault (requeue once / chunk "
+                        "retry); implies the per-stage circuit breakers")
+    p.add_argument("--breaker-threshold", type=int, default=None,
+                   help="resilience: consecutive faults per stage before that stage's "
+                        "circuit breaker opens (default 3); implies the breakers")
+    p.add_argument("--breaker-cooldown", type=float, default=None,
+                   help="resilience: seconds an open breaker waits before half-opening "
+                        "for a probe (default 5)")
+    p.add_argument("--serving-journal", default=None, metavar="DIR",
+                   help="with --continuous: crash-safe request journal under DIR "
+                        "(journal.jsonl) and a SIGTERM/SIGINT graceful drain; a drained "
+                        "run's unfinished requests are re-served by `resume-serving DIR`")
+    p.add_argument("--drain-grace", type=float, default=None,
+                   help="with --serving-journal: seconds live slots may keep decoding "
+                        "after a drain signal before being journaled as unfinished "
+                        "(default 5)")
+    p.add_argument("--numerics-guards", action="store_true",
+                   help="integrity: read each prefill and decode chunk's finite flag of "
+                        "its logits (one flag a chunk, no sync per step); NaN/Inf chunks "
+                        "are contained as NumericsFault. The tokens are the same either "
+                        "way")
+    p.add_argument("--canary-every", type=int, default=None, metavar="N",
+                   help="with --continuous: every N backend calls, decode a golden prompt "
+                        "through the live scheduler and compare it token for token with a "
+                        "reference recorded at the pool's shape; a mismatch trips the "
+                        "breaker degradation ladder")
+    p.add_argument("--incidents", action="store_true",
+                   help="arm the incident engine: trigger conditions (breaker open, hang, "
+                        "numerics fault, canary mismatch, error-budget burn, heartbeat "
+                        "gap, a fatal device error) dump postmortem bundles under "
+                        "<telemetry-dir>/incidents; render them with `incident-report "
+                        "<dir>`. Requires --telemetry-dir")
     # Not ported yet: refused, never ignored.
     for flag, kw in (("--tp", dict(type=int)),
                      ("--overload", dict(action="store_true")),
                      ("--replicas", dict(type=int)), ("--autoscale", dict(action="store_true")),
-                     ("--serving-journal", dict(default=None)), ("--mesh", dict(default=None)),
-                     ("--max-step-seconds", dict(type=float))):
-        p.add_argument(flag, help="not ported yet (ROADMAP A5)", **kw)
+                     ("--mesh", dict(default=None))):
+        p.add_argument(flag, help="not ported yet (ROADMAP A5, A8)", **kw)
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
-NOT_PORTED = ("--tp", "--overload", "--replicas", "--autoscale", "--serving-journal",
-              "--mesh", "--max-step-seconds")
+NOT_PORTED = ("--tp", "--overload", "--replicas", "--autoscale", "--mesh")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -146,9 +191,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         value = getattr(args, flag[2:].replace("-", "_"))
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"{flag}: tensor-parallel serving, overload control, the replica fleet, "
-                "the serving journal, device meshes and resilience are not ported yet "
-                "(ROADMAP A5)")
+                f"{flag}: tensor-parallel serving, overload control, the replica fleet "
+                "and device meshes are not ported yet (ROADMAP A5, A8)")
     config = default_config()
     updates: Dict = {}
     if args.weights_dir:
@@ -212,22 +256,192 @@ def config_from_args(args: argparse.Namespace) -> Config:
                     raise SystemExit("--kv-blocks must be >= 1")
                 serve_kwargs["kv_blocks"] = args.kv_blocks
         updates["serving"] = ServingConfig(**serve_kwargs)
-    if args.no_verify_manifests:
-        updates["integrity"] = dataclasses.replace(config.integrity, verify_manifests=False)
+    resilience_flags = (args.max_step_seconds, args.breaker_threshold, args.breaker_cooldown,
+                        args.serving_journal, args.drain_grace)
+    if any(v is not None for v in resilience_flags):
+        if (args.serving_journal or args.drain_grace is not None) and not args.continuous:
+            raise SystemExit("--serving-journal/--drain-grace require --continuous (the "
+                             "journal ledgers serving requests)")
+        res_kwargs: Dict = {"enabled": True}
+        if args.max_step_seconds is not None:
+            if args.max_step_seconds <= 0:
+                raise SystemExit("--max-step-seconds must be > 0")
+            res_kwargs["max_step_seconds"] = args.max_step_seconds
+        if args.breaker_threshold is not None:
+            if args.breaker_threshold < 1:
+                raise SystemExit("--breaker-threshold must be >= 1")
+            res_kwargs["breaker_threshold"] = args.breaker_threshold
+        if args.breaker_cooldown is not None:
+            if args.breaker_cooldown < 0:
+                raise SystemExit("--breaker-cooldown must be >= 0")
+            res_kwargs["breaker_cooldown_s"] = args.breaker_cooldown
+        if args.serving_journal:
+            res_kwargs["journal_dir"] = args.serving_journal
+        if args.drain_grace is not None:
+            if args.drain_grace < 0:
+                raise SystemExit("--drain-grace must be >= 0")
+            res_kwargs["drain_grace_s"] = args.drain_grace
+        updates["resilience"] = ResilienceConfig(**res_kwargs)
+    if args.numerics_guards or args.canary_every is not None or args.no_verify_manifests:
+        integ_kwargs: Dict = {}
+        if args.numerics_guards:
+            integ_kwargs["numerics_guards"] = True
+        if args.canary_every is not None:
+            if not args.continuous:
+                raise SystemExit("--canary-every requires --continuous (the canary probes "
+                                 "the serving scheduler)")
+            if args.canary_every < 1:
+                raise SystemExit("--canary-every must be >= 1")
+            integ_kwargs["canary_every_n"] = args.canary_every
+        if args.no_verify_manifests:
+            integ_kwargs["verify_manifests"] = False
+        updates["integrity"] = IntegrityConfig(**integ_kwargs)
     if updates:
         config = dataclasses.replace(config, **updates)
     return config
 
 
+def incident_report(argv) -> int:
+    """``incident-report <bundle-dir | incidents-dir | telemetry-dir>``:
+    render postmortem bundles (manifest, the causal chain derived from the
+    decision trail, flight-recorder ring depths, the implicated decision
+    tail); every bundle of an incidents or telemetry dir, or one bundle."""
+    import json
+
+    from fairness_llm_tpu_torch.telemetry import list_bundles, render_incident_report
+    from fairness_llm_tpu_torch.telemetry.incidents import (
+        INCIDENTS_DIRNAME,
+        MANIFEST_FILENAME,
+        _read_jsonl,
+        causal_chain,
+    )
+
+    ap = argparse.ArgumentParser(prog="fairness_llm_tpu_torch incident-report",
+                                 description="Render incident postmortem bundles")
+    ap.add_argument("path", help="one bundle dir, an incidents/ dir, or a telemetry dir "
+                                 "containing incidents/")
+    ap.add_argument("--chain-only", action="store_true",
+                    help="print only the one-line causal chain per bundle")
+    a = ap.parse_args(argv)
+    path = a.path.rstrip("/")
+    if os.path.isfile(os.path.join(path, MANIFEST_FILENAME)):
+        bundles = [path]
+    else:
+        inc_dir = path
+        if os.path.isdir(os.path.join(path, INCIDENTS_DIRNAME)):
+            inc_dir = os.path.join(path, INCIDENTS_DIRNAME)
+        bundles = [m["path"] for m in list_bundles(inc_dir)]
+        if not bundles:
+            print(f"no incident bundles under {inc_dir}: a clean run, or the engine was "
+                  "never armed (--incidents)")
+            return 0
+    for i, b in enumerate(bundles):
+        if a.chain_only:
+            with open(os.path.join(b, MANIFEST_FILENAME), encoding="utf-8") as f:
+                manifest = json.load(f)
+            trail = _read_jsonl(os.path.join(b, "decisions.jsonl"))
+            implicated = _read_jsonl(os.path.join(b, "decisions_implicated.jsonl"))
+            print(f"{os.path.basename(b)}: " + causal_chain(manifest, trail, implicated))
+        else:
+            if i:
+                print()
+            print(render_incident_report(b))
+    return 0
+
+
+def resume_serving_cmd(argv) -> int:
+    """``resume-serving <journal-dir> --model NAME``: re-serve every request
+    of a drained ``--continuous`` run's journal that has no terminal record,
+    with its original id, sampler settings and row seed (greedy survivors
+    decode the tokens an uninterrupted run would) and its deadline reduced
+    by the wall time already spent. Exits 1 while requests stay unfinished
+    (drained again)."""
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.resilience import GracefulDrain, ServingJournal, resume_serving
+
+    ap = argparse.ArgumentParser(prog="fairness_llm_tpu_torch resume-serving",
+                                 description="Re-serve a drained run's journaled unfinished "
+                                             "requests")
+    ap.add_argument("journal_dir", help="directory holding journal.jsonl (the "
+                                        "--serving-journal DIR)")
+    ap.add_argument("--model", required=True, help="engine model name (the drained run's)")
+    ap.add_argument("--weights-dir", default=None)
+    ap.add_argument("--allow-random", action="store_true",
+                    help="serve with random weights (smoke runs and drills only)")
+    ap.add_argument("--slots", type=int, default=None)
+    ap.add_argument("--max-new-tokens", type=int, default=None,
+                    help="serving decode cap (default: the serving default, clamped to fit "
+                         "the model's position budget)")
+    ap.add_argument("--max-step-seconds", type=float, default=None)
+    ap.add_argument("--breaker-threshold", type=int, default=None)
+    ap.add_argument("--telemetry-dir", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the kernels' plain versions)")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    a = ap.parse_args(argv)
+    logging.basicConfig(level=logging.DEBUG if a.verbose else logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    res_kwargs: Dict = {"enabled": True, "journal_dir": a.journal_dir}
+    if a.max_step_seconds is not None:
+        res_kwargs["max_step_seconds"] = a.max_step_seconds
+    if a.breaker_threshold is not None:
+        res_kwargs["breaker_threshold"] = a.breaker_threshold
+    serve_kwargs: Dict = {"enabled": True}
+    if a.slots is not None:
+        serve_kwargs["num_slots"] = a.slots
+    # A slot holds the prompt bucket and the decode cap, so the default cap
+    # is clamped to the model's position budget; an explicit one is taken
+    # as given and fails loudly if it cannot fit.
+    model_seq = get_model_config(a.model).max_seq_len
+    serve_kwargs["max_new_tokens"] = (a.max_new_tokens if a.max_new_tokens is not None
+                                      else min(ServingConfig().max_new_tokens, model_seq // 2))
+    config = dataclasses.replace(default_config(), weights_dir=a.weights_dir,
+                                 serving=ServingConfig(**serve_kwargs),
+                                 resilience=ResilienceConfig(**res_kwargs))
+    sink = T.configure(a.telemetry_dir) if a.telemetry_dir else None
+    # The backend's journal is the ledger resumed from, so completions
+    # append terminal records and a second drain re-journals the tail.
+    backend = backend_for(a.model, config, allow_random=a.allow_random, device=a.device)
+    journal = backend.journal or ServingJournal(a.journal_dir)
+    with GracefulDrain():
+        results = resume_serving(backend.engine, journal, serving=backend.serving,
+                                 resilience=config.resilience)
+    outcomes: Dict[str, int] = {}
+    for res in results.values():
+        outcomes[res.finish_reason] = outcomes.get(res.finish_reason, 0) + 1
+    print(f"resumed {len(results)} request(s): "
+          + (", ".join(f"{k}={v}" for k, v in sorted(outcomes.items())) or "nothing to do"))
+    still = journal.unfinished()
+    if still:
+        print(f"{len(still)} request(s) remain unfinished (drained again?): re-run "
+              f"resume-serving {a.journal_dir}")
+    if a.telemetry_dir:
+        print(f"telemetry snapshot: {T.write_snapshot(T.get_registry(), a.telemetry_dir)}")
+        T.install_event_sink(None)
+        sink.close()
+    return 1 if still else 0
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    # Subcommands go ahead of the study parser (whose --all/--phase group is
+    # required and would refuse them).
+    if argv and argv[0] == "incident-report":
+        return incident_report(argv[1:])
+    if argv and argv[0] == "resume-serving":
+        return resume_serving_cmd(argv[1:])
     from fairness_llm_tpu_torch.pipeline.phase1 import print_phase1_summary, run_phase1
     from fairness_llm_tpu_torch.pipeline.phase2 import print_phase2_summary, run_phase2
     from fairness_llm_tpu_torch.pipeline.phase3 import print_phase3_summary, run_phase3
     from fairness_llm_tpu_torch import telemetry as T
     from fairness_llm_tpu_torch.reports.report import generate_summary_report
+    from fairness_llm_tpu_torch.resilience import GracefulDrain
+    from fairness_llm_tpu_torch.telemetry.incidents import INCIDENTS_DIRNAME
     from fairness_llm_tpu_torch.utils.profiling import phase_timer
 
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
@@ -241,13 +455,31 @@ def main(argv=None) -> int:
         args.num_items = min(args.num_items, 10)
         args.num_comparisons = min(args.num_comparisons, 6)
     save = not args.no_save
+    if args.incidents and not args.telemetry_dir:
+        raise SystemExit("--incidents requires --telemetry-dir (bundles dump under "
+                         "<telemetry-dir>/incidents)")
     telemetry_sink = T.configure(args.telemetry_dir) if args.telemetry_dir else None
+    if args.incidents:
+        T.arm_incidents(os.path.join(args.telemetry_dir, INCIDENTS_DIRNAME))
+
+    drain_handler = None
+    if config.resilience.enabled and config.serving.enabled:
+        # SIGTERM/SIGINT drain: the scheduler polls the handler's flag each
+        # loop iteration, stops admission, finishes what it can within
+        # --drain-grace and journals the rest (with --serving-journal) for
+        # `resume-serving`. A second signal kills as usual.
+        drain_handler = GracefulDrain().install()
 
     phases = [1, 2, 3] if args.all else [args.phase]
     timings: Dict[str, float] = {}
     p1 = None
     try:
         for phase in phases:
+            if drain_handler is not None and drain_handler.requested:
+                # The drain already preempted that phase's serving work; the
+                # remaining phases would only produce preempted results.
+                print(f"\ndrain requested: skipping phase {phase} and beyond")
+                break
             with phase_timer(f"phase {phase}", timings):
                 if phase == 1:
                     p1 = run_phase1(config, args.model, args.profiles, save=save,
@@ -276,9 +508,14 @@ def main(argv=None) -> int:
                     logger.info("phase %d figures are not ported (the card's machine has "
                                 "no matplotlib; ROADMAP A6)", phase)
     finally:
+        if drain_handler is not None:
+            drain_handler.uninstall()
         if telemetry_sink is not None:
             T.install_event_sink(None)
             telemetry_sink.close()
+    if drain_handler is not None and drain_handler.requested:
+        print("\nNOTE: the run was drained by a signal; unfinished serving requests (with "
+              "--serving-journal) finish with: resume-serving <journal-dir> --model NAME")
 
     if args.telemetry_dir:
         # The end-of-run registry snapshot (JSON and Prometheus text), its

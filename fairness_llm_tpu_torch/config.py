@@ -1,10 +1,11 @@
 """Configuration (counterpart of ``fairness_llm_tpu/config.py``):
-``ModelSettings``, ``SpeculationConfig``, ``IntegrityConfig`` (manifest
-verification only) and ``Config`` with the fields the three phases read,
-``ServingConfig`` (the continuous-batching core's knobs), ``default_config``
-with the reference's ``FAIRNESS_TPU_*`` overrides, and
-``create_directories``. The fleet, mesh and telemetry sections wait for
-their slices (the CLI's ``--telemetry-dir`` needs no config field)."""
+``ModelSettings``, ``SpeculationConfig``, ``IntegrityConfig`` and
+``ResilienceConfig`` (fault containment), ``Config`` with the fields the
+three phases read, ``ServingConfig`` (the continuous-batching core's
+knobs), ``default_config`` with the reference's ``FAIRNESS_TPU_*``
+overrides, and ``create_directories``. The fleet, overload, mesh and
+telemetry sections wait for their slices (the CLI's ``--telemetry-dir``
+needs no config field)."""
 
 from __future__ import annotations
 
@@ -80,12 +81,59 @@ class ServingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class IntegrityConfig:
-    """``verify_manifests`` (default on) checks the sha256 ``manifest.json``
-    beside a weight checkpoint at load, where there is one; a corrupt file is
-    refused with an error naming it."""
+class ResilienceConfig:
+    """Watchdog, circuit-breaker and graceful-drain knobs (``resilience/``).
 
+    ``enabled`` arms the step watchdog and the per-stage breakers in the
+    serving scheduler (and the engine's speculate breaker). In a fault-free
+    run they change nothing but a few host-side timestamps: the watchdog
+    only classifies steps slower than ``max_step_seconds``, and a breaker
+    only acts after ``breaker_threshold`` consecutive faults.
+
+    ``journal_dir`` turns on the crash-safe serving journal: accepted
+    requests are ledgered to ``<dir>/journal.jsonl``, and a drained or
+    preempted run's unfinished work is re-served by ``resume-serving
+    <dir>``.
+    """
+
+    enabled: bool = False
+    # Watchdog: a step slower than this is classified hung and raised as a
+    # containable HangFault. 0 disables classification (the step_wall_s
+    # histogram still records, so that a threshold can be chosen from data).
+    max_step_seconds: float = 0.0
+    breaker_threshold: int = 3  # consecutive faults per stage -> open
+    breaker_cooldown_s: float = 5.0  # open -> half-open probe delay
+    # Drain: how long live slots may keep decoding after SIGTERM/SIGINT
+    # before being journaled as unfinished.
+    drain_grace_s: float = 5.0
+    journal_dir: Optional[str] = None
+    journal_rotate_every: int = 256  # terminal records between compactions
+
+
+@dataclasses.dataclass(frozen=True)
+class IntegrityConfig:
+    """Silent-corruption detection knobs (``integrity/``).
+
+    ``numerics_guards`` has every prefill and decode chunk read its logits'
+    finite flag (one AND-reduced flag a chunk, read with the chunk's tokens;
+    no sync or kernel per step); a tripped flag is contained as a
+    ``NumericsFault``. The tokens are the same either way.
+
+    ``verify_manifests`` (default on) checks the sha256 ``manifest.json``
+    beside a weight checkpoint at load, where there is one; a corrupt file
+    is refused with an error naming it.
+
+    ``canary_every_n`` > 0 arms the serving canary: every N backend
+    ``generate`` calls a golden prompt decodes through the live scheduler
+    and is compared token for token against a reference recorded in a pool
+    of the live pool's shape (``integrity/canary.py``); a mismatch trips the
+    decode breaker.
+    """
+
+    numerics_guards: bool = False
     verify_manifests: bool = True
+    canary_every_n: int = 0  # 0 = canary off
+    canary_max_tokens: int = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +186,8 @@ class Config:
     # plain path).
     speculation: SpeculationConfig = dataclasses.field(default_factory=SpeculationConfig)
     integrity: IntegrityConfig = dataclasses.field(default_factory=IntegrityConfig)
+    # Watchdog, breakers, drain and the serving journal (resilience/).
+    resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)
     # Continuous-batching serving (--continuous): backend_for returns a
     # ServingBackend when enabled.
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)

@@ -1,7 +1,5 @@
 """Verified artifacts: sha256 manifests beside weights and results (the
-port's copy of ``fairness_llm_tpu/integrity/manifest.py``, without its
-telemetry counters, events and incident hooks, which wait for the port's
-telemetry slice).
+port's copy of ``fairness_llm_tpu/integrity/manifest.py``).
 
 A producer writes ``manifest.json`` beside its files: per-file sha256 and
 byte size, plus a tensor shape/dtype summary for safetensors files. Two
@@ -13,7 +11,10 @@ disciplines:
   False on a mismatch, and the resume loader skips to an older checkpoint.
 
 A directory without a manifest verifies trivially, and so does a file the
-manifest does not list.
+manifest does not list. Both paths count
+``manifest_verifications_total{kind}`` / ``manifest_failures_total{kind}``,
+emit a ``manifest_failure`` event and trigger an ``integrity_fault``
+incident on a mismatch.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import os
 from typing import Dict, Optional
 
 from fairness_llm_tpu_torch.runtime.safetensors_io import read_header
+from fairness_llm_tpu_torch.telemetry import emit_event, get_registry
+from fairness_llm_tpu_torch.telemetry.incidents import maybe_trigger
 
 logger = logging.getLogger(__name__)
 
@@ -125,16 +128,31 @@ def verify_manifest(root: str, manifest_path: Optional[str] = None,
     the first mismatch."""
     manifest_path = manifest_path or os.path.join(root, MANIFEST_FILENAME)
     manifest = _load_manifest(manifest_path)
+    get_registry().counter("manifest_verifications_total", kind=kind).inc()
     if manifest is None:
-        raise IntegrityError(f"integrity check failed for {manifest_path}: "
-                             "manifest unreadable or malformed")
+        _fail(kind, manifest_path, "manifest unreadable or malformed")
     for rel in sorted(manifest["files"]):
         problem = _check_entry(root, rel, manifest["files"][rel])
         if problem is not None:
-            raise IntegrityError(
-                f"integrity check failed for {os.path.join(root, rel)}: {problem}")
+            _fail(kind, os.path.join(root, rel), problem)
     logger.info("manifest OK (%s): %s (%d file(s) verified)", kind, root,
                 len(manifest["files"]))
+
+
+def _note_failure(kind: str, path: str, problem: str) -> None:
+    """Count a mismatch, emit its event and trigger the incident (corrupt
+    bytes at rest: the bundle names the file and the problem)."""
+    get_registry().counter("manifest_failures_total", kind=kind).inc()
+    # "artifact_kind", not "kind": emit_event's first positional is the
+    # event kind.
+    emit_event("manifest_failure", artifact_kind=kind, file=path, reason=problem)
+    maybe_trigger("integrity_fault", f"manifest digest failure: {path}: {problem}",
+                  scope=kind, file=path)
+
+
+def _fail(kind: str, path: str, problem: str) -> None:
+    _note_failure(kind, path, problem)
+    raise IntegrityError(f"integrity check failed for {path}: {problem}")
 
 
 def maybe_verify_manifest(root: str, kind: str = "artifact") -> bool:
@@ -167,8 +185,10 @@ def verify_manifest_entry(directory: str, filename: str, kind: str = "results") 
     entry = manifest["files"].get(filename)
     if entry is None:
         return True
+    get_registry().counter("manifest_verifications_total", kind=kind).inc()
     problem = _check_entry(directory, filename, entry)
     if problem is None:
         return True
+    _note_failure(kind, os.path.join(directory, filename), problem)
     logger.warning("manifest mismatch (%s): %s", kind, problem)
     return False

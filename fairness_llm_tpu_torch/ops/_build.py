@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C function and compiles on its own,
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC``, into ``build/kernels/lib<name>.so`` at the root of the
 checkout. No PyTorch header is included, so a build takes seconds. A library
-newer than its source is reused. A failed build raises; nothing falls back.
+newer than its source is reused. A failed build, load or launch raises
+``KernelError``; nothing falls back. ``load_events`` counts the builds and
+library loads of the process, so that the step watchdog
+(``resilience/watchdog.py``) can exempt a call that paid for one.
 
 The kernels stage k/v rows into shared memory in 16-byte chunks, so a row's
 bytes must be a multiple of 16 and every row must start on a 16-byte
@@ -32,6 +35,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], Callable[..., int]] = {}
+# Sources built and libraries loaded in this process so far.
+load_events = 0
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, to load or to launch. After a
+    failed launch the CUDA context may be unusable, so fault containment
+    never absorbs this error (``utils/failures.is_fatal_device_error``)."""
 
 
 def nvcc_path() -> str:
@@ -41,7 +52,7 @@ def nvcc_path() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+        raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
     return found
 
 
@@ -61,7 +72,9 @@ def _stale(name: str) -> bool:
 def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every stale source in ``names``, one ``nvcc`` per source, all
     started together. Returns each compiler's output (``-Xptxas -v`` lists
-    registers, shared memory and spills). Raises on any failure."""
+    registers, shared memory and spills). Raises ``KernelError`` on any
+    failure."""
+    global load_events
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -76,12 +89,13 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     for name, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
         logs[name] = out
+        load_events += 1
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
         else:
             os.replace(tmp, _lib_path(name))
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("kernel build failed:\n" + "\n".join(failed))
     return logs
 
 
@@ -90,6 +104,7 @@ def function(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
     needed), with its argument types set and an int return (a CUDA error
     code). Pointers and the stream go as ``c_void_p``, or ctypes would pass
     them as 32-bit ints. Set up once per symbol; later calls return it."""
+    global load_events
     fn = _fns.get((name, symbol))
     if fn is not None:
         return fn
@@ -98,7 +113,11 @@ def function(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
         if lib is None:
             if _stale(name):
                 build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            try:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+            except OSError as e:
+                raise KernelError(f"cannot load {_lib_path(name)}: {e}") from e
+            load_events += 1
             _libs[name] = lib
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
@@ -144,7 +163,7 @@ def grown(cache: dict, key, numel: int, dtype: torch.dtype, device: torch.device
 def check(status: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+        raise KernelError(f"{what}: CUDA error {status} at launch")
 
 
 def rows_aligned16(t: torch.Tensor) -> bool:

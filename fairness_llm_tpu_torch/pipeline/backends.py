@@ -281,7 +281,10 @@ def backend_for(
     byte tokenizer. ``config.weight_quant`` overrides the model's weight
     mode either way. With ``config.serving.enabled`` the engine is served
     through a ``ServingBackend`` (speculation, which the serving loop does
-    not compose with, is then ignored, as the reference ignores it).
+    not compose with, is then ignored, as the reference ignores it), with
+    ``config.resilience`` (breakers, watchdog, the serving journal) and
+    ``config.integrity`` (numerics guards, the canary); the engine path gets
+    the breakers and the watchdog too.
 
     The engine runs the port's attention kernels (``use_flash_attention``
     and ``use_decode_attention_kernel`` on): on the card they are the hand
@@ -320,11 +323,30 @@ def backend_for(
             f"checkpoint, or pass allow_random=True for a smoke run"
         )
     engine = DecodeEngine(model_config, params=params, tokenizer_path=tokenizer_path,
-                          seed=config.random_seed, device=device)
+                          seed=config.random_seed, device=device,
+                          numerics_guards=config.integrity.numerics_guards)
+    resilience = config.resilience if config.resilience.enabled else None
     if config.serving.enabled:
         from fairness_llm_tpu_torch.serving.backend import ServingBackend
 
-        return ServingBackend(engine, config.serving, name=model_name)
+        journal = None
+        if resilience is not None and resilience.journal_dir:
+            from fairness_llm_tpu_torch.resilience import ServingJournal
+
+            journal = ServingJournal(resilience.journal_dir,
+                                     rotate_every=resilience.journal_rotate_every)
+        return ServingBackend(engine, config.serving, name=model_name, resilience=resilience,
+                              journal=journal, integrity=config.integrity)
+    if resilience is not None:
+        # The engine path gets the watchdog (contained by
+        # with_failure_containment) and a board for the speculate gate.
+        from fairness_llm_tpu_torch.resilience import BreakerBoard, StepWatchdog
+
+        engine.breakers = BreakerBoard(failure_threshold=resilience.breaker_threshold,
+                                       cooldown_s=resilience.breaker_cooldown_s,
+                                       component="engine")
+        if resilience.max_step_seconds > 0:
+            engine.watchdog = StepWatchdog(resilience.max_step_seconds, component="engine")
     spec = config.speculation
     return EngineBackend(engine, name=model_name,
                          speculation=spec if spec.enabled else None)

@@ -11,10 +11,16 @@ with ``resume=True``. Equal opportunity matches canonicalised titles, and
 SNSR/SNSV compare each group against a neutral (demographics withheld)
 decode.
 
-Not ported: the reference's failure containment around ``generate`` (a
-failed decode raises out of ``run_phase1`` here; containment comes with the
-resilience work, ROADMAP A5), and its telemetry (heartbeat, fairness
-monitor, registry; ROADMAP A7), so the record's ``fairness`` is None. Its
+``decode_sweep`` wraps ``generate`` in ``with_failure_containment``, as the
+reference does: a failed chunk is retried once, then its rows become error
+entries (``"error": "decode_failed"``, kept out of resume checkpoints, so
+that ``--resume`` retries them). A fatal CUDA error is not contained: it
+raises out of ``run_phase1`` and no record is written
+(``utils/failures.is_fatal_device_error``). Phase 3 inherits both through
+``decode_sweep``.
+
+Not ported: the reference's telemetry here (heartbeat, fairness monitor,
+registry; ROADMAP A7), so the record's ``fairness`` is None. Its
 ``serving`` holds a ``ServingBackend``'s counters for the sweep
 (``--continuous``), None for other backends.
 """
@@ -42,6 +48,7 @@ from fairness_llm_tpu_torch.pipeline import results as R
 from fairness_llm_tpu_torch.pipeline.backends import DecodeBackend, backend_for, shared_prefix_ids
 from fairness_llm_tpu_torch.pipeline.parsing import canonicalize, parse_numbered_list
 from fairness_llm_tpu_torch.pipeline.prompts import check_late_divergence, recommendation_prompt
+from fairness_llm_tpu_torch.utils.failures import with_failure_containment
 from fairness_llm_tpu_torch.utils.progress import print_progress
 
 logger = logging.getLogger(__name__)
@@ -61,6 +68,7 @@ def decode_sweep(
     """Chunked batched decode with checkpointing. Returns {key:
     {recommendations, raw_response}} in input order, reusing the entries
     already in ``done`` (the resume path)."""
+    generate = with_failure_containment(backend.generate)
     # The prefix is computed over the full sweep, not per chunk, so resumed
     # and uninterrupted runs split attention identically.
     prefix_ids = shared_prefix_ids(backend, list(prompts))
@@ -80,7 +88,7 @@ def decode_sweep(
         ]
         if not batch:
             continue
-        texts = backend.generate(
+        texts = generate(
             [p for _, p in batch],
             settings,
             seed=config.random_seed + start,
@@ -88,12 +96,18 @@ def decode_sweep(
             prefix_ids=prefix_ids,
         )
         for (k, _), text in zip(batch, texts):
-            done[k] = {"recommendations": parse(text), "raw_response": text}
+            if text is None:  # a contained decode failure (utils/failures.py)
+                done[k] = {"recommendations": [], "raw_response": "", "error": "decode_failed"}
+            else:
+                done[k] = {"recommendations": parse(text), "raw_response": text}
         completed = len(done)
         if save_checkpoints and config.checkpoint_every and (
             completed % config.checkpoint_every < chunk or start + chunk >= len(keys)
         ):
-            R.save_checkpoint(done, config.results_dir, phase, completed)
+            # Failed entries stay out of checkpoints, so that a resume
+            # retries them.
+            ok = {k: v for k, v in done.items() if "error" not in v}
+            R.save_checkpoint(ok, config.results_dir, phase, completed)
         if interactive:
             logger.debug("%s sweep: %d/%d decoded", phase, completed, len(keys))
             print_progress(completed, len(keys), prefix=f"{phase} ")

@@ -18,16 +18,30 @@ them through the int8-weight kernel; no dequantized copy of a weight is
 built, so the device holds about half the bytes of the bf16 model. A config
 with ``kv_cache_quant`` keeps the KV cache in int8 with f32 scales.
 
-The reference's telemetry, breakers, watchdog, numerics guards and its two
-in-call fallbacks (a failed speculative call retried on the plain path, a
-rebuild without the decode kernel on a compile error) are not ported: a
-failed call raises.
+Resilience (``resilience/``, ``integrity/``), as in the reference:
+``numerics_guards`` reads the decode loop's finite flag (AND-ed over the
+chunk's steps on the device, the prefill's logits included) once a call
+and raises a containable ``NumericsFault`` when it tripped; ``breakers`` (a
+``BreakerBoard``) gates the speculative path on its ``speculate`` stage,
+and a speculative call that raises is retried once on the plain path (the
+tokens are the same), counted in ``faults_total{stage="speculate"}``;
+``watchdog`` (a ``StepWatchdog``) classifies an over-budget call as a
+``HangFault``, the first call of a shape and a call that built or loaded a
+kernel exempt. A fatal CUDA error is never retried
+(``utils/failures.is_fatal_device_error``): it is recorded and raised.
+
+Left out on purpose: the reference's VMEM-gate fallback, which rebuilds the
+engine without its decode kernel when that kernel fails to compile. On the
+card it would be a plain-version fallback: a kernel that fails to build or
+launch raises here. The reference's engine telemetry (call counters, spans)
+is not ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -36,8 +50,11 @@ import torch
 
 from fairness_llm_tpu_torch.config import ModelSettings, SpeculationConfig
 from fairness_llm_tpu_torch.device import resolve_device
+from fairness_llm_tpu_torch.integrity.numerics import check_finite
 from fairness_llm_tpu_torch.models.configs import ModelConfig
 from fairness_llm_tpu_torch.models.tokenizer import _left_pad, tokenizer_for
+from fairness_llm_tpu_torch.ops import _build
+from fairness_llm_tpu_torch.resilience.watchdog import first_use
 from fairness_llm_tpu_torch.runtime.sampling import SamplerSettings, speculation_applicable
 from fairness_llm_tpu_torch.runtime.stepbuilder import (
     build_engine_decode,
@@ -45,7 +62,15 @@ from fairness_llm_tpu_torch.runtime.stepbuilder import (
     build_spec_decode,
 )
 from fairness_llm_tpu_torch.runtime.weights import build_model, init_params
+from fairness_llm_tpu_torch.telemetry import get_registry
+from fairness_llm_tpu_torch.utils.failures import (
+    NumericsFault,
+    is_fatal_device_error,
+    note_fatal_device_error,
+)
 from fairness_llm_tpu_torch.utils.profiling import SpeculationStats
+
+logger = logging.getLogger(__name__)
 
 _PREFIX_LRU = 4
 
@@ -99,6 +124,7 @@ class DecodeEngine:
         device: Optional[Union[str, torch.device]] = None,
         speculation: Optional[SpeculationConfig] = None,
         tokenizer_path: Optional[str] = None,
+        numerics_guards: bool = False,
     ):
         """``params`` is a state dict (``runtime/weights.params_from_jax`` or
         ``init_params``, or another engine's ``model.state_dict()``: tensors
@@ -110,10 +136,21 @@ class DecodeEngine:
         ``speculation`` is the default for ``generate``. ``tokenizer`` or
         else ``tokenizer_path`` (a checkpoint directory holding
         ``tokenizer.json``) picks the tokenizer; with neither, the byte
-        tokenizer."""
+        tokenizer. ``numerics_guards`` raises a ``NumericsFault`` from a call
+        whose live rows' logits were not all finite."""
         self.device = resolve_device(device)
         self.config = model_config
         self.speculation = speculation
+        self.numerics_guards = bool(numerics_guards)
+        # Resilience hooks, off by default (backend_for and ServingBackend
+        # install them with ResilienceConfig.enabled): a BreakerBoard whose
+        # "speculate" stage gates the speculative path, and a StepWatchdog.
+        self.breakers = None
+        self.watchdog = None
+        # Degradation rung 1's shed state lives on the engine, which several
+        # schedulers may share.
+        self._spec_shed = False
+        self._spec_saved_speculation = None
         self.tokenizer = tokenizer or tokenizer_for(model_config, tokenizer_path)
         big = model_config.approx_param_count >= 1_000_000_000
         if param_dtype is not None:
@@ -157,6 +194,22 @@ class DecodeEngine:
         self._prefix_kv[key] = layers
         return layers, seconds
 
+    def shed_speculation(self) -> None:
+        """Degradation rung 1: turn the default speculation off, keeping the
+        original. Idempotent: the first caller wins, so a restore never
+        captures an already-shed None."""
+        if not self._spec_shed:
+            self._spec_saved_speculation = self.speculation
+            self.speculation = None
+            self._spec_shed = True
+
+    def restore_speculation(self) -> None:
+        """Undo ``shed_speculation`` (the ladder retreated)."""
+        if self._spec_shed:
+            self.speculation = self._spec_saved_speculation
+            self._spec_saved_speculation = None
+            self._spec_shed = False
+
     def generate(
         self,
         prompts: Sequence[str],
@@ -178,8 +231,8 @@ class DecodeEngine:
 
         ``speculation`` overrides the engine's default. It engages only when
         enabled with ``draft_len > 0``, for greedy settings and
-        ``max_new > 1``; otherwise the plain path runs. The tokens are the
-        same either way.
+        ``max_new > 1``, and while the ``speculate`` breaker allows it;
+        otherwise the plain path runs. The tokens are the same either way.
         """
         settings = settings or ModelSettings()
         max_new = settings.max_tokens if max_new_tokens is None else max_new_tokens
@@ -187,7 +240,8 @@ class DecodeEngine:
                                   top_k=settings.top_k, top_p=settings.top_p)
         spec = speculation if speculation is not None else self.speculation
         use_spec = bool(spec is not None and spec.enabled and spec.draft_len > 0
-                        and speculation_applicable(sampler) and max_new > 1)
+                        and speculation_applicable(sampler) and max_new > 1
+                        and (self.breakers is None or self.breakers.allow("speculate")))
         if max_new >= self.config.max_seq_len:
             raise ValueError(
                 f"max_new_tokens {max_new} >= model max_seq_len {self.config.max_seq_len}")
@@ -266,35 +320,84 @@ class DecodeEngine:
         live[:n] = True
         tokens_dev = torch.from_numpy(tokens).to(self.device)
         valid_dev = torch.from_numpy(valid).to(self.device)
-        spec_stats = None
-        if use_spec:
-            entry, spec_loop = build_spec_decode(
-                self.config, self.model, self.tokenizer.pad_id, self.tokenizer.eos_id,
-                batch=batch, prompt_len=prompt_len, max_new=max_new, prefix_len=prefix_len,
-                ngram_max=spec.ngram_max, draft_len=spec.draft_len)
-        else:
-            entry, loop = build_engine_decode(
-                self.config, self.model, sampler, self.tokenizer.pad_id,
-                self.tokenizer.eos_id, batch=batch, prompt_len=prompt_len,
-                max_new=max_new, prefix_len=prefix_len)
-        t0 = time.perf_counter()
-        last_logits, cache = entry(tokens_dev, valid_dev, shared_layers)
-        self._sync()
-        t1 = time.perf_counter()
-        if use_spec:
-            prefix_toks = torch.tensor(shared_ids or [], dtype=torch.long, device=self.device)
-            toks, out_len, counters, finite = spec_loop(
-                cache, last_logits, tokens_dev, valid_dev, live, shared_layers, prefix_toks)
-            steps_run = counters[2]
-            spec_stats = SpeculationStats(
-                drafted=counters[0], accepted=counters[1], verify_steps=counters[2],
-                emitted=int(out_len[:n].sum()), draft_len=spec.draft_len,
-                ngram_max=spec.ngram_max)
-        else:
-            out = loop(cache, last_logits, seeds, live, shared_layers)
-            toks, steps_run, finite = out.toks, out.steps, out.finite
-        self._sync()
-        t2 = time.perf_counter()
+
+        def run(use_spec: bool):
+            """Prefill and decode the batch, on the speculative or the plain
+            path: (toks, steps run, finite flag, SpeculationStats or None,
+            and the host clock before, between and after the two)."""
+            if use_spec:
+                entry, spec_loop = build_spec_decode(
+                    self.config, self.model, self.tokenizer.pad_id, self.tokenizer.eos_id,
+                    batch=batch, prompt_len=prompt_len, max_new=max_new,
+                    prefix_len=prefix_len, ngram_max=spec.ngram_max, draft_len=spec.draft_len)
+            else:
+                entry, loop = build_engine_decode(
+                    self.config, self.model, sampler, self.tokenizer.pad_id,
+                    self.tokenizer.eos_id, batch=batch, prompt_len=prompt_len,
+                    max_new=max_new, prefix_len=prefix_len)
+            t0 = time.perf_counter()
+            last_logits, cache = entry(tokens_dev, valid_dev, shared_layers)
+            self._sync()
+            t1 = time.perf_counter()
+            spec_stats = None
+            if use_spec:
+                prefix_toks = torch.tensor(shared_ids or [], dtype=torch.long,
+                                           device=self.device)
+                toks, out_len, counters, finite = spec_loop(
+                    cache, last_logits, tokens_dev, valid_dev, live, shared_layers, prefix_toks)
+                steps_run = counters[2]
+                spec_stats = SpeculationStats(
+                    drafted=counters[0], accepted=counters[1], verify_steps=counters[2],
+                    emitted=int(out_len[:n].sum()), draft_len=spec.draft_len,
+                    ngram_max=spec.ngram_max)
+            else:
+                res = loop(cache, last_logits, seeds, live, shared_layers)
+                toks, steps_run, finite = res.toks, res.steps, res.finite
+            self._sync()
+            return toks, steps_run, finite, spec_stats, t0, t1, time.perf_counter()
+
+        # The watchdog's (stage, shape) key and the kernel-load count: a
+        # call that is the first of its key, or built a kernel, is exempt.
+        key = ("engine", batch, prompt_len, max_new, prefix_len, use_spec)
+        loads = _build.load_events
+        if self.watchdog is not None:
+            self.watchdog.arm("decode")
+        retried = False
+        try:
+            toks, steps_run, finite, spec_stats, t0, t1, t2 = run(use_spec)
+        except Exception as e:  # noqa: BLE001 — the speculative retry below
+            if is_fatal_device_error(e):
+                note_fatal_device_error(e, "engine", "speculate" if use_spec else "decode")
+                raise
+            if not (use_spec and self.breakers is not None):
+                raise
+            # A failed speculative call with a breaker armed: count it
+            # (enough in a row open "speculate") and retry this call on the
+            # plain path, whose tokens are the same.
+            self.breakers.record_failure("speculate")
+            get_registry().counter("faults_total", component="engine", kind="device",
+                                   stage="speculate").inc()
+            logger.warning("speculative decode failed (%s: %s); retrying on the plain path",
+                           type(e).__name__, e)
+            retried, use_spec = True, False
+            toks, steps_run, finite, spec_stats, t0, t1, t2 = run(False)
+        if self.numerics_guards:
+            try:
+                check_finite(finite, "engine", "speculate" if use_spec else "decode")
+            except NumericsFault:
+                if use_spec and self.breakers is not None:
+                    # A numerically sick speculative path feeds its breaker
+                    # as a crashed one does.
+                    self.breakers.record_failure("speculate")
+                raise
+        # Success only once the call is known good: recorded before the
+        # finite check, a persistently poisoned verify window would reset
+        # the count every call and the breaker would never open.
+        if use_spec and self.breakers is not None:
+            self.breakers.record_success("speculate")
+        if self.watchdog is not None:
+            fresh = first_use(key, loads)
+            self.watchdog.observe("decode", classify=not (retried or fresh))
         out = toks[:n]
 
         texts = []

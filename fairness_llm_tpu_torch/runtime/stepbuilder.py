@@ -19,6 +19,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fairness_llm_tpu_torch.integrity.numerics import masked_finite
 from fairness_llm_tpu_torch.models.transformer import (
     _dequantize_kv,
     check_write_offsets,
@@ -34,11 +35,6 @@ from fairness_llm_tpu_torch.runtime.sampling import (
 from fairness_llm_tpu_torch.runtime.speculative import ngram_draft
 
 SharedLayers = Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]]
-
-
-def _live_finite(logits: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
-    """Device bool: every logit of a live row is finite (no host sync)."""
-    return (torch.isfinite(logits) | ~live[:, None]).all()
 
 
 def make_batch_entry(cfg, model, *, batch: int, cache_len: int, prefix_len: int = 0):
@@ -97,7 +93,7 @@ def make_greedy_loop(model, sample, pad_id: int, eos_id: int, *, batch: int,
         caps = np.full(B, T, np.int64) if caps is None else np.asarray(caps, np.int64)
         gens: List[torch.Generator] = [] if greedy else [
             torch.Generator(device=dev) for _ in range(B)]
-        finite = _live_finite(prev_logits, torch.from_numpy(live0).to(dev))
+        finite = masked_finite(prev_logits, torch.from_numpy(live0).to(dev))
         t = row_steps = 0
         while t < T and not done.all():
             live = ~done
@@ -116,7 +112,7 @@ def make_greedy_loop(model, sample, pad_id: int, eos_id: int, *, batch: int,
             logits, cache = model(tok[:, None], pos, live_dev[:, None], cache,
                                   shared_layers=shared_layers, **kw)
             prev_logits = torch.where(live_dev[:, None], logits[:, -1, :], prev_logits)
-            finite = finite & _live_finite(logits[:, -1], live_dev)
+            finite = finite & masked_finite(logits[:, -1], live_dev)
             tok_host = tok.cpu().numpy()
             toks[:, t] = tok_host
             row_steps += int(live.sum())
@@ -156,7 +152,8 @@ def build_spec_decode(cfg, model, pad_id: int, eos_id: int, *, batch: int,
     starts inside them and overwrites them), and ``lengths`` advances by the
     emitted count, not by S. The cache carries ``draft_len`` spare slots, so
     the last window of a nearly finished row still fits. A failed step
-    raises; nothing retries on the plain path.
+    raises (the engine retries the call on the plain path when its
+    speculate breaker is armed).
 
     Returns ``(entry, loop)``: ``entry`` as ``make_batch_entry`` gives it,
     and ``loop(cache, prev_logits, tokens, valid, live0, shared_layers,
@@ -188,7 +185,7 @@ def build_spec_decode(cfg, model, pad_id: int, eos_id: int, *, batch: int,
         out_len = np.zeros(B, np.int64)
         done = ~live0
         drafted = accepted = steps = 0
-        finite = _live_finite(prev_logits, torch.from_numpy(live0).to(dev))
+        finite = masked_finite(prev_logits, torch.from_numpy(live0).to(dev))
         while steps < max_new and not done.all():
             live = ~done
             live_dev = torch.from_numpy(live).to(dev)
@@ -213,7 +210,7 @@ def build_spec_decode(cfg, model, pad_id: int, eos_id: int, *, batch: int,
             pos = prefix_len + lengths0[:, None] + step_iota[None, :]
             logits, cache = model(inp, pos, live_dev[:, None].expand(B, S), cache,
                                   shared_layers=shared_layers, write_offsets=off)
-            finite = finite & (torch.isfinite(logits) | ~live_dev[:, None, None]).all()
+            finite = finite & masked_finite(logits, live_dev)
             g = logits.argmax(dim=-1)  # g[:, i]: the token after input position i
             a = greedy_accept_length(drafts, g[:, :k])
             eos_first = torch.where(inp == eos_id, step_iota[None, :],
@@ -331,10 +328,13 @@ def build_serve_prefill(cfg, model, *, nb: int, P: int):
     recycled slot never shows its previous tenant's keys. The batch-bucket
     pad rows after them are never written anywhere.
 
-    Returns ``run(cache, prev_logits, tokens, valid, slots)``, which updates
-    ``cache`` and ``prev_logits`` in place."""
+    Returns ``run(cache, prev_logits, tokens, valid, slots, guard=False)``,
+    which updates ``cache`` and ``prev_logits`` in place and returns, with
+    ``guard``, the device bool that the real rows' last logits are finite
+    (the numerics guard), else None."""
 
-    def run(cache, prev_logits, tokens, valid, slots: Sequence[int]) -> None:
+    def run(cache, prev_logits, tokens, valid, slots: Sequence[int],
+            guard: bool = False) -> Optional[torch.Tensor]:
         dev = tokens.device
         positions = (torch.cumsum(valid.long(), dim=1) - 1).clamp_min(0)
         small = init_cache(cfg, nb, P, device=dev)
@@ -353,6 +353,7 @@ def build_serve_prefill(cfg, model, *, nb: int, P: int):
         cache.key_positions[idx, :P] = small.key_positions[:n]
         cache.lengths[idx] = small.lengths[:n]
         prev_logits[idx] = logits[:n, -1]
+        return masked_finite(logits[:n, -1]) if guard else None
 
     return run
 
@@ -382,13 +383,15 @@ def build_paged_prefill(model):
     Numerically the engine's forward over the same tokens at the same
     positions. Returns ``run(arena, view, prev_logits, tokens, valid,
     positions, tables, wtables, cow_src, cow_dst, matched, last_idx,
-    slots)``: device tensors but for ``slots``, the ``n <= nb`` real rows'
-    slot ids (the rows after them are batch-bucket pads, whose write
-    tables are all sink)."""
+    slots, guard=False)``: device tensors but for ``slots``, the ``n <= nb``
+    real rows' slot ids (the rows after them are batch-bucket pads, whose
+    write tables are all sink). With ``guard`` it returns the device bool
+    that the real rows' last logits are finite, else None."""
     from fairness_llm_tpu_torch.serving.paged import gather_view, scatter_view
 
     def run(arena, view, prev_logits, tokens, valid, positions, tables, wtables, cow_src,
-            cow_dst, matched, last_idx, slots: Sequence[int]) -> None:
+            cow_dst, matched, last_idx, slots: Sequence[int],
+            guard: bool = False) -> Optional[torch.Tensor]:
         for big in arena.tensors():
             big.index_copy_(0, cow_dst, big.index_select(0, cow_src))
         arena.key_valid.index_fill_(0, wtables.reshape(-1), False)
@@ -403,5 +406,6 @@ def build_paged_prefill(model):
         idx = torch.tensor(list(slots), dtype=torch.long, device=tokens.device)
         arena.lengths[idx] = v.lengths[:n]
         prev_logits[idx] = logits[:n, 0]
+        return masked_finite(logits[:n, 0]) if guard else None
 
     return run

@@ -5,8 +5,10 @@ Layers, bottom up: ``request`` (Request/Result) -> ``queue`` (bounded
 admission, rate limit) -> ``paged`` (the block arena and radix prefix
 index of the paged KV cache) -> ``slots`` (the KV slot pool allocator) ->
 ``scheduler`` (the prefill/decode step loop) -> ``backend`` (the
-``DecodeBackend`` the phases call). Overload control, the replica fleet,
-router, autoscaler, replay and rollout are later slices (ROADMAP A5).
+``DecodeBackend`` the phases call). Fault containment, the breakers,
+the watchdog, drain and the journal live in ``resilience/`` and
+``integrity/``. Overload control, the replica fleet, router, autoscaler,
+replay and rollout are later slices (ROADMAP A5).
 """
 
 from fairness_llm_tpu_torch.serving.backend import ServingBackend

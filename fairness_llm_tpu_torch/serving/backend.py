@@ -12,21 +12,45 @@ How it differs from ``EngineBackend``:
   ``EngineBackend`` with ``share_prefix=False`` token for token;
 - the serving counters add up in ``serve_totals`` (a ``ServingStats``), as
   ``EngineBackend.spec_totals`` do, and the last call's ``GenerateOutput``
-  (with ``stats["serving"]``) is kept in ``last_output``.
+  (with ``stats["serving"]``) is kept in ``last_output``;
+- a request that failed (a second fault) or was preempted by a drain comes
+  back as a ``None`` text (the ``with_failure_containment`` sentinel), not
+  a failed chunk, because the scheduler contains faults per request;
+- with ``resilience`` enabled one ``BreakerBoard`` is shared by every
+  scheduler and the engine's speculate gate, and the ladder's last rung
+  lives here: at level 3 (``static_fallback``) new calls run through the
+  static ``DecodeEngine`` (the same hand-written kernels, another program)
+  until the ladder retreats;
+- with ``integrity.canary_every_n`` set, a golden-prompt canary
+  (``integrity/canary.py``) decodes through the live scheduler every N
+  calls, compared token for token against a reference recorded at the
+  pool's own shape; a mismatch trips the decode breaker;
+- ``fault_injector`` and ``journal`` go through to every scheduler.
 
-The reference's replica fleet, canary probe, breakers and static-engine
-fallback are later slices (ROADMAP A5); a failed kernel raises.
+The reference's replica fleet is a later slice (ROADMAP A5.4); a fatal CUDA
+error raises out of ``generate``.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-from fairness_llm_tpu_torch.config import ModelSettings, ServingConfig
+from fairness_llm_tpu_torch.config import (
+    IntegrityConfig,
+    ModelSettings,
+    ResilienceConfig,
+    ServingConfig,
+)
+from fairness_llm_tpu_torch.resilience.breaker import BreakerBoard
+from fairness_llm_tpu_torch.resilience.drain import ServingJournal
 from fairness_llm_tpu_torch.serving.request import Request
 from fairness_llm_tpu_torch.serving.scheduler import ContinuousScheduler
+from fairness_llm_tpu_torch.telemetry import get_registry
+
+logger = logging.getLogger(__name__)
 
 
 class ServingBackend:
@@ -34,10 +58,36 @@ class ServingBackend:
     use_shared_prefix = False
 
     def __init__(self, engine, serving: Optional[ServingConfig] = None,
-                 name: Optional[str] = None):
+                 name: Optional[str] = None, fault_injector=None,
+                 resilience: Optional[ResilienceConfig] = None,
+                 journal: Optional[ServingJournal] = None,
+                 integrity: Optional[IntegrityConfig] = None):
         self.engine = engine
         self.serving = serving or ServingConfig(enabled=True)
         self.name = name or engine.config.name
+        self.fault_injector = fault_injector
+        self.resilience = resilience
+        self.journal = journal
+        self.integrity = integrity
+        # The canary is recorded on the first generate(), not here: its
+        # reference decode must not land in the backend's construction.
+        self._canary = None
+        self._canary_sched = None
+        self.board: Optional[BreakerBoard] = None
+        if resilience is not None and resilience.enabled:
+            # ONE board for the backend: every scheduler's prefill/decode
+            # breakers and the engine's speculate gate share it, so the
+            # ladder sees the process's health.
+            self.board = BreakerBoard(failure_threshold=resilience.breaker_threshold,
+                                      cooldown_s=resilience.breaker_cooldown_s)
+            self.engine.breakers = self.board
+            if resilience.max_step_seconds > 0 and self.engine.watchdog is None:
+                from fairness_llm_tpu_torch.resilience.watchdog import StepWatchdog
+
+                # The static-fallback rung runs engine.generate directly, with
+                # the same hang classification as the scheduler.
+                self.engine.watchdog = StepWatchdog(resilience.max_step_seconds,
+                                                    component="engine")
         self.serve_totals = None  # Optional[ServingStats]
         self.last_output = None  # GenerateOutput of the most recent call
         self._schedulers: dict = {}
@@ -48,11 +98,47 @@ class ServingBackend:
         key = (settings.temperature, settings.top_k, settings.top_p)
         sched = self._schedulers.pop(key, None)
         if sched is None:
-            sched = ContinuousScheduler(self.engine, self.serving, settings=settings)
+            sched = ContinuousScheduler(self.engine, self.serving, settings=settings,
+                                        fault_injector=self.fault_injector,
+                                        resilience=self.resilience, journal=self.journal,
+                                        breakers=self.board)
             while len(self._schedulers) >= 2:
                 del self._schedulers[next(iter(self._schedulers))]
         self._schedulers[key] = sched
         return sched
+
+    def _maybe_canary(self) -> None:
+        """Record the canary on first use and probe it when due (every
+        ``integrity.canary_every_n`` calls), before the user batch, so that
+        detected corruption degrades the path before more traffic lands on
+        it."""
+        integ = self.integrity
+        if integ is None or integ.canary_every_n <= 0:
+            return
+        if self._canary is None:
+            from fairness_llm_tpu_torch.integrity.canary import CanaryProbe
+
+            self._canary = CanaryProbe.record(
+                self.engine, self.serving, max_tokens=integ.canary_max_tokens,
+                every_n=integ.canary_every_n, board=self.board)
+        if self._canary.tick():
+            self._canary.probe(self._canary_scheduler())
+
+    def _canary_scheduler(self) -> ContinuousScheduler:
+        """The live greedy scheduler when user traffic is greedy; else a
+        dedicated greedy scheduler of the same pool shape, held outside the
+        LRU (routing it through ``scheduler_for`` would evict a warm user
+        scheduler), sharing the board but not the journal (a probe is
+        synthetic traffic no successor may resume)."""
+        s = self._canary.settings
+        live = self._schedulers.get((s.temperature, s.top_k, s.top_p))
+        if live is not None:
+            return live
+        if self._canary_sched is None:
+            self._canary_sched = ContinuousScheduler(
+                self.engine, self.serving, settings=s, resilience=self.resilience,
+                breakers=self.board)
+        return self._canary_sched
 
     def generate(
         self,
@@ -63,7 +149,7 @@ class ServingBackend:
         prefix_ids: Optional[Sequence[int]] = None,  # accepted, unused
     ) -> List[Optional[str]]:
         """Texts in prompt order; None for a request that did not complete
-        (a deadline), so that a sweep retries it."""
+        (a deadline, a second fault, a drain), so that a sweep retries it."""
         from fairness_llm_tpu_torch.pipeline.backends import _stable_hash
         from fairness_llm_tpu_torch.runtime.engine import GenerateOutput
 
@@ -72,7 +158,28 @@ class ServingBackend:
             self.last_output = GenerateOutput(texts=[], tokens=np.zeros((0, 0), np.int32),
                                               steps=0)
             return []
+        if self.board is not None and self.board.ladder.level >= 3 \
+                and not (self.board.allow("prefill") and self.board.allow("decode")):
+            # Degradation rung 3: the server proved unhealthy enough that
+            # new calls take the static engine. The allow() consults make the
+            # rung recoverable: once the open breakers' cooldowns elapse they
+            # half-open and the call falls through to the scheduler as the
+            # probe, whose outcome closes (or re-opens) them.
+            logger.warning("degradation level %d (%s): serving %d prompt(s) through the "
+                           "static engine", self.board.ladder.level, self.board.ladder.rung,
+                           len(prompts))
+            get_registry().counter("static_fallback_calls_total", component="serving").inc()
+            # The same row-seed formula, so that greedy and sampled output
+            # stay the same across the fallback; serve_totals do not count it.
+            row_seeds = None
+            if keys is not None:
+                row_seeds = [(_stable_hash(k) ^ seed) & 0xFFFFFFFF for k in keys]
+            out = self.engine.generate(prompts, settings, seed=seed, row_seeds=row_seeds,
+                                       share_prefix=False)
+            self.last_output = out
+            return list(out.texts)
         sched = self.scheduler_for(settings)
+        self._maybe_canary()
         requests = []
         for i, p in enumerate(prompts):
             if keys is not None:

@@ -5,8 +5,9 @@
 queue is at capacity or the ``RateLimiter`` quota says no, and the caller
 decides whether to retry. One consumer, the scheduler loop, so this is a
 deque with a capacity, not a synchronized queue. ``requeue`` puts a request
-back at the front, past capacity and quota. The per-QoS-class queue
-(``ClassedAdmissionQueue``) comes with overload control (ROADMAP A5).
+back at the front, past capacity and quota. ``close`` refuses every
+submission while a drain runs (``resilience/drain.py``). The per-QoS-class
+queue (``ClassedAdmissionQueue``) comes with overload control (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ class AdmissionQueue:
         self.capacity = capacity
         self.rate_limiter = rate_limiter
         self._q: Deque[Request] = deque()
-        self.rejected = 0  # capacity and rate refusals, for ServingStats
+        self.rejected = 0  # closed, capacity and rate refusals, for ServingStats
+        # A draining server stops ACCEPTING work, not just admitting it to
+        # slots: late submissions would sit in a queue nothing pops.
+        self.closed = False
 
     def __len__(self) -> int:
         return len(self._q)
@@ -39,13 +43,21 @@ class AdmissionQueue:
         enqueued. ``count_rejection=False`` is for retries of an already
         accepted request (the scheduler's overflow top-up): a refusal then
         is not a new rejection."""
-        if self.full or (self.rate_limiter is not None
-                         and not self.rate_limiter.try_acquire()):
+        if self.closed or self.full or (self.rate_limiter is not None
+                                        and not self.rate_limiter.try_acquire()):
             if count_rejection:
                 self.rejected += 1
             return False
         self._q.append(request)
         return True
+
+    def close(self) -> None:
+        """Stop accepting submissions (a drain). Queued requests stay
+        poppable: the drain decides whether to finish or journal them."""
+        self.closed = True
+
+    def reopen(self) -> None:
+        self.closed = False
 
     def requeue(self, request: Request) -> None:
         """Front-of-line reinsertion, past capacity and rate checks: the

@@ -4,7 +4,7 @@
 A ``Request`` is one prompt with its own decode budget, sampling seed and
 optional deadline; a ``Result`` is its terminal outcome. The scheduler owns
 the lifecycle: queued -> admitted (KV slot + prefill) -> decoding ->
-completed or failed.
+completed, failed, expired or preempted (a fault requeues it once).
 """
 
 from __future__ import annotations
@@ -83,9 +83,10 @@ class Result:
 
     ``tokens`` follows the engine's per-row convention: the generated ids,
     including the EOS that stopped the row, nothing after.
-    ``finish_reason``: "eos" | "length" | "deadline" (and, in the
-    reference, "failed" | "preempted" | "shed", which the port's core loop
-    does not produce: a failed kernel raises out of ``serve``).
+    ``finish_reason``: "eos" | "length" | "deadline" | "failed" (a second
+    fault after the one requeue; ``error`` says which) | "preempted" (a
+    drain; the journal keeps it open for ``resume-serving``). The
+    reference's "shed" comes with overload control (ROADMAP A5.3).
     ``latency_s`` is the wall time from submission.
     """
 

@@ -41,12 +41,39 @@ rates), every prefill batch and decode chunk is a span on the timeline's
 chunks go to the flight recorder, a heartbeat pulses every 30 s, each drain
 publishes its ``ServingStats``, and the paged manager its block accounting.
 
-Not ported here, each a later part of ROADMAP A5: fault injection and
-containment, breakers, the watchdog, drain and the journal, overload
-control and shedding, numerics guards and tensor-parallel meshes. A failed
-kernel raises out of ``serve``; a paged decode chunk that fails first drops
-the arena's contents, its cached prefixes and its live slots (the arena may
-be half written), so the scheduler stays usable.
+Fault containment (``utils/failures.py``): an injected or raised prefill
+or decode fault releases the hit slots and requeues each request once (a
+fresh prefill in a fresh slot); a second fault turns it into a failed
+``Result``, and the loop goes on. The scripted injector's hooks
+(``maybe_fail``, ``maybe_hang``, ``maybe_corrupt``) fire on the host before
+the device call. A paged decode chunk whose device call itself raised also
+drops the arena's contents and its cached prefixes (the arena may be half
+written); an injected, numerics or hang fault leaves the arena intact (the
+call completed, or never ran) and releases only the riders, so the prefix
+cache and its counters survive. A fatal CUDA error
+(``utils/failures.is_fatal_device_error``) is never contained: it is
+counted, logged, triggers an incident and raises out of ``serve``.
+
+Resilience (``resilience/``, with ``ResilienceConfig``): the step watchdog
+classifies an over-budget prefill or decode call as a ``HangFault``
+(contained as a decode fault; first use of a (stage, shape) key and calls
+that built or loaded a kernel are exempt), per-stage circuit breakers stop
+hammering a persistently failing prefill or decode (an open breaker skips
+the stage until a half-open probe), breaker trips advance a degradation
+ladder (drop speculation -> halve the decode chunk and soft-cap the pool
+-> the backend's static-engine fallback), and a drain (SIGTERM/SIGINT via
+``GracefulDrain``, or ``request_drain()``) stops admission, gives live
+slots ``drain_grace_s`` to finish and preempts the rest, whose journal
+records stay unfinished for ``resume-serving``.
+
+Integrity (``integrity/``): with the engine's ``numerics_guards`` each
+prefill and decode chunk's finite flag is read with its tokens, and a
+tripped flag discards the chunk as a ``NumericsFault`` (requeue once,
+breaker-visible, ``numerics_faults_total``).
+
+Not ported here, each a later part of ROADMAP A5: overload control and
+shedding (``_overload_gate``, ``_shed``), the replica fleet and
+tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -59,9 +86,18 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from fairness_llm_tpu_torch.config import ModelSettings, ServingConfig
+from fairness_llm_tpu_torch.config import ModelSettings, ResilienceConfig, ServingConfig
+from fairness_llm_tpu_torch.integrity.numerics import check_finite
 from fairness_llm_tpu_torch.models.tokenizer import _left_pad
 from fairness_llm_tpu_torch.models.transformer import check_write_offsets, init_cache
+from fairness_llm_tpu_torch.ops import _build
+from fairness_llm_tpu_torch.resilience.breaker import BreakerBoard
+from fairness_llm_tpu_torch.resilience.drain import (
+    ServingJournal,
+    drain_requested,
+    take_signal_telemetry,
+)
+from fairness_llm_tpu_torch.resilience.watchdog import StepWatchdog, first_use
 from fairness_llm_tpu_torch.runtime.engine import _bucket_len
 from fairness_llm_tpu_torch.runtime.sampling import SamplerSettings
 from fairness_llm_tpu_torch.runtime.stepbuilder import (
@@ -73,9 +109,17 @@ from fairness_llm_tpu_torch.serving.paged import PagedKV, init_arena
 from fairness_llm_tpu_torch.serving.queue import AdmissionQueue
 from fairness_llm_tpu_torch.serving.request import Request, Result
 from fairness_llm_tpu_torch.serving.slots import SlotPool, SlotState
-from fairness_llm_tpu_torch.telemetry import Heartbeat, RequestTracer, get_registry
+from fairness_llm_tpu_torch.telemetry import Heartbeat, RequestTracer, emit_event, get_registry
 from fairness_llm_tpu_torch.telemetry.flightrecorder import get_flight_recorder
+from fairness_llm_tpu_torch.telemetry.incidents import maybe_trigger, record_decision
 from fairness_llm_tpu_torch.telemetry.timeline import get_timeline
+from fairness_llm_tpu_torch.utils.failures import (
+    DecodeFault,
+    HangFault,
+    NumericsFault,
+    is_fatal_device_error,
+    note_fatal_device_error,
+)
 from fairness_llm_tpu_torch.utils.profiling import ServingStats
 from fairness_llm_tpu_torch.utils.ratelimit import RateLimiter
 
@@ -87,6 +131,11 @@ def _bucket_pow2(n: int, cap: int) -> int:
     while b < n:
         b *= 2
     return min(b, cap)
+
+
+def _fault_kind(e: Exception) -> str:
+    return ("hang" if isinstance(e, HangFault)
+            else "numerics" if isinstance(e, NumericsFault) else "device")
 
 
 class ContinuousScheduler:
@@ -101,10 +150,19 @@ class ContinuousScheduler:
 
     ``last_seconds`` holds the last drain's host-clock seconds of prefill
     and of decode (each ends in a sync with the device).
+
+    ``fault_injector`` (a ``ScriptedFaultInjector``) scripts faults, hangs
+    and corruptions; ``resilience`` arms the watchdog and the breakers;
+    ``journal`` ledgers every accepted request and its outcome; ``breakers``
+    shares a ``BreakerBoard`` (``ServingBackend`` hands one board to all its
+    schedulers and the engine).
     """
 
     def __init__(self, engine, serving: Optional[ServingConfig] = None,
-                 settings: Optional[ModelSettings] = None):
+                 settings: Optional[ModelSettings] = None, fault_injector=None,
+                 resilience: Optional[ResilienceConfig] = None,
+                 journal: Optional[ServingJournal] = None,
+                 breakers: Optional[BreakerBoard] = None):
         self.engine = engine
         self.serving = serving or ServingConfig(enabled=True)
         # Instrument labels and timeline track of a single-replica scheduler
@@ -171,18 +229,14 @@ class ContinuousScheduler:
             self._arena = None
         self._prev_logits = torch.zeros((self.num_slots, cfg.vocab_size), dtype=torch.float32,
                                         device=dev)
-        # One decode program: decode_chunk x fuse_steps steps a call, or
-        # fewer once every live row is done.
-        tok = engine.tokenizer
-        fuse = max(1, self.serving.fuse_steps)
-        self._step = build_serve_step(
-            engine.model, self.sampler, tok.pad_id, tok.eos_id, num_slots=self.num_slots,
-            chunk=max(1, self.serving.decode_chunk), fuse=fuse, paged=self.paged)
+        # One decode function: decode_chunk x fuse_steps steps a call, or
+        # fewer once every live row is done. Degradation rung 2 halves the
+        # chunk and drops the fuse; both come back as the ladder retreats.
+        self.decode_chunk = self._base_decode_chunk = max(1, self.serving.decode_chunk)
+        self.fuse_steps = self._base_fuse_steps = max(1, self.serving.fuse_steps)
+        self._build_step()
         if self.paged:
             self._paged_prefill = build_paged_prefill(engine.model)
-        # The decode program's telemetry name, as the reference labels it.
-        self._program = ("paged_step" if self.paged else "serve_step") + \
-            ("_fused" if fuse > 1 else "")
         # Request lifecycle spans and their histograms (and SLO burn rates),
         # and a liveness pulse: host-side timestamps only.
         self.tracer = RequestTracer(component="serving", labels=self.labels)
@@ -194,6 +248,48 @@ class ContinuousScheduler:
         self._rejected_taken = 0
         self.last_stats: Optional[ServingStats] = None
         self.last_seconds = {"prefill": 0.0, "decode": 0.0}
+        self.fault_injector = fault_injector
+        # Resilience (resilience/): the watchdog and the breakers arm only
+        # when the config enables them (or a shared board is handed in);
+        # the journal ledgers intake when present. In a fault-free run they
+        # cost a few host-side timestamps per chunk.
+        self.resilience = resilience or ResilienceConfig()
+        r = self.resilience
+        if breakers is not None:
+            self.breakers: Optional[BreakerBoard] = breakers
+        elif r.enabled:
+            self.breakers = BreakerBoard(failure_threshold=r.breaker_threshold,
+                                         cooldown_s=r.breaker_cooldown_s, labels=self.labels)
+        else:
+            self.breakers = None
+        self.watchdog: Optional[StepWatchdog] = (
+            StepWatchdog(r.max_step_seconds, labels=self.labels)
+            if r.enabled and r.max_step_seconds > 0 else None)
+        self.journal = journal
+        # The version stamped on this scheduler's journal records (the
+        # reference's fleet sets its replica's rollout version; None here).
+        self.journal_version: Optional[str] = None
+        self._drain_flag = False
+        # request_drain(grace_s=...) overrides the configured grace for one
+        # drain.
+        self._drain_grace_override: Optional[float] = None
+        # Degradation rung 2 soft-caps concurrent slots at half the pool.
+        self.live_cap = self.num_slots
+        self._applied_level = 0
+
+    def _build_step(self) -> None:
+        tok = self.engine.tokenizer
+        self._step = build_serve_step(
+            self.engine.model, self.sampler, tok.pad_id, tok.eos_id, num_slots=self.num_slots,
+            chunk=self.decode_chunk, fuse=self.fuse_steps, paged=self.paged)
+        # The decode function's telemetry name, as the reference labels it.
+        self._program = ("paged_step" if self.paged else "serve_step") + \
+            ("_fused" if self.fuse_steps > 1 else "")
+
+    def _guard(self) -> bool:
+        """The numerics-guard switch, read from the engine (one switch for
+        the engine and serving paths)."""
+        return bool(getattr(self.engine, "numerics_guards", False))
 
     # -- submission ----------------------------------------------------------
 
@@ -216,6 +312,10 @@ class ContinuousScheduler:
         accepted = self.queue.submit(request)
         if accepted:
             self.tracer.record(request.id, "submitted", t=request.submitted_at)
+            if self.journal is not None:
+                # Ledgered at acceptance: from here on the request reaches a
+                # terminal Result or survives in the journal.
+                self.journal.record_submitted(request, version=self.journal_version)
         return accepted
 
     def take_result(self, request_id: str) -> Optional[Result]:
@@ -249,6 +349,8 @@ class ContinuousScheduler:
         for r in requests:
             r.submitted_at = now
             self.tracer.record(r.id, "submitted", t=now)
+            if self.journal is not None:
+                self.journal.record_submitted(r, version=self.journal_version)
         self._pending = deque(requests)
         self._run_loop(stats)
         self.last_stats = stats
@@ -256,13 +358,31 @@ class ContinuousScheduler:
 
     # -- the loop ------------------------------------------------------------
 
+    def request_drain(self, grace_s: Optional[float] = None) -> None:
+        """Programmatic drain (the signal path is ``GracefulDrain``): the
+        loop stops admission at its next iteration, finishes what it can
+        within ``drain_grace_s`` (or ``grace_s``, for this drain only) and
+        preempts the rest to the journal."""
+        self._drain_flag = True
+        self._drain_grace_override = grace_s
+
+    def _drain_requested(self) -> bool:
+        # Own flag or the process-wide one a GracefulDrain handler sets, so
+        # that one SIGTERM drains every scheduler in the process.
+        return self._drain_flag or drain_requested()
+
     @property
     def has_work(self) -> bool:
         """Anything still owed a Result: pending overflow, queued, or live."""
         return bool(self._pending or len(self.queue) or self.pool.occupancy)
 
     def step(self, stats: ServingStats) -> bool:
-        """One admission and decode iteration; True when any work moved."""
+        """One admission and decode iteration; True when any work moved. A
+        pending drain runs instead (and counts as no progress)."""
+        if self._drain_requested():
+            self._execute_drain(stats)
+            return False
+        self._apply_degradation()
         # SLO window decay: the burn gauges age out in quiet stretches.
         self.tracer.slo.maybe_evaluate()
         progressed = self._iterate(stats)
@@ -288,11 +408,89 @@ class ContinuousScheduler:
         self.last_seconds = {"prefill": 0.0, "decode": 0.0}
         self._feed()
         while self.has_work:
-            if not self.step(stats):
-                # Nothing moved (rate-limited admission with an empty pool):
-                # yield instead of spinning.
+            drained = self._drain_requested()
+            if not self.step(stats) and not drained:
+                # Nothing moved (rate-limited admission with an empty pool,
+                # or an open breaker refusing a stage while work waits):
+                # yield instead of spinning. A drain just preempted
+                # everything, so the loop ends without sleeping.
                 time.sleep(0.002)
         self.finish_stats(stats)
+
+    def _apply_degradation(self) -> None:
+        """Make the knobs match the ladder's rung, polled once per loop
+        iteration: rung 1 sheds the engine's speculation (the tokens are
+        the same either way), rung 2 halves the decode chunk, drops the
+        fuse and soft-caps concurrent slots at half the pool. Everything
+        comes back as the ladder retreats. Rung 3 (the static engine) is
+        ``ServingBackend``'s."""
+        if self.breakers is None:
+            return
+        lvl = self.breakers.ladder.level
+        if lvl == self._applied_level:
+            return
+        # The shed state lives on the ENGINE (idempotent methods), driven by
+        # the current level: several schedulers can share one engine.
+        if lvl >= 1:
+            self.engine.shed_speculation()
+        else:
+            self.engine.restore_speculation()
+        if lvl >= 2:
+            self.decode_chunk = max(1, self._base_decode_chunk // 2)
+            self.live_cap = max(1, self.num_slots // 2)
+            self.fuse_steps = 1
+        else:
+            self.decode_chunk = self._base_decode_chunk
+            self.live_cap = self.num_slots
+            self.fuse_steps = self._base_fuse_steps
+        self._build_step()
+        logger.warning("degradation rung %d (%s) applied: speculation=%s decode_chunk=%d "
+                       "fuse_steps=%d live_cap=%d", lvl, self.breakers.ladder.rung,
+                       "shed" if self.engine._spec_shed else "kept", self.decode_chunk,
+                       self.fuse_steps, self.live_cap)
+        self._applied_level = lvl
+
+    def _execute_drain(self, stats: ServingStats) -> None:
+        """Stop admission, give live slots ``drain_grace_s`` to finish, and
+        preempt everything else. Queued and pending requests never got a
+        slot, so they preempt at once."""
+        n_queued, n_pending, n_live = len(self.queue), len(self._pending), self.pool.occupancy
+        # The signal handler only sets flags; this is the safe context that
+        # records which signals asked for the drain.
+        take_signal_telemetry()
+        logger.warning("draining: admission stopped (%d queued, %d pending, %d live)",
+                       n_queued, n_pending, n_live)
+        emit_event("drain_started", queued=n_queued, pending=n_pending, live=n_live,
+                   **self.labels)
+        get_registry().counter("drains_total", component="serving", **self.labels).inc()
+        self.queue.close()
+        completed_before = stats.completed
+        try:
+            for req in self._pending:
+                self._preempt(req, stats)
+            self._pending.clear()
+            for req in self.queue.pop(len(self.queue)):
+                self._preempt(req, stats)
+            grace = (self._drain_grace_override if self._drain_grace_override is not None
+                     else self.resilience.drain_grace_s)
+            t0 = time.monotonic()
+            while self.pool.occupancy and time.monotonic() - t0 < grace:
+                if not self._decode(stats):  # a breaker may refuse the stage
+                    time.sleep(0.002)
+            for slot in self.pool.live_slots():
+                self._preempt(self.pool.release(slot).request, stats)
+            # A fault during the grace loop requeues its victims (requeue
+            # bypasses the closed queue), so sweep the queue again.
+            for req in self.queue.pop(len(self.queue)):
+                self._preempt(req, stats)
+        finally:
+            self.queue.reopen()
+            # One programmatic drain per request_drain(); the process-wide
+            # signal flag stays set (that process is on its way out).
+            self._drain_flag = False
+            self._drain_grace_override = None
+        emit_event("drain_complete", preempted=stats.preempted,
+                   completed_during_drain=stats.completed - completed_before, **self.labels)
 
     def _feed(self) -> None:
         # Top-up from serve()'s overflow: a refusal here retries an accepted
@@ -328,17 +526,94 @@ class ContinuousScheduler:
               tokens: Optional[List[int]] = None) -> None:
         tok = self.engine.tokenizer
         ids = list(tokens or [])
-        row = self.tracer.finalize(request.id, "expired" if reason == "deadline" else "failed",
-                                   tokens=len(ids))
+        outcome = "expired" if reason == "deadline" else "failed"
+        row = self.tracer.finalize(request.id, outcome, tokens=len(ids))
         self._results[request.id] = Result(
             id=request.id, ok=False, text=tok.decode([t for t in ids if t != tok.eos_id]),
             tokens=np.asarray(ids, np.int32), finish_reason=reason, error=error,
             retries=request.retries, latency_s=time.monotonic() - request.submitted_at,
             queue_wait_s=row.queue_wait_s, ttft_s=row.ttft_s)
+        if self.journal is not None:
+            self.journal.record_terminal(request.id, outcome)
         if reason == "deadline":
             stats.expired += 1
         else:
             stats.failed += 1
+
+    def _preempt(self, request: Request, stats: ServingStats) -> None:
+        """A drain's outcome for a request this process will not finish: a
+        ``preempted`` Result and NO terminal journal record (the open record
+        is what ``resume-serving`` reads)."""
+        row = self.tracer.finalize(request.id, "preempted", tokens=0)
+        hint = (f"resume with: resume-serving {self.journal.journal_dir}"
+                if self.journal is not None
+                else "no serving journal configured; request is lost at exit")
+        self._results[request.id] = Result(
+            id=request.id, ok=False, finish_reason="preempted",
+            error=f"drained before completion ({hint})", retries=request.retries,
+            latency_s=time.monotonic() - request.submitted_at,
+            queue_wait_s=row.queue_wait_s, ttft_s=row.ttft_s)
+        stats.preempted += 1
+
+    def _note_fault(self, stage: str, kind: str, request_ids: List[str], error) -> None:
+        """One contained fault into the incident engine: a ``fault``
+        decision naming the riders, and for the kinds with direct evidence
+        of a distinct failure (a hang, a non-finite chunk) an incident
+        trigger. Plain device or injected faults trigger nothing here; a
+        storm of them opens a breaker, whose transition is the trigger."""
+        record_decision("fault", f"{stage}:{kind}",
+                        signals={"request_ids": list(request_ids), "error": str(error)[:200]},
+                        request_id=(request_ids[0] if request_ids else None))
+        first = request_ids[0] if request_ids else None
+        if kind in ("hang", "numerics"):
+            cls, what = (("watchdog_hang", "step over budget") if kind == "hang"
+                         else ("numerics_fault", "chunk non-finite"))
+            maybe_trigger(cls, f"{stage} {what}: {error}", scope="serving",
+                          request_id=first, stage=stage, request_ids=list(request_ids))
+
+    def _contain(self, e: Exception, stage: str, reqs: List[Request], stats: ServingStats,
+                 what: str) -> str:
+        """The containment branch of a failed prefill or decode call whose
+        slots the caller released: count the fault, note it (before the
+        breaker feed, so that a trip's bundle already names the riders),
+        feed the breaker, and requeue or fail each rider. A fatal device
+        error is recorded and raised instead. Returns the fault's kind."""
+        if is_fatal_device_error(e):
+            note_fatal_device_error(e, "serving", stage, self.labels)
+            raise e
+        kind = _fault_kind(e)
+        logger.warning("%s failed: %s", what, e)
+        get_registry().counter("faults_total", component="serving", kind=kind, stage=stage,
+                               **self.labels).inc()
+        self._note_fault(stage, kind, [r.id for r in reqs], e)
+        if self.breakers is not None:
+            self.breakers.record_failure(stage)
+        for req in reqs:
+            self._requeue_or_fail(req, f"{stage} failed: {e}", stats, cause=kind)
+        return kind
+
+    def _requeue_or_fail(self, request: Request, error: str, stats: ServingStats,
+                         cause: str = "device") -> None:
+        if request.retries < 1:
+            request.retries += 1
+            stats.requeued += 1
+            # Cause breakdown ("injected" = a scripted drill, "device" = a
+            # raised call): the bare requeued total cannot tell them apart.
+            get_registry().counter("serving_requeues_by_cause_total", component="serving",
+                                   cause=cause, **self.labels).inc()
+            self.tracer.record(request.id, "requeued")
+            self.queue.requeue(request)
+        else:
+            self._fail(request, "failed", error, stats)
+
+    def _injected_fault(self, stage: str, req: Request, e: DecodeFault,
+                        stats: ServingStats) -> None:
+        """A scripted fault, fed to the incident trail and the breaker like
+        a real one; the caller released the request's slot, if it had one."""
+        self._note_fault(stage, "injected", [req.id], e)
+        if self.breakers is not None:
+            self.breakers.record_failure(stage)
+        self._requeue_or_fail(req, str(e), stats, cause="injected")
 
     def _finish(self, slot: int, reason: str, stats: ServingStats) -> None:
         state = self.pool.release(slot)
@@ -359,6 +634,8 @@ class ContinuousScheduler:
             finish_reason=reason, prompt_tokens=state.real_len, retries=req.retries,
             latency_s=time.monotonic() - req.submitted_at,
             queue_wait_s=row.queue_wait_s, ttft_s=row.ttft_s)
+        if self.journal is not None:
+            self.journal.record_terminal(req.id, "completed")
         stats.completed += 1
 
     def _cap_for(self, request: Request) -> int:
@@ -376,16 +653,33 @@ class ContinuousScheduler:
         return any_admitted
 
     def _admit_once(self, stats: ServingStats) -> bool:
-        n = min(self.pool.free_count, self.serving.prefill_group, len(self.queue))
+        if self.breakers is not None and not self.breakers.allow("prefill"):
+            return False
+        free = self.pool.free_count
+        if self.live_cap < self.num_slots:
+            # Degradation rung 2: admission stops filling the pool past the cap.
+            free = min(free, max(0, self.live_cap - self.pool.occupancy))
+        n = min(free, self.serving.prefill_group, len(self.queue))
         if n <= 0:
             return False
         tok = self.engine.tokenizer
         now = time.monotonic()
+        inj = self.fault_injector
+        injected_hang = 0.0
         admitted = []  # (request, ids, bucket)
         for req in self.queue.pop(n):
             if req.expired(now):
+                # Most often expired while waiting to be requeued: it ends
+                # here, never spending a second prefill.
                 self._fail(req, "deadline", "deadline expired before prefill", stats)
                 continue
+            if inj is not None:
+                try:
+                    inj.maybe_fail(req.id, "prefill")
+                except DecodeFault as e:
+                    self._injected_fault("prefill", req, e, stats)
+                    continue
+                injected_hang += inj.maybe_hang(req.id, "prefill")
             ids = tok.encode(req.prompt)
             if len(ids) > self.prompt_budget:
                 logger.warning(
@@ -399,7 +693,7 @@ class ContinuousScheduler:
         if not admitted:
             return False
         if self.paged:
-            return self._admit_paged(admitted, stats)
+            return self._admit_paged(admitted, stats, injected_hang)
 
         # One prefill per admission batch, at the batch's largest bucket:
         # shorter rows pad up to it (pad keys are masked), and each row's
@@ -423,15 +717,43 @@ class ContinuousScheduler:
         # something to normalise over; they are never written to the pool.
         valid[n:, -1] = True
         dev = self.engine.device
+        reqs = [r for r, _, _ in admitted]
         pf_t0 = time.monotonic()
-        for req, _, _ in admitted:
+        for req in reqs:
             self.tracer.record(req.id, "prefill_start", t=pf_t0)
         prefill = build_serve_prefill(self.engine.config, self.engine.model, nb=nb, P=P)
-        prefill(self._cache, self._prev_logits, torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(valid).to(dev), slots)
-        self.engine._sync()
+        try:
+            self._prefill_call(("serve_prefill", nb, P), injected_hang, lambda: prefill(
+                self._cache, self._prev_logits, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(valid).to(dev), slots, guard=self._guard()))
+        except Exception as e:  # noqa: BLE001 — containment is the point
+            # The written rows belong to these slots only; released, they
+            # are invalidated before any reuse.
+            for slot in slots:
+                self.pool.release(slot)
+            self._contain(e, "prefill", reqs, stats, f"prefill batch ({nb}, {P})")
+            return True
         self._note_prefill(stats, pf_t0, f"prefill[{nb}x{P}]", n, int(tb.lengths.sum()))
         return True
+
+    def _prefill_call(self, key: tuple, injected_hang: float, call) -> None:
+        """One prefill under the watchdog, its guard and its breaker:
+        ``call()`` runs the prefill and returns its finite flag (None
+        unguarded); it is read after the sync, then the step is classified
+        (its first use of ``key`` exempt). Raises into the caller's
+        containment; records the breaker's success."""
+        loads = _build.load_events
+        if self.watchdog is not None:
+            self.watchdog.arm("prefill")
+        finite = call()
+        self.engine._sync()
+        if finite is not None:
+            check_finite(finite, "serving", "prefill")
+        if self.watchdog is not None:
+            self.watchdog.observe("prefill", extra_s=injected_hang,
+                                  classify=not first_use(key, loads))
+        if self.breakers is not None:
+            self.breakers.record_success("prefill")
 
     def _note_prefill(self, stats: ServingStats, t0: float, span: str, rows: int,
                       tokens: int, **args) -> None:
@@ -449,7 +771,7 @@ class ContinuousScheduler:
         stats.prefill_tokens += tokens
         stats.admitted += rows
 
-    def _admit_paged(self, admitted, stats: ServingStats) -> bool:
+    def _admit_paged(self, admitted, stats: ServingStats, injected_hang: float) -> bool:
         """Paged admission: radix-match each popped row, claim its blocks
         (a private tail and refs on the shared prefix chain), and prefill
         only the unmatched suffixes, grouped by suffix bucket, so that every
@@ -505,13 +827,16 @@ class ContinuousScheduler:
                                      f"{self.cache_len})")
             groups.setdefault(S, []).append(row)
         for S in sorted(groups):
-            self._paged_prefill_group(groups[S], S, stats)
+            self._paged_prefill_group(groups[S], S, stats, injected_hang)
         return True
 
-    def _paged_prefill_group(self, rows, S: int, stats: ServingStats) -> None:
-        """One suffix prefill for the rows of suffix bucket ``S``. If it
-        fails, the group's slots and blocks are released (nothing was
-        committed to the radix index) and the error propagates."""
+    def _paged_prefill_group(self, rows, S: int, stats: ServingStats,
+                             injected_hang: float) -> None:
+        """One suffix prefill for the rows of suffix bucket ``S``, with the
+        non-paged prefill's watchdog, guard, breaker and containment. A
+        fault releases exactly this group's slots and blocks (nothing was
+        committed to the radix index, and a prefill writes no shared block)
+        and requeues each rider once."""
         paged = self.pool.paged
         tok = self.engine.tokenizer
         cfg = self.engine.config
@@ -553,15 +878,17 @@ class ContinuousScheduler:
         for req, *_ in rows:
             self.tracer.record(req.id, "prefill_start", t=pf_t0)
         try:
-            self._paged_prefill(self._arena, self._view, self._prev_logits, put(tokens),
-                                put(valid), put(positions), self._tables[:nb],
-                                self._wtables[:nb], put(cow_src), put(cow_dst), put(matched),
-                                put(last_idx), [r[2] for r in rows])
-            self.engine._sync()
-        except Exception:
+            self._prefill_call(("paged_prefill", nb, S), injected_hang, lambda: self._paged_prefill(
+                self._arena, self._view, self._prev_logits, put(tokens), put(valid),
+                put(positions), self._tables[:nb], self._wtables[:nb], put(cow_src),
+                put(cow_dst), put(matched), put(last_idx), [r[2] for r in rows],
+                guard=self._guard()))
+        except Exception as e:  # noqa: BLE001 — containment is the point
             for _, _, slot, _, _ in rows:
                 self.pool.release(slot)
-            raise
+            self._contain(e, "prefill", [r[0] for r in rows], stats,
+                          f"paged prefill group ({nb}, {S})")
+            return
         reg = get_registry()
         for req, ids, slot, plan, real_s in rows:
             # Commit after the device call: the written full prompt blocks
@@ -577,7 +904,29 @@ class ContinuousScheduler:
 
     def _decode(self, stats: ServingStats) -> bool:
         """One decode chunk over the live slots, then eviction. True when
-        anything decoded."""
+        anything decoded (or a fault was contained)."""
+        if self.breakers is not None and not self.breakers.allow("decode"):
+            return False
+        injected_hang = 0.0
+        inj = self.fault_injector
+        if inj is not None:
+            for slot in self.pool.live_slots():
+                req = self.pool.get(slot).request
+                try:
+                    inj.maybe_fail(req.id, "decode")
+                except DecodeFault as e:
+                    self.pool.release(slot)
+                    self._injected_fault("decode", req, e, stats)
+            for slot in self.pool.live_slots():
+                injected_hang += inj.maybe_hang(self.pool.get(slot).request.id, "decode")
+            for slot in self.pool.live_slots():
+                mode = inj.maybe_corrupt(self.pool.get(slot).request.id, "decode")
+                if mode is not None:
+                    # Scripted silent corruption: poison the slot's carried
+                    # logits (what it samples from). With the guard on the
+                    # chunk faults as a NumericsFault; without it this is
+                    # the garbage decode the guard exists to catch.
+                    self._prev_logits[slot] = float("nan") if mode == "nan" else float("inf")
         live_ids = self.pool.live_slots()
         if not live_ids:
             return False
@@ -595,7 +944,6 @@ class ContinuousScheduler:
             caps[slot] = self._cap_for(st.request)
             seed = st.request.row_seed
             seeds[slot] = (0 if seed is None else seed) & 0xFFFFFFFF
-        dc_t0 = time.monotonic()
         if self.paged:
             paged = self.pool.paged
             tables = np.zeros((B, paged.blocks_per_slot), np.int64)
@@ -605,22 +953,54 @@ class ContinuousScheduler:
                 wtables[slot] = paged.write_table_for(slot)
             self._tables[:B].copy_(torch.from_numpy(tables))
             self._wtables[:B].copy_(torch.from_numpy(wtables))
-            try:
-                out = self._step(self._arena, self._view, self._prev_logits, self._tables[:B],
-                                 self._wtables[:B], seeds, emitted, base, caps, live)
-                self.engine._sync()
-            except Exception:
-                self._reset_paged()
-                raise
+
+            def call():
+                return self._step(self._arena, self._view, self._prev_logits,
+                                  self._tables[:B], self._wtables[:B], seeds, emitted, base,
+                                  caps, live)
         else:
             # Released slots are invalidated at the step's entry; a slot
             # released and reused since never enters the mask (its prefill
             # re-initialized the row).
             reset = np.zeros((B,), bool)
             reset[self.pool.take_invalidations()] = True
-            out = self._step(self._cache, self._prev_logits, seeds, emitted, base, caps, live,
-                             reset)
+
+            def call():
+                return self._step(self._cache, self._prev_logits, seeds, emitted, base, caps,
+                                  live, reset)
+        key = (self._program, self.decode_chunk, self.fuse_steps)
+        loads = _build.load_events
+        raised = True  # until the device call returns
+        dc_t0 = time.monotonic()
+        if self.watchdog is not None:
+            self.watchdog.arm("decode")
+        try:
+            out = call()
             self.engine._sync()
+            raised = False
+            if self._guard():
+                # The loop's flag, AND-ed over the chunk's steps on the
+                # device and read with its tokens: a tripped flag discards
+                # the whole chunk, and every rider requeues for a fresh
+                # prefill.
+                check_finite(out.finite, "serving", "decode")
+            if self.watchdog is not None:
+                # After the host has the tokens: a chunk past the budget is
+                # discarded like a failed one (the fuse scales the budget).
+                self.watchdog.observe("decode", extra_s=injected_hang,
+                                      classify=not first_use(key, loads),
+                                      budget_scale=self.fuse_steps)
+        except Exception as e:  # noqa: BLE001 — containment is the point
+            reqs = [self.pool.release(slot).request for slot in live_ids]
+            self._contain(e, "decode", reqs, stats, "decode chunk")
+            if self.paged and raised:
+                # The call itself raised, so the arena may be half written:
+                # drop its contents and every cached prefix (a node over a
+                # zeroed block would serve a blank prefix).
+                self._reset_paged()
+            return True
+        if self.breakers is not None:
+            self.breakers.record_success("decode")
         now = time.monotonic()
         dc_wall = now - dc_t0
         self.last_seconds["decode"] += dc_wall
@@ -660,12 +1040,8 @@ class ContinuousScheduler:
         return True
 
     def _reset_paged(self) -> None:
-        """After a failed paged decode chunk the arena may be half written:
-        release every live slot and zero the arena, and make the index
-        forget every cached prefix (a node over a zeroed block would serve
-        a blank prefix)."""
-        for slot in self.pool.live_slots():
-            self.pool.release(slot)
+        """Zero the arena and the carried logits and make the index forget
+        every cached prefix; every slot is free by then."""
         self._arena.zero_()
         self._prev_logits.zero_()
         self.pool.paged.reset()

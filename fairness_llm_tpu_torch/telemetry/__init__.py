@@ -16,15 +16,19 @@ its framework-free modules):
   ``step_gap_s`` host-sync histogram.
 - ``slo``       — SLO targets and multi-window burn rates
   (``slo_burn_rate{slo,window}``) with alert events.
-- ``flightrecorder`` — bounded rings of recent decode chunks and request
-  edges.
+- ``flightrecorder`` — bounded rings of recent decode chunks, request
+  edges, gauge transitions and the decision trail.
+- ``incidents`` — the decision audit trail (``record_decision``), the
+  trigger registry (``maybe_trigger``, armed by ``arm_incidents``, the
+  CLI's ``--incidents``) and the postmortem bundles it dumps, with
+  ``validate_incidents`` and ``render_incident_report``.
 
 Instrumentation is always on (host-side arithmetic, no device cost); the
 exporters are opt-in through ``configure`` (the CLI's ``--telemetry-dir``).
 ``SpeculationStats``/``ServingStats`` publish into the registry
-(``utils/profiling.py``). Not ported yet (ROADMAP A7): the incident engine,
-the fairness monitor, and the device-facing modules (cost model, compile
-stats, memory ledger, roofline).
+(``utils/profiling.py``). Not ported yet (ROADMAP A7): the fairness monitor
+and the device-facing modules (cost model, compile stats, memory ledger,
+roofline).
 """
 
 from __future__ import annotations
@@ -52,6 +56,20 @@ from fairness_llm_tpu_torch.telemetry.flightrecorder import (
     use_flight_recorder,
 )
 from fairness_llm_tpu_torch.telemetry.heartbeat import Heartbeat
+from fairness_llm_tpu_torch.telemetry.incidents import (
+    DecisionRecord,
+    IncidentManager,
+    arm_incidents,
+    causal_chain,
+    get_incident_manager,
+    list_bundles,
+    maybe_trigger,
+    record_decision,
+    render_incident_report,
+    set_incident_manager,
+    use_incident_manager,
+    validate_incidents,
+)
 from fairness_llm_tpu_torch.telemetry.registry import (
     DEFAULT_COUNT_BOUNDS,
     DEFAULT_LATENCY_BOUNDS,
@@ -130,12 +148,14 @@ def configure(telemetry_dir: str, events_max_bytes: Optional[int] = None) -> Jso
 
 __all__ = [
     "Counter",
+    "DecisionRecord",
     "DEFAULT_COUNT_BOUNDS",
     "DEFAULT_LATENCY_BOUNDS",
     "FlightRecorder",
     "Gauge",
     "Heartbeat",
     "Histogram",
+    "IncidentManager",
     "JsonlSink",
     "MetricsRegistry",
     "RequestTracer",
@@ -145,23 +165,31 @@ __all__ = [
     "TRACE_FILENAME",
     "Timeline",
     "TraceSummaryRow",
+    "arm_incidents",
     "assert_span_order",
     "attribution_on",
+    "causal_chain",
     "configure",
     "emit_event",
     "event_sink",
     "get_flight_recorder",
+    "get_incident_manager",
     "get_registry",
     "get_slo_targets",
     "get_timeline",
     "install_event_sink",
+    "list_bundles",
     "load_snapshot",
+    "maybe_trigger",
     "read_events",
+    "record_decision",
     "recording_on",
+    "render_incident_report",
     "render_report",
     "render_slo_report",
     "set_attribution",
     "set_flight_recorder",
+    "set_incident_manager",
     "set_recording",
     "set_registry",
     "set_slo_targets",
@@ -170,9 +198,11 @@ __all__ = [
     "summarize_chrome_trace",
     "to_prometheus",
     "use_flight_recorder",
+    "use_incident_manager",
     "use_registry",
     "use_timeline",
     "validate_chrome_trace",
+    "validate_incidents",
     "validate_snapshot",
     "write_snapshot",
 ]

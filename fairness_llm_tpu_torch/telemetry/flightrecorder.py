@@ -1,9 +1,8 @@
 """Always-on flight recorder: bounded rings over the high-rate state that
 is too voluminous to persist.
 
-The port's copy of ``fairness_llm_tpu/telemetry/flightrecorder.py``. The
-incident engine that consumes it in the reference is not ported yet
-(ROADMAP A7); ``snapshot()`` reads the rings.
+The port's copy of ``fairness_llm_tpu/telemetry/flightrecorder.py``; its
+consumer is the port's incident engine (``telemetry/incidents.py``).
 
 The registry (``telemetry/registry.py``) keeps AGGREGATES forever and the
 JSONL sink persists low-rate events; neither holds the last few seconds of

@@ -1,6 +1,5 @@
 """Heartbeat logger for long sweeps (counterpart of
-``fairness_llm_tpu/telemetry/heartbeat.py``; the incident engine it also
-feeds there is not ported, ROADMAP A7).
+``fairness_llm_tpu/telemetry/heartbeat.py``).
 
 A multi-hour sweep (thousands of profiles, or a long serving drain) emits
 per-chunk DEBUG/INFO lines that scroll away; the heartbeat is the opposite:
@@ -23,7 +22,10 @@ was too generous to classify). When a beat arrives more than
 ``GAP_FACTOR`` x the interval after the previous one, the full dark period
 is observed into the ``heartbeat_gap_s`` histogram and the worst case into
 the ``heartbeat_gap_max_s`` gauge, so ``telemetry-report`` surfaces the
-max gap next to the beat count. The clock is injectable for tests.
+max gap next to the beat count. Each gap is a ``heartbeat`` decision of the
+incident engine (``telemetry/incidents.py``), and a gap past
+``INCIDENT_GAP_FACTOR`` intervals triggers a ``heartbeat_gap`` bundle. The
+clock is injectable for tests.
 """
 
 from __future__ import annotations
@@ -39,6 +41,13 @@ logger = logging.getLogger(__name__)
 # missed-beat gap (1.5: one whole missed interval plus scheduling slop —
 # normal cadence lands just past 1.0x).
 GAP_FACTOR = 1.5
+
+# A gap past this many intervals is a SUSTAINED dark period, routed through
+# the incident trigger registry: two whole missed beats beyond the
+# ordinary-gap threshold (co-tenant jitter recovers inside one interval; a
+# wedge does not).
+INCIDENT_GAP_FACTOR = 4.0
+
 
 class Heartbeat:
     def __init__(self, interval_s: float = 30.0, name: str = "sweep",
@@ -74,6 +83,23 @@ class Heartbeat:
                           component=self.name).set_max(since)
                 emit_event("heartbeat_gap", name=self.name,
                            gap_s=round(since, 2))
+                from fairness_llm_tpu_torch.telemetry.incidents import (
+                    maybe_trigger,
+                    record_decision,
+                )
+
+                record_decision(
+                    "heartbeat", "gap",
+                    signals={"name": self.name, "gap_s": round(since, 2),
+                             "interval_s": self.interval_s},
+                )
+                if since > INCIDENT_GAP_FACTOR * self.interval_s:
+                    maybe_trigger(
+                        "heartbeat_gap",
+                        f"{self.name} went dark {since:.1f}s "
+                        f"(interval {self.interval_s:g}s)",
+                        scope=self.name, gap_s=round(since, 2),
+                    )
         self._last_beat = now
         self.beats += 1
         uptime = now - self.started_at

@@ -2,8 +2,9 @@
 
 The port's copy of ``fairness_llm_tpu/telemetry/slo.py``. In the port the
 targets are set with ``set_slo_targets`` (``TelemetryConfig``, the fleet
-router, the ``slo-report`` subcommand and the incident engine the
-reference also feeds are not ported yet, ROADMAP A5 and A7).
+router and the ``slo-report`` subcommand are not ported yet, ROADMAP A5 and
+A7). An alert is a decision of the incident engine, and an error-rate alert
+triggers a ``slo_burn`` bundle, as in the reference.
 
 The telemetry layer so far exports raw distributions (TTFT/e2e histograms,
 fault counters) and leaves "is this fleet healthy?" to a human reading
@@ -226,6 +227,32 @@ class SLOEvaluator:
             emit_event("slo_alert", slo=slo, window=window,
                        burn_rate=round(burn, 3), component=self.component,
                        **self.labels)
+            # Incident engine (telemetry/incidents.py): the alert as a
+            # decision, and for the ERROR-budget objective only a bundle
+            # trigger. Latency burns alert legitimately in fault-free batch
+            # sweeps (a first chunk that builds kernels blows the TTFT
+            # target), so bundling them would break the fault-free-runs-
+            # produce-zero-bundles contract; an error burn means requests
+            # actually failed.
+            from fairness_llm_tpu_torch.telemetry.incidents import (
+                maybe_trigger,
+                record_decision,
+            )
+
+            record_decision(
+                "slo_alert", f"{slo}:{window}",
+                signals={"burn_rate": round(burn, 3)},
+                replica=self.labels.get("replica"),
+            )
+            if slo == "error_rate":
+                maybe_trigger(
+                    "slo_burn",
+                    f"error-rate burn {burn:.2f} over the {window} window",
+                    scope=(self.labels.get("replica")
+                           or self.labels.get("fleet") or self.component),
+                    replica=self.labels.get("replica"),
+                    window=window, burn_rate=round(burn, 3),
+                )
         elif burn <= 1.0 and was:
             self._alerting[key] = False
             emit_event("slo_resolved", slo=slo, window=window,

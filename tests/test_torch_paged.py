@@ -525,8 +525,9 @@ def test_paged_sampled_tokens_equal_the_non_paged_server():
 
 
 def test_failed_paged_decode_resets_the_arena_and_index(monkeypatch):
-    """A decode chunk that raises leaves no cached prefix, no live slot and
-    a zeroed arena behind, and the scheduler serves again afterwards."""
+    """A decode chunk whose call raises (twice: the request is requeued once,
+    then fails) leaves no cached prefix, no live slot and a zeroed arena
+    behind, and the scheduler serves again afterwards."""
     _, teng = _engines()
     sched = tserving.ContinuousScheduler(teng, PCFG, settings=greedy(8))
     first = sched.serve([tserving.Request(prompt=FAMILY[0], settings=greedy(8))])[0]
@@ -537,8 +538,9 @@ def test_failed_paged_decode_resets_the_arena_and_index(monkeypatch):
         raise RuntimeError("kernel fault")
 
     monkeypatch.setattr(sched, "_step", boom)
-    with pytest.raises(RuntimeError, match="kernel fault"):
-        sched.serve([tserving.Request(prompt=FAMILY[1], settings=greedy(8))])
+    (failed,) = sched.serve([tserving.Request(prompt=FAMILY[1], settings=greedy(8))])
+    assert failed.finish_reason == "failed" and "kernel fault" in failed.error
+    assert sched.last_stats.requeued == 1
     assert sched.pool.occupancy == 0 and len(sched.pool.paged.index) == 0
     assert sched.pool.paged.free_blocks == sched.pool.paged.num_blocks
     assert not sched._arena.key_valid.any()
@@ -559,8 +561,8 @@ def test_failed_paged_prefill_releases_its_group(monkeypatch):
 
     monkeypatch.setattr(sched_mod, "build_paged_prefill", broken)
     sched = tserving.ContinuousScheduler(teng, PCFG, settings=greedy(8))
-    with pytest.raises(RuntimeError, match="prefill fault"):
-        sched.serve([tserving.Request(prompt=FAMILY[0], settings=greedy(8))])
+    (failed,) = sched.serve([tserving.Request(prompt=FAMILY[0], settings=greedy(8))])
+    assert failed.finish_reason == "failed" and "prefill fault" in failed.error
     assert sched.pool.occupancy == 0 and len(sched.pool.paged.index) == 0
     _paged_invariant(sched.pool.paged)
     assert sched.pool.paged.free_blocks == sched.pool.paged.num_blocks

@@ -543,7 +543,7 @@ def test_cli_continuous_runs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--tp", "--overload", "--replicas", "--autoscale",
-                                  "--serving-journal", "--mesh", "--max-step-seconds"])
+                                  "--mesh"])
 def test_cli_refuses_the_later_serving_flags(flag):
     from fairness_llm_tpu_torch.cli import main as tcli
 

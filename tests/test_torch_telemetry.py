@@ -31,20 +31,11 @@ class FakeClock:
         return self.t
 
 
-# Components of the reference's modules the port does not have yet: the
-# incident engine counts its decisions (an SLO alert, a heartbeat gap).
-NOT_PORTED = ("incidents",)
-
-
 def _same_snapshot(a, b):
-    """Snapshots equal but for their creation stamps and the instruments of
-    modules not ported."""
+    """Snapshots equal but for their creation stamps (the incident engine's
+    decision counters included)."""
     def strip(snap):
-        out = {k: v for k, v in snap.items() if k != "created_at_unix"}
-        for section in ("counters", "gauges", "histograms"):
-            out[section] = [r for r in snap[section]
-                            if r["labels"].get("component") not in NOT_PORTED]
-        return out
+        return {k: v for k, v in snap.items() if k != "created_at_unix"}
 
     assert strip(a) == strip(b)
 
