@@ -24,8 +24,9 @@ with int8 weights. Last it runs phases 2 and 3 of the study
 same models, with their teacher-forced scoring forward, and the phase-1
 sweep once more through the continuous-batching server
 (``serving/ContinuousScheduler`` behind ``backend_for``), then through its
-paged KV cache with prefix reuse, and the CLI's telemetry export; and last
-it drives the fault containment on the card.
+paged KV cache with prefix reuse; then it drives the fault containment on
+the card, and last overload control with its QoS queues and the fairness
+monitor, through the CLI's telemetry export.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -177,7 +178,8 @@ path's launch counts are set to 0 just before it and read just after:
      f32 ``decode_fwd`` at the pool's [8, 768] rows); then greedy, served on
      the card and on the CPU, each row equal to the other's and to phase
      20's engine path on the card, or differing only where the CPU's top
-     two logits are within 1e-4 (as phase 20). On llama3-8b with int8
+     two logits are within 1e-4 (as phase 20); the t=0.7 sweep's responses
+     are kept for phase 27. On llama3-8b with int8
      weights at full width and depth (random weights, byte tokenizer) with
      16 slots and a prompt budget of 1,024: the t=0.7 sweep (the main path)
      with K1 and K2 on their tensor-core kernels only and both K4 regimes
@@ -186,10 +188,12 @@ path's launch counts are set to 0 just before it and read just after:
      logged; every kernel call held against its plain version at the
      pool's shapes; then the greedy gate, in a pool of the engine path's
      own shape (``CONTROL_SERVING``: 16 rows of 960 slots, so that K2 plans
-     the same key splits): the greedy sweep against ``EngineBackend``
+     the same key splits): the greedy sweep at one profile a combination
+     (``GATE_PROFILES``: 16 prompts, one call) against ``EngineBackend``
      (``share_prefix=False``) on the same prompts, and a direct ``serve`` of
-     32 of them at budgets 8 + 8 * (i mod 5), so that slots are backfilled
-     in flight, each against its prompt's engine row cut to its budget. A
+     32 requests of them in turn at budgets 8 + 8 * (i mod 5), so that
+     slots are backfilled in flight, each against its prompt's engine row
+     cut to its budget. A
      row may differ only where the engine's top two logits at the first
      divergent token are within the kernels' bf16 allowance (``gate``) at
      the top logit; each such row and gap is printed.
@@ -205,7 +209,8 @@ path's launch counts are set to 0 just before it and read just after:
      ``prefix_cache_hit_ratio`` above 0.5; then greedy on the card and on
      the CPU, each row equal to the other's, to phase 24's served rows and
      to phase 20's engine path, or differing only where the CPU's top two
-     logits are within 1e-4. On llama3-8b with int8 weights (phase 24's
+     logits are within 1e-4; the t=0.7 responses are kept for phase 27. On
+     llama3-8b with int8 weights (phase 24's
      engine; 16 slots, a prompt budget of 1,024 and a cap of 128, so 72
      blocks a slot and 2,304 in the arena): the t=0.7 sweep, K2 only on
      decode_split_tc and both K4 regimes launched, logged beside phase
@@ -223,9 +228,8 @@ path's launch counts are set to 0 just before it and read just after:
      prompts at 32 tokens over an int8 KV cache, paged and not: in
      bfloat16 (K2q on decode_split_tc over the gathered view; its calls
      held; the parting rows reported) and in float32 (gated as above).
-     Last the CLI's ``--continuous --paged-kv --telemetry-dir`` run on
-     tiny-llama-study: its snapshot must pass ``validate_snapshot`` and
-     hold the paged gauges, its ``trace.json`` ``validate_chrome_trace``.
+     The greedy and float32 sweeps run at one profile a combination
+     (``GATE_PROFILES``, as phase 24's gate).
   fault containment (``utils/failures.py``, ``resilience/``, ``integrity/``,
   ``telemetry/incidents.py``), after phase 25:
  26. (a) the greedy phase-1 sweep on both study checkpoints through
@@ -240,7 +244,8 @@ path's launch counts are set to 0 just before it and read just after:
      logits are within 1e-4, as phase 20), the bundles valid, and, paged,
      the arena never dropped and the hit ratio above 0.5. (b) On llama3-8b
      int8 (phase 24's engine) in the control pool (16 × 960): the greedy
-     sweep with guards, breakers, the watchdog (60 s) and a canary every
+     sweep (16 prompts, as phase 24's gate) with guards, breakers, the
+     watchdog (60 s) and a canary every
      call (recorded in a pool of the live pool's shape): no fault, no hang,
      no canary mismatch, every row phase 24's, its wall logged beside
      phase 24's; then a direct serve of 16 prompts with one decode fault
@@ -259,6 +264,37 @@ path's launch counts are set to 0 just before it and read just after:
      --numerics-guards --incidents --telemetry-dir`` run gets a SIGTERM
      mid-run (exit 0), ``resume-serving`` finishes its journal (exit 0) and
      ``incident-report`` renders.
+  overload control and the fairness monitor (``serving/overload.py``, the
+  QoS queue, ``telemetry/fairness.py``), after phase 26:
+ 27. (a) The CLI's ``--all --continuous --slots 8 --overload --fairness-obs
+     --telemetry-dir`` run on both study checkpoints, non-paged and with
+     ``--paged-kv`` (the main path; K1's and K2's f32 kernels must launch,
+     their tensor-core kernels must not): exit 0, the snapshot and
+     ``trace.json`` valid (paged: the paged gauges there), the overload
+     ladder armed and at 0 with nothing shed, ``check_fairness`` passing
+     (the streaming DP/IF/exposure within ``FAIRNESS_TOLERANCE`` of the
+     offline scores, pairs joined, no divergent pair, no alert), also
+     through ``fairness-report --validate --fail-on-alert``, and every
+     phase-1 response that of phase 24's (paged: phase 25's) t=0.7 sweep
+     in the same pool. (b) On llama3-8b int8 (phase 24's engine) in the
+     control pool's shape with a queue of 32: a flood of 64 batch and 16
+     interactive greedy requests (``FLOOD_*``) drives the ladder to rung 1
+     at least by queue depth, and it must be back at 0 once the queue has
+     drained and a healthy window a rung has passed (its trajectory, the
+     outcomes by class and the shed counters logged); every interactive
+     request completes, its row that of the same request served without
+     overload control in a pool of the same shape (``paged_gate``, bf16
+     allowance); a batch request sheds with a retry-after; K1, K2 and K4
+     launch on their tensor-core kernels, and each is held against its
+     plain version at this phase's shapes (``rehold``). (c) A fresh
+     registry's first prefill sample and the estimate it alone gives (what
+     an unwarmed process would shed on) are logged; then, warm, a request
+     with a 1 ms deadline sheds ``deadline_infeasible`` at ``submit()`` and
+     no prefill runs for it. (d) The greedy tiny-llama-study sweep with the
+     monitor on and every female profile's request faulting twice: the
+     neutrality audit alerts on gender and not on age, and the failures,
+     the alert events and the divergent pairs' failed members all name the
+     female group.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
@@ -275,7 +311,9 @@ path's launch counts are set to 0 just before it and read just after:
   ("study", FULL_WIDTH, FULL_WIDTH + "_kv_int8") and its rows as
   ``paged_shapes``; and phase 26's launches on the contained study sweeps
   and the full-width runs (b)-(c) as ``containment_launches`` ("study",
-  FULL_WIDTH) and its rows as ``containment_shapes``.
+  FULL_WIDTH) and its rows as ``containment_shapes``; and phase 27's
+  launches on the study CLI runs and the flood as ``overload_launches``
+  ("study", FULL_WIDTH) and its rows as ``overload_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -2384,10 +2422,16 @@ FULL_WIDTH_SERVING = dict(enabled=True, num_slots=16, max_prompt_len=1024)
 # own near ties (the kernels' bf16 allowance, ``gate``, at its top logit).
 CONTROL_SERVING = dict(enabled=True, num_slots=16, max_prompt_len=896,
                        max_new_tokens=MAX_TOKENS)
-# The direct serve in that pool: this many of the sweep's prompts, request i
-# with a budget of 8 + 8 * (i mod 5) tokens, so that rows leave at different
-# steps and the queue backfills their slots in flight.
+# The direct serve in that pool: this many requests of the sweep's prompts
+# in turn, request i with a budget of 8 + 8 * (i mod 5) tokens, so that rows
+# leave at different steps and the queue backfills their slots in flight.
 DIRECT_REQUESTS = 32
+# The full-width greedy gates (phase 24's served sweep against the engine
+# path, phase 25's paged and float32 sweeps, phase 26's guarded sweep) run
+# the sweep at one profile a demographic combination: 15 profiles and one
+# neutral prompt, one call of 16. The t=0.7 main paths keep the study's
+# three a combination (48 prompts).
+GATE_PROFILES = 1
 
 
 def serving_record_check(rec, label: str, num_slots: int) -> dict:
@@ -2404,8 +2448,8 @@ def study_served(torch, F, name: str, tmp: pathlib.Path, engine_card) -> tuple:
     """Phase 24 for one study checkpoint: the t=0.7 served sweep (the main
     path, its kernel calls recorded and held), then greedy on the card and
     on the CPU. Returns its log row, kernel rows, the keys of the kernel
-    calls it held, and the card's greedy served calls (phase 25 reads
-    them)."""
+    calls it held, the card's greedy served calls (phase 25 reads them) and
+    the t=0.7 sweep's responses (phase 27 reads them)."""
     from fairness_llm_tpu_torch.config import Config, ServingConfig
     from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
     from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
@@ -2434,6 +2478,7 @@ def study_served(torch, F, name: str, tmp: pathlib.Path, engine_card) -> tuple:
     row["record_serving"] = serving_record_check(rec, f"{name} served", STUDY_SERVING["num_slots"])
     row["chunks"], row["totals"] = served.chunks, served.served_totals()
     saved_record_check(cfg, rec, f"{name} served")
+    t07 = {"raw": raw_responses(rec), "neutral": rec["neutral_recommendations"]}
     kernel_rows = sweep_kernel_rows(recs, torch, F, qm, "serving_study", f32=True)
     held = {key for r in recs.values() for key in r.calls}
     del recs
@@ -2462,7 +2507,7 @@ def study_served(torch, F, name: str, tmp: pathlib.Path, engine_card) -> tuple:
         if not differ and (raw_responses(card) != raw_responses(other)
                            or card["neutral_recommendations"] != other["neutral_recommendations"]):
             fail(f"{name} served greedy: equal tokens but other responses than {label}")
-    return row, kernel_rows, held, card_calls
+    return row, kernel_rows, held, card_calls, t07
 
 
 def raw_responses(rec) -> dict:
@@ -2539,7 +2584,7 @@ def full_width_served(torch, F, tmp: pathlib.Path, engine_wall_s: float, device_
     sched = control.scheduler_for(greedy)
     gserved = SweepRecorder(control)
     t0 = time.perf_counter()
-    run_phase1(gcfg, MODEL, backend=control, save=False)
+    run_phase1(gcfg, MODEL, GATE_PROFILES, backend=control, save=False)
     gate_row = {"cache_len": sched.cache_len, "served_greedy_wall_s": time.perf_counter() - t0,
                 **gserved.served_totals()}
     eb = EngineBackend(engine, name=MODEL)
@@ -2566,8 +2611,10 @@ def full_width_served(torch, F, tmp: pathlib.Path, engine_wall_s: float, device_
     # the direct serve: mixed budgets through the same pool, backfilled in
     # flight; request i's row must be its prompt's engine row cut to its
     # budget (the engine's rows are causal, and decoded at the pool's shape)
-    prompts = [p for call in gserved.calls for p in call[0]][:DIRECT_REQUESTS]
-    engine_rows = [r for call in ecalls.calls for r in call[1]][:DIRECT_REQUESTS]
+    sweep_prompts = [p for call in gserved.calls for p in call[0]]
+    sweep_rows = [r for call in ecalls.calls for r in call[1]]
+    prompts = [sweep_prompts[i % len(sweep_prompts)] for i in range(DIRECT_REQUESTS)]
+    engine_rows = [sweep_rows[i % len(sweep_rows)] for i in range(DIRECT_REQUESTS)]
     budgets = [8 + 8 * (i % 5) for i in range(len(prompts))]
     reqs = [Request(prompt=p, settings=ModelSettings(temperature=0.0, max_tokens=b),
                     id=f"d{i}") for i, (p, b) in enumerate(zip(prompts, budgets))]
@@ -2600,16 +2647,16 @@ def serving_path(torch, F, device_line: str, sweep: dict) -> dict:
     kernel rows, by entry; and under "paged" what phase 25 holds its runs
     against (the keys of the kernel calls phase 24 held, the card's greedy
     served calls by study model, and the full-width run's row, greedy calls
-    and engine)."""
+    and engine) and the study models' t=0.7 responses (phase 27's)."""
     import gc
     import tempfile
 
     launches, rows = {"study": {}}, {}
-    paged = {"held": set(), "greedy_card": {}}
+    paged = {"held": set(), "greedy_card": {}, "t07": {}, "t07_paged": {}}
     gc.collect()
     with tempfile.TemporaryDirectory() as tmp:
         for name in STUDY_MODELS:
-            row, krows, held, paged["greedy_card"][name] = study_served(
+            row, krows, held, paged["greedy_card"][name], paged["t07"][name] = study_served(
                 torch, F, name, pathlib.Path(tmp), sweep["greedy_card"][name])
             paged["held"] |= held
             for k, v in row["launches"].items():
@@ -2886,7 +2933,9 @@ def study_paged(torch, F, name: str, tmp: pathlib.Path, engine_card, served_card
                 held: set) -> tuple:
     """Phase 25 for one study checkpoint: the t=0.7 paged sweep (the main
     path), then greedy on the card and on the CPU against each other, the
-    non-paged served rows (phase 24) and the engine path (phase 20)."""
+    non-paged served rows (phase 24) and the engine path (phase 20).
+    Returns the log row, the kernel rows and the t=0.7 sweep's responses
+    (phase 27 reads them)."""
     from fairness_llm_tpu_torch.config import Config, ServingConfig
     from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
     from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
@@ -2922,6 +2971,7 @@ def study_paged(torch, F, name: str, tmp: pathlib.Path, engine_card, served_card
              f"<= {MIN_HIT_RATIO}")
     row["chunks"], row["totals"] = served.chunks, served.served_totals()
     saved_record_check(cfg, rec, f"{name} paged")
+    t07 = {"raw": raw_responses(rec), "neutral": rec["neutral_recommendations"]}
     kernel_rows = paged_rows(recs, torch, F, qm, "paged_study", True, held)
     del recs
 
@@ -2946,7 +2996,7 @@ def study_paged(torch, F, name: str, tmp: pathlib.Path, engine_card, served_card
     if not any(row[f"greedy_rows_differing_{k}"] for k in ("from_served", "from_engine")) \
             and raw_responses(card) != raw_responses(engine_card[0]):
         fail(f"{name} paged greedy: equal tokens but other responses than the engine path")
-    return row, kernel_rows
+    return row, kernel_rows, t07
 
 
 def time_gather_scatter(sched, torch) -> dict:
@@ -3054,7 +3104,7 @@ def full_width_paged(torch, F, tmp: pathlib.Path, p24: dict, engine_wall_s: floa
                          MAX_TOKENS)
     gpaged = SweepRecorder(backend)
     t0 = time.perf_counter()
-    run_phase1(gcfg, MODEL, backend=backend, save=False)
+    run_phase1(gcfg, MODEL, GATE_PROFILES, backend=backend, save=False)
     gate_row = {"paged_greedy_wall_s": time.perf_counter() - t0, **gpaged.served_totals()}
     gate_row["sweep_rows"] = sum(len(c[0]) for c in gpaged.calls)
     parting = paged_gate("llama3-8b int8 paged sweep, bf16 (reported)", p24["greedy"], gpaged,
@@ -3070,7 +3120,7 @@ def full_width_paged(torch, F, tmp: pathlib.Path, p24: dict, engine_wall_s: floa
         b = ServingBackend(eng32, ServingConfig(**serving), name=MODEL)
         sweeps32[key] = SweepRecorder(b)
         t0 = time.perf_counter()
-        run_phase1(gcfg, MODEL, backend=b, save=False)
+        run_phase1(gcfg, MODEL, GATE_PROFILES, backend=b, save=False)
         gate_row[f"f32_{key}_greedy_wall_s"] = time.perf_counter() - t0
         del b
         torch.cuda.empty_cache()
@@ -3147,54 +3197,13 @@ def full_width_paged(torch, F, tmp: pathlib.Path, p24: dict, engine_wall_s: floa
     return launches, kv_launches, kernel_rows
 
 
-def telemetry_cli_run(torch, tmp: pathlib.Path) -> dict:
-    """The CLI's paged served sweep with ``--telemetry-dir`` on the first
-    study checkpoint: the snapshot must pass the port's ``validate_snapshot``
-    and hold the paged gauges, ``trace.json`` must pass
-    ``validate_chrome_trace``."""
-    import io
-
-    from fairness_llm_tpu_torch import telemetry as T
-    from fairness_llm_tpu_torch.cli import main as cli
-
-    tel = tmp / "telemetry"
-    args = ["--phase", "1", "--model", STUDY_MODELS[0], "--weights-dir",
-            str(ROOT / "checkpoints"), "--data-dir", str(ROOT / "data" / "ml-1m"),
-            "--results-dir", str(tmp / "cli"), "--continuous", "--paged-kv",
-            "--telemetry-dir", str(tel)]
-    out = io.StringIO()
-    t0 = time.perf_counter()
-    with T.use_registry(), T.use_timeline(), contextlib.redirect_stdout(out):
-        rc = cli.main(args)
-    wall = time.perf_counter() - t0
-    if rc != 0:
-        fail(f"the CLI's paged telemetry run exited {rc}")
-    snap = T.load_snapshot(str(tel))
-    problems = T.validate_snapshot(snap)
-    trace = json.loads((tel / T.TRACE_FILENAME).read_text())
-    problems += T.validate_chrome_trace(trace)
-    if problems:
-        fail(f"the CLI's telemetry dir does not validate: {problems[:5]}")
-    gauges = {g["name"]: g["value"] for g in snap["gauges"]
-              if g["labels"].get("component") == "paged_kv"}
-    missing = [g for g in PAGED_GAUGES if g not in gauges]
-    if missing:
-        fail(f"the CLI's snapshot holds no {missing}")
-    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
-    return {"wall_s": wall, "argv": args, "paged_gauges": gauges,
-            "counters": len(snap["counters"]), "gauges": len(snap["gauges"]),
-            "histograms": len(snap["histograms"]), "trace_events": len(trace["traceEvents"]),
-            "prefill_spans": sum(e["cat"] == "prefill" for e in spans),
-            "decode_spans": sum(e["cat"] == "decode" for e in spans),
-            "events_jsonl_lines": len(T.read_events(str(tel / "events.jsonl")))}
-
-
 def paged_path(torch, F, device_line: str, sweep: dict, p24: dict) -> dict:
     """Phase 25. Returns each kernels-line entry's launches on the paged
     t=0.7 sweeps (the study models together, "study"; FULL_WIDTH) and on
     the int8-KV serve (FULL_WIDTH + "_kv_int8"), and the kernel rows of the
     calls no earlier phase held, by entry. Phase 24's full-width engine
-    stays in ``p24`` for phase 26, which frees it."""
+    stays in ``p24`` for phases 26-27 (27 frees it), and each study
+    model's t=0.7 responses join it (``t07_paged``)."""
     import gc
     import tempfile
 
@@ -3203,9 +3212,9 @@ def paged_path(torch, F, device_line: str, sweep: dict, p24: dict) -> dict:
     gc.collect()
     with tempfile.TemporaryDirectory() as tmp:
         for name in STUDY_MODELS:
-            row, krows = study_paged(torch, F, name, pathlib.Path(tmp),
-                                     sweep["greedy_card"][name], p24["greedy_card"][name],
-                                     held)
+            row, krows, p24["t07_paged"][name] = study_paged(
+                torch, F, name, pathlib.Path(tmp), sweep["greedy_card"][name],
+                p24["greedy_card"][name], held)
             for k, v in row["launches"].items():
                 launches["study"][k] = launches["study"].get(k, 0) + v
             for k, v in krows.items():
@@ -3216,9 +3225,6 @@ def paged_path(torch, F, device_line: str, sweep: dict, p24: dict) -> dict:
         launches[FULL_WIDTH], launches[FULL_WIDTH + "_kv_int8"], full_rows = \
             full_width_paged(torch, F, pathlib.Path(tmp), full, sweep["full_width_wall_s"],
                              device_line, held)
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"paged_telemetry_cli {json.dumps(telemetry_cli_run(torch, pathlib.Path(tmp)))}")
     for k, v in full_rows.items():
         rows.setdefault(k, []).extend(v)
     return {"launches": launches, "rows": rows, "held": held}
@@ -3462,7 +3468,7 @@ def full_width_contained(torch, F, tmp: pathlib.Path, p24: dict, device_line: st
                                                            canary_every_n=1))
         served = SweepRecorder(backend)
         t0 = time.perf_counter()
-        run_phase1(cfg, MODEL, backend=backend, save=False)
+        run_phase1(cfg, MODEL, GATE_PROFILES, backend=backend, save=False)
         torch.cuda.synchronize()
         row["guarded_sweep_wall_s"] = time.perf_counter() - t0
         row["phase24_served_greedy_wall_s"] = p24["greedy_wall_s"]
@@ -3756,7 +3762,7 @@ def containment_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
     """Phase 26. Returns each kernels-line entry's launches on the main
     path's runs (the study models' contained sweeps together, "study";
     FULL_WIDTH) and the rows of the kernel calls no earlier phase held;
-    frees phase 24's full-width engine."""
+    phase 24's full-width engine stays for phase 27."""
     import gc
     import tempfile
 
@@ -3789,12 +3795,396 @@ def containment_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
         log(f"containment_full_width {json.dumps(row)}")
         for k, v in full_rows.items():
             rows.setdefault(k, []).extend(v)
-        del full["engine"]
         gc.collect()
         torch.cuda.empty_cache()
         log(f"containment_fatal {json.dumps(fatal_child(tmp))}")
         drained = drain_and_resume(torch, tmp, p24["greedy_card"][STUDY_MODELS[0]])
         log(f"containment_drain {json.dumps(drained)}")
+    return {"launches": launches, "rows": rows}
+
+
+# Phase 27: overload control with its QoS queues (serving/overload.py,
+# ClassedAdmissionQueue, --overload) and the fairness monitor
+# (telemetry/fairness.py, --fairness-obs), after phase 26.
+#
+# (a) The CLI's --all run with both on, non-paged and paged, on each study
+# checkpoint in phase 24's pool: a fault-free study, so the ladder stays at
+# 0 and the monitor silent.
+STUDY_OVERLOAD_ARGS = ["--continuous", "--slots", str(STUDY_SERVING["num_slots"]), "--overload",
+                       "--fairness-obs"]
+# (b) The flood on phase 24's llama3-8b int8 engine: 64 batch and 16
+# interactive greedy requests (every fifth interactive) of the sweep's
+# prompts in the control pool's shape, with a queue of 32. The queue-depth
+# signal drives the ladder: at three quarters of the queue within a
+# one-second window it climbs a rung an evaluation (every 0.2 s), and each
+# step down needs FLOOD_HEALTHY_S of health (--shed-healthy-window). The SLO
+# targets are set far above the flood's latencies, so that the burn signal
+# stays cold and the descent is the healthy window's alone.
+FLOOD_BATCH, FLOOD_INTERACTIVE, FLOOD_TOKENS, FLOOD_HEALTHY_S = 64, 16, 16, 0.5
+FLOOD_SERVING = dict(CONTROL_SERVING, queue_capacity=32)
+FLOOD_OVERLOAD = dict(enabled=True, queue_frac_threshold=0.75, queue_window_s=1.0,
+                      healthy_window_s=FLOOD_HEALTHY_S, eval_interval_s=0.2, batch_token_cap=8)
+FLOOD_SLO = dict(ttft_p95_s=600.0, e2e_p99_s=1200.0)
+# (c) The deadline of the doomed request, once the flood warmed the
+# prefill and per-token histograms the estimator reads.
+DOOMED_DEADLINE_S = 0.001
+
+
+def overload_counts(dec_mod, flash_mod, qm) -> dict:
+    """``containment_counts`` of a bf16 run, every K1 and K2 launch of
+    which must be on its tensor-core kernel."""
+    launches = containment_counts(dec_mod, flash_mod, qm)
+    if launches["flash_attention_f32"] or launches["decode_attention_f32"]:
+        fail(f"a bf16 launch of the overload path ran no tensor-core kernel: {launches}")
+    return launches
+
+
+def rehold(recs, held: set, qm) -> set:
+    """``held`` less, for each kernel (K1, K2, K4's GEMV and GEMM regimes)
+    whose every call of this run an earlier phase held, this run's first
+    call of it: so that ``sweep_kernel_rows`` holds every kernel of the
+    path at this phase's shapes, and the calls no earlier phase held."""
+    keys = {
+        "k1": list(recs["k1"].calls),
+        "k2": [k for k in recs["dec"].calls if k[0] == "k2"],
+        "gemv": [k for r in ("k4", "group") for k in recs[r].calls
+                 if k[1][0] <= qm.GEMV_MAX_M],
+        "gemm": [k for k in recs["k4"].calls if k[1][0] > qm.GEMV_MAX_M]}
+    keep = set(held)
+    for ks in keys.values():
+        if ks and all(k in held or k[:-1] in held for k in ks):
+            keep.discard(ks[0])
+            keep.discard(ks[0][:-1])
+    return keep
+
+
+def overload_cli_run(torch, name: str, tmp: pathlib.Path, paged: bool, want: dict) -> dict:
+    """Phase 27(a) for one study checkpoint: the CLI's ``--all
+    --continuous --overload --fairness-obs --telemetry-dir`` run (with
+    ``--paged-kv`` when ``paged``). Exit 0; the snapshot and ``trace.json``
+    valid; the ladder armed and at 0, nothing shed; the fairness check
+    (``check_fairness``: live within FAIRNESS_TOLERANCE of offline, pairs
+    joined, no divergent pair, no alert) passing, also through
+    ``fairness-report --validate --fail-on-alert``; paged, the paged gauges
+    there; and the phase-1 responses those of the same t=0.7 sweep in the
+    same pool without overload control and the monitor (``want``: phase
+    24's, or paged phase 25's)."""
+    import io
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.cli import main as cli
+
+    label = f"{name} overload{' paged' if paged else ''} CLI"
+    tel, results = tmp / f"{name}_{int(paged)}_tel", tmp / f"{name}_{int(paged)}_cli"
+    args = (["--all", "--model", name, "--weights-dir", str(ROOT / "checkpoints"),
+             "--data-dir", str(ROOT / "data" / "ml-1m"), "--results-dir", str(results),
+             "--telemetry-dir", str(tel)] + STUDY_OVERLOAD_ARGS + (["--paged-kv"] if paged else []))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with T.use_registry(), T.use_timeline(), T.use_fairness_monitor(), \
+            T.use_incident_manager(), contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+        report_rc = cli.main(["fairness-report", str(tel), "--validate", "--fail-on-alert"])
+    wall = time.perf_counter() - t0
+    if rc != 0 or report_rc != 0:
+        fail(f"{label}: exit {rc}, fairness-report exit {report_rc}: {out.getvalue()[-3000:]}")
+    snap = T.load_snapshot(str(tel))
+    trace = json.loads((tel / T.TRACE_FILENAME).read_text())
+    problems = T.validate_snapshot(snap) + T.validate_chrome_trace(trace)
+    fairness = T.check_fairness(snap)
+    gauges = {(g["name"], g["labels"].get("component")): g["value"] for g in snap["gauges"]}
+    sheds = [c for c in snap["counters"] if c["name"] == "shed_total"]
+    if problems or fairness or gauges.get(("overload_level", "serving")) != 0 or sheds:
+        fail(f"{label}: snapshot problems {problems[:5]}, fairness {fairness}, overload level "
+             f"{gauges.get(('overload_level', 'serving'))}, sheds {sheds}")
+    missing = [g for g in PAGED_GAUGES if (g, "paged_kv") not in gauges] if paged else []
+    if missing:
+        fail(f"{label}: the snapshot holds no {missing}")
+    rec = json.loads((results / "phase1" / "phase1_results.json").read_text())
+    if raw_responses(rec) != want["raw"] \
+            or rec["neutral_recommendations"] != want["neutral"]:
+        parting = sorted(k for k, v in raw_responses(rec).items() if want["raw"].get(k) != v)
+        fail(f"{label}: the responses part from the same sweep without overload control and "
+             f"the monitor at {parting[:8]} ({len(parting)} rows)")
+    block = rec["metadata"]["fairness"]
+    return {"model": name, "paged": paged, "argv": args, "wall_s": wall,
+            "fairness_live": block["live"], "fairness_offline": block["offline"],
+            "serving": rec["metadata"]["serving"], "rows_equal": len(want["raw"]),
+            "trace_events": len(trace["traceEvents"]),
+            "paged_gauges": {g: gauges[(g, "paged_kv")] for g in PAGED_GAUGES} if paged else None,
+            "report_lines": len(out.getvalue().splitlines())}
+
+
+def overload_flood(torch, F, tmp: pathlib.Path, p24: dict, held: set) -> tuple:
+    """Phase 27(b) and (c) on phase 24's llama3-8b int8 engine. (b) the
+    flood (FLOOD_*): the ladder climbs to rung 1 at least and is back at 0
+    within FLOOD_HEALTHY_S a rung after the queue drains; every interactive
+    request completes, its greedy row that of the same request served
+    without overload control in a pool of the same shape (``paged_gate``:
+    parting only at the kernels' bf16 allowance); a batch request sheds with
+    a retry-after; K1, K2 and K4 launch on their tensor-core kernels and
+    each is held against its plain version at this phase's shapes. (c) In a
+    fresh registry, the first prefill's sample and the estimate it alone
+    gives (what an unwarmed process would shed on); then, warm, a request
+    with a 1 ms deadline sheds ``deadline_infeasible`` at submit() and no
+    prefill runs for it. Returns the launches, the kernel rows and the log
+    row."""
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.config import ModelSettings, OverloadConfig, ServingConfig
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.serving import ContinuousScheduler, Request
+
+    engine = p24["engine"]
+    prompts = [p for call in p24["greedy"].calls for p in call[0]]
+    settings = ModelSettings(temperature=0.0, max_tokens=FLOOD_TOKENS)
+    n = FLOOD_BATCH + FLOOD_INTERACTIVE
+    qos = ["interactive" if i % 5 == 4 else "batch" for i in range(n)]
+    buckets = sorted({-(-len(engine.tokenizer.encode(p)) // engine.seq_bucket)
+                      * engine.seq_bucket for p in prompts})
+
+    def flood_requests():
+        return [Request(prompt=prompts[i % len(prompts)], id=f"{qos[i][0]}{i:02d}", qos=qos[i],
+                        settings=settings) for i in range(n)]
+
+    row = {"model": MODEL, "weight_quant": "int8", "serving": FLOOD_SERVING,
+           "overload": FLOOD_OVERLOAD, "slo_targets": FLOOD_SLO, "prompt_buckets": buckets}
+    prev = T.set_slo_targets(T.SLOTargets(**FLOOD_SLO))
+    try:
+        zero_all(dec_mod, flash_mod, qm)
+        with T.use_registry() as reg, T.use_timeline(), T.use_incident_manager(), \
+                flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+            sched = ContinuousScheduler(engine, ServingConfig(**FLOOD_SERVING),
+                                        settings=settings,
+                                        overload=OverloadConfig(**FLOOD_OVERLOAD))
+            ctl, t_start, ladder = sched.shed_controller, time.monotonic(), []
+            real = ctl._transition
+
+            def transition(to, reason, now):
+                ladder.append({"t_s": now - t_start, "from": ctl.level, "to": to,
+                               "reason": reason})
+                real(to, reason, now)
+
+            ctl._transition = transition
+            t0 = time.perf_counter()
+            results = sched.serve(flood_requests())
+            torch.cuda.synchronize()
+            row["flood_wall_s"] = time.perf_counter() - t0
+            row["flood_stats"] = sched.last_stats.as_dict()
+            row["level_at_end_of_serve"] = ctl.level
+            # the descent: evaluate until the ladder is back at 0
+            t_drained = time.monotonic()
+            while ctl.level > 0 and time.monotonic() - t_drained < 10 + 4 * FLOOD_HEALTHY_S:
+                ctl.evaluate()
+                time.sleep(0.02)
+            row["ladder"] = ladder
+            row["descent_s_after_serve"] = time.monotonic() - t_drained
+            launches = overload_counts(dec_mod, flash_mod, qm)
+            shed = [r for r in results if r.finish_reason == "shed"]
+            by_class = {c: [r for r, q in zip(results, qos) if q == c]
+                        for c in ("batch", "interactive")}
+            row["outcomes"] = {c: {reason: sum(r.finish_reason == reason for r in rs)
+                                   for reason in sorted({r.finish_reason for r in rs})}
+                               for c, rs in by_class.items()}
+            row["retry_after_s"] = sorted({r.retry_after_s for r in shed})
+            row["shed_total"] = counters_of(reg, ("shed_total",))
+            row["overload_transitions"] = counters_of(reg, ("overload_transitions_total",))
+            peak = max((t["to"] for t in ladder), default=0)
+            if peak < 1 or ctl.level != 0 or not shed \
+                    or not all(r.retry_after_s and r.retry_after_s > 0 for r in shed) \
+                    or any(q != "batch" for r, q in zip(results, qos) if r.finish_reason == "shed") \
+                    or not all(r.ok for r in by_class["interactive"]):
+                fail(f"llama3-8b overload flood: ladder {ladder}, level {ctl.level}, outcomes "
+                     f"{row['outcomes']}, retry-after {row['retry_after_s']}")
+
+            # (c) a fresh registry: the first prefill's sample alone, then
+            # the warm flood registry's doomed request
+            with T.use_registry():
+                cold = ContinuousScheduler(engine, ServingConfig(**FLOOD_SERVING),
+                                           settings=settings,
+                                           overload=OverloadConfig(**FLOOD_OVERLOAD))
+                t0 = time.perf_counter()
+                cold.serve([Request(prompt="a short request", id="cold", settings=settings)])
+                torch.cuda.synchronize()
+                first = T.get_registry().peek("prefill_wall_s", component="serving")
+                est = cold.deadline_estimator.estimate_ttft_s(0, cold.num_slots,
+                                                               cold.decode_chunk)
+                row["unwarmed"] = {"first_call_wall_s": time.perf_counter() - t0,
+                                   "prefill_samples": first.count,
+                                   "prefill_p50_s": first.percentile(50),
+                                   "estimate_ttft_s": est,
+                                   "sheds_deadlines_below_s":
+                                       cold.deadline_estimator.safety * est}
+                del cold
+            before = reg.read_value("serving_prefill_batches_total", component="serving")
+            doomed = Request(prompt=prompts[0], id="doomed", qos="interactive",
+                             settings=settings, deadline_s=DOOMED_DEADLINE_S)
+            accepted = sched.submit(doomed)
+            res = sched.take_result("doomed")
+            stats = sched.drain()
+            after = reg.read_value("serving_prefill_batches_total", component="serving")
+            warm = reg.peek("prefill_wall_s", component="serving")
+            row["doomed"] = {"accepted": accepted, "finish_reason": res and res.finish_reason,
+                             "error": res and res.error, "retry_after_s": res and res.retry_after_s,
+                             "prefill_batches": stats.prefill_batches,
+                             "prefill_batches_total_moved": after - before,
+                             "warm_prefill_p50_s": warm.percentile(50),
+                             "warm_prefill_samples": warm.count,
+                             "shed_total": counters_of(reg, ("shed_total",))}
+            if accepted or res is None or res.finish_reason != "shed" \
+                    or "unmeetable" not in (res.error or "") or stats.prefill_batches \
+                    or after != before or reg.read_value(
+                        "shed_total", component="serving",
+                        **{"class": "interactive", "reason": "deadline_infeasible"}) != 1:
+                fail(f"llama3-8b overload: the doomed request was not shed before a prefill: "
+                     f"{row['doomed']}")
+            del sched
+        need_launches(launches, ("flash_attention", "decode_attention", "quant_matmul_gemv",
+                                 "quant_matmul_gemm"), "full-width overload")
+        row["launches"] = launches
+        keep = rehold(recs, held, qm)
+        kernel_rows = paged_rows(recs, torch, F, qm, "overload_full_width", False, keep)
+        held |= keep
+        del recs
+
+        # the interactive rows against the same requests served alone without
+        # overload control, in a pool of the same shape
+        control = ContinuousScheduler(engine, ServingConfig(**FLOOD_SERVING), settings=settings)
+        alone = control.serve([r for r in flood_requests() if r.qos == "interactive"])
+        del control
+    finally:
+        T.set_slo_targets(prev)
+    import types
+
+    pad = engine.tokenizer.pad_id
+    mine = [p for p, q in zip([r.prompt for r in flood_requests()], qos) if q == "interactive"]
+    row["interactive_rows_parting"] = paged_gate(
+        "llama3-8b overload flood, interactive rows", types.SimpleNamespace(
+            calls=[(mine, [_strip(r.tokens, pad) for r in alone])]),
+        types.SimpleNamespace(calls=[(mine, [_strip(r.tokens, pad)
+                                             for r in by_class["interactive"]])]),
+        engine, FLOOD_SERVING, torch, f32=False)
+    row["interactive_rows"] = len(mine)
+    return launches, kernel_rows, row
+
+
+def biased_fault_drill(torch, tmp: pathlib.Path) -> dict:
+    """Phase 27(d): the greedy phase-1 sweep on the first study checkpoint
+    through ``backend_for`` with the monitor on, in phase 24's pool, every
+    female profile's request faulting twice (so failing): the neutrality
+    audit must alert on gender (impaired and fault rates) and not on age,
+    the failures and the divergent pairs' failed members must all be the
+    female group's, and the alert must be in the events."""
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.config import Config, ServingConfig, TelemetryConfig
+    from fairness_llm_tpu_torch.data.movielens import load_movielens
+    from fairness_llm_tpu_torch.data.profiles import create_base_preferences, create_profile_grid
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+    from fairness_llm_tpu_torch.utils.failures import ScriptedFaultInjector
+
+    name = STUDY_MODELS[0]
+    cfg = greedy_config(Config(weights_dir=str(ROOT / "checkpoints"),
+                               data_dir=str(ROOT / "data" / "ml-1m"),
+                               results_dir=str(tmp / "biased"),
+                               serving=ServingConfig(**STUDY_SERVING),
+                               telemetry=TelemetryConfig(fairness_obs=True)), name, MAX_TOKENS)
+    data = load_movielens(cfg.data_dir, seed=cfg.random_seed)
+    profiles = create_profile_grid(create_base_preferences(data, seed=cfg.random_seed), cfg)
+    group = {p.id: p.gender for p in profiles}
+    faulted = sorted(k for k, g in group.items() if g == "female")
+    backend = backend_for(name, cfg)
+    backend.fault_injector = ScriptedFaultInjector(faults={k: 2 for k in faulted})
+    tel = tmp / "biased_tel"
+    t0 = time.perf_counter()
+    with T.use_registry() as reg, T.use_fairness_monitor() as mon, T.use_incident_manager():
+        sink = T.configure(str(tel))
+        try:
+            rec = run_phase1(cfg, name, backend=backend, save=False)
+        finally:
+            T.install_event_sink(None)
+            sink.close()
+        snap = T.snapshot(reg)
+        divergent = list(mon.divergent)
+    wall = time.perf_counter() - t0
+    alerts = {(c["labels"]["attribute"], c["labels"]["signal"]): c["value"]
+              for c in snap["counters"] if c["name"] == "fairness_alerts_total"}
+    failed_groups = sorted({(c["labels"]["attribute"], c["labels"]["group"])
+                            for c in snap["counters"] if c["name"] == "fairness_requests_total"
+                            and c["labels"]["outcome"] == "failed"
+                            and c["labels"]["attribute"] == "gender"})
+    rates = {c["labels"]["group"]: 0 for c in snap["counters"]
+             if c["name"] == "fairness_requests_total" and c["labels"]["attribute"] == "gender"}
+    for c in snap["counters"]:
+        if c["name"] == "fairness_requests_total" and c["labels"]["attribute"] == "gender" \
+                and c["labels"]["outcome"] == "failed":
+            rates[c["labels"]["group"]] += c["value"]
+    named = max(rates, key=rates.get) if rates else None
+    events = [e for e in T.read_events(str(tel / "events.jsonl")) if e["kind"] == "fairness_alert"]
+    errors = sorted(k for k, e in rec["recommendations"].items() if "error" in e)
+    bad_members = sorted({m for d in divergent for m, v in d["members"].items()
+                          if v["outcome"] == "failed"})
+    row = {"model": name, "faulted": len(faulted), "wall_s": wall,
+           "alerts": {f"{a}/{s}": v for (a, s), v in alerts.items()},
+           "failed_groups": failed_groups, "named_group": named,
+           "alert_events": [{k: e.get(k) for k in ("attribute", "signal", "disparity")}
+                            for e in events],
+           "divergent_pairs": len(divergent), "error_rows": len(errors)}
+    if not alerts.get(("gender", "impaired_rate")) or any(a == "age" for a, _ in alerts) \
+            or failed_groups != [("gender", "female")] or named != "female" \
+            or not any(e.get("attribute") == "gender" for e in events) \
+            or errors != faulted or not divergent \
+            or any(group.get(m) != "female" for m in bad_members):
+        fail(f"the biased fault drill: {row}, failed members {bad_members[:6]}")
+    return row
+
+
+def overload_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
+    """Phase 27. Returns each kernels-line entry's launches on the main
+    path's runs (the study models' CLI runs together, "study"; the flood,
+    FULL_WIDTH) and the rows of its kernel calls; frees phase 24's
+    full-width engine."""
+    import gc
+    import tempfile
+
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+
+    launches, rows = {}, {}
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        zero_all(dec_mod, flash_mod, qm)
+        with flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+            for name in STUDY_MODELS:
+                for paged in (False, True):
+                    want = p24["t07_paged" if paged else "t07"][name]
+                    row = overload_cli_run(torch, name, tmp, paged, want)
+                    log(f"overload_study_cli {json.dumps({'device': device_line, **row})}")
+        launches["study"] = containment_counts(dec_mod, flash_mod, qm)
+        need_launches(launches["study"], ("flash_attention_f32", "decode_attention_f32"),
+                      "study overload")
+        if launches["study"]["flash_attention"] or launches["study"]["decode_attention"]:
+            fail(f"the study CLI runs launched a tensor-core kernel: {launches['study']}")
+        keep = rehold(recs, held, qm)
+        for k, v in sweep_kernel_rows(recs, torch, F, qm, "overload_study", True,
+                                      keep).items():
+            if v:
+                rows.setdefault(k, []).extend(v)
+        held |= keep
+        del recs
+        gc.collect()
+        launches[FULL_WIDTH], full_rows, row = overload_flood(torch, F, tmp, p24["full_width"],
+                                                              held)
+        log(f"overload_full_width {json.dumps({'device': device_line, **row})}")
+        for k, v in full_rows.items():
+            rows.setdefault(k, []).extend(v)
+        del p24["full_width"]["engine"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"overload_biased_drill {json.dumps(biased_fault_drill(torch, tmp))}")
     return {"launches": launches, "rows": rows}
 
 
@@ -3863,6 +4253,9 @@ def main() -> int:
     t0 = time.perf_counter()
     contained = containment_path(torch, F, device_line, p24, paged["held"])
     log(f"containment_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    overload = overload_path(torch, F, device_line, p24, paged["held"])
+    log(f"overload_path_s {time.perf_counter() - t0:.1f}")
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -3894,6 +4287,10 @@ def main() -> int:
                                          for path, counts in contained["launches"].items()}
         if entry["name"] in contained["rows"]:
             entry["containment_shapes"] = contained["rows"][entry["name"]]
+        entry["overload_launches"] = {path: counts[entry["name"]]
+                                      for path, counts in overload["launches"].items()}
+        if entry["name"] in overload["rows"]:
+            entry["overload_shapes"] = overload["rows"][entry["name"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

@@ -21,13 +21,27 @@ flags and checks: ``--max-step-seconds`` (the step watchdog),
 ``--serving-journal DIR``/``--drain-grace`` (the crash-safe journal and the
 SIGTERM/SIGINT drain, with ``--continuous``), ``--numerics-guards``,
 ``--canary-every N`` (with ``--continuous``) and ``--incidents`` (postmortem
-bundles under ``<telemetry-dir>/incidents``, with ``--telemetry-dir``). Two
-subcommands: ``incident-report <dir>`` renders bundles, ``resume-serving
-<journal-dir> --model NAME`` re-serves a drained run's unfinished requests.
+bundles under ``<telemetry-dir>/incidents``, with ``--telemetry-dir``).
 
-The flags of the serving slices still to come (``--tp``, ``--overload``,
-``--replicas``, ``--autoscale``) and device meshes (``--mesh``) raise
-``NotImplementedError`` (ROADMAP A5, A8).
+Overload control (``serving/overload.py``, with ``--continuous``):
+``--overload`` arms the QoS queues, deadline-feasibility admission and the
+shed controller's brownout ladder, tuned by ``--shed-burn-threshold``,
+``--shed-healthy-window`` and ``--batch-token-cap``. Telemetry:
+``--fairness-obs`` arms the fairness monitor (``telemetry/fairness.py``),
+``--slo-ttft-p95``/``--slo-e2e-p99``/``--slo-error-rate`` set the SLO
+targets the burn rates judge against, and ``--trace-out PATH`` writes a copy
+of the timeline there.
+
+Subcommands: ``telemetry-report <dir>`` (``--validate``, ``--timeline``),
+``slo-report <dir>`` (``--fail-on-burn``) and ``fairness-report <dir>``
+(``--fail-on-alert``, ``--validate``) render a snapshot;
+``incident-report <dir>`` renders bundles; ``resume-serving <journal-dir>
+--model NAME`` re-serves a drained run's unfinished requests.
+
+The flags of the serving slices still to come (``--tp``, ``--replicas``,
+``--autoscale``), device meshes (``--mesh``) and the roofline's
+``--achievable-gbps`` raise ``NotImplementedError`` (ROADMAP A5, A7(b),
+A8).
 """
 
 from __future__ import annotations
@@ -42,9 +56,11 @@ from typing import Dict
 from fairness_llm_tpu_torch.config import (
     Config,
     IntegrityConfig,
+    OverloadConfig,
     ResilienceConfig,
     ServingConfig,
     SpeculationConfig,
+    TelemetryConfig,
     create_directories,
     default_config,
 )
@@ -134,11 +150,45 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --paged-kv: total arena blocks (default 2x the all-slots-"
                         "private worst case, so a full pool still leaves an equal "
                         "prefix-cache reserve)")
+    p.add_argument("--overload", action="store_true",
+                   help="with --continuous: arm overload control: QoS classes (interactive/"
+                        "batch/probe) with per-class bounded sub-queues and strict-priority-"
+                        "with-aging dequeue, deadline-feasibility admission (a provably "
+                        "doomed request sheds with finish_reason=shed and a retry-after "
+                        "instead of spending a prefill), and a shed controller walking a "
+                        "brownout ladder: shed batch -> cap batch tokens -> interactive-only")
+    p.add_argument("--shed-burn-threshold", type=float, default=None, metavar="B",
+                   help="with --overload: fast-window SLO burn rate at which the shed "
+                        "controller escalates one rung (default 2.0)")
+    p.add_argument("--shed-healthy-window", type=float, default=None, metavar="S",
+                   help="with --overload: seconds of sustained health required per "
+                        "de-escalation rung (default 5)")
+    p.add_argument("--batch-token-cap", type=int, default=None, metavar="T",
+                   help="with --overload: max_new_tokens clamp of batch-class requests at "
+                        "brownout rung 2 and above (default 32)")
     p.add_argument("--telemetry-dir", default=None,
                    help="export telemetry here: streamed events.jsonl, and at the end of "
                         "the run the registry snapshot (telemetry_snapshot.json, "
                         "metrics.prom) and the host-clock timeline (trace.json, open at "
-                        "https://ui.perfetto.dev)")
+                        "https://ui.perfetto.dev); render with `telemetry-report <dir>`")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="write the host-clock timeline as Chrome-trace JSON at PATH too "
+                        "(with --telemetry-dir, <telemetry-dir>/trace.json is written "
+                        "anyway)")
+    p.add_argument("--fairness-obs", action="store_true",
+                   help="fairness observability: the phases register their profile grid "
+                        "with the fairness monitor, sweep requests carry group/attribute/"
+                        "pair_id tags, and the run records streaming per-group DP/IF/"
+                        "exposure gauges, a counterfactual pair watch and a serving-"
+                        "neutrality audit (fairness_alerts_total); render with "
+                        "`fairness-report <telemetry-dir>`")
+    p.add_argument("--slo-ttft-p95", type=float, default=None, metavar="S",
+                   help="SLO target: p95 time to first token in seconds (default 2.0); "
+                        "burn rates are slo_burn_rate gauges, rendered by `slo-report`")
+    p.add_argument("--slo-e2e-p99", type=float, default=None, metavar="S",
+                   help="SLO target: p99 end-to-end request latency in seconds (default 30)")
+    p.add_argument("--slo-error-rate", type=float, default=None, metavar="F",
+                   help="SLO target: allowed failed or expired fraction (default 0.01)")
     p.add_argument("--max-step-seconds", type=float, default=None,
                    help="resilience watchdog: a prefill/decode step slower than this is "
                         "classified hung and contained as a fault (requeue once / chunk "
@@ -175,15 +225,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "<dir>`. Requires --telemetry-dir")
     # Not ported yet: refused, never ignored.
     for flag, kw in (("--tp", dict(type=int)),
-                     ("--overload", dict(action="store_true")),
                      ("--replicas", dict(type=int)), ("--autoscale", dict(action="store_true")),
                      ("--mesh", dict(default=None))):
         p.add_argument(flag, help="not ported yet (ROADMAP A5, A8)", **kw)
+    p.add_argument("--achievable-gbps", type=float, default=None,
+                   help="not ported yet: the roofline gauges (ROADMAP A7(b))")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
-NOT_PORTED = ("--tp", "--overload", "--replicas", "--autoscale", "--mesh")
+NOT_PORTED = ("--tp", "--replicas", "--autoscale", "--mesh")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -191,10 +242,28 @@ def config_from_args(args: argparse.Namespace) -> Config:
         value = getattr(args, flag[2:].replace("-", "_"))
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"{flag}: tensor-parallel serving, overload control, the replica fleet "
-                "and device meshes are not ported yet (ROADMAP A5, A8)")
+                f"{flag}: tensor-parallel serving, the replica fleet and device meshes are "
+                "not ported yet (ROADMAP A5, A8)")
+    if args.achievable_gbps is not None:
+        raise NotImplementedError("--achievable-gbps: the roofline gauges are not ported "
+                                  "yet (ROADMAP A7(b))")
     config = default_config()
     updates: Dict = {}
+    slo_flags = (args.slo_ttft_p95, args.slo_e2e_p99, args.slo_error_rate)
+    if args.fairness_obs or args.trace_out or any(v is not None for v in slo_flags):
+        tel_kwargs: Dict = {}
+        if args.fairness_obs:
+            tel_kwargs["fairness_obs"] = True
+        if args.trace_out:
+            tel_kwargs["trace_out"] = args.trace_out
+        for val, field, flag in ((args.slo_ttft_p95, "slo_ttft_p95_s", "--slo-ttft-p95"),
+                                 (args.slo_e2e_p99, "slo_e2e_p99_s", "--slo-e2e-p99"),
+                                 (args.slo_error_rate, "slo_error_rate", "--slo-error-rate")):
+            if val is not None:
+                if val <= 0:
+                    raise SystemExit(f"{flag} must be > 0")
+                tel_kwargs[field] = val
+        updates["telemetry"] = TelemetryConfig(**tel_kwargs)
     if args.weights_dir:
         updates["weights_dir"] = args.weights_dir
     if args.weight_quant is not None:
@@ -256,6 +325,28 @@ def config_from_args(args: argparse.Namespace) -> Config:
                     raise SystemExit("--kv-blocks must be >= 1")
                 serve_kwargs["kv_blocks"] = args.kv_blocks
         updates["serving"] = ServingConfig(**serve_kwargs)
+    overload_flags = (args.shed_burn_threshold, args.shed_healthy_window, args.batch_token_cap)
+    if args.overload or any(v is not None for v in overload_flags):
+        if not args.overload:
+            raise SystemExit("--shed-burn-threshold/--shed-healthy-window/--batch-token-cap "
+                             "require --overload")
+        if not args.continuous:
+            raise SystemExit("--overload requires --continuous (overload control gates the "
+                             "serving admission queue)")
+        ov_kwargs: Dict = {"enabled": True}
+        if args.shed_burn_threshold is not None:
+            if args.shed_burn_threshold <= 0:
+                raise SystemExit("--shed-burn-threshold must be > 0")
+            ov_kwargs["burn_threshold"] = args.shed_burn_threshold
+        if args.shed_healthy_window is not None:
+            if args.shed_healthy_window < 0:
+                raise SystemExit("--shed-healthy-window must be >= 0")
+            ov_kwargs["healthy_window_s"] = args.shed_healthy_window
+        if args.batch_token_cap is not None:
+            if args.batch_token_cap < 1:
+                raise SystemExit("--batch-token-cap must be >= 1")
+            ov_kwargs["batch_token_cap"] = args.batch_token_cap
+        updates["overload"] = OverloadConfig(**ov_kwargs)
     resilience_flags = (args.max_step_seconds, args.breaker_threshold, args.breaker_cooldown,
                         args.serving_journal, args.drain_grace)
     if any(v is not None for v in resilience_flags):
@@ -299,6 +390,139 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if updates:
         config = dataclasses.replace(config, **updates)
     return config
+
+
+def telemetry_report(argv) -> int:
+    """``telemetry-report <dir | snapshot.json>``: render a telemetry
+    snapshot in the terminal, with the fairness section when the run
+    recorded fairness instruments. ``--validate`` first checks the
+    snapshot's schema and percentiles and exits 1 on problems;
+    ``--timeline`` also summarizes the ``trace.json`` beside it."""
+    import json
+
+    from fairness_llm_tpu_torch.telemetry import (
+        TRACE_FILENAME,
+        load_snapshot,
+        render_fairness_report,
+        render_report,
+        summarize_chrome_trace,
+        validate_snapshot,
+    )
+
+    ap = argparse.ArgumentParser(prog="fairness_llm_tpu_torch telemetry-report",
+                                 description="Render (and optionally validate) a telemetry "
+                                             "snapshot")
+    ap.add_argument("path", help="telemetry dir (uses telemetry_snapshot.json inside) or a "
+                                 "snapshot file")
+    ap.add_argument("--validate", action="store_true",
+                    help="schema-check the snapshot; non-zero exit on problems")
+    ap.add_argument("--timeline", action="store_true",
+                    help="also summarize the trace.json timeline beside the snapshot: top "
+                         "programs by wall, largest step gaps, request outcomes")
+    a = ap.parse_args(argv)
+    snap = load_snapshot(a.path)
+    if a.validate:
+        # Before rendering: the renderer assumes a well-formed snapshot.
+        problems = validate_snapshot(snap)
+        if problems:
+            print("SNAPSHOT INVALID:")
+            for p in problems:
+                print(f"  - {p}")
+            return 1
+    print(render_report(snap))
+    if any(row.get("labels", {}).get("component") == "fairness"
+           for section in ("counters", "gauges") for row in snap.get(section, [])):
+        print("\n" + render_fairness_report(snap))
+    if a.timeline:
+        trace_dir = a.path if os.path.isdir(a.path) else os.path.dirname(a.path)
+        trace_path = os.path.join(trace_dir, TRACE_FILENAME)
+        if os.path.exists(trace_path):
+            with open(trace_path, encoding="utf-8") as f:
+                print("\n" + summarize_chrome_trace(json.load(f)))
+        else:
+            print(f"\n(no {TRACE_FILENAME} beside the snapshot — run with --trace-out or "
+                  "--telemetry-dir to produce one)")
+    if a.validate:
+        print("\nsnapshot schema: OK")
+    return 0
+
+
+def slo_report(argv) -> int:
+    """``slo-report <dir | snapshot.json>``: the SLO burn rates a run
+    recorded, per (objective, window), with alert counts. ``--fail-on-burn``
+    exits 1 when a run-window burn rate exceeds 1.0."""
+    from fairness_llm_tpu_torch.telemetry import load_snapshot, render_slo_report
+
+    ap = argparse.ArgumentParser(prog="fairness_llm_tpu_torch slo-report",
+                                 description="Render SLO burn rates from a telemetry snapshot")
+    ap.add_argument("path", help="telemetry dir (uses telemetry_snapshot.json inside) or a "
+                                 "snapshot file")
+    ap.add_argument("--fail-on-burn", action="store_true",
+                    help="exit non-zero when any run-window burn rate exceeds 1.0")
+    a = ap.parse_args(argv)
+    snap = load_snapshot(a.path)
+    print(render_slo_report(snap))
+    if a.fail_on_burn:
+        burning = [g for g in snap.get("gauges", [])
+                   if g.get("name") == "slo_burn_rate"
+                   and g.get("labels", {}).get("window") == "run" and g.get("value", 0.0) > 1.0]
+        if burning:
+            print(f"\n{len(burning)} SLO(s) burning over the whole run")
+            return 1
+    return 0
+
+
+def fairness_report(argv) -> int:
+    """``fairness-report <dir | snapshot.json>``: the fairness signals a run
+    recorded: streaming against offline DP/IF/exposure, the per-group
+    neutrality audit, disparity gauges with alert counts, and the
+    divergent-pair table (joined from ``events.jsonl`` in a telemetry dir).
+    ``--fail-on-alert`` exits 1 on any alert or divergent pair;
+    ``--validate`` exits 1 when ``check_fairness`` finds a problem (live
+    within ``FAIRNESS_TOLERANCE`` of offline, pairs joined, a fault-free
+    run silent)."""
+    from fairness_llm_tpu_torch.telemetry import (
+        check_fairness,
+        load_snapshot,
+        read_events,
+        render_fairness_report,
+    )
+
+    ap = argparse.ArgumentParser(prog="fairness_llm_tpu_torch fairness-report",
+                                 description="Render fairness observability from a telemetry "
+                                             "snapshot")
+    ap.add_argument("path", help="telemetry dir (uses telemetry_snapshot.json and events.jsonl "
+                                 "inside) or a snapshot file")
+    ap.add_argument("--fail-on-alert", action="store_true",
+                    help="exit non-zero when any fairness_alerts_total is nonzero or any pair "
+                         "diverged")
+    ap.add_argument("--validate", action="store_true",
+                    help="hold a fault-free study run's snapshot to the fairness check; "
+                         "non-zero exit on problems")
+    a = ap.parse_args(argv)
+    snap = load_snapshot(a.path)
+    events = None
+    ev_dir = a.path if os.path.isdir(a.path) else os.path.dirname(a.path)
+    ev_path = os.path.join(ev_dir, "events.jsonl")
+    if os.path.exists(ev_path):
+        events = read_events(ev_path)
+    print(render_fairness_report(snap, events=events))
+    rc = 0
+    if a.fail_on_alert:
+        alerts = sum(c["value"] for c in snap.get("counters", [])
+                     if c.get("name") == "fairness_alerts_total")
+        diverged = sum(c["value"] for c in snap.get("counters", [])
+                       if c.get("name") == "fairness_pair_divergence_total")
+        if alerts or diverged:
+            print(f"\n{int(alerts)} fairness alert(s), {int(diverged)} divergent pair(s)")
+            rc = 1
+    if a.validate:
+        problems = check_fairness(snap)
+        print("\nfairness check: " + ("OK" if not problems else "FAILED"))
+        for p in problems:
+            print(f"  - {p}")
+        rc = rc or int(bool(problems))
+    return rc
 
 
 def incident_report(argv) -> int:
@@ -428,6 +652,12 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # Subcommands go ahead of the study parser (whose --all/--phase group is
     # required and would refuse them).
+    if argv and argv[0] == "telemetry-report":
+        return telemetry_report(argv[1:])
+    if argv and argv[0] == "slo-report":
+        return slo_report(argv[1:])
+    if argv and argv[0] == "fairness-report":
+        return fairness_report(argv[1:])
     if argv and argv[0] == "incident-report":
         return incident_report(argv[1:])
     if argv and argv[0] == "resume-serving":
@@ -473,6 +703,13 @@ def main(argv=None) -> int:
     phases = [1, 2, 3] if args.all else [args.phase]
     timings: Dict[str, float] = {}
     p1 = None
+    # The SLO targets before any scheduler exists, so that every evaluator
+    # judges against them from its first request; the process's own come
+    # back at the end.
+    tc = config.telemetry
+    prev_targets = T.set_slo_targets(T.SLOTargets(
+        ttft_p95_s=tc.slo_ttft_p95_s, e2e_p99_s=tc.slo_e2e_p99_s, error_rate=tc.slo_error_rate,
+        fast_window_s=tc.slo_fast_window_s, slow_window_s=tc.slo_slow_window_s))
     try:
         for phase in phases:
             if drain_handler is not None and drain_handler.requested:
@@ -508,6 +745,7 @@ def main(argv=None) -> int:
                     logger.info("phase %d figures are not ported (the card's machine has "
                                 "no matplotlib; ROADMAP A6)", phase)
     finally:
+        T.set_slo_targets(prev_targets)
         if drain_handler is not None:
             drain_handler.uninstall()
         if telemetry_sink is not None:
@@ -523,7 +761,13 @@ def main(argv=None) -> int:
         path = T.write_snapshot(T.get_registry(), args.telemetry_dir)
         print("\n" + T.render_report(T.snapshot(T.get_registry())))
         print(f"\ntelemetry snapshot: {path}")
-        trace = T.get_timeline().export(os.path.join(args.telemetry_dir, T.TRACE_FILENAME))
+    # The timeline: <telemetry-dir>/trace.json, and a copy at --trace-out.
+    trace_paths = [os.path.join(args.telemetry_dir, T.TRACE_FILENAME)] if args.telemetry_dir \
+        else []
+    if tc.trace_out and tc.trace_out not in trace_paths:
+        trace_paths.append(tc.trace_out)
+    for path in trace_paths:
+        trace = T.get_timeline().export(path)
         print(f"device-step timeline: {trace} (open at https://ui.perfetto.dev)")
 
     print("\n" + "=" * 60)

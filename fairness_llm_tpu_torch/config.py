@@ -2,10 +2,11 @@
 ``ModelSettings``, ``SpeculationConfig``, ``IntegrityConfig`` and
 ``ResilienceConfig`` (fault containment), ``Config`` with the fields the
 three phases read, ``ServingConfig`` (the continuous-batching core's
-knobs), ``default_config`` with the reference's ``FAIRNESS_TPU_*``
-overrides, and ``create_directories``. The fleet, overload, mesh and
-telemetry sections wait for their slices (the CLI's ``--telemetry-dir``
-needs no config field)."""
+knobs), ``OverloadConfig`` (QoS queues and load shedding),
+``TelemetryConfig`` (the fairness monitor, SLO targets, the trace copy),
+``default_config`` with the reference's ``FAIRNESS_TPU_*`` overrides, and
+``create_directories``. The fleet and mesh sections wait for their slices
+(the CLI's ``--telemetry-dir`` needs no config field)."""
 
 from __future__ import annotations
 
@@ -78,6 +79,91 @@ class ServingConfig:
             raise NotImplementedError(
                 f"ServingConfig.tp={self.tp!r}: tensor-parallel serving is not ported yet "
                 "(ROADMAP A5)")
+
+
+@dataclasses.dataclass(frozen=True)
+class OverloadConfig:
+    """Overload-control knobs (``serving/overload.py``).
+
+    ``enabled`` turns the serving front door from one FIFO into the QoS
+    model: per-class bounded sub-queues (``interactive``, ``batch``,
+    ``probe``) with strict-priority-with-aging dequeue, per-class rate
+    quotas, deadline-feasibility admission (a request that provably cannot
+    meet its deadline is refused with a retry-after hint instead of
+    spending a prefill), and a shed controller that walks a brownout ladder
+    under sustained overload:
+
+        0 healthy -> 1 shed batch admissions -> 2 also cap batch
+        max_new_tokens -> 3 interactive-only
+
+    Escalation reads the fast-window SLO burn rates and the admission
+    queue's depth; each step down needs ``healthy_window_s`` of sustained
+    health. With ``enabled=False`` (the default) serving is unchanged.
+    """
+
+    enabled: bool = False
+    # Per-class sub-queue bounds (each inside ServingConfig.queue_capacity).
+    interactive_capacity: int = 64
+    batch_capacity: int = 64
+    probe_capacity: int = 8
+    # Per-class admission quotas; None = none (the shared quota still applies).
+    interactive_per_minute: Optional[int] = None
+    batch_per_minute: Optional[int] = None
+    probe_per_minute: Optional[int] = None
+    # A lower-class head waiting this long competes on age (oldest first);
+    # <= 0 is pure strict priority.
+    aging_s: float = 5.0
+    # Refuse when the remaining deadline is below feasibility_safety x the
+    # estimated earliest first token; 0 disables the check.
+    deadline_admission: bool = True
+    feasibility_safety: float = 0.5
+    # Shed-controller signals: the queue depth reached queue_frac_threshold
+    # of capacity within queue_window_s, or (only while interactive traffic
+    # was seen within interactive_presence_s) a fast-window burn rate at or
+    # over burn_threshold.
+    burn_threshold: float = 2.0
+    interactive_presence_s: float = 60.0
+    queue_frac_threshold: float = 0.9
+    queue_window_s: float = 2.0  # depth-sample memory (a self-decaying maximum)
+    healthy_window_s: float = 5.0  # sustained health per step down
+    eval_interval_s: float = 0.25  # least seconds between controller steps
+    # Rung 2: batch requests' max_new_tokens clamp.
+    batch_token_cap: int = 32
+    retry_after_s: float = 1.0  # base retry-after hint of a class shed
+    # The reference's early clamp on measured HBM headroom reads its memory
+    # ledger (ROADMAP A7(b)); 0 keeps the ladder purely load-driven, and a
+    # value above 0 is refused until that ledger is ported.
+    headroom_cap_frac: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.headroom_cap_frac > 0:
+            raise NotImplementedError(
+                "OverloadConfig.headroom_cap_frac reads the memory ledger, which is not "
+                "ported yet (ROADMAP A7(b))")
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Telemetry knobs: the fairness monitor, the SLO objectives the burn
+    rates judge against, and the timeline's trace copy.
+
+    ``trace_out`` writes the timeline as Chrome-trace JSON at the end of a
+    run; with a telemetry dir, ``<dir>/trace.json`` is written anyway and
+    this adds a copy at ``trace_out``. ``fairness_obs`` arms the fairness
+    monitor (``telemetry/fairness.py``): the phases register their profile
+    grid and counterfactual pairs, sweep requests carry study tags, and the
+    streaming DP/IF/exposure gauges, the pair watch and the
+    serving-neutrality audit record live. The reference's
+    ``achievable_gbps`` belongs to the roofline (ROADMAP A7(b)).
+    """
+
+    trace_out: Optional[str] = None
+    fairness_obs: bool = False
+    slo_ttft_p95_s: float = 2.0
+    slo_e2e_p99_s: float = 30.0
+    slo_error_rate: float = 0.01
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 600.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,6 +277,12 @@ class Config:
     # Continuous-batching serving (--continuous): backend_for returns a
     # ServingBackend when enabled.
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    # Overload control at the serving front door (--overload, with
+    # --continuous).
+    overload: OverloadConfig = dataclasses.field(default_factory=OverloadConfig)
+    # The fairness monitor, SLO targets and the trace copy (--fairness-obs,
+    # --slo-*, --trace-out).
+    telemetry: TelemetryConfig = dataclasses.field(default_factory=TelemetryConfig)
 
     def settings_for(self, model_name: str) -> ModelSettings:
         for name, settings in self.model_settings:

@@ -38,8 +38,11 @@ serves the golden prompt again once its blocks are cached, a suffix
 prefill that sums in another order than the cold one, so the record keeps
 both the cold and the warm row, and a probe must equal one of them. On the
 CPU, in float32, the row equals the engine's, which the reference records.
-The reference's ``for_replica`` (the fleet's rejoin probe) and its handling of
-a probe shed by overload control come with those slices (ROADMAP A5).
+A probe that overload control sheds (rung 3 refuses every class but
+interactive) is inconclusive: ``canary_shed`` is emitted and no mismatch
+counted, since tripping the breaker on a deliberate shed would turn flow
+control into a fault. The reference's ``for_replica`` (the fleet's rejoin
+probe) comes with the fleet (ROADMAP A5.4).
 """
 
 from __future__ import annotations
@@ -151,9 +154,16 @@ class CanaryProbe:
         get_timeline().record_span("canary_probe", "canary",
                                    self.labels.get("replica") or self.component,
                                    probe_t0, time.monotonic() - probe_t0)
+        reg = get_registry()
+        if res.finish_reason == "shed":
+            # Refused by overload control: inconclusive, not a mismatch.
+            reg.counter("canary_runs_total", component=self.component, **self.labels).inc()
+            emit_event("canary_shed", component=self.component, **self.labels)
+            logger.warning("canary probe shed by overload control; inconclusive (not counted "
+                           "as a mismatch)")
+            return True
         got = np.asarray(res.tokens)
         ok = bool(res.ok and len(got) > 0 and self._matches(got))
-        reg = get_registry()
         reg.counter("canary_runs_total", component=self.component, **self.labels).inc()
         reg.gauge("canary_last_ok", component=self.component, **self.labels).set(1 if ok else 0)
         record_decision(

@@ -282,8 +282,9 @@ def backend_for(
     mode either way. With ``config.serving.enabled`` the engine is served
     through a ``ServingBackend`` (speculation, which the serving loop does
     not compose with, is then ignored, as the reference ignores it), with
-    ``config.resilience`` (breakers, watchdog, the serving journal) and
-    ``config.integrity`` (numerics guards, the canary); the engine path gets
+    ``config.resilience`` (breakers, watchdog, the serving journal),
+    ``config.integrity`` (numerics guards, the canary) and
+    ``config.overload`` (QoS queues and load shedding); the engine path gets
     the breakers and the watchdog too.
 
     The engine runs the port's attention kernels (``use_flash_attention``
@@ -336,7 +337,8 @@ def backend_for(
             journal = ServingJournal(resilience.journal_dir,
                                      rotate_every=resilience.journal_rotate_every)
         return ServingBackend(engine, config.serving, name=model_name, resilience=resilience,
-                              journal=journal, integrity=config.integrity)
+                              journal=journal, integrity=config.integrity,
+                              overload=config.overload)
     if resilience is not None:
         # The engine path gets the watchdog (contained by
         # with_failure_containment) and a board for the speculate gate.

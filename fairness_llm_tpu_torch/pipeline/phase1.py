@@ -19,10 +19,18 @@ raises out of ``run_phase1`` and no record is written
 (``utils/failures.is_fatal_device_error``). Phase 3 inherits both through
 ``decode_sweep``.
 
-Not ported: the reference's telemetry here (heartbeat, fairness monitor,
-registry; ROADMAP A7), so the record's ``fairness`` is None. Its
-``serving`` holds a ``ServingBackend``'s counters for the sweep
-(``--continuous``), None for other backends.
+Telemetry, as the reference's: ``decode_sweep`` pulses a heartbeat and,
+with the fairness monitor armed, streams each parsed result into it (the
+content side of the pair watch and the per-group accumulators), refreshing
+the derived gauges; ``run_phase1`` arms the monitor under
+``config.telemetry.fairness_obs`` (``register_fairness_study``), publishes
+the offline scores as ``fairness_offline_*`` gauges beside the streaming
+ones, and records both in the record's ``fairness`` block (``live`` and
+``offline``; None with the monitor off), and the phase's registry counters
+(``phase_wall_s``, ``phase_runs_total``, ``profiles_decoded_total``,
+``decode_failures_total``). The record's ``serving`` holds a
+``ServingBackend``'s counters for the sweep (``--continuous``), None for
+other backends.
 """
 
 from __future__ import annotations
@@ -48,6 +56,13 @@ from fairness_llm_tpu_torch.pipeline import results as R
 from fairness_llm_tpu_torch.pipeline.backends import DecodeBackend, backend_for, shared_prefix_ids
 from fairness_llm_tpu_torch.pipeline.parsing import canonicalize, parse_numbered_list
 from fairness_llm_tpu_torch.pipeline.prompts import check_late_divergence, recommendation_prompt
+from fairness_llm_tpu_torch.telemetry import (
+    Heartbeat,
+    get_fairness_monitor,
+    get_registry,
+    group_exposure,
+    publish_offline_reference,
+)
 from fairness_llm_tpu_torch.utils.failures import with_failure_containment
 from fairness_llm_tpu_torch.utils.progress import print_progress
 
@@ -78,6 +93,9 @@ def decode_sweep(
     # it cannot splice into the bar); piped runs keep the INFO lines.
     interactive = getattr(sys.stderr, "isatty", lambda: False)()
     last_drawn = -1
+    # A liveness pulse for long sweeps (at most one line and event an
+    # interval), where the per-chunk lines scroll away or drop to DEBUG.
+    heartbeat = Heartbeat(interval_s=30.0, name=phase)
     # Chunks cover absolute positions in the full prompt list, so each
     # chunk's seed is the same whether or not the run was resumed.
     for start in range(0, len(keys), chunk):
@@ -95,11 +113,18 @@ def decode_sweep(
             keys=[k for k, _ in batch],
             prefix_ids=prefix_ids,
         )
+        mon = get_fairness_monitor()
         for (k, _), text in zip(batch, texts):
             if text is None:  # a contained decode failure (utils/failures.py)
                 done[k] = {"recommendations": [], "raw_response": "", "error": "decode_failed"}
             else:
                 done[k] = {"recommendations": parse(text), "raw_response": text}
+            if mon.active:
+                # The fairness monitor's content side; error rows stream too,
+                # as the offline metrics count their empty lists.
+                mon.observe_output(k, done[k]["recommendations"], error="error" in done[k])
+        if mon.active:
+            mon.maybe_refresh()
         completed = len(done)
         if save_checkpoints and config.checkpoint_every and (
             completed % config.checkpoint_every < chunk or start + chunk >= len(keys)
@@ -114,9 +139,19 @@ def decode_sweep(
             last_drawn = completed
         else:
             logger.info("%s sweep: %d/%d decoded", phase, completed, len(keys))
+        heartbeat.poke(completed=completed, total=len(keys))
     if 0 <= last_drawn < len(keys):
         # a resume whose tail chunks were cached leaves the bar mid-line
         print_progress(len(keys), len(keys), prefix=f"{phase} ")
+    mon = get_fairness_monitor()
+    if mon.active:
+        # Backfill what the stream never saw (a resume's checkpointed rows;
+        # observe_output ignores keys it has), so that the run window covers
+        # exactly the returned results, then refresh the gauges.
+        for k in keys:
+            if k in done:
+                mon.observe_output(k, done[k]["recommendations"], error="error" in done[k])
+        mon.refresh()
     return {k: done[k] for k in keys if k in done}
 
 
@@ -152,6 +187,25 @@ def measure_equal_opportunity(
         for g, lists in recommendations_by_group.items()
     }
     return M.equal_opportunity(canon_groups, set(canonicalize(sorted(qualified))))
+
+
+def register_fairness_study(profiles: Sequence[Profile]):
+    """Arm the fairness monitor for one sweep: every profile's groups and
+    the full counterfactual pair grid. ``ServingBackend`` then stamps the
+    tags on its requests, the scheduler's terminal paths feed the
+    neutrality audit, and ``decode_sweep`` feeds the streaming
+    accumulators, whose end-of-run values the offline metrics check.
+    Returns the monitor."""
+    mon = get_fairness_monitor()
+    mon.begin_study()
+    by_id = {p.id: p for p in profiles}
+    for p in profiles:
+        mon.register_request(p.id, {"gender": p.gender, "age": p.age})
+    for a, b in profile_pairs(profiles):
+        pa, pb = by_id[a], by_id[b]
+        attr = next(x for x in ("gender", "age", "occupation") if getattr(pa, x) != getattr(pb, x))
+        mon.register_pair(f"{a}|{b}", a, b, attr)
+    return mon
 
 
 def qualified_movies(data, top_n: int = 10, seed: int = 42) -> List[str]:
@@ -203,6 +257,7 @@ def run_phase1(
         for k in neutral_keys
     ]
     neutral_prompts = [recommendation_prompt(p, anonymize=True) for p in neutral_profiles]
+    mon = register_fairness_study(profiles) if config.telemetry.fairness_obs else None
 
     if hasattr(backend, "spec_totals"):
         # a reused backend may carry counters of earlier runs
@@ -239,7 +294,30 @@ def run_phase1(
     recs_by_age_flat = {a: [t for lst in lists for t in lst] for a, lists in by_age.items()}
     snsr_age, snsv_age, sns_sims_age = M.snsr_snsv(neutral_flat, recs_by_age_flat)
 
+    # The offline scores as fairness_offline_* gauges beside the streaming
+    # ones, and both sides in the record.
+    fairness_block = None
+    if mon is not None and mon.active:
+        expo_gender, _ = group_exposure(by_gender)
+        expo_age, _ = group_exposure(by_age)
+        publish_offline_reference({"gender": dp_gender, "age": dp_age}, if_score=if_score,
+                                  exposure={"gender": expo_gender, "age": expo_age})
+        fairness_block = {
+            "live": mon.live_values(),
+            "offline": {
+                "dp": {"gender": dp_gender, "age": dp_age},
+                "individual_fairness": if_score,
+                "exposure_ratio": {"gender": expo_gender, "age": expo_age},
+            },
+        }
+
     elapsed = time.time() - t0
+    reg = get_registry()
+    reg.histogram("phase_wall_s", component="phase1").observe(elapsed)
+    reg.counter("phase_runs_total", component="phase1").inc()
+    reg.counter("profiles_decoded_total", component="phase1").inc(len(recs))
+    reg.counter("decode_failures_total", component="phase1").inc(
+        sum(1 for r in recs.values() if "error" in r))
     results = {
         "metadata": {
             "phase": 1,
@@ -268,7 +346,7 @@ def run_phase1(
                 backend.serve_totals.as_dict()
                 if getattr(backend, "serve_totals", None) is not None else None
             ),
-            "fairness": None,
+            "fairness": fairness_block,
             "prompt_divergence": divergence,
         },
         "profiles": [p.to_dict() for p in profiles],

@@ -6,10 +6,10 @@ listwise (all listwise queries decoded as one batch) and pairwise (all pair
 prompts decoded as one batch), and, for an engine backend, by the model's
 own likelihood of each item given the query (one chunked scoring sweep);
 then exposure ratio, per-group NDCG and pairwise win rates, compared across
-models and methods. Parse failures are counted, not hidden.
-
-Not ported: the reference's telemetry registry calls (ROADMAP A7). A failed
-decode or scoring forward raises out of ``run_phase2``.
+models and methods. Parse failures are counted, not hidden. The phase's
+registry counters (``phase_wall_s``, ``phase_runs_total``,
+``models_evaluated_total``) are the reference's. A failed decode or scoring
+forward raises out of ``run_phase2``.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from fairness_llm_tpu_torch.pipeline.parsing import (
     parse_ranking_indices_with_count,
 )
 from fairness_llm_tpu_torch.pipeline.prompts import listwise_prompt, pairwise_prompt
+from fairness_llm_tpu_torch.telemetry import get_registry
 
 logger = logging.getLogger(__name__)
 
@@ -403,6 +404,10 @@ def run_phase2(
             model_results[name]["serving"] = serve_totals.as_dict()
 
     comparison = compare_models_and_methods(model_results)
+    reg = get_registry()
+    reg.histogram("phase_wall_s", component="phase2").observe(time.time() - t0)
+    reg.counter("phase_runs_total", component="phase2").inc()
+    reg.counter("models_evaluated_total", component="phase2").inc(len(models))
     results = {
         "metadata": {
             "phase": 2,

@@ -11,8 +11,11 @@ The ``model`` and ``model-conditional`` calibrations score the mitigated
 titles with the backend's own model (``runtime/scoring.py``), so they need
 an engine backend.
 
-Not ported: the reference's telemetry registry and fairness-monitor calls
-(ROADMAP A7). A failed decode or scoring forward raises out of
+With ``config.telemetry.fairness_obs`` the mitigated sweep's requests
+carry study tags for the fairness monitor, armed here only when no study is
+live (in an ``--all`` run phase 1 armed it). The phase's registry counters
+(``phase_wall_s``, ``phase_runs_total``, ``profiles_mitigated_total``) are
+the reference's. A failed decode or scoring forward raises out of
 ``run_phase3``.
 """
 
@@ -43,13 +46,18 @@ from fairness_llm_tpu_torch.pipeline.facter import (
     smart_balance,
 )
 from fairness_llm_tpu_torch.pipeline.parsing import parse_comma_list, parse_numbered_list
-from fairness_llm_tpu_torch.pipeline.phase1 import decode_sweep, run_phase1
+from fairness_llm_tpu_torch.pipeline.phase1 import (
+    decode_sweep,
+    register_fairness_study,
+    run_phase1,
+)
 from fairness_llm_tpu_torch.pipeline.prompts import (
     calibration_context,
     check_late_divergence,
     fairness_aware_prompt,
     recommendation_prompt,
 )
+from fairness_llm_tpu_torch.telemetry import get_fairness_monitor, get_registry
 
 logger = logging.getLogger(__name__)
 
@@ -320,6 +328,15 @@ def run_phase3(
         # A reused ServingBackend then holds this phase's serving counters;
         # the record leaves them out, as the reference's does.
         backend.serve_totals = None
+    if config.telemetry.fairness_obs and not get_fairness_monitor().active:
+        # Only when no study is live: in an --all run phase 1 armed the
+        # monitor and published its offline gauges, and registering again
+        # would overwrite the run-window gauges with the mitigated sweep's
+        # values beside phase 1's stale offline ones, failing the
+        # live-vs-offline check on a healthy run. Phase 3 reuses phase 1's
+        # profile ids, so that registration keeps tagging its requests, and
+        # the content dedup keeps the accumulators on phase 1's results.
+        register_fairness_study(profiles)
 
     mitigated = apply_facter(
         profiles, backend, config, strategy, variant, settings,
@@ -350,6 +367,10 @@ def run_phase3(
     for pid, lst in mitigated.items():
         mit_by_gender[gender_of.get(pid, "")].append(lst)
     blended = blended_group_fairness(dict(mit_by_gender))
+    reg = get_registry()
+    reg.histogram("phase_wall_s", component="phase3").observe(time.time() - t0)
+    reg.counter("phase_runs_total", component="phase3").inc()
+    reg.counter("profiles_mitigated_total", component="phase3").inc(len(mitigated))
 
     results = {
         "metadata": {

@@ -33,8 +33,15 @@ kernel exempt. A fatal CUDA error is never retried
 Left out on purpose: the reference's VMEM-gate fallback, which rebuilds the
 engine without its decode kernel when that kernel fails to compile. On the
 card it would be a plain-version fallback: a kernel that fails to build or
-launch raises here. The reference's engine telemetry (call counters, spans)
-is not ported yet (ROADMAP A7).
+launch raises here.
+
+Telemetry (``component="engine"``), as the reference's: per call
+``generate_calls_total``, ``prompt_tokens_total``, ``decoded_tokens_total``,
+``decode_paths_total{path}``, the ``generate_wall_s`` histogram, the
+speculation counters (``SpeculationStats.publish``) and a
+``generate[BxS]`` span on the timeline's ``engine`` track; the prefix LRU
+publishes ``prefix_kv_entries`` and ``prefix_kv_evictions_total``. Host
+clock only: nothing here reads the device.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from fairness_llm_tpu_torch.runtime.stepbuilder import (
 )
 from fairness_llm_tpu_torch.runtime.weights import build_model, init_params
 from fairness_llm_tpu_torch.telemetry import get_registry
+from fairness_llm_tpu_torch.telemetry.timeline import get_timeline
 from fairness_llm_tpu_torch.utils.failures import (
     NumericsFault,
     is_fatal_device_error,
@@ -189,9 +197,12 @@ class DecodeEngine:
         layers = run(torch.tensor([shared_ids], dtype=torch.long, device=self.device))
         self._sync()
         seconds = time.perf_counter() - t0
+        reg = get_registry()
         while len(self._prefix_kv) >= _PREFIX_LRU:
             self._prefix_kv.popitem(last=False)
+            reg.counter("prefix_kv_evictions_total", component="engine").inc()
         self._prefix_kv[key] = layers
+        reg.gauge("prefix_kv_entries", component="engine").set(len(self._prefix_kv))
         return layers, seconds
 
     def shed_speculation(self) -> None:
@@ -246,6 +257,7 @@ class DecodeEngine:
             raise ValueError(
                 f"max_new_tokens {max_new} >= model max_seq_len {self.config.max_seq_len}")
         prompt_budget = self.config.max_seq_len - max_new
+        t_start = time.perf_counter()
         n = len(prompts)
         if n == 0:
             return GenerateOutput(
@@ -311,6 +323,7 @@ class DecodeEngine:
                 raise ValueError(f"row_seeds has {len(row_seeds)} entries for {n} prompts")
             seeds = [int(s) & 0xFFFFFFFF for s in row_seeds] + [0] * (batch - n)
         prefix_len = len(shared_ids) if shared_ids is not None else 0
+        t0_mono = time.monotonic()
 
         shared_layers, prefix_s = None, 0.0
         if prefix_len:
@@ -408,6 +421,21 @@ class DecodeEngine:
                     break
                 ids.append(int(t))
             texts.append(self.tokenizer.decode(ids))
+        decoded = int(np.sum(out != self.tokenizer.pad_id))
+        path = "speculative" if use_spec else "plain"
+        reg = get_registry()
+        reg.counter("generate_calls_total", component="engine").inc()
+        reg.counter("prompt_tokens_total", component="engine").inc(int(sum(len(r) for r in rows)))
+        reg.counter("decoded_tokens_total", component="engine").inc(decoded)
+        reg.counter("decode_paths_total", component="engine", path=path).inc()
+        # The wall includes any kernel build or load of a shape's first call;
+        # the histogram's spread shows it.
+        reg.histogram("generate_wall_s", component="engine").observe(time.perf_counter() - t_start)
+        if spec_stats is not None:
+            spec_stats.publish(reg)
+        get_timeline().record_span(f"generate[{batch}x{prompt_len}]",
+                                   "speculate" if use_spec else "decode", "engine", t0_mono,
+                                   time.monotonic() - t0_mono, path=path, prefix_len=prefix_len)
         stats: Dict[str, Any] = {
             "batch": batch,
             "prompt_len": prompt_len,
@@ -421,7 +449,7 @@ class DecodeEngine:
             "decode_s": t2 - t1,
             # verify steps on the speculative path
             "decode_steps": steps_run,
-            "decoded_tokens": int(np.sum(out != self.tokenizer.pad_id)),
+            "decoded_tokens": decoded,
             "logits_finite": finite,
         }
         if spec_stats is not None:

@@ -25,7 +25,15 @@ How it differs from ``EngineBackend``:
   (``integrity/canary.py``) decodes through the live scheduler every N
   calls, compared token for token against a reference recorded at the
   pool's own shape; a mismatch trips the decode breaker;
-- ``fault_injector`` and ``journal`` go through to every scheduler.
+- ``fault_injector``, ``journal`` and ``overload`` (an enabled
+  ``OverloadConfig``: the QoS queue, the shed controller and deadline
+  admission) go through to every scheduler. Sweep requests ride the
+  ``batch`` class, the one a brownout sheds first; a shed row comes back
+  as ``None``, the sentinel the sweep's containment retries;
+- with the fairness monitor armed (``--fairness-obs``: a phase registered
+  its profile grid) each sweep request carries its study tags
+  (``attribute``, ``group``, ``pair_id``), so that the serving layer's
+  treatment of each group is observable per request.
 
 The reference's replica fleet is a later slice (ROADMAP A5.4); a fatal CUDA
 error raises out of ``generate``.
@@ -41,6 +49,7 @@ import numpy as np
 from fairness_llm_tpu_torch.config import (
     IntegrityConfig,
     ModelSettings,
+    OverloadConfig,
     ResilienceConfig,
     ServingConfig,
 )
@@ -49,6 +58,7 @@ from fairness_llm_tpu_torch.resilience.drain import ServingJournal
 from fairness_llm_tpu_torch.serving.request import Request
 from fairness_llm_tpu_torch.serving.scheduler import ContinuousScheduler
 from fairness_llm_tpu_torch.telemetry import get_registry
+from fairness_llm_tpu_torch.telemetry.fairness import get_fairness_monitor
 
 logger = logging.getLogger(__name__)
 
@@ -61,7 +71,8 @@ class ServingBackend:
                  name: Optional[str] = None, fault_injector=None,
                  resilience: Optional[ResilienceConfig] = None,
                  journal: Optional[ServingJournal] = None,
-                 integrity: Optional[IntegrityConfig] = None):
+                 integrity: Optional[IntegrityConfig] = None,
+                 overload: Optional[OverloadConfig] = None):
         self.engine = engine
         self.serving = serving or ServingConfig(enabled=True)
         self.name = name or engine.config.name
@@ -69,6 +80,7 @@ class ServingBackend:
         self.resilience = resilience
         self.journal = journal
         self.integrity = integrity
+        self.overload = overload if (overload is not None and overload.enabled) else None
         # The canary is recorded on the first generate(), not here: its
         # reference decode must not land in the backend's construction.
         self._canary = None
@@ -101,7 +113,7 @@ class ServingBackend:
             sched = ContinuousScheduler(self.engine, self.serving, settings=settings,
                                         fault_injector=self.fault_injector,
                                         resilience=self.resilience, journal=self.journal,
-                                        breakers=self.board)
+                                        breakers=self.board, overload=self.overload)
             while len(self._schedulers) >= 2:
                 del self._schedulers[next(iter(self._schedulers))]
         self._schedulers[key] = sched
@@ -149,7 +161,8 @@ class ServingBackend:
         prefix_ids: Optional[Sequence[int]] = None,  # accepted, unused
     ) -> List[Optional[str]]:
         """Texts in prompt order; None for a request that did not complete
-        (a deadline, a second fault, a drain), so that a sweep retries it."""
+        (a deadline, a second fault, a drain, a shed), so that a sweep
+        retries it."""
         from fairness_llm_tpu_torch.pipeline.backends import _stable_hash
         from fairness_llm_tpu_torch.runtime.engine import GenerateOutput
 
@@ -180,6 +193,7 @@ class ServingBackend:
             return list(out.texts)
         sched = self.scheduler_for(settings)
         self._maybe_canary()
+        mon = get_fairness_monitor()
         requests = []
         for i, p in enumerate(prompts):
             if keys is not None:
@@ -187,8 +201,11 @@ class ServingBackend:
                 rid, row_seed = keys[i], (_stable_hash(keys[i]) ^ seed) & 0xFFFFFFFF
             else:
                 rid, row_seed = f"call{seed}_{i:05d}", (seed * 1_000_003 + i) & 0xFFFFFFFF
+            tags = mon.request_tags(rid) if mon.active else None
             requests.append(Request(prompt=p, id=rid, settings=settings, row_seed=row_seed,
-                                    qos="batch"))
+                                    qos="batch", attribute=tags[0] if tags else None,
+                                    group=tags[1] if tags else None,
+                                    pair_id=tags[2] if tags else None))
         results = sched.serve(requests)
         stats = sched.last_stats
         self.serve_totals = stats if self.serve_totals is None else self.serve_totals.merge(stats)

@@ -18,9 +18,10 @@ import numpy as np
 
 from fairness_llm_tpu_torch.config import ModelSettings
 
-# QoS classes, highest priority first. The port keeps ``Request.qos`` as
-# data; the classed admission queue that reads it comes with overload
-# control (ROADMAP A5).
+# QoS classes, highest priority first (serving/overload.py): "interactive"
+# is user-facing traffic with latency SLOs, "batch" throughput traffic (the
+# study's sweeps), "probe" synthetic health traffic (the canary), last in
+# dequeue order but shed only at the top brownout rung.
 QOS_CLASSES = ("interactive", "batch", "probe")
 QOS_PRIORITY = {name: rank for rank, name in enumerate(QOS_CLASSES)}
 
@@ -49,9 +50,13 @@ class Request:
     ``submitted_at`` is stamped again when the scheduler takes the request
     (``submit``/``serve``).
 
-    ``qos``, ``group``, ``attribute`` and ``pair_id`` are kept as data: the
-    overload control and fairness telemetry that read them are later
-    slices.
+    ``qos`` is the request's priority class; it matters only with overload
+    control armed (per-class queues, strict priority with aging, the
+    brownout ladder refusing lower classes first). ``group``,
+    ``attribute`` and ``pair_id`` are optional study tags for the fairness
+    monitor (``telemetry/fairness.py``): which demographic group of which
+    attribute the prompt stands for, and which counterfactual pair it is in.
+    They change nothing about scheduling, and the journal keeps them.
     """
 
     prompt: str
@@ -85,9 +90,10 @@ class Result:
     including the EOS that stopped the row, nothing after.
     ``finish_reason``: "eos" | "length" | "deadline" | "failed" (a second
     fault after the one requeue; ``error`` says which) | "preempted" (a
-    drain; the journal keeps it open for ``resume-serving``). The
-    reference's "shed" comes with overload control (ROADMAP A5.3).
-    ``latency_s`` is the wall time from submission.
+    drain; the journal keeps it open for ``resume-serving``) | "shed"
+    (overload control refused it; ``retry_after_s`` is the earliest the
+    client should resubmit, set only then). ``latency_s`` is the wall time
+    from submission.
     """
 
     id: str

@@ -71,8 +71,28 @@ prefill and decode chunk's finite flag is read with its tokens, and a
 tripped flag discards the chunk as a ``NumericsFault`` (requeue once,
 breaker-visible, ``numerics_faults_total``).
 
-Not ported here, each a later part of ROADMAP A5: overload control and
-shedding (``_overload_gate``, ``_shed``), the replica fleet and
+Overload control (``serving/overload.py``, with ``OverloadConfig.enabled``):
+the scheduler is the serving front door. The queue becomes the per-class
+``ClassedAdmissionQueue``; ``_overload_gate`` runs before a request is
+accepted (``submit``, and ``_feed`` for ``serve``'s intake): the shed
+controller's rung refuses a class, then ``DeadlineEstimator`` refuses a
+request whose deadline is provably out of reach, with queued-ahead counted
+over the same and higher classes. ``_shed`` ends such a request with a
+``finish_reason="shed"`` Result carrying ``retry_after_s``, counted in
+``shed_total`` and the decision trail; a ``submit``-time shed was never
+accepted, so it owes the journal nothing. The controller samples the
+queue depth and evaluates once per loop iteration; at rung 2 batch decode
+budgets clamp to ``batch_token_cap`` (``_cap_for``), and a request whose
+deadline cannot cover one prefill and one decode step sheds at pop time
+instead of being prefilled.
+
+Fairness (``telemetry/fairness.py``): every terminal outcome (``_finish``,
+``_fail``, ``_shed``, expiry) feeds the fairness monitor's neutrality audit
+and pair watch (``_note_fairness``; a preempted request is left to the
+monitor, which drops it), and a requeue is noted as a serving event of a
+tagged request.
+
+Not ported here, each a later part of ROADMAP A5: the replica fleet and
 tensor-parallel meshes.
 """
 
@@ -86,7 +106,12 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from fairness_llm_tpu_torch.config import ModelSettings, ResilienceConfig, ServingConfig
+from fairness_llm_tpu_torch.config import (
+    ModelSettings,
+    OverloadConfig,
+    ResilienceConfig,
+    ServingConfig,
+)
 from fairness_llm_tpu_torch.integrity.numerics import check_finite
 from fairness_llm_tpu_torch.models.tokenizer import _left_pad
 from fairness_llm_tpu_torch.models.transformer import check_write_offsets, init_cache
@@ -105,11 +130,17 @@ from fairness_llm_tpu_torch.runtime.stepbuilder import (
     build_serve_prefill,
     build_serve_step,
 )
+from fairness_llm_tpu_torch.serving.overload import (
+    DeadlineEstimator,
+    ShedController,
+    count_shed,
+)
 from fairness_llm_tpu_torch.serving.paged import PagedKV, init_arena
-from fairness_llm_tpu_torch.serving.queue import AdmissionQueue
-from fairness_llm_tpu_torch.serving.request import Request, Result
+from fairness_llm_tpu_torch.serving.queue import AdmissionQueue, ClassedAdmissionQueue
+from fairness_llm_tpu_torch.serving.request import QOS_CLASSES, QOS_PRIORITY, Request, Result
 from fairness_llm_tpu_torch.serving.slots import SlotPool, SlotState
 from fairness_llm_tpu_torch.telemetry import Heartbeat, RequestTracer, emit_event, get_registry
+from fairness_llm_tpu_torch.telemetry.fairness import get_fairness_monitor
 from fairness_llm_tpu_torch.telemetry.flightrecorder import get_flight_recorder
 from fairness_llm_tpu_torch.telemetry.incidents import maybe_trigger, record_decision
 from fairness_llm_tpu_torch.telemetry.timeline import get_timeline
@@ -155,14 +186,16 @@ class ContinuousScheduler:
     and corruptions; ``resilience`` arms the watchdog and the breakers;
     ``journal`` ledgers every accepted request and its outcome; ``breakers``
     shares a ``BreakerBoard`` (``ServingBackend`` hands one board to all its
-    schedulers and the engine).
+    schedulers and the engine); ``overload`` (an enabled ``OverloadConfig``)
+    arms the QoS queue, the shed controller and deadline admission.
     """
 
     def __init__(self, engine, serving: Optional[ServingConfig] = None,
                  settings: Optional[ModelSettings] = None, fault_injector=None,
                  resilience: Optional[ResilienceConfig] = None,
                  journal: Optional[ServingJournal] = None,
-                 breakers: Optional[BreakerBoard] = None):
+                 breakers: Optional[BreakerBoard] = None,
+                 overload: Optional[OverloadConfig] = None):
         self.engine = engine
         self.serving = serving or ServingConfig(enabled=True)
         # Instrument labels and timeline track of a single-replica scheduler
@@ -204,8 +237,25 @@ class ContinuousScheduler:
             self.pool = SlotPool(self.num_slots)
         rate_limiter = (RateLimiter(self.serving.admission_per_minute)
                         if self.serving.admission_per_minute else None)
-        self.queue = AdmissionQueue(capacity=self.serving.queue_capacity,
-                                    rate_limiter=rate_limiter)
+        # Overload control: with it armed, the queue is the per-class one and
+        # the shed controller and the deadline estimator gate admission.
+        self.overload = overload if (overload is not None and overload.enabled) else None
+        self.shed_controller: Optional[ShedController] = None
+        self.deadline_estimator: Optional[DeadlineEstimator] = None
+        if self.overload is not None:
+            self.queue: AdmissionQueue = ClassedAdmissionQueue(
+                capacity=self.serving.queue_capacity, rate_limiter=rate_limiter,
+                overload=self.overload)
+            self.shed_controller = ShedController(self.overload, labels=self.labels)
+            if self.overload.deadline_admission:
+                self.deadline_estimator = DeadlineEstimator(
+                    safety=self.overload.feasibility_safety, labels=self.labels)
+        else:
+            self.queue = AdmissionQueue(capacity=self.serving.queue_capacity,
+                                        rate_limiter=rate_limiter)
+        # Sheds of submit() calls between drains, folded into the next
+        # drain's stats as its rejections are.
+        self._shed_untaken = 0
         # Persistent device state: the pool's KV cache (private rows, or the
         # paged block arena with its view and table buffers) and each slot's
         # carried next-token logits (f32, what the sampler reads).
@@ -306,9 +356,16 @@ class ContinuousScheduler:
 
     def submit(self, request: Request) -> bool:
         """Queue one request; False = backpressure (queue full or rate
-        quota). Its deadline and latency clock start here."""
+        quota) or an overload shed. The two read apart through
+        ``take_result``: a shed leaves a ``finish_reason="shed"`` Result
+        with a retry-after hint, backpressure leaves nothing. Its deadline
+        and latency clock start here."""
         self._check_settings(request)
         request.submitted_at = time.monotonic()
+        # The gate runs before acceptance: a shed request was never
+        # accepted, so it owes the journal nothing.
+        if self._overload_gate(request, journaled=False):
+            return False
         accepted = self.queue.submit(request)
         if accepted:
             self.tracer.record(request.id, "submitted", t=request.submitted_at)
@@ -385,8 +442,14 @@ class ContinuousScheduler:
         self._apply_degradation()
         # SLO window decay: the burn gauges age out in quiet stretches.
         self.tracer.slo.maybe_evaluate()
+        if self.shed_controller is not None:
+            # One depth sample an iteration, then a throttled ladder step,
+            # after the SLO decay so that the burn it reads is current.
+            self.shed_controller.observe_queue_depth(len(self.queue),
+                                                     self.serving.queue_capacity)
+            self.shed_controller.maybe_evaluate()
         progressed = self._iterate(stats)
-        self._feed()
+        self._feed(stats)
         self._heartbeat.poke(occupancy=self.pool.occupancy, queue_depth=len(self.queue),
                              completed=stats.completed, decoded_tokens=stats.decoded_tokens)
         return progressed
@@ -396,6 +459,8 @@ class ContinuousScheduler:
         including ``submit()`` refusals made between drains."""
         stats.rejected = self.queue.rejected - self._rejected_taken
         self._rejected_taken = self.queue.rejected
+        stats.shed += self._shed_untaken
+        self._shed_untaken = 0
         stats.publish(labels=self.labels)
         # The live high-water mark is per drain: reset it to the drained
         # depth (the record keeps its own maximum).
@@ -406,7 +471,7 @@ class ContinuousScheduler:
 
     def _run_loop(self, stats: ServingStats) -> None:
         self.last_seconds = {"prefill": 0.0, "decode": 0.0}
-        self._feed()
+        self._feed(stats)
         while self.has_work:
             drained = self._drain_requested()
             if not self.step(stats) and not drained:
@@ -492,13 +557,37 @@ class ContinuousScheduler:
         emit_event("drain_complete", preempted=stats.preempted,
                    completed_during_drain=stats.completed - completed_before, **self.labels)
 
-    def _feed(self) -> None:
+    def _feed(self, stats: ServingStats) -> None:
         # Top-up from serve()'s overflow: a refusal here retries an accepted
         # request, so it is not a rejection.
-        while self._pending and not self.queue.full:
-            if not self.queue.submit(self._pending[0], count_rejection=False):
-                break  # rate-limited; retry next iteration
-            self._pending.popleft()
+        if self.shed_controller is None:
+            while self._pending and not self.queue.full:
+                if not self.queue.submit(self._pending[0], count_rejection=False):
+                    break  # rate-limited; retry next iteration
+                self._pending.popleft()
+            return
+        # QoS mode: the overload gate runs here for serve()'s intake, and a
+        # full or quota-bound class must not block the other classes behind
+        # it. One pass over the overflow, refused requests kept in order, a
+        # class skipped after its first refusal (the pass stops once every
+        # class is blocked).
+        blocked: set = set()
+        kept: Deque[Request] = deque()
+        while self._pending:
+            if len(blocked) == len(QOS_CLASSES):
+                kept.extend(self._pending)
+                self._pending.clear()
+                break
+            req = self._pending.popleft()
+            if req.qos in blocked:
+                kept.append(req)
+                continue
+            if self._overload_gate(req, stats=stats):
+                continue  # shed, its Result recorded
+            if not self.queue.submit(req, count_rejection=False):
+                blocked.add(req.qos)
+                kept.append(req)
+        self._pending = kept
 
     def _iterate(self, stats: ServingStats) -> bool:
         stats.loop_iterations += 1
@@ -522,14 +611,23 @@ class ContinuousScheduler:
 
     # -- terminal outcomes ---------------------------------------------------
 
+    def _note_fairness(self, request: Request, outcome: str, row, text: str = "") -> None:
+        """A terminal outcome into the fairness monitor's neutrality audit
+        and pair watch; a dict miss for untagged traffic."""
+        get_fairness_monitor().observe_request(
+            request, outcome, queue_wait_s=row.queue_wait_s, ttft_s=row.ttft_s, text=text,
+            replica=None, rung=(self.breakers.ladder.level if self.breakers is not None else 0))
+
     def _fail(self, request: Request, reason: str, error: str, stats: ServingStats,
               tokens: Optional[List[int]] = None) -> None:
         tok = self.engine.tokenizer
         ids = list(tokens or [])
+        text = tok.decode([t for t in ids if t != tok.eos_id])
         outcome = "expired" if reason == "deadline" else "failed"
         row = self.tracer.finalize(request.id, outcome, tokens=len(ids))
+        self._note_fairness(request, outcome, row, text=text)
         self._results[request.id] = Result(
-            id=request.id, ok=False, text=tok.decode([t for t in ids if t != tok.eos_id]),
+            id=request.id, ok=False, text=text,
             tokens=np.asarray(ids, np.int32), finish_reason=reason, error=error,
             retries=request.retries, latency_s=time.monotonic() - request.submitted_at,
             queue_wait_s=row.queue_wait_s, ttft_s=row.ttft_s)
@@ -539,6 +637,71 @@ class ContinuousScheduler:
             stats.expired += 1
         else:
             stats.failed += 1
+
+    def _shed(self, request: Request, reason: str, error: str, retry_after: float,
+              stats: Optional[ServingStats] = None, journaled: bool = True) -> None:
+        """An overload refusal: a ``finish_reason="shed"`` Result with a
+        retry-after hint, never a silent loss. ``journaled`` says whether
+        intake already ledgered the request (``serve``'s path); a
+        ``submit``-time shed was never accepted and closes nothing."""
+        if not self.tracer.events(request.id):
+            # A submit-time shed's span still starts at "submitted".
+            self.tracer.record(request.id, "submitted", t=request.submitted_at)
+        row = self.tracer.finalize(request.id, "shed", tokens=0)
+        self._note_fairness(request, "shed", row)
+        self._results[request.id] = Result(
+            id=request.id, ok=False, finish_reason="shed", error=error, retries=request.retries,
+            latency_s=time.monotonic() - request.submitted_at,
+            queue_wait_s=row.queue_wait_s, ttft_s=row.ttft_s, retry_after_s=retry_after)
+        count_shed(request.qos, reason, labels=self.labels)
+        # The refusal with its inputs: the rung that shed it, or the
+        # estimate that doomed it.
+        record_decision("shed", reason,
+                        signals={"qos": request.qos, "retry_after_s": retry_after,
+                                 "level": (self.shed_controller.level
+                                           if self.shed_controller is not None else 0)},
+                        request_id=request.id)
+        if journaled and self.journal is not None:
+            self.journal.record_terminal(request.id, "shed")
+        if stats is not None:
+            stats.shed += 1
+        else:
+            self._shed_untaken += 1
+
+    def _overload_gate(self, request: Request, stats: Optional[ServingStats] = None,
+                       journaled: bool = True) -> bool:
+        """True when overload control shed ``request`` (its Result is
+        recorded). Two gates in order: the ladder's class admission, then
+        deadline feasibility."""
+        ctl = self.shed_controller
+        if ctl is None:
+            return False
+        if request.qos == "interactive":
+            # Arms the burn signal: a latency-sensitive tenant is here.
+            ctl.note_interactive()
+        if not ctl.admits(request.qos):
+            self._shed(request, "overload",
+                       f"overload level {ctl.level} ({ctl.rung}) sheds {request.qos}-class "
+                       f"admissions; retry after {ctl.retry_after()}s",
+                       ctl.retry_after(), stats=stats, journaled=journaled)
+            return True
+        if self.deadline_estimator is not None and request.deadline_s is not None:
+            # Queued ahead = the depth of the same and higher classes: lower
+            # classes may age past the request now and then, but never
+            # delay it systematically.
+            ahead = sum(d for c, d in self.queue.class_depths().items()
+                        if QOS_PRIORITY[c] <= QOS_PRIORITY[request.qos])
+            # Slots turn over at the fused call's end, so a wave is
+            # decode_chunk x fuse_steps steps wide.
+            est = self.deadline_estimator.infeasible(request, ahead, self.num_slots,
+                                                     self.decode_chunk * self.fuse_steps)
+            if est is not None:
+                self._shed(request, "deadline_infeasible",
+                           "deadline provably unmeetable at admission (estimated earliest "
+                           f"first token {est:.3f}s); not prefilling a doomed request",
+                           ctl.retry_after(est), stats=stats, journaled=journaled)
+                return True
+        return False
 
     def _preempt(self, request: Request, stats: ServingStats) -> None:
         """A drain's outcome for a request this process will not finish: a
@@ -602,6 +765,12 @@ class ContinuousScheduler:
             get_registry().counter("serving_requeues_by_cause_total", component="serving",
                                    cause=cause, **self.labels).inc()
             self.tracer.record(request.id, "requeued")
+            # The requeue and its cause, for the pair watch's attribution.
+            # tagged= covers a tagged request whose pair registers only at
+            # its terminal outcome, after this requeue.
+            get_fairness_monitor().note_event(
+                request.id, f"requeued:{cause}",
+                tagged=request.group is not None or request.pair_id is not None)
             self.queue.requeue(request)
         else:
             self._fail(request, "failed", error, stats)
@@ -629,6 +798,7 @@ class ContinuousScheduler:
             return
         text = tok.decode(ids[:-1] if ids and ids[-1] == tok.eos_id else ids)
         row = self.tracer.finalize(req.id, "completed", tokens=len(ids))
+        self._note_fairness(req, "completed", row, text=text)
         self._results[req.id] = Result(
             id=req.id, ok=True, text=text, tokens=np.asarray(ids, np.int32),
             finish_reason=reason, prompt_tokens=state.real_len, retries=req.retries,
@@ -640,7 +810,13 @@ class ContinuousScheduler:
 
     def _cap_for(self, request: Request) -> int:
         m = (request.settings or self.settings).max_tokens
-        return max(1, min(m, self.serving.max_new_tokens))
+        cap = max(1, min(m, self.serving.max_new_tokens))
+        if self.shed_controller is not None:
+            # Rung 2 and above clamp batch budgets. Greedy output stays a
+            # prefix of the uncapped stream; a row already past a freshly
+            # shrunk cap finishes "length" at its next eviction sweep.
+            cap = self.shed_controller.batch_cap(cap, request.qos)
+        return cap
 
     # -- admission -----------------------------------------------------------
 
@@ -673,6 +849,18 @@ class ContinuousScheduler:
                 # here, never spending a second prefill.
                 self._fail(req, "deadline", "deadline expired before prefill", stats)
                 continue
+            if self.deadline_estimator is not None and req.deadline_s is not None:
+                # Pop-time recheck, the queue wait spent (ahead = 0): a
+                # deadline that cannot cover one prefill and one decode step
+                # sheds here instead of prefilling and expiring mid-decode.
+                est = self.deadline_estimator.infeasible(
+                    req, 0, self.num_slots, self.decode_chunk * self.fuse_steps, now=now)
+                if est is not None:
+                    self._shed(req, "deadline_infeasible",
+                               "deadline provably unmeetable at prefill time (estimated "
+                               f"earliest first token {est:.3f}s)",
+                               self.shed_controller.retry_after(est), stats=stats)
+                    continue
             if inj is not None:
                 try:
                     inj.maybe_fail(req.id, "prefill")

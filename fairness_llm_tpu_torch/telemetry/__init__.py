@@ -22,13 +22,16 @@ its framework-free modules):
   trigger registry (``maybe_trigger``, armed by ``arm_incidents``, the
   CLI's ``--incidents``) and the postmortem bundles it dumps, with
   ``validate_incidents`` and ``render_incident_report``.
+- ``fairness`` — the fairness monitor: streaming per-group DP/IF/exposure,
+  the counterfactual pair watch and the serving-neutrality audit
+  (``--fairness-obs``), ``render_fairness_report`` and the snapshot check
+  ``check_fairness``.
 
 Instrumentation is always on (host-side arithmetic, no device cost); the
 exporters are opt-in through ``configure`` (the CLI's ``--telemetry-dir``).
 ``SpeculationStats``/``ServingStats`` publish into the registry
-(``utils/profiling.py``). Not ported yet (ROADMAP A7): the fairness monitor
-and the device-facing modules (cost model, compile stats, memory ledger,
-roofline).
+(``utils/profiling.py``). Not ported yet (ROADMAP A7(b)): the device-facing
+modules (cost model, compile stats, memory ledger, roofline).
 """
 
 from __future__ import annotations
@@ -46,6 +49,17 @@ from fairness_llm_tpu_torch.telemetry.export import (
     to_prometheus,
     validate_snapshot,
     write_snapshot,
+)
+from fairness_llm_tpu_torch.telemetry.fairness import (
+    FAIRNESS_TOLERANCE,
+    FairnessMonitor,
+    check_fairness,
+    get_fairness_monitor,
+    group_exposure,
+    publish_offline_reference,
+    render_fairness_report,
+    set_fairness_monitor,
+    use_fairness_monitor,
 )
 from fairness_llm_tpu_torch.telemetry.flightrecorder import (
     FlightRecorder,
@@ -147,8 +161,10 @@ def configure(telemetry_dir: str, events_max_bytes: Optional[int] = None) -> Jso
 
 
 __all__ = [
+    "FAIRNESS_TOLERANCE",
     "Counter",
     "DecisionRecord",
+    "FairnessMonitor",
     "DEFAULT_COUNT_BOUNDS",
     "DEFAULT_LATENCY_BOUNDS",
     "FlightRecorder",
@@ -169,25 +185,31 @@ __all__ = [
     "assert_span_order",
     "attribution_on",
     "causal_chain",
+    "check_fairness",
     "configure",
     "emit_event",
     "event_sink",
+    "get_fairness_monitor",
     "get_flight_recorder",
     "get_incident_manager",
     "get_registry",
     "get_slo_targets",
     "get_timeline",
+    "group_exposure",
     "install_event_sink",
     "list_bundles",
     "load_snapshot",
     "maybe_trigger",
+    "publish_offline_reference",
     "read_events",
     "record_decision",
     "recording_on",
+    "render_fairness_report",
     "render_incident_report",
     "render_report",
     "render_slo_report",
     "set_attribution",
+    "set_fairness_monitor",
     "set_flight_recorder",
     "set_incident_manager",
     "set_recording",
@@ -197,6 +219,7 @@ __all__ = [
     "snapshot",
     "summarize_chrome_trace",
     "to_prometheus",
+    "use_fairness_monitor",
     "use_flight_recorder",
     "use_incident_manager",
     "use_registry",

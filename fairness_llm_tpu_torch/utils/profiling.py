@@ -95,9 +95,8 @@ class ServingStats:
     - ``admitted``: requests admitted into KV slots;
     - ``completed`` / ``failed`` / ``expired``: terminal outcomes
       (``expired``: the deadline passed first);
-    - ``preempted``, ``shed``, ``requeued``: kept for the record's shape;
-      the drain, overload and fault containment that count them are later
-      slices, so they stay 0 here;
+    - ``preempted`` (a drain), ``shed`` (overload control refused it) and
+      ``requeued`` (a contained fault, retried once);
     - ``rejected``: submissions refused at the queue (capacity or rate);
     - ``prefill_batches`` / ``prefill_tokens``: prefill forwards and the
       real prompt tokens they processed;

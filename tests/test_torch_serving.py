@@ -542,12 +542,12 @@ def test_cli_continuous_runs(tmp_path, capsys):
     assert "PHASE 1 SUMMARY" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["--tp", "--overload", "--replicas", "--autoscale",
+@pytest.mark.parametrize("flag", ["--tp", "--achievable-gbps", "--replicas", "--autoscale",
                                   "--mesh"])
 def test_cli_refuses_the_later_serving_flags(flag):
     from fairness_llm_tpu_torch.cli import main as tcli
 
-    value = [] if flag in ("--overload", "--autoscale") else ["2"]
+    value = [] if flag == "--autoscale" else ["2"]
     with pytest.raises(NotImplementedError, match=flag):
         tcli.main(["--phase", "1", "--no-save", "--device", "cpu", "--continuous", flag]
                   + value)
