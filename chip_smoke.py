@@ -26,7 +26,8 @@ sweep once more through the continuous-batching server
 (``serving/ContinuousScheduler`` behind ``backend_for``), then through its
 paged KV cache with prefix reuse; then it drives the fault containment on
 the card, and last overload control with its QoS queues and the fairness
-monitor, through the CLI's telemetry export.
+monitor, through the CLI's telemetry export, and last the replica fleet
+with its failover, autoscaler and rolling upgrade.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -56,7 +57,7 @@ path's launch counts are set to 0 just before it and read just after:
      the wrapper's host microseconds a call; K2 and K2q also at the study's
      batch of 48 (held to the same tolerance and blind check; times
      reported, not gated);
-  7. where a decode call's time goes: the shared-prefix greedy call with 16
+  7. where a decode call's time goes: the shared-prefix greedy call with 8
      new tokens, three times untraced, then once under torch.profiler (the
      device's busy share over the traced call's span, device time by
      kernel, K2's kernels per step); the SM clock and power draw are sampled
@@ -295,6 +296,40 @@ path's launch counts are set to 0 just before it and read just after:
      neutrality audit alerts on gender and not on age, and the failures,
      the alert events and the divergent pairs' failed members all name the
      female group.
+  the replica fleet (``serving/router.py``, ``fleet.py``, ``autoscaler.py``,
+  ``replay.py``, ``rollout.py``; ``--replicas``, ``--autoscale``, the
+  ``rollout`` subcommand), after phase 27:
+ 28. (a) The CLI's ``--phase 1 --continuous --slots 8 --replicas 2
+     --serving-journal --telemetry-dir`` run on both study checkpoints (the
+     main path; K1's and K2's f32 kernels must launch, their tensor-core
+     kernels must not): exit 0, every response that of phase 24's t=0.7
+     sweep in one pool of the same shape, both replicas serving, no
+     unfinished request in the journal, ``fleet_healthy_replicas`` 2 of 2,
+     the snapshot valid and the fleet gate (``check_fleet``) finding only
+     that no replica was fenced. (b) Two replicas of the control pool's
+     shape over phase 24's llama3-8b int8 engine (one weight tree): the 16
+     gate prompts greedy at 32 tokens, each row phase 24's served row cut to
+     as many (``paged_gate``, the kernels' bf16 allowance); the same requests again with r0 crashing
+     after ``CRASH_POLLS`` health polls: fenced, its unfinished requests at
+     the head of r1's queue with their ids and row seeds, every request
+     complete with the fault-free row, r0 back through the canary recorded
+     in a pool of its shape, ``check_fleet`` clean (the recovery time,
+     the migrated count and the rejoin probe's time logged); a child serving
+     through a fleet of two hits a device-side assert and must exit
+     non-zero with no record, no error row and no fence. (c) One replica
+     with the autoscaler under a replayed ``generate_trace`` burst
+     (``ELASTIC_*``): 1 -> 2 (a canary-gated standby) -> 1, no request lost,
+     every row the gate's cut to its budget, ``check_autoscale`` clean; then
+     a retirement with rows in flight, which migrate and finish with the
+     gate's rows; after each retirement ``torch.cuda.memory_allocated()``
+     within 5% of its value before the scale-up (the retired pool freed).
+     (d) The ``rollout`` subcommand on tiny-llama-study to a copy of its
+     checkpoint with a new version id exits 0; to a copy with one flipped
+     byte in ``model.safetensors`` it exits 2 with cause ``manifest`` before
+     any replica of that version joins; no request lost, and the snapshot
+     passes ``check_rollout``. K1, K2 and K4 launch on their tensor-core
+     kernels in (b)-(c) and every kernel is held against its plain version
+     at this phase's shapes.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
@@ -313,7 +348,10 @@ path's launch counts are set to 0 just before it and read just after:
   and the full-width runs (b)-(c) as ``containment_launches`` ("study",
   FULL_WIDTH) and its rows as ``containment_shapes``; and phase 27's
   launches on the study CLI runs and the flood as ``overload_launches``
-  ("study", FULL_WIDTH) and its rows as ``overload_shapes``.
+  ("study", FULL_WIDTH) and its rows as ``overload_shapes``; and phase 28's
+  launches on the study fleet runs and the rollout drill, and on the
+  full-width fleet, failover and autoscale runs, as ``fleet_launches``
+  ("study", FULL_WIDTH) and its rows as ``fleet_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -348,7 +386,9 @@ ATOL, RTOL = 4e-3, 1e-2
 # decode_fwd; no TF32 on either side): they differ in summation order only,
 # and are held to the float32 allowance of tests/test_torch_cuda.py.
 ATOL_F32, RTOL_F32 = 1e-4, 0.0
-PROFILE_TOKENS = 16
+# The profiled calls' new tokens (16 until the fleet's phase 28 came in; 8
+# keep the script under half its time limit).
+PROFILE_TOKENS = 8
 # K2/K2q are also timed at the phase-1 sweep's own batch (45 profiles
 # bucketed to 48): reported, not gated.
 STUDY_BATCH = 48
@@ -3588,21 +3628,24 @@ def full_width_contained(torch, F, tmp: pathlib.Path, p24: dict, device_line: st
     return launches, kernel_rows, row
 
 
-# The child of phase 26(d): the tiny-llama-study sweep through the server,
-# its containment armed, indexing a tensor out of range on the card at a
-# decode step (a device-side assert, sticky for the process).
+# The child of phase 26(d) (and of phase 28(b), through a fleet of two
+# replicas): the tiny-llama-study sweep through the server, its containment
+# armed, indexing a tensor out of range on the card at a decode step (a
+# device-side assert, sticky for the process).
 FATAL_CHILD = """
 import logging, pathlib, sys
 import torch
 root = pathlib.Path(sys.argv[1])
 sys.path.insert(0, str(root))
 logging.basicConfig(level=logging.WARNING)
-from fairness_llm_tpu_torch.config import Config, ResilienceConfig, ServingConfig
+from fairness_llm_tpu_torch.config import (Config, FleetConfig, ResilienceConfig,
+                                           ServingConfig)
 from fairness_llm_tpu_torch.pipeline.backends import backend_for
 from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
 cfg = Config(weights_dir=str(root / "checkpoints"), data_dir=str(root / "data" / "ml-1m"),
              results_dir=sys.argv[2], serving=ServingConfig(**%(serving)r),
-             resilience=ResilienceConfig(enabled=True))
+             resilience=ResilienceConfig(enabled=True),
+             fleet=FleetConfig(replicas=%(replicas)d))
 backend = backend_for(%(model)r, cfg)
 model, real, steps = backend.engine.model, backend.engine.model.forward, [0]
 def forward(tokens, *args, **kwargs):
@@ -3617,13 +3660,14 @@ print("the sweep finished", flush=True)
 """
 
 
-def fatal_child(tmp: pathlib.Path) -> dict:
-    """Phase 26(d): the child must exit non-zero, its stderr name the CUDA
-    error, and it must leave no record and no checkpoint with an error row:
-    containment never hides a fatal device fault."""
-    results = tmp / "fatal"
+def fatal_child(tmp: pathlib.Path, replicas: int = 1) -> dict:
+    """Phase 26(d), and with ``replicas`` 2 phase 28(b)'s: the child must
+    exit non-zero, its stderr name the CUDA error, and it must leave no
+    record and no checkpoint with an error row: containment never hides a
+    fatal device fault, nor does a fleet count it as a replica's crash."""
+    results = tmp / f"fatal_{replicas}"
     code = FATAL_CHILD % {"serving": STUDY_SERVING, "model": STUDY_MODELS[0],
-                          "step": FATAL_STEP}
+                          "step": FATAL_STEP, "replicas": replicas}
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code, str(ROOT), str(results)],
                           capture_output=True, text=True, timeout=600, cwd=str(ROOT))
@@ -3634,9 +3678,11 @@ def fatal_child(tmp: pathlib.Path) -> dict:
     records = sorted(str(p.relative_to(results)) for p in results.rglob("*.json"))
     finished = [p for p in records if p.endswith("phase1_results.json")]
     error_rows = [p for p in records if "decode_failed" in (results / p).read_text()]
-    row = {"returncode": proc.returncode, "wall_s": wall, "stderr_cuda_lines": err_lines[:6],
+    fenced = [line for line in proc.stderr.splitlines() if "fencing replica" in line]
+    row = {"replicas": replicas, "returncode": proc.returncode, "wall_s": wall,
+           "stderr_cuda_lines": err_lines[:6], "stderr_fence_lines": fenced[:4],
            "files": records, "stdout_tail": proc.stdout[-200:]}
-    if proc.returncode == 0 or not err_lines or finished or error_rows \
+    if proc.returncode == 0 or not err_lines or finished or error_rows or fenced \
             or "the sweep finished" in proc.stdout:
         fail(f"the fatal-error child was contained or hid the fault: {row}; stderr tail "
              f"{proc.stderr[-2000:]}")
@@ -4143,8 +4189,7 @@ def biased_fault_drill(torch, tmp: pathlib.Path) -> dict:
 def overload_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
     """Phase 27. Returns each kernels-line entry's launches on the main
     path's runs (the study models' CLI runs together, "study"; the flood,
-    FULL_WIDTH) and the rows of its kernel calls; frees phase 24's
-    full-width engine."""
+    FULL_WIDTH) and the rows of its kernel calls."""
     import gc
     import tempfile
 
@@ -4181,10 +4226,471 @@ def overload_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
         log(f"overload_full_width {json.dumps({'device': device_line, **row})}")
         for k, v in full_rows.items():
             rows.setdefault(k, []).extend(v)
+        log(f"overload_biased_drill {json.dumps(biased_fault_drill(torch, tmp))}")
+    return {"launches": launches, "rows": rows}
+
+
+# Phase 28: the replica fleet (serving/router.py, serving/fleet.py,
+# serving/autoscaler.py, serving/replay.py, serving/rollout.py; --replicas,
+# --autoscale, the rollout subcommand), after phase 27.
+#
+# (a) The CLI's phase-1 sweep through two replicas of phase 24's pool on each
+# study checkpoint, with the journal and the telemetry export.
+FLEET_CLI_ARGS = ["--continuous", "--slots", str(STUDY_SERVING["num_slots"]), "--replicas", "2"]
+# (b) Two replicas of the control pool's shape over phase 24's llama3-8b
+# int8 engine (one weight tree, two pools). A crash fences r0 after this
+# many health polls (each fleet tick polls every replica once); its breakers
+# are forced open and half-open after FLEET_RESILIENCE's cooldown, so that
+# the canary-gated rejoin comes within a second of the crash.
+CRASH_POLLS = 3
+# The gate's and the drills' requests decode this many tokens, each row held
+# against the first FLEET_TOKENS of phase 24's.
+FLEET_TOKENS = 32
+FLEET_RESILIENCE = dict(enabled=True, max_step_seconds=60.0, breaker_cooldown_s=0.5)
+FLEET_KNOBS = dict(replicas=2, fence_cooldown_s=0.2)
+# (c) One replica of the control pool's shape with a fleet queue of 4
+# (replicas queue 4 each): a replayed burst of the gate's 16 prompts, 16 or
+# 32 tokens each, backs the fleet queue up to half its capacity, which for
+# ELASTIC's up_window_s adds a canary-gated standby; the quiet tail retires
+# one. The trace (ELASTIC_TRACE: 38 requests in 40 trace seconds, 34 of them
+# in a 40x burst from 10 s to 25 s) replays at ELASTIC_COMPRESSION (3.3 s of
+# wall, the burst in 1.3 s) with a tail of ELASTIC_TAIL_S trace seconds (5.3
+# s of wall for the backlog to drain and the cold window to pass; where the
+# backlog outlasts it, the fleet ticks on idle until the standby retires).
+# The SLO targets (FLOOD_SLO) stay far above the burst's latencies, so that
+# the queue depth alone drives the controller.
+ELASTIC_SERVING = dict(CONTROL_SERVING, queue_capacity=4)
+ELASTIC = dict(enabled=True, min_replicas=1, max_replicas=2, up_queue_frac=0.5,
+               up_window_s=0.5, down_queue_frac=0.0, down_load_frac=0.5, down_window_s=1.0,
+               cooldown_s=0.5, eval_interval_s=0.1)
+ELASTIC_TRACE = dict(seed=28, duration_s=40.0, base_sessions_per_s=0.05, think_time_s=20.0,
+                     session_max_turns=3, bursts=((10.0, 15.0, 40.0),),
+                     max_tokens_choices=(16, 32), interactive_frac=0.5)
+ELASTIC_COMPRESSION, ELASTIC_TAIL_S = 12.0, 64.0
+# device memory after a retirement against before the scale-up
+RETIRE_MEM_SLACK = 0.05
+
+
+def fleet_cli_run(torch, name: str, tmp: pathlib.Path, want: dict) -> dict:
+    """Phase 28(a) for one study checkpoint: the CLI's ``--phase 1
+    --continuous --slots 8 --replicas 2 --serving-journal --telemetry-dir``
+    run. Exit 0; every phase-1 response that of phase 24's t=0.7 sweep in
+    one pool of the same shape (``want``: the noise is keyed on the row
+    seed and the token index, so routing changes no row); the journal with
+    no unfinished request; ``fleet_healthy_replicas`` 2 of 2; the snapshot
+    valid, and the fleet gate (``check_fleet``) finding only that no
+    replica was fenced, a fault-free run's two problems."""
+    import io
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.cli import main as cli
+    from fairness_llm_tpu_torch.resilience import ServingJournal
+    from fairness_llm_tpu_torch.serving.fleet import check_fleet
+
+    label = f"{name} fleet CLI"
+    tel, results, journal = (tmp / f"{name}_fleet_tel", tmp / f"{name}_fleet",
+                             tmp / f"{name}_fleet_journal")
+    args = (["--phase", "1", "--model", name, "--weights-dir", str(ROOT / "checkpoints"),
+             "--data-dir", str(ROOT / "data" / "ml-1m"), "--results-dir", str(results),
+             "--serving-journal", str(journal), "--telemetry-dir", str(tel)] + FLEET_CLI_ARGS)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with T.use_registry(), T.use_timeline(), T.use_fairness_monitor(), \
+            T.use_incident_manager(), contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{label}: exit {rc}: {out.getvalue()[-3000:]}")
+    snap = T.load_snapshot(str(tel))
+    gauges = {(g["name"], tuple(sorted(g["labels"].items()))): g["value"]
+              for g in snap["gauges"]}
+    fleet = {k[0]: v for k, v in gauges.items() if k[1] == (("component", "fleet"),)}
+    problems = T.validate_snapshot(snap)
+    gate = check_fleet(snap)
+    unfinished = ServingJournal(str(journal)).unfinished()
+    fault_free = {"fleet_fenced_total is zero (no replica was ever fenced)",
+                  "fleet_migrated_requests_total is zero (failover never migrated anything)"}
+    if problems or unfinished or fleet.get("fleet_healthy_replicas") != 2 \
+            or fleet.get("fleet_replicas") != 2 or not set(gate) <= fault_free:
+        fail(f"{label}: snapshot problems {problems[:5]}, {len(unfinished)} unfinished "
+             f"journal records, fleet gauges {fleet}, fleet gate {gate}")
+    rec = json.loads((results / "phase1" / "phase1_results.json").read_text())
+    if raw_responses(rec) != want["raw"] or rec["neutral_recommendations"] != want["neutral"]:
+        parting = sorted(k for k, v in raw_responses(rec).items() if want["raw"].get(k) != v)
+        fail(f"{label}: the responses part from phase 24's single pool at {parting[:8]} "
+             f"({len(parting)} rows)")
+    served = {g: sum(c["value"] for c in snap["counters"]
+                     if c["name"] == "serving_completed_total"
+                     and c["labels"].get("replica") == g) for g in ("r0", "r1")}
+    if not all(served.values()):
+        fail(f"{label}: a replica served nothing: {served}")
+    return {"model": name, "argv": args, "wall_s": wall, "serving": rec["metadata"]["serving"],
+            "rows_equal": len(want["raw"]), "completed_by_replica": served,
+            "fleet_gauges": fleet, "fleet_gate": gate, "journal_unfinished": len(unfinished)}
+
+
+def fleet_rows(results, pad: int) -> list:
+    return [_strip(r.tokens, pad) for r in results]
+
+
+def full_width_fleet(torch, F, tmp: pathlib.Path, p24: dict, held: set) -> tuple:
+    """Phase 28(b) and (c) on phase 24's llama3-8b int8 engine. (b) Two
+    replicas of the control pool's shape: the 16 gate prompts greedy
+    (FLEET_TOKENS), each row phase 24's served row cut to as many tokens
+    (``paged_gate``: parting only within the kernels' bf16 allowance); then the same requests again with r0 crashing
+    after CRASH_POLLS health polls: fenced, its unfinished requests migrated
+    to r1 at the head of its queue, every request complete with the
+    fault-free row, r0 back through the canary recorded in a pool of its
+    shape; ``check_fleet`` clean. (c) One replica with autoscale under a
+    replayed burst: 1 -> 2 (a canary-gated standby) -> 1, every replayed
+    row the gate's cut to its budget, no request lost; then a retirement
+    with rows in flight, which migrate and finish with the gate's rows;
+    after each retirement the device memory allocated within
+    RETIRE_MEM_SLACK of its value before the scale-up. K1, K2 and K4 launch
+    on their tensor-core kernels and are held against their plain versions
+    at this phase's shapes. Returns the launches, the kernel rows and the
+    two log rows."""
+    import gc
+    import types
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.config import (
+        AutoscaleConfig,
+        FleetConfig,
+        IntegrityConfig,
+        ModelSettings,
+        ResilienceConfig,
+        ServingConfig,
+    )
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.serving import Autoscaler, ReplayDriver, ReplicaSet, Request
+    from fairness_llm_tpu_torch.serving.autoscaler import check_autoscale
+    from fairness_llm_tpu_torch.serving.fleet import check_fleet
+    from fairness_llm_tpu_torch.serving.replay import TraceConfig, generate_trace
+    from fairness_llm_tpu_torch.utils.failures import ScriptedFaultInjector
+
+    engine = p24["engine"]
+    pad = engine.tokenizer.pad_id
+    gate_calls = p24["greedy"].calls
+    gate_prompts = [p for call in gate_calls for p in call[0]]
+    gate_rows = {p: r for prompts, rows in gate_calls for p, r in zip(prompts, rows)}
+
+    def bucket(p):
+        return -(-len(engine.tokenizer.encode(p)) // engine.seq_bucket) * engine.seq_bucket
+
+    # The gate prompts of the largest prefill bucket (15 of the 16; the
+    # neutral prompt buckets one lower): a prefill group pads every row to
+    # its largest bucket, so these keep phase 24's layout in any group the
+    # fleet forms, and their bf16 rows must equal phase 24's exactly. A row
+    # prefilled at another padded length sums in another order, and at 32
+    # random-weight layers such rows part at gaps over a kernel's allowance
+    # (PERF.md §6, the paged sweeps).
+    top = max(bucket(p) for p in gate_prompts)
+    prompts = [p for p in gate_prompts if bucket(p) == top]
+    settings = ModelSettings(temperature=0.0, max_tokens=FLEET_TOKENS)
+    fleet_row = {"model": MODEL, "weight_quant": "int8", "serving": CONTROL_SERVING,
+                 "fleet": FLEET_KNOBS, "resilience": FLEET_RESILIENCE,
+                 "crash_polls": CRASH_POLLS, "tokens": FLEET_TOKENS}
+    elastic_row = {"serving": ELASTIC_SERVING, "autoscale": ELASTIC, "trace": ELASTIC_TRACE,
+                   "compression": ELASTIC_COMPRESSION, "tail_s": ELASTIC_TAIL_S,
+                   "slo_targets": FLOOD_SLO}
+
+    def requests(tag):
+        return [Request(prompt=prompts[i % len(prompts)], id=f"{tag}{i:02d}", settings=settings)
+                for i in range(len(gate_prompts))]
+
+    def against_gate(label, got_prompts, got, budgets=None):
+        want = [gate_rows[p][:b]
+                for p, b in zip(got_prompts, budgets or [FLEET_TOKENS] * len(got_prompts))]
+        return paged_gate(label, types.SimpleNamespace(calls=[(got_prompts, want)]),
+                          types.SimpleNamespace(calls=[(got_prompts, got)]), engine,
+                          CONTROL_SERVING, torch, f32=False)
+
+    prev = T.set_slo_targets(T.SLOTargets(**FLOOD_SLO))
+    try:
+        zero_all(dec_mod, flash_mod, qm)
+        with flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+            # (b) the gate, then the crash
+            with T.use_registry() as reg, T.use_timeline(), T.use_incident_manager():
+                fleet = ReplicaSet(engine, ServingConfig(**CONTROL_SERVING), settings=settings,
+                                   fleet=FleetConfig(**FLEET_KNOBS),
+                                   resilience=ResilienceConfig(**FLEET_RESILIENCE),
+                                   integrity=IntegrityConfig())
+                t0 = time.perf_counter()
+                results = fleet.serve(requests("g"))
+                torch.cuda.synchronize()
+                fleet_row["gate_wall_s"] = time.perf_counter() - t0
+                fleet_row["gate_stats"] = fleet.last_stats.as_dict()
+                fleet_row["gate_by_replica"] = {
+                    rep.name: reg.read_value("serving_completed_total", component="serving",
+                                             replica=rep.name) for rep in fleet.replicas}
+                if not all(r.ok for r in results) or not all(fleet_row["gate_by_replica"].values()):
+                    fail(f"llama3-8b fleet gate: {fleet_row}")
+                fleet_row["gate_prompt_bucket"] = top
+                fleet_row["gate_rows_parting"] = against_gate(
+                    "llama3-8b fleet gate against phase 24's pool", [r.prompt for r in
+                                                                    requests("g")],
+                    fleet_rows(results, pad))
+                inj = ScriptedFaultInjector(replica_crashes={"r0": CRASH_POLLS})
+                fleet.fault_injector = inj
+                probes = []
+                real_probe = fleet._rejoin_probe
+
+                def timed_probe(rep):
+                    t = time.perf_counter()
+                    ok = real_probe(rep)
+                    torch.cuda.synchronize()
+                    probes.append({"replica": rep.name, "ok": ok,
+                                   "s": time.perf_counter() - t})
+                    return ok
+
+                fleet._rejoin_probe = timed_probe
+                submitted = []
+                for rep in fleet.replicas:
+                    real_submit = rep.sched.submit
+
+                    def spy(req, front=False, restamp=True, _real=real_submit, _rep=rep.name):
+                        submitted.append((req.id, _rep, front, req.row_seed))
+                        return _real(req, front=front, restamp=restamp)
+
+                    rep.sched.submit = spy
+                t0 = time.perf_counter()
+                results = fleet.serve(requests("c"))
+                torch.cuda.synchronize()
+                fleet_row["crash_serve_wall_s"] = time.perf_counter() - t0
+                whole = fleet.await_recovery(timeout_s=60.0)
+                fleet_row["recovered_wall_s"] = time.perf_counter() - t0
+                snap = T.snapshot(reg)
+                migrated = reg.read_value("fleet_migrated_requests_total", component="fleet")
+                fleet_row.update({
+                    "fired": inj.replica_faults_fired, "whole": whole,
+                    "fences": [(r.name, r.fences, r.rejoins) for r in fleet.replicas],
+                    "migrated": migrated,
+                    "recovered": reg.read_value("fleet_migrated_recovered_total",
+                                                component="fleet"),
+                    "fleet_failover_recovery_s": fleet.last_failover_s,
+                    "rejoin_probes": probes,
+                    "migrations_at_head": sum(1 for _, _, front, _ in submitted if front),
+                    "crash_stats": fleet.last_stats.as_dict(),
+                    "fleet_gate": check_fleet(snap)})
+                moved = [s for s in submitted if s[2]]
+                firsts = {s[0]: s for s in submitted if not s[2]}
+                if inj.replica_faults_fired != [("r0", "replica_crash")] or not whole \
+                        or not migrated or fleet_row["recovered"] != migrated \
+                        or not all(r.ok for r in results) or fleet_row["fleet_gate"] \
+                        or not moved or any(firsts[m[0]][3] != m[3] or m[1] != "r1"
+                                            for m in moved) \
+                        or not any(p["ok"] and p["replica"] == "r0" for p in probes):
+                    fail(f"llama3-8b fleet crash drill: {fleet_row}")
+                fleet_row["crash_rows_parting"] = against_gate(
+                    "llama3-8b fleet crash against the fault-free rows",
+                    [r.prompt for r in requests("c")], fleet_rows(results, pad))
+                del fleet
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (c) autoscale under a replayed burst, then a retirement in flight
+            with T.use_registry() as reg, T.use_timeline(), T.use_incident_manager():
+                fleet = ReplicaSet(engine, ServingConfig(**ELASTIC_SERVING), settings=settings,
+                                   fleet=FleetConfig(replicas=1),
+                                   resilience=ResilienceConfig(**FLEET_RESILIENCE),
+                                   integrity=IntegrityConfig())
+                fleet.autoscaler = Autoscaler(fleet, AutoscaleConfig(**ELASTIC))
+                decisions = []
+                real_tick = fleet.autoscaler.tick
+
+                def tick(now=None):
+                    action = real_tick(now)
+                    if action:
+                        decisions.append({"action": action, "t_s": time.perf_counter() - t0,
+                                          "replicas": [r.name for r in fleet.replicas],
+                                          "signals": fleet.autoscaler.signals(),
+                                          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+                    return action
+
+                fleet.autoscaler.tick = tick
+                events = generate_trace(TraceConfig(**ELASTIC_TRACE), prompts=prompts)
+                gc.collect()
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                report = ReplayDriver(fleet, events, compression=ELASTIC_COMPRESSION,
+                                      tail_s=ELASTIC_TAIL_S, max_wall_s=120.0,
+                                      keep_results=True).run()
+                # The quiet tail counts from the trace's last arrival, and the
+                # burst's backlog may outlast it: the fleet ticks on, idle,
+                # until the controller has retired the standby (or 20 s).
+                replay_end = time.perf_counter()
+                while [d["action"] for d in decisions] == ["up"] \
+                        and time.perf_counter() - replay_end < 20.0:
+                    fleet.tick()
+                    time.sleep(0.01)
+                elastic_row["idle_ticking_after_replay_s"] = time.perf_counter() - replay_end
+                torch.cuda.synchronize()
+                gc.collect()
+                after = torch.cuda.memory_allocated()
+                snap = T.snapshot(reg)
+                elastic_row.update({
+                    "events": len(events), "replay_wall_s": replay_end - t0,
+                    "report": report.summary(), "decisions": decisions,
+                    "migrated_at_retirement": reg.read_value(
+                        "fleet_migrated_requests_total", component="fleet"),
+                    "allocated_before_scale_up_gb": before / 1e9,
+                    "allocated_after_retirement_gb": after / 1e9,
+                    "autoscale_gate": check_autoscale(snap)})
+                if [d["action"] for d in decisions] != ["up", "down"] or report.lost \
+                        or report.accepted != len(events) or report.timed_out \
+                        or elastic_row["autoscale_gate"] \
+                        or abs(after - before) > RETIRE_MEM_SLACK * before:
+                    fail(f"llama3-8b autoscale replay: {elastic_row}")
+                by_id = {e.id: e for e in events}
+                ids = sorted(report.results)
+                elastic_row["replay_rows_parting"] = against_gate(
+                    "llama3-8b replayed burst against the gate rows",
+                    [by_id[i].prompt for i in ids],
+                    [_strip(report.results[i].tokens, pad) for i in ids],
+                    budgets=[by_id[i].max_tokens for i in ids])
+                # a retirement with rows in flight
+                standby = fleet.add_replica()
+                if standby is None:
+                    fail("llama3-8b: the standby replica failed its canary gate")
+                reqs = requests("m")
+                for r in reqs:
+                    if not fleet.submit(r):
+                        fleet.tick()
+                        if not fleet.submit(r):
+                            fail("llama3-8b: the fleet refused a request of the retirement drill")
+                for _ in range(500):
+                    fleet.tick()
+                    if standby.sched.pool.occupancy:
+                        break
+                live = standby.sched.pool.occupancy
+                moved = fleet.retire_replica(standby)
+                fleet.drain()
+                results = [fleet.take_result(r.id) for r in reqs]
+                torch.cuda.synchronize()
+                gc.collect()
+                after_drill = torch.cuda.memory_allocated()
+                elastic_row.update({"drill_live_at_retirement": live, "drill_migrated": moved,
+                                    "allocated_after_drill_gb": after_drill / 1e9})
+                if not live or not moved or not all(r is not None and r.ok for r in results) \
+                        or abs(after_drill - before) > RETIRE_MEM_SLACK * before:
+                    fail(f"llama3-8b retirement drill: {elastic_row}")
+                elastic_row["drill_rows_parting"] = against_gate(
+                    "llama3-8b retirement drill against the gate rows",
+                    [r.prompt for r in reqs], fleet_rows(results, pad))
+                del fleet
+            launches = overload_counts(dec_mod, flash_mod, qm)
+            need_launches(launches, ("flash_attention", "decode_attention", "quant_matmul_gemv",
+                                     "quant_matmul_gemm"), "full-width fleet")
+            keep = rehold(recs, held, qm)
+            kernel_rows = paged_rows(recs, torch, F, qm, "fleet_full_width", False, keep)
+            held |= keep
+            del recs
+    finally:
+        T.set_slo_targets(prev)
+    fleet_row["launches"] = launches
+    return launches, kernel_rows, fleet_row, elastic_row
+
+
+def rollout_drill(torch, tmp: pathlib.Path) -> dict:
+    """Phase 28(d): the ``rollout`` subcommand on the first study checkpoint
+    to a copy of it with a new version id must exit 0; to a copy with one
+    flipped byte in ``model.safetensors`` it must exit 2 with cause
+    ``manifest``, no replica of that version having joined; no request is
+    lost either time, and the snapshot holding both passes the rollout
+    gate (``check_rollout``)."""
+    import io
+    import shutil
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.cli import main as cli
+    from fairness_llm_tpu_torch.serving.rollout import check_rollout
+
+    name = STUDY_MODELS[0]
+    src = ROOT / "checkpoints" / name
+    good, bad, tel = tmp / "rollout_good", tmp / "rollout_bad", tmp / "rollout_tel"
+    shutil.copytree(src, good)
+    shutil.copytree(src, bad)
+    blob = bytearray((bad / "model.safetensors").read_bytes())
+    blob[len(blob) // 2] ^= 0x01
+    (bad / "model.safetensors").write_bytes(bytes(blob))
+    base = ["rollout", "--model", name, "--weights-dir", str(src), "--requests", "16",
+            "--canary-window", "0.25", "--slo-ttft-p95", "60", "--slo-e2e-p99", "120"]
+    row = {"model": name}
+    with T.use_registry(), T.use_timeline(), T.use_fairness_monitor(), \
+            T.use_incident_manager():
+        for key, to, version, extra in (("good", good, "v1", []),
+                                        ("bad", bad, "v2", ["--telemetry-dir", str(tel)])):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(base + ["--to-checkpoint", str(to), "--to-version", version]
+                              + extra)
+            lines = [ln for ln in out.getvalue().splitlines()
+                     if ln.startswith(("rollout ", "served ", "LOST"))]
+            row[key] = {"exit": rc, "wall_s": time.perf_counter() - t0, "lines": lines}
+    snap = T.load_snapshot(str(tel))
+    joined = {g["labels"]["version"]: g["value"] for g in snap["gauges"]
+              if g["name"] == "rollout_version_replicas"}
+    row["replicas_by_version"] = joined
+    row["rollout_gate"] = check_rollout(snap)
+    good_out, bad_out = "\n".join(row["good"]["lines"]), "\n".join(row["bad"]["lines"])
+    if row["good"]["exit"] != 0 or "state=complete" not in good_out \
+            or "served 16/16" not in good_out or row["bad"]["exit"] != 2 \
+            or "state=rolled_back cause=manifest:" not in bad_out \
+            or "served 16/16" not in bad_out or joined.get("v2") != 0 or row["rollout_gate"]:
+        fail(f"the rollout drill: {row}")
+    return row
+
+
+def fleet_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
+    """Phase 28. Returns each kernels-line entry's launches on the main
+    path's runs (the study models' fleet CLI runs and the rollout drill,
+    "study"; the llama3-8b fleet, failover and autoscale runs, FULL_WIDTH)
+    and the rows of its kernel calls; frees phase 24's full-width engine."""
+    import gc
+    import tempfile
+
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+
+    launches, rows = {}, {}
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        zero_all(dec_mod, flash_mod, qm)
+        with flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+            for name in STUDY_MODELS:
+                row = fleet_cli_run(torch, name, tmp, p24["t07"][name])
+                log(f"fleet_study_cli {json.dumps({'device': device_line, **row})}")
+            row = rollout_drill(torch, tmp)
+            log(f"fleet_rollout {json.dumps({'device': device_line, **row})}")
+        launches["study"] = containment_counts(dec_mod, flash_mod, qm)
+        need_launches(launches["study"], ("flash_attention_f32", "decode_attention_f32"),
+                      "study fleet")
+        if launches["study"]["flash_attention"] or launches["study"]["decode_attention"]:
+            fail(f"the study fleet runs launched a tensor-core kernel: {launches['study']}")
+        keep = rehold(recs, held, qm)
+        for k, v in sweep_kernel_rows(recs, torch, F, qm, "fleet_study", True, keep).items():
+            if v:
+                rows.setdefault(k, []).extend(v)
+        held |= keep
+        del recs
+        gc.collect()
+        launches[FULL_WIDTH], full_rows, frow, erow = full_width_fleet(
+            torch, F, tmp, p24["full_width"], held)
+        log(f"fleet_full_width {json.dumps({'device': device_line, **frow})}")
+        log(f"fleet_autoscale {json.dumps({'device': device_line, **erow})}")
+        for k, v in full_rows.items():
+            rows.setdefault(k, []).extend(v)
         del p24["full_width"]["engine"]
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"overload_biased_drill {json.dumps(biased_fault_drill(torch, tmp))}")
+        log(f"fleet_fatal {json.dumps(fatal_child(tmp, replicas=2))}")
     return {"launches": launches, "rows": rows}
 
 
@@ -4256,6 +4762,9 @@ def main() -> int:
     t0 = time.perf_counter()
     overload = overload_path(torch, F, device_line, p24, paged["held"])
     log(f"overload_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    fleet = fleet_path(torch, F, device_line, p24, paged["held"])
+    log(f"fleet_path_s {time.perf_counter() - t0:.1f}")
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -4291,6 +4800,10 @@ def main() -> int:
                                       for path, counts in overload["launches"].items()}
         if entry["name"] in overload["rows"]:
             entry["overload_shapes"] = overload["rows"][entry["name"]]
+        entry["fleet_launches"] = {path: counts[entry["name"]]
+                                   for path, counts in fleet["launches"].items()}
+        if entry["name"] in fleet["rows"]:
+            entry["fleet_shapes"] = fleet["rows"][entry["name"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

@@ -32,16 +32,24 @@ shed controller's brownout ladder, tuned by ``--shed-burn-threshold``,
 targets the burn rates judge against, and ``--trace-out PATH`` writes a copy
 of the timeline there.
 
-Subcommands: ``telemetry-report <dir>`` (``--validate``, ``--timeline``),
+The replica fleet (``serving/fleet.py``, with ``--continuous``):
+``--replicas N`` serves through N replicas behind the health router
+(``--fence-level``, ``--fence-cooldown``), and ``--autoscale`` makes their
+number a control loop (``--min-replicas``, ``--max-replicas``).
+
+Subcommands: ``telemetry-report <dir>`` (``--validate``, ``--timeline``,
+``--require-fleet``, ``--require-autoscale``, ``--require-rollout``),
 ``slo-report <dir>`` (``--fail-on-burn``) and ``fairness-report <dir>``
 (``--fail-on-alert``, ``--validate``) render a snapshot;
 ``incident-report <dir>`` renders bundles; ``resume-serving <journal-dir>
---model NAME`` re-serves a drained run's unfinished requests.
+--model NAME`` re-serves a drained run's unfinished requests; ``rollout
+--model NAME --weights-dir DIR --to-checkpoint DIR`` walks a fleet to a new
+version under live traffic (exit 0 complete, 2 rolled back, 1 requests
+lost).
 
-The flags of the serving slices still to come (``--tp``, ``--replicas``,
-``--autoscale``), device meshes (``--mesh``) and the roofline's
-``--achievable-gbps`` raise ``NotImplementedError`` (ROADMAP A5, A7(b),
-A8).
+Tensor-parallel serving (``--tp``), device meshes (``--mesh``) and the
+roofline's ``--achievable-gbps`` raise ``NotImplementedError`` (ROADMAP A5,
+A7(b), A8).
 """
 
 from __future__ import annotations
@@ -54,7 +62,9 @@ import sys
 from typing import Dict
 
 from fairness_llm_tpu_torch.config import (
+    AutoscaleConfig,
     Config,
+    FleetConfig,
     IntegrityConfig,
     OverloadConfig,
     ResilienceConfig,
@@ -223,10 +233,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "gap, a fatal device error) dump postmortem bundles under "
                         "<telemetry-dir>/incidents; render them with `incident-report "
                         "<dir>`. Requires --telemetry-dir")
+    p.add_argument("--replicas", type=int, default=None, metavar="N",
+                   help="with --continuous: serve through N replicas behind a health-aware "
+                        "router (serving/fleet.py), each with its own KV slot pool, breakers, "
+                        "watchdog and rejoin canary; a sick replica is fenced and drained, its "
+                        "requests migrate to healthy replicas with their ids, settings and row "
+                        "seeds (greedy rows unchanged), and it rejoins after a canary probe")
+    p.add_argument("--fence-level", type=int, default=None,
+                   help="with --replicas: degradation-ladder level at which the router fences "
+                        "a replica (default 2; 0 disables ladder-driven fencing, crash, hang "
+                        "and stall still fence)")
+    p.add_argument("--fence-cooldown", type=float, default=None,
+                   help="with --replicas: seconds a fenced replica waits before its first "
+                        "rejoin probe (default 1; the probe also waits for its open breakers "
+                        "to half-open)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="with --continuous: replica membership as a control loop "
+                        "(serving/autoscaler.py) over the fast-window SLO burn, the overload "
+                        "rung and the queue depth: scale-up adds a canary-gated standby, "
+                        "scale-down retires the lowest-load replica through the drain and "
+                        "migration path; a fleet even at --replicas 1")
+    p.add_argument("--min-replicas", type=int, default=None, metavar="N",
+                   help="with --autoscale: lower membership bound (default 1)")
+    p.add_argument("--max-replicas", type=int, default=None, metavar="N",
+                   help="with --autoscale: upper membership bound (default 4)")
     # Not ported yet: refused, never ignored.
-    for flag, kw in (("--tp", dict(type=int)),
-                     ("--replicas", dict(type=int)), ("--autoscale", dict(action="store_true")),
-                     ("--mesh", dict(default=None))):
+    for flag, kw in (("--tp", dict(type=int)), ("--mesh", dict(default=None))):
         p.add_argument(flag, help="not ported yet (ROADMAP A5, A8)", **kw)
     p.add_argument("--achievable-gbps", type=float, default=None,
                    help="not ported yet: the roofline gauges (ROADMAP A7(b))")
@@ -234,7 +266,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-NOT_PORTED = ("--tp", "--replicas", "--autoscale", "--mesh")
+NOT_PORTED = ("--tp", "--mesh")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -242,8 +274,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         value = getattr(args, flag[2:].replace("-", "_"))
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"{flag}: tensor-parallel serving, the replica fleet and device meshes are "
-                "not ported yet (ROADMAP A5, A8)")
+                f"{flag}: tensor-parallel serving and device meshes are not ported yet "
+                "(ROADMAP A5, A8)")
     if args.achievable_gbps is not None:
         raise NotImplementedError("--achievable-gbps: the roofline gauges are not ported "
                                   "yet (ROADMAP A7(b))")
@@ -347,6 +379,44 @@ def config_from_args(args: argparse.Namespace) -> Config:
                 raise SystemExit("--batch-token-cap must be >= 1")
             ov_kwargs["batch_token_cap"] = args.batch_token_cap
         updates["overload"] = OverloadConfig(**ov_kwargs)
+    if any(v is not None for v in (args.replicas, args.fence_level, args.fence_cooldown)):
+        if not args.continuous:
+            raise SystemExit("--replicas/--fence-level/--fence-cooldown require --continuous "
+                             "(the fleet routes over serving schedulers)")
+        fleet_kwargs: Dict = {}
+        if args.replicas is not None:
+            if args.replicas < 1:
+                raise SystemExit("--replicas must be >= 1")
+            fleet_kwargs["replicas"] = args.replicas
+        if args.fence_level is not None:
+            if args.fence_level < 0:
+                raise SystemExit("--fence-level must be >= 0")
+            fleet_kwargs["fence_ladder_level"] = args.fence_level
+        if args.fence_cooldown is not None:
+            if args.fence_cooldown < 0:
+                raise SystemExit("--fence-cooldown must be >= 0")
+            fleet_kwargs["fence_cooldown_s"] = args.fence_cooldown
+        updates["fleet"] = FleetConfig(**fleet_kwargs)
+    if args.autoscale or args.min_replicas is not None or args.max_replicas is not None:
+        if not args.autoscale:
+            raise SystemExit("--min-replicas/--max-replicas require --autoscale")
+        if not args.continuous:
+            raise SystemExit("--autoscale requires --continuous (the autoscaler drives fleet "
+                             "membership over serving schedulers)")
+        as_kwargs: Dict = {"enabled": True}
+        if args.min_replicas is not None:
+            if args.min_replicas < 1:
+                raise SystemExit("--min-replicas must be >= 1")
+            as_kwargs["min_replicas"] = args.min_replicas
+        if args.max_replicas is not None:
+            if args.max_replicas < (args.min_replicas or 1):
+                raise SystemExit("--max-replicas must be >= --min-replicas")
+            as_kwargs["max_replicas"] = args.max_replicas
+        elif args.min_replicas is not None and args.min_replicas > AutoscaleConfig.max_replicas:
+            raise SystemExit(f"--min-replicas {args.min_replicas} exceeds the default "
+                             f"--max-replicas ({AutoscaleConfig.max_replicas}); pass "
+                             "--max-replicas explicitly")
+        updates["autoscale"] = AutoscaleConfig(**as_kwargs)
     resilience_flags = (args.max_step_seconds, args.breaker_threshold, args.breaker_cooldown,
                         args.serving_journal, args.drain_grace)
     if any(v is not None for v in resilience_flags):
@@ -395,10 +465,18 @@ def config_from_args(args: argparse.Namespace) -> Config:
 def telemetry_report(argv) -> int:
     """``telemetry-report <dir | snapshot.json>``: render a telemetry
     snapshot in the terminal, with the fairness section when the run
-    recorded fairness instruments. ``--validate`` first checks the
-    snapshot's schema and percentiles and exits 1 on problems;
+    recorded fairness instruments and the rollout section when it drove a
+    rollout. ``--validate`` first checks the snapshot's schema and
+    percentiles and exits 1 on problems; ``--require-fleet``,
+    ``--require-autoscale`` and ``--require-rollout`` add the reference
+    validator's failover, elastic-cycle and rollout gates (``check_fleet``,
+    ``check_autoscale``, ``check_rollout``) and imply ``--validate``;
     ``--timeline`` also summarizes the ``trace.json`` beside it."""
     import json
+
+    from fairness_llm_tpu_torch.serving.autoscaler import check_autoscale
+    from fairness_llm_tpu_torch.serving.fleet import check_fleet
+    from fairness_llm_tpu_torch.serving.rollout import check_rollout, render_rollout_report
 
     from fairness_llm_tpu_torch.telemetry import (
         TRACE_FILENAME,
@@ -419,11 +497,26 @@ def telemetry_report(argv) -> int:
     ap.add_argument("--timeline", action="store_true",
                     help="also summarize the trace.json timeline beside the snapshot: top "
                          "programs by wall, largest step gaps, request outcomes")
+    ap.add_argument("--require-fleet", action="store_true",
+                    help="with --validate: a replica was fenced, every migrated request "
+                         "recovered, and every fleet ended whole")
+    ap.add_argument("--require-autoscale", action="store_true",
+                    help="with --validate: a scale-up and a scale-down, every accepted replay "
+                         "request terminal, migrated equal to recovered, every fleet whole")
+    ap.add_argument("--require-rollout", action="store_true",
+                    help="with --validate: a rollout completed and one rolled back through a "
+                         "named gate, every rollout terminal, migration balanced")
     a = ap.parse_args(argv)
+    a.validate = a.validate or a.require_fleet or a.require_autoscale or a.require_rollout
     snap = load_snapshot(a.path)
     if a.validate:
         # Before rendering: the renderer assumes a well-formed snapshot.
         problems = validate_snapshot(snap)
+        for wanted, check in ((a.require_fleet, check_fleet),
+                              (a.require_autoscale, check_autoscale),
+                              (a.require_rollout, check_rollout)):
+            if wanted:
+                problems = problems + check(snap)
         if problems:
             print("SNAPSHOT INVALID:")
             for p in problems:
@@ -433,6 +526,9 @@ def telemetry_report(argv) -> int:
     if any(row.get("labels", {}).get("component") == "fairness"
            for section in ("counters", "gauges") for row in snap.get(section, [])):
         print("\n" + render_fairness_report(snap))
+    rollout_section = render_rollout_report(snap)
+    if rollout_section:
+        print("\n" + rollout_section)
     if a.timeline:
         trace_dir = a.path if os.path.isdir(a.path) else os.path.dirname(a.path)
         trace_path = os.path.join(trace_dir, TRACE_FILENAME)
@@ -648,6 +744,160 @@ def resume_serving_cmd(argv) -> int:
     return 1 if still else 0
 
 
+def rollout_cmd(argv) -> int:
+    """``rollout``: a zero-downtime rolling upgrade under live traffic.
+
+    Builds a ``ReplicaSet`` on the current model and weights and walks it to
+    a new version with a ``RolloutController`` while synthetic requests
+    stream through it: a canary-gated standby a wave, the traffic moved in
+    steps, each old replica retired, and a rollback on any gate (the
+    manifest refusing ``--to-checkpoint``, a canary mismatch, SLO burn, a
+    fairness alert or pair divergence on the new version, a fence or open
+    breaker). Requests keep the version that first served them.
+
+    Exit status: 0 = complete; 2 = rolled back (the gate and cause are
+    printed, and with ``--telemetry-dir`` bundled under incidents/); 1 =
+    requests lost.
+    """
+    import time
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.config import ModelSettings, RolloutConfig
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.pipeline.backends import engine_for
+    from fairness_llm_tpu_torch.serving import ReplicaSet, Request, RolloutController
+    from fairness_llm_tpu_torch.serving.replay import DEFAULT_PROMPTS
+    from fairness_llm_tpu_torch.telemetry.incidents import INCIDENTS_DIRNAME
+
+    ap = argparse.ArgumentParser(prog="fairness_llm_tpu_torch rollout",
+                                 description="Drive a canary-gated rolling upgrade across a "
+                                             "replica fleet under live traffic")
+    ap.add_argument("--model", required=True, help="engine model name of the CURRENT version")
+    ap.add_argument("--weights-dir", default=None,
+                    help="HF safetensors checkpoint directory of the current version")
+    ap.add_argument("--to-checkpoint", default=None, metavar="DIR",
+                    help="HF safetensors checkpoint directory of the NEW version (verified "
+                         "against its manifest while preparing; a refused checkpoint rolls "
+                         "back before any replica joins)")
+    ap.add_argument("--to-config", default=None, metavar="MODEL",
+                    help="model config name of the new version (default: --model)")
+    ap.add_argument("--to-version", default=None, metavar="ID",
+                    help="immutable version id of the new fleet (default: the current one "
+                         "bumped, v0 -> v1)")
+    ap.add_argument("--replicas", type=int, default=2)
+    ap.add_argument("--canary-window", type=float, default=None, metavar="S",
+                    help="gate-watch seconds per traffic step")
+    ap.add_argument("--traffic-steps", type=int, default=None, metavar="N",
+                    help="traffic-shift steps per wave")
+    ap.add_argument("--abort-on-fairness-alert", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="roll back on a fairness alert or a counterfactual pair divergence "
+                         "served on the new version (default: on)")
+    ap.add_argument("--requests", type=int, default=32,
+                    help="synthetic requests streamed during the rollout")
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--slo-ttft-p95", type=float, default=None, metavar="S",
+                    help="TTFT p95 target behind the rollout's SLO burn gate (default: the "
+                         "stack's)")
+    ap.add_argument("--slo-e2e-p99", type=float, default=None, metavar="S")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--telemetry-dir", default=None)
+    ap.add_argument("--allow-random", action="store_true",
+                    help="run with random weights (smoke runs and drills only)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the kernels' plain versions)")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    a = ap.parse_args(argv)
+    logging.basicConfig(level=logging.DEBUG if a.verbose else logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if not a.weights_dir and not a.allow_random:
+        raise SystemExit("rollout needs --weights-dir (or --allow-random for smoke runs)")
+    sink = None
+    if a.telemetry_dir:
+        sink = T.configure(a.telemetry_dir)
+        T.arm_incidents(os.path.join(a.telemetry_dir, INCIDENTS_DIRNAME))
+    prev_targets = None
+    if a.slo_ttft_p95 is not None or a.slo_e2e_p99 is not None:
+        slo_kwargs = {}
+        if a.slo_ttft_p95 is not None:
+            slo_kwargs["ttft_p95_s"] = a.slo_ttft_p95
+        if a.slo_e2e_p99 is not None:
+            slo_kwargs["e2e_p99_s"] = a.slo_e2e_p99
+        prev_targets = T.set_slo_targets(T.SLOTargets(**slo_kwargs))
+    try:
+        cfg = get_model_config(a.model)
+        to_cfg = get_model_config(a.to_config) if a.to_config else cfg
+        base = dataclasses.replace(default_config(), random_seed=a.seed)
+        engine = engine_for(a.model, base, ckpt=a.weights_dir, device=a.device)
+
+        def new_engine():
+            # Built while PREPARING, so that a manifest refusal of
+            # --to-checkpoint is a rollback gate, not a traceback.
+            return engine_for(a.to_config or a.model, base, ckpt=a.to_checkpoint,
+                              device=a.device)
+
+        serving = ServingConfig(enabled=True, num_slots=2, queue_capacity=max(16, a.requests),
+                                max_new_tokens=min(a.max_new_tokens, cfg.max_seq_len // 2,
+                                                   to_cfg.max_seq_len // 2))
+        fleet = ReplicaSet(engine, serving,
+                           settings=ModelSettings(temperature=0.0,
+                                                  max_tokens=serving.max_new_tokens),
+                           fleet=FleetConfig(replicas=a.replicas),
+                           resilience=ResilienceConfig(enabled=True),
+                           integrity=IntegrityConfig())
+        ro_kwargs: Dict = {}
+        if a.canary_window is not None:
+            ro_kwargs["canary_window_s"] = a.canary_window
+        if a.traffic_steps is not None:
+            ro_kwargs["traffic_steps"] = a.traffic_steps
+        to_version = a.to_version or f"v{int(fleet.version.lstrip('v') or 0) + 1}"
+        ro = RolloutController(fleet, to_version, engine_fn=new_engine,
+                               config=RolloutConfig(
+                                   enabled=True,
+                                   abort_on_fairness_alert=a.abort_on_fairness_alert,
+                                   **ro_kwargs))
+        from_version = fleet.version
+        ro.start()
+        pending = [Request(prompt=DEFAULT_PROMPTS[i % len(DEFAULT_PROMPTS)], id=f"ro_{i}",
+                           settings=fleet.settings) for i in range(a.requests)]
+        results: Dict[str, object] = {}
+        outstanding: list = []
+        t0 = time.monotonic()
+        while ro.active or pending or outstanding or fleet.has_work:
+            if time.monotonic() - t0 > 600.0:
+                print("rollout wall guard tripped (600 s) — aborting")
+                break
+            if pending and fleet.submit(pending[0]):
+                outstanding.append(pending.pop(0).id)
+            fleet.tick()
+            for rid in list(outstanding):
+                res = fleet.take_result(rid)
+                if res is not None:
+                    results[rid] = res
+                    outstanding.remove(rid)
+        pins: Dict[str, int] = {}
+        for rid in results:
+            ver = fleet.request_version(rid) or "?"
+            pins[ver] = pins.get(ver, 0) + 1
+        lost = a.requests - len(results)
+        print(f"rollout {from_version} -> {to_version}: state={ro.state}"
+              + (f" cause={ro.cause}" if ro.cause else ""))
+        print(f"served {len(results)}/{a.requests} request(s), pinned "
+              + (", ".join(f"{k}={v}" for k, v in sorted(pins.items())) or "none"))
+        if a.telemetry_dir:
+            print(f"telemetry snapshot: {T.write_snapshot(T.get_registry(), a.telemetry_dir)}")
+    finally:
+        if prev_targets is not None:
+            T.set_slo_targets(prev_targets)
+        if sink is not None:
+            T.install_event_sink(None)
+            sink.close()
+    if lost:
+        print(f"LOST {lost} request(s)")
+        return 1
+    return 0 if ro.state == "complete" else 2
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # Subcommands go ahead of the study parser (whose --all/--phase group is
@@ -662,6 +912,8 @@ def main(argv=None) -> int:
         return incident_report(argv[1:])
     if argv and argv[0] == "resume-serving":
         return resume_serving_cmd(argv[1:])
+    if argv and argv[0] == "rollout":
+        return rollout_cmd(argv[1:])
     from fairness_llm_tpu_torch.pipeline.phase1 import print_phase1_summary, run_phase1
     from fairness_llm_tpu_torch.pipeline.phase2 import print_phase2_summary, run_phase2
     from fairness_llm_tpu_torch.pipeline.phase3 import print_phase3_summary, run_phase3

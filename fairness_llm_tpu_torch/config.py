@@ -4,9 +4,11 @@
 three phases read, ``ServingConfig`` (the continuous-batching core's
 knobs), ``OverloadConfig`` (QoS queues and load shedding),
 ``TelemetryConfig`` (the fairness monitor, SLO targets, the trace copy),
-``default_config`` with the reference's ``FAIRNESS_TPU_*`` overrides, and
-``create_directories``. The fleet and mesh sections wait for their slices
-(the CLI's ``--telemetry-dir`` needs no config field)."""
+``FleetConfig``, ``AutoscaleConfig`` and ``RolloutConfig`` (the replica
+fleet, its autoscaler and the rolling upgrade), ``default_config`` with the
+reference's ``FAIRNESS_TPU_*`` overrides, and ``create_directories``. The
+mesh section waits for its slice (the CLI's ``--telemetry-dir`` needs no
+config field)."""
 
 from __future__ import annotations
 
@@ -140,6 +142,98 @@ class OverloadConfig:
             raise NotImplementedError(
                 "OverloadConfig.headroom_cap_frac reads the memory ledger, which is not "
                 "ported yet (ROADMAP A7(b))")
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Replica-fleet knobs (``serving/fleet.py``).
+
+    ``replicas`` > 1 puts a ``ReplicaSet`` behind the serving backend: N
+    replicas, each with its own KV slot pool, scheduler, breakers, watchdog
+    and rejoin canary, fed from one bounded admission queue by a
+    health-aware router (``serving/router.py``). A replica whose ladder
+    climbs to ``fence_ladder_level``, whose open breakers reach
+    ``fence_open_breakers``, whose stall probe fires, or that takes an
+    injected replica_crash/replica_hang is FENCED: drained with zero grace,
+    its unfinished requests re-routed with their original ids, settings and
+    row seeds, and let back in only after a canary probe passes, no sooner
+    than ``fence_cooldown_s`` (and not before its open breakers can
+    half-open).
+    """
+
+    replicas: int = 1  # 1 = single engine, no fleet layer
+    # Ladder level at which the router fences a replica (2 =
+    # reduced_footprint); 0 disables ladder-driven fencing.
+    fence_ladder_level: int = 2
+    # Open stage breakers that fence regardless of the ladder.
+    fence_open_breakers: int = 2
+    fence_cooldown_s: float = 1.0  # fenced -> first rejoin-probe delay
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoscaleConfig:
+    """Elastic-fleet knobs (``serving/autoscaler.py``).
+
+    ``enabled`` puts an ``Autoscaler`` on the ``ReplicaSet``'s tick. It
+    reads the replicas' fast-window SLO burn, the fleet's overload rung and
+    the fleet-held queue depth: a hot signal held for ``up_window_s`` adds a
+    canary-gated standby replica; every signal cold for ``down_window_s``
+    retires the lowest-load replica through the zero-grace drain and
+    migration path. At most one change per ``cooldown_s``; membership stays
+    in [``min_replicas``, ``max_replicas``].
+
+    ``up_headroom_frac`` > 0 makes measured device-memory headroom a hot
+    signal in the reference; it reads the memory ledger, which is not
+    ported yet (ROADMAP A7(b)), so a value above 0 is refused.
+    """
+
+    enabled: bool = False
+    min_replicas: int = 1
+    max_replicas: int = 4
+    # Scale-up signals: the hottest replica's fast-window burn at or over
+    # up_burn_threshold, the fleet-held queue at or over up_queue_frac of
+    # capacity, or the ladder at or past up_overload_level (0 disables it).
+    up_burn_threshold: float = 2.0
+    up_queue_frac: float = 0.8
+    up_overload_level: int = 1
+    up_headroom_frac: float = 0.0
+    up_window_s: float = 1.0  # sustained hot before a scale-up
+    # Scale-down: burn, queue and per-replica slot load all under these,
+    # sustained for down_window_s.
+    down_burn_threshold: float = 0.5
+    down_queue_frac: float = 0.1
+    down_load_frac: float = 0.5
+    down_window_s: float = 5.0
+    cooldown_s: float = 2.0  # least seconds between membership changes
+    eval_interval_s: float = 0.25  # least seconds between controller steps
+
+    def __post_init__(self) -> None:
+        if self.up_headroom_frac > 0:
+            raise NotImplementedError(
+                "AutoscaleConfig.up_headroom_frac reads the memory ledger, which is not "
+                "ported yet (ROADMAP A7(b))")
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutConfig:
+    """Rolling-upgrade knobs (``serving/rollout.py``).
+
+    A ``RolloutController`` walks a ``ReplicaSet`` to a new version a wave
+    at a time: a canary-gated standby at the new version, the traffic share
+    moved onto it in ``traffic_steps`` steps each watched for
+    ``canary_window_s``, then one old replica retired. Requests keep the
+    version that admitted them. A gate firing on a new-version replica
+    (canary mismatch, fence, open breaker, fast-window burn at or over
+    ``gate_burn_threshold``, with ``abort_on_fairness_alert`` a fairness
+    alert or a divergent pair served there) or a manifest refusal of the new
+    weights rolls the fleet back.
+    """
+
+    enabled: bool = False
+    canary_window_s: float = 1.0  # gate-watch seconds per traffic step
+    traffic_steps: int = 2  # traffic increments per wave
+    gate_burn_threshold: float = 2.0
+    abort_on_fairness_alert: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,6 +377,11 @@ class Config:
     # The fairness monitor, SLO targets and the trace copy (--fairness-obs,
     # --slo-*, --trace-out).
     telemetry: TelemetryConfig = dataclasses.field(default_factory=TelemetryConfig)
+    # The replica fleet (--replicas N, with --continuous), its autoscaler
+    # (--autoscale) and the rolling upgrade (the rollout subcommand).
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
+    autoscale: AutoscaleConfig = dataclasses.field(default_factory=AutoscaleConfig)
+    rollout: RolloutConfig = dataclasses.field(default_factory=RolloutConfig)
 
     def settings_for(self, model_name: str) -> ModelSettings:
         for name, settings in self.model_settings:

@@ -41,8 +41,11 @@ CPU, in float32, the row equals the engine's, which the reference records.
 A probe that overload control sheds (rung 3 refuses every class but
 interactive) is inconclusive: ``canary_shed`` is emitted and no mismatch
 counted, since tripping the breaker on a deliberate shed would turn flow
-control into a fault. The reference's ``for_replica`` (the fleet's rejoin
-probe) comes with the fleet (ROADMAP A5.4).
+control into a fault. ``for_replica`` gives a fleet replica
+(``serving/fleet.py``) a sibling probe over the same recorded rows, with
+``{"replica": name}`` labels and the replica's own breaker board: the
+fleet records one reference a version, in a private pool of its replicas'
+shape, and every replica of that version is probed against it.
 """
 
 from __future__ import annotations
@@ -128,6 +131,14 @@ class CanaryProbe:
         alternates = [r for r in rows[1:] if not np.array_equal(r, rows[0])]
         return cls(prompt, rows[0], settings, pad, every_n=every_n, board=board,
                    component=component, alternates=alternates)
+
+    def for_replica(self, replica: str, board=None) -> "CanaryProbe":
+        """A sibling probe sharing this probe's recorded rows, with
+        per-replica labels and the replica's own breaker board (the fleet's
+        rejoin gate and periodic canary): one record, one probe a replica."""
+        return CanaryProbe(self.prompt, self.reference, self.settings, self.pad_id, every_n=0,
+                           board=board, component=self.component,
+                           labels={"replica": replica}, alternates=self.alternates)
 
     def tick(self) -> bool:
         """Count one backend call; True when a probe is due."""

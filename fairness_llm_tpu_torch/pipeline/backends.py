@@ -259,6 +259,39 @@ class SimulatedRecommender:
 SIMULATED_VARIANTS = {"simulated": 0.6, "simulated-fair": 0.15, "simulated-biased": 0.9}
 
 
+def engine_for(model_name: str, config: Config, ckpt: Optional[str] = None,
+               params: Optional[Dict[str, torch.Tensor]] = None,
+               device: Optional[Union[str, torch.device]] = None):
+    """The ``DecodeEngine`` of ``model_name`` on ``device`` (None means CUDA)
+    with the port's attention kernels on (``use_flash_attention``,
+    ``use_decode_attention_kernel``) and ``config.weight_quant`` applied:
+    the weights of checkpoint directory ``ckpt``, verified against its
+    manifest (``config.integrity``; a refusal raises ``IntegrityError``),
+    with the checkpoint's own tokenizer when it has a
+    ``tokenizer_config.json``; else ``params``; else random from
+    ``config.random_seed`` with the byte tokenizer."""
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+    from fairness_llm_tpu_torch.runtime.weights import load_checkpoint
+
+    model_config = dataclasses.replace(
+        get_model_config(model_name), use_flash_attention=True,
+        use_decode_attention_kernel=True)
+    if config.weight_quant is not None:
+        # "int8" quantizes a float config, "none" serves an -int8 one in float
+        model_config = dataclasses.replace(model_config, weight_quant=config.weight_quant)
+    tokenizer_path = None
+    if ckpt is not None:
+        logger.info("loading %s weights from %s", model_name, ckpt)
+        params = load_checkpoint(model_config, ckpt,
+                                 verify=config.integrity.verify_manifests, device=device)
+        if os.path.exists(os.path.join(ckpt, "tokenizer_config.json")):
+            tokenizer_path = ckpt
+    return DecodeEngine(model_config, params=params, tokenizer_path=tokenizer_path,
+                        seed=config.random_seed, device=device,
+                        numerics_guards=config.integrity.numerics_guards)
+
+
 def backend_for(
     model_name: str,
     config: Config,
@@ -283,9 +316,10 @@ def backend_for(
     through a ``ServingBackend`` (speculation, which the serving loop does
     not compose with, is then ignored, as the reference ignores it), with
     ``config.resilience`` (breakers, watchdog, the serving journal),
-    ``config.integrity`` (numerics guards, the canary) and
-    ``config.overload`` (QoS queues and load shedding); the engine path gets
-    the breakers and the watchdog too.
+    ``config.integrity`` (numerics guards, the canary),
+    ``config.overload`` (QoS queues and load shedding) and ``config.fleet``
+    and ``config.autoscale`` (the replica fleet); the engine path gets the
+    breakers and the watchdog too.
 
     The engine runs the port's attention kernels (``use_flash_attention``
     and ``use_decode_attention_kernel`` on): on the card they are the hand
@@ -299,33 +333,16 @@ def backend_for(
             catalog_groups=catalog_groups,
         )
 
-    from fairness_llm_tpu_torch.models.configs import get_model_config
-    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
-    from fairness_llm_tpu_torch.runtime.weights import load_checkpoint
-
-    model_config = dataclasses.replace(
-        get_model_config(model_name), use_flash_attention=True,
-        use_decode_attention_kernel=True)
-    if config.weight_quant is not None:
-        # "int8" quantizes a float config, "none" serves an -int8 one in float
-        model_config = dataclasses.replace(model_config, weight_quant=config.weight_quant)
     ckpt = os.path.join(config.weights_dir or "", model_name)
-    tokenizer_path = None
-    if params is None and config.weights_dir and os.path.isdir(ckpt):
-        logger.info("loading %s weights from %s", model_name, ckpt)
-        params = load_checkpoint(model_config, ckpt,
-                                 verify=config.integrity.verify_manifests, device=device)
-        if os.path.exists(os.path.join(ckpt, "tokenizer_config.json")):
-            tokenizer_path = ckpt
-    if params is None and not allow_random:
-        raise FileNotFoundError(
-            f"no weights for '{model_name}' under weights_dir="
-            f"{config.weights_dir!r}; use --model simulated, provide a "
-            f"checkpoint, or pass allow_random=True for a smoke run"
-        )
-    engine = DecodeEngine(model_config, params=params, tokenizer_path=tokenizer_path,
-                          seed=config.random_seed, device=device,
-                          numerics_guards=config.integrity.numerics_guards)
+    if params is not None or not (config.weights_dir and os.path.isdir(ckpt)):
+        ckpt = None
+        if params is None and not allow_random:
+            raise FileNotFoundError(
+                f"no weights for '{model_name}' under weights_dir="
+                f"{config.weights_dir!r}; use --model simulated, provide a "
+                f"checkpoint, or pass allow_random=True for a smoke run"
+            )
+    engine = engine_for(model_name, config, ckpt=ckpt, params=params, device=device)
     resilience = config.resilience if config.resilience.enabled else None
     if config.serving.enabled:
         from fairness_llm_tpu_torch.serving.backend import ServingBackend
@@ -338,7 +355,8 @@ def backend_for(
                                      rotate_every=resilience.journal_rotate_every)
         return ServingBackend(engine, config.serving, name=model_name, resilience=resilience,
                               journal=journal, integrity=config.integrity,
-                              overload=config.overload)
+                              fleet=config.fleet, overload=config.overload,
+                              autoscale=config.autoscale)
     if resilience is not None:
         # The engine path gets the watchdog (contained by
         # with_failure_containment) and a board for the speculate gate.

@@ -33,10 +33,17 @@ How it differs from ``EngineBackend``:
 - with the fairness monitor armed (``--fairness-obs``: a phase registered
   its profile grid) each sweep request carries its study tags
   (``attribute``, ``group``, ``pair_id``), so that the serving layer's
-  treatment of each group is observable per request.
+  treatment of each group is observable per request;
+- with ``fleet.replicas`` > 1 (``--replicas N``) or ``autoscale`` on
+  (``--autoscale``, a fleet even of one), each sampler tuple gets a
+  ``ReplicaSet`` (``serving/fleet.py``) instead of one scheduler: N fault
+  domains behind the health router over the engine's one weight tree, the
+  second and later fleets named ``s1``, ``s2``, ... There is no shared
+  board then (each replica has its own breakers, ladder and watchdog), the
+  static-fallback rung gives way to fence, migrate and rejoin, and the
+  periodic canary probes one replica a time (``ReplicaSet.periodic_canary``).
 
-The reference's replica fleet is a later slice (ROADMAP A5.4); a fatal CUDA
-error raises out of ``generate``.
+A fatal CUDA error raises out of ``generate``, from a scheduler or a fleet.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from fairness_llm_tpu_torch.config import (
+    AutoscaleConfig,
+    FleetConfig,
     IntegrityConfig,
     ModelSettings,
     OverloadConfig,
@@ -55,6 +64,7 @@ from fairness_llm_tpu_torch.config import (
 )
 from fairness_llm_tpu_torch.resilience.breaker import BreakerBoard
 from fairness_llm_tpu_torch.resilience.drain import ServingJournal
+from fairness_llm_tpu_torch.serving.fleet import ReplicaSet
 from fairness_llm_tpu_torch.serving.request import Request
 from fairness_llm_tpu_torch.serving.scheduler import ContinuousScheduler
 from fairness_llm_tpu_torch.telemetry import get_registry
@@ -72,7 +82,9 @@ class ServingBackend:
                  resilience: Optional[ResilienceConfig] = None,
                  journal: Optional[ServingJournal] = None,
                  integrity: Optional[IntegrityConfig] = None,
-                 overload: Optional[OverloadConfig] = None):
+                 fleet: Optional[FleetConfig] = None,
+                 overload: Optional[OverloadConfig] = None,
+                 autoscale: Optional[AutoscaleConfig] = None):
         self.engine = engine
         self.serving = serving or ServingConfig(enabled=True)
         self.name = name or engine.config.name
@@ -81,12 +93,25 @@ class ServingBackend:
         self.journal = journal
         self.integrity = integrity
         self.overload = overload if (overload is not None and overload.enabled) else None
+        # --autoscale implies a fleet even at one replica: a fleet of one
+        # can grow, a bare scheduler cannot.
+        self.autoscale = autoscale if (autoscale is not None and autoscale.enabled) else None
+        if fleet is not None and fleet.replicas > 1:
+            self.fleet: Optional[FleetConfig] = fleet
+        elif self.autoscale is not None:
+            self.fleet = fleet or FleetConfig(replicas=1)
+        else:
+            self.fleet = None
+        self._fleet_seq = 0  # ReplicaSets this backend built
         # The canary is recorded on the first generate(), not here: its
         # reference decode must not land in the backend's construction.
         self._canary = None
         self._canary_sched = None
+        self._canary_calls = 0  # fleet mode's call counter
         self.board: Optional[BreakerBoard] = None
-        if resilience is not None and resilience.enabled:
+        # Fleet mode keeps resilience per replica: one shared board would
+        # couple again the fault domains the fleet separates.
+        if self.fleet is None and resilience is not None and resilience.enabled:
             # ONE board for the backend: every scheduler's prefill/decode
             # breakers and the engine's speculate gate share it, so the
             # ladder sees the process's health.
@@ -104,28 +129,46 @@ class ServingBackend:
         self.last_output = None  # GenerateOutput of the most recent call
         self._schedulers: dict = {}
 
-    def scheduler_for(self, settings: ModelSettings) -> ContinuousScheduler:
-        """One scheduler per sampler tuple. Each holds a KV pool, so at most
-        two are kept (least recently used first out)."""
+    def scheduler_for(self, settings: ModelSettings):
+        """One scheduler per sampler tuple, or in fleet mode one
+        ``ReplicaSet`` (the same ``serve``/``last_stats`` surface; the first
+        keeps the plain r0, r1 labels, later ones are named s1, s2, ...).
+        Each holds KV pools, so at most two are kept (least recently used
+        first out)."""
         key = (settings.temperature, settings.top_k, settings.top_p)
         sched = self._schedulers.pop(key, None)
         if sched is None:
-            sched = ContinuousScheduler(self.engine, self.serving, settings=settings,
-                                        fault_injector=self.fault_injector,
-                                        resilience=self.resilience, journal=self.journal,
-                                        breakers=self.board, overload=self.overload)
+            if self.fleet is not None:
+                sched = ReplicaSet(self.engine, self.serving, settings=settings,
+                                   fleet=self.fleet, resilience=self.resilience,
+                                   journal=self.journal, fault_injector=self.fault_injector,
+                                   integrity=self.integrity,
+                                   name=None if self._fleet_seq == 0 else f"s{self._fleet_seq}",
+                                   overload=self.overload, autoscale=self.autoscale)
+                self._fleet_seq += 1
+            else:
+                sched = ContinuousScheduler(self.engine, self.serving, settings=settings,
+                                            fault_injector=self.fault_injector,
+                                            resilience=self.resilience, journal=self.journal,
+                                            breakers=self.board, overload=self.overload)
             while len(self._schedulers) >= 2:
                 del self._schedulers[next(iter(self._schedulers))]
         self._schedulers[key] = sched
         return sched
 
-    def _maybe_canary(self) -> None:
+    def _maybe_canary(self, live_sched=None) -> None:
         """Record the canary on first use and probe it when due (every
         ``integrity.canary_every_n`` calls), before the user batch, so that
         detected corruption degrades the path before more traffic lands on
-        it."""
+        it. In fleet mode the fleet serving this call probes one replica
+        with that replica's own canary and board."""
         integ = self.integrity
         if integ is None or integ.canary_every_n <= 0:
+            return
+        if isinstance(live_sched, ReplicaSet):
+            self._canary_calls += 1
+            if self._canary_calls % integ.canary_every_n == 0:
+                live_sched.periodic_canary()
             return
         if self._canary is None:
             from fairness_llm_tpu_torch.integrity.canary import CanaryProbe
@@ -192,7 +235,7 @@ class ServingBackend:
             self.last_output = out
             return list(out.texts)
         sched = self.scheduler_for(settings)
-        self._maybe_canary()
+        self._maybe_canary(sched)
         mon = get_fairness_monitor()
         requests = []
         for i, p in enumerate(prompts):

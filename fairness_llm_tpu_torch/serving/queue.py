@@ -5,7 +5,8 @@
 queue is at capacity or the ``RateLimiter`` quota says no, and the caller
 decides whether to retry. One consumer, the scheduler loop, so this is a
 deque with a capacity, not a synchronized queue. ``requeue`` puts a request
-back at the front, past capacity and quota. ``close`` refuses every
+back at the front, past capacity and quota; ``submit(front=True)`` puts one
+there within them (the fleet's migration path). ``close`` refuses every
 submission while a drain runs (``resilience/drain.py``).
 
 ``ClassedAdmissionQueue`` is the QoS variant (``serving/overload.py``,
@@ -45,17 +46,24 @@ class AdmissionQueue:
     def full(self) -> bool:
         return len(self) >= self.capacity
 
-    def submit(self, request: Request, count_rejection: bool = True) -> bool:
+    def submit(self, request: Request, count_rejection: bool = True,
+               front: bool = False) -> bool:
         """Admit ``request`` at the back; False = backpressure, nothing
         enqueued. ``count_rejection=False`` is for retries of an already
         accepted request (the scheduler's overflow top-up): a refusal then
-        is not a new rejection."""
+        is not a new rejection. ``front=True`` admits at the head: the
+        fleet's migration path (``serving/fleet.py``), for a request that
+        already waited through a fenced replica's queue, still subject to
+        capacity and quota because this queue never saw it."""
         if self.closed or self.full or (self.rate_limiter is not None
                                         and not self.rate_limiter.try_acquire()):
             if count_rejection:
                 self.rejected += 1
             return False
-        self._q.append(request)
+        if front:
+            self._q.appendleft(request)
+        else:
+            self._q.append(request)
         return True
 
     def close(self) -> None:
@@ -126,10 +134,12 @@ class ClassedAdmissionQueue(AdmissionQueue):
     def class_full(self, qos: str) -> bool:
         return len(self._classes[qos]) >= self._class_caps[qos]
 
-    def submit(self, request: Request, count_rejection: bool = True) -> bool:
+    def submit(self, request: Request, count_rejection: bool = True,
+               front: bool = False) -> bool:
         """The plain queue's checks plus the class's bound and quota; False
         = backpressure, nothing enqueued. The shared quota, when set,
-        applies after the class's own."""
+        applies after the class's own; ``front`` admits at the head of the
+        request's class."""
         qos = request.qos
         limiter = self._class_limiters[qos]
         # Both quotas are peeked before either is spent: spending one and
@@ -144,7 +154,10 @@ class ClassedAdmissionQueue(AdmissionQueue):
             limiter.try_acquire()
         if self.rate_limiter is not None:
             self.rate_limiter.try_acquire()
-        self._classes[qos].append(request)
+        if front:
+            self._classes[qos].appendleft(request)
+        else:
+            self._classes[qos].append(request)
         return True
 
     def requeue(self, request: Request) -> None:

@@ -92,8 +92,14 @@ and pair watch (``_note_fairness``; a preempted request is left to the
 monitor, which drops it), and a requeue is noted as a serving event of a
 tagged request.
 
-Not ported here, each a later part of ROADMAP A5: the replica fleet and
-tensor-parallel meshes.
+Replica fleet (``serving/fleet.py``): a fleet replica's scheduler is built
+with ``replica=name``, which labels every instrument it writes
+(``{"replica": name}``), gives it a timeline track and a heartbeat of its
+own and names it in its decisions and incidents; the fleet drives it one
+iteration at a time through ``step``, places migrated requests at the head
+of its queue (``submit(front=True, restamp=False)``), and at retirement
+frees its device tensors (``release_memory``). Tensor-parallel meshes are a
+later part of ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -187,7 +193,9 @@ class ContinuousScheduler:
     ``journal`` ledgers every accepted request and its outcome; ``breakers``
     shares a ``BreakerBoard`` (``ServingBackend`` hands one board to all its
     schedulers and the engine); ``overload`` (an enabled ``OverloadConfig``)
-    arms the QoS queue, the shed controller and deadline admission.
+    arms the QoS queue, the shed controller and deadline admission;
+    ``replica`` names a fleet replica (``serving/fleet.py``), whose
+    instruments carry ``{"replica": name}``.
     """
 
     def __init__(self, engine, serving: Optional[ServingConfig] = None,
@@ -195,13 +203,16 @@ class ContinuousScheduler:
                  resilience: Optional[ResilienceConfig] = None,
                  journal: Optional[ServingJournal] = None,
                  breakers: Optional[BreakerBoard] = None,
+                 replica: Optional[str] = None,
                  overload: Optional[OverloadConfig] = None):
         self.engine = engine
         self.serving = serving or ServingConfig(enabled=True)
-        # Instrument labels and timeline track of a single-replica scheduler
-        # (the reference's fleet replicas add {"replica": name}).
-        self.labels: Dict[str, str] = {}
-        self.track = "serving"
+        # Replica identity: a fleet replica's instruments carry
+        # {"replica": name} and it gets its own timeline track; None (a
+        # single scheduler) adds no label.
+        self.replica = replica
+        self.labels: Dict[str, str] = {"replica": replica} if replica else {}
+        self.track = replica or "serving"
         self.settings = settings or ModelSettings()
         self.sampler = SamplerSettings(temperature=self.settings.temperature,
                                        top_k=self.settings.top_k, top_p=self.settings.top_p)
@@ -231,7 +242,8 @@ class ContinuousScheduler:
             blocks_per_slot = -(-span // bs)
             self.cache_len = blocks_per_slot * bs  # the gathered view's length
             self.pool = SlotPool(self.num_slots, paged=PagedKV(
-                self.num_slots, blocks_per_slot, bs, num_blocks=self.serving.kv_blocks))
+                self.num_slots, blocks_per_slot, bs, num_blocks=self.serving.kv_blocks,
+                labels=self.labels or None))
         else:
             self.cache_len = self.max_prompt_bucket + cap
             self.pool = SlotPool(self.num_slots)
@@ -290,7 +302,8 @@ class ContinuousScheduler:
         # Request lifecycle spans and their histograms (and SLO burn rates),
         # and a liveness pulse: host-side timestamps only.
         self.tracer = RequestTracer(component="serving", labels=self.labels)
-        self._heartbeat = Heartbeat(interval_s=30.0, name="serving")
+        self._heartbeat = Heartbeat(interval_s=30.0,
+                                    name=f"serving[{replica}]" if replica else "serving")
         # serve()'s overflow beyond the queue's capacity
         self._pending: Deque[Request] = deque()
         self._results: Dict[str, Result] = {}
@@ -316,8 +329,8 @@ class ContinuousScheduler:
             StepWatchdog(r.max_step_seconds, labels=self.labels)
             if r.enabled and r.max_step_seconds > 0 else None)
         self.journal = journal
-        # The version stamped on this scheduler's journal records (the
-        # reference's fleet sets its replica's rollout version; None here).
+        # The version stamped on this scheduler's journal records (the fleet
+        # sets its replica's rollout version; None outside a fleet).
         self.journal_version: Optional[str] = None
         self._drain_flag = False
         # request_drain(grace_s=...) overrides the configured grace for one
@@ -354,19 +367,23 @@ class ContinuousScheduler:
             raise ValueError(f"request {request.id!r} sampler settings {rs} != scheduler "
                              f"sampler {self.sampler}; use a scheduler for those settings")
 
-    def submit(self, request: Request) -> bool:
+    def submit(self, request: Request, front: bool = False, restamp: bool = True) -> bool:
         """Queue one request; False = backpressure (queue full or rate
         quota) or an overload shed. The two read apart through
         ``take_result``: a shed leaves a ``finish_reason="shed"`` Result
         with a retry-after hint, backpressure leaves nothing. Its deadline
-        and latency clock start here."""
+        and latency clock start here, unless ``restamp=False`` keeps the
+        stamp of an earlier intake (the fleet's: routing and migration must
+        not extend a deadline). ``front=True`` admits at the head of the
+        line (the fleet's migration path)."""
         self._check_settings(request)
-        request.submitted_at = time.monotonic()
+        if restamp:
+            request.submitted_at = time.monotonic()
         # The gate runs before acceptance: a shed request was never
         # accepted, so it owes the journal nothing.
         if self._overload_gate(request, journaled=False):
             return False
-        accepted = self.queue.submit(request)
+        accepted = self.queue.submit(request, front=front)
         if accepted:
             self.tracer.record(request.id, "submitted", t=request.submitted_at)
             if self.journal is not None:
@@ -380,6 +397,15 @@ class ContinuousScheduler:
         earlier ``serve``/``drain``: the way back for ``submit()``-ed
         requests."""
         return self._results.pop(request_id, None)
+
+    def release_memory(self) -> None:
+        """Free this scheduler's device tensors: the KV slot pool or the
+        paged arena with its view and table buffers, and the carried
+        logits. The fleet calls it when it retires a replica (a fence keeps
+        the replica and its memory); the scheduler serves nothing after
+        it."""
+        self._cache = self._arena = self._view = None
+        self._tables = self._wtables = self._prev_logits = None
 
     def drain(self) -> ServingStats:
         """Run the loop until the queue and the pool are empty; the Results
@@ -616,7 +642,7 @@ class ContinuousScheduler:
         and pair watch; a dict miss for untagged traffic."""
         get_fairness_monitor().observe_request(
             request, outcome, queue_wait_s=row.queue_wait_s, ttft_s=row.ttft_s, text=text,
-            replica=None, rung=(self.breakers.ladder.level if self.breakers is not None else 0))
+            replica=self.replica, rung=(self.breakers.ladder.level if self.breakers is not None else 0))
 
     def _fail(self, request: Request, reason: str, error: str, stats: ServingStats,
               tokens: Optional[List[int]] = None) -> None:
@@ -660,7 +686,7 @@ class ContinuousScheduler:
                         signals={"qos": request.qos, "retry_after_s": retry_after,
                                  "level": (self.shed_controller.level
                                            if self.shed_controller is not None else 0)},
-                        request_id=request.id)
+                        request_id=request.id, replica=self.replica)
         if journaled and self.journal is not None:
             self.journal.record_terminal(request.id, "shed")
         if stats is not None:
@@ -726,13 +752,15 @@ class ContinuousScheduler:
         storm of them opens a breaker, whose transition is the trigger."""
         record_decision("fault", f"{stage}:{kind}",
                         signals={"request_ids": list(request_ids), "error": str(error)[:200]},
-                        request_id=(request_ids[0] if request_ids else None))
+                        request_id=(request_ids[0] if request_ids else None),
+                        replica=self.replica)
         first = request_ids[0] if request_ids else None
         if kind in ("hang", "numerics"):
             cls, what = (("watchdog_hang", "step over budget") if kind == "hang"
                          else ("numerics_fault", "chunk non-finite"))
-            maybe_trigger(cls, f"{stage} {what}: {error}", scope="serving",
-                          request_id=first, stage=stage, request_ids=list(request_ids))
+            maybe_trigger(cls, f"{stage} {what}: {error}", scope=self.replica or "serving",
+                          replica=self.replica, request_id=first, stage=stage,
+                          request_ids=list(request_ids))
 
     def _contain(self, e: Exception, stage: str, reqs: List[Request], stats: ServingStats,
                  what: str) -> str:
@@ -1204,7 +1232,7 @@ class ContinuousScheduler:
         get_flight_recorder().record(
             "chunks", program=self._program, steps=out.steps, wall_s=round(dc_wall, 6),
             gap_s=(round(gap, 6) if gap is not None else None), rows=len(live_ids),
-            replica=None, t=dc_t0)
+            replica=self.replica, t=dc_t0)
         self.tracer.sample_step_gauges(occupancy=len(live_ids), queue_depth=len(self.queue),
                                        decode_steps=out.steps)
         eos_id = self.engine.tokenizer.eos_id

@@ -265,7 +265,7 @@ def test_cli_overload_and_telemetry_flags_match_the_reference():
     tel = dataclasses.asdict(want.telemetry)
     del tel["achievable_gbps"]
     assert dataclasses.asdict(got.telemetry) == tel
-    assert tcli.NOT_PORTED == ("--tp", "--replicas", "--autoscale", "--mesh")
+    assert tcli.NOT_PORTED == ("--tp", "--mesh")
     with pytest.raises(NotImplementedError, match="A7"):
         tcli.config_from_args(tcli.build_parser().parse_args(base + ["--achievable-gbps", "9"]))
 

@@ -545,9 +545,19 @@ def test_cli_continuous_runs(tmp_path, capsys):
 @pytest.mark.parametrize("flag", ["--tp", "--achievable-gbps", "--replicas", "--autoscale",
                                   "--mesh"])
 def test_cli_refuses_the_later_serving_flags(flag):
+    """The flags of slices still to come raise NotImplementedError naming
+    the flag. The fleet's (--replicas, --autoscale) are ported: they are
+    refused, as the reference refuses them, without --continuous."""
+    from fairness_llm_tpu.cli import main as jcli
     from fairness_llm_tpu_torch.cli import main as tcli
 
     value = [] if flag == "--autoscale" else ["2"]
+    if flag in ("--replicas", "--autoscale"):
+        for cli in (tcli, jcli):
+            with pytest.raises(SystemExit, match="--continuous"):
+                cli.config_from_args(cli.build_parser().parse_args(["--phase", "1", flag]
+                                                                   + value))
+        return
     with pytest.raises(NotImplementedError, match=flag):
         tcli.main(["--phase", "1", "--no-save", "--device", "cpu", "--continuous", flag]
                   + value)
