@@ -25,9 +25,11 @@ same models, with their teacher-forced scoring forward, and the phase-1
 sweep once more through the continuous-batching server
 (``serving/ContinuousScheduler`` behind ``backend_for``), then through its
 paged KV cache with prefix reuse; then it drives the fault containment on
-the card, and last overload control with its QoS queues and the fairness
-monitor, through the CLI's telemetry export, and last the replica fleet
-with its failover, autoscaler and rolling upgrade.
+the card, overload control with its QoS queues and the fairness monitor
+through the CLI's telemetry export, the replica fleet with its failover,
+autoscaler and rolling upgrade, and last the device-facing telemetry: the
+memory ledger, the roofline, the cost ledger and the compile stats, with
+their reports and the headroom signals.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -233,7 +235,7 @@ path's launch counts are set to 0 just before it and read just after:
      (``GATE_PROFILES``, as phase 24's gate).
   fault containment (``utils/failures.py``, ``resilience/``, ``integrity/``,
   ``telemetry/incidents.py``), after phase 25:
- 26. (a) the greedy phase-1 sweep on both study checkpoints through
+ 26. (a) the greedy phase-1 sweep on the first study checkpoint through
      ``backend_for`` with the numerics guard, the watchdog (600 s), the
      breakers and an armed incident engine, in phase 24's pool and in its
      paged twin, under a fault script (``STUDY_SCRIPT``: a prefill fault
@@ -268,7 +270,7 @@ path's launch counts are set to 0 just before it and read just after:
   overload control and the fairness monitor (``serving/overload.py``, the
   QoS queue, ``telemetry/fairness.py``), after phase 26:
  27. (a) The CLI's ``--all --continuous --slots 8 --overload --fairness-obs
-     --telemetry-dir`` run on both study checkpoints, non-paged and with
+     --telemetry-dir`` run on the first study checkpoint, non-paged and with
      ``--paged-kv`` (the main path; K1's and K2's f32 kernels must launch,
      their tensor-core kernels must not): exit 0, the snapshot and
      ``trace.json`` valid (paged: the paged gauges there), the overload
@@ -330,6 +332,38 @@ path's launch counts are set to 0 just before it and read just after:
      passes ``check_rollout``. K1, K2 and K4 launch on their tensor-core
      kernels in (b)-(c) and every kernel is held against its plain version
      at this phase's shapes.
+  the device-facing telemetry (``telemetry/memory.py``, ``roofline.py``,
+  ``costmodel.py``, ``compilestats.py``; ``perf-report``, ``memory-report``,
+  ``--achievable-gbps``, the headroom signals), after phase 28:
+ 29. The card's streaming bandwidth from a device-to-device copy (logged
+     beside the 3,350 GB/s of its data sheet) and the host's cost of one
+     launch (the cost ledger's dispatch term). (a) In a child process, the
+     CLI's ``--phase 1 --continuous --slots 8 --paged-kv --telemetry-dir
+     --achievable-gbps <measured>`` on the first study checkpoint: exit 0,
+     ``perf-report --require-ledger``, ``memory-report --require-ledger``
+     and ``telemetry-report --validate --require-costmodel
+     --require-memory`` each exit 0, the reconciliation ``measured`` with
+     no alert, every response that of phase 25's paged t=0.7 sweep. (b)
+     Over phase 24's llama3-8b int8 tensors, under fresh memory ledgers: a
+     second engine, whose params pool must be the int8 tree to the byte,
+     decodes the gate's 16 prompts (``DEVTEL_TOKENS``), and one served pool
+     of the control shape serves them, whose slot cache must be its
+     tensors' bytes (the allocator's growth within 1%); each program's step
+     ledger must hold ``2·B·Σ d_in·d_out`` matmul FLOPs exactly, at least
+     the int8 weight bytes the step streams and some attention bytes; the
+     roofline, the gap decomposition and its top contributor are logged.
+     (d) A repeated engine call must add a hit and no compile, and the pool
+     must have compiled exactly ``serve_prefill`` and ``serve_step``, each
+     with its ledger. (c) One replica of the control shape with the
+     autoscaler's ``up_headroom_frac`` above the measured headroom must
+     scale up on ``hbm_headroom`` and, the threshold lowered, back down,
+     leaving none of the retired replica's ledger entries; the allocator,
+     the pools and the kernels' workspaces are logged around it; then the
+     overload ladder's ``headroom_cap_frac`` above the headroom must clamp
+     a batch request to ``DEVTEL_BATCH_CAP`` at rung 0 and leave an
+     interactive one whole. K1, K2 and K4 launch on their tensor-core
+     kernels and every kernel is held against its plain version at this
+     phase's shapes.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
@@ -351,7 +385,10 @@ path's launch counts are set to 0 just before it and read just after:
   ("study", FULL_WIDTH) and its rows as ``overload_shapes``; and phase 28's
   launches on the study fleet runs and the rollout drill, and on the
   full-width fleet, failover and autoscale runs, as ``fleet_launches``
-  ("study", FULL_WIDTH) and its rows as ``fleet_shapes``.
+  ("study", FULL_WIDTH) and its rows as ``fleet_shapes``; and phase 29's
+  launches on its in-process runs (b)-(c) as ``devtel_launches``
+  (FULL_WIDTH; the CLI child's launches are its own) and its rows as
+  ``devtel_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -1547,6 +1584,10 @@ def int8_path(torch, prompts, keys, greedy, sampled):
 # The phase-1 sweep (pipeline/phase1.run_phase1) on the study checkpoints:
 # f32 weights at head width 32, so K1 and K2 run their f32 kernels.
 STUDY_MODELS = ("tiny-llama-study", "tiny-gpt2-study")
+# Phases 26(a) and 27(a) drive their study drills (the contained sweeps,
+# the overload CLI runs) on the first checkpoint only, to keep the script
+# near ten minutes; phases 19-25 and 28(a) drive both.
+DRILL_MODELS = STUDY_MODELS[:1]
 STUDY_PROMPTS = 48  # 45 profiles and 3 neutral prompts
 # A greedy row may differ between the card and the CPU only where the CPU's
 # top two logits at the first divergent token are within this gap.
@@ -3806,7 +3847,7 @@ def drain_and_resume(torch, tmp: pathlib.Path, served_card) -> dict:
 
 def containment_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
     """Phase 26. Returns each kernels-line entry's launches on the main
-    path's runs (the study models' contained sweeps together, "study";
+    path's runs (the first study model's contained sweeps, "study";
     FULL_WIDTH) and the rows of the kernel calls no earlier phase held;
     phase 24's full-width engine stays for phase 27."""
     import gc
@@ -3822,7 +3863,7 @@ def containment_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
         tmp = pathlib.Path(tmp)
         zero_all(dec_mod, flash_mod, qm)
         with flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
-            for name in STUDY_MODELS:
+            for name in DRILL_MODELS:
                 for paged in (False, True):
                     row = study_contained(torch, name, tmp, p24["greedy_card"][name], paged)
                     log(f"containment_study {json.dumps({'device': device_line, **row})}")
@@ -4188,7 +4229,7 @@ def biased_fault_drill(torch, tmp: pathlib.Path) -> dict:
 
 def overload_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
     """Phase 27. Returns each kernels-line entry's launches on the main
-    path's runs (the study models' CLI runs together, "study"; the flood,
+    path's runs (the first study model's CLI runs, "study"; the flood,
     FULL_WIDTH) and the rows of its kernel calls."""
     import gc
     import tempfile
@@ -4203,7 +4244,7 @@ def overload_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
         tmp = pathlib.Path(tmp)
         zero_all(dec_mod, flash_mod, qm)
         with flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
-            for name in STUDY_MODELS:
+            for name in DRILL_MODELS:
                 for paged in (False, True):
                     want = p24["t07_paged" if paged else "t07"][name]
                     row = overload_cli_run(torch, name, tmp, paged, want)
@@ -4491,8 +4532,15 @@ def full_width_fleet(torch, F, tmp: pathlib.Path, p24: dict, held: set) -> tuple
             gc.collect()
             torch.cuda.empty_cache()
 
-            # (c) autoscale under a replayed burst, then a retirement in flight
-            with T.use_registry() as reg, T.use_timeline(), T.use_incident_manager():
+            # (c) autoscale under a replayed burst, then a retirement in flight;
+            # the memory ledger's pools and the kernels' workspaces beside the
+            # allocator at each point (phase 29 reads them).
+            def ledger_point(led):
+                return {"pools": {p: led.pool_bytes(p) for p in T.POOLS},
+                        "workspaces": workspace_bytes(T)}
+
+            with T.use_registry() as reg, T.use_timeline(), T.use_incident_manager(), \
+                    T.use_memory_ledger() as led:
                 fleet = ReplicaSet(engine, ServingConfig(**ELASTIC_SERVING), settings=settings,
                                    fleet=FleetConfig(replicas=1),
                                    resilience=ResilienceConfig(**FLEET_RESILIENCE),
@@ -4515,6 +4563,7 @@ def full_width_fleet(torch, F, tmp: pathlib.Path, p24: dict, held: set) -> tuple
                 gc.collect()
                 torch.cuda.synchronize()
                 before = torch.cuda.memory_allocated()
+                elastic_row["ledger_before_scale_up"] = ledger_point(led)
                 t0 = time.perf_counter()
                 report = ReplayDriver(fleet, events, compression=ELASTIC_COMPRESSION,
                                       tail_s=ELASTIC_TAIL_S, max_wall_s=120.0,
@@ -4531,6 +4580,7 @@ def full_width_fleet(torch, F, tmp: pathlib.Path, p24: dict, held: set) -> tuple
                 torch.cuda.synchronize()
                 gc.collect()
                 after = torch.cuda.memory_allocated()
+                elastic_row["ledger_after_retirement"] = ledger_point(led)
                 snap = T.snapshot(reg)
                 elastic_row.update({
                     "events": len(events), "replay_wall_s": replay_end - t0,
@@ -4574,7 +4624,8 @@ def full_width_fleet(torch, F, tmp: pathlib.Path, p24: dict, held: set) -> tuple
                 gc.collect()
                 after_drill = torch.cuda.memory_allocated()
                 elastic_row.update({"drill_live_at_retirement": live, "drill_migrated": moved,
-                                    "allocated_after_drill_gb": after_drill / 1e9})
+                                    "allocated_after_drill_gb": after_drill / 1e9,
+                                    "ledger_after_drill": ledger_point(led)})
                 if not live or not moved or not all(r is not None and r.ok for r in results) \
                         or abs(after_drill - before) > RETIRE_MEM_SLACK * before:
                     fail(f"llama3-8b retirement drill: {elastic_row}")
@@ -4650,7 +4701,8 @@ def fleet_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
     """Phase 28. Returns each kernels-line entry's launches on the main
     path's runs (the study models' fleet CLI runs and the rollout drill,
     "study"; the llama3-8b fleet, failover and autoscale runs, FULL_WIDTH)
-    and the rows of its kernel calls; frees phase 24's full-width engine."""
+    and the rows of its kernel calls; phase 29 frees phase 24's full-width
+    engine."""
     import gc
     import tempfile
 
@@ -4687,11 +4739,438 @@ def fleet_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
         log(f"fleet_autoscale {json.dumps({'device': device_line, **erow})}")
         for k, v in full_rows.items():
             rows.setdefault(k, []).extend(v)
-        del p24["full_width"]["engine"]
         gc.collect()
         torch.cuda.empty_cache()
         log(f"fleet_fatal {json.dumps(fatal_child(tmp, replicas=2))}")
     return {"launches": launches, "rows": rows}
+
+
+# Phase 29: the device-facing telemetry (telemetry/memory.py, roofline.py,
+# costmodel.py, compilestats.py; perf-report, memory-report, --achievable-gbps,
+# the headroom signals), after phase 28.
+#
+# (a) The CLI's paged phase-1 sweep on the first study checkpoint in phase
+# 25's pool, in a process of its own (so that its memory ledger reconciles
+# against an allocator that holds nothing else), with the roofline's
+# reference bandwidth measured here by a device-to-device copy.
+DEVTEL_CLI_ARGS = ["--continuous", "--slots", str(STUDY_SERVING["num_slots"]), "--paged-kv"]
+COPY_BYTES = 1 << 30  # each buffer of the bandwidth copy
+# (b) llama3-8b int8 through a second engine over phase 24's weight tree and
+# one served pool of the control shape: the gate's 16 prompts at this many
+# tokens.
+DEVTEL_TOKENS = 16
+# (c) The overload ladder's early clamp: batch budgets at this cap.
+DEVTEL_BATCH_CAP = 8
+
+
+def measure_copy_gbps(torch) -> dict:
+    """A device-to-device copy of COPY_BYTES, timed with CUDA events over ten
+    copies after two: each copy reads and writes every byte once."""
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src), 10)
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"bytes_per_copy": 2 * COPY_BYTES, "ms": ms, "gbps": 2 * COPY_BYTES / ms / 1e6}
+
+
+def measure_dispatch_s(torch) -> float:
+    """The host's cost of one eager launch: 2,000 one-element adds enqueued
+    back to back, host clock over the count (the device catches up after)."""
+    a = torch.zeros(1, device="cuda")
+    b = torch.empty_like(a)
+    for _ in range(50):
+        torch.add(a, 1, out=b)
+    torch.cuda.synchronize()
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        torch.add(a, 1, out=b)
+    host = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return host
+
+
+def devtel_cli_run(torch, tmp: pathlib.Path, gbps: float, want: dict) -> dict:
+    """Phase 29(a): ``--phase 1 --continuous --slots 8 --paged-kv
+    --telemetry-dir D --achievable-gbps <measured>`` on the first study
+    checkpoint in a child process: exit 0; ``perf-report D
+    --require-ledger``, ``memory-report D --require-ledger`` and
+    ``telemetry-report D --validate --require-costmodel --require-memory``
+    each exit 0; the reconciliation ``measured`` with no alert; the
+    reference bandwidth the one measured; every response that of phase 25's
+    paged t=0.7 sweep (``want``)."""
+    import io
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.cli import main as cli
+
+    name = STUDY_MODELS[0]
+    label = f"{name} device-telemetry CLI"
+    tel, results = tmp / "devtel_tel", tmp / "devtel_cli"
+    args = (["--phase", "1", "--model", name, "--weights-dir", str(ROOT / "checkpoints"),
+             "--data-dir", str(ROOT / "data" / "ml-1m"), "--results-dir", str(results),
+             "--telemetry-dir", str(tel), "--achievable-gbps", f"{gbps:.1f}"] + DEVTEL_CLI_ARGS)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fairness_llm_tpu_torch.cli.main"] + args,
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    reports = {}
+    for sub in (["perf-report", str(tel), "--require-ledger"],
+                ["memory-report", str(tel), "--require-ledger"],
+                ["telemetry-report", str(tel), "--validate", "--require-costmodel",
+                 "--require-memory"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(sub)
+        reports[sub[0]] = {"exit": rc, "text": out.getvalue()}
+        if rc != 0:
+            fail(f"{label}: {' '.join(sub)} exited {rc}: {out.getvalue()[-3000:]}")
+    snap = T.load_snapshot(str(tel))
+    gauges = {(g["name"], tuple(sorted(g["labels"].items()))): g["value"] for g in snap["gauges"]}
+    modes = {dict(k[1]).get("reconciliation") for k in gauges if k[0] == "hbm_bytes_total"}
+    alerts = sum(c["value"] for c in snap["counters"]
+                 if c["name"] == "hbm_reconciliation_alerts_total")
+    ref_gbps = [v for k, v in gauges.items() if k[0] == "cost_reference_gbps"]
+    if modes != {"measured"} or alerts or ref_gbps != [float(f"{gbps:.1f}")]:
+        fail(f"{label}: reconciliation {modes}, {alerts} alerts, reference bandwidth {ref_gbps}")
+    rec = json.loads((results / "phase1" / "phase1_results.json").read_text())
+    if raw_responses(rec) != want["raw"] or rec["neutral_recommendations"] != want["neutral"]:
+        parting = sorted(k for k, v in raw_responses(rec).items() if want["raw"].get(k) != v)
+        fail(f"{label}: the responses part from phase 25's paged sweep at {parting[:8]} "
+             f"({len(parting)} rows)")
+    decomp = T.gap_decomposition(snap)
+
+    def named(name_):
+        return {dict(k[1]).get("pool") or dict(k[1]).get("program"): v
+                for k, v in gauges.items() if k[0] == name_}
+
+    return {"model": name, "argv": args, "wall_s": wall, "rows_equal": len(want["raw"]),
+            "reconciliation": sorted(modes), "alerts": alerts,
+            "hbm_bytes": named("hbm_bytes"), "hbm_bytes_limit": named("hbm_bytes_limit"),
+            "delta_bytes": named("hbm_reconciliation_delta_bytes"),
+            "achieved_hbm_gbps": named("achieved_hbm_gbps"),
+            "achieved_over_achievable": named("achieved_over_achievable"),
+            "top_gap_contributor": {p: d["top_gap_contributor"] for p, d in decomp.items()},
+            "compiles": {c["labels"]["program"]: c["value"] for c in snap["counters"]
+                         if c["name"] == "compiles_total"},
+            "report_lines": {k: len(v["text"].splitlines()) for k, v in reports.items()},
+            "perf_report": reports["perf-report"]["text"].splitlines()[:40]}
+
+
+def workspace_bytes(T) -> dict:
+    """Device bytes of the kernels' grown workspaces: K2's split partials,
+    K4's GEMV partials and arrival counters (``ops/_build.grown``)."""
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+
+    return {"decode_attention": T.tree_device_bytes(list(dec_mod._workspaces.values())),
+            "quant_matmul": T.tree_device_bytes(list(qm._partials.values())
+                                                + list(qm._counters.values()))}
+
+
+def param_products(cfg) -> int:
+    """Σ d_in·d_out over a decode step's parameter products (q, k, v, o and
+    the MLP's projections in every layer, and the head)."""
+    mlp = 3 if cfg.mlp == "glu" else 2
+    per_layer = (2 * cfg.d_model * cfg.q_dim + 2 * cfg.d_model * cfg.kv_dim
+                 + mlp * cfg.d_model * cfg.d_ff)
+    return cfg.num_layers * per_layer + cfg.d_model * cfg.vocab_size
+
+
+def step_ledger(snap, program: str) -> dict:
+    """{component: (bytes, flops)} of ``program``'s step scope."""
+    rows = {}
+    for g in snap["gauges"]:
+        lb = g["labels"]
+        if g["name"] in ("cost_ledger_bytes", "cost_ledger_flops") \
+                and lb.get("program") == program and lb.get("scope") == "step":
+            rows.setdefault(lb["component"], {})[g["name"][12:]] = g["value"]
+    return {k: (v.get("bytes", 0.0), v.get("flops", 0.0)) for k, v in rows.items()}
+
+
+def check_step_ledger(label: str, snap, program: str, cfg, batch: int, T) -> dict:
+    """The step scope of ``program``: its matmuls FLOPs exactly ``2·B·Σ
+    d_in·d_out`` (every K4 call reports its products), its bytes at least
+    the int8 weights the step streams (``decode_step_bytes``' parameter term
+    less the float embedding: below it a matmul escaped the ledger), and
+    attention bytes above zero."""
+    step = step_ledger(snap, program)
+    want_flops = 2 * batch * param_products(cfg)
+    int8_weights = cfg.approx_param_count - cfg.vocab_size * cfg.d_model
+    total = sum(b for b, _ in step.values())
+    row = {"program": program, "batch": batch, "matmul_flops": step.get("matmuls", (0, 0))[1],
+           "want_matmul_flops": want_flops, "step_bytes": total,
+           "int8_weight_bytes": int8_weights,
+           "attention_bytes": step.get("attention", (0, 0))[0], "components": step}
+    if row["matmul_flops"] != want_flops or total < int8_weights or not row["attention_bytes"]:
+        fail(f"{label}: the step ledger of {program}: {row}")
+    return row
+
+
+def devtel_full_width(torch, F, p24: dict, held: set, dispatch_s: float,
+                      device_line: str) -> tuple:
+    """Phase 29(b)-(d) on phase 24's llama3-8b int8 weights. (b) A second
+    engine over the same tensors and one served pool of the control shape,
+    each under a fresh memory ledger: the params pool the int8 tree to the
+    byte, the slot cache its tensors' bytes (and the allocator's growth
+    within its rounding), the step ledgers' matmul FLOPs and bytes, the
+    roofline and the gap decomposition. (c) One replica with the autoscaler
+    scaling up on the headroom signal (threshold above the measured
+    fraction) and back down: the retired replica's ledger entries gone, the
+    allocator, the pools and the kernels' workspaces around it logged; and
+    the overload ladder's early clamp at rung 0. (d) Every program the phase
+    ran in ``compiles_total``; a repeated engine call a hit and no compile.
+    Logs each part's row as it ends; returns the launches and the kernel
+    rows."""
+    import gc
+
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.config import (
+        AutoscaleConfig,
+        FleetConfig,
+        IntegrityConfig,
+        ModelSettings,
+        OverloadConfig,
+        ServingConfig,
+    )
+    from fairness_llm_tpu_torch.models.transformer import init_cache
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+    from fairness_llm_tpu_torch.serving import Autoscaler, ContinuousScheduler, ReplicaSet, Request
+
+    base = p24["engine"]
+    cfg = base.config
+    dev = base.device
+    # A second engine over the first one's tensors (the storage dtype kept,
+    # so none is copied).
+    shared = dict(params=base.model.state_dict(), device=dev,
+                  param_dtype=str(base.model.embedding.dtype)[len("torch."):])
+    gate_prompts = [p for call in p24["greedy"].calls for p in call[0]]
+    settings = ModelSettings(temperature=0.0, max_tokens=DEVTEL_TOKENS)
+    T.set_dispatch_s(dispatch_s)
+
+    def done(key: str, row: dict) -> None:
+        log(f"devtel_{key} {json.dumps({'device': device_line, **row}, default=str)}")
+
+    prev = T.set_slo_targets(T.SLOTargets(**FLOOD_SLO))
+    try:
+        zero_all(dec_mod, flash_mod, qm)
+        with flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+            # (b) the engine
+            with T.use_registry() as reg, T.use_timeline(), T.use_memory_ledger() as led:
+                engine = DecodeEngine(cfg, **shared)
+                params = led.pool_bytes("params")
+                if params != int8_tree_bytes(cfg):
+                    fail(f"llama3-8b params pool {params} B != the int8 tree's "
+                         f"{int8_tree_bytes(cfg)} B")
+                t0 = time.perf_counter()
+                out = engine.generate(gate_prompts, settings, share_prefix=False)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                snap = T.snapshot(reg)
+                eng_row = check_step_ledger("llama3-8b engine", snap, "decode", cfg,
+                                            out.stats["batch"], T)
+                hits = reg.read_value("compile_cache_hits_total", component="compile",
+                                      program="decode")
+                compiles = reg.read_value("compiles_total", component="compile",
+                                          program="decode", reason="shape")
+                t0 = time.perf_counter()
+                engine.generate(gate_prompts, settings, share_prefix=False)
+                torch.cuda.synchronize()
+                again_s = time.perf_counter() - t0
+                snap = T.snapshot(reg)
+                hits2 = reg.read_value("compile_cache_hits_total", component="compile",
+                                       program="decode")
+                compiles2 = reg.read_value("compiles_total", component="compile",
+                                           program="decode", reason="shape")
+                if compiles != 1 or compiles2 != 1 or hits2 != (hits or 0) + 1:
+                    fail(f"llama3-8b engine compile stats: compiles {compiles} -> {compiles2}, "
+                         f"hits {hits} -> {hits2}")
+                decomp = T.gap_decomposition(snap)
+                eng_row.update({
+                    "params_bytes": params, "first_call_s": first_s, "second_call_s": again_s,
+                    "decode_s": out.stats["decode_s"], "decode_steps": out.stats["decode_steps"],
+                    "achieved_hbm_gbps": reg.read_value("achieved_hbm_gbps",
+                                                        component="roofline", program="decode"),
+                    "achieved_over_achievable": reg.read_value(
+                        "achieved_over_achievable", component="roofline", program="decode"),
+                    "decode_step_bytes": reg.read_value("decode_step_bytes",
+                                                        component="roofline", program="decode"),
+                    "gap": {p: {k: d[k] for k in ("wall_s", "floor_s", "dispatch_s",
+                                                  "compile_s", "unattributed_s", "host_gap_s",
+                                                  "top_gap_contributor")}
+                            for p, d in decomp.items()},
+                    "compiles_then_hits": [compiles, compiles2, hits, hits2],
+                    "reconciliation": led.reconcile()})
+                done("engine", eng_row)
+                del engine
+            gc.collect()
+            # (b) one served pool, (d) its programs
+            with T.use_registry() as reg, T.use_timeline(), T.use_memory_ledger() as led:
+                engine = DecodeEngine(cfg, **shared)
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                sched = ContinuousScheduler(engine, ServingConfig(**CONTROL_SERVING),
+                                            settings=settings)
+                torch.cuda.synchronize()
+                grew = torch.cuda.memory_allocated() - before
+                kv = led.pool_bytes("kv_contiguous")
+                tree = T.tree_device_bytes(init_cache(cfg, sched.num_slots, sched.cache_len,
+                                                      device=dev))
+                logits = led.pool_bytes("logits_carry")
+                # The allocator's growth: the pool and the logits, rounded
+                # per block, within 1%.
+                if kv != tree or not 0 <= grew - kv - logits <= 0.01 * (kv + logits):
+                    fail(f"llama3-8b pool: kv_contiguous {kv} B, its tensors {tree} B, the "
+                         f"allocator grew {grew} B (with {logits} B of logits)")
+                t0 = time.perf_counter()
+                res = sched.serve([Request(prompt=p, id=f"d{i:02d}", settings=settings)
+                                   for i, p in enumerate(gate_prompts)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if not all(r.ok for r in res):
+                    fail("llama3-8b device-telemetry serve: a request failed")
+                snap = T.snapshot(reg)
+                pool_row = check_step_ledger("llama3-8b pool", snap, "serve_step", cfg,
+                                             sched.num_slots, T)
+                compiled = {c["labels"]["program"] for c in snap["counters"]
+                            if c["name"] == "compiles_total"}
+                if compiled != {"serve_prefill", "serve_step"} or T.check_costmodel(snap):
+                    fail(f"llama3-8b pool: compiled {compiled}, cost gate "
+                         f"{T.check_costmodel(snap)}")
+                decomp = T.gap_decomposition(snap)
+                pool_row.update({
+                    "kv_contiguous_bytes": kv, "cache_tensor_bytes": tree,
+                    "allocator_growth_bytes": grew, "logits_carry_bytes": logits,
+                    "serve_wall_s": wall,
+                    "achieved_hbm_gbps": reg.read_value("achieved_hbm_gbps",
+                                                        component="roofline",
+                                                        program="serve_step"),
+                    "achieved_over_achievable": reg.read_value(
+                        "achieved_over_achievable", component="roofline", program="serve_step"),
+                    "gap": {p: {k: d[k] for k in ("wall_s", "floor_s", "dispatch_s",
+                                                  "compile_s", "unattributed_s", "host_gap_s",
+                                                  "top_gap_contributor")}
+                            for p, d in decomp.items()},
+                    "compiled": sorted(compiled), "reconciliation": led.reconcile()})
+                done("pool", pool_row)
+                sched.release_memory()
+                if led.entries(f"{sched._mem_handle}:"):
+                    fail("llama3-8b pool: release_memory left ledger entries")
+                del sched, engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            # (c) the fleet's memory and the headroom signals
+            with T.use_registry() as reg, T.use_timeline(), T.use_incident_manager(), \
+                    T.use_memory_ledger() as led:
+                engine = DecodeEngine(cfg, **shared)
+                fleet = ReplicaSet(engine, ServingConfig(**CONTROL_SERVING), settings=settings,
+                                   fleet=FleetConfig(replicas=1), integrity=IntegrityConfig())
+                fleet.serve([Request(prompt=p, id=f"w{i:02d}", settings=settings)
+                             for i, p in enumerate(gate_prompts[:4])])
+                gc.collect()
+                torch.cuda.synchronize()
+                frac = led.headroom_frac()
+                cfg_up = AutoscaleConfig(enabled=True, min_replicas=1, max_replicas=2,
+                                         up_burn_threshold=1e9, up_queue_frac=1e9,
+                                         up_overload_level=0,
+                                         up_headroom_frac=min(1.0, frac + 0.05),
+                                         up_window_s=0.0, down_window_s=0.0, cooldown_s=0.0,
+                                         eval_interval_s=0.0)
+                scaler = fleet.autoscaler = Autoscaler(fleet, cfg_up)
+                reasons, retired = [], []
+                real_up, real_retire = scaler._scale_up, fleet.retire_replica
+                scaler._scale_up = lambda reason, sig, now: (reasons.append(reason),
+                                                             real_up(reason, sig, now))[1]
+                fleet.retire_replica = lambda rep: (retired.append(rep),
+                                                    real_retire(rep))[1]
+
+                def point():
+                    torch.cuda.synchronize()
+                    gc.collect()
+                    return {"allocated": torch.cuda.memory_allocated(),
+                            "pools": {p: led.pool_bytes(p) for p in T.POOLS},
+                            "ledger_total": led.total_bytes(), "workspaces": workspace_bytes(T)}
+
+                mem = {"before_scale_up": point()}
+                up = scaler.tick(now=1.0)
+                mem["with_standby"] = point()
+                scaler.config = dataclasses.replace(cfg_up, up_headroom_frac=0.0)
+                down = scaler.tick(now=2.0)
+                mem["after_retirement"] = point()
+                left = led.entries(f"{retired[0].sched._mem_handle}:") if retired else None
+                elastic = {"headroom_frac": frac, "up_headroom_frac": cfg_up.up_headroom_frac,
+                           "actions": [up, down], "reasons": reasons,
+                           "retired": [r.name for r in retired], "memory": mem,
+                           "allocated_delta_bytes": mem["after_retirement"]["allocated"]
+                           - mem["before_scale_up"]["allocated"],
+                           "ledger_delta_bytes": mem["after_retirement"]["ledger_total"]
+                           - mem["before_scale_up"]["ledger_total"]}
+                if [up, down] != ["up", "down"] or not reasons \
+                        or not reasons[0].startswith("hbm_headroom") or left != {}:
+                    fail(f"llama3-8b headroom autoscale: {elastic}, entries left {left}")
+                del fleet, scaler
+                gc.collect()
+                # the overload ladder's early clamp, at rung 0
+                over = OverloadConfig(enabled=True,
+                                      headroom_cap_frac=min(1.0, led.headroom_frac() + 0.05),
+                                      batch_token_cap=DEVTEL_BATCH_CAP)
+                sched = ContinuousScheduler(engine, ServingConfig(**CONTROL_SERVING),
+                                            settings=settings, overload=over)
+                reqs = [Request(prompt=p, id=f"o{i}", settings=settings, qos=q)
+                        for i, (p, q) in enumerate(zip(gate_prompts, ("batch", "interactive")))]
+                res = sched.serve(reqs)
+                clamp = {"level": sched.shed_controller.level,
+                         "tokens": {r.id: len(r.tokens) for r in res},
+                         "headroom_cap_frac": over.headroom_cap_frac}
+                if clamp["level"] != 0 or clamp["tokens"] != {"o0": DEVTEL_BATCH_CAP,
+                                                              "o1": DEVTEL_TOKENS}:
+                    fail(f"llama3-8b overload headroom clamp: {clamp}")
+                elastic["overload_clamp"] = clamp
+                sched.release_memory()
+                done("fleet", elastic)
+                del sched, engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches = overload_counts(dec_mod, flash_mod, qm)
+        need_launches(launches, ("flash_attention", "decode_attention", "quant_matmul_gemv",
+                                 "quant_matmul_gemm"), "device telemetry")
+        keep = rehold(recs, held, qm)
+        kernel_rows = paged_rows(recs, torch, F, qm, "devtel_full_width", False, keep)
+        held |= keep
+    finally:
+        T.set_dispatch_s(None)
+        T.set_slo_targets(prev)
+    return launches, kernel_rows
+
+
+def devtel_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
+    """Phase 29. Returns each kernels-line entry's launches on the phase's
+    in-process runs (FULL_WIDTH; the CLI run's child launches its own) and
+    the rows of its kernel calls; frees phase 24's full-width engine."""
+    import gc
+    import tempfile
+
+    copy = measure_copy_gbps(torch)
+    dispatch_s = measure_dispatch_s(torch)
+    refs = {"device": device_line, "copy": copy, "data_sheet_gbps": 3350.0,
+            "dispatch_s": dispatch_s}
+    log(f"devtel_references {json.dumps(refs)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        row = devtel_cli_run(torch, pathlib.Path(tmp), copy["gbps"],
+                             p24["t07_paged"][STUDY_MODELS[0]])
+        log(f"devtel_cli {json.dumps({'device': device_line, **row})}")
+    launches, rows = devtel_full_width(torch, F, p24["full_width"], held, dispatch_s,
+                                       device_line)
+    del p24["full_width"]["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {FULL_WIDTH: launches}, "rows": rows}
 
 
 def main() -> int:
@@ -4765,6 +5244,9 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet = fleet_path(torch, F, device_line, p24, paged["held"])
     log(f"fleet_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    devtel = devtel_path(torch, F, device_line, p24, paged["held"])
+    log(f"devtel_path_s {time.perf_counter() - t0:.1f}")
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -4804,6 +5286,10 @@ def main() -> int:
                                    for path, counts in fleet["launches"].items()}
         if entry["name"] in fleet["rows"]:
             entry["fleet_shapes"] = fleet["rows"][entry["name"]]
+        entry["devtel_launches"] = {path: counts[entry["name"]]
+                                    for path, counts in devtel["launches"].items()}
+        if entry["name"] in devtel["rows"]:
+            entry["devtel_shapes"] = devtel["rows"][entry["name"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

@@ -7,8 +7,9 @@
 
 The flags keep the reference's meaning and checks. ``--device`` (default
 ``cuda``) is the port's counterpart of the reference's ``JAX_PLATFORMS``.
-Phase 1 also writes its text report; the reference's matplotlib figures
-are not ported (the CLI logs so). ``--continuous`` serves engine backends
+Phase 1 also writes its text report; each phase writes its figures under
+``<results-dir>/visualizations`` where matplotlib is installed (the CLI
+logs that they were skipped where it is not). ``--continuous`` serves engine backends
 through the continuous-batching scheduler (``--slots``, ``--fuse-steps``,
 and ``--paged-kv`` with ``--kv-block-size``/``--kv-blocks`` for the paged
 KV cache with prefix reuse). ``--telemetry-dir`` streams ``events.jsonl``
@@ -37,25 +38,32 @@ The replica fleet (``serving/fleet.py``, with ``--continuous``):
 (``--fence-level``, ``--fence-cooldown``), and ``--autoscale`` makes their
 number a control loop (``--min-replicas``, ``--max-replicas``).
 
+The device-facing telemetry (``telemetry/memory.py``, ``roofline.py``,
+``costmodel.py``, ``compilestats.py``) records with every run;
+``--achievable-gbps`` sets the roofline's reference bandwidth (default: the
+card's data-sheet figure, ``roofline.CARDS``).
+
 Subcommands: ``telemetry-report <dir>`` (``--validate``, ``--timeline``,
-``--require-fleet``, ``--require-autoscale``, ``--require-rollout``),
-``slo-report <dir>`` (``--fail-on-burn``) and ``fairness-report <dir>``
-(``--fail-on-alert``, ``--validate``) render a snapshot;
+``--require-fleet``, ``--require-autoscale``, ``--require-rollout``,
+``--require-costmodel``, ``--require-memory``), ``perf-report <dir>`` and
+``memory-report <dir>`` (``--require-ledger``), ``slo-report <dir>``
+(``--fail-on-burn``) and ``fairness-report <dir>`` (``--fail-on-alert``,
+``--validate``) render a snapshot;
 ``incident-report <dir>`` renders bundles; ``resume-serving <journal-dir>
 --model NAME`` re-serves a drained run's unfinished requests; ``rollout
 --model NAME --weights-dir DIR --to-checkpoint DIR`` walks a fleet to a new
 version under live traffic (exit 0 complete, 2 rolled back, 1 requests
 lost).
 
-Tensor-parallel serving (``--tp``), device meshes (``--mesh``) and the
-roofline's ``--achievable-gbps`` raise ``NotImplementedError`` (ROADMAP A5,
-A7(b), A8).
+Tensor-parallel serving (``--tp``) and device meshes (``--mesh``) raise
+``NotImplementedError`` (ROADMAP A5, A8).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import logging
 import os
 import sys
@@ -261,7 +269,10 @@ def build_parser() -> argparse.ArgumentParser:
     for flag, kw in (("--tp", dict(type=int)), ("--mesh", dict(default=None))):
         p.add_argument(flag, help="not ported yet (ROADMAP A5, A8)", **kw)
     p.add_argument("--achievable-gbps", type=float, default=None,
-                   help="not ported yet: the roofline gauges (ROADMAP A7(b))")
+                   help="measured achievable device-memory bandwidth (GB/s) for the live "
+                        "achieved_over_achievable roofline gauges (default: the card's "
+                        "data-sheet figure, 3,350 on an H100 80GB HBM3; a nominal 16 on the "
+                        "CPU, indicative only)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -276,18 +287,20 @@ def config_from_args(args: argparse.Namespace) -> Config:
             raise NotImplementedError(
                 f"{flag}: tensor-parallel serving and device meshes are not ported yet "
                 "(ROADMAP A5, A8)")
-    if args.achievable_gbps is not None:
-        raise NotImplementedError("--achievable-gbps: the roofline gauges are not ported "
-                                  "yet (ROADMAP A7(b))")
     config = default_config()
     updates: Dict = {}
-    slo_flags = (args.slo_ttft_p95, args.slo_e2e_p99, args.slo_error_rate)
-    if args.fairness_obs or args.trace_out or any(v is not None for v in slo_flags):
+    attribution_flags = (args.slo_ttft_p95, args.slo_e2e_p99, args.slo_error_rate,
+                         args.achievable_gbps)
+    if args.fairness_obs or args.trace_out or any(v is not None for v in attribution_flags):
         tel_kwargs: Dict = {}
         if args.fairness_obs:
             tel_kwargs["fairness_obs"] = True
         if args.trace_out:
             tel_kwargs["trace_out"] = args.trace_out
+        if args.achievable_gbps is not None:
+            if args.achievable_gbps <= 0:
+                raise SystemExit("--achievable-gbps must be > 0")
+            tel_kwargs["achievable_gbps"] = args.achievable_gbps
         for val, field, flag in ((args.slo_ttft_p95, "slo_ttft_p95_s", "--slo-ttft-p95"),
                                  (args.slo_e2e_p99, "slo_e2e_p99_s", "--slo-e2e-p99"),
                                  (args.slo_error_rate, "slo_error_rate", "--slo-error-rate")):
@@ -468,10 +481,13 @@ def telemetry_report(argv) -> int:
     recorded fairness instruments and the rollout section when it drove a
     rollout. ``--validate`` first checks the snapshot's schema and
     percentiles and exits 1 on problems; ``--require-fleet``,
-    ``--require-autoscale`` and ``--require-rollout`` add the reference
-    validator's failover, elastic-cycle and rollout gates (``check_fleet``,
-    ``check_autoscale``, ``check_rollout``) and imply ``--validate``;
-    ``--timeline`` also summarizes the ``trace.json`` beside it."""
+    ``--require-autoscale``, ``--require-rollout``, ``--require-costmodel``
+    and ``--require-memory`` add the reference validator's failover,
+    elastic-cycle, rollout, cost-ledger and memory gates (``check_fleet``,
+    ``check_autoscale``, ``check_rollout``, ``check_costmodel``,
+    ``check_memory``) and imply ``--validate``. The cost-ledger and memory
+    sections ride along when the run recorded them; ``--timeline`` also
+    summarizes the ``trace.json`` beside it."""
     import json
 
     from fairness_llm_tpu_torch.serving.autoscaler import check_autoscale
@@ -480,8 +496,14 @@ def telemetry_report(argv) -> int:
 
     from fairness_llm_tpu_torch.telemetry import (
         TRACE_FILENAME,
+        check_costmodel,
+        check_memory,
+        has_cost_data,
+        has_memory_data,
         load_snapshot,
+        render_cost_report,
         render_fairness_report,
+        render_memory_report,
         render_report,
         summarize_chrome_trace,
         validate_snapshot,
@@ -506,15 +528,24 @@ def telemetry_report(argv) -> int:
     ap.add_argument("--require-rollout", action="store_true",
                     help="with --validate: a rollout completed and one rolled back through a "
                          "named gate, every rollout terminal, migration balanced")
+    ap.add_argument("--require-costmodel", action="store_true",
+                    help="with --validate: every program in compiles_total published a "
+                         "nonzero cost ledger, and the gap attribution has a wall and a floor")
+    ap.add_argument("--require-memory", action="store_true",
+                    help="with --validate: the params pool and a KV pool are accounted, the "
+                         "ledger fits its limit, and every program published its memory")
     a = ap.parse_args(argv)
-    a.validate = a.validate or a.require_fleet or a.require_autoscale or a.require_rollout
+    a.validate = (a.validate or a.require_fleet or a.require_autoscale or a.require_rollout
+                  or a.require_costmodel or a.require_memory)
     snap = load_snapshot(a.path)
     if a.validate:
         # Before rendering: the renderer assumes a well-formed snapshot.
         problems = validate_snapshot(snap)
         for wanted, check in ((a.require_fleet, check_fleet),
                               (a.require_autoscale, check_autoscale),
-                              (a.require_rollout, check_rollout)):
+                              (a.require_rollout, check_rollout),
+                              (a.require_costmodel, check_costmodel),
+                              (a.require_memory, check_memory)):
             if wanted:
                 problems = problems + check(snap)
         if problems:
@@ -523,6 +554,10 @@ def telemetry_report(argv) -> int:
                 print(f"  - {p}")
             return 1
     print(render_report(snap))
+    if has_cost_data(snap):
+        print("\n" + render_cost_report(snap))
+    if has_memory_data(snap):
+        print("\n" + render_memory_report(snap))
     if any(row.get("labels", {}).get("component") == "fairness"
            for section in ("counters", "gauges") for row in snap.get(section, [])):
         print("\n" + render_fairness_report(snap))
@@ -541,6 +576,54 @@ def telemetry_report(argv) -> int:
     if a.validate:
         print("\nsnapshot schema: OK")
     return 0
+
+
+def perf_report(argv) -> int:
+    """``perf-report <dir | snapshot.json>``: the decode cost ledger and the
+    per-program gap attribution a run recorded (``telemetry/costmodel.py``):
+    each program's bytes and FLOPs per component, its floor, and ``measured
+    wall + host gap = floor + dispatch + compile + unattributed + host
+    gap`` with the top gap contributor. ``--require-ledger`` exits 1 when
+    the snapshot holds no ledger."""
+    from fairness_llm_tpu_torch.telemetry import has_cost_data, load_snapshot, render_cost_report
+
+    ap = argparse.ArgumentParser(prog="fairness_llm_tpu_torch perf-report",
+                                 description="Render the decode cost ledger / gap attribution "
+                                             "from a telemetry snapshot")
+    ap.add_argument("path", help="telemetry dir (uses telemetry_snapshot.json inside) or a "
+                                 "snapshot file")
+    ap.add_argument("--require-ledger", action="store_true",
+                    help="exit non-zero when the snapshot has no cost-ledger data")
+    a = ap.parse_args(argv)
+    snap = load_snapshot(a.path)
+    print(render_cost_report(snap))
+    return 1 if a.require_ledger and not has_cost_data(snap) else 0
+
+
+def memory_report(argv) -> int:
+    """``memory-report <dir | snapshot.json>``: the device-memory ledger a
+    run recorded (``telemetry/memory.py``): bytes by pool (params, KV slot
+    pool or paged arena, prefix cache, carried logits, other), the
+    reconciliation against the allocator (``measured`` on the card,
+    ``indicative`` on the CPU), the headroom, and each program's memory.
+    ``--require-ledger`` exits 1 when the snapshot holds no ledger."""
+    from fairness_llm_tpu_torch.telemetry import (
+        has_memory_data,
+        load_snapshot,
+        render_memory_report,
+    )
+
+    ap = argparse.ArgumentParser(prog="fairness_llm_tpu_torch memory-report",
+                                 description="Render the device-memory ledger from a telemetry "
+                                             "snapshot")
+    ap.add_argument("path", help="telemetry dir (uses telemetry_snapshot.json inside) or a "
+                                 "snapshot file")
+    ap.add_argument("--require-ledger", action="store_true",
+                    help="exit non-zero when the snapshot has no memory-ledger data")
+    a = ap.parse_args(argv)
+    snap = load_snapshot(a.path)
+    print(render_memory_report(snap))
+    return 1 if a.require_ledger and not has_memory_data(snap) else 0
 
 
 def slo_report(argv) -> int:
@@ -904,6 +987,10 @@ def main(argv=None) -> int:
     # required and would refuse them).
     if argv and argv[0] == "telemetry-report":
         return telemetry_report(argv[1:])
+    if argv and argv[0] == "perf-report":
+        return perf_report(argv[1:])
+    if argv and argv[0] == "memory-report":
+        return memory_report(argv[1:])
     if argv and argv[0] == "slo-report":
         return slo_report(argv[1:])
     if argv and argv[0] == "fairness-report":
@@ -918,6 +1005,11 @@ def main(argv=None) -> int:
     from fairness_llm_tpu_torch.pipeline.phase2 import print_phase2_summary, run_phase2
     from fairness_llm_tpu_torch.pipeline.phase3 import print_phase3_summary, run_phase3
     from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.reports.figures import (
+        generate_phase1_figures,
+        generate_phase2_figure,
+        generate_phase3_figure,
+    )
     from fairness_llm_tpu_torch.reports.report import generate_summary_report
     from fairness_llm_tpu_torch.resilience import GracefulDrain
     from fairness_llm_tpu_torch.telemetry.incidents import INCIDENTS_DIRNAME
@@ -940,7 +1032,11 @@ def main(argv=None) -> int:
     if args.incidents and not args.telemetry_dir:
         raise SystemExit("--incidents requires --telemetry-dir (bundles dump under "
                          "<telemetry-dir>/incidents)")
-    telemetry_sink = T.configure(args.telemetry_dir) if args.telemetry_dir else None
+    telemetry_sink = None
+    if args.telemetry_dir:
+        # configure arms the per-program memory capture: for this run only.
+        prev_capture = T.set_program_memory_capture(True)
+        telemetry_sink = T.configure(args.telemetry_dir)
     if args.incidents:
         T.arm_incidents(os.path.join(args.telemetry_dir, INCIDENTS_DIRNAME))
 
@@ -962,6 +1058,10 @@ def main(argv=None) -> int:
     prev_targets = T.set_slo_targets(T.SLOTargets(
         ttft_p95_s=tc.slo_ttft_p95_s, e2e_p99_s=tc.slo_e2e_p99_s, error_rate=tc.slo_error_rate,
         fast_window_s=tc.slo_fast_window_s, slow_window_s=tc.slo_slow_window_s))
+    # The roofline's reference bandwidth, for this run only.
+    if tc.achievable_gbps:
+        T.set_achievable_gbps(tc.achievable_gbps)
+    figures = save and importlib.util.find_spec("matplotlib") is not None
     try:
         for phase in phases:
             if drain_handler is not None and drain_handler.requested:
@@ -977,6 +1077,8 @@ def main(argv=None) -> int:
                     if save:
                         generate_summary_report(
                             p1, f"{config.results_dir}/phase1/phase1_summary_report.txt")
+                    if figures:
+                        generate_phase1_figures(p1, f"{config.results_dir}/visualizations")
                 elif phase == 2:
                     p2 = run_phase2(config,
                                     args.models or ([args.model] if args.model else None),
@@ -984,6 +1086,8 @@ def main(argv=None) -> int:
                                     corpus=args.corpus, num_queries=args.num_queries,
                                     device=args.device)
                     print_phase2_summary(p2)
+                    if figures:
+                        generate_phase2_figure(p2, f"{config.results_dir}/visualizations")
                 else:
                     p3 = run_phase3(config, phase1_results=p1, model_name=args.model,
                                     num_profiles=args.profiles, variant=args.variant,
@@ -993,16 +1097,20 @@ def main(argv=None) -> int:
                                     confidence_temperature=args.confidence_temperature,
                                     device=args.device)
                     print_phase3_summary(p3)
-                if save:
-                    logger.info("phase %d figures are not ported (the card's machine has "
-                                "no matplotlib; ROADMAP A6)", phase)
+                    if figures:
+                        generate_phase3_figure(p3, f"{config.results_dir}/visualizations")
+                if save and not figures:
+                    logger.info("phase %d figures skipped: matplotlib is not installed", phase)
     finally:
         T.set_slo_targets(prev_targets)
+        if tc.achievable_gbps:
+            T.set_achievable_gbps(None)
         if drain_handler is not None:
             drain_handler.uninstall()
         if telemetry_sink is not None:
             T.install_event_sink(None)
             telemetry_sink.close()
+            T.set_program_memory_capture(prev_capture)
     if drain_handler is not None and drain_handler.requested:
         print("\nNOTE: the run was drained by a signal; unfinished serving requests (with "
               "--serving-journal) finish with: resume-serving <journal-dir> --model NAME")

@@ -132,16 +132,10 @@ class OverloadConfig:
     # Rung 2: batch requests' max_new_tokens clamp.
     batch_token_cap: int = 32
     retry_after_s: float = 1.0  # base retry-after hint of a class shed
-    # The reference's early clamp on measured HBM headroom reads its memory
-    # ledger (ROADMAP A7(b)); 0 keeps the ladder purely load-driven, and a
-    # value above 0 is refused until that ledger is ported.
+    # Opt-in (> 0): the rung-2 batch clamp also engages before rung 2 while
+    # the memory ledger's device headroom fraction is at or under this
+    # (telemetry/memory.py); 0 keeps the ladder purely load-driven.
     headroom_cap_frac: float = 0.0
-
-    def __post_init__(self) -> None:
-        if self.headroom_cap_frac > 0:
-            raise NotImplementedError(
-                "OverloadConfig.headroom_cap_frac reads the memory ledger, which is not "
-                "ported yet (ROADMAP A7(b))")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,9 +176,9 @@ class AutoscaleConfig:
     migration path. At most one change per ``cooldown_s``; membership stays
     in [``min_replicas``, ``max_replicas``].
 
-    ``up_headroom_frac`` > 0 makes measured device-memory headroom a hot
-    signal in the reference; it reads the memory ledger, which is not
-    ported yet (ROADMAP A7(b)), so a value above 0 is refused.
+    ``up_headroom_frac`` > 0 makes device-memory headroom a hot signal:
+    the memory ledger's headroom fraction (``telemetry/memory.py``) at or
+    under it; with no known limit the signal has no opinion.
     """
 
     enabled: bool = False
@@ -206,12 +200,6 @@ class AutoscaleConfig:
     down_window_s: float = 5.0
     cooldown_s: float = 2.0  # least seconds between membership changes
     eval_interval_s: float = 0.25  # least seconds between controller steps
-
-    def __post_init__(self) -> None:
-        if self.up_headroom_frac > 0:
-            raise NotImplementedError(
-                "AutoscaleConfig.up_headroom_frac reads the memory ledger, which is not "
-                "ported yet (ROADMAP A7(b))")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,8 +235,9 @@ class TelemetryConfig:
     monitor (``telemetry/fairness.py``): the phases register their profile
     grid and counterfactual pairs, sweep requests carry study tags, and the
     streaming DP/IF/exposure gauges, the pair watch and the
-    serving-neutrality audit record live. The reference's
-    ``achievable_gbps`` belongs to the roofline (ROADMAP A7(b)).
+    serving-neutrality audit record live. ``achievable_gbps`` is the
+    roofline's reference bandwidth (``telemetry/roofline.py``): a measured
+    figure in place of the card's data-sheet one.
     """
 
     trace_out: Optional[str] = None
@@ -258,6 +247,7 @@ class TelemetryConfig:
     slo_error_rate: float = 0.01
     slo_fast_window_s: float = 60.0
     slo_slow_window_s: float = 600.0
+    achievable_gbps: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -128,6 +128,8 @@ class CanaryProbe:
             row = np.full((max_tokens,), pad, np.int32)
             row[:len(res.tokens)] = res.tokens
             rows.append(row)
+        # The private pool is done: its tensors and ledger entries go.
+        sched.release_memory()
         alternates = [r for r in rows[1:] if not np.array_equal(r, rows[0])]
         return cls(prompt, rows[0], settings, pad, every_n=every_n, board=board,
                    component=component, alternates=alternates)

@@ -56,6 +56,7 @@ from fairness_llm_tpu_torch.models.configs import ModelConfig
 from fairness_llm_tpu_torch.ops import decode_attention as decode_ops
 from fairness_llm_tpu_torch.ops import flash_attention as flash_ops
 from fairness_llm_tpu_torch.ops import quant_matmul as quant_ops
+from fairness_llm_tpu_torch.telemetry import costmodel
 
 
 def dtype_of(config: ModelConfig) -> torch.dtype:
@@ -98,12 +99,13 @@ def _cache_write(buf: torch.Tensor, upd: torch.Tensor, index: int,
     ``[index, index + S)`` of every row, or ``[off[b], off[b] + S)`` of row
     b when ``write_offsets`` is given."""
     S = upd.shape[1]
-    if write_offsets is None:
-        buf[:, index:index + S] = upd
-        return
-    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
-    slots = write_offsets.long()[:, None] + torch.arange(S, device=buf.device)[None, :]
-    buf[rows, slots] = upd.to(buf.dtype)
+    with costmodel.component("kv_rw"):
+        if write_offsets is None:
+            buf[:, index:index + S] = upd
+            return
+        rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        slots = write_offsets.long()[:, None] + torch.arange(S, device=buf.device)[None, :]
+        buf[rows, slots] = upd.to(buf.dtype)
 
 
 def check_write_offsets(offsets, S: int, max_len: int) -> None:

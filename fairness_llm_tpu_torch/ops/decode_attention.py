@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from fairness_llm_tpu_torch.ops import _build
+from fairness_llm_tpu_torch.telemetry import costmodel
 
 NEG_INF = -1e30
 
@@ -214,7 +215,42 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, H, D] (3-D q) or [B, Q, H, D] (4-D q) attention output; see the
     module docstring. ``q_offsets`` is read only for 4-D q, as the
-    reference reads it."""
+    reference reads it. Under a cost walk the call charges
+    ``decode_cost`` to ``attention``."""
+    if costmodel.walk_active():
+        with costmodel.kernel_cost("attention", lambda: decode_cost(
+                q, k, valid, shared_kv, k_scale, q_offsets)):
+            return _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets)
+    return _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets)
+
+
+def decode_cost(q, k, valid, shared_kv: SharedKV = None, k_scale=None,
+                q_offsets=None) -> Tuple[int, int]:
+    """(bytes, operations) this input needs: q and the output; k/v (and
+    their int8 scales) of every cache slot some query sees; the prefix; the
+    validity mask; the offsets. 4*D operations per visible (query, key)
+    pair per head. The counts behind the kernels' bound, which the cost
+    ledger charges for a call (``telemetry/costmodel.kernel_cost``)."""
+    multi, quant = q.dim() == 4, k_scale is not None
+    B, D, H = q.shape[0], q.shape[-1], q.shape[-2]
+    Q = q.shape[1] if multi else 1
+    L, Hkv = k.shape[1], k.shape[2]
+    P = 0 if shared_kv is None else shared_kv[0].shape[0]
+    sees = valid.bool()[:, None, :].expand(B, Q, L)
+    if multi:
+        dev = valid.device
+        last = q_offsets.long()[:, None, None] + torch.arange(Q, device=dev)[None, :, None]
+        sees = sees & (torch.arange(L, device=dev)[None, None, :] <= last)
+    needed = int(sees.any(1).sum())
+    pairs = int(sees.sum()) + B * Q * P
+    item = q.element_size()
+    nbytes = (2 * q.numel() * item + 2 * needed * Hkv * D * k.element_size()
+              + (2 * needed * Hkv * 4 if quant else 0) + 2 * P * Hkv * D * item + B * L
+              + (4 * B if multi else 0))
+    return nbytes, 4 * D * H * pairs
+
+
+def _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) -> torch.Tensor:
     _check(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets)
     multi = q.dim() == 4
     quant = k_scale is not None

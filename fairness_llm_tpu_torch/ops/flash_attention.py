@@ -20,11 +20,12 @@ D is a width the kernel takes; otherwise q/k/v are copied, zero-padded.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from fairness_llm_tpu_torch.ops import _build
+from fairness_llm_tpu_torch.telemetry import costmodel
 
 NEG_INF = -1e30
 
@@ -84,10 +85,40 @@ def _check(q, k, v, lengths):
         raise ValueError(f"q/k/v must share a dtype of {list(_DTYPES)}")
 
 
+def flash_cost(q: torch.Tensor, k: torch.Tensor, lengths: torch.Tensor, causal: bool = True,
+               window: Optional[int] = None) -> Tuple[int, int]:
+    """(bytes, operations) this input needs: q, and k/v at the valid
+    positions, read once, the output written whole, the lengths; 4*D
+    operations per visible (query, key) pair per head. The counts behind
+    the kernel's bound, which the cost ledger charges for a call
+    (``telemetry/costmodel.kernel_cost``)."""
+    B, H, S, D = q.shape
+    pairs = 0
+    lens = [int(n) for n in lengths.tolist()]
+    for n in lens:
+        if not causal:
+            pairs += n * (n if window is None else min(n, window))
+        elif window is None or n <= window:
+            pairs += n * (n + 1) // 2
+        else:
+            pairs += window * (window + 1) // 2 + (n - window) * window
+    nbytes = (sum(lens) * (H + 2 * k.shape[1]) * D + q.numel()) * q.element_size() + 4 * B
+    return nbytes, 4 * D * H * pairs
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lengths: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """[B, H, S, D] attention output; see the module docstring."""
+    """[B, H, S, D] attention output; see the module docstring. Under a
+    cost walk the call charges ``flash_cost`` to ``attention``."""
+    if costmodel.walk_active():
+        with costmodel.kernel_cost("attention",
+                                   lambda: flash_cost(q, k, lengths, causal, window)):
+            return _flash_attention(q, k, v, lengths, causal, window)
+    return _flash_attention(q, k, v, lengths, causal, window)
+
+
+def _flash_attention(q, k, v, lengths, causal, window) -> torch.Tensor:
     _check(q, k, v, lengths)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, lengths, causal, window)

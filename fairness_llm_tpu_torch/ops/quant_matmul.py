@@ -48,6 +48,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from fairness_llm_tpu_torch.ops import _build
+from fairness_llm_tpu_torch.telemetry import costmodel
 
 #: Largest M that takes the GEMV regime.
 GEMV_MAX_M = 64
@@ -309,11 +310,33 @@ def _gemv(x: torch.Tensor, mats, out_dtype: torch.dtype) -> Sequence[torch.Tenso
     return [out] if len(mats) == 1 else out.split(rec.Ns, 1)
 
 
+def quant_matmul_cost(x: torch.Tensor, mats: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                      out_dtype: torch.dtype) -> Tuple[int, int]:
+    """(bytes, operations) of ``x [M, K]`` against the int8 weights of
+    ``mats``: the weights, their f32 scales, x and the outputs each moved
+    once; 2*M*K*N operations. The counts behind the kernel's bound, which
+    the cost ledger charges for a call (``telemetry/costmodel.
+    kernel_cost``)."""
+    M, K = x.shape[0], x.shape[-1]
+    N = sum(int(wq.shape[1]) for wq, _ in mats)
+    out_item = torch.finfo(out_dtype).bits // 8
+    return K * N + 4 * N + M * K * x.element_size() + M * N * out_item, 2 * M * K * N
+
+
 def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x [M, K] @ dequant(wq [K, N], scale [N]) -> [M, N]`` in
-    ``out_dtype`` (default x's); see the module docstring."""
+    ``out_dtype`` (default x's); see the module docstring. Under a cost
+    walk the call charges ``quant_matmul_cost`` to ``matmuls``."""
     out_dtype = out_dtype or x.dtype
+    if costmodel.walk_active():
+        with costmodel.kernel_cost("matmuls",
+                                   lambda: quant_matmul_cost(x, ((wq, scale),), out_dtype)):
+            return _quant_matmul(x, wq, scale, out_dtype)
+    return _quant_matmul(x, wq, scale, out_dtype)
+
+
+def _quant_matmul(x, wq, scale, out_dtype) -> torch.Tensor:
     if (x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.dim() == 2
             and 0 < x.shape[0] <= GEMV_MAX_M):
         return _gemv(x, ((wq, scale),), out_dtype)[0]
@@ -358,8 +381,16 @@ def quant_matmul_group(x: torch.Tensor, mats: Sequence[Tuple[torch.Tensor, torch
     1-3 weights with one K (q/k/v, gate/up). In the GEMV regime with bf16 x
     it is one gemv_stream_tc launch whose tile steps span every weight, the
     outputs column views of one buffer; else one ``quant_matmul`` call a
-    weight. The weights stay separate tensors."""
+    weight. The weights stay separate tensors. Under a cost walk the call
+    charges ``quant_matmul_cost`` to ``matmuls``, once for the group."""
     out_dtype = out_dtype or x.dtype
+    if costmodel.walk_active():
+        with costmodel.kernel_cost("matmuls", lambda: quant_matmul_cost(x, mats, out_dtype)):
+            return _quant_matmul_group(x, mats, out_dtype)
+    return _quant_matmul_group(x, mats, out_dtype)
+
+
+def _quant_matmul_group(x, mats, out_dtype) -> Sequence[torch.Tensor]:
     if not 1 <= len(mats) <= GROUP_MAX:
         raise ValueError(f"quant_matmul_group takes 1 to {GROUP_MAX} weights, got {len(mats)}")
     if (x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.dim() == 2

@@ -1,6 +1,6 @@
 """The phase-1 text report (counterpart of ``generate_summary_report`` in
-``fairness_llm_tpu/reports/figures.py``). The reference's matplotlib
-figures are not ported: the card's machine has no matplotlib."""
+``fairness_llm_tpu/reports/figures.py``); the figures themselves are
+``reports/figures.py``."""
 
 from __future__ import annotations
 

@@ -40,8 +40,15 @@ Telemetry (``component="engine"``), as the reference's: per call
 ``decode_paths_total{path}``, the ``generate_wall_s`` histogram, the
 speculation counters (``SpeculationStats.publish``) and a
 ``generate[BxS]`` span on the timeline's ``engine`` track; the prefix LRU
-publishes ``prefix_kv_entries`` and ``prefix_kv_evictions_total``. Host
-clock only: nothing here reads the device.
+publishes ``prefix_kv_entries`` and ``prefix_kv_evictions_total``. The
+device-facing telemetry: the parameters are the memory ledger's ``params``
+pool and each prefix-LRU entry a ``prefix_cache`` entry
+(``telemetry/memory.py``); every program key (``prefix``, ``decode``,
+``spec_decode``) is looked up and its first use recorded as a compile
+(``telemetry/compilestats.py``), its first armed call walked into a cost
+ledger (``telemetry/costmodel.py``); each call feeds the roofline gauges
+(``observe_decode``) and the gap attribution (``note_invocation``). Host
+clock only: nothing here reads the device beyond the syncs the call makes.
 """
 
 from __future__ import annotations
@@ -70,6 +77,10 @@ from fairness_llm_tpu_torch.runtime.stepbuilder import (
 )
 from fairness_llm_tpu_torch.runtime.weights import build_model, init_params
 from fairness_llm_tpu_torch.telemetry import get_registry
+from fairness_llm_tpu_torch.telemetry.compilestats import note_lookup, record_compile
+from fairness_llm_tpu_torch.telemetry.costmodel import InstrumentedProgram, note_invocation
+from fairness_llm_tpu_torch.telemetry.memory import get_memory_ledger
+from fairness_llm_tpu_torch.telemetry.roofline import observe_decode
 from fairness_llm_tpu_torch.telemetry.timeline import get_timeline
 from fairness_llm_tpu_torch.utils.failures import (
     NumericsFault,
@@ -122,6 +133,9 @@ def _bucket_batch(n: int) -> int:
 class DecodeEngine:
     """Owns the model and its parameters on one device."""
 
+    # Memory-ledger handles: one per engine in the process.
+    _mem_seq = 0
+
     def __init__(
         self,
         model_config: ModelConfig,
@@ -173,6 +187,12 @@ class DecodeEngine:
             params = init_params(model_config, seed, self.device, dtype)
         self.model = build_model(model_config, params, self.device, dtype)
         self._prefix_kv: "collections.OrderedDict[tuple, list]" = collections.OrderedDict()
+        # Program keys seen (the reference's compiled-program cache): each
+        # holds its cost ledger and memory capture.
+        self._programs: Dict[tuple, InstrumentedProgram] = {}
+        self._mem_handle = f"engine{DecodeEngine._mem_seq}"
+        DecodeEngine._mem_seq += 1
+        get_memory_ledger().register("params", self._mem_handle, self.model.state_dict())
 
     @property
     def seq_bucket(self) -> int:
@@ -184,6 +204,19 @@ class DecodeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _program(self, key: tuple) -> InstrumentedProgram:
+        """The program of ``key`` (its first element the reference's program
+        label), counting the lookup as a hit or a miss."""
+        prog = self._programs.get(key)
+        note_lookup(key[0], hit=prog is not None)
+        if prog is None:
+            prog = self._programs[key] = InstrumentedProgram(key[0], device=self.device)
+        return prog
+
+    def _prefix_kv_handle(self, key: tuple) -> str:
+        """Ledger handle of one prefix-LRU entry."""
+        return f"{self._mem_handle}:prefix:{abs(hash(key)):x}"
+
     def _shared_layers(self, shared_ids: List[int]):
         """Prefix KV for ``shared_ids``, from the LRU or computed now.
         Returns (layers, seconds spent computing them)."""
@@ -194,14 +227,18 @@ class DecodeEngine:
             return layers, 0.0
         t0 = time.perf_counter()
         run = build_prefix(self.config, self.model, prefix_len=len(shared_ids))
-        layers = run(torch.tensor([shared_ids], dtype=torch.long, device=self.device))
+        layers = self._program(("prefix", len(shared_ids))).run(
+            run, torch.tensor([shared_ids], dtype=torch.long, device=self.device))
         self._sync()
         seconds = time.perf_counter() - t0
         reg = get_registry()
+        mem = get_memory_ledger()
         while len(self._prefix_kv) >= _PREFIX_LRU:
-            self._prefix_kv.popitem(last=False)
+            victim, _ = self._prefix_kv.popitem(last=False)
+            mem.release("prefix_cache", self._prefix_kv_handle(victim))
             reg.counter("prefix_kv_evictions_total", component="engine").inc()
         self._prefix_kv[key] = layers
+        mem.register("prefix_cache", self._prefix_kv_handle(key), layers)
         reg.gauge("prefix_kv_entries", component="engine").set(len(self._prefix_kv))
         return layers, seconds
 
@@ -324,6 +361,7 @@ class DecodeEngine:
             seeds = [int(s) & 0xFFFFFFFF for s in row_seeds] + [0] * (batch - n)
         prefix_len = len(shared_ids) if shared_ids is not None else 0
         t0_mono = time.monotonic()
+        programs_before = set(self._programs)
 
         shared_layers, prefix_s = None, 0.0
         if prefix_len:
@@ -333,6 +371,18 @@ class DecodeEngine:
         live[:n] = True
         tokens_dev = torch.from_numpy(tokens).to(self.device)
         valid_dev = torch.from_numpy(valid).to(self.device)
+
+        def program_key(use_spec: bool) -> tuple:
+            """The reference's compile key of the call's program."""
+            if use_spec:
+                return ("spec_decode", batch, prompt_len, max_new, prefix_len,
+                        self.numerics_guards, spec.ngram_max, spec.draft_len)
+            return ("decode", batch, prompt_len, max_new, sampler, prefix_len,
+                    self.numerics_guards)
+
+        def run_program(use_spec: bool):
+            return self._program(program_key(use_spec)).run(
+                run, use_spec, memory_args=(tokens_dev, valid_dev, shared_layers))
 
         def run(use_spec: bool):
             """Prefill and decode the batch, on the speculative or the plain
@@ -377,7 +427,7 @@ class DecodeEngine:
             self.watchdog.arm("decode")
         retried = False
         try:
-            toks, steps_run, finite, spec_stats, t0, t1, t2 = run(use_spec)
+            toks, steps_run, finite, spec_stats, t0, t1, t2 = run_program(use_spec)
         except Exception as e:  # noqa: BLE001 — the speculative retry below
             if is_fatal_device_error(e):
                 note_fatal_device_error(e, "engine", "speculate" if use_spec else "decode")
@@ -393,7 +443,7 @@ class DecodeEngine:
             logger.warning("speculative decode failed (%s: %s); retrying on the plain path",
                            type(e).__name__, e)
             retried, use_spec = True, False
-            toks, steps_run, finite, spec_stats, t0, t1, t2 = run(False)
+            toks, steps_run, finite, spec_stats, t0, t1, t2 = run_program(False)
         if self.numerics_guards:
             try:
                 check_finite(finite, "engine", "speculate" if use_spec else "decode")
@@ -433,9 +483,19 @@ class DecodeEngine:
         reg.histogram("generate_wall_s", component="engine").observe(time.perf_counter() - t_start)
         if spec_stats is not None:
             spec_stats.publish(reg)
+        wall_mono = time.monotonic() - t0_mono
         get_timeline().record_span(f"generate[{batch}x{prompt_len}]",
                                    "speculate" if use_spec else "decode", "engine", t0_mono,
-                                   time.monotonic() - t0_mono, path=path, prefix_len=prefix_len)
+                                   wall_mono, path=path, prefix_len=prefix_len)
+        # Every program key the call used first counts as a compile, with
+        # the call's wall (the reference's convention); then the roofline
+        # and the gap attribution. The wall includes the prefill, so the
+        # fraction is a lower bound on the decode's.
+        fresh = set(self._programs) - programs_before
+        for k in fresh:
+            record_compile(k[0], reason="shape", seconds=wall_mono, track="engine", key=k,
+                           t0=t0_mono)
+        prog_name = "spec_decode" if use_spec else "decode"
         stats: Dict[str, Any] = {
             "batch": batch,
             "prompt_len": prompt_len,
@@ -454,4 +514,8 @@ class DecodeEngine:
         }
         if spec_stats is not None:
             stats["speculation"] = spec_stats.as_dict()
+        observe_decode(self.config, stats, steps_run, wall_mono, program=prog_name)
+        note_invocation(prog_name, wall_mono, steps_run,
+                        ledger=self._programs[program_key(use_spec)].ledger,
+                        compiling=bool(fresh))
         return GenerateOutput(texts=texts, tokens=out, steps=max_new, stats=stats)

@@ -33,6 +33,7 @@ from fairness_llm_tpu_torch.runtime.sampling import (
     row_gumbel,
 )
 from fairness_llm_tpu_torch.runtime.speculative import ngram_draft
+from fairness_llm_tpu_torch.telemetry import costmodel
 
 SharedLayers = Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]]
 
@@ -95,30 +96,34 @@ def make_greedy_loop(model, sample, pad_id: int, eos_id: int, *, batch: int,
             torch.Generator(device=dev) for _ in range(B)]
         finite = masked_finite(prev_logits, torch.from_numpy(live0).to(dev))
         t = row_steps = 0
-        while t < T and not done.all():
-            live = ~done
-            live_dev = torch.from_numpy(live).to(dev)
-            gumbel = None if greedy else row_gumbel(
-                row_seeds, emitted, prev_logits.shape[-1], dev, gens)
-            tok = sample(prev_logits, gumbel)
-            tok = torch.where(live_dev, tok, torch.full_like(tok, pad_id))
-            pos = prefix_len + cache.lengths[:, None]
-            kw = {}
-            if base is not None:
-                off = base + emitted
-                off = np.where(live, off, np.minimum(off, cache.max_len - 1))
-                check_write_offsets(off, 1, cache.max_len)
-                kw["write_offsets"] = torch.from_numpy(off).to(dev)
-            logits, cache = model(tok[:, None], pos, live_dev[:, None], cache,
-                                  shared_layers=shared_layers, **kw)
-            prev_logits = torch.where(live_dev[:, None], logits[:, -1, :], prev_logits)
-            finite = finite & masked_finite(logits[:, -1], live_dev)
-            tok_host = tok.cpu().numpy()
-            toks[:, t] = tok_host
-            row_steps += int(live.sum())
-            emitted += live
-            done = done | (tok_host == eos_id) | (emitted >= caps)
-            t += 1
+        # The cost ledger charges the first iteration as the step
+        # (telemetry/costmodel.decode_loop).
+        with costmodel.decode_loop() as mark:
+            while t < T and not done.all():
+                with mark(t):
+                    live = ~done
+                    live_dev = torch.from_numpy(live).to(dev)
+                    gumbel = None if greedy else row_gumbel(
+                        row_seeds, emitted, prev_logits.shape[-1], dev, gens)
+                    tok = sample(prev_logits, gumbel)
+                    tok = torch.where(live_dev, tok, torch.full_like(tok, pad_id))
+                    pos = prefix_len + cache.lengths[:, None]
+                    kw = {}
+                    if base is not None:
+                        off = base + emitted
+                        off = np.where(live, off, np.minimum(off, cache.max_len - 1))
+                        check_write_offsets(off, 1, cache.max_len)
+                        kw["write_offsets"] = torch.from_numpy(off).to(dev)
+                    logits, cache = model(tok[:, None], pos, live_dev[:, None], cache,
+                                          shared_layers=shared_layers, **kw)
+                    prev_logits = torch.where(live_dev[:, None], logits[:, -1, :], prev_logits)
+                    finite = finite & masked_finite(logits[:, -1], live_dev)
+                    tok_host = tok.cpu().numpy()
+                toks[:, t] = tok_host
+                row_steps += int(live.sum())
+                emitted += live
+                done = done | (tok_host == eos_id) | (emitted >= caps)
+                t += 1
         return LoopOut(toks, t, bool(finite), emitted, row_steps, prev_logits)
 
     return loop
@@ -186,58 +191,61 @@ def build_spec_decode(cfg, model, pad_id: int, eos_id: int, *, batch: int,
         done = ~live0
         drafted = accepted = steps = 0
         finite = masked_finite(prev_logits, torch.from_numpy(live0).to(dev))
-        while steps < max_new and not done.all():
-            live = ~done
-            live_dev = torch.from_numpy(live).to(dev)
-            out_len_dev = torch.from_numpy(out_len).to(dev)
-            # The step's sure token: greedy argmax of the carried logits.
-            t0 = torch.where(live_dev, prev_logits.argmax(dim=-1),
-                             torch.full((B,), pad_id, dtype=torch.long, device=dev))
-            # Drafts from the history including t0.
-            gen_t0 = torch.where((gpos == out_len_dev[:, None]) & live_dev[:, None],
-                                 t0[:, None], gen)
-            ctx = torch.cat([ctx_prompt, gen_t0], dim=1)
-            ctx_valid = torch.cat([ctx_prompt_valid, gpos <= out_len_dev[:, None]], dim=1)
-            drafts = ngram_draft(ctx, ctx_valid, gen_start + out_len_dev + 1, k, ngram_max,
-                                 pad_id)
-            inp = torch.cat([t0[:, None], drafts], dim=1)  # [B, S]
+        # The cost ledger charges the first verify step as the step.
+        with costmodel.decode_loop() as mark:
+            while steps < max_new and not done.all():
+                with mark(steps):
+                    live = ~done
+                    live_dev = torch.from_numpy(live).to(dev)
+                    out_len_dev = torch.from_numpy(out_len).to(dev)
+                    # The step's sure token: greedy argmax of the carried logits.
+                    t0 = torch.where(live_dev, prev_logits.argmax(dim=-1),
+                                     torch.full((B,), pad_id, dtype=torch.long, device=dev))
+                    # Drafts from the history including t0.
+                    gen_t0 = torch.where((gpos == out_len_dev[:, None]) & live_dev[:, None],
+                                         t0[:, None], gen)
+                    ctx = torch.cat([ctx_prompt, gen_t0], dim=1)
+                    ctx_valid = torch.cat([ctx_prompt_valid, gpos <= out_len_dev[:, None]], dim=1)
+                    drafts = ngram_draft(ctx, ctx_valid, gen_start + out_len_dev + 1, k, ngram_max,
+                                         pad_id)
+                    inp = torch.cat([t0[:, None], drafts], dim=1)  # [B, S]
 
-            # Verify all S positions in one forward at per-row slots.
-            off_host = np.minimum(prompt_len + out_len, cache_len - S)
-            check_write_offsets(off_host, S, cache.max_len)
-            off = torch.from_numpy(off_host).to(dev)
-            lengths0 = cache.lengths.clone()
-            pos = prefix_len + lengths0[:, None] + step_iota[None, :]
-            logits, cache = model(inp, pos, live_dev[:, None].expand(B, S), cache,
-                                  shared_layers=shared_layers, write_offsets=off)
-            finite = finite & masked_finite(logits, live_dev)
-            g = logits.argmax(dim=-1)  # g[:, i]: the token after input position i
-            a = greedy_accept_length(drafts, g[:, :k])
-            eos_first = torch.where(inp == eos_id, step_iota[None, :],
-                                    torch.full_like(inp, S)).amin(dim=1)
-            a_host, eos_host = torch.stack([a, eos_first]).cpu().numpy()
-            # Emitted: the accepted prefix, cut after the first EOS and at
-            # the max_new cap; 0 for done rows.
-            e = np.minimum(np.minimum(a_host + 1, eos_host + 1), max_new - out_len)
-            e = np.where(live, e, 0)
-            e_dev = torch.from_numpy(e).to(dev)
+                    # Verify all S positions in one forward at per-row slots.
+                    off_host = np.minimum(prompt_len + out_len, cache_len - S)
+                    check_write_offsets(off_host, S, cache.max_len)
+                    off = torch.from_numpy(off_host).to(dev)
+                    lengths0 = cache.lengths.clone()
+                    pos = prefix_len + lengths0[:, None] + step_iota[None, :]
+                    logits, cache = model(inp, pos, live_dev[:, None].expand(B, S), cache,
+                                          shared_layers=shared_layers, write_offsets=off)
+                    finite = finite & masked_finite(logits, live_dev)
+                    g = logits.argmax(dim=-1)  # g[:, i]: the token after input position i
+                    a = greedy_accept_length(drafts, g[:, :k])
+                    eos_first = torch.where(inp == eos_id, step_iota[None, :],
+                                            torch.full_like(inp, S)).amin(dim=1)
+                    a_host, eos_host = torch.stack([a, eos_first]).cpu().numpy()
+                    # Emitted: the accepted prefix, cut after the first EOS and at
+                    # the max_new cap; 0 for done rows.
+                    e = np.minimum(np.minimum(a_host + 1, eos_host + 1), max_new - out_len)
+                    e = np.where(live, e, 0)
+                    e_dev = torch.from_numpy(e).to(dev)
 
-            widx = gpos - out_len_dev[:, None]
-            wtok = inp.gather(1, widx.clamp(0, S - 1))
-            gen = torch.where((widx >= 0) & (widx < e_dev[:, None]), wtok, gen)
-            # Carry the logits after the last emitted token.
-            nl = logits[rows, (e_dev - 1).clamp(0, S - 1)]
-            prev_logits = torch.where(live_dev[:, None], nl, prev_logits)
-            # Rejected window slots become invalid; lengths advance by e.
-            wpos = slot - off[:, None]
-            cache.key_valid &= ~((wpos >= 0) & (wpos < S) & (wpos >= e_dev[:, None]))
-            cache.lengths = lengths0 + e_dev
+                    widx = gpos - out_len_dev[:, None]
+                    wtok = inp.gather(1, widx.clamp(0, S - 1))
+                    gen = torch.where((widx >= 0) & (widx < e_dev[:, None]), wtok, gen)
+                    # Carry the logits after the last emitted token.
+                    nl = logits[rows, (e_dev - 1).clamp(0, S - 1)]
+                    prev_logits = torch.where(live_dev[:, None], nl, prev_logits)
+                    # Rejected window slots become invalid; lengths advance by e.
+                    wpos = slot - off[:, None]
+                    cache.key_valid &= ~((wpos >= 0) & (wpos < S) & (wpos >= e_dev[:, None]))
+                    cache.lengths = lengths0 + e_dev
 
-            out_len += e
-            done = done | (live & (eos_host < e)) | (out_len >= max_new)
-            drafted += k * int(live.sum())
-            accepted += int(np.maximum(e - 1, 0).sum())
-            steps += 1
+                    out_len += e
+                    done = done | (live & (eos_host < e)) | (out_len >= max_new)
+                    drafted += k * int(live.sum())
+                    accepted += int(np.maximum(e - 1, 0).sum())
+                    steps += 1
         toks = gen[:, :max_new].to(torch.int32).cpu().numpy()
         return toks, out_len, (drafted, accepted, steps), bool(finite)
 

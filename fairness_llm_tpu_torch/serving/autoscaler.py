@@ -24,10 +24,9 @@ windows reset whenever the signal flips. Membership stays in
 it starts outside. ``clock`` is injectable, so that tests walk the windows
 without sleeping.
 
-The reference also reads device-memory headroom from its memory ledger
-(``_headroom_frac``); that ledger is not ported yet (ROADMAP A7(b)), so the
-port's ``_headroom_frac`` is 1.0, the reference's "no opinion", and
-``AutoscaleConfig.up_headroom_frac`` above 0 is refused.
+- **device-memory headroom** (opt-in, ``up_headroom_frac`` > 0): the
+  memory ledger's headroom fraction (``telemetry/memory.py``) at or under
+  it is hot; with no known limit it reads 1.0, "no opinion".
 
 Observable: the ``fleet_replicas_target`` gauge, the
 ``autoscale_events_total{direction}`` counters, ``autoscale_up``/
@@ -46,6 +45,7 @@ from fairness_llm_tpu_torch.config import AutoscaleConfig
 from fairness_llm_tpu_torch.telemetry import emit_event, get_registry
 from fairness_llm_tpu_torch.telemetry.flightrecorder import get_flight_recorder
 from fairness_llm_tpu_torch.telemetry.incidents import record_decision
+from fairness_llm_tpu_torch.telemetry.memory import get_memory_ledger
 
 logger = logging.getLogger(__name__)
 
@@ -113,9 +113,11 @@ class Autoscaler:
         return sum(fracs) / len(fracs)
 
     def _headroom_frac(self) -> float:
-        """Device-memory headroom: 1.0, "no opinion", until the memory
-        ledger is ported (ROADMAP A7(b))."""
-        return 1.0
+        """Device-memory headroom over the limit, from the memory ledger;
+        1.0 when no limit is known (the CPU without an injected budget):
+        unknown reads as "no opinion", never as pressure."""
+        frac = get_memory_ledger().headroom_frac()
+        return 1.0 if frac is None else frac
 
     def signals(self) -> Dict[str, float]:
         """The controller's inputs, for events and reports."""
@@ -135,6 +137,10 @@ class Autoscaler:
             return f"queue_depth {sig['queue_frac']:.2f}x capacity"
         if cfg.up_overload_level > 0 and sig["overload_level"] >= cfg.up_overload_level:
             return f"overload_level {sig['overload_level']}"
+        # A headroom collapse is a capacity signal like a deep queue: more
+        # replicas spread the KV pools. Soft: the allocator stays the gate.
+        if cfg.up_headroom_frac > 0 and sig["headroom_frac"] <= cfg.up_headroom_frac:
+            return f"hbm_headroom {sig['headroom_frac']:.2f}"
         return None
 
     def _cold(self, sig: Dict[str, float]) -> bool:

@@ -32,8 +32,8 @@ the fleet serves on:
   tail.
 - **Elastic membership** (``serving/autoscaler.py``): ``add_replica`` builds
   a canary-gated standby, ``retire_replica`` evacuates the victim through
-  the fence's zero-grace path and frees its device tensors
-  (``ContinuousScheduler.release_memory``); ``submit``/``tick``/
+  the fence's zero-grace path and frees its device tensors and ledger
+  entries (``ContinuousScheduler.release_memory``); ``submit``/``tick``/
   ``take_result`` let a driver (``serving/replay.py``) stream requests in.
 - **Versions** (``serving/rollout.py``): each replica serves one version,
   and a request keeps the version that first admitted it while that
@@ -49,8 +49,8 @@ rows are recorded per version in a private scheduler of the replica's
 the card K2 plans its key splits from the batch and the cache length, so a
 bf16 row of another shape parts at near ties, and a cross-shape canary
 would fence a healthy replica); a retired replica frees its pool and
-buffers instead of releasing memory-ledger entries (the ledger is ROADMAP
-A7(b)); and a fatal CUDA error raised inside a replica
+buffers as well as releasing its memory-ledger entries; and a fatal CUDA
+error raised inside a replica
 (``utils/failures.is_fatal_device_error``) re-raises out of the fleet. The
 scheduler records and raises it, and nothing here catches it: it is not
 counted as a crash, fenced or migrated.
@@ -808,8 +808,8 @@ class ReplicaSet:
         logger.warning("retiring replica %s: %d live, %d queued — draining and migrating to "
                        "survivors", rep.name, rep.sched.pool.occupancy, len(rep.sched.queue))
         migrated = self._evacuate(rep, "retired", count_failover=False)
-        # The permanent exit: its pool and buffers leave with it (a fence
-        # keeps the replica and its memory).
+        # The permanent exit: its pool, buffers and ledger entries leave
+        # with it (a fence keeps the replica and its memory).
         rep.sched.release_memory()
         rep.sched.finish_stats(rep.stats)
         self._retired_stats.append(rep.stats)

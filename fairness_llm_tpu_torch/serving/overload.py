@@ -56,6 +56,7 @@ from fairness_llm_tpu_torch.serving.request import QOS_CLASSES, QOS_PRIORITY, Re
 from fairness_llm_tpu_torch.telemetry import emit_event, get_registry
 from fairness_llm_tpu_torch.telemetry.flightrecorder import get_flight_recorder
 from fairness_llm_tpu_torch.telemetry.incidents import record_decision
+from fairness_llm_tpu_torch.telemetry.memory import get_memory_ledger
 from fairness_llm_tpu_torch.telemetry.timeline import get_timeline
 
 logger = logging.getLogger(__name__)
@@ -196,9 +197,19 @@ class ShedController:
     def batch_cap(self, cap: int, qos: str) -> int:
         """At rung 2 and above a batch request's decode budget clamps to
         ``batch_token_cap`` (shorter answers beat none); interactive and
-        probe budgets are never touched."""
-        if qos == "batch" and self.level >= 2:
+        probe budgets are never touched. With ``headroom_cap_frac`` above 0
+        the same clamp engages before rung 2 whenever the memory ledger's
+        headroom fraction is at or under it: every decode token is KV
+        bytes, so shorter batch answers are the cheapest lever against a
+        memory wall."""
+        if qos != "batch":
+            return cap
+        if self.level >= 2:
             return max(1, min(cap, self.config.batch_token_cap))
+        if self.config.headroom_cap_frac > 0:
+            frac = get_memory_ledger().headroom_frac()
+            if frac is not None and frac <= self.config.headroom_cap_frac:
+                return max(1, min(cap, self.config.batch_token_cap))
         return cap
 
     def retry_after(self, est_ttft: Optional[float] = None) -> float:

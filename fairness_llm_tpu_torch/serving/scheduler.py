@@ -98,8 +98,21 @@ with ``replica=name``, which labels every instrument it writes
 own and names it in its decisions and incidents; the fleet drives it one
 iteration at a time through ``step``, places migrated requests at the head
 of its queue (``submit(front=True, restamp=False)``), and at retirement
-frees its device tensors (``release_memory``). Tensor-parallel meshes are a
-later part of ROADMAP A5.
+frees its device tensors and their ledger entries (``release_memory``).
+Tensor-parallel meshes are a later part of ROADMAP A5.
+
+Device-facing telemetry (``telemetry/memory.py``, ``compilestats.py``,
+``roofline.py``, ``costmodel.py``): the KV pool (``kv_contiguous``) or the
+block arena (``kv_paged``), the carried logits (``logits_carry``) and the
+paged view and table buffers (``other``) are memory-ledger entries, made at
+init and after a paged reset (``_account_device_state``); a block-exhaustion
+deferral raises ``memory_pressure_active``, prices the deferred admission
+against the headroom and fires the ``memory_pressure`` incident
+(``_note_block_pressure``). Every prefill group and decode chunk looks up
+its program key (``serve_prefill``, ``paged_prefill``, ``serve_step``,
+``paged_step``, ``_fused`` with a fuse), records its first use as a
+compile, runs its first armed call under the cost walk, and folds its wall
+into the gap attribution; each decode chunk feeds the roofline gauges.
 """
 
 from __future__ import annotations
@@ -146,9 +159,13 @@ from fairness_llm_tpu_torch.serving.queue import AdmissionQueue, ClassedAdmissio
 from fairness_llm_tpu_torch.serving.request import QOS_CLASSES, QOS_PRIORITY, Request, Result
 from fairness_llm_tpu_torch.serving.slots import SlotPool, SlotState
 from fairness_llm_tpu_torch.telemetry import Heartbeat, RequestTracer, emit_event, get_registry
+from fairness_llm_tpu_torch.telemetry.compilestats import note_lookup, record_compile
+from fairness_llm_tpu_torch.telemetry.costmodel import InstrumentedProgram, note_invocation
 from fairness_llm_tpu_torch.telemetry.fairness import get_fairness_monitor
 from fairness_llm_tpu_torch.telemetry.flightrecorder import get_flight_recorder
 from fairness_llm_tpu_torch.telemetry.incidents import maybe_trigger, record_decision
+from fairness_llm_tpu_torch.telemetry.memory import get_memory_ledger, tree_device_bytes
+from fairness_llm_tpu_torch.telemetry.roofline import observe_decode
 from fairness_llm_tpu_torch.telemetry.timeline import get_timeline
 from fairness_llm_tpu_torch.utils.failures import (
     DecodeFault,
@@ -197,6 +214,9 @@ class ContinuousScheduler:
     ``replica`` names a fleet replica (``serving/fleet.py``), whose
     instruments carry ``{"replica": name}``.
     """
+
+    # Memory-ledger handles: one per scheduler in the process.
+    _mem_seq = 0
 
     def __init__(self, engine, serving: Optional[ServingConfig] = None,
                  settings: Optional[ModelSettings] = None, fault_injector=None,
@@ -291,6 +311,13 @@ class ContinuousScheduler:
             self._arena = None
         self._prev_logits = torch.zeros((self.num_slots, cfg.vocab_size), dtype=torch.float32,
                                         device=dev)
+        self._mem_handle = f"sched{ContinuousScheduler._mem_seq}"
+        ContinuousScheduler._mem_seq += 1
+        self._block_pressure = False
+        self._account_device_state()
+        # Program keys seen (the reference's compiled-program cache): each
+        # holds its cost ledger and memory capture.
+        self._programs: Dict[tuple, InstrumentedProgram] = {}
         # One decode function: decode_chunk x fuse_steps steps a call, or
         # fewer once every live row is done. Degradation rung 2 halves the
         # chunk and drops the fuse; both come back as the ladder retreats.
@@ -399,13 +426,83 @@ class ContinuousScheduler:
         return self._results.pop(request_id, None)
 
     def release_memory(self) -> None:
-        """Free this scheduler's device tensors: the KV slot pool or the
+        """Free this scheduler's device tensors (the KV slot pool or the
         paged arena with its view and table buffers, and the carried
-        logits. The fleet calls it when it retires a replica (a fence keeps
-        the replica and its memory); the scheduler serves nothing after
-        it."""
+        logits) and release every ledger entry it registered. The fleet
+        calls it when it retires a replica (a fence keeps the replica and
+        its memory); the scheduler serves nothing after it."""
         self._cache = self._arena = self._view = None
         self._tables = self._wtables = self._prev_logits = None
+        get_memory_ledger().release_matching(f"{self._mem_handle}:")
+
+    # -- the memory ledger ---------------------------------------------------
+
+    def _account_device_state(self) -> None:
+        """Register the persistent device tensors with the memory ledger:
+        the arena under ``kv_paged`` (with the per-block bytes the headroom
+        forecast prices a paged admission with), the slot cache under
+        ``kv_contiguous``, the carried logits under ``logits_carry``, and
+        the paged view and table buffers, which the reference keeps inside
+        its compiled step, under ``other``. Runs at init and after a paged
+        reset; re-registering a handle replaces its entry."""
+        mem = get_memory_ledger()
+        if self._arena is not None:
+            mem.register("kv_paged", f"{self._mem_handle}:arena", self._arena,
+                         replica=self.replica)
+            self._block_bytes = tree_device_bytes(self._arena) // max(1, self.pool.paged.num_blocks)
+            mem.register("other", f"{self._mem_handle}:view",
+                         [self._view, self._tables, self._wtables], replica=self.replica)
+        else:
+            self._block_bytes = 0
+        if self._cache is not None:
+            mem.register("kv_contiguous", f"{self._mem_handle}:cache", self._cache,
+                         replica=self.replica)
+        mem.register("logits_carry", f"{self._mem_handle}:logits", self._prev_logits,
+                     replica=self.replica)
+
+    def _note_block_pressure(self, exhausted: bool, deferred) -> None:
+        """The block-exhaustion deferral's memory signals: the recoverable
+        ``memory_pressure_active`` gauge, and on exhaustion the deferred
+        admission's worst case (a whole slot's private blocks) priced
+        against the headroom and the deduplicated ``memory_pressure``
+        incident naming the deferred requests. Soft: the arena's allocator
+        stays the gate."""
+        mem = get_memory_ledger()
+        scope = self.replica or "serving"
+        if not exhausted:
+            if self._block_pressure:
+                self._block_pressure = False
+                mem.note_pressure(scope, False)
+            return
+        self._block_pressure = True
+        mem.note_pressure(scope, True)
+        fc = mem.forecast(self.pool.paged.blocks_per_slot * self._block_bytes)
+        maybe_trigger("memory_pressure",
+                      cause=f"paged arena exhausted; {len(deferred)} admission(s) deferred "
+                            "to decode-side block frees",
+                      scope=scope, replica=self.replica, request_ids=[r.id for r in deferred],
+                      deferred=len(deferred), cost_bytes=fc["cost_bytes"],
+                      headroom_bytes=fc["headroom_bytes"], basis=fc["basis"])
+
+    def _program_for(self, key: tuple):
+        """(the program of ``key``, whether this is its first use): ``key``'s
+        first element is the program label; the lookup counts as a hit or a
+        miss."""
+        prog = self._programs.get(key)
+        note_lookup(key[0], hit=prog is not None, labels=self.labels)
+        if prog is None:
+            prog = self._programs[key] = InstrumentedProgram(key[0], device=self.engine.device)
+            return prog, True
+        return prog, False
+
+    def _note_program(self, prog: InstrumentedProgram, key: tuple, fresh: bool, t0: float,
+                      wall: float, steps: int = 0, reason: str = "shape") -> None:
+        """A finished program call: its first use recorded as a compile, its
+        wall folded into the gap attribution."""
+        if fresh:
+            record_compile(prog.program, reason=reason, seconds=wall, track=self.track, key=key,
+                           labels=self.labels, t0=t0)
+        note_invocation(prog.program, wall, steps, ledger=prog.ledger, compiling=fresh)
 
     def drain(self) -> ServingStats:
         """Run the loop until the queue and the pool are empty; the Results
@@ -938,10 +1035,13 @@ class ContinuousScheduler:
         for req in reqs:
             self.tracer.record(req.id, "prefill_start", t=pf_t0)
         prefill = build_serve_prefill(self.engine.config, self.engine.model, nb=nb, P=P)
+        pkey = ("serve_prefill", nb, P, self._guard())
+        prog, fresh = self._program_for(pkey)
+        tok_dev, valid_dev = torch.from_numpy(tokens).to(dev), torch.from_numpy(valid).to(dev)
         try:
             self._prefill_call(("serve_prefill", nb, P), injected_hang, lambda: prefill(
-                self._cache, self._prev_logits, torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(valid).to(dev), slots, guard=self._guard()))
+                self._cache, self._prev_logits, tok_dev, valid_dev, slots,
+                guard=self._guard()), prog, (self._cache, self._prev_logits, tok_dev, valid_dev))
         except Exception as e:  # noqa: BLE001 — containment is the point
             # The written rows belong to these slots only; released, they
             # are invalidated before any reuse.
@@ -949,19 +1049,22 @@ class ContinuousScheduler:
                 self.pool.release(slot)
             self._contain(e, "prefill", reqs, stats, f"prefill batch ({nb}, {P})")
             return True
-        self._note_prefill(stats, pf_t0, f"prefill[{nb}x{P}]", n, int(tb.lengths.sum()))
+        self._note_prefill(stats, pf_t0, f"prefill[{nb}x{P}]", n, int(tb.lengths.sum()),
+                           prog, pkey, fresh)
         return True
 
-    def _prefill_call(self, key: tuple, injected_hang: float, call) -> None:
+    def _prefill_call(self, key: tuple, injected_hang: float, call, prog: InstrumentedProgram,
+                      memory_args) -> None:
         """One prefill under the watchdog, its guard and its breaker:
-        ``call()`` runs the prefill and returns its finite flag (None
+        ``call()`` runs the prefill (as ``prog``, whose capture counts
+        ``memory_args`` as its arguments) and returns its finite flag (None
         unguarded); it is read after the sync, then the step is classified
         (its first use of ``key`` exempt). Raises into the caller's
         containment; records the breaker's success."""
         loads = _build.load_events
         if self.watchdog is not None:
             self.watchdog.arm("prefill")
-        finite = call()
+        finite = prog.run(call, memory_args=memory_args)
         self.engine._sync()
         if finite is not None:
             check_finite(finite, "serving", "prefill")
@@ -972,10 +1075,11 @@ class ContinuousScheduler:
             self.breakers.record_success("prefill")
 
     def _note_prefill(self, stats: ServingStats, t0: float, span: str, rows: int,
-                      tokens: int, **args) -> None:
+                      tokens: int, prog: InstrumentedProgram, key: tuple, fresh: bool,
+                      **args) -> None:
         """A finished prefill batch: its wall in ``last_seconds``, the
-        ``prefill_wall_s`` histogram and a span on the timeline, and the
-        drain's counters."""
+        ``prefill_wall_s`` histogram and a span on the timeline, its
+        program's compile and gap accounting, and the drain's counters."""
         wall = time.monotonic() - t0
         self.last_seconds["prefill"] += wall
         get_registry().histogram("prefill_wall_s", component="serving",
@@ -983,6 +1087,7 @@ class ContinuousScheduler:
         tl = get_timeline()
         tl.record_span(span, "prefill", self.track, t0, wall, rows=rows, **args)
         tl.note_busy(self.track, t0, wall)
+        self._note_program(prog, key, fresh, t0, wall)
         stats.prefill_batches += 1
         stats.prefill_tokens += tokens
         stats.admitted += rows
@@ -1032,6 +1137,7 @@ class ContinuousScheduler:
             self.tracer.record(req.id, "admitted")
         for req in reversed(deferred):
             self.queue.requeue(req)
+        self._note_block_pressure(exhausted, deferred)
         if not planned:
             return False
         groups: Dict[int, list] = {}
@@ -1093,12 +1199,14 @@ class ContinuousScheduler:
         pf_t0 = time.monotonic()
         for req, *_ in rows:
             self.tracer.record(req.id, "prefill_start", t=pf_t0)
+        pkey = ("paged_prefill", nb, S, self._guard())
+        prog, fresh = self._program_for(pkey)
+        args = (self._arena, self._view, self._prev_logits, put(tokens), put(valid),
+                put(positions), self._tables[:nb], self._wtables[:nb], put(cow_src),
+                put(cow_dst), put(matched), put(last_idx))
         try:
             self._prefill_call(("paged_prefill", nb, S), injected_hang, lambda: self._paged_prefill(
-                self._arena, self._view, self._prev_logits, put(tokens), put(valid),
-                put(positions), self._tables[:nb], self._wtables[:nb], put(cow_src),
-                put(cow_dst), put(matched), put(last_idx), [r[2] for r in rows],
-                guard=self._guard()))
+                *args, [r[2] for r in rows], guard=self._guard()), prog, args)
         except Exception as e:  # noqa: BLE001 — containment is the point
             for _, _, slot, _, _ in rows:
                 self.pool.release(slot)
@@ -1114,7 +1222,7 @@ class ContinuousScheduler:
                           **self.labels).observe(plan.matched)
         # Suffix tokens only: the hit and miss counters hold the reuse.
         self._note_prefill(stats, pf_t0, f"prefill[{nb}x{S}]", n, sum(r[4] for r in rows),
-                           matched_prefix_tokens=int(matched.sum()))
+                           prog, pkey, fresh, matched_prefix_tokens=int(matched.sum()))
 
     # -- decode --------------------------------------------------------------
 
@@ -1174,6 +1282,9 @@ class ContinuousScheduler:
                 return self._step(self._arena, self._view, self._prev_logits,
                                   self._tables[:B], self._wtables[:B], seeds, emitted, base,
                                   caps, live)
+
+            device_args = (self._arena, self._view, self._prev_logits, self._tables[:B],
+                           self._wtables[:B])
         else:
             # Released slots are invalidated at the step's entry; a slot
             # released and reused since never enters the mask (its prefill
@@ -1184,14 +1295,18 @@ class ContinuousScheduler:
             def call():
                 return self._step(self._cache, self._prev_logits, seeds, emitted, base, caps,
                                   live, reset)
+
+            device_args = (self._cache, self._prev_logits)
         key = (self._program, self.decode_chunk, self.fuse_steps)
+        pkey = key + (self._guard(),)
+        prog, fresh = self._program_for(pkey)
         loads = _build.load_events
         raised = True  # until the device call returns
         dc_t0 = time.monotonic()
         if self.watchdog is not None:
             self.watchdog.arm("decode")
         try:
-            out = call()
+            out = prog.run(call, memory_args=device_args)
             self.engine._sync()
             raised = False
             if self._guard():
@@ -1233,6 +1348,17 @@ class ContinuousScheduler:
             "chunks", program=self._program, steps=out.steps, wall_s=round(dc_wall, 6),
             gap_s=(round(gap, 6) if gap is not None else None), rows=len(live_ids),
             replica=self.replica, t=dc_t0)
+        # The roofline streams the whole pool's KV a step (the step reads
+        # every slot, live or not), so its batch is num_slots; the paged
+        # view's gather and scatter are amortized over the steps run.
+        roof = {"batch": self.num_slots, "cache_slots": self.cache_len, "prefix_len": 0}
+        if self.paged:
+            roof.update(paged_kv=True, chunk_steps=out.steps)
+        observe_decode(self.engine.config, roof, out.steps, dc_wall, program=self._program,
+                       labels=self.labels)
+        self._note_program(prog, pkey, fresh, dc_t0, dc_wall, steps=out.steps,
+                           reason=("decode_chunk" if self.decode_chunk != self._base_decode_chunk
+                                   else "shape"))
         self.tracer.sample_step_gauges(occupancy=len(live_ids), queue_depth=len(self.queue),
                                        decode_steps=out.steps)
         eos_id = self.engine.tokenizer.eos_id
@@ -1261,3 +1387,4 @@ class ContinuousScheduler:
         self._arena.zero_()
         self._prev_logits.zero_()
         self.pool.paged.reset()
+        self._account_device_state()

@@ -27,17 +27,50 @@ its framework-free modules):
   (``--fairness-obs``), ``render_fairness_report`` and the snapshot check
   ``check_fairness``.
 
-Instrumentation is always on (host-side arithmetic, no device cost); the
-exporters are opt-in through ``configure`` (the CLI's ``--telemetry-dir``).
+The device-facing modules:
+
+- ``compilestats`` — program-key lookups and first uses
+  (``compiles_total``, ``compile_seconds``, the cache hit/miss counters).
+- ``roofline`` — bytes a decode step streams, the bandwidth it reached and
+  its fraction of the card's (``CARDS``, or ``--achievable-gbps``).
+- ``memory`` — the device-memory ledger by pool, its reconciliation with
+  the allocator (``measured`` on the card, ``indicative`` on the CPU), the
+  per-program memory and the headroom signals; ``render_memory_report``
+  (``memory-report``), ``check_memory``.
+- ``costmodel`` — the aten-walked cost ledger per program (the hand-written
+  kernels report their own counts) and the gap attribution;
+  ``render_cost_report`` (``perf-report``), ``check_costmodel``.
+
+Instrumentation is always on (host-side arithmetic; the cost walk runs
+once per program key); the exporters are opt-in through ``configure`` (the
+CLI's ``--telemetry-dir``), which also arms the per-program memory capture.
 ``SpeculationStats``/``ServingStats`` publish into the registry
-(``utils/profiling.py``). Not ported yet (ROADMAP A7(b)): the device-facing
-modules (cost model, compile stats, memory ledger, roofline).
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from fairness_llm_tpu_torch.telemetry.compilestats import note_lookup, record_compile
+from fairness_llm_tpu_torch.telemetry.costmodel import (
+    COMPONENT_TITLES,
+    COMPONENTS,
+    ComponentCost,
+    CostLedger,
+    InstrumentedProgram,
+    check_costmodel,
+    classify,
+    gap_decomposition,
+    has_cost_data,
+    note_invocation,
+    publish_ledger,
+    reference_achievable_gflops,
+    reference_dispatch_s,
+    render_cost_report,
+    set_achievable_gflops,
+    set_dispatch_s,
+)
 from fairness_llm_tpu_torch.telemetry.export import (
     EVENTS_FILENAME,
     EVENTS_MAX_BYTES,
@@ -84,6 +117,21 @@ from fairness_llm_tpu_torch.telemetry.incidents import (
     use_incident_manager,
     validate_incidents,
 )
+from fairness_llm_tpu_torch.telemetry.memory import (
+    POOLS,
+    RECONCILE_TOL_FRAC,
+    MemoryLedger,
+    check_memory,
+    device_memory_stats,
+    get_memory_ledger,
+    has_memory_data,
+    render_memory_report,
+    set_memory_ledger,
+    set_memory_obs,
+    set_program_memory_capture,
+    tree_device_bytes,
+    use_memory_ledger,
+)
 from fairness_llm_tpu_torch.telemetry.registry import (
     DEFAULT_COUNT_BOUNDS,
     DEFAULT_LATENCY_BOUNDS,
@@ -94,6 +142,13 @@ from fairness_llm_tpu_torch.telemetry.registry import (
     get_registry,
     set_registry,
     use_registry,
+)
+from fairness_llm_tpu_torch.telemetry.roofline import (
+    CARDS,
+    decode_step_bytes,
+    observe_decode,
+    reference_achievable_gbps,
+    set_achievable_gbps,
 )
 from fairness_llm_tpu_torch.telemetry.slo import (
     SLOEvaluator,
@@ -146,8 +201,9 @@ def emit_event(kind: str, **fields) -> None:
 
 
 def configure(telemetry_dir: str, events_max_bytes: Optional[int] = None) -> JsonlSink:
-    """Stand up the exporters for a run: make the telemetry dir and install
-    the JSONL event sink there, size-rotated (``events.jsonl.1..N`` kept).
+    """Stand up the exporters for a run: make the telemetry dir, install
+    the JSONL event sink there, size-rotated (``events.jsonl.1..N`` kept),
+    and arm the per-program memory capture (``program_memory_bytes``).
     Snapshot writing stays explicit (``write_snapshot`` at the end of a
     run)."""
     import os
@@ -157,71 +213,108 @@ def configure(telemetry_dir: str, events_max_bytes: Optional[int] = None) -> Jso
                      max_bytes=(events_max_bytes if events_max_bytes is not None
                                 else EVENTS_MAX_BYTES))
     install_event_sink(sink)
+    set_program_memory_capture(True)
     return sink
 
 
 __all__ = [
-    "FAIRNESS_TOLERANCE",
-    "Counter",
-    "DecisionRecord",
-    "FairnessMonitor",
-    "DEFAULT_COUNT_BOUNDS",
-    "DEFAULT_LATENCY_BOUNDS",
-    "FlightRecorder",
-    "Gauge",
-    "Heartbeat",
-    "Histogram",
-    "IncidentManager",
-    "JsonlSink",
-    "MetricsRegistry",
-    "RequestTracer",
-    "SLOEvaluator",
-    "SLOTargets",
-    "SpanEvent",
-    "TRACE_FILENAME",
-    "Timeline",
-    "TraceSummaryRow",
     "arm_incidents",
     "assert_span_order",
     "attribution_on",
+    "CARDS",
     "causal_chain",
+    "check_costmodel",
     "check_fairness",
+    "check_memory",
+    "classify",
+    "COMPONENT_TITLES",
+    "ComponentCost",
+    "COMPONENTS",
     "configure",
+    "CostLedger",
+    "Counter",
+    "DecisionRecord",
+    "decode_step_bytes",
+    "DEFAULT_COUNT_BOUNDS",
+    "DEFAULT_LATENCY_BOUNDS",
+    "device_memory_stats",
     "emit_event",
     "event_sink",
+    "FAIRNESS_TOLERANCE",
+    "FairnessMonitor",
+    "FlightRecorder",
+    "gap_decomposition",
+    "Gauge",
     "get_fairness_monitor",
     "get_flight_recorder",
     "get_incident_manager",
+    "get_memory_ledger",
     "get_registry",
     "get_slo_targets",
     "get_timeline",
     "group_exposure",
+    "has_cost_data",
+    "has_memory_data",
+    "Heartbeat",
+    "Histogram",
+    "IncidentManager",
     "install_event_sink",
+    "InstrumentedProgram",
+    "JsonlSink",
     "list_bundles",
     "load_snapshot",
     "maybe_trigger",
+    "MemoryLedger",
+    "MetricsRegistry",
+    "note_invocation",
+    "note_lookup",
+    "observe_decode",
+    "POOLS",
+    "publish_ledger",
     "publish_offline_reference",
     "read_events",
+    "RECONCILE_TOL_FRAC",
+    "record_compile",
     "record_decision",
     "recording_on",
+    "reference_achievable_gbps",
+    "reference_achievable_gflops",
+    "reference_dispatch_s",
+    "render_cost_report",
     "render_fairness_report",
     "render_incident_report",
+    "render_memory_report",
     "render_report",
     "render_slo_report",
+    "RequestTracer",
+    "set_achievable_gbps",
+    "set_achievable_gflops",
     "set_attribution",
+    "set_dispatch_s",
     "set_fairness_monitor",
     "set_flight_recorder",
     "set_incident_manager",
+    "set_memory_ledger",
+    "set_memory_obs",
+    "set_program_memory_capture",
     "set_recording",
     "set_registry",
     "set_slo_targets",
     "set_timeline",
+    "SLOEvaluator",
+    "SLOTargets",
     "snapshot",
+    "SpanEvent",
     "summarize_chrome_trace",
+    "Timeline",
     "to_prometheus",
+    "TRACE_FILENAME",
+    "TraceSummaryRow",
+    "tree_device_bytes",
     "use_fairness_monitor",
     "use_flight_recorder",
     "use_incident_manager",
+    "use_memory_ledger",
     "use_registry",
     "use_timeline",
     "validate_chrome_trace",

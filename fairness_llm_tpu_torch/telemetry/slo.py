@@ -1,9 +1,8 @@
 """SLO evaluation: objectives, multi-window burn rates, alert events.
 
-The port's copy of ``fairness_llm_tpu/telemetry/slo.py``. In the port the
-targets are set with ``set_slo_targets`` (``TelemetryConfig``, the fleet
-router and the ``slo-report`` subcommand are not ported yet, ROADMAP A5 and
-A7). An alert is a decision of the incident engine, and an error-rate alert
+The port's copy of ``fairness_llm_tpu/telemetry/slo.py``. The targets are
+set with ``set_slo_targets`` (the CLI sets them from ``TelemetryConfig``
+before any scheduler exists). An alert is a decision of the incident engine, and an error-rate alert
 triggers a ``slo_burn`` bundle, as in the reference.
 
 The telemetry layer so far exports raw distributions (TTFT/e2e histograms,

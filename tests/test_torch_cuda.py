@@ -41,6 +41,10 @@ float32 keeps the scalar decode_fwd.
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread a test process: the suite runs in several workers on
+# one machine, and OpenMP pools of every core in each spin against the
+# others (the port's tests ran 4x slower oversubscribed).
+torch.set_num_threads(1)
 
 from fairness_llm_tpu_torch.models.transformer import _quantize_kv  # noqa: E402
 from fairness_llm_tpu_torch.ops import decode_attention as dec_mod  # noqa: E402

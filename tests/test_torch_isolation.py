@@ -11,15 +11,22 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread a test process: the suite runs in several workers on
+# one machine, and OpenMP pools of every core in each spin against the
+# others (the port's tests ran 4x slower oversubscribed).
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "fairness_llm_tpu_torch"
 OUTSIDE = ("jax", "jaxlib", "flax", "fairness_llm_tpu", "safetensors", "tokenizers",
            "transformers", "regex", "matplotlib")
-_NAMES = "|".join(OUTSIDE)
+# matplotlib may be imported lazily, inside a function (reports/figures.py
+# draws where it is installed); at module level it is refused like the rest.
+_NAMES = "|".join(n for n in OUTSIDE if n != "matplotlib")
 FORBIDDEN = re.compile(
     rf"^\s*(?:import|from)\s+(?:{_NAMES})\b"
-    rf"|(?:import_module|__import__)\(\s*['\"](?:{_NAMES})\b",
+    rf"|^(?:import|from)\s+matplotlib\b"
+    rf"|(?:import_module|__import__)\(\s*['\"](?:{_NAMES}|matplotlib)\b",
     re.MULTILINE,
 )
 
@@ -87,6 +94,44 @@ def test_paged_and_telemetry_at_work_leave_jax_out(tmp_path):
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert (tmp_path / "telemetry_snapshot.json").exists()
+
+
+# The device-facing telemetry and the figures: their imports of other port
+# modules (and matplotlib's) are inside their functions.
+DEVICE_FACING = [f"telemetry/{m}.py" for m in ("compilestats", "roofline", "memory",
+                                                "costmodel")] + ["reports/figures.py"]
+
+
+def test_device_telemetry_at_work_leaves_jax_out(tmp_path):
+    """Drive the five modules in a fresh interpreter: import the figures
+    (matplotlib stays out until a figure is drawn), decode through the
+    engine with the exporters configured (the compile stats, the cost walk,
+    the roofline, the memory ledger and the program-memory capture), render
+    both reports, and check what it loaded."""
+    assert {str(p.relative_to(PKG)) for p in _port_sources() if PKG in p.parents} >= \
+        set(DEVICE_FACING)
+    code = (
+        "import sys\n"
+        "import fairness_llm_tpu_torch.reports.figures\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "from fairness_llm_tpu_torch import telemetry as T\n"
+        "from fairness_llm_tpu_torch.config import ModelSettings\n"
+        "from fairness_llm_tpu_torch.models.configs import get_model_config\n"
+        "from fairness_llm_tpu_torch.runtime.engine import DecodeEngine\n"
+        f"sink = T.configure({str(tmp_path)!r})\n"
+        "eng = DecodeEngine(get_model_config('tiny-test'), device='cpu')\n"
+        "eng.generate(['abc', 'de'], ModelSettings(temperature=0.0, max_tokens=3))\n"
+        "snap = T.snapshot(T.get_registry())\n"
+        "assert T.has_cost_data(snap) and T.has_memory_data(snap)\n"
+        "assert T.check_costmodel(snap) == [] and T.check_memory(snap)\n"
+        "T.render_cost_report(snap); T.render_memory_report(snap)\n"
+        "sink.close()\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {OUTSIDE!r})\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -21,6 +21,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread a test process: the suite runs in several workers on
+# one machine, and OpenMP pools of every core in each spin against the
+# others (the port's tests ran 4x slower oversubscribed).
+torch.set_num_threads(1)
 
 from fairness_llm_tpu.config import ModelSettings as JSettings  # noqa: E402
 from fairness_llm_tpu.models import transformer as jtr  # noqa: E402

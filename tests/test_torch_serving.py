@@ -19,6 +19,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread a test process: the suite runs in several workers on
+# one machine, and OpenMP pools of every core in each spin against the
+# others (the port's tests ran 4x slower oversubscribed).
+torch.set_num_threads(1)
 
 from fairness_llm_tpu import serving as jserving  # noqa: E402
 from fairness_llm_tpu.config import ModelSettings as JSettings  # noqa: E402
@@ -547,11 +551,18 @@ def test_cli_continuous_runs(tmp_path, capsys):
 def test_cli_refuses_the_later_serving_flags(flag):
     """The flags of slices still to come raise NotImplementedError naming
     the flag. The fleet's (--replicas, --autoscale) are ported: they are
-    refused, as the reference refuses them, without --continuous."""
+    refused, as the reference refuses them, without --continuous; the
+    roofline's --achievable-gbps is ported and parses as the reference's."""
     from fairness_llm_tpu.cli import main as jcli
     from fairness_llm_tpu_torch.cli import main as tcli
 
     value = [] if flag == "--autoscale" else ["2"]
+    if flag == "--achievable-gbps":
+        argv = ["--phase", "1", "--continuous", flag] + value
+        got = tcli.config_from_args(tcli.build_parser().parse_args(argv)).telemetry
+        want = jcli.config_from_args(jcli.build_parser().parse_args(argv)).telemetry
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        return
     if flag in ("--replicas", "--autoscale"):
         for cli in (tcli, jcli):
             with pytest.raises(SystemExit, match="--continuous"):
