@@ -29,7 +29,8 @@ the card, overload control with its QoS queues and the fairness monitor
 through the CLI's telemetry export, the replica fleet with its failover,
 autoscaler and rolling upgrade, and last the device-facing telemetry: the
 memory ledger, the roofline, the cost ledger and the compile stats, with
-their reports and the headroom signals.
+their reports and the headroom signals; and last the per-phase device trace
+of a served full-width run, and the study data-parallel over two ranks.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -206,8 +207,8 @@ path's launch counts are set to 0 just before it and read just after:
      (blocks of 16 tokens; the slots' block tables into one arena, each
      prompt's cached prefix matched and only its suffix prefilled; the
      suffix prefill attends densely, so K1 and K3 must not launch). On
-     tiny-llama-study and tiny-gpt2-study in phase 24's pool at t=0.7 (the
-     main path): K2's f32 kernel must launch and its tensor-core kernel
+     the first study checkpoint (tiny-llama-study) in phase 24's pool at
+     t=0.7 (the main path): K2's f32 kernel must launch and its tensor-core kernel
      must not, all 48 prompts admitted and completed, the registry's
      ``prefix_cache_hit_ratio`` above 0.5; then greedy on the card and on
      the CPU, each row equal to the other's, to phase 24's served rows and
@@ -227,8 +228,8 @@ path's launch counts are set to 0 just before it and read just after:
      and the float32 function's pick between the two tokens), and the same
      sweeps over the same weights in float32 gated: a row may part only
      where the non-paged path's own top two logits, and the paged token,
-     are within the float32 allowance. Then a direct serve of 16 of the
-     prompts at 32 tokens over an int8 KV cache, paged and not: in
+     are within the float32 allowance. Then a direct serve of 8 of the
+     prompts at 16 tokens over an int8 KV cache, paged and not: in
      bfloat16 (K2q on decode_split_tc over the gathered view; its calls
      held; the parting rows reported) and in float32 (gated as above).
      The greedy and float32 sweeps run at one profile a combination
@@ -251,8 +252,8 @@ path's launch counts are set to 0 just before it and read just after:
      watchdog (60 s) and a canary every
      call (recorded in a pool of the live pool's shape): no fault, no hang,
      no canary mismatch, every row phase 24's, its wall logged beside
-     phase 24's; then a direct serve of 16 prompts with one decode fault
-     and one NaN: the counters the script implies, every request complete
+     phase 24's; then a direct serve of 8 prompts of 16 tokens with one
+     decode fault and one NaN: the counters the script implies, every request complete
      after one requeue, its kernel calls held, its rows against the
      fault-free ones reported in bf16 and gated in float32 over the same
      weights (as phase 25). (c) One speculative greedy engine call and an
@@ -364,6 +365,33 @@ path's launch counts are set to 0 just before it and read just after:
      interactive one whole. K1, K2 and K4 launch on their tensor-core
      kernels and every kernel is held against its plain version at this
      phase's shapes.
+  the per-phase device trace (``--trace-dir``, ``utils/profiling.py``) and
+  data parallelism (``--mesh dp=N``, ``parallel/``, ``metrics/sharded.py``),
+  after phase 29:
+ 30. (a) In a child, the CLI's ``--phase 1 --quick --continuous --slots 16
+     --model llama3-8b --weight-quant int8 --max-new-tokens 16 --trace-dir
+     D`` (random int8 weights: one call of 16 prompts of 16 tokens): exit 0,
+     one capture (for ``phase1``) and a printed summary of its device ops;
+     the capture, read back with ``summarize_trace`` (whose failure fails
+     here, though the CLI only warns), names K1's, K2's and both K4
+     regimes' kernels; the serve step's device busy share (the union of
+     the kernel intervals inside its ``serve_step`` spans over their wall)
+     and the capture's bytes are logged. (b) Two ranks, children with the
+     environment torchrun gives a rank (127.0.0.1), gloo, both on the one
+     card: the greedy phase-1 sweep of tiny-llama-study at phase 20's
+     settings on a dp=2 mesh (each rank 8 rows of each call of 16) must
+     launch only K1's and K2's f32 kernels, reduce its metric counts over
+     dp (``metric_reduction: "dp-psum"``) and equal phase 20's
+     single-process card record (a row may part only at a near tie, as
+     phase 20); then phase 21's llama3-8b int8 default sweep on the mesh:
+     K1, K2 and both K4 regimes on their tensor-core kernels, its wall,
+     engine init and each rank's peak memory logged, its rows reported
+     against phase 21's; rank 0 alone writes files. Each rank holds every
+     kernel call no earlier phase (or the other rank) held against its
+     plain version, and sends its launches and rows back; a rank that fails
+     fails the phase (no fallback to one process). (c) One rank on NCCL:
+     ``initialize_distributed`` on the card picks NCCL, and an all_reduce
+     of a CUDA tensor returns the sum.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
@@ -388,7 +416,9 @@ path's launch counts are set to 0 just before it and read just after:
   ("study", FULL_WIDTH) and its rows as ``fleet_shapes``; and phase 29's
   launches on its in-process runs (b)-(c) as ``devtel_launches``
   (FULL_WIDTH; the CLI child's launches are its own) and its rows as
-  ``devtel_shapes``.
+  ``devtel_shapes``; and phase 30(b)'s launches in each rank's runs as
+  ``dp_launches`` ("study_rank<r>", FULL_WIDTH + "_rank<r>") and the rows
+  its ranks held as ``dp_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -1584,9 +1614,9 @@ def int8_path(torch, prompts, keys, greedy, sampled):
 # The phase-1 sweep (pipeline/phase1.run_phase1) on the study checkpoints:
 # f32 weights at head width 32, so K1 and K2 run their f32 kernels.
 STUDY_MODELS = ("tiny-llama-study", "tiny-gpt2-study")
-# Phases 26(a) and 27(a) drive their study drills (the contained sweeps,
-# the overload CLI runs) on the first checkpoint only, to keep the script
-# near ten minutes; phases 19-25 and 28(a) drive both.
+# Phases 25(a), 26(a) and 27(a) drive their study drills (the paged sweeps,
+# the contained sweeps, the overload CLI runs) on the first checkpoint only,
+# to keep the script near ten minutes; phases 19-24 and 28(a) drive both.
 DRILL_MODELS = STUDY_MODELS[:1]
 STUDY_PROMPTS = 48  # 45 profiles and 3 neutral prompts
 # A greedy row may differ between the card and the CPU only where the CPU's
@@ -2773,7 +2803,7 @@ FULL_WIDTH_PAGED = dict(FULL_WIDTH_SERVING, max_new_tokens=128, paged_kv=True,
 MIN_HIT_RATIO = 0.5
 # The int8-KV direct serve at full width: this many of the sweep's prompts,
 # this many greedy tokens each, paged and not, over the same weight tensors.
-KV_INT8_REQUESTS, KV_INT8_TOKENS = 16, 32
+KV_INT8_REQUESTS, KV_INT8_TOKENS = 8, 16
 PAGED_GAUGES = ("kv_blocks_free", "kv_block_occupancy", "kv_blocks_cached",
                 "prefix_cache_hit_ratio")
 
@@ -3292,7 +3322,7 @@ def paged_path(torch, F, device_line: str, sweep: dict, p24: dict) -> dict:
     launches, rows = {"study": {}}, {}
     gc.collect()
     with tempfile.TemporaryDirectory() as tmp:
-        for name in STUDY_MODELS:
+        for name in DRILL_MODELS:
             row, krows, p24["t07_paged"][name] = study_paged(
                 torch, F, name, pathlib.Path(tmp), sweep["greedy_card"][name],
                 p24["greedy_card"][name], held)
@@ -3335,7 +3365,7 @@ STUDY_RESILIENCE = dict(enabled=True, max_step_seconds=600.0, breaker_threshold=
 FULL_WIDTH_RESILIENCE = dict(enabled=True, max_step_seconds=60.0)
 # The full-width faulted serve: this many of the sweep's prompts, greedy, in
 # the control pool; one decode fault and one NaN, in its first decode chunk.
-FAULT_REQUESTS, FAULT_TOKENS = 16, 32
+FAULT_REQUESTS, FAULT_TOKENS = 8, 16
 # The drill of a fatal CUDA error: the decode step at which the child
 # indexes a tensor out of range on the card (a device-side assert).
 FATAL_STEP = 20
@@ -5173,6 +5203,359 @@ def devtel_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
     return {"launches": {FULL_WIDTH: launches}, "rows": rows}
 
 
+# Phase 30: the per-phase device trace (--trace-dir over torch.profiler) and
+# data parallelism (--mesh dp=N: parallel/, the dp-sharded engine and
+# scoring, metrics/sharded.py), after phase 29.
+#
+# (a) The CLI's traced served phase 1 at full width, in a child: llama3-8b
+# with random int8 weights (the child lets backend_for draw them, as the
+# in-process phases do), cut to one call of 16 prompts (--quick: 15
+# profiles and one neutral prompt) of 16 tokens in a pool of 16 slots.
+TRACE_CLI_ARGS = ["--phase", "1", "--quick", "--continuous", "--slots", "16", "--model", MODEL,
+                  "--weight-quant", "int8", "--max-new-tokens", "16"]
+TRACE_CHILD = """
+import functools, sys
+sys.path.insert(0, sys.argv[1])
+from fairness_llm_tpu_torch.pipeline import backends, phase1
+phase1.backend_for = functools.partial(backends.backend_for, allow_random=True)
+from fairness_llm_tpu_torch.cli.main import main
+sys.exit(main(sys.argv[2:]))
+"""
+# The device kernels the capture must name: K1, K2 and both K4 regimes.
+TRACED_KERNELS = {"flash_attention": "flash_fwd_tc", "decode_attention": "decode_split_tc",
+                  "quant_matmul_gemv": "gemv_stream_tc", "quant_matmul_gemm": "wg_gemm_kernel"}
+# (b) Two ranks on the one card, gloo (NCCL refuses two ranks on one
+# device), each a child running ``dp_rank`` with the environment torchrun
+# gives a rank.
+DP_WORLD = 2
+DP_CHILD = """
+import pathlib, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.exit(chip_smoke.dp_rank(pathlib.Path(sys.argv[2])))
+"""
+# (c) One rank on NCCL: the group's all_reduce of a CUDA tensor.
+NCCL_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from fairness_llm_tpu_torch.parallel.multihost import initialize_distributed
+assert initialize_distributed()
+x = torch.arange(1, 9, device="cuda", dtype=torch.float32)
+want = x.clone() * dist.get_world_size()
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print(json.dumps({"backend": dist.get_backend(), "world": dist.get_world_size(),
+                  "device": str(x.device), "sum": x.tolist(), "want": want.tolist()}))
+dist.destroy_process_group()
+"""
+
+
+def rank_env(rank: int, world: int, port: int) -> dict:
+    import os
+
+    return dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(world))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def trace_run(torch, tmp: pathlib.Path) -> dict:
+    """Phase 30(a): exit 0, one capture, a printed summary of its device
+    ops; the capture's kernels name K1, K2 and both K4 regimes (read back
+    with ``summarize_trace``, whose failure fails here); the serve step's
+    device busy share (the union of the kernels inside its
+    ``record_function`` spans over their wall) and the capture's bytes."""
+    from fairness_llm_tpu_torch.utils.profiling import (
+        CAPTURE_SUFFIX,
+        device_busy_share,
+        summarize_trace,
+    )
+
+    trace_dir, results = tmp / "trace", tmp / "trace_cli"
+    args = TRACE_CLI_ARGS + ["--data-dir", str(ROOT / "data" / "ml-1m"), "--results-dir",
+                             str(results), "--trace-dir", str(trace_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TRACE_CHILD, str(ROOT)] + args, cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the traced CLI run exited {proc.returncode}: {proc.stderr[-3000:]}")
+    caps = sorted(trace_dir.rglob("*" + CAPTURE_SUFFIX))
+    if len(caps) != 1 or not caps[0].parent.name.startswith("phase1-"):
+        fail(f"the traced CLI run left captures {caps}, not one for phase1")
+    printed = [line for line in proc.stdout.splitlines()
+               if ": cuda: " in line and "ms device time" in line]
+    if not printed:
+        fail(f"the traced CLI run printed no device summary: {proc.stdout[-2000:]}")
+    t1 = time.perf_counter()
+    try:
+        summaries = summarize_trace(str(trace_dir), top_k=100000, device_filter="cuda")
+    except (OSError, ValueError, KeyError) as e:
+        fail(f"the capture does not summarize: {e!r}")
+    summary_s = time.perf_counter() - t1
+    if len(summaries) != 1:
+        fail(f"the capture holds {len(summaries)} device summaries, not one")
+    ops = summaries[0].top_ops
+    found = {k: [(n, ms, c) for n, ms, c in ops if fn in n] for k, fn in TRACED_KERNELS.items()}
+    missing = [k for k, v in found.items() if not v]
+    if missing:
+        fail(f"the capture names no kernel of {missing} among {len(ops)} device ops")
+    share = device_busy_share(str(caps[0]), "serve_step")
+    if not share["spans"] or share["busy_share"] is None:
+        fail(f"the capture holds no serve_step span: {share}")
+    rec = json.loads((results / "phase1" / "phase1_results.json").read_text())
+    errors = sorted(k for k, v in rec["recommendations"].items() if "error" in v)
+    if errors or rec["metadata"]["serving"] is None:
+        fail(f"the traced CLI run served no record: error rows {errors[:4]}, serving "
+             f"{rec['metadata']['serving']}")
+    return {"argv": args, "wall_s": wall, "capture": str(caps[0].relative_to(tmp)),
+            "capture_bytes": caps[0].stat().st_size, "summary_s": summary_s,
+            "device_ms": summaries[0].total_ms, "device_events": summaries[0].num_events,
+            "device_op_names": len(ops), "serve_step": share,
+            "kernels": {k: [[n[:60], ms, c] for n, ms, c in v] for k, v in found.items()},
+            "top_ops": [[n[:80], ms, c] for n, ms, c in ops[:12]],
+            "printed_summary": printed, "rows": len(rec["recommendations"]),
+            "serving": rec["metadata"]["serving"]}
+
+
+def nccl_check() -> dict:
+    """Phase 30(c): one rank, ``initialize_distributed`` on the card picks
+    NCCL, and an all_reduce of a CUDA tensor returns the sum."""
+    proc = subprocess.run([sys.executable, "-c", NCCL_CHILD, str(ROOT)], cwd=ROOT,
+                          env=rank_env(0, 1, free_port()), capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        fail(f"the NCCL child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    if row["backend"] != "nccl" or row["world"] != 1 or row["sum"] != row["want"] \
+            or not row["device"].startswith("cuda"):
+        fail(f"the NCCL all_reduce: {row}")
+    return row
+
+
+def _keys(obj):
+    """JSON lists back into the recorders' tuple keys."""
+    return tuple(_keys(x) for x in obj) if isinstance(obj, list) else obj
+
+
+def dp_rank(out: pathlib.Path) -> int:
+    """One rank of phase 30(b), in a child started with a rank's torchrun
+    environment: join the gloo group, then (1) the greedy phase-1 sweep of
+    the first study checkpoint at phase 20's settings on a dp=2 mesh, (2)
+    the llama3-8b int8 default sweep (phase 21's) on it; each with its
+    kernels recorded. Then, rank after rank, each kernel against its plain
+    version at the shapes no earlier phase held (``spec.json``'s keys, and
+    the other rank's). Writes ``rank<r>.json``: its launches, records,
+    token rows, walls, peak memory and kernel rows."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from fairness_llm_tpu_torch.config import Config, MeshConfig
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.parallel.multihost import initialize_distributed
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads((out / "spec.json").read_text())
+    held = {_keys(k) for k in spec["held"]}
+    initialize_distributed()
+    rank, mesh = dist.get_rank(), MeshConfig(dp=DP_WORLD)
+    mine = out / f"rank{rank}"
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "cuda_device": torch.cuda.current_device()}
+    data = str(ROOT / "data" / "ml-1m")
+    runs = {}
+    name = STUDY_MODELS[0]
+    for key, cfg, model in (
+            ("study", greedy_config(Config(weights_dir=str(ROOT / "checkpoints"),
+                                           data_dir=data, results_dir=str(mine / "study"),
+                                           mesh=mesh), name, MAX_TOKENS), name),
+            (FULL_WIDTH, Config(weight_quant="int8", max_new_tokens=MAX_TOKENS,
+                                data_dir=data, results_dir=str(mine / FULL_WIDTH),
+                                mesh=mesh), MODEL)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_all(dec_mod, flash_mod, qm)
+        t0 = time.perf_counter()
+        backend = backend_for(model, cfg, allow_random=model == MODEL)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        calls = SweepRecorder(backend)
+        with flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+            rec = run_phase1(cfg, model, backend=backend)
+        torch.cuda.synchronize()
+        res[key] = {"wall_s": time.perf_counter() - t0, "engine_init_s": init_s,
+                    "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": phase1_counts(dec_mod, flash_mod, qm), "record": rec,
+                    "calls": calls.calls, "chunks": calls.chunks,
+                    "files": sorted(str(p.relative_to(mine)) for p in mine.rglob("*")
+                                    if p.is_file() and key in p.parts)}
+        runs[key] = (recs, key == "study")
+        del backend
+    rows = {}
+    for turn in range(DP_WORLD):
+        if rank == turn:
+            for key, (recs, f32) in runs.items():
+                for k, v in sweep_kernel_rows(recs, torch, F, qm, f"dp_{key}_rank{rank}", f32,
+                                              held).items():
+                    rows.setdefault(k, []).extend(v)
+        box = [held]
+        dist.broadcast_object_list(box, src=turn)
+        held = box[0]
+    res["rows"] = rows
+    (out / f"rank{rank}.json").write_text(json.dumps(res, default=str))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_run(torch, tmp: pathlib.Path, sweep: dict, held: set) -> dict:
+    """Phase 30(b) in the parent: start the ranks, wait for both (one that
+    fails stops the other and fails here), then check what they sent back."""
+    out = tmp / "dp"
+    out.mkdir()
+    (out / "spec.json").write_text(json.dumps({"held": sorted(held, key=repr)},
+                                              default=list))
+    port = free_port()
+    logs = [open(out / f"rank{r}.log", "w") for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", DP_CHILD, str(ROOT), str(out)], cwd=ROOT,
+                              env=rank_env(r, DP_WORLD, port), stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+    try:
+        deadline = time.monotonic() + 900
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if codes != [0] * DP_WORLD:
+        tails = "\n".join(f"rank {r}: " + (out / f"rank{r}.log").read_text()[-2500:]
+                          for r in range(DP_WORLD))
+        fail(f"the dp=2 ranks exited {codes}:\n{tails}")
+    return {"wall_s": wall, "ranks": [json.loads((out / f"rank{r}.json").read_text())
+                                      for r in range(DP_WORLD)]}
+
+
+def dp_checks(torch, res: dict, sweep: dict, device_line: str) -> tuple:
+    """Phase 30(b)'s checks on the ranks' results: gloo on the one card;
+    the study's f32 kernels only, its record equal to phase 20's
+    single-process card record (a greedy row may part only at a near tie),
+    reduced over dp; K1, K2 and both K4 regimes on their tensor-core
+    kernels in the 8B sweep, whose rows are reported against phase 21's;
+    rank 0 alone wrote files; every kernel row within its tolerance and its
+    blind check failing it. Returns the launches by run and rank, the rows
+    by entry, and the log row."""
+    import types
+
+    from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+
+    name = STUDY_MODELS[0]
+    card, card_calls = sweep["greedy_card"][name]
+    phase21 = sweep["records"][FULL_WIDTH]
+    engine = backend_for(name, greedy_config(Config(weights_dir=str(ROOT / "checkpoints"),
+                                                    data_dir=str(ROOT / "data" / "ml-1m")),
+                                             name, MAX_TOKENS)).engine
+    launches, rows = {}, {}
+    row = {"device": device_line, "world": DP_WORLD, "wall_s": res["wall_s"], "ranks": []}
+    for r, rk in enumerate(res["ranks"]):
+        if rk["backend"] != "gloo" or rk["cuda_device"] != 0:
+            fail(f"dp rank {r} ran {rk['backend']} on cuda:{rk['cuda_device']}, not gloo on "
+                 "the one card")
+        study, full = rk["study"], rk[FULL_WIDTH]
+        ls, lf = study["launches"], full["launches"]
+        if ls["flash_attention_f32"] <= 0 or ls["decode_attention_f32"] <= 0 \
+                or ls["flash_attention"] or ls["decode_attention"] or ls["quant_matmul_gemv"] \
+                or ls["quant_matmul_gemm"]:
+            fail(f"dp rank {r}: the f32 study sweep launched {ls}")
+        if any(lf[k] <= 0 for k in TRACED_KERNELS) or lf["flash_attention_f32"] \
+                or lf["decode_attention_f32"]:
+            fail(f"dp rank {r}: the 8B sweep launched {lf}")
+        for key, label in (("study", name), (FULL_WIDTH, "llama3-8b int8")):
+            rec = rk[key]["record"]
+            if rec["metadata"]["metric_reduction"] != "dp-psum":
+                fail(f"dp rank {r} {label}: metric_reduction {rec['metadata']['metric_reduction']}")
+            want_files = [f"{key}/phase1/phase1_results.json"] if r == 0 else []
+            got_files = [f for f in rk[key]["files"] if f.endswith("phase1_results.json")]
+            if got_files != want_files or (r and rk[key]["files"]):
+                fail(f"dp rank {r} {label} wrote {rk[key]['files']}")
+        calls = types.SimpleNamespace(calls=[(p, t) for p, t in study["calls"]])
+        differ = greedy_divergences(f"{name} dp=2 rank {r}", card_calls, calls, engine, torch,
+                                    against="the single-process card run")
+        rec = study["record"]
+        if not differ:
+            if rec["recommendations"] != json.loads(json.dumps(card["recommendations"])) or \
+                    rec["neutral_recommendations"] != card["neutral_recommendations"]:
+                fail(f"dp rank {r}: equal tokens but other responses than the single-process "
+                     "card run")
+            for (path, a), (_, b) in zip(metric_leaves(rec["metrics"]),
+                                         metric_leaves(card["metrics"])):
+                if abs(a - b) > METRIC_TOL:
+                    fail(f"dp rank {r}: {path} is {a} at dp=2, {b} in one process")
+        raw, raw21 = raw_responses(full["record"]), raw_responses(phase21)
+        row["ranks"].append({
+            "rank": r, "study": {k: study[k] for k in ("wall_s", "engine_init_s",
+                                                       "peak_allocated_gb", "launches")},
+            "study_rows_differing": differ,
+            "full_width": {k: full[k] for k in ("wall_s", "engine_init_s", "peak_allocated_gb",
+                                                "launches", "chunks")},
+            "full_width_rows_equal_phase21": sum(raw21.get(k) == v for k, v in raw.items()),
+            "full_width_rows": len(raw)})
+        launches[f"study_rank{r}"], launches[f"{FULL_WIDTH}_rank{r}"] = ls, lf
+        for k, v in rk["rows"].items():
+            rows.setdefault(k, []).extend(v)
+    for k, v in rows.items():
+        check_rows(k, v, "the blinded input (as the phase that first held the kernel)")
+    row["phase21_wall_s"] = sweep["full_width_wall_s"]
+    return launches, rows, row
+
+
+def trace_dp_path(torch, device_line: str, sweep: dict, held: set) -> dict:
+    """Phase 30: (a) the traced CLI run, (b) dp=2 on the card, (c) NCCL at
+    one rank. Returns each kernels-line entry's launches in each rank's
+    runs and the rows of the calls no earlier phase held."""
+    import gc
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        log(f"trace_cli {json.dumps({'device': device_line, **trace_run(torch, tmp)})}")
+        log(f"trace_cli_s {time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        launches, rows, row = dp_checks(torch, dp_run(torch, tmp, sweep, held), sweep,
+                                        device_line)
+        log(f"dp_sweeps {json.dumps(row)}")
+        log(f"dp_s {time.perf_counter() - t0:.1f}")
+    log(f"nccl_one_rank {json.dumps({'device': device_line, **nccl_check()})}")
+    return {"launches": launches, "rows": rows}
+
+
 def main() -> int:
     try:
         import torch
@@ -5247,6 +5630,10 @@ def main() -> int:
     t0 = time.perf_counter()
     devtel = devtel_path(torch, F, device_line, p24, paged["held"])
     log(f"devtel_path_s {time.perf_counter() - t0:.1f}")
+    p24.clear()
+    t0 = time.perf_counter()
+    dp = trace_dp_path(torch, device_line, sweep, paged["held"])
+    log(f"trace_dp_path_s {time.perf_counter() - t0:.1f}")
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -5290,6 +5677,10 @@ def main() -> int:
                                     for path, counts in devtel["launches"].items()}
         if entry["name"] in devtel["rows"]:
             entry["devtel_shapes"] = devtel["rows"][entry["name"]]
+        entry["dp_launches"] = {path: counts[entry["name"]]
+                                for path, counts in dp["launches"].items()}
+        if entry["name"] in dp["rows"]:
+            entry["dp_shapes"] = dp["rows"][entry["name"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

@@ -55,8 +55,20 @@ Subcommands: ``telemetry-report <dir>`` (``--validate``, ``--timeline``,
 version under live traffic (exit 0 complete, 2 rolled back, 1 requests
 lost).
 
-Tensor-parallel serving (``--tp``) and device meshes (``--mesh``) raise
-``NotImplementedError`` (ROADMAP A5, A8).
+Data parallelism: ``--mesh dp=N`` under ``torchrun`` (one process a
+rank; ``parallel/multihost.initialize_distributed`` joins the group from
+the launcher's environment) splits every decode and scoring call's rows
+over the N ranks and reduces phase 1's metric counts over them; rank 0
+alone writes the records, reports, figures and telemetry.
+
+    torchrun --nproc-per-node 2 -m fairness_llm_tpu_torch.cli.main \
+        --phase 1 --mesh dp=2 --model tiny-llama-study --weights-dir checkpoints
+
+``--trace-dir DIR`` captures each phase with ``torch.profiler`` (one
+Chrome-trace JSON a phase and rank under DIR) and prints the captures'
+top device ops at the end (the host ops where no card ran). Tensor- and
+sequence-parallel meshes (``--mesh tp=N``, ``sp=N``) and ``--tp`` raise
+``NotImplementedError`` (ROADMAP A5.5, A8(b)).
 """
 
 from __future__ import annotations
@@ -67,13 +79,14 @@ import importlib.util
 import logging
 import os
 import sys
-from typing import Dict
+from typing import Dict, Optional
 
 from fairness_llm_tpu_torch.config import (
     AutoscaleConfig,
     Config,
     FleetConfig,
     IntegrityConfig,
+    MeshConfig,
     OverloadConfig,
     ResilienceConfig,
     ServingConfig,
@@ -266,8 +279,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-replicas", type=int, default=None, metavar="N",
                    help="with --autoscale: upper membership bound (default 4)")
     # Not ported yet: refused, never ignored.
-    for flag, kw in (("--tp", dict(type=int)), ("--mesh", dict(default=None))):
-        p.add_argument(flag, help="not ported yet (ROADMAP A5, A8)", **kw)
+    p.add_argument("--tp", type=int, help="not ported yet (ROADMAP A5.5)")
+    p.add_argument("--mesh", default=None,
+                   help="rank mesh, e.g. 'dp=2', under torchrun with that many ranks "
+                        "(tp and sp are not ported yet)")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler capture per phase to this directory and "
+                        "print its top device ops at the end")
     p.add_argument("--achievable-gbps", type=float, default=None,
                    help="measured achievable device-memory bandwidth (GB/s) for the live "
                         "achieved_over_achievable roofline gauges (default: the card's "
@@ -277,7 +295,39 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-NOT_PORTED = ("--tp", "--mesh")
+NOT_PORTED = ("--tp",)
+
+
+def parse_mesh(spec: Optional[str]) -> MeshConfig:
+    """'dp=2,tp=4' -> MeshConfig(dp=2, tp=4)."""
+    if not spec:
+        return MeshConfig()
+    kwargs = {}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        if k.strip() not in ("dp", "tp", "sp"):
+            raise SystemExit(f"unknown mesh axis '{k}' (use dp/tp/sp)")
+        try:
+            kwargs[k.strip()] = int(v)
+        except ValueError:
+            raise SystemExit(f"bad mesh spec '{part}' (use e.g. dp=2,tp=4)") from None
+    return MeshConfig(**kwargs)
+
+
+def check_setup(config: Config) -> None:
+    """The reference's environment probes: the ranks against the mesh, the
+    corpus."""
+    from fairness_llm_tpu_torch.parallel.multihost import world_size
+
+    world = world_size()
+    print(f"ranks: {world}")
+    need = config.mesh.num_devices
+    if need > world:
+        print(f"WARNING: mesh {config.mesh.shape} wants {need} ranks, found {world} "
+              f"(launch with torchrun --nproc-per-node {need})")
+    if not os.path.exists(os.path.join(config.data_dir, "movies.dat")):
+        print(f"WARNING: MovieLens not found at {config.data_dir}; "
+              "synthetic fallback will be used")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -285,10 +335,23 @@ def config_from_args(args: argparse.Namespace) -> Config:
         value = getattr(args, flag[2:].replace("-", "_"))
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"{flag}: tensor-parallel serving and device meshes are not ported yet "
-                "(ROADMAP A5, A8)")
+                f"{flag}: tensor-parallel serving is not ported yet (ROADMAP A5.5)")
     config = default_config()
     updates: Dict = {}
+    if args.mesh:
+        mesh = parse_mesh(args.mesh)
+        if mesh.tp > 1:
+            raise NotImplementedError(
+                f"--mesh {args.mesh}: tensor parallelism is not ported yet (ROADMAP A5.5)")
+        if mesh.sp > 1:
+            raise NotImplementedError(
+                f"--mesh {args.mesh}: sequence parallelism (ring attention) is not ported "
+                "yet (ROADMAP A8(b))")
+        updates["mesh"] = mesh
+    if args.trace_dir:
+        updates["profile_trace_dir"] = args.trace_dir
+    if args.telemetry_dir:
+        updates["telemetry_dir"] = args.telemetry_dir
     attribution_flags = (args.slo_ttft_p95, args.slo_e2e_p99, args.slo_error_rate,
                          args.achievable_gbps)
     if args.fairness_obs or args.trace_out or any(v is not None for v in attribution_flags):
@@ -1012,8 +1075,9 @@ def main(argv=None) -> int:
     )
     from fairness_llm_tpu_torch.reports.report import generate_summary_report
     from fairness_llm_tpu_torch.resilience import GracefulDrain
+    from fairness_llm_tpu_torch.parallel.multihost import initialize_distributed, is_primary
     from fairness_llm_tpu_torch.telemetry.incidents import INCIDENTS_DIRNAME
-    from fairness_llm_tpu_torch.utils.profiling import phase_timer
+    from fairness_llm_tpu_torch.utils.profiling import maybe_trace, phase_timer, summarize_trace
 
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -1021,24 +1085,28 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
     config = config_from_args(args)
+    # A no-op in one process; under torchrun, this rank joins the group.
+    initialize_distributed()
     create_directories(config)
-    if not os.path.exists(os.path.join(config.data_dir, "movies.dat")):
-        print(f"WARNING: MovieLens not found at {config.data_dir}; "
-              "synthetic fallback will be used")
+    check_setup(config)
     if args.quick:
         args.num_items = min(args.num_items, 10)
         args.num_comparisons = min(args.num_comparisons, 6)
-    save = not args.no_save
-    if args.incidents and not args.telemetry_dir:
+    # Under a process group, rank 0 alone writes files; the phases apply
+    # the same rule to their records.
+    primary = is_primary()
+    save = not args.no_save and primary
+    telemetry_dir = config.telemetry_dir if primary else None
+    if args.incidents and not config.telemetry_dir:
         raise SystemExit("--incidents requires --telemetry-dir (bundles dump under "
                          "<telemetry-dir>/incidents)")
     telemetry_sink = None
-    if args.telemetry_dir:
+    if telemetry_dir:
         # configure arms the per-program memory capture: for this run only.
         prev_capture = T.set_program_memory_capture(True)
-        telemetry_sink = T.configure(args.telemetry_dir)
-    if args.incidents:
-        T.arm_incidents(os.path.join(args.telemetry_dir, INCIDENTS_DIRNAME))
+        telemetry_sink = T.configure(telemetry_dir)
+    if args.incidents and telemetry_dir:
+        T.arm_incidents(os.path.join(telemetry_dir, INCIDENTS_DIRNAME))
 
     drain_handler = None
     if config.resilience.enabled and config.serving.enabled:
@@ -1069,7 +1137,8 @@ def main(argv=None) -> int:
                 # remaining phases would only produce preempted results.
                 print(f"\ndrain requested: skipping phase {phase} and beyond")
                 break
-            with phase_timer(f"phase {phase}", timings):
+            with phase_timer(f"phase {phase}", timings), \
+                    maybe_trace(config.profile_trace_dir, f"phase{phase}"):
                 if phase == 1:
                     p1 = run_phase1(config, args.model, args.profiles, save=save,
                                     resume=args.resume, device=args.device)
@@ -1115,16 +1184,26 @@ def main(argv=None) -> int:
         print("\nNOTE: the run was drained by a signal; unfinished serving requests (with "
               "--serving-journal) finish with: resume-serving <journal-dir> --model NAME")
 
-    if args.telemetry_dir:
+    if config.profile_trace_dir:
+        # The captures' top device ops (the host ops where no card ran).
+        # Diagnostics: a summary that fails warns and the run goes on.
+        try:
+            summaries = summarize_trace(config.profile_trace_dir, top_k=8, device_filter="")
+            cuda = [sm for sm in summaries if sm.device.endswith(": cuda")]
+            for summary in cuda or summaries:
+                print("\n" + summary.format())
+        except (OSError, ValueError, KeyError) as e:
+            logger.warning("trace summary unavailable: %s", e)
+
+    if telemetry_dir:
         # The end-of-run registry snapshot (JSON and Prometheus text), its
         # report, and the host-clock timeline beside it.
-        path = T.write_snapshot(T.get_registry(), args.telemetry_dir)
+        path = T.write_snapshot(T.get_registry(), telemetry_dir)
         print("\n" + T.render_report(T.snapshot(T.get_registry())))
         print(f"\ntelemetry snapshot: {path}")
     # The timeline: <telemetry-dir>/trace.json, and a copy at --trace-out.
-    trace_paths = [os.path.join(args.telemetry_dir, T.TRACE_FILENAME)] if args.telemetry_dir \
-        else []
-    if tc.trace_out and tc.trace_out not in trace_paths:
+    trace_paths = [os.path.join(telemetry_dir, T.TRACE_FILENAME)] if telemetry_dir else []
+    if tc.trace_out and primary and tc.trace_out not in trace_paths:
         trace_paths.append(tc.trace_out)
     for path in trace_paths:
         trace = T.get_timeline().export(path)

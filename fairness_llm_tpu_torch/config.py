@@ -5,10 +5,9 @@ three phases read, ``ServingConfig`` (the continuous-batching core's
 knobs), ``OverloadConfig`` (QoS queues and load shedding),
 ``TelemetryConfig`` (the fairness monitor, SLO targets, the trace copy),
 ``FleetConfig``, ``AutoscaleConfig`` and ``RolloutConfig`` (the replica
-fleet, its autoscaler and the rolling upgrade), ``default_config`` with the
-reference's ``FAIRNESS_TPU_*`` overrides, and ``create_directories``. The
-mesh section waits for its slice (the CLI's ``--telemetry-dir`` needs no
-config field)."""
+fleet, its autoscaler and the rolling upgrade), ``MeshConfig`` (the
+``("dp", "tp", "sp")`` layout of the ranks), ``default_config`` with the
+reference's ``FAIRNESS_TPU_*`` overrides, and ``create_directories``."""
 
 from __future__ import annotations
 
@@ -53,8 +52,8 @@ class ServingConfig:
     shared arena of ``kv_blocks`` blocks of ``kv_block_size`` tokens
     (``serving/paged.py``): admission reuses cached prompt prefixes and
     prefills only the unmatched suffix; greedy tokens stay those of the
-    non-paged path. Tensor-parallel serving (``tp``) is a later slice:
-    setting it raises ``NotImplementedError``."""
+    non-paged path. Tensor-parallel serving (``tp``) is a later slice
+    (ROADMAP A5.5): setting it raises ``NotImplementedError``."""
 
     enabled: bool = False
     num_slots: int = 8  # concurrent KV slots = decode-step batch rows
@@ -80,7 +79,7 @@ class ServingConfig:
         if self.tp != 1:
             raise NotImplementedError(
                 f"ServingConfig.tp={self.tp!r}: tensor-parallel serving is not ported yet "
-                "(ROADMAP A5)")
+                "(ROADMAP A5.5)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,6 +306,34 @@ class IntegrityConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The layout of the ranks, in the reference's axis order:
+
+    - ``dp``: data parallel, the profile sweep split by rows over ranks;
+    - ``tp``: tensor parallel, heads and the MLP's hidden width split;
+    - ``sp``: sequence parallel, ring attention over the sequence.
+
+    The port runs one process a rank (``torchrun``); ``parallel/`` builds
+    the ``torch.distributed`` device mesh from this."""
+
+    dp: int = 1
+    tp: int = 1
+    sp: int = 1
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("dp", "tp", "sp")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.dp, self.tp, self.sp)
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.tp * self.sp
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     """The study's configuration: the reference's fields that the three
     phases read."""
@@ -352,6 +379,13 @@ class Config:
     # override it either way.
     weight_quant: Optional[str] = None
     checkpoint_every: int = 20  # profiles between sweep checkpoints
+    # The ranks' mesh (--mesh dp=N, under torchrun).
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    # One torch.profiler capture per phase under this directory (--trace-dir).
+    profile_trace_dir: Optional[str] = None
+    # Telemetry exports (--telemetry-dir, or FAIRNESS_TPU_TELEMETRY_DIR):
+    # events.jsonl streamed, the snapshot and trace.json at the end.
+    telemetry_dir: Optional[str] = None
     # Prompt-lookup speculation for greedy sweeps (sampled settings take the
     # plain path).
     speculation: SpeculationConfig = dataclasses.field(default_factory=SpeculationConfig)
@@ -387,8 +421,8 @@ class Config:
 
 def default_config() -> Config:
     """A ``Config`` with the environment's overrides:
-    ``FAIRNESS_TPU_RESULTS_DIR``, ``FAIRNESS_TPU_DATA_DIR`` and
-    ``FAIRNESS_TPU_SEED``."""
+    ``FAIRNESS_TPU_RESULTS_DIR``, ``FAIRNESS_TPU_DATA_DIR``,
+    ``FAIRNESS_TPU_SEED`` and ``FAIRNESS_TPU_TELEMETRY_DIR``."""
     kwargs = {}
     if os.environ.get("FAIRNESS_TPU_RESULTS_DIR"):
         kwargs["results_dir"] = os.environ["FAIRNESS_TPU_RESULTS_DIR"]
@@ -396,6 +430,8 @@ def default_config() -> Config:
         kwargs["data_dir"] = os.environ["FAIRNESS_TPU_DATA_DIR"]
     if os.environ.get("FAIRNESS_TPU_SEED"):
         kwargs["random_seed"] = int(os.environ["FAIRNESS_TPU_SEED"])
+    if os.environ.get("FAIRNESS_TPU_TELEMETRY_DIR"):
+        kwargs["telemetry_dir"] = os.environ["FAIRNESS_TPU_TELEMETRY_DIR"]
     return Config(**kwargs)
 
 

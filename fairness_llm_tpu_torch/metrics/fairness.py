@@ -9,8 +9,10 @@ Each metric has two faces:
 - a wrapper with the reference's dict-of-strings signature and its score
   and detail dict.
 
-The wrappers reduce on the host (numpy interning, CPU tensors): the
-counts are a few hundred titles wide.
+The wrappers intern on the host and reduce the [N, V] counts there by
+default (CPU tensors: a few hundred titles wide); a dp-sharded study passes
+``metrics/sharded.py``'s reduction as ``group_counts_fn``, and the kernels
+then run where its [G, V] result lives.
 """
 
 from __future__ import annotations
@@ -60,24 +62,34 @@ def _flatten_groups(recommendations_by_group, groups):
 
 
 def _group_counts(per_list: np.ndarray, owners: Sequence[int], num_groups: int) -> np.ndarray:
-    """[N, V] per-list counts -> [G, V] per-group counts."""
+    """The default [N, V] per-list counts -> [G, V] per-group counts, on the
+    host. The dp-sharded study swaps in ``metrics/sharded.py``'s reduction
+    through the wrappers' ``group_counts_fn``; everything around it
+    (interning, kernels, the detail dicts) is shared."""
     out = np.zeros((num_groups, per_list.shape[1]), dtype=np.float32)
     np.add.at(out, np.asarray(owners, np.int64), per_list)
     return out
 
 
-def demographic_parity(recommendations_by_group: Dict[str, List[List[str]]]) -> Tuple[float, Dict]:
+def demographic_parity(recommendations_by_group: Dict[str, List[List[str]]],
+                       group_counts_fn=None) -> Tuple[float, Dict]:
     """Group -> list of rec lists -> (score, {divergences, distributions,
-    avg_divergence})."""
+    avg_divergence}). ``group_counts_fn(per_list [N, V], owners [N],
+    num_groups) -> [G, V]`` (an array or a tensor) replaces the count
+    reduction (``_group_counts``)."""
     groups = list(recommendations_by_group.keys())
     flat, owners = _flatten_groups(recommendations_by_group, groups)
     if not flat:
         # No comparable pairs: average divergence 0, parity 1.0.
         return 1.0, {"divergences": [], "distributions": {}, "avg_divergence": 0.0}
     ids, vocab = encode_rec_lists(flat)
-    group_counts = _group_counts(count_matrix(ids, len(vocab)), owners, len(groups))
-    score, js = demographic_parity_kernel(torch.from_numpy(group_counts))
-    js = js.numpy()
+    reduce = group_counts_fn or _group_counts
+    counts = torch.as_tensor(reduce(count_matrix(ids, len(vocab)),
+                                    np.asarray(owners, np.int32), len(groups)))
+    score, js = demographic_parity_kernel(counts)
+    # One host copy, for the detail dicts below.
+    group_counts = counts.cpu().numpy()
+    js = js.cpu().numpy()
     totals = group_counts.sum(axis=-1)
     divergences = []
     for i in range(len(groups)):
@@ -158,9 +170,11 @@ def equal_opportunity_kernel(
 def equal_opportunity(
     recommendations_by_group: Dict[str, List[List[str]]],
     relevant_items: Set[str],
+    group_counts_fn=None,
 ) -> Tuple[float, Dict[str, float]]:
     """Group -> list of rec lists + the relevant items -> (score, group ->
-    hit rate)."""
+    hit rate); ``group_counts_fn`` as in ``demographic_parity`` (the hit
+    rates need only the summed [G, V] counts)."""
     groups = list(recommendations_by_group.keys())
     if not groups:
         return 1.0, {}
@@ -169,13 +183,14 @@ def equal_opportunity(
     for item in relevant_items:
         vocab.add(item)
     per_list = count_matrix(ids, len(vocab)) if flat else np.zeros((0, len(vocab)), np.float32)
-    counts = _group_counts(per_list, owners, len(groups))
+    reduce = group_counts_fn or _group_counts
+    counts = torch.as_tensor(reduce(per_list, np.asarray(owners, np.int32), len(groups)))
     relevant_mask = np.zeros(len(vocab), dtype=bool)
     for item in relevant_items:
         relevant_mask[vocab[item]] = True
-    score, rates = equal_opportunity_kernel(torch.from_numpy(counts),
-                                            torch.from_numpy(relevant_mask))
-    return float(score), {g: float(r) for g, r in zip(groups, rates.numpy())}
+    score, rates = equal_opportunity_kernel(counts,
+                                            torch.from_numpy(relevant_mask).to(counts.device))
+    return float(score), {g: float(r) for g, r in zip(groups, rates.cpu().numpy())}
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,11 @@
   an engine is served through the continuous-batching ``ServingBackend``
   (``serving/backend.py``).
 
-The reference's device meshes and resilience (watchdog, breakers) are not
-ported yet (ROADMAP A5); the CLI refuses their flags.
+Resilience (watchdog, breakers, the serving journal) is wired here as in
+the reference. With ``config.mesh`` over more than one rank the engine
+runs data-parallel (``parallel/``): a dp mesh over the ``torchrun`` world,
+each rank decoding its rows. Tensor-parallel and sequence-parallel meshes
+are later slices (ROADMAP A5.5, A8(b)) and raise.
 """
 
 from __future__ import annotations
@@ -261,7 +264,7 @@ SIMULATED_VARIANTS = {"simulated": 0.6, "simulated-fair": 0.15, "simulated-biase
 
 def engine_for(model_name: str, config: Config, ckpt: Optional[str] = None,
                params: Optional[Dict[str, torch.Tensor]] = None,
-               device: Optional[Union[str, torch.device]] = None):
+               device: Optional[Union[str, torch.device]] = None, mesh=None):
     """The ``DecodeEngine`` of ``model_name`` on ``device`` (None means CUDA)
     with the port's attention kernels on (``use_flash_attention``,
     ``use_decode_attention_kernel``) and ``config.weight_quant`` applied:
@@ -269,7 +272,8 @@ def engine_for(model_name: str, config: Config, ckpt: Optional[str] = None,
     manifest (``config.integrity``; a refusal raises ``IntegrityError``),
     with the checkpoint's own tokenizer when it has a
     ``tokenizer_config.json``; else ``params``; else random from
-    ``config.random_seed`` with the byte tokenizer."""
+    ``config.random_seed`` with the byte tokenizer. ``mesh`` (a
+    ``parallel.make_mesh`` device mesh) makes it a dp engine."""
     from fairness_llm_tpu_torch.models.configs import get_model_config
     from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
     from fairness_llm_tpu_torch.runtime.weights import load_checkpoint
@@ -289,7 +293,7 @@ def engine_for(model_name: str, config: Config, ckpt: Optional[str] = None,
             tokenizer_path = ckpt
     return DecodeEngine(model_config, params=params, tokenizer_path=tokenizer_path,
                         seed=config.random_seed, device=device,
-                        numerics_guards=config.integrity.numerics_guards)
+                        numerics_guards=config.integrity.numerics_guards, mesh=mesh)
 
 
 def backend_for(
@@ -319,7 +323,10 @@ def backend_for(
     ``config.integrity`` (numerics guards, the canary),
     ``config.overload`` (QoS queues and load shedding) and ``config.fleet``
     and ``config.autoscale`` (the replica fleet); the engine path gets the
-    breakers and the watchdog too.
+    breakers and the watchdog too. With ``config.mesh.num_devices > 1`` the
+    engine runs on a dp mesh over the process group (``torchrun``), which
+    serving does not take: ``--continuous`` with dp or sp > 1 raises before
+    any weight is loaded, as the reference's does.
 
     The engine runs the port's attention kernels (``use_flash_attention``
     and ``use_decode_attention_kernel`` on): on the card they are the hand
@@ -333,6 +340,17 @@ def backend_for(
             catalog_groups=catalog_groups,
         )
 
+    if config.serving.enabled and (config.mesh.dp > 1 or config.mesh.sp > 1):
+        # Before the mesh and the weights: the scheduler would refuse the
+        # mesh only after the load.
+        raise ValueError(
+            "--continuous serving supports single-device or tp-only meshes (the KV slot "
+            "scatter is not dp/sp-aware); drop --mesh")
+    mesh = None
+    if config.mesh.num_devices > 1:
+        from fairness_llm_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(config.mesh)
     ckpt = os.path.join(config.weights_dir or "", model_name)
     if params is not None or not (config.weights_dir and os.path.isdir(ckpt)):
         ckpt = None
@@ -342,7 +360,8 @@ def backend_for(
                 f"{config.weights_dir!r}; use --model simulated, provide a "
                 f"checkpoint, or pass allow_random=True for a smoke run"
             )
-    engine = engine_for(model_name, config, ckpt=ckpt, params=params, device=device)
+    engine = engine_for(model_name, config, ckpt=ckpt, params=params, device=device,
+                        mesh=mesh)
     resilience = config.resilience if config.resilience.enabled else None
     if config.serving.enabled:
         from fairness_llm_tpu_torch.serving.backend import ServingBackend

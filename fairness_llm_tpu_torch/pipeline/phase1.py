@@ -52,6 +52,9 @@ from fairness_llm_tpu_torch.data.profiles import (
     profile_pairs,
 )
 from fairness_llm_tpu_torch.metrics import fairness as M
+from fairness_llm_tpu_torch.metrics.sharded import mesh_group_counts_fn
+from fairness_llm_tpu_torch.parallel.multihost import is_primary
+from fairness_llm_tpu_torch.parallel.sharding import axis_size
 from fairness_llm_tpu_torch.pipeline import results as R
 from fairness_llm_tpu_torch.pipeline.backends import DecodeBackend, backend_for, shared_prefix_ids
 from fairness_llm_tpu_torch.pipeline.parsing import canonicalize, parse_numbered_list
@@ -165,8 +168,11 @@ def group_by(profiles: Sequence[Profile], recs: Dict[str, Dict], attr: str) -> D
 
 def measure_demographic_parity(
     recommendations_by_group: Dict[str, List[List[str]]],
+    group_counts_fn=None,
 ) -> Tuple[float, Dict]:
-    return M.demographic_parity(recommendations_by_group)
+    """``group_counts_fn`` replaces the count reduction (the dp study's
+    ``metrics.sharded.mesh_group_counts_fn``)."""
+    return M.demographic_parity(recommendations_by_group, group_counts_fn)
 
 
 def measure_individual_fairness(
@@ -179,14 +185,17 @@ def measure_individual_fairness(
 def measure_equal_opportunity(
     recommendations_by_group: Dict[str, List[List[str]]],
     qualified: Set[str],
+    group_counts_fn=None,
 ) -> Tuple[float, Dict[str, float]]:
     """Equal opportunity over canonicalised titles (raw-string matching is
-    vacuously 1.0)."""
+    vacuously 1.0); ``group_counts_fn`` as in
+    ``measure_demographic_parity``."""
     canon_groups = {
         g: [canonicalize(r) for r in lists]
         for g, lists in recommendations_by_group.items()
     }
-    return M.equal_opportunity(canon_groups, set(canonicalize(sorted(qualified))))
+    return M.equal_opportunity(canon_groups, set(canonicalize(sorted(qualified))),
+                               group_counts_fn)
 
 
 def register_fairness_study(profiles: Sequence[Profile]):
@@ -225,8 +234,10 @@ def run_phase1(
 ) -> Dict:
     """The full bias-detection sweep; returns the results record. Without
     ``backend``, ``backend_for(model_name, config, device=device)`` makes
-    one (None means CUDA)."""
+    one (None means CUDA). Under a process group only rank 0 writes the
+    checkpoints and the record; every rank returns the same record."""
     config = config or default_config()
+    save = save and is_primary()
     model_name = model_name or config.default_model_phase1
     t0 = time.time()
 
@@ -279,11 +290,19 @@ def run_phase1(
 
     by_gender = group_by(profiles, recs, "gender")
     by_age = group_by(profiles, recs, "age")
+    # A dp-sharded sweep reduces the metric counts on the mesh too: each
+    # rank sums its shard of the [N, V] rows on its device and all-reduces
+    # over dp; only the [G, V] result and the scores reach the host.
+    engine = getattr(backend, "engine", None)
+    mesh = getattr(engine, "mesh", None)
+    counts_fn = None
+    if axis_size(mesh, "dp") > 1:
+        counts_fn = mesh_group_counts_fn(mesh, engine.device)
     qualified = set(qualified_movies(data, seed=config.random_seed))
-    dp_gender, dp_gender_detail = measure_demographic_parity(by_gender)
-    dp_age, dp_age_detail = measure_demographic_parity(by_age)
-    eo_score, eo_rates = measure_equal_opportunity(by_gender, qualified)
-    eo_age, eo_age_rates = measure_equal_opportunity(by_age, qualified)
+    dp_gender, dp_gender_detail = measure_demographic_parity(by_gender, counts_fn)
+    dp_age, dp_age_detail = measure_demographic_parity(by_age, counts_fn)
+    eo_score, eo_rates = measure_equal_opportunity(by_gender, qualified, counts_fn)
+    eo_age, eo_age_rates = measure_equal_opportunity(by_age, qualified, counts_fn)
 
     flat_recs = {pid: r["recommendations"] for pid, r in recs.items()}
     if_score, if_sims = measure_individual_fairness(profiles, flat_recs)
@@ -329,8 +348,8 @@ def run_phase1(
                 "equal_opportunity uses canonicalized titles (reference's raw-string "
                 "matching yields vacuous 1.0); snsr/snsv are net-new vs reference"
             ),
-            # the metrics reduce on the host (no dp mesh in the port)
-            "metric_reduction": "host",
+            # the count reduction: over the dp mesh, or on the host
+            "metric_reduction": "dp-psum" if counts_fn is not None else "host",
             # the engine's weight mode; None for non-engine backends
             "weight_quant": getattr(
                 getattr(getattr(backend, "engine", None), "config", None),

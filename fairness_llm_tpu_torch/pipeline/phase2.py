@@ -31,6 +31,7 @@ from fairness_llm_tpu_torch.data.ranking import (
 )
 from fairness_llm_tpu_torch.metrics.fairness import exposure_ratio
 from fairness_llm_tpu_torch.metrics.ranking import ndcg
+from fairness_llm_tpu_torch.parallel.multihost import is_primary
 from fairness_llm_tpu_torch.pipeline import results as R
 from fairness_llm_tpu_torch.pipeline.backends import DecodeBackend, backend_for
 from fairness_llm_tpu_torch.pipeline.parsing import (
@@ -367,6 +368,7 @@ def run_phase2(
     in ``backends`` gets ``backend_for(name, config, device=device)`` (None
     means CUDA)."""
     config = config or default_config()
+    save = save and is_primary()  # rank 0 alone writes under a process group
     models = list(models or config.default_models_phase2)
     t0 = time.time()
 

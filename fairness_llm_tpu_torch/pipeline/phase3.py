@@ -33,6 +33,7 @@ import torch
 from fairness_llm_tpu_torch.config import Config, default_config
 from fairness_llm_tpu_torch.data.profiles import Profile, profile_pairs
 from fairness_llm_tpu_torch.metrics import fairness as M
+from fairness_llm_tpu_torch.parallel.multihost import is_primary
 from fairness_llm_tpu_torch.pipeline import results as R
 from fairness_llm_tpu_torch.pipeline.backends import DecodeBackend, backend_for
 from fairness_llm_tpu_torch.pipeline.facter import (
@@ -291,6 +292,7 @@ def run_phase3(
         # unused while the record names it
         raise ValueError("model calibration applies only to variant='conformal'")
     config = config or default_config()
+    save = save and is_primary()  # rank 0 alone writes under a process group
     model_name = model_name or config.default_model_phase3
     t0 = time.time()
 

@@ -35,6 +35,21 @@ engine without its decode kernel when that kernel fails to compile. On the
 card it would be a plain-version fallback: a kernel that fails to build or
 launch raises here.
 
+Data parallelism (``mesh``, a ``parallel.make_mesh`` device mesh with dp >
+1, one process a rank): every rank tokenizes the whole batch, buckets it to
+a dp multiple and finds the shared prefix as one process would, computes
+the prefix KV itself, then prefills and decodes only its contiguous block
+of rows (``parallel.batch_sharding``), each row sampled from its global
+seed (``seed * 1_000_003 + i`` or ``row_seeds[i]``), so a row's tokens do
+not depend on dp. EOS early exit is per rank, so ranks stop at different
+steps; every rank's tokens are ``[rows, max_new_tokens]`` pad-filled past
+its last step, so one ``all_gather`` over the dp group gives every rank the
+whole batch's ``GenerateOutput``. The call's stats are gathered with them:
+``decode_steps`` (verify steps) and the seconds are the maximum over
+ranks, the speculation counters the sum, the finite flag the AND. Under
+gloo the gather goes through the CPU. tp and sp meshes raise
+``NotImplementedError`` (ROADMAP A5.5, A8(b)).
+
 Telemetry (``component="engine"``), as the reference's: per call
 ``generate_calls_total``, ``prompt_tokens_total``, ``decoded_tokens_total``,
 ``decode_paths_total{path}``, the ``generate_wall_s`` histogram, the
@@ -62,12 +77,22 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from fairness_llm_tpu_torch.config import ModelSettings, SpeculationConfig
+from fairness_llm_tpu_torch.config import MeshConfig, ModelSettings, SpeculationConfig
 from fairness_llm_tpu_torch.device import resolve_device
 from fairness_llm_tpu_torch.integrity.numerics import check_finite
 from fairness_llm_tpu_torch.models.configs import ModelConfig
 from fairness_llm_tpu_torch.models.tokenizer import _left_pad, tokenizer_for
 from fairness_llm_tpu_torch.ops import _build
+from fairness_llm_tpu_torch.parallel.sharding import (
+    axis_size,
+    batch_sharding,
+    gather_rows,
+    make_mesh,
+    mesh_shape,
+    param_shardings,
+    per_device_param_bytes,
+    shard_params,
+)
 from fairness_llm_tpu_torch.resilience.watchdog import first_use
 from fairness_llm_tpu_torch.runtime.sampling import SamplerSettings, speculation_applicable
 from fairness_llm_tpu_torch.runtime.stepbuilder import (
@@ -124,14 +149,18 @@ def _token_lcp(rows) -> int:
     return int(mismatch[0]) if mismatch.size else limit
 
 
-def _bucket_batch(n: int) -> int:
+def _bucket_batch(n: int, mesh=None) -> int:
     # Multiples of 8, not powers of two: decode streams the whole cache every
     # step, so padding 45 -> 64 rows would cost 42% more traffic; 45 -> 48, 7%.
-    return 8 if n <= 8 else ((n + 7) // 8) * 8
+    # With a mesh, also a multiple of dp.
+    b = 8 if n <= 8 else ((n + 7) // 8) * 8
+    dp = axis_size(mesh, "dp")
+    return ((b + dp - 1) // dp) * dp
 
 
 class DecodeEngine:
-    """Owns the model and its parameters on one device."""
+    """Owns the model and its parameters on one device (this rank's, under a
+    mesh)."""
 
     # Memory-ledger handles: one per engine in the process.
     _mem_seq = 0
@@ -147,6 +176,8 @@ class DecodeEngine:
         speculation: Optional[SpeculationConfig] = None,
         tokenizer_path: Optional[str] = None,
         numerics_guards: bool = False,
+        mesh=None,
+        mesh_config: Optional[MeshConfig] = None,
     ):
         """``params`` is a state dict (``runtime/weights.params_from_jax`` or
         ``init_params``, or another engine's ``model.state_dict()``: tensors
@@ -159,8 +190,17 @@ class DecodeEngine:
         else ``tokenizer_path`` (a checkpoint directory holding
         ``tokenizer.json``) picks the tokenizer; with neither, the byte
         tokenizer. ``numerics_guards`` raises a ``NumericsFault`` from a call
-        whose live rows' logits were not all finite."""
+        whose live rows' logits were not all finite. ``mesh`` (or
+        ``mesh_config``, from which one is made over the world) splits every
+        call's rows over its dp ranks; the parameters are replicated."""
         self.device = resolve_device(device)
+        if mesh is None and mesh_config is not None and mesh_config.num_devices > 1:
+            mesh = make_mesh(mesh_config)
+        self.mesh = mesh
+        if axis_size(mesh, "sp") > 1:
+            raise NotImplementedError(
+                "sp > 1: ring attention over a sequence-parallel mesh is not ported yet "
+                "(ROADMAP A8(b))")
         self.config = model_config
         self.speculation = speculation
         self.numerics_guards = bool(numerics_guards)
@@ -185,6 +225,12 @@ class DecodeEngine:
                      else torch.float32)
         if params is None:
             params = init_params(model_config, seed, self.device, dtype)
+        if mesh is not None:
+            # dp replicates the parameters; tp raises here (ROADMAP A5.5)
+            params = shard_params(params, param_shardings(model_config, mesh), self.device)
+            logger.info("%s on mesh %s: ~%.2f GB params per device", model_config.name,
+                        mesh_shape(mesh), per_device_param_bytes(
+                            model_config, mesh, itemsize=torch.finfo(dtype).bits // 8) / 1e9)
         self.model = build_model(model_config, params, self.device, dtype)
         self._prefix_kv: "collections.OrderedDict[tuple, list]" = collections.OrderedDict()
         # Program keys seen (the reference's compiled-program cache): each
@@ -257,6 +303,25 @@ class DecodeEngine:
             self.speculation = self._spec_saved_speculation
             self._spec_saved_speculation = None
             self._spec_shed = False
+
+    def _gather_ranks(self, toks: np.ndarray, steps_run: int, finite: bool,
+                      spec_stats: Optional[SpeculationStats], seconds: tuple):
+        """All-gather this rank's rows and stats over the dp group: (the whole
+        batch's tokens, the most steps, the AND of the finite flags, the
+        summed speculation counters with the most verify steps, and the
+        most of each of ``seconds``)."""
+        spec = spec_stats or SpeculationStats()
+        toks = gather_rows(self.mesh, torch.from_numpy(np.ascontiguousarray(toks, np.int32)),
+                           self.device).cpu().numpy()
+        row = torch.tensor([[steps_run, float(finite), spec.drafted, spec.accepted,
+                             spec.verify_steps, spec.emitted, *seconds]], dtype=torch.float64)
+        st = gather_rows(self.mesh, row, self.device).cpu().numpy()
+        if spec_stats is not None:
+            spec_stats = dataclasses.replace(
+                spec_stats, drafted=int(st[:, 2].sum()), accepted=int(st[:, 3].sum()),
+                verify_steps=int(st[:, 4].max()), emitted=int(st[:, 5].sum()))
+        return (toks, int(st[:, 0].max()), bool(st[:, 1].min() > 0), spec_stats,
+                *(float(x) for x in st[:, 6:].max(axis=0)))
 
     def generate(
         self,
@@ -343,7 +408,7 @@ class DecodeEngine:
                 prompt_len = prompt_budget
             if tb.tokens.shape[1] > prompt_len:
                 tb = _left_pad(rows, self.tokenizer.pad_id, max_len=prompt_len)
-        batch = _bucket_batch(n)
+        batch = _bucket_batch(n, self.mesh)
         tokens = np.full((batch, prompt_len), self.tokenizer.pad_id, dtype=np.int64)
         valid = np.zeros((batch, prompt_len), dtype=bool)
         s = tb.tokens.shape[1]
@@ -360,6 +425,10 @@ class DecodeEngine:
                 raise ValueError(f"row_seeds has {len(row_seeds)} entries for {n} prompts")
             seeds = [int(s) & 0xFFFFFFFF for s in row_seeds] + [0] * (batch - n)
         prefix_len = len(shared_ids) if shared_ids is not None else 0
+        # This rank's rows (all of them without a mesh) and its real rows.
+        mine = batch_sharding(self.mesh, batch)
+        rows_here = mine.stop - mine.start
+        n_here = max(0, min(n, mine.stop) - mine.start)
         t0_mono = time.monotonic()
         programs_before = set(self._programs)
 
@@ -367,17 +436,18 @@ class DecodeEngine:
         if prefix_len:
             shared_layers, prefix_s = self._shared_layers(shared_ids)
 
-        live = np.zeros(batch, dtype=bool)
-        live[:n] = True
-        tokens_dev = torch.from_numpy(tokens).to(self.device)
-        valid_dev = torch.from_numpy(valid).to(self.device)
+        live = np.zeros(rows_here, dtype=bool)
+        live[:n_here] = True
+        seeds = seeds[mine]
+        tokens_dev = torch.from_numpy(tokens[mine]).to(self.device)
+        valid_dev = torch.from_numpy(valid[mine]).to(self.device)
 
         def program_key(use_spec: bool) -> tuple:
             """The reference's compile key of the call's program."""
             if use_spec:
-                return ("spec_decode", batch, prompt_len, max_new, prefix_len,
+                return ("spec_decode", rows_here, prompt_len, max_new, prefix_len,
                         self.numerics_guards, spec.ngram_max, spec.draft_len)
-            return ("decode", batch, prompt_len, max_new, sampler, prefix_len,
+            return ("decode", rows_here, prompt_len, max_new, sampler, prefix_len,
                     self.numerics_guards)
 
         def run_program(use_spec: bool):
@@ -391,12 +461,12 @@ class DecodeEngine:
             if use_spec:
                 entry, spec_loop = build_spec_decode(
                     self.config, self.model, self.tokenizer.pad_id, self.tokenizer.eos_id,
-                    batch=batch, prompt_len=prompt_len, max_new=max_new,
+                    batch=rows_here, prompt_len=prompt_len, max_new=max_new,
                     prefix_len=prefix_len, ngram_max=spec.ngram_max, draft_len=spec.draft_len)
             else:
                 entry, loop = build_engine_decode(
                     self.config, self.model, sampler, self.tokenizer.pad_id,
-                    self.tokenizer.eos_id, batch=batch, prompt_len=prompt_len,
+                    self.tokenizer.eos_id, batch=rows_here, prompt_len=prompt_len,
                     max_new=max_new, prefix_len=prefix_len)
             t0 = time.perf_counter()
             last_logits, cache = entry(tokens_dev, valid_dev, shared_layers)
@@ -411,7 +481,7 @@ class DecodeEngine:
                 steps_run = counters[2]
                 spec_stats = SpeculationStats(
                     drafted=counters[0], accepted=counters[1], verify_steps=counters[2],
-                    emitted=int(out_len[:n].sum()), draft_len=spec.draft_len,
+                    emitted=int(out_len[:n_here].sum()), draft_len=spec.draft_len,
                     ngram_max=spec.ngram_max)
             else:
                 res = loop(cache, last_logits, seeds, live, shared_layers)
@@ -421,7 +491,7 @@ class DecodeEngine:
 
         # The watchdog's (stage, shape) key and the kernel-load count: a
         # call that is the first of its key, or built a kernel, is exempt.
-        key = ("engine", batch, prompt_len, max_new, prefix_len, use_spec)
+        key = ("engine", rows_here, prompt_len, max_new, prefix_len, use_spec)
         loads = _build.load_events
         if self.watchdog is not None:
             self.watchdog.arm("decode")
@@ -444,6 +514,11 @@ class DecodeEngine:
                            type(e).__name__, e)
             retried, use_spec = True, False
             toks, steps_run, finite, spec_stats, t0, t1, t2 = run_program(False)
+        prefill_s, decode_s = t1 - t0, t2 - t1
+        if axis_size(self.mesh, "dp") > 1:
+            toks, steps_run, finite, spec_stats, prefix_s, prefill_s, decode_s = \
+                self._gather_ranks(toks, steps_run, finite, spec_stats,
+                                   (prefix_s, prefill_s, decode_s))
         if self.numerics_guards:
             try:
                 check_finite(finite, "engine", "speculate" if use_spec else "decode")
@@ -505,8 +580,8 @@ class DecodeEngine:
             "decode_kernel": bool(self.config.use_decode_attention_kernel),
             # Host-clock seconds around device work that ends in a sync.
             "prefix_s": prefix_s,
-            "prefill_s": t1 - t0,
-            "decode_s": t2 - t1,
+            "prefill_s": prefill_s,
+            "decode_s": decode_s,
             # verify steps on the speculative path
             "decode_steps": steps_run,
             "decoded_tokens": decoded,
@@ -514,7 +589,9 @@ class DecodeEngine:
         }
         if spec_stats is not None:
             stats["speculation"] = spec_stats.as_dict()
-        observe_decode(self.config, stats, steps_run, wall_mono, program=prog_name)
+        # The roofline counts this rank's rows: its device streams them.
+        observe_decode(self.config, dict(stats, batch=rows_here), steps_run, wall_mono,
+                       program=prog_name)
         note_invocation(prog_name, wall_mono, steps_run,
                         ledger=self._programs[program_key(use_spec)].ledger,
                         compiling=bool(fresh))

@@ -12,6 +12,11 @@ left_padded=True)`` with no cache and full logits (so K1 runs over whole
 rows and, with int8 weights, the K4 GEMM computes the lm_head at M = batch
 x s with an f32 output), then the target logit gathered and ``logsumexp``
 taken over the vocabulary, with no ``log_softmax`` copy of the logits.
+
+On an engine with a dp mesh each rank forwards its contiguous block of a
+chunk's rows (``parallel.batch_sharding``; the chunk bucketed to a dp
+multiple) and the per-row sums are all-gathered over the dp group, so
+every rank returns every row's scores; the logits budget is per device.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from fairness_llm_tpu_torch.parallel.sharding import axis_size, batch_sharding, gather_rows
 from fairness_llm_tpu_torch.runtime.engine import DecodeEngine, _bucket_batch, _bucket_len
 
 logger = logging.getLogger(__name__)
@@ -76,8 +82,9 @@ def _score_encoded(
     row_tokens, row_valid = row_tokens[:, lead:], row_valid[:, lead:]
     s = min(_bucket_len(max(row_tokens.shape[1], 1), engine.seq_bucket),
             engine.config.max_seq_len)
-    batch = _bucket_batch(n)
-    logits_bytes = batch * s * engine.config.vocab_size * 4
+    batch = _bucket_batch(n, engine.mesh)
+    # The budget is a device's: each holds its dp share of the rows.
+    logits_bytes = batch * s * engine.config.vocab_size * 4 // axis_size(engine.mesh, "dp")
     if logits_bytes > LOGITS_BUDGET_BYTES and n <= 8:
         # Rows are the only axis that chunks: a few long rows over a large
         # vocabulary can pass the budget with nothing left to halve.
@@ -105,9 +112,13 @@ def _score_encoded(
     tokens[:n, s - w:] = row_tokens
     valid[:n, s - w:] = row_valid
     prefixes[:n] = prefix_counts
-    ll, counts = _forward(engine, torch.from_numpy(tokens).to(engine.device),
-                          torch.from_numpy(valid).to(engine.device),
-                          torch.from_numpy(prefixes).to(engine.device))
+    mine = batch_sharding(engine.mesh, batch)
+    ll, counts = _forward(engine, torch.from_numpy(tokens[mine]).to(engine.device),
+                          torch.from_numpy(valid[mine]).to(engine.device),
+                          torch.from_numpy(prefixes[mine]).to(engine.device))
+    if axis_size(engine.mesh, "dp") > 1:
+        ll = gather_rows(engine.mesh, ll, engine.device)
+        counts = gather_rows(engine.mesh, counts, engine.device)
     ll = ll[:n].cpu().numpy()
     counts = counts[:n].cpu().numpy()
     return ScoreOutput(

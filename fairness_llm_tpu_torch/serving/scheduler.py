@@ -124,6 +124,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from fairness_llm_tpu_torch.config import (
     ModelSettings,
@@ -135,6 +136,7 @@ from fairness_llm_tpu_torch.integrity.numerics import check_finite
 from fairness_llm_tpu_torch.models.tokenizer import _left_pad
 from fairness_llm_tpu_torch.models.transformer import check_write_offsets, init_cache
 from fairness_llm_tpu_torch.ops import _build
+from fairness_llm_tpu_torch.parallel.sharding import axis_size
 from fairness_llm_tpu_torch.resilience.breaker import BreakerBoard
 from fairness_llm_tpu_torch.resilience.drain import (
     ServingJournal,
@@ -225,6 +227,11 @@ class ContinuousScheduler:
                  breakers: Optional[BreakerBoard] = None,
                  replica: Optional[str] = None,
                  overload: Optional[OverloadConfig] = None):
+        mesh = getattr(engine, "mesh", None)
+        if axis_size(mesh, "dp") > 1 or axis_size(mesh, "sp") > 1:
+            raise ValueError(
+                "ContinuousScheduler supports single-device meshes (the slot scatter is not "
+                "dp/sp-aware, and tp serving is ROADMAP A5.5); build the engine without one")
         self.engine = engine
         self.serving = serving or ServingConfig(enabled=True)
         # Replica identity: a fleet replica's instruments carry
@@ -1306,8 +1313,11 @@ class ContinuousScheduler:
         if self.watchdog is not None:
             self.watchdog.arm("decode")
         try:
-            out = prog.run(call, memory_args=device_args)
-            self.engine._sync()
+            # The step's region in a torch.profiler capture (--trace-dir):
+            # its device busy share is read over these spans.
+            with record_function(self._program):
+                out = prog.run(call, memory_args=device_args)
+                self.engine._sync()
             raised = False
             if self._guard():
                 # The loop's flag, AND-ed over the chunk's steps on the

@@ -1,19 +1,181 @@
-"""Decode and serving counters and the phase timer (counterpart of
-``SpeculationStats``, ``ServingStats`` and ``phase_timer`` in
-``fairness_llm_tpu/utils/profiling.py``). Each stats object ``publish``es
-its counters into the telemetry registry (``telemetry/registry.py``), so
-the registry's totals equal the merged records. The reference's
-``maybe_trace``/``summarize_trace`` read XProf traces and are not ported."""
+"""Device traces, decode and serving counters and the phase timer
+(counterpart of ``fairness_llm_tpu/utils/profiling.py``).
+
+``maybe_trace(trace_dir, label)`` always records the region as a
+``cat="phase"`` span on the host track of the timeline
+(``telemetry/timeline.py``), so ``--telemetry-dir``'s ``trace.json`` shows
+the phases; with a directory it also captures the region with
+``torch.profiler`` (host ops, and the device's kernels where a card is
+present) under ``record_function(label)`` and writes one Chrome-trace JSON
+per region and rank: ``<trace_dir>/<label>-<time>/<host>.rank<r>.pt.trace.json``.
+The reference captures with ``jax.profiler`` into XProf files.
+
+``summarize_trace`` reads those captures back without a viewer: per
+capture, the device's kernels (and copies and sets) grouped by name with
+their total ms and count, the device total being the union of their
+intervals, and the host's ops beside them (on the CPU the host ops are all
+there is, as the reference falls back to its host planes).
+``device_busy_share`` is the share of a named span's wall in which the
+device ran a kernel.
+
+Each stats object ``publish``es its counters into the telemetry registry
+(``telemetry/registry.py``), so the registry's totals equal the merged
+records."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import glob
+import json
 import logging
+import os
+import socket
 import time
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
+
+CAPTURE_SUFFIX = ".pt.trace.json"
+# Chrome-trace categories of the device's own work, and of the host's ops.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op",)
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: Optional[str], label: str = "region") -> Iterator[None]:
+    """Record ``label`` as a phase span on the timeline; with ``trace_dir``,
+    capture the region with ``torch.profiler`` and write it there. A failed
+    region writes no capture."""
+    from fairness_llm_tpu_torch.telemetry.timeline import get_timeline
+
+    t0 = time.monotonic()
+    try:
+        if not trace_dir:
+            yield
+            return
+        import torch
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        from fairness_llm_tpu_torch.parallel.multihost import process_index
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        stamp = time.strftime("%Y%m%d-%H%M%S") + f"-{time.time_ns() % 10**9:09d}"
+        out = os.path.join(trace_dir, f"{label}-{stamp}")
+        logger.info("profiling %s -> %s", label, out)
+        with profile(activities=activities) as prof:
+            with record_function(label):
+                yield
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"{socket.gethostname()}.rank{process_index()}"
+                                 f"{CAPTURE_SUFFIX}")
+        prof.export_chrome_trace(path)
+        logger.info("%s capture: %s (%d bytes)", label, path, os.path.getsize(path))
+    finally:
+        get_timeline().record_span(label, "phase", "host", t0, time.monotonic() - t0,
+                                   profiler=bool(trace_dir))
+
+
+@dataclasses.dataclass
+class TraceSummary:
+    """One capture's events on one side (``cuda`` or ``host``)."""
+
+    device: str
+    total_ms: float
+    num_events: int
+    top_ops: List[Tuple[str, float, int]]  # (op name, total ms, count)
+
+    def format(self, width: int = 80) -> str:
+        lines = [f"{self.device}: {self.total_ms:.1f} ms device time, "
+                 f"{self.num_events} events"]
+        for name, ms, cnt in self.top_ops:
+            lines.append(f"  {ms:9.2f} ms  x{cnt:6d}  {name[:width]}")
+        return "\n".join(lines)
+
+
+def _captures(trace_dir: str, latest_only: bool) -> List[str]:
+    paths = sorted(glob.glob(os.path.join(trace_dir, "**", "*" + CAPTURE_SUFFIX),
+                             recursive=True))
+    if not paths:
+        raise FileNotFoundError(f"no *{CAPTURE_SUFFIX} under {trace_dir}")
+    if latest_only:
+        # the newest capture directory, every rank's file in it
+        newest = max({os.path.dirname(p) for p in paths}, key=os.path.getmtime)
+        paths = [p for p in paths if os.path.dirname(p) == newest]
+    return paths
+
+
+def _events(path: str) -> list:
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [e for e in events if e.get("ph") == "X" and "dur" in e]
+
+
+def _union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def summarize_trace(trace_dir: str, top_k: int = 15, device_filter: str = "cuda",
+                    latest_only: bool = False) -> List[TraceSummary]:
+    """Every capture under ``trace_dir``, one ``TraceSummary`` per side:
+    ``<capture>/<file>: cuda`` (kernels, copies and sets by name; the total
+    is the union of their intervals, the device's busy time) and
+    ``<capture>/<file>: host`` (host ops by name; the total is the sum of
+    their durations, nested ops counted in each). ``device_filter`` is a
+    substring of the side's label ("" for both); ``latest_only`` keeps the
+    newest capture. A side with no events is left out."""
+    out: List[TraceSummary] = []
+    for path in _captures(trace_dir, latest_only):
+        label = os.path.join(os.path.basename(os.path.dirname(path)),
+                             os.path.basename(path)[:-len(CAPTURE_SUFFIX)])
+        events = _events(path)
+        for side, cats in (("cuda", DEVICE_CATS), ("host", HOST_CATS)):
+            name = f"{label}: {side}"
+            if device_filter and device_filter not in name:
+                continue
+            mine = [e for e in events if e.get("cat") in cats]
+            if not mine:
+                continue
+            totals: collections.Counter = collections.Counter()
+            counts: collections.Counter = collections.Counter()
+            for e in mine:
+                totals[e["name"]] += e["dur"] / 1e3  # us -> ms
+                counts[e["name"]] += 1
+            if side == "cuda":
+                total_ms = _union_us((e["ts"], e["ts"] + e["dur"]) for e in mine) / 1e3
+            else:
+                total_ms = sum(totals.values())
+            out.append(TraceSummary(
+                device=name, total_ms=round(total_ms, 3), num_events=len(mine),
+                top_ops=[(n, round(ms, 3), counts[n]) for n, ms in totals.most_common(top_k)]))
+    return out
+
+
+def device_busy_share(path: str, span: str) -> dict:
+    """Over every host span named ``span`` (a ``record_function`` region)
+    in the capture at ``path``: the spans' count and wall, the union of
+    the device's kernel intervals inside them, and the busy share (their
+    ratio; None with no span)."""
+    events = _events(path)
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == span]
+    work = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in DEVICE_CATS]
+    busy = _union_us((max(a, lo), min(b, hi)) for lo, hi in spans for a, b in work
+                     if a < hi and b > lo)
+    wall = sum(hi - lo for lo, hi in spans)
+    return {"spans": len(spans), "wall_ms": wall / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / wall if wall > 0 else None}
 
 
 @dataclasses.dataclass

@@ -134,6 +134,51 @@ def test_device_telemetry_at_work_leaves_jax_out(tmp_path):
     assert res.returncode == 0, res.stderr
 
 
+# The mesh, the sharded metrics and the device trace: their collectives and
+# the profiler are imported inside their functions.
+PARALLEL = ["parallel/__init__.py", "parallel/sharding.py", "parallel/multihost.py",
+            "metrics/sharded.py", "utils/profiling.py"]
+
+
+def test_parallel_and_trace_at_work_leave_jax_out(tmp_path):
+    """In a fresh interpreter: join a one-rank gloo world through the
+    launcher's environment, build the mesh, reduce metric counts over it,
+    decode through a mesh engine inside a ``torch.profiler`` capture, read
+    the capture back, and check what it loaded."""
+    assert {str(p.relative_to(PKG)) for p in _port_sources() if PKG in p.parents} >= \
+        set(PARALLEL)
+    code = (
+        "import socket, sys\n"
+        "with socket.socket() as s:\n"
+        "    s.bind(('127.0.0.1', 0)); port = s.getsockname()[1]\n"
+        "import os\n"
+        "os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port), WORLD_SIZE='1',"
+        " RANK='0')\n"
+        "import numpy as np\n"
+        "from fairness_llm_tpu_torch.config import MeshConfig, ModelSettings\n"
+        "from fairness_llm_tpu_torch.metrics.sharded import mesh_group_counts_fn\n"
+        "from fairness_llm_tpu_torch.models.configs import get_model_config\n"
+        "from fairness_llm_tpu_torch.parallel import multihost, param_shardings\n"
+        "from fairness_llm_tpu_torch.runtime.engine import DecodeEngine\n"
+        "from fairness_llm_tpu_torch.utils import maybe_trace, summarize_trace\n"
+        "assert multihost.initialize_distributed()\n"
+        "mesh = multihost.make_multihost_mesh(MeshConfig())\n"
+        "cfg = get_model_config('tiny-test')\n"
+        "assert param_shardings(cfg, mesh)\n"
+        "c = mesh_group_counts_fn(mesh)(np.ones((3, 2), np.float32), np.array([0, 1, 1]), 2)\n"
+        "assert c.tolist() == [[1.0, 1.0], [2.0, 2.0]]\n"
+        f"with maybe_trace({str(tmp_path)!r}, 'phase1'):\n"
+        "    DecodeEngine(cfg, device='cpu', mesh=mesh).generate(\n"
+        "        ['abc'], ModelSettings(temperature=0.0, max_tokens=2))\n"
+        f"assert summarize_trace({str(tmp_path)!r}, device_filter='')\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {OUTSIDE!r})\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax(path):
     hits = FORBIDDEN.findall(path.read_text())

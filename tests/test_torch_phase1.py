@@ -391,7 +391,7 @@ def test_cli_record_equals_the_reference_cli(tmp_path, capsys):
     assert "PHASE 1 SUMMARY" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--continuous", "--tp", "2"], ["--mesh", "dp=2"]])
+@pytest.mark.parametrize("flags", [["--continuous", "--tp", "2"], ["--mesh", "tp=2"]])
 def test_cli_refuses_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         tcli.main(["--phase", "1", "--no-save", "--device", "cpu"] + flags)

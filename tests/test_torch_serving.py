@@ -550,13 +550,14 @@ def test_cli_continuous_runs(tmp_path, capsys):
                                   "--mesh"])
 def test_cli_refuses_the_later_serving_flags(flag):
     """The flags of slices still to come raise NotImplementedError naming
-    the flag. The fleet's (--replicas, --autoscale) are ported: they are
-    refused, as the reference refuses them, without --continuous; the
-    roofline's --achievable-gbps is ported and parses as the reference's."""
+    the flag: --tp, and --mesh with a tp axis (a dp mesh is ported). The
+    fleet's (--replicas, --autoscale) are ported: they are refused, as the
+    reference refuses them, without --continuous; the roofline's
+    --achievable-gbps is ported and parses as the reference's."""
     from fairness_llm_tpu.cli import main as jcli
     from fairness_llm_tpu_torch.cli import main as tcli
 
-    value = [] if flag == "--autoscale" else ["2"]
+    value = {"--autoscale": [], "--mesh": ["tp=2"]}.get(flag, ["2"])
     if flag == "--achievable-gbps":
         argv = ["--phase", "1", "--continuous", flag] + value
         got = tcli.config_from_args(tcli.build_parser().parse_args(argv)).telemetry
