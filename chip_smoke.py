@@ -29,8 +29,10 @@ the card, overload control with its QoS queues and the fairness monitor
 through the CLI's telemetry export, the replica fleet with its failover,
 autoscaler and rolling upgrade, and last the device-facing telemetry: the
 memory ledger, the roofline, the cost ledger and the compile stats, with
-their reports and the headroom signals; and last the per-phase device trace
-of a served full-width run, and the study data-parallel over two ranks.
+their reports and the headroom signals; then the per-phase device trace
+of a served full-width run, and the study data-parallel over two ranks; and
+last tensor parallelism (the study and the served full-width sweep over two
+tp ranks), ring attention over two sp ranks, and training.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -392,6 +394,39 @@ path's launch counts are set to 0 just before it and read just after:
      fails the phase (no fallback to one process). (c) One rank on NCCL:
      ``initialize_distributed`` on the card picks NCCL, and an all_reduce
      of a CUDA tensor returns the sum.
+  tensor parallelism, ring attention and training (``parallel/sharding``'s
+  tp layout, ``parallel/ring.py``, ``train/``), after phase 30:
+ 31. (a) Two ranks in children started with a rank's torchrun environment,
+     gloo (NCCL refuses two ranks on one device), both on the one card: the
+     greedy phase-1 sweep of tiny-llama-study at phase 20's settings on a
+     tp=2 mesh (each rank 2 q heads, 1 kv head, half the MLP and the
+     vocabulary; only K1's and K2's f32 kernels) must equal phase 20's
+     single-process card record (a row may part only at a near tie); then
+     phase 21's llama3-8b int8 sweep at one profile a combination (16
+     prompts) served with ``ServingConfig(tp=2)``
+     over the tp mesh (``--continuous --tp 2``; each rank 16 q and 4 kv
+     heads, d_ff 7,168 and 64,128 vocabulary rows): labelled
+     ``serve_step@tp2``, K1, K2 and both K4 regimes on their tensor-core
+     kernels, its rows reported against phase 21's; the first prefill's
+     logits of 4 prompts against a tp=1 engine's over the same weights,
+     in float32 (the same int8 weights, float32 activations) within 1e-3
+     of the largest logit, in bf16 reported; one speculative greedy engine
+     call of 16 tokens launching K3 on its tensor-core kernel; rank 0 alone
+     writes files.
+     Each rank holds every kernel call no earlier phase (or the other rank)
+     held against its plain version, at the ranks' local shapes. Then one
+     rank on NCCL runs the same sweep code at tp=1. (b) On an sp=2 mesh of
+     the same two ranks: ring attention at llama3-8b's head shape (32 q, 8
+     kv heads of 128) over 4,096 tokens, 2,048 a rank, in float32 within
+     1e-5 of dense attention; the study model's scores with
+     ``attention_impl="ring"`` over the two ranks within 1e-5 (relative)
+     of one process's. (c) Training in this process: one float32 step of
+     the study checkpoint on the card against the port's CPU step (loss
+     and every gradient within 1e-4 of the tensor's scale), a remat step
+     equal to it, a checkpoint round trip and the fall back past a flipped
+     byte; then llama3-8b at full width cut to 8 layers in bf16 (params,
+     grads and AdamW moments), remat, 4 steps on one fixed batch: the loss
+     must fall; step ms, peak memory and the card's clock and power logged.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
@@ -418,7 +453,10 @@ path's launch counts are set to 0 just before it and read just after:
   (FULL_WIDTH; the CLI child's launches are its own) and its rows as
   ``devtel_shapes``; and phase 30(b)'s launches in each rank's runs as
   ``dp_launches`` ("study_rank<r>", FULL_WIDTH + "_rank<r>") and the rows
-  its ranks held as ``dp_shapes``.
+  its ranks held as ``dp_shapes``; and phase 31's launches in each rank's
+  runs as ``tp_launches`` ("study_tp<k>_rank<r>", FULL_WIDTH +
+  "_tp2_rank<r>", and K3's "spec_tp2_rank<r>") and the rows its ranks held
+  at their local shapes as ``tp_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -1801,13 +1839,14 @@ def metric_leaves(node, path="metrics"):
         yield path, float(node)
 
 
-def check_record(rec, label: str, want_non_empty: bool = True) -> dict:
+def check_record(rec, label: str, want_non_empty: bool = True,
+                 prompts: int = STUDY_PROMPTS) -> dict:
     """The gates every phase-1 record passes: one response a prompt, no
     error entry, finite metrics; returns its parse counts."""
     entries = rec["recommendations"]
     n = len(entries) + len(rec["neutral_recommendations"])
-    if n != STUDY_PROMPTS:
-        fail(f"{label}: {n} responses for {STUDY_PROMPTS} prompts")
+    if n != prompts:
+        fail(f"{label}: {n} responses for {prompts} prompts")
     bad = [k for k, e in entries.items() if "error" in e]
     if bad:
         fail(f"{label}: error entries for {bad}")
@@ -2545,12 +2584,12 @@ DIRECT_REQUESTS = 32
 GATE_PROFILES = 1
 
 
-def serving_record_check(rec, label: str, num_slots: int) -> dict:
+def serving_record_check(rec, label: str, num_slots: int, prompts: int = STUDY_PROMPTS) -> dict:
     """The sweep's record holds the server's counters: every prompt admitted
     and completed in the pool."""
     sv = rec["metadata"]["serving"]
-    if not sv or sv["num_slots"] != num_slots or sv["admitted"] != STUDY_PROMPTS \
-            or sv["completed"] != STUDY_PROMPTS or sv["failed"] or sv["expired"]:
+    if not sv or sv["num_slots"] != num_slots or sv["admitted"] != prompts \
+            or sv["completed"] != prompts or sv["failed"] or sv["expired"]:
         fail(f"{label}: the record's serving counters are {sv}")
     return sv
 
@@ -5556,6 +5595,577 @@ def trace_dp_path(torch, device_line: str, sweep: dict, held: set) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+# Phase 31: tensor parallelism (--tp, --mesh tp=N: the tp layout of
+# parallel/sharding.py and the sharded forward's explicit all-reduces), ring
+# attention (--mesh sp=N, parallel/ring.py) and training (train/), after
+# phase 30.
+#
+# (a)-(b) Two ranks on the one card over gloo (NCCL refuses two ranks on one
+# device), each a child running ``tp_rank`` with a rank's torchrun
+# environment; then one rank on NCCL running the same function at tp=1.
+TP_WORLD = 2
+TP_CHILD = """
+import pathlib, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.exit(chip_smoke.tp_rank(pathlib.Path(sys.argv[2])))
+"""
+# The first-step logits compared at tp=2 and tp=1: the first prompts of the
+# sweep, one prefill forward (K1 and the K4 GEMM over each rank's shard);
+# in float32 within F32_LOGIT_TOL of the largest logit (phases 13 and 18's
+# float32 logit allowance).
+TP_LOGIT_PROMPTS = 4
+F32_LOGIT_TOL = 1e-3
+# Two ranks on one card all-reduce through the host (gloo stages CUDA
+# tensors there): at tp=2 a served 8B decode step took ~0.27 s and a
+# prefill group of 8 x 896 tokens ~20 s (H100 80GB HBM3, 700 W), so the 8B
+# sweep runs phase 21's settings at one profile a combination (15
+# profiles and one neutral prompt, one call of 16), and the speculative
+# call decodes TP_SPEC_TOKENS tokens.
+TP_PROFILES_PER_COMBO = 1
+TP_PROMPTS = 16
+TP_SPEC_TOKENS = 16
+# (b) llama3-8b's attention shape through the ring, in float32.
+RING_SHAPE = dict(seq=4096, heads=32, kv_heads=8, head_dim=128)
+RING_ATOL = 1e-5
+SP_SCORE_RTOL = 1e-5
+# (c) Training: the study step held to the CPU's, and llama3-8b at full
+# width cut to TRAIN_LAYERS layers (params, grads and AdamW moments in bf16:
+# 8 bytes a parameter, ~22 GB), a few remat steps on one fixed batch.
+TRAIN_STUDY_BATCH = (4, 65)
+TRAIN_TOL = 1e-4
+TRAIN_LAYERS = 8
+TRAIN_BATCH = (2, 257)
+TRAIN_STEPS = 4
+
+
+def tp_rank(out: pathlib.Path) -> int:
+    """One rank of phase 31(a)-(b), in a child started with a rank's
+    torchrun environment. At tp=2 (gloo): (1) the greedy phase-1 sweep of
+    the first study checkpoint at phase 20's settings on a tp=2 mesh, (2)
+    phase 21's llama3-8b int8 sweep served with ``--continuous --tp 2``
+    (``ServingConfig(tp=2)`` over the tp mesh), each with its kernels
+    recorded; the first prefill's logits of ``TP_LOGIT_PROMPTS`` prompts
+    in bf16 and float32 (``first_logits``); one
+    speculative greedy engine call (K3 over the local heads); then, rank
+    after rank, each kernel against its plain version at the shapes no
+    earlier phase held; (3) on an sp=2 mesh, ring attention at llama3-8b's
+    head shape against dense attention, and a scoring forward of the study
+    model with ``attention_impl="ring"`` against sp=1. At world 1 (NCCL)
+    only (1), on a tp=1 mesh. Writes ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from fairness_llm_tpu_torch.config import (
+        Config,
+        MeshConfig,
+        ModelSettings,
+        ServingConfig,
+        SpeculationConfig,
+    )
+    from fairness_llm_tpu_torch.models.tokenizer import _left_pad
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.parallel.multihost import initialize_distributed
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads((out / "spec.json").read_text())
+    held = {_keys(k) for k in spec["held"]}
+    initialize_distributed()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mine = out / f"rank{rank}"
+    res = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "cuda_device": torch.cuda.current_device()}
+    data = str(ROOT / "data" / "ml-1m")
+    mesh = MeshConfig(tp=world)
+    name = STUDY_MODELS[0]
+    runs = {}
+    for key in ("study", FULL_WIDTH)[:1 if world == 1 else 2]:
+        if key == "study":
+            cfg, model = greedy_config(Config(weights_dir=str(ROOT / "checkpoints"),
+                                              data_dir=data, results_dir=str(mine / key),
+                                              mesh=mesh), name, MAX_TOKENS), name
+        else:
+            cfg, model = Config(weight_quant="int8", max_new_tokens=MAX_TOKENS, data_dir=data,
+                                results_dir=str(mine / key), mesh=mesh,
+                                profiles_per_combo=TP_PROFILES_PER_COMBO,
+                                serving=ServingConfig(**FULL_WIDTH_SERVING, tp=world)), MODEL
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_all(dec_mod, flash_mod, qm)
+        t0 = time.perf_counter()
+        backend = backend_for(model, cfg, allow_random=model == MODEL)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        calls = SweepRecorder(backend)
+        with flagged_recorders(dec_mod, flash_mod, qm, NotScoring) as recs:
+            rec = run_phase1(cfg, model, backend=backend)
+        torch.cuda.synchronize()
+        local = backend.engine.model.config
+        res[key] = {"wall_s": time.perf_counter() - t0, "engine_init_s": init_s,
+                    "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": phase1_counts(dec_mod, flash_mod, qm), "record": rec,
+                    "calls": calls.calls, "chunks": calls.chunks,
+                    "local_widths": [local.num_heads, local.num_kv_heads, local.d_ff,
+                                     local.vocab_size],
+                    "served": hasattr(backend, "serve_totals"),
+                    "files": sorted(str(p.relative_to(mine)) for p in mine.rglob("*")
+                                    if p.is_file() and key in p.parts)}
+        if key == "study":
+            runs[key] = (recs, True)
+            del backend
+            continue
+        if hasattr(backend, "scheduler_for"):
+            sched = backend.scheduler_for(cfg.settings_for(MODEL))
+            res[key]["program"] = sched._program
+        engine = backend.engine
+        del backend
+        prompts = counterfactual_prompts()[1][:16]
+        # the first prefill's logits at tp=2; rank 0 also at tp=1
+        tb = _left_pad([engine.tokenizer.encode(p) for p in prompts[:TP_LOGIT_PROMPTS]],
+                       engine.tokenizer.pad_id)
+        S, w = -(-tb.tokens.shape[1] // 128) * 128, tb.tokens.shape[1]
+        toks = torch.zeros(TP_LOGIT_PROMPTS, S, dtype=torch.long, device="cuda")
+        valid = torch.zeros(TP_LOGIT_PROMPTS, S, dtype=torch.bool, device="cuda")
+        toks[:, S - w:] = torch.from_numpy(tb.tokens).cuda()
+        valid[:, S - w:] = torch.from_numpy(tb.valid).cuda()
+        pos = (torch.cumsum(valid.long(), 1) - 1).clamp_min(0)
+        res["first_logits"] = first_logits(torch, engine, cfg, toks, pos, valid, rank)
+        # one speculative greedy call: K3 over the rank's local heads
+        zero_all(dec_mod, flash_mod, qm)
+        rec3 = decode_recorder(dec_mod)
+        with rec3:
+            spec_out = engine.generate(
+                prompts, ModelSettings(temperature=0.0, max_tokens=TP_SPEC_TOKENS),
+                speculation=SpeculationConfig(enabled=True))
+        torch.cuda.synchronize()
+        res["spec"] = {"launches": {**decode_counts(dec_mod), "flash_attention": flash_mod.launches,
+                                    "flash_attention_tc": flash_mod.tc_launches,
+                                    "quant_matmul_gemv": qm.gemv_launches,
+                                    "quant_matmul_gemm": qm.gemm_launches},
+                       "speculation": spec_out.stats.get("speculation"),
+                       "decode_steps": spec_out.stats["decode_steps"]}
+        runs[key] = (recs, False)
+        runs["spec"] = rec3
+        del engine
+    rows = {}
+    for turn in range(world):
+        if rank == turn:
+            for key, run in runs.items():
+                if key == "spec":
+                    fresh = {k: v for k, v in run.calls.items()
+                             if k[0] == "k3" and k not in held}
+                    held.update(fresh)
+                    if fresh:
+                        run.calls = fresh
+                        rows.setdefault("decode_attention_verify", []).extend(
+                            dict(r, path=f"tp_spec_rank{rank}") for r in decode_rows(
+                                run, "k3", "decode_attention_verify", torch, F,
+                                "every q_offset lowered by one"))
+                    continue
+                recs, f32 = run
+                for k, v in sweep_kernel_rows(recs, torch, F, qm, f"tp_{key}_rank{rank}", f32,
+                                              held).items():
+                    rows.setdefault(k, []).extend(v)
+        if world > 1:
+            box = [held]
+            dist.broadcast_object_list(box, src=turn)
+            held = box[0]
+    res["rows"] = rows
+    del runs
+    if world > 1:
+        res["ring"] = sp_checks(torch, out, rank)
+    (out / f"rank{rank}.json").write_text(json.dumps(res, default=str))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def first_logits(torch, engine, cfg, toks, pos, valid, rank: int) -> dict:
+    """Phase 31(a): the first prefill's logits at tp=2 against tp=1 over
+    the same weights (``init_params`` from the config's seed, as
+    ``backend_for`` draws them): in bfloat16 (``engine``, the served
+    sweep's; reported: 32 layers of bf16 rounding part two summation
+    orders by about as much as phase 9's kernels part from their plain
+    versions), and in float32 (an engine of the same int8 weights with
+    float32 activations at each tp, ``float32_twin``'s function), gated at
+    the port's float32 logit allowance: ``F32_LOGIT_TOL`` of the largest
+    logit. Both ranks run the tp=2 forwards; rank 0 also the tp=1 ones and
+    returns the numbers."""
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+    from fairness_llm_tpu_torch.runtime.weights import init_params
+
+    full = init_params(engine.config, cfg.random_seed, torch.device("cuda"), torch.bfloat16)
+    f32 = dataclasses.replace(engine.config, dtype="float32")
+    twin = DecodeEngine(f32, params=full, mesh=engine.mesh, tokenizer=engine.tokenizer)
+    out = {}
+    for dtype, tp2 in (("bfloat16", engine), ("float32", twin)):
+        got, _ = tp2.model(toks, pos, valid, left_padded=True, last_only=True)
+        torch.cuda.synchronize()
+        if rank == 0:
+            one = DecodeEngine(f32 if dtype == "float32" else engine.config, params=full,
+                               tokenizer=engine.tokenizer)
+            want, _ = one.model(toks, pos, valid, left_padded=True, last_only=True)
+            top = float(want.abs().max())
+            out[dtype] = {"max_abs_err": float((got - want).abs().max()), "largest_logit": top,
+                          "allowance": F32_LOGIT_TOL * max(1.0, top),
+                          "top1_equal_share": float((got.argmax(-1) == want.argmax(-1))
+                                                    .float().mean())}
+            del one, want
+        del got
+    del twin, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_checks(torch, out: pathlib.Path, rank: int) -> dict:
+    """Phase 31(b) in a rank: on an sp=2 mesh, ring attention over
+    ``RING_SHAPE`` in float32 (each rank its 2,048-token block, GQA
+    unexpanded on the ring) against dense attention over the whole
+    sequence, within ``RING_ATOL``, with its wall; then the study model's
+    scores with ``attention_impl="ring"`` over the sp ranks against one
+    process's on the card."""
+    import dataclasses as dc
+
+    from fairness_llm_tpu_torch.config import MeshConfig
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.parallel.ring import full_attention_reference, ring_attention
+    from fairness_llm_tpu_torch.parallel.sharding import axis_group, make_mesh
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+    from fairness_llm_tpu_torch.runtime.scoring import score_texts
+    from fairness_llm_tpu_torch.runtime.weights import load_checkpoint
+
+    mesh = make_mesh(MeshConfig(sp=TP_WORLD))
+    group = axis_group(mesh, "sp")
+    S, H, Hkv, D = (RING_SHAPE[k] for k in ("seq", "heads", "kv_heads", "head_dim"))
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn(1, S, H, D, device="cuda", generator=gen)
+    k = torch.randn(1, S, Hkv, D, device="cuda", generator=gen)
+    v = torch.randn(1, S, Hkv, D, device="cuda", generator=gen)
+    pos = torch.arange(S, device="cuda")[None]
+    valid = torch.ones(1, S, dtype=torch.bool, device="cuda")
+    blk = slice(rank * S // TP_WORLD, (rank + 1) * S // TP_WORLD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ring_attention(q[:, blk], k[:, blk], v[:, blk], pos[:, blk], pos[:, blk],
+                         valid[:, blk], group=group)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    want = full_attention_reference(q, k, v, pos, valid)[:, blk]
+    err = float((got - want).abs().max())
+    res = {"shape": RING_SHAPE, "block": [blk.start, blk.stop], "ring_s": ring_s,
+           "max_abs_err": err, "atol": RING_ATOL, "dtype": str(got.dtype)}
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    name = STUDY_MODELS[0]
+    path = str(ROOT / "checkpoints" / name)
+    cfg = dc.replace(get_model_config(name), attention_impl="ring")
+    params = load_checkpoint(cfg, path, device="cuda")
+    texts = counterfactual_prompts()[1][:8]
+    ring_eng = DecodeEngine(cfg, params=params, device="cuda", mesh=mesh, tokenizer_path=path)
+    one_eng = DecodeEngine(get_model_config(name), params=params, device="cuda",
+                           tokenizer_path=path)
+    got, one = score_texts(ring_eng, texts), score_texts(one_eng, texts)
+    rel = float((abs(got.log_likelihoods - one.log_likelihoods)
+                 / abs(one.log_likelihoods).clip(1e-30)).max())
+    res["scoring"] = {"rows": len(texts), "max_rel_err": rel, "rtol": SP_SCORE_RTOL,
+                      "counts_equal": bool((got.token_counts == one.token_counts).all()),
+                      "sp1": one.log_likelihoods.tolist(), "sp2": got.log_likelihoods.tolist()}
+    return res
+
+
+def tp_run(tmp: pathlib.Path, held: set, world: int, backend: str) -> dict:
+    """Start ``world`` ranks of ``tp_rank`` (gloo at 2 on the one card, NCCL
+    at 1), wait for all (one that fails stops the others and fails here),
+    and return what they sent back."""
+    out = tmp / f"tp{world}"
+    out.mkdir()
+    (out / "spec.json").write_text(json.dumps({"held": sorted(held, key=repr)},
+                                              default=list))
+    port = free_port()
+    logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        # initialize_distributed picks gloo for two ranks on the one card
+        procs.append(subprocess.Popen([sys.executable, "-c", TP_CHILD, str(ROOT), str(out)],
+                                      cwd=ROOT, env=rank_env(r, world, port), stdout=logs[r],
+                                      stderr=subprocess.STDOUT))
+    try:
+        deadline = time.monotonic() + 900
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if codes != [0] * world:
+        tails = "\n".join(f"rank {r}: " + (out / f"rank{r}.log").read_text()[-2500:]
+                          for r in range(world))
+        fail(f"the tp={world} ranks exited {codes}:\n{tails}")
+    for r in range(world):
+        rk = json.loads((out / f"rank{r}.json").read_text())
+        if rk["backend"] != backend or rk["cuda_device"] != 0:
+            fail(f"tp rank {r} ran {rk['backend']} on cuda:{rk['cuda_device']}, not {backend} "
+                 "on the one card")
+    return {"wall_s": wall, "ranks": [json.loads((out / f"rank{r}.json").read_text())
+                                      for r in range(world)]}
+
+
+def tp_checks(torch, res: dict, one: dict, sweep: dict, device_line: str) -> tuple:
+    """Phase 31(a)-(b)'s checks on the ranks' results. The study sweep: its
+    f32 kernels only, over the rank's local widths (2 q heads, 1 kv head),
+    its record equal to phase 20's single-process card record (a greedy row
+    may part only at a near tie), rank 0 alone writing files; the same at
+    tp=1 on NCCL. The 8B sweep served at tp=2: labelled ``@tp2``, K1, K2
+    and both K4 regimes on their tensor-core kernels over 16 q and 4 kv
+    heads, its rows reported against phase 21's; the first prefill's
+    float32 logits within ``F32_LOGIT_TOL`` of tp=1's (bf16 reported); K3
+    launched on its
+    tensor-core kernel by the speculative call; every kernel row within its
+    tolerance and its blind check failing it; the ring within
+    ``RING_ATOL`` of dense attention and the ring scores within
+    ``SP_SCORE_RTOL`` of sp=1's. Returns the launches by run and rank, the
+    rows by entry, and the log row."""
+    import types
+
+    from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+
+    name = STUDY_MODELS[0]
+    card, card_calls = sweep["greedy_card"][name]
+    phase21 = sweep["records"][FULL_WIDTH]
+    engine = backend_for(name, greedy_config(Config(weights_dir=str(ROOT / "checkpoints"),
+                                                    data_dir=str(ROOT / "data" / "ml-1m")),
+                                             name, MAX_TOKENS)).engine
+    launches, rows = {}, {}
+    row = {"device": device_line, "world": TP_WORLD, "wall_s": res["wall_s"],
+           "nccl_one_rank_wall_s": one["wall_s"], "ranks": []}
+    for label, rk in [(f"tp=2 rank {r}", x) for r, x in enumerate(res["ranks"])] + \
+            [("tp=1 nccl", one["ranks"][0])]:
+        r, study = rk["rank"], rk["study"]
+        ls = study["launches"]
+        if ls["flash_attention_f32"] <= 0 or ls["decode_attention_f32"] <= 0 \
+                or ls["flash_attention"] or ls["decode_attention"] or ls["quant_matmul_gemv"] \
+                or ls["quant_matmul_gemm"]:
+            fail(f"{label}: the f32 study sweep launched {ls}")
+        widths = [4, 2, 256, 512] if rk["world"] == 1 else [2, 1, 128, 256]
+        if study["local_widths"] != widths:
+            fail(f"{label}: the study model holds widths {study['local_widths']}, not {widths}")
+        rec = study["record"]
+        want_files = ["study/phase1/phase1_results.json"] if r == 0 else []
+        got_files = [f for f in study["files"] if f.endswith("phase1_results.json")]
+        if got_files != want_files or (r and study["files"]):
+            fail(f"{label} wrote {study['files']}")
+        calls = types.SimpleNamespace(calls=[(p, t) for p, t in study["calls"]])
+        differ = greedy_divergences(f"{name} {label}", card_calls, calls, engine, torch,
+                                    against="the single-process card run")
+        if not differ:
+            if rec["recommendations"] != json.loads(json.dumps(card["recommendations"])) or \
+                    rec["neutral_recommendations"] != card["neutral_recommendations"]:
+                fail(f"{label}: equal tokens but other responses than the single-process run")
+            for (path, a), (_, b) in zip(metric_leaves(rec["metrics"]),
+                                         metric_leaves(card["metrics"])):
+                if abs(a - b) > METRIC_TOL:
+                    fail(f"{label}: {path} is {a} here, {b} in one process")
+        entry = {"rank": r, "label": label, "backend": rk["backend"],
+                 "study": {k: study[k] for k in ("wall_s", "engine_init_s",
+                                                 "peak_allocated_gb", "launches")},
+                 "study_rows_differing": differ}
+        launches[f"study_tp{rk['world']}_rank{r}"] = ls
+        if rk["world"] > 1:
+            full = rk[FULL_WIDTH]
+            lf = full["launches"]
+            if any(lf[k] <= 0 for k in TRACED_KERNELS) or lf["flash_attention_f32"] \
+                    or lf["decode_attention_f32"]:
+                fail(f"{label}: the 8B served sweep launched {lf}")
+            if full["local_widths"] != [16, 4, 7168, 64128] or not full["served"] \
+                    or full.get("program") != "serve_step@tp2":
+                fail(f"{label}: the 8B sweep held {full['local_widths']}, served "
+                     f"{full['served']} as {full.get('program')}")
+            check_record(full["record"], f"llama3-8b int8 {label}", want_non_empty=False,
+                         prompts=TP_PROMPTS)
+            serving_record_check(full["record"], f"llama3-8b int8 {label}",
+                                 FULL_WIDTH_SERVING["num_slots"], prompts=TP_PROMPTS)
+            want_files = [f"{FULL_WIDTH}/phase1/phase1_results.json"] if r == 0 else []
+            got_files = [f for f in full["files"] if f.endswith("phase1_results.json")]
+            if got_files != want_files or (r and full["files"]):
+                fail(f"{label} 8B wrote {full['files']}")
+            sl = rk["spec"]["launches"]
+            if sl["decode_attention_verify"] <= 0 or \
+                    sl["decode_attention_verify_tc"] != sl["decode_attention_verify"]:
+                fail(f"{label}: the speculative call launched K3 {sl}")
+            raw, raw21 = raw_responses(full["record"]), raw_responses(phase21)
+            entry.update({
+                "full_width": {k: full[k] for k in ("wall_s", "engine_init_s",
+                                                    "peak_allocated_gb", "launches",
+                                                    "chunks", "program")},
+                "full_width_rows_equal_phase21": sum(raw21.get(k) == v for k, v in raw.items()),
+                "full_width_rows_in_phase21": sum(k in raw21 for k in raw),
+                "full_width_rows": len(raw), "spec": rk["spec"], "ring": rk["ring"]})
+            launches[f"{FULL_WIDTH}_tp2_rank{r}"] = lf
+            launches[f"spec_tp2_rank{r}"] = {
+                "decode_attention_verify": sl["decode_attention_verify"]}
+            ring = rk["ring"]
+            if not ring["max_abs_err"] <= RING_ATOL:
+                fail(f"{label}: ring attention is {ring['max_abs_err']:.3e} from dense "
+                     f"(allowance {RING_ATOL})")
+            sc = ring["scoring"]
+            if not (sc["max_rel_err"] <= SP_SCORE_RTOL and sc["counts_equal"]):
+                fail(f"{label}: ring scores at sp=2 part from sp=1's: {sc}")
+            if r == 0:
+                fl = rk["first_logits"]["float32"]
+                if not fl["max_abs_err"] <= fl["allowance"]:
+                    fail(f"the first prefill's float32 logits at tp=2 are "
+                         f"{fl['max_abs_err']:.3e} from tp=1's (allowance "
+                         f"{fl['allowance']:.3e})")
+                entry["first_logits"] = rk["first_logits"]
+        row["ranks"].append(entry)
+        for k, v in rk["rows"].items():
+            rows.setdefault(k, []).extend(v)
+    for k, v in rows.items():
+        check_rows(k, v, "the blinded input (as the phase that first held the kernel)")
+    row["phase21_wall_s"] = sweep["full_width_wall_s"]
+    return launches, rows, row
+
+
+def train_checks(torch, tmp: pathlib.Path, device_line: str) -> dict:
+    """Phase 31(c): training on the card. One float32 step of the study
+    checkpoint against the port's CPU step (loss and every gradient within
+    ``TRAIN_TOL`` of the tensor's scale), a remat step equal to it, a
+    checkpoint round trip and the fallback past a flipped byte; then
+    llama3-8b at full width cut to ``TRAIN_LAYERS`` layers in bf16, remat,
+    ``TRAIN_STEPS`` steps on one fixed batch: the loss must fall; step ms
+    and peak memory logged."""
+    import numpy as np
+
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.runtime.weights import load_checkpoint
+    from fairness_llm_tpu_torch.train import make_train_step
+    from fairness_llm_tpu_torch.train.checkpoint import restore_train_state, save_train_state
+
+    name = STUDY_MODELS[0]
+    cfg = get_model_config(name)
+    params = load_checkpoint(cfg, str(ROOT / "checkpoints" / name), device="cpu")
+    rng = np.random.default_rng(31)
+    b, s = TRAIN_STUDY_BATCH
+    tokens = rng.integers(3, cfg.vocab_size, (b, s))
+    valid = np.ones((b, s), bool)
+    valid[1, :9] = False
+    out = {"device": device_line}
+    steps = {}
+    for dev, remat in (("cpu", False), ("cuda", False), ("cuda", True)):
+        init, step = make_train_step(cfg, remat=remat, device=dev)
+        state, loss = step(init(params=params), tokens, valid)
+        steps[(dev, remat)] = (state, float(loss))
+    cpu, card, remat = steps[("cpu", False)], steps[("cuda", False)], steps[("cuda", True)]
+    worst = {}
+    for k, p in cpu[0].params.items():
+        want = p.grad.float()
+        scale = max(float(want.abs().max()), 1e-30)
+        worst[k] = float((card[0].params[k].grad.float().cpu() - want).abs().max()) / scale
+        rk = float((remat[0].params[k].grad - card[0].params[k].grad).abs().max()) / scale
+        if rk > 1e-6:
+            fail(f"train: the remat step's {k} gradient is {rk:.2e} of scale from the plain step's")
+    loss_rel = abs(card[1] - cpu[1]) / abs(cpu[1])
+    if loss_rel > TRAIN_TOL or max(worst.values()) > TRAIN_TOL or remat[1] != card[1]:
+        fail(f"train: the card's study step (loss {card[1]}, remat {remat[1]}) against the "
+             f"CPU's ({cpu[1]}): loss {loss_rel:.2e}, worst gradient "
+             f"{max(worst.values()):.2e} of scale")
+    out["study"] = {"loss_card": card[1], "loss_cpu": cpu[1], "loss_remat": remat[1],
+                    "loss_rel_err": loss_rel, "worst_grad_err_over_scale": max(worst.values()),
+                    "tol": TRAIN_TOL}
+    # checkpoints: a round trip, then the fallback past a flipped byte
+    ckpt = tmp / "train_ckpt"
+    state = card[0]
+    init, step = make_train_step(cfg, device="cuda")
+    save_train_state(str(ckpt), state)
+    saved = {k: v.detach().clone() for k, v in state.params.items()}
+    state, _ = step(state, tokens, valid)
+    save_train_state(str(ckpt), state)
+    back = restore_train_state(str(ckpt), init(5))
+    if back is None or back.step != 2 or any(
+            not torch.equal(back.params[k], v) for k, v in state.params.items()):
+        fail("train: the step-2 checkpoint did not restore to the state saved")
+    blob = ckpt / "2" / "train_state.pt"
+    data = bytearray(blob.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    blob.write_bytes(bytes(data))
+    back = restore_train_state(str(ckpt), init(5))
+    if back is None or back.step != 1 or any(
+            not torch.equal(back.params[k], v) for k, v in saved.items()):
+        fail("train: past a flipped byte in step 2 the restore did not fall back to step 1")
+    out["checkpoint"] = {"round_trip": True, "fallback_to_step": back.step}
+    del steps, cpu, card, remat, state, back, saved
+    torch.cuda.empty_cache()
+    # llama3-8b at full width, depth cut, bf16, remat
+    big = dataclasses.replace(get_model_config(MODEL), num_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    init, step = make_train_step(big, remat=True, device="cuda")
+    t0 = time.perf_counter()
+    state = init(0, param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b, s = TRAIN_BATCH
+    tokens = np.random.default_rng(8).integers(3, big.vocab_size, (b, s))
+    valid = np.ones((b, s), bool)
+    losses, step_ms = [], []
+    with CardSampler() as card_smi:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, loss = step(state, tokens, valid)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        fail(f"train: the llama3-8b ({TRAIN_LAYERS} layers) loss did not fall: {losses}")
+    out["llama3_8b"] = {"layers": TRAIN_LAYERS, "params": n_params, "dtype": "bfloat16",
+                        "remat": True, "batch": list(TRAIN_BATCH), "losses": losses,
+                        "step_ms": step_ms, "init_s": init_s,
+                        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "card": card_smi.summary}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_ring_train_path(torch, device_line: str, sweep: dict, held: set) -> dict:
+    """Phase 31: (a)-(b) tp=2 and sp=2 on the card over gloo, then tp=1 on
+    NCCL at one rank, (c) training. Returns each kernels-line entry's
+    launches in each rank's runs and the rows of the calls no earlier phase
+    held."""
+    import gc
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        res = tp_run(tmp, held, TP_WORLD, "gloo")
+        one = tp_run(tmp, held, 1, "nccl")
+        launches, rows, row = tp_checks(torch, res, one, sweep, device_line)
+        log(f"tp_sp {json.dumps(row)}")
+        log(f"tp_sp_s {time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        log(f"train {json.dumps(train_checks(torch, tmp, device_line))}")
+        log(f"train_s {time.perf_counter() - t0:.1f}")
+    return {"launches": launches, "rows": rows}
+
+
 def main() -> int:
     try:
         import torch
@@ -5634,6 +6244,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dp = trace_dp_path(torch, device_line, sweep, paged["held"])
     log(f"trace_dp_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    tp = tp_ring_train_path(torch, device_line, sweep, paged["held"])
+    log(f"tp_ring_train_path_s {time.perf_counter() - t0:.1f}")
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -5681,6 +6294,11 @@ def main() -> int:
                                 for path, counts in dp["launches"].items()}
         if entry["name"] in dp["rows"]:
             entry["dp_shapes"] = dp["rows"][entry["name"]]
+        entry["tp_launches"] = {path: counts[entry["name"]]
+                                for path, counts in tp["launches"].items()
+                                if entry["name"] in counts}
+        if entry["name"] in tp["rows"]:
+            entry["tp_shapes"] = tp["rows"][entry["name"]]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

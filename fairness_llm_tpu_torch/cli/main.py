@@ -64,11 +64,19 @@ alone writes the records, reports, figures and telemetry.
     torchrun --nproc-per-node 2 -m fairness_llm_tpu_torch.cli.main \
         --phase 1 --mesh dp=2 --model tiny-llama-study --weights-dir checkpoints
 
+Tensor and sequence parallelism, under ``torchrun`` with as many ranks:
+``--continuous --tp N`` serves over an N-rank tp mesh (each rank holds its
+shard of the weights; the reference's checks, with the world size for
+its device count), and ``--mesh tp=N`` runs the engine over one;
+``--mesh sp=N`` splits the scoring forward's sequence over N ranks
+(ring attention). Ranks that share a card join over gloo.
+
+    torchrun --nproc-per-node 2 -m fairness_llm_tpu_torch.cli.main \
+        --phase 1 --continuous --tp 2 --model tiny-llama-study --weights-dir checkpoints
+
 ``--trace-dir DIR`` captures each phase with ``torch.profiler`` (one
 Chrome-trace JSON a phase and rank under DIR) and prints the captures'
-top device ops at the end (the host ops where no card ran). Tensor- and
-sequence-parallel meshes (``--mesh tp=N``, ``sp=N``) and ``--tp`` raise
-``NotImplementedError`` (ROADMAP A5.5, A8(b)).
+top device ops at the end (the host ops where no card ran).
 """
 
 from __future__ import annotations
@@ -278,11 +286,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --autoscale: lower membership bound (default 1)")
     p.add_argument("--max-replicas", type=int, default=None, metavar="N",
                    help="with --autoscale: upper membership bound (default 4)")
-    # Not ported yet: refused, never ignored.
-    p.add_argument("--tp", type=int, help="not ported yet (ROADMAP A5.5)")
+    p.add_argument("--tp", type=int, default=None, metavar="N",
+                   help="with --continuous: tensor-parallel serving over an N-rank tp mesh "
+                        "(torchrun --nproc-per-node N): each rank holds its shard of the "
+                        "weights and its kv heads of the slot cache or block arena, with "
+                        "explicit all-reduces over the tp group. N must divide the model's "
+                        "q and kv heads and the world size; --tp 1 is no flag. Not with "
+                        "--mesh")
     p.add_argument("--mesh", default=None,
-                   help="rank mesh, e.g. 'dp=2', under torchrun with that many ranks "
-                        "(tp and sp are not ported yet)")
+                   help="rank mesh, e.g. 'dp=2', 'tp=2' or 'dp=2,sp=2', under torchrun with "
+                        "that many ranks")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler capture per phase to this directory and "
                         "print its top device ops at the end")
@@ -295,7 +308,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-NOT_PORTED = ("--tp",)
+#: Flags the reference has and the port refuses: none.
+NOT_PORTED = ()
 
 
 def parse_mesh(spec: Optional[str]) -> MeshConfig:
@@ -331,23 +345,10 @@ def check_setup(config: Config) -> None:
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
-    for flag in NOT_PORTED:
-        value = getattr(args, flag[2:].replace("-", "_"))
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{flag}: tensor-parallel serving is not ported yet (ROADMAP A5.5)")
     config = default_config()
     updates: Dict = {}
     if args.mesh:
-        mesh = parse_mesh(args.mesh)
-        if mesh.tp > 1:
-            raise NotImplementedError(
-                f"--mesh {args.mesh}: tensor parallelism is not ported yet (ROADMAP A5.5)")
-        if mesh.sp > 1:
-            raise NotImplementedError(
-                f"--mesh {args.mesh}: sequence parallelism (ring attention) is not ported "
-                "yet (ROADMAP A8(b))")
-        updates["mesh"] = mesh
+        updates["mesh"] = parse_mesh(args.mesh)
     if args.trace_dir:
         updates["profile_trace_dir"] = args.trace_dir
     if args.telemetry_dir:
@@ -403,13 +404,44 @@ def config_from_args(args: argparse.Namespace) -> Config:
         updates["speculation"] = SpeculationConfig(**spec_kwargs)
     if args.continuous or args.slots is not None or args.paged_kv \
             or args.kv_block_size is not None or args.kv_blocks is not None \
-            or args.fuse_steps is not None:
+            or args.fuse_steps is not None or args.tp is not None:
         if not args.paged_kv and (args.kv_block_size is not None
                                   or args.kv_blocks is not None):
             raise SystemExit("--kv-block-size/--kv-blocks require --paged-kv")
         if not args.continuous:
-            raise SystemExit("--slots/--paged-kv/--fuse-steps require --continuous")
+            raise SystemExit("--slots/--paged-kv/--fuse-steps/--tp require --continuous")
         serve_kwargs = {"enabled": True}
+        if args.tp is not None:
+            # The reference's parse-time checks, the world size standing
+            # for its device count.
+            if args.tp < 1:
+                raise SystemExit("--tp must be >= 1")
+            if args.mesh:
+                raise SystemExit(
+                    "--tp cannot combine with --mesh: --tp N builds the tp-only serving "
+                    "mesh itself (use --mesh for the static-engine dp/sp paths)")
+            if args.tp > 1:
+                if args.model and args.model not in (
+                        "simulated", "simulated-fair", "simulated-biased"):
+                    from fairness_llm_tpu_torch.models.configs import get_model_config
+
+                    try:
+                        mc = get_model_config(args.model)
+                    except KeyError:
+                        mc = None
+                    if mc is not None and (mc.num_heads % args.tp != 0
+                                           or mc.num_kv_heads % args.tp != 0):
+                        raise SystemExit(
+                            f"--tp {args.tp} must divide {args.model}'s attention heads "
+                            f"({mc.num_heads} q / {mc.num_kv_heads} kv)")
+                from fairness_llm_tpu_torch.parallel.multihost import world_size
+
+                if world_size() % args.tp != 0:
+                    raise SystemExit(
+                        f"--tp {args.tp} must divide the world size ({world_size()}); "
+                        f"launch with torchrun --nproc-per-node {args.tp}")
+                serve_kwargs["tp"] = args.tp
+                updates["mesh"] = MeshConfig(tp=args.tp)
         if args.slots is not None:
             if args.slots < 1:
                 raise SystemExit("--slots must be >= 1")

@@ -73,13 +73,9 @@ class ServingConfig:
     # Total arena blocks; None = 2x the all-slots-private worst case, so a
     # full pool still leaves an equal reserve working as prefix cache.
     kv_blocks: Optional[int] = None
+    # Tensor-parallel serving: the engine's tp mesh must match (the
+    # scheduler checks); 1 = a single device.
     tp: int = 1
-
-    def __post_init__(self) -> None:
-        if self.tp != 1:
-            raise NotImplementedError(
-                f"ServingConfig.tp={self.tp!r}: tensor-parallel serving is not ported yet "
-                "(ROADMAP A5.5)")
 
 
 @dataclasses.dataclass(frozen=True)

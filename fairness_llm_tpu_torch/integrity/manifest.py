@@ -23,7 +23,7 @@ import hashlib
 import json
 import logging
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 from fairness_llm_tpu_torch.runtime.safetensors_io import read_header
 from fairness_llm_tpu_torch.telemetry import emit_event, get_registry
@@ -75,6 +75,30 @@ def _file_entry(root: str, rel: str) -> Dict:
         if summary is not None:
             entry.update(summary)
     return entry
+
+
+def build_manifest(root: str, files: Optional[Sequence[str]] = None) -> Dict:
+    """Manifest dict for ``files`` (relative paths; default: every regular
+    file under ``root``, recursively, except the manifest itself)."""
+    if files is None:
+        files = []
+        for dirpath, _dirnames, filenames in os.walk(root):
+            for fname in filenames:
+                rel = os.path.relpath(os.path.join(dirpath, fname), root)
+                if rel != MANIFEST_FILENAME:
+                    files.append(rel)
+        files.sort()
+    return {"version": MANIFEST_VERSION, "files": {rel: _file_entry(root, rel) for rel in files}}
+
+
+def write_manifest(root: str, files: Optional[Sequence[str]] = None,
+                   path: Optional[str] = None) -> str:
+    """Build and atomically write a manifest for ``root``; returns its path
+    (default ``root/manifest.json``; ``path`` puts it elsewhere, as the train
+    checkpointer keeps it outside its step directories)."""
+    path = path or os.path.join(root, MANIFEST_FILENAME)
+    _write_json_atomic(build_manifest(root, files), path)
+    return path
 
 
 def _write_json_atomic(payload: Dict, path: str) -> None:

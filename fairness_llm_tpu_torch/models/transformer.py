@@ -40,7 +40,30 @@ conditions:
   no sliding window; over an int8 cache it reads the int8 values and scales;
 - everything else (the shared-prefix joint-softmax prefill, sliding-window
   decode, the flags off) takes the dense branch, which the reference also
-  computes outside its kernels.
+  computes outside its kernels;
+- ``attention_impl="ring"``, or a model with an sp group, takes ring
+  attention (``parallel/ring.py``) on the no-cache path, over the
+  sequence block each sp rank holds; a cache with "ring" raises, as in
+  the reference.
+
+Tensor parallelism (``set_parallel`` with a ``parallel.sharding.
+ModelParallel`` whose ``layout`` is the rank's ``TPLayout``): the model is
+built at the rank's widths (``TPLayout.local_config``), so attention runs
+over its local heads (the kernels take the local head counts) and the MLP
+over its local columns. The collectives are explicit, over the tp group:
+one all-reduce after the o projection where the q heads shard and one
+after the down projection where the MLP columns shard, each of the
+partial products in float32 before the cast to the model dtype (an int8
+projection's kernel writes float32 for it), the bias added once after;
+where the vocabulary shards, the embedding rows outside the rank's block
+read zero and one all-reduce completes the lookup, and the logits are
+summed into a zero-filled full-vocabulary buffer (an all-reduce, which
+gloo takes on CUDA tensors, where its all-gather does not).
+
+The forward runs under autograd when a parameter requires a gradient
+(``train/step.py``); the serving paths' parameters do not, so they build
+no graph. A training forward passes no cache and ``left_padded=False``,
+so it takes the dense (or ring) branch: the kernels have no backward.
 """
 
 from __future__ import annotations
@@ -233,6 +256,26 @@ def _project(projs, x):
     return out
 
 
+def _row_parallel(proj, x, par):
+    """``proj(x)`` where x's features (the projection's input rows) are
+    split over the tp group: each rank's partial product in float32, summed
+    over the group, then cast to the projection's dtype, the bias added
+    once."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if isinstance(proj, QuantDense):
+        y = quant_ops.quant_matmul(x2.to(proj.dtype), proj.kernel_q, proj.kernel_scale,
+                                   out_dtype=torch.float32)
+        dtype = proj.out_dtype
+    else:
+        y = _logits(x2.to(proj.dtype), proj.kernel)
+        dtype = proj.dtype
+    y = par.all_reduce(y.contiguous()).to(dtype).reshape(*lead, y.shape[-1])
+    if proj.bias is not None:
+        y = y + proj.bias.to(dtype)
+    return y
+
+
 def _projection(config: ModelConfig, in_features: int, out_features: int, bias: bool) -> nn.Module:
     """The projection ``weight_quant`` asks for: ``QuantDense`` or ``Dense``."""
     if config.weight_quant == "int8":
@@ -312,8 +355,9 @@ class Attention(nn.Module):
         cfg = self.config = config
         if cfg.weight_quant not in ("none", "int8"):
             raise NotImplementedError(f"weight_quant={cfg.weight_quant!r} is not ported")
-        if cfg.attention_impl != "xla":
+        if cfg.attention_impl not in ("xla", "ring"):
             raise NotImplementedError(f"attention_impl={cfg.attention_impl!r} is not ported")
+        self.par = None  # a parallel.sharding.ModelParallel (Transformer.set_parallel)
         qkv_bias = cfg.use_bias or cfg.qkv_bias
         self.q_proj = _projection(cfg, cfg.d_model, cfg.q_dim, qkv_bias)
         self.k_proj = _projection(cfg, cfg.d_model, cfg.kv_dim, qkv_bias)
@@ -344,6 +388,10 @@ class Attention(nn.Module):
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
 
+        ring = cfg.attention_impl == "ring" or (self.par is not None
+                                                 and self.par.sp_group is not None)
+        if cfg.attention_impl == "ring" and cache_layer is not None:
+            raise ValueError("attention_impl='ring' supports only the no-cache path")
         quant = cache_layer is not None and cfg.kv_cache_quant
         if quant:
             qk, k_sc = _quantize_kv(k)
@@ -355,7 +403,13 @@ class Attention(nn.Module):
             _cache_write(cache_layer.k, k.to(dtype), cache_index, write_offsets)
             _cache_write(cache_layer.v, v.to(dtype), cache_index, write_offsets)
 
-        if (shared_kv is None and cfg.use_flash_attention and left_padded
+        if ring and cache_layer is None:
+            from fairness_llm_tpu_torch.parallel.ring import ring_attention
+
+            out = ring_attention(q, k, v, positions, positions, key_valid,
+                                 group=None if self.par is None else self.par.sp_group,
+                                 window=cfg.sliding_window).to(dtype)
+        elif (shared_kv is None and cfg.use_flash_attention and left_padded
                 and S > 1):
             # First prefill (or no cache): the new k/v are the whole key set;
             # over an int8 cache, their round trip, which later steps read.
@@ -392,7 +446,11 @@ class Attention(nn.Module):
             out = self._dense(q, keys, values, positions, cache_index,
                               key_valid, key_positions, shared_kv,
                               cached=cache_layer is not None, write_offsets=write_offsets)
-        return self.o_proj(out.reshape(B, S, cfg.q_dim))
+        out = out.reshape(B, S, cfg.q_dim)
+        if self.par is not None and self.par.layout is not None \
+                and self.par.layout.attn_sharded:
+            return _row_parallel(self.o_proj, out, self.par)
+        return self.o_proj(out)
 
     def _dense(self, q, keys, values, positions, cache_index, key_valid,
                key_positions, shared_kv, cached: bool,
@@ -449,6 +507,7 @@ class MLP(nn.Module):
             self.gate_proj = _projection(cfg, cfg.d_model, cfg.d_ff, cfg.use_bias)
         self.up_proj = _projection(cfg, cfg.d_model, cfg.d_ff, cfg.use_bias)
         self.down_proj = _projection(cfg, cfg.d_ff, cfg.d_model, cfg.use_bias)
+        self.par = None  # a parallel.sharding.ModelParallel (Transformer.set_parallel)
 
     def forward(self, x):
         if self.config.mlp == "glu":
@@ -456,6 +515,9 @@ class MLP(nn.Module):
             h = self.act(gate) * up
         else:
             h = self.act(self.up_proj(x))
+        if self.par is not None and self.par.layout is not None \
+                and self.par.layout.ff_sharded:
+            return _row_parallel(self.down_proj, h, self.par)
         return self.down_proj(h)
 
 
@@ -495,7 +557,8 @@ def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return x @ head
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" and not (x.requires_grad or head.requires_grad):
+        # aten::mm.dtype has no backward: a training forward widens instead.
         out = torch.mm(x2, head, out_dtype=torch.float32)
     else:
         out = x2.float() @ head.float()
@@ -533,11 +596,43 @@ class Transformer(nn.Module):
                                       out_dtype=torch.float32)
         elif not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab_size))
+        self.par = None
 
     def blocks(self) -> List[Block]:
         return [getattr(self, f"layer_{i}") for i in range(self.config.num_layers)]
 
-    @torch.no_grad()
+    def set_parallel(self, par) -> None:
+        """Run over ``par`` (a ``parallel.sharding.ModelParallel``, or None):
+        its tp group and layout (the model must have been built at
+        ``par.layout.local_config``'s widths) and its sp group."""
+        self.par = par
+        for block in self.blocks():
+            block.attn.par = par
+            block.mlp.par = par
+
+    def _embed(self, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The embedding rows of ``tokens``; with the vocabulary split over
+        the tp group, rows outside the rank's block read zero and the sum
+        over the group (exact: one rank holds each row) completes them."""
+        layout = None if self.par is None else self.par.layout
+        if layout is None or not layout.vocab_sharded:
+            return self.embedding[tokens].to(dtype)
+        local = tokens - layout.vocab_lo
+        mine = (local >= 0) & (local < self.embedding.shape[0])
+        rows = self.embedding[local.clamp(0, self.embedding.shape[0] - 1)].float()
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return self.par.all_reduce(rows).to(dtype)
+
+    def _gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Full-vocabulary logits from the rank's block (an all-reduce into
+        a zero-filled buffer)."""
+        layout = None if self.par is None else self.par.layout
+        if layout is None or not layout.vocab_sharded:
+            return logits
+        full = logits.new_zeros(*logits.shape[:-1], layout.vocab_size)
+        full[..., layout.vocab_lo:layout.vocab_hi] = logits
+        return self.par.all_reduce(full)
+
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 token_valid: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None, left_padded: bool = False,
@@ -553,7 +648,7 @@ class Transformer(nn.Module):
             token_valid = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
         positions = positions.long()
 
-        x = self.embedding[tokens].to(dtype)
+        x = self._embed(tokens, dtype)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
         if cfg.pos_emb == "learned":
@@ -594,6 +689,7 @@ class Transformer(nn.Module):
             logits = self.lm_head(x)  # f32 out
         else:
             logits = _logits(x, self.embedding.t() if cfg.tie_embeddings else self.lm_head)
+        logits = self._gather_vocab(logits)
 
         if cache is not None:
             # As the reference: a verify step's caller resets lengths to the

@@ -18,8 +18,13 @@ per dimension. The byte counts (``per_device_param_bytes``,
 ``per_device_kv_cache_bytes``) take a ``MeshConfig`` or a mesh: they need
 no world.
 
-This slice runs ``dp`` only: ``shard_params`` places the parameters on the
-rank's device (dp replicates them) and raises at tp > 1 (ROADMAP A5.5);
+``shard_params`` places the parameters on the rank's device, each tensor
+cut to the rank's block along every dimension its spec shards on "tp"
+(dp and sp replicate the weights); ``tp_layout`` says which heads, MLP
+columns and vocabulary rows a tp rank holds, and ``local_params`` turns
+the spec's shards into the tensors the rank's model computes with (the
+replicated q/k/v and gate/up biases cut to its columns, and, where q
+heads shard but kv heads do not, the kv heads its q heads read).
 ``batch_sharding`` is the rank's contiguous row slice of a batch bucketed
 to a dp multiple, the reference's ``P("dp")`` layout.
 
@@ -33,7 +38,7 @@ rank here knows its mesh and its slice directly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -156,17 +161,185 @@ def param_shardings(model_config: ModelConfig, mesh: MeshLike,
             for name in param_shapes(model_config)}
 
 
+def axis_rank(mesh: Optional[Any], axis: str) -> int:
+    """This rank's coordinate along ``axis`` (0 without a mesh)."""
+    return 0 if mesh is None or axis_size(mesh, axis) == 1 else mesh.get_local_rank(axis)
+
+
 def shard_params(params: Mapping[str, torch.Tensor], shardings: Mapping[str, Spec],
-                 device: Union[str, torch.device]) -> Dict[str, torch.Tensor]:
-    """Place the parameters on this rank's device. Every spec must be
-    replicated (dp replicates the weights); a tp- or sp-sharded spec raises
-    ``NotImplementedError`` (tensor-parallel serving is ROADMAP A5.5)."""
-    sharded = sorted(n for n, spec in shardings.items() if any(a is not None for a in spec))
-    if sharded:
-        raise NotImplementedError(
-            f"sharded parameters ({sharded[0]}, ...): tensor parallelism is not ported yet "
-            "(ROADMAP A5.5)")
-    return {name: t.to(device) for name, t in params.items()}
+                 device: Union[str, torch.device], mesh: Optional[Any] = None,
+                 ) -> Dict[str, torch.Tensor]:
+    """Place the parameters on this rank's device, each cut to the rank's
+    block along the dimensions its spec shards (the rank's tp coordinate of
+    ``mesh``; a dimension must divide its axis). Replicated tensors are
+    moved, not copied; a shard is a contiguous copy. A sharded spec needs
+    ``mesh``."""
+    out = {}
+    for name, t in params.items():
+        spec = shardings.get(name, ())
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            if mesh is None:
+                raise ValueError(f"parameter {name} shards on {axis!r}: pass the mesh")
+            n = axis_size(mesh, axis)
+            if t.shape[dim] % n:
+                raise ValueError(f"parameter {name} dim {dim} ({t.shape[dim]}) does not "
+                                 f"divide {axis}={n}")
+            size = t.shape[dim] // n
+            t = t.narrow(dim, axis_rank(mesh, axis) * size, size)
+        out[name] = t.to(device).contiguous() if t is not params[name] else t.to(device)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """What one tp rank holds of a model under the rules (global indices):
+    its q heads ``[q_lo, q_hi)`` of ``num_heads``; the kv heads its
+    attention reads, in order (``kv_heads``: its own block when kv heads
+    shard; every head when attention replicates; where q heads shard and kv
+    heads do not, the heads its q heads map to, once each when each maps to
+    an equal run of its q heads, else one per q head); its MLP columns
+    ``[ff_lo, ff_hi)`` of ``d_ff`` and its vocabulary rows ``[vocab_lo,
+    vocab_hi)`` of ``vocab_size``. An o or down projection whose input
+    shards is summed over the tp group."""
+
+    tp: int
+    rank: int
+    num_heads: int
+    q_lo: int
+    q_hi: int
+    kv_heads: Tuple[int, ...]
+    kv_sharded: bool
+    d_ff: int
+    ff_lo: int
+    ff_hi: int
+    vocab_size: int
+    vocab_lo: int
+    vocab_hi: int
+
+    @property
+    def attn_sharded(self) -> bool:
+        return self.q_hi - self.q_lo < self.num_heads
+
+    @property
+    def ff_sharded(self) -> bool:
+        return self.ff_hi - self.ff_lo < self.d_ff
+
+    @property
+    def vocab_sharded(self) -> bool:
+        return self.vocab_hi - self.vocab_lo < self.vocab_size
+
+    def local_config(self, cfg: ModelConfig) -> ModelConfig:
+        """``cfg`` at this rank's widths: its q and kv heads, MLP columns and
+        vocabulary rows (what the rank's model and KV cache hold)."""
+        return dataclasses.replace(
+            cfg, num_heads=self.q_hi - self.q_lo, num_kv_heads=len(self.kv_heads),
+            d_ff=self.ff_hi - self.ff_lo, vocab_size=self.vocab_hi - self.vocab_lo)
+
+
+def tp_layout(model_config: ModelConfig, mesh: MeshLike, rank: Optional[int] = None) -> TPLayout:
+    """The tp rank's layout under ``make_axis_rules`` (each axis gated on its
+    own divisibility). ``rank`` defaults to this process's tp coordinate
+    of ``mesh``; with a ``MeshConfig`` it must be given."""
+    cfg = model_config
+    tp = axis_size(mesh, "tp")
+    if rank is None:
+        rank = 0 if isinstance(mesh, MeshConfig) and tp == 1 else axis_rank(mesh, "tp")
+    rules = dict(make_axis_rules(cfg, mesh))
+
+    def block(size: int, axis: str) -> Tuple[int, int]:
+        if rules.get(axis) != "tp":
+            return 0, size
+        per = size // tp
+        return rank * per, (rank + 1) * per
+
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    q_lo, q_hi = block(H, "q_heads")
+    kv_sharded = rules.get("kv_heads") == "tp"
+    if kv_sharded or (q_lo, q_hi) == (0, H):
+        kv_heads = tuple(range(*block(Hkv, "kv_heads")))
+    else:
+        rep = H // Hkv
+        needed = [h // rep for h in range(q_lo, q_hi)]
+        distinct = sorted(set(needed))
+        runs = {needed.count(k) for k in distinct}
+        kv_heads = tuple(distinct) if len(runs) == 1 else tuple(needed)
+    ff_lo, ff_hi = block(cfg.d_ff, "ff")
+    v_lo, v_hi = block(cfg.vocab_size, "vocab")
+    return TPLayout(tp=tp, rank=rank, num_heads=H, q_lo=q_lo, q_hi=q_hi, kv_heads=kv_heads,
+                    kv_sharded=kv_sharded, d_ff=cfg.d_ff, ff_lo=ff_lo, ff_hi=ff_hi,
+                    vocab_size=cfg.vocab_size, vocab_lo=v_lo, vocab_hi=v_hi)
+
+
+def _head_columns(heads: Sequence[int], head_dim: int) -> torch.Tensor:
+    return torch.cat([torch.arange(h * head_dim, (h + 1) * head_dim) for h in heads])
+
+
+def local_params(model_config: ModelConfig, params: Mapping[str, torch.Tensor],
+                 layout: TPLayout) -> Dict[str, torch.Tensor]:
+    """``shard_params``'s output -> the tensors of the rank's model
+    (``layout.local_config``): the replicated column biases (q/k/v,
+    gate/up) cut to the rank's columns, and where q heads shard but kv
+    heads do not, the k/v projections (kernel, int8 scales, bias) cut to
+    ``layout.kv_heads``. Everything else is the shard itself; the o and
+    down biases stay whole (added once, after the sum)."""
+    D = model_config.head_dim
+    out = dict(params)
+    kv_cut = layout.attn_sharded and not layout.kv_sharded
+    kv_cols = _head_columns(layout.kv_heads, D) if kv_cut else None
+    for name, t in params.items():
+        parts = name.split(".")
+        if len(parts) < 3:
+            continue
+        proj, leaf = parts[-2], parts[-1]
+        if proj == "q_proj" and leaf == "bias" and layout.attn_sharded:
+            out[name] = t[layout.q_lo * D:layout.q_hi * D].contiguous()
+        elif proj in ("k_proj", "v_proj") and kv_cut:
+            cols = kv_cols.to(t.device)
+            out[name] = t.index_select(t.dim() - 1, cols).contiguous()
+        elif proj in ("k_proj", "v_proj") and leaf == "bias" and layout.kv_sharded:
+            lo, hi = layout.kv_heads[0] * D, (layout.kv_heads[-1] + 1) * D
+            out[name] = t[lo:hi].contiguous()
+        elif proj in ("gate_proj", "up_proj") and leaf == "bias" and layout.ff_sharded:
+            out[name] = t[layout.ff_lo:layout.ff_hi].contiguous()
+    return out
+
+
+@dataclasses.dataclass
+class ModelParallel:
+    """The process groups a rank's model computes over: its tp group and
+    ``layout`` (tensor-parallel forward), its sp group (the ring of the
+    no-cache forward). None where the axis has one rank."""
+
+    tp_group: Any = None
+    layout: Optional[TPLayout] = None
+    sp_group: Any = None
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the tp group in place (returns it); under a cost
+        walk it is charged to ``collectives`` at the ring's bytes."""
+        import torch.distributed as dist
+
+        from fairness_llm_tpu_torch.telemetry import costmodel
+
+        n = self.layout.tp
+        with costmodel.kernel_cost("collectives", lambda: costmodel.collective_cost(
+                t.numel() * t.element_size(), n)):
+            dist.all_reduce(t, group=self.tp_group)
+        return t
+
+
+def model_parallel(model_config: ModelConfig, mesh: Optional[Any]) -> Optional[ModelParallel]:
+    """The ``ModelParallel`` of this rank under ``mesh``, or None when
+    neither tp nor sp has more than one rank."""
+    tp, sp = axis_size(mesh, "tp"), axis_size(mesh, "sp")
+    if tp == 1 and sp == 1:
+        return None
+    return ModelParallel(
+        tp_group=axis_group(mesh, "tp") if tp > 1 else None,
+        layout=tp_layout(model_config, mesh) if tp > 1 else None,
+        sp_group=axis_group(mesh, "sp") if sp > 1 else None)
 
 
 def batch_sharding(mesh: Optional[Any], batch: int) -> slice:

@@ -12,9 +12,11 @@
 
 Resilience (watchdog, breakers, the serving journal) is wired here as in
 the reference. With ``config.mesh`` over more than one rank the engine
-runs data-parallel (``parallel/``): a dp mesh over the ``torchrun`` world,
-each rank decoding its rows. Tensor-parallel and sequence-parallel meshes
-are later slices (ROADMAP A5.5, A8(b)) and raise.
+runs over a ``("dp", "tp", "sp")`` mesh of the ``torchrun`` world
+(``parallel/``): each dp rank decodes its rows, each tp rank holds its
+shard of the weights, and the sp ranks split the scoring forward's
+sequence. Served (``--continuous``), only a tp-only mesh is taken
+(``--tp N`` makes one), as in the reference.
 """
 
 from __future__ import annotations
@@ -324,8 +326,8 @@ def backend_for(
     ``config.overload`` (QoS queues and load shedding) and ``config.fleet``
     and ``config.autoscale`` (the replica fleet); the engine path gets the
     breakers and the watchdog too. With ``config.mesh.num_devices > 1`` the
-    engine runs on a dp mesh over the process group (``torchrun``), which
-    serving does not take: ``--continuous`` with dp or sp > 1 raises before
+    engine runs on that mesh over the process group (``torchrun``); serving
+    takes a tp-only one: ``--continuous`` with dp or sp > 1 raises before
     any weight is loaded, as the reference's does.
 
     The engine runs the port's attention kernels (``use_flash_attention``

@@ -47,8 +47,24 @@ its last step, so one ``all_gather`` over the dp group gives every rank the
 whole batch's ``GenerateOutput``. The call's stats are gathered with them:
 ``decode_steps`` (verify steps) and the seconds are the maximum over
 ranks, the speculation counters the sum, the finite flag the AND. Under
-gloo the gather goes through the CPU. tp and sp meshes raise
-``NotImplementedError`` (ROADMAP A5.5, A8(b)).
+gloo the gather goes through the CPU.
+
+Tensor parallelism (a mesh with tp > 1): each rank holds its shard of the
+parameters (``parallel.shard_params`` by the rules, then
+``local_params``) and its model runs over its local heads, MLP columns
+and vocabulary rows with explicit all-reduces over the tp group
+(``models/transformer.py``); its KV cache holds its local kv heads. The
+ranks of a tp group decode the same rows and see the same full-vocabulary
+logits, so they sample the same tokens and stop at the same step. Where
+the reference keeps XLA attention for a multi-device decode, each rank
+here runs the decode kernel over its local heads, which is exact.
+
+Sequence parallelism (sp > 1) serves the no-cache forward: scoring splits
+each row's sequence over the sp ranks and attends through the ring
+(``runtime/scoring.py``, ``parallel/ring.py``). A decode step's sequence is
+one token, so the sp ranks of a dp block decode its rows alike (the
+reference's GSPMD program runs it too; a config with
+``attention_impl="ring"`` raises on a cache, as there).
 
 Telemetry (``component="engine"``), as the reference's: per call
 ``generate_calls_total``, ``prompt_tokens_total``, ``decoded_tokens_total``,
@@ -87,8 +103,10 @@ from fairness_llm_tpu_torch.parallel.sharding import (
     axis_size,
     batch_sharding,
     gather_rows,
+    local_params,
     make_mesh,
     mesh_shape,
+    model_parallel,
     param_shardings,
     per_device_param_bytes,
     shard_params,
@@ -192,15 +210,12 @@ class DecodeEngine:
         tokenizer. ``numerics_guards`` raises a ``NumericsFault`` from a call
         whose live rows' logits were not all finite. ``mesh`` (or
         ``mesh_config``, from which one is made over the world) splits every
-        call's rows over its dp ranks; the parameters are replicated."""
+        call's rows over its dp ranks, and its tp ranks split the model
+        (each holds its shard of the parameters)."""
         self.device = resolve_device(device)
         if mesh is None and mesh_config is not None and mesh_config.num_devices > 1:
             mesh = make_mesh(mesh_config)
         self.mesh = mesh
-        if axis_size(mesh, "sp") > 1:
-            raise NotImplementedError(
-                "sp > 1: ring attention over a sequence-parallel mesh is not ported yet "
-                "(ROADMAP A8(b))")
         self.config = model_config
         self.speculation = speculation
         self.numerics_guards = bool(numerics_guards)
@@ -225,13 +240,17 @@ class DecodeEngine:
                      else torch.float32)
         if params is None:
             params = init_params(model_config, seed, self.device, dtype)
+        par = model_parallel(model_config, mesh)
         if mesh is not None:
-            # dp replicates the parameters; tp raises here (ROADMAP A5.5)
-            params = shard_params(params, param_shardings(model_config, mesh), self.device)
+            # dp and sp replicate the parameters; tp cuts each to its shard
+            params = shard_params(params, param_shardings(model_config, mesh), self.device,
+                                  mesh=mesh)
+            if par is not None and par.layout is not None:
+                params = local_params(model_config, params, par.layout)
             logger.info("%s on mesh %s: ~%.2f GB params per device", model_config.name,
                         mesh_shape(mesh), per_device_param_bytes(
                             model_config, mesh, itemsize=torch.finfo(dtype).bits // 8) / 1e9)
-        self.model = build_model(model_config, params, self.device, dtype)
+        self.model = build_model(model_config, params, self.device, dtype, par=par)
         self._prefix_kv: "collections.OrderedDict[tuple, list]" = collections.OrderedDict()
         # Program keys seen (the reference's compiled-program cache): each
         # holds its cost ledger and memory capture.

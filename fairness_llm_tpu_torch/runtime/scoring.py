@@ -17,6 +17,14 @@ On an engine with a dp mesh each rank forwards its contiguous block of a
 chunk's rows (``parallel.batch_sharding``; the chunk bucketed to a dp
 multiple) and the per-row sums are all-gathered over the dp group, so
 every rank returns every row's scores; the logits budget is per device.
+
+On an engine with an sp mesh (A8(b)) each sp rank forwards its contiguous
+block of the bucketed sequence (the bucket a multiple of sp, left-padded
+further where it is not) with ring attention over the sp group
+(``parallel/ring.py``; the model attends through the ring whenever it has
+an sp group and no cache), scores the targets of its block's positions,
+and the per-row sums are all-reduced over the sp group: the reference's
+sequence-sharded forward, with the collectives written out.
 """
 
 from __future__ import annotations
@@ -28,7 +36,13 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from fairness_llm_tpu_torch.parallel.sharding import axis_size, batch_sharding, gather_rows
+from fairness_llm_tpu_torch.parallel.sharding import (
+    axis_group,
+    axis_rank,
+    axis_size,
+    batch_sharding,
+    gather_rows,
+)
 from fairness_llm_tpu_torch.runtime.engine import DecodeEngine, _bucket_batch, _bucket_len
 
 logger = logging.getLogger(__name__)
@@ -131,19 +145,42 @@ def _score_encoded(
 def _forward(engine: DecodeEngine, tokens: torch.Tensor, valid: torch.Tensor,
              prefixes: torch.Tensor):
     """One teacher-forced forward over [batch, s]: each row's summed
-    log-probability of its scored targets (f32) and their count."""
+    log-probability of its scored targets (f32) and their count. Under an
+    sp mesh, this rank's block of the sequence (see the module
+    docstring)."""
+    sp = axis_size(engine.mesh, "sp")
+    if sp > 1 and tokens.shape[1] % sp:
+        pad = sp - tokens.shape[1] % sp
+        tokens = torch.nn.functional.pad(tokens, (pad, 0), value=engine.tokenizer.pad_id)
+        valid = torch.nn.functional.pad(valid, (pad, 0), value=False)
     positions = torch.clamp(torch.cumsum(valid.long(), dim=1) - 1, min=0)
-    # The whole bucketed length runs; the last position predicts nothing.
-    logits, _ = engine.model(tokens, positions, valid, left_padded=True)
-    lg = logits[:, :-1]
-    targets = tokens[:, 1:]
+    s = tokens.shape[1]
+    lo, hi = 0, s
+    if sp > 1:
+        lo = axis_rank(engine.mesh, "sp") * (s // sp)
+        hi = lo + s // sp
+    # The whole bucketed length runs (this rank's block of it); position t
+    # predicts token t + 1, the last position nothing.
+    logits, _ = engine.model(tokens[:, lo:hi], positions[:, lo:hi], valid[:, lo:hi],
+                             left_padded=True)
+    end = min(hi, s - 1)
+    lg = logits[:, :end - lo]
+    targets = tokens[:, lo + 1:end + 1]
     # Targets that are real tokens past the row's prefix.
-    tvalid = valid[:, :-1] & valid[:, 1:] & (positions[:, 1:] >= prefixes[:, None])
+    tvalid = (valid[:, lo:end] & valid[:, lo + 1:end + 1]
+              & (positions[:, lo + 1:end + 1] >= prefixes[:, None]))
     picked_logit = torch.gather(lg, -1, targets[..., None])[..., 0]
     lse = torch.logsumexp(lg, dim=-1)
     # where, not a product: a row with no valid token must not add NaN * 0
     picked = torch.where(tvalid, picked_logit - lse, torch.zeros_like(lse))
-    return picked.sum(dim=1), tvalid.sum(dim=1)
+    ll, counts = picked.sum(dim=1), tvalid.sum(dim=1)
+    if sp > 1:
+        import torch.distributed as dist
+
+        both = torch.stack([ll.double(), counts.double()])
+        dist.all_reduce(both, group=axis_group(engine.mesh, "sp"))
+        ll, counts = both[0].float(), both[1].long()
+    return ll, counts
 
 
 def score_texts(engine: DecodeEngine, texts: Sequence[str], seed: int = 0) -> ScoreOutput:

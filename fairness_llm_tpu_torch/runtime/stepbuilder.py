@@ -1,8 +1,9 @@
 """The engine's and the server's decode programs as plain functions
 (counterpart of ``fairness_llm_tpu/runtime/stepbuilder.py``:
 ``make_batch_entry``, ``make_greedy_loop``, ``build_engine_decode``,
-``build_spec_decode``, ``build_prefix``, and the serving programs
-``build_serve_step``, ``build_serve_prefill`` and ``build_paged_prefill``).
+``build_spec_decode``, ``build_prefix``, the serving programs
+``build_serve_step``, ``build_serve_prefill`` and ``build_paged_prefill``,
+and the mesh axis of ``program_label`` and ``compile_key``: ``tp_key``).
 
 PyTorch runs eagerly, so the reference's compiled ``while_loop`` becomes a
 Python loop that stops once every live row is done. Each step reads a few
@@ -38,6 +39,21 @@ from fairness_llm_tpu_torch.telemetry import costmodel
 SharedLayers = Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]]
 
 
+def program_label(base: str, fuse: int = 1, tp: int = 1) -> str:
+    """A step program's telemetry name, as the reference's: ``<base>_fused``
+    for a fused dispatch, and ``@tp<k>`` after it on a tp mesh; unchanged at
+    ``fuse=1, tp=1``."""
+    label = base if fuse <= 1 else f"{base}_fused"
+    return label if tp <= 1 else f"{label}@tp{tp}"
+
+
+def tp_key(key: tuple, tp: int) -> tuple:
+    """A program key on a tp mesh: the reference's tagged ``("tp", k)``
+    element appended, so it never equals a single-device key; unchanged at
+    ``tp=1``."""
+    return key if tp <= 1 else key + (("tp", tp),)
+
+
 def make_batch_entry(cfg, model, *, batch: int, cache_len: int, prefix_len: int = 0):
     """The left-padded batch prefill: positions from the valid cumsum
     (prefix-offset, pad slots clamped), a fresh cache of ``cache_len`` slots,
@@ -46,7 +62,7 @@ def make_batch_entry(cfg, model, *, batch: int, cache_len: int, prefix_len: int 
 
     def entry(tokens, valid, shared_layers: SharedLayers):
         positions = prefix_len + (torch.cumsum(valid.long(), dim=1) - 1).clamp_min(0)
-        cache = init_cache(cfg, batch, cache_len, device=tokens.device)
+        cache = init_cache(model.config, batch, cache_len, device=tokens.device)
         logits, cache = model(tokens, positions, valid, cache, left_padded=True,
                               last_only=True, shared_layers=shared_layers)
         return logits[:, -1, :], cache
@@ -260,7 +276,7 @@ def build_prefix(cfg, model, *, prefix_len: int):
 
     def run(tokens):
         positions = torch.arange(prefix_len, device=tokens.device)[None, :]
-        cache = init_cache(cfg, 1, prefix_len, device=tokens.device)
+        cache = init_cache(model.config, 1, prefix_len, device=tokens.device)
         valid = torch.ones((1, prefix_len), dtype=torch.bool, device=tokens.device)
         model(tokens, positions, valid, cache, left_padded=True, last_only=True)
         if cfg.kv_cache_quant:
@@ -345,7 +361,7 @@ def build_serve_prefill(cfg, model, *, nb: int, P: int):
             guard: bool = False) -> Optional[torch.Tensor]:
         dev = tokens.device
         positions = (torch.cumsum(valid.long(), dim=1) - 1).clamp_min(0)
-        small = init_cache(cfg, nb, P, device=dev)
+        small = init_cache(model.config, nb, P, device=dev)
         logits, small = model(tokens, positions, valid, small, left_padded=True,
                               last_only=True)
         n = len(slots)

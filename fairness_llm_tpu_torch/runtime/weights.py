@@ -132,10 +132,15 @@ def init_params(cfg: ModelConfig, seed: int, device: torch.device,
 
 
 def build_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
-                device: torch.device, dtype: torch.dtype) -> Transformer:
+                device: torch.device, dtype: torch.dtype, par=None) -> Transformer:
     """A ``Transformer`` holding ``params`` moved to ``device``; float
     parameters are stored in ``dtype``, int8 kernels and their f32 scales
-    keep their dtypes. No other copy is made."""
+    keep their dtypes. No other copy is made. ``par`` (a
+    ``parallel.sharding.ModelParallel``) with a tp layout builds the rank's
+    model: ``params`` are then ``parallel.sharding.local_params``'s, at the
+    layout's widths."""
+    if par is not None and par.layout is not None:
+        cfg = par.layout.local_config(cfg)
     with torch.device("meta"):
         model = Transformer(cfg)
     state = {
@@ -145,6 +150,7 @@ def build_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
     }
     model.load_state_dict(state, strict=True, assign=True)
     model.requires_grad_(False)
+    model.set_parallel(par)
     return model.eval()
 
 

@@ -99,7 +99,17 @@ own and names it in its decisions and incidents; the fleet drives it one
 iteration at a time through ``step``, places migrated requests at the head
 of its queue (``submit(front=True, restamp=False)``), and at retirement
 frees its device tensors and their ledger entries (``release_memory``).
-Tensor-parallel meshes are a later part of ROADMAP A5.
+
+Tensor parallelism: the scheduler takes an engine over a tp-only mesh (a
+dp or sp axis is refused, as the reference refuses it: the slot scatter is
+not dp/sp-aware) and a ``ServingConfig.tp`` that must equal the mesh's.
+Each tp rank runs this loop over the same requests; its KV pool or block
+arena holds the rank's local kv heads (the rank model's config), and the
+carried logits the full vocabulary (the model gathers them), so every rank
+samples the same tokens and takes the same decisions. Program labels gain
+``@tp<k>`` and keys ``("tp", k)`` (``stepbuilder.program_label``,
+``tp_key``), unchanged at tp=1, and each program's cost ledger adds
+``tp_collective_costs`` where its walk charged no collective.
 
 Device-facing telemetry (``telemetry/memory.py``, ``compilestats.py``,
 ``roofline.py``, ``costmodel.py``): the KV pool (``kv_contiguous``) or the
@@ -136,7 +146,7 @@ from fairness_llm_tpu_torch.integrity.numerics import check_finite
 from fairness_llm_tpu_torch.models.tokenizer import _left_pad
 from fairness_llm_tpu_torch.models.transformer import check_write_offsets, init_cache
 from fairness_llm_tpu_torch.ops import _build
-from fairness_llm_tpu_torch.parallel.sharding import axis_size
+from fairness_llm_tpu_torch.parallel.sharding import axis_size, mesh_shape
 from fairness_llm_tpu_torch.resilience.breaker import BreakerBoard
 from fairness_llm_tpu_torch.resilience.drain import (
     ServingJournal,
@@ -150,6 +160,8 @@ from fairness_llm_tpu_torch.runtime.stepbuilder import (
     build_paged_prefill,
     build_serve_prefill,
     build_serve_step,
+    program_label,
+    tp_key,
 )
 from fairness_llm_tpu_torch.serving.overload import (
     DeadlineEstimator,
@@ -162,7 +174,11 @@ from fairness_llm_tpu_torch.serving.request import QOS_CLASSES, QOS_PRIORITY, Re
 from fairness_llm_tpu_torch.serving.slots import SlotPool, SlotState
 from fairness_llm_tpu_torch.telemetry import Heartbeat, RequestTracer, emit_event, get_registry
 from fairness_llm_tpu_torch.telemetry.compilestats import note_lookup, record_compile
-from fairness_llm_tpu_torch.telemetry.costmodel import InstrumentedProgram, note_invocation
+from fairness_llm_tpu_torch.telemetry.costmodel import (
+    InstrumentedProgram,
+    note_invocation,
+    tp_collective_costs,
+)
 from fairness_llm_tpu_torch.telemetry.fairness import get_fairness_monitor
 from fairness_llm_tpu_torch.telemetry.flightrecorder import get_flight_recorder
 from fairness_llm_tpu_torch.telemetry.incidents import maybe_trigger, record_decision
@@ -230,10 +246,19 @@ class ContinuousScheduler:
         mesh = getattr(engine, "mesh", None)
         if axis_size(mesh, "dp") > 1 or axis_size(mesh, "sp") > 1:
             raise ValueError(
-                "ContinuousScheduler supports single-device meshes (the slot scatter is not "
-                "dp/sp-aware, and tp serving is ROADMAP A5.5); build the engine without one")
+                "ContinuousScheduler supports single-device and tp-only meshes (the slot "
+                "scatter is not dp/sp-aware yet); build the engine with a tp-only mesh or "
+                "without one")
+        self.mesh = mesh
+        self.tp = axis_size(mesh, "tp")
         self.engine = engine
         self.serving = serving or ServingConfig(enabled=True)
+        want_tp = max(1, self.serving.tp)
+        if want_tp > 1 and self.tp != want_tp:
+            raise ValueError(
+                f"ServingConfig.tp={want_tp} but the engine's mesh is "
+                f"{None if mesh is None else mesh_shape(mesh)}; build the engine over a "
+                "matching tp mesh (parallel.make_mesh)")
         # Replica identity: a fleet replica's instruments carry
         # {"replica": name} and it gets its own timeline track; None (a
         # single scheduler) adds no label.
@@ -244,6 +269,8 @@ class ContinuousScheduler:
         self.sampler = SamplerSettings(temperature=self.settings.temperature,
                                        top_k=self.settings.top_k, top_p=self.settings.top_p)
         cfg = engine.config
+        # The KV pool's shapes: the rank's local kv heads under tp.
+        local_cfg = engine.model.config
         cap = self.serving.max_new_tokens
         if cap < 1 or cap >= cfg.max_seq_len:
             raise ValueError(f"max_new_tokens {cap} must be in [1, {cfg.max_seq_len})")
@@ -301,7 +328,7 @@ class ContinuousScheduler:
         if self.paged:
             paged = self.pool.paged
             self._cache = None
-            self._arena = init_arena(cfg, paged.num_blocks, paged.block_size, self.num_slots,
+            self._arena = init_arena(local_cfg, paged.num_blocks, paged.block_size, self.num_slots,
                                      device=dev)
             # One view and one pair of table buffers serve the decode step
             # (num_slots rows) and every prefill group (at most the largest
@@ -309,12 +336,12 @@ class ContinuousScheduler:
             group = self.serving.prefill_group
             rows = max(self.num_slots,
                        _bucket_pow2(min(self.num_slots, group), max(group, 1)))
-            self._view = init_cache(cfg, rows, self.cache_len, device=dev)
+            self._view = init_cache(local_cfg, rows, self.cache_len, device=dev)
             self._tables = torch.zeros((rows, paged.blocks_per_slot), dtype=torch.long,
                                        device=dev)
             self._wtables = torch.full_like(self._tables, paged.num_blocks)
         else:
-            self._cache = init_cache(cfg, self.num_slots, self.cache_len, device=dev)
+            self._cache = init_cache(local_cfg, self.num_slots, self.cache_len, device=dev)
             self._arena = None
         self._prev_logits = torch.zeros((self.num_slots, cfg.vocab_size), dtype=torch.float32,
                                         device=dev)
@@ -380,8 +407,8 @@ class ContinuousScheduler:
             self.engine.model, self.sampler, tok.pad_id, tok.eos_id, num_slots=self.num_slots,
             chunk=self.decode_chunk, fuse=self.fuse_steps, paged=self.paged)
         # The decode function's telemetry name, as the reference labels it.
-        self._program = ("paged_step" if self.paged else "serve_step") + \
-            ("_fused" if self.fuse_steps > 1 else "")
+        self._program = program_label("paged_step" if self.paged else "serve_step",
+                                      self.fuse_steps, tp=self.tp)
 
     def _guard(self) -> bool:
         """The numerics-guard switch, read from the engine (one switch for
@@ -491,14 +518,19 @@ class ContinuousScheduler:
                       deferred=len(deferred), cost_bytes=fc["cost_bytes"],
                       headroom_bytes=fc["headroom_bytes"], basis=fc["basis"])
 
-    def _program_for(self, key: tuple):
-        """(the program of ``key``, whether this is its first use): ``key``'s
-        first element is the program label; the lookup counts as a hit or a
-        miss."""
+    def _program_for(self, key: tuple, label: str, rows: int, tokens: int, scope: str):
+        """(the program of ``key``, labelled ``label``, and whether this is
+        its first use); the lookup counts as a hit or a miss. A new program's
+        ledger adds the tp collectives of a forward of ``rows x tokens``
+        positions (``tp_collective_costs``, in ``scope``)."""
+        key = tp_key(key, self.tp)
         prog = self._programs.get(key)
-        note_lookup(key[0], hit=prog is not None, labels=self.labels)
+        note_lookup(label, hit=prog is not None, labels=self.labels)
         if prog is None:
-            prog = self._programs[key] = InstrumentedProgram(key[0], device=self.engine.device)
+            prog = self._programs[key] = InstrumentedProgram(
+                label, device=self.engine.device,
+                collectives=tp_collective_costs(self.engine.config, self.tp, rows,
+                                                tokens=tokens, scope=scope))
             return prog, True
         return prog, False
 
@@ -1043,7 +1075,8 @@ class ContinuousScheduler:
             self.tracer.record(req.id, "prefill_start", t=pf_t0)
         prefill = build_serve_prefill(self.engine.config, self.engine.model, nb=nb, P=P)
         pkey = ("serve_prefill", nb, P, self._guard())
-        prog, fresh = self._program_for(pkey)
+        prog, fresh = self._program_for(pkey, program_label("serve_prefill", tp=self.tp), nb, P,
+                                        "call")
         tok_dev, valid_dev = torch.from_numpy(tokens).to(dev), torch.from_numpy(valid).to(dev)
         try:
             self._prefill_call(("serve_prefill", nb, P), injected_hang, lambda: prefill(
@@ -1207,7 +1240,8 @@ class ContinuousScheduler:
         for req, *_ in rows:
             self.tracer.record(req.id, "prefill_start", t=pf_t0)
         pkey = ("paged_prefill", nb, S, self._guard())
-        prog, fresh = self._program_for(pkey)
+        prog, fresh = self._program_for(pkey, program_label("paged_prefill", tp=self.tp), nb, S,
+                                        "call")
         args = (self._arena, self._view, self._prev_logits, put(tokens), put(valid),
                 put(positions), self._tables[:nb], self._wtables[:nb], put(cow_src),
                 put(cow_dst), put(matched), put(last_idx))
@@ -1306,7 +1340,7 @@ class ContinuousScheduler:
             device_args = (self._cache, self._prev_logits)
         key = (self._program, self.decode_chunk, self.fuse_steps)
         pkey = key + (self._guard(),)
-        prog, fresh = self._program_for(pkey)
+        prog, fresh = self._program_for(pkey, self._program, self.num_slots, 1, "step")
         loads = _build.load_events
         raised = True  # until the device call returns
         dc_t0 = time.monotonic()

@@ -542,6 +542,38 @@ def _roofline_gbps() -> float:
 # -- the per-program hook ----------------------------------------------------------
 
 
+def tp_collective_costs(model_config, tp: int, rows: int, tokens: int = 1,
+                        scope: str = "step") -> List[Tuple[str, int, int]]:
+    """Analytic collective traffic of one tensor-parallel forward of ``rows
+    x tokens`` positions (the reference's function, unchanged): a ring
+    all-reduce of the ``[rows, tokens, d_model]`` activation after each
+    row-parallel projection (o where the heads shard, down where ``d_ff``
+    does) at ``2 (tp-1)/tp`` bytes a byte, and the logits' gather where the
+    vocabulary shards at ``(tp-1)/tp``; FLOPs 0. ``[]`` when nothing shards.
+    ``InstrumentedProgram`` adds these rows to a ledger whose walk saw no
+    collective."""
+    if tp <= 1:
+        return []
+    itemsize = 2 if model_config.dtype == "bfloat16" else 4
+    act_bytes = rows * tokens * model_config.d_model * itemsize
+    all_reduces = (int(model_config.num_heads % tp == 0)
+                   + int(model_config.d_ff % tp == 0))
+    total = int(model_config.num_layers * all_reduces
+                * act_bytes * 2 * (tp - 1) / tp)
+    if model_config.vocab_size % tp == 0:
+        total += int(rows * tokens * model_config.vocab_size * itemsize
+                     * (tp - 1) / tp)
+    if total <= 0:
+        return []
+    return [(scope, total, 0)]
+
+
+def collective_cost(nbytes: int, group_size: int) -> Tuple[int, int]:
+    """(bytes, FLOPs) a rank moves in a ring all-reduce of ``nbytes``: the
+    ``collectives`` charge of an explicit all-reduce under a walk."""
+    return int(nbytes * 2 * (group_size - 1) / group_size), 0
+
+
 class InstrumentedProgram:
     """One program key's cost ledger and memory capture (the port's
     counterpart of the reference's ``InstrumentedJit``). ``run(fn, *args)``
@@ -550,11 +582,14 @@ class InstrumentedProgram:
     memory probe (``memory.program_memory_capture_on()``, until captured).
     A walk or capture that fails logs once and is not tried again for this
     program; the call's own exceptions propagate untouched, and a call that
-    raised leaves both to the next invocation."""
+    raised leaves both to the next invocation. ``collectives`` (rows of
+    ``tp_collective_costs``) are added to a ledger whose walk charged no
+    collective."""
 
-    def __init__(self, program: str, device=None):
+    def __init__(self, program: str, device=None, collectives=None):
         self.program = program
         self.device = device
+        self._collectives = list(collectives or ())
         self.ledger: Optional[CostLedger] = None
         self._ledger_failed = False
         self._memory_done = False
@@ -595,7 +630,12 @@ class InstrumentedProgram:
                 logger.warning("cost ledger for %s unavailable: %s: %s", self.program,
                                type(walk.failed).__name__, walk.failed)
             else:
-                self.ledger = walk.ledger
+                ledger = walk.ledger
+                if self._collectives and not any(
+                        "collectives" in ledger._table(sc) for sc in ("call", "step")):
+                    for scope, b, f in self._collectives:
+                        ledger.record(scope, "collectives", int(b), int(f))
+                self.ledger = ledger
                 publish_ledger(self.ledger)
         if mem_on:
             try:
@@ -777,8 +817,8 @@ def check_costmodel(snap: Dict) -> List[str]:
     --require-costmodel`` (which imports the JAX package), the same
     problems for the same snapshot: every program in ``compiles_total``
     published a nonzero ledger, the gap attribution has a measured wall and
-    a floor, and a ``*_fused`` program a measured wall and host gap. (Its
-    ``@tp`` clause has nothing to hold here: ``--tp`` is not ported.)"""
+    a floor, a ``*_fused`` program a measured wall and host gap, and a
+    ``@tp<k>`` program a nonzero ``collectives`` component."""
     problems = []
     compiled = sorted({c.get("labels", {}).get("program") for c in snap.get("counters", [])
                        if c.get("name") == "compiles_total" and c.get("value")} - {None})
@@ -815,5 +855,15 @@ def check_costmodel(snap: Dict) -> List[str]:
         if host_gaps.get(prog, 0.0) <= 0:
             problems.append(f"fused program {prog!r} has no nonzero cost_host_gap_s_total (the "
                             "fused-dispatch boundary never measured a host gap)")
+    coll: Dict[str, float] = {}
+    for g in snap.get("gauges", []):
+        if (g.get("name") == "cost_ledger_bytes"
+                and g.get("labels", {}).get("component") == "collectives"):
+            prog = g.get("labels", {}).get("program")
+            coll[prog] = coll.get(prog, 0.0) + float(g.get("value", 0.0))
+    for prog in compiled:
+        if "@tp" in prog and coll.get(prog, 0.0) <= 0:
+            problems.append(f"sharded program {prog!r} has no nonzero collectives component in "
+                            "cost_ledger_bytes (tensor-parallel comm never attributed)")
     return problems
 

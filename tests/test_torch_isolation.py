@@ -1,7 +1,7 @@
-"""The port stands alone: it imports torch and numpy, never JAX, flax or the
-JAX package, nor ``safetensors``, ``tokenizers``, ``transformers``,
-``regex`` or ``matplotlib``, which a CUDA host running it need not have; and
-it runs on the CPU only when asked to."""
+"""The port stands alone: it imports torch and numpy, never JAX, flax,
+optax, orbax or the JAX package, nor ``safetensors``, ``tokenizers``,
+``transformers``, ``regex`` or ``matplotlib``, which a CUDA host running it
+need not have; and it runs on the CPU only when asked to."""
 
 import pathlib
 import re
@@ -18,8 +18,8 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "fairness_llm_tpu_torch"
-OUTSIDE = ("jax", "jaxlib", "flax", "fairness_llm_tpu", "safetensors", "tokenizers",
-           "transformers", "regex", "matplotlib")
+OUTSIDE = ("jax", "jaxlib", "flax", "optax", "orbax", "fairness_llm_tpu", "safetensors",
+           "tokenizers", "transformers", "regex", "matplotlib")
 # matplotlib may be imported lazily, inside a function (reports/figures.py
 # draws where it is installed); at module level it is refused like the rest.
 _NAMES = "|".join(n for n in OUTSIDE if n != "matplotlib")
@@ -171,6 +171,44 @@ def test_parallel_and_trace_at_work_leave_jax_out(tmp_path):
         "    DecodeEngine(cfg, device='cpu', mesh=mesh).generate(\n"
         "        ['abc'], ModelSettings(temperature=0.0, max_tokens=2))\n"
         f"assert summarize_trace({str(tmp_path)!r}, device_filter='')\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {OUTSIDE!r})\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+# Ring attention and training: the collectives, the checkpoint's manifest
+# and torch.utils.checkpoint are imported inside their functions.
+TRAINING = ["parallel/ring.py", "train/__init__.py", "train/step.py", "train/checkpoint.py"]
+
+
+def test_ring_and_training_at_work_leave_jax_out(tmp_path):
+    """In a fresh interpreter: attend through the ring (one rank), take a
+    remat training step and a sequence-parallel one, save and restore the
+    train state, and check that none of JAX, flax, optax or orbax loaded."""
+    assert {str(p.relative_to(PKG)) for p in _port_sources() if PKG in p.parents} >= \
+        set(TRAINING)
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from fairness_llm_tpu_torch.models.configs import get_model_config\n"
+        "from fairness_llm_tpu_torch.parallel.ring import ring_attention\n"
+        "from fairness_llm_tpu_torch.train import make_train_step\n"
+        "from fairness_llm_tpu_torch.train.checkpoint import restore_train_state, "
+        "save_train_state\n"
+        "from fairness_llm_tpu_torch.train.step import make_sequence_parallel_train_step\n"
+        "q = torch.ones(1, 4, 2, 8); pos = torch.arange(4)[None]\n"
+        "ring_attention(q, q[:, :, :1], q[:, :, :1], pos, pos, torch.ones(1, 4, dtype=bool))\n"
+        "cfg = get_model_config('tiny-test')\n"
+        "toks, valid = np.arange(20).reshape(2, 10) + 3, np.ones((2, 10), bool)\n"
+        "init, step = make_train_step(cfg, remat=True, device='cpu')\n"
+        "state, loss = step(init(0), toks, valid)\n"
+        "init_sp, step_sp = make_sequence_parallel_train_step(cfg, None, device='cpu')\n"
+        "step_sp(init_sp(0), toks, valid)\n"
+        f"save_train_state({str(tmp_path)!r}, state)\n"
+        f"assert restore_train_state({str(tmp_path)!r}, init(1)).step == 1\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {OUTSIDE!r})\n"
         "assert not bad, bad\n"
     )

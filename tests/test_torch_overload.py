@@ -269,7 +269,7 @@ def test_cli_overload_and_telemetry_flags_match_the_reference():
     assert dataclasses.asdict(got.overload) == dataclasses.asdict(want.overload)
     assert dataclasses.asdict(got.telemetry) == dataclasses.asdict(want.telemetry)
     assert got.telemetry.achievable_gbps == 9.0
-    assert tcli.NOT_PORTED == ("--tp",)
+    assert tcli.NOT_PORTED == ()
 
 
 # ---------------------------------------------------------------------------

@@ -114,12 +114,16 @@ def test_kv_and_logits_shardings_equal_the_reference(name, axes):
 
 
 def test_shard_params_replicates_at_dp_and_refuses_tp():
+    """dp replicates (the tensor itself is placed); a tp-sharded spec
+    needs the rank's mesh to cut its block (tests/test_torch_tp.py runs
+    it over tp ranks) and is refused without one."""
     cfg = get_model_config("tiny-test")
     params = {"w": torch.ones(2)}
     placed = shd.shard_params(params, {"w": (None,)}, "cpu")
     assert placed["w"] is params["w"]
-    with pytest.raises(NotImplementedError, match="A5.5"):
-        shd.shard_params(params, shd.param_shardings(cfg, MeshConfig(tp=2)), "cpu")
+    with pytest.raises(ValueError, match="pass the mesh"):
+        shd.shard_params({"embedding": torch.ones(512, 64)},
+                         shd.param_shardings(cfg, MeshConfig(tp=2)), "cpu")
     assert shd.batch_sharding(None, 8) == slice(0, 8)
     assert _bucket_batch(45) == 48 and _bucket_batch(3, MeshConfig(dp=2)) == 8
     assert _bucket_batch(9, MeshConfig(dp=3)) == 18

@@ -233,11 +233,9 @@ def test_serving_config_matches_the_reference_and_refuses_later_slices():
     got, want = ServingConfig(), JServingConfig()
     for f in dataclasses.fields(ServingConfig):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
-    # the paged KV cache is ported; tensor-parallel serving is not
-    for kw in (dict(paged_kv=True), dict(kv_block_size=32), dict(kv_blocks=64)):
+    # the paged KV cache and tensor-parallel serving are ported
+    for kw in (dict(paged_kv=True), dict(kv_block_size=32), dict(kv_blocks=64), dict(tp=2)):
         assert dataclasses.asdict(ServingConfig(**kw)) == dataclasses.asdict(JServingConfig(**kw))
-    with pytest.raises(NotImplementedError, match="tp"):
-        ServingConfig(tp=2)
 
 
 # ---------------------------------------------------------------------------
@@ -549,11 +547,12 @@ def test_cli_continuous_runs(tmp_path, capsys):
 @pytest.mark.parametrize("flag", ["--tp", "--achievable-gbps", "--replicas", "--autoscale",
                                   "--mesh"])
 def test_cli_refuses_the_later_serving_flags(flag):
-    """The flags of slices still to come raise NotImplementedError naming
-    the flag: --tp, and --mesh with a tp axis (a dp mesh is ported). The
-    fleet's (--replicas, --autoscale) are ported: they are refused, as the
-    reference refuses them, without --continuous; the roofline's
-    --achievable-gbps is ported and parses as the reference's."""
+    """Every serving flag is ported. --tp and --mesh tp=2 are refused in
+    one process, as a world smaller than the mesh is, naming the ranks to
+    launch (tests/test_torch_tp.py runs them over gloo ranks). The fleet's
+    (--replicas, --autoscale) are refused, as the reference refuses them,
+    without --continuous; the roofline's --achievable-gbps parses as the
+    reference's."""
     from fairness_llm_tpu.cli import main as jcli
     from fairness_llm_tpu_torch.cli import main as tcli
 
@@ -570,9 +569,10 @@ def test_cli_refuses_the_later_serving_flags(flag):
                 cli.config_from_args(cli.build_parser().parse_args(["--phase", "1", flag]
                                                                    + value))
         return
-    with pytest.raises(NotImplementedError, match=flag):
-        tcli.main(["--phase", "1", "--no-save", "--device", "cpu", "--continuous", flag]
-                  + value)
+    with pytest.raises((SystemExit, ValueError), match="torchrun --nproc-per-node 2"):
+        tcli.main(["--phase", "1", "--quick", "--no-save", "--device", "cpu", "--model",
+                   "tiny-llama-study", "--weights-dir", str(ROOT / "checkpoints"),
+                   "--continuous", flag] + value)
 
 
 def test_cli_serving_checks_match_the_reference():

@@ -56,10 +56,10 @@ def _phase_spans(trace_path):
 
 
 def test_the_flag_set_equals_the_references():
-    """The reference's flags, and the port's ``--device``; ``--tp`` alone is
-    still refused."""
+    """The reference's flags, and the port's ``--device``; none is refused
+    (``--tp`` is ported)."""
     assert _flags(tcli.build_parser()) == _flags(jcli.build_parser()) | {"--device"}
-    assert tcli.NOT_PORTED == ("--tp",)
+    assert tcli.NOT_PORTED == ()
 
 
 @pytest.mark.parametrize("spec", ["dp=2", "dp=4", "dp=1,tp=1,sp=1"])
@@ -75,11 +75,16 @@ def test_mesh_parses_as_the_references(spec):
                 cli.parse_mesh(bad)
 
 
-@pytest.mark.parametrize("spec,slice_", [("tp=2", "A5.5"), ("dp=2,tp=2", "A5.5"),
-                                         ("sp=2", "A8\\(b\\)")])
+@pytest.mark.parametrize("spec,slice_", [("tp=2", "2"), ("dp=2,tp=2", "4"), ("sp=2", "2")])
 def test_tensor_and_sequence_meshes_are_refused(spec, slice_):
-    with pytest.raises(NotImplementedError, match=f"--mesh {spec}.*{slice_}"):
-        tcli.main(["--phase", "1", "--device", "cpu", "--mesh", spec] + QUICK)
+    """Tensor and sequence meshes are ported (``tests/test_torch_tp.py``,
+    ``test_torch_ring.py``); in one process they are refused as a dp mesh
+    is, naming the ranks to launch."""
+    assert tcli.config_from_args(tcli.build_parser().parse_args(
+        ["--phase", "1", "--mesh", spec])).mesh == tcli.parse_mesh(spec)
+    with pytest.raises(ValueError, match=f"torchrun --nproc-per-node {slice_}"):
+        tcli.main(["--phase", "1", "--quick", "--model", "tiny-llama-study", "--weights-dir",
+                   str(ROOT / "checkpoints"), "--device", "cpu", "--no-save", "--mesh", spec])
 
 
 def test_a_dp_mesh_in_one_process_fails_and_names_torchrun(tmp_path):
