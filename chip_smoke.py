@@ -83,7 +83,16 @@ path's launch counts are set to 0 just before it and read just after:
  13. the gates in float32 at full width with the depth cut to 4 layers:
      teacher-forced logits within 1e-3 of the largest logit (float cache
      and int8 cache), and speculative greedy tokens equal to plain greedy
-     ones (float cache; the int8 cache's are reported);
+     ones (float cache; the int8 cache's are reported); no tensor-core
+     kernel may launch, and every kernel call of the gates is held against
+     its plain version at float32's 1e-4 with phase 6's blind checks: K1 f32
+     (flash_fwd) and K2 f32 (decode_split_f32) as the f32 entries'
+     ``gate_shapes``, and the three float32 routes no other phase runs, the
+     verify window (decode_fwd) over a float and an int8 cache and the
+     one-query call over an int8 cache (decode_split_f32), as entries of
+     their own (``decode_attention_verify_f32``,
+     ``decode_attention_verify_f32_int8_cache``,
+     ``decode_attention_f32_int8_cache``);
   int8-weight path (llama3-8b-int8; K4 int8-weight matmul, GEMV and GEMM
   regimes, with K1 and K2), after the bf16 engines are freed:
  14. build the engine; the memory it allocates must stay within 5% of its
@@ -109,8 +118,9 @@ path's launch counts are set to 0 just before it and read just after:
  19. on tiny-llama-study and tiny-gpt2-study at the study's settings (45
      profiles and 3 neutral prompts, t=0.7, 64 tokens, chunks of 16): the
      manifest must verify, the checkpoint's BPE tokenizer must be in use,
-     K1's and K2's f32 kernels (flash_fwd, decode_fwd) must launch and
-     their tensor-core kernels must not; 48 responses with no error entry,
+     K1's and K2's f32 kernels (flash_fwd, decode_split_f32) must launch
+     and their tensor-core kernels must not (each one-query launch counted
+     by the kernel the C entry reports, so none ran elsewhere); 48 responses with no error entry,
      a non-empty list for some profile, finite metrics, a saved record that
      reads back and matches its manifest entry, and the same responses from
      a second run; then each of the two kernels against its plain version
@@ -181,7 +191,7 @@ path's launch counts are set to 0 just before it and read just after:
      the record's ``serving`` counters must show all 48 prompts admitted
      and completed, the record saved and read back, and K1 and K2 held
      against their plain versions at every shape the pool gave them (the
-     f32 ``decode_fwd`` at the pool's [8, 768] rows); then greedy, served on
+     f32 ``decode_split_f32`` at the pool's [8, 768] rows); then greedy, served on
      the card and on the CPU, each row equal to the other's and to phase
      20's engine path on the card, or differing only where the CPU's top
      two logits are within 1e-4 (as phase 20); the t=0.7 sweep's responses
@@ -429,7 +439,11 @@ path's launch counts are set to 0 just before it and read just after:
      must fall; step ms, peak memory and the card's clock and power logged.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
-  phase 19's two t=0.7 sweeps). Each entry gets ``phase1_launches``: the
+  phase 19's two t=0.7 sweeps). Every attention row carries ``floor_ms``,
+  the device time of an empty kernel (``torch.cuda._sleep(0)``) timed as
+  the row's call is, printed first as the ``launch_floor`` line: at the
+  study's shapes the bound is below it. The split routes' entries name
+  their second launch (``combine_function``). Each entry gets ``phase1_launches``: the
   launches of its own kernel function on phase 19's sweeps and on phase
   21's; the entries phase 21 launched get its rows as ``phase1_shapes``.
   Each entry also gets ``phase2_launches`` and ``phase3_launches`` (phase
@@ -488,7 +502,7 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # most 2^-9 of the row's largest weight, which is 1).
 ATOL, RTOL = 4e-3, 1e-2
 # Kernel against plain version on float32 inputs (K1's flash_fwd, K2's
-# decode_fwd; no TF32 on either side): they differ in summation order only,
+# decode_split_f32, K3's decode_fwd; no TF32 on either side): they differ in summation order only,
 # and are held to the float32 allowance of tests/test_torch_cuda.py.
 ATOL_F32, RTOL_F32 = 1e-4, 0.0
 # The profiled calls' new tokens (16 until the fleet's phase 28 came in; 8
@@ -510,6 +524,7 @@ K3Q_REPLACES = "fairness_llm_tpu/ops/decode_attention.py:288"
 K4_REPLACES = "fairness_llm_tpu/ops/quant_matmul.py:159"
 K1_SOURCE = "fairness_llm_tpu_torch/ops/csrc/flash_attention.cu"
 K2_SOURCE = "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu"
+K2F32_SOURCE = "fairness_llm_tpu_torch/ops/csrc/decode_attention_f32.cu"
 K4_SOURCE = "fairness_llm_tpu_torch/ops/csrc/quant_matmul.cu"
 # The CUDA kernel each entry's wrapper launches on this path's inputs; the
 # note at the top of its source describes the design.
@@ -522,8 +537,15 @@ KERNEL_FUNCTIONS = {
     "quant_matmul_gemv": "gemv_stream_tc",
     "quant_matmul_gemm": "wg_gemm_kernel",
     "flash_attention_f32": "flash_fwd",
-    "decode_attention_f32": "decode_fwd",
+    "decode_attention_f32": "decode_split_f32",
+    "decode_attention_f32_int8_cache": "decode_split_f32",
+    "decode_attention_verify_f32": "decode_fwd",
+    "decode_attention_verify_f32_int8_cache": "decode_fwd",
 }
+# The split routes' second launch, where a call splits its keys: it folds
+# the splits' partials (KERNEL_FUNCTIONS' decode_split_tc, decode_verify_tc
+# and decode_split_f32 entries).
+COMBINE_FUNCTION = "combine_splits"
 # The int8 engine's allocation may exceed its tree by this share at most.
 MEM_SLACK = 0.05
 WATCHED = [
@@ -634,6 +656,20 @@ class CardSampler:
         for i, key in enumerate(("sm_clock_mhz", "power_w")):
             vals = sorted(r[i] for r in rows if len(r) == 2)
             self.summary[key] = [vals[0], vals[len(vals) // 2], vals[-1]] if vals else None
+
+
+_FLOOR_MS = None
+
+
+def launch_floor_ms(torch) -> float:
+    """The device time of an empty kernel, ``torch.cuda._sleep(0)`` (it
+    returns at once), timed as the kernel rows time a call (``cuda_ms``):
+    the practical floor of one launch, printed beside each attention row's
+    bound. Measured once a process."""
+    global _FLOOR_MS
+    if _FLOOR_MS is None:
+        _FLOOR_MS = cuda_ms(lambda: torch.cuda._sleep(0), 200)
+    return _FLOOR_MS
 
 
 def rates(flops: float, ms: float, peak: float) -> dict:
@@ -770,6 +806,12 @@ def k1_numbers(call, torch, F):
     _, shifted_ratio = gate(shifted[sel], want[sel], f32)
     iters = 20
     ms = cuda_ms(lambda: fm.flash_attention(q, k, v, lengths, causal=causal, window=window), iters)
+    # What a float32 call costs the host (the study's sweeps are host-paced).
+    wrapper_host_us = host_us(lambda: fm.flash_attention(q, k, v, lengths, causal=causal,
+                                                         window=window)) if f32 else None
+    # The float32 kernel's query rows a block, as the wrapper plans them.
+    rows_per_block = (fm.flash_f32_rows(B, H, S, next(w for w in fm.F32_WIDTHS if w >= D),
+                                        fm._build.sm_count(q.device)) if f32 else None)
     plain_ms = cuda_ms(lambda: fm.flash_attention_reference(q, k, v, lengths, causal=causal,
                                                             window=window), 5, warmup=1)
     # Yardstick: one SDPA call with the same mask; kv heads expanded before timing.
@@ -803,9 +845,9 @@ def k1_numbers(call, torch, F):
                   "window": window},
         **rates(flops, ms, peak), "tol": tolerance(f32),
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
-        "blind_gate_err_over_tol": shifted_ratio,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes),
+        "blind_gate_err_over_tol": shifted_ratio, "rows_per_block": rows_per_block,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "host_us": wrapper_host_us,
+        "floor_ms": launch_floor_ms(torch), "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
     }
@@ -890,6 +932,7 @@ def decode_numbers(call, torch, F):
              "visible_slots": int(sees.sum()) if multi else needed}
     return {
         "shape": shape, **rates(flops, ms, peak), "bound_share": max(t_ops, t_bytes) / ms,
+        "splits": decode_plan(dm, q, k, P, multi, torch), "floor_ms": launch_floor_ms(torch),
         "tol": tolerance(f32),
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio,
         "ok": ratio <= 1, "blind_gate_err_over_tol": blind_ratio,
@@ -900,6 +943,26 @@ def decode_numbers(call, torch, F):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+
+
+def decode_plan(dm, q, k, P: int, multi: bool, torch):
+    """(prefix splits, cache splits) the wrapper plans for a call of a
+    split route (None for the float32 verify window, which does not
+    split), at the head width it pads D to."""
+    from fairness_llm_tpu_torch.ops import _build
+
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    L, Hkv = k.shape[1], k.shape[2]
+    sms = _build.sm_count(q.device)
+    if q.dtype == torch.bfloat16:
+        Dk = next(w for w in dm.TC_WIDTHS if w >= D)
+        if multi:
+            return list(dm.verify_splits(B, Hkv, H // Hkv * q.shape[1], P, L, sms))
+        return list(dm.decode_splits(B, Hkv, H // Hkv, P, L, Dk, sms))
+    if multi:
+        return None
+    Dk = next(w for w in dm.F32_WIDTHS if w >= D)
+    return list(dm.decode_splits_f32(B, Hkv, H // Hkv, P, L, Dk, sms))
 
 
 def k4_numbers(call, torch, flush):
@@ -1143,9 +1206,11 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, rows) -> 
     """The kernels-line entry: the headline row is the shape the main path
     launched most (ties: the larger one); every shape is under "shapes"."""
     top = max(rows, key=lambda r: (r["calls"], r["bytes"]))
+    split = KERNEL_FUNCTIONS[name] in ("decode_split_tc", "decode_verify_tc", "decode_split_f32")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "kernel_function": KERNEL_FUNCTIONS[name], "launches": launches,
+        "kernel_function": KERNEL_FUNCTIONS[name],
+        **({"combine_function": COMBINE_FUNCTION} if split else {}), "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"], "shapes": rows,
@@ -1283,7 +1348,19 @@ def zero_counts(dec_mod, flash_mod) -> None:
     flash_mod.launches = flash_mod.tc_launches = 0
     dec_mod.launches = dec_mod.quant_launches = 0
     dec_mod.multi_launches = dec_mod.multi_quant_launches = dec_mod.multi_tc_launches = 0
-    dec_mod.decode_tc_launches = 0
+    dec_mod.decode_tc_launches = dec_mod.decode_f32_launches = 0
+
+
+def one_query_counts(dec_mod) -> tuple:
+    """(decode_split_tc, decode_split_f32) launches since the counts were
+    zeroed, over either cache: every one-query launch (K2, K2q) must be on
+    one of the two split kernels, as the C entry reports."""
+    one = dec_mod.launches + dec_mod.quant_launches
+    tc, f32 = dec_mod.decode_tc_launches, dec_mod.decode_f32_launches
+    if tc + f32 != one:
+        fail(f"{one} one-query decode launches, of which {tc} on decode_split_tc and {f32} "
+             f"on decode_split_f32")
+    return tc, f32
 
 
 def need_launches(launches: dict, names, path: str) -> None:
@@ -1356,7 +1433,9 @@ def cache_bytes(cfg, torch, batch: int, slots: int) -> int:
 
 def bf16_path(torch, F, prompts, keys, greedy, sampled):
     """Phases 3-13 on llama3-8b, with a float and then an int8 KV cache;
-    returns the K1, K2, K3, K2q and K3-over-int8 kernel entries."""
+    returns the K1, K2, K3, K2q and K3-over-int8 kernel entries with phase
+    13's three float32 verify-window and int8-cache entries, and phase 13's
+    launches and rows of K1 f32 and K2 f32 (by entry name)."""
     from fairness_llm_tpu_torch.config import ModelSettings
     from fairness_llm_tpu_torch.models.configs import get_model_config
     from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
@@ -1444,21 +1523,79 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
     torch.cuda.empty_cache()
 
     # 13. the gates in float32 at full width, depth cut to 4 layers: kernel
-    # and plain versions then differ only in summation order.
+    # and plain versions then differ only in summation order. Every kernel
+    # call of the gates is recorded, counted and held against its plain
+    # version: the float cache's (K1 f32, K2 f32 on decode_split_f32, the
+    # verify window on decode_fwd), then the int8 cache's.
     small = DecodeEngine(dataclasses.replace(cfg, num_layers=4, dtype="float32"), seed=0)
-    teacher_forced_gate(small, prompts, torch, "", cfg.vocab_size, f32=True)
-    share = spec_token_share(small, prompts, prefix, greedy, torch)
+    rec_k1, rec_f = flash_recorder(flash_mod), decode_recorder(dec_mod)
+    zero_counts(dec_mod, flash_mod)
+    with rec_k1, rec_f:
+        teacher_forced_gate(small, prompts, torch, "", cfg.vocab_size, f32=True)
+        share = spec_token_share(small, prompts, prefix, greedy, torch)
+    f32_launches = f32_gate_counts(dec_mod, flash_mod)
     log(f"spec_tokens_vs_plain_f32_4_layers {json.dumps(share)}")
     if not share["equal"]:
         fail(f"speculative greedy tokens differ from plain greedy in float32: {share}")
     small_q = DecodeEngine(dataclasses.replace(small.config, kv_cache_quant=True),
                            params=small.model.state_dict())
-    teacher_forced_gate(small_q, prompts, torch, "int8_cache_", cfg.vocab_size, f32=True)
-    share = spec_token_share(small_q, prompts, prefix, greedy, torch)
+    rec_q = decode_recorder(dec_mod)
+    zero_counts(dec_mod, flash_mod)
+    with rec_q:
+        teacher_forced_gate(small_q, prompts, torch, "int8_cache_", cfg.vocab_size, f32=True)
+        share = spec_token_share(small_q, prompts, prefix, greedy, torch)
+    q_launches = f32_gate_counts(dec_mod, flash_mod)
     log(f"spec_tokens_vs_plain_int8_cache_f32_4_layers {json.dumps(share)}")
+    need_launches(f32_launches, ["flash_attention_f32", "decode_attention_f32",
+                                 "decode_attention_verify_f32"], "float32 gates")
+    need_launches(q_launches, ["decode_attention_f32_int8_cache",
+                               "decode_attention_verify_f32_int8_cache"],
+                  "float32 int8-cache gates")
     del small, small_q
     torch.cuda.empty_cache()
-    return kernels
+    k1_gate = [k1_numbers(call, torch, F) for call in rec_k1.calls.values()]
+    check_rows("flash_attention_f32", k1_gate, "the first valid key masked out")
+    newest, lowered = "the newest slot masked out", "every q_offset lowered by one"
+    gate = {"flash_attention_f32": {"launches": f32_launches["flash_attention_f32"],
+                                    "rows": k1_gate},
+            "decode_attention_f32": {"launches": f32_launches["decode_attention_f32"],
+                                     "rows": decode_rows(rec_f, "k2", "decode_attention_f32",
+                                                         torch, F, newest)}}
+    kernels += [
+        kernel_entry("decode_attention_verify_f32", K2_SOURCE, K3_REPLACES,
+                     f32_launches["decode_attention_verify_f32"],
+                     decode_rows(rec_f, "k3", "decode_attention_verify_f32", torch, F, lowered)),
+        kernel_entry("decode_attention_f32_int8_cache", K2F32_SOURCE, K2Q_REPLACES,
+                     q_launches["decode_attention_f32_int8_cache"],
+                     decode_rows(rec_q, "k2q", "decode_attention_f32_int8_cache", torch, F,
+                                 newest)),
+        kernel_entry("decode_attention_verify_f32_int8_cache", K2_SOURCE, K3Q_REPLACES,
+                     q_launches["decode_attention_verify_f32_int8_cache"],
+                     decode_rows(rec_q, "k3q", "decode_attention_verify_f32_int8_cache", torch, F,
+                                 lowered)),
+    ]
+    for entry in kernels[-3:]:
+        entry["gate_launches"] = entry["launches"]
+    del rec_k1, rec_f, rec_q
+    return kernels, gate
+
+
+def f32_gate_counts(dec_mod, flash_mod) -> dict:
+    """Phase 13's launches by kernels-line entry: a float32 model runs no
+    tensor-core kernel, and each of its one-query launches (either cache)
+    is decode_split_f32's."""
+    tc, f32 = one_query_counts(dec_mod)
+    if tc or flash_mod.tc_launches or dec_mod.multi_tc_launches:
+        fail(f"a float32 gate ran a tensor-core kernel: flash {flash_mod.tc_launches}, "
+             f"decode {tc}, verify {dec_mod.multi_tc_launches}")
+    launches = {"flash_attention_f32": flash_mod.launches,
+                "decode_attention_f32": dec_mod.launches,
+                "decode_attention_f32_int8_cache": dec_mod.quant_launches,
+                "decode_attention_verify_f32": dec_mod.multi_launches,
+                "decode_attention_verify_f32_int8_cache": dec_mod.multi_quant_launches,
+                "decode_attention_split_f32": f32}
+    log(f"float32 gate launches {json.dumps(launches)}")
+    return launches
 
 
 def kv_cache_path(torch, F, engine, prompts, keys, prefix, greedy, sampled):
@@ -1675,10 +1812,10 @@ def phase1_counts(dec_mod, flash_mod, qm) -> dict:
     gemv_stream_tc's."""
     if dec_mod.quant_launches or dec_mod.multi_launches or dec_mod.multi_quant_launches:
         fail("a phase-1 sweep launched decode attention over an int8 cache or a verify window")
+    tc, f32 = one_query_counts(dec_mod)
     return {"flash_attention": flash_mod.tc_launches,
             "flash_attention_f32": flash_mod.launches - flash_mod.tc_launches,
-            "decode_attention": dec_mod.decode_tc_launches,
-            "decode_attention_f32": dec_mod.launches - dec_mod.decode_tc_launches,
+            "decode_attention": tc, "decode_attention_f32": f32,
             "decode_attention_verify": 0, "decode_attention_int8_cache": 0,
             "decode_attention_verify_int8_cache": 0,
             "quant_matmul_gemv": qm.gemv_launches, "quant_matmul_gemm": qm.gemm_launches}
@@ -2322,7 +2459,7 @@ def p23_record_check(config, rec, label: str, phase: int) -> None:
 
 def need_kernels(launches: dict, label: str, f32: bool) -> None:
     """K1's and K2's kernels of the model's type launched, and the other
-    type's not (a float32 model on flash_fwd and decode_fwd, a bf16 one on
+    type's not (a float32 model on flash_fwd and decode_split_f32, a bf16 one on
     flash_fwd_tc and decode_split_tc)."""
     for kernel in ("flash_attention", "decode_attention"):
         want, other = (f"{kernel}_f32", kernel) if f32 else (kernel, f"{kernel}_f32")
@@ -2857,11 +2994,11 @@ def paged_counts(dec_mod, flash_mod, qm) -> dict:
         fail(f"a paged run launched K1 {flash_mod.launches} or K3 "
              f"{dec_mod.multi_launches + dec_mod.multi_quant_launches} times")
     quant = dec_mod.quant_launches
-    if quant and dec_mod.decode_tc_launches != dec_mod.launches + quant:
+    tc, f32 = one_query_counts(dec_mod)
+    if quant and tc != dec_mod.launches + quant:
         fail("a decode launch of the int8-cache paged run was not decode_split_tc's")
-    plain_tc = dec_mod.decode_tc_launches - quant
     return {"flash_attention": 0, "flash_attention_f32": 0,
-            "decode_attention": plain_tc, "decode_attention_f32": dec_mod.launches - plain_tc,
+            "decode_attention": tc - quant, "decode_attention_f32": f32,
             "decode_attention_verify": 0, "decode_attention_int8_cache": quant,
             "decode_attention_verify_int8_cache": 0,
             "quant_matmul_gemv": qm.gemv_launches, "quant_matmul_gemm": qm.gemm_launches}
@@ -3110,7 +3247,7 @@ def study_paged(torch, F, name: str, tmp: pathlib.Path, engine_card, served_card
     row["wall_s"] = time.perf_counter() - t0
     row["launches"] = paged_counts(dec_mod, flash_mod, qm)
     if row["launches"]["decode_attention_f32"] <= 0 or row["launches"]["decode_attention"]:
-        fail(f"{name} paged: decode_fwd must launch and decode_split_tc must not: "
+        fail(f"{name} paged: decode_split_f32 must launch and decode_split_tc must not: "
              f"{row['launches']}")
     row["parsed"] = check_record(rec, f"{name} paged t=0.7")
     row["record_serving"] = serving_record_check(rec, f"{name} paged",
@@ -3205,7 +3342,7 @@ def full_width_paged(torch, F, tmp: pathlib.Path, p24: dict, engine_wall_s: floa
         if launches[name] <= 0:
             fail(f"{name} ({KERNEL_FUNCTIONS[name]}) was not launched by the paged sweep")
     if launches["decode_attention_f32"]:
-        fail(f"the paged bf16 sweep launched decode_fwd {launches['decode_attention_f32']} "
+        fail(f"the paged bf16 sweep launched decode_split_f32 {launches['decode_attention_f32']} "
              "times")
     parsed = check_record(rec, "llama3-8b int8 paged", want_non_empty=False)
     sv = serving_record_check(rec, "llama3-8b int8 paged", FULL_WIDTH_PAGED["num_slots"])
@@ -3415,10 +3552,13 @@ def containment_counts(dec_mod, flash_mod, qm) -> dict:
     the CUDA kernel it names: K1's and K2's tensor-core and float32 kernels
     apart, K2q and the verify windows by their own counters."""
     quant = dec_mod.quant_launches
-    plain_tc = dec_mod.decode_tc_launches - quant
+    tc, f32 = one_query_counts(dec_mod)
+    if quant and f32:
+        fail(f"a counted containment run launched the float32 kernel ({f32}) beside an "
+             f"int8 cache ({quant}): its K2q launches cannot be told apart")
     return {"flash_attention": flash_mod.tc_launches,
             "flash_attention_f32": flash_mod.launches - flash_mod.tc_launches,
-            "decode_attention": plain_tc, "decode_attention_f32": dec_mod.launches - plain_tc,
+            "decode_attention": tc - quant, "decode_attention_f32": f32,
             "decode_attention_verify": dec_mod.multi_launches,
             "decode_attention_int8_cache": quant,
             "decode_attention_verify_int8_cache": dec_mod.multi_quant_launches,
@@ -6198,7 +6338,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention", "decode_attention", "quant_matmul"])
+    logs = _build.build(["flash_attention", "decode_attention", "decode_attention_f32",
+                         "quant_matmul"])
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(sorted(logs)) or 'up to date'})")
     for name, out in sorted(logs.items()):
         for line in out.splitlines():
@@ -6210,7 +6351,9 @@ def main() -> int:
     greedy = ModelSettings(temperature=0.0, max_tokens=MAX_TOKENS)
     sampled = ModelSettings(temperature=0.7, max_tokens=MAX_TOKENS)
     t0 = time.perf_counter()
-    kernels = bf16_path(torch, F, prompts, keys, greedy, sampled)
+    floor = {"kernel": "torch.cuda._sleep(0)", "ms": launch_floor_ms(torch)}
+    log(f"launch_floor {json.dumps(floor)}")
+    kernels, gate13 = bf16_path(torch, F, prompts, keys, greedy, sampled)
     log(f"bf16_path_s {time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     kernels += int8_path(torch, prompts, keys, greedy, sampled)
@@ -6251,54 +6394,34 @@ def main() -> int:
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
                              study["flash_attention_f32"], study_rows["flash_attention_f32"]),
-                kernel_entry("decode_attention_f32", K2_SOURCE, K2_REPLACES,
+                kernel_entry("decode_attention_f32", K2F32_SOURCE, K2_REPLACES,
                              study["decode_attention_f32"], study_rows["decode_attention_f32"])]
+    for entry in kernels[-2:]:  # phase 13's calls of the two, at llama3-8b's width
+        entry["gate_launches"] = gate13[entry["name"]]["launches"]
+        entry["gate_shapes"] = gate13[entry["name"]]["rows"]
     for entry in kernels:
-        entry["phase1_launches"] = {path: counts[entry["name"]]
-                                    for path, counts in sweep["launches"].items()}
-        if entry["name"] in sweep["rows"][FULL_WIDTH]:
-            entry["phase1_shapes"] = sweep["rows"][FULL_WIDTH][entry["name"]]
+        name = entry["name"]
+
+        def by_path(launches: dict) -> dict:
+            # Phase 13's entries have no count in the later phases.
+            return {path: counts[name] for path, counts in launches.items() if name in counts}
+
+        entry["phase1_launches"] = by_path(sweep["launches"])
+        if name in sweep["rows"][FULL_WIDTH]:
+            entry["phase1_shapes"] = sweep["rows"][FULL_WIDTH][name]
         for phase in ("phase2", "phase3"):
-            entry[f"{phase}_launches"] = {path: counts[entry["name"]]
-                                          for path, counts in p23["launches"][phase].items()}
-        rows = p23["rows"].get(entry["name"], [])
+            entry[f"{phase}_launches"] = by_path(p23["launches"][phase])
+        rows = p23["rows"].get(name, [])
         if any(r["scoring"] for r in rows):
             entry["scoring_shapes"] = [r for r in rows if r["scoring"]]
-        if not all(r["scoring"] for r in rows):
+        if rows and not all(r["scoring"] for r in rows):
             entry["phase23_shapes"] = [r for r in rows if not r["scoring"]]
-        entry["serving_launches"] = {path: counts[entry["name"]]
-                                     for path, counts in served["launches"].items()}
-        if entry["name"] in served["rows"]:
-            entry["serving_shapes"] = served["rows"][entry["name"]]
-        entry["paged_launches"] = {path: counts[entry["name"]]
-                                   for path, counts in paged["launches"].items()}
-        if entry["name"] in paged["rows"]:
-            entry["paged_shapes"] = paged["rows"][entry["name"]]
-        entry["containment_launches"] = {path: counts[entry["name"]]
-                                         for path, counts in contained["launches"].items()}
-        if entry["name"] in contained["rows"]:
-            entry["containment_shapes"] = contained["rows"][entry["name"]]
-        entry["overload_launches"] = {path: counts[entry["name"]]
-                                      for path, counts in overload["launches"].items()}
-        if entry["name"] in overload["rows"]:
-            entry["overload_shapes"] = overload["rows"][entry["name"]]
-        entry["fleet_launches"] = {path: counts[entry["name"]]
-                                   for path, counts in fleet["launches"].items()}
-        if entry["name"] in fleet["rows"]:
-            entry["fleet_shapes"] = fleet["rows"][entry["name"]]
-        entry["devtel_launches"] = {path: counts[entry["name"]]
-                                    for path, counts in devtel["launches"].items()}
-        if entry["name"] in devtel["rows"]:
-            entry["devtel_shapes"] = devtel["rows"][entry["name"]]
-        entry["dp_launches"] = {path: counts[entry["name"]]
-                                for path, counts in dp["launches"].items()}
-        if entry["name"] in dp["rows"]:
-            entry["dp_shapes"] = dp["rows"][entry["name"]]
-        entry["tp_launches"] = {path: counts[entry["name"]]
-                                for path, counts in tp["launches"].items()
-                                if entry["name"] in counts}
-        if entry["name"] in tp["rows"]:
-            entry["tp_shapes"] = tp["rows"][entry["name"]]
+        for key, phase in (("serving", served), ("paged", paged), ("containment", contained),
+                           ("overload", overload), ("fleet", fleet), ("devtel", devtel),
+                           ("dp", dp), ("tp", tp)):
+            entry[f"{key}_launches"] = by_path(phase["launches"])
+            if name in phase["rows"]:
+                entry[f"{key}_shapes"] = phase["rows"][name]
 
     log(f"total_s {time.perf_counter() - t_start:.1f}")
     log(device_line)

@@ -146,6 +146,12 @@ def sm_count(device: torch.device) -> int:
     return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
+#: Shared memory of an H100 SM, of which each resident block reserves 1 KB,
+#: and the most one block may take: the float32 kernels' plans count blocks
+#: an SM from them.
+SMEM_PER_SM, SMEM_PER_BLOCK = 233472, 232448
+
+
 def grown(cache: dict, key, numel: int, dtype: torch.dtype, device: torch.device,
           zero: bool = False) -> torch.Tensor:
     """``cache[key]``, a 1-D scratch tensor kept between calls and replaced

@@ -23,22 +23,21 @@
 // the bytes' side of the card's line, but only if the products run on the
 // tensor cores; on scalar f32 FMAs they take longer than the bytes.
 //
-// Three routes, reported by the C entry:
+// Three routes, reported by the C entry; float32 with one query per row
+// (K2, K2q) is decode_attention_f32.cu's decode_split_f32, which shares
+// combine_splits (combine_splits.cuh) with the two tensor-core routes:
 //
-// decode_fwd (float32 q): one block per (kv head, batch row, chunk of query
-// rows). The block handles the rep * Q query rows of that kv head (one
-// query per row: all rep rows, at most 32; a verify window: chunks of at
-// most 12 over grid.z), so each k/v tile is read from device memory once
-// per chunk, not once per query head. It reads the cache in its native
-// [B,L,Hkv,D] layout. Tiles of 32 keys (one key per lane) stream through a
-// cp.async pipeline of four stages (two for a verify window). Each warp owns
-// up to RPW query rows and keeps their running max, normaliser and
+// decode_fwd (float32 verify window, Q > 1): one block per (kv head, batch
+// row, chunk of at most 12 of the rep * Q query rows), so each k/v tile is
+// read from device memory once per chunk, not once per query head. It
+// reads the cache in its native [B,L,Hkv,D] layout. Tiles of 32 keys (one
+// key per lane) stream through a two-stage cp.async pipeline. Each warp
+// owns up to RPW query rows and keeps their running max, normaliser and
 // accumulator (lanes split D) in registers, on scalar f32 FMAs. A float
 // cache walks P + L "virtual" keys, where a tile may straddle the end of the
 // prefix; an int8 cache walks the prefix tiles (float) and then the cache
 // tiles (int8, with their 32 k and v scales staged beside them). The
-// wrapper pads D to a multiple of 16 bytes (16 elements for an int8 cache).
-// The float32 end-to-end gates run it.
+// float32 end-to-end gates' speculative calls run it.
 //
 // decode_verify_tc (bf16 verify window, Q > 1, over a bf16 or an int8
 // cache), on mma.sync m16n8k16 as flash_attention.cu's flash_fwd_tc: the
@@ -97,6 +96,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "combine_splits.cuh"
 #include "mma_fragments.cuh"
 
 namespace {
@@ -105,17 +105,12 @@ using namespace attn;
 
 constexpr int kBlockK = 32;  // keys per tile: one per lane
 constexpr int kWarps = 4;
-constexpr int kStages = 4;
-constexpr int kMaxRows = 32;  // query rows per block at most (kWarps * the largest RPW)
 // The scalar verify window (float32) is bound by its shared-memory loads
 // and instruction latency, not by device memory: two pipeline stages and at
 // most 12 rows a block put more warps on each SM (the fastest of the
 // settings tried on an H100 80GB HBM3 at 700 W in bf16; see PERF.md).
 constexpr int kStagesMulti = 2;
 constexpr int kMultiRows = 12;
-
-template <bool MULTI>
-__host__ __device__ constexpr int stages() { return MULTI ? kStagesMulti : kStages; }
 
 __host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
@@ -132,17 +127,17 @@ __host__ __device__ __forceinline__ size_t stage_bytes(int D) {
 }
 
 // Shared memory: the pipeline's stages, then q (f32) and p for the block's rows.
-template <bool QUANT, bool MULTI>
+template <bool QUANT>
 size_t smem_bytes(int rows, int D) {
-  return stages<MULTI>() * stage_bytes<QUANT>(D) + align16(sizeof(float) * rows * D) +
+  return kStagesMulti * stage_bytes<QUANT>(D) + align16(sizeof(float) * rows * D) +
          sizeof(float) * rows * kBlockK;
 }
 
-// q, the prefix and the output are float32. KT: the cache's type (float,
-// or int8_t with scales). MULTI: a verify window with q_offsets. RPW: query
-// rows per warp (rows per block <= kWarps * RPW). NCH: 32-wide chunks of D
-// per lane (D <= 32 * NCH).
-template <typename KT, bool MULTI, int RPW, int NCH>
+// The float32 verify window: q, the prefix and the output are float32. KT:
+// the cache's type (float, or int8_t with scales). RPW: query rows per warp
+// (rows per block <= kWarps * RPW). NCH: 32-wide chunks of D per lane (D <=
+// 32 * NCH).
+template <typename KT, int RPW, int NCH>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_fwd(const float* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
            const uint8_t* __restrict__ valid, const float* __restrict__ sk,
@@ -150,7 +145,7 @@ decode_fwd(const float* __restrict__ q, const KT* __restrict__ k, const KT* __re
            const float* __restrict__ vsc, const int* __restrict__ qoff, float* __restrict__ o,
            int Q, int H, int Hkv, int L, int D, int P, int rows_per_block, float scale) {
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
-  constexpr int NS = stages<MULTI>();
+  constexpr int NS = kStagesMulti;
   extern __shared__ __align__(16) unsigned char smem[];
   const int rep = H / Hkv;
   const int DS = staged_stride<float>(D);
@@ -252,15 +247,12 @@ decode_fwd(const float* __restrict__ q, const KT* __restrict__ k, const KT* __re
   // point at row 0; their results are never used.
   const int nr = nrows > warp ? (nrows - warp + kWarps - 1) / kWarps : 0;
   const float* qrow[RPW];
-  int lim[RPW];  // MULTI: the last own-cache slot each row may see
+  int lim[RPW];  // the last own-cache slot each row may see
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
     const int row = warp + kWarps * r;
     qrow[r] = qs + (row < nrows ? row : 0) * D;
-    lim[r] = 0;
-    if constexpr (MULTI) {
-      if (row < nrows) lim[r] = qoff[b] + (row0 + row) / rep;
-    }
+    lim[r] = row < nrows ? qoff[b] + (row0 + row) / rep : 0;
   }
   float m[RPW], l[RPW], acc[RPW][NCH];
 #pragma unroll
@@ -270,10 +262,6 @@ decode_fwd(const float* __restrict__ q, const KT* __restrict__ k, const KT* __re
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[r][c] = 0.f;
   }
-  // Rows computed in the dot products: a warp's valid rows for a verify
-  // window, all RPW otherwise (the one-query dispatch fills them).
-  const int nr_dots = MULTI ? nr : RPW;
-
   const uint8_t* vrow = valid + (long long)b * L;
   for (int t = 0; t < ntiles; ++t) {
     cp_async_wait<NS - 2>();
@@ -302,10 +290,10 @@ decode_fwd(const float* __restrict__ q, const KT* __restrict__ k, const KT* __re
     float vs_lane = 1.f;
     if (pre) {
       row_dots<float, RPW>(s, qrow, reinterpret_cast<const float*>(ktile(st)) + lane * DS, D,
-                           nr_dots);
+                           nr);
     } else {
       row_dots<int8_t, RPW>(s, qrow, reinterpret_cast<const int8_t*>(ktile(st)) + lane * DS8, D,
-                            nr_dots);
+                            nr);
       const float ks_lane = kscale(st)[lane];
       vs_lane = vscale(st)[lane];
 #pragma unroll
@@ -316,8 +304,7 @@ decode_fwd(const float* __restrict__ q, const KT* __restrict__ k, const KT* __re
     for (int r = 0; r < RPW; ++r) {
       if (r >= nr) break;  // warp-uniform
       const int row = warp + kWarps * r;
-      bool okr = ok;
-      if constexpr (MULTI) okr = ok && (slot < 0 || slot <= lim[r]);
+      const bool okr = ok && (slot < 0 || slot <= lim[r]);
       const float sv_ = okr ? s[r] : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(sv_));
       const float p = okr ? expf(sv_ - m_new) : 0.f;
@@ -377,7 +364,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcWarps = 4;             // m-tiles of 16 query rows a block, at most
 constexpr int kTcRows = 16 * kTcWarps;  // query rows of one kv head a block, at most
 constexpr int kTcStages = 2;            // ring slots: tiles in flight while one is computed
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Tile shapes of one instantiated width DP: BK keys a tile (the wrapper's
 // TILE_KEYS, from which it plans the splits), bf16 rows staged STR elements
@@ -930,58 +916,6 @@ decode_split_tc(const bf16* __restrict__ q, const void* __restrict__ kp,
                      split, sp + sc, (long long)B * H);
 }
 
-// Folds the partials of nsplit key splits into nrows output rows of width D
-// (a multiple of 4): acc [nsplit][nrows][D] f32 at ws, then (m, l)
-// [nsplit][nrows] with m in log2 units. In split order, out = sum_s w_s
-// acc_s / max(sum_s w_s l_s, 1e-30) with w_s = 2^(m_s - max m); a split in
-// which the row saw no key (l_s = 0) is skipped. One thread per 4 columns.
-// Any kernel that writes this layout can use it (decode_split_tc writes it
-// with Q = 1).
-template <typename T>
-__global__ void __launch_bounds__(256)
-combine_splits(const float* __restrict__ ws, T* __restrict__ o, int nsplit, long long nrows,
-               int D) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int cpr = D / 4;
-  if (i >= nrows * cpr) return;
-  const long long r = i / cpr;
-  const int c = static_cast<int>(i - r * cpr) * 4;
-  const float2* ml = reinterpret_cast<const float2*>(ws + nsplit * nrows * D);
-  float mx = kNegInf;
-  for (int s = 0; s < nsplit; ++s) {
-    const float2 p = ml[s * nrows + r];
-    if (p.y > 0.f) mx = fmaxf(mx, p.x);
-  }
-  float lsum = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < nsplit; ++s) {
-    const float2 p = ml[s * nrows + r];
-    if (p.y <= 0.f) continue;
-    const float w = exp2f(p.x - mx);
-    const float4 v = *reinterpret_cast<const float4*>(ws + (s * nrows + r) * D + c);
-    lsum += w * p.y;
-    a[0] += w * v.x;
-    a[1] += w * v.y;
-    a[2] += w * v.z;
-    a[3] += w * v.w;
-  }
-  const float inv = 1.f / fmaxf(lsum, 1e-30f);
-  T* out = o + r * D + c;
-  if constexpr (std::is_same<T, float>::value) {
-    *reinterpret_cast<float4*>(out) = make_float4(a[0] * inv, a[1] * inv, a[2] * inv, a[3] * inv);
-  } else {
-    *reinterpret_cast<uint2*>(out) = make_uint2(frag::pack_bf16x2(a[0] * inv, a[1] * inv),
-                                                frag::pack_bf16x2(a[2] * inv, a[3] * inv));
-  }
-}
-
-template <typename T>
-cudaError_t launch_combine(const float* ws, T* o, int nsplit, long long nrows, int D,
-                           cudaStream_t stream) {
-  const long long threads = nrows * (D / 4);
-  combine_splits<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(ws, o, nsplit, nrows, D);
-  return cudaGetLastError();
-}
-
 struct Args {
   const void *q, *k, *v;
   const uint8_t* valid;
@@ -1087,19 +1021,19 @@ cudaError_t dispatch_decode_tc(const Args& a, bool kv_int8) {
 }
 
 // ---------------------------------------------------------------------------
-// scalar dispatch (float32)
+// float32 dispatch
 // ---------------------------------------------------------------------------
-template <typename KT, bool MULTI, int RPW, int NCH>
-cudaError_t launch(const Args& a) {
+// The float32 verify window (decode_fwd).
+template <typename KT, int RPW, int NCH>
+cudaError_t launch_verify_f32(const Args& a) {
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
-  // Query rows of one kv head, in chunks over grid.z of at most kWarps * RPW
-  // rows (and at most kMultiRows for a verify window).
+  // Query rows of one kv head, in chunks over grid.z of at most kMultiRows.
   const int rows = (a.H / a.Hkv) * a.Q;
-  const int cap = MULTI && kMultiRows < kWarps * RPW ? kMultiRows : kWarps * RPW;
+  const int cap = kMultiRows < kWarps * RPW ? kMultiRows : kWarps * RPW;
   const int nz = (rows + cap - 1) / cap;
   const int rows_per_block = (rows + nz - 1) / nz;
-  const size_t smem = smem_bytes<QUANT, MULTI>(rows_per_block, a.D);
-  auto kernel = decode_fwd<KT, MULTI, RPW, NCH>;
+  const size_t smem = smem_bytes<QUANT>(rows_per_block, a.D);
+  auto kernel = decode_fwd<KT, RPW, NCH>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1111,43 +1045,28 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename KT, bool MULTI, int RPW>
-cudaError_t dispatch_d(const Args& a) {
-  if (a.D <= 32) return launch<KT, MULTI, RPW, 1>(a);
-  if (a.D <= 64) return launch<KT, MULTI, RPW, 2>(a);
-  if (a.D <= 128) return launch<KT, MULTI, RPW, 4>(a);
-  if (a.D <= 256) return launch<KT, MULTI, RPW, 8>(a);
+template <typename KT, int RPW>
+cudaError_t verify_f32_d(const Args& a) {
+  if (a.D <= 32) return launch_verify_f32<KT, RPW, 1>(a);
+  if (a.D <= 64) return launch_verify_f32<KT, RPW, 2>(a);
+  if (a.D <= 128) return launch_verify_f32<KT, RPW, 4>(a);
+  if (a.D <= 256) return launch_verify_f32<KT, RPW, 8>(a);
   return cudaErrorInvalidValue;
 }
 
-template <typename KT, bool MULTI>
-cudaError_t dispatch_rows(const Args& a) {
-  const int rows = (a.H / a.Hkv) * a.Q;
-  static_assert(kMaxRows == 8 * kWarps, "the largest RPW fills kMaxRows");
-  if constexpr (MULTI) {
-    // Two widths keep the build short: a warp's unused rows skip the
-    // products, so a wider RPW costs registers, not work.
-    if (rows <= 2 * kWarps) return dispatch_d<KT, MULTI, 2>(a);
-    return dispatch_d<KT, MULTI, 8>(a);
-  } else {
-    if (rows <= kWarps) return dispatch_d<KT, MULTI, 1>(a);
-    if (rows <= 2 * kWarps) return dispatch_d<KT, MULTI, 2>(a);
-    if (rows <= 4 * kWarps) return dispatch_d<KT, MULTI, 4>(a);
-    return dispatch_d<KT, MULTI, 8>(a);
-  }
-}
-
 template <typename KT>
-cudaError_t dispatch(const Args& a) {
+cudaError_t dispatch_verify_f32(const Args& a) {
   // 16-byte staging needs every k/v row (of the cache and of the prefix) to
   // start on a 16-byte boundary and hold a multiple of 16 bytes.
   const bool vec = a.D % Vec<float>::kElems == 0 && a.D % Vec<KT>::kElems == 0 &&
                    aligned16(a.k) && aligned16(a.v) &&
                    (a.P == 0 || (aligned16(a.sk) && aligned16(a.sv)));
   if (!vec) return cudaErrorInvalidValue;
-  if (a.qoff != nullptr) return dispatch_rows<KT, true>(a);
-  if (a.H / a.Hkv > kMaxRows) return cudaErrorInvalidValue;
-  return dispatch_rows<KT, false>(a);
+  // Two widths keep the build short: a warp's unused rows skip the
+  // products, so a wider RPW costs registers, not work.
+  const int rows = (a.H / a.Hkv) * a.Q;
+  if (rows <= 2 * kWarps) return verify_f32_d<KT, 2>(a);
+  return verify_f32_d<KT, 8>(a);
 }
 
 }  // namespace
@@ -1157,17 +1076,19 @@ cudaError_t dispatch(const Args& a) {
 // q [B,Q,H,D] (Q = 1: one query per row; q_offsets is then ignored and may
 // be null), k/v [B,L,Hkv,D], valid [B,L] (one byte per slot), sk/sv
 // [P,Hkv,D] (ignored when P == 0), q_offsets [B] int32 (required for Q > 1),
-// o like q; all contiguous and 16-byte aligned. decode_fwd (float32) takes D
-// a multiple of 16 bytes of each row type; decode_split_tc (bf16, Q = 1) and
-// decode_verify_tc (bf16, Q > 1) take D of 64, 128 or 256 and walk the keys
-// in splits_prefix + splits_cache splits (1 <= splits_prefix <= ceil(P /
-// BK) where P > 0, else 0; the same for splits_cache and L; BK = 32 keys),
-// with ws, 16-byte aligned, holding (splits_prefix + splits_cache) * B * Q *
-// H * (D + 2) floats where there is more than one split. Anything else
-// returns cudaErrorInvalidValue; otherwise the CUDA error code of the
-// launch. *kernel is set to the route launched: 0 = decode_fwd, 1 =
-// decode_verify_tc, 2 = decode_split_tc (each tensor-core route followed by
-// combine_splits where it splits), -1 = none.
+// o like q; all contiguous, k/v rows 16-byte aligned. float32 takes a
+// verify window (Q > 1; one query per row is decode_attention_f32_fwd's)
+// with D a multiple of 16 bytes of each row type; decode_split_tc (bf16, Q
+// = 1) and decode_verify_tc (bf16, Q > 1) take D of 32, 64, 128 or 256 and
+// walk the keys in splits_prefix + splits_cache splits (1 <= splits_prefix
+// <= ceil(P / BK) where P > 0, else 0; the same for splits_cache and L; BK
+// = 32 keys), with ws, 16-byte aligned, holding (splits_prefix +
+// splits_cache) * B * Q * H * (D + 2) floats where there is more than one
+// split. Anything else returns cudaErrorInvalidValue; otherwise the CUDA
+// error code of the launch. *kernel is set to the route launched: 0 =
+// decode_fwd (float32, Q > 1), 1 = decode_verify_tc, 2 = decode_split_tc
+// (each tensor-core route followed by combine_splits where it splits), -1 =
+// none.
 extern "C" int decode_attention_fwd(int dtype, int kv_int8, const void* q, const void* k,
                                     const void* v, const void* valid, const void* sk,
                                     const void* sv, const void* ks, const void* vs,
@@ -1194,8 +1115,8 @@ extern "C" int decode_attention_fwd(int dtype, int kv_int8, const void* q, const
   } else if (dtype == 1) {
     err = dispatch_decode_tc(a, kv_int8 != 0);
     launched = 2;  // decode_split_tc
-  } else if (dtype == 0) {
-    err = kv_int8 ? dispatch<int8_t>(a) : dispatch<float>(a);
+  } else if (dtype == 0 && Q > 1) {
+    err = kv_int8 ? dispatch_verify_f32<int8_t>(a) : dispatch_verify_f32<float>(a);
     launched = 0;  // decode_fwd
   } else {
     return (int)cudaErrorInvalidValue;

@@ -40,11 +40,31 @@
 // overlap the products only across the 12 warps of an SM. Tried on the
 // card: 8 warps of 16 rows (registers spill), 32-key tiles (no faster).
 //
-// float32 (flash_fwd): full f32 products (no TF32), on scalar FMAs. Key and
-// value tiles of 32 rows (one key per lane for the scores) stream through a
-// two-stage cp.async pipeline; the q tile is scaled once into shared memory
-// as f32; each of the 8 warps owns 8 query rows and keeps their running
-// max, normaliser and accumulator (lanes split D) in registers.
+// float32 (flash_fwd): full f32 products on scalar FMAs (no TF32; 3xTF32
+// on mma.sync was not taken: the study's prefill and scoring shapes, head
+// width 32 and 128-640 rows, are a few tiles a block, bound by latency and
+// the launch rather than by the FMAs, and the float32 gates want the exact
+// f32 products). A block takes R = 16, 32 or 64 query rows, planned by the
+// wrapper (flash_f32_rows) from the shape and the SM count, so that a
+// prefill of one short row (the study's prefix, 1 x 4 heads x 128) still
+// spreads over the card: 32 blocks of 16 rows where 64-row tiles made 8.
+// Eight warps of 8 query rows each: R / 8 row groups times KG = 64 / R key
+// groups. A step stages KG key tiles of 32 keys (k and v) through a
+// two-stage cp.async ring, and key group g computes the step's tile g for
+// its row group, so a row of T tiles is walked in T / KG steps; the key
+// groups' (m, l, acc) are folded in shared memory at the end in key-group
+// order (deterministic). The plan weighs the grid's waves against the
+// longest block's steps (flash_f32_rows), so the key groups spread a long
+// row's keys across warps (phase 2's listwise query, S = 640, runs in
+// blocks of 16 rows), and a grid of many short rows keeps 64-row blocks. A
+// query tile wholly in the left padding writes zeros and loads nothing; a
+// warp whose rows see none of a tile's keys skips it. A warp runs its 8 rows in the quad layout
+// (attention_common.cuh's quad_tile): lane 4r + g holds row r's query,
+// scaled into log2 units, and its accumulator for a quarter of the columns
+// in registers; a tile's scores are reduced, and its weights gathered,
+// over the row's four lanes with 50 shuffles (one key a lane, each weight
+// shuffled to every lane, takes 296), so P never goes through shared
+// memory. The wrapper pads D to 32, 64, 128 or 256.
 //
 // Both: key tiles before the first valid key (left pads, window) and after
 // the tile's last query (causal) are never loaded; GQA reads kv head
@@ -59,10 +79,9 @@ namespace {
 
 using namespace attn;
 
-constexpr int kBlockQ = 64;   // query rows per block
-constexpr int kBlockK = 32;   // keys per tile: one per lane
+constexpr int kBlockK = 32;  // keys per tile: one per lane
 constexpr int kWarps = 8;
-constexpr int kRows = kBlockQ / kWarps;  // query rows per warp
+constexpr int kRows = 8;     // query rows a warp
 constexpr int kStages = 2;
 
 struct Strides {
@@ -71,38 +90,48 @@ struct Strides {
 
 __host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
-// Shared memory layout: kStages x (k tile, v tile), then q, then p.
+// One staged k (or v) tile of 32 float rows.
 __host__ __device__ __forceinline__ size_t tile_bytes(int D) {
   return align16(sizeof(float) * kBlockK * staged_stride<float>(D));
 }
 
-size_t smem_bytes(int D) {
-  return 2 * kStages * tile_bytes(D) + align16(sizeof(float) * kBlockQ * D) +
-         sizeof(float) * kWarps * kRows * kBlockK;
+// Shared memory of a block of R query rows: kStages steps of KG = 64 / R
+// (k tile, v tile) pairs. The fold of the key groups at the end reuses it.
+// The wrapper's flash_f32_smem.
+size_t smem_bytes(int R, int D) {
+  const int KG = kWarps * kRows / R;
+  return kStages * KG * 2 * tile_bytes(D);
 }
 
-// float32 only (bf16 goes to flash_fwd_tc). NCH: how many 32-wide chunks of
-// D each lane accumulates (D <= 32 * NCH).
-template <int NCH>
-__global__ void __launch_bounds__(kWarps * 32)
+// float32 only (bf16 goes to flash_fwd_tc); see the note at the top of the
+// file. DW: the head width (the wrapper pads D to 32, 64, 128 or 256), a
+// lane holding DW / 4 columns of its row (quad_tile). R: query rows a block
+// (16, 32 or 64). sl: the softmax scale times log2(e).
+template <int DW>
+__global__ void __launch_bounds__(kWarps * 32, 2)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
-          const int* __restrict__ lengths, int H, int Hkv, int S, int D, Strides qst,
-          Strides kst, Strides vst, Strides ost, int causal, int window, float scale) {
+          const int* __restrict__ lengths, int H, int Hkv, int S, int R, Strides qst,
+          Strides kst, Strides vst, Strides ost, int causal, int window, float sl) {
+  constexpr int DP = DW / 4;  // columns a lane
   extern __shared__ __align__(16) unsigned char smem[];
-  const int DS = staged_stride<float>(D);
-  const size_t tb = tile_bytes(D);
-  float* qs = reinterpret_cast<float*>(smem + 2 * kStages * tb);  // [kBlockQ][D]
-  float* ps = qs + align16(sizeof(float) * kBlockQ * D) / sizeof(float);
-  auto ktile = [&](int st) { return reinterpret_cast<float*>(smem + (2 * st) * tb); };
-  auto vtile = [&](int st) { return reinterpret_cast<float*>(smem + (2 * st + 1) * tb); };
+  constexpr int DS = DW + 4;  // staged_stride<float>(DW)
+  const size_t tb = tile_bytes(DW);
+  const int RG = R / kRows, KG = kWarps / RG;  // row groups, key groups
+  auto ktile = [&](int st, int g) {
+    return reinterpret_cast<float*>(smem + (2 * (st * KG + g)) * tb);
+  };
+  auto vtile = [&](int st, int g) {
+    return reinterpret_cast<float*>(smem + (2 * (st * KG + g) + 1) * tb);
+  };
 
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * R;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int rg = warp % RG, kg = warp / RG;  // this warp's row group and key group
   const int pad_start = S - lengths[b];
 
   const float* qb = q + b * qst.b + h * qst.h;
@@ -110,126 +139,158 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * vst.b + hk * vst.h;
   float* ob = o + b * ost.b + h * ost.h;
 
-  const int q_last = min(q0 + kBlockQ, S) - 1;
+  const int q_last = min(q0 + R, S) - 1;
   const int k_end = causal ? q_last + 1 : S;  // exclusive
   int k_begin = max(pad_start, 0);
   if (window > 0) k_begin = max(k_begin, q0 - window + 1);
   const int kt_begin = (k_begin / kBlockK) * kBlockK;
   const int ntiles = k_end > kt_begin ? (k_end - kt_begin + kBlockK - 1) / kBlockK : 0;
+  const int nsteps = (ntiles + KG - 1) / KG;
+  if (ntiles == 0) {
+    // No query row of the tile sees a key (a tile inside the left padding):
+    // every row is 0, and nothing is loaded.
+    for (int i = threadIdx.x; i < R * DW; i += blockDim.x) {
+      const int r = q0 + i / DW;
+      if (r < S) ob[r * ost.s + i % DW] = 0.f;
+    }
+    return;
+  }
 
-  auto stage = [&](int t) {
-    const int kt = kt_begin + t * kBlockK;
-    const int st = t % kStages;
-    stage_rows<float>(ktile(st), kBlockK, D, kb, [&](int j) -> const float* {
-      return kt + j < S ? kb + (kt + j) * kst.s : nullptr;
-    });
-    stage_rows<float>(vtile(st), kBlockK, D, vb, [&](int j) -> const float* {
-      return kt + j < S ? vb + (kt + j) * vst.s : nullptr;
-    });
+  // Step s: tiles s * KG + g into ring stage s % kStages, one for each key group g.
+  auto stage = [&](int s) {
+    const int st = s % kStages;
+    for (int g = 0; g < KG; ++g) {
+      const int kt = kt_begin + (s * KG + g) * kBlockK;
+      if (s * KG + g >= ntiles) break;
+      stage_rows<float>(ktile(st, g), kBlockK, DW, kb, [&](int j) -> const float* {
+        return kt + j < S ? kb + (kt + j) * kst.s : nullptr;
+      });
+      stage_rows<float>(vtile(st, g), kBlockK, DW, vb, [&](int j) -> const float* {
+        return kt + j < S ? vb + (kt + j) * vst.s : nullptr;
+      });
+    }
   };
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ntiles) stage(s);
+    if (s < nsteps) stage(s);
     cp_async_commit();
   }
 
-  for (int i = threadIdx.x; i < kBlockQ * D; i += blockDim.x) {
-    const int r = i / D, d = i - r * D, s = q0 + r;
-    qs[i] = s < S ? qb[s * qst.s + d] * scale : 0.f;
+  // This lane's query row (zeros past S) and columns, scaled into log2
+  // units, straight into registers.
+  const int qi = q0 + rg * kRows + lane / 4;  // this lane's query row
+  const int c0 = (lane & 3) * 4;              // and its first column (quad_tile's layout)
+  float qr[DP], acc[DP];
+  {
+    const float4* src = reinterpret_cast<const float4*>(qb + (long long)qi * qst.s + c0);
+#pragma unroll
+    for (int d4 = 0; d4 < DP / 4; ++d4) {
+      const float4 x = qi < S ? src[4 * d4] : make_float4(0.f, 0.f, 0.f, 0.f);
+      qr[4 * d4] = x.x * sl;
+      qr[4 * d4 + 1] = x.y * sl;
+      qr[4 * d4 + 2] = x.z * sl;
+      qr[4 * d4 + 3] = x.w * sl;
+    }
   }
+#pragma unroll
+  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
+  float m = kNegInf, l = 0.f;  // l: this lane's keys; summed over the quad at the end
 
-  const int r0 = warp * kRows;
-  const float* qrow[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) qrow[r] = qs + (r0 + r) * D;
-  float m[kRows], l[kRows], acc[kRows][NCH];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int t = 0; t < ntiles; ++t) {
+  for (int s = 0; s < nsteps; ++s) {
     cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile t landed; every warp is done with tile t - 1
-    if (t + kStages - 1 < ntiles) stage(t + kStages - 1);
+    __syncthreads();  // step s landed; every warp is done with step s - 1
+    if (s + kStages - 1 < nsteps) stage(s + kStages - 1);
     cp_async_commit();
 
-    const float* ks = ktile(t % kStages);
-    const float* vs = vtile(t % kStages);
-    const int kidx = kt_begin + t * kBlockK + lane;
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    row_dots<float, kRows>(s, qrow, ks + lane * DS, D);
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qi = q0 + r0 + r;
-      bool ok = kidx < S && kidx >= pad_start;
-      if (causal) ok = ok && kidx <= qi;
-      if (window > 0) ok = ok && (qi - kidx) < window;
-      const float sv = ok ? s[r] : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      const float p = ok ? expf(sv - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-      ps[(r0 + r) * kBlockK + lane] = p;
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) acc[r][c] *= alpha;
-    }
-    __syncwarp();
-
-    for (int j = 0; j < kBlockK; ++j) {
-      float vv[NCH];
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const int d = lane + 32 * c;
-        vv[c] = d < D ? vs[j * DS + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = ps[(r0 + r) * kBlockK + j];
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) acc[r][c] += p * vv[c];
-      }
-    }
-    __syncwarp();  // p of this tile fully read before the next tile rewrites it
+    const int t = s * KG + kg;
+    if (t >= ntiles) continue;  // warp-uniform: this key group has no tile in the last step
+    const int kt = kt_begin + t * kBlockK;
+    // A row group none of whose rows sees a key of the tile skips it (the
+    // tile would leave its state as it is): its rows all past S, all in the
+    // left padding or before the tile (causal), or the tile before the
+    // window of its first row.
+    const int rfirst = q0 + rg * kRows, rlast = rfirst + kRows - 1;
+    if (rfirst >= S || (causal && (rlast < pad_start || kt > rlast)) ||
+        (window > 0 && kt + kBlockK - 1 <= rfirst - window))
+      continue;
+    quad_tile<DP>(qr, ktile(s % kStages, kg), vtile(s % kStages, kg), DS,
+                  [&](int j) {
+                    const int kidx = kt + j;
+                    bool ok = kidx < S && kidx >= pad_start;
+                    if (causal) ok = ok && kidx <= qi;
+                    if (window > 0) ok = ok && qi - kidx < window;
+                    return ok;
+                  },
+                  m, l, acc);
   }
   cp_async_wait<0>();
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
 
+  if (KG > 1) {
+    // Fold the key groups in shared memory, in key-group order: acc
+    // [KG][R][DW], then m [KG][R] and l [KG][R], over the ring.
+    __syncthreads();  // every warp is done with the ring
+    float* facc = reinterpret_cast<float*>(smem);
+    float* fm = facc + KG * R * DW;
+    float* fl = fm + KG * R;
+    const int row = rg * kRows + lane / 4;  // this lane's row in the block
+    float4* dst = reinterpret_cast<float4*>(facc + (kg * R + row) * DW + c0);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + r0 + r;
-    if (qi >= S) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) ob[qi * ost.s + d] = acc[r][c] * inv;
+    for (int d4 = 0; d4 < DP / 4; ++d4)
+      dst[4 * d4] = make_float4(acc[4 * d4], acc[4 * d4 + 1], acc[4 * d4 + 2], acc[4 * d4 + 3]);
+    if ((lane & 3) == 0) {
+      fm[kg * R + row] = m;
+      fl[kg * R + row] = l;
     }
+    __syncthreads();
+    if (kg != 0) return;
+    float mx = kNegInf;
+    for (int g = 0; g < KG; ++g) mx = fmaxf(mx, fm[g * R + row]);
+    float lsum = 0.f;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) acc[d] = 0.f;
+    for (int g = 0; g < KG; ++g) {
+      const float w = exp2f(fm[g * R + row] - mx);  // 1 for every group of a row with no key
+      lsum += w * fl[g * R + row];
+      const float4* src = reinterpret_cast<const float4*>(facc + (g * R + row) * DW + c0);
+#pragma unroll
+      for (int d4 = 0; d4 < DP / 4; ++d4) {
+        const float4 x = src[4 * d4];
+        acc[4 * d4] += w * x.x;
+        acc[4 * d4 + 1] += w * x.y;
+        acc[4 * d4 + 2] += w * x.z;
+        acc[4 * d4 + 3] += w * x.w;
+      }
+    }
+    l = lsum;
+  }
+
+  if (qi < S) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    float* orow = ob + (long long)qi * ost.s + c0;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) orow[16 * (d / 4) + d % 4] = acc[d] * inv;
   }
 }
 
-template <int NCH>
+template <int DW>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* lengths, int B, int H, int Hkv, int S, int D,
+                   const int* lengths, int B, int H, int Hkv, int S, int R,
                    Strides qst, Strides kst, Strides vst, Strides ost, int causal,
                    int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  auto kernel = flash_fwd<NCH>;
+  if (R != 16 && R != 32 && R != 64) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(R, DW);
+  auto kernel = flash_fwd<DW>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  dim3 grid((S + R - 1) / R, H, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lengths, H, Hkv, S, D, qst, kst,
-      vst, ost, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lengths, H, Hkv, S, R, qst, kst,
+      vst, ost, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -241,7 +302,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTcWarps = 4;
 constexpr int kTcBlockQ = 16 * kTcWarps;  // 16 query rows per warp
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Tile shape of one instantiated width DP: keys per tile BK, and the row
 // stride of staged tiles (DP + 8 elements: 16 spare bytes a row, so the 8
@@ -493,22 +553,25 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v, void* o,
   return cudaErrorInvalidValue;
 }
 
-// float32: 16-byte staging needs every k/v row to start on a 16-byte boundary.
+// float32: D one of the instantiated widths, and every q/k/v row 16-byte
+// aligned (16-byte staging, and a lane's q columns loaded as 16-byte
+// vectors); anything else is refused (the wrapper pads), never sent
+// elsewhere.
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
-                         const int* lengths, int B, int H, int Hkv, int S, int D, Strides qst,
-                         Strides kst, Strides vst, Strides ost, int causal, int window,
-                         float scale, cudaStream_t stream) {
+                         const int* lengths, int B, int H, int Hkv, int S, int D, int R,
+                         Strides qst, Strides kst, Strides vst, Strides ost, int causal,
+                         int window, float scale, cudaStream_t stream) {
   const long long ve = Vec<float>::kElems;
-  if (!(D % ve == 0 && aligned16(k) && aligned16(v) && strides_aligned(kst, ve) &&
-        strides_aligned(vst, ve)))
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && strides_aligned(qst, ve) &&
+        strides_aligned(kst, ve) && strides_aligned(vst, ve)))
     return cudaErrorInvalidValue;
-#define FLASH_LAUNCH(NCH)                                                             \
-  return launch<NCH>(q, k, v, o, lengths, B, H, Hkv, S, D, qst, kst, vst, ost, causal, \
-                     window, scale, stream)
-  if (D <= 32) FLASH_LAUNCH(1);
-  if (D <= 64) FLASH_LAUNCH(2);
-  if (D <= 128) FLASH_LAUNCH(4);
-  if (D <= 256) FLASH_LAUNCH(8);
+#define FLASH_LAUNCH(DW)                                                                  \
+  return launch<DW>(q, k, v, o, lengths, B, H, Hkv, S, R, qst, kst, vst, ost, causal, \
+                    window, scale, stream)
+  if (D == 32) FLASH_LAUNCH(32);
+  if (D == 64) FLASH_LAUNCH(64);
+  if (D == 128) FLASH_LAUNCH(128);
+  if (D == 256) FLASH_LAUNCH(256);
 #undef FLASH_LAUNCH
   return cudaErrorInvalidValue;
 }
@@ -518,14 +581,17 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).
 // Strides are in elements, for the b, h and s dimensions of q, k, v and o in
 // that order; the d dimension is contiguous. window <= 0 means no window.
-// float32: D a multiple of 16 bytes, k/v rows 16-byte aligned. bfloat16: D
-// one of 64, 128, 256, q/k/v rows 16-byte aligned, o rows 4-byte aligned.
+// float32: D one of 32, 64, 128, 256, q/k/v rows 16-byte aligned, rows
+// (query rows a block) 16, 32 or 64, its shared memory within a block's 227
+// KB.
+// bfloat16 (rows ignored): D one of 64, 128, 256, q/k/v rows 16-byte
+// aligned, o rows 4-byte aligned.
 // Anything else returns cudaErrorInvalidValue; otherwise the CUDA error code
 // of the launch. *kernel is set to the kernel launched: 0 = flash_fwd,
 // 1 = flash_fwd_tc, -1 = none.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, const void* lengths, int B, int H, int Hkv,
-                                   int S, int D, long long qsb, long long qsh,
+                                   int S, int D, int rows, long long qsb, long long qsh,
                                    long long qss, long long ksb, long long ksh,
                                    long long kss, long long vsb, long long vsh,
                                    long long vss, long long osb, long long osh,
@@ -540,8 +606,8 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
   cudaError_t err;
   int launched;
   if (dtype == 0) {
-    err = dispatch_f32(q, k, v, o, len, B, H, Hkv, S, D, qst, kst, vst, ost, causal, window,
-                       scale, st);
+    err = dispatch_f32(q, k, v, o, len, B, H, Hkv, S, D, rows, qst, kst, vst, ost, causal,
+                       window, scale, st);
     launched = 0;  // flash_fwd
   } else if (dtype == 1) {
     err = dispatch_tc(q, k, v, o, len, B, H, Hkv, S, D, qst, kst, vst, ost, causal, window,

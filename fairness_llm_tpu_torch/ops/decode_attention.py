@@ -25,11 +25,19 @@ planned by ``verify_splits``; one query per row (K2, K2q) on
 every batch row's queries of a kv head together, so each prefix tile is
 read once per kv head and not once per row. Their head widths are
 ``TC_WIDTHS``: q/k/v with another D are copied with D zero-padded to the
-next. float32 goes to the scalar kernel (``decode_fwd``); where k/v rows are
-not 16-byte aligned (a D of odd byte size, an odd offset), the inputs are
-copied with D zero-padded before the launch. Each of the four modes counts
-its launches; ``multi_tc_launches`` and ``decode_tc_launches`` count the
-calls the C entry reports it ran on the tensor-core kernels.
+next. float32 runs on scalar f32 FMAs: one query per row (K2, K2q) on
+``decode_split_f32`` (``csrc/decode_attention_f32.cu``), planned by
+``decode_splits_f32`` and split and combined as ``decode_split_tc`` is, a
+block one warp, head widths ``F32_WIDTHS`` (q/k/v with another D copied
+with D zero-padded to the next); the verify window on ``decode_fwd``,
+where float32 k/v rows that are not 16-byte aligned (a D of odd byte size,
+an odd offset) are copied with D zero-padded before the launch. Each of
+the four modes counts its launches; ``multi_tc_launches``,
+``decode_tc_launches`` and ``decode_f32_launches`` count the calls the C
+entry reports it ran on decode_verify_tc, decode_split_tc and
+decode_split_f32. Every split plan is checked here
+(``check_splits``) as the kernel checks it, and refused with a
+``KernelError``; nothing falls back.
 """
 
 from __future__ import annotations
@@ -48,20 +56,25 @@ NEG_INF = -1e30
 #: Kernel launches of each mode since the counts were last set to 0: one
 #: query per row over a float cache (K2), over an int8 cache (K2q), and the
 #: verify window over a float cache (K3) and over an int8 cache; then the
-#: verify windows (either cache) that ran on decode_verify_tc, and the
+#: verify windows (either cache) that ran on decode_verify_tc, the
 #: one-query calls (either cache) that ran on decode_split_tc, the
-#: tensor-core kernels, as the C entry reports.
+#: tensor-core kernels, and those that ran on decode_split_f32, as the C
+#: entry reports.
 launches = 0
 quant_launches = 0
 multi_launches = 0
 multi_quant_launches = 0
 multi_tc_launches = 0
 decode_tc_launches = 0
-# decode_attention_fwd's *kernel for decode_verify_tc and decode_split_tc
-_VERIFY_TC, _DECODE_TC = 1, 2
+decode_f32_launches = 0
+# decode_attention_fwd's *kernel for decode_verify_tc, decode_split_tc and
+# decode_split_f32
+_VERIFY_TC, _DECODE_TC, _DECODE_F32 = 1, 2, 3
 
 #: Head widths the bf16 tensor-core kernels are instantiated for.
 TC_WIDTHS = (32, 64, 128, 256)
+#: Head widths the float32 one-query kernel is instantiated for.
+F32_WIDTHS = (32, 64, 128, 256)
 #: Keys per tile of the tensor-core kernels (their BK).
 TILE_KEYS = 32
 #: Resident blocks per SM the verify split plan fills: four of 3 warps (36
@@ -71,6 +84,13 @@ SPLIT_BLOCKS_PER_SM = 4
 #: at D <= 128 (128 registers a thread, 52-54 KB of shared memory at D =
 #: 128), two at D = 256 (shared memory).
 DECODE_BLOCKS_PER_SM = {32: 4, 64: 4, 128: 4, 256: 2}
+#: Query rows of a decode_split_f32 prefix block (one warp): 8 of the
+#: batch's rows of one kv head. A cache block takes the rep rows of one
+#: (batch row, kv head) in chunks of at most 8.
+F32_PREFIX_ROWS = 8
+#: Resident one-warp blocks an SM the float32 plan counts on: up to 255
+#: registers a thread fit eight, fewer where shared memory allows fewer.
+F32_DECODE_BLOCKS_PER_SM = 8
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # dtype, kv_int8; q, k, v, valid, sk, sv, ks, vs, q_offsets, o, ws;
@@ -199,6 +219,39 @@ def decode_splits(B: int, Hkv: int, rep: int, P: int, L: int, D: int,
     return _plan(Hkv * -(-B * rep // 64), B * Hkv, P, L, DECODE_BLOCKS_PER_SM[D] * sms)
 
 
+def f32_decode_smem(D: int) -> int:
+    """Shared memory of a decode_split_f32 block at head width D (of
+    ``F32_WIDTHS``) at most, without the mask words of its run: two ring
+    slots of a k and a v tile of 32 float rows (D + 4 floats apart) and 64
+    scales, then up to 8 query rows."""
+    tile = -(-4 * 32 * (D + 4) // 16) * 16
+    return 2 * (2 * tile + 256) + -(-4 * F32_PREFIX_ROWS * D // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)  # planned on every call's host path: once per shape
+def decode_splits_f32(B: int, Hkv: int, rep: int, P: int, L: int, D: int,
+                      sms: int) -> Tuple[int, int]:
+    """The same for decode_split_f32 (float32, one query per row; D the
+    padded head width). A block is one warp: a prefix split is Hkv *
+    ceil(B * rep / 8) blocks (``F32_PREFIX_ROWS``), shared by the batch; a
+    cache split B * Hkv * ceil(rep / 8). The wave is
+    ``F32_DECODE_BLOCKS_PER_SM`` blocks an SM, or fewer where the blocks'
+    shared memory allows fewer."""
+    rows = F32_PREFIX_ROWS
+    per_sm = min(F32_DECODE_BLOCKS_PER_SM, _build.SMEM_PER_SM // (f32_decode_smem(D) + 1024))
+    return _plan(Hkv * -(-B * rep // rows), B * Hkv * -(-rep // rows), P, L, per_sm * sms)
+
+
+@functools.lru_cache(maxsize=256)  # on every call's host path: a refusal raises, uncached
+def check_splits(sp: int, sc: int, P: int, L: int) -> None:
+    """Refuse a split plan the split kernels refuse: between one split and
+    one tile a split of each kind present (none of a kind absent)."""
+    ntp, ntc = -(-P // TILE_KEYS), -(-L // TILE_KEYS)
+    if not ((ntp > 0) <= sp <= ntp and (ntc > 0) <= sc <= ntc):
+        raise _build.KernelError(f"decode_attention: the plan of {sp} prefix and {sc} cache "
+                                 f"splits does not fit {ntp} prefix and {ntc} cache tiles")
+
+
 # The split kernels' f32 workspace by (device, stream), grown to the largest
 # call so far (``_build.grown``).
 _workspaces: dict = {}
@@ -278,9 +331,10 @@ def _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) ->
     if valid.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"valid must be bool or uint8, got {valid.dtype}")
     tc = q.dtype == torch.bfloat16
-    if tc:
-        Dk = next(w for w in TC_WIDTHS if w >= D)
-        # Contiguous rows of a tensor-core width are whole 16-byte chunks;
+    f32_split = not tc and not multi  # decode_split_f32
+    if tc or f32_split:
+        Dk = next(w for w in (TC_WIDTHS if tc else F32_WIDTHS) if w >= D)
+        # Contiguous rows of an instantiated width are whole 16-byte chunks;
         # only where a tensor starts can be off.
         aligned = all(t.data_ptr() % 16 == 0 for t in [q, k, v] + list(shared_kv or ()))
     else:
@@ -301,15 +355,21 @@ def _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) ->
     stream = _build.current_stream(q.device)
     sp = sc = 0
     ws = None
-    if tc:
+    if tc or not multi:  # the split routes
         sms = _build.sm_count(q.device)
         if multi:
             sp, sc = verify_splits(B, Hkv, (H // Hkv) * Q, P, L, sms)
-        else:
+        elif tc:
             sp, sc = decode_splits(B, Hkv, H // Hkv, P, L, Dk, sms)
+        else:
+            sp, sc = decode_splits_f32(B, Hkv, H // Hkv, P, L, Dk, sms)
+        check_splits(sp, sc, P, L)
         if sp + sc > 1:
             ws = _workspace((sp + sc) * B * Q * H * (Dk + 2), q.device, stream)
-    fn = _build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
+    if f32_split:
+        fn = _build.function("decode_attention_f32", "decode_attention_f32_fwd", _ARGTYPES)
+    else:
+        fn = _build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
     kernel = ctypes.c_int(-1)
     status = fn(
         _DTYPES[q.dtype], int(quant), q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -319,7 +379,7 @@ def _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) ->
     )
     _build.check(status, "decode_attention")
     global launches, quant_launches, multi_launches, multi_quant_launches
-    global multi_tc_launches, decode_tc_launches
+    global multi_tc_launches, decode_tc_launches, decode_f32_launches
     if multi and quant:
         multi_quant_launches += 1
     elif multi:
@@ -330,4 +390,5 @@ def _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) ->
         launches += 1
     multi_tc_launches += kernel.value == _VERIFY_TC
     decode_tc_launches += kernel.value == _DECODE_TC
+    decode_f32_launches += kernel.value == _DECODE_F32
     return out if Dk == D else out[..., :D]

@@ -34,8 +34,14 @@ tensor-core kernel (decode_verify_tc), which, as the bf16 flash kernel,
 rounds P (times the v-scale over an int8 cache) to bf16 before P.V, and
 splits the keys across blocks; its partials are combined in a fixed order,
 so repeated calls agree bit for bit. A bf16 one-query call (K2, K2q) runs
-on decode_split_tc the same way, with prefix splits shared by the batch;
-float32 keeps the scalar decode_fwd.
+on decode_split_tc the same way, with prefix splits shared by the batch. A
+float32 one-query call (K2, K2q) runs on decode_split_f32, split and
+combined the same way on scalar f32 FMAs (a block one warp, empty cache
+tiles skipped), held to the float32 tolerance under every split plan, with
+its repeats bit for bit; a float32 verify window runs on decode_fwd. The
+float32 flash kernel (flash_fwd) takes 16, 32 or 64 query rows a block,
+whose key groups it folds in a fixed order: every row plan is held to the
+float32 tolerance with left pads and a window, and repeats bit for bit.
 """
 
 import pytest
@@ -70,6 +76,9 @@ def dev():
     (2, 32, 8, 200, 128, 48),  # llama head layout, sliding window
     (1, 4, 1, 64, 256, None),
     (2, 4, 2, 70, 99, None),   # rows of odd byte size: D padded by the wrapper
+    (1, 4, 2, 128, 32, None),  # the study checkpoints' prefix (tiny-llama's heads)
+    (184, 4, 4, 128, 32, None),  # phase 3's scoring forward (tiny-gpt2's heads)
+    (8, 4, 2, 640, 32, None),  # phase 2's listwise query: 20 key tiles a row
 ])
 def test_flash_kernel_matches_plain(dev, dtype, B, H, Hkv, S, D, window):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -129,6 +138,8 @@ def test_flash_tc_kernel_matches_plain(dev, B, H, Hkv, S, D, window, lens):
     (3, 32, 8, 77, 128, 37),   # prefix tile straddles the cache
     (2, 64, 2, 40, 96, 10),    # rep 32
     (4, 8, 2, 50, 99, 20),     # rows of odd byte size: D padded by the wrapper
+    (16, 4, 2, 160, 32, 128),  # the study sweep's step (tiny-llama's heads)
+    (8, 4, 4, 768, 32, 0),     # the served study pool (tiny-gpt2's heads)
 ])
 def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, L, D, P):
     g = torch.Generator(device=dev).manual_seed(1)
@@ -141,11 +152,12 @@ def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, L, D, P):
     if P:
         shared = (torch.randn(P, Hkv, D, generator=g, device=dev, dtype=dtype),
                   torch.randn(P, Hkv, D, generator=g, device=dev, dtype=dtype))
-    before, tc = dec_mod.launches, dec_mod.decode_tc_launches
+    before, tc, f32 = dec_mod.launches, dec_mod.decode_tc_launches, dec_mod.decode_f32_launches
     got = dec_mod.decode_attention(q, k, v, valid, shared)
     torch.cuda.synchronize()
     assert dec_mod.launches == before + 1
     assert dec_mod.decode_tc_launches == tc + (dtype == torch.bfloat16)
+    assert dec_mod.decode_f32_launches == f32 + (dtype == torch.float32)
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -222,11 +234,13 @@ def test_int8_cache_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, L, D, P):
     k, v, scales, shared = _cache(g, dev, dtype, B, L, Hkv, D, P, int8=True)
     valid = torch.rand(B, L, generator=g, device=dev) < 0.6
     valid[:, -1] = True
-    before, tc = dec_mod.quant_launches, dec_mod.decode_tc_launches
+    before, tc, f32 = (dec_mod.quant_launches, dec_mod.decode_tc_launches,
+                       dec_mod.decode_f32_launches)
     got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
     torch.cuda.synchronize()
     assert dec_mod.quant_launches == before + 1
     assert dec_mod.decode_tc_launches == tc + (dtype == torch.bfloat16)
+    assert dec_mod.decode_f32_launches == f32 + (dtype == torch.float32)
     want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
@@ -384,12 +398,13 @@ def test_int8_cache_tolerance_sees_one_dropped_key(dev, dtype):
     _outside_tolerance(dec_mod.decode_attention(q, k, v, dropped, shared, **scales), want, dtype)
 
 
-def _decode_inputs(dev, seed, B, rep, Hkv, L, D, P, int8):
-    """bf16 one-query inputs: row 0 sees every slot, row 1 (where B > 1) no
-    slot (with P = 0 its output is 0), the rest about 60% of theirs."""
+def _decode_inputs(dev, seed, B, rep, Hkv, L, D, P, int8, dtype=torch.bfloat16):
+    """One-query inputs (bf16 unless ``dtype``): row 0 sees every slot, row
+    1 (where B > 1) no slot (with P = 0 its output is 0), the rest about 60%
+    of theirs."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(B, rep * Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
-    k, v, scales, shared = _cache(g, dev, torch.bfloat16, B, L, Hkv, D, P, int8=int8)
+    q = torch.randn(B, rep * Hkv, D, generator=g, device=dev, dtype=dtype)
+    k, v, scales, shared = _cache(g, dev, dtype, B, L, Hkv, D, P, int8=int8)
     valid = torch.rand(B, L, generator=g, device=dev) < 0.6
     valid[0] = True
     if B > 1:
@@ -494,6 +509,157 @@ def test_decode_tc_repeats_bit_for_bit(dev, int8, B):
     first = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
     for i in range(50):
         got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+        assert torch.equal(got, first), f"call {i} differs from the first"
+
+
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+@pytest.mark.parametrize("P", [0, 40, 128])
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("D", [16, 32, 100, 128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 4, 32])
+def test_decode_f32_kernel_matches_plain(dev, rep, D, B, P, int8):
+    """decode_split_f32 (K2 over a float32 cache, K2q over an int8 cache) at
+    rep 1-32 (one or four row chunks of a cache block; prefix chunks of 8
+    of the B * rep rows), head widths 16-256 (16 and 100 padded to 32 and
+    128 by the wrapper), batch 1 and the sweep's 16, no
+    prefix, one ending mid-tile and the study's 128, and L = 150, not a
+    multiple of the 32-key tile."""
+    Hkv, L = 2, 150
+    q, k, v, valid, shared, scales = _decode_inputs(dev, rep + D + B + P, B, rep, Hkv, L, D, P,
+                                                    int8, dtype=F32)
+    counter = "quant_launches" if int8 else "launches"
+    before, f32 = getattr(dec_mod, counter), dec_mod.decode_f32_launches
+    got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+    torch.cuda.synchronize()
+    assert (getattr(dec_mod, counter), dec_mod.decode_f32_launches) == (before + 1, f32 + 1)
+    assert got.shape == q.shape
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
+    torch.testing.assert_close(got, want, **TOL[F32])
+    if P == 0 and B > 1:
+        assert not got[1].any()  # no key at all: exactly 0
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+@pytest.mark.parametrize("B,rep,Hkv,P,L,D", [(16, 2, 2, 128, 160, 32), (16, 1, 4, 128, 160, 32),
+                                             (8, 2, 2, 0, 768, 32), (4, 4, 2, 100, 150, 128),
+                                             (3, 32, 1, 40, 100, 64), (5, 8, 2, 96, 0, 64)])
+def test_decode_f32_every_split_plan_matches_plain(dev, monkeypatch, B, rep, Hkv, P, L, D,
+                                                   int8):
+    """Every split plan of decode_split_f32, the one-split case (no
+    combine) included, at the study sweep's and the served pool's shapes
+    among others: prefix splits shared by the batch, cache splits per row,
+    whole tiles with no valid slot (skipped), and a row with no valid slot."""
+    q, k, v, valid, shared, scales = _decode_inputs(dev, 24, B, rep, Hkv, L, D, P, int8,
+                                                    dtype=F32)
+    if L:
+        valid[-1, : L // 2] = False  # whole tiles with no valid slot
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
+    for plan in _decode_plans(P, L):
+        monkeypatch.setattr(dec_mod, "decode_splits_f32", lambda *a, _p=plan: _p)
+        got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+        torch.testing.assert_close(got, want, **TOL[F32], msg=lambda m, _p=plan: f"plan {_p}: {m}")
+        if P == 0 and B > 1:
+            assert not got[1].any()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+def test_decode_f32_refuses_a_bad_plan(dev, monkeypatch, int8):
+    """No fallback: a plan the kernel cannot take raises; nothing else runs."""
+    q, k, v, valid, shared, scales = _decode_inputs(dev, 25, 4, 2, 2, 150, 32, 96, int8,
+                                                    dtype=F32)
+    monkeypatch.setattr(dec_mod, "decode_splits_f32", lambda *a: (4, 1))  # 96 keys: 3 tiles
+    counts = lambda: (dec_mod.launches, dec_mod.quant_launches,  # noqa: E731
+                      dec_mod.decode_f32_launches)
+    before = counts()
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+    assert counts() == before
+
+
+@pytest.mark.parametrize("B,rep,Hkv,P,L", [(16, 2, 2, 128, 160), (8, 1, 4, 0, 768)],
+                         ids=["study_sweep", "served_pool"])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+def test_decode_f32_repeats_bit_for_bit(dev, int8, B, rep, Hkv, P, L):
+    """50 calls at the study sweep's and the served pool's shapes (split
+    keys, combined in a fixed order) agree bit for bit."""
+    q, k, v, valid, shared, scales = _decode_inputs(dev, 26, B, rep, Hkv, L, 32, P, int8,
+                                                    dtype=F32)
+    first = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+    for i in range(50):
+        got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+        assert torch.equal(got, first), f"call {i} differs from the first"
+
+
+def _flash_f32_inputs(dev, seed, B, H, Hkv, S, D, lens):
+    """float32 prefill inputs, q a head-major view of [B, S, H, D]; lens
+    "rand" (lengths in [1, S]), "one" (row 0 of length 1) or "pad" (row 0
+    at S / 4, row 1 at 5: query tiles wholly in the left padding)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=g, device=dev, dtype=F32).transpose(1, 2)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=F32).transpose(1, 2)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev, dtype=F32).transpose(1, 2)
+    lengths = torch.randint(1, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    if lens == "one":
+        lengths[0] = 1
+    elif lens == "pad":
+        lengths[:2] = torch.tensor([S // 4, 5], dtype=torch.int32)
+    return q, k, v, lengths
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,window,lens", [
+    (1, 4, 2, 128, 32, None, "rand"),   # the study's prefix
+    (8, 4, 2, 640, 32, None, "pad"),    # the listwise query: 20 key tiles a row
+    (3, 4, 4, 128, 32, 48, "one"),      # a window, a row of length 1
+    (2, 8, 2, 200, 64, None, "rand"),   # S ragged against every row plan
+    (2, 4, 2, 150, 100, 70, "pad"),     # D padded to 128, a window, left pads
+    (2, 4, 2, 96, 128, None, "one"),
+])
+def test_flash_f32_every_row_plan_matches_plain(dev, monkeypatch, B, H, Hkv, S, D, window,
+                                                lens):
+    """flash_fwd under every row plan that fits (16, 32, 64 query rows a
+    block; 4, 2, 1 key groups folded at the end) against the plain version:
+    left pads, query tiles wholly in the padding (exactly 0), a sliding
+    window, and rows of length 1."""
+    q, k, v, lengths = _flash_f32_inputs(dev, S + D, B, H, Hkv, S, D, lens)
+    want = flash_mod.flash_attention_reference(q, k, v, lengths, causal=True, window=window)
+    pad_rows = torch.arange(S, device=dev)[None, :] < (S - lengths.long())[:, None]
+    Dk = next(w for w in flash_mod.F32_WIDTHS if w >= D)
+    plans = [r for r in flash_mod.F32_ROWS
+             if flash_mod.flash_f32_smem(r, Dk) <= flash_mod._build.SMEM_PER_BLOCK]
+    for rows in plans:
+        monkeypatch.setattr(flash_mod, "flash_f32_rows", lambda *a, _r=rows: _r)
+        before, tc = flash_mod.launches, flash_mod.tc_launches
+        got = flash_mod.flash_attention(q, k, v, lengths, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert (flash_mod.launches, flash_mod.tc_launches) == (before + 1, tc)
+        torch.testing.assert_close(got, want, **TOL[F32],
+                                   msg=lambda m, _r=rows: f"{_r} rows a block: {m}")
+        assert not got.transpose(1, 2)[pad_rows].any()  # left-pad rows are exactly 0
+
+
+def test_flash_f32_refuses_a_bad_plan(dev, monkeypatch):
+    """No fallback: a row count the float32 kernel does not take raises;
+    nothing else runs."""
+    q, k, v, lengths = _flash_f32_inputs(dev, 27, 2, 4, 2, 128, 32, "rand")
+    monkeypatch.setattr(flash_mod, "flash_f32_rows", lambda *a: 48)
+    before = flash_mod.launches
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        flash_mod.flash_attention(q, k, v, lengths)
+    assert flash_mod.launches == before
+
+
+@pytest.mark.parametrize("B,S", [(1, 128), (8, 640), (184, 128)],
+                         ids=["study_prefix", "listwise", "scoring"])
+def test_flash_f32_repeats_bit_for_bit(dev, B, S):
+    """20 calls at the study's prefill shapes agree bit for bit (the key
+    groups are folded in a fixed order)."""
+    q, k, v, lengths = _flash_f32_inputs(dev, 28, B, 4, 2, S, 32, "rand")
+    first = flash_mod.flash_attention(q, k, v, lengths)
+    for i in range(20):
+        got = flash_mod.flash_attention(q, k, v, lengths)
         assert torch.equal(got, first), f"call {i} differs from the first"
 
 

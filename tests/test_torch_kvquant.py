@@ -180,7 +180,8 @@ def test_cpu_wrapper_takes_the_plain_versions_of_the_new_modes():
     offs = torch.tensor([3, 10, 19], dtype=torch.int32)
     counts = lambda: (dec_mod.launches, dec_mod.quant_launches,  # noqa: E731
                       dec_mod.multi_launches, dec_mod.multi_quant_launches,
-                      dec_mod.multi_tc_launches, dec_mod.decode_tc_launches)
+                      dec_mod.multi_tc_launches, dec_mod.decode_tc_launches,
+                      dec_mod.decode_f32_launches)
     before = counts()
     for args, kw in [((q3, qk, qv, valid), dict(k_scale=ks, v_scale=vs)),
                      ((q4, kf, kf, valid), dict(q_offsets=offs)),

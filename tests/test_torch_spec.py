@@ -41,7 +41,9 @@ from fairness_llm_tpu_torch.config import ModelSettings, SpeculationConfig  # no
 from fairness_llm_tpu_torch.models import configs as tconfigs  # noqa: E402
 from fairness_llm_tpu_torch.models import transformer as ttr  # noqa: E402
 from fairness_llm_tpu_torch.models.tokenizer import ByteTokenizer  # noqa: E402
+from fairness_llm_tpu_torch.ops import _build  # noqa: E402
 from fairness_llm_tpu_torch.ops import decode_attention as dec_mod  # noqa: E402
+from fairness_llm_tpu_torch.ops import flash_attention as flash_mod  # noqa: E402
 from fairness_llm_tpu_torch.pipeline.backends import EngineBackend  # noqa: E402
 from fairness_llm_tpu_torch.runtime import sampling as tsampling  # noqa: E402
 from fairness_llm_tpu_torch.runtime.engine import DecodeEngine  # noqa: E402
@@ -266,6 +268,131 @@ def test_decode_split_plan(D):
         # The study's batch of 48: 24 blocks a prefix split, 384 a cache split.
         assert dec_mod.decode_splits(48, 8, 4, 704, 160, D, sms) == (5, 1)  # 504
         assert dec_mod.decode_splits(48, 8, 4, 0, 960, D, sms) == (0, 1)  # 384
+
+
+def _runs(n: int, splits: int) -> list:
+    """The runs of whole tiles [t0, t1) the split kernels give ``splits``
+    splits over n tiles (per = ceil(n / splits); split i from i * per)."""
+    per = -(-n // splits) if splits else 0
+    return [(i * per, min(i * per + per, n)) for i in range(splits)]
+
+
+def _covered_once(n: int, splits: int) -> bool:
+    tiles = [t for t0, t1 in _runs(n, splits) for t in range(t0, t1)]
+    return sorted(tiles) == list(range(n))
+
+
+@pytest.mark.parametrize("D", dec_mod.F32_WIDTHS)
+def test_decode_split_f32_plan(D):
+    """decode_split_f32's plan (float32, one query per row, a warp a
+    block): every tile covered exactly once by runs of whole tiles of one
+    kind, no split left without a tile, within the kernel's bounds, as many
+    splits as one wave holds, and one split of each kind where none fits."""
+    sms = 132
+    rows = dec_mod.F32_PREFIX_ROWS
+    per_sm = min(dec_mod.F32_DECODE_BLOCKS_PER_SM,
+                 _build.SMEM_PER_SM // (dec_mod.f32_decode_smem(D) + 1024))
+    wave = per_sm * sms
+    for B, Hkv, rep, P, L in [(16, 2, 2, 128, 160), (16, 4, 1, 128, 160), (8, 2, 2, 0, 768),
+                              (8, 4, 1, 0, 768), (16, 8, 4, 704, 160), (16, 8, 4, 0, 960),
+                              (1, 8, 4, 704, 0), (3, 2, 32, 96, 150), (64, 8, 4, 704, 960),
+                              (512, 8, 4, 4096, 4096), (1, 1, 1, 0, 10)]:
+        ntp, ntc = -(-P // dec_mod.TILE_KEYS), -(-L // dec_mod.TILE_KEYS)
+        sp, sc = dec_mod.decode_splits_f32(B, Hkv, rep, P, L, D, sms)
+        dec_mod.check_splits(sp, sc, P, L)  # the wrapper's own check passes its plan
+        assert _covered_once(ntp, sp) and _covered_once(ntc, sc)
+        assert all(t1 > t0 for t0, t1 in _runs(ntp, sp) + _runs(ntc, sc))
+        pre, cache = Hkv * -(-B * rep // rows), B * Hkv * -(-rep // rows)
+        fits = sp * pre + sc * cache <= wave
+        assert fits or (sp, sc) == (int(ntp > 0), int(ntc > 0))
+        for run in range(1, max(ntp, ntc) + 1):
+            more = (-(-ntp // run), -(-ntc // run))
+            assert sum(more) <= sp + sc or more[0] * pre + more[1] * cache > wave
+    if D == 32:
+        # The study checkpoints (head width 32, f32): 8 one-warp blocks an
+        # SM, 1,056 a wave. The phase-1 sweep's step, q [16, 4, 32] over a
+        # 128-slot prefix and a 160-slot cache: every tile its own split
+        # (4 prefix splits of 8 blocks, 8 rows of a kv head each; 5 cache
+        # splits of 32 or 64 blocks): 192 and 352 blocks.
+        assert wave == 1056
+        assert dec_mod.decode_splits_f32(16, 2, 2, 128, 160, D, sms) == (4, 5)  # tiny-llama
+        assert dec_mod.decode_splits_f32(16, 4, 1, 128, 160, D, sms) == (4, 5)  # tiny-gpt2
+        # The served study pool, q [8, 4, 32] over 768 slots, no prefix: 24
+        # cache splits of 16 or 32 blocks (384 and 768).
+        assert dec_mod.decode_splits_f32(8, 2, 2, 0, 768, D, sms) == (0, 24)
+        assert dec_mod.decode_splits_f32(8, 4, 1, 0, 768, D, sms) == (0, 24)
+    if D == 128:
+        # llama3-8b's float32 gates at batch 16: three blocks an SM (72 KB
+        # each), 396 a wave; 64 blocks a prefix split, 128 a cache split.
+        assert wave == 396
+        assert dec_mod.decode_splits_f32(16, 8, 4, 704, 160, D, sms) == (4, 1)  # 384
+        assert dec_mod.decode_splits_f32(16, 8, 4, 0, 960, D, sms) == (0, 3)  # 384
+
+
+@pytest.mark.parametrize("sp,sc,P,L", [(4, 1, 96, 150), (0, 5, 96, 150), (1, 0, 96, 150),
+                                       (1, 6, 96, 150), (1, 1, 0, 150), (0, 0, 0, 150),
+                                       (-1, 5, 0, 150)])
+def test_split_plan_refused(sp, sc, P, L):
+    """No fallback: the wrapper refuses a plan the split kernels cannot
+    take (more splits than tiles, a missing or extra kind, none at all)."""
+    with pytest.raises(RuntimeError, match="decode_attention: the plan"):
+        dec_mod.check_splits(sp, sc, P, L)
+
+
+@pytest.mark.parametrize("D", flash_mod.F32_WIDTHS)
+def test_flash_f32_rows_plan(D):
+    """flash_fwd's plan: query tiles of 16, 32 or 64 rows cover every row
+    exactly once, the 64 / rows key groups of a block walk every key tile
+    of its causal band exactly once, a block's shared memory fits, and the
+    plan has the fewest waves times (steps + a block's own cost), a tie
+    going to more rows."""
+    sms = 132
+    for B, H, S in [(1, 4, 128), (184, 4, 128), (24, 4, 128), (8, 4, 640), (32, 4, 128),
+                    (8, 4, 256), (1, 4, 320), (16, 32, 896), (3, 8, 77), (1, 1, 1)]:
+        rows = flash_mod.flash_f32_rows(B, H, S, D, sms)
+        flash_mod.check_rows(rows, D)  # the wrapper's own check passes its plan
+        qtiles = [(q0, min(q0 + rows, S)) for q0 in range(0, S, rows)]
+        assert sorted(i for a, b in qtiles for i in range(a, b)) == list(range(S))
+        kg = 64 // rows
+        for q0, q1 in qtiles:
+            ntiles = -(-q1 // 32)  # causal, no padding: tiles 0 .. (q1 - 1) // 32
+            walked = [s * kg + g for s in range(-(-ntiles // kg)) for g in range(kg)
+                      if s * kg + g < ntiles]
+            assert walked == list(range(ntiles))
+        costs = {}
+        for r in flash_mod.F32_ROWS:
+            smem = flash_mod.flash_f32_smem(r, D)
+            if smem <= _build.SMEM_PER_BLOCK:
+                wave = sms * min(flash_mod.F32_BLOCKS_PER_SM,
+                                 _build.SMEM_PER_SM // (smem + 1024))
+                steps = -(-(-(-S // 32)) // (64 // r)) + flash_mod.F32_BLOCK_STEPS
+                costs[r] = -(-B * H * -(-S // r) // wave) * steps
+        assert rows in costs and costs[rows] == min(costs.values())
+        assert all(costs[r] > costs[rows] for r in costs if r > rows)
+    if D == 32:
+        # The study checkpoints' float32 prefills, 2 blocks an SM (264 a
+        # wave): the sweep's prefix, one row of 128 over 4 heads, in 32
+        # blocks of 16 rows (64-row tiles made 8) whose 4 key groups share
+        # its 4 tiles; phase 2's listwise query [8, 4, 640] in blocks of 16
+        # rows too, whose key groups walk its 20 tiles in 5 steps; phase
+        # 3's scoring [184, 4, 128] in 1,472 blocks of 64 rows; the served
+        # prefill [8, 4, 256] in 32-row blocks.
+        assert flash_mod.flash_f32_rows(1, 4, 128, D, sms) == 16
+        assert flash_mod.flash_f32_rows(8, 4, 640, D, sms) == 16
+        assert flash_mod.flash_f32_rows(184, 4, 128, D, sms) == 64
+        assert flash_mod.flash_f32_rows(8, 4, 256, D, sms) == 32
+    if D == 256:
+        # At D = 256 only 64-row blocks (133 KB) fit: 16 rows take 532 KB,
+        # 32 rows 266 KB.
+        assert flash_mod.flash_f32_rows(1, 4, 128, D, sms) == 64
+
+
+@pytest.mark.parametrize("rows,D", [(8, 32), (48, 32), (128, 32), (16, 256), (0, 64)])
+def test_flash_f32_rows_refused(rows, D):
+    """No fallback: a row count the float32 kernel does not take, or whose
+    block does not fit in shared memory, is refused."""
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        flash_mod.check_rows(rows, D)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""Time the port's float32 attention kernels (K1's ``flash_fwd``, K2's
+one-query route) at the study checkpoints' shapes, in one or more checkouts
+side by side on one card.
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 tools/torch_f32_attention_ab.py [ROOT ...] [--plans] [--trace] [--out FILE]
+
+Each ROOT (default: this checkout) runs in a child process of its own, in
+the order given, with its own package and its own kernel build, so
+``python3 tools/torch_f32_attention_ab.py build/ab/parent . . build/ab/parent``
+holds two checkouts against each other in turns (unpack the parent with
+``git archive`` into a gitignored directory). The shapes, inputs drawn from
+seed 0 on the card:
+
+- K2 f32: the phase-1 sweep's decode step, q [16, 4, 32] over a 128-slot
+  shared prefix and a 160-slot cache of 2 kv heads (tiny-llama-study) and
+  of 4 (tiny-gpt2-study), row b's valid slots a run [s_b, 128) with s_b in
+  [0, 24); the served study pool, q [8, 4, 32] over 768 slots and no
+  prefix, row b's first n_b slots valid with n_b in [150, 270] (about the
+  pool's 1,680 of 6,144);
+- K1 f32: the sweep's prefix, q [1, 4, 128, 32]; phase 3's scoring forward,
+  q [184, 4, 128, 32], lengths in [40, 128]; phase 2's listwise query, q
+  [8, 4, 640, 32], lengths in [180, 260].
+
+Each row is checked against its plain version (|err| <= 1e-4), timed over
+200 launches with CUDA events behind a device sleep (the device's time a
+call; two launches where the call splits and combines), and its host
+microseconds a call taken with the device asleep. With ``--plans``, in a
+checkout whose wrappers plan the float32 kernels (``flash_f32_rows``,
+``decode_splits_f32``), each K1 row is also timed under every row plan
+and each K2 row under one split of each kind (``plan`` in the row; the
+wrapper's own plan is the row without it). With ``--trace``, each row's
+device time a call by CUDA kernel (``kernels_us``, from a torch.profiler
+capture of 20 calls). One JSON line a row (its checkout, kernel, shape,
+plan, ms, host_us, max_abs_err), then the card's name and power limit.
+Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+CHILD = r"""
+import json, sys, time
+import torch
+sys.path.insert(0, ".")
+from fairness_llm_tpu_torch.ops import _build
+from fairness_llm_tpu_torch.ops import decode_attention as dm
+from fairness_llm_tpu_torch.ops import flash_attention as fm
+
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build([n for n in ("flash_attention", "decode_attention", "decode_attention_f32")
+              if (_build.CSRC / f"{n}.cu").exists()])
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+
+
+def rnd(*shape):
+    return torch.randn(*shape, generator=g, device=dev)
+
+
+def cuda_ms(fn, iters=200):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000 * iters)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=200):
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000 * iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return dt
+
+
+PLANS, TRACE = "--plans" in sys.argv, "--trace" in sys.argv
+
+
+def kernels_us(call, n=20):
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return {e.key[:48]: e.device_time_total / n for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def row(kernel, shape, call, plain, plan=None):
+    err = float((call() - plain()).abs().max())
+    r = {"kernel": kernel, "shape": shape, "plan": plan, "ms": cuda_ms(call),
+         "host_us": host_us(call), "max_abs_err": err, "ok": err <= 1e-4}
+    if TRACE:
+        r["kernels_us"] = kernels_us(call)
+    print(json.dumps(r), flush=True)
+
+
+def planned(mod, planner, plans, kernel, shape, call, plain):
+    # The row under the wrapper's plan, then (--plans) under each of plans,
+    # the planner replaced.
+    row(kernel, shape, call, plain)
+    if not PLANS or not hasattr(mod, planner):
+        return
+    saved = getattr(mod, planner)
+    try:
+        for plan in plans:
+            setattr(mod, planner, lambda *a, _p=plan: _p)
+            row(kernel, shape, call, plain, plan)
+    finally:
+        setattr(mod, planner, saved)
+
+
+def decode(name, B, H, Hkv, L, P, valid):
+    q, k, v = rnd(B, H, 32), rnd(B, L, Hkv, 32), rnd(B, L, Hkv, 32)
+    shared = (rnd(P, Hkv, 32), rnd(P, Hkv, 32)) if P else None
+    planned(dm, "decode_splits_f32", [(int(P > 0), 1)], "decode_attention_f32",
+            {"name": name, "q": [B, H, 32], "k": [B, L, Hkv, 32], "prefix": P,
+             "visible_slots": int(valid.sum())},
+            lambda: dm.decode_attention(q, k, v, valid, shared),
+            lambda: dm.decode_attention_reference(q, k, v, valid, shared))
+
+
+slots = torch.arange(160, device=dev)[None, :]
+start = torch.randint(0, 24, (16, 1), generator=g, device=dev)
+sweep_valid = (slots >= start) & (slots < 128)
+for name, hkv in (("study_sweep_llama", 2), ("study_sweep_gpt2", 4)):
+    decode(name, 16, 4, hkv, 160, 128, sweep_valid)
+n = torch.randint(150, 271, (8, 1), generator=g, device=dev)
+pool_valid = torch.arange(768, device=dev)[None, :] < n
+for name, hkv in (("served_pool_llama", 2), ("served_pool_gpt2", 4)):
+    decode(name, 8, 4, hkv, 768, 0, pool_valid)
+
+for name, B, S, lo, hi in (("study_prefix", 1, 128, 128, 128), ("scoring", 184, 128, 40, 128),
+                           ("listwise", 8, 640, 180, 260)):
+    q, k, v = rnd(B, 4, S, 32), rnd(B, 2, S, 32), rnd(B, 2, S, 32)
+    lengths = torch.randint(lo, hi + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    planned(fm, "flash_f32_rows", [16, 32, 64], "flash_attention_f32",
+            {"name": name, "q": [B, 4, S, 32], "k": [B, 2, S, 32],
+             "valid_rows": int(lengths.sum())},
+            lambda: fm.flash_attention(q, k, v, lengths),
+            lambda: fm.flash_attention_reference(q, k, v, lengths))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="*", default=[str(ROOT)])
+    ap.add_argument("--plans", action="store_true", help="time every plan of the new planners")
+    ap.add_argument("--trace", action="store_true", help="device time a call by CUDA kernel")
+    ap.add_argument("--out", default=None, help="also write every row here as JSON lines")
+    args = ap.parse_args()
+    rows = []
+    for turn, root in enumerate(args.roots):
+        flags = [f for f, on in (("--plans", args.plans), ("--trace", args.trace)) if on]
+        res = subprocess.run([sys.executable, "-c", CHILD, *flags], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stderr[-4000:], file=sys.stderr)
+            return res.returncode
+        for line in res.stdout.splitlines():
+            if line.startswith("{"):
+                r = {"root": root, "turn": turn, **json.loads(line)}
+                rows.append(r)
+                print(json.dumps(r), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    if args.out:
+        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return 0 if all(r["ok"] for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
