@@ -87,12 +87,15 @@ path's launch counts are set to 0 just before it and read just after:
      kernel may launch, and every kernel call of the gates is held against
      its plain version at float32's 1e-4 with phase 6's blind checks: K1 f32
      (flash_fwd) and K2 f32 (decode_split_f32) as the f32 entries'
-     ``gate_shapes``, and the three float32 routes no other phase runs, the
-     verify window (decode_fwd) over a float and an int8 cache and the
-     one-query call over an int8 cache (decode_split_f32), as entries of
-     their own (``decode_attention_verify_f32``,
-     ``decode_attention_verify_f32_int8_cache``,
-     ``decode_attention_f32_int8_cache``);
+     ``gate_shapes``, the verify window over a float cache
+     (verify_split_f32) as ``decode_attention_verify_f32``'s, and the two
+     float32 routes no other phase runs, the verify window over an int8
+     cache (verify_split_f32) and the one-query call over an int8 cache
+     (decode_split_f32), as entries of their own
+     (``decode_attention_verify_f32_int8_cache``,
+     ``decode_attention_f32_int8_cache``); every verify launch must be one
+     the C entry reports as verify_split_f32's, and its repeats must agree
+     bit for bit;
   int8-weight path (llama3-8b-int8; K4 int8-weight matmul, GEMV and GEMM
   regimes, with K1 and K2), after the bf16 engines are freed:
  14. build the engine; the memory it allocates must stay within 5% of its
@@ -112,7 +115,13 @@ path's launch counts are set to 0 just before it and read just after:
      the K4 GEMV kernel's device ms and launches a step beside K2's;
  18. the teacher-forced check of phase 9 with K4 swapped for its plain
      version too: reported in bf16 at 32 layers, held to 1e-3 in float32
-     at 4 layers.
+     at 4 layers; in float32, with a shared-prefix greedy call of the 16
+     prompts after it (4 new tokens: the decode steps at M = 16), every K4
+     call is recorded and counted (``quant_matmul.f32_launches``: K4's
+     float32 route, f32_kernel, then splitk_reduce where it splits K) and
+     held against its plain version at 1e-4 + 3e-5 * |plain| (as
+     tests/test_torch_cuda.py holds it) with phase 16's blind check: the
+     ``quant_matmul_f32`` entry.
   the phase-1 sweep (``backend_for`` and ``run_phase1``, the user's entry
   points), after the int8 engine is freed:
  19. on tiny-llama-study and tiny-gpt2-study at the study's settings (45
@@ -422,7 +431,8 @@ path's launch counts are set to 0 just before it and read just after:
      in float32 (the same int8 weights, float32 activations) within 1e-3
      of the largest logit, in bf16 reported; one speculative greedy engine
      call of 16 tokens launching K3 on its tensor-core kernel; rank 0 alone
-     writes files.
+     writes files; the float32 tp=2 forward's K4 calls (K4's float32 route
+     over the rank's shards) recorded and held as phase 18 holds them.
      Each rank holds every kernel call no earlier phase (or the other rank)
      held against its plain version, at the ranks' local shapes. Then one
      rank on NCCL runs the same sweep code at tp=1. (b) On an sp=2 mesh of
@@ -437,6 +447,20 @@ path's launch counts are set to 0 just before it and read just after:
      byte; then llama3-8b at full width cut to 8 layers in bf16 (params,
      grads and AdamW moments), remat, 4 steps on one fixed batch: the loss
      must fall; step ms, peak memory and the card's clock and power logged.
+  the study's speculative sweep (``--speculate``), after phase 31:
+ 32. on tiny-llama-study and tiny-gpt2-study, phase 20's greedy sweep with
+     greedy prompt-lookup speculation (draft 8, n-gram 3) through
+     ``backend_for`` and ``run_phase1``: every decode step a float32 verify
+     window, each launch on verify_split_f32 (counted by the kernel the C
+     entry reports; no tensor-core kernel may launch), every engine call's
+     rows equal to phase 20's greedy card rows (a row may part only at a
+     near tie), the record then equal to phase 20's; each verify call held
+     against its plain version at 1e-4 with phase 6's blind check and its
+     repeats bit for bit; the sweeps' wall, tokens per verify step and
+     acceptance rate logged (``spec_study`` lines). These sweeps are the
+     ``decode_attention_verify_f32`` entry's main path (its launches and
+     shapes); phase 13's calls at llama3-8b's width are its
+     ``gate_launches`` and ``gate_shapes``.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Every attention row carries ``floor_ms``,
@@ -469,8 +493,12 @@ path's launch counts are set to 0 just before it and read just after:
   ``dp_launches`` ("study_rank<r>", FULL_WIDTH + "_rank<r>") and the rows
   its ranks held as ``dp_shapes``; and phase 31's launches in each rank's
   runs as ``tp_launches`` ("study_tp<k>_rank<r>", FULL_WIDTH +
-  "_tp2_rank<r>", and K3's "spec_tp2_rank<r>") and the rows its ranks held
-  at their local shapes as ``tp_shapes``.
+  "_tp2_rank<r>", K3's "spec_tp2_rank<r>" and K4 f32's
+  "f32_logits_tp2_rank<r>") and the rows its ranks held at their local
+  shapes as ``tp_shapes``; and phase 32's launches as
+  ``spec_sweep_launches`` ("spec_<model>") and its rows as
+  ``spec_sweep_shapes``. K4's float32 route is the ``quant_matmul_f32``
+  entry (f32_kernel, splitk_reduce its second launch), held at phase 18.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -502,12 +530,20 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # most 2^-9 of the row's largest weight, which is 1).
 ATOL, RTOL = 4e-3, 1e-2
 # Kernel against plain version on float32 inputs (K1's flash_fwd, K2's
-# decode_split_f32, K3's decode_fwd; no TF32 on either side): they differ in summation order only,
-# and are held to the float32 allowance of tests/test_torch_cuda.py.
+# decode_split_f32, K3's verify_split_f32; no TF32 on either side): they
+# differ in summation order only, and are held to the float32 allowance of
+# tests/test_torch_cuda.py.
 ATOL_F32, RTOL_F32 = 1e-4, 0.0
+# K4 on float32 x (f32_kernel) against its plain version, as
+# tests/test_torch_cuda.py holds it: 1e-4 + 3e-5 * |plain| (sums over K up
+# to 14,336 in another order).
+ATOL_K4F32, RTOL_K4F32 = 1e-4, 3e-5
 # The profiled calls' new tokens (16 until the fleet's phase 28 came in; 8
 # keep the script under half its time limit).
 PROFILE_TOKENS = 8
+# New tokens of phase 18's float32 greedy call, whose decode steps give K4's
+# float32 route its M = 16 calls.
+F32_K4_TOKENS = 4
 # K2/K2q are also timed at the phase-1 sweep's own batch (45 profiles
 # bucketed to 48): reported, not gated.
 STUDY_BATCH = 48
@@ -525,6 +561,7 @@ K4_REPLACES = "fairness_llm_tpu/ops/quant_matmul.py:159"
 K1_SOURCE = "fairness_llm_tpu_torch/ops/csrc/flash_attention.cu"
 K2_SOURCE = "fairness_llm_tpu_torch/ops/csrc/decode_attention.cu"
 K2F32_SOURCE = "fairness_llm_tpu_torch/ops/csrc/decode_attention_f32.cu"
+K3F32_SOURCE = "fairness_llm_tpu_torch/ops/csrc/decode_verify_f32.cu"
 K4_SOURCE = "fairness_llm_tpu_torch/ops/csrc/quant_matmul.cu"
 # The CUDA kernel each entry's wrapper launches on this path's inputs; the
 # note at the top of its source describes the design.
@@ -539,13 +576,16 @@ KERNEL_FUNCTIONS = {
     "flash_attention_f32": "flash_fwd",
     "decode_attention_f32": "decode_split_f32",
     "decode_attention_f32_int8_cache": "decode_split_f32",
-    "decode_attention_verify_f32": "decode_fwd",
-    "decode_attention_verify_f32_int8_cache": "decode_fwd",
+    "decode_attention_verify_f32": "verify_split_f32",
+    "decode_attention_verify_f32_int8_cache": "verify_split_f32",
+    "quant_matmul_f32": "f32_kernel",
 }
-# The split routes' second launch, where a call splits its keys: it folds
-# the splits' partials (KERNEL_FUNCTIONS' decode_split_tc, decode_verify_tc
-# and decode_split_f32 entries).
-COMBINE_FUNCTION = "combine_splits"
+# A kernel's second launch, where a call splits its work: combine_splits
+# folds the split attention routes' partials, splitk_reduce sums the float32
+# K4 route's K splits.
+COMBINE_FUNCTIONS = {"decode_split_tc": "combine_splits", "decode_verify_tc": "combine_splits",
+                     "decode_split_f32": "combine_splits", "verify_split_f32": "combine_splits",
+                     "f32_kernel": "splitk_reduce"}
 # The int8 engine's allocation may exceed its tree by this share at most.
 MEM_SLACK = 0.05
 WATCHED = [
@@ -684,10 +724,11 @@ def tolerance(f32: bool) -> tuple:
     return (ATOL_F32, RTOL_F32) if f32 else (ATOL, RTOL)
 
 
-def gate(got, want, f32: bool = False):
+def gate(got, want, f32: bool = False, tol=None):
     """(max |got - want|, the largest error over its allowance atol + rtol *
-    |want| from ``tolerance(f32)``); the second is <= 1 where the two agree."""
-    atol, rtol = tolerance(f32)
+    |want| from ``tol`` or ``tolerance(f32)``); the second is <= 1 where the
+    two agree."""
+    atol, rtol = tol or tolerance(f32)
     err = (got.float() - want.float()).abs()
     return float(err.max()), float((err / (atol + rtol * want.float().abs())).max())
 
@@ -875,6 +916,9 @@ def decode_numbers(call, torch, F):
     got = run()
     want = dm.decode_attention_reference(q, k, v, valid, **kw)
     err, ratio = gate(got, want, f32)
+    # The float32 verify window's splits are folded in a fixed order: two
+    # more calls must equal the first bit for bit.
+    repeats = all(torch.equal(run(), got) for _ in range(2)) if f32 and multi else None
     if multi:
         # Every q_offset lowered by one: each query loses its own slot.
         _, blind_ratio = gate(run(q_offsets=offs - 1), want, f32)
@@ -935,7 +979,8 @@ def decode_numbers(call, torch, F):
         "splits": decode_plan(dm, q, k, P, multi, torch), "floor_ms": launch_floor_ms(torch),
         "tol": tolerance(f32),
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio,
-        "ok": ratio <= 1, "blind_gate_err_over_tol": blind_ratio,
+        "ok": ratio <= 1 and repeats is not False, "repeats_equal": repeats,
+        "blind_gate_err_over_tol": blind_ratio,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "host_us": wrapper_host_us,
         "library_call": "F.scaled_dot_product_attention over [prefix; cache] with a boolean mask"
                         + (", k/v dequantized beforehand" if quant else ""),
@@ -946,9 +991,9 @@ def decode_numbers(call, torch, F):
 
 
 def decode_plan(dm, q, k, P: int, multi: bool, torch):
-    """(prefix splits, cache splits) the wrapper plans for a call of a
-    split route (None for the float32 verify window, which does not
-    split), at the head width it pads D to."""
+    """(prefix splits, cache splits) the wrapper plans for a call, at the
+    head width it pads D to; for the float32 verify window (rows a block,
+    prefix splits, cache splits)."""
     from fairness_llm_tpu_torch.ops import _build
 
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
@@ -959,9 +1004,9 @@ def decode_plan(dm, q, k, P: int, multi: bool, torch):
         if multi:
             return list(dm.verify_splits(B, Hkv, H // Hkv * q.shape[1], P, L, sms))
         return list(dm.decode_splits(B, Hkv, H // Hkv, P, L, Dk, sms))
-    if multi:
-        return None
     Dk = next(w for w in dm.F32_WIDTHS if w >= D)
+    if multi:
+        return list(dm.verify_splits_f32(B, Hkv, H // Hkv * q.shape[1], P, L, Dk, sms))
     return list(dm.decode_splits_f32(B, Hkv, H // Hkv, P, L, Dk, sms))
 
 
@@ -980,6 +1025,8 @@ def k4_numbers(call, torch, flush):
     M, K = x.shape
     extras = M <= qm.GEMV_MAX_M
     Ns = [wq.shape[1] for wq, _ in mats]
+    f32 = x.dtype == torch.float32
+    tol = (ATOL_K4F32, RTOL_K4F32) if f32 else tolerance(False)
 
     def run(xx):
         if grouped:
@@ -990,12 +1037,12 @@ def k4_numbers(call, torch, flush):
         return [qm.quant_matmul_reference(x, wq, scale, od) for wq, scale in mats]
 
     want = plain()
-    errs = [gate(g, w) for g, w in zip(run(x), want)]
+    errs = [gate(g, w, tol=tol) for g, w in zip(run(x), want)]
     # The kernel on x with its last 32 columns zeroed: the gate must see a
     # kernel that drops its last k tile (32 or 64 wide), in every output.
     cut = x.clone()
     cut[:, -32:] = 0
-    cut_ratio = min(gate(g, w)[1] for g, w in zip(run(cut), want))
+    cut_ratio = min(gate(g, w, tol=tol)[1] for g, w in zip(run(cut), want))
     del want, cut
     flops = 2.0 * M * K * sum(Ns)
     iters = 5 if flops > 1e12 else 20
@@ -1032,7 +1079,10 @@ def k4_numbers(call, torch, flush):
         "shape": {"M": M, "K": K, "N": Ns if grouped else Ns[0], "x": str(x.dtype)[6:],
                   "out": str(od)[6:], **({"group": len(mats)} if grouped else {})},
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
-        "blind_gate_err_over_tol": cut_ratio, "tol": tolerance(False),
+        "blind_gate_err_over_tol": cut_ratio, "tol": tol,
+        # float32 x: K split across blocks (then splitk_reduce) in the GEMV
+        # regime, one split in the GEMM regime
+        **({"k_splits": qm.gemv_splits(M, K, sum(Ns))[0] if extras else 1} if f32 else {}),
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": "torch.matmul(x, weight dequantized to x's dtype"
                         + (", the group's side by side)" if grouped else ")"),
@@ -1197,6 +1247,8 @@ def check_rows(name: str, rows, blind: str) -> None:
             fail(f"{name} disagrees with its plain version at {r['shape']}: "
                  f"max_abs_err {r['max_abs_err']}, {r['err_over_tol']:.2f}x the "
                  f"tolerance {atol} + {rtol} * |plain|")
+        if r.get("repeats_equal") is False:
+            fail(f"{name} at {r['shape']}: repeated calls on one input differ")
         if r["blind_gate_err_over_tol"] <= 1:
             fail(f"{name} at {r['shape']}: {blind} stays within the tolerance "
                  f"({r['blind_gate_err_over_tol']:.2f}x); the gate is blind")
@@ -1206,11 +1258,11 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, rows) -> 
     """The kernels-line entry: the headline row is the shape the main path
     launched most (ties: the larger one); every shape is under "shapes"."""
     top = max(rows, key=lambda r: (r["calls"], r["bytes"]))
-    split = KERNEL_FUNCTIONS[name] in ("decode_split_tc", "decode_verify_tc", "decode_split_f32")
+    second = COMBINE_FUNCTIONS.get(KERNEL_FUNCTIONS[name])
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "kernel_function": KERNEL_FUNCTIONS[name],
-        **({"combine_function": COMBINE_FUNCTION} if split else {}), "launches": launches,
+        **({"combine_function": second} if second else {}), "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": top["library_ms"], "shapes": rows,
@@ -1341,6 +1393,7 @@ def decode_counts(dec_mod) -> dict:
             "decode_attention_verify": dec_mod.multi_launches,
             "decode_attention_verify_int8_cache": dec_mod.multi_quant_launches,
             "decode_attention_verify_tc": dec_mod.multi_tc_launches,
+            "decode_attention_verify_split_f32": dec_mod.verify_f32_launches,
             "decode_attention_tc": dec_mod.decode_tc_launches}
 
 
@@ -1348,7 +1401,7 @@ def zero_counts(dec_mod, flash_mod) -> None:
     flash_mod.launches = flash_mod.tc_launches = 0
     dec_mod.launches = dec_mod.quant_launches = 0
     dec_mod.multi_launches = dec_mod.multi_quant_launches = dec_mod.multi_tc_launches = 0
-    dec_mod.decode_tc_launches = dec_mod.decode_f32_launches = 0
+    dec_mod.decode_tc_launches = dec_mod.decode_f32_launches = dec_mod.verify_f32_launches = 0
 
 
 def one_query_counts(dec_mod) -> tuple:
@@ -1526,7 +1579,7 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
     # and plain versions then differ only in summation order. Every kernel
     # call of the gates is recorded, counted and held against its plain
     # version: the float cache's (K1 f32, K2 f32 on decode_split_f32, the
-    # verify window on decode_fwd), then the int8 cache's.
+    # verify window on verify_split_f32), then the int8 cache's.
     small = DecodeEngine(dataclasses.replace(cfg, num_layers=4, dtype="float32"), seed=0)
     rec_k1, rec_f = flash_recorder(flash_mod), decode_recorder(dec_mod)
     zero_counts(dec_mod, flash_mod)
@@ -1562,14 +1615,14 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
                                      "rows": decode_rows(rec_f, "k2", "decode_attention_f32",
                                                          torch, F, newest)}}
     kernels += [
-        kernel_entry("decode_attention_verify_f32", K2_SOURCE, K3_REPLACES,
+        kernel_entry("decode_attention_verify_f32", K3F32_SOURCE, K3_REPLACES,
                      f32_launches["decode_attention_verify_f32"],
                      decode_rows(rec_f, "k3", "decode_attention_verify_f32", torch, F, lowered)),
         kernel_entry("decode_attention_f32_int8_cache", K2F32_SOURCE, K2Q_REPLACES,
                      q_launches["decode_attention_f32_int8_cache"],
                      decode_rows(rec_q, "k2q", "decode_attention_f32_int8_cache", torch, F,
                                  newest)),
-        kernel_entry("decode_attention_verify_f32_int8_cache", K2_SOURCE, K3Q_REPLACES,
+        kernel_entry("decode_attention_verify_f32_int8_cache", K3F32_SOURCE, K3Q_REPLACES,
                      q_launches["decode_attention_verify_f32_int8_cache"],
                      decode_rows(rec_q, "k3q", "decode_attention_verify_f32_int8_cache", torch, F,
                                  lowered)),
@@ -1580,14 +1633,26 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
     return kernels, gate
 
 
+def verify_f32_counts(dec_mod) -> int:
+    """verify_split_f32's launches since the counts were zeroed: every
+    verify window of a float32 model (either cache) must be one the C entry
+    reports as verify_split_f32's, and none may run on decode_verify_tc."""
+    multi = dec_mod.multi_launches + dec_mod.multi_quant_launches
+    if dec_mod.verify_f32_launches != multi or dec_mod.multi_tc_launches:
+        fail(f"{multi} float32 verify-window launches, of which {dec_mod.verify_f32_launches} "
+             f"on verify_split_f32 and {dec_mod.multi_tc_launches} on decode_verify_tc")
+    return multi
+
+
 def f32_gate_counts(dec_mod, flash_mod) -> dict:
     """Phase 13's launches by kernels-line entry: a float32 model runs no
-    tensor-core kernel, and each of its one-query launches (either cache)
-    is decode_split_f32's."""
+    tensor-core kernel, each of its one-query launches (either cache) is
+    decode_split_f32's and each verify window verify_split_f32's."""
     tc, f32 = one_query_counts(dec_mod)
-    if tc or flash_mod.tc_launches or dec_mod.multi_tc_launches:
+    verify_f32_counts(dec_mod)
+    if tc or flash_mod.tc_launches:
         fail(f"a float32 gate ran a tensor-core kernel: flash {flash_mod.tc_launches}, "
-             f"decode {tc}, verify {dec_mod.multi_tc_launches}")
+             f"decode {tc}")
     launches = {"flash_attention_f32": flash_mod.launches,
                 "decode_attention_f32": dec_mod.launches,
                 "decode_attention_f32_int8_cache": dec_mod.quant_launches,
@@ -1775,15 +1840,47 @@ def int8_path(torch, prompts, keys, greedy, sampled):
                                focus=K2_FOCUS + K4_FOCUS)
     log(f"profile_int8_shared_prefix_greedy {json.dumps(prof_row)}")
 
-    # 18. end-to-end check with K4 swapped for its plain version too
+    # 18. end-to-end check with K4 swapped for its plain version too; in
+    # float32 every K4 call (f32_kernel, splitk_reduce where it splits K) is
+    # recorded, counted and held against its plain version: the check's
+    # prefill and steps at batch 4, then a shared-prefix greedy call of the
+    # 16 prompts (the prefix's prefill, the rows' suffix, steps at M = 16)
     teacher_forced_gate(engine, prompts, torch, "int8_", cfg.vocab_size)
     del engine, backend
     torch.cuda.empty_cache()
     small = DecodeEngine(dataclasses.replace(cfg, num_layers=4, dtype="float32"), seed=0)
-    teacher_forced_gate(small, prompts, torch, "int8_", cfg.vocab_size, f32=True)
+    rec4f = k4_recorders(qm)[0]  # float32 x: quant_matmul_group makes one call a weight
+    qm.f32_launches = 0
+    with rec4f:
+        teacher_forced_gate(small, prompts, torch, "int8_", cfg.vocab_size, f32=True)
+        EngineBackend(small).generate(
+            prompts, ModelSettings(temperature=0.0, max_tokens=F32_K4_TOKENS), prefix_ids=prefix)
+    launched = qm.f32_launches
     del small
     torch.cuda.empty_cache()
+    kernels.append({**kernel_entry("quant_matmul_f32", K4_SOURCE, K4_REPLACES, launched,
+                                   k4_f32_rows(rec4f, launched, torch, "float32 gate")),
+                    "gate_launches": launched})
     return kernels
+
+
+def k4_f32_rows(rec4f, launched: int, torch, path: str) -> list:
+    """K4's float32 route at every shape a recorded float32 run gave
+    ``quant_matmul`` (one call a weight, either regime), each against its
+    plain version at ``ATOL_K4F32`` + ``RTOL_K4F32`` with phase 16's blind
+    check; the recorded calls must be all of the ``launched`` f32 launches."""
+    calls = [dict(c, group=False) for c in rec4f.calls.values()]
+    if not calls or any(c["args"][0].dtype != torch.float32 for c in calls):
+        fail(f"the {path} run made no K4 call, or one with x not in float32")
+    if sum(c["n"] for c in calls) != launched:
+        fail(f"the {path} run made {sum(c['n'] for c in calls)} K4 calls and {launched} "
+             f"f32_kernel launches")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rows = [dict(k4_numbers(c, torch, flush), path=path) for c in calls]
+    del flush
+    check_rows("quant_matmul_f32", rows, "x with its last 32 columns zeroed")
+    return rows
+
 
 
 # The phase-1 sweep (pipeline/phase1.run_phase1) on the study checkpoints:
@@ -2162,11 +2259,13 @@ def phase1_path(torch, F, device_line: str) -> dict:
     from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
 
     study_launches, study_rows, records, held, greedy_card = {}, {}, {}, set(), {}
+    greedy_walls = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in STUDY_MODELS:
             row, rows, records[name], keys = study_sweep(torch, F, name, pathlib.Path(tmp))
             held |= keys
             greedy_card[name] = row.pop("greedy_card")
+            greedy_walls[name] = row["greedy_cuda_wall_s"]
             for k, v in row["launches"].items():
                 study_launches[k] = study_launches.get(k, 0) + v
             for k, v in rows.items():
@@ -2224,7 +2323,7 @@ def phase1_path(torch, F, device_line: str) -> dict:
     return {"launches": {"study": study_launches, FULL_WIDTH: launches},
             "rows": {"study": study_rows, FULL_WIDTH: full_rows},
             "records": records, "held": held, "greedy_card": greedy_card,
-            "full_width_wall_s": wall}
+            "greedy_walls": greedy_walls, "full_width_wall_s": wall}
 
 
 # Phases 2 and 3 of the study (pipeline/phase2.run_phase2 and
@@ -5875,7 +5974,8 @@ def tp_rank(out: pathlib.Path) -> int:
         toks[:, S - w:] = torch.from_numpy(tb.tokens).cuda()
         valid[:, S - w:] = torch.from_numpy(tb.valid).cuda()
         pos = (torch.cumsum(valid.long(), 1) - 1).clamp_min(0)
-        res["first_logits"] = first_logits(torch, engine, cfg, toks, pos, valid, rank)
+        res["first_logits"], runs["f32_logits"], res["f32_logits_launches"] = first_logits(
+            torch, engine, cfg, toks, pos, valid, rank)
         # one speculative greedy call: K3 over the rank's local heads
         zero_all(dec_mod, flash_mod, qm)
         rec3 = decode_recorder(dec_mod)
@@ -5897,6 +5997,15 @@ def tp_rank(out: pathlib.Path) -> int:
     for turn in range(world):
         if rank == turn:
             for key, run in runs.items():
+                if key == "f32_logits":  # K4's float32 route over the rank's shards
+                    fresh = {k: v for k, v in run.calls.items() if k not in held}
+                    held.update(fresh)
+                    if fresh:
+                        run.calls = fresh
+                        rows.setdefault("quant_matmul_f32", []).extend(k4_f32_rows(
+                            run, sum(c["n"] for c in fresh.values()), torch,
+                            f"tp_f32_logits_rank{rank}"))
+                    continue
                 if key == "spec":
                     fresh = {k: v for k, v in run.calls.items()
                              if k[0] == "k3" and k not in held}
@@ -5936,7 +6045,10 @@ def first_logits(torch, engine, cfg, toks, pos, valid, rank: int) -> dict:
     float32 activations at each tp, ``float32_twin``'s function), gated at
     the port's float32 logit allowance: ``F32_LOGIT_TOL`` of the largest
     logit. Both ranks run the tp=2 forwards; rank 0 also the tp=1 ones and
-    returns the numbers."""
+    returns the numbers, with the recorder of the float32 tp=2 forward's
+    K4 calls (K4's float32 route over the rank's shards) and their
+    f32_kernel launches."""
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
     from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
     from fairness_llm_tpu_torch.runtime.weights import init_params
 
@@ -5944,9 +6056,13 @@ def first_logits(torch, engine, cfg, toks, pos, valid, rank: int) -> dict:
     f32 = dataclasses.replace(engine.config, dtype="float32")
     twin = DecodeEngine(f32, params=full, mesh=engine.mesh, tokenizer=engine.tokenizer)
     out = {}
+    rec4f = k4_recorders(qm)[0]
     for dtype, tp2 in (("bfloat16", engine), ("float32", twin)):
-        got, _ = tp2.model(toks, pos, valid, left_padded=True, last_only=True)
+        qm.f32_launches = 0
+        with rec4f if dtype == "float32" else contextlib.nullcontext():
+            got, _ = tp2.model(toks, pos, valid, left_padded=True, last_only=True)
         torch.cuda.synchronize()
+        launched = qm.f32_launches
         if rank == 0:
             one = DecodeEngine(f32 if dtype == "float32" else engine.config, params=full,
                                tokenizer=engine.tokenizer)
@@ -5960,7 +6076,7 @@ def first_logits(torch, engine, cfg, toks, pos, valid, rank: int) -> dict:
         del got
     del twin, full
     torch.cuda.empty_cache()
-    return out
+    return out, rec4f, launched
 
 
 def sp_checks(torch, out: pathlib.Path, rank: int) -> dict:
@@ -6158,6 +6274,9 @@ def tp_checks(torch, res: dict, one: dict, sweep: dict, device_line: str) -> tup
             launches[f"{FULL_WIDTH}_tp2_rank{r}"] = lf
             launches[f"spec_tp2_rank{r}"] = {
                 "decode_attention_verify": sl["decode_attention_verify"]}
+            if rk["f32_logits_launches"] <= 0:
+                fail(f"{label}: the float32 tp=2 forward launched no f32_kernel")
+            launches[f"f32_logits_tp2_rank{r}"] = {"quant_matmul_f32": rk["f32_logits_launches"]}
             ring = rk["ring"]
             if not ring["max_abs_err"] <= RING_ATOL:
                 fail(f"{label}: ring attention is {ring['max_abs_err']:.3e} from dense "
@@ -6306,6 +6425,90 @@ def tp_ring_train_path(torch, device_line: str, sweep: dict, held: set) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+# Phase 32: the study's speculative greedy sweep (``--speculate``: greedy
+# prompt-lookup speculation through ``backend_for`` and ``run_phase1``, at
+# SpeculationConfig's draft of 8 and n-gram of 3) on both study checkpoints
+# at phase 20's settings: every decode step is a float32 verify window (K3
+# on verify_split_f32).
+
+
+def spec_study_sweep(torch, F, name: str, tmp: pathlib.Path, sweep: dict, held: set) -> tuple:
+    """Phase 32 for one study checkpoint: the greedy sweep with speculation
+    on the card; every engine call's rows against phase 20's greedy card
+    rows (``sweep["greedy_card"]``: its record and calls), parting only at
+    a near tie; with equal rows, the record equal to phase 20's. Every
+    verify-window launch on verify_split_f32, none on a tensor-core kernel;
+    each recorded verify call held against its plain version at 1e-4 with
+    phase 6's blind check and its repeats bit for bit. Returns the log row,
+    the launches and the rows."""
+    from fairness_llm_tpu_torch.config import Config, SpeculationConfig
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+
+    card, card_calls = sweep["greedy_card"][name]
+    cfg = greedy_config(Config(weights_dir=str(ROOT / "checkpoints"),
+                               data_dir=str(ROOT / "data" / "ml-1m"),
+                               results_dir=str(tmp / name / "spec"),
+                               speculation=SpeculationConfig(enabled=True)),
+                        name, MAX_TOKENS)
+    zero_all(dec_mod, flash_mod, qm)
+    backend = backend_for(name, cfg)
+    calls = SweepRecorder(backend)
+    rec = decode_recorder(dec_mod)
+    t0 = time.perf_counter()
+    with rec, CardSampler() as sampler:
+        record = run_phase1(cfg, name, backend=backend, save=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    verify = verify_f32_counts(dec_mod)
+    tc, one = one_query_counts(dec_mod)
+    launches = {"flash_attention_f32": flash_mod.launches - flash_mod.tc_launches,
+                "decode_attention_f32": one, "decode_attention_verify_f32": verify}
+    if verify <= 0 or dec_mod.multi_quant_launches or tc or flash_mod.tc_launches:
+        fail(f"{name} speculative sweep: launches {decode_counts(dec_mod)}, flash tc "
+             f"{flash_mod.tc_launches}")
+    spec = backend.spec_totals
+    if spec is None or spec.verify_steps <= 0:
+        fail(f"{name}: the sweep did not take the speculative path")
+    check_record(record, f"{name} speculative greedy", want_non_empty=False)
+    differ = greedy_divergences(f"{name} speculative", card_calls, calls, backend.engine, torch,
+                                against="phase 20's greedy card run")
+    if not differ and (record["recommendations"] != card["recommendations"]
+                       or record["neutral_recommendations"] != card["neutral_recommendations"]):
+        fail(f"{name} speculative: equal tokens but other responses than phase 20's")
+    fresh = {k: v for k, v in rec.calls.items() if k[0] == "k3" and k not in held}
+    held.update(fresh)
+    rec.calls = fresh
+    rows = [dict(r, path="spec_study") for r in decode_rows(
+        rec, "k3", "decode_attention_verify_f32", torch, F, "every q_offset lowered by one")]
+    row_steps = sum(c["batch"] * c["decode_steps"] for c in calls.chunks)
+    row = {"model": name, "wall_s": wall,
+           "phase20_greedy_wall_s": sweep["greedy_walls"][name],
+           "speculation": spec.as_dict(),
+           "tokens_per_verify_step_per_row": spec.emitted / max(row_steps, 1),
+           "chunks": calls.chunks, "launches": launches, "rows_differing": differ,
+           "card": sampler.summary}
+    return row, launches, rows
+
+
+def spec_study_path(torch, F, device_line: str, sweep: dict, held: set) -> dict:
+    """Phase 32 on both study checkpoints; returns the launches (by model)
+    and the verify window's rows."""
+    import tempfile
+
+    launches, rows = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in STUDY_MODELS:
+            row, lm, rm = spec_study_sweep(torch, F, name, pathlib.Path(tmp), sweep, held)
+            log(f"spec_study {json.dumps({'device': device_line, **row})}")
+            launches[f"spec_{name}"] = lm
+            rows.setdefault("decode_attention_verify_f32", []).extend(rm)
+    return {"launches": launches, "rows": rows}
+
+
 def main() -> int:
     try:
         import torch
@@ -6339,7 +6542,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build(["flash_attention", "decode_attention", "decode_attention_f32",
-                         "quant_matmul"])
+                         "decode_verify_f32", "quant_matmul"])
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(sorted(logs)) or 'up to date'})")
     for name, out in sorted(logs.items()):
         for line in out.splitlines():
@@ -6390,6 +6593,19 @@ def main() -> int:
     t0 = time.perf_counter()
     tp = tp_ring_train_path(torch, device_line, sweep, paged["held"])
     log(f"tp_ring_train_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    spec = spec_study_path(torch, F, device_line, sweep, paged["held"])
+    log(f"spec_study_path_s {time.perf_counter() - t0:.1f}")
+    # K3 f32's main path is phase 32's sweeps; phase 13's calls at
+    # llama3-8b's width become its gate launches and shapes
+    i = next(i for i, e in enumerate(kernels) if e["name"] == "decode_attention_verify_f32")
+    gate_entry = kernels[i]
+    rows32 = spec["rows"]["decode_attention_verify_f32"]
+    kernels[i] = {**kernel_entry("decode_attention_verify_f32", K3F32_SOURCE, K3_REPLACES,
+                                 sum(c["decode_attention_verify_f32"]
+                                     for c in spec["launches"].values()), rows32),
+                  "max_abs_err": max(r["max_abs_err"] for r in rows32 + gate_entry["shapes"]),
+                  "gate_launches": gate_entry["launches"], "gate_shapes": gate_entry["shapes"]}
     # K1's and K2's f32 kernels, whose main path is the study sweeps
     study, study_rows = sweep["launches"]["study"], sweep["rows"]["study"]
     kernels += [kernel_entry("flash_attention_f32", K1_SOURCE, K1_REPLACES,
@@ -6418,7 +6634,7 @@ def main() -> int:
             entry["phase23_shapes"] = [r for r in rows if not r["scoring"]]
         for key, phase in (("serving", served), ("paged", paged), ("containment", contained),
                            ("overload", overload), ("fleet", fleet), ("devtel", devtel),
-                           ("dp", dp), ("tp", tp)):
+                           ("dp", dp), ("tp", tp), ("spec_sweep", spec)):
             entry[f"{key}_launches"] = by_path(phase["launches"])
             if name in phase["rows"]:
                 entry[f"{key}_shapes"] = phase["rows"][name]

@@ -1,9 +1,9 @@
 // Pieces shared by the port's attention kernels (flash_attention.cu,
-// decode_attention.cu): element conversion, warp reductions, and a
-// multi-stage pipeline that stages k/v tiles into shared memory with
-// cp.async, so the loads of the next tiles are in flight while the block
-// computes on the current one. Staged rows may be float, bf16 or int8 (the
-// quantised KV cache).
+// decode_attention.cu, decode_attention_f32.cu, decode_verify_f32.cu):
+// element conversion, warp reductions, and a multi-stage pipeline that
+// stages k/v tiles into shared memory with cp.async, so the loads of the
+// next tiles are in flight while the block computes on the current one.
+// Staged rows may be float, bf16 or int8 (the quantised KV cache).
 
 #pragma once
 
@@ -127,33 +127,10 @@ __device__ __forceinline__ void load_vec(const T* p, float (&f)[Vec<T>::kElems])
   }
 }
 
-// acc += dot(q row (f32, shared), staged key row (T, shared)) over D, for
-// the first nr of R query rows (nr is warp-uniform; the default computes
-// all R); D is a multiple of Vec<T>::kElems, so q rows start 16-byte
-// aligned. An int8 row gives the dot of q with the raw int8 values.
-template <typename T, int R>
-__device__ __forceinline__ void row_dots(float (&acc)[R], const float* const* q,
-                                         const T* krow, int D, int nr = R) {
-  constexpr int VE = Vec<T>::kElems;
-  for (int d0 = 0; d0 < D; d0 += VE) {
-    float kf[VE];
-    load_vec<T>(krow + d0, kf);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r >= nr) break;  // warp-uniform; never taken when nr == R
-      const float4* q4 = reinterpret_cast<const float4*>(q[r] + d0);
-#pragma unroll
-      for (int e4 = 0; e4 < VE / 4; ++e4) {
-        const float4 qv = q4[e4];
-        acc[r] += qv.x * kf[4 * e4] + qv.y * kf[4 * e4 + 1] + qv.z * kf[4 * e4 + 2] +
-                  qv.w * kf[4 * e4 + 3];
-      }
-    }
-  }
-}
-
-// The same with the q rows D floats apart from q (f32, shared): acc[r] +=
-// dot(q + r * D, krow) for r < nr.
+// acc[r] += dot(q row r (f32, shared, the rows D floats apart from q),
+// staged key row (T, shared)) over D for r < nr (warp-uniform); D is a
+// multiple of Vec<T>::kElems, so q rows start 16-byte aligned. An int8 row
+// gives the dot of q with the raw int8 values.
 template <typename T, int R>
 __device__ __forceinline__ void strided_row_dots(float (&acc)[R], const float* q, const T* krow,
                                                  int D, int nr) {

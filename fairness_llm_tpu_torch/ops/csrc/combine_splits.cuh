@@ -1,6 +1,6 @@
 // The fold of the split decode kernels' partials (decode_attention.cu's
 // decode_split_tc and decode_verify_tc, decode_attention_f32.cu's
-// decode_split_f32): each key split of a call writes its f32 partials (m in
+// decode_split_f32, decode_verify_f32.cu's verify_split_f32): each key split of a call writes its f32 partials (m in
 // log2 units, l, acc) to a workspace, and combine_splits, the call's second
 // launch, folds them in split order, so repeated calls agree bit for bit.
 

@@ -23,21 +23,14 @@
 // the bytes' side of the card's line, but only if the products run on the
 // tensor cores; on scalar f32 FMAs they take longer than the bytes.
 //
-// Three routes, reported by the C entry; float32 with one query per row
-// (K2, K2q) is decode_attention_f32.cu's decode_split_f32, which shares
-// combine_splits (combine_splits.cuh) with the two tensor-core routes:
-//
-// decode_fwd (float32 verify window, Q > 1): one block per (kv head, batch
-// row, chunk of at most 12 of the rep * Q query rows), so each k/v tile is
-// read from device memory once per chunk, not once per query head. It
-// reads the cache in its native [B,L,Hkv,D] layout. Tiles of 32 keys (one
-// key per lane) stream through a two-stage cp.async pipeline. Each warp
-// owns up to RPW query rows and keeps their running max, normaliser and
-// accumulator (lanes split D) in registers, on scalar f32 FMAs. A float
-// cache walks P + L "virtual" keys, where a tile may straddle the end of the
-// prefix; an int8 cache walks the prefix tiles (float) and then the cache
-// tiles (int8, with their 32 k and v scales staged beside them). The
-// float32 end-to-end gates' speculative calls run it.
+// The two bf16 routes are here, reported by the C entry; the float32 ones
+// are in sources of their own, which build in parallel with this one and
+// share combine_splits (combine_splits.cuh): decode_attention_f32.cu's
+// decode_split_f32 (one query per row, K2 and K2q) and decode_verify_f32.cu's
+// verify_split_f32 (the verify window over a float and an int8 cache, K3:
+// key splits planned to fill the card, prefix blocks that take the query
+// rows of every batch row of a kv head, cache tiles with no valid slot or
+// past the rows' last visible slot skipped, register-tiled f32 FMAs).
 //
 // decode_verify_tc (bf16 verify window, Q > 1, over a bf16 or an int8
 // cache), on mma.sync m16n8k16 as flash_attention.cu's flash_fwd_tc: the
@@ -93,8 +86,6 @@
 // SM at D <= 128 (52-54 KB of shared memory each). Over an int8 cache the
 // cache tiles are converted as decode_verify_tc converts them.
 
-#include <type_traits>
-
 #include "attention_common.cuh"
 #include "combine_splits.cuh"
 #include "mma_fragments.cuh"
@@ -102,258 +93,6 @@
 namespace {
 
 using namespace attn;
-
-constexpr int kBlockK = 32;  // keys per tile: one per lane
-constexpr int kWarps = 4;
-// The scalar verify window (float32) is bound by its shared-memory loads
-// and instruction latency, not by device memory: two pipeline stages and at
-// most 12 rows a block put more warps on each SM (the fastest of the
-// settings tried on an H100 80GB HBM3 at 700 W in bf16; see PERF.md).
-constexpr int kStagesMulti = 2;
-constexpr int kMultiRows = 12;
-
-__host__ __device__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
-
-// One staged k (or v) tile of float rows: an int8 cache tile (D + 16 bytes
-// a row) always fits in its room.
-__host__ __device__ __forceinline__ size_t tile_bytes(int D) {
-  return align16(sizeof(float) * kBlockK * staged_stride<float>(D));
-}
-
-// One stage: the k tile, the v tile, and (int8 cache) 32 k and 32 v scales.
-template <bool QUANT>
-__host__ __device__ __forceinline__ size_t stage_bytes(int D) {
-  return 2 * tile_bytes(D) + (QUANT ? 2 * kBlockK * sizeof(float) : 0);
-}
-
-// Shared memory: the pipeline's stages, then q (f32) and p for the block's rows.
-template <bool QUANT>
-size_t smem_bytes(int rows, int D) {
-  return kStagesMulti * stage_bytes<QUANT>(D) + align16(sizeof(float) * rows * D) +
-         sizeof(float) * rows * kBlockK;
-}
-
-// The float32 verify window: q, the prefix and the output are float32. KT:
-// the cache's type (float, or int8_t with scales). RPW: query rows per warp
-// (rows per block <= kWarps * RPW). NCH: 32-wide chunks of D per lane (D <=
-// 32 * NCH).
-template <typename KT, int RPW, int NCH>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_fwd(const float* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
-           const uint8_t* __restrict__ valid, const float* __restrict__ sk,
-           const float* __restrict__ sv, const float* __restrict__ ksc,
-           const float* __restrict__ vsc, const int* __restrict__ qoff, float* __restrict__ o,
-           int Q, int H, int Hkv, int L, int D, int P, int rows_per_block, float scale) {
-  constexpr bool QUANT = std::is_same<KT, int8_t>::value;
-  constexpr int NS = kStagesMulti;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rep = H / Hkv;
-  const int DS = staged_stride<float>(D);
-  const int DS8 = staged_stride<int8_t>(D);
-  const size_t tb = tile_bytes(D);
-  const size_t sb = stage_bytes<QUANT>(D);
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.z * rows_per_block;
-  const int nrows = min(rows_per_block, rep * Q - row0);
-  float* qs = reinterpret_cast<float*>(smem + NS * sb);  // [nrows][D]
-  float* ps = qs + align16(sizeof(float) * nrows * D) / sizeof(float);  // [nrows][kBlockK]
-  auto ktile = [&](int st) { return smem + st * sb; };
-  auto vtile = [&](int st) { return smem + st * sb + tb; };
-  auto kscale = [&](int st) { return reinterpret_cast<float*>(smem + st * sb + 2 * tb); };
-  auto vscale = [&](int st) { return kscale(st) + kBlockK; };
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  // An int8 cache walks ntp prefix tiles and then ntc cache tiles; a float
-  // cache walks P + L virtual keys (ntp unused).
-  const int ntp = QUANT ? (P + kBlockK - 1) / kBlockK : 0;
-  const int N = P + L;
-  const int ntiles = QUANT ? ntp + (L + kBlockK - 1) / kBlockK : (N + kBlockK - 1) / kBlockK;
-  const long long row_stride = (long long)Hkv * D;  // between slots, in elements
-  const KT* kc = k + (long long)b * L * row_stride + (long long)hk * D;
-  const KT* vc = v + (long long)b * L * row_stride + (long long)hk * D;
-  const float* skh = sk == nullptr ? nullptr : sk + (long long)hk * D;
-  const float* svh = sv == nullptr ? nullptr : sv + (long long)hk * D;
-  const long long scale_base = (long long)b * L * Hkv + hk;  // + slot * Hkv
-
-  auto stage = [&](int t) {
-    const int st = t % NS;
-    if constexpr (QUANT) {
-      if (t < ntp) {
-        const int n0 = t * kBlockK;
-        stage_rows<float>(reinterpret_cast<float*>(ktile(st)), kBlockK, D, skh,
-                          [&](int j) -> const float* {
-                            return n0 + j < P ? skh + (n0 + j) * row_stride : nullptr;
-                          });
-        stage_rows<float>(reinterpret_cast<float*>(vtile(st)), kBlockK, D, svh,
-                          [&](int j) -> const float* {
-                            return n0 + j < P ? svh + (n0 + j) * row_stride : nullptr;
-                          });
-      } else {
-        const int j0 = (t - ntp) * kBlockK;
-        stage_rows<int8_t>(reinterpret_cast<int8_t*>(ktile(st)), kBlockK, D, kc,
-                           [&](int j) -> const int8_t* {
-                             return j0 + j < L ? kc + (j0 + j) * row_stride : nullptr;
-                           });
-        stage_rows<int8_t>(reinterpret_cast<int8_t*>(vtile(st)), kBlockK, D, vc,
-                           [&](int j) -> const int8_t* {
-                             return j0 + j < L ? vc + (j0 + j) * row_stride : nullptr;
-                           });
-        if (threadIdx.x < 2 * kBlockK) {
-          const int j = threadIdx.x % kBlockK;
-          const bool in = j0 + j < L;
-          const float* src = (threadIdx.x < kBlockK ? ksc : vsc) +
-                             (in ? scale_base + (long long)(j0 + j) * Hkv : 0);
-          float* dst = (threadIdx.x < kBlockK ? kscale(st) : vscale(st)) + j;
-          cp_async4(dst, src, in);
-        }
-      }
-    } else {
-      const int kt = t * kBlockK;
-      stage_rows<float>(reinterpret_cast<float*>(ktile(st)), kBlockK, D, kc,
-                        [&](int j) -> const float* {
-                          const int n = kt + j;
-                          return n < P ? skh + n * row_stride
-                                       : (n < N ? kc + (n - P) * row_stride : nullptr);
-                        });
-      stage_rows<float>(reinterpret_cast<float*>(vtile(st)), kBlockK, D, vc,
-                        [&](int j) -> const float* {
-                          const int n = kt + j;
-                          return n < P ? svh + n * row_stride
-                                       : (n < N ? vc + (n - P) * row_stride : nullptr);
-                        });
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < ntiles) stage(s);
-    cp_async_commit();
-  }
-
-  // Block row r is query row g = row0 + r of this kv head: query i = g / rep
-  // of q head hk * rep + g % rep.
-  auto qoffset = [&](int r) {
-    const int g = row0 + r;
-    return (((long long)b * Q + g / rep) * H + (long long)hk * rep + g % rep) * D;
-  };
-  for (int i = threadIdx.x; i < nrows * D; i += blockDim.x) {
-    const int r = i / D;
-    qs[i] = to_f(q[qoffset(r) + (i - r * D)]) * scale;
-  }
-
-  // This warp's rows are warp + kWarps * r for r < nr. Rows past nrows
-  // point at row 0; their results are never used.
-  const int nr = nrows > warp ? (nrows - warp + kWarps - 1) / kWarps : 0;
-  const float* qrow[RPW];
-  int lim[RPW];  // the last own-cache slot each row may see
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = warp + kWarps * r;
-    qrow[r] = qs + (row < nrows ? row : 0) * D;
-    lim[r] = row < nrows ? qoff[b] + (row0 + row) / rep : 0;
-  }
-  float m[RPW], l[RPW], acc[RPW][NCH];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) acc[r][c] = 0.f;
-  }
-  const uint8_t* vrow = valid + (long long)b * L;
-  for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<NS - 2>();
-    __syncthreads();  // tile t landed; every warp is done with tile t - 1
-    if (t + NS - 1 < ntiles) stage(t + NS - 1);
-    cp_async_commit();
-
-    const int st = t % NS;
-    // pre: a tile of prefix keys, float rows (always, for a float cache).
-    const bool pre = !QUANT || t < ntp;
-    // slot: the lane's own-cache slot (< 0 for a prefix key); ok: the key
-    // exists and, in the cache, is valid.
-    int slot;
-    bool ok;
-    if constexpr (QUANT) {
-      slot = pre ? -1 : (t - ntp) * kBlockK + lane;
-      ok = pre ? t * kBlockK + lane < P : (slot < L && vrow[slot] != 0);
-    } else {
-      const int n = t * kBlockK + lane;
-      slot = n - P;
-      ok = n < P || (n < N && vrow[slot] != 0);
-    }
-    float s[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) s[r] = 0.f;
-    float vs_lane = 1.f;
-    if (pre) {
-      row_dots<float, RPW>(s, qrow, reinterpret_cast<const float*>(ktile(st)) + lane * DS, D,
-                           nr);
-    } else {
-      row_dots<int8_t, RPW>(s, qrow, reinterpret_cast<const int8_t*>(ktile(st)) + lane * DS8, D,
-                            nr);
-      const float ks_lane = kscale(st)[lane];
-      vs_lane = vscale(st)[lane];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) s[r] *= ks_lane;
-    }
-
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      if (r >= nr) break;  // warp-uniform
-      const int row = warp + kWarps * r;
-      const bool okr = ok && (slot < 0 || slot <= lim[r]);
-      const float sv_ = okr ? s[r] : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sv_));
-      const float p = okr ? expf(sv_ - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);  // the normaliser sums the unscaled p
-      m[r] = m_new;
-      ps[row * kBlockK + lane] = p * vs_lane;
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) acc[r][c] *= alpha;
-    }
-    __syncwarp();
-
-    for (int j = 0; j < kBlockK; ++j) {
-      float vv[NCH];
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const int d = lane + 32 * c;
-        if (d >= D)
-          vv[c] = 0.f;
-        else if (pre)
-          vv[c] = to_f(reinterpret_cast<const float*>(vtile(st))[j * DS + d]);
-        else
-          vv[c] = to_f(reinterpret_cast<const int8_t*>(vtile(st))[j * DS8 + d]);
-      }
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        if (r >= nr) break;
-        const float p = ps[(warp + kWarps * r) * kBlockK + j];
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) acc[r][c] += p * vv[c];
-      }
-    }
-    __syncwarp();  // p of this tile fully read before the next tile rewrites it
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    if (r >= nr) break;
-    const int row = warp + kWarps * r;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    float* orow = o + qoffset(row);
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) orow[d] = from_f<float>(acc[r][c] * inv);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 verify window on the tensor cores, and the combine of its key splits
@@ -1020,75 +759,24 @@ cudaError_t dispatch_decode_tc(const Args& a, bool kv_int8) {
   return cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------------------
-// float32 dispatch
-// ---------------------------------------------------------------------------
-// The float32 verify window (decode_fwd).
-template <typename KT, int RPW, int NCH>
-cudaError_t launch_verify_f32(const Args& a) {
-  constexpr bool QUANT = std::is_same<KT, int8_t>::value;
-  // Query rows of one kv head, in chunks over grid.z of at most kMultiRows.
-  const int rows = (a.H / a.Hkv) * a.Q;
-  const int cap = kMultiRows < kWarps * RPW ? kMultiRows : kWarps * RPW;
-  const int nz = (rows + cap - 1) / cap;
-  const int rows_per_block = (rows + nz - 1) / nz;
-  const size_t smem = smem_bytes<QUANT>(rows_per_block, a.D);
-  auto kernel = decode_fwd<KT, RPW, NCH>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.Hkv, a.B, nz);
-  kernel<<<grid, kWarps * 32, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const KT*>(a.k), static_cast<const KT*>(a.v),
-      a.valid, static_cast<const float*>(a.sk), static_cast<const float*>(a.sv), a.ks, a.vs,
-      a.qoff, static_cast<float*>(a.o), a.Q, a.H, a.Hkv, a.L, a.D, a.P, rows_per_block, a.scale);
-  return cudaGetLastError();
-}
-
-template <typename KT, int RPW>
-cudaError_t verify_f32_d(const Args& a) {
-  if (a.D <= 32) return launch_verify_f32<KT, RPW, 1>(a);
-  if (a.D <= 64) return launch_verify_f32<KT, RPW, 2>(a);
-  if (a.D <= 128) return launch_verify_f32<KT, RPW, 4>(a);
-  if (a.D <= 256) return launch_verify_f32<KT, RPW, 8>(a);
-  return cudaErrorInvalidValue;
-}
-
-template <typename KT>
-cudaError_t dispatch_verify_f32(const Args& a) {
-  // 16-byte staging needs every k/v row (of the cache and of the prefix) to
-  // start on a 16-byte boundary and hold a multiple of 16 bytes.
-  const bool vec = a.D % Vec<float>::kElems == 0 && a.D % Vec<KT>::kElems == 0 &&
-                   aligned16(a.k) && aligned16(a.v) &&
-                   (a.P == 0 || (aligned16(a.sk) && aligned16(a.sv)));
-  if (!vec) return cudaErrorInvalidValue;
-  // Two widths keep the build short: a warp's unused rows skip the
-  // products, so a wider RPW costs registers, not work.
-  const int rows = (a.H / a.Hkv) * a.Q;
-  if (rows <= 2 * kWarps) return verify_f32_d<KT, 2>(a);
-  return verify_f32_d<KT, 8>(a);
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, the prefix, a float cache, the
-// output). kv_int8: the cache k/v are int8 with scales ks/vs [B,L,Hkv] f32.
-// q [B,Q,H,D] (Q = 1: one query per row; q_offsets is then ignored and may
-// be null), k/v [B,L,Hkv,D], valid [B,L] (one byte per slot), sk/sv
-// [P,Hkv,D] (ignored when P == 0), q_offsets [B] int32 (required for Q > 1),
-// o like q; all contiguous, k/v rows 16-byte aligned. float32 takes a
-// verify window (Q > 1; one query per row is decode_attention_f32_fwd's)
-// with D a multiple of 16 bytes of each row type; decode_split_tc (bf16, Q
-// = 1) and decode_verify_tc (bf16, Q > 1) take D of 32, 64, 128 or 256 and
-// walk the keys in splits_prefix + splits_cache splits (1 <= splits_prefix
-// <= ceil(P / BK) where P > 0, else 0; the same for splits_cache and L; BK
-// = 32 keys), with ws, 16-byte aligned, holding (splits_prefix +
-// splits_cache) * B * Q * H * (D + 2) floats where there is more than one
-// split. Anything else returns cudaErrorInvalidValue; otherwise the CUDA
-// error code of the launch. *kernel is set to the route launched: 0 =
-// decode_fwd (float32, Q > 1), 1 = decode_verify_tc, 2 = decode_split_tc
-// (each tensor-core route followed by combine_splits where it splits), -1 =
-// none.
+// dtype: 1 = bfloat16 (q, the prefix, a float cache, the output); float32
+// takes decode_attention_f32_fwd (one query per row) or
+// decode_verify_f32_fwd (a verify window). kv_int8: the cache k/v are int8
+// with scales ks/vs [B,L,Hkv] f32. q [B,Q,H,D] (Q = 1: one query per row;
+// q_offsets is then ignored and may be null), k/v [B,L,Hkv,D], valid [B,L]
+// (one byte per slot), sk/sv [P,Hkv,D] (ignored when P == 0), q_offsets [B]
+// int32 (required for Q > 1), o like q; all contiguous. decode_split_tc (Q =
+// 1) and decode_verify_tc (Q > 1) take D of 32, 64, 128 or 256, every row
+// 16-byte aligned, and walk the keys in splits_prefix + splits_cache splits
+// (1 <= splits_prefix <= ceil(P / BK) where P > 0, else 0; the same for
+// splits_cache and L; BK = 32 keys), with ws, 16-byte aligned, holding
+// (splits_prefix + splits_cache) * B * Q * H * (D + 2) floats where there is
+// more than one split. Anything else returns cudaErrorInvalidValue;
+// otherwise the CUDA error code of the launch. *kernel is set to the route
+// launched: 1 = decode_verify_tc, 2 = decode_split_tc (each followed by
+// combine_splits where it splits), -1 = none.
 extern "C" int decode_attention_fwd(int dtype, int kv_int8, const void* q, const void* k,
                                     const void* v, const void* valid, const void* sk,
                                     const void* sv, const void* ks, const void* vs,
@@ -1115,9 +803,6 @@ extern "C" int decode_attention_fwd(int dtype, int kv_int8, const void* q, const
   } else if (dtype == 1) {
     err = dispatch_decode_tc(a, kv_int8 != 0);
     launched = 2;  // decode_split_tc
-  } else if (dtype == 0 && Q > 1) {
-    err = kv_int8 ? dispatch_verify_f32<int8_t>(a) : dispatch_verify_f32<float>(a);
-    launched = 0;  // decode_fwd
   } else {
     return (int)cudaErrorInvalidValue;
   }

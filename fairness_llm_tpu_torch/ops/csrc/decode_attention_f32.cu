@@ -1,7 +1,7 @@
 // Decode attention in float32, one query per row, for Hopper (sm_90a): the
-// float32 route of decode_attention.cu's function (K2 over a float cache,
-// K2q over an int8 cache), in a source of its own so that the two build in
-// parallel.
+// float32 one-query route of decode attention (K2 over a float cache, K2q
+// over an int8 cache; decode_verify_f32.cu holds the float32 verify window),
+// in a source of its own so that it builds in parallel with the others.
 //
 // Replaces: fairness_llm_tpu/ops/decode_attention.py, `decode_attention`
 // (the Pallas TPU kernel), 3-D q -> `_kernel`, float cache and its

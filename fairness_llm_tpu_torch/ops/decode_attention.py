@@ -13,31 +13,33 @@ probabilities after the normaliser's sum, as the reference folds them. The
 shared prefix stays float.
 
 ``decode_attention`` launches the hand-written CUDA kernels
-(``csrc/decode_attention.cu``) for CUDA tensors and takes the plain version,
+(``csrc/decode_attention.cu``, ``decode_attention_f32.cu`` and
+``decode_verify_f32.cu``) for CUDA tensors and takes the plain version,
 ``decode_attention_reference``, only for CPU tensors; any other mix raises.
-bfloat16 goes to the tensor-core kernels (mma.sync; P is rounded to bf16
-before P.V), which split the keys across blocks and fold the splits'
-partials in a second launch of the same call; the workspace for them is
-allocated here, once per device and stream, and kept for the calls that
-follow (``_workspace``). A verify window (4-D q) runs on ``decode_verify_tc``,
-planned by ``verify_splits``; one query per row (K2, K2q) on
-``decode_split_tc``, planned by ``decode_splits``, whose prefix splits take
-every batch row's queries of a kv head together, so each prefix tile is
-read once per kv head and not once per row. Their head widths are
-``TC_WIDTHS``: q/k/v with another D are copied with D zero-padded to the
-next. float32 runs on scalar f32 FMAs: one query per row (K2, K2q) on
-``decode_split_f32`` (``csrc/decode_attention_f32.cu``), planned by
-``decode_splits_f32`` and split and combined as ``decode_split_tc`` is, a
-block one warp, head widths ``F32_WIDTHS`` (q/k/v with another D copied
-with D zero-padded to the next); the verify window on ``decode_fwd``,
-where float32 k/v rows that are not 16-byte aligned (a D of odd byte size,
-an odd offset) are copied with D zero-padded before the launch. Each of
-the four modes counts its launches; ``multi_tc_launches``,
-``decode_tc_launches`` and ``decode_f32_launches`` count the calls the C
-entry reports it ran on decode_verify_tc, decode_split_tc and
-decode_split_f32. Every split plan is checked here
-(``check_splits``) as the kernel checks it, and refused with a
-``KernelError``; nothing falls back.
+Every route splits the keys across blocks, each split a run of whole tiles
+of one kind (prefix or own cache), and folds the splits' partials in a
+second launch of the same call (``combine_splits``); the workspace for them
+is allocated here, once per device and stream, and kept for the calls that
+follow (``_workspace``). bfloat16 goes to the tensor-core kernels
+(mma.sync; P is rounded to bf16 before P.V): a verify window (4-D q) to
+``decode_verify_tc``, planned by ``verify_splits``; one query per row (K2,
+K2q) to ``decode_split_tc``, planned by ``decode_splits``, whose prefix
+splits take every batch row's queries of a kv head together, so each prefix
+tile is read once per kv head and not once per row; head widths
+``TC_WIDTHS``. float32 runs on scalar f32 FMAs: one query per row (K2, K2q)
+on ``decode_split_f32``, planned by ``decode_splits_f32``, a block one warp;
+the verify window (K3, over a float or an int8 cache) on
+``verify_split_f32``, planned by ``verify_splits_f32`` (key splits and the
+query rows a block, by a cost formula), a block 4 warps over register
+tiles; head widths ``F32_WIDTHS``. q/k/v with another D, or a tensor that
+does not start on a 16-byte boundary, are copied with D zero-padded to the
+next width. Each of the four modes counts its launches;
+``multi_tc_launches``, ``decode_tc_launches``, ``decode_f32_launches`` and
+``verify_f32_launches`` count the calls the C entry reports it ran on
+decode_verify_tc, decode_split_tc, decode_split_f32 and verify_split_f32.
+Every split plan is checked here (``check_splits``, ``check_verify_rows``)
+as the kernel checks it, and refused with a ``KernelError``; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -56,10 +58,10 @@ NEG_INF = -1e30
 #: Kernel launches of each mode since the counts were last set to 0: one
 #: query per row over a float cache (K2), over an int8 cache (K2q), and the
 #: verify window over a float cache (K3) and over an int8 cache; then the
-#: verify windows (either cache) that ran on decode_verify_tc, the
-#: one-query calls (either cache) that ran on decode_split_tc, the
-#: tensor-core kernels, and those that ran on decode_split_f32, as the C
-#: entry reports.
+#: calls (either cache) that ran on each kernel, as the C entry reports:
+#: verify windows on decode_verify_tc (bf16) and verify_split_f32
+#: (float32), one-query calls on decode_split_tc (bf16) and
+#: decode_split_f32 (float32).
 launches = 0
 quant_launches = 0
 multi_launches = 0
@@ -67,13 +69,14 @@ multi_quant_launches = 0
 multi_tc_launches = 0
 decode_tc_launches = 0
 decode_f32_launches = 0
-# decode_attention_fwd's *kernel for decode_verify_tc, decode_split_tc and
-# decode_split_f32
-_VERIFY_TC, _DECODE_TC, _DECODE_F32 = 1, 2, 3
+verify_f32_launches = 0
+# The C entries' *kernel for decode_verify_tc, decode_split_tc,
+# decode_split_f32 and verify_split_f32
+_VERIFY_TC, _DECODE_TC, _DECODE_F32, _VERIFY_F32 = 1, 2, 3, 4
 
 #: Head widths the bf16 tensor-core kernels are instantiated for.
 TC_WIDTHS = (32, 64, 128, 256)
-#: Head widths the float32 one-query kernel is instantiated for.
+#: Head widths the float32 kernels are instantiated for.
 F32_WIDTHS = (32, 64, 128, 256)
 #: Keys per tile of the tensor-core kernels (their BK).
 TILE_KEYS = 32
@@ -91,12 +94,38 @@ F32_PREFIX_ROWS = 8
 #: Resident one-warp blocks an SM the float32 plan counts on: up to 255
 #: registers a thread fit eight, fewer where shared memory allows fewer.
 F32_DECODE_BLOCKS_PER_SM = 8
+#: Query rows a verify_split_f32 block may take; at D = 256 not 64 (a
+#: thread holds rows x D / 128 accumulators, at most 64).
+VERIFY_F32_ROWS = (16, 32, 64)
+#: Resident verify_split_f32 blocks an SM by rows a block, as registers
+#: allow (255, 164 and 128 registers a thread at D = 128, ``-Xptxas -v`` on
+#: the card), fewer where shared memory allows fewer.
+VERIFY_F32_BLOCKS_PER_SM = {16: 4, 32: 3, 64: 2}
+#: The verify plan's cost formula, in SM clocks, fitted to the times of
+#: every plan at phase 13's and the study's shapes (``tools/
+#: torch_f32_attention_ab.py --plans``, H100 80GB HBM3 at 700 W). A
+#: block-tile's 64 * rows * D FMAs run at ``VERIFY_F32_FMAS_PER_CLOCK`` an SM
+#: a clock (128 at peak), shared by the blocks on the SM; its own chain
+#: (block barriers, the softmax, the loads its warps wait on) costs
+#: ``VERIFY_F32_TILE_CLOCKS`` and overlaps with the other resident blocks'.
+#: A split costs twice its partials' bytes (written, then read by the
+#: combine) at ``HBM_BYTES_PER_CLOCK`` (3.35 TB/s at 1.98 GHz), and a plan
+#: of more than one split ``VERIFY_F32_COMBINE_CLOCKS`` for combine_splits'
+#: launch.
+VERIFY_F32_FMAS_PER_CLOCK = 48
+VERIFY_F32_TILE_CLOCKS = 1600
+VERIFY_F32_COMBINE_CLOCKS = 4000
+HBM_BYTES_PER_CLOCK = 1692
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # dtype, kv_int8; q, k, v, valid, sk, sv, ks, vs, q_offsets, o, ws;
 # B, Q, H, Hkv, L, D, P, splits_prefix, splits_cache; scale, stream; out: the route
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+# kv_int8; q, k, v, valid, sk, sv, ks, vs, q_offsets, o, ws; B, Q, H, Hkv, L,
+# D, P, rows_per_block, splits_prefix, splits_cache; scale, stream; out: the route
+_VERIFY_F32_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                        + [ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 SharedKV = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -242,6 +271,64 @@ def decode_splits_f32(B: int, Hkv: int, rep: int, P: int, L: int, D: int,
     return _plan(Hkv * -(-B * rep // rows), B * Hkv * -(-rep // rows), P, L, per_sm * sms)
 
 
+def verify_f32_smem(rows: int, D: int) -> int:
+    """Shared memory of a verify_split_f32 block of ``rows`` query rows at
+    head width D (of ``F32_WIDTHS``), without the mask words of its run:
+    the ring (two slots of a float k and v tile of 32 rows, D + 4 floats
+    apart, or two int8 slots and the float tile they convert into), the
+    query rows, P (40 floats a row) and two floats a row."""
+    tile = 4 * 32 * (D + 4)
+    slot8 = -(-(2 * 32 * (D + 16) + 256) // 16) * 16
+    return max(4 * tile, 2 * slot8 + 2 * tile) + 4 * rows * (D + 4) + 4 * rows * 40 + 8 * rows
+
+
+@functools.lru_cache(maxsize=256)  # planned on every call's host path: once per shape
+def verify_splits_f32(B: int, Hkv: int, rows: int, P: int, L: int, D: int,
+                      sms: int) -> Tuple[int, int, int]:
+    """(rows a block, splits_prefix, splits_cache) of verify_split_f32 (the
+    float32 verify window; ``rows`` = rep * Q query rows of a (batch row, kv
+    head), D the padded head width). A prefix split is Hkv * ceil(B * rows /
+    R) blocks of R rows, shared by the batch; a cache split B * Hkv *
+    ceil(rows / R). For each R of ``VERIFY_F32_ROWS`` whose block fits and
+    each run of whole tiles (the same for both kinds, as ``_plan``), the
+    cost of the busiest SM is its share of the plan's block-tiles (ceil(work
+    / sms)) times a block-tile's FMA clocks, plus the tile chain of its
+    longest resident block (ceil(work / (k * sms)), k resident blocks an
+    SM, or one block's run, whichever is longer) times the chain's clocks,
+    plus the splits' (the constants above). The cheapest plan is taken, a
+    tie going to fewer splits, then to more rows. It may take more than one
+    wave of resident blocks: at llama3-8b's gate shapes two waves of runs of
+    11 tiles beat one of 22."""
+    ntp, ntc = -(-P // TILE_KEYS), -(-L // TILE_KEYS)
+    split = 2 * (B * Hkv * rows * (D + 2) * 8) // HBM_BYTES_PER_CLOCK  # one split's partials
+    best = None
+    for rb in sorted(VERIFY_F32_ROWS, reverse=True):
+        if rb * D > 8192 or verify_f32_smem(rb, D) > _build.SMEM_PER_BLOCK:
+            continue
+        pre, cache = Hkv * -(-B * rows // rb), B * Hkv * -(-rows // rb)
+        k = min(VERIFY_F32_BLOCKS_PER_SM[rb],
+                _build.SMEM_PER_SM // (verify_f32_smem(rb, D) + 1024))
+        work = pre * ntp + cache * ntc  # block-tiles, whatever the splits
+        fma = -(-work // sms) * (64 * rb * D // VERIFY_F32_FMAS_PER_CLOCK)
+        for run in range(max(ntp, ntc), 0, -1):
+            sp, sc = -(-ntp // run), -(-ntc // run)
+            cost = fma + max(-(-work // (k * sms)), run) * VERIFY_F32_TILE_CLOCKS
+            if sp + sc > 1:
+                cost += (sp + sc) * split + VERIFY_F32_COMBINE_CLOCKS
+            if best is None or cost < best[0]:
+                best = (cost, rb, sp, sc)
+    return best[1:]
+
+
+@functools.lru_cache(maxsize=64)  # on every call's host path: a refusal raises, uncached
+def check_verify_rows(rows: int, D: int) -> None:
+    """Refuse a row count verify_split_f32 does not take at head width D."""
+    if (rows not in VERIFY_F32_ROWS or rows * D > 8192
+            or verify_f32_smem(rows, D) > _build.SMEM_PER_BLOCK):
+        raise _build.KernelError(f"decode_attention: a verify block of {rows} query rows at "
+                                 f"D={D} does not fit verify_split_f32")
+
+
 @functools.lru_cache(maxsize=256)  # on every call's host path: a refusal raises, uncached
 def check_splits(sp: int, sc: int, P: int, L: int) -> None:
     """Refuse a split plan the split kernels refuse: between one split and
@@ -331,18 +418,10 @@ def _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) ->
     if valid.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"valid must be bool or uint8, got {valid.dtype}")
     tc = q.dtype == torch.bfloat16
-    f32_split = not tc and not multi  # decode_split_f32
-    if tc or f32_split:
-        Dk = next(w for w in (TC_WIDTHS if tc else F32_WIDTHS) if w >= D)
-        # Contiguous rows of an instantiated width are whole 16-byte chunks;
-        # only where a tensor starts can be off.
-        aligned = all(t.data_ptr() % 16 == 0 for t in [q, k, v] + list(shared_kv or ()))
-    else:
-        # The pad is counted in bytes of the narrowest row: 16 elements for
-        # an int8 cache, 16 bytes of q's type otherwise.
-        ve = 16 // min(k.element_size(), q.element_size())
-        Dk = -(-D // ve) * ve
-        aligned = all(_build.rows_aligned16(t) for t in [k, v] + list(shared_kv or ()))
+    Dk = next(w for w in (TC_WIDTHS if tc else F32_WIDTHS) if w >= D)
+    # Contiguous rows of an instantiated width are whole 16-byte chunks; only
+    # where a tensor starts can be off.
+    aligned = all(t.data_ptr() % 16 == 0 for t in [q, k, v] + list(shared_kv or ()))
     if Dk != D or not aligned:
         # Zero columns add nothing to q.k and give output columns cut off below.
         q, k, v = (_build.pad_last_dim(t, Dk) for t in (q, k, v))
@@ -353,33 +432,35 @@ def _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) ->
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     out = torch.empty_like(q)
     stream = _build.current_stream(q.device)
-    sp = sc = 0
-    ws = None
-    if tc or not multi:  # the split routes
-        sms = _build.sm_count(q.device)
-        if multi:
-            sp, sc = verify_splits(B, Hkv, (H // Hkv) * Q, P, L, sms)
-        elif tc:
-            sp, sc = decode_splits(B, Hkv, H // Hkv, P, L, Dk, sms)
-        else:
-            sp, sc = decode_splits_f32(B, Hkv, H // Hkv, P, L, Dk, sms)
-        check_splits(sp, sc, P, L)
-        if sp + sc > 1:
-            ws = _workspace((sp + sc) * B * Q * H * (Dk + 2), q.device, stream)
-    if f32_split:
-        fn = _build.function("decode_attention_f32", "decode_attention_f32_fwd", _ARGTYPES)
+    sms = _build.sm_count(q.device)
+    rows = 0
+    if multi and tc:
+        sp, sc = verify_splits(B, Hkv, (H // Hkv) * Q, P, L, sms)
+    elif multi:
+        rows, sp, sc = verify_splits_f32(B, Hkv, (H // Hkv) * Q, P, L, Dk, sms)
+        check_verify_rows(rows, Dk)
+    elif tc:
+        sp, sc = decode_splits(B, Hkv, H // Hkv, P, L, Dk, sms)
     else:
-        fn = _build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
+        sp, sc = decode_splits_f32(B, Hkv, H // Hkv, P, L, Dk, sms)
+    check_splits(sp, sc, P, L)
+    ws = _workspace((sp + sc) * B * Q * H * (Dk + 2), q.device, stream) if sp + sc > 1 else None
+    tensors = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+               ptr(shared_kv[0]) if P else None, ptr(shared_kv[1]) if P else None,
+               ptr(k_scale), ptr(v_scale), ptr(q_offsets), out.data_ptr(), ptr(ws))
     kernel = ctypes.c_int(-1)
-    status = fn(
-        _DTYPES[q.dtype], int(quant), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        valid.data_ptr(), ptr(shared_kv[0]) if P else None, ptr(shared_kv[1]) if P else None,
-        ptr(k_scale), ptr(v_scale), ptr(q_offsets), out.data_ptr(), ptr(ws),
-        B, Q, H, Hkv, L, Dk, P, sp, sc, D ** -0.5, stream, ctypes.byref(kernel),
-    )
+    if multi and not tc:
+        fn = _build.function("decode_verify_f32", "decode_verify_f32_fwd", _VERIFY_F32_ARGTYPES)
+        status = fn(int(quant), *tensors, B, Q, H, Hkv, L, Dk, P, rows, sp, sc, D ** -0.5,
+                    stream, ctypes.byref(kernel))
+    else:
+        fn = (_build.function("decode_attention", "decode_attention_fwd", _ARGTYPES) if tc else
+              _build.function("decode_attention_f32", "decode_attention_f32_fwd", _ARGTYPES))
+        status = fn(_DTYPES[q.dtype], int(quant), *tensors, B, Q, H, Hkv, L, Dk, P, sp, sc,
+                    D ** -0.5, stream, ctypes.byref(kernel))
     _build.check(status, "decode_attention")
     global launches, quant_launches, multi_launches, multi_quant_launches
-    global multi_tc_launches, decode_tc_launches, decode_f32_launches
+    global multi_tc_launches, decode_tc_launches, decode_f32_launches, verify_f32_launches
     if multi and quant:
         multi_quant_launches += 1
     elif multi:
@@ -391,4 +472,5 @@ def _decode_attention(q, k, v, valid, shared_kv, k_scale, v_scale, q_offsets) ->
     multi_tc_launches += kernel.value == _VERIFY_TC
     decode_tc_launches += kernel.value == _DECODE_TC
     decode_f32_launches += kernel.value == _DECODE_F32
+    verify_f32_launches += kernel.value == _VERIFY_F32
     return out if Dk == D else out[..., :D]

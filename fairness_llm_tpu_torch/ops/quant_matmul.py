@@ -70,10 +70,13 @@ _F32_TARGET_BLOCKS = 264
 _F32_BN, _F32_BK = 128, 64
 
 #: Kernel launches of each regime since the counts were last set to 0;
-#: ``group_launches`` counts the GEMV launches of ``quant_matmul_group``.
+#: ``group_launches`` counts the GEMV launches of ``quant_matmul_group``,
+#: ``f32_launches`` the calls of either regime over float32 x (f32_kernel,
+#: then splitk_reduce where the call splits K).
 gemv_launches = 0
 group_launches = 0
 gemm_launches = 0
+f32_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (x dtype, out dtype) pairs the kernel takes.
@@ -354,7 +357,7 @@ def _quant_matmul(x, wq, scale, out_dtype) -> torch.Tensor:
     Np = wq.shape[1]
     out = torch.empty(M, Np, dtype=out_dtype, device=x.device)
     stream = _build.current_stream(x.device)
-    global gemv_launches, gemm_launches
+    global gemv_launches, gemm_launches, f32_launches
     if M <= GEMV_MAX_M:  # float32 x
         splits, k_per_split = gemv_splits(M, K, Np)
         partial = (torch.empty(splits, M, Np, dtype=torch.float32, device=x.device)
@@ -372,6 +375,7 @@ def _quant_matmul(x, wq, scale, out_dtype) -> torch.Tensor:
                     scale.data_ptr(), out.data_ptr(), M, K, Np, x.shape[1], stream)
         _build.check(status, "quant_matmul_gemm")
         gemm_launches += 1
+    f32_launches += x.dtype == torch.float32
     return out if Np == N else out[:, :N]
 
 

@@ -38,7 +38,10 @@ on decode_split_tc the same way, with prefix splits shared by the batch. A
 float32 one-query call (K2, K2q) runs on decode_split_f32, split and
 combined the same way on scalar f32 FMAs (a block one warp, empty cache
 tiles skipped), held to the float32 tolerance under every split plan, with
-its repeats bit for bit; a float32 verify window runs on decode_fwd. The
+its repeats bit for bit; a float32 verify window (K3, either cache) runs
+on verify_split_f32, split and combined the same way over register tiles
+of 4-warp blocks of 16, 32 or 64 query rows, held to the float32 tolerance
+under every row count and split plan, with its repeats bit for bit. The
 float32 flash kernel (flash_fwd) takes 16, 32 or 64 query rows a block,
 whose key groups it folds in a fixed order: every row plan is held to the
 float32 tolerance with left pads and a window, and repeats bit for bit.
@@ -295,18 +298,21 @@ def test_multi_query_tolerance_sees_each_query_lose_its_slot(dev, dtype, int8):
     _outside_tolerance(got, want, dtype)
 
 
-def _verify_inputs(dev, seed, B, Q, rep, Hkv, L, D, P, int8):
-    """bf16 verify-window inputs with the offset edges: row 0's window at
-    slot 0, row 1's at L - Q, row 2 with no valid own slot (with P = 0 its
-    output is 0), the rest drawn as _window draws them."""
+def _verify_inputs(dev, seed, B, Q, rep, Hkv, L, D, P, int8, dtype=torch.bfloat16):
+    """Verify-window inputs (bf16 unless ``dtype``) with the offset edges:
+    row 0's window at slot 0, row 1's at L - Q, row 2 with no valid own slot
+    (with P = 0 its output is 0), the rest drawn as _window draws them; in
+    float32, row 3 (where B > 3) also has a whole tile with no valid slot."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(B, Q, rep * Hkv, D, generator=g, device=dev, dtype=torch.bfloat16)
-    k, v, scales, shared = _cache(g, dev, torch.bfloat16, B, L, Hkv, D, P, int8=int8)
+    q = torch.randn(B, Q, rep * Hkv, D, generator=g, device=dev, dtype=dtype)
+    k, v, scales, shared = _cache(g, dev, dtype, B, L, Hkv, D, P, int8=int8)
     offs, valid = _window(g, dev, B, L, Q)
     offs[0], offs[1] = 0, L - Q
     valid[0] = torch.arange(L, device=dev) < Q
     valid[1] = True
     valid[2] = False
+    if dtype == torch.float32 and B > 3:
+        valid[3, 32:64] = False
     return q, k, v, valid, shared, offs, scales
 
 
@@ -593,6 +599,110 @@ def test_decode_f32_repeats_bit_for_bit(dev, int8, B, rep, Hkv, P, L):
         assert torch.equal(got, first), f"call {i} differs from the first"
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+@pytest.mark.parametrize("P", [0, 40, 704])
+@pytest.mark.parametrize("D", [16, 32, 100, 128, 256])
+@pytest.mark.parametrize("rep,Q", [(1, 9), (2, 9), (4, 9), (8, 2)],
+                         ids=["rows9", "rows18", "rows36", "rows16"])
+def test_verify_f32_kernel_matches_plain(dev, rep, Q, D, P, int8):
+    """verify_split_f32 (K3 over a float32 and an int8 cache) at rep * Q of
+    9 (tiny-gpt2-study), 18 (tiny-llama-study), 36 (llama3-8b) and 16 query
+    rows a (batch row, kv head), head widths 16-256 (16 and 100 padded to 32
+    and 128), no prefix, one ending mid-tile and llama3-8b's, L = 150 (not a
+    tile multiple), with a window at slot 0, one at L - Q, a row with no
+    valid slot (its queries see no cache key) and a tile with no valid
+    slot."""
+    B, Hkv, L = 4, 2, 150
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 40 + D + P, B, Q, rep, Hkv, L, D,
+                                                          P, int8, dtype=F32)
+    counter = "multi_quant_launches" if int8 else "multi_launches"
+    before = (getattr(dec_mod, counter), dec_mod.verify_f32_launches, dec_mod.multi_tc_launches)
+    got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.cuda.synchronize()
+    assert (getattr(dec_mod, counter), dec_mod.verify_f32_launches,
+            dec_mod.multi_tc_launches) == (before[0] + 1, before[1] + 1, before[2])
+    assert got.shape == q.shape
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.testing.assert_close(got, want, **TOL[F32])
+    if P == 0:
+        assert not got[2].any()  # no key at all: exactly 0
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+@pytest.mark.parametrize("B,Q,rep,Hkv,L,D,P", [
+    (16, 9, 4, 8, 168, 128, 704),  # phase 13's float32 gates (llama3-8b)
+    (16, 9, 2, 2, 168, 32, 128),   # the study's speculative sweep, tiny-llama-study
+    (16, 9, 1, 4, 200, 32, 160),   # and tiny-gpt2-study
+], ids=["gate", "study_llama", "study_gpt2"])
+def test_verify_f32_main_path_shapes_match_plain(dev, B, Q, rep, Hkv, L, D, P, int8):
+    """The shapes the main path gives the float32 verify window, under the
+    wrapper's own plan."""
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 41, B, Q, rep, Hkv, L, D, P, int8,
+                                                          dtype=F32)
+    before = dec_mod.verify_f32_launches
+    got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.cuda.synchronize()
+    assert dec_mod.verify_f32_launches == before + 1
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.testing.assert_close(got, want, **TOL[F32])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+@pytest.mark.parametrize("P,L,D", [(100, 150, 128), (0, 300, 128), (704, 168, 128),
+                                   (40, 100, 256), (128, 168, 32)])
+def test_verify_f32_every_plan_matches_plain(dev, monkeypatch, P, L, D, int8):
+    """Every row count and split plan of verify_split_f32, the one-split case
+    (no combine) included: prefix splits shared by the batch, cache splits
+    per row, splits left with no tile or no visible key for some rows."""
+    B, Q, rep, Hkv = 4, 9, 4, 2
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 42, B, Q, rep, Hkv, L, D, P, int8,
+                                                          dtype=F32)
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
+    for rows in dec_mod.VERIFY_F32_ROWS:
+        if rows * D > 8192:
+            continue
+        for sp, sc in _plans(P, L):
+            plan = (rows, sp, sc)
+            monkeypatch.setattr(dec_mod, "verify_splits_f32", lambda *a, _p=plan: _p)
+            got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+            torch.testing.assert_close(got, want, **TOL[F32],
+                                       msg=lambda m, _p=plan: f"plan {_p}: {m}")
+            if P == 0:
+                assert not got[2].any()
+
+
+@pytest.mark.parametrize("plan,D", [((64, 4, 1), 128), ((48, 1, 1), 128), ((64, 1, 1), 256)],
+                         ids=["splits", "rows", "rows_at_256"])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+def test_verify_f32_refuses_a_bad_plan(dev, monkeypatch, int8, plan, D):
+    """No fallback: more splits than tiles (96 prefix keys: 3 tiles), or a
+    row count the kernel does not take, raises; nothing else runs."""
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 43, 4, 9, 4, 2, 150, D, 96, int8,
+                                                          dtype=F32)
+    monkeypatch.setattr(dec_mod, "verify_splits_f32", lambda *a: plan)
+    counts = lambda: (dec_mod.multi_launches, dec_mod.multi_quant_launches,  # noqa: E731
+                      dec_mod.verify_f32_launches)
+    before = counts()
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    assert counts() == before
+
+
+@pytest.mark.parametrize("B,Q,rep,Hkv,L,D,P", [(16, 9, 4, 8, 168, 128, 704),
+                                               (16, 9, 2, 2, 168, 32, 128)],
+                         ids=["gate", "study"])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+def test_verify_f32_repeats_bit_for_bit(dev, int8, B, Q, rep, Hkv, L, D, P):
+    """50 calls at phase 13's and the study's verify shapes (split keys,
+    combined in a fixed order) agree bit for bit."""
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 44, B, Q, rep, Hkv, L, D, P, int8,
+                                                          dtype=F32)
+    first = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    for i in range(50):
+        got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+        assert torch.equal(got, first), f"call {i} differs from the first"
+
+
 def _flash_f32_inputs(dev, seed, B, H, Hkv, S, D, lens):
     """float32 prefill inputs, q a head-major view of [B, S, H, D]; lens
     "rand" (lengths in [1, S]), "one" (row 0 of length 1) or "pad" (row 0
@@ -692,11 +802,12 @@ def test_quant_matmul_kernel_matches_plain(dev, qmm_weights, M, K, N, x_dtype, o
     wq, scale = qmm_weights[(K, N)]
     g = torch.Generator(device=dev).manual_seed(M)
     x = torch.randn(M, K, generator=g, device=dev).to(x_dtype)
-    gemv, gemm = qmm.gemv_launches, qmm.gemm_launches
+    gemv, gemm, f32 = qmm.gemv_launches, qmm.gemm_launches, qmm.f32_launches
     got = qmm.quant_matmul(x, wq, scale, out_dtype=out_dtype)
     torch.cuda.synchronize()
     small = M <= qmm.GEMV_MAX_M
     assert (qmm.gemv_launches - gemv, qmm.gemm_launches - gemm) == ((1, 0) if small else (0, 1))
+    assert qmm.f32_launches - f32 == (x_dtype == torch.float32)  # f32_kernel's route
     assert got.dtype == out_dtype and got.shape == (M, N)
     want = qmm.quant_matmul_reference(x, wq, scale, out_dtype)
     torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
@@ -882,12 +993,27 @@ def test_paged_gather_scatter_round_trip_on_the_card(dev, quant):
     want = dec_mod.decode_attention(q, contig[0], contig[1], v.key_valid.clone(), **kw)
     assert torch.equal(out, want)
     for lc in v.layers:
-        lc.k.add_(1)
+        for t in (lc.k, lc.v) + ((lc.k_scale, lc.v_scale) if quant else ()):
+            t.add_(1)
     paged.scatter_view(arena, v, wtables)
     torch.cuda.synchronize()
-    k0 = arena.layers[0].k
-    assert torch.equal(k0[0], before[0][0])  # shared block untouched
-    assert torch.equal(k0[1:B * nb + 1], (before[0][1:B * nb + 1] + 1))
-    assert torch.equal(k0[B * nb + 1:N], before[0][B * nb + 1:N])
-    v2 = paged.gather_view(arena, tables, arena.lengths, view)
-    assert torch.equal(v2.layers[0].k[:, bs:], v.layers[0].k[:, bs:])
+    # Every block a write table names, the sink apart, holds its view block
+    # plus one; every other block of the arena is as it was (block 0, shared
+    # and read-only, and the blocks no row's table names). Each tensor of
+    # every layer: k, v and, over an int8 cache, the scales.
+    written = torch.zeros(N, dtype=torch.bool, device=dev)
+    named = wtables.reshape(-1)
+    written[named[named < N]] = True
+    assert not written[0] and int(written.sum()) == B * (nb - 1)
+    for i, lc in enumerate(arena.layers):
+        now = [lc.k, lc.v] + ([lc.k_scale, lc.v_scale] if quant else [])
+        per = len(now)
+        for j, t in enumerate(now):
+            old = before[i * per + j]
+            assert torch.equal(t[:N][written], old[:N][written] + 1), (i, j)
+            assert torch.equal(t[:N][~written], old[:N][~written]), (i, j)
+    fresh = init_cache(cfg, B, nb * bs, device=dev)
+    v2 = paged.gather_view(arena, tables, arena.lengths, fresh)
+    for lc, lv in zip(v2.layers, v.layers):
+        assert torch.equal(lc.k[:, bs:], lv.k[:, bs:])
+        assert torch.equal(lc.v[:, bs:], lv.v[:, bs:])

@@ -395,6 +395,125 @@ def test_flash_f32_rows_refused(rows, D):
         flash_mod.check_rows(rows, D)
 
 
+# The float32 verify window's plan (verify_split_f32): the gate's and the
+# study's shapes, then edges: no prefix, a cache shorter than one tile, no
+# cache, and rep * Q of 9, 18 and 36 rows a (batch row, kv head).
+VERIFY_F32_SHAPES = [(16, 8, 36, 704, 168), (16, 2, 18, 128, 168), (16, 4, 9, 128, 168),
+                     (16, 2, 18, 160, 200), (16, 8, 36, 0, 960), (4, 2, 9, 96, 20),
+                     (4, 8, 36, 704, 0), (1, 1, 18, 0, 10), (48, 8, 36, 704, 168),
+                     (2, 2, 36, 40, 100)]
+
+
+def _verify_f32_cost(B, Hkv, rows, P, L, D, sms, rb, sp, sc):
+    """verify_splits_f32's documented cost of one plan, written out again."""
+    ntp, ntc = -(-P // 32), -(-L // 32)
+    run = max(-(-ntp // sp) if sp else 0, -(-ntc // sc) if sc else 0)
+    pre, cache = Hkv * -(-B * rows // rb), B * Hkv * -(-rows // rb)
+    k = min(dec_mod.VERIFY_F32_BLOCKS_PER_SM[rb],
+            _build.SMEM_PER_SM // (dec_mod.verify_f32_smem(rb, D) + 1024))
+    work = pre * ntp + cache * ntc
+    cost = (-(-work // sms) * (64 * rb * D // dec_mod.VERIFY_F32_FMAS_PER_CLOCK)
+            + max(-(-work // (k * sms)), run) * dec_mod.VERIFY_F32_TILE_CLOCKS)
+    if sp + sc > 1:
+        split = 2 * (B * Hkv * rows * (D + 2) * 8) // dec_mod.HBM_BYTES_PER_CLOCK
+        cost += (sp + sc) * split + dec_mod.VERIFY_F32_COMBINE_CLOCKS
+    return cost
+
+
+@pytest.mark.parametrize("D", dec_mod.F32_WIDTHS)
+def test_verify_split_f32_plan(D):
+    """verify_split_f32's plan: a row count the kernel takes at D, every
+    tile covered exactly once by runs of whole tiles of one kind, no split
+    left without a tile, within the kernel's bounds, and the cheapest plan
+    of whole runs under the cost formula; at the study's shapes it fits one
+    wave of resident blocks."""
+    sms = 132
+    for B, Hkv, rows, P, L in VERIFY_F32_SHAPES:
+        rb, sp, sc = dec_mod.verify_splits_f32(B, Hkv, rows, P, L, D, sms)
+        dec_mod.check_verify_rows(rb, D)  # the wrapper's own checks pass its plan
+        dec_mod.check_splits(sp, sc, P, L)
+        ntp, ntc = -(-P // 32), -(-L // 32)
+        assert _covered_once(ntp, sp) and _covered_once(ntc, sc)
+        assert all(t1 > t0 for t0, t1 in _runs(ntp, sp) + _runs(ntc, sc))
+        cost = _verify_f32_cost(B, Hkv, rows, P, L, D, sms, rb, sp, sc)
+        for other in dec_mod.VERIFY_F32_ROWS:
+            if other * D > 8192:
+                continue
+            for run in range(1, max(ntp, ntc) + 1):
+                plan = (other, -(-ntp // run), -(-ntc // run))
+                assert cost <= _verify_f32_cost(B, Hkv, rows, P, L, D, sms, *plan), plan
+    if D == 128:
+        # llama3-8b's verify window at batch 16 (phase 13's float32 gates):
+        # 64 rows a block, 144 prefix blocks of 11 tiles and 128 cache
+        # blocks, two waves of two 112 KB blocks an SM; the card ran it in
+        # 0.109 ms against 0.159 for the one-wave plan (64, 1, 1).
+        assert dec_mod.verify_splits_f32(16, 8, 36, 704, 168, D, sms) == (64, 2, 1)
+    if D == 32:
+        # The study's speculative sweep (tiny-llama-study, tiny-gpt2-study):
+        # every tile a split of its own, blocks of 16 rows, one wave.
+        assert dec_mod.verify_splits_f32(16, 2, 18, 128, 168, D, sms) == (16, 4, 6)
+        assert dec_mod.verify_splits_f32(16, 4, 9, 128, 168, D, sms) == (16, 4, 6)
+        for B, Hkv, rows, P, L in VERIFY_F32_SHAPES[1:4]:
+            rb, sp, sc = dec_mod.verify_splits_f32(B, Hkv, rows, P, L, D, sms)
+            per_sm = min(4, _build.SMEM_PER_SM // (dec_mod.verify_f32_smem(rb, D) + 1024))
+            blocks = sp * Hkv * -(-B * rows // rb) + sc * B * Hkv * -(-rows // rb)
+            assert blocks <= per_sm * sms, (B, Hkv, rows, P, L)
+
+
+@pytest.mark.parametrize("rows,D", [(48, 32), (0, 128), (8, 64), (128, 32), (64, 256)])
+def test_verify_f32_rows_refused(rows, D):
+    """No fallback: a row count verify_split_f32 does not take at D (at D =
+    256 a block of 64 rows would hold 128 accumulators a thread) is refused."""
+    with pytest.raises(RuntimeError, match="decode_attention: a verify block"):
+        dec_mod.check_verify_rows(rows, D)
+
+
+@pytest.mark.parametrize("shared_p", [None, 96])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32_cache", "int8_cache"])
+@pytest.mark.parametrize("rep", [1, 2, 4], ids=["rows9", "rows18", "rows36"])
+def test_multi_query_reference_matches_pallas_at_the_split_kernels_edges(rep, int8, shared_p):
+    """The plain verify window the card's verify_split_f32 is held to,
+    against the Pallas kernel (``_kernel_multi``, interpret mode) at the
+    cases the split kernel treats apart: row 0's window at slot 0 with slot
+    0 not valid (its first query's limit sees no cache key), row 1's at
+    L - Q, row 2 with a whole 32-key tile of no valid slot and row 3 with
+    no valid slot at all, over a float and an int8 cache, with and without
+    a prefix."""
+    rng = np.random.default_rng(40 + rep)
+    B, Q, hkv, D, L = 8, 9, 2, 64, 128
+    q = rng.normal(size=(B, Q, rep * hkv, D)).astype(np.float32)
+    k = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
+    offs = rng.integers(1, L - Q, size=B).astype(np.int32)
+    offs[0], offs[1] = 0, L - Q
+    valid = (np.arange(L)[None, :] <= (offs[:, None] + Q - 1)) & (rng.random((B, L)) < 0.9)
+    valid[0, 0] = False
+    valid[1, L - Q] = True
+    valid[2, 32:64] = False
+    offs[2] = max(offs[2], 70)
+    valid[3] = False
+    shared = None
+    if shared_p:
+        shared = (rng.normal(size=(shared_p, hkv, D)).astype(np.float32),
+                  rng.normal(size=(shared_p, hkv, D)).astype(np.float32))
+    scales = {}
+    if int8:
+        (kq, ks), (vq, vs) = ttr._quantize_kv(_t(k)), ttr._quantize_kv(_t(v))
+        k, v = kq.numpy(), vq.numpy()
+        scales = {"k_scale": ks.numpy(), "v_scale": vs.numpy()}
+    want = np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+        None if shared is None else tuple(jnp.asarray(a) for a in shared),
+        q_offsets=jnp.asarray(offs), interpret=True,
+        **{n: jnp.asarray(a) for n, a in scales.items()}))
+    got = dec_mod.decode_attention_reference(
+        _t(q), _t(k), _t(v), _t(valid), None if shared is None else tuple(map(_t, shared)),
+        q_offsets=_t(offs), **{n: _t(a) for n, a in scales.items()}).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    if shared is None:
+        assert not got[3].any() and not got[0, 0].any()  # no key at all: exactly 0
+
+
 @functools.lru_cache(maxsize=None)
 def _flax_params():
     return jax.device_get(jtr.init_params(get_model_config(NAME), jax.random.key(0)))

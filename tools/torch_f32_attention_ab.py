@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's float32 attention kernels (K1's ``flash_fwd``, K2's
-one-query route) at the study checkpoints' shapes, in one or more checkouts
-side by side on one card.
+one-query route, K3's verify window) at the study checkpoints' shapes and at
+the float32 gates' llama3-8b width, in one or more checkouts side by side on
+one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -22,16 +23,24 @@ seed 0 on the card:
   pool's 1,680 of 6,144);
 - K1 f32: the sweep's prefix, q [1, 4, 128, 32]; phase 3's scoring forward,
   q [184, 4, 128, 32], lengths in [40, 128]; phase 2's listwise query, q
-  [8, 4, 640, 32], lengths in [180, 260].
+  [8, 4, 640, 32], lengths in [180, 260];
+- K3 f32, the verify window (9 queries a row, over a float32 and an int8
+  cache): phase 13's float32 gates at llama3-8b's width, q [16, 9, 32, 128]
+  over a 704-slot prefix and a 168-slot cache of 8 kv heads, row b's window
+  at an offset in [60, 159] and every slot up to its end valid; the study's
+  speculative sweep, q [16, 9, 4, 32] over a 128-slot prefix and a 168-slot
+  cache of 2 kv heads (tiny-llama-study) and of 4 (tiny-gpt2-study), offsets
+  in [24, 159].
 
 Each row is checked against its plain version (|err| <= 1e-4), timed over
 200 launches with CUDA events behind a device sleep (the device's time a
 call; two launches where the call splits and combines), and its host
 microseconds a call taken with the device asleep. With ``--plans``, in a
 checkout whose wrappers plan the float32 kernels (``flash_f32_rows``,
-``decode_splits_f32``), each K1 row is also timed under every row plan
-and each K2 row under one split of each kind (``plan`` in the row; the
-wrapper's own plan is the row without it). With ``--trace``, each row's
+``decode_splits_f32``, ``verify_splits_f32``), each K1 row is also timed
+under every row plan, each K2 row under one split of each kind, and each
+K3 row under every (rows a block, splits) plan of whole runs (``plan`` in
+the row; the wrapper's own plan is the row without it). With ``--trace``, each row's
 device time a call by CUDA kernel (``kernels_us``, from a torch.profiler
 capture of 20 calls). One JSON line a row (its checkout, kernel, shape,
 plan, ms, host_us, max_abs_err), then the card's name and power limit.
@@ -57,8 +66,8 @@ from fairness_llm_tpu_torch.ops import decode_attention as dm
 from fairness_llm_tpu_torch.ops import flash_attention as fm
 
 torch.backends.cuda.matmul.allow_tf32 = False
-_build.build([n for n in ("flash_attention", "decode_attention", "decode_attention_f32")
-              if (_build.CSRC / f"{n}.cu").exists()])
+_build.build([n for n in ("flash_attention", "decode_attention", "decode_attention_f32",
+                          "decode_verify_f32") if (_build.CSRC / f"{n}.cu").exists()])
 dev = torch.device("cuda")
 g = torch.Generator(device=dev).manual_seed(0)
 
@@ -152,6 +161,34 @@ n = torch.randint(150, 271, (8, 1), generator=g, device=dev)
 pool_valid = torch.arange(768, device=dev)[None, :] < n
 for name, hkv in (("served_pool_llama", 2), ("served_pool_gpt2", 4)):
     decode(name, 8, 4, hkv, 768, 0, pool_valid)
+
+
+def verify(name, B, H, Hkv, L, P, D, lo, int8, Q=9):
+    q, k, v = rnd(B, Q, H, D), rnd(B, L, Hkv, D), rnd(B, L, Hkv, D)
+    shared = (rnd(P, Hkv, D), rnd(P, Hkv, D))
+    scales = {}
+    if int8:
+        from fairness_llm_tpu_torch.models.transformer import _quantize_kv
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    offs = torch.randint(lo, L - Q + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    valid = torch.arange(L, device=dev)[None, :] <= (offs[:, None] + Q - 1)
+    ntp, ntc = -(-P // 32), -(-L // 32)
+    plans = sorted({(rb, -(-ntp // run), -(-ntc // run))
+                    for rb in getattr(dm, "VERIFY_F32_ROWS", ()) if rb * D <= 8192
+                    for run in range(1, max(ntp, ntc) + 1)})
+    planned(dm, "verify_splits_f32", plans, "decode_attention_verify_f32",
+            {"name": name, "q": [B, Q, H, D], "k": [B, L, Hkv, D], "prefix": P,
+             "cache": "int8" if int8 else "float32", "visible_slots": int(valid.sum())},
+            lambda: dm.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales),
+            lambda: dm.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs,
+                                                  **scales))
+
+
+for int8 in (False, True):
+    verify("gate_llama3_8b", 16, 32, 8, 168, 704, 128, 60, int8)
+    for name, hkv in (("study_spec_llama", 2), ("study_spec_gpt2", 4)):
+        verify(name, 16, 4, hkv, 168, 128, 32, 24, int8)
 
 for name, B, S, lo, hi in (("study_prefix", 1, 128, 128, 128), ("scoring", 184, 128, 40, 128),
                            ("listwise", 8, 640, 180, 260)):
