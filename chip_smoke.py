@@ -117,11 +117,13 @@ path's launch counts are set to 0 just before it and read just after:
      version too: reported in bf16 at 32 layers, held to 1e-3 in float32
      at 4 layers; in float32, with a shared-prefix greedy call of the 16
      prompts after it (4 new tokens: the decode steps at M = 16), every K4
-     call is recorded and counted (``quant_matmul.f32_launches``: K4's
-     float32 route, f32_kernel, then splitk_reduce where it splits K) and
-     held against its plain version at 1e-4 + 3e-5 * |plain| (as
-     tests/test_torch_cuda.py holds it) with phase 16's blind check: the
-     ``quant_matmul_f32`` entry.
+     call (a grouped GEMV call one) is recorded and counted
+     (``quant_matmul.f32_launches``: K4's float32 route, two TF32 passes),
+     each launch by the kernel the C entry reports (gemv_stream_tf32 for
+     M <= 64, tf32_gemm_kernel past it; every one must be on those two),
+     and held against its plain version at 1e-4 + 3e-5 * |plain| (as
+     tests/test_torch_cuda.py holds it) with phase 16's blind check and
+     two calls that agree bit for bit: the ``quant_matmul_f32`` entry.
   the phase-1 sweep (``backend_for`` and ``run_phase1``, the user's entry
   points), after the int8 engine is freed:
  19. on tiny-llama-study and tiny-gpt2-study at the study's settings (45
@@ -498,7 +500,10 @@ path's launch counts are set to 0 just before it and read just after:
   shapes as ``tp_shapes``; and phase 32's launches as
   ``spec_sweep_launches`` ("spec_<model>") and its rows as
   ``spec_sweep_shapes``. K4's float32 route is the ``quant_matmul_f32``
-  entry (f32_kernel, splitk_reduce its second launch), held at phase 18.
+  entry (gemv_stream_tf32, and tf32_gemm_kernel in the GEMM regime), held
+  at phase 18; its launches in phases 25's and 26's float32 twins are its
+  ``paged_launches`` and ``containment_launches`` (FULL_WIDTH + "_f32"),
+  their new shapes its ``paged_shapes`` and ``containment_shapes``.
 
 TF32 is off for matmuls and cuDNN, so float32 references are full float32.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -534,10 +539,17 @@ ATOL, RTOL = 4e-3, 1e-2
 # differ in summation order only, and are held to the float32 allowance of
 # tests/test_torch_cuda.py.
 ATOL_F32, RTOL_F32 = 1e-4, 0.0
-# K4 on float32 x (f32_kernel) against its plain version, as
+# K4 on float32 x (two TF32 passes) against its plain version, as
 # tests/test_torch_cuda.py holds it: 1e-4 + 3e-5 * |plain| (sums over K up
-# to 14,336 in another order).
+# to 14,336 in another order, x_lo rounded to TF32).
 ATOL_K4F32, RTOL_K4F32 = 1e-4, 3e-5
+# H100 SXM dense TF32 tensor-core peak. K4's float32 route makes two TF32
+# passes (2 x 2MKN over this rate: the design's own yardstick). Its bound is
+# the card's best float32-accurate product of an int8 weight: the weight is
+# exact in bf16 too, and x split into three bf16 parts keeps float32's
+# bits, so 3 x 2MKN over the bf16 peak.
+TF32_FLOPS = 495e12
+K4_F32_BF16_PASSES = 3
 # The profiled calls' new tokens (16 until the fleet's phase 28 came in; 8
 # keep the script under half its time limit).
 PROFILE_TOKENS = 8
@@ -578,14 +590,14 @@ KERNEL_FUNCTIONS = {
     "decode_attention_f32_int8_cache": "decode_split_f32",
     "decode_attention_verify_f32": "verify_split_f32",
     "decode_attention_verify_f32_int8_cache": "verify_split_f32",
-    "quant_matmul_f32": "f32_kernel",
+    "quant_matmul_f32": "gemv_stream_tf32",
 }
+# The kernel an entry that spans both K4 regimes launches past M = 64.
+GEMM_FUNCTIONS = {"quant_matmul_f32": "tf32_gemm_kernel"}
 # A kernel's second launch, where a call splits its work: combine_splits
-# folds the split attention routes' partials, splitk_reduce sums the float32
-# K4 route's K splits.
+# folds the split attention routes' partials.
 COMBINE_FUNCTIONS = {"decode_split_tc": "combine_splits", "decode_verify_tc": "combine_splits",
-                     "decode_split_f32": "combine_splits", "verify_split_f32": "combine_splits",
-                     "f32_kernel": "splitk_reduce"}
+                     "decode_split_f32": "combine_splits", "verify_split_f32": "combine_splits"}
 # The int8 engine's allocation may exceed its tree by this share at most.
 MEM_SLACK = 0.05
 WATCHED = [
@@ -1037,7 +1049,15 @@ def k4_numbers(call, torch, flush):
         return [qm.quant_matmul_reference(x, wq, scale, od) for wq, scale in mats]
 
     want = plain()
-    errs = [gate(g, w, tol=tol) for g, w in zip(run(x), want)]
+    f32_before = (qm.tf32_gemv_launches, qm.tf32_gemm_launches)
+    got = run(x)
+    errs = [gate(g, w, tol=tol) for g, w in zip(got, want)]
+    kernel = None
+    if f32:  # the kernel the C entry reported, and a second call bit for bit
+        kernel = ("gemv_stream_tf32" if qm.tf32_gemv_launches > f32_before[0] else
+                  "tf32_gemm_kernel" if qm.tf32_gemm_launches > f32_before[1] else None)
+        repeats_equal = all(torch.equal(a, b) for a, b in zip(got, run(x)))
+    del got
     # The kernel on x with its last 32 columns zeroed: the gate must see a
     # kernel that drops its last k tile (32 or 64 wide), in every output.
     cut = x.clone()
@@ -1070,7 +1090,10 @@ def k4_numbers(call, torch, flush):
     # or 2*M*K*N operations at the peak for x's type, whichever is longer.
     nbytes = (K * sum(Ns) + 4 * sum(Ns) + M * K * x.element_size()
               + M * sum(Ns) * torch.finfo(od).bits // 8)
-    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+    # float32 x: three bf16 passes (K4_F32_BF16_PASSES), 3 x 2MKN operations
+    # at the bf16 peak; the route's own two TF32 passes and the f32 FMAs,
+    # which it ran before, are reported beside it.
+    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else BF16_FLOPS / K4_F32_BF16_PASSES
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     err = max(e for e, _ in errs)
     ratio = max(r for _, r in errs)
@@ -1080,9 +1103,12 @@ def k4_numbers(call, torch, flush):
                   "out": str(od)[6:], **({"group": len(mats)} if grouped else {})},
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio, "ok": ratio <= 1,
         "blind_gate_err_over_tol": cut_ratio, "tol": tol,
-        # float32 x: K split across blocks (then splitk_reduce) in the GEMV
-        # regime, one split in the GEMM regime
-        **({"k_splits": qm.gemv_splits(M, K, sum(Ns))[0] if extras else 1} if f32 else {}),
+        # float32 x: the kernel, its K splits in the GEMM regime (the GEMV's
+        # plan is gemv_plan's, as bf16's), its repeat, and the f32 FMA bound
+        **({"kernel_function": kernel, "repeats_equal": repeats_equal,
+            "k_splits": 1 if extras else qm.tf32_gemm_plan(K, sum(Ns))[0],
+            "tf32_two_pass_bound_ms": max(2 * flops / TF32_FLOPS * 1e3, t_bytes),
+            "f32_fma_bound_ms": max(flops / F32_FLOPS * 1e3, t_bytes)} if f32 else {}),
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": "torch.matmul(x, weight dequantized to x's dtype"
                         + (", the group's side by side)" if grouped else ")"),
@@ -1262,6 +1288,7 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, rows) -> 
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "kernel_function": KERNEL_FUNCTIONS[name],
+        **({"gemm_function": GEMM_FUNCTIONS[name]} if name in GEMM_FUNCTIONS else {}),
         **({"combine_function": second} if second else {}), "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
@@ -1841,45 +1868,79 @@ def int8_path(torch, prompts, keys, greedy, sampled):
     log(f"profile_int8_shared_prefix_greedy {json.dumps(prof_row)}")
 
     # 18. end-to-end check with K4 swapped for its plain version too; in
-    # float32 every K4 call (f32_kernel, splitk_reduce where it splits K) is
-    # recorded, counted and held against its plain version: the check's
-    # prefill and steps at batch 4, then a shared-prefix greedy call of the
-    # 16 prompts (the prefix's prefill, the rows' suffix, steps at M = 16)
+    # float32 every K4 call (two TF32 passes: gemv_stream_tf32, a grouped
+    # call one launch, or tf32_gemm_kernel) is recorded, counted by the
+    # kernel the C entry reports and held against its plain version: the
+    # check's prefill and steps at batch 4, then a shared-prefix greedy call
+    # of the 16 prompts (the prefix's prefill, the rows' suffix, steps at
+    # M = 16)
     teacher_forced_gate(engine, prompts, torch, "int8_", cfg.vocab_size)
     del engine, backend
     torch.cuda.empty_cache()
     small = DecodeEngine(dataclasses.replace(cfg, num_layers=4, dtype="float32"), seed=0)
-    rec4f = k4_recorders(qm)[0]  # float32 x: quant_matmul_group makes one call a weight
-    qm.f32_launches = 0
-    with rec4f:
+    with f32_k4_recording(qm) as (recs, counts):
         teacher_forced_gate(small, prompts, torch, "int8_", cfg.vocab_size, f32=True)
         EngineBackend(small).generate(
             prompts, ModelSettings(temperature=0.0, max_tokens=F32_K4_TOKENS), prefix_ids=prefix)
-    launched = qm.f32_launches
     del small
     torch.cuda.empty_cache()
-    kernels.append({**kernel_entry("quant_matmul_f32", K4_SOURCE, K4_REPLACES, launched,
-                                   k4_f32_rows(rec4f, launched, torch, "float32 gate")),
-                    "gate_launches": launched})
+    kernels.append({**kernel_entry("quant_matmul_f32", K4_SOURCE, K4_REPLACES,
+                                   counts["quant_matmul_f32"],
+                                   k4_f32_rows(recs, counts, torch, "float32 gate", qm)),
+                    "gate_launches": counts["quant_matmul_f32"], "launches_by_kernel": counts})
     return kernels
 
 
-def k4_f32_rows(rec4f, launched: int, torch, path: str) -> list:
-    """K4's float32 route at every shape a recorded float32 run gave
-    ``quant_matmul`` (one call a weight, either regime), each against its
-    plain version at ``ATOL_K4F32`` + ``RTOL_K4F32`` with phase 16's blind
-    check; the recorded calls must be all of the ``launched`` f32 launches."""
-    calls = [dict(c, group=False) for c in rec4f.calls.values()]
-    if not calls or any(c["args"][0].dtype != torch.float32 for c in calls):
-        fail(f"the {path} run made no K4 call, or one with x not in float32")
-    if sum(c["n"] for c in calls) != launched:
-        fail(f"the {path} run made {sum(c['n'] for c in calls)} K4 calls and {launched} "
-             f"f32_kernel launches")
+def k4_f32_rows(recs, counts: dict, torch, path: str, qm, held=None) -> list:
+    """K4's float32 route at every shape a recorded run gave
+    ``quant_matmul`` and ``quant_matmul_group`` over float32 x
+    (``k4_recorders``: a grouped call in the GEMV regime is one launch, past
+    it one call a weight), each against its plain version at ``ATOL_K4F32``
+    + ``RTOL_K4F32`` with phase 16's blind check and a repeat bit for bit.
+    The recorded float32 calls must be all of the route's launches
+    (``f32_k4_recording``), and every launch must be on gemv_stream_tf32 or
+    tf32_gemm_kernel. With ``held`` (a set of recorder keys), a shape held
+    before is skipped and the others join it."""
+    rec4, recg = recs
+    keyed = [(k, dict(c, group=False)) for k, c in rec4.calls.items()]
+    keyed += [(k, dict(c, group=True)) for k, c in recg.calls.items()
+              if c["args"][0].shape[0] <= qm.GEMV_MAX_M]
+    keyed = [(k, c) for k, c in keyed if c["args"][0].dtype == torch.float32]
+    if not keyed:
+        fail(f"the {path} run made no K4 call over float32 x")
+    made = sum(c["n"] for _, c in keyed)
+    on_tf32 = counts["gemv_stream_tf32"] + counts["tf32_gemm_kernel"]
+    if made != counts["quant_matmul_f32"] or on_tf32 != made:
+        fail(f"the {path} run made {made} float32 K4 calls and {counts['quant_matmul_f32']} "
+             f"float32 launches, {on_tf32} of them on gemv_stream_tf32 or tf32_gemm_kernel")
+    if held is not None:
+        keyed = [(k, c) for k, c in keyed if k not in held]
+        held.update(k for k, _ in keyed)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    rows = [dict(k4_numbers(c, torch, flush), path=path) for c in calls]
+    rows = [dict(k4_numbers(c, torch, flush), path=path) for _, c in keyed]
     del flush
     check_rows("quant_matmul_f32", rows, "x with its last 32 columns zeroed")
+    bad = [r["shape"] for r in rows if r["kernel_function"] not in ("gemv_stream_tf32",
+                                                                     "tf32_gemm_kernel")]
+    if bad:
+        fail(f"the {path} run's float32 K4 calls at {bad} ran no TF32 kernel")
     return rows
+
+
+@contextlib.contextmanager
+def f32_k4_recording(qm):
+    """Records every K4 call (``k4_recorders``) and counts K4's float32
+    launches from 0; yields (recorders, counts), the counts filled in when
+    the block ends: all of them, and those the C entry reported on each of
+    the route's two kernels."""
+    recs = k4_recorders(qm)
+    counts = {}
+    qm.f32_launches = qm.tf32_gemv_launches = qm.tf32_gemm_launches = 0
+    with recs[0], recs[1]:
+        yield recs, counts
+    counts.update({"quant_matmul_f32": qm.f32_launches,
+                   "gemv_stream_tf32": qm.tf32_gemv_launches,
+                   "tf32_gemm_kernel": qm.tf32_gemm_launches})
 
 
 
@@ -3497,90 +3558,96 @@ def full_width_paged(torch, F, tmp: pathlib.Path, p24: dict, engine_wall_s: floa
                          engine, CONTROL_SERVING, torch, f32=False, hard=False)
     del backend, gpaged
     torch.cuda.empty_cache()
-    eng32 = float32_twin(engine)
-    gate_row["bf16_sweep_rows_parting"] = f32_verdicts(eng32, parting, p24["greedy"], torch)
-    gate_row["bf16_parting_f32_picks"] = {
-        k: sum(r["f32_picks"] == k for r in parting) for k in ("non_paged", "paged", "other")}
-    sweeps32 = {}
-    for key, serving in (("non_paged", CONTROL_SERVING), ("paged", FULL_WIDTH_PAGED)):
-        b = ServingBackend(eng32, ServingConfig(**serving), name=MODEL)
-        sweeps32[key] = SweepRecorder(b)
-        t0 = time.perf_counter()
-        run_phase1(gcfg, MODEL, GATE_PROFILES, backend=b, save=False)
-        gate_row[f"f32_{key}_greedy_wall_s"] = time.perf_counter() - t0
-        del b
-        torch.cuda.empty_cache()
-    gate_row["f32_sweep_rows_differing"] = paged_gate(
-        "llama3-8b int8 paged sweep, f32", sweeps32["non_paged"], sweeps32["paged"], eng32,
-        CONTROL_SERVING, torch, f32=True)
-    del sweeps32
-
-    # the int8 KV cache: a direct serve of the sweep's first prompts, paged
-    # and not, by an engine over the same weight tensors (K2q over the view
-    # in bfloat16, reported as above), then the same in float32 (the gate)
-    import types
-
-    prompts = [p for call in p24["greedy"].calls for p in call[0]][:KV_INT8_REQUESTS]
-    settings = ModelSettings(temperature=0.0, max_tokens=KV_INT8_TOKENS)
-    kv_serving = {**FULL_WIDTH_SERVING, "kv_block_size": PAGED_BLOCK,
-                  "max_new_tokens": KV_INT8_TOKENS}
-    kv_launches = None
-    for dtype, eng_q in (("bf16", DecodeEngine(dataclasses.replace(engine.config,
-                                                                   kv_cache_quant=True),
-                                               params=engine.model.state_dict())),
-                         ("f32", float32_twin(eng32, kv_cache_quant=True))):
-        rows_by = {}
-        for is_paged in (True, False):
-            sched = ContinuousScheduler(eng_q, ServingConfig(**{**kv_serving,
-                                                                "paged_kv": is_paged}),
-                                        settings=settings)
-            reqs = [Request(prompt=p, settings=settings, id=f"kv{i}")
-                    for i, p in enumerate(prompts)]
-            main = dtype == "bf16" and is_paged
-            zero_all(dec_mod, flash_mod, qm)
-            with contextlib.ExitStack() as stack:
-                if main:
-                    recs = stack.enter_context(flagged_recorders(dec_mod, flash_mod, qm,
-                                                                 NotScoring))
-                t0 = time.perf_counter()
-                results = sched.serve(reqs)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            if not all(r.ok for r in results):
-                fail(f"the {dtype} int8-KV direct serve failed a request")
-            key = f"kv_int8_{dtype}_{'paged' if is_paged else 'non_paged'}"
-            gate_row[f"{key}_wall_s"] = wall
-            gate_row[f"{key}_stats"] = sched.last_stats.as_dict()
-            rows_by[is_paged] = [_strip(r.tokens, eng_q.tokenizer.pad_id) for r in results]
-            if main:
-                kv_launches = paged_counts(dec_mod, flash_mod, qm)
-                if kv_launches["decode_attention_int8_cache"] <= 0:
-                    fail("K2q (decode_split_tc over int8) was not launched by the paged serve")
-                for k, v in paged_rows(recs, torch, F, qm, "paged_full_width_kv_int8", False,
-                                       held).items():
-                    kernel_rows.setdefault(k, []).extend(v)
-                del recs
-            del sched
+    # Every K4 call of the float32 twins (the gate's sweeps and replays,
+    # and the int8-KV f32 serves) is recorded and held (k4_f32_rows).
+    with f32_k4_recording(qm) as (rec32, counts32):
+        eng32 = float32_twin(engine)
+        gate_row["bf16_sweep_rows_parting"] = f32_verdicts(eng32, parting, p24["greedy"], torch)
+        gate_row["bf16_parting_f32_picks"] = {
+            k: sum(r["f32_picks"] == k for r in parting) for k in ("non_paged", "paged", "other")}
+        sweeps32 = {}
+        for key, serving in (("non_paged", CONTROL_SERVING), ("paged", FULL_WIDTH_PAGED)):
+            b = ServingBackend(eng32, ServingConfig(**serving), name=MODEL)
+            sweeps32[key] = SweepRecorder(b)
+            t0 = time.perf_counter()
+            run_phase1(gcfg, MODEL, GATE_PROFILES, backend=b, save=False)
+            gate_row[f"f32_{key}_greedy_wall_s"] = time.perf_counter() - t0
+            del b
             torch.cuda.empty_cache()
-        # int8 rounding makes the cached function step-wise: inputs summed in
-        # another order may round one step apart, and the step compounds
-        # through the layers, so in float32 too a row may part beyond the
-        # float32 allowance. The gate is the first layer's cache
-        # (kv_int8_agreement); the rows are reported.
-        gate_row[f"kv_int8_{dtype}_rows"] = len(prompts)
-        gate_row[f"kv_int8_{dtype}_rows_parting"] = paged_gate(
-            f"llama3-8b int8 paged int8-KV serve, {dtype} (reported)",
-            types.SimpleNamespace(calls=[(prompts, rows_by[False])]),
-            types.SimpleNamespace(calls=[(prompts, rows_by[True])]), eng_q, kv_serving, torch,
-            f32=dtype == "f32", hard=False)
-        if dtype == "f32":
-            gate_row["kv_int8_f32_cache_agreement"] = kv_int8_agreement(eng_q, prompts,
-                                                                        kv_serving, torch)
-        del eng_q
+        gate_row["f32_sweep_rows_differing"] = paged_gate(
+            "llama3-8b int8 paged sweep, f32", sweeps32["non_paged"], sweeps32["paged"], eng32,
+            CONTROL_SERVING, torch, f32=True)
+        del sweeps32
+
+        # the int8 KV cache: a direct serve of the sweep's first prompts, paged
+        # and not, by an engine over the same weight tensors (K2q over the view
+        # in bfloat16, reported as above), then the same in float32 (the gate)
+        import types
+
+        prompts = [p for call in p24["greedy"].calls for p in call[0]][:KV_INT8_REQUESTS]
+        settings = ModelSettings(temperature=0.0, max_tokens=KV_INT8_TOKENS)
+        kv_serving = {**FULL_WIDTH_SERVING, "kv_block_size": PAGED_BLOCK,
+                      "max_new_tokens": KV_INT8_TOKENS}
+        kv_launches = None
+        for dtype, eng_q in (("bf16", DecodeEngine(dataclasses.replace(engine.config,
+                                                                       kv_cache_quant=True),
+                                                   params=engine.model.state_dict())),
+                             ("f32", float32_twin(eng32, kv_cache_quant=True))):
+            rows_by = {}
+            for is_paged in (True, False):
+                sched = ContinuousScheduler(eng_q, ServingConfig(**{**kv_serving,
+                                                                    "paged_kv": is_paged}),
+                                            settings=settings)
+                reqs = [Request(prompt=p, settings=settings, id=f"kv{i}")
+                        for i, p in enumerate(prompts)]
+                main = dtype == "bf16" and is_paged
+                zero_all(dec_mod, flash_mod, qm)
+                with contextlib.ExitStack() as stack:
+                    if main:
+                        recs = stack.enter_context(flagged_recorders(dec_mod, flash_mod, qm,
+                                                                     NotScoring))
+                    t0 = time.perf_counter()
+                    results = sched.serve(reqs)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                if not all(r.ok for r in results):
+                    fail(f"the {dtype} int8-KV direct serve failed a request")
+                key = f"kv_int8_{dtype}_{'paged' if is_paged else 'non_paged'}"
+                gate_row[f"{key}_wall_s"] = wall
+                gate_row[f"{key}_stats"] = sched.last_stats.as_dict()
+                rows_by[is_paged] = [_strip(r.tokens, eng_q.tokenizer.pad_id) for r in results]
+                if main:
+                    kv_launches = paged_counts(dec_mod, flash_mod, qm)
+                    if kv_launches["decode_attention_int8_cache"] <= 0:
+                        fail("K2q (decode_split_tc over int8) was not launched by the paged serve")
+                    for k, v in paged_rows(recs, torch, F, qm, "paged_full_width_kv_int8", False,
+                                           held).items():
+                        kernel_rows.setdefault(k, []).extend(v)
+                    del recs
+                del sched
+                torch.cuda.empty_cache()
+            # int8 rounding makes the cached function step-wise: inputs summed in
+            # another order may round one step apart, and the step compounds
+            # through the layers, so in float32 too a row may part beyond the
+            # float32 allowance. The gate is the first layer's cache
+            # (kv_int8_agreement); the rows are reported.
+            gate_row[f"kv_int8_{dtype}_rows"] = len(prompts)
+            gate_row[f"kv_int8_{dtype}_rows_parting"] = paged_gate(
+                f"llama3-8b int8 paged int8-KV serve, {dtype} (reported)",
+                types.SimpleNamespace(calls=[(prompts, rows_by[False])]),
+                types.SimpleNamespace(calls=[(prompts, rows_by[True])]), eng_q, kv_serving, torch,
+                f32=dtype == "f32", hard=False)
+            if dtype == "f32":
+                gate_row["kv_int8_f32_cache_agreement"] = kv_int8_agreement(eng_q, prompts,
+                                                                            kv_serving, torch)
+            del eng_q
     gate_row["kv_int8_launches"] = kv_launches
+    gate_row["f32_twin_k4_launches"] = counts32
+    kernel_rows["quant_matmul_f32"] = k4_f32_rows(rec32, counts32, torch,
+                                                  "paged_full_width_f32", qm, held)
     log(f"paged_full_width_gate {json.dumps(gate_row)}")
-    del eng32
-    return launches, kv_launches, kernel_rows
+    del eng32, rec32
+    return launches, kv_launches, {"quant_matmul_f32": counts32["quant_matmul_f32"]}, kernel_rows
 
 
 def paged_path(torch, F, device_line: str, sweep: dict, p24: dict) -> dict:
@@ -3608,9 +3675,9 @@ def paged_path(torch, F, device_line: str, sweep: dict, p24: dict) -> dict:
             log(f"paged_study {json.dumps({'device': device_line, **row})}")
         gc.collect()
         full = p24["full_width"]
-        launches[FULL_WIDTH], launches[FULL_WIDTH + "_kv_int8"], full_rows = \
-            full_width_paged(torch, F, pathlib.Path(tmp), full, sweep["full_width_wall_s"],
-                             device_line, held)
+        (launches[FULL_WIDTH], launches[FULL_WIDTH + "_kv_int8"],
+         launches[FULL_WIDTH + "_f32"], full_rows) = full_width_paged(
+            torch, F, pathlib.Path(tmp), full, sweep["full_width_wall_s"], device_line, held)
     for k, v in full_rows.items():
         rows.setdefault(k, []).extend(v)
     return {"launches": launches, "rows": rows, "held": held}
@@ -3962,19 +4029,24 @@ def full_width_contained(torch, F, tmp: pathlib.Path, p24: dict, device_line: st
         kernel_rows["decode_attention_verify"] = vrows
     del recs
 
-    # the float32 gate: the same two direct serves over the same weights
-    eng32 = float32_twin(engine)
-    eng32.numerics_guards = True
-    with T.use_registry(), T.use_incident_manager():
-        f32 = [types.SimpleNamespace(calls=[(prompts, [_strip(r.tokens, pad)
-                                                       for r in direct(eng32, faults)[0]])])
-               for faults in (False, True)]
-    row["faulted_f32_rows_differing"] = paged_gate(
-        "llama3-8b int8 faulted serve, f32", f32[0], f32[1], eng32, CONTROL_SERVING, torch,
-        f32=True)
+    # the float32 gate: the same two direct serves over the same weights,
+    # every K4 call of the twin recorded and held (k4_f32_rows)
+    with f32_k4_recording(qm) as (rec32, counts32):
+        eng32 = float32_twin(engine)
+        eng32.numerics_guards = True
+        with T.use_registry(), T.use_incident_manager():
+            f32 = [types.SimpleNamespace(calls=[(prompts, [_strip(r.tokens, pad)
+                                                           for r in direct(eng32, faults)[0]])])
+                   for faults in (False, True)]
+        row["faulted_f32_rows_differing"] = paged_gate(
+            "llama3-8b int8 faulted serve, f32", f32[0], f32[1], eng32, CONTROL_SERVING, torch,
+            f32=True)
     engine.numerics_guards = False
-    del eng32
-    return launches, kernel_rows, row
+    row["f32_twin_k4_launches"] = counts32
+    kernel_rows["quant_matmul_f32"] = k4_f32_rows(rec32, counts32, torch,
+                                                  "containment_full_width_f32", qm, held)
+    del eng32, rec32
+    return launches, {"quant_matmul_f32": counts32["quant_matmul_f32"]}, kernel_rows, row
 
 
 # The child of phase 26(d) (and of phase 28(b), through a fleet of two
@@ -4185,8 +4257,8 @@ def containment_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
         del recs
         gc.collect()
         full = p24["full_width"]
-        launches[FULL_WIDTH], full_rows, row = full_width_contained(
-            torch, F, tmp, full, device_line, held)
+        launches[FULL_WIDTH], launches[FULL_WIDTH + "_f32"], full_rows, row = \
+            full_width_contained(torch, F, tmp, full, device_line, held)
         log(f"containment_full_width {json.dumps(row)}")
         for k, v in full_rows.items():
             rows.setdefault(k, []).extend(v)
@@ -5998,13 +6070,9 @@ def tp_rank(out: pathlib.Path) -> int:
         if rank == turn:
             for key, run in runs.items():
                 if key == "f32_logits":  # K4's float32 route over the rank's shards
-                    fresh = {k: v for k, v in run.calls.items() if k not in held}
-                    held.update(fresh)
-                    if fresh:
-                        run.calls = fresh
-                        rows.setdefault("quant_matmul_f32", []).extend(k4_f32_rows(
-                            run, sum(c["n"] for c in fresh.values()), torch,
-                            f"tp_f32_logits_rank{rank}"))
+                    rows.setdefault("quant_matmul_f32", []).extend(k4_f32_rows(
+                        run, res["f32_logits_launches"], torch, f"tp_f32_logits_rank{rank}",
+                        qm, held))
                     continue
                 if key == "spec":
                     fresh = {k: v for k, v in run.calls.items()
@@ -6045,9 +6113,9 @@ def first_logits(torch, engine, cfg, toks, pos, valid, rank: int) -> dict:
     float32 activations at each tp, ``float32_twin``'s function), gated at
     the port's float32 logit allowance: ``F32_LOGIT_TOL`` of the largest
     logit. Both ranks run the tp=2 forwards; rank 0 also the tp=1 ones and
-    returns the numbers, with the recorder of the float32 tp=2 forward's
-    K4 calls (K4's float32 route over the rank's shards) and their
-    f32_kernel launches."""
+    returns the numbers, with the recorders of the float32 tp=2 forward's
+    K4 calls (K4's float32 route over the rank's shards) and their launches
+    by kernel (``f32_k4_recording``)."""
     from fairness_llm_tpu_torch.ops import quant_matmul as qm
     from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
     from fairness_llm_tpu_torch.runtime.weights import init_params
@@ -6056,13 +6124,14 @@ def first_logits(torch, engine, cfg, toks, pos, valid, rank: int) -> dict:
     f32 = dataclasses.replace(engine.config, dtype="float32")
     twin = DecodeEngine(f32, params=full, mesh=engine.mesh, tokenizer=engine.tokenizer)
     out = {}
-    rec4f = k4_recorders(qm)[0]
+    recs, counts = None, None
     for dtype, tp2 in (("bfloat16", engine), ("float32", twin)):
-        qm.f32_launches = 0
-        with rec4f if dtype == "float32" else contextlib.nullcontext():
+        with (f32_k4_recording(qm) if dtype == "float32"
+              else contextlib.nullcontext((None, None))) as (rec, cnt):
             got, _ = tp2.model(toks, pos, valid, left_padded=True, last_only=True)
-        torch.cuda.synchronize()
-        launched = qm.f32_launches
+            torch.cuda.synchronize()
+        if rec is not None:
+            recs, counts = rec, cnt
         if rank == 0:
             one = DecodeEngine(f32 if dtype == "float32" else engine.config, params=full,
                                tokenizer=engine.tokenizer)
@@ -6076,7 +6145,7 @@ def first_logits(torch, engine, cfg, toks, pos, valid, rank: int) -> dict:
         del got
     del twin, full
     torch.cuda.empty_cache()
-    return out, rec4f, launched
+    return out, recs, counts
 
 
 def sp_checks(torch, out: pathlib.Path, rank: int) -> dict:
@@ -6274,9 +6343,12 @@ def tp_checks(torch, res: dict, one: dict, sweep: dict, device_line: str) -> tup
             launches[f"{FULL_WIDTH}_tp2_rank{r}"] = lf
             launches[f"spec_tp2_rank{r}"] = {
                 "decode_attention_verify": sl["decode_attention_verify"]}
-            if rk["f32_logits_launches"] <= 0:
-                fail(f"{label}: the float32 tp=2 forward launched no f32_kernel")
-            launches[f"f32_logits_tp2_rank{r}"] = {"quant_matmul_f32": rk["f32_logits_launches"]}
+            f32k4 = rk["f32_logits_launches"]
+            if f32k4["quant_matmul_f32"] <= 0 or f32k4["quant_matmul_f32"] != (
+                    f32k4["gemv_stream_tf32"] + f32k4["tf32_gemm_kernel"]):
+                fail(f"{label}: the float32 tp=2 forward's K4 launches {f32k4} are not all on "
+                     "gemv_stream_tf32 and tf32_gemm_kernel")
+            launches[f"f32_logits_tp2_rank{r}"] = {"quant_matmul_f32": f32k4["quant_matmul_f32"]}
             ring = rk["ring"]
             if not ring["max_abs_err"] <= RING_ATOL:
                 fail(f"{label}: ring attention is {ring['max_abs_err']:.3e} from dense "

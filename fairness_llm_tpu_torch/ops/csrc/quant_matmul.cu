@@ -56,8 +56,7 @@
 //   sets the counter back to 0. A tile one unit covers is stored directly.
 // The plan caps a column tile's splits at about 8 (a weight as narrow as
 // k/v alone then uses fewer blocks), since the last block reads them all.
-// float32 x in this regime: f32_kernel, K split across blocks by
-// quant_matmul_gemv, and splitk_reduce.
+// float32 x runs the same schedule as gemv_stream_tf32 (below).
 //
 // quant_matmul_gemm (M > 64: prefill). Bound by operations (2*M*K*N; a
 // no-prefix prefill of llama3-8b is ~200 TFLOP against 989 TFLOP/s bf16).
@@ -78,12 +77,38 @@
 // latency is only partly hidden behind one tile's products. At small N
 // (k/v: N = 1024) too few 256-wide column tiles fill 132 SMs.
 //
-// float32 x (float32 models) in either regime: the weight goes to f32, never
-// TF32 or bf16, and the products are f32 FMAs on the CUDA cores. A block
-// owns 128 columns, up to 64 rows and a slice of K; each lane owns 4
-// neighbouring columns (one 32-bit word of a weight row) and up to 16 rows,
-// the 8 warps split each tile's k rows (and the rows of x past 16), and
-// their sums meet in shared memory in a fixed order.
+// float32 x (float32 models) in either regime: two TF32 passes on the
+// tensor cores, whose result is float32's. An int8 weight is exact in TF32
+// (10 mantissa bits; |q| <= 127 needs 7), so x @ wq = x_hi @ wq + x_lo @ wq
+// with x_hi = tf32(x) and x_lo = tf32(x - x_hi) (round to nearest, ties
+// away: cvt.rna). x - x_hi is exact in float32, each TF32 x int8 product is
+// exact in float32, and the one rounding left is x_lo's, at most 2^-22 |x|:
+// float32's own level. It is "3xTF32" whose third term is zero, since the
+// weight has no low part; the weight itself is never rounded. Two passes
+// at 495 TFLOP/s dense TF32 reach ~247 TFLOP/s of float32-accurate work,
+// against 67 on the f32 FMAs. It is not the card's best: an int8 weight is
+// exact in bf16 too, and x in three bf16 parts keeps float32's bits, so
+// three bf16 passes at 989 TFLOP/s would reach ~330 (the bound the rows are
+// held to).
+// - GEMV (M <= 64): gemv_stream_tf32, gemv_stream_tc's persistent stream
+//   with mma.sync m16n8k8 .tf32 products and the roles swapped (the weight
+//   as A, straight from the swizzled int8 tile by the register route; x as
+//   B, split into x_hi and x_lo in registers, two products each), so at
+//   M <= 8 a product is padded to 8 rows, not 16. Grouped calls (q/k/v,
+//   gate/up) are one launch, the split-K reduce inside.
+// - GEMM (M > 64): tf32_gemm_kernel computes out^T = wq^T x^T on wgmma
+//   m64n64k8 .tf32. TF32 wgmma reads shared-memory operands K-major only
+//   (32-bit types have no transpose bit); x [M, K] is K-major, wq [K, N]
+//   is not. So the weight is the register-sourced A operand, converted
+//   straight from the int8 tile, and x is the B operand in shared memory,
+//   as TMA stored it: consumer warps overwrite each x tile with x_hi in
+//   place and write x_lo beside it, while the previous tile's products
+//   run. No converted weight is written to shared memory. The tensor
+//   cores' own accumulation keeps fewer bits than float32 over long sums,
+//   so each 32-k tile's products are added into float32 sums on the CUDA
+//   cores. Output tiles too few to fill 132 SMs (k/v, short prefills)
+//   split K across blocks, the last to arrive summing the partials in
+//   split order.
 //
 // Ragged edges: rows of x past M, k past K and columns past N are
 // zero-filled when staged (by cp.async, or by TMA's out-of-bounds fill) and
@@ -98,199 +123,8 @@
 namespace {
 
 using attn::cp_async16;
-using attn::cp_async_commit;
-using attn::cp_async_wait;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 using frag::i8x4_to_f32;  // exact int8 -> float (mma_fragments.cuh)
-
-// ---------------------------------------------------------------------------
-// float32 x: CUDA-core FMAs (both regimes)
-// ---------------------------------------------------------------------------
-
-constexpr int GV_BN = 128;  // columns per block: 32 lanes x 4
-constexpr int GV_BK = 32;   // k rows per pipeline stage
-constexpr int GV_STAGES = 4;
-
-constexpr size_t gv_smem_bytes(int MP) {
-  const size_t pipe = GV_STAGES * (size_t(GV_BK) * GV_BN + size_t(MP) * GV_BK * sizeof(float));
-  const size_t red = size_t(MP) * GV_BN * sizeof(float);
-  return pipe > red ? pipe : red;
-}
-
-// Block (column tile, K split, row chunk). MR rows of x per lane, MG warp
-// groups over rows (MP = MR * MG rows per block); the kWarps / MG warps of a
-// group split each tile's k rows. `partial` is null when the block applies
-// the scale and writes `out` itself (one split), else [splits, M, N].
-template <int MR, int MG>
-__global__ void __launch_bounds__(kThreads)
-f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-           const float* __restrict__ scale, float* __restrict__ out, float* __restrict__ partial,
-           int M, int K, int N, int ldx, int k_per_split) {
-  constexpr int MP = MR * MG;
-  constexpr int KG = kWarps / MG;
-  constexpr int KR = GV_BK / KG;  // k rows per warp per stage
-  constexpr int VE = 16 / sizeof(float);
-  constexpr int W_BYTES = GV_BK * GV_BN;
-  constexpr int STAGE = W_BYTES + MP * GV_BK * sizeof(float);
-  static_assert(KR % 4 == 0, "each warp takes k rows four at a time");
-  extern __shared__ __align__(16) unsigned char smem[];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int mg = warp % MG, kg = warp / MG;
-  const int n0 = blockIdx.x * GV_BN;
-  const int m0 = blockIdx.z * MP;
-  const int kb = blockIdx.y * k_per_split;
-  const int ke = min(K, kb + k_per_split);
-  const int ntiles = ke > kb ? (ke - kb + GV_BK - 1) / GV_BK : 0;
-
-  auto wtile = [&](int st) { return reinterpret_cast<int8_t*>(smem + st * STAGE); };
-  auto xtile = [&](int st) { return reinterpret_cast<float*>(smem + st * STAGE + W_BYTES); };
-
-  auto stage = [&](int t) {
-    const int k0 = kb + t * GV_BK;
-    const int st = t % GV_STAGES;
-    int8_t* wd = wtile(st);
-    for (int i = threadIdx.x; i < GV_BK * (GV_BN / 16); i += kThreads) {
-      const int r = i / (GV_BN / 16), c = (i % (GV_BN / 16)) * 16;
-      const bool ok = k0 + r < ke && n0 + c < N;
-      cp_async16(wd + r * GV_BN + c, ok ? w + (long long)(k0 + r) * N + n0 + c : w, ok);
-    }
-    float* xd = xtile(st);
-    for (int i = threadIdx.x; i < MP * (GV_BK / VE); i += kThreads) {
-      const int r = i / (GV_BK / VE), c = (i % (GV_BK / VE)) * VE;
-      // A chunk that starts before ke ends before it, or runs into the
-      // zero padding of a row past K.
-      const bool ok = m0 + r < M && k0 + c < ke;
-      cp_async16(xd + r * GV_BK + c, ok ? x + (long long)(m0 + r) * ldx + k0 + c : x, ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < GV_STAGES - 1; ++s) {
-    if (s < ntiles) stage(s);
-    cp_async_commit();
-  }
-
-  float acc[MR][4];
-#pragma unroll
-  for (int r = 0; r < MR; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<GV_STAGES - 2>();
-    __syncthreads();  // tile t landed; every warp is done with tile t - 1
-    if (t + GV_STAGES - 1 < ntiles) stage(t + GV_STAGES - 1);
-    cp_async_commit();
-
-    const int8_t* wt = wtile(t % GV_STAGES) + kg * KR * GV_BN + lane * 4;
-    const float* xt = xtile(t % GV_STAGES) + mg * MR * GV_BK + kg * KR;
-#pragma unroll
-    for (int kk = 0; kk < KR; kk += 4) {
-      float wf[4][4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        i8x4_to_f32(*reinterpret_cast<const uint32_t*>(wt + (kk + e) * GV_BN), wf[e]);
-#pragma unroll
-      for (int r = 0; r < MR; ++r) {
-        // One address per warp: a broadcast.
-        const float4 xv = *reinterpret_cast<const float4*>(xt + r * GV_BK + kk);
-        const float xf[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xf[e], wf[e][c], acc[r][c]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the pipeline buffers are free: reuse them for the sum
-
-  // The KG warps of each row group add their sums in a fixed order.
-  float* red = reinterpret_cast<float*>(smem);  // [MP][GV_BN]
-#pragma unroll 1
-  for (int g = 0; g < KG; ++g) {
-    if (kg == g) {
-#pragma unroll
-      for (int r = 0; r < MR; ++r) {
-        float4* p = reinterpret_cast<float4*>(red + (mg * MR + r) * GV_BN + lane * 4);
-        float4 v = g == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *p;
-        v.x += acc[r][0];
-        v.y += acc[r][1];
-        v.z += acc[r][2];
-        v.w += acc[r][3];
-        *p = v;
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < MP * GV_BN; i += kThreads) {
-    const int m = m0 + i / GV_BN, n = n0 + i % GV_BN;
-    if (m >= M || n >= N) continue;
-    if (partial != nullptr)
-      partial[((long long)blockIdx.y * M + m) * N + n] = red[i];
-    else
-      out[(long long)m * N + n] = red[i] * scale[n];
-  }
-}
-
-// out = scale * sum over splits of partial, in split order (float32 x).
-__global__ void __launch_bounds__(kThreads)
-splitk_reduce(const float* __restrict__ partial, const float* __restrict__ scale,
-              float* __restrict__ out, int M, int N, int splits) {
-  const long long total = (long long)M * N;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < total;
-       i += (long long)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int p = 0; p < splits; ++p) s += partial[p * total + i];
-    out[i] = s * scale[i % N];
-  }
-}
-
-cudaError_t reduce_launch(const float* partial, const float* scale, void* out, int M, int N,
-                          int splits, cudaStream_t stream) {
-  const long long blocks = ((long long)M * N + kThreads - 1) / kThreads;
-  splitk_reduce<<<(int)(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
-      partial, scale, static_cast<float*>(out), M, N, splits);
-  return cudaGetLastError();
-}
-
-template <int MR, int MG>
-cudaError_t f32_launch(const void* x, const void* w, const float* scale, void* out,
-                       float* partial, int M, int K, int N, int ldx, int splits,
-                       int k_per_split, int mchunks, cudaStream_t stream) {
-  const size_t smem = gv_smem_bytes(MR * MG);
-  auto kernel = f32_kernel<MR, MG>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + GV_BN - 1) / GV_BN, splits, mchunks);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(w), scale,
-      static_cast<float*>(out), splits > 1 ? partial : nullptr, M, K, N, ldx, k_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  return reduce_launch(partial, scale, out, M, N, splits, stream);
-}
-
-#define F32_ARGS x, w, scale, out, partial, M, K, N, ldx, splits, k_per_split, mchunks, stream
-
-// Rows per block from M: the fewest accumulators that cover it; past 64
-// rows, chunks of 64 (one split).
-cudaError_t f32_dispatch(const void* x, const void* w, const float* scale, void* out,
-                         float* partial, int M, int K, int N, int ldx, int splits,
-                         int k_per_split, int mchunks, cudaStream_t stream) {
-  if (mchunks > 1 || M > 32) return f32_launch<16, 4>(F32_ARGS);
-  if (M > 16) return f32_launch<16, 2>(F32_ARGS);
-  if (M > 8) return f32_launch<16, 1>(F32_ARGS);
-  if (M > 4) return f32_launch<8, 1>(F32_ARGS);
-  if (M > 1) return f32_launch<4, 1>(F32_ARGS);
-  return f32_launch<1, 1>(F32_ARGS);
-}
 
 // ---------------------------------------------------------------------------
 // Pieces shared by the GEMM and the GEMV stream kernel
@@ -306,6 +140,34 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// x rounded to TF32 (to nearest, ties away from zero): a float whose low 13
+// mantissa bits are 0.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The two TF32 operands of float32 x: hi = tf32(x) and lo = tf32(x - hi).
+// x - hi is exact in float32; lo drops at most 2^-22 |x| of it.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a * b on one m16n8k8 TF32 tile, f32 accumulation (g = lane / 4,
+// q = lane % 4): A 16x8 a0 (row g, k q), a1 (row g+8, k q), a2 (row g,
+// k q+4), a3 (row g+8, k q+4); B 8x8 b0 (k q, col g), b1 (k q+4, col g);
+// C as m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------
@@ -679,8 +541,8 @@ bool shapes_ok(int xdtype, const void* x, const void* w, int M, int K, int N, in
 }
 
 // ---------------------------------------------------------------------------
-// GEMV regime, bf16 x: gemv_stream_tc, a persistent weight-streaming kernel
-// with its split-K reduce inside
+// GEMV regime: gemv_stream_tc (bf16 x) and gemv_stream_tf32 (float32 x), a
+// persistent weight-streaming kernel with its split-K reduce inside
 // ---------------------------------------------------------------------------
 
 constexpr int GS_BK = 64;         // k rows a ring stage
@@ -694,24 +556,36 @@ constexpr int GS_MAX_GROUP = 3;   // weights one launch takes
 // (tools/torch_k4_variants.py). 128-column tiles take twice as many.
 constexpr int GS_STAGES = 4;
 
-// The ring of one row-tile height BM and column-tile width BN: its stages,
-// each the weight tile (BN / 128 TMA boxes [64][128], 128B-swizzled) and the
-// x tile [BM][64] bf16 (128 bytes a row, its 16-byte chunks swizzled the
-// same way); at BN = 128 the scratch where the two k halves of a tile meet;
-// then the barriers.
-template <int BM, int BN>
+// The ring of one row-tile height BM, column-tile width BN and x element
+// size XB (2: bf16, 4: f32): its stages, each the weight tile (BN / 128 TMA
+// boxes [64][128], 128B-swizzled) and the x tile [BM][64] (X_ROW bytes a
+// row, its 16-byte chunks swizzled as gs_xchunk says); at BN = 128 the
+// scratch where the two k halves of a tile meet; then the barriers.
+template <int BM, int BN, int XB>
 struct GsRing {
   static constexpr int W_STAGE = GS_BK * BN;
-  static constexpr int X_STAGE = BM * GS_BK * 2;
+  static constexpr int X_ROW = GS_BK * XB;
+  static constexpr int X_STAGE = BM * X_ROW;
   static constexpr int STAGE = W_STAGE + X_STAGE;  // a multiple of 1024
   static constexpr int STAGES = GS_STAGES * 256 / BN;
-  static constexpr int SCRATCH = BN == 256 ? 0 : 128 * (BM / 16) * 16 * 4;
+  static constexpr int SCRATCH = BN == 256 ? 0 : 128 * ((BM + 15) / 16) * 16 * 4;
   static constexpr int TAIL = 256;  // full and empty barriers, the last-arrival flag
   static constexpr int SMEM = 1024 /* alignment slack */ + STAGES * STAGE + SCRATCH + TAIL;
   static_assert(BN == 128 || BN == 256, "column tiles of 128 or 256");
+  static_assert(BM % 16 == 0 || (BM == 8 && XB == 4), "m16 row tiles (float32 x: also 8 rows)");
   static_assert(2 * STAGES * 8 + 4 <= TAIL, "the barriers fit the tail");
   static_assert(SMEM <= 232448, "over the H100's opt-in shared memory a block");
 };
+
+// Where 16-byte chunk ch of x row r lies in its stage, in chunks. bf16 rows
+// (8 chunks) take the 128B swizzle, so ldmatrix's eight rows hit eight
+// bank groups. f32 rows (16 chunks) XOR the chunk with 2r mod 8: the TF32
+// route's 8-byte A loads (rows g, k 2q and 2q+1 of a k8 step) then hit
+// distinct banks in each half-warp.
+template <int XB>
+__device__ __forceinline__ int gs_xchunk(int ch, int r) {
+  return XB == 2 ? ch ^ (r & 7) : ch ^ ((2 * r) & 7);
+}
 
 // A group of weights that share K and x, set up once per group
 // (quant_matmul_stream_prepare) and copied into every launch's parameters.
@@ -728,7 +602,7 @@ struct GsGroup {
 
 struct GsArgs {
   GsGroup grp;
-  const __nv_bfloat16* x;
+  const void* x;  // bf16 or f32
   void* out[GS_MAX_GROUP];
   float* ws;      // [2 * blocks][M][bn] f32 partials: a block's first and last unit
   int* counters;  // [tiles] arrivals a column tile, 0 between launches
@@ -940,6 +814,38 @@ __device__ __forceinline__ void gs_epilogue(const GsArgs& p, const float (&acc)[
   if (threadIdx.x == 0) p.counters[t] = 0;
 }
 
+// gemv_stream_tf32's sums into gemv_stream_tc's layout, which the k-half
+// merge and gs_epilogue read. The float32 route multiplies with the roles
+// swapped (weight columns as mma's 16 rows, x rows as its 8 columns), so
+// tile (j, p) of thread (g, q) holds columns 4g + 2p (c0, c1) and 4g + 2p +
+// 1 (c2, c3) of x rows 8j + 2q and 8j + 2q + 1. acc[m][c][2h + s] is row
+// 16m + 8h + g, column 8q + 4s + c: the thread (2q + s, g / 2) holds it, in
+// tile (2m + h, c / 2), element 2 (c % 2) + g % 2. Rows past NT's tiles are 0.
+template <int MT, int NT>
+__device__ __forceinline__ void gs_unswap(const float (&sw)[NT][2][4], float (&acc)[MT][4][4]) {
+  const int lane = threadIdx.x % 32, g8 = lane / 4, q = lane % 4;
+  const int src = 8 * q + g8 / 2;  // lane (2q, g / 2); lane (2q + 1, g / 2) is src + 4
+  const bool odd = g8 & 1;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * m + h;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          if (j >= NT) {
+            acc[m][c][2 * h + s] = 0.f;
+            continue;
+          }
+          const float e0 = __shfl_sync(0xffffffffu, sw[j][c / 2][2 * (c % 2)], src + 4 * s);
+          const float e1 = __shfl_sync(0xffffffffu, sw[j][c / 2][2 * (c % 2) + 1], src + 4 * s);
+          acc[m][c][2 * h + s] = odd ? e1 : e0;
+        }
+    }
+}
+
 // One block an SM walks its run of tile steps, on 9 warps in two roles that
 // meet at no block-wide barrier after setup:
 // - warp 8, the producer, keeps the ring full across unit boundaries: lane 0
@@ -957,15 +863,32 @@ __device__ __forceinline__ void gs_epilogue(const GsArgs& p, const float (&acc)[
 //   tiles hold 8 neighbouring columns of rows g and g + 8, stored as one
 //   vector. A warp releases a stage to the producer when its reads are done
 //   (eight arrivals free it); the tile before the next stays in flight.
+// - float32 x (XB = 4, gemv_stream_tf32): the k8 steps of m16n8k8 .tf32
+//   with the roles swapped, out^T = wq^T x^T: the weight is the A operand
+//   (16 columns as mma's rows) and x the B operand (8 x rows as its
+//   columns), so a product is padding only past M in 8-row, not 16-row,
+//   tiles: at M <= 8 half the products of x as A. Each k8 step runs in the
+//   order (k 0, 2, 4, 6, 1, 3, 5, 7): logical k q is the step's row 2q and
+//   q + 4 its row 2q + 1, so a thread reads the words of rows 2q and 2q + 1
+//   (the bf16 route's banks); bytes 2p and 2p + 1 of a word are A rows g
+//   and g + 8 of tile p (columns 4g + 2p and 4g + 2p + 1), and x's floats
+//   2q and 2q + 1 of row 8j + g, one 8-byte load, are tile j's b0 and b1.
+//   Each B value is split into x_hi and x_lo in registers and both multiply
+//   the same A fragments, into one stage's sums, which are then added into
+//   the float32 sums (the tensor cores' own adds keep fewer bits,
+//   tf32_gemm_kernel says more). gs_unswap puts a unit's sums back into the
+//   bf16 route's layout for the merge and the epilogue.
 // TMA zero-fills weight rows past K and columns past N; those columns are
 // never stored.
-template <typename TO, int BM, int BN>
-__global__ void __launch_bounds__(GS_THREADS, 1) gemv_stream_tc(const __grid_constant__ GsArgs p) {
-  using R = GsRing<BM, BN>;
+template <typename TO, int XB, int BM, int BN>
+__device__ __forceinline__ void gemv_stream_body(const GsArgs& p) {
+  using R = GsRing<BM, BN, XB>;
   constexpr int S = R::STAGES;
-  constexpr int MT = BM / 16;
-  constexpr int CG = BN / 32;                             // warps across the tile's columns
-  constexpr int KSTEPS = GS_BK / 16 * CG / GS_CONSUMERS;  // k16 steps a warp a stage
+  constexpr int MT = (BM + 15) / 16;  // m16 tiles of rows (the epilogue's layout)
+  constexpr int NT = BM / 8;          // n8 tiles of rows (float32 x)
+  constexpr int CG = BN / 32;  // warps across the tile's columns
+  // k steps (k16 for bf16, k8 for f32) a warp a stage
+  constexpr int KSTEPS = GS_BK / (XB == 2 ? 16 : 8) * CG / GS_CONSUMERS;
   extern __shared__ unsigned char smem_dyn[];
   // Offsetting the shared array (not rounding a generic address) keeps the
   // ring in the shared space, so its reads compile to LDS, not generic LD.
@@ -990,7 +913,10 @@ __global__ void __launch_bounds__(GS_THREADS, 1) gemv_stream_tc(const __grid_con
   __syncthreads();
 
   if (warp == GS_CONSUMERS) {
+    constexpr int XCH = R::X_ROW / 16;  // 16-byte chunks of an x row a stage
+    constexpr int XE = 16 / XB;         // x elements a chunk
     const int M = p.M, K = grp.K;
+    const unsigned char* xg = static_cast<const unsigned char*>(p.x);
     if (lane == 0)
       for (int g = 0; g < grp.ngroups; ++g)
         asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&grp.wmap[g]))
@@ -1015,13 +941,13 @@ __global__ void __launch_bounds__(GS_THREADS, 1) gemv_stream_tc(const __grid_con
         }
         unsigned char* xd = wd + R::W_STAGE;
 #pragma unroll
-        for (int c = lane; c < BM * 8; c += 32) {
-          const int r = c / 8, ch = c % 8;
+        for (int c = lane; c < BM * XCH; c += 32) {
+          const int r = c / XCH, ch = c % XCH;
           // A chunk that starts before K ends before it or runs into x's
-          // zero padding (K is a multiple of 8).
-          const bool ok = r < M && k0 + ch * 8 < K;
-          cp_async16(xd + r * 128 + ((ch ^ (r & 7)) << 4),
-                     ok ? p.x + (long long)r * p.ldx + k0 + ch * 8 : p.x, ok);
+          // zero padding (the wrapper pads rows to 16 bytes).
+          const bool ok = r < M && k0 + ch * XE < K;
+          cp_async16(xd + r * R::X_ROW + (gs_xchunk<XB>(ch, r) << 4),
+                     ok ? xg + ((long long)r * p.ldx + k0 + ch * XE) * XB : xg, ok);
         }
         cp_async_mbar_arrive(&full[st]);
         if (++st == S) {
@@ -1040,15 +966,25 @@ __global__ void __launch_bounds__(GS_THREADS, 1) gemv_stream_tc(const __grid_con
   const int chunk = (cw % 4) * 2 + g8 / 4;  // 16-byte chunk of a box row holding the word
   const int sw0 = ((chunk ^ (2 * q)) << 4) + (g8 % 4) * 4;      // rows 2q (mod 8)
   const int sw1 = ((chunk ^ (2 * q + 1)) << 4) + (g8 % 4) * 4;  // rows 2q + 1 (mod 8)
-  const int xr = lane % 16, xc = lane / 16;  // this lane's ldmatrix row and k half
 
+  // bf16 x sums into acc; float32 x into sw, which gs_unswap copies into
+  // acc at a unit's end.
   float acc[MT][4][4];
+  float sw[XB == 4 ? NT : 1][2][4];
+  if constexpr (XB == 2) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][c][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[m][c][e] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < (XB == 4 ? NT : 1); ++j)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sw[j][p][e] = 0.f;
 
   int st = 0;
   uint32_t phase = 0;
@@ -1058,37 +994,94 @@ __global__ void __launch_bounds__(GS_THREADS, 1) gemv_stream_tc(const __grid_con
       mbar_wait(&full[st], phase);
       const unsigned char* wt = ring + st * R::STAGE + wbox;
       const unsigned char* xs = ring + st * R::STAGE + R::W_STAGE;
+      if constexpr (XB == 2) {
+        const int xr = lane % 16, xc = lane / 16;  // this lane's ldmatrix row and k half
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const int ks = kg * KSTEPS + kk;
-        const unsigned char* wr = wt + (ks * 16 + 2 * q) * 128;
-        uint32_t wl[4];  // k rows 2q, 2q + 1, 2q + 8, 2q + 9
-        wl[0] = *reinterpret_cast<const uint32_t*>(wr + sw0);
-        wl[1] = *reinterpret_cast<const uint32_t*>(wr + 128 + sw1);
-        wl[2] = *reinterpret_cast<const uint32_t*>(wr + 8 * 128 + sw0);
-        wl[3] = *reinterpret_cast<const uint32_t*>(wr + 9 * 128 + sw1);
-        float f[4][4];  // [k row][byte]
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          const int ks = kg * KSTEPS + kk;
+          const unsigned char* wr = wt + (ks * 16 + 2 * q) * 128;
+          uint32_t wl[4];  // k rows 2q, 2q + 1, 2q + 8, 2q + 9
+          wl[0] = *reinterpret_cast<const uint32_t*>(wr + sw0);
+          wl[1] = *reinterpret_cast<const uint32_t*>(wr + 128 + sw1);
+          wl[2] = *reinterpret_cast<const uint32_t*>(wr + 8 * 128 + sw0);
+          wl[3] = *reinterpret_cast<const uint32_t*>(wr + 9 * 128 + sw1);
+          float f[4][4];  // [k row][byte]
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const uint32_t hi = wl[r] >> 16;
-          f[r][0] = i8_byte0(wl[r]);
-          f[r][1] = i8_byte1_x256(wl[r]);
-          f[r][2] = i8_byte0(hi);
-          f[r][3] = i8_byte1_x256(hi);
+          for (int r = 0; r < 4; ++r) {
+            const uint32_t hi = wl[r] >> 16;
+            f[r][0] = i8_byte0(wl[r]);
+            f[r][1] = i8_byte1_x256(wl[r]);
+            f[r][2] = i8_byte0(hi);
+            f[r][3] = i8_byte1_x256(hi);
+          }
+          uint32_t b[4][2];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            b[c][0] = pack_top(f[0][c], f[1][c]);
+            b[c][1] = pack_top(f[2][c], f[3][c]);
+          }
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            uint32_t a[4];
+            ldsm_x4(a, xs + (m * 16 + xr) * 128 + (((ks * 2 + xc) ^ (xr & 7)) << 4));
+#pragma unroll
+            for (int c = 0; c < 4; ++c) mma_bf16(acc[m][c], a, b[c][0], b[c][1]);
+          }
         }
-        uint32_t b[4][2];
+      } else {
+        // x row g's chunk holding floats 2q and 2q + 1 of k8 step ks, as
+        // gs_xchunk<4> stored it (rows 8j + g share the swizzle)
+        const int xsw = (2 * g8) & 7;
+        // The stage's products go to sums of their own, added into the
+        // float32 sums after it (tf32_gemm_kernel says why): the tensor
+        // cores' chains are 64 k long, whatever K.
+        float part[NT][2][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          b[c][0] = pack_top(f[0][c], f[1][c]);
-          b[c][1] = pack_top(f[2][c], f[3][c]);
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[j][p][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) {
+          const int ks = kg * KSTEPS + kk;
+          const unsigned char* wr = wt + (ks * 8 + 2 * q) * 128;
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wr + sw0);        // row 2q
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wr + 128 + sw1);  // 2q + 1
+          const uint32_t h0 = w0 >> 16, h1 = w1 >> 16;
+          // Tile p's A: bytes 2p (rows g) and 2p + 1 (rows g + 8, as 256 q)
+          // of the words of k rows 2q (a0, a1) and 2q + 1 (a2, a3): exact
+          // integers, so exact in TF32.
+          uint32_t a[2][4];
+          a[0][0] = __float_as_uint(i8_byte0(w0));
+          a[0][1] = __float_as_uint(i8_byte1_x256(w0));
+          a[0][2] = __float_as_uint(i8_byte0(w1));
+          a[0][3] = __float_as_uint(i8_byte1_x256(w1));
+          a[1][0] = __float_as_uint(i8_byte0(h0));
+          a[1][1] = __float_as_uint(i8_byte1_x256(h0));
+          a[1][2] = __float_as_uint(i8_byte0(h1));
+          a[1][3] = __float_as_uint(i8_byte1_x256(h1));
+          const int xo = (((2 * ks + (q >> 1)) ^ xsw) << 4) + (q & 1) * 8;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float2 v = *reinterpret_cast<const float2*>(xs + (8 * j + g8) * R::X_ROW + xo);
+            uint32_t hi0, lo0, hi1, lo1;
+            tf32_split(v.x, hi0, lo0);
+            tf32_split(v.y, hi1, lo1);
+            // No product waits on the one just issued (1% faster at M = 16 on
+            // the H100).
+            mma_tf32(part[j][0], a[0], hi0, hi1);
+            mma_tf32(part[j][1], a[1], hi0, hi1);
+            mma_tf32(part[j][0], a[0], lo0, lo1);
+            mma_tf32(part[j][1], a[1], lo0, lo1);
+          }
         }
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          uint32_t a[4];
-          ldsm_x4(a, xs + (m * 16 + xr) * 128 + (((ks * 2 + xc) ^ (xr & 7)) << 4));
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) mma_bf16(acc[m][c], a, b[c][0], b[c][1]);
-        }
+          for (int p = 0; p < 2; ++p)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sw[j][p][e] += part[j][p][e];
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[st]);
@@ -1096,6 +1089,15 @@ __global__ void __launch_bounds__(GS_THREADS, 1) gemv_stream_tc(const __grid_con
         st = 0;
         phase ^= 1;
       }
+    }
+    if constexpr (XB == 4) {
+      gs_unswap<MT, NT>(sw, acc);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sw[j][p][e] = 0.f;
     }
     if (CG < GS_CONSUMERS) {
       // The second k half adds its sums to the first's, in that order.
@@ -1123,20 +1125,39 @@ __global__ void __launch_bounds__(GS_THREADS, 1) gemv_stream_tc(const __grid_con
       consumers_sync();  // the scratch is free for the next unit
     }
     gs_epilogue<TO, MT, BN>(p, acc, t, t * KT <= start, last_flag);
+    if constexpr (XB == 2) {
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < 4; ++c)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][c][e] = 0.f;
+          for (int e = 0; e < 4; ++e) acc[m][c][e] = 0.f;
+    }
   }
 }
 
+// bf16 x.
 template <typename TO, int BM, int BN>
+__global__ void __launch_bounds__(GS_THREADS, 1) gemv_stream_tc(const __grid_constant__ GsArgs p) {
+  gemv_stream_body<TO, 2, BM, BN>(p);
+}
+
+// float32 x (float32 out): two TF32 passes.
+template <int BM, int BN>
+__global__ void __launch_bounds__(GS_THREADS, 1)
+    gemv_stream_tf32(const __grid_constant__ GsArgs p) {
+  gemv_stream_body<float, 4, BM, BN>(p);
+}
+
+template <typename TO, int XB, int BM, int BN>
 cudaError_t gs_launch(const GsArgs& a, cudaStream_t stream) {
-  using R = GsRing<BM, BN>;
+  using R = GsRing<BM, BN, XB>;
+  void (*kernel)(GsArgs);
+  if constexpr (XB == 2)
+    kernel = gemv_stream_tc<TO, BM, BN>;
+  else
+    kernel = gemv_stream_tf32<BM, BN>;
   // Once per kernel and process (one card).
-  auto kernel = gemv_stream_tc<TO, BM, BN>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
   if (attr != cudaSuccess) return attr;
@@ -1144,44 +1165,361 @@ cudaError_t gs_launch(const GsArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Rows a block's tile from M: the fewest m16 tiles that cover it.
-template <typename TO, int BN>
+// Rows a block's tile from M: the fewest m16 tiles that cover it (float32
+// x: 8 rows at M <= 8).
+template <typename TO, int XB, int BN>
 cudaError_t gs_rows(const GsArgs& a, cudaStream_t stream) {
-  if (a.M > 48) return gs_launch<TO, 64, BN>(a, stream);
-  if (a.M > 32) return gs_launch<TO, 48, BN>(a, stream);
-  if (a.M > 16) return gs_launch<TO, 32, BN>(a, stream);
-  return gs_launch<TO, 16, BN>(a, stream);
+  if (a.M > 48) return gs_launch<TO, XB, 64, BN>(a, stream);
+  if (a.M > 32) return gs_launch<TO, XB, 48, BN>(a, stream);
+  if (a.M > 16) return gs_launch<TO, XB, 32, BN>(a, stream);
+  if constexpr (XB == 4)  // x rows are mma's n8 columns on the float32 route
+    if (a.M <= 8) return gs_launch<TO, XB, 8, BN>(a, stream);
+  return gs_launch<TO, XB, 16, BN>(a, stream);
 }
 
-template <typename TO>
+template <typename TO, int XB>
 cudaError_t gs_dispatch(const GsArgs& a, cudaStream_t stream) {
-  return a.grp.bn == 128 ? gs_rows<TO, 128>(a, stream) : gs_rows<TO, 256>(a, stream);
+  return a.grp.bn == 128 ? gs_rows<TO, XB, 128>(a, stream) : gs_rows<TO, XB, 256>(a, stream);
+}
+
+// ---------------------------------------------------------------------------
+// GEMM regime, float32 x: out^T = wq^T x^T on TF32 wgmma, two passes
+// ---------------------------------------------------------------------------
+
+constexpr int TG_BM = 64;   // x rows a block: the wgmma's N
+constexpr int TG_BN = 256;  // weight columns a block: 128 a consumer warpgroup
+constexpr int TG_BK = 32;   // k a stage: one 128-byte float32 row of x
+constexpr int TG_STAGES = 8;
+constexpr int TG_LO = 2;                  // x_lo tiles (see tf32_gemm_kernel)
+constexpr int TG_X = TG_BM * TG_BK * 4;   // 8 KB, 128B-swizzled by TMA
+constexpr int TG_WBOX = TG_BK * 128;      // 4 KB: a box [32 k][128 n] int8, 128B-swizzled
+constexpr int TG_STAGE = TG_X + 2 * TG_WBOX;  // a multiple of 1024
+constexpr int TG_SMEM = 1024 /* alignment slack */ + TG_STAGES * TG_STAGE + TG_LO * TG_X + 256;
+constexpr int TG_THREADS = 384;  // two consumer warpgroups, then the producer's
+constexpr int TG_MAX_SPLITS = 8;
+static_assert(TG_SMEM <= 232448, "over the H100's opt-in shared memory a block");
+static_assert(2 * TG_STAGES * 8 + 4 <= 256, "the barriers fit the tail");
+
+// d (+)= A (64 x 8 TF32, in registers: a0 (row g, k q), a1 (row g+8, k q),
+// a2 (row g, k q+4), a3 (row g+8, k q+4) of the warp's 16 rows) * B (8 x
+// 64, K-major, descriptor db), f32; scale_d 0 overwrites d instead.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Block = one 64 (x rows) x 256 (weight columns) output tile over its
+// split's k tiles, on three warpgroups in two roles that meet at no
+// block-wide barrier after setup:
+// - warpgroup 2, one thread: the producer. It keeps TG_STAGES stages of TMA
+//   copies in flight, each the x tile [64 rows][32 k] f32 (128B-swizzled,
+//   the K-major layout wgmma reads as B) and the weight tile [32 k][256 n]
+//   int8 as two 128-column boxes (128B-swizzled), against full/empty
+//   mbarriers. It gives its registers up (setmaxnreg) to the consumers.
+// - warpgroups 0-1: the consumers. Warpgroup wg owns weight columns
+//   128 wg .. 128 wg + 127 as the A rows of two m64 blocks; thread (g, q)
+//   of warp w reads one 32-bit word (4 columns, 128 wg + 32 w + 4g) of each
+//   of the k rows 2q and 2q + 1 of a k8 step, and bytes 0 and 1 are block
+//   0's A rows 16w + g and 16w + g + 8, bytes 2 and 3 block 1's (the
+//   register route of gemv_stream_tc: bytes 1 and 3 come as 256 q, scaled
+//   back in the epilogue). Each k8 step is taken in the order (k 0, 2, 4,
+//   6, 1, 3, 5, 7), so logical k q is row 2q and q + 4 row 2q + 1: the words
+//   of a warp's lanes then fall in distinct banks. Per k8 step a
+//   warpgroup issues four wgmma m64n64k8: each block times x_hi, then times
+//   x_lo. While tile t's products run the two warpgroups split tile t+1,
+//   half each: each k8 group of a row is read from the x tile, put in the
+//   step's order, and written back as x_hi in place and as x_lo into
+//   buffer (t+1) % 2. Every warpgroup has waited for its tile t-1 products
+//   before the barrier that ended step t-1, so that buffer is free; the
+//   barrier after the split makes both halves visible to wgmma (behind
+//   fence.proxy.async). A stage goes back to the producer once both
+//   warpgroups' products of it are done.
+// The tensor cores add each k8 step's products into their accumulators
+// with fewer bits than float32 rounding keeps (over K = 14,336 the sums
+// drifted by ~3e-4 of the value, on an H100). So a tile's products go to
+// accumulators of their own (the first wgmma of the tile overwrites them)
+// and are added into float32 sums on the CUDA cores once the tile is done:
+// the tensor cores' chains are 32 k long, whatever K.
+// TMA zero-fills rows past M, k past K and columns past N; the epilogue
+// scales each column once and stores 4 neighbouring columns of an x row as
+// one vector, masking rows past M and columns past N. With splits, each
+// block writes its partial tile to the workspace and the block that
+// arrives last sums the tile's partials in split order, scales and stores,
+// and sets the tile's counter back to 0.
+__global__ void __launch_bounds__(TG_THREADS, 1)
+tf32_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                 const float* __restrict__ scale, float* __restrict__ out, float* __restrict__ ws,
+                 int* __restrict__ counters, int M, int K, int N, int k_per_split) {
+  extern __shared__ unsigned char smem_dyn[];
+  unsigned char* smem = smem_dyn + ((1024 - (smem_u32(smem_dyn) & 1023)) & 1023);
+  auto stage = [&](int s) { return smem + s * TG_STAGE; };
+  auto lobuf = [&](int j) { return smem + TG_STAGES * TG_STAGE + j * TG_X; };
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TG_STAGES * TG_STAGE + TG_LO * TG_X);
+  uint64_t* empty = full + TG_STAGES;
+  int* last_flag = reinterpret_cast<int*>(empty + TG_STAGES);
+
+  // Grouped order, as wg_gemm_kernel's: WG_GROUP_M row tiles walk the
+  // column tiles together.
+  const int num_m = (M + TG_BM - 1) / TG_BM, num_n = (N + TG_BN - 1) / TG_BN;
+  const int per_group = WG_GROUP_M * num_n;
+  const int first_m = (blockIdx.x / per_group) * WG_GROUP_M;
+  const int gm = min(num_m - first_m, WG_GROUP_M);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first_m + in_group % gm) * TG_BM;
+  const int n0 = (in_group / gm) * TG_BN;
+  const int kt0 = blockIdx.y * (k_per_split / TG_BK);
+  const int ktiles = min((K + TG_BK - 1) / TG_BK - kt0, k_per_split / TG_BK);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      // The second weight box when it is not all past N (its columns are
+      // then never stored, whatever the stage holds).
+      const bool two = n0 + 128 < N;
+      const uint32_t bytes = TG_X + (two ? 2 : 1) * TG_WBOX;
+      for (int u = 0; u < ktiles; ++u) {
+        const int s = u % TG_STAGES;
+        if (u >= TG_STAGES) mbar_wait(&empty[s], (u / TG_STAGES - 1) & 1);
+        const int k0 = (kt0 + u) * TG_BK;
+        mbar_expect_tx(&full[s], bytes);
+        tma_load_2d(stage(s), &xmap, &full[s], k0, m0);
+        tma_load_2d(stage(s) + TG_X, &wmap, &full[s], n0, k0);
+        if (two) tma_load_2d(stage(s) + TG_X + TG_WBOX, &wmap, &full[s], n0 + 128, k0);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, w4 = warp % 4, tid = threadIdx.x % 128;
+  const int g = lane / 4, q = lane % 4;
+  const int chunk = 2 * w4 + g / 4;  // 16-byte chunk of a box row holding the word
+  const int sw0 = ((chunk ^ (2 * q)) << 4) + (g % 4) * 4;      // k rows 2q (mod 8)
+  const int sw1 = ((chunk ^ (2 * q + 1)) << 4) + (g % 4) * 4;  // k rows 2q + 1 (mod 8)
+
+  // x_hi in place and x_lo into its buffer, for this warpgroup's 32 rows
+  // of tile t. Row r's k8 group j is the 16-byte chunks 2j and 2j + 1, at
+  // chunks 2j ^ (r % 8) and (2j + 1) ^ (r % 8) (TMA's 128B swizzle); it is
+  // written back as (k 0, 2, 4, 6) and (1, 3, 5, 7) of the group.
+  auto split = [&](int t) {
+    unsigned char* xt = stage(t % TG_STAGES);
+    unsigned char* lo = lobuf(t % TG_LO);
+    const int i = wg * 128 + tid;
+    const int r = i / 4, j = i % 4;
+    const int o0 = r * 128 + (((2 * j) ^ (r & 7)) << 4);
+    const int o1 = r * 128 + (((2 * j + 1) ^ (r & 7)) << 4);
+    const float4 a = *reinterpret_cast<const float4*>(xt + o0);  // k 8j .. 8j + 3
+    const float4 b = *reinterpret_cast<const float4*>(xt + o1);  // k 8j + 4 .. 8j + 7
+    const float v[8] = {a.x, a.z, b.x, b.z, a.y, a.w, b.y, b.w};
+    uint32_t hi[8], lw[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) tf32_split(v[e], hi[e], lw[e]);
+    *reinterpret_cast<uint4*>(xt + o0) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(xt + o1) = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    *reinterpret_cast<uint4*>(lo + o0) = make_uint4(lw[0], lw[1], lw[2], lw[3]);
+    *reinterpret_cast<uint4*>(lo + o1) = make_uint4(lw[4], lw[5], lw[6], lw[7]);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+  };
+
+  float acc[2][32];  // float32 sums of the tiles so far
+  float tc[2][32];   // the tensor cores' sums of one tile
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[b][e] = tc[b][e] = 0.f;
+
+  mbar_wait(&full[0], 0);
+  split(0);
+  consumers_sync();
+  for (int t = 0; t < ktiles; ++t) {
+    const int s = t % TG_STAGES;
+    const unsigned char* xt = stage(s);
+    const unsigned char* lo = lobuf(t % TG_LO);
+    const unsigned char* wt = stage(s) + TG_X + wg * TG_WBOX;
+    uint32_t a[TG_BK / 8][2][4];  // live until the products of the tile are done
+#pragma unroll
+    for (int ks = 0; ks < TG_BK / 8; ++ks) {
+      const unsigned char* wr = wt + (ks * 8 + 2 * q) * 128;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wr + sw0);        // row 2q
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wr + 128 + sw1);  // row 2q + 1
+      const uint32_t h0 = w0 >> 16, h1 = w1 >> 16;
+      a[ks][0][0] = __float_as_uint(i8_byte0(w0));
+      a[ks][0][1] = __float_as_uint(i8_byte1_x256(w0));
+      a[ks][0][2] = __float_as_uint(i8_byte0(w1));
+      a[ks][0][3] = __float_as_uint(i8_byte1_x256(w1));
+      a[ks][1][0] = __float_as_uint(i8_byte0(h0));
+      a[ks][1][1] = __float_as_uint(i8_byte1_x256(h0));
+      a[ks][1][2] = __float_as_uint(i8_byte0(h1));
+      a[ks][1][3] = __float_as_uint(i8_byte1_x256(h1));
+    }
+    fence_acc(tc[0]);
+    fence_acc(tc[1]);
+    wgmma_fence();  // the A fragments and accumulators are written
+#pragma unroll
+    for (int ks = 0; ks < TG_BK / 8; ++ks) {
+      const uint64_t dh = gmma_desc(xt + ks * 32, 16, 1024);
+      const uint64_t dl = gmma_desc(lo + ks * 32, 16, 1024);
+      wgmma_m64n64k8_tf32(tc[0], a[ks][0], dh, ks > 0);
+      wgmma_m64n64k8_tf32(tc[1], a[ks][1], dh, ks > 0);
+      wgmma_m64n64k8_tf32(tc[0], a[ks][0], dl, 1);
+      wgmma_m64n64k8_tf32(tc[1], a[ks][1], dl, 1);
+    }
+    wgmma_commit();
+    fence_acc(tc[0]);
+    fence_acc(tc[1]);
+    if (t + 1 < ktiles) {
+      mbar_wait(&full[(t + 1) % TG_STAGES], ((t + 1) / TG_STAGES) & 1);
+      split(t + 1);  // while tile t's products run
+    }
+    wgmma_wait<0>();
+    fence_acc(tc[0]);
+    fence_acc(tc[1]);
+#pragma unroll
+    for (int ks = 0; ks < TG_BK / 8; ++ks)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[ks][b][e])::"memory");
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[b][e] += tc[b][e];
+    if (tid == 0) mbar_arrive(&empty[s]);
+    consumers_sync();  // both halves of tile t+1 are split; tile t's buffers are free
+  }
+
+  // acc[b][4j + e]: A row 16 w4 + g + 8 (e / 2) of block b, x row
+  // m0 + 8j + 2q + (e % 2). A row 16 w4 + g + 8h of block b is weight column
+  // col + 2b + h (its sum 256x for h = 1).
+  const int col = n0 + wg * 128 + w4 * 32 + 4 * g;
+  const bool live = col < N;  // N is a multiple of 16: all four columns or none
+  float sc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (live) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[e] = scale[col + e];
+  }
+  auto sums = [&](int j, int h) {
+    return make_float4(acc[0][4 * j + h], acc[0][4 * j + 2 + h] * 0.00390625f,
+                       acc[1][4 * j + h], acc[1][4 * j + 2 + h] * 0.00390625f);
+  };
+  auto store = [&](int m, float4 v) {
+    *reinterpret_cast<float4*>(out + (long long)m * N + col) =
+        make_float4(v.x * sc[0], v.y * sc[1], v.z * sc[2], v.w * sc[3]);
+  };
+  if (gridDim.y == 1) {
+    if (!live) return;
+#pragma unroll
+    for (int j = 0; j < TG_BM / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 8 * j + 2 * q + h;
+        if (m < M) store(m, sums(j, h));
+      }
+    return;
+  }
+  const long long plane = (long long)M * N;
+  if (live) {
+    float* mine = ws + blockIdx.y * plane + col;
+#pragma unroll
+    for (int j = 0; j < TG_BM / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 8 * j + 2 * q + h;
+        if (m < M) *reinterpret_cast<float4*>(mine + (long long)m * N) = sums(j, h);
+      }
+  }
+  __threadfence();
+  consumers_sync();
+  if (threadIdx.x == 0) *last_flag = atomicAdd(&counters[blockIdx.x], 1) == (int)gridDim.y - 1;
+  consumers_sync();
+  if (!*last_flag) return;
+  __threadfence();
+  if (live) {
+#pragma unroll 1
+    for (int j = 0; j < TG_BM / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 8 * j + 2 * q + h;
+        if (m >= M) continue;
+        const float* src = ws + (long long)m * N + col;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int sp = 0; sp < (int)gridDim.y; ++sp) {
+          const float4 o = __ldcg(reinterpret_cast<const float4*>(src + sp * plane));
+          v.x += o.x;
+          v.y += o.y;
+          v.z += o.z;
+          v.w += o.w;
+        }
+        store(m, v);
+      }
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+}
+
+// splits blocks a 64 x 256 tile; split s sums k tiles [s, s + 1) * k_per_split / TG_BK
+// (k_per_split a multiple of TG_BK, every split non-empty); ws [splits, M, N]
+// and counters (a tile each, 0) when splits > 1.
+cudaError_t tf32_gemm(const void* x, const void* w, const float* scale, void* out, float* ws,
+                      int* counters, int M, int K, int N, int ldx, int splits, int k_per_split,
+                      cudaStream_t stream) {
+  if (splits < 1 || splits > TG_MAX_SPLITS || k_per_split <= 0 || k_per_split % TG_BK != 0 ||
+      (long long)(splits - 1) * k_per_split >= K || (long long)splits * k_per_split < K ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, K, M, (uint64_t)ldx * 4, TG_BK,
+                TG_BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, 128, TG_BK,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tf32_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
+  if (attr != cudaSuccess) return attr;
+  const long long tiles = (long long)((M + TG_BM - 1) / TG_BM) * ((N + TG_BN - 1) / TG_BN);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tf32_gemm_kernel<<<dim3((unsigned)tiles, splits), TG_THREADS, TG_SMEM, stream>>>(
+      xmap, wmap, scale, static_cast<float*>(out), ws, counters, M, K, N, k_per_split);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared contract of both entry points. xdtype / odtype: 0 = float32,
+// Shared contract of the entry points. xdtype / odtype: 0 = float32,
 // 1 = bfloat16; the pairs (bf16, bf16), (bf16, f32) and (f32, f32). x [M, ldx]
 // (the first K columns used), wq [K, N] int8, scale [N] f32, out [M, N], all
 // contiguous; x and wq 16-byte aligned, ldx * sizeof(x) a multiple of 16 and
 // N a multiple of 16 (cudaErrorInvalidValue otherwise). Each returns the CUDA
-// error code of its launches.
-
-// M <= 64, float32 x only (bf16 x takes quant_matmul_stream). `partial` is
-// [splits, M, N] f32 scratch when splits > 1 (else unused); split s sums k in
-// [s * k_per_split, (s + 1) * k_per_split), and k_per_split is a multiple of
-// 64; splitk_reduce sums the splits in order.
-extern "C" int quant_matmul_gemv(int xdtype, int odtype, const void* x, const void* wq,
-                                 const void* scale, void* out, void* partial, int M, int K,
-                                 int N, int ldx, int splits, int k_per_split, void* stream) {
-  if (!shapes_ok(xdtype, x, wq, M, K, N, ldx) || M > 64 || splits < 1 ||
-      k_per_split % 64 != 0 || (long long)splits * k_per_split < K ||
-      (splits > 1 && partial == nullptr) || xdtype != 0 || odtype != 0)
-    return (int)cudaErrorInvalidValue;
-  return (int)f32_dispatch(x, wq, static_cast<const float*>(scale), out,
-                           static_cast<float*>(partial), M, K, N, ldx, splits, k_per_split, 1,
-                           static_cast<cudaStream_t>(stream));
-}
+// error code of its launch and sets *kernel to the kernel it launched:
+// 0 = gemv_stream_tc, 1 = wg_gemm_kernel, 2 = gemv_stream_tf32,
+// 3 = tf32_gemm_kernel, -1 = none.
 
 // Bytes of the group record quant_matmul_stream_prepare fills.
 extern "C" int quant_matmul_stream_group_bytes() { return (int)sizeof(GsGroup); }
@@ -1228,25 +1566,29 @@ extern "C" int quant_matmul_stream_prepare(int ngroups, int K, const void* w0, c
   return 0;
 }
 
-// bf16 x [M, ldx] (M <= 64, the first K columns used, 16-byte aligned, ldx a
-// multiple of 8) times each weight of `group`, into out [M, total] (odtype 1
-// = bf16, 0 = f32; 16-byte aligned, contiguous): one launch of the group's
-// persistent blocks (at most its column tiles x k tiles). ws holds 2 *
-// blocks * M * bn floats; counters one int a column tile, all 0, and left
-// 0.
-extern "C" int quant_matmul_stream(int odtype, const void* group, const void* x, int M, int ldx,
-                                   void* out, void* ws, void* counters, void* stream) {
+// x [M, ldx] (M <= 64, the first K columns used, 16-byte aligned, ldx *
+// sizeof(x) a multiple of 16) times each weight of `group`, into out [M,
+// total] (16-byte aligned, contiguous): one launch of the group's
+// persistent blocks (at most its column tiles x k tiles), gemv_stream_tc
+// for bf16 x, gemv_stream_tf32 for float32 x (float32 out). ws holds 2 *
+// blocks * M * bn floats; counters one int a column tile, all 0, and left 0.
+extern "C" int quant_matmul_stream(int xdtype, int odtype, const void* group, const void* x,
+                                   int M, int ldx, void* out, void* ws, void* counters,
+                                   void* stream, int* kernel) {
+  *kernel = -1;
   GsArgs a;
   memcpy(&a.grp, group, sizeof(GsGroup));
   const int work = a.grp.tile_base[a.grp.ngroups] * a.grp.KT;
-  if (M < 1 || M > 64 || ldx < a.grp.K || ldx % 8 != 0 || !attn::aligned16(x) ||
+  const bool f32 = xdtype == 0;
+  if (M < 1 || M > 64 || ldx < a.grp.K || ldx % (f32 ? 4 : 8) != 0 || !attn::aligned16(x) ||
       !attn::aligned16(out) || ws == nullptr || counters == nullptr || a.grp.blocks < 1 ||
-      a.grp.blocks > work || (odtype != 0 && odtype != 1))
+      a.grp.blocks > work || (xdtype != 0 && xdtype != 1) || (odtype != 0 && odtype != 1) ||
+      (f32 && odtype != 0))
     return (int)cudaErrorInvalidValue;
   const int item = odtype == 1 ? 2 : 4;
   for (int i = 0; i < GS_MAX_GROUP; ++i)
     a.out[i] = static_cast<char*>(out) + (long long)a.grp.col[i] * item;
-  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.x = x;
   a.ws = static_cast<float*>(ws);
   a.counters = static_cast<int*>(counters);
   a.M = M;
@@ -1255,29 +1597,39 @@ extern "C" int quant_matmul_stream(int odtype, const void* group, const void* x,
   a.blocks = a.grp.blocks;
   a.work = work;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(odtype == 1 ? gs_dispatch<__nv_bfloat16>(a, st) : gs_dispatch<float>(a, st));
+  const cudaError_t err = f32            ? gs_dispatch<float, 4>(a, st)
+                          : odtype == 1 ? gs_dispatch<__nv_bfloat16, 2>(a, st)
+                                        : gs_dispatch<float, 2>(a, st);
+  if (err == cudaSuccess) *kernel = f32 ? 2 : 0;
+  return (int)err;
 }
 
-// Any M. bf16 x: wgmma fed by TMA (wg_gemm_kernel); f32 x: CUDA-core FMAs over
-// chunks of 64 rows.
+// Any M. bf16 x: wgmma fed by TMA (wg_gemm_kernel; splits 1). float32 x:
+// the two-pass TF32 wgmma (tf32_gemm_kernel) over `splits` K splits of
+// k_per_split (a multiple of 32, every split non-empty); when splits > 1,
+// ws holds splits * M * N floats and counters one int a 64 x 256 output
+// tile, all 0, and left 0.
 extern "C" int quant_matmul_gemm(int xdtype, int odtype, const void* x, const void* wq,
                                  const void* scale, void* out, int M, int K, int N, int ldx,
-                                 void* stream) {
+                                 int splits, int k_per_split, void* ws, void* counters,
+                                 void* stream, int* kernel) {
+  *kernel = -1;
   if (!shapes_ok(xdtype, x, wq, M, K, N, ldx)) return (int)cudaErrorInvalidValue;
   const float* s = static_cast<const float*>(scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int kps = (K + GV_BK - 1) / GV_BK * GV_BK;
-  const int mchunks = (M + 63) / 64;
   cudaError_t err;
-  if (xdtype == 1 && odtype == 1)
-    err = wg_gemm<__nv_bfloat16>(x, wq, s, out, M, K, N, ldx, st);
-  else if (xdtype == 1 && odtype == 0)
-    err = wg_gemm<float>(x, wq, s, out, M, K, N, ldx, st);
-  else if (xdtype == 0 && odtype == 0)
-    err = mchunks > 65535 ? cudaErrorInvalidValue
-                          : f32_dispatch(x, wq, s, out, nullptr, M, K, N, ldx, 1, kps, mchunks,
-                                         st);
-  else
-    err = cudaErrorInvalidValue;
+  int launched;
+  if (xdtype == 1 && (odtype == 0 || odtype == 1) && splits == 1) {
+    err = odtype == 1 ? wg_gemm<__nv_bfloat16>(x, wq, s, out, M, K, N, ldx, st)
+                      : wg_gemm<float>(x, wq, s, out, M, K, N, ldx, st);
+    launched = 1;
+  } else if (xdtype == 0 && odtype == 0) {
+    err = tf32_gemm(x, wq, s, out, static_cast<float*>(ws), static_cast<int*>(counters), M, K,
+                    N, ldx, splits, k_per_split, st);
+    launched = 3;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err == cudaSuccess) *kernel = launched;
   return (int)err;
 }

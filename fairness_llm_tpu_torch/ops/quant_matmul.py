@@ -18,21 +18,29 @@ The kernels convert the weight a tile at a time, so the device never holds
 a float copy of an int8 weight. Two regimes, picked by M:
 
 - ``gemv`` (M <= 64, the decode step). Bound by the weight's bytes (it does
-  2*M operations per byte). bf16 x runs on ``gemv_stream_tc``: one
-  persistent launch a call, the weights' tiles cut into equal runs, one a
-  block (``gemv_plan``), the split-K reduce inside the kernel, its partials
-  and arrival counters kept per device and stream; what a call needs of its
-  weights (their TMA maps, the plan) is made once per set of weights. f32 x
-  splits K across blocks (``gemv_splits``) and sums the splits in a second
-  kernel. Launches are counted in ``gemv_launches``, grouped ones also in
-  ``group_launches``.
+  2*M operations per byte). One persistent launch a call, the weights'
+  tiles cut into equal runs, one a block (``gemv_plan``), the split-K
+  reduce inside the kernel, its partials and arrival counters kept per
+  device and stream; what a call needs of its weights (their TMA maps, the
+  plan) is made once per set of weights: ``gemv_stream_tc`` for bf16 x,
+  ``gemv_stream_tf32`` for float32 x. Launches are counted in
+  ``gemv_launches``, grouped ones also in ``group_launches``.
 - ``gemm`` (M > 64, prefill). Bound by operations. bf16 x runs on
   ``wgmma`` fed by TMA, each int8 tile converted to bf16 by warps of its own
-  while earlier tiles are multiplied. A group makes one call a weight.
-  Launches are counted in ``gemm_launches``.
+  while earlier tiles are multiplied; float32 x on ``tf32_gemm_kernel``,
+  K split across blocks for a deep, narrow weight (``tf32_gemm_plan``).
+  A group makes one call a weight. Launches are counted in
+  ``gemm_launches``.
 
-In both, bf16 x runs on the tensor cores (``mma.sync`` in the GEMV regime)
-and f32 x on f32 FMAs (the weight never goes to TF32 or bf16).
+bf16 x runs on the bf16 tensor cores. float32 x runs on the TF32 tensor
+cores in two passes, ``x_hi @ wq + x_lo @ wq`` with ``x_hi = tf32(x)`` and
+``x_lo = tf32(x - x_hi)`` (``tf32_split``): an int8 weight is exact in TF32,
+each product of a TF32 value and an int8 one is exact in float32, and the
+one rounding left, x_lo's, is at most 2^-22 |x|, so the result is
+float32's (``quant_matmul_two_pass_reference`` is that product in plain
+PyTorch). The weight is never rounded. ``tf32_gemv_launches`` and
+``tf32_gemm_launches`` count the float32 launches by the kernel the C
+entry reports it ran.
 
 The kernels take any M, K and N. Where x's rows or the weight's rows are not
 16-byte aligned (an odd K or N), the wrapper copies them zero-padded first,
@@ -64,36 +72,41 @@ STREAM_MAX_SPLITS = 8
 #: narrower tiles halve the splits and quarter a tile's partials. Longer runs
 #: stream faster in tiles of 256.
 STREAM_SHORT_RUN = 8
-# float32 x in the GEMV regime: blocks to aim for (two per SM of a 132-SM
-# H100), each 128 columns and a multiple of 64 k rows.
-_F32_TARGET_BLOCKS = 264
-_F32_BN, _F32_BK = 128, 64
+#: tf32_gemm_kernel's output tile (x rows, weight columns) and k tile; it
+#: splits K for a deep, narrow weight in at most TF32_MAX_SPLITS, each at
+#: least TF32_MIN_SPLIT_TILES k tiles long (``tf32_gemm_plan``).
+TF32_BM, TF32_BN, TF32_BK = 64, 256, 32
+TF32_MAX_SPLITS = 4
+TF32_MIN_SPLIT_TILES = 16
 
 #: Kernel launches of each regime since the counts were last set to 0;
 #: ``group_launches`` counts the GEMV launches of ``quant_matmul_group``,
-#: ``f32_launches`` the calls of either regime over float32 x (f32_kernel,
-#: then splitk_reduce where the call splits K).
+#: ``f32_launches`` the launches of either regime over float32 x (one a
+#: call, a grouped GEMV call one), ``tf32_gemv_launches`` and
+#: ``tf32_gemm_launches`` those the C entry reports it ran on
+#: gemv_stream_tf32 and on tf32_gemm_kernel.
 gemv_launches = 0
 group_launches = 0
 gemm_launches = 0
 f32_launches = 0
+tf32_gemv_launches = 0
+tf32_gemm_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (x dtype, out dtype) pairs the kernel takes.
 COMBOS = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
           (torch.float32, torch.float32))
-# xdtype, odtype; x, wq, scale, out, partial; M, K, N, ldx, splits, k_per_split; stream
-_GEMV_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                  + [ctypes.c_void_p])
-# xdtype, odtype; x, wq, scale, out; M, K, N, ldx; stream
-_GEMM_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                  + [ctypes.c_void_p])
+# xdtype, odtype; x, wq, scale, out; M, K, N, ldx, splits, k_per_split; ws,
+# counters, stream; out: the kernel launched
+_GEMM_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_int)])
 # ngroups, K; wq x3, scale x3; N x3, bn, blocks; group record
 _PREPARE_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                      + [ctypes.c_void_p])
-# odtype; group record, x; M, ldx; out, ws, counters, stream
-_STREAM_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                    + [ctypes.c_void_p] * 4)
+# xdtype, odtype; group record, x; M, ldx; out, ws, counters, stream; out: the
+# kernel launched
+_STREAM_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)])
 
 
 def quantize_weight(w: torch.Tensor, axis: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,6 +140,34 @@ def quant_matmul_group_reference(x: torch.Tensor, mats: Sequence[Tuple[torch.Ten
     return [quant_matmul_reference(x, wq, scale, out_dtype) for wq, scale in mats]
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 x -> (x_hi, x_lo), both float32: ``x_hi`` is x rounded to
+    TF32 (10 mantissa bits; to nearest, ties away from zero, as the
+    kernels' ``cvt.rna.tf32.f32``) and ``x_lo = x - x_hi``, exact, so
+    ``x_hi + x_lo == x`` bit for bit. The kernels multiply ``tf32(x_lo)``."""
+    x = x.float().contiguous()
+    # Half an ulp of TF32 added to the magnitude bits (the sign bit is
+    # apart), then the low 13 bits cleared; a carry into the exponent is the
+    # rounding up it stands for, for subnormals too.
+    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = x - hi
+    # A zero x_lo takes x's sign, so that -0.0 splits into -0.0 + -0.0.
+    return hi, torch.where(lo == 0, x * 0, lo)
+
+
+def quant_matmul_two_pass_reference(x: torch.Tensor, wq: torch.Tensor,
+                                    scale: torch.Tensor) -> torch.Tensor:
+    """The float32 route's product in plain PyTorch: ``(x_hi @ wq +
+    tf32(x_lo) @ wq) * scale`` in float32, each of the two products of TF32
+    values and int8 weights (``tf32_split``). It differs from
+    ``quant_matmul_reference`` only by x_lo's rounding (at most 2^-22 |x| an
+    element) and summation order."""
+    hi, lo = tf32_split(x)
+    lo, _ = tf32_split(lo)
+    w = wq.float()
+    return (torch.matmul(hi, w) + torch.matmul(lo, w)) * scale[None, :].float()
+
+
 def _check(x, wq, scale, out_dtype):
     if x.dim() != 2 or wq.dim() != 2 or scale.dim() != 1:
         raise ValueError(f"expected x [M,K], wq [K,N], scale [N]; got {tuple(x.shape)}, "
@@ -140,15 +181,25 @@ def _check(x, wq, scale, out_dtype):
         raise ValueError(f"(x, out) dtypes {(x.dtype, out_dtype)} not in {COMBOS}")
 
 
-def gemv_splits(M: int, K: int, N: int) -> Tuple[int, int]:
-    """(splits, k_per_split) of the GEMV regime over float32 x: split K
-    across blocks until the column tiles times the splits reach the target
-    block count."""
-    n_tiles = -(-N // _F32_BN)
-    k_tiles = -(-K // _F32_BK)
-    want = min(k_tiles, max(1, -(-_F32_TARGET_BLOCKS // n_tiles)))
+def tf32_gemm_plan(K: int, N: int) -> Tuple[int, int]:
+    """(splits, k_per_split) of tf32_gemm_kernel over a weight [K, N]: the
+    largest power of two at most K / N (a deep, narrow weight gives few
+    output tiles, each a long walk over k: down 2, k/v 4), at most
+    ``TF32_MAX_SPLITS`` and each at least ``TF32_MIN_SPLIT_TILES`` k tiles
+    long; split s sums k in [s * k_per_split, (s + 1) * k_per_split), a
+    multiple of ``TF32_BK``, none empty. It does not depend on M, so a
+    row's sums are the same whatever rows share its call (a served row
+    replays bit for bit in a batch of another size). Every split count of
+    llama3-8b's weights was timed at M = 128-3,584 on an H100
+    (tools/torch_k4_f32_ab.py --plans): splitting a wide weight costs
+    10-30% at M = 3,584, and a deep narrow one gains 20-65% below
+    M = 1,536."""
+    k_tiles = -(-K // TF32_BK)
+    want = 1
+    while want * 2 <= min(K // N, TF32_MAX_SPLITS, k_tiles // TF32_MIN_SPLIT_TILES):
+        want *= 2
     per = -(-k_tiles // want)
-    return -(-k_tiles // per), per * _F32_BK
+    return -(-k_tiles // per), per * TF32_BK
 
 
 @functools.lru_cache(maxsize=1024)
@@ -283,14 +334,25 @@ def _aligned_weight(wq: torch.Tensor, scale: torch.Tensor):
     return wq, scale
 
 
+def _count(kernel: int) -> None:
+    """Counts a launch of the kernel the C entry reported: 0 gemv_stream_tc,
+    1 wg_gemm_kernel, 2 gemv_stream_tf32, 3 tf32_gemm_kernel."""
+    global gemv_launches, gemm_launches, f32_launches, tf32_gemv_launches, tf32_gemm_launches
+    gemv_launches += kernel in (0, 2)
+    gemm_launches += kernel in (1, 3)
+    f32_launches += kernel in (2, 3)
+    tf32_gemv_launches += kernel == 2
+    tf32_gemm_launches += kernel == 3
+
+
 def _gemv(x: torch.Tensor, mats, out_dtype: torch.dtype) -> Sequence[torch.Tensor]:
-    """One gemv_stream_tc launch: bf16 x [M, K] (0 < M <= 64) on a CUDA
+    """One launch of the stream kernel (gemv_stream_tc for bf16 x,
+    gemv_stream_tf32 for float32 x): x [M, K] (0 < M <= 64) on a CUDA
     device times 1-3 weights, each output [M, N_i] a column view of one
     [M, sum N_i] buffer (the whole buffer for one weight)."""
-    global gemv_launches
     if x.dim() != 2:
         raise ValueError(f"expected x [M,K], got {tuple(x.shape)}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
+    if (x.dtype, out_dtype) not in COMBOS:
         raise ValueError(f"(x, out) dtypes {(x.dtype, out_dtype)} not in {COMBOS}")
     K = x.shape[1]
     rec = _group(mats, K, x.device)
@@ -306,10 +368,11 @@ def _gemv(x: torch.Tensor, mats, out_dtype: torch.dtype) -> Sequence[torch.Tenso
     counters = _build.grown(_counters, key, rec.tiles, torch.int32, x.device, zero=True)
     out = torch.empty(M, rec.total, dtype=out_dtype, device=x.device)
     fn = _build.function("quant_matmul", "quant_matmul_stream", _STREAM_ARGTYPES)
-    status = fn(_DTYPES[out_dtype], rec.addr, x.data_ptr(), M, x.shape[1], out.data_ptr(),
-                ws.data_ptr(), counters.data_ptr(), stream)
+    kernel = ctypes.c_int(-1)
+    status = fn(_DTYPES[x.dtype], _DTYPES[out_dtype], rec.addr, x.data_ptr(), M, x.shape[1],
+                out.data_ptr(), ws.data_ptr(), counters.data_ptr(), stream, ctypes.byref(kernel))
     _build.check(status, "quant_matmul_stream")
-    gemv_launches += 1
+    _count(kernel.value)
     return [out] if len(mats) == 1 else out.split(rec.Ns, 1)
 
 
@@ -340,8 +403,7 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 
 
 def _quant_matmul(x, wq, scale, out_dtype) -> torch.Tensor:
-    if (x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.dim() == 2
-            and 0 < x.shape[0] <= GEMV_MAX_M):
+    if x.device.type == "cuda" and x.dim() == 2 and 0 < x.shape[0] <= GEMV_MAX_M:
         return _gemv(x, ((wq, scale),), out_dtype)[0]
     _check(x, wq, scale, out_dtype)
     if x.device.type == "cpu":
@@ -357,33 +419,31 @@ def _quant_matmul(x, wq, scale, out_dtype) -> torch.Tensor:
     Np = wq.shape[1]
     out = torch.empty(M, Np, dtype=out_dtype, device=x.device)
     stream = _build.current_stream(x.device)
-    global gemv_launches, gemm_launches, f32_launches
-    if M <= GEMV_MAX_M:  # float32 x
-        splits, k_per_split = gemv_splits(M, K, Np)
-        partial = (torch.empty(splits, M, Np, dtype=torch.float32, device=x.device)
-                   if splits > 1 else None)
-        fn = _build.function("quant_matmul", "quant_matmul_gemv", _GEMV_ARGTYPES)
-        status = fn(_DTYPES[x.dtype], _DTYPES[out_dtype], x.data_ptr(), wq.data_ptr(),
-                    scale.data_ptr(), out.data_ptr(),
-                    None if partial is None else partial.data_ptr(),
-                    M, K, Np, x.shape[1], splits, k_per_split, stream)
-        _build.check(status, "quant_matmul_gemv")
-        gemv_launches += 1
-    else:
-        fn = _build.function("quant_matmul", "quant_matmul_gemm", _GEMM_ARGTYPES)
-        status = fn(_DTYPES[x.dtype], _DTYPES[out_dtype], x.data_ptr(), wq.data_ptr(),
-                    scale.data_ptr(), out.data_ptr(), M, K, Np, x.shape[1], stream)
-        _build.check(status, "quant_matmul_gemm")
-        gemm_launches += 1
-    f32_launches += x.dtype == torch.float32
+    splits, k_per_split, ws, counters = 1, K, None, None
+    if x.dtype == torch.float32:
+        splits, k_per_split = tf32_gemm_plan(K, Np)
+        if splits > 1:
+            key = (x.device, stream)
+            ws = _build.grown(_partials, key, splits * M * Np, torch.float32, x.device)
+            tiles = -(-M // TF32_BM) * -(-Np // TF32_BN)
+            counters = _build.grown(_counters, key, tiles, torch.int32, x.device, zero=True)
+    fn = _build.function("quant_matmul", "quant_matmul_gemm", _GEMM_ARGTYPES)
+    kernel = ctypes.c_int(-1)
+    status = fn(_DTYPES[x.dtype], _DTYPES[out_dtype], x.data_ptr(), wq.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), M, K, Np, x.shape[1], splits, k_per_split,
+                None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), stream, ctypes.byref(kernel))
+    _build.check(status, "quant_matmul_gemm")
+    _count(kernel.value)
     return out if Np == N else out[:, :N]
 
 
 def quant_matmul_group(x: torch.Tensor, mats: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                        out_dtype: Optional[torch.dtype] = None) -> Sequence[torch.Tensor]:
     """``[quant_matmul(x, wq, scale, out_dtype) for wq, scale in mats]`` for
-    1-3 weights with one K (q/k/v, gate/up). In the GEMV regime with bf16 x
-    it is one gemv_stream_tc launch whose tile steps span every weight, the
+    1-3 weights with one K (q/k/v, gate/up). In the GEMV regime it is one
+    launch of the stream kernel (gemv_stream_tc for bf16 x,
+    gemv_stream_tf32 for float32 x) whose tile steps span every weight, the
     outputs column views of one buffer; else one ``quant_matmul`` call a
     weight. The weights stay separate tensors. Under a cost walk the call
     charges ``quant_matmul_cost`` to ``matmuls``, once for the group."""
@@ -397,8 +457,7 @@ def quant_matmul_group(x: torch.Tensor, mats: Sequence[Tuple[torch.Tensor, torch
 def _quant_matmul_group(x, mats, out_dtype) -> Sequence[torch.Tensor]:
     if not 1 <= len(mats) <= GROUP_MAX:
         raise ValueError(f"quant_matmul_group takes 1 to {GROUP_MAX} weights, got {len(mats)}")
-    if (x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.dim() == 2
-            and 0 < x.shape[0] <= GEMV_MAX_M):
+    if x.device.type == "cuda" and x.dim() == 2 and 0 < x.shape[0] <= GEMV_MAX_M:
         global group_launches
         outs = _gemv(x, mats, out_dtype)
         group_launches += 1

@@ -22,10 +22,13 @@ tolerance. Its bf16 GEMV regime (gemv_stream_tc) sums a column tile's k
 splits in a fixed order inside the kernel, so repeated calls agree bit for
 bit, and a grouped call (q/k/v, gate/up in one launch) gives each weight's
 product.
-Its float32 outputs are held to 1e-4 + 3e-5 * |plain|: the tensor cores'
-f32 accumulation rounds otherwise than cuBLAS's f32 FMA chain, and over
-K = 14336 products the two were seen 1.3e-5 of the value apart (outputs up
-to ~12).
+Its float32 outputs (the two-pass TF32 route: gemv_stream_tf32 for
+M <= 64, grouped calls one launch, and tf32_gemm_kernel) are held to
+1e-4 + 3e-5 * |plain|: the route drops at most 2^-22 |x| of each x value
+(x_lo's TF32 rounding), and the tensor cores' f32 accumulation rounds
+otherwise than cuBLAS's f32 FMA chain; over K = 14336 products the two
+were seen 1.3e-5 of the value apart (outputs up to ~12). Its repeats agree
+bit for bit and its arrival counters return to 0.
 The decode kernel's int8-cache mode (K2q) and verify window (K3, over a
 float or an int8 cache) take the attention tolerances above; their blind
 checks mask the newest slot (K2q) or lower every q_offset by one (K3, so
@@ -803,11 +806,16 @@ def test_quant_matmul_kernel_matches_plain(dev, qmm_weights, M, K, N, x_dtype, o
     g = torch.Generator(device=dev).manual_seed(M)
     x = torch.randn(M, K, generator=g, device=dev).to(x_dtype)
     gemv, gemm, f32 = qmm.gemv_launches, qmm.gemm_launches, qmm.f32_launches
+    tf32 = (qmm.tf32_gemv_launches, qmm.tf32_gemm_launches)
     got = qmm.quant_matmul(x, wq, scale, out_dtype=out_dtype)
     torch.cuda.synchronize()
     small = M <= qmm.GEMV_MAX_M
     assert (qmm.gemv_launches - gemv, qmm.gemm_launches - gemm) == ((1, 0) if small else (0, 1))
-    assert qmm.f32_launches - f32 == (x_dtype == torch.float32)  # f32_kernel's route
+    is_f32 = x_dtype == torch.float32
+    assert qmm.f32_launches - f32 == is_f32
+    # float32 x: the two-pass TF32 kernels, as the C entry reports
+    assert (qmm.tf32_gemv_launches - tf32[0], qmm.tf32_gemm_launches - tf32[1]) == (
+        is_f32 and small, is_f32 and not small)
     assert got.dtype == out_dtype and got.shape == (M, N)
     want = qmm.quant_matmul_reference(x, wq, scale, out_dtype)
     torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
@@ -946,6 +954,150 @@ def test_quant_matmul_gemm_repeats_bit_for_bit(dev, qmm_weights):
         got = qmm.quant_matmul(x, wq, scale, out_dtype=torch.bfloat16)
         assert torch.equal(got, first), f"call {i} differs from the first"
     torch.cuda.synchronize()
+
+
+# K4's float32 route at the shapes chip_smoke.py's phase 18 gives it
+# (llama3-8b's weights; decode at M = 4 and 16, the prefix's M = 704, 16
+# suffixes' M = 1536, the 4 x 896 prefill's M = 3584) and tp=2's shards at
+# M = 3584: (M, K, N).
+TF32_SHAPES = [(m, k, n) for m in (4, 16, 704, 1536, 3584)
+               for k, n in ((4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024))]
+TF32_SHAPES += [(16, 4096, 128256), (4, 4096, 128256), (1, 4096, 128256)]
+TF32_SHAPES += [(8, 4096, 14336), (8, 14336, 4096), (9, 4096, 1024)]
+TF32_SHAPES += [(3584, k, n) for k, n in ((4096, 2048), (4096, 512), (2048, 4096),
+                                          (4096, 7168), (7168, 4096))]
+
+
+@pytest.fixture(scope="module")
+def tf32_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    kns = sorted({(k, n) for _, k, n in TF32_SHAPES})
+    return {kn: _qmm_weight(torch.device("cuda"), *kn, seed=200 + i) for i, kn in enumerate(kns)}
+
+
+@pytest.mark.parametrize("M,K,N", TF32_SHAPES)
+def test_tf32_route_matches_plain_at_main_path_shapes(dev, tf32_weights, M, K, N):
+    """gemv_stream_tf32 (M <= 64) and tf32_gemm_kernel against the plain
+    version within 1e-4 + 3e-5 * |plain| (K = 14,336 among them: the tensor
+    cores' accumulation over the longest sums), and x with its last 32
+    columns zeroed outside it."""
+    wq, scale = tf32_weights[(K, N)]
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=dev)
+    before = (qmm.tf32_gemv_launches, qmm.tf32_gemm_launches)
+    got = qmm.quant_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    small = M <= qmm.GEMV_MAX_M
+    assert (qmm.tf32_gemv_launches - before[0], qmm.tf32_gemm_launches - before[1]) == (
+        (1, 0) if small else (0, 1))
+    want = qmm.quant_matmul_reference(x, wq, scale)
+    torch.testing.assert_close(got, want, **QMM_TOL[torch.float32])
+    cut = x.clone()
+    cut[:, -32:] = 0
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(qmm.quant_matmul(cut, wq, scale), want,
+                                   **QMM_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("group", ["qkv", "gate_up"])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 45, 64])
+def test_tf32_group_is_one_launch(dev, qmm_groups, M, group):
+    """float32 x in the GEMV regime: one gemv_stream_tf32 launch for the
+    weights that share x, each output against its own plain product."""
+    mats = qmm_groups[group]
+    g = torch.Generator(device=dev).manual_seed(M + 17)
+    x = torch.randn(M, 4096, generator=g, device=dev)
+    before = (qmm.gemv_launches, qmm.group_launches, qmm.tf32_gemv_launches, qmm.f32_launches)
+    got = qmm.quant_matmul_group(x, mats)
+    torch.cuda.synchronize()
+    assert (qmm.gemv_launches - before[0], qmm.group_launches - before[1],
+            qmm.tf32_gemv_launches - before[2], qmm.f32_launches - before[3]) == (1, 1, 1, 1)
+    for i, (out, (wq, scale)) in enumerate(zip(got, mats)):
+        assert out.dtype == torch.float32 and out.shape == (M, wq.shape[1])
+        want = qmm.quant_matmul_reference(x, wq, scale)
+        torch.testing.assert_close(out, want, **QMM_TOL[torch.float32],
+                                   msg=lambda m, _i=i: f"weight {_i}: {m}")
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 14336, 4096), (4, 4096, 1024), (704, 4096, 1024),
+                                   (1536, 4096, 14336)],
+                         ids=["gemv_down", "gemv_k_v", "gemm_split_k_v", "gemm_gate"])
+def test_tf32_route_repeats_bit_for_bit(dev, tf32_weights, M, K, N):
+    """The GEMV's split-K reduce and the GEMM's (k/v at M = 704 splits K
+    across blocks) sum in a fixed order, and the GEMM's two warpgroups share a
+    ring of x_lo tiles: 20 calls on one input, each beside memory traffic
+    on a second stream, must agree bit for bit."""
+    wq, scale = tf32_weights[(K, N)]
+    if M > qmm.GEMV_MAX_M and K == 4096 and N == 1024:
+        assert qmm.tf32_gemm_plan(K, N)[0] > 1
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(M, K, generator=g, device=dev)
+    first = qmm.quant_matmul(x, wq, scale)
+    noise = torch.zeros(64 << 20, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    for i in range(20):
+        with torch.cuda.stream(side):
+            noise.add_(1.0)
+        got = qmm.quant_matmul(x, wq, scale)
+        assert torch.equal(got, first), f"call {i} differs from the first"
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("K,N", [(4096, 1024), (14336, 4096)], ids=["k_v", "down"])
+def test_tf32_rows_do_not_depend_on_the_batch(dev, tf32_weights, K, N):
+    """A row's float32 product is the same bit for bit whatever rows share
+    its call, in either regime (the K split plan takes no M, and the GEMV's
+    8-row tiles at M <= 8 sum as its 16- to 64-row ones): the served paths'
+    replays rely on it."""
+    wq, scale = tf32_weights[(K, N)]
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(3584, K, generator=g, device=dev)
+    big = qmm.quant_matmul(x, wq, scale)
+    for M in (704, 65):
+        assert torch.equal(qmm.quant_matmul(x[:M].contiguous(), wq, scale), big[:M]), M
+    small = qmm.quant_matmul(x[:64].contiguous(), wq, scale)
+    for M in (1, 4, 8, 9, 16, 45):
+        assert torch.equal(qmm.quant_matmul(x[:M].contiguous(), wq, scale), small[:M]), M
+
+
+def test_tf32_route_counters_return_to_zero(dev, qmm_groups, tf32_weights):
+    """float32 calls that split (the GEMV's column tiles, the GEMM's k/v at
+    M = 704) on the default stream and a second one, each against its plain
+    version; then every workspace's arrival counters read back as 0."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    g = torch.Generator(device=dev).manual_seed(11)
+    xs = {M: torch.randn(M, 4096, generator=g, device=dev) for M in (16, 704)}
+    calls = []
+    for stream in (torch.cuda.current_stream(dev), side):
+        with torch.cuda.stream(stream):
+            for M, mats in ((16, qmm_groups["qkv"]), (16, qmm_groups["gate_up"]),
+                            (704, [tf32_weights[(4096, 1024)]]),
+                            (704, [tf32_weights[(4096, 4096)]])):
+                calls.append((xs[M], qmm.quant_matmul_group(xs[M], mats), mats))
+    torch.cuda.synchronize()
+    for x, outs, mats in calls:
+        for out, (wq, scale) in zip(outs, mats):
+            torch.testing.assert_close(out, qmm.quant_matmul_reference(x, wq, scale),
+                                       **QMM_TOL[torch.float32])
+    keys = [k for k in qmm._counters if k[0] == xs[16].device]
+    assert len(keys) >= 2
+    for key in keys:
+        assert int(qmm._counters[key].abs().sum()) == 0, key
+
+
+def test_tf32_gemm_refuses_a_bad_plan(dev, tf32_weights, monkeypatch):
+    """A split plan the kernel cannot take (an empty last split) raises;
+    nothing falls back and nothing is counted."""
+    wq, scale = tf32_weights[(4096, 1024)]
+    x = torch.ones(704, 4096, device=dev)
+    monkeypatch.setattr(qmm, "tf32_gemm_plan", lambda K, N: (3, 4096))
+    before = (qmm.gemm_launches, qmm.f32_launches)
+    with pytest.raises(RuntimeError, match="quant_matmul_gemm"):
+        qmm.quant_matmul(x, wq, scale)
+    assert (qmm.gemm_launches, qmm.f32_launches) == before
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8_cache"])

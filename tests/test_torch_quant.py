@@ -7,7 +7,10 @@ port's wrapper takes its plain version for CPU tensors. Tolerances:
 - quantization: int8 values equal, scales within 1 float32 ulp;
 - the plain matmul against the Pallas kernel: 2e-5 (float32; sums of a few
   hundred products in another order), and one bf16 ulp for a bf16 output
-  (both round one float32 result);
+  (both round one float32 result); the float32 route's two-pass TF32
+  product (``quant_matmul_two_pass_reference``) the same 2e-5: it drops at
+  most 2^-22 |x| of each x value;
+- the TF32 split: x_hi + x_lo equal to x bit for bit;
 - model logits: 1e-4 (float32, as the float model's parity tests);
 - greedy tokens: equal.
 """
@@ -129,15 +132,126 @@ def test_cpu_wrapper_takes_the_plain_version_and_checks_inputs():
         qmm.quant_matmul(_t(x)[:, :-1], _t(wq), _t(scale))
 
 
-def test_gemv_splits_cover_k_and_fill_the_card():
-    for M, K, N in [(16, 4096, 1024), (16, 4096, 14336), (16, 14336, 4096),
-                    (16, 4096, 128256), (1, 100, 96)]:
-        splits, per = qmm.gemv_splits(M, K, N)
-        n_tiles = -(-N // 128)
-        assert per % 64 == 0 and splits * per >= K > (splits - 1) * per
-        # Every k tile its own split, or within one split's worth of blocks
-        # of the target (two per SM).
-        assert splits == -(-K // 64) or n_tiles * (splits + 1) >= 264
+# tf32_gemm_kernel's weights: llama3-8b's as phase 18's prefill GEMMs give
+# them (gate/up, down, q/o, k/v, lm_head), tp=2's shards, and ragged ones.
+TF32_GEMM_WEIGHTS = [(4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024), (4096, 128256),
+                     (4096, 2048), (4096, 512), (2048, 4096), (4096, 7168), (7168, 4096),
+                     (100, 96), (72, 96), (4144, 4096)]
+
+
+@pytest.mark.parametrize("K,N", TF32_GEMM_WEIGHTS)
+def test_tf32_gemm_plan_covers_k_and_splits_deep_weights(K, N):
+    """Every k tile in exactly one split, none empty, each at least
+    TF32_MIN_SPLIT_TILES k tiles; the split count the largest power of two
+    at most K / N and TF32_MAX_SPLITS that allows. The plan takes no M, so
+    a row's sums do not depend on the rows that share its call."""
+    splits, per = qmm.tf32_gemm_plan(K, N)
+    k_tiles = -(-K // qmm.TF32_BK)
+    assert per % qmm.TF32_BK == 0 and splits * per >= K > (splits - 1) * per
+    assert 1 <= splits <= qmm.TF32_MAX_SPLITS and splits & (splits - 1) == 0
+    assert splits <= max(1, K // N)
+    if splits > 1:
+        assert per // qmm.TF32_BK >= qmm.TF32_MIN_SPLIT_TILES
+    if 2 * splits <= min(K // N, qmm.TF32_MAX_SPLITS):
+        assert k_tiles < 2 * splits * qmm.TF32_MIN_SPLIT_TILES
+    expect = {(14336, 4096): 2, (4096, 1024): 4, (4096, 512): 4, (4096, 14336): 1,
+              (4096, 4096): 1, (7168, 4096): 1}
+    if (K, N) in expect:
+        assert splits == expect[(K, N)]
+
+
+def _tf32_inputs(kind: str, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=4096).astype(np.float32)
+    scale = {"random": 1.0, "tiny": 1e-30, "huge": 1e30, "subnormal": 1e-40}[kind]
+    x = (x * np.float32(scale)).astype(np.float32)
+    if kind == "random":  # ties of the TF32 rounding, and signed zeros
+        x[:4] = np.array([1 + 2 ** -11, -(1 + 2 ** -11), 0.0, -0.0], np.float32)
+    return x
+
+
+@pytest.mark.parametrize("kind", ["random", "tiny", "huge", "subnormal"])
+def test_tf32_split_is_exact_and_keeps_ten_mantissa_bits(kind):
+    """x_hi + x_lo == x bit for bit; x_hi has at most 10 mantissa bits (its
+    low 13 are 0) and is x rounded to nearest, ties away from zero: x_lo
+    is at most half a TF32 ulp of x."""
+    x = _tf32_inputs(kind, seed=len(kind))
+    hi, lo = qmm.tf32_split(_t(x))
+    assert hi.dtype == lo.dtype == torch.float32
+    np.testing.assert_array_equal((hi + lo).numpy().view(np.int32), x.view(np.int32))
+    assert not (hi.numpy().view(np.int32) & 0x1FFF).any()
+    # half a TF32 ulp: 2^(e - 11) for x in [2^e, 2^(e+1)); subnormals share 2^-126's
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.float32(2.0 ** -126))))
+    assert np.all(np.abs(lo.numpy().astype(np.float64)) <= 2.0 ** (e - 11))
+    ties = hi.numpy()[:2] if kind == "random" else None
+    if ties is not None:
+        np.testing.assert_array_equal(ties, np.array([1 + 2 ** -10, -(1 + 2 ** -10)], np.float32))
+
+
+@pytest.mark.parametrize("m,k,n", [(48, 768, 3072), (16, 256, 128), (1, 128, 256),
+                                   (45, 384, 640), (96, 512, 256)])
+def test_two_pass_plain_product_matches_pallas_f32(m, k, n):
+    """The float32 route's product in plain PyTorch (x_hi @ wq + tf32(x_lo)
+    @ wq, times the scale) against the JAX kernel in interpret mode."""
+    x, wq, scale = _operands(m, k, n, seed=m + k + n)
+    want = np.asarray(jqm.quant_matmul(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(scale),
+                                       interpret=True))
+    got = qmm.quant_matmul_two_pass_reference(_t(x), _t(wq), _t(scale)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _mma_m16n8k8(a_frags, b_frags):
+    """One warp's m16n8k8 product from its lanes' fragments, as PTX lays
+    them out (g = lane // 4, q = lane % 4): A a0 (g, q), a1 (g+8, q), a2
+    (g, q+4), a3 (g+8, q+4); B b0 (q, g), b1 (q+4, g); returns each lane's
+    C: c0 (g, 2q), c1 (g, 2q+1), c2 (g+8, 2q), c3 (g+8, 2q+1)."""
+    A, B = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        A[g, q], A[g + 8, q], A[g, q + 4], A[g + 8, q + 4] = a_frags[lane]
+        B[q, g], B[q + 4, g] = b_frags[lane]
+    D = A @ B
+    return [(D[g, 2 * q], D[g, 2 * q + 1], D[g + 8, 2 * q], D[g + 8, 2 * q + 1])
+            for g, q in (divmod(lane, 4) for lane in range(32))]
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 16])
+def test_tf32_gemv_swapped_fragments_cover_the_product(M):
+    """gemv_stream_tf32's fragment map, mirrored from the kernel on one
+    warp's 32 columns and one k8 step: the weight is mma's A (bytes 2p and
+    2p + 1 of the words of k rows 2q and 2q + 1; odd bytes as 256 q), x's n8
+    tile j its B (floats 2q and 2q + 1 of row 8j + g), the k order (0, 2, 4,
+    6, 1, 3, 5, 7); gs_unswap's shuffles and gs_row's columns (odd ones
+    scaled by 2^-8) then give x @ w."""
+    rng = np.random.default_rng(M)
+    w = rng.integers(-127, 128, size=(8, 32)).astype(np.float64)  # k rows, columns
+    x = np.zeros((16, 8))
+    x[:M] = rng.normal(size=(M, 8))
+    nt = max(1, -(-M // 8))
+    # word j of k row r holds columns 4j .. 4j + 3 (byte c: column 4j + c)
+    byte = lambda r, j, c: w[r, 4 * j + c] * (256.0 if c % 2 else 1.0)
+    sw = [[None, None] for _ in range(nt)]
+    for j in range(nt):
+        b = [(x[8 * j + g, 2 * q], x[8 * j + g, 2 * q + 1])
+             for g, q in (divmod(lane, 4) for lane in range(32))]
+        for p in range(2):
+            a = [(byte(2 * q, g, 2 * p), byte(2 * q, g, 2 * p + 1),
+                  byte(2 * q + 1, g, 2 * p), byte(2 * q + 1, g, 2 * p + 1))
+                 for g, q in (divmod(lane, 4) for lane in range(32))]
+            sw[j][p] = _mma_m16n8k8(a, b)
+    out = np.full((16, 32), np.nan)
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        src = 8 * q + g // 2
+        for h in range(2):
+            j = h  # m = 0: rows 8h + g
+            for c in range(4):
+                for s in range(2):
+                    v = sw[j][c // 2][src + 4 * s][2 * (c % 2) + g % 2] if j < nt else 0.0
+                    out[8 * h + g, 8 * q + 4 * s + c] = v / (256.0 if c % 2 else 1.0)
+    np.testing.assert_allclose(out[:M], x[:M] @ w, rtol=1e-12, atol=1e-12)
+    if nt == 1:
+        assert not out[8:].any()
 
 
 # llama3-8b's projections as the decode step multiplies them: (K, widths of

@@ -40,7 +40,11 @@ checkout whose wrappers plan the float32 kernels (``flash_f32_rows``,
 ``decode_splits_f32``, ``verify_splits_f32``), each K1 row is also timed
 under every row plan, each K2 row under one split of each kind, and each
 K3 row under every (rows a block, splits) plan of whole runs (``plan`` in
-the row; the wrapper's own plan is the row without it). With ``--trace``, each row's
+the row; the wrapper's own plan is the row without it). With
+``--yardsticks``, each K3 row also gives its plain version's time
+(``plain_ms``), one SDPA call's over [prefix; cache] with a boolean mask
+(``library_ms``, k/v dequantized beforehand) and its bound (``bound_ms``,
+as ``chip_smoke.py``'s decode rows count it). With ``--trace``, each row's
 device time a call by CUDA kernel (``kernels_us``, from a torch.profiler
 capture of 20 calls). One JSON line a row (its checkout, kernel, shape,
 plan, ms, host_us, max_abs_err), then the card's name and power limit.
@@ -103,6 +107,8 @@ def host_us(fn, iters=200):
 
 
 PLANS, TRACE = "--plans" in sys.argv, "--trace" in sys.argv
+YARDSTICKS = "--yardsticks" in sys.argv
+HBM, F32 = 3.35e12, 67e12
 
 
 def kernels_us(call, n=20):
@@ -118,19 +124,21 @@ def kernels_us(call, n=20):
             if e.device_time_total > 0}
 
 
-def row(kernel, shape, call, plain, plan=None):
+def row(kernel, shape, call, plain, plan=None, yard=None):
     err = float((call() - plain()).abs().max())
     r = {"kernel": kernel, "shape": shape, "plan": plan, "ms": cuda_ms(call),
          "host_us": host_us(call), "max_abs_err": err, "ok": err <= 1e-4}
     if TRACE:
         r["kernels_us"] = kernels_us(call)
+    if yard is not None:
+        r.update(plain_ms=cuda_ms(plain, 20), **yard())
     print(json.dumps(r), flush=True)
 
 
-def planned(mod, planner, plans, kernel, shape, call, plain):
+def planned(mod, planner, plans, kernel, shape, call, plain, yard=None):
     # The row under the wrapper's plan, then (--plans) under each of plans,
     # the planner replaced.
-    row(kernel, shape, call, plain)
+    row(kernel, shape, call, plain, yard=yard if YARDSTICKS else None)
     if not PLANS or not hasattr(mod, planner):
         return
     saved = getattr(mod, planner)
@@ -173,6 +181,35 @@ def verify(name, B, H, Hkv, L, P, D, lo, int8, Q=9):
         scales = dict(k_scale=ks, v_scale=vs)
     offs = torch.randint(lo, L - Q + 1, (B,), generator=g, device=dev, dtype=torch.int32)
     valid = torch.arange(L, device=dev)[None, :] <= (offs[:, None] + Q - 1)
+
+    def yard():
+        # chip_smoke.py's decode_numbers: one SDPA call over [prefix; cache]
+        # (k/v dequantized beforehand, a boolean mask), and the bound, the
+        # bytes the inputs need or 4*D operations a visible (query, key)
+        # pair a head over the f32 FMA peak, whichever is longer.
+        from fairness_llm_tpu_torch.models.transformer import _dequantize_kv
+        slots = torch.arange(L, device=dev)
+        sees = valid[:, None, :] & (slots[None, None, :] <= (
+            offs.long()[:, None, None] + torch.arange(Q, device=dev)[None, :, None]))
+        kf = _dequantize_kv(k, scales["k_scale"], q.dtype) if int8 else k
+        vf = _dequantize_kv(v, scales["v_scale"], q.dtype) if int8 else v
+        rep = H // Hkv
+        kk = torch.cat([shared[0].transpose(0, 1)[None].expand(B, -1, -1, -1),
+                        kf.transpose(1, 2)], 2).repeat_interleave(rep, 1).contiguous()
+        vv = torch.cat([shared[1].transpose(0, 1)[None].expand(B, -1, -1, -1),
+                        vf.transpose(1, 2)], 2).repeat_interleave(rep, 1).contiguous()
+        mask = torch.cat([torch.ones(B, Q, P, dtype=torch.bool, device=dev), sees], 2)
+        q4, m4 = q.transpose(1, 2).contiguous(), mask[:, None].contiguous()
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kk, vv, attn_mask=m4))
+        needed = int(sees.any(1).sum())
+        pairs = int(sees.sum()) + B * Q * P
+        nbytes = (2 * q.numel() * 4 + 2 * needed * Hkv * D * k.element_size()
+                  + (2 * needed * Hkv * 4 if int8 else 0) + 2 * P * Hkv * D * 4 + B * L + 4 * B)
+        t_ops, t_bytes = 4.0 * D * H * pairs / F32 * 1e3, nbytes / HBM * 1e3
+        return {"library_ms": lib, "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
     ntp, ntc = -(-P // 32), -(-L // 32)
     plans = sorted({(rb, -(-ntp // run), -(-ntc // run))
                     for rb in getattr(dm, "VERIFY_F32_ROWS", ()) if rb * D <= 8192
@@ -182,7 +219,7 @@ def verify(name, B, H, Hkv, L, P, D, lo, int8, Q=9):
              "cache": "int8" if int8 else "float32", "visible_slots": int(valid.sum())},
             lambda: dm.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales),
             lambda: dm.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs,
-                                                  **scales))
+                                                  **scales), yard)
 
 
 for int8 in (False, True):
@@ -207,11 +244,14 @@ def main() -> int:
     ap.add_argument("roots", nargs="*", default=[str(ROOT)])
     ap.add_argument("--plans", action="store_true", help="time every plan of the new planners")
     ap.add_argument("--trace", action="store_true", help="device time a call by CUDA kernel")
+    ap.add_argument("--yardsticks", action="store_true",
+                    help="the verify rows' plain and SDPA times and their bound")
     ap.add_argument("--out", default=None, help="also write every row here as JSON lines")
     args = ap.parse_args()
     rows = []
     for turn, root in enumerate(args.roots):
-        flags = [f for f, on in (("--plans", args.plans), ("--trace", args.trace)) if on]
+        flags = [f for f, on in (("--plans", args.plans), ("--trace", args.trace),
+                                 ("--yardsticks", args.yardsticks)) if on]
         res = subprocess.run([sys.executable, "-c", CHILD, *flags], cwd=root,
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:

@@ -40,20 +40,24 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "fairness_llm_tpu_torch" / "ops" / "csrc"
 OUT = ROOT / "build" / "k4_variants"
 
-_LOOP = "      for (int kk = 0; kk < KSTEPS; ++kk) {"
+# The bf16 route's k loop (the first of the two in the stream kernel's body).
+_LOOP = ("      if constexpr (XB == 2) {\n        const int xr = lane % 16, xc = lane / 16;"
+         "  // this lane's ldmatrix row and k half\n#pragma unroll\n"
+         "        for (int kk = 0; kk < KSTEPS; ++kk) {")
 _STAGES = "constexpr int GS_STAGES = 4;"
-_NOX = ("        cp_async16(xd + r * 128 + ((ch ^ (r & 7)) << 4),",
-        "        if (false) cp_async16(xd + r * 128 + ((ch ^ (r & 7)) << 4),")
-_NOWORK = ("  if (warp == GS_CONSUMERS) {\n    const int M = p.M, K = grp.K;",
-           "  if (p.M > 0) return;\n  if (warp == GS_CONSUMERS) {\n    const int M = p.M, K = grp.K;")
-_NOCOMP = (_LOOP, "      for (int kk = 0; kk < 0; ++kk) {")
+_NOX = ("          cp_async16(xd + r * R::X_ROW + (gs_xchunk<XB>(ch, r) << 4),",
+        "          if (false) cp_async16(xd + r * R::X_ROW + (gs_xchunk<XB>(ch, r) << 4),")
+_NOWORK = ("  if (warp == GS_CONSUMERS) {\n    constexpr int XCH",
+           "  if (p.M > 0) return;\n  if (warp == GS_CONSUMERS) {\n    constexpr int XCH")
+_NOCOMP = (_LOOP, _LOOP.replace("kk < KSTEPS", "kk < 0"))
 _NOLOAD = [("mbar_expect_tx(&full[st], bytes);", "mbar_expect_tx(&full[st], 0);"),
            ("tma_load_2d(wd, &grp.wmap[w]", "if (false) tma_load_2d(wd, &grp.wmap[w]"),
-           ("if (two) tma_load_2d(", "if (false) tma_load_2d("), _NOX]
+           ("if (two) tma_load_2d(wd", "if (false) tma_load_2d(wd"), _NOX]
 _NOMMA = ("for (int c = 0; c < 4; ++c) mma_bf16(acc[m][c], a, b[c][0], b[c][1]);",
           "for (int c = 0; c < 4; ++c) acc[m][c][0] += __uint_as_float(a[0] ^ b[c][0] ^ b[c][1]);")
-_NOCONV = ("          b[c][0] = pack_top(f[0][c], f[1][c]);\n          b[c][1] = pack_top(f[2][c], f[3][c]);",
-           "          b[c][0] = wl[c];\n          b[c][1] = wl[(c + 1) & 3];")
+_NOCONV = ("            b[c][0] = pack_top(f[0][c], f[1][c]);\n"
+           "            b[c][1] = pack_top(f[2][c], f[3][c]);",
+           "            b[c][0] = wl[c];\n            b[c][1] = wl[(c + 1) & 3];")
 # name -> replacements in quant_matmul.cu
 VARIANTS = {
     "base": [],

@@ -25,9 +25,9 @@ its checkout first on ``sys.path``, so it imports only that checkout's
 - traces one greedy shared-prefix call of 16 new tokens with torch.profiler
   and reports the device ms and launches a step of the model's decode
   kernels, by name: K2's (``decode_split_tc``, ``combine_splits``,
-  ``decode_fwd``) for llama3-8b; the K4 GEMV's for llama3-8b-int8, under
-  the names of every version (``gemv_stream_tc``; ``tc_kernel`` and
-  ``splitk_reduce`` before it);
+  ``decode_fwd``) for llama3-8b; K4's for llama3-8b-int8 (the GEMV
+  ``gemv_stream_tc`` and the GEMM ``wg_gemm_kernel``, and their float32
+  twins ``gemv_stream_tf32`` and ``tf32_gemm_kernel``);
 - llama3-8b: calls ``decode_attention`` at each of ``SHAPES`` over a bf16
   cache and an int8 one (values and scales from the port's
   ``_quantize_kv``; valid slots a run per row drawn from seed 0): its host
@@ -120,7 +120,8 @@ K4_LAYER = [("qkv", 4096, (4096, 1024, 1024)), ("o", 4096, (4096,)),
 K4_HEAD = (4096, 128256)
 # Device kernels a decode step's traced time is summed over, by model.
 FOCUS = {"llama3-8b": ("decode_split_tc", "combine_splits", "decode_fwd"),
-         "llama3-8b-int8": ("gemv_stream_tc", "tc_kernel", "splitk_reduce")}
+         "llama3-8b-int8": ("gemv_stream_tc", "wg_gemm_kernel", "gemv_stream_tf32",
+                            "tf32_gemm_kernel")}
 
 
 def cold_ms(torch, fn, iters: int = 20) -> float:
