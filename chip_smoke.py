@@ -32,7 +32,9 @@ memory ledger, the roofline, the cost ledger and the compile stats, with
 their reports and the headroom signals; then the per-phase device trace
 of a served full-width run, and the study data-parallel over two ranks; and
 last tensor parallelism (the study and the served full-width sweep over two
-tp ranks), ring attention over two sp ranks, and training.
+tp ranks), ring attention over two sp ranks, and training, in one process
+and over two tp ranks, with the native ratings parser built on the card's
+machine.
 
 Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
@@ -449,6 +451,21 @@ path's launch counts are set to 0 just before it and read just after:
      byte; then llama3-8b at full width cut to 8 layers in bf16 (params,
      grads and AdamW moments), remat, 4 steps on one fixed batch: the loss
      must fall; step ms, peak memory and the card's clock and power logged.
+     (d) Training at tp=2 on the same two ranks (``tp_train``): one float32
+     step of the study checkpoint on a tp=2 mesh, each rank after the tp=1
+     step on the card from the same parameters: its loss within 1e-4
+     (relative) of tp=1's and each gradient within 1e-4 of the scale of
+     its part of tp=1's (``TrainState.cut``); the tp=2 checkpoint restored
+     at tp=1 equal to the gathered state, moments and all; then llama3-8b
+     at full width cut to 8 layers, bf16 and remat, 4 steps on phase (c)'s
+     batch at tp=2 (each rank makes the full parameters from seed 0 and
+     keeps its part): the loss must fall and the two ranks' losses be equal
+     bit for bit; step ms, init s and peak memory logged a rank, the first
+     loss reported beside (c)'s tp=1 first loss (``train_tp2`` line). (e)
+     In this process after (c): the native ratings parser
+     (``fairness_llm_tpu_torch.native``) built on this machine must give
+     the pure-Python parse's arrays on a ``ratings.dat`` the script writes
+     (``native_parse`` line).
   the study's speculative sweep (``--speculate``), after phase 31:
  32. on tiny-llama-study and tiny-gpt2-study, phase 20's greedy sweep with
      greedy prompt-lookup speculation (draft 8, n-gram 3) through
@@ -5948,6 +5965,30 @@ TRAIN_TOL = 1e-4
 TRAIN_LAYERS = 8
 TRAIN_BATCH = (2, 257)
 TRAIN_STEPS = 4
+# (e) The native parser's input: rows of MovieLens-1M's ranges.
+NATIVE_ROWS = 20_000
+
+
+def study_train_batch(cfg):
+    """Phase 31's study training batch: ``TRAIN_STUDY_BATCH`` tokens from a
+    seed, row 1 left-padded by 9."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    b, s = TRAIN_STUDY_BATCH
+    tokens = rng.integers(3, cfg.vocab_size, (b, s))
+    valid = np.ones((b, s), bool)
+    valid[1, :9] = False
+    return tokens, valid
+
+
+def big_train_batch(cfg):
+    """Phase 31's llama3-8b training batch: ``TRAIN_BATCH`` tokens from a
+    seed, every one valid."""
+    import numpy as np
+
+    tokens = np.random.default_rng(8).integers(3, cfg.vocab_size, TRAIN_BATCH)
+    return tokens, np.ones(TRAIN_BATCH, bool)
 
 
 def tp_rank(out: pathlib.Path) -> int:
@@ -6097,6 +6138,7 @@ def tp_rank(out: pathlib.Path) -> int:
     del runs
     if world > 1:
         res["ring"] = sp_checks(torch, out, rank)
+        res["train"] = tp_train(torch, out, rank)
     (out / f"rank{rank}.json").write_text(json.dumps(res, default=str))
     dist.barrier()
     dist.destroy_process_group()
@@ -6372,6 +6414,172 @@ def tp_checks(torch, res: dict, one: dict, sweep: dict, device_line: str) -> tup
     return launches, rows, row
 
 
+def same_train_state(torch, a: dict, b: dict) -> bool:
+    """Two ``train.checkpoint.global_state``s hold the same step, full
+    tensors and optimizer entries, bit for bit."""
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and torch.equal(x.cpu(), y.cpu())
+        return x == y
+
+    sa, sb = a["opt_state"]["state"], b["opt_state"]["state"]
+    return (a["step"] == b["step"] and a["params"].keys() == b["params"].keys()
+            and all(same(v, b["params"][k]) for k, v in a["params"].items())
+            and sa.keys() == sb.keys()
+            and all(st.keys() == sb[n].keys() and all(same(v, sb[n][k]) for k, v in st.items())
+                    for n, st in sa.items())
+            and a["opt_state"]["param_groups"] == b["opt_state"]["param_groups"])
+
+
+def tp_train(torch, out: pathlib.Path, rank: int) -> dict:
+    """Phase 31(d) in a rank: training at tp=2 over the two gloo ranks on the
+    one card. (1) One float32 step of the first study checkpoint at tp=2
+    after the tp=1 step on the card from the same parameters (each rank
+    computes both): the losses and each gradient against the rank's part of
+    tp=1's (``TrainState.cut``), the worst error over the part's scale;
+    the tp=2 state saved (full tensors gathered, rank 0 writing) and
+    restored at tp=1, equal to the gathered state. (2) llama3-8b at full
+    width cut to ``TRAIN_LAYERS`` layers, bf16, remat, ``TRAIN_STEPS``
+    steps on ``big_train_batch`` at tp=2: each rank makes the full
+    parameters from seed 0 on the card and keeps its part. Returns the
+    numbers; ``tp_train_checks`` in the parent gates them."""
+    import torch.distributed as dist
+
+    from fairness_llm_tpu_torch.config import MeshConfig
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.parallel.sharding import make_mesh
+    from fairness_llm_tpu_torch.runtime.weights import load_checkpoint
+    from fairness_llm_tpu_torch.train import make_train_step
+    from fairness_llm_tpu_torch.train.checkpoint import (
+        global_state,
+        restore_train_state,
+        save_train_state,
+    )
+
+    torch.cuda.empty_cache()
+    mesh = make_mesh(MeshConfig(tp=TP_WORLD))
+    name = STUDY_MODELS[0]
+    cfg = get_model_config(name)
+    params = load_checkpoint(cfg, str(ROOT / "checkpoints" / name), device="cuda")
+    tokens, valid = study_train_batch(cfg)
+    init1, step1 = make_train_step(cfg, device="cuda")
+    one, loss1 = step1(init1(params=params), tokens, valid)
+    init2, step2 = make_train_step(cfg, mesh=mesh, device="cuda")
+    two, loss2 = step2(init2(params=params), tokens, valid)
+    want = two.cut({k: p.grad for k, p in one.params.items()})
+    worst = {}
+    for k, p in two.params.items():
+        scale = max(float(want[k].abs().max()), 1e-30)
+        worst[k] = float((p.grad - want[k]).abs().max()) / scale
+    ckpt = out / "train_ckpt_tp2"
+    save_train_state(str(ckpt), two)
+    saved = global_state(two)
+    back = restore_train_state(str(ckpt), init1(5))
+    restored = back is not None and same_train_state(torch, global_state(back), saved)
+    study = {"model": name, "loss_tp1": float(loss1), "loss_tp2": float(loss2),
+             "loss_rel_err": abs(float(loss2) - float(loss1)) / abs(float(loss1)),
+             "worst_grad_err_over_scale": max(worst.values()),
+             "worst_grad": max(worst, key=worst.get), "tol": TRAIN_TOL,
+             "local_widths": [two.model.config.num_heads, two.model.config.num_kv_heads,
+                              two.model.config.d_ff, two.model.config.vocab_size],
+             "checkpoint_tp2_restored_at_tp1_equal": restored}
+    del one, two, back, saved, params, want
+    torch.cuda.empty_cache()
+    dist.barrier()
+    big = dataclasses.replace(get_model_config(MODEL), num_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init, step = make_train_step(big, mesh=mesh, remat=True, device="cuda")
+    state = init(0, param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens, valid = big_train_batch(big)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens, valid)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    local = state.model.config
+    big_row = {"layers": TRAIN_LAYERS, "dtype": "bfloat16", "remat": True,
+               "batch": list(TRAIN_BATCH), "losses": losses, "step_ms": step_ms,
+               "init_s": init_s,
+               "local_params": sum(p.numel() for p in state.model.parameters()),
+               "local_widths": [local.num_heads, local.num_kv_heads, local.d_ff,
+                                local.vocab_size],
+               "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state
+    torch.cuda.empty_cache()
+    return {"rank": rank, "study": study, "llama3_8b": big_row}
+
+
+def tp_train_checks(res: dict, train: dict, device_line: str) -> dict:
+    """Phase 31(d)'s gates on the ranks' ``tp_train`` results: the study
+    step's loss within ``TRAIN_TOL`` (relative) of tp=1's and every
+    gradient within ``TRAIN_TOL`` of its part's scale, the tp=2 checkpoint
+    restored at tp=1 equal; llama3-8b's losses finite, falling and equal
+    bit for bit on both ranks; its first loss reported beside phase (c)'s
+    tp=1 first loss on the same seed and batch (bf16 at two summation
+    orders: not gated). Returns the ``train_tp2`` row."""
+    ranks = [rk["train"] for rk in res["ranks"]]
+    for t in ranks:
+        st = t["study"]
+        if not (st["loss_rel_err"] <= TRAIN_TOL and st["worst_grad_err_over_scale"] <= TRAIN_TOL):
+            fail(f"train tp=2 rank {t['rank']}: the study step (loss {st['loss_tp2']}) against "
+                 f"tp=1's ({st['loss_tp1']}): loss {st['loss_rel_err']:.2e}, worst gradient "
+                 f"{st['worst_grad']} {st['worst_grad_err_over_scale']:.2e} of scale")
+        if st["local_widths"] != [2, 1, 128, 256] or not st["checkpoint_tp2_restored_at_tp1_equal"]:
+            fail(f"train tp=2 rank {t['rank']}: widths {st['local_widths']}, the tp=2 checkpoint "
+                 f"restored at tp=1 equal: {st['checkpoint_tp2_restored_at_tp1_equal']}")
+        losses = t["llama3_8b"]["losses"]
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            fail(f"train tp=2 rank {t['rank']}: the llama3-8b ({TRAIN_LAYERS} layers) loss did "
+                 f"not fall: {losses}")
+        if t["llama3_8b"]["local_widths"] != [16, 4, 7168, 64128]:
+            fail(f"train tp=2 rank {t['rank']}: llama3-8b held {t['llama3_8b']['local_widths']}")
+    if ranks[0]["llama3_8b"]["losses"] != ranks[1]["llama3_8b"]["losses"]:
+        fail(f"train tp=2: the ranks' llama3-8b losses differ: "
+             f"{[t['llama3_8b']['losses'] for t in ranks]}")
+    first_tp1 = train["llama3_8b"]["losses"][0]
+    first_tp2 = ranks[0]["llama3_8b"]["losses"][0]
+    return {"device": device_line, "world": TP_WORLD, "ranks": ranks,
+            "llama3_8b_first_loss_tp1": first_tp1, "llama3_8b_first_loss_tp2": first_tp2,
+            "llama3_8b_first_loss_rel_diff": abs(first_tp2 - first_tp1) / abs(first_tp1)}
+
+
+def native_check(tmp: pathlib.Path) -> dict:
+    """Phase 31(e): the native ratings parser built on this machine
+    (``cc`` into ``build/native/``) parses a ``ratings.dat`` of
+    ``NATIVE_ROWS`` rows from a seed into the pure-Python parse's arrays;
+    ``data/movielens._parse_ratings`` returns the same."""
+    import numpy as np
+
+    from fairness_llm_tpu_torch import native
+    from fairness_llm_tpu_torch.data import movielens
+
+    rng = np.random.default_rng(21)
+    cols = [rng.integers(1, 6041, NATIVE_ROWS), rng.integers(1, 3953, NATIVE_ROWS),
+            rng.integers(1, 6, NATIVE_ROWS), rng.integers(900_000_000, 1_000_000_000, NATIVE_ROWS)]
+    path = tmp / "ratings.dat"
+    path.write_text("".join(f"{u}::{m}::{r}::{t}\n" for u, m, r, t in zip(*cols)))
+    t0 = time.perf_counter()
+    got = native.parse_ratings(str(path))
+    native_s = time.perf_counter() - t0
+    if got is None:
+        fail("the native ratings parser did not build on this machine")
+    rows = movielens._parse_dat(str(path))
+    want = (np.array([int(r[0]) for r in rows], np.int32),
+            np.array([int(r[1]) for r in rows], np.int32),
+            np.array([float(r[2]) for r in rows], np.float32))
+    via = movielens._parse_ratings(str(path))
+    for label, arrays in (("native.parse_ratings", got), ("movielens._parse_ratings", via)):
+        if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(arrays, want)):
+            fail(f"{label} parts from the pure-Python parse of {path.name}")
+    return {"rows": NATIVE_ROWS, "library": str(native._SO.relative_to(ROOT)),
+            "parse_s_including_build": native_s, "equal_to_python": True}
+
+
 def train_checks(torch, tmp: pathlib.Path, device_line: str) -> dict:
     """Phase 31(c): training on the card. One float32 step of the study
     checkpoint against the port's CPU step (loss and every gradient within
@@ -6380,8 +6588,6 @@ def train_checks(torch, tmp: pathlib.Path, device_line: str) -> dict:
     llama3-8b at full width cut to ``TRAIN_LAYERS`` layers in bf16, remat,
     ``TRAIN_STEPS`` steps on one fixed batch: the loss must fall; step ms
     and peak memory logged."""
-    import numpy as np
-
     from fairness_llm_tpu_torch.models.configs import get_model_config
     from fairness_llm_tpu_torch.runtime.weights import load_checkpoint
     from fairness_llm_tpu_torch.train import make_train_step
@@ -6390,11 +6596,7 @@ def train_checks(torch, tmp: pathlib.Path, device_line: str) -> dict:
     name = STUDY_MODELS[0]
     cfg = get_model_config(name)
     params = load_checkpoint(cfg, str(ROOT / "checkpoints" / name), device="cpu")
-    rng = np.random.default_rng(31)
-    b, s = TRAIN_STUDY_BATCH
-    tokens = rng.integers(3, cfg.vocab_size, (b, s))
-    valid = np.ones((b, s), bool)
-    valid[1, :9] = False
+    tokens, valid = study_train_batch(cfg)
     out = {"device": device_line}
     steps = {}
     for dev, remat in (("cpu", False), ("cuda", False), ("cuda", True)):
@@ -6449,9 +6651,7 @@ def train_checks(torch, tmp: pathlib.Path, device_line: str) -> dict:
     state = init(0, param_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    b, s = TRAIN_BATCH
-    tokens = np.random.default_rng(8).integers(3, big.vocab_size, (b, s))
-    valid = np.ones((b, s), bool)
+    tokens, valid = big_train_batch(big)
     losses, step_ms = [], []
     with CardSampler() as card_smi:
         for _ in range(TRAIN_STEPS):
@@ -6474,10 +6674,11 @@ def train_checks(torch, tmp: pathlib.Path, device_line: str) -> dict:
 
 
 def tp_ring_train_path(torch, device_line: str, sweep: dict, held: set) -> dict:
-    """Phase 31: (a)-(b) tp=2 and sp=2 on the card over gloo, then tp=1 on
-    NCCL at one rank, (c) training. Returns each kernels-line entry's
-    launches in each rank's runs and the rows of the calls no earlier phase
-    held."""
+    """Phase 31: (a)-(b) tp=2 and sp=2 on the card over gloo, (d) training
+    at tp=2 in the same ranks, then tp=1 on NCCL at one rank, (c) training
+    in this process and (d)'s gates, (e) the native ratings parser. Returns
+    each kernels-line entry's launches in each rank's runs and the rows of
+    the calls no earlier phase held."""
     import gc
     import tempfile
 
@@ -6492,8 +6693,11 @@ def tp_ring_train_path(torch, device_line: str, sweep: dict, held: set) -> dict:
         log(f"tp_sp {json.dumps(row)}")
         log(f"tp_sp_s {time.perf_counter() - t0:.1f}")
         t0 = time.perf_counter()
-        log(f"train {json.dumps(train_checks(torch, tmp, device_line))}")
+        train = train_checks(torch, tmp, device_line)
+        log(f"train {json.dumps(train)}")
         log(f"train_s {time.perf_counter() - t0:.1f}")
+        log(f"train_tp2 {json.dumps(tp_train_checks(res, train, device_line))}")
+        log(f"native_parse {json.dumps(native_check(tmp))}")
     return {"launches": launches, "rows": rows}
 
 

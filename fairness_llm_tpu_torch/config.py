@@ -52,8 +52,9 @@ class ServingConfig:
     shared arena of ``kv_blocks`` blocks of ``kv_block_size`` tokens
     (``serving/paged.py``): admission reuses cached prompt prefixes and
     prefills only the unmatched suffix; greedy tokens stay those of the
-    non-paged path. Tensor-parallel serving (``tp``) is a later slice
-    (ROADMAP A5.5): setting it raises ``NotImplementedError``."""
+    non-paged path. ``tp`` above 1 is the tensor-parallel width the served
+    pool runs at: it must equal the tp axis of the engine's mesh, or the
+    scheduler raises ``ValueError``."""
 
     enabled: bool = False
     num_slots: int = 8  # concurrent KV slots = decode-step batch rows

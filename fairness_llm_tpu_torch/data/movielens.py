@@ -8,10 +8,10 @@ File formats (latin-1):
 
 Three modes: all tables from disk; the real catalog with seeded synthetic
 ratings when ``ratings.dat`` is absent (the repo ships ``movies.dat``
-only); a seeded synthetic corpus when ``movies.dat`` is absent too. The
-reference's C ratings parser is not ported: it only speeds up a
-``ratings.dat`` this repo does not hold, and the pure-Python parse gives the
-same arrays.
+only); a seeded synthetic corpus when ``movies.dat`` is absent too.
+``ratings.dat`` goes through the native C parser (``native/``, built on
+first use) and through the pure-Python parse, with the same arrays, where
+no compiler is available. ``data/download.py`` fetches the three tables.
 """
 
 from __future__ import annotations
@@ -83,7 +83,17 @@ def _parse_dat(path: str, encoding: str = "latin-1") -> List[List[str]]:
 
 
 def _parse_ratings(path: str):
-    """Parse the numeric ratings table into (users, movies, ratings) arrays."""
+    """Parse the 1M-row numeric ratings table into (users, movies, ratings)
+    arrays: the native C parser when it builds (``native/``), pure Python
+    otherwise."""
+    try:
+        from fairness_llm_tpu_torch import native
+
+        out = native.parse_ratings(path)
+        if out is not None:
+            return out
+    except Exception as e:  # noqa: BLE001 — never let the fast path break loading
+        logger.info("native ratings parse failed (%s); falling back", e)
     rows = _parse_dat(path)
     return (
         np.array([int(r[0]) for r in rows], dtype=np.int32),

@@ -59,8 +59,8 @@ class ModelConfig:
     # int8 kernels with f32 per-channel scales and run through the int8-weight
     # kernel (ops/quant_matmul.py).
     weight_quant: str = "none"  # "none" | "int8"
-    # The reference's ring attention ("ring") is not ported; the port runs
-    # the "xla"-equivalent dense/flash paths only.
+    # "xla": the dense, flash and decode-kernel paths; "ring": ring attention
+    # over the sp group on the no-cache path (parallel/ring.py).
     attention_impl: str = "xla"
 
     @property

@@ -63,7 +63,13 @@ gloo takes on CUDA tensors, where its all-gather does not).
 The forward runs under autograd when a parameter requires a gradient
 (``train/step.py``); the serving paths' parameters do not, so they build
 no graph. A training forward passes no cache and ``left_padded=False``,
-so it takes the dense (or ring) branch: the kernels have no backward.
+so it takes the dense (or ring) branch: the kernels have no backward. At
+tp > 1 the sums above are ``ModelParallel.reduce`` (Megatron-LM's g: the
+gradient passes through) and the input of each projection whose output
+the layout shards (q/k/v, gate/up or up, the head) goes through
+``ModelParallel.copy`` (f: its gradient is summed over the tp group).
+Without autograd both are what they were: one in-place all-reduce a sum,
+and nothing at the inputs.
 """
 
 from __future__ import annotations
@@ -270,7 +276,7 @@ def _row_parallel(proj, x, par):
     else:
         y = _logits(x2.to(proj.dtype), proj.kernel)
         dtype = proj.dtype
-    y = par.all_reduce(y.contiguous()).to(dtype).reshape(*lead, y.shape[-1])
+    y = par.reduce(y.contiguous()).to(dtype).reshape(*lead, y.shape[-1])
     if proj.bias is not None:
         y = y + proj.bias.to(dtype)
     return y
@@ -379,6 +385,9 @@ class Attention(nn.Module):
         dtype = dtype_of(cfg)
         B, S, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        layout = None if self.par is None else self.par.layout
+        if layout is not None and layout.attn_sharded:
+            x = self.par.copy(x)
         q, k, v = _project((self.q_proj, self.k_proj, self.v_proj), x)
         q = q.reshape(B, S, H, D)
         k = k.reshape(B, S, Hkv, D)
@@ -447,8 +456,7 @@ class Attention(nn.Module):
                               key_valid, key_positions, shared_kv,
                               cached=cache_layer is not None, write_offsets=write_offsets)
         out = out.reshape(B, S, cfg.q_dim)
-        if self.par is not None and self.par.layout is not None \
-                and self.par.layout.attn_sharded:
+        if layout is not None and layout.attn_sharded:
             return _row_parallel(self.o_proj, out, self.par)
         return self.o_proj(out)
 
@@ -510,13 +518,16 @@ class MLP(nn.Module):
         self.par = None  # a parallel.sharding.ModelParallel (Transformer.set_parallel)
 
     def forward(self, x):
+        sharded = self.par is not None and self.par.layout is not None \
+            and self.par.layout.ff_sharded
+        if sharded:
+            x = self.par.copy(x)
         if self.config.mlp == "glu":
             gate, up = _project((self.gate_proj, self.up_proj), x)
             h = self.act(gate) * up
         else:
             h = self.act(self.up_proj(x))
-        if self.par is not None and self.par.layout is not None \
-                and self.par.layout.ff_sharded:
+        if sharded:
             return _row_parallel(self.down_proj, h, self.par)
         return self.down_proj(h)
 
@@ -621,7 +632,7 @@ class Transformer(nn.Module):
         mine = (local >= 0) & (local < self.embedding.shape[0])
         rows = self.embedding[local.clamp(0, self.embedding.shape[0] - 1)].float()
         rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-        return self.par.all_reduce(rows).to(dtype)
+        return self.par.reduce(rows).to(dtype)
 
     def _gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         """Full-vocabulary logits from the rank's block (an all-reduce into
@@ -631,7 +642,7 @@ class Transformer(nn.Module):
             return logits
         full = logits.new_zeros(*logits.shape[:-1], layout.vocab_size)
         full[..., layout.vocab_lo:layout.vocab_hi] = logits
-        return self.par.all_reduce(full)
+        return self.par.reduce(full)
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 token_valid: Optional[torch.Tensor] = None,
@@ -685,6 +696,9 @@ class Transformer(nn.Module):
         x = self.final_norm(x)
         if last_only:
             x = x[:, -1:, :]
+        if self.par is not None and self.par.layout is not None \
+                and self.par.layout.vocab_sharded:
+            x = self.par.copy(x)
         if not cfg.tie_embeddings and cfg.weight_quant == "int8":
             logits = self.lm_head(x)  # f32 out
         else:

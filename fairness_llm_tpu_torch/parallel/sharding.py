@@ -19,14 +19,24 @@ per dimension. The byte counts (``per_device_param_bytes``,
 no world.
 
 ``shard_params`` places the parameters on the rank's device, each tensor
-cut to the rank's block along every dimension its spec shards on "tp"
-(dp and sp replicate the weights); ``tp_layout`` says which heads, MLP
-columns and vocabulary rows a tp rank holds, and ``local_params`` turns
-the spec's shards into the tensors the rank's model computes with (the
-replicated q/k/v and gate/up biases cut to its columns, and, where q
-heads shard but kv heads do not, the kv heads its q heads read).
+cut to the rank's block along every dimension its spec shards (dp and sp
+replicate the weights). ``tp_layout`` says which heads, MLP columns and
+vocabulary rows a tp rank holds, and ``rank_params`` cuts the full
+parameters to the tensors the rank's model computes with: the spec's tp
+blocks, the replicated q/k/v and gate/up biases cut to its columns, and,
+where q heads shard but kv heads do not, the kv heads its q heads read.
+The tp engine and the tp train state both take their tensors from it.
 ``batch_sharding`` is the rank's contiguous row slice of a batch bucketed
 to a dp multiple, the reference's ``P("dp")`` layout.
+
+Training at tp > 1 (``train/step.py``): ``gather_params`` puts a rank's
+tensors, or their gradients and moments, back together (``rank_params``'s
+inverse); ``ModelParallel.reduce`` and ``copy`` are the tensor-parallel
+forward's collectives with the gradients Megatron-LM gives them (g: a sum
+whose gradient passes through; f: the identity whose gradient is summed
+over tp); ``sum_kv_copy_grads`` completes the gradient of a kv head that
+several tp ranks hold; ``replica_group`` is the dp x sp plane a rank's
+loss and gradients are summed over, built once a mesh.
 
 Not ported, because the collectives are explicit: ``compat_shard_map``
 (``jax.shard_map`` across jax versions), ``current_mesh`` (the mesh of the
@@ -276,34 +286,166 @@ def _head_columns(heads: Sequence[int], head_dim: int) -> torch.Tensor:
     return torch.cat([torch.arange(h * head_dim, (h + 1) * head_dim) for h in heads])
 
 
-def local_params(model_config: ModelConfig, params: Mapping[str, torch.Tensor],
-                 layout: TPLayout) -> Dict[str, torch.Tensor]:
-    """``shard_params``'s output -> the tensors of the rank's model
-    (``layout.local_config``): the replicated column biases (q/k/v,
-    gate/up) cut to the rank's columns, and where q heads shard but kv
-    heads do not, the k/v projections (kernel, int8 scales, bias) cut to
-    ``layout.kv_heads``. Everything else is the shard itself; the o and
-    down biases stay whole (added once, after the sum)."""
-    D = model_config.head_dim
-    out = dict(params)
-    kv_cut = layout.attn_sharded and not layout.kv_sharded
-    kv_cols = _head_columns(layout.kv_heads, D) if kv_cut else None
+def rank_params(model_config: ModelConfig, params: Mapping[str, torch.Tensor],
+                layout: TPLayout, device: Union[str, torch.device]) -> Dict[str, torch.Tensor]:
+    """What the tp rank of ``layout`` holds of the full ``params``, on
+    ``device``: the tensors of the rank's model (``layout.local_config``).
+    A tensor whose spec shards on "tp" is cut to the rank's block; the
+    replicated column biases (q/k/v, gate/up) to the rank's columns; where
+    q heads shard but kv heads do not, the k/v projections (kernel, int8
+    scales, bias) to ``layout.kv_heads``. Everything else, the o and down
+    biases among them (added once, after the sum), stays whole.
+    ``gather_params`` is its inverse."""
+    shardings = param_shardings(model_config, MeshConfig(tp=layout.tp))
+    out = {}
     for name, t in params.items():
-        parts = name.split(".")
-        if len(parts) < 3:
-            continue
-        proj, leaf = parts[-2], parts[-1]
-        if proj == "q_proj" and leaf == "bias" and layout.attn_sharded:
-            out[name] = t[layout.q_lo * D:layout.q_hi * D].contiguous()
-        elif proj in ("k_proj", "v_proj") and kv_cut:
-            cols = kv_cols.to(t.device)
-            out[name] = t.index_select(t.dim() - 1, cols).contiguous()
-        elif proj in ("k_proj", "v_proj") and leaf == "bias" and layout.kv_sharded:
-            lo, hi = layout.kv_heads[0] * D, (layout.kv_heads[-1] + 1) * D
-            out[name] = t[lo:hi].contiguous()
-        elif proj in ("gate_proj", "up_proj") and leaf == "bias" and layout.ff_sharded:
-            out[name] = t[layout.ff_lo:layout.ff_hi].contiguous()
+        cut = _global_columns(model_config, name, t.shape, shardings.get(name, ()), layout)
+        if cut is not None:
+            dim, cols = cut
+            t = t.index_select(dim, cols.to(t.device))
+        out[name] = t.to(device)
     return out
+
+
+def _global_columns(model_config: ModelConfig, name: str, shape: Sequence[int], spec: Spec,
+                    layout: TPLayout) -> Optional[Tuple[int, torch.Tensor]]:
+    """``rank_params``'s cut of parameter ``name`` (full ``shape``) as
+    (dimension, the global indices along it that the rank's tensor holds,
+    in order), or None where the rank holds the tensor whole."""
+    D = model_config.head_dim
+    for dim, axis in enumerate(spec):
+        if axis == "tp":
+            if shape[dim] % layout.tp:
+                raise ValueError(f"parameter {name} dim {dim} ({shape[dim]}) does not "
+                                 f"divide tp={layout.tp}")
+            n = shape[dim] // layout.tp
+            return dim, torch.arange(layout.rank * n, (layout.rank + 1) * n)
+    parts = name.split(".")
+    if len(parts) < 3:
+        return None
+    proj, leaf = parts[-2], parts[-1]
+    if proj == "q_proj" and leaf == "bias" and layout.attn_sharded:
+        return 0, torch.arange(layout.q_lo * D, layout.q_hi * D)
+    if proj in ("k_proj", "v_proj") and (
+            (layout.attn_sharded and not layout.kv_sharded)
+            or (leaf == "bias" and layout.kv_sharded)):
+        return len(shape) - 1, _head_columns(layout.kv_heads, D)
+    if proj in ("gate_proj", "up_proj") and leaf == "bias" and layout.ff_sharded:
+        return 0, torch.arange(layout.ff_lo, layout.ff_hi)
+    return None
+
+
+def _kv_owners(model_config: ModelConfig, tp: int) -> Dict[int, int]:
+    """{kv head: the lowest tp rank that holds it}."""
+    owners: Dict[int, int] = {}
+    for r in range(tp):
+        for h in tp_layout(model_config, MeshConfig(tp=tp), r).kv_heads:
+            owners.setdefault(h, r)
+    return owners
+
+
+def gather_params(model_config: ModelConfig, params: Mapping[str, torch.Tensor],
+                  layout: TPLayout, group: Any = None) -> Dict[str, torch.Tensor]:
+    """``rank_params``'s inverse over the tp group: the full tensors from
+    every tp rank's ``params`` (the rank's parameters, or any tensors of
+    their shapes, such as their gradients or AdamW moments). A tensor the
+    rank holds whole is returned as it is (detached); a cut one is written
+    into a zero-filled tensor of the full shape at its global indices and
+    summed over ``group`` (an all-reduce, which gloo takes on CUDA tensors
+    where its all-gather does not). A kv head that several ranks hold is
+    written by the lowest of them only, and a head a rank holds twice once.
+    Every rank of the group must call it on the same names."""
+    import torch.distributed as dist
+
+    from fairness_llm_tpu_torch.runtime.weights import param_shapes
+
+    shapes = param_shapes(model_config)
+    shardings = param_shardings(model_config, MeshConfig(tp=layout.tp))
+    owners = _kv_owners(model_config, layout.tp)
+    D = model_config.head_dim
+    out = {}
+    for name, t in params.items():
+        t = t.detach()
+        cut = _global_columns(model_config, name, shapes[name], shardings.get(name, ()), layout)
+        if cut is None:
+            out[name] = t
+            continue
+        dim, cols = cut
+        keep = torch.ones(len(cols), dtype=torch.bool)
+        parts = name.split(".")
+        if len(parts) >= 3 and parts[-2] in ("k_proj", "v_proj") and not layout.kv_sharded:
+            seen = set()
+            for i, h in enumerate(layout.kv_heads):
+                mine = owners[h] == layout.rank and h not in seen
+                seen.add(h)
+                keep[i * D:(i + 1) * D] = mine
+        full = t.new_zeros(tuple(shapes[name]))
+        pos = torch.nonzero(keep)[:, 0].to(t.device)
+        full.index_copy_(dim, cols.to(t.device)[pos], t.index_select(dim, pos))
+        dist.all_reduce(full, group=group)
+        out[name] = full
+    return out
+
+
+def sum_kv_copy_grads(model_config: ModelConfig, params: Mapping[str, torch.Tensor],
+                      layout: TPLayout, group: Any = None) -> None:
+    """Where q heads shard and kv heads do not, each rank's k/v projection
+    (kernel and bias) holds copies of the kv heads its q heads read, and a
+    copy's gradient is only those q heads' share. Sum the shares over the
+    tp group by global kv head (``index_add`` into a zero-filled buffer of
+    the full kv width, an all-reduce, then the rank's columns back), so
+    every copy gets the whole gradient and the copies stay equal. Every
+    other parameter a tp rank holds whole (norms, ``pos_embedding``, the o
+    and down biases, all of attention where it replicates) already has its
+    whole gradient on every rank through the tp forward's collectives
+    (``ModelParallel.reduce`` and ``copy``): a sum over tp would multiply
+    it by tp."""
+    import torch.distributed as dist
+
+    if not layout.attn_sharded or layout.kv_sharded:
+        return
+    width = model_config.num_kv_heads * model_config.head_dim
+    for name, p in params.items():
+        parts = name.split(".")
+        if len(parts) < 3 or parts[-2] not in ("k_proj", "v_proj") or p.grad is None:
+            continue
+        g = p.grad
+        cols = _head_columns(layout.kv_heads, model_config.head_dim).to(g.device)
+        buf = g.new_zeros(*g.shape[:-1], width)
+        buf.index_add_(g.dim() - 1, cols, g)
+        dist.all_reduce(buf, group=group)
+        g.copy_(buf.index_select(g.dim() - 1, cols))
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron-LM's g: the forward sums over the tp group (into a fresh
+    tensor: autograd may hold the input), the backward passes the gradient
+    through, since every tp rank computes the same loss from the sum."""
+
+    @staticmethod
+    def forward(ctx, t, par):
+        return par.all_reduce(t.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron-LM's f: the forward is the identity, the backward sums the
+    gradient over the tp group (each rank's is only its own columns'
+    share). ``torch.distributed.nn.functional.all_reduce`` is not this: its
+    backward sums the gradient as well, which would count the loss tp
+    times."""
+
+    @staticmethod
+    def forward(ctx, t, par):
+        ctx.par = par
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.par.all_reduce(grad.clone()), None
 
 
 @dataclasses.dataclass
@@ -329,6 +471,22 @@ class ModelParallel:
             dist.all_reduce(t, group=self.tp_group)
         return t
 
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the tp group (g). Without autograd (the
+        serving paths) it is ``all_reduce`` itself, in place; under autograd
+        a fresh tensor whose gradient passes through."""
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _ReduceFromTP.apply(t, self)
+        return self.all_reduce(t)
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` at the input of a projection whose output the layout
+        shards (f): the identity, whose gradient is summed over the tp group
+        under autograd; without autograd ``t`` itself."""
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _CopyToTP.apply(t, self)
+        return t
+
 
 def model_parallel(model_config: ModelConfig, mesh: Optional[Any]) -> Optional[ModelParallel]:
     """The ``ModelParallel`` of this rank under ``mesh``, or None when
@@ -340,6 +498,31 @@ def model_parallel(model_config: ModelConfig, mesh: Optional[Any]) -> Optional[M
         tp_group=axis_group(mesh, "tp") if tp > 1 else None,
         layout=tp_layout(model_config, mesh) if tp > 1 else None,
         sp_group=axis_group(mesh, "sp") if sp > 1 else None)
+
+
+def replica_group(mesh: Any):
+    """The process group of the ranks that share this rank's tp coordinate
+    (its dp x sp plane), over which training sums its loss and gradients;
+    None for the default group when tp has one rank. The first call on a
+    mesh makes one group for every tp coordinate (``dist.new_group`` is
+    collective: every rank calls it in the same order), so call it on every
+    rank; the mesh keeps the group, and later calls return it."""
+    import torch.distributed as dist
+
+    if axis_size(mesh, "tp") == 1:
+        return None
+    cached = getattr(mesh, "_fairness_replica_group", None)
+    if cached is not None:
+        return cached
+    ranks = mesh.mesh.movedim(list(mesh.mesh_dim_names).index("tp"), 0)
+    mine = axis_rank(mesh, "tp")
+    group = None
+    for t in range(ranks.shape[0]):
+        g = dist.new_group(ranks[t].flatten().tolist())
+        if t == mine:
+            group = g
+    mesh._fairness_replica_group = group
+    return group
 
 
 def batch_sharding(mesh: Optional[Any], batch: int) -> slice:

@@ -50,8 +50,8 @@ ranks, the speculation counters the sum, the finite flag the AND. Under
 gloo the gather goes through the CPU.
 
 Tensor parallelism (a mesh with tp > 1): each rank holds its shard of the
-parameters (``parallel.shard_params`` by the rules, then
-``local_params``) and its model runs over its local heads, MLP columns
+parameters (``parallel.sharding.rank_params`` by the rules, the cut the
+tp train state takes too) and its model runs over its local heads, MLP columns
 and vocabulary rows with explicit all-reduces over the tp group
 (``models/transformer.py``); its KV cache holds its local kv heads. The
 ranks of a tp group decode the same rows and see the same full-vocabulary
@@ -103,12 +103,12 @@ from fairness_llm_tpu_torch.parallel.sharding import (
     axis_size,
     batch_sharding,
     gather_rows,
-    local_params,
     make_mesh,
     mesh_shape,
     model_parallel,
     param_shardings,
     per_device_param_bytes,
+    rank_params,
     shard_params,
 )
 from fairness_llm_tpu_torch.resilience.watchdog import first_use
@@ -242,11 +242,12 @@ class DecodeEngine:
             params = init_params(model_config, seed, self.device, dtype)
         par = model_parallel(model_config, mesh)
         if mesh is not None:
-            # dp and sp replicate the parameters; tp cuts each to its shard
-            params = shard_params(params, param_shardings(model_config, mesh), self.device,
-                                  mesh=mesh)
+            # dp and sp replicate the parameters; tp cuts each to the rank's part
             if par is not None and par.layout is not None:
-                params = local_params(model_config, params, par.layout)
+                params = rank_params(model_config, params, par.layout, self.device)
+            else:
+                params = shard_params(params, param_shardings(model_config, mesh), self.device,
+                                      mesh=mesh)
             logger.info("%s on mesh %s: ~%.2f GB params per device", model_config.name,
                         mesh_shape(mesh), per_device_param_bytes(
                             model_config, mesh, itemsize=torch.finfo(dtype).bits // 8) / 1e9)

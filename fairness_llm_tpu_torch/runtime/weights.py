@@ -137,7 +137,7 @@ def build_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
     parameters are stored in ``dtype``, int8 kernels and their f32 scales
     keep their dtypes. No other copy is made. ``par`` (a
     ``parallel.sharding.ModelParallel``) with a tp layout builds the rank's
-    model: ``params`` are then ``parallel.sharding.local_params``'s, at the
+    model: ``params`` are then ``parallel.sharding.rank_params``', at the
     layout's widths."""
     if par is not None and par.layout is not None:
         cfg = par.layout.local_config(cfg)

@@ -1,10 +1,17 @@
 """Train-state checkpoints with a verified restore (counterpart of
 ``fairness_llm_tpu/train/checkpoint.py``).
 
-The reference saves through orbax; the port through ``torch.save``: step
-``s`` is ``<dir>/<s>/train_state.pt`` holding the model's state dict, the
-optimizer's (its moments and step counts) and the step. Each saved step
-gets a sha256 manifest written outside its directory,
+The reference saves through orbax, whose checkpoint holds global arrays
+that a restore places onto the template's sharding; the port keeps those
+semantics through ``torch.save``: step ``s`` is
+``<dir>/<s>/train_state.pt`` holding the full model tensors by name, the
+optimizer's state with its per-parameter entries by parameter name (the
+AdamW moments full, the step counts as they are) and the step. At tp > 1
+every rank gathers the full tensors over its tp group
+(``TrainState.gather``), rank 0 of the world writes them and all ranks
+meet at a barrier; a restore cuts each rank's part from the file
+(``TrainState.cut``), so a state saved at one tp restores at another.
+Each saved step gets a sha256 manifest written outside its directory,
 ``<dir>/manifest_<s>.json`` (``integrity/manifest.write_manifest``), as the
 reference keeps its manifests outside orbax's step directories. The three
 newest steps are kept (orbax's ``max_to_keep=3`` there); an evicted step's
@@ -16,7 +23,9 @@ skipped with a warning for the next older one, and None comes back when no
 step restores: resuming a corrupt train state is worse than losing a few
 steps. A restored state is loaded into ``template`` (a freshly built
 state, which supplies the model and the optimizer) only after its file
-loaded whole and its tensors matched the template's names and shapes.
+loaded whole, its tensors matched the template's names and full shapes,
+and its optimizer state held an entry for every parameter name or none
+(a file whose entries are keyed by index is refused, not half restored).
 """
 
 from __future__ import annotations
@@ -53,18 +62,70 @@ def _steps(directory: str) -> List[int]:
                   if d.isdigit() and os.path.isdir(os.path.join(root, d)))
 
 
+def _param_names(state: TrainState) -> List[str]:
+    """The parameter names in the optimizer's order (the indices of its
+    state dict)."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.optimizer.param_groups for p in g["params"]]
+
+
+def _is_moment(v, shape) -> bool:
+    return isinstance(v, torch.Tensor) and tuple(v.shape) == tuple(shape)
+
+
+def global_state(state: TrainState) -> dict:
+    """What a checkpoint holds of ``state``: ``params``, the full tensors by
+    name; ``opt_state``, the optimizer's per-parameter entries by name (a
+    tensor of its parameter's shape gathered full) and its groups'
+    settings; ``step``. At tp > 1 a collective over the tp group: every
+    rank calls it."""
+    params = state.model.state_dict()
+    opt = state.optimizer.state_dict()
+    order = _param_names(state)
+    per = {order[i]: dict(st) for i, st in opt["state"].items()}
+    keys = sorted({k for n, st in per.items() for k, v in st.items()
+                   if _is_moment(v, params[n].shape)})
+    for key in keys:
+        full = state.gather({n: st[key] for n, st in per.items()
+                             if _is_moment(st.get(key), params[n].shape)})
+        for n, t in full.items():
+            per[n][key] = t.cpu()
+    groups = [{k: v for k, v in g.items() if k != "params"} for g in opt["param_groups"]]
+    return {"params": {n: t.cpu() for n, t in state.gather(params).items()},
+            "opt_state": {"state": per, "param_groups": groups}, "step": int(state.step)}
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def save_train_state(directory: str, state: TrainState, step: Optional[int] = None) -> None:
     """Save ``state`` as step ``step`` (default ``state.step``), write its
     manifest, and drop the steps (and manifests) past the newest
-    ``MAX_TO_KEEP``."""
+    ``MAX_TO_KEEP``. Under a process group every rank calls it: the full
+    tensors are gathered, rank 0 writes, and the ranks meet at a barrier."""
+    blob = global_state(state)
+    if _rank() == 0:
+        _write(directory, blob, int(state.step) if step is None else int(step))
+    _barrier()
+
+
+def _write(directory: str, blob: dict, step: int) -> None:
     root = os.path.abspath(directory)
-    step = int(state.step) if step is None else int(step)
     step_dir = os.path.join(root, str(step))
     tmp = step_dir + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save({"params": state.model.state_dict(), "opt_state": state.optimizer.state_dict(),
-                "step": int(state.step)}, os.path.join(tmp, STATE_FILE))
+    torch.save(blob, os.path.join(tmp, STATE_FILE))
     shutil.rmtree(step_dir, ignore_errors=True)
     os.replace(tmp, step_dir)
     write_manifest(step_dir, path=_manifest_path(directory, step))
@@ -87,12 +148,35 @@ def save_train_state(directory: str, state: TrainState, step: Optional[int] = No
 
 
 def _load_into(path: str, template: TrainState) -> TrainState:
+    """Load the file's full tensors into ``template``, each rank's part cut
+    from them."""
+    from fairness_llm_tpu_torch.runtime.weights import param_shapes
+
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    params, want = blob["params"], template.model.state_dict()
-    if set(params) != set(want) or any(params[k].shape != want[k].shape for k in want):
+    params = blob["params"]
+    want = param_shapes(template.config or template.model.config)
+    if set(params) != set(want) or any(tuple(params[k].shape) != tuple(want[k]) for k in want):
         raise ValueError(f"{path}: tensors do not match the template's model")
-    template.model.load_state_dict(params)
-    template.optimizer.load_state_dict(blob["opt_state"])
+    template.model.load_state_dict(template.cut(params))
+    opt = template.optimizer.state_dict()
+    saved = blob["opt_state"]
+    if len(saved["param_groups"]) != len(opt["param_groups"]):
+        raise ValueError(f"{path}: optimizer groups do not match the template's")
+    names = _param_names(template)
+    if saved["state"] and set(saved["state"]) != set(names):
+        # keyed otherwise (by index, as files from before the tp format), or
+        # with entries for some parameters only: a partial restore is no restore
+        raise ValueError(f"{path}: optimizer state is not keyed by the template's "
+                         "parameter names, one entry each")
+    state = {}
+    for i, name in enumerate(names):
+        st = saved["state"].get(name)
+        if st is None:
+            continue
+        state[i] = {k: (template.cut({name: v})[name] if _is_moment(v, params[name].shape)
+                        else v) for k, v in st.items()}
+    groups = [dict(g, **s) for g, s in zip(opt["param_groups"], saved["param_groups"])]
+    template.optimizer.load_state_dict({"state": state, "param_groups": groups})
     template.step = int(blob["step"])
     return template
 
@@ -101,7 +185,8 @@ def restore_train_state(directory: str, template: TrainState,
                         step: Optional[int] = None) -> Optional[TrainState]:
     """Restore the newest (or the given) step into ``template``, falling
     back past a step that fails its manifest or its load; None when no step
-    restores."""
+    restores. At tp > 1 every rank restores its own part from the same
+    file."""
     candidates = [step] if step is not None else sorted(_steps(directory), reverse=True)
     for s in candidates:
         step_dir = os.path.join(os.path.abspath(directory), str(s))

@@ -24,8 +24,23 @@ step updates them in place.
   sequence, padded up to an sp multiple as the reference pads it, and the
   loss and the gradients are summed over (dp, sp) as the reference's
   ``step.py:178-237`` does.
-- tp > 1 raises ``NotImplementedError``: the tensor-parallel forward's
-  all-reduces are not autograd functions yet (ROADMAP, "What is left").
+- tp (``make_train_step`` on a mesh with tp > 1): the parameters, and so
+  their gradients and AdamW moments (Adam is elementwise), are cut by the
+  decode path's rules, as the reference's ``make_train_step`` shards them:
+  each rank holds ``parallel.sharding.rank_params`` of the full ones and
+  builds its model at ``TPLayout.local_config`` over its ``ModelParallel``,
+  as the engine does for tp decoding. The forward's tp sums are autograd
+  functions (``ModelParallel.reduce`` and ``copy``), so every tp rank
+  computes the same loss and holds the whole gradient of what it holds,
+  but for a kv head that several ranks hold, whose shares
+  ``sharding.sum_kv_copy_grads`` sums. The loss and the gradients are then
+  summed over the rank's dp x sp plane (``sharding.replica_group``), not
+  over the world, which would add different shards together. With sp the
+  ring runs over each rank's local heads. ``TrainState.global_params``
+  gathers the full parameters back.
+- ``make_sequence_parallel_train_step`` on a mesh with tp > 1 does what the
+  reference's ``shard_map`` does there: the parameters stay whole on every
+  rank, the tp ranks compute the same step, and the sums run over (dp, sp).
 - int8 weights are refused as the reference refuses them: train in float
   and quantize after.
 
@@ -51,6 +66,11 @@ from fairness_llm_tpu_torch.parallel.sharding import (
     axis_rank,
     axis_size,
     batch_sharding,
+    gather_params,
+    model_parallel,
+    rank_params,
+    replica_group,
+    sum_kv_copy_grads,
 )
 from fairness_llm_tpu_torch.runtime.weights import build_model, init_params
 
@@ -66,14 +86,48 @@ def default_optimizer(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optim
 
 @dataclasses.dataclass
 class TrainState:
+    """The model (its parameters are the state's), the optimizer (its
+    moments) and the step count; ``config`` is the full model's config and
+    ``par`` the rank's ``ModelParallel`` (None in one process), whose tp
+    layout says which part of each full tensor the rank holds."""
+
     model: Transformer
     optimizer: torch.optim.Optimizer
     step: int = 0
+    config: Optional[ModelConfig] = None
+    par: Optional[ModelParallel] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        """The parameters by the port's names (``runtime/weights``)."""
+        """The parameters by the port's names (``runtime/weights``): at tp
+        > 1 the rank's own tensors."""
         return dict(self.model.named_parameters())
+
+    @property
+    def layout(self):
+        """The rank's ``TPLayout``, or None without tp."""
+        return None if self.par is None else self.par.layout
+
+    def gather(self, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The full tensors of ``tensors`` (the rank's parameters, or
+        tensors of their shapes by the same names): gathered over the tp
+        group (``sharding.gather_params``; every tp rank must call it), or
+        the tensors themselves, detached, at tp = 1."""
+        if self.layout is None:
+            return {k: v.detach() for k, v in tensors.items()}
+        return gather_params(self.config, tensors, self.layout, self.par.tp_group)
+
+    def cut(self, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``gather``'s inverse: the rank's part of full tensors, on the
+        model's device."""
+        dev = next(self.model.parameters()).device
+        if self.layout is None:
+            return {k: v.to(dev) for k, v in tensors.items()}
+        return rank_params(self.config, tensors, self.layout, dev)
+
+    def global_params(self) -> Dict[str, torch.Tensor]:
+        """The full parameters (``gather`` of ``params``)."""
+        return self.gather(self.params)
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,
@@ -88,39 +142,44 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch
     return -torch.where(valid, picked, torch.zeros_like(picked)).sum() / count
 
 
-def _refuse(model_config: ModelConfig, mesh: Optional[Any]) -> None:
+def _refuse(model_config: ModelConfig) -> None:
     if model_config.weight_quant != "none":
         raise ValueError(f"weight_quant={model_config.weight_quant!r} is serving-only; "
                          "train in float and quantize the result")
-    if axis_size(mesh, "tp") > 1:
-        raise NotImplementedError(
-            "training at tp > 1 is not ported: the tensor-parallel forward's all-reduces "
-            "need autograd-aware collectives (ROADMAP, 'What is left')")
 
 
 def _build_step(model_config: ModelConfig, optimizer: Optional[OptimizerFactory],
-                mesh: Optional[Any], remat: bool, ring: bool,
+                mesh: Optional[Any], remat: bool, ring: bool, shard_tp: bool,
                 device: Optional[Union[str, torch.device]]):
-    _refuse(model_config, mesh)
+    _refuse(model_config)
     dev = resolve_device(device)
     make_opt = optimizer or default_optimizer
     cfg = dataclasses.replace(model_config, attention_impl="ring") if ring else model_config
     dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
-    world = dp * sp
-    par = ModelParallel(sp_group=axis_group(mesh, "sp")) if sp > 1 else None
+    replicas = dp * sp
+    if shard_tp:
+        par = model_parallel(model_config, mesh)
+    else:
+        par = ModelParallel(sp_group=axis_group(mesh, "sp")) if sp > 1 else None
+    layout = None if par is None else par.layout
+    group = replica_group(mesh) if replicas > 1 else None
 
     def init_state(seed: int = 0, params: Optional[Mapping[str, torch.Tensor]] = None,
                    param_dtype: torch.dtype = torch.float32) -> TrainState:
-        """A fresh state: ``params`` (a state dict, copied) or random ones
-        from ``seed``, stored in ``param_dtype`` (float32 by default, as the
-        reference's flax parameters)."""
+        """A fresh state: ``params`` (the full model's state dict, copied)
+        or random ones from ``seed``, stored in ``param_dtype`` (float32 by
+        default, as the reference's flax parameters); at tp > 1 the rank
+        keeps its part (``rank_params``)."""
         if params is None:
             params = init_params(model_config, seed, dev, param_dtype)
+        if layout is not None:
+            params = rank_params(model_config, params, layout, dev)
         params = {k: v.detach().to(device=dev, dtype=param_dtype).clone()
                   for k, v in params.items()}
         model = build_model(cfg, params, dev, param_dtype, par=par)
         model.requires_grad_(True)
-        return TrainState(model=model, optimizer=make_opt(model.parameters()), step=0)
+        return TrainState(model=model, optimizer=make_opt(model.parameters()), step=0,
+                          config=model_config, par=par)
 
     def forward(model, inputs, positions, avalid):
         def run(i, p, v):
@@ -158,13 +217,15 @@ def _build_step(model_config: ModelConfig, optimizer: Optional[OptimizerFactory]
         loss = cross_entropy_loss(logits, local[1], local[4], count=count)
         loss.backward()
         loss = loss.detach()
-        if world > 1:
+        if layout is not None:
+            sum_kv_copy_grads(model_config, state.params, layout, par.tp_group)
+        if replicas > 1:
             import torch.distributed as dist
 
             for p in state.model.parameters():
                 if p.grad is not None:
-                    dist.all_reduce(p.grad)
-            dist.all_reduce(loss)
+                    dist.all_reduce(p.grad, group=group)
+            dist.all_reduce(loss, group=group)
         state.optimizer.step()
         state.step += 1
         return state, loss
@@ -178,11 +239,11 @@ def make_train_step(model_config: ModelConfig, optimizer: Optional[OptimizerFact
     """Build ``(init_state, train_step)``: ``train_step(state, tokens,
     valid) -> (state, loss)``. ``optimizer`` makes the optimizer from the
     parameters (default AdamW as above). With a mesh (``parallel.
-    make_mesh`` over the ``torchrun`` world) the batch splits over dp and,
-    at sp > 1, the sequence over sp through the ring. ``device=None`` is
-    the card."""
+    make_mesh`` over the ``torchrun`` world) the batch splits over dp, at
+    sp > 1 the sequence over sp through the ring, and at tp > 1 the
+    parameters over tp. ``device=None`` is the card."""
     return _build_step(model_config, optimizer, mesh, remat,
-                       ring=axis_size(mesh, "sp") > 1, device=device)
+                       ring=axis_size(mesh, "sp") > 1, shard_tp=True, device=device)
 
 
 def train_loop(model_config: ModelConfig, batches: Iterable[Tuple[Any, Any]], num_steps: int,
@@ -208,7 +269,10 @@ def make_sequence_parallel_train_step(model_config: ModelConfig, mesh: Any,
                                       device: Optional[Union[str, torch.device]] = None):
     """The step with explicit sequence parallelism: attention through ring
     passes over the mesh's sp group, activations split over (dp, sp),
-    parameters replicated, the loss and the gradients summed over (dp, sp).
-    Returns ``(init_state, step)`` like ``make_train_step``; the batch must
-    divide dp, and the shifted sequence is padded up to an sp multiple."""
-    return _build_step(model_config, optimizer, mesh, remat=False, ring=True, device=device)
+    parameters replicated (whole on every rank, also where the mesh has a
+    tp axis, whose ranks then compute the same step), the loss and the
+    gradients summed over (dp, sp). Returns ``(init_state, step)`` like
+    ``make_train_step``; the batch must divide dp, and the shifted sequence
+    is padded up to an sp multiple."""
+    return _build_step(model_config, optimizer, mesh, remat=False, ring=True, shard_tp=False,
+                       device=device)

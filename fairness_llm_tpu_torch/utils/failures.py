@@ -130,8 +130,8 @@ class ScriptedFaultInjector:
 
     ``replica_crashes`` / ``replica_hangs`` script REPLICA-level faults for
     the reference's fleet router: keys are replica names, values the number
-    of health polls the replica survives before the fault fires once. The
-    port has no fleet yet (ROADMAP A5.4); the schedule is kept as data.
+    of health polls the replica survives before the fault fires once
+    (``maybe_replica_fault``, which ``serving/fleet.py`` calls).
 
     TIME-INDEXED schedule: ``faults_at`` / ``hangs_at`` / ``corruptions_at``
     (same key scheme, values in seconds) and ``replica_crashes_at`` /

@@ -217,6 +217,42 @@ def test_ring_and_training_at_work_leave_jax_out(tmp_path):
     assert res.returncode == 0, res.stderr
 
 
+# The data path's last two modules: the fetch and the native ratings parser
+# (its ctypes loader compiles the C source on first use).
+DATA_PATH = ["data/download.py", "native/__init__.py", "data/movielens.py"]
+
+
+def test_download_and_native_at_work_leave_jax_out(tmp_path):
+    """In a fresh interpreter: fetch a fabricated MovieLens archive through
+    a ``file://`` URL (no network), parse its ``ratings.dat`` natively and
+    through ``load_movielens``, and check that nothing of JAX or the JAX
+    package loaded."""
+    assert {str(p.relative_to(PKG)) for p in _port_sources() if PKG in p.parents} >= \
+        set(DATA_PATH)
+    code = (
+        "import sys, zipfile\n"
+        "from fairness_llm_tpu_torch import native\n"
+        "from fairness_llm_tpu_torch.data import download, movielens\n"
+        f"archive = {str(tmp_path / 'ml-1m.zip')!r}\n"
+        "rows = {'movies.dat': '1::A (1995)::Drama\\n', 'users.dat': '1::F::1::10::48067\\n',"
+        " 'ratings.dat': '1::1::5::978300760\\n'}\n"
+        "with zipfile.ZipFile(archive, 'w') as z:\n"
+        "    for t, row in rows.items():\n"
+        "        z.writestr('ml-1m/' + t, row * download.EXPECTED_ROWS[t])\n"
+        f"d = {str(tmp_path / 'data')!r}\n"
+        "assert download.fetch_ml1m(d, url='file://' + archive)\n"
+        "users, movies, values = native.parse_ratings(d + '/ratings.dat')\n"
+        "assert len(users) == 1_000_209 and float(values[0]) == 5.0\n"
+        "data = movielens.load_movielens(d, allow_synthetic=False)\n"
+        "assert data.num_ratings == 1_000_209 and data.source == 'real'\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {OUTSIDE!r})\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax(path):
     hits = FORBIDDEN.findall(path.read_text())

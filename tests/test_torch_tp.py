@@ -6,8 +6,8 @@ the port's tp ranks run as gloo processes on 127.0.0.1, two worlds spawned
 once for the module (``torch_tp_worker.py``, mode ``tp``): two ranks (tp=2:
 the engine, the serving grid, int8 weights, scoring, the cost ledger and
 the CLI) and eight (tp=8, where attention replicates, and dp=2 x tp=4,
-where kv heads replicate). Greedy f32 tokens must be equal; scores agree
-to 1e-5.
+where kv heads replicate, with one training step there against the plain
+step). Greedy f32 tokens must be equal; scores agree to 1e-5.
 """
 
 import dataclasses
@@ -57,6 +57,9 @@ import validate_telemetry as V  # noqa: E402
 
 # tests/test_torch_scoring.py's allowance against the reference.
 LL_RTOL = LL_ATOL = 1e-5
+# tests/test_ring_training.py's allowance for a parallel step against the
+# plain one (plain SGD): loss relative, parameters and gradients absolute.
+PLAIN_RTOL = PLAIN_ATOL = 2e-5
 GREEDY = ModelSettings(temperature=0.0, max_tokens=W.M)
 
 
@@ -189,6 +192,17 @@ def test_shard_params_needs_the_mesh_for_a_sharded_spec():
     with pytest.raises(ValueError, match="pass the mesh"):
         shd.shard_params({"embedding": torch.ones(512, 64)},
                          shd.param_shardings(cfg, MeshConfig(tp=2)), "cpu")
+
+
+def test_rank_params_refuses_a_tp_dimension_that_does_not_divide():
+    """The tp cut (the engine's and the train state's) checks that a sharded
+    dimension divides tp, as ``shard_params`` does."""
+    cfg = get_model_config("tiny-test")
+    layout = shd.tp_layout(cfg, MeshConfig(tp=2), 1)
+    part = shd.rank_params(cfg, {"embedding": torch.ones(cfg.vocab_size, 64)}, layout, "cpu")
+    assert part["embedding"].shape == (cfg.vocab_size // 2, 64)
+    with pytest.raises(ValueError, match="does not divide tp=2"):
+        shd.rank_params(cfg, {"embedding": torch.ones(cfg.vocab_size + 1, 64)}, layout, "cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -348,3 +362,30 @@ def test_mixed_layouts_equal_tp1(worlds, engines, baseline, name, local):
         np.testing.assert_array_equal(got["batch"], one)
         if name == "tp8":
             _assert_served(baseline, W.PROMPTS[:3], got["served"])
+
+
+def test_dp2tp4_train_step_equals_the_plain_step(worlds, engines):
+    """One plain-SGD training step on the reference's own test mesh (dp=2 x
+    tp=4, ``tests/conftest.py``'s ``eight_device_mesh``), kv heads held by
+    two ranks each: every rank's loss equals one process's step, and its
+    gradients and updated parameters its part of that step's."""
+    from fairness_llm_tpu_torch.train.step import make_train_step
+
+    cfg = get_model_config(W.MODEL)
+    init, step = make_train_step(cfg, optimizer=lambda ps: torch.optim.SGD(list(ps),
+                                                                             lr=W.TRAIN_LR),
+                                 device="cpu")
+    state, loss = step(init(params=engines[2]), *W.train_batch())
+    want = {k: (v.detach(), v.grad) for k, v in state.params.items()}
+    for r in range(8):
+        got = worlds[8][r]["train_dp2tp4"]
+        assert got["loss"] == pytest.approx(float(loss), rel=PLAIN_RTOL)
+        assert got["tp_rank"] == (4, r % 4)
+        layout = shd.tp_layout(cfg, MeshConfig(tp=4), r % 4)
+        part_p = shd.rank_params(cfg, {k: p for k, (p, _) in want.items()}, layout, "cpu")
+        part_g = shd.rank_params(cfg, {k: g for k, (_, g) in want.items()}, layout, "cpu")
+        for k in part_p:
+            np.testing.assert_allclose(got["grads"][k], part_g[k].numpy(), rtol=0,
+                                       atol=PLAIN_ATOL, err_msg=k)
+            np.testing.assert_allclose(got["params"][k], part_p[k].numpy(), rtol=0,
+                                       atol=PLAIN_ATOL, err_msg=k)

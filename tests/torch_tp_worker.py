@@ -11,10 +11,13 @@ and pickles what it got to ``<out_dir>/<mode>.rank<r>.pkl``:
 - ``tp``: tiny-test over a tp mesh (world 2: the engine, the serving grid,
   int8 weights, scoring, the cost ledger's collectives, the CLI's ``--tp 2``
   and ``--mesh tp=2``; world 8: tp=8, where attention replicates, and
-  dp=2 x tp=4, where kv heads replicate);
+  dp=2 x tp=4, where kv heads replicate, with one training step there);
 - ``ring``: ``ring_attention_sharded`` at sp=4 and at dp=2 x sp=2, scoring
   and the engine over the same meshes;
-- ``train``: the (dp=2, sp=2) sequence-parallel step and the dp=4 step.
+- ``train``: the (dp=2, sp=2) sequence-parallel step and the dp=4 step;
+  the tp steps of ``TP_TRAIN``; checkpoints saved and restored at
+  (dp=2, tp=2), the fallback past a flipped byte there, and the restore of
+  a tp=1 checkpoint the test process saved (``ckpt_tp1``).
 
 The inputs are made here from numpy seeds (the weights from the file the
 test process saved), so the test process rebuilds the same ones for the
@@ -151,6 +154,7 @@ def _tp(out: pathlib.Path, rank: int, world: int) -> dict:
     from fairness_llm_tpu_torch.telemetry import snapshot, use_registry
     from fairness_llm_tpu_torch.telemetry.costmodel import check_costmodel
     from fairness_llm_tpu_torch.telemetry.timeline import set_attribution, use_timeline
+    from fairness_llm_tpu_torch.train.step import make_train_step
 
     cfg = get_model_config(MODEL)
     params = torch.load(out / "params.pt")
@@ -164,6 +168,15 @@ def _tp(out: pathlib.Path, rank: int, world: int) -> dict:
                                    eng.model.config.d_ff, eng.model.config.vocab_size)}
             if name == "tp8":
                 res[name]["served"] = serve(eng, 8, prompts=PROMPTS[:3])[0]
+        # one plain-SGD training step on the reference's own test mesh
+        init, step = make_train_step(
+            cfg, optimizer=lambda ps: torch.optim.SGD(list(ps), lr=TRAIN_LR),
+            mesh=make_mesh(MeshConfig(dp=2, tp=4)), device="cpu")
+        state, loss = step(init(params=params), *train_batch())
+        res["train_dp2tp4"] = {
+            "loss": float(loss), "tp_rank": (state.layout.tp, state.layout.rank),
+            "params": {k: v.detach().numpy().copy() for k, v in state.params.items()},
+            "grads": {k: v.grad.numpy().copy() for k, v in state.params.items()}}
         return res
     mesh = make_mesh(MeshConfig(tp=2))
     eng = DecodeEngine(cfg, params=params, device="cpu", mesh=mesh)
@@ -228,12 +241,54 @@ def _ring(out: pathlib.Path, rank: int, world: int) -> dict:
     return res
 
 
+# The tp training meshes of the four-rank world: (name, step kind, axes).
+# make_train_step at tp=4 (q heads shard, kv heads replicate: each kv head's
+# gradient is summed over the ranks that hold it), dp=2 x tp=2 and tp=2 x
+# sp=2 (the ring over each rank's local heads); the sequence-parallel step
+# at tp=2 x sp=2 (parameters whole, the tp ranks computing the same step).
+# ``twice`` is tiny-test with 6 q heads over 3 kv heads at dp=2 x tp=2: kv
+# heads replicate and rank 0's q heads 0-2 read kv heads (0, 0, 1), so it
+# holds kv head 0 twice.
+TP_TRAIN = [("tp4", "step", dict(tp=4)), ("dp2tp2", "step", dict(dp=2, tp=2)),
+            ("tp2sp2", "step", dict(tp=2, sp=2)), ("sp_tp2sp2", "sp", dict(tp=2, sp=2)),
+            ("twice", "step", dict(dp=2, tp=2))]
+
+
+def train_config(name: str):
+    """The model of a ``TP_TRAIN`` entry."""
+    import dataclasses
+
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+
+    cfg = get_model_config(MODEL)
+    if name == "twice":
+        cfg = dataclasses.replace(cfg, num_heads=6, num_kv_heads=3)
+    return cfg
+
+
+def _arrays(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _arrays(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    return tree
+
+
 def _train(out: pathlib.Path, rank: int, world: int) -> dict:
     import torch
+    import torch.distributed as dist
 
     from fairness_llm_tpu_torch.config import MeshConfig
     from fairness_llm_tpu_torch.models.configs import get_model_config
     from fairness_llm_tpu_torch.parallel.sharding import make_mesh
+    from fairness_llm_tpu_torch.runtime.weights import init_params
+    from fairness_llm_tpu_torch.train.checkpoint import (
+        global_state,
+        restore_train_state,
+        save_train_state,
+    )
     from fairness_llm_tpu_torch.train.step import (
         make_sequence_parallel_train_step,
         make_train_step,
@@ -246,28 +301,70 @@ def _train(out: pathlib.Path, rank: int, world: int) -> dict:
     def sgd(ps):
         return torch.optim.SGD(list(ps), lr=TRAIN_LR)
 
+    def build(kind, mesh, opt=None, model=cfg):
+        if kind == "step":
+            return make_train_step(model, optimizer=opt, mesh=mesh, device="cpu")
+        return make_sequence_parallel_train_step(model, mesh, optimizer=opt, device="cpu")
+
+    def four_steps(init, step, start=params):
+        state, losses = init(params=start), []
+        for _ in range(4):
+            state, loss = step(state, tokens, valid)
+            losses.append(float(loss))
+        return state, losses
+
     res: dict = {}
-    for name, build, axes in (
-            ("sp", make_sequence_parallel_train_step, dict(dp=2, sp=2)),
-            ("dp", make_train_step, dict(dp=4))):
+    for name, kind, axes in (("sp", "sp", dict(dp=2, sp=2)), ("dp", "step", dict(dp=4))):
         mesh = make_mesh(MeshConfig(**axes))
         for opt_name, opt in (("sgd", sgd), ("adamw", None)):
-            init, step = build(cfg, optimizer=opt, mesh=mesh, device="cpu") \
-                if build is make_train_step else build(cfg, mesh, optimizer=opt, device="cpu")
+            init, step = build(kind, mesh, opt)
             state = init(params=params)
             state, loss = step(state, tokens, valid)
             res[(name, opt_name)] = {
                 "loss": float(loss), "step": state.step,
                 "params": {k: v.detach().numpy().copy() for k, v in state.params.items()},
                 "grads": {k: v.grad.numpy().copy() for k, v in state.params.items()}}
-        init, step = build(cfg, mesh=mesh, device="cpu") if build is make_train_step \
-            else build(cfg, mesh, device="cpu")
-        state, losses = init(params=params), []
-        for _ in range(4):
-            state, loss = step(state, tokens, valid)
-            losses.append(float(loss))
+        res[(name, "losses")] = four_steps(*build(kind, mesh))[1]
+    for name, kind, axes in TP_TRAIN:
+        mesh = make_mesh(MeshConfig(**axes))
+        model = train_config(name)
+        start = params if model == cfg else init_params(model, 0, torch.device("cpu"))
+        init, step = build(kind, mesh, sgd, model)
+        state, loss = step(init(params=start), tokens, valid)
+        lay = state.layout
+        res[(name, "sgd")] = {
+            "loss": float(loss), "step": state.step,
+            "tp_rank": None if lay is None else (lay.tp, lay.rank),
+            "params": {k: v.detach().numpy().copy() for k, v in state.params.items()},
+            "grads": {k: v.grad.numpy().copy() for k, v in state.params.items()},
+            "global": _arrays(state.global_params())}
+        init, step = build(kind, mesh, model=model)
+        state, losses = four_steps(init, step, start)
         res[(name, "losses")] = losses
+        if name != "dp2tp2":
+            continue
+        # checkpoints at tp=2: the AdamW state after four steps
+        save_train_state(str(out / "ckpt_tp2"), state)
+        res["ckpt_saved"] = _arrays(global_state(state))
+        back = restore_train_state(str(out / "ckpt_tp2"), init(seed=9))
+        res["ckpt_tp2_at_tp2"] = None if back is None else _arrays(global_state(back))
+        save_train_state(str(out / "ckpt_flip"), state)
+        state, _ = step(state, tokens, valid)
+        save_train_state(str(out / "ckpt_flip"), state)
+        if rank == 0:
+            flip_byte(out / "ckpt_flip" / "5" / "train_state.pt")
+        dist.barrier()
+        back = restore_train_state(str(out / "ckpt_flip"), init(seed=9))
+        res["ckpt_flip_at_tp2"] = None if back is None else _arrays(global_state(back))
+        back = restore_train_state(str(out / "ckpt_tp1"), init(seed=9))
+        res["ckpt_tp1_at_tp2"] = None if back is None else _arrays(global_state(back))
     return res
+
+
+def flip_byte(path: pathlib.Path) -> None:
+    data = bytearray(path.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    path.write_bytes(bytes(data))
 
 
 def run_rank(out: pathlib.Path, mode: str) -> None:
