@@ -5,6 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --phase 33`` builds the kernels and runs phase 33
+alone.)
+
 It builds the port's hand-written CUDA kernels from ``ops/csrc/`` with
 ``nvcc`` (sm_90a), drives the port's phase-1 serving path through
 ``EngineBackend.generate`` at the full width and depth of llama3-8b (32
@@ -60,7 +63,10 @@ path's launch counts are set to 0 just before it and read just after:
      held elementwise to 4e-3 + 1e-2 * |plain| (bf16), with timings, the
      least time the card could take and the achieved TFLOP/s; the kernel
      on a blinded input (one key masked out; for K3 every q_offset lowered
-     by one, so each query loses its own slot) must fail that tolerance;
+     by one, so each query loses its own slot) must fail that tolerance
+     (where a decode row's recorded scores are so flat that one key moves
+     no output past it, as at gpt2-small's random weights, the row is held
+     again with q scaled by 6, and the blind check made there too);
      the wrapper's host microseconds a call; K2 and K2q also at the study's
      batch of 48 (held to the same tolerance and blind check; times
      reported, not gated);
@@ -425,8 +431,9 @@ path's launch counts are set to 0 just before it and read just after:
      tp=2 mesh (each rank 2 q heads, 1 kv head, half the MLP and the
      vocabulary; only K1's and K2's f32 kernels) must equal phase 20's
      single-process card record (a row may part only at a near tie); then
-     phase 21's llama3-8b int8 sweep at one profile a combination (16
-     prompts) served with ``ServingConfig(tp=2)``
+     phase 21's llama3-8b int8 sweep at full width cut to 8 of its 32
+     layers (``TP_LAYERS``), at one profile a combination (16
+     prompts), served with ``ServingConfig(tp=2)``
      over the tp mesh (``--continuous --tp 2``; each rank 16 q and 4 kv
      heads, d_ff 7,168 and 64,128 vocabulary rows): labelled
      ``serve_step@tp2``, K1, K2 and both K4 regimes on their tensor-core
@@ -480,6 +487,41 @@ path's launch counts are set to 0 just before it and read just after:
      ``decode_attention_verify_f32`` entry's main path (its launches and
      shapes); phase 13's calls at llama3-8b's width are its
      ``gate_launches`` and ``gate_shapes``.
+  the reference's other model families, after phase 32 (random weights
+  from seed 0, byte tokenizer, full width and depth): mistral-7b (sliding
+  window 4,096), gemma-7b (head width 256, one q head a kv head, GeGLU,
+  embed_scale, a tied 256,000-row head in bf16) and qwen2-7b (q/k/v
+  biases, seven q heads a kv head), each with int8 weights, and
+  gpt2-small in bf16:
+ 33. (a) each one's phase-1 sweep through ``backend_for`` and
+     ``run_phase1`` (45 profiles and 3 neutral prompts, t=0.7,
+     ``MAX_TOKENS`` new tokens, the sweep-wide shared prefix), the record
+     checked and read back: K1 on flash_fwd_tc, K2 on decode_split_tc (none
+     under mistral's window: the cached steps take the dense window path,
+     as in the reference), K4's both regimes (none for gpt2-small) must
+     launch, no float32 kernel; wall, engine init, decode ms/step, peak
+     memory and launches logged (``families_phase1`` lines). (b)
+     ``run_phase2`` over the three int8 families in one call with (a)'s
+     backends kept alive: three ``model_results``, the cross-model
+     comparison, ``models_evaluated_total`` 3, a scoring forward
+     (``families_phase2``). (c) Each family at full width and 4 layers: the
+     teacher-forced check of phase 9 in bf16 (reported) and over the same
+     weights in float32 (``float32_twin``) held to 1e-3 of the logits'
+     scale; gemma's tied bf16 head through phase 3's head-product check
+     (``families_f32_gates``, ``head_product_gemma-7b``). (d) mistral-7b at
+     full width and 2 layers: one row of 4,608 tokens prefilled (K1's
+     window masks keys of the last 512 query rows a layer) and 16 cached
+     steps through the dense window path, against the plain-version path
+     (bf16 reported; float32 held to 1e-3 of scale), K1's windowed calls
+     held against their plain version (``families_window``). (e) K3
+     (decode_verify_tc) at kernel level at each sweep's first decode step,
+     q widened to a verify window of 9 rows a row. Every kernel call of
+     (a) and (b), and (d)'s K1 calls, at a shape no earlier phase held is
+     held against its plain version with phase 6's tolerance and blind
+     check ((c) and (d) gate the logits); the entries gain
+     ``families_launches`` (``families_<model>``, ``families_phase2``,
+     ``families_window_bf16``, ``families_window_f32``) and
+     ``families_shapes``.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Every attention row carries ``floor_ms``,
@@ -548,14 +590,20 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # Kernel against plain version on bf16 inputs: |got - want| <= ATOL + RTOL *
 # |want| elementwise. Both sum in float32 and round the output to bf16 once,
 # so they differ by summation order and at most one ulp (2^-7 of the value);
-# K1 also rounds its softmax weights P to bf16 before P.V (each moves by at
-# most 2^-9 of the row's largest weight, which is 1).
+# K2 and K3 also round their softmax weights P to bf16 before P.V (each
+# moves by at most 2^-9 of the row's largest weight, which is 1); K1 carries
+# P in two bf16 terms (ROADMAP C8).
 ATOL, RTOL = 4e-3, 1e-2
 # Kernel against plain version on float32 inputs (K1's flash_fwd, K2's
 # decode_split_f32, K3's verify_split_f32; no TF32 on either side): they
 # differ in summation order only, and are held to the float32 allowance of
 # tests/test_torch_cuda.py.
 ATOL_F32, RTOL_F32 = 1e-4, 0.0
+# Where one key moves no decode-attention output past the allowance at the
+# recorded input (flat scores), the row is held again with q scaled by this
+# (``decode_numbers``): scores 6x as far apart, enough that one key of ~800
+# moves some output past the allowance, not so far that one key takes all.
+BLIND_Q_SCALE = 6.0
 # K4 on float32 x (two TF32 passes) against its plain version, as
 # tests/test_torch_cuda.py holds it: 1e-4 + 3e-5 * |plain| (sums over K up
 # to 14,336 in another order, x_lo rounded to TF32).
@@ -942,23 +990,41 @@ def decode_numbers(call, torch, F):
     P = 0 if shared is None else shared[0].shape[0]
     f32 = q.dtype == torch.float32
     run = lambda **over: dm.decode_attention(q, k, v, valid, **{**kw, **over})  # noqa: E731
-    got = run()
-    want = dm.decode_attention_reference(q, k, v, valid, **kw)
-    err, ratio = gate(got, want, f32)
+
+    def hold(qq):
+        """(kernel, plain, max error, error over tolerance, the blinded
+        kernel's error over tolerance) at query ``qq``."""
+        got = dm.decode_attention(qq, k, v, valid, **kw)
+        want = dm.decode_attention_reference(qq, k, v, valid, **kw)
+        err, ratio = gate(got, want, f32)
+        if multi:
+            # Every q_offset lowered by one: each query loses its own slot.
+            blind = dm.decode_attention(qq, k, v, valid, **{**kw, "q_offsets": offs - 1})
+        else:
+            # Each row's newest valid slot (the token just written) masked out.
+            slots = torch.arange(L, device=q.device)
+            newest = torch.where(valid.bool(), slots, -1).amax(1)
+            dropped = valid.clone()
+            dropped[torch.arange(B, device=q.device), newest] = False
+            blind = dm.decode_attention(qq, k, v, dropped, **kw)
+        return got, want, err, ratio, gate(blind, want, f32)[1]
+
+    got, want, err, ratio, blind_ratio = hold(q)
     # The float32 verify window's splits are folded in a fixed order: two
     # more calls must equal the first bit for bit.
     repeats = all(torch.equal(run(), got) for _ in range(2)) if f32 and multi else None
-    if multi:
-        # Every q_offset lowered by one: each query loses its own slot.
-        _, blind_ratio = gate(run(q_offsets=offs - 1), want, f32)
-    else:
-        # Each row's newest valid slot (the token just written) masked out.
-        slots = torch.arange(L, device=q.device)
-        newest = torch.where(valid.bool(), slots, -1).amax(1)
-        dropped = valid.clone()
-        dropped[torch.arange(B, device=q.device), newest] = False
-        _, blind_ratio = gate(dm.decode_attention(q, k, v, dropped, **kw), want, f32)
     del got, want
+    sharpened = None
+    if blind_ratio <= 1:
+        # Scores so flat (random weights of a small scale: gpt2-small's)
+        # that one key moves no output past the allowance: the gate is
+        # blind at this input. The kernel is held again on the same shapes,
+        # cache and mask with q scaled by BLIND_Q_SCALE, which sharpens the
+        # softmax; there it must agree with its plain version, and the
+        # blinded call must fail the allowance.
+        _, _, s_err, s_ratio, s_blind = hold(q * BLIND_Q_SCALE)
+        sharpened = {"q_scale": BLIND_Q_SCALE, "max_abs_err": s_err, "err_over_tol": s_ratio,
+                     "blind_gate_err_over_tol": s_blind}
     iters = 200
     ms = cuda_ms(run, iters)
     wrapper_host_us = host_us(run)
@@ -1008,8 +1074,10 @@ def decode_numbers(call, torch, F):
         "splits": decode_plan(dm, q, k, P, multi, torch), "floor_ms": launch_floor_ms(torch),
         "tol": tolerance(f32),
         "calls": call["n"], "max_abs_err": err, "err_over_tol": ratio,
-        "ok": ratio <= 1 and repeats is not False, "repeats_equal": repeats,
-        "blind_gate_err_over_tol": blind_ratio,
+        "ok": (ratio <= 1 and repeats is not False
+               and (sharpened is None or sharpened["err_over_tol"] <= 1)),
+        "repeats_equal": repeats, "blind_gate_err_over_tol": blind_ratio,
+        "sharpened": sharpened,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "host_us": wrapper_host_us,
         "library_call": "F.scaled_dot_product_attention over [prefix; cache] with a boolean mask"
                         + (", k/v dequantized beforehand" if quant else ""),
@@ -1232,6 +1300,26 @@ def profiled_decode(backend, prompts, prefix, settings, torch, focus=()):
     }
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper (K1, K2/K3, K4 single and grouped) swapped for
+    its plain version inside the block."""
+    from fairness_llm_tpu_torch.ops import decode_attention as dm
+    from fairness_llm_tpu_torch.ops import flash_attention as fm
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+
+    kernels = (fm.flash_attention, dm.decode_attention, qm.quant_matmul, qm.quant_matmul_group)
+    fm.flash_attention = fm.flash_attention_reference
+    dm.decode_attention = dm.decode_attention_reference
+    qm.quant_matmul = qm.quant_matmul_reference
+    qm.quant_matmul_group = qm.quant_matmul_group_reference
+    try:
+        yield
+    finally:
+        (fm.flash_attention, dm.decode_attention, qm.quant_matmul,
+         qm.quant_matmul_group) = kernels
+
+
 def teacher_forced_check(engine, prompts, torch):
     """Logits of the kernel path against the same model with each kernel
     wrapper swapped for its plain version, on 4 prompts: the prefill (K1,
@@ -1239,9 +1327,6 @@ def teacher_forced_check(engine, prompts, torch):
     over an int8 cache, and K4's GEMV regime) fed the same tokens. The two differ only where a
     kernel's output rounds differently from its plain version's."""
     from fairness_llm_tpu_torch.models.tokenizer import _left_pad
-    from fairness_llm_tpu_torch.ops import decode_attention as dm
-    from fairness_llm_tpu_torch.ops import flash_attention as fm
-    from fairness_llm_tpu_torch.ops import quant_matmul as qm
     from fairness_llm_tpu_torch.runtime.stepbuilder import make_batch_entry
 
     tb = _left_pad([engine.tokenizer.encode(p) for p in prompts[:4]], engine.tokenizer.pad_id)
@@ -1265,16 +1350,8 @@ def teacher_forced_check(engine, prompts, torch):
         return torch.stack(out)
 
     got = run()
-    kernels = (fm.flash_attention, dm.decode_attention, qm.quant_matmul, qm.quant_matmul_group)
-    fm.flash_attention = fm.flash_attention_reference
-    dm.decode_attention = dm.decode_attention_reference
-    qm.quant_matmul = qm.quant_matmul_reference
-    qm.quant_matmul_group = qm.quant_matmul_group_reference
-    try:
+    with plain_kernels():
         want = run()
-    finally:
-        (fm.flash_attention, dm.decode_attention, qm.quant_matmul,
-         qm.quant_matmul_group) = kernels
     diff = float((got - want).abs().max())
     scale = float(want.abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
@@ -1292,9 +1369,13 @@ def check_rows(name: str, rows, blind: str) -> None:
                  f"tolerance {atol} + {rtol} * |plain|")
         if r.get("repeats_equal") is False:
             fail(f"{name} at {r['shape']}: repeated calls on one input differ")
-        if r["blind_gate_err_over_tol"] <= 1:
+        sharp = r.get("sharpened")
+        if r["blind_gate_err_over_tol"] <= 1 and (
+                sharp is None or sharp["blind_gate_err_over_tol"] <= 1):
             fail(f"{name} at {r['shape']}: {blind} stays within the tolerance "
-                 f"({r['blind_gate_err_over_tol']:.2f}x); the gate is blind")
+                 f"({r['blind_gate_err_over_tol']:.2f}x"
+                 + (f"; {sharp['blind_gate_err_over_tol']:.2f}x with q scaled by "
+                    f"{sharp['q_scale']}" if sharp else "") + "); the gate is blind")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, rows) -> dict:
@@ -1350,16 +1431,19 @@ def study_batch_rows(rec, mode: str, name: str, torch, F, batch: int = STUDY_BAT
     return rows
 
 
-def head_product_check(engine, torch) -> None:
+def head_product_check(engine, torch, label: str = "") -> dict:
     """The bf16 logits product (``transformer._logits``) on the model's
-    lm_head [4096, 128256] and x [16, 4096] from seed 0: it must write f32
-    within 1e-4 of the largest logit of the f32 product of the same bf16
-    operands, allocate no f32 copy of the head (peak allocation during the
-    call under 64 MB), and the bf16-rounded product it replaced must miss
-    that tolerance (the gate sees the rounding). Both products timed."""
+    head (its lm_head, e.g. [4096, 128256], or for a tied head the
+    embedding's transpose, a strided view) and x [16, d_model] from seed 0:
+    it must write f32 within 1e-4 of the largest logit of the f32 product
+    of the same bf16 operands, allocate no f32 copy of the head (peak
+    allocation during the call under 64 MB), and the bf16-rounded product
+    it replaced must miss that tolerance (the gate sees the rounding). Both
+    products timed; returns the row."""
     from fairness_llm_tpu_torch.models.transformer import _logits
 
-    head = engine.model.lm_head
+    model = engine.model
+    head = model.embedding.t() if model.config.tie_embeddings else model.lm_head
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(16, head.shape[0], generator=g, device="cuda").to(head.dtype)
     torch.cuda.synchronize()
@@ -1378,13 +1462,14 @@ def head_product_check(engine, torch) -> None:
            "ms": cuda_ms(lambda: _logits(x, head), 50),
            "rounded_ms": cuda_ms(lambda: (x @ head).float(), 50)}
     del want, rounded
-    log(f"head_product {json.dumps(row)}")
+    log(f"head_product{label} {json.dumps(row)}")
     if row["dtype"] != "float32" or row["max_abs_err"] > tol:
         fail(f"the bf16 logits product is not an f32 sum of the bf16 operands: {row}")
     if row["rounded_max_abs_err"] <= tol:
         fail(f"the head-product gate does not see bf16 rounding: {row}")
     if extra > 64 << 20:
         fail(f"the bf16 logits product allocated {extra} bytes (an f32 copy of the head?)")
+    return row
 
 
 def flash_recorder(flash_mod):
@@ -1801,6 +1886,7 @@ def teacher_forced_gate(engine, prompts, torch, label, vocab, f32=False):
         fail(f"{label}kernel-path logits malformed: {tf}")
     if f32 and tf["max_abs_logit_diff"] > 1e-3 * max(1.0, tf["max_abs_logit"]):
         fail(f"{label}kernel path disagrees with the plain-version path in float32: {tf}")
+    return tf
 
 
 def int8_path(torch, prompts, keys, greedy, sampled):
@@ -5944,6 +6030,11 @@ sys.exit(chip_smoke.tp_rank(pathlib.Path(sys.argv[2])))
 # float32 logit allowance).
 TP_LOGIT_PROMPTS = 4
 F32_LOGIT_TOL = 1e-3
+# Phase 31(a)'s served llama3-8b int8 sweep at tp=2 runs at full width with
+# this many of its 32 layers, for the script's time limit since phase 33
+# came in: each layer gives the kernels the same shapes, and the first
+# prefill's logits are held at tp=2 against tp=1 of the same cut model.
+TP_LAYERS = 8
 # Two ranks on one card all-reduce through the host (gloo stages CUDA
 # tensors there): at tp=2 a served 8B decode step took ~0.27 s and a
 # prefill group of 8 x 896 tokens ~20 s (H100 80GB HBM3, 700 W), so the 8B
@@ -6016,6 +6107,7 @@ def tp_rank(out: pathlib.Path) -> int:
         ServingConfig,
         SpeculationConfig,
     )
+    from fairness_llm_tpu_torch.models import configs as model_configs
     from fairness_llm_tpu_torch.models.tokenizer import _left_pad
     from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
     from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
@@ -6051,7 +6143,18 @@ def tp_rank(out: pathlib.Path) -> int:
         torch.cuda.reset_peak_memory_stats()
         zero_all(dec_mod, flash_mod, qm)
         t0 = time.perf_counter()
-        backend = backend_for(model, cfg, allow_random=model == MODEL)
+        if model == MODEL:
+            # Full width, the depth cut to TP_LAYERS: backend_for builds the
+            # model it names, so the name maps to the cut config while the
+            # engine is built, in this rank's process only.
+            full = model_configs.MODEL_CONFIGS[MODEL]
+            model_configs.MODEL_CONFIGS[MODEL] = dataclasses.replace(full, num_layers=TP_LAYERS)
+            try:
+                backend = backend_for(model, cfg, allow_random=True)
+            finally:
+                model_configs.MODEL_CONFIGS[MODEL] = full
+        else:
+            backend = backend_for(model, cfg)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         calls = SweepRecorder(backend)
@@ -6785,7 +6888,349 @@ def spec_study_path(torch, F, device_line: str, sweep: dict, held: set) -> dict:
     return {"launches": launches, "rows": rows}
 
 
-def main() -> int:
+# Phase 33: the reference's other model families (models/configs.py) on the
+# card, at full width and depth with random weights from seed 0 and the byte
+# tokenizer: mistral-7b (a sliding window of 4,096: K2 stays off under it, as
+# in the reference, and the cached steps take the dense window path),
+# gemma-7b (head width 256, one q head a kv head, GeGLU, embed_scale, a tied
+# 256,000 x 3,072 head kept in bf16) and qwen2-7b (q/k/v biases after K4's
+# grouped call, seven q heads a kv head, an untied head of 152,064), each
+# with int8 weights as the llama3-8b runs serve them; and gpt2-small in bf16
+# (BASELINE.json's phase-1 model: head width 64, learned positions,
+# LayerNorm, biases, a tied head; cuBLAS projections).
+FAMILY_MODELS = ("mistral-7b", "gemma-7b", "qwen2-7b")
+FAMILY_BF16 = "gpt2-small"
+# The float32 gates' depth (full width), as phase 18's.
+FAMILY_GATE_LAYERS = 4
+# Mistral's window on the card: one row past the window, at full width and
+# this depth, then the dense window path's cached steps.
+WINDOW_LAYERS = 2
+WINDOW_ROW = 4608
+WINDOW_STEPS = 16
+# A verify window's rows a row: the draft of 8 and the bonus token.
+VERIFY_Q = 9
+
+
+def family_sweep(torch, F, name: str, tmp: pathlib.Path, held: set) -> tuple:
+    """Phase 33(a) for one family: the phase-1 sweep through ``backend_for``
+    and ``run_phase1`` (45 profiles and 3 neutral prompts in chunks of 16,
+    t=0.7, ``MAX_TOKENS`` new tokens, the sweep-wide shared prefix) with
+    int8 weights (gpt2-small in bf16), the record checked and read back from
+    disk. K1 on flash_fwd_tc, K2 on decode_split_tc (none under mistral's
+    window) and K4's both regimes (none for gpt2-small) must launch, and no
+    float32 kernel. Every kernel call at a (shape, dtype) not in ``held`` is
+    held against its plain version. Returns the log row, the launches, the
+    rows by kernels-line entry, the backend and the recorders."""
+    from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+
+    quant = name != FAMILY_BF16
+    cfg = Config(weight_quant="int8" if quant else None, max_new_tokens=MAX_TOKENS,
+                 data_dir=str(ROOT / "data" / "ml-1m"), results_dir=str(tmp / name))
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    backend = backend_for(name, cfg, allow_random=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    mcfg = backend.engine.config
+    sweep = SweepRecorder(backend)
+    with CardSampler() as card:
+        rec, prow, recs = timed_phase(torch, dec_mod, flash_mod, qm,
+                                      lambda: run_phase1(cfg, name, backend=backend))
+    launches = prow["launches"]
+    label = f"{name} sweep"
+    if (mcfg.weight_quant == "int8") != quant:
+        fail(f"{label}: the engine's weights are {mcfg.weight_quant}")
+    windowed = mcfg.sliding_window is not None
+    need = ["flash_attention"] + ([] if windowed else ["decode_attention"])
+    need += ["quant_matmul_gemv", "quant_matmul_gemm"] if quant else []
+    need_launches(launches, need, label)
+    for kernel in ("flash_attention_f32", "decode_attention_f32") + (
+            ("decode_attention",) if windowed else ()) + (
+            () if quant else ("quant_matmul_gemv", "quant_matmul_gemm")):
+        if launches[kernel]:
+            fail(f"{label}: {launches[kernel]} launches of {KERNEL_FUNCTIONS[kernel]}")
+    parsed = check_record(rec, label, want_non_empty=False)
+    saved_record_check(cfg, rec, label)
+    steps = sum(c["decode_steps"] for c in sweep.chunks)
+    row = {"model": name, "weight_quant": mcfg.weight_quant,
+           "shape": {"layers": mcfg.num_layers, "d_model": mcfg.d_model,
+                     "heads": [mcfg.num_heads, mcfg.num_kv_heads], "head_dim": mcfg.head_dim,
+                     "d_ff": mcfg.d_ff, "vocab": mcfg.vocab_size, "window": mcfg.sliding_window,
+                     "tied": mcfg.tie_embeddings, "qkv_bias": mcfg.qkv_bias},
+           "wall_s": prow["wall_s"], "engine_init_s": init_s, "params_gb": params_gb,
+           "decode_ms_per_step": sum(c["decode_ms_per_step"] * c["decode_steps"]
+                                     for c in sweep.chunks) / max(steps, 1),
+           "chunks": sweep.chunks, "peak_allocated_gb": prow["peak_allocated_gb"],
+           "held_before_gb": prow["held_before_gb"], "launches": launches,
+           "parsed_vacuous_random_weights": parsed, "card": card.summary}
+    # The backend goes on to phase 2 unwrapped.
+    vars(backend).pop("generate", None)
+    vars(backend.engine).pop("generate", None)
+    rows = sweep_kernel_rows(recs, torch, F, qm, f"families_{name}", f32=False, held=held)
+    # The sweep's first decode step, for K3 at its shapes (verify_rows).
+    first_step = next((c for k, c in recs["dec"].calls.items() if k[0] == "k2"), None)
+    return row, launches, rows, backend, first_step
+
+
+def family_phase2(torch, F, backends: dict, tmp: pathlib.Path, held: set) -> tuple:
+    """Phase 33(b): ``run_phase2`` over the three int8 families in one call,
+    the backends of (a) injected (kept alive together), at the study's
+    settings: the record (three ``model_results`` and the cross-model
+    ``comparison``) checked and read back, ``models_evaluated_total`` 3 in
+    the phase's registry, a scoring forward run, K1, K2 and K4 launched.
+    Returns the log row, the launches and the rows of new shapes."""
+    from fairness_llm_tpu_torch import telemetry as T
+    from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.phase2 import run_phase2
+
+    cfg = Config(weight_quant="int8", max_new_tokens=MAX_TOKENS,
+                 data_dir=str(ROOT / "data" / "ml-1m"), results_dir=str(tmp / "phase2"))
+    models = list(FAMILY_MODELS)
+    with T.use_registry() as reg:
+        p2, row, recs = timed_phase(
+            torch, dec_mod, flash_mod, qm,
+            lambda: run_phase2(cfg, models=models, num_items=P2_ITEMS,
+                               num_comparisons=P2_COMPARISONS,
+                               backends={m: backends[m] for m in models}))
+    evaluated = counters_of(reg, ("models_evaluated_total",))
+    label = "families phase 2"
+    p23_record_check(cfg, p2, label, 2)
+    if sorted(p2["model_results"]) != sorted(models) or \
+            sorted(p2["comparison"].get("model_fairness", {})) != sorted(models):
+        fail(f"{label}: the record does not hold the three models: "
+             f"{sorted(p2['model_results'])}, {sorted(p2['comparison'])}")
+    if evaluated != {"models_evaluated_total{component=phase2}": len(models)}:
+        fail(f"{label}: models_evaluated_total {evaluated}")
+    need_kernels(row["launches"], label, f32=False)
+    need_launches(row["launches"], ("quant_matmul_gemv", "quant_matmul_gemm"), label)
+    if row["scoring"]["forwards"] <= 0:
+        fail(f"{label}: no scoring forward ran")
+    row.update(models_evaluated_total=evaluated, results_vacuous_random_weights={
+        m: {"exposure": {k: p2["model_results"][m][k]["exposure_ratio"]
+                         for k in ("listwise", "pairwise", "scored")},
+            "corpus_perplexity": p2["model_results"][m]["corpus_perplexity"],
+            "fairness": p2["comparison"]["model_fairness"][m]} for m in models})
+    rows = sweep_kernel_rows(recs, torch, F, qm, "families_phase2", f32=False, held=held)
+    return row, row["launches"], rows
+
+
+def family_gates(torch, prompts, name: str) -> dict:
+    """Phase 33(c) for one family at full width and ``FAMILY_GATE_LAYERS``
+    layers (random weights from seed 0): the teacher-forced check of phase
+    9 in bf16 (reported: the largest logit difference and the argmax
+    agreement with the plain-version path), then in float32 over the same
+    weight tensors (``float32_twin``), held to 1e-3 of the logits' scale;
+    for a tied bf16 head (gemma), the head product's check of phase 3."""
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+
+    base = get_model_config(name if name == FAMILY_BF16 else f"{name}-int8")
+    cfg = dataclasses.replace(base, num_layers=FAMILY_GATE_LAYERS,
+                              use_decode_attention_kernel=True)
+    engine = DecodeEngine(cfg, seed=0)
+    label = f"{name}_"
+    out = {"bf16": teacher_forced_gate(engine, prompts, torch, label, cfg.vocab_size)}
+    if cfg.tie_embeddings and cfg.weight_quant == "int8":
+        out["head_product"] = head_product_check(engine, torch, f"_{name}")
+    twin = float32_twin(engine)
+    out["f32"] = teacher_forced_gate(twin, prompts, torch, label, cfg.vocab_size, f32=True)
+    del engine, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def window_check(torch, F, held: set) -> tuple:
+    """Phase 33(d): mistral-7b at full width and ``WINDOW_LAYERS`` layers
+    (int8 weights): one row of ``WINDOW_ROW`` tokens prefilled (K1 with the
+    window: the last WINDOW_ROW - 4,096 query rows of each layer lose keys),
+    then ``WINDOW_STEPS`` cached steps through the dense window path (the
+    decode kernel stays off under a window). The last prefill position's
+    and each step's logits against the same model with every kernel swapped
+    for its plain version: in bf16 reported, in float32 (``float32_twin``)
+    held to 1e-3 of the logits' scale. K1 must launch once a layer, K2
+    never; K1's windowed calls are held against their plain version (bf16
+    and float32). Returns the log row, the launches and the rows."""
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+    from fairness_llm_tpu_torch.runtime.stepbuilder import make_batch_entry
+
+    cfg = dataclasses.replace(get_model_config("mistral-7b-int8"), num_layers=WINDOW_LAYERS,
+                              use_decode_attention_kernel=True)
+    window = cfg.sliding_window
+    g = torch.Generator().manual_seed(33)
+    tokens = torch.randint(3, cfg.vocab_size, (1, WINDOW_ROW), generator=g).cuda()
+    valid = torch.ones_like(tokens, dtype=torch.bool)
+    steps = torch.randint(3, cfg.vocab_size, (WINDOW_STEPS,), generator=g).tolist()
+
+    def run(engine):
+        entry = make_batch_entry(engine.config, engine.model, batch=1,
+                                 cache_len=WINDOW_ROW + WINDOW_STEPS)
+        logits, cache = entry(tokens, valid, None)
+        out = [logits]
+        for t in steps:
+            tok = torch.full((1, 1), t, dtype=torch.long, device="cuda")
+            lg, cache = engine.model(tok, cache.lengths[:, None],
+                                     torch.ones_like(tok, dtype=torch.bool), cache)
+            out.append(lg[:, -1])
+        return torch.cat(out)
+
+    def compare(engine, f32: bool):
+        zero_all(dec_mod, flash_mod, qm)
+        qm.f32_launches = 0
+        rec = flash_recorder(flash_mod)
+        with rec:
+            got = run(engine)
+        torch.cuda.synchronize()
+        counts = {"flash_attention": flash_mod.launches, "flash_attention_tc": flash_mod.tc_launches,
+                  "decode_attention": dec_mod.launches, "quant_matmul_gemv": qm.gemv_launches,
+                  "quant_matmul_gemm": qm.gemm_launches, "quant_matmul_f32": qm.f32_launches}
+        with plain_kernels():
+            want = run(engine)
+        diff, scale = float((got - want).abs().max()), float(want.abs().max())
+        res = {"max_abs_logit_diff": diff, "max_abs_logit": scale,
+               "argmax_agreement": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+               "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape),
+               "launches": counts}
+        kind = "float32" if f32 else "bf16"
+        if not res["finite"] or res["shape"] != [1 + WINDOW_STEPS, cfg.vocab_size]:
+            fail(f"mistral window ({kind}): logits malformed: {res}")
+        if counts["flash_attention"] != WINDOW_LAYERS or counts["decode_attention"]:
+            fail(f"mistral window ({kind}): launches {counts}; K1 must launch once a layer "
+                 f"and K2 never under a window")
+        if counts["flash_attention_tc"] != (0 if f32 else WINDOW_LAYERS):
+            fail(f"mistral window ({kind}): K1 ran the other type's kernel: {counts}")
+        if f32 and diff > 1e-3 * max(1.0, scale):
+            fail(f"mistral window: the kernel path disagrees with the plain-version path in "
+                 f"float32: {res}")
+        name = "flash_attention_f32" if f32 else "flash_attention"
+        fresh = [c for k, c in rec.calls.items() if k not in held]
+        held.update(rec.calls)
+        rows = [dict(k1_numbers(c, torch, F), path="families_window") for c in fresh]
+        check_rows(name, rows, "the first valid key masked out")
+        if not any(r["shape"]["window"] == window and r["shape"]["q"][2] > window
+                   for r in rows):
+            fail(f"mistral window ({kind}): no K1 row past the window was held")
+        # Each kernels-line entry's launches: a float32 run's K1 and K4
+        # calls are their float32 routes'.
+        by_entry = ({"flash_attention_f32": counts["flash_attention"],
+                     "decode_attention_f32": 0, "quant_matmul_f32": counts["quant_matmul_f32"]}
+                    if f32 else {"flash_attention": counts["flash_attention_tc"],
+                                 "decode_attention": 0,
+                                 "quant_matmul_gemv": counts["quant_matmul_gemv"],
+                                 "quant_matmul_gemm": counts["quant_matmul_gemm"]})
+        return res, by_entry, {name: rows}
+
+    engine = DecodeEngine(cfg, seed=0)
+    t0 = time.perf_counter()
+    bf16, counts, rows = compare(engine, f32=False)
+    twin = float32_twin(engine)
+    f32, counts32, rows32 = compare(twin, f32=True)
+    del engine, twin
+    torch.cuda.empty_cache()
+    prefill_cut = WINDOW_LAYERS * max(WINDOW_ROW - window, 0)
+    row = {"model": "mistral-7b-int8", "layers": WINDOW_LAYERS, "row_tokens": WINDOW_ROW,
+           "steps": WINDOW_STEPS, "window": window, "wall_s": time.perf_counter() - t0,
+           "prefill_query_rows_cut": prefill_cut, "decode_query_rows_cut": WINDOW_STEPS,
+           "bf16": bf16, "f32": f32}
+    if prefill_cut + WINDOW_STEPS <= 0:
+        fail(f"mistral window: no query row lost a key to the window: {row}")
+    return row, {"window_bf16": counts, "window_f32": counts32}, {**rows, **rows32}
+
+
+def verify_rows(torch, F, first_steps: dict) -> list:
+    """Phase 33(e): K3 (decode_verify_tc) at the sweeps' shapes, at kernel
+    level: for each family with the decode kernel, its phase-1 sweep's
+    first recorded decode step (the shared prefix and the row cache as the
+    sweep left them) with q widened to a verify window of ``VERIFY_Q`` rows
+    a row (random, seed 33) whose last slot is the row's newest valid slot;
+    held against the plain version with phase 6's blind check."""
+    rows = []
+    for name, call in first_steps.items():
+        if call is None:
+            continue
+        q, k, v, valid = call["args"][:4]
+        B, H, D = q.shape
+        g = torch.Generator(device=q.device).manual_seed(33)
+        q4 = torch.randn(B, VERIFY_Q, H, D, generator=g, device=q.device).to(q.dtype)
+        slots = torch.arange(valid.shape[1], device=q.device)
+        newest = torch.where(valid.bool(), slots, -1).amax(1)
+        if int(newest.min()) < VERIFY_Q - 1:
+            fail(f"{name}: a row holds fewer than {VERIFY_Q} valid slots for a verify window")
+        offs = (newest - (VERIFY_Q - 1)).to(torch.int32)
+        k3 = {"n": 0, "args": (q4, k, v, valid),
+              "kwargs": {**call["kwargs"], "q_offsets": offs}}
+        rows.append(dict(decode_numbers(k3, torch, F), path=f"families_{name}_kernel"))
+    check_rows("decode_attention_verify", rows, "every q_offset lowered by one")
+    return rows
+
+
+def families_path(torch, F, device_line: str, prompts, held: set) -> dict:
+    """Phase 33: (a) each family's phase-1 sweep, (b) phase 2 over the three
+    int8 families, (c) the float32 gates at 4 layers, (d) mistral's window,
+    (e) K3 at the sweeps' shapes. Kernel calls at a shape in ``held`` (the
+    keys earlier phases held: mistral's layers are llama3-8b's) are not
+    held again. Returns the launches by path and the rows by kernels-line
+    entry."""
+    import gc
+    import tempfile
+
+    launches, rows = {}, {}
+
+    def add(new_rows):
+        for k, v in new_rows.items():
+            rows.setdefault(k, []).extend(v)
+
+    t0 = time.perf_counter()
+    backends, first_steps = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for name in FAMILY_MODELS + (FAMILY_BF16,):
+            row, lm, rm, backend, first_steps[name] = family_sweep(torch, F, name, tmp, held)
+            log(f"families_phase1 {json.dumps({'device': device_line, **row})}")
+            launches[f"families_{name}"] = lm
+            add(rm)
+            if name in FAMILY_MODELS:
+                backends[name] = backend
+            del backend
+        row, lm, rm = family_phase2(torch, F, backends, tmp, held)
+        log(f"families_phase2 {json.dumps({'device': device_line, **row})}")
+        launches["families_phase2"] = lm
+        add(rm)
+    backends.clear()
+    add({"decode_attention_verify": verify_rows(torch, F, first_steps)})
+    first_steps.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gates = {name: family_gates(torch, prompts, name) for name in FAMILY_MODELS + (FAMILY_BF16,)}
+    log(f"families_f32_gates {json.dumps({'device': device_line, **gates})}")
+    row, lm, rm = window_check(torch, F, held)
+    log(f"families_window {json.dumps({'device': device_line, **row})}")
+    launches.update({f"families_{k}": v for k, v in lm.items()})
+    add(rm)
+    log(f"families_s {time.perf_counter() - t0:.1f}")
+    return {"launches": launches, "rows": rows}
+
+
+def main(argv) -> int:
+    # ``--phase 33`` runs phase 33 alone after the build (with no earlier
+    # phase's shapes held, every kernel call of it is held), and prints its
+    # launches last in place of the kernels and result lines.
+    families_only = argv == ["--phase", "33"]
+    if argv and not families_only:
+        fail(f"unknown arguments {argv}: run with none, or with --phase 33")
     try:
         import torch
         import torch.nn.functional as F
@@ -6826,6 +7271,13 @@ def main() -> int:
                 log(f"  nvcc[{name}] {line.strip()}")
 
     profiles, prompts = counterfactual_prompts()
+    if families_only:
+        t0 = time.perf_counter()
+        families = families_path(torch, F, device_line, prompts, set())
+        log(f"families_path_s {time.perf_counter() - t0:.1f}")
+        log(device_line)
+        print(json.dumps({"families_launches": families["launches"]}), flush=True)
+        return 0
     keys = [p.id for p in profiles]
     greedy = ModelSettings(temperature=0.0, max_tokens=MAX_TOKENS)
     sampled = ModelSettings(temperature=0.7, max_tokens=MAX_TOKENS)
@@ -6872,6 +7324,9 @@ def main() -> int:
     t0 = time.perf_counter()
     spec = spec_study_path(torch, F, device_line, sweep, paged["held"])
     log(f"spec_study_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    families = families_path(torch, F, device_line, prompts, paged["held"])
+    log(f"families_path_s {time.perf_counter() - t0:.1f}")
     # K3 f32's main path is phase 32's sweeps; phase 13's calls at
     # llama3-8b's width become its gate launches and shapes
     i = next(i for i, e in enumerate(kernels) if e["name"] == "decode_attention_verify_f32")
@@ -6910,7 +7365,8 @@ def main() -> int:
             entry["phase23_shapes"] = [r for r in rows if not r["scoring"]]
         for key, phase in (("serving", served), ("paged", paged), ("containment", contained),
                            ("overload", overload), ("fleet", fleet), ("devtel", devtel),
-                           ("dp", dp), ("tp", tp), ("spec_sweep", spec)):
+                           ("dp", dp), ("tp", tp), ("spec_sweep", spec),
+                           ("families", families)):
             entry[f"{key}_launches"] = by_path(phase["launches"])
             if name in phase["rows"]:
                 entry[f"{key}_shapes"] = phase["rows"][name]
@@ -6925,4 +7381,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

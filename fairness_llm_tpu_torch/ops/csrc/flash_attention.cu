@@ -28,8 +28,13 @@
 // max takes two shuffles and its sum stays per lane until the end. P never
 // touches shared memory: the C fragments of S, packed to bf16, are the A
 // fragments of P.V, whose B operand V is read with ldmatrix.trans (a V row
-// is contiguous along N). Rounding P to bf16 is the one numerical change
-// against the f32 plain version. Masks are applied only on tiles that cross
+// is contiguous along N). P goes in as two bf16 terms, its rounding and the
+// remainder, two products with each V fragment: one term (the design until
+// a mistral-7b prefill parted from the plain version at an output near
+// cancellation, ROADMAP C8) moved outputs by up to 2^-9 of the largest |v|
+// averaged; two carry P to about 2^-17, so the kernel parts from the f32
+// plain version by summation order and its final rounding. Masks are
+// applied only on tiles that cross
 // the diagonal, the first valid key, the end of S or the window's edge;
 // tiles wholly masked are never loaded, and a query tile wholly inside the
 // left padding writes zeros without loading anything. Widths 64, 128 and
@@ -477,13 +482,18 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // O += P V, P straight from the score fragments.
+    // O += P V, P straight from the score fragments as two bf16 terms (its
+    // rounding pa and the remainder pl, split_bf16x2), each a product with
+    // the same V fragment: one term moved an output by up to 2^-9 of the
+    // largest |v| it averages, which an output near cancellation does not
+    // absorb (ROADMAP C8); two carry P to about 2^-17.
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {frag::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                              frag::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                              frag::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              frag::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4], pl[4];
+      frag::split_bf16x2(s[2 * kk][0], s[2 * kk][1], pa[0], pl[0]);
+      frag::split_bf16x2(s[2 * kk][2], s[2 * kk][3], pa[1], pl[1]);
+      frag::split_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2], pl[2]);
+      frag::split_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3], pl[3]);
 #pragma unroll
       for (int dd = 0; dd < DP / 16; ++dd) {
         uint32_t r[4];
@@ -491,6 +501,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    dd * 16 + (lane / 16) * 8);
         frag::mma_bf16(acc[2 * dd], pa, r[0], r[1]);
         frag::mma_bf16(acc[2 * dd + 1], pa, r[2], r[3]);
+        frag::mma_bf16(acc[2 * dd], pl, r[0], r[1]);
+        frag::mma_bf16(acc[2 * dd + 1], pl, r[2], r[3]);
       }
     }
   }

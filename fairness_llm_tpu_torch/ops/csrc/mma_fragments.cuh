@@ -56,6 +56,16 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return u;
 }
 
+// Two floats to a bf16 pair (as pack_bf16x2) and the pair of what that
+// rounding dropped, itself rounded to bf16: hi + lo carries each value to
+// about 2^-17 of itself (the difference a - hi is exact in float32).
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  memcpy(&hi, &h, 4);
+  lo = pack_bf16x2(a - f.x, b - f.y);
+}
+
 // Four signed bytes -> four exact floats: the byte b + 128 goes into the
 // mantissa of 2^23, and 2^23 + 128 is subtracted again.
 __device__ __forceinline__ void i8x4_to_f32(uint32_t packed, float (&f)[4]) {

@@ -11,11 +11,12 @@ compute in float32 and round the output once. The kernels sum in float32
 too and round the output once; the decode kernels and the int8-weight
 matmul differ from the plain version by summation order and that one
 rounding (at most one bf16 ulp, 2^-7 of the value). The bf16 flash kernel
-also rounds the softmax weights P to bf16 before P.V, on the tensor cores:
-each weight moves by at most 2^-9 of the row's largest (which is exactly 1),
-and test_flash_tc_kernel_matches_plain holds the kernel, that rounding
-included, to the same allowance (chip_smoke.py reports the share of it
-used at llama3-8b's prefill shapes). A kernel that drops or adds one key
+feeds the softmax weights P to the tensor cores as two bf16 terms, their
+rounding and the remainder, which carry P to about 2^-17: one term moved
+an output by up to 2^-9 of the largest |v| it averaged, past the allowance
+where an output nearly cancels (ROADMAP C8,
+test_flash_tc_kernel_at_large_values; chip_smoke.py reports the share of
+the allowance used at the main path's prefill shapes). A kernel that drops or adds one key
 moves outputs by far more than that, which the shifted-mask tests check; for the
 int8-weight matmul, dropping the last 32 columns of x must fail the same
 tolerance. Its bf16 GEMV regime (gemv_stream_tc) sums a column tile's k
@@ -1169,3 +1170,176 @@ def test_paged_gather_scatter_round_trip_on_the_card(dev, quant):
     for lc, lv in zip(v2.layers, v.layers):
         assert torch.equal(lc.k[:, bs:], lv.k[:, bs:])
         assert torch.equal(lc.v[:, bs:], lv.v[:, bs:])
+
+
+# ---------------------------------------------------------------------------
+# The reference's other model families at their own shapes: gemma-7b (head
+# width 256, 16 q heads over 16 kv heads), mistral-7b (a window of 4,096)
+# and qwen2-7b (7 q heads a kv head, d_model 3,584, d_ff 18,944, vocab
+# 152,064), as chip_smoke.py's phase 33 runs them.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,D,window", [
+    (2, 16, 16, 640, 256, None),    # gemma: head width 256, one q head a kv head
+    (1, 32, 8, 4608, 128, 4096),    # mistral: one row past its window
+], ids=["gemma", "mistral_window"])
+def test_flash_kernels_at_family_shapes(dev, dtype, B, H, Hkv, S, D, window):
+    """K1 (flash_fwd_tc in bf16, flash_fwd in float32) at gemma's head
+    width and over mistral's window with S > window (full rows, so the last
+    S - window query rows lose keys to the window), against the plain
+    version. The window must change the rows past it, and the kernel with
+    each row's first valid key masked out must fail the tolerance on the
+    rows valid under both masks."""
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    q = torch.randn(B, S, H, D, generator=g, device=dev, dtype=dtype).transpose(1, 2)
+    k = torch.randn(B, Hkv, S, D, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(B, Hkv, S, D, generator=g, device=dev, dtype=dtype)
+    lengths = torch.full((B,), S, device=dev, dtype=torch.int32)
+    if B > 1:
+        lengths[1] = S // 3
+    before, tc = flash_mod.launches, flash_mod.tc_launches
+    got = flash_mod.flash_attention(q, k, v, lengths, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert (flash_mod.launches, flash_mod.tc_launches) == (before + 1,
+                                                           tc + (dtype == torch.bfloat16))
+    want = flash_mod.flash_attention_reference(q, k, v, lengths, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if window is not None:
+        wide = flash_mod.flash_attention_reference(q, k, v, lengths, causal=True)
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(wide[:, :, window:].float(), want[:, :, window:].float(),
+                                       **TOL[dtype])
+        del wide
+    short_len = lengths - 1
+    short = flash_mod.flash_attention(q, k, v, short_len, causal=True, window=window)
+    rows = torch.arange(S, device=dev)[None, :] >= (S - short_len.long())[:, None]
+    sel = rows[:, None, :, None].expand_as(want)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(short[sel].float(), want[sel].float(), **TOL[dtype])
+
+
+def test_flash_tc_kernel_at_large_values(dev):
+    """C8: v of scale 4 (mistral-7b's first layer holds |v| up to 7), where
+    outputs of the early rows, each an average of a few values, can nearly
+    cancel. The kernel must hold the bf16 allowance there; with P in one
+    bf16 term it did not (tests/test_torch_ops.py emulates both)."""
+    B, H, Hkv, S, D = 2, 32, 8, 256, 128
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16().transpose(1, 2)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16().transpose(1, 2)
+    v = (torch.randn(B, S, Hkv, D, generator=g, device=dev) * 4).bfloat16().transpose(1, 2)
+    lengths = torch.tensor([S, S - 37], device=dev, dtype=torch.int32)
+    got = flash_mod.flash_attention(q, k, v, lengths)
+    want = flash_mod.flash_attention_reference(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache", "int8_cache"])
+@pytest.mark.parametrize("P", [0, 704])
+@pytest.mark.parametrize("B", [1, 16, 48])
+@pytest.mark.parametrize("rep,Hkv,D", [(7, 4, 128), (1, 16, 256)], ids=["qwen2", "gemma"])
+def test_decode_tc_kernel_at_family_shapes(dev, rep, Hkv, D, B, P, int8):
+    """decode_split_tc at qwen2's 7 q heads a kv head (4 kv heads of 128)
+    and gemma's one (16 kv heads of 256), L = 900 (a full phase-1 row
+    cache), against the plain version."""
+    L = 900
+    q, k, v, valid, shared, scales = _decode_inputs(dev, rep + D + B + P, B, rep, Hkv, L, D, P,
+                                                    int8)
+    before = dec_mod.decode_tc_launches
+    got = dec_mod.decode_attention(q, k, v, valid, shared, **scales)
+    torch.cuda.synchronize()
+    assert dec_mod.decode_tc_launches == before + 1
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **scales)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache", "int8_cache"])
+@pytest.mark.parametrize("rep,Hkv,D", [(7, 4, 128), (1, 16, 256)], ids=["qwen2", "gemma"])
+def test_verify_tc_kernel_at_family_shapes(dev, rep, Hkv, D, int8):
+    """decode_verify_tc at a verify window of 9 rows a row: qwen2's 63
+    query rows a kv head and gemma's 9 at head width 256, the sweep's
+    prefix of 704, against the plain version; lowering every q_offset by
+    one (each query loses its own slot) must fail the tolerance."""
+    B, Q, L, P = 16, 9, 168, 704
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, rep + D, B, Q, rep, Hkv, L, D, P,
+                                                          int8)
+    before = dec_mod.multi_tc_launches
+    got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.cuda.synchronize()
+    assert dec_mod.multi_tc_launches == before + 1
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    blind = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs - 1, **scales)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(blind.float(), want.float(), **TOL[torch.bfloat16])
+
+
+# The families' K4 weights (K, N): qwen2-7b's gate/up, down and lm_head,
+# gemma-7b's gate/up and down.
+FAMILY_KN = [(3584, 18944), (18944, 3584), (3584, 152064), (3072, 24576), (24576, 3072)]
+# Grouped as the decode step groups them: q|k|v and gate|up of each.
+FAMILY_GROUPS = {"qwen2_qkv": [(3584, 3584), (3584, 512), (3584, 512)],
+                 "qwen2_gate_up": [(3584, 18944), (3584, 18944)],
+                 "gemma_qkv": [(3072, 4096)] * 3,
+                 "gemma_gate_up": [(3072, 24576), (3072, 24576)]}
+
+
+@pytest.fixture(scope="module")
+def family_weights():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    out = {kn: _qmm_weight(dev, *kn, seed=300 + i) for i, kn in enumerate(FAMILY_KN)}
+    for name, kns in FAMILY_GROUPS.items():
+        out[name] = [_qmm_weight(dev, *kn, seed=400 + 10 * len(name) + i)
+                     for i, kn in enumerate(kns)]
+    return out
+
+
+@pytest.mark.parametrize("M", [1, 16, 48, 704, 2560])
+@pytest.mark.parametrize("K,N", FAMILY_KN)
+def test_quant_matmul_at_family_shapes(dev, family_weights, M, K, N):
+    """K4 alone at the families' widths, both regimes (decode M = 1 and 16,
+    the study batch's 48, the prefix's and 16 suffixes' prefill M), bf16 x;
+    the lm_head with a float32 output, as the model calls it. x with its
+    last 32 columns zeroed must fail the tolerance."""
+    wq, scale = family_weights[(K, N)]
+    out_dtype = torch.float32 if N == 152064 else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+    gemv, gemm = qmm.gemv_launches, qmm.gemm_launches
+    got = qmm.quant_matmul(x, wq, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    small = M <= qmm.GEMV_MAX_M
+    assert (qmm.gemv_launches - gemv, qmm.gemm_launches - gemm) == ((1, 0) if small else (0, 1))
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    want = qmm.quant_matmul_reference(x, wq, scale, out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), **QMM_TOL[out_dtype])
+    cut = x.clone()
+    cut[:, -32:] = 0
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(qmm.quant_matmul(cut, wq, scale, out_dtype=out_dtype).float(),
+                                   want.float(), **QMM_TOL[out_dtype])
+
+
+@pytest.mark.parametrize("M", [1, 16, 48, 64])
+@pytest.mark.parametrize("group", list(FAMILY_GROUPS))
+def test_quant_matmul_group_at_family_shapes(dev, family_weights, group, M):
+    """One GEMV launch for each family's q|k|v and gate|up, each output
+    against its own weight's plain product."""
+    mats = family_weights[group]
+    K = mats[0][0].shape[0]
+    g = torch.Generator(device=dev).manual_seed(M + K + 3)
+    x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+    before = (qmm.gemv_launches, qmm.group_launches, qmm.gemm_launches)
+    got = qmm.quant_matmul_group(x, mats, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (qmm.gemv_launches - before[0], qmm.group_launches - before[1],
+            qmm.gemm_launches - before[2]) == (1, 1, 0)
+    for i, (out, (wq, scale)) in enumerate(zip(got, mats)):
+        assert out.shape == (M, wq.shape[1])
+        want = qmm.quant_matmul_reference(x, wq, scale, torch.bfloat16)
+        torch.testing.assert_close(out.float(), want.float(), **QMM_TOL[torch.bfloat16],
+                                   msg=lambda m, _i=i: f"weight {_i}: {m}")

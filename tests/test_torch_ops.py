@@ -253,3 +253,42 @@ def test_split_workspace_is_kept_per_device_and_stream(monkeypatch):
     assert grown.numel() == 5000 and dec_mod._workspace(1000, cpu, 0) is grown
     other = dec_mod._workspace(10, cpu, 7)
     assert other is not grown and dec_mod._workspace(10, cpu, 0) is grown
+
+
+def _pv_terms(p, v, terms):
+    """P.V with P in ``terms`` bf16 terms, as flash_fwd_tc feeds the tensor
+    cores: its bf16 rounding, then (two terms) the remainder rounded to
+    bf16 (csrc/mma_fragments.cuh, split_bf16x2); f32 sums."""
+    hi = p.bfloat16().float()
+    out = hi @ v
+    if terms == 2:
+        out = out + (p - hi).bfloat16().float() @ v
+    return out
+
+
+@pytest.mark.parametrize("v_scale", [1.0, 4.0])
+def test_flash_tc_p_in_two_bf16_terms_holds_the_allowance(v_scale):
+    """The bf16 prefill kernel's P.V arithmetic (C8): with P in two bf16
+    terms its outputs hold chip_smoke.py's bf16 allowance (4e-3 + 1e-2 *
+    |plain|) against the f32 plain version at v of scale 1 and 4 (a causal
+    row of 256 keys, so early rows average a few values and some outputs
+    near cancellation). P in one bf16 term moves an output by up to 2^-9 of
+    the largest |v| averaged, which at scale 4 misses the allowance."""
+    torch.manual_seed(0)
+    H, S, D = 8, 256, 128
+    q, k = torch.randn(H, S, D).bfloat16().float(), torch.randn(H, S, D).bfloat16().float()
+    v = (torch.randn(H, S, D) * v_scale).bfloat16().float()
+    s = (q * D ** -0.5) @ k.transpose(-1, -2)
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    lsum = p.sum(-1, keepdim=True)
+    want = ((p @ v) / lsum).bfloat16().float()
+    tol = 4e-3 + 1e-2 * want.abs()
+
+    def ratio(terms):
+        got = (_pv_terms(p, v, terms) / lsum).bfloat16().float()
+        return float(((got - want).abs() / tol).max())
+
+    assert ratio(2) <= 1
+    if v_scale > 1:
+        assert ratio(1) > 1

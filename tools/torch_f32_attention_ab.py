@@ -6,7 +6,7 @@ one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 tools/torch_f32_attention_ab.py [ROOT ...] [--plans] [--trace] [--out FILE]
+    python3 tools/torch_f32_attention_ab.py [ROOT ...] [--plans] [--trace] [--bf16] [--out FILE]
 
 Each ROOT (default: this checkout) runs in a child process of its own, in
 the order given, with its own package and its own kernel build, so
@@ -46,8 +46,12 @@ the row; the wrapper's own plan is the row without it). With
 (``library_ms``, k/v dequantized beforehand) and its bound (``bound_ms``,
 as ``chip_smoke.py``'s decode rows count it). With ``--trace``, each row's
 device time a call by CUDA kernel (``kernels_us``, from a torch.profiler
-capture of 20 calls). One JSON line a row (its checkout, kernel, shape,
-plan, ms, host_us, max_abs_err), then the card's name and power limit.
+capture of 20 calls). With ``--bf16``, instead, K1's bf16 kernel
+(flash_fwd_tc) at the main path's prefill shapes (llama3-8b's, the
+families' sweep prefixes, mistral-7b's window over 4,608 tokens, and v of
+scale 4), held to chip_smoke.py's bf16 allowance (``err_over_tol``). One
+JSON line a row (its checkout, kernel, shape, plan, ms, host_us,
+max_abs_err), then the card's name and power limit.
 Imports no JAX.
 """
 
@@ -109,6 +113,37 @@ def host_us(fn, iters=200):
 PLANS, TRACE = "--plans" in sys.argv, "--trace" in sys.argv
 YARDSTICKS = "--yardsticks" in sys.argv
 HBM, F32 = 3.35e12, 67e12
+
+if "--bf16" in sys.argv:
+    # K1's bf16 tensor-core kernel (flash_fwd_tc) at the main path's prefill
+    # shapes, q a head-major view of [B, S, H, D] as the model passes it,
+    # each against its plain version at chip_smoke.py's bf16 allowance
+    # (4e-3 + 1e-2 * |plain|): llama3-8b's no-prefix prefill and sweep
+    # prefix, gemma-7b's, gpt2-small's and qwen2-7b's prefix, mistral-7b's
+    # window over one row of 4,608, and v of scale 4 (where one bf16 term
+    # of P parts from the plain version: ROADMAP C8).
+    for name, B, H, Hkv, S, D, window, vs, lo in (
+            ("llama_no_prefix", 16, 32, 8, 896, 128, None, 1.0, 700),
+            ("llama_sweep_prefix", 1, 32, 8, 640, 128, None, 1.0, 640),
+            ("gemma_sweep_prefix", 1, 16, 16, 640, 256, None, 1.0, 640),
+            ("qwen2_sweep_prefix", 1, 28, 4, 640, 128, None, 1.0, 640),
+            ("gpt2_sweep_prefix", 1, 12, 12, 640, 64, None, 1.0, 640),
+            ("mistral_window", 1, 32, 8, 4608, 128, 4096, 1.0, 4608),
+            ("large_v", 2, 32, 8, 256, 128, None, 4.0, 256)):
+        q = rnd(B, S, H, D).bfloat16().transpose(1, 2)
+        k = rnd(B, S, Hkv, D).bfloat16().transpose(1, 2)
+        v = (rnd(B, S, Hkv, D) * vs).bfloat16().transpose(1, 2)
+        lengths = torch.randint(lo, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+        call = lambda: fm.flash_attention(q, k, v, lengths, window=window)  # noqa: E731
+        want = fm.flash_attention_reference(q, k, v, lengths, window=window).float()
+        err = (call().float() - want).abs()
+        ratio = float((err / (4e-3 + 1e-2 * want.abs())).max())
+        print(json.dumps({"kernel": "flash_attention", "shape": {
+            "name": name, "q": [B, H, S, D], "k": [B, Hkv, S, D], "window": window,
+            "v_scale": vs}, "ms": cuda_ms(call, 50), "host_us": host_us(call),
+            "max_abs_err": float(err.max()), "err_over_tol": ratio, "ok": ratio <= 1}),
+            flush=True)
+    sys.exit(0)
 
 
 def kernels_us(call, n=20):
@@ -246,12 +281,14 @@ def main() -> int:
     ap.add_argument("--trace", action="store_true", help="device time a call by CUDA kernel")
     ap.add_argument("--yardsticks", action="store_true",
                     help="the verify rows' plain and SDPA times and their bound")
+    ap.add_argument("--bf16", action="store_true",
+                    help="K1's bf16 kernel at the main path's prefill shapes instead")
     ap.add_argument("--out", default=None, help="also write every row here as JSON lines")
     args = ap.parse_args()
     rows = []
     for turn, root in enumerate(args.roots):
         flags = [f for f, on in (("--plans", args.plans), ("--trace", args.trace),
-                                 ("--yardsticks", args.yardsticks)) if on]
+                                 ("--yardsticks", args.yardsticks), ("--bf16", args.bf16)) if on]
         res = subprocess.run([sys.executable, "-c", CHILD, *flags], cwd=root,
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
