@@ -6,15 +6,16 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --phase 33`` builds the kernels and runs phase 33
-alone.)
+alone; ``--phase 34`` the same for phase 34, llama3-70b with int8 weights,
+which needs the whole card: ~72 GB of parameters and a peak near 80 GB.)
 
 It builds the port's hand-written CUDA kernels from ``ops/csrc/`` with
 ``nvcc`` (sm_90a), drives the port's phase-1 serving path through
-``EngineBackend.generate`` at the full width and depth of llama3-8b (32
-layers, random bf16 weights from seed 0): plain, with greedy prompt-lookup
-speculation, and with the int8 KV cache on the same weights; then at the
-full width and depth of llama3-8b-int8 (the same model with int8 projection
-and lm_head weights from seed 0). It shows that each path launched its
+``EngineBackend.generate`` at the full width of llama3-8b (8 of its 32
+layers, ``CUT_LAYERS``; random bf16 weights from seed 0): plain, with
+greedy prompt-lookup speculation, and with the int8 KV cache on the same
+weights; then at the full width and depth of llama3-8b-int8 (the same model
+with int8 projection and lm_head weights from seed 0). It shows that each path launched its
 kernels, holds each kernel against its plain PyTorch version at the shapes
 the path gave it, times kernel, plain version and a one-call PyTorch
 yardstick, and checks the model's logits and greedy tokens against the
@@ -43,8 +44,8 @@ Phases (any failure exits non-zero, and no result line is printed); every
 path's launch counts are set to 0 just before it and read just after:
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels, one nvcc per source, in parallel;
-  bf16 path (llama3-8b; K1 flash attention, K2 decode attention, K3 the
-  verify window):
+  bf16 path (llama3-8b at ``CUT_LAYERS`` of its 32 layers; K1 flash
+  attention, K2 decode attention, K3 the verify window):
   3. the bf16 logits product on the model's head: an f32 sum of the bf16
      operands with no f32 copy of the head (``head_product_check``); then
      serve 16 counterfactual phase-1 prompts with a sweep-wide shared
@@ -76,10 +77,10 @@ path's launch counts are set to 0 just before it and read just after:
      kernel, K2's kernels per step); the SM clock and power draw are sampled
      with nvidia-smi around every serve call;
   8. the share of speculative greedy tokens equal to plain greedy ones at
-     32 layers in bf16 (reported only);
+     the path's depth in bf16 (reported only);
   9. the model's logits with the kernels against the same model run on the
-     plain versions, teacher-forced on 4 prompts, at 32 layers in bf16
-     (reported);
+     plain versions, teacher-forced on 4 prompts, at the path's depth in
+     bf16 (reported);
   int8 KV cache (kv_cache_quant, over the bf16 engine's own tensors; K2q
   and K3 over an int8 cache):
  10. the engine must share every parameter tensor (no second copy); the
@@ -151,7 +152,8 @@ path's launch counts are set to 0 just before it and read just after:
      within 1e-4 (teacher-forced; such rows are logged); with equal tokens,
      equal records and metrics within 1e-6;
  21. the default sweep on llama3-8b with int8 weights (``--weight-quant
-     int8``) at full width and depth, random weights from the seed and the
+     int8``) at full width and ``CUT_LAYERS`` of its 32 layers (as phases
+     23, 24-27, 29 and 30), random weights from the seed and the
      byte tokenizer: K1 and K2 on their tensor-core kernels and both K4
      regimes must launch, no error entry, the record written and read back;
      the wall seconds, each chunk's prefix, prefill and decode times and the
@@ -215,8 +217,9 @@ path's launch counts are set to 0 just before it and read just after:
      20's engine path on the card, or differing only where the CPU's top
      two logits are within 1e-4 (as phase 20); the t=0.7 sweep's responses
      are kept for phase 27. On llama3-8b with int8
-     weights at full width and depth (random weights, byte tokenizer) with
-     16 slots and a prompt budget of 1,024: the t=0.7 sweep (the main path)
+     weights at full width and 8 of its 32 layers (``CUT_LAYERS``, since
+     phase 34; phases 25-27 and 29 serve this engine; random weights,
+     byte tokenizer) with 16 slots and a prompt budget of 1,024: the t=0.7 sweep (the main path)
      with K1 and K2 on their tensor-core kernels only and both K4 regimes
      launched; its wall seconds beside phase 21's, decode ms per step,
      prefill batches, mean occupancy, tokens/s, peak memory and launches
@@ -341,9 +344,12 @@ path's launch counts are set to 0 just before it and read just after:
      unfinished request in the journal, ``fleet_healthy_replicas`` 2 of 2,
      the snapshot valid and the fleet gate (``check_fleet``) finding only
      that no replica was fenced. (b) Two replicas of the control pool's
-     shape over phase 24's llama3-8b int8 engine (one weight tree): the 16
-     gate prompts greedy at 32 tokens, each row phase 24's served row cut to
-     as many (``paged_gate``, the kernels' bf16 allowance); the same requests again with r0 crashing
+     shape over a llama3-8b int8 engine at full depth (one weight tree;
+     built as phase 24's, whose depth is cut, with its own greedy rows in a
+     control pool, ``full_depth_control``): the 16 gate prompts greedy at
+     32 tokens, each row that engine's served row cut to as many
+     (``paged_gate``, the kernels' bf16 allowance); the same requests
+     again with r0 crashing
      after ``CRASH_POLLS`` health polls: fenced, its unfinished requests at
      the head of r1's queue with their ids and row seeds, every request
      complete with the fault-free row, r0 back through the canary recorded
@@ -488,11 +494,14 @@ path's launch counts are set to 0 just before it and read just after:
      shapes); phase 13's calls at llama3-8b's width are its
      ``gate_launches`` and ``gate_shapes``.
   the reference's other model families, after phase 32 (random weights
-  from seed 0, byte tokenizer, full width and depth): mistral-7b (sliding
-  window 4,096), gemma-7b (head width 256, one q head a kv head, GeGLU,
+  from seed 0, byte tokenizer, full width and depth, mistral-7b's depth cut
+  to 8 of its 32 layers, ``FAMILY_LAYERS``): mistral-7b (sliding window
+  4,096), gemma-7b (head width 256, one q head a kv head, GeGLU,
   embed_scale, a tied 256,000-row head in bf16) and qwen2-7b (q/k/v
-  biases, seven q heads a kv head), each with int8 weights, and
-  gpt2-small in bf16:
+  biases, seven q heads a kv head), each with int8 weights, and in bf16
+  gpt2-small and the tied families llama32-1b (rep 4 at head width 64),
+  llama32-3b (24 q heads over 8 of 128) and qwen2-0.5b (rep 7 at head
+  width 64, q/k/v biases):
  33. (a) each one's phase-1 sweep through ``backend_for`` and
      ``run_phase1`` (45 profiles and 3 neutral prompts, t=0.7,
      ``MAX_TOKENS`` new tokens, the sweep-wide shared prefix), the record
@@ -507,8 +516,10 @@ path's launch counts are set to 0 just before it and read just after:
      (``families_phase2``). (c) Each family at full width and 4 layers: the
      teacher-forced check of phase 9 in bf16 (reported) and over the same
      weights in float32 (``float32_twin``) held to 1e-3 of the logits'
-     scale; gemma's tied bf16 head through phase 3's head-product check
-     (``families_f32_gates``, ``head_product_gemma-7b``). (d) mistral-7b at
+     scale; each tied head (gemma-7b's, gpt2-small's and the tied
+     families') through phase 3's head-product check in bf16
+     (``families_f32_gates``, ``head_product_<model>``; the tied families'
+     sweeps and gates take ``families_tied_s``). (d) mistral-7b at
      full width and 2 layers: one row of 4,608 tokens prefilled (K1's
      window masks keys of the last 512 query rows a layer) and 16 cached
      steps through the dense window path, against the plain-version path
@@ -522,6 +533,26 @@ path's launch counts are set to 0 just before it and read just after:
      ``families_launches`` (``families_<model>``, ``families_phase2``,
      ``families_window_bf16``, ``families_window_f32``) and
      ``families_shapes``.
+  BASELINE.json configs[4]'s model, after phase 33, in a child process
+  (``chip_smoke.py --phase 34``; the parent empties its allocator's cache,
+  logs the card's memory and streams the child's lines, and fails if the
+  child exits non-zero):
+ 34. llama3-70b with int8 weights (random, seed 0; 80 layers, d_model
+     8,192, 64 q heads over 8 kv heads of 128, d_ff 28,672, an untied
+     128,256-row head), full width and depth, on the one card: the init's
+     seconds and peak, and its bytes against ``per_device_param_bytes`` at
+     tp=1 within 1% (``llama70b_phase1``); phase 33(a)'s sweep; phase 3 on
+     the sweep's record (the conformal variant: the aggressive one raises
+     in ``facter.smart_balance`` on random weights, as the reference's
+     does) and the scoring forward over the study checkpoint's calibration
+     rows (``llama70b_phase3``); with the model freed, every kernel call
+     held against its plain version, K3 at kernel level at the sweep's
+     first decode step (72 query rows a kv head), K2 and K3 at v of scale
+     4 at llama3-8b's and llama3-70b's decode and verify shapes
+     (``c9_large_values``), and the float32 gate at full width and 4
+     layers (``llama70b_f32_gate``). The entries gain ``llama70b_launches``
+     (``llama70b_phase1``, ``llama70b_phase3``,
+     ``llama70b_phase3_scoring``) and ``llama70b_shapes``.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Every attention row carries ``floor_ms``,
@@ -583,6 +614,14 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 MODEL = "llama3-8b"
 MODEL_INT8 = "llama3-8b-int8"
+# llama3-8b keeps its full width and this many of its 32 layers in the bf16
+# path (phases 3-13), the phase-1 and phase-2/3 sweeps (19-23), the served
+# phases on phase 24's engine (24-27, 29) and phase 30's runs, for the
+# script's time limit since phase 34 came in (``cut_depth``). Every layer
+# gives the kernels the same shapes, so no kernel loses a hold: the int8
+# path (14-18) and phase 28's fleet drills run all 32, and each gate
+# compares runs of one depth.
+CUT_LAYERS = 8
 MAX_TOKENS = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -590,9 +629,9 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # Kernel against plain version on bf16 inputs: |got - want| <= ATOL + RTOL *
 # |want| elementwise. Both sum in float32 and round the output to bf16 once,
 # so they differ by summation order and at most one ulp (2^-7 of the value);
-# K2 and K3 also round their softmax weights P to bf16 before P.V (each
-# moves by at most 2^-9 of the row's largest weight, which is 1); K1 carries
-# P in two bf16 terms (ROADMAP C8).
+# K1, K2 and K3 carry their softmax weights P to P.V in two bf16 terms
+# (ROADMAP C8, C9): one term moved an output by up to 2^-9 of the largest
+# |v| it averages, which a row of few keys near cancellation did not absorb.
 ATOL, RTOL = 4e-3, 1e-2
 # Kernel against plain version on float32 inputs (K1's flash_fwd, K2's
 # decode_split_f32, K3's verify_split_f32; no TF32 on either side): they
@@ -859,6 +898,21 @@ def _clone(x):
     if isinstance(x, dict):
         return {k: _clone(v) for k, v in x.items()}
     return x
+
+
+@contextlib.contextmanager
+def cut_depth(name: str, layers: int):
+    """The registry's config of ``name`` at ``layers`` of its layers (full
+    width) while the block runs, in this process: ``backend_for`` builds the
+    config the name maps to."""
+    from fairness_llm_tpu_torch.models import configs as model_configs
+
+    full = model_configs.MODEL_CONFIGS[name]
+    model_configs.MODEL_CONFIGS[name] = dataclasses.replace(full, num_layers=layers)
+    try:
+        yield full
+    finally:
+        model_configs.MODEL_CONFIGS[name] = full
 
 
 def counterfactual_prompts():
@@ -1434,40 +1488,44 @@ def study_batch_rows(rec, mode: str, name: str, torch, F, batch: int = STUDY_BAT
 def head_product_check(engine, torch, label: str = "") -> dict:
     """The bf16 logits product (``transformer._logits``) on the model's
     head (its lm_head, e.g. [4096, 128256], or for a tied head the
-    embedding's transpose, a strided view) and x [16, d_model] from seed 0:
-    it must write f32 within 1e-4 of the largest logit of the f32 product
-    of the same bf16 operands, allocate no f32 copy of the head (peak
-    allocation during the call under 64 MB), and the bf16-rounded product
-    it replaced must miss that tolerance (the gate sees the rounding). Both
-    products timed; returns the row."""
+    embedding's transpose, a strided view) and x [16, d_model] from seed 0
+    in the model's compute dtype: it must write f32 within 1e-4 of the
+    largest logit of the f32 product of the same bf16 operands, allocate no
+    f32 copy of the head (peak allocation during the call under 64 MB, plus
+    the bf16 copy ``_logits`` makes of a head stored in float32, as the
+    engine stores models under a billion parameters), and the bf16-rounded
+    product it replaced must miss that tolerance (the gate sees the
+    rounding). Both products timed; returns the row."""
     from fairness_llm_tpu_torch.models.transformer import _logits
 
     model = engine.model
     head = model.embedding.t() if model.config.tie_embeddings else model.lm_head
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(16, head.shape[0], generator=g, device="cuda").to(head.dtype)
+    x = torch.randn(16, head.shape[0], generator=g, device="cuda").to(torch.bfloat16)
+    copy = head.numel() * x.element_size() if head.dtype != x.dtype else 0
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     got = _logits(x, head)
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - before
-    want = x.float() @ head.float()
-    rounded = (x @ head).float()
+    want = x.float() @ head.to(x.dtype).float()
+    rounded = (x @ head.to(x.dtype)).float()
     tol = 1e-4 * max(1.0, float(want.abs().max()))
     row = {"x": list(x.shape), "head": list(head.shape), "dtype": str(got.dtype)[6:],
+           "head_dtype": str(head.dtype)[6:], "head_copy_bytes": copy,
            "max_abs_err": float((got - want).abs().max()), "tol": tol,
            "rounded_max_abs_err": float((rounded - want).abs().max()),
            "peak_extra_bytes": extra, "out_bytes": got.numel() * got.element_size(),
            "ms": cuda_ms(lambda: _logits(x, head), 50),
-           "rounded_ms": cuda_ms(lambda: (x @ head).float(), 50)}
+           "rounded_ms": cuda_ms(lambda: (x @ head.to(x.dtype)).float(), 50)}
     del want, rounded
     log(f"head_product{label} {json.dumps(row)}")
     if row["dtype"] != "float32" or row["max_abs_err"] > tol:
         fail(f"the bf16 logits product is not an f32 sum of the bf16 operands: {row}")
     if row["rounded_max_abs_err"] <= tol:
         fail(f"the head-product gate does not see bf16 rounding: {row}")
-    if extra > 64 << 20:
+    if extra > (64 << 20) + copy:
         fail(f"the bf16 logits product allocated {extra} bytes (an f32 copy of the head?)")
     return row
 
@@ -1626,7 +1684,8 @@ def bf16_path(torch, F, prompts, keys, greedy, sampled):
     from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_model_config(MODEL), use_decode_attention_kernel=True)
+    cfg = dataclasses.replace(get_model_config(MODEL), use_decode_attention_kernel=True,
+                              num_layers=CUT_LAYERS)
     engine = DecodeEngine(cfg, seed=0)
     torch.cuda.synchronize()
     log(f"engine: {MODEL} layers={cfg.num_layers} d_model={cfg.d_model} "
@@ -2446,7 +2505,8 @@ def phase1_path(torch, F, device_line: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         zero_all(dec_mod, flash_mod, qm)
         t0 = time.perf_counter()
-        backend = backend_for(MODEL, cfg, allow_random=True)
+        with cut_depth(MODEL, CUT_LAYERS):
+            backend = backend_for(MODEL, cfg, allow_random=True)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         sweep = SweepRecorder(backend)
@@ -2865,9 +2925,11 @@ def full_width_phases23(torch, F, tmp: pathlib.Path, p1_record, calibration, hel
                  data_dir=str(ROOT / "data" / "ml-1m"), results_dir=str(tmp / "llama3-8b"))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    backend = backend_for(MODEL, cfg, allow_random=True)
+    with cut_depth(MODEL, CUT_LAYERS):  # as phase 21's sweep, whose record phase 3 reads
+        backend = backend_for(MODEL, cfg, allow_random=True)
     torch.cuda.synchronize()
-    row = {"model": MODEL, "weight_quant": "int8", "engine_init_s": time.perf_counter() - t0}
+    row = {"model": MODEL, "weight_quant": "int8", "layers": backend.engine.config.num_layers,
+           "engine_init_s": time.perf_counter() - t0}
     phases = {}
     p2, row["phase2"], phases["phase2"] = timed_phase(
         torch, dec_mod, flash_mod, qm,
@@ -3089,7 +3151,8 @@ def full_width_served(torch, F, tmp: pathlib.Path, engine_wall_s: float, device_
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    backend = backend_for(MODEL, cfg, allow_random=True)
+    with cut_depth(MODEL, CUT_LAYERS):
+        backend = backend_for(MODEL, cfg, allow_random=True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     served = SweepRecorder(backend)
@@ -3111,6 +3174,7 @@ def full_width_served(torch, F, tmp: pathlib.Path, engine_wall_s: float, device_
     saved_record_check(cfg, rec, "llama3-8b int8 served")
     sched = backend.scheduler_for(cfg.settings_for(MODEL))
     row = {"model": MODEL, "weight_quant": "int8", "device": device_line,
+           "layers": backend.engine.config.num_layers,
            "serving": FULL_WIDTH_SERVING, "cache_len": sched.cache_len,
            "prompt_budget": sched.prompt_budget, "wall_s": wall,
            "engine_path_wall_s_phase21": engine_wall_s, "engine_init_s": init_s,
@@ -3646,8 +3710,8 @@ def full_width_paged(torch, F, tmp: pathlib.Path, p24: dict, engine_wall_s: floa
     # greedy: the paged sweep against phase 24's greedy served rows (which
     # equal the engine path's). In bfloat16 the two paths sum in other
     # orders (the paged prefill attends densely, its prefix computed in
-    # another row's forward), and their logits at 32 layers part by more
-    # than one kernel's allowance (PERF.md, PR 11): reported, each parting
+    # another row's forward), and their logits over many layers part by
+    # more than one kernel's allowance (PERF.md §6): reported, each parting
     # row with the non-paged path's own gap. In float32 over the same
     # weights the same comparison is the gate.
     gcfg = greedy_config(dataclasses.replace(cfg, results_dir=str(tmp / "pgreedy")), MODEL,
@@ -4858,9 +4922,11 @@ def fleet_rows(results, pad: int) -> list:
 
 
 def full_width_fleet(torch, F, tmp: pathlib.Path, p24: dict, held: set) -> tuple:
-    """Phase 28(b) and (c) on phase 24's llama3-8b int8 engine. (b) Two
+    """Phase 28(b) and (c) on a llama3-8b int8 engine (``p24``: its engine
+    and its greedy rows in a control pool, as phase 24 gives them;
+    ``full_depth_control``'s at full depth). (b) Two
     replicas of the control pool's shape: the 16 gate prompts greedy
-    (FLEET_TOKENS), each row phase 24's served row cut to as many tokens
+    (FLEET_TOKENS), each row that pool's served row cut to as many tokens
     (``paged_gate``: parting only within the kernels' bf16 allowance); then the same requests again with r0 crashing
     after CRASH_POLLS health polls: fenced, its unfinished requests migrated
     to r1 at the head of its queue, every request complete with the
@@ -4908,8 +4974,8 @@ def full_width_fleet(torch, F, tmp: pathlib.Path, p24: dict, held: set) -> tuple
     # neutral prompt buckets one lower): a prefill group pads every row to
     # its largest bucket, so these keep phase 24's layout in any group the
     # fleet forms, and their bf16 rows must equal phase 24's exactly. A row
-    # prefilled at another padded length sums in another order, and at 32
-    # random-weight layers such rows part at gaps over a kernel's allowance
+    # prefilled at another padded length sums in another order, and over
+    # many random-weight layers such rows part at gaps over a kernel's allowance
     # (PERF.md §6, the paged sweeps).
     top = max(bucket(p) for p in gate_prompts)
     prompts = [p for p in gate_prompts if bucket(p) == top]
@@ -5180,6 +5246,31 @@ def rollout_drill(torch, tmp: pathlib.Path) -> dict:
     return row
 
 
+def full_depth_control(tmp: pathlib.Path) -> dict:
+    """Phase 28(b)-(c)'s llama3-8b int8 engine at full depth (phase 24's
+    is cut to CUT_LAYERS): built as phase 24 builds its engine, and its
+    greedy rows in a pool of the control shape (``CONTROL_SERVING``, the
+    gate's prompts), as phase 24 serves them, for the drills to hold their
+    rows against. The autoscale drill holds the allocator after a
+    retirement to RETIRE_MEM_SLACK of what was allocated before the scale-up;
+    a retirement leaves ~0.4-0.5 GB in no ledger pool (ROADMAP, Memory),
+    within that share of the full-depth engine's ~16 GB but not of a cut
+    one's ~6 GB."""
+    from fairness_llm_tpu_torch.config import Config, ServingConfig
+    from fairness_llm_tpu_torch.pipeline.backends import backend_for
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+    from fairness_llm_tpu_torch.serving import ServingBackend
+
+    cfg = Config(weight_quant="int8", max_new_tokens=MAX_TOKENS,
+                 data_dir=str(ROOT / "data" / "ml-1m"), results_dir=str(tmp / "full_depth"))
+    engine = backend_for(MODEL, cfg, allow_random=True).engine
+    control = ServingBackend(engine, ServingConfig(**CONTROL_SERVING), name=MODEL)
+    greedy = SweepRecorder(control)
+    run_phase1(greedy_config(cfg, MODEL, MAX_TOKENS), MODEL, GATE_PROFILES, backend=control,
+               save=False)
+    return {"engine": engine, "greedy": greedy}
+
+
 def fleet_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
     """Phase 28. Returns each kernels-line entry's launches on the main
     path's runs (the study models' fleet CLI runs and the rollout drill,
@@ -5217,7 +5308,7 @@ def fleet_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
         del recs
         gc.collect()
         launches[FULL_WIDTH], full_rows, frow, erow = full_width_fleet(
-            torch, F, tmp, p24["full_width"], held)
+            torch, F, tmp, full_depth_control(tmp), held)
         log(f"fleet_full_width {json.dumps({'device': device_line, **frow})}")
         log(f"fleet_autoscale {json.dumps({'device': device_line, **erow})}")
         for k, v in full_rows.items():
@@ -5667,10 +5758,13 @@ def devtel_path(torch, F, device_line: str, p24: dict, held: set) -> dict:
 TRACE_CLI_ARGS = ["--phase", "1", "--quick", "--continuous", "--slots", "16", "--model", MODEL,
                   "--weight-quant", "int8", "--max-new-tokens", "16"]
 TRACE_CHILD = """
-import functools, sys
+import dataclasses, functools, sys
 sys.path.insert(0, sys.argv[1])
+from fairness_llm_tpu_torch.models import configs
 from fairness_llm_tpu_torch.pipeline import backends, phase1
 phase1.backend_for = functools.partial(backends.backend_for, allow_random=True)
+configs.MODEL_CONFIGS[%(model)r] = dataclasses.replace(configs.MODEL_CONFIGS[%(model)r],
+                                                       num_layers=%(layers)d)
 from fairness_llm_tpu_torch.cli.main import main
 sys.exit(main(sys.argv[2:]))
 """
@@ -5737,7 +5831,8 @@ def trace_run(torch, tmp: pathlib.Path) -> dict:
     args = TRACE_CLI_ARGS + ["--data-dir", str(ROOT / "data" / "ml-1m"), "--results-dir",
                              str(results), "--trace-dir", str(trace_dir)]
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", TRACE_CHILD, str(ROOT)] + args, cwd=ROOT,
+    code = TRACE_CHILD % {"model": MODEL, "layers": CUT_LAYERS}
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)] + args, cwd=ROOT,
                           capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -5770,7 +5865,8 @@ def trace_run(torch, tmp: pathlib.Path) -> dict:
     if errors or rec["metadata"]["serving"] is None:
         fail(f"the traced CLI run served no record: error rows {errors[:4]}, serving "
              f"{rec['metadata']['serving']}")
-    return {"argv": args, "wall_s": wall, "capture": str(caps[0].relative_to(tmp)),
+    return {"argv": args, "layers": CUT_LAYERS, "wall_s": wall,
+            "capture": str(caps[0].relative_to(tmp)),
             "capture_bytes": caps[0].stat().st_size, "summary_s": summary_s,
             "device_ms": summaries[0].total_ms, "device_events": summaries[0].num_events,
             "device_op_names": len(ops), "serve_step": share,
@@ -5844,7 +5940,8 @@ def dp_rank(out: pathlib.Path) -> int:
         torch.cuda.reset_peak_memory_stats()
         zero_all(dec_mod, flash_mod, qm)
         t0 = time.perf_counter()
-        backend = backend_for(model, cfg, allow_random=model == MODEL)
+        with cut_depth(MODEL, CUT_LAYERS):  # as phase 21's sweep
+            backend = backend_for(model, cfg, allow_random=model == MODEL)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         calls = SweepRecorder(backend)
@@ -6107,7 +6204,6 @@ def tp_rank(out: pathlib.Path) -> int:
         ServingConfig,
         SpeculationConfig,
     )
-    from fairness_llm_tpu_torch.models import configs as model_configs
     from fairness_llm_tpu_torch.models.tokenizer import _left_pad
     from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
     from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
@@ -6144,15 +6240,8 @@ def tp_rank(out: pathlib.Path) -> int:
         zero_all(dec_mod, flash_mod, qm)
         t0 = time.perf_counter()
         if model == MODEL:
-            # Full width, the depth cut to TP_LAYERS: backend_for builds the
-            # model it names, so the name maps to the cut config while the
-            # engine is built, in this rank's process only.
-            full = model_configs.MODEL_CONFIGS[MODEL]
-            model_configs.MODEL_CONFIGS[MODEL] = dataclasses.replace(full, num_layers=TP_LAYERS)
-            try:
+            with cut_depth(MODEL, TP_LAYERS):  # full width, TP_LAYERS deep
                 backend = backend_for(model, cfg, allow_random=True)
-            finally:
-                model_configs.MODEL_CONFIGS[MODEL] = full
         else:
             backend = backend_for(model, cfg)
         torch.cuda.synchronize()
@@ -6897,9 +6986,18 @@ def spec_study_path(torch, F, device_line: str, sweep: dict, held: set) -> dict:
 # grouped call, seven q heads a kv head, an untied head of 152,064), each
 # with int8 weights as the llama3-8b runs serve them; and gpt2-small in bf16
 # (BASELINE.json's phase-1 model: head width 64, learned positions,
-# LayerNorm, biases, a tied head; cuBLAS projections).
+# LayerNorm, biases, a tied head; cuBLAS projections); then the tied
+# families, which have no int8 variant, in bf16 as well: llama32-1b (32 q
+# heads over 8 of width 64, rep 4), llama32-3b (24 over 8 of 128, rep 3)
+# and qwen2-0.5b (14 over 2 of 64, rep 7, q/k/v biases), each with a tied
+# 128,256- or 151,936-row head.
 FAMILY_MODELS = ("mistral-7b", "gemma-7b", "qwen2-7b")
-FAMILY_BF16 = "gpt2-small"
+FAMILY_BF16 = ("gpt2-small", "llama32-1b", "llama32-3b", "qwen2-0.5b")
+# Depth cuts for the script's time limit: mistral-7b's layers are
+# llama3-8b's (32/8 heads of 128, d_ff 14,336), which phases 3-31 hold at
+# every shape, so its sweep and phase 2 run at full width with this many of
+# its 32 layers (its window check, (d), runs 2 layers as before).
+FAMILY_LAYERS = {"mistral-7b": 8}
 # The float32 gates' depth (full width), as phase 18's.
 FAMILY_GATE_LAYERS = 4
 # Mistral's window on the card: one row past the window, at full width and
@@ -6911,33 +7009,43 @@ WINDOW_STEPS = 16
 VERIFY_Q = 9
 
 
-def family_sweep(torch, F, name: str, tmp: pathlib.Path, held: set) -> tuple:
-    """Phase 33(a) for one family: the phase-1 sweep through ``backend_for``
-    and ``run_phase1`` (45 profiles and 3 neutral prompts in chunks of 16,
-    t=0.7, ``MAX_TOKENS`` new tokens, the sweep-wide shared prefix) with
-    int8 weights (gpt2-small in bf16), the record checked and read back from
-    disk. K1 on flash_fwd_tc, K2 on decode_split_tc (none under mistral's
-    window) and K4's both regimes (none for gpt2-small) must launch, and no
-    float32 kernel. Every kernel call at a (shape, dtype) not in ``held`` is
-    held against its plain version. Returns the log row, the launches, the
-    rows by kernels-line entry, the backend and the recorders."""
+def family_sweep(torch, F, name: str, tmp: pathlib.Path, held: set, hold: bool = True) -> dict:
+    """Phase 33(a) for one family (and phase 34's sweep): the phase-1 sweep
+    through ``backend_for`` and ``run_phase1`` (45 profiles and 3 neutral
+    prompts in chunks of 16, t=0.7, ``MAX_TOKENS`` new tokens, the
+    sweep-wide shared prefix) with int8 weights (the ``FAMILY_BF16`` models
+    in bf16), at the depth ``FAMILY_LAYERS`` gives, the record checked and
+    read back from disk. K1 on flash_fwd_tc, K2 on decode_split_tc (none
+    under mistral's window) and K4's both regimes (none in bf16) must
+    launch, and no float32 kernel. With ``hold``, every kernel call at a
+    (shape, dtype) not in ``held`` is held against its plain version here;
+    without it, the caller holds ``recs`` (after freeing the model). Returns
+    the log row (init seconds, the parameters' bytes and the init's peak
+    among them), the launches, the rows by kernels-line entry (None
+    without ``hold``), the recorders, the backend, the sweep's first decode
+    step and the record."""
     from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.models.configs import get_model_config
     from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
     from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
     from fairness_llm_tpu_torch.ops import quant_matmul as qm
     from fairness_llm_tpu_torch.pipeline.backends import backend_for
     from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
 
-    quant = name != FAMILY_BF16
+    quant = name not in FAMILY_BF16
     cfg = Config(weight_quant="int8" if quant else None, max_new_tokens=MAX_TOKENS,
                  data_dir=str(ROOT / "data" / "ml-1m"), results_dir=str(tmp / name))
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    backend = backend_for(name, cfg, allow_random=True)
+    depth = FAMILY_LAYERS.get(name, get_model_config(name).num_layers)
+    with cut_depth(name, depth) as full:
+        backend = backend_for(name, cfg, allow_random=True)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     params_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     mcfg = backend.engine.config
     sweep = SweepRecorder(backend)
     with CardSampler() as card:
@@ -6965,6 +7073,7 @@ def family_sweep(torch, F, name: str, tmp: pathlib.Path, held: set) -> tuple:
                      "d_ff": mcfg.d_ff, "vocab": mcfg.vocab_size, "window": mcfg.sliding_window,
                      "tied": mcfg.tie_embeddings, "qkv_bias": mcfg.qkv_bias},
            "wall_s": prow["wall_s"], "engine_init_s": init_s, "params_gb": params_gb,
+           "init_peak_allocated_gb": init_peak_gb, "full_depth": full.num_layers,
            "decode_ms_per_step": sum(c["decode_ms_per_step"] * c["decode_steps"]
                                      for c in sweep.chunks) / max(steps, 1),
            "chunks": sweep.chunks, "peak_allocated_gb": prow["peak_allocated_gb"],
@@ -6973,10 +7082,12 @@ def family_sweep(torch, F, name: str, tmp: pathlib.Path, held: set) -> tuple:
     # The backend goes on to phase 2 unwrapped.
     vars(backend).pop("generate", None)
     vars(backend.engine).pop("generate", None)
-    rows = sweep_kernel_rows(recs, torch, F, qm, f"families_{name}", f32=False, held=held)
     # The sweep's first decode step, for K3 at its shapes (verify_rows).
     first_step = next((c for k, c in recs["dec"].calls.items() if k[0] == "k2"), None)
-    return row, launches, rows, backend, first_step
+    rows = (sweep_kernel_rows(recs, torch, F, qm, f"families_{name}", f32=False, held=held)
+            if hold else None)
+    return {"row": row, "launches": launches, "rows": rows, "recs": recs, "backend": backend,
+            "first_step": first_step, "record": rec}
 
 
 def family_phase2(torch, F, backends: dict, tmp: pathlib.Path, held: set) -> tuple:
@@ -7030,17 +7141,18 @@ def family_gates(torch, prompts, name: str) -> dict:
     9 in bf16 (reported: the largest logit difference and the argmax
     agreement with the plain-version path), then in float32 over the same
     weight tensors (``float32_twin``), held to 1e-3 of the logits' scale;
-    for a tied bf16 head (gemma), the head product's check of phase 3."""
+    for a tied head (gemma and the ``FAMILY_BF16`` models), the head
+    product's check of phase 3 in the model's bf16 arithmetic."""
     from fairness_llm_tpu_torch.models.configs import get_model_config
     from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
 
-    base = get_model_config(name if name == FAMILY_BF16 else f"{name}-int8")
+    base = get_model_config(name if name in FAMILY_BF16 else f"{name}-int8")
     cfg = dataclasses.replace(base, num_layers=FAMILY_GATE_LAYERS,
                               use_decode_attention_kernel=True)
     engine = DecodeEngine(cfg, seed=0)
     label = f"{name}_"
     out = {"bf16": teacher_forced_gate(engine, prompts, torch, label, cfg.vocab_size)}
-    if cfg.tie_embeddings and cfg.weight_quant == "int8":
+    if cfg.tie_embeddings:
         out["head_product"] = head_product_check(engine, torch, f"_{name}")
     twin = float32_twin(engine)
     out["f32"] = teacher_forced_gate(twin, prompts, torch, label, cfg.vocab_size, f32=True)
@@ -7150,7 +7262,7 @@ def window_check(torch, F, held: set) -> tuple:
     return row, {"window_bf16": counts, "window_f32": counts32}, {**rows, **rows32}
 
 
-def verify_rows(torch, F, first_steps: dict) -> list:
+def verify_rows(torch, F, first_steps: dict, path: str = "families") -> list:
     """Phase 33(e): K3 (decode_verify_tc) at the sweeps' shapes, at kernel
     level: for each family with the decode kernel, its phase-1 sweep's
     first recorded decode step (the shared prefix and the row cache as the
@@ -7172,7 +7284,7 @@ def verify_rows(torch, F, first_steps: dict) -> list:
         offs = (newest - (VERIFY_Q - 1)).to(torch.int32)
         k3 = {"n": 0, "args": (q4, k, v, valid),
               "kwargs": {**call["kwargs"], "q_offsets": offs}}
-        rows.append(dict(decode_numbers(k3, torch, F), path=f"families_{name}_kernel"))
+        rows.append(dict(decode_numbers(k3, torch, F), path=f"{path}_{name}_kernel"))
     check_rows("decode_attention_verify", rows, "every q_offset lowered by one")
     return rows
 
@@ -7182,8 +7294,10 @@ def families_path(torch, F, device_line: str, prompts, held: set) -> dict:
     int8 families, (c) the float32 gates at 4 layers, (d) mistral's window,
     (e) K3 at the sweeps' shapes. Kernel calls at a shape in ``held`` (the
     keys earlier phases held: mistral's layers are llama3-8b's) are not
-    held again. Returns the launches by path and the rows by kernels-line
-    entry."""
+    held again. The seconds of the tied families' sweeps and gates
+    (llama32-1b, llama32-3b, qwen2-0.5b) are logged apart
+    (``families_tied_s``). Returns the launches by path and the rows by
+    kernels-line entry."""
     import gc
     import tempfile
 
@@ -7194,17 +7308,20 @@ def families_path(torch, F, device_line: str, prompts, held: set) -> dict:
             rows.setdefault(k, []).extend(v)
 
     t0 = time.perf_counter()
-    backends, first_steps = {}, {}
+    backends, first_steps, seconds = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        for name in FAMILY_MODELS + (FAMILY_BF16,):
-            row, lm, rm, backend, first_steps[name] = family_sweep(torch, F, name, tmp, held)
-            log(f"families_phase1 {json.dumps({'device': device_line, **row})}")
-            launches[f"families_{name}"] = lm
-            add(rm)
+        for name in FAMILY_MODELS + FAMILY_BF16:
+            t1 = time.perf_counter()
+            sweep = family_sweep(torch, F, name, tmp, held)
+            log(f"families_phase1 {json.dumps({'device': device_line, **sweep['row']})}")
+            launches[f"families_{name}"] = sweep["launches"]
+            add(sweep["rows"])
+            first_steps[name] = sweep["first_step"]
             if name in FAMILY_MODELS:
-                backends[name] = backend
-            del backend
+                backends[name] = sweep["backend"]
+            del sweep
+            seconds[name] = time.perf_counter() - t1
         row, lm, rm = family_phase2(torch, F, backends, tmp, held)
         log(f"families_phase2 {json.dumps({'device': device_line, **row})}")
         launches["families_phase2"] = lm
@@ -7214,8 +7331,14 @@ def families_path(torch, F, device_line: str, prompts, held: set) -> dict:
     first_steps.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    gates = {name: family_gates(torch, prompts, name) for name in FAMILY_MODELS + (FAMILY_BF16,)}
+    gates = {}
+    for name in FAMILY_MODELS + FAMILY_BF16:
+        t1 = time.perf_counter()
+        gates[name] = family_gates(torch, prompts, name)
+        seconds[name] += time.perf_counter() - t1
     log(f"families_f32_gates {json.dumps({'device': device_line, **gates})}")
+    # the tied families' sweeps and gates, which phase 33 ran without before
+    log(f"families_tied_s {sum(seconds[name] for name in FAMILY_BF16[1:]):.1f}")
     row, lm, rm = window_check(torch, F, held)
     log(f"families_window {json.dumps({'device': device_line, **row})}")
     launches.update({f"families_{k}": v for k, v in lm.items()})
@@ -7224,13 +7347,241 @@ def families_path(torch, F, device_line: str, prompts, held: set) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+# Phase 34: llama3-70b (BASELINE.json configs[4]'s model: 80 layers,
+# d_model 8,192, 64 q heads over 8 kv heads of 128, d_ff 28,672, an untied
+# 128,256-row head) on the one card with int8 weights at full width and
+# depth, the fit the reference names for one device (~71.6 GB of
+# parameters). It runs in a child process of its own (``python3
+# chip_smoke.py --phase 34``), whose lines the main run streams: the child
+# starts from an empty card, where the parent holds what its earlier phases
+# left allocated and cached.
+LLAMA70B = "llama3-70b"
+# The parameters' bytes after init against the port's own count at tp=1
+# (``parallel.sharding.per_device_param_bytes``).
+PARAM_BYTES_RTOL = 0.01
+# C9: K2's and K3's bf16 kernels at llama3-8b's and llama3-70b's decode
+# (Q = 1) and verify (Q = 9) heads, (B, Q, H, Hkv) at head width 128, with
+# v of scale 4, over rows as the phase-1 sweep gives them (the 640-key
+# prefix, 100-224 own slots) and over rows of 12 keys with no prefix.
+LARGE_VALUE_SHAPES = {"llama3-8b_decode": (16, 1, 32, 8), "llama3-8b_verify": (16, 9, 32, 8),
+                      "llama3-70b_decode": (16, 1, 64, 8), "llama3-70b_verify": (16, 9, 64, 8)}
+LLAMA70B_CHILD_S = 1000
+
+
+def large_value_check(torch) -> dict:
+    """C9 on the card: decode_split_tc and decode_verify_tc at
+    ``LARGE_VALUE_SHAPES`` with v of scale 4 (bf16, seed 9), each against
+    its plain version at the bf16 allowance; each shape's largest error
+    over the allowance, which must not pass 1."""
+    from fairness_llm_tpu_torch.ops import decode_attention as dm
+
+    D, L = 128, 224
+    out = {}
+    for shape, (B, Q, H, Hkv) in LARGE_VALUE_SHAPES.items():
+        for rows in ("sweep", "short"):
+            g = torch.Generator(device="cuda").manual_seed(9)
+            q = torch.randn(B, Q, H, D, generator=g, device="cuda").bfloat16()
+            k = torch.randn(B, L, Hkv, D, generator=g, device="cuda").bfloat16()
+            v = (torch.randn(B, L, Hkv, D, generator=g, device="cuda") * 4).bfloat16()
+            if rows == "sweep":
+                P, keys = 640, torch.randint(100, L + 1, (B,), generator=g, device="cuda")
+                shared = (torch.randn(P, Hkv, D, generator=g, device="cuda").bfloat16(),
+                          (torch.randn(P, Hkv, D, generator=g, device="cuda") * 4).bfloat16())
+            else:
+                keys, shared = torch.full((B,), 12, device="cuda"), None
+            valid = torch.arange(L, device="cuda")[None, :] < keys[:, None]
+            kw = {} if Q == 1 else {"q_offsets": (keys - Q).to(torch.int32)}
+            qq = q[:, 0] if Q == 1 else q
+            err, ratio = gate(dm.decode_attention(qq, k, v, valid, shared, **kw),
+                              dm.decode_attention_reference(qq, k, v, valid, shared, **kw))
+            out[f"{shape}_{rows}"] = {"max_abs_err": err, "err_over_tol": ratio}
+    worst = max(r["err_over_tol"] for r in out.values())
+    if worst > 1:
+        fail(f"K2/K3 at v of scale 4 miss the bf16 allowance: {out}")
+    return {"rows": out, "max_err_over_tol": worst}
+
+
+def study_calibration(tmp: pathlib.Path) -> tuple:
+    """The study checkpoint's phase-3 calibration rows (prompts,
+    continuations), as phase 22 takes them: tiny-llama-study's t=0.7
+    phase-1 sweep, then its phase 3 with the study's calibration."""
+    from fairness_llm_tpu_torch.config import Config
+    from fairness_llm_tpu_torch.pipeline.phase1 import run_phase1
+    from fairness_llm_tpu_torch.pipeline.phase3 import run_phase3
+
+    name = STUDY_MODELS[0]
+    cfg = Config(weights_dir=str(ROOT / "checkpoints"), data_dir=str(ROOT / "data" / "ml-1m"),
+                 results_dir=str(tmp / name))
+    p1 = run_phase1(cfg, name)
+    with CalibrationRows() as rows3:
+        run_phase3(cfg, phase1_results=p1, model_name=name, calibration=CALIBRATION, save=False)
+    if not rows3.calls or not rows3.calls[0][0]:
+        fail(f"{name} phase 3: the calibration scored no row")
+    return rows3.calls[0][:2]
+
+
+def memory_line(torch, label: str) -> None:
+    free, total = torch.cuda.mem_get_info()
+    log(f"{label} " + json.dumps({
+        "free_gb": free / 1e9, "total_gb": total / 1e9,
+        "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+        "reserved_gb": torch.cuda.memory_reserved() / 1e9}))
+
+
+def llama70b_path(torch, F, device_line: str, prompts) -> dict:
+    """Phase 34, in its own process: (1) ``backend_for`` builds llama3-70b
+    with ``weight_quant="int8"`` and random weights from seed 0 (byte
+    tokenizer); the init's seconds, its peak, and the parameters' bytes
+    against ``per_device_param_bytes`` at tp=1 (within 1%) and
+    ``int8_tree_bytes``; (2) the phase-1 sweep as ``family_sweep`` runs it
+    (K1, K2 and both K4 regimes on their tensor-core kernels, no float32
+    kernel; the record checked and read back); (3) ``run_phase3`` on the
+    sweep's record with the study's calibration (the conformal variant:
+    with random weights naming no title, the aggressive variant raises in
+    ``facter.smart_balance``, as the reference's does), then the scoring
+    forward over the study checkpoint's calibration rows; (4) with the
+    80-layer model freed, every kernel call of (2)-(3) held against its
+    plain version (the lm_head's K4 GEMM with a float32 output at the
+    scoring M among them), K3 at kernel level at the sweep's first decode
+    step (72 query rows a kv head), and K2/K3 at v of scale 4 (C9); (5)
+    the float32 gate at full width and 4 layers. Returns the launches by
+    path and the rows by kernels-line entry."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from fairness_llm_tpu_torch.config import Config, MeshConfig
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.parallel.sharding import per_device_param_bytes
+    from fairness_llm_tpu_torch.pipeline.phase3 import run_phase3
+    from fairness_llm_tpu_torch.runtime.scoring import score_prompted_continuations
+
+    t0 = time.perf_counter()
+    memory_line(torch, "llama70b_memory_at_start")
+    launches, rows, held = {}, {}, set()
+
+    def add(new_rows):
+        for k, v in new_rows.items():
+            rows.setdefault(k, []).extend(v)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        calibration = study_calibration(tmp)
+        sweep = family_sweep(torch, F, LLAMA70B, tmp, held, hold=False)
+        backend, row = sweep.pop("backend"), sweep["row"]
+        mcfg = backend.engine.config
+        want = per_device_param_bytes(mcfg, MeshConfig(), itemsize=2)
+        got = row["params_gb"] * 1e9
+        row.update(per_device_param_gb=want / 1e9, int8_tree_gb=int8_tree_bytes(mcfg) / 1e9,
+                   params_over_per_device=got / want)
+        log(f"llama70b_phase1 {json.dumps({'device': device_line, **row})}")
+        if mcfg.num_layers != 80 or mcfg.d_model != 8192 or mcfg.weight_quant != "int8":
+            fail(f"phase 34 did not build llama3-70b int8 at full width and depth: {mcfg}")
+        if abs(got - want) > PARAM_BYTES_RTOL * want:
+            fail(f"llama3-70b int8: {got} bytes allocated by the init, "
+                 f"per_device_param_bytes says {want}")
+        launches["llama70b_phase1"] = sweep["launches"]
+
+        cfg = Config(weight_quant="int8", max_new_tokens=MAX_TOKENS,
+                     data_dir=str(ROOT / "data" / "ml-1m"), results_dir=str(tmp / "phase3"))
+        label = "llama3-70b int8 phase 3"
+        p3, p3row, recs3 = timed_phase(
+            torch, dec_mod, flash_mod, qm,
+            lambda: run_phase3(cfg, phase1_results=sweep["record"], model_name=LLAMA70B,
+                               calibration=CALIBRATION, backend=backend))
+        # Random weights name no title, so run_phase3's calibration scores
+        # no row: the study checkpoint's rows, through the same engine.
+        sc, scrow, recs_sc = timed_phase(
+            torch, dec_mod, flash_mod, qm,
+            lambda: score_prompted_continuations(backend.engine, *calibration))
+        p23_record_check(cfg, p3, label, 3)
+        need_kernels(p3row["launches"], label, f32=False)
+        if scrow["scoring"]["forwards"] <= 0:
+            fail(f"{label}: no scoring forward ran over the calibration rows")
+        if not np.isfinite(sc.log_likelihoods).all() or not any(sc.token_counts):
+            fail(f"{label}: the scoring of the calibration rows is malformed: {sc}")
+        head = tuple(backend.engine.model.lm_head.kernel_q.shape)
+        launches["llama70b_phase3"] = p3row["launches"]
+        launches["llama70b_phase3_scoring"] = scrow["launches"]
+        log(f"llama70b_phase3 " + json.dumps({
+            "device": device_line, "variant": "conformal", "calibration": CALIBRATION,
+            "phase3": p3row, "phase3_scoring": scrow, "scoring_rows": len(calibration[0]),
+            "kept_titles": sum(len(v) for v in p3["mitigated_recommendations"].values()),
+            "mean_logprob_vacuous_random_weights": float(np.mean(sc.mean_logprobs))}))
+        del backend, p3, sc
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory_line(torch, "llama70b_memory_freed")
+        for recs, path in ((sweep.pop("recs"), "llama70b_phase1"), (recs3, "llama70b_phase3"),
+                           (recs_sc, "llama70b_phase3_scoring")):
+            add(sweep_kernel_rows(recs, torch, F, qm, path, f32=False, held=held))
+        del recs3, recs_sc
+    if not any(r["scoring"] and (r["shape"]["K"], r["shape"]["N"]) == head
+               and r["shape"]["out"] == "float32" for r in rows.get("quant_matmul_gemm", [])):
+        fail("the lm_head's K4 GEMM with an f32 output was not called by a scoring forward")
+    add({"decode_attention_verify": verify_rows(torch, F, {LLAMA70B: sweep.pop("first_step")},
+                                                "llama70b")})
+    log(f"c9_large_values {json.dumps({'device': device_line, **large_value_check(torch)})}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate70 = family_gates(torch, prompts, LLAMA70B)
+    log(f"llama70b_f32_gate {json.dumps({'device': device_line, **gate70})}")
+    log(f"llama70b_s {time.perf_counter() - t0:.1f}")
+    return {"launches": launches, "rows": rows}
+
+
+def llama70b_child(torch, tmp: pathlib.Path) -> dict:
+    """Phase 34 from the main run: drop the kernels' grown workspaces (a
+    later call would grow them again), empty the allocator's cache, log the
+    card's memory, start ``chip_smoke.py --phase 34`` and stream its lines;
+    a non-zero exit fails the script. Returns the launches and rows the
+    child wrote."""
+    import gc
+    import threading
+
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+
+    for cache in (dec_mod._workspaces, qm._partials, qm._counters):
+        cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_line(torch, "llama70b_parent_memory")
+    out = tmp / "phase34.json"
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", "34",
+                             "--out", str(out)], cwd=str(ROOT), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, bufsize=1)
+    timer = threading.Timer(LLAMA70B_CHILD_S, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+        code = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if code != 0:
+        fail(f"phase 34's child exited {code}")
+    return json.loads(out.read_text())
+
+
 def main(argv) -> int:
     # ``--phase 33`` runs phase 33 alone after the build (with no earlier
     # phase's shapes held, every kernel call of it is held), and prints its
-    # launches last in place of the kernels and result lines.
+    # launches last in place of the kernels and result lines; ``--phase 34``
+    # the same for phase 34, and with ``--out FILE`` (as the main run starts
+    # it) it writes its launches and rows there instead.
     families_only = argv == ["--phase", "33"]
-    if argv and not families_only:
-        fail(f"unknown arguments {argv}: run with none, or with --phase 33")
+    llama70b_only = argv[:2] == ["--phase", "34"] and (
+        len(argv) == 2 or (len(argv) == 4 and argv[2] == "--out"))
+    if argv and not (families_only or llama70b_only):
+        fail(f"unknown arguments {argv}: run with none, with --phase 33, or with --phase 34 "
+             "[--out FILE]")
     try:
         import torch
         import torch.nn.functional as F
@@ -7277,6 +7628,14 @@ def main(argv) -> int:
         log(f"families_path_s {time.perf_counter() - t0:.1f}")
         log(device_line)
         print(json.dumps({"families_launches": families["launches"]}), flush=True)
+        return 0
+    if llama70b_only:
+        p34 = llama70b_path(torch, F, device_line, prompts)
+        if len(argv) == 4:
+            pathlib.Path(argv[3]).write_text(json.dumps(p34))
+            return 0
+        log(device_line)
+        print(json.dumps({"llama70b_launches": p34["launches"]}), flush=True)
         return 0
     keys = [p.id for p in profiles]
     greedy = ModelSettings(temperature=0.0, max_tokens=MAX_TOKENS)
@@ -7327,6 +7686,12 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     families = families_path(torch, F, device_line, prompts, paged["held"])
     log(f"families_path_s {time.perf_counter() - t0:.1f}")
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        llama70b = llama70b_child(torch, pathlib.Path(tmp))
+    log(f"llama70b_path_s {time.perf_counter() - t0:.1f}")
     # K3 f32's main path is phase 32's sweeps; phase 13's calls at
     # llama3-8b's width become its gate launches and shapes
     i = next(i for i, e in enumerate(kernels) if e["name"] == "decode_attention_verify_f32")
@@ -7366,7 +7731,7 @@ def main(argv) -> int:
         for key, phase in (("serving", served), ("paged", paged), ("containment", contained),
                            ("overload", overload), ("fleet", fleet), ("devtel", devtel),
                            ("dp", dp), ("tp", tp), ("spec_sweep", spec),
-                           ("families", families)):
+                           ("families", families), ("llama70b", llama70b)):
             entry[f"{key}_launches"] = by_path(phase["launches"])
             if name in phase["rows"]:
                 entry[f"{key}_shapes"] = phase["rows"][name]

@@ -61,8 +61,10 @@
 // workspace the wrapper allocates, and combine_splits folds them in split
 // order (deterministic; a split in which a row saw no key has l = 0 and is
 // skipped). Both launches come from one C call; with one split the kernel
-// writes the output itself. Rounding P (times the v-scale) to bf16 before
-// P.V is the one numerical change against the f32 plain version.
+// writes the output itself. P (times the v-scale) goes to P.V as two bf16
+// terms, its rounding and the remainder (split_bf16x2, as flash_fwd_tc's;
+// ROADMAP C9): with one term a row of few keys near cancellation missed the
+// bf16 allowance. Their sum carries P to about 2^-17 of itself.
 //
 // decode_split_tc (bf16, one query per row: K2 over a bf16 cache, K2q over
 // an int8 cache), on the same tile_update. The shared prefix is the same for
@@ -234,7 +236,11 @@ __device__ __forceinline__ void tile_update(QFrag qfrag, const bf16* kt, const f
   }
 
   // O += P V, P (times the v-scale over an int8 cache) straight from the
-  // score fragments.
+  // score fragments as two bf16 terms (its rounding pa and the remainder
+  // pl, split_bf16x2), each a product with the same V fragment: one term
+  // moved an output by up to 2^-9 of the largest |v| it averages, which a
+  // row of few keys near cancellation does not absorb (ROADMAP C9, as C8
+  // in flash_attention.cu); two carry P to about 2^-17.
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     float w[4] = {1.f, 1.f, 1.f, 1.f};  // keys 16kk + q2 + {0, 1}, then + 8
@@ -243,11 +249,11 @@ __device__ __forceinline__ void tile_update(QFrag qfrag, const bf16* kt, const f
       const float2 hi = *reinterpret_cast<const float2*>(kss + BK + kk * 16 + 8 + q2);
       w[0] = lo.x, w[1] = lo.y, w[2] = hi.x, w[3] = hi.y;
     }
-    const uint32_t pa[4] = {
-        frag::pack_bf16x2(s[2 * kk][0] * w[0], s[2 * kk][1] * w[1]),
-        frag::pack_bf16x2(s[2 * kk][2] * w[0], s[2 * kk][3] * w[1]),
-        frag::pack_bf16x2(s[2 * kk + 1][0] * w[2], s[2 * kk + 1][1] * w[3]),
-        frag::pack_bf16x2(s[2 * kk + 1][2] * w[2], s[2 * kk + 1][3] * w[3])};
+    uint32_t pa[4], pl[4];
+    frag::split_bf16x2(s[2 * kk][0] * w[0], s[2 * kk][1] * w[1], pa[0], pl[0]);
+    frag::split_bf16x2(s[2 * kk][2] * w[0], s[2 * kk][3] * w[1], pa[1], pl[1]);
+    frag::split_bf16x2(s[2 * kk + 1][0] * w[2], s[2 * kk + 1][1] * w[3], pa[2], pl[2]);
+    frag::split_bf16x2(s[2 * kk + 1][2] * w[2], s[2 * kk + 1][3] * w[3], pa[3], pl[3]);
 #pragma unroll
     for (int dd = 0; dd < DP / 16; ++dd) {
       uint32_t r[4];
@@ -255,6 +261,8 @@ __device__ __forceinline__ void tile_update(QFrag qfrag, const bf16* kt, const f
                                  (lane / 16) * 8);
       frag::mma_bf16(acc[2 * dd], pa, r[0], r[1]);
       frag::mma_bf16(acc[2 * dd + 1], pa, r[2], r[3]);
+      frag::mma_bf16(acc[2 * dd], pl, r[0], r[1]);
+      frag::mma_bf16(acc[2 * dd + 1], pl, r[2], r[3]);
     }
   }
 }

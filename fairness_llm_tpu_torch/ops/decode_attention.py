@@ -21,7 +21,7 @@ of one kind (prefix or own cache), and folds the splits' partials in a
 second launch of the same call (``combine_splits``); the workspace for them
 is allocated here, once per device and stream, and kept for the calls that
 follow (``_workspace``). bfloat16 goes to the tensor-core kernels
-(mma.sync; P is rounded to bf16 before P.V): a verify window (4-D q) to
+(mma.sync; P goes to P.V as two bf16 terms): a verify window (4-D q) to
 ``decode_verify_tc``, planned by ``verify_splits``; one query per row (K2,
 K2q) to ``decode_split_tc``, planned by ``decode_splits``, whose prefix
 splits take every batch row's queries of a kv head together, so each prefix

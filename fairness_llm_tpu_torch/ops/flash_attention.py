@@ -8,7 +8,7 @@ window``. An all-masked query row (a left-pad row) gives 0.
 ``flash_attention`` launches a hand-written CUDA kernel
 (``csrc/flash_attention.cu``) for a CUDA tensor and takes the plain version,
 ``flash_attention_reference``, only for a CPU tensor. bfloat16 goes to the
-tensor-core kernel (``mma.sync``; P is rounded to bf16 before P.V), built
+tensor-core kernel (``mma.sync``; P goes to P.V as two bf16 terms), built
 for head widths ``TC_WIDTHS``: q/k/v with another D are copied with D
 zero-padded to the next width (zero columns add nothing to q.k, and the
 output columns they give are cut off). float32 goes to the scalar f32

@@ -105,30 +105,38 @@ def init_params(cfg: ModelConfig, seed: int, device: torch.device,
                 dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """Random parameters made straight in ``dtype`` on ``device``, with the
     families the reference's low-memory init uses: int8 kernels
-    round(N(0, 1) * 42) clipped to +-127 under a scale of 0.02 / 42 (these
-    two rules come before the generic ones), norm scales one, biases zero,
+    round(N(0, 1) * 42) clipped to +-127 under a scale of 0.02 / 42 (a
+    ``kernel_scale`` is not a norm scale), norm scales one, biases zero,
     every other tensor N(0, 0.02). Parameter i draws from its own generator
-    seeded from (seed, i)."""
+    seeded from (seed, i), so the order of the draws changes no value: the
+    largest tensors are drawn first, while the device is still empty. An
+    int8 kernel's float32 draw (4.2 GB for llama3-70b's lm_head) then never
+    sits on top of the other ~70 GB. The dict keeps the model's order."""
     dtype = dtype or (torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
-    out: Dict[str, torch.Tensor] = {}
-    for i, (name, shape) in enumerate(param_shapes(cfg).items()):
-        if name.endswith("kernel_q"):
-            gen = torch.Generator(device=device)
-            gen.manual_seed(seed * 1_000_003 + i)
-            t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-            out[name] = t.mul_(_INT8_STD).round_().clamp_(-127, 127).to(torch.int8)
-        elif name.endswith("kernel_scale"):
-            out[name] = torch.full(shape, _NOMINAL_SCALE, dtype=torch.float32, device=device)
-        elif name.endswith("scale"):
-            out[name] = torch.ones(shape, dtype=dtype, device=device)
-        elif name.endswith("bias"):
-            out[name] = torch.zeros(shape, dtype=dtype, device=device)
-        else:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(seed * 1_000_003 + i)
-            t = torch.randn(shape, generator=gen, dtype=dtype, device=device)
-            out[name] = t.mul_(0.02)
-    return out
+    shapes = list(param_shapes(cfg).items())
+    drawn: Dict[str, torch.Tensor] = {}
+    for i in sorted(range(len(shapes)), key=lambda j: -shapes[j][1].numel()):
+        name, shape = shapes[i]
+        drawn[name] = _draw(name, shape, seed * 1_000_003 + i, device, dtype)
+    return {name: drawn[name] for name, _ in shapes}
+
+
+def _draw(name: str, shape: torch.Size, seed: int, device: torch.device,
+          dtype: torch.dtype) -> torch.Tensor:
+    """One parameter of ``init_params``, its random families drawn from a
+    generator seeded with ``seed``."""
+    if name.endswith("kernel_scale"):
+        return torch.full(shape, _NOMINAL_SCALE, dtype=torch.float32, device=device)
+    if name.endswith("scale"):
+        return torch.ones(shape, dtype=dtype, device=device)
+    if name.endswith("bias"):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    if name.endswith("kernel_q"):
+        t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return t.mul_(_INT8_STD).round_().clamp_(-127, 127).to(torch.int8)
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device).mul_(0.02)
 
 
 def build_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],

@@ -35,7 +35,7 @@ float or an int8 cache) take the attention tolerances above; their blind
 checks mask the newest slot (K2q) or lower every q_offset by one (K3, so
 each query loses its own slot). A bf16 verify window runs on the
 tensor-core kernel (decode_verify_tc), which, as the bf16 flash kernel,
-rounds P (times the v-scale over an int8 cache) to bf16 before P.V, and
+feeds P (times the v-scale over an int8 cache) to P.V as two bf16 terms, and
 splits the keys across blocks; its partials are combined in a fixed order,
 so repeated calls agree bit for bit. A bf16 one-query call (K2, K2q) runs
 on decode_split_tc the same way, with prefix splits shared by the batch. A
@@ -1343,3 +1343,60 @@ def test_quant_matmul_group_at_family_shapes(dev, family_weights, group, M):
         want = qmm.quant_matmul_reference(x, wq, scale, torch.bfloat16)
         torch.testing.assert_close(out.float(), want.float(), **QMM_TOL[torch.bfloat16],
                                    msg=lambda m, _i=i: f"weight {_i}: {m}")
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_verify_tc_kernel_at_72_rows_a_kv_head(dev, int8):
+    """decode_verify_tc at llama3-70b's verify window: 9 rows a row times 8
+    q heads a kv head, 72 query rows a kv head, so two row blocks a kv
+    head (the second of 8 rows), at the phase-1 sweep's prefix of 640 and a
+    row cache of 224, against the plain version; lowering every q_offset by
+    one (each query loses its own slot) must fail the tolerance."""
+    B, Q, rep, Hkv, L, D, P = 16, 9, 8, 8, 224, 128, 640
+    q, k, v, valid, shared, offs, scales = _verify_inputs(dev, 72, B, Q, rep, Hkv, L, D, P,
+                                                          int8)
+    before = dec_mod.multi_tc_launches
+    got = dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.cuda.synchronize()
+    assert dec_mod.multi_tc_launches == before + 1
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, q_offsets=offs, **scales)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    _outside_tolerance(dec_mod.decode_attention(q, k, v, valid, shared, q_offsets=offs - 1,
+                                                **scales), want, torch.bfloat16)
+
+
+# (B, Q, H, Hkv) of the main path's decode (Q = 1) and verify (Q = 9) calls
+# at llama3-8b's and llama3-70b's heads, head width 128.
+LARGE_VALUE_SHAPES = {"llama3-8b_decode": (16, 1, 32, 8), "llama3-8b_verify": (16, 9, 32, 8),
+                      "llama3-70b_decode": (16, 1, 64, 8), "llama3-70b_verify": (16, 9, 64, 8)}
+
+
+@pytest.mark.parametrize("rows", ["sweep", "short"])
+@pytest.mark.parametrize("shape", list(LARGE_VALUE_SHAPES))
+def test_decode_tc_kernels_at_large_values(dev, shape, rows):
+    """C9: decode_split_tc (Q = 1) and decode_verify_tc (Q = 9) with v of
+    scale 4, rows as the phase-1 sweep gives them (the 640-key prefix and
+    100-224 own slots) and rows of 12 keys with no prefix, where an output
+    averages few values that can nearly cancel. Each must hold the bf16
+    allowance; with P in one bf16 term rows of few keys did not
+    (tests/test_torch_ops.py emulates both)."""
+    B, Q, H, Hkv = LARGE_VALUE_SHAPES[shape]
+    D, L = 128, 224
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(B, Q, H, D, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, L, Hkv, D, generator=g, device=dev).bfloat16()
+    v = (torch.randn(B, L, Hkv, D, generator=g, device=dev) * 4).bfloat16()
+    if rows == "sweep":
+        P, keys = 640, torch.randint(100, L + 1, (B,), generator=g, device=dev)
+    else:
+        P, keys = 0, torch.full((B,), 12, device=dev)
+    shared = None
+    if P:
+        shared = (torch.randn(P, Hkv, D, generator=g, device=dev).bfloat16(),
+                  (torch.randn(P, Hkv, D, generator=g, device=dev) * 4).bfloat16())
+    valid = torch.arange(L, device=dev)[None, :] < keys[:, None]
+    kw = {} if Q == 1 else {"q_offsets": (keys - Q).to(torch.int32)}
+    q = q[:, 0] if Q == 1 else q
+    got = dec_mod.decode_attention(q, k, v, valid, shared, **kw)
+    want = dec_mod.decode_attention_reference(q, k, v, valid, shared, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])

@@ -4,9 +4,12 @@ package on the CPU.
 Tiny configurations of four families, built in both packages from the same
 fields: mistral (a sliding window of 8 under rows longer than it), gemma
 (one q head a kv head, ``gelu_tanh``, ``embed_scale``, a tied head), qwen2
-(q/k/v biases, two q heads a kv head, a tied head) and llama with a tied
-head. Weights come from the reference's flax init and go through
-``params_from_jax``; inputs are made with numpy from a seed.
+(q/k/v biases, two q heads a kv head, a tied head), llama with a tied
+head, and two at the head ratios of the largest and smallest configurations
+the port runs: llama with 16 q heads over 2 kv heads (llama3-70b's rep 8)
+and tied qwen2 with 14 over 2 (qwen2-0.5b's rep 7). Weights come from the
+reference's flax init and go through ``params_from_jax``; inputs are made
+with numpy from a seed.
 
 - The forward: a left-padded prefill, cached single-token steps, and steps
   over a shared prompt prefix (the phase-1 sweep's layout), with the decode
@@ -69,6 +72,11 @@ FAMILIES = {
                   tie_embeddings=True),
     "qwen2": dict(num_kv_heads=2, norm_eps=1e-6, qkv_bias=True, tie_embeddings=True),
     "llama-tied": dict(num_kv_heads=2, tie_embeddings=True),
+    # llama3-70b's eight q heads a kv head, and qwen2-0.5b's seven with its
+    # tied head and q/k/v biases.
+    "llama-rep8": dict(num_heads=16, num_kv_heads=2),
+    "qwen2-tied-rep7": dict(num_heads=14, num_kv_heads=2, norm_eps=1e-6, qkv_bias=True,
+                            tie_embeddings=True),
 }
 
 
@@ -242,7 +250,11 @@ def test_family_greedy_tokens_equal_the_reference_engine(family, share_prefix):
 # ---------------------------------------------------------------------------
 
 HF_TINY = dict(d=64, ff=128, layers=2, heads=4, vocab=256, seq=256)
-HF_FAMILIES = ["llama", "llama-tied", "gemma", "gpt2", "mistral", "qwen2"]
+HF_FAMILIES = ["llama", "llama-tied", "gemma", "gpt2", "mistral", "qwen2", "llama-rep8",
+               "qwen2-tied-rep7"]
+# Q heads of the families with more than the tiny default's four (of head
+# width 16, so q is wider than d_model): llama3-70b's rep 8, qwen2-0.5b's 7.
+HF_HEADS = {"llama-rep8": 16, "qwen2-tied-rep7": 14}
 
 
 def _hf_build(family):
@@ -258,7 +270,10 @@ def _hf_build(family):
     common = dict(vocab_size=t["vocab"], hidden_size=t["d"], intermediate_size=t["ff"],
                   num_hidden_layers=t["layers"], num_attention_heads=t["heads"], head_dim=16,
                   max_position_embeddings=t["seq"], rope_theta=10000.0)
-    if family in ("llama", "llama-tied"):
+    heads = HF_HEADS.get(family, t["heads"])
+    common.update(num_attention_heads=heads)
+    fields.update(num_heads=heads)
+    if family in ("llama", "llama-tied", "llama-rep8"):
         tied = family == "llama-tied"
         hf = transformers.LlamaForCausalLM(transformers.LlamaConfig(
             **common, num_key_value_heads=2, rms_norm_eps=1e-5, tie_word_embeddings=tied,
@@ -281,7 +296,7 @@ def _hf_build(family):
         hf = transformers.MistralForCausalLM(transformers.MistralConfig(
             **common, num_key_value_heads=2, rms_norm_eps=1e-5, sliding_window=8))
         fields.update(num_kv_heads=2, norm_eps=1e-5, sliding_window=8)
-    elif family == "qwen2":
+    elif family in ("qwen2", "qwen2-tied-rep7"):
         hf = transformers.Qwen2ForCausalLM(transformers.Qwen2Config(
             **common, num_key_value_heads=2, rms_norm_eps=1e-6, tie_word_embeddings=True))
         fields.update(num_kv_heads=2, norm_eps=1e-6, qkv_bias=True, tie_embeddings=True)

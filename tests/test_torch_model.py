@@ -35,6 +35,7 @@ from fairness_llm_tpu_torch.models import transformer as ttr  # noqa: E402
 from fairness_llm_tpu_torch.runtime.weights import (  # noqa: E402
     build_model,
     init_params,
+    param_shapes,
     params_from_jax,
 )
 
@@ -195,6 +196,45 @@ def test_init_params_families_and_seed():
     bf = init_params(tconfigs.get_model_config("tiny-test"), seed=0,
                      device=torch.device("cpu"), dtype=torch.bfloat16)
     assert all(t.dtype == torch.bfloat16 for t in bf.values())
+
+
+def _init_params_in_model_order(cfg, seed, dtype):
+    """init_params as it drew before it drew the largest tensors first:
+    parameter i from its own generator seeded from (seed, i), in the
+    model's order."""
+    out = {}
+    for i, (name, shape) in enumerate(param_shapes(cfg).items()):
+        gen = torch.Generator().manual_seed(seed * 1_000_003 + i)
+        if name.endswith("kernel_q"):
+            t = torch.randn(shape, generator=gen, dtype=torch.float32)
+            out[name] = t.mul_(42.0).round_().clamp_(-127, 127).to(torch.int8)
+        elif name.endswith("kernel_scale"):
+            out[name] = torch.full(shape, 0.02 / 42.0, dtype=torch.float32)
+        elif name.endswith("scale"):
+            out[name] = torch.ones(shape, dtype=dtype)
+        elif name.endswith("bias"):
+            out[name] = torch.zeros(shape, dtype=dtype)
+        else:
+            out[name] = torch.randn(shape, generator=gen, dtype=dtype).mul_(0.02)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["tiny-test", "tiny-gpt2"])
+def test_init_params_largest_first_draws_the_same_tensors(name, dtype):
+    """Drawing the largest tensors first (an int8 lm_head's float32 draw
+    before the rest of a 70B model is on the card) gives every parameter
+    bit for bit as the model-order draw did, for int8 and float weights,
+    biases and a tied head included; the dict keeps the model's order."""
+    for quant in ("none", "int8"):
+        cfg = dataclasses.replace(tconfigs.get_model_config(name), weight_quant=quant)
+        got = init_params(cfg, seed=3, device=torch.device("cpu"), dtype=dtype)
+        want = _init_params_in_model_order(cfg, 3, dtype)
+        assert list(got) == list(want) == list(param_shapes(cfg))
+        for key, w in want.items():
+            assert got[key].dtype == w.dtype and torch.equal(got[key], w), key
+        if quant == "int8":
+            assert got["layer_0.mlp.down_proj.kernel_q"].dtype == torch.int8
 
 
 def test_unported_cache_and_weights_refuse():

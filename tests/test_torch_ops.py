@@ -292,3 +292,96 @@ def test_flash_tc_p_in_two_bf16_terms_holds_the_allowance(v_scale):
     assert ratio(2) <= 1
     if v_scale > 1:
         assert ratio(1) > 1
+
+
+@pytest.mark.parametrize("at", ["offset0", "offset_end"])
+@pytest.mark.parametrize("cache", ["float", "int8"])
+def test_verify_reference_matches_pallas_at_72_rows_a_kv_head(cache, at):
+    """llama3-70b's verify window: 9 rows a row times 8 q heads a kv head,
+    72 query rows a kv head, past one 64-row block of decode_verify_tc (two
+    blocks, the second of 8 rows). The port's plain version, which the card
+    kernel is held to, must match the Pallas kernel there, over a float and
+    an int8 cache, every window at slot 0 or at the cache's end."""
+    rng = np.random.default_rng(72)
+    B, Q, rep, hkv, D, L, P = 8, 9, 8, 1, 64, 128, 96
+    q = rng.normal(size=(B, Q, rep * hkv, D)).astype(np.float32)
+    k = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
+    offs = np.full(B, 0 if at == "offset0" else L - Q, np.int32)
+    valid = rng.random((B, L)) < 0.8
+    valid[:, offs[0]] = True
+    shared = tuple(rng.normal(size=(P, hkv, D)).astype(np.float32) for _ in range(2))
+    scales = {}
+    if cache == "int8":
+        (kq, ks), (vq, vs) = _quantize_kv(torch.from_numpy(k)), _quantize_kv(torch.from_numpy(v))
+        k, v = kq.numpy(), vq.numpy()
+        scales = {"k_scale": ks.numpy(), "v_scale": vs.numpy()}
+    want = np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+        tuple(jnp.asarray(a) for a in shared), q_offsets=jnp.asarray(offs), interpret=True,
+        **{n: jnp.asarray(a) for n, a in scales.items()}))
+    got = dec_mod.decode_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(valid),
+        tuple(torch.from_numpy(a) for a in shared), q_offsets=torch.from_numpy(offs),
+        **{n: torch.from_numpy(a) for n, a in scales.items()}).numpy()
+    assert got.shape == (B, Q, rep * hkv, D)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+# The main path's decode (Q = 1) and verify (Q = 9) calls at llama3-8b's and
+# llama3-70b's heads: (B, Q, H, Hkv), head width 128.
+DECODE_SHAPES = {"llama3-8b_decode": (16, 1, 32, 8), "llama3-8b_verify": (4, 9, 32, 8),
+                 "llama3-70b_decode": (16, 1, 64, 8), "llama3-70b_verify": (4, 9, 64, 8)}
+
+
+def _decode_tc_ratio(B, Q, H, Hkv, P, keys, terms, seed=0):
+    """The largest error over the bf16 allowance (4e-3 + 1e-2 * |plain|)
+    of decode_split_tc's and decode_verify_tc's arithmetic, emulated, on
+    bf16 q and k and v of scale 4 (as in test_flash_tc_p_in_two_bf16_terms_
+    holds_the_allowance): scores and the softmax in float32, P into P.V in
+    ``terms`` bf16 terms (``_pv_terms``), the normaliser summed unrounded,
+    the output rounded to bf16; against the f32 plain version,
+    decode_attention_reference. Each row sees the prefix of P keys and
+    ``keys`` own slots (a verify window ends at the newest)."""
+    D, L = 128, 224
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, Q, H, D, generator=g).bfloat16()
+    k = torch.randn(B, L, Hkv, D, generator=g).bfloat16()
+    v = (torch.randn(B, L, Hkv, D, generator=g) * 4).bfloat16()
+    sk = torch.randn(P, Hkv, D, generator=g).bfloat16()
+    sv = (torch.randn(P, Hkv, D, generator=g) * 4).bfloat16()
+    valid = torch.arange(L)[None, :] < keys[:, None]
+    offs = (keys - Q).to(torch.int32)
+    want = dec_mod.decode_attention_reference(
+        q[:, 0] if Q == 1 else q, k, v, valid, (sk, sv) if P else None,
+        q_offsets=None if Q == 1 else offs).float().reshape(B, Q, H, D)
+    rep = H // Hkv
+    kk = torch.cat([sk[None].expand(B, -1, -1, -1), k], 1).float().repeat_interleave(rep, 2)
+    vv = torch.cat([sv[None].expand(B, -1, -1, -1), v], 1).float().repeat_interleave(rep, 2)
+    s = torch.einsum("bqhd,bnhd->bhqn", q.float() * D ** -0.5, kk)
+    own = torch.arange(L)[None, None, :] <= (offs[:, None, None] + torch.arange(Q)[None, :, None])
+    sees = torch.cat([torch.ones(B, Q, P, dtype=torch.bool), valid[:, None, :] & own], -1)
+    s = s.masked_fill(~sees[:, None], float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    got = (_pv_terms(p, vv.transpose(1, 2), terms) / p.sum(-1, keepdim=True))
+    got = got.bfloat16().float().permute(0, 2, 1, 3)
+    return float(((got - want).abs() / (4e-3 + 1e-2 * want.abs())).max())
+
+
+@pytest.mark.parametrize("rows", ["sweep", "short"])
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+def test_decode_tc_p_in_two_bf16_terms_holds_the_allowance(shape, rows):
+    """K2's and K3's bf16 kernels (decode_split_tc, decode_verify_tc) at
+    llama3-8b's and llama3-70b's decode and verify shapes with v of scale 4
+    (C9). Rows as the phase-1 sweep gives them (the 640-key prefix and 100
+    to 224 own slots) hold the allowance with P in one bf16 term too, at
+    about half of it. Rows of 12 keys (a short prompt, no prefix) miss it
+    with one term, as K1's early rows did (C8), and hold it with two."""
+    B, Q, H, Hkv = DECODE_SHAPES[shape]
+    if rows == "sweep":
+        P, keys = 640, torch.randint(100, 225, (B,), generator=torch.Generator().manual_seed(1))
+    else:
+        P, keys = 0, torch.full((B,), 12)
+    assert _decode_tc_ratio(B, Q, H, Hkv, P, keys, terms=2) <= 1
+    one = _decode_tc_ratio(B, Q, H, Hkv, P, keys, terms=1)
+    assert one <= 1 if rows == "sweep" else one > 1

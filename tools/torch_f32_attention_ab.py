@@ -49,7 +49,10 @@ device time a call by CUDA kernel (``kernels_us``, from a torch.profiler
 capture of 20 calls). With ``--bf16``, instead, K1's bf16 kernel
 (flash_fwd_tc) at the main path's prefill shapes (llama3-8b's, the
 families' sweep prefixes, mistral-7b's window over 4,608 tokens, and v of
-scale 4), held to chip_smoke.py's bf16 allowance (``err_over_tol``). One
+scale 4), then K2's and K3's (decode_split_tc, decode_verify_tc) at the
+decode and verify shapes of llama3-8b, llama3-70b, qwen2-7b and gemma-7b
+(and v of scale 4 over sweep rows and rows of 12 keys), each held to
+chip_smoke.py's bf16 allowance (``err_over_tol``). One
 JSON line a row (its checkout, kernel, shape, plan, ms, host_us,
 max_abs_err), then the card's name and power limit.
 Imports no JAX.
@@ -143,6 +146,43 @@ if "--bf16" in sys.argv:
             "v_scale": vs}, "ms": cuda_ms(call, 50), "host_us": host_us(call),
             "max_abs_err": float(err.max()), "err_over_tol": ratio, "ok": ratio <= 1}),
             flush=True)
+    # K2's and K3's bf16 kernels (decode_split_tc, decode_verify_tc, Q = 9)
+    # at the main path's decode shapes, [B, Q, H, Hkv, D] over a prefix of P
+    # and a cache of L whose rows see their first n_b slots, n_b in [lo, hi]:
+    # llama3-8b's and llama3-70b's sweep steps, qwen2-7b's rep 7, gemma-7b's
+    # D = 256, the served pool (no prefix), and v of scale 4 over sweep rows
+    # and over rows of 12 keys (where one bf16 term of P parts from the
+    # plain version: ROADMAP C9).
+    for name, B, Q, H, Hkv, D, P, L, lo, hi, vs in (
+            ("llama3-8b_sweep", 16, 1, 32, 8, 128, 640, 224, 100, 224, 1.0),
+            ("llama3-8b_served", 16, 1, 32, 8, 128, 0, 1280, 700, 840, 1.0),
+            ("llama3-70b_sweep", 16, 1, 64, 8, 128, 640, 224, 100, 224, 1.0),
+            ("qwen2-7b_sweep", 16, 1, 28, 4, 128, 640, 224, 100, 224, 1.0),
+            ("gemma-7b_sweep", 16, 1, 16, 16, 256, 640, 224, 100, 224, 1.0),
+            ("llama3-8b_verify", 16, 9, 32, 8, 128, 640, 224, 100, 224, 1.0),
+            ("llama3-70b_verify", 16, 9, 64, 8, 128, 640, 224, 100, 224, 1.0),
+            ("llama3-70b_large_v", 16, 1, 64, 8, 128, 640, 224, 100, 224, 4.0),
+            ("llama3-70b_verify_large_v", 16, 9, 64, 8, 128, 640, 224, 100, 224, 4.0),
+            ("llama3-70b_short_large_v", 16, 1, 64, 8, 128, 0, 224, 12, 12, 4.0),
+            ("llama3-70b_verify_short_large_v", 16, 9, 64, 8, 128, 0, 224, 12, 12, 4.0)):
+        q = rnd(B, Q, H, D).bfloat16()
+        k = rnd(B, L, Hkv, D).bfloat16()
+        v = (rnd(B, L, Hkv, D) * vs).bfloat16()
+        shared = (rnd(P, Hkv, D).bfloat16(), (rnd(P, Hkv, D) * vs).bfloat16()) if P else None
+        n = torch.randint(lo, hi + 1, (B,), generator=g, device=dev)
+        valid = torch.arange(L, device=dev)[None, :] < n[:, None]
+        kw = {"q_offsets": (n - Q).to(torch.int32)} if Q > 1 else {}
+        q = q if Q > 1 else q[:, 0]
+        call = lambda: dm.decode_attention(q, k, v, valid, shared, **kw)  # noqa: E731
+        want = dm.decode_attention_reference(q, k, v, valid, shared, **kw).float()
+        err = (call().float() - want).abs()
+        ratio = float((err / (4e-3 + 1e-2 * want.abs())).max())
+        print(json.dumps({"kernel": "decode_verify_tc" if Q > 1 else "decode_split_tc",
+                          "shape": {"name": name, "q": list(q.shape), "k": [B, L, Hkv, D],
+                                    "P": P, "keys_a_row": [lo, hi], "v_scale": vs},
+                          "ms": cuda_ms(call, 200), "host_us": host_us(call),
+                          "max_abs_err": float(err.max()), "err_over_tol": ratio,
+                          "ok": ratio <= 1}), flush=True)
     sys.exit(0)
 
 
@@ -282,7 +322,7 @@ def main() -> int:
     ap.add_argument("--yardsticks", action="store_true",
                     help="the verify rows' plain and SDPA times and their bound")
     ap.add_argument("--bf16", action="store_true",
-                    help="K1's bf16 kernel at the main path's prefill shapes instead")
+                    help="the bf16 K1, K2 and K3 kernels at the main path's shapes instead")
     ap.add_argument("--out", default=None, help="also write every row here as JSON lines")
     args = ap.parse_args()
     rows = []
