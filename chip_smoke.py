@@ -7,15 +7,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 (``python3 chip_smoke.py --phase 33`` builds the kernels and runs phase 33
 alone; ``--phase 34`` the same for phase 34, llama3-70b with int8 weights,
-which needs the whole card: ~72 GB of parameters and a peak near 80 GB.)
+which needs the whole card: ~72 GB of parameters and a peak near 80 GB;
+``--phase 35`` for phase 35, the HF checkpoint path, which needs ~17 GB of
+free disk.)
 
 It builds the port's hand-written CUDA kernels from ``ops/csrc/`` with
 ``nvcc`` (sm_90a), drives the port's phase-1 serving path through
 ``EngineBackend.generate`` at the full width of llama3-8b (8 of its 32
 layers, ``CUT_LAYERS``; random bf16 weights from seed 0): plain, with
 greedy prompt-lookup speculation, and with the int8 KV cache on the same
-weights; then at the full width and depth of llama3-8b-int8 (the same model
-with int8 projection and lm_head weights from seed 0). It shows that each path launched its
+weights; then at the full width of llama3-8b-int8 (the same model with int8
+projection and lm_head weights from seed 0, ``CUT_LAYERS`` of its layers
+too; phase 35 serves it at all 32). It shows that each path launched its
 kernels, holds each kernel against its plain PyTorch version at the shapes
 the path gave it, times kernel, plain version and a one-call PyTorch
 yardstick, and checks the model's logits and greedy tokens against the
@@ -123,7 +126,7 @@ path's launch counts are set to 0 just before it and read just after:
  17. the profile of phase 7 for the int8 shared-prefix greedy call, with
      the K4 GEMV kernel's device ms and launches a step beside K2's;
  18. the teacher-forced check of phase 9 with K4 swapped for its plain
-     version too: reported in bf16 at 32 layers, held to 1e-3 in float32
+     version too: reported in bf16 at 8 layers, held to 1e-3 in float32
      at 4 layers; in float32, with a shared-prefix greedy call of the 16
      prompts after it (4 new tokens: the decode steps at M = 16), every K4
      call (a grouped GEMV call one) is recorded and counted
@@ -494,8 +497,8 @@ path's launch counts are set to 0 just before it and read just after:
      shapes); phase 13's calls at llama3-8b's width are its
      ``gate_launches`` and ``gate_shapes``.
   the reference's other model families, after phase 32 (random weights
-  from seed 0, byte tokenizer, full width and depth, mistral-7b's depth cut
-  to 8 of its 32 layers, ``FAMILY_LAYERS``): mistral-7b (sliding window
+  from seed 0, byte tokenizer, full width and depth, the int8 families'
+  depth cut to 8 layers, ``FAMILY_LAYERS``): mistral-7b (sliding window
   4,096), gemma-7b (head width 256, one q head a kv head, GeGLU,
   embed_scale, a tied 256,000-row head in bf16) and qwen2-7b (q/k/v
   biases, seven q heads a kv head), each with int8 weights, and in bf16
@@ -553,6 +556,30 @@ path's launch counts are set to 0 just before it and read just after:
      layers (``llama70b_f32_gate``). The entries gain ``llama70b_launches``
      (``llama70b_phase1``, ``llama70b_phase3``,
      ``llama70b_phase3_scoring``) and ``llama70b_shapes``.
+  The HF checkpoint path, after phase 34, in a child process as phase 34
+  (``chip_smoke.py --phase 35``), in a temporary directory on the local
+  disk whose free space is checked first (``checkpoint_disk``):
+ 35. (a) llama3-8b's bf16 tree (seed 0, 32 layers, 16.06 GB) exported with
+     ``save_checkpoint_hf`` (the export's and the manifest's seconds
+     apart), loaded back in bf16 and as llama3-8b-int8 (quantized on
+     arrival), each bit for bit (the int8 load against ``quantize_params``
+     on the card) with the manifest check's and the streaming load's
+     seconds, and the int8 load's peak above its start under 0.75x the
+     bf16 tree; an engine on each loaded tree beside one on the in-memory
+     tree serves the 16 prompts greedy with their shared prefix: tokens
+     equal, K1 and K2 (and under int8 both K4 regimes) launched, every new
+     kernel shape held as in phase 6 (``checkpoint_llama3_8b``); (b)
+     llama3-70b's bf16 tree at 2 of its 80 layers exported, re-sharded
+     into 3 files behind ``model.safetensors.index.json`` and loaded as
+     int8 through it, bit for bit, each tensor's transient above the
+     resident bytes in the map's order, and the 80-layer load's peak
+     reckoned from them against the card (``checkpoint_llama3_70b``); (c)
+     gemma-7b, qwen2-7b and llama32-1b at 2 layers and gpt2-small at 12,
+     norms drawn in [0.5, 2] and biases N(0, 0.02), exported and loaded
+     bit for bit (``checkpoint_families``). The entries gain
+     ``checkpoint_launches`` (``checkpoint_bf16_memory``,
+     ``checkpoint_bf16_loaded``, ``checkpoint_int8_memory``,
+     ``checkpoint_int8_loaded``) and ``checkpoint_shapes``.
   The kernels line gains K1's and K2's f32 kernels as entries of their own
   (``flash_attention_f32``, ``decode_attention_f32``; launches and rows from
   phase 19's two t=0.7 sweeps). Every attention row carries ``floor_ms``,
@@ -615,12 +642,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 MODEL = "llama3-8b"
 MODEL_INT8 = "llama3-8b-int8"
 # llama3-8b keeps its full width and this many of its 32 layers in the bf16
-# path (phases 3-13), the phase-1 and phase-2/3 sweeps (19-23), the served
-# phases on phase 24's engine (24-27, 29) and phase 30's runs, for the
-# script's time limit since phase 34 came in (``cut_depth``). Every layer
-# gives the kernels the same shapes, so no kernel loses a hold: the int8
-# path (14-18) and phase 28's fleet drills run all 32, and each gate
-# compares runs of one depth.
+# path (phases 3-13), the int8 path (14-18, since phase 35 came in), the
+# phase-1 and phase-2/3 sweeps (19-23), the served phases on phase 24's
+# engine (24-27, 29) and phase 30's runs, for the script's time limit since
+# phase 34 came in (``cut_depth``). Every layer gives the kernels the same
+# shapes, so no kernel loses a hold: phase 28's fleet drills and phase 35's
+# engines run all 32, and each gate compares runs of one depth.
 CUT_LAYERS = 8
 MAX_TOKENS = 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -1959,7 +1986,8 @@ def int8_path(torch, prompts, keys, greedy, sampled):
     from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
 
     # 14. the engine, and what it allocates against its tree
-    cfg = dataclasses.replace(get_model_config(MODEL_INT8), use_decode_attention_kernel=True)
+    cfg = dataclasses.replace(get_model_config(MODEL_INT8), use_decode_attention_kernel=True,
+                              num_layers=CUT_LAYERS)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -6993,11 +7021,12 @@ def spec_study_path(torch, F, device_line: str, sweep: dict, held: set) -> dict:
 # 128,256- or 151,936-row head.
 FAMILY_MODELS = ("mistral-7b", "gemma-7b", "qwen2-7b")
 FAMILY_BF16 = ("gpt2-small", "llama32-1b", "llama32-3b", "qwen2-0.5b")
-# Depth cuts for the script's time limit: mistral-7b's layers are
-# llama3-8b's (32/8 heads of 128, d_ff 14,336), which phases 3-31 hold at
-# every shape, so its sweep and phase 2 run at full width with this many of
-# its 32 layers (its window check, (d), runs 2 layers as before).
-FAMILY_LAYERS = {"mistral-7b": 8}
+# Depth cuts for the script's time limit: every layer of a model gives the
+# kernels the same shapes, so the int8 families' sweeps and phase 2 run at
+# full width with this many layers (mistral-7b's 32, gemma-7b's and
+# qwen2-7b's 28 since phase 35 came in; mistral's window check, (d), runs 2
+# layers as before).
+FAMILY_LAYERS = {"mistral-7b": 8, "gemma-7b": 8, "qwen2-7b": 8}
 # The float32 gates' depth (full width), as phase 18's.
 FAMILY_GATE_LAYERS = 4
 # Mistral's window on the card: one row past the window, at full width and
@@ -7533,12 +7562,519 @@ def llama70b_path(torch, F, device_line: str, prompts) -> dict:
     return {"launches": launches, "rows": rows}
 
 
-def llama70b_child(torch, tmp: pathlib.Path) -> dict:
-    """Phase 34 from the main run: drop the kernels' grown workspaces (a
-    later call would grow them again), empty the allocator's cache, log the
-    card's memory, start ``chip_smoke.py --phase 34`` and stream its lines;
-    a non-zero exit fails the script. Returns the launches and rows the
-    child wrote."""
+# Phase 35: the HF checkpoint path at full width, on the card machine's
+# local disk. llama3-8b at all 32 layers, bf16 (the export and both loads);
+# llama3-70b at 2 of its 80 layers, re-sharded as HF ships it; four more
+# families at full width (gpt2-small at its 12 layers, the others at 2).
+CKPT_MODEL = "llama3-8b"
+CKPT_70B = "llama3-70b"
+CKPT_70B_LAYERS = 2
+CKPT_70B_SHARDS = 3
+CKPT_FAMILIES = {"gemma-7b": 2, "qwen2-7b": 2, "gpt2-small": 12, "llama32-1b": 2}
+# The int8 load of the bf16 checkpoint may take at most this share of the
+# bf16 tree's bytes above what was allocated when it started: no float copy
+# of the tree is made (the largest transient is one tensor's f32 work).
+CKPT_INT8_PEAK = 0.75
+# Disk the phase may fill at once, beyond its checkpoints' bytes.
+CKPT_DISK_SLACK = 1 << 30
+CHECKPOINT_CHILD_S = 900
+
+
+def tree_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in params.values())
+
+
+def same_tensors(got, want, label: str) -> None:
+    """Every tensor of ``got`` equal to ``want``'s, bit for bit, in dtype
+    and shape, with the same names."""
+    import torch
+
+    if sorted(got) != sorted(want):
+        fail(f"{label}: names differ: missing {sorted(set(want) - set(got))[:8]}, "
+             f"unexpected {sorted(set(got) - set(want))[:8]}")
+    bad = [name for name, w in want.items()
+           if got[name].dtype != w.dtype or got[name].shape != w.shape
+           or not torch.equal(got[name], w)]
+    if bad:
+        fail(f"{label}: {len(bad)} of {len(want)} tensors differ, e.g. {bad[:8]}")
+
+
+@contextlib.contextmanager
+def manifest_seconds():
+    """The seconds ``write_manifest`` and ``maybe_verify_manifest`` take
+    inside the export and the loads (both import them when called)."""
+    from fairness_llm_tpu_torch.integrity import manifest as man
+
+    seconds = {"write_s": 0.0, "verify_s": 0.0}
+    inner = {"write_s": man.write_manifest, "verify_s": man.maybe_verify_manifest}
+
+    def timed(key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner[key](*args, **kwargs)
+            finally:
+                seconds[key] += time.perf_counter() - t0
+        return run
+
+    man.write_manifest, man.maybe_verify_manifest = timed("write_s"), timed("verify_s")
+    try:
+        yield seconds
+    finally:
+        man.write_manifest, man.maybe_verify_manifest = inner["write_s"], inner["verify_s"]
+
+
+class LoadTrace:
+    """Wraps ``SafetensorsFile.get_tensor`` during a load onto the card:
+    for each tensor read, in the map's order, the bytes allocated when its
+    read starts (what the load holds by then) and the peak allocated until
+    the next read starts (so its transient above them)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from fairness_llm_tpu_torch.runtime.safetensors_io import SafetensorsFile
+
+        torch = self.torch
+        self.cls, self.inner, self.rows = SafetensorsFile, SafetensorsFile.get_tensor, []
+        torch.cuda.synchronize()
+        self.base = torch.cuda.memory_allocated()
+        inner = self.inner
+
+        def get_tensor(f, name):
+            self._close()
+            self.rows.append({"name": name, "resident": torch.cuda.memory_allocated()})
+            torch.cuda.reset_peak_memory_stats()
+            return inner(f, name)
+
+        self.cls.get_tensor = get_tensor
+        return self
+
+    def _close(self) -> None:
+        if self.rows and "peak" not in self.rows[-1]:
+            self.rows[-1]["peak"] = self.torch.cuda.max_memory_allocated()
+
+    def __exit__(self, *exc):
+        self._close()
+        self.cls.get_tensor = self.inner
+
+    def peak_above(self) -> int:
+        return max((r["peak"] for r in self.rows), default=self.base) - self.base
+
+
+def tensor_kind(hf_name: str) -> str:
+    """A tensor's kind by its HF name: the projection, the embedding, the
+    head or a norm."""
+    for kind in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"):
+        if f".{kind}." in hf_name:
+            return kind
+    if "embed_tokens" in hf_name:
+        return "embedding"
+    return "lm_head" if hf_name.startswith("lm_head") else "norm"
+
+
+def export_checkpoint(torch, cfg, params, d: pathlib.Path) -> dict:
+    """``save_checkpoint_hf`` into ``d``: the export's seconds and GB/s
+    apart from the manifest's."""
+    from fairness_llm_tpu_torch.runtime.weights import save_checkpoint_hf
+
+    torch.cuda.synchronize()
+    with manifest_seconds() as man:
+        t0 = time.perf_counter()
+        save_checkpoint_hf(cfg, params, str(d))
+        total = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in d.glob("*.safetensors"))
+    write_s = total - man["write_s"]
+    return {"file_gb": nbytes / 1e9, "export_s": write_s, "export_gbps": nbytes / 1e9 / write_s,
+            "manifest_s": man["write_s"], "manifest_gbps": nbytes / 1e9 / man["write_s"]}
+
+
+def traced_load(torch, cfg, d: pathlib.Path) -> tuple:
+    """``load_checkpoint(cfg, d, device="cuda")`` traced tensor by tensor:
+    (the state dict, its row: the manifest check's seconds, the streaming
+    load's seconds and GB/s, the peak allocated above the start, the
+    tensor whose read reached it, and the trace)."""
+    import gc
+
+    from fairness_llm_tpu_torch.runtime.weights import load_checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    nbytes = sum(p.stat().st_size for p in d.glob("*.safetensors"))
+    with manifest_seconds() as man, LoadTrace(torch) as trace:
+        t0 = time.perf_counter()
+        params = load_checkpoint(cfg, str(d), device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    load_s = total - man["verify_s"]
+    top = max(trace.rows, key=lambda r: r["peak"])
+    row = {"files": len(list(d.glob("*.safetensors"))), "file_gb": nbytes / 1e9,
+           "manifest_s": man["verify_s"], "manifest_gbps": nbytes / 1e9 / man["verify_s"],
+           "load_s": load_s, "load_gbps": nbytes / 1e9 / load_s,
+           "allocated_before_gb": trace.base / 1e9, "tree_gb": tree_bytes(params) / 1e9,
+           "peak_above_start_gb": trace.peak_above() / 1e9,
+           "peak_allocated_gb": top["peak"] / 1e9, "peak_at": top["name"]}
+    return params, row, trace
+
+
+def disk_check(tmp: pathlib.Path, parts: dict) -> dict:
+    """Fails unless ``tmp``'s file system has room for the largest part
+    (each part's directory is removed before the next is written); logs
+    the host memory available beside it (the page cache holds a written
+    checkpoint while there is room)."""
+    import os
+    import shutil
+
+    free = shutil.disk_usage(tmp).free
+    need = max(parts.values()) + CKPT_DISK_SLACK
+    host = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    row = {"dir": str(tmp), "free_gb": free / 1e9, "need_gb": need / 1e9,
+           "parts_gb": {k: v / 1e9 for k, v in parts.items()},
+           "host_memory_available_gb": host / 1e9}
+    log(f"checkpoint_disk {json.dumps(row)}")
+    if free < need:
+        fail(f"phase 35 needs {need / 1e9:.2f} GB free under {tmp} ({row['parts_gb']}), "
+             f"has {free / 1e9:.2f} GB")
+    return row
+
+
+def checkpoint_engines(torch, F, cfg, trees: dict, prompts, quant: bool, held: set) -> dict:
+    """One engine on each tree of ``trees`` (label -> state dict, the
+    in-memory tree first) serves ``prompts`` greedy with their shared
+    prefix, ``MAX_TOKENS`` new tokens: the tokens must be equal, K1 and K2
+    must launch on their tensor-core kernels (and K4's both regimes under
+    int8 weights) and no float32 kernel. Every kernel call at a shape not
+    in ``held`` is then held against its plain version."""
+    import gc
+
+    import numpy as np
+
+    from fairness_llm_tpu_torch.config import ModelSettings
+    from fairness_llm_tpu_torch.ops import decode_attention as dec_mod
+    from fairness_llm_tpu_torch.ops import flash_attention as flash_mod
+    from fairness_llm_tpu_torch.ops import quant_matmul as qm
+    from fairness_llm_tpu_torch.pipeline.backends import EngineBackend, shared_prefix_ids
+    from fairness_llm_tpu_torch.runtime.engine import DecodeEngine
+
+    ecfg = dataclasses.replace(cfg, use_decode_attention_kernel=True)
+    greedy = ModelSettings(temperature=0.0, max_tokens=MAX_TOKENS)
+    launches, rows, tokens, stats = {}, {}, {}, {}
+    for label, params in trees.items():
+        engine = DecodeEngine(ecfg, params=params, param_dtype=cfg.dtype)
+        if any(p.data_ptr() != params[n].data_ptr() for n, p in engine.model.state_dict().items()
+               if n in params):
+            fail(f"checkpoint {label}: the engine copied the tree it was given")
+        prefix = shared_prefix_ids(EngineBackend(engine), prompts)
+        if prefix is None:
+            fail("the counterfactual prompts share no 64-token prefix")
+        # Warm-up outside the counted run, sharing no prefix: a prefix's KV
+        # would be kept for the counted call, and its prefill (K1) skipped.
+        engine.generate(prompts[:2], ModelSettings(temperature=0.0, max_tokens=2),
+                        share_prefix=False)
+        out, row, recs = timed_phase(torch, dec_mod, flash_mod, qm,
+                                     lambda: engine.generate(prompts, greedy, prefix_ids=prefix))
+        path = f"checkpoint_{label}"
+        need = ["flash_attention", "decode_attention"]
+        need += ["quant_matmul_gemv", "quant_matmul_gemm"] if quant else []
+        need_launches(row["launches"], need, path)
+        for kernel in ("flash_attention_f32", "decode_attention_f32") + (
+                () if quant else ("quant_matmul_gemv", "quant_matmul_gemm")):
+            if row["launches"][kernel]:
+                fail(f"{path}: {row['launches'][kernel]} launches of {KERNEL_FUNCTIONS[kernel]}")
+        if not out.stats["logits_finite"]:
+            fail(f"{path}: non-finite logits")
+        if out.stats["prefix_len"] <= 0:
+            fail(f"{path}: the call did not take the shared-prefix path")
+        launches[path], tokens[label] = row["launches"], out.tokens
+        st = out.stats
+        stats[label] = {"wall_s": row["wall_s"], "prefix_len": st["prefix_len"],
+                        "decode_steps": st["decode_steps"],
+                        "decode_ms_per_step": st["decode_s"] * 1e3 / max(st["decode_steps"], 1),
+                        "peak_allocated_gb": row["peak_allocated_gb"]}
+        del engine, out
+        gc.collect()
+        for k, v in sweep_kernel_rows(recs, torch, F, qm, path, f32=False, held=held).items():
+            rows.setdefault(k, []).extend(v)
+        del recs
+    first, *rest = trees
+    for label in rest:
+        if not np.array_equal(tokens[label], tokens[first]):
+            diff = int((np.asarray(tokens[label]) != np.asarray(tokens[first])).any(1).sum())
+            fail(f"checkpoint: greedy tokens of the engine on the {label} tree differ from the "
+                 f"{first} tree's in {diff} of {len(prompts)} rows")
+    return {"launches": launches, "rows": rows, "stats": stats,
+            "tokens_equal": True, "rows_compared": len(prompts)}
+
+
+def checkpoint_8b(torch, F, tmp: pathlib.Path, prompts, device_line: str, held: set) -> dict:
+    """Phase 35(a): llama3-8b's bf16 tree (seed 0) exported at full width
+    and depth, loaded back in bf16 and as int8 weights, each bit for bit,
+    and served by an engine beside the in-memory tree's."""
+    import gc
+    import shutil
+
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.runtime.weights import init_params, quantize_params
+
+    cfg, qcfg = get_model_config(CKPT_MODEL), get_model_config(CKPT_MODEL + "-int8")
+    t0 = time.perf_counter()
+    tree = init_params(cfg, 0, torch.device("cuda"))
+    torch.cuda.synchronize()
+    nbytes = tree_bytes(tree)
+    row = {"model": CKPT_MODEL, "layers": cfg.num_layers, "tree_gb": nbytes / 1e9,
+           "params": sum(t.numel() for t in tree.values()), "init_s": time.perf_counter() - t0}
+    d = tmp / CKPT_MODEL
+    try:
+        row["export"] = export_checkpoint(torch, cfg, tree, d)
+        log(f"checkpoint_llama3_8b_export {json.dumps({'device': device_line, **row})}")
+        loaded, row["load_bf16"], _ = traced_load(torch, cfg, d)
+        log(f"checkpoint_llama3_8b_load_bf16 {json.dumps(row['load_bf16'])}")
+        same_tensors(loaded, tree, f"{CKPT_MODEL} bf16 load")
+        engines = checkpoint_engines(torch, F, cfg, {"bf16_memory": tree, "bf16_loaded": loaded},
+                                     prompts, False, held)
+        del loaded
+        loaded_q, row["load_int8"], _ = traced_load(torch, qcfg, d)
+        limit = CKPT_INT8_PEAK * nbytes
+        row["load_int8"]["peak_over_bf16_tree"] = row["load_int8"]["peak_above_start_gb"] * 1e9 \
+            / nbytes
+        log(f"checkpoint_llama3_8b_load_int8 {json.dumps(row['load_int8'])}")
+        want_q = quantize_params(tree)
+        same_tensors(loaded_q, want_q, f"{CKPT_MODEL} int8 load")
+        if row["load_int8"]["peak_above_start_gb"] * 1e9 > limit:
+            fail(f"{CKPT_MODEL} int8 load: peak {row['load_int8']['peak_above_start_gb']:.3f} GB "
+                 f"above its start, over {CKPT_INT8_PEAK} x the bf16 tree ({limit / 1e9:.3f} GB)")
+        engines_q = checkpoint_engines(torch, F, qcfg,
+                                       {"int8_memory": want_q, "int8_loaded": loaded_q},
+                                       prompts, True, held)
+        del loaded_q, want_q
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["engines"] = {**engines["stats"], **engines_q["stats"]}
+    log(f"checkpoint_llama3_8b {json.dumps({'device': device_line, **row})}")
+    rows = engines["rows"]
+    for k, v in engines_q["rows"].items():
+        rows.setdefault(k, []).extend(v)
+    return {"launches": {**engines["launches"], **engines_q["launches"]}, "rows": rows}
+
+
+def reshard(src: pathlib.Path, dst: pathlib.Path, shards: int) -> dict:
+    """``src``'s tensors written into ``shards`` files under ``dst`` (by the
+    file's layout order, a shard closed once it passes its share of the
+    bytes) behind a ``model.safetensors.index.json``, with the port's reader
+    and writer, one shard's tensors on the host at a time."""
+    from fairness_llm_tpu_torch.runtime.safetensors_io import (INDEX_FILENAME, SafetensorsFile,
+                                                               read_header, save_file)
+
+    header, _ = read_header(str(src))
+    header.pop("__metadata__", None)
+    names = sorted(header, key=lambda n: header[n]["data_offsets"][0])
+    sizes = {n: header[n]["data_offsets"][1] - header[n]["data_offsets"][0] for n in names}
+    total = sum(sizes.values())
+    groups, cum = [[]], 0
+    for name in names:
+        if len(groups) < shards and cum >= total * len(groups) / shards:
+            groups.append([])
+        groups[-1].append(name)
+        cum += sizes[name]
+    dst.mkdir(parents=True)
+    weight_map, digests = {}, {}
+    t0 = time.perf_counter()
+    with SafetensorsFile(str(src)) as f:
+        for i, group in enumerate(groups):
+            fname = f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+            digests[fname] = save_file({n: f.get_tensor(n) for n in group}, str(dst / fname))
+            weight_map.update((n, fname) for n in group)
+    (dst / INDEX_FILENAME).write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}, indent=2))
+    return {"shards": len(groups), "shard_gb": [sum(sizes[n] for n in g) / 1e9 for g in groups],
+            "reshard_s": time.perf_counter() - t0, "digests": digests}
+
+
+def reckon_full_depth(torch, trace: LoadTrace, layers_run: int) -> dict:
+    """The full-depth int8 load's peak of llama3-70b, reckoned from the
+    cut-depth load: its tensors in the map's order, each resident in its
+    int8 layout, and each one's transient taken from the same kind of
+    tensor in ``trace`` (every layer's tensors have the same shapes)."""
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.runtime.weights import hf_name_map, param_shapes
+
+    transient = {}
+    for r in trace.rows:
+        kind = tensor_kind(r["name"])
+        transient[kind] = max(transient.get(kind, 0), r["peak"] - r["resident"])
+    full = get_model_config(CKPT_70B + "-int8")
+    shapes = param_shapes(full)
+    resident, reckoned, at = 0, 0, None
+    for ours, (hf_name, _tf) in hf_name_map(full).items():
+        base = ours[: -len(".kernel")] if ours.endswith(".kernel") else (
+            "lm_head" if ours == "lm_head" else None)
+        if base is None:
+            nbytes = shapes[ours].numel() * 2
+        else:
+            nbytes = shapes[f"{base}.kernel_q"].numel() + 4 * shapes[f"{base}.kernel_scale"].numel()
+        peak = resident + transient[tensor_kind(hf_name)]
+        if peak > reckoned:
+            reckoned, at = peak, hf_name
+        resident += nbytes
+    card = torch.cuda.mem_get_info()[1]
+    return {"layers_measured": layers_run, "layers": full.num_layers,
+            "transient_gb_by_kind": {k: v / 1e9 for k, v in sorted(transient.items())},
+            "resident_int8_tree_gb": resident / 1e9, "reckoned_peak_gb": reckoned / 1e9,
+            "reckoned_peak_at": at, "card_gb": card / 1e9,
+            "headroom_gb": (card - reckoned) / 1e9}
+
+
+def checkpoint_70b(torch, tmp: pathlib.Path, device_line: str) -> None:
+    """Phase 35(b): llama3-70b's bf16 tree at full width and
+    ``CKPT_70B_LAYERS`` layers exported, re-sharded into
+    ``CKPT_70B_SHARDS`` files behind an index, and loaded as int8 weights
+    through it, bit for bit against quantizing on the card; each tensor's
+    transient above the load's resident bytes, and the full-depth peak
+    reckoned from them."""
+    import gc
+    import shutil
+
+    from fairness_llm_tpu_torch.integrity.manifest import write_manifest
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.runtime.weights import init_params, quantize_params
+
+    cfg = dataclasses.replace(get_model_config(CKPT_70B), num_layers=CKPT_70B_LAYERS)
+    qcfg = dataclasses.replace(get_model_config(CKPT_70B + "-int8"), num_layers=CKPT_70B_LAYERS)
+    tree = init_params(cfg, 0, torch.device("cuda"))
+    nbytes = tree_bytes(tree)
+    row = {"model": CKPT_70B, "layers": CKPT_70B_LAYERS, "tree_gb": nbytes / 1e9}
+    single, sharded = tmp / f"{CKPT_70B}-single", tmp / CKPT_70B
+    try:
+        row["export"] = export_checkpoint(torch, cfg, tree, single)
+        row["reshard"] = reshard(single / "model.safetensors", sharded, CKPT_70B_SHARDS)
+        shutil.rmtree(single)
+        t0 = time.perf_counter()
+        write_manifest(str(sharded), digests=row["reshard"].pop("digests"))
+        row["reshard"]["manifest_s"] = time.perf_counter() - t0
+        if row["reshard"]["shards"] < CKPT_70B_SHARDS:
+            fail(f"{CKPT_70B}: re-sharded into {row['reshard']['shards']} files")
+        loaded_q, row["load_int8"], trace = traced_load(torch, qcfg, sharded)
+        want_q = quantize_params(tree)
+        same_tensors(loaded_q, want_q, f"{CKPT_70B} int8 load through the index")
+        del loaded_q, want_q
+    finally:
+        shutil.rmtree(single, ignore_errors=True)
+        shutil.rmtree(sharded, ignore_errors=True)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["order"] = [{"name": r["name"], "resident_gb": r["resident"] / 1e9,
+                     "transient_gb": (r["peak"] - r["resident"]) / 1e9} for r in trace.rows]
+    row["full_depth"] = reckon_full_depth(torch, trace, CKPT_70B_LAYERS)
+    log(f"checkpoint_llama3_70b {json.dumps({'device': device_line, **row})}")
+    if row["full_depth"]["headroom_gb"] <= 0:
+        fail(f"{CKPT_70B} int8: the reckoned full-depth load peak "
+             f"{row['full_depth']['reckoned_peak_gb']:.2f} GB does not fit the card")
+
+
+def checkpoint_families(torch, tmp: pathlib.Path, device_line: str) -> None:
+    """Phase 35(c): the families' name maps at full width, exported and
+    loaded back bit for bit. Norm scales are drawn uniform in [0.5, 2] and
+    biases N(0, 0.02) (the init makes them one and zero), so gemma's
+    ``scale - 1`` and the q/k/v and Conv1D biases carry values."""
+    import gc
+    import shutil
+
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+    from fairness_llm_tpu_torch.runtime.safetensors_io import SafetensorsFile, read_header
+    from fairness_llm_tpu_torch.runtime.weights import init_params, load_checkpoint
+
+    out = {}
+    for name, layers in CKPT_FAMILIES.items():
+        cfg = dataclasses.replace(get_model_config(name), num_layers=layers)
+        tree = init_params(cfg, 0, torch.device("cuda"))
+        g = torch.Generator(device="cuda").manual_seed(35)
+        for key, t in tree.items():
+            if key.endswith(".scale"):
+                t.uniform_(0.5, 2.0, generator=g)
+            elif key.endswith(".bias"):
+                t.normal_(0.0, 0.02, generator=g)
+        d = tmp / name
+        try:
+            row = {"layers": layers, "tree_gb": tree_bytes(tree) / 1e9,
+                   "export": export_checkpoint(torch, cfg, tree, d)}
+            header, _ = read_header(str(d / "model.safetensors"))
+            row["tensors"] = len(header) - ("__metadata__" in header)
+            if ("lm_head.weight" in header) == cfg.tie_embeddings:
+                fail(f"{name}: lm_head.weight {'written' if cfg.tie_embeddings else 'missing'}")
+            if name.startswith("gemma"):
+                with SafetensorsFile(str(d / "model.safetensors")) as f:
+                    stored = f.get_tensor("model.norm.weight").to(tree["final_norm.scale"].device)
+                if not torch.equal(stored, tree["final_norm.scale"] - 1.0):
+                    fail(f"{name}: model.norm.weight is not the scale less one")
+            if name.startswith("qwen2") and "model.layers.0.self_attn.q_proj.bias" not in header:
+                fail(f"{name}: no q/k/v biases written")
+            if name.startswith("gpt2") and header["h.0.attn.c_attn.weight"]["shape"] != [
+                    cfg.d_model, 3 * cfg.d_model]:
+                fail(f"{name}: c_attn is not q, k and v side by side")
+            t0 = time.perf_counter()
+            loaded = load_checkpoint(cfg, str(d), device="cuda")
+            torch.cuda.synchronize()
+            row["load_s"] = time.perf_counter() - t0
+            same_tensors(loaded, tree, f"{name} bf16 load")
+            del loaded
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        out[name] = row
+        del tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"checkpoint_families {json.dumps({'device': device_line, **out})}")
+
+
+def checkpoint_path(torch, F, device_line: str, prompts) -> dict:
+    """Phase 35, in its own process: (a) ``checkpoint_8b``, (b)
+    ``checkpoint_70b``, (c) ``checkpoint_families``, in one temporary
+    directory on the local disk, checked for room first and removed after.
+    Returns the launches and rows of (a)'s engines."""
+    import tempfile
+
+    from fairness_llm_tpu_torch.models.configs import get_model_config
+
+    t0 = time.perf_counter()
+    memory_line(torch, "checkpoint_memory_at_start")
+
+    def bf16_bytes(name, layers=None):
+        cfg = get_model_config(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        return cfg.approx_param_count * 2
+
+    parts = {CKPT_MODEL: bf16_bytes(CKPT_MODEL),
+             CKPT_70B: 2 * bf16_bytes(CKPT_70B, CKPT_70B_LAYERS),
+             **{n: bf16_bytes(n, layers) for n, layers in CKPT_FAMILIES.items()}}
+    held: set = set()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        tmp = pathlib.Path(tmp)
+        disk_check(tmp, parts)
+        t1 = time.perf_counter()
+        out = checkpoint_8b(torch, F, tmp, prompts, device_line, held)
+        log(f"checkpoint_8b_s {time.perf_counter() - t1:.1f}")
+        t1 = time.perf_counter()
+        checkpoint_70b(torch, tmp, device_line)
+        log(f"checkpoint_70b_s {time.perf_counter() - t1:.1f}")
+        t1 = time.perf_counter()
+        checkpoint_families(torch, tmp, device_line)
+        log(f"checkpoint_families_s {time.perf_counter() - t1:.1f}")
+    log(f"checkpoint_s {time.perf_counter() - t0:.1f}")
+    return out
+
+
+def phase_child(torch, tmp: pathlib.Path, phase: int, timeout_s: int) -> dict:
+    """Phases 34 and 35 from the main run: drop the kernels' grown
+    workspaces (a later call would grow them again), empty the allocator's
+    cache, log the card's memory, start ``chip_smoke.py --phase <phase>``
+    and stream its lines; a non-zero exit fails the script. Returns the
+    launches and rows the child wrote."""
     import gc
     import threading
 
@@ -7549,12 +8085,12 @@ def llama70b_child(torch, tmp: pathlib.Path) -> dict:
         cache.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    memory_line(torch, "llama70b_parent_memory")
-    out = tmp / "phase34.json"
-    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", "34",
+    memory_line(torch, f"phase{phase}_parent_memory")
+    out = tmp / f"phase{phase}.json"
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", str(phase),
                              "--out", str(out)], cwd=str(ROOT), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, bufsize=1)
-    timer = threading.Timer(LLAMA70B_CHILD_S, proc.kill)
+    timer = threading.Timer(timeout_s, proc.kill)
     timer.start()
     try:
         for line in proc.stdout:
@@ -7566,7 +8102,7 @@ def llama70b_child(torch, tmp: pathlib.Path) -> dict:
             proc.kill()
             proc.wait()
     if code != 0:
-        fail(f"phase 34's child exited {code}")
+        fail(f"phase {phase}'s child exited {code}")
     return json.loads(out.read_text())
 
 
@@ -7574,14 +8110,15 @@ def main(argv) -> int:
     # ``--phase 33`` runs phase 33 alone after the build (with no earlier
     # phase's shapes held, every kernel call of it is held), and prints its
     # launches last in place of the kernels and result lines; ``--phase 34``
-    # the same for phase 34, and with ``--out FILE`` (as the main run starts
-    # it) it writes its launches and rows there instead.
+    # and ``--phase 35`` the same for phases 34 and 35, and with ``--out
+    # FILE`` (as the main run starts them) they write their launches and
+    # rows there instead.
     families_only = argv == ["--phase", "33"]
-    llama70b_only = argv[:2] == ["--phase", "34"] and (
-        len(argv) == 2 or (len(argv) == 4 and argv[2] == "--out"))
-    if argv and not (families_only or llama70b_only):
-        fail(f"unknown arguments {argv}: run with none, with --phase 33, or with --phase 34 "
-             "[--out FILE]")
+    child = argv[1] if argv[:1] == ["--phase"] and argv[1:2] in (["34"], ["35"]) and (
+        len(argv) == 2 or (len(argv) == 4 and argv[2] == "--out")) else None
+    if argv and not (families_only or child):
+        fail(f"unknown arguments {argv}: run with none, with --phase 33, or with --phase 34 or "
+             "35 [--out FILE]")
     try:
         import torch
         import torch.nn.functional as F
@@ -7629,13 +8166,15 @@ def main(argv) -> int:
         log(device_line)
         print(json.dumps({"families_launches": families["launches"]}), flush=True)
         return 0
-    if llama70b_only:
-        p34 = llama70b_path(torch, F, device_line, prompts)
+    if child:
+        run, key = {"34": (llama70b_path, "llama70b_launches"),
+                    "35": (checkpoint_path, "checkpoint_launches")}[child]
+        res = run(torch, F, device_line, prompts)
         if len(argv) == 4:
-            pathlib.Path(argv[3]).write_text(json.dumps(p34))
+            pathlib.Path(argv[3]).write_text(json.dumps(res))
             return 0
         log(device_line)
-        print(json.dumps({"llama70b_launches": p34["launches"]}), flush=True)
+        print(json.dumps({key: res["launches"]}), flush=True)
         return 0
     keys = [p.id for p in profiles]
     greedy = ModelSettings(temperature=0.0, max_tokens=MAX_TOKENS)
@@ -7690,8 +8229,12 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        llama70b = llama70b_child(torch, pathlib.Path(tmp))
+        llama70b = phase_child(torch, pathlib.Path(tmp), 34, LLAMA70B_CHILD_S)
     log(f"llama70b_path_s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint = phase_child(torch, pathlib.Path(tmp), 35, CHECKPOINT_CHILD_S)
+    log(f"checkpoint_path_s {time.perf_counter() - t0:.1f}")
     # K3 f32's main path is phase 32's sweeps; phase 13's calls at
     # llama3-8b's width become its gate launches and shapes
     i = next(i for i, e in enumerate(kernels) if e["name"] == "decode_attention_verify_f32")
@@ -7731,7 +8274,8 @@ def main(argv) -> int:
         for key, phase in (("serving", served), ("paged", paged), ("containment", contained),
                            ("overload", overload), ("fleet", fleet), ("devtel", devtel),
                            ("dp", dp), ("tp", tp), ("spec_sweep", spec),
-                           ("families", families), ("llama70b", llama70b)):
+                           ("families", families), ("llama70b", llama70b),
+                           ("checkpoint", checkpoint)):
             entry[f"{key}_launches"] = by_path(phase["launches"])
             if name in phase["rows"]:
                 entry[f"{key}_shapes"] = phase["rows"][name]

@@ -10,6 +10,12 @@ disciplines:
 - **Fall back** (results checkpoints): ``verify_manifest_entry`` returns
   False on a mismatch, and the resume loader skips to an older checkpoint.
 
+Files are hashed in parallel, one thread a file (sha256 is one stream a
+file, and ``hashlib`` releases the GIL), so a sharded checkpoint verifies
+in about the time of its largest shard. A producer that hashed a file as
+it wrote it passes the digest to ``write_manifest`` instead of reading the
+file back.
+
 A directory without a manifest verifies trivially, and so does a file the
 manifest does not list. Both paths count
 ``manifest_verifications_total{kind}`` / ``manifest_failures_total{kind}``,
@@ -23,7 +29,8 @@ import hashlib
 import json
 import logging
 import os
-from typing import Dict, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, TypeVar
 
 from fairness_llm_tpu_torch.runtime.safetensors_io import read_header
 from fairness_llm_tpu_torch.telemetry import emit_event, get_registry
@@ -34,6 +41,19 @@ logger = logging.getLogger(__name__)
 MANIFEST_FILENAME = "manifest.json"
 MANIFEST_VERSION = 1
 _HASH_CHUNK = 1 << 20
+# Files hashed at once (each a thread; the host's cores bound it too).
+_HASH_THREADS = 8
+
+_T = TypeVar("_T")
+
+
+def _in_parallel(fn: Callable[[str], _T], items: Sequence[str]) -> List[_T]:
+    """``[fn(x) for x in items]``, a thread an item up to ``_HASH_THREADS``."""
+    workers = min(len(items), _HASH_THREADS, os.cpu_count() or 1)
+    if workers <= 1:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(fn, items))
 
 
 class IntegrityError(RuntimeError):
@@ -67,9 +87,9 @@ def _safetensors_summary(path: str) -> Optional[Dict]:
     return {"num_tensors": len(tensors), "tensors": tensors}
 
 
-def _file_entry(root: str, rel: str) -> Dict:
+def _file_entry(root: str, rel: str, sha256: Optional[str] = None) -> Dict:
     path = os.path.join(root, rel)
-    entry: Dict = {"sha256": _sha256_file(path), "bytes": os.path.getsize(path)}
+    entry: Dict = {"sha256": sha256 or _sha256_file(path), "bytes": os.path.getsize(path)}
     if rel.endswith(".safetensors"):
         summary = _safetensors_summary(path)
         if summary is not None:
@@ -77,9 +97,12 @@ def _file_entry(root: str, rel: str) -> Dict:
     return entry
 
 
-def build_manifest(root: str, files: Optional[Sequence[str]] = None) -> Dict:
+def build_manifest(root: str, files: Optional[Sequence[str]] = None,
+                   digests: Optional[Mapping[str, str]] = None) -> Dict:
     """Manifest dict for ``files`` (relative paths; default: every regular
-    file under ``root``, recursively, except the manifest itself)."""
+    file under ``root``, recursively, except the manifest itself).
+    ``digests`` gives the sha256 of files already hashed (by the writer, as
+    it wrote them); the others are read and hashed here."""
     if files is None:
         files = []
         for dirpath, _dirnames, filenames in os.walk(root):
@@ -88,16 +111,20 @@ def build_manifest(root: str, files: Optional[Sequence[str]] = None) -> Dict:
                 if rel != MANIFEST_FILENAME:
                     files.append(rel)
         files.sort()
-    return {"version": MANIFEST_VERSION, "files": {rel: _file_entry(root, rel) for rel in files}}
+    digests = digests or {}
+    entries = _in_parallel(lambda rel: _file_entry(root, rel, digests.get(rel)), list(files))
+    return {"version": MANIFEST_VERSION, "files": dict(zip(files, entries))}
 
 
 def write_manifest(root: str, files: Optional[Sequence[str]] = None,
-                   path: Optional[str] = None) -> str:
+                   path: Optional[str] = None,
+                   digests: Optional[Mapping[str, str]] = None) -> str:
     """Build and atomically write a manifest for ``root``; returns its path
     (default ``root/manifest.json``; ``path`` puts it elsewhere, as the train
-    checkpointer keeps it outside its step directories)."""
+    checkpointer keeps it outside its step directories). ``digests`` as in
+    ``build_manifest``."""
     path = path or os.path.join(root, MANIFEST_FILENAME)
-    _write_json_atomic(build_manifest(root, files), path)
+    _write_json_atomic(build_manifest(root, files, digests), path)
     return path
 
 
@@ -149,14 +176,16 @@ def _check_entry(root: str, rel: str, entry: Dict) -> Optional[str]:
 def verify_manifest(root: str, manifest_path: Optional[str] = None,
                     kind: str = "artifact") -> None:
     """Verify every file the manifest lists; raise :class:`IntegrityError` on
-    the first mismatch."""
+    the first mismatch in the files' sorted order (all are checked first,
+    in parallel)."""
     manifest_path = manifest_path or os.path.join(root, MANIFEST_FILENAME)
     manifest = _load_manifest(manifest_path)
     get_registry().counter("manifest_verifications_total", kind=kind).inc()
     if manifest is None:
         _fail(kind, manifest_path, "manifest unreadable or malformed")
-    for rel in sorted(manifest["files"]):
-        problem = _check_entry(root, rel, manifest["files"][rel])
+    listed = sorted(manifest["files"])
+    problems = _in_parallel(lambda rel: _check_entry(root, rel, manifest["files"][rel]), listed)
+    for rel, problem in zip(listed, problems):
         if problem is not None:
             _fail(kind, os.path.join(root, rel), problem)
     logger.info("manifest OK (%s): %s (%d file(s) verified)", kind, root,

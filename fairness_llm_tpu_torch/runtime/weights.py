@@ -17,7 +17,9 @@ reading it with the port's own safetensors reader (``safetensors_io``):
 
 The state dict keeps the flax names joined by dots
 (``layer_0.attn.q_proj.kernel``) and the flax ``[in, out]`` kernel layout,
-so a flax tree maps onto it one to one. Under ``weight_quant == "int8"`` a
+so a flax tree maps onto it one to one. ``save_checkpoint_hf`` writes the
+inverse: a state dict as an HF-layout ``model.safetensors`` and its sha256
+``manifest.json``. Under ``weight_quant == "int8"`` a
 projection holds ``<base>.kernel_q`` (int8) and ``<base>.kernel_scale``
 (float32) instead of ``<base>.kernel``; both keep their dtype whatever the
 storage dtype of the float parameters.
@@ -37,7 +39,8 @@ from fairness_llm_tpu_torch.device import resolve_device
 from fairness_llm_tpu_torch.models.configs import ModelConfig
 from fairness_llm_tpu_torch.models.transformer import Transformer
 from fairness_llm_tpu_torch.ops.quant_matmul import dequantize_weight, quantize_weight
-from fairness_llm_tpu_torch.runtime.safetensors_io import INDEX_FILENAME, SafetensorsFile, read_header
+from fairness_llm_tpu_torch.runtime.safetensors_io import (INDEX_FILENAME, SafetensorsFile,
+                                                           read_header, save_file)
 
 logger = logging.getLogger(__name__)
 
@@ -384,6 +387,7 @@ def load_checkpoint(
             if base is not None:
                 params[f"{base}.kernel_q"], params[f"{base}.kernel_scale"] = quantize_weight(x)
                 logger.debug("loaded %s <- %s %s (int8)", base, hf_name, tuple(x.shape))
+                del x  # the float copy goes before the next tensor is read
                 continue
             params[ours] = x.to(dtype)
             logger.debug("loaded %s <- %s %s", ours, hf_name, tuple(x.shape))
@@ -391,3 +395,51 @@ def load_checkpoint(
         for f in files.values():
             f.close()
     return params
+
+
+# Embeddings are stored [rows, d_model] on both sides: never transposed.
+_EMBEDDINGS = ("embed_tokens.weight", "wte.weight", "wpe.weight")
+
+
+def save_checkpoint_hf(cfg: ModelConfig, params: Mapping[str, torch.Tensor], path: str,
+                       family: Optional[str] = None) -> None:
+    """Write ``params`` (a state dict on any device) under ``path`` as an
+    HF-layout ``model.safetensors`` plus its ``manifest.json``: the inverse
+    of ``load_checkpoint``'s mapping. gpt2's q/k/v parts are joined back
+    into ``c_attn`` and its Conv1D kernels written as they are; gemma's
+    norms are written as ``scale - 1``; every other 2-D tensor but the
+    embeddings is transposed to [out, in]; a tied head is absent. An int8
+    tree is written dequantized to float32 (``dequantize_params``, the whole
+    tree at once on its device), embeddings and norms in their own dtype.
+    The file is written a tensor at a time (``safetensors_io.save_file``),
+    and hashed for the manifest as it is written; the manifest also lists
+    any other file already under ``path``."""
+    from fairness_llm_tpu_torch.integrity.manifest import write_manifest
+
+    if cfg.weight_quant == "int8":
+        params = dequantize_params(params)
+    family = family or family_of(cfg)
+    out: Dict[str, torch.Tensor] = {}
+    fused: Dict[str, list] = {}
+    for ours, (hf_name, _tf) in hf_name_map(cfg, family).items():
+        x = params.get(ours)
+        if x is None:
+            continue
+        x = x.detach()
+        if family == "gpt2":
+            if ".c_attn." in hf_name:
+                part = ("q_proj", "k_proj", "v_proj").index(ours.split(".")[-2])
+                fused.setdefault(hf_name, [None, None, None])[part] = x
+                continue
+            out[hf_name] = x  # Conv1D: already [in, out]
+        elif family == "gemma" and hf_name.endswith("norm.weight"):
+            out[hf_name] = x - 1.0
+        elif x.dim() == 2 and not hf_name.endswith(_EMBEDDINGS):
+            out[hf_name] = x.t()  # a view: the writer copies it one tensor at a time
+        else:
+            out[hf_name] = x
+    for hf_name, parts in fused.items():
+        out[hf_name] = torch.cat(parts, dim=-1)
+    os.makedirs(path, exist_ok=True)
+    digest = save_file(out, os.path.join(path, "model.safetensors"))
+    write_manifest(path, digests={"model.safetensors": digest})

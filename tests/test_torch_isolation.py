@@ -281,3 +281,72 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+# ---------------------------------------------------------------------------
+# Parity of public names with the JAX package
+# ---------------------------------------------------------------------------
+
+JAX_PKG = ROOT / "fairness_llm_tpu"
+# Public names of the JAX package with no same-named function or class in
+# the port: JAX and XLA mechanisms, each with what the port does instead.
+JAX_ONLY = {
+    "init_params_lowmem": "weights.init_params draws the largest tensors first",
+    "quant_matmul_sharded": "tp runs through the port's own collectives (parallel/)",
+    "compat_shard_map": "tp runs through the port's own collectives (parallel/)",
+    "current_mesh": "tp runs through the port's own collectives (parallel/)",
+    "resolve_logical_axis": "tp runs through the port's own collectives (parallel/)",
+    "InstrumentedJit": "jaxpr cost accounting; costmodel.InstrumentedProgram walks aten ops",
+    "instrument_jit": "jaxpr cost accounting; costmodel.InstrumentedProgram walks aten ops",
+    "jaxpr_ledger": "jaxpr cost accounting; costmodel.InstrumentedProgram walks aten ops",
+    "classify_eqn": "jaxpr cost accounting; costmodel.classify_op classifies aten ops",
+    "capture_program_memory": "XLA AOT memory; telemetry/memory reads the CUDA allocator",
+    "set_aot_memory_capture": "XLA AOT memory; telemetry/memory reads the CUDA allocator",
+    "aot_memory_capture_on": "XLA AOT memory; telemetry/memory reads the CUDA allocator",
+    "tree_shard_bytes": "XLA AOT memory; memory.tree_device_bytes counts the tensors",
+    "flash_supported": "a Pallas gate; the CUDA wrappers check their own shapes",
+    "decode_attn_supported": "a Pallas gate; the CUDA wrappers check their own shapes",
+    "quant_tileable": "a Pallas gate; the CUDA wrappers check their own shapes",
+    "force_pallas": "a Pallas gate; the CUDA wrappers check their own shapes",
+    "base_program": "jit-program caching; the port's steps run eagerly",
+    "compile_key": "jit-program caching; the port's steps run eagerly",
+}
+
+
+def _public_names(pkg: pathlib.Path) -> set:
+    """Every public top-level ``def`` and ``class`` name of every module of
+    ``pkg``, read from the source."""
+    import ast
+
+    names = set()
+    for path in sorted(pkg.rglob("*.py")):
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) \
+                    and not node.name.startswith("_"):
+                names.add(node.name)
+    return names
+
+
+def _parity_gaps(jax_names: set, port_names: set, jax_only) -> list:
+    """The JAX package's public names that the port lacks and the list does
+    not excuse, and the listed names that are no longer JAX-only."""
+    missing = sorted(jax_names - port_names - set(jax_only))
+    stale = sorted(n for n in jax_only if n not in jax_names or n in port_names)
+    return missing + [f"{n} (listed, not JAX-only)" for n in stale]
+
+
+def test_every_public_jax_name_has_a_port_counterpart():
+    assert _parity_gaps(_public_names(JAX_PKG), _public_names(PKG), JAX_ONLY) == []
+
+
+@pytest.mark.parametrize("drop", ["save_checkpoint_hf", "load_checkpoint", "DecodeEngine"])
+def test_parity_guard_catches_a_name_missing_from_the_port(drop):
+    port = _public_names(PKG)
+    assert drop in port
+    assert _parity_gaps(_public_names(JAX_PKG), port - {drop}, JAX_ONLY) == [drop]
+
+
+@pytest.mark.parametrize("drop", ["init_params_lowmem", "jaxpr_ledger", "force_pallas"])
+def test_parity_guard_catches_a_name_missing_from_the_list(drop):
+    listed = {k: v for k, v in JAX_ONLY.items() if k != drop}
+    assert _parity_gaps(_public_names(JAX_PKG), _public_names(PKG), listed) == [drop]
